@@ -125,6 +125,10 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     @property
+    def v_head_dim_effective(self) -> int:
+        return self.head_dim if self.v_head_dim is None else self.v_head_dim
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
 

@@ -11,6 +11,14 @@ refused at construction rather than served wrong.
 Two attention regimes, as in the reference: prefill attends the fresh K/V
 block (``attend_prefill``), decode attends the cache (``attend_decode``);
 both write the new K/V into the cache in place first.
+
+The paged entry points serve the continuous batcher (runtime/batcher.py)
+over the block pool (ops/paged_kvcache.py): ``paged_prefill_tail`` (a
+wave of prompt tails, each attending its cached prefix),
+``paged_decode_step`` (one token per slot; the fused q-projection kernel
+behind ``DLI_FUSED_DECODE``, ops/fused_decode.py) and
+``paged_decode_chunk`` (K steps with sampling and the per-slot
+budget/eos lifecycle on the device, one host sync per chunk).
 """
 
 from __future__ import annotations
@@ -22,13 +30,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
+from distributed_llm_inferencing_tpu_torch.ops import fused_decode
 from distributed_llm_inferencing_tpu_torch.ops.attention import (
     attend_decode, attend_prefill)
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import (
     KVCache, block_slots, write_block)
 from distributed_llm_inferencing_tpu_torch.ops.norms import rms_norm
+from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
+    PagedKVCache, paged_attend_prefix, write_block_run, write_token)
+from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
+    paged_flash_decode)
 from distributed_llm_inferencing_tpu_torch.ops.rope import (
     apply_rope, rope_cos_sin)
+from distributed_llm_inferencing_tpu_torch.ops.sampling import sample_batch
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 # field -> the value the llama arm requires
@@ -95,7 +109,8 @@ class Embed(nn.Module):
 
 class Block(nn.Module):
     """Norm -> QKV (+RoPE) -> cache write + attend -> o -> norm -> MLP
-    (the reference's ``_block_body`` + ``_block_tail``, llama arm)."""
+    (the reference's ``_block_body`` + ``_block_tail``, llama arm). One
+    method per cache regime; each writes its K/V in place."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor]):
         super().__init__()
@@ -105,26 +120,78 @@ class Block(nn.Module):
         for n in ("q", "k", "v", "o", "gate", "up", "down"):
             setattr(self, n, Linear(p[f"{n}.w"]))
 
-    def forward(self, x, cache_k, cache_v, slots, cos_sin, new_lengths,
-                is_prefill: bool):
+    def _kv(self, h, cos_sin):
         cfg = self.cfg
-        B, s, _ = x.shape
-        h = self.attn_norm(x)
-        q = self.q(h).view(B, s, cfg.num_heads, cfg.head_dim)
+        B, s, _ = h.shape
         k = self.k(h).view(B, s, cfg.num_kv_heads, cfg.head_dim)
         v = self.v(h).view(B, s, cfg.num_kv_heads, cfg.head_dim)
-        q = apply_rope(q, None, cfg.rope_theta, cos_sin=cos_sin)
-        k = apply_rope(k, None, cfg.rope_theta, cos_sin=cos_sin)
+        return apply_rope(k, None, cfg.rope_theta, cos_sin=cos_sin), v
+
+    def _qkv(self, h, cos_sin):
+        cfg = self.cfg
+        B, s, _ = h.shape
+        q = self.q(h).view(B, s, cfg.num_heads, cfg.head_dim)
+        k, v = self._kv(h, cos_sin)
+        return apply_rope(q, None, cfg.rope_theta, cos_sin=cos_sin), k, v
+
+    def _tail(self, x, attn):
+        """o projection, residual, MLP (the reference's ``_block_tail``)."""
+        B, s = attn.shape[:2]
+        x = x + self.o(attn.reshape(B, s, self.cfg.q_dim))
+        h = self.mlp_norm(x)
+        return x + self.down(F.silu(self.gate(h)) * self.up(h))
+
+    def forward(self, x, cache_k, cache_v, slots, cos_sin, new_lengths,
+                is_prefill: bool):
+        q, k, v = self._qkv(self.attn_norm(x), cos_sin)
         write_block(cache_k, k, None, slots)
         write_block(cache_v, v, None, slots)
         if is_prefill:
-            attn = attend_prefill(q, k, v, sliding_window=cfg.sliding_window)
+            attn = attend_prefill(q, k, v,
+                                  sliding_window=self.cfg.sliding_window)
         else:
             attn = attend_decode(q, cache_k, cache_v, new_lengths,
-                                 sliding_window=cfg.sliding_window)
-        x = x + self.o(attn.reshape(B, s, cfg.num_heads * cfg.head_dim))
-        h = self.mlp_norm(x)
-        return x + self.down(F.silu(self.gate(h)) * self.up(h))
+                                 sliding_window=self.cfg.sliding_window)
+        return self._tail(x, attn)
+
+    def paged_prefill(self, x, ck, cv, cos_sin, tail_blocks, prefix_blocks,
+                      prefix_len, q_positions, tail_valid):
+        """A wave of prompt tails: write their K/V into ``tail_blocks``,
+        attend the cached prefix plus the tail (plain torch, as in the
+        reference)."""
+        q, k, v = self._qkv(self.attn_norm(x), cos_sin)
+        write_block_run(ck, k, tail_blocks)
+        write_block_run(cv, v, tail_blocks)
+        attn = paged_attend_prefix(q, k, v, ck, cv, prefix_blocks,
+                                   prefix_len, q_positions, tail_valid,
+                                   sliding_window=self.cfg.sliding_window)
+        return self._tail(x, attn)
+
+    def paged_decode(self, x, ck, cv, cos_sin, block_tables, context_lens,
+                     fused_rope=None):
+        """One token per slot at position ``context_lens``. With
+        ``fused_rope`` ((cos, sin) rows of ops/fused_decode.py) the q
+        projection, RoPE and attention run in the fused kernel, which
+        reads this token's K/V back from the pool (the reference's
+        ``fused_q_attend``); otherwise the paged kernel attends q."""
+        h = self.attn_norm(x)
+        if fused_rope is not None:
+            k, v = self._kv(h, cos_sin)
+        else:
+            q, k, v = self._qkv(h, cos_sin)
+        write_token(ck, k[:, 0], block_tables, context_lens)
+        write_token(cv, v[:, 0], block_tables, context_lens)
+        new_lens = context_lens + 1
+        window = self.cfg.sliding_window
+        if fused_rope is not None:
+            attn = fused_decode.fused_decode_step(
+                h[:, 0], {"w": self.q.w}, ck, cv, block_tables, new_lens,
+                rope_cos=fused_rope[0], rope_sin=fused_rope[1],
+                sliding_window=window)[:, None]
+        else:
+            attn = paged_flash_decode(q, ck, cv, block_tables, new_lens,
+                                      sliding_window=window)
+        return self._tail(x, attn)
 
 
 class Transformer(nn.Module):
@@ -148,6 +215,11 @@ class Transformer(nn.Module):
         """Final norm + logits head, f32."""
         return self.lm_head(self.final_norm(x)).float()
 
+    def _cos_sin(self, positions):
+        cfg = self.cfg
+        return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_inv_freq, cfg.rope_attn_factor)
+
     def forward(self, tokens, cache: KVCache, write_starts, q_positions,
                 new_lengths, is_prefill: bool = False, gather=None):
         """Run the model over a block of tokens [B, s], updating the cache
@@ -161,8 +233,7 @@ class Transformer(nn.Module):
         cfg = self.cfg
         B, s = tokens.shape
         x = self.embed(tokens)
-        cos_sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta,
-                               cfg.rope_inv_freq, cfg.rope_attn_factor)
+        cos_sin = self._cos_sin(q_positions)
         slots = block_slots(write_starts, s, cache.max_seq)
         for i, layer in enumerate(self.layers):
             x = layer(x, cache.k[i], cache.v[i], slots, cos_sin,
@@ -187,3 +258,86 @@ class Transformer(nn.Module):
         own length; lengths advance by one."""
         return self.forward(tokens, cache, cache.lengths,
                             cache.lengths[:, None], cache.lengths + 1)
+
+    # ------------------------------------------------------------------
+    # Paged cache (continuous-batching serving path)
+    # ------------------------------------------------------------------
+
+    def paged_prefill_tail(self, tokens, tail_len, tail_blocks,
+                           prefix_blocks, prefix_len, paged: PagedKVCache):
+        """Prefill a wave of prompt tails into paged blocks, each row
+        attending its own cached prefix (never recomputed).
+
+        tokens [B,T] right-padded tails (T a multiple of block_size);
+        tail_len [B] real tail tokens (>= 1; padding rows use 1);
+        tail_blocks [B, T // bs] int32 (padding rows all-dummy);
+        prefix_blocks [B,PB] (dummy-padded); prefix_len [B]. Writes the
+        pool in place. Returns (last-token logits [B,V] f32, paged)."""
+        b, t = tokens.shape
+        ar = torch.arange(t, device=tokens.device)
+        q_pos = prefix_len.long()[:, None] + ar
+        tail_valid = ar[None, :] < tail_len.long()[:, None]
+        x = self.embed(tokens)
+        cos_sin = self._cos_sin(q_pos)
+        for i, layer in enumerate(self.layers):
+            x = layer.paged_prefill(x, paged.k[i], paged.v[i], cos_sin,
+                                    tail_blocks, prefix_blocks, prefix_len,
+                                    q_pos, tail_valid)
+        last = (tail_len.long() - 1).clamp(min=0)
+        x = x[torch.arange(b, device=x.device), last][:, None]
+        return self.unembed(x)[:, 0], paged
+
+    def paged_decode_step(self, tokens, paged: PagedKVCache, block_tables,
+                          context_lens):
+        """One decode step for R slots. tokens [R] next token per slot;
+        block_tables [R,MB] int32; context_lens [R] int32 — cached tokens
+        BEFORE this step (the new token writes there). Inactive slots
+        point at the reserved dummy block with context_len 0; their
+        outputs are discarded. Writes the pool in place. Returns
+        (logits [R,V] f32, paged)."""
+        cfg = self.cfg
+        x = self.embed(tokens[:, None])
+        cos_sin = self._cos_sin(context_lens.long()[:, None])
+        fused_rope = (fused_decode.rope_rows(cos_sin)
+                      if fused_decode.eligible(cfg, paged.quantized)
+                      else None)
+        for i, layer in enumerate(self.layers):
+            x = layer.paged_decode(x, paged.k[i], paged.v[i], cos_sin,
+                                   block_tables, context_lens, fused_rope)
+        return self.unembed(x)[:, 0], paged
+
+    def paged_decode_chunk(self, k: int, tokens, paged: PagedKVCache,
+                           block_tables, context_lens, seeds, steps0, temps,
+                           tks, tps, ds, budget, eos_ids, dummy_block: int):
+        """K decode steps with sampling on the device for R slots — the
+        reference's stepwise formulation (``_paged_decode_chunk_stepwise``):
+        every step writes the pool and runs the paged (or fused) kernel.
+
+        Per-slot lifecycle as device tensors: ``budget[r]`` tokens slot r
+        may still emit (0 = inactive); ``eos_ids[r]`` its eos (-1 = none;
+        eos is not emitted). A slot is alive until its budget is spent or
+        it samples eos; dead slots keep running with their writes
+        redirected to ``dummy_block`` and context length 0. Sampling keys
+        on ``steps0 + t`` per slot, so tokens do not depend on the chunk
+        size. No host sync: the caller syncs once on the outputs.
+
+        Returns (toks [K,R], emits [K,R] bool, paged); slot r emitted
+        ``toks[:emits[:, r].sum(), r]``."""
+        alive = budget > 0
+        cur, cl = tokens, context_lens
+        dummy = torch.full_like(block_tables, dummy_block)
+        toks, emits = [], []
+        for t in range(k):
+            bt_eff = torch.where(alive[:, None], block_tables, dummy)
+            cl_eff = torch.where(alive, cl, torch.zeros_like(cl))
+            logits, paged = self.paged_decode_step(cur, paged, bt_eff,
+                                                   cl_eff)
+            nxt = sample_batch(logits, seeds, steps0 + t, temps, tks, tps,
+                               ds)
+            emit = alive & ~((eos_ids >= 0) & (nxt == eos_ids))
+            cl = cl + alive.to(cl.dtype)
+            alive = emit & (t + 1 < budget)
+            cur = nxt
+            toks.append(nxt)
+            emits.append(emit)
+        return torch.stack(toks), torch.stack(emits), paged

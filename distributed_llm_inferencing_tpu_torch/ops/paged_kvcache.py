@@ -1,0 +1,136 @@
+"""Paged KV cache: a pool of fixed-size blocks per layer, updated in place.
+
+Counterpart of the JAX package's ``ops/paged_kvcache.py``:
+
+- ``k``/``v``: [L, NB, bs, Hkv, hd] — NB blocks of bs positions per layer.
+  Which blocks a sequence owns is host-side state (runtime/block_pool.py,
+  with ref-counted radix prefix sharing).
+- ``block_tables``: [R, MB] int32 — per serving slot, the block ids
+  covering its sequence in order; ``context_lens`` [R] int32 — tokens
+  cached per slot. Position p of a slot lives in
+  ``block_tables[r, p // bs]`` at offset ``p % bs``.
+
+Writes are in place (``index_put_`` into the pool): the JAX package
+donates the pool to each jitted program so XLA updates it where it lies;
+writing into the same tensors keeps one pool, never a copy per step. (On
+the TPU a dynamic scatter cost enough that the JAX decode chunk batches
+its writes through a side buffer; on the card an in-place write is a
+small kernel, so the port writes every step.)
+
+``paged_attend_decode`` is the decode regime: on a CUDA tensor it runs
+the paged kernel (ops/paged_attention.py), on a CPU tensor its plain
+version. ``paged_attend_prefix`` (a prompt tail attending its cached
+prefix plus itself) is plain torch on every device, as in the JAX
+package, which computes it outside any Pallas kernel. The int8 pool
+(``kv_quant``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
+from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
+    masked_attention)
+from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
+    paged_flash_decode)
+from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    k: torch.Tensor   # [L, NB, bs, Hkv, hd]
+    v: torch.Tensor   # [L, NB, bs, Hkv, hd]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return False
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     dtype=None, device=None) -> PagedKVCache:
+    if cfg.kv_quant is not None:
+        raise NotImplementedError("int8 paged KV (k_scale/v_scale) is not "
+                                  "ported yet")
+    dtype = torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    # zeroed, as the reference: the plain attention multiplies unread
+    # slots by probability 0, which must not meet uninitialised NaNs
+    return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                        v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def write_token(cache_layer, new, block_tables, positions):
+    """Write one new token per slot into a layer's pool, in place.
+
+    cache_layer [NB,bs,Hkv,hd]; new [R,Hkv,hd]; block_tables [R,MB];
+    positions [R] — the position being written. Returns cache_layer."""
+    bs = cache_layer.shape[1]
+    pos = positions.long()
+    blk = torch.gather(block_tables.long(), 1, (pos // bs)[:, None])[:, 0]
+    cache_layer[blk, pos % bs] = new.to(cache_layer.dtype)
+    return cache_layer
+
+
+def write_block_run(cache_layer, new_blocks, block_ids):
+    """Write runs of whole blocks (prefilled tails) into the pool, in place.
+
+    cache_layer [NB,bs,Hkv,hd]; new_blocks [B,T,Hkv,hd] with T a multiple
+    of bs; block_ids [B, T // bs]. Duplicate ids occur only on the
+    reserved dummy block (padding rows), whose contents are never read.
+    Returns cache_layer."""
+    bs = cache_layer.shape[1]
+    b, t = new_blocks.shape[:2]
+    cache_layer[block_ids.reshape(-1).long()] = new_blocks.reshape(
+        b * (t // bs), bs, *new_blocks.shape[2:]).to(cache_layer.dtype)
+    return cache_layer
+
+
+def gather_seq(cache_layer, block_tables):
+    """[NB,bs,Hkv,hd] + [R,MB] -> contiguous [R, MB*bs, Hkv, hd]."""
+    r, mb = block_tables.shape
+    g = cache_layer[block_tables.long()]               # [R,MB,bs,Hkv,hd]
+    return g.reshape(r, mb * cache_layer.shape[1], *cache_layer.shape[2:])
+
+
+# The decode regime (single-token attention over the pool, q [R,1,H,hd],
+# context_lens counting the token just written) under the reference's
+# name: the paged kernel on CUDA, its plain version on the CPU.
+paged_attend_decode = paged_flash_decode
+
+
+def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
+                        prefix_blocks, prefix_len, q_positions, tail_valid,
+                        sliding_window: Optional[int] = None):
+    """Tail-prefill attention: fresh tail K/V plus a cached prefix, whose
+    K/V is gathered from the shared blocks — a prefix-cache hit saves the
+    prefix's compute, not just its memory.
+
+    q, k_new, v_new [B,T,...] fresh tail projections; prefix_blocks [B,PB]
+    (dummy-padded); prefix_len [B] real cached tokens; q_positions [B,T]
+    absolute positions (prefix_len + i); tail_valid [B,T] rows holding
+    real tokens."""
+    b = q.shape[0]
+    kp = gather_seq(cache_k_layer, prefix_blocks)     # [B, PB*bs, Hkv, hd]
+    vp = gather_seq(cache_v_layer, prefix_blocks)
+    p = kp.shape[1]
+    prefix_pos = torch.arange(p, device=q.device).expand(b, p)
+    prefix_valid = prefix_pos < prefix_len.long()[:, None]
+    k_all = torch.cat([kp, k_new.to(kp.dtype)], dim=1)
+    v_all = torch.cat([vp, v_new.to(vp.dtype)], dim=1)
+    kv_pos = torch.cat([prefix_pos, q_positions.long()], dim=1)
+    kv_valid = torch.cat([prefix_valid, tail_valid], dim=1)
+    return masked_attention(q, k_all, v_all, q_positions.long(), kv_pos,
+                            kv_valid, sliding_window)

@@ -14,6 +14,16 @@ sampled request reproduces itself within this port but not the JAX
 package's tokens. Greedy decoding is identical on both sides; the tests
 hold sampled tokens to the support of the reference's ``warp_logits``
 (temperature -> top-k -> top-p; -inf outside what may be drawn).
+
+``sample_batch`` is the continuous batcher's sampler: per-row parameters
+as tensors, and per-row draws from a counter-based generator keyed on the
+row's ``(seed, step)`` alone (``_uniform``: an integer hash in plain torch
+ops, no shared ``torch.Generator``). A request's tokens are therefore a
+pure function of (params, prompt, seed), whatever its chunk-mates and
+however admission and preemption interleave — the property the JAX
+batcher gets from ``fold_in(PRNGKey(seed), step)``. The bits differ from
+``jax.random``'s, so sampled tokens are held to the reference's support,
+not to its tokens; greedy rows are ``argmax``, bitwise.
 """
 
 from __future__ import annotations
@@ -80,3 +90,86 @@ def sample(logits, generator: Optional[torch.Generator],
         else:
             out = _draw(torch.softmax(flat, dim=-1), generator)[:, 0]
     return out.reshape(lead)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and c < 2^32, without
+    overflowing int64: the high half's product only matters mod 2^16."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _hash32(x):
+    """A 32-bit integer finaliser (lowbias32): every input bit moves
+    every output bit. int64 tensor in [0, 2^32) -> same range."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _uniform(seeds, steps, n: int):
+    """[R, n] f32 uniforms in (0, 1): entry (r, j) is a pure function of
+    (seeds[r], steps[r], j) — a counter-based stream per row."""
+    key = _hash32(_hash32(seeds.long() & _M32) ^ (steps.long() & _M32))
+    j = torch.arange(n, dtype=torch.int64, device=seeds.device)
+    h = _hash32(_hash32((key[:, None] + j * 0x9E3779B9) & _M32))
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def _gumbel_argmax(masked, seeds, steps):
+    """One categorical draw per row from softmax(masked) (-inf entries
+    are never drawn): argmax(masked + Gumbel noise)."""
+    u = _uniform(seeds, steps, masked.shape[-1])
+    return torch.argmax(masked - torch.log(-torch.log(u)), dim=-1)
+
+
+def nucleus_mask_sorted(sorted_vals, width, top_ps):
+    """Mask sorted-descending logits to top-k and top-p (HF warper order:
+    the token crossing the p threshold is kept).
+
+    sorted_vals [..., KS] descending; width [..., 1] int (top-k cut,
+    already clamped to KS); top_ps [..., 1] f32. Returns (masked [..., KS]
+    with -inf outside the sampling support, thresh [..., 1] = smallest
+    kept logit)."""
+    ks = sorted_vals.shape[-1]
+    ar = torch.arange(ks, device=sorted_vals.device)
+    m = sorted_vals.masked_fill(~(ar < width), float("-inf"))
+    probs = torch.softmax(m, dim=-1)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < top_ps
+    num_keep = keep.sum(dim=-1, keepdim=True).clamp(min=1)
+    thresh = torch.gather(m, -1, num_keep - 1)
+    return m.masked_fill(m < thresh, float("-inf")), thresh
+
+
+def sample_batch(logits, seeds, steps, temps, top_ks, top_ps, do_sample):
+    """Per-row sampling for the continuous batcher.
+
+    logits [R, V]; seeds/steps [R] int — each row draws from its own
+    stream keyed on (seed, step); temps/top_ps [R] f32; top_ks [R] int (0
+    disables); do_sample [R] bool (False -> greedy argmax). Returns [R]
+    int64 on the logits' device, with no host sync.
+
+    One draw over the full, sorted vocabulary: the top-k cut (the k-th
+    largest logit) and the nucleus threshold mask the scaled logits, and
+    a Gumbel-max draw picks among what is left. The JAX package adds a
+    top-PREFIX_K tier so that ``lax.cond`` can skip the sort when every
+    row is covered; here the sort runs every step, so one tier gives the
+    same support for every k.
+    """
+    logits = logits.float()
+    v = logits.shape[-1]
+    scaled = logits / temps.float().clamp(min=1e-6)[:, None]
+    k = torch.where(top_ks <= 0, v, top_ks.clamp(1, v)).long()
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    kth = torch.gather(sorted_desc, -1, (k - 1)[:, None])
+    _, thresh = nucleus_mask_sorted(sorted_desc, k[:, None],
+                                    top_ps.float()[:, None])
+    masked = scaled.masked_fill((scaled < kth) | (scaled < thresh),
+                                float("-inf"))
+    sampled = _gumbel_argmax(masked, seeds, steps)
+    return torch.where(do_sample, sampled, torch.argmax(logits, dim=-1))

@@ -1,0 +1,133 @@
+"""Where a batched decode step spends its time on the GPU.
+
+    python -m distributed_llm_inferencing_tpu_torch.profile_batched \
+        [--model llama-3-8b] [--slots 8] [--new 32] [--reps 2]
+
+Builds a ``ContinuousBatcher`` on the card (random bf16 weights, 1024
+blocks of 16, max_seq 4096) and drives it synchronously: all requests
+are queued, one admission wave fills every slot, and one ``step()`` then
+decodes all of them together in one chunk. For each decode route (``paged``: ``paged_flash_decode``;
+``fused``: ``fused_decode_step`` with ``DLI_FUSED_DECODE=1``) it runs one
+warm-up round, ``--reps`` timed rounds (admission wave ms, decode chunk
+ms per weight pass, decode tokens per weight pass), and one round with
+the decode chunk under ``torch.profiler``: device time by kernel and the
+device's busy share of the chunk's wall time (one stream, so kernels
+never overlap).
+Prints one JSON object. Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import subprocess
+import time
+
+from distributed_llm_inferencing_tpu_torch.profile_engine import _device_us
+
+PROMPT_LENS = (60, 130, 250, 500, 300, 400, 700, 1000)
+
+
+def _round(b, prompts, new, sp, prof=None):
+    """Queue every prompt, admit them in one wave, then decode them in one
+    chunk (under ``prof`` when given, a torch.profiler context)."""
+    import contextlib
+
+    import torch
+    reqs = [b.submit(p, max_new_tokens=new, sampling=sp, seed=i)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        b._admit_wave()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with prof or contextlib.nullcontext():
+        b.step()                      # one decode chunk for every slot
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    assert all(r.done.is_set() for r in reqs), "one chunk must finish them"
+    passes = max(r.cost["weight_passes"] for r in reqs)
+    chunk_ms = (t2 - t1) * 1e3
+    return {"admit_wave_ms": (t1 - t0) * 1e3, "decode_chunk_ms": chunk_ms,
+            "weight_passes": passes,
+            "ms_per_weight_pass": chunk_ms / passes,
+            "decode_tokens_per_weight_pass":
+                sum(len(r.tokens) - 1 for r in reqs) / passes}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="llama-3-8b")
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--new", type=int, default=32)
+    ap.add_argument("--reps", type=int, default=2)
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        ContinuousBatcher)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cfg = get_config(args.model)
+    prompts = [[(i * 7919 + j * 104729) % 30000 + 3 for j in range(n)]
+               for i, n in enumerate(PROMPT_LENS[:args.slots])]
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
+    out = {"smi": smi, "model": args.model, "slots": args.slots,
+           "prompt_tokens": list(PROMPT_LENS[:args.slots]),
+           "new_tokens": args.new, "routes": {}}
+    for route in ("paged", "fused"):
+        os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
+        # chunked prefill off: the whole wave admits in one step
+        b = ContinuousBatcher(cfg, num_blocks=1024, block_size=16,
+                              slots=args.slots, max_seq=4096,
+                              prefill_chunk=None, device="cuda")
+        _round(b, prompts, args.new, sp)                      # warm-up
+        reps = [_round(b, prompts, args.new, sp) for _ in range(args.reps)]
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof_round = _round(b, prompts, args.new, sp, prof)
+        kernels = {}
+        for evt in prof.key_averages():
+            us = _device_us(evt)
+            if us > 0 and evt.key and not evt.key.startswith("aten::"):
+                kernels[evt.key] = {"device_ms": us / 1e3,
+                                    "calls": evt.count}
+        device_ms = sum(k["device_ms"] for k in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])
+        attn = [v for k, v in kernels.items()
+                if "paged_decode_kernel" in k or "fused_decode_kernel" in k]
+        n = sum(v["calls"] for v in attn)
+        ms = sum(v["device_ms"] for v in attn)
+        out["routes"][route] = {
+            "timed_rounds": reps,
+            "profiled_round": {
+                **prof_round, "device_kernel_ms": device_ms,
+                "device_busy_share":
+                    device_ms / prof_round["decode_chunk_ms"],
+                "attention_kernel": {"calls": n, "device_ms": ms,
+                                     "us_per_launch":
+                                         1e3 * ms / n if n else None},
+                "top_kernels": [{"name": k[:90], **v}
+                                for k, v in top[:12]]},
+        }
+        b.stop()
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    os.environ.pop("DLI_FUSED_DECODE", None)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,806 @@
+"""Continuous batching over the paged KV cache: the scheduler core.
+
+Counterpart of the JAX package's ``runtime/batcher.py``. A fixed pool of
+decode *slots* advances every active request together, admitting queued
+requests into freed slots mid-flight, so short and long generations share
+the card without head-of-line blocking.
+
+- **Chunked decode**: each step runs up to K decode iterations with
+  sampling and the per-slot budget/eos lifecycle on the device
+  (``Transformer.paged_decode_chunk``); the host syncs once per chunk.
+  Growth blocks for the whole chunk are allocated before it runs.
+- **Wave admission**: queued requests are admitted in waves, one batched
+  tail prefill (``Transformer.paged_prefill_tail``) with first-token
+  sampling per (tail bucket, prefix bucket) group.
+- **Prefix reuse**: the block pool's radix tree (runtime/block_pool.py)
+  lets a request whose prompt shares whole blocks with an earlier one
+  reuse that KV; admission prefills only the tail. Prompts whose uncached
+  tail exceeds ``prefill_chunk`` blocks admit one chunk per step.
+- **Preemption**: under memory pressure the youngest slot goes back to
+  the queue; its blocks stay warm in the radix tree.
+
+Sampling parameters ride as per-row tensors and each row draws from its
+own (seed, step) stream (ops/sampling.py ``sample_batch``), so a request's
+tokens are a pure function of (params, prompt, seed).
+
+PyTorch runs eagerly, so the JAX package's compiled-program caches
+(``_admit_jit``/``_decode_jit``) become direct calls. Not ported yet (in
+ROADMAP order): overlapped dispatch, speculation, the host KV tier and
+peer transfer, migration, LoRA, the multi-host ``program_hook``,
+pipeline parallelism and the phase profiler.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
+from distributed_llm_inferencing_tpu_torch.models.params import init_params
+from distributed_llm_inferencing_tpu_torch.models.transformer import (
+    Transformer)
+from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
+    init_paged_cache)
+from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+    SamplingParams, sample_batch)
+from distributed_llm_inferencing_tpu_torch.runtime.block_pool import (
+    BlockPool)
+from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+    InferenceEngine)
+from distributed_llm_inferencing_tpu_torch.utils.device import resolve_device
+from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
+
+TAIL_BUCKETS_X_BS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)  # x block_size
+PREFIX_BUCKETS = (0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512)  # blocks
+
+
+@dataclasses.dataclass
+class BatchRequest:
+    """One queued or active generation: the handle the caller waits on."""
+    prompt: List[int]
+    max_new_tokens: int
+    sampling: SamplingParams
+    eos_token_id: Optional[int] = None
+    seed: int = 0    # output is a pure fn of (params, prompt, seed)
+    # results
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    error: Optional[str] = None
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+    # timing (host clock, seconds)
+    submitted_at: float = dataclasses.field(default_factory=time.perf_counter)
+    admitted_at: Optional[float] = None   # first admission wave dispatched
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    cost: Optional[dict] = None           # set once, at the terminal point
+    # scheduling state
+    _blocks: List[int] = dataclasses.field(default_factory=list)
+    _preemptions: int = 0
+    _cancelled: bool = False
+    # chunked prefill: high-water of cached+chunk across passes, and how
+    # many passes failed to advance it (bounded: two pool-sized prompts
+    # could otherwise re-prefill each other's evictions forever)
+    _chunk_high: int = 0
+    _chunk_stalls: int = 0
+    # prompt extent already counted as cached/uncached: a resumed chunk
+    # pass or a re-admission re-matches the request's own blocks, which
+    # is not a cache win
+    _prefill_counted: int = 0
+    # a no-free-slot pop found this request non-partial: skip re-popping
+    # it until a slot frees
+    _noslot_bounce: bool = False
+    # cost ledger
+    _cost_cached: int = 0
+    _cost_uncached: int = 0
+    _weight_passes: int = 0
+
+    def wait(self, timeout: Optional[float] = None) -> List[int]:
+        if not self.done.wait(timeout):
+            raise TimeoutError("generation still running")
+        if self.error:
+            raise RuntimeError(self.error)
+        return self.tokens
+
+    def cancel(self):
+        """Ask the scheduler to drop this request (frees its slot and
+        blocks at the next chunk boundary; tokens so far are kept)."""
+        self._cancelled = True
+
+    @property
+    def ttft_ms(self) -> Optional[float]:
+        if self.first_token_at is None:
+            return None
+        return (self.first_token_at - self.submitted_at) * 1e3
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching scheduler on one device.
+
+    Drive it with the owned background thread (``start()``/``stop()``) or
+    synchronously through ``step()`` (tests, custom loops).
+    """
+
+    # Decode-chunk sizes (tokens per dispatched chunk), tried in order:
+    # the engine's schedule. Each step picks the largest chunk some active
+    # slot can fill; budget/eos masks handle slots that finish mid-chunk.
+    DECODE_CHUNKS = InferenceEngine.DECODE_CHUNKS
+    # Rounding the chunk up past the largest remaining budget costs dead
+    # steps for finished slots but saves a host round trip; allowed while
+    # the overshoot stays this small.
+    CHUNK_OVERSHOOT_MAX = 8
+
+    def __init__(self, cfg: ModelConfig, params=None, *,
+                 num_blocks: int = 512, block_size: int = 16,
+                 slots: int = 8, max_seq: Optional[int] = None,
+                 seed: int = 0, prefill_chunk: Optional[int] = 32,
+                 decode_chunk_cap: Optional[int] = None, device=None,
+                 metrics: Optional[Metrics] = None):
+        self.metrics = metrics or Metrics()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.block_size = block_size
+        self.slots = slots
+        self.max_seq = min(max_seq or cfg.max_position_embeddings,
+                           cfg.max_position_embeddings)
+        self.max_blocks = -(-self.max_seq // block_size)
+        # Chunked prefill: prompts whose uncached tail exceeds this many
+        # blocks admit one chunk per step (KV lands in the radix cache,
+        # the request requeues, the next match resumes there). Snapped to
+        # a tail bucket. None/0 disables.
+        if prefill_chunk:
+            self.prefill_chunk = next(
+                (m for m in TAIL_BUCKETS_X_BS if m >= prefill_chunk),
+                TAIL_BUCKETS_X_BS[-1])
+        else:
+            self.prefill_chunk = None
+        self._chunked_admissions = 0
+        self._decode_chunk_cap = (int(decode_chunk_cap)
+                                  if decode_chunk_cap else None)
+        self.metrics.gauge("decode_tokens_per_weight_pass", 0.0)
+        self.metrics.gauge("batcher_queue_depth", 0.0)
+
+        dev = self.device
+        if params is None:
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        else:
+            params = {k: t.to(dev) for k, t in params.items()}
+        self.params = params
+        self.model = Transformer(cfg, params)
+
+        # +1: block 0 is the reserved dummy every inactive table entry
+        # points at, so it never carries real KV
+        self.pool = BlockPool(num_blocks + 1, block_size)
+        [self._dummy] = self.pool.alloc(1)
+        self.metrics.gauge("batcher_free_kv_blocks", self.pool.free_count())
+        self.paged = init_paged_cache(cfg, num_blocks + 1, block_size,
+                                      device=dev)
+        self.block_tables = np.full((slots, self.max_blocks), self._dummy,
+                                    np.int32)
+        self.context_lens = np.zeros((slots,), np.int32)
+        self.active: List[Optional[BatchRequest]] = [None] * slots
+        self._admit_order: collections.deque = collections.deque()
+
+        self.queue: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        self._work = threading.Event()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._step_count = 0
+        self._tokens_out = 0
+        self._chunk_sizes: set = set()
+
+    @property
+    def decode_chunks(self):
+        """DECODE_CHUNKS filtered by ``decode_chunk_cap`` (a live view:
+        tests override DECODE_CHUNKS per instance)."""
+        if self._decode_chunk_cap is None:
+            return self.DECODE_CHUNKS
+        return tuple(c for c in self.DECODE_CHUNKS
+                     if c <= self._decode_chunk_cap) \
+            or (min(self.DECODE_CHUNKS),)
+
+    # ---- public API ---------------------------------------------------
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 100,
+               sampling: Optional[SamplingParams] = None,
+               eos_token_id: Optional[int] = None,
+               seed: Optional[int] = None) -> BatchRequest:
+        if not prompt:
+            raise ValueError("empty prompt")
+        if int(max_new_tokens) < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if seed is None:
+            seed = time.time_ns() % (1 << 31)
+        req = BatchRequest(prompt=[int(t) for t in prompt],
+                           max_new_tokens=int(max_new_tokens),
+                           sampling=sampling or SamplingParams(),
+                           eos_token_id=eos_token_id, seed=int(seed))
+        if len(req.prompt) + req.max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"prompt ({len(req.prompt)}) + max_new_tokens "
+                f"({req.max_new_tokens}) exceeds max_seq {self.max_seq}")
+        with self._lock:
+            self.queue.append(req)
+            depth = len(self.queue)
+        self.metrics.inc("batcher_requests_submitted")
+        self.metrics.gauge("batcher_queue_depth", depth)
+        self._work.set()
+        return req
+
+    def start(self):
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="batcher")
+            self._thread.start()
+
+    def stop(self):
+        """Stop the loop and fail every in-flight or queued request, so no
+        client waits out its timeout on an unloading worker."""
+        self._stop.set()
+        self._work.set()
+        if self._thread:
+            self._thread.join(timeout=30)
+            self._thread = None
+        for slot in range(self.slots):
+            req = self.active[slot]
+            if req is not None:
+                req.error = req.error or "scheduler stopped"
+                self._finish_slot(slot)
+        with self._lock:
+            drained = list(self.queue)
+            self.queue.clear()
+        for req in drained:
+            self._fail_req(req, "scheduler stopped")
+
+    def stats(self) -> dict:
+        return {
+            "slots": self.slots,
+            "device": str(self.device),
+            "active": sum(a is not None for a in self.active),
+            "queued": len(self.queue),
+            "steps": self._step_count,
+            "tokens_out": self._tokens_out,
+            "block_size": self.block_size,
+            "blocks_free": self.pool.free_count(),
+            "max_seq": self.max_seq,
+            "chunk_sizes": sorted(self._chunk_sizes),
+            "chunked_admissions": self._chunked_admissions,
+            "prefill_chunk": self.prefill_chunk,
+            "pool": self.pool.stats(),
+        }
+
+    # ---- device programs ----------------------------------------------
+
+    def _tensor(self, a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _run_admit(self, a: dict) -> List[int]:
+        """One admission wave: batched tail prefill + first-token
+        sampling. Returns first tokens [B] (one host sync)."""
+        t = self._tensor
+        last, self.paged = self.model.paged_prefill_tail(
+            t(a["toks"], torch.int64), t(a["tail_len"]), t(a["tail_alloc"]),
+            t(a["pfb"]), t(a["cached"]), self.paged)
+        first = sample_batch(last, t(a["seeds"]), t(a["steps"]),
+                             t(a["temps"], torch.float32), t(a["tks"]),
+                             t(a["tps"], torch.float32),
+                             t(a["ds"], torch.bool))
+        return first.tolist()
+
+    def _run_decode(self, a: dict):
+        """One K-token decode chunk. Returns (toks [K,R], emits [K,R]) as
+        host arrays (one host sync)."""
+        t = self._tensor
+        toks, emits, self.paged = self.model.paged_decode_chunk(
+            int(a["k"]), t(a["tokens"], torch.int64), self.paged, t(a["bt"]),
+            t(a["cl"]), t(a["seeds"]), t(a["steps"]),
+            t(a["temps"], torch.float32), t(a["tks"]),
+            t(a["tps"], torch.float32), t(a["ds"], torch.bool),
+            t(a["budget"]), t(a["eos"]), self._dummy)
+        both = torch.stack([toks, emits.to(toks.dtype)]).cpu().numpy()
+        return both[0], both[1].astype(bool)
+
+    # ---- scheduling ---------------------------------------------------
+
+    def _bucket_tail(self, n: int) -> int:
+        for m in TAIL_BUCKETS_X_BS:
+            if n <= m * self.block_size:
+                return min(m * self.block_size,
+                           self.max_blocks * self.block_size)
+        raise ValueError(f"tail of {n} tokens exceeds buckets")
+
+    def _bucket_prefix(self, nb: int) -> int:
+        for m in PREFIX_BUCKETS:
+            if nb <= m:
+                return min(m, self.max_blocks) if m else 0
+        raise ValueError(f"prefix of {nb} blocks exceeds buckets")
+
+    @staticmethod
+    def _bucket_wave(n: int) -> int:
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def _shared_wave_blocks(self, wave: List[dict], prompt: List[int]) -> int:
+        """Longest common full-block prefix (in blocks) between `prompt`
+        and any prompt already in the admission wave."""
+        best = 0
+        for m in wave:
+            n = 0
+            for a, b in zip(m["prompt"], prompt):
+                if a != b:
+                    break
+                n += 1
+            best = max(best, n // self.block_size)
+        return best
+
+    def _prep_admit(self, req: BatchRequest) -> Optional[dict]:
+        """Host-side admission prep: radix prefix match + block allocation.
+        None if blocks are unavailable (the caller preempts or requeues).
+        A preempted request's generated tokens are part of the prefill:
+        generation resumes where it left off, nothing is re-emitted."""
+        bs = self.block_size
+        prompt = req.prompt + req.tokens
+        n = len(prompt)
+        # leave >= 1 token for the tail: prefill must produce the last
+        # token's logits
+        prefix_blocks, cached = self.pool.match_prefix(prompt[:n - 1])
+        tail_alloc = []
+        partial = False
+        try:
+            tail_len = n - cached
+            cap = (self.prefill_chunk * bs) if self.prefill_chunk else None
+            if cap is not None and tail_len > cap:
+                # chunked prefill: the next `cap` tokens only (block
+                # aligned), so >= 1 token remains for the sampling pass
+                partial = True
+                tail_len = cap
+                n = cached + cap
+            t = self._bucket_tail(tail_len)      # may raise ValueError
+            tail_alloc = self.pool.alloc(t // bs)
+            if tail_alloc is None:
+                self.pool.release(prefix_blocks)
+                return None
+            pb = max(self._bucket_prefix(len(prefix_blocks)), 1)
+        except ValueError:
+            # refusing the request: drop the references this prep took
+            self.pool.release(prefix_blocks)
+            self.pool.release(tail_alloc or [])
+            raise
+        return {"t": t, "pb": pb, "n": n, "cached": cached,
+                "tail_len": tail_len, "prompt": prompt, "partial": partial,
+                "prefix_blocks": prefix_blocks, "tail_alloc": tail_alloc}
+
+    def _admit_wave(self):
+        """Admit queued requests into free slots as bucketed waves: one
+        batched program per (tail, prefix) bucket group. A chunked-prefill
+        (partial) member needs no slot — its chunk only writes KV into the
+        radix cache — so a long prompt progresses even when every slot is
+        busy. One partial per wave: it requeues to the front."""
+        wave: List[dict] = []
+        taken: set = set()
+        while True:
+            free = [i for i, a in enumerate(self.active)
+                    if a is None and i not in taken]
+            if not free:
+                # no slot: only worth popping if the head could
+                # chunk-admit (cheap length pre-filter; _prep_admit makes
+                # the real partial decision)
+                cap = (self.prefill_chunk or 0) * self.block_size
+                with self._lock:
+                    head = self.queue[0] if self.queue else None
+                if (head is None or cap == 0 or head._noslot_bounce
+                        or len(head.prompt) + len(head.tokens) - 1 <= cap):
+                    break
+            with self._lock:
+                req = self.queue.popleft() if self.queue else None
+            if req is None:
+                break
+            req._noslot_bounce = False
+            if req._cancelled:
+                self._fail_req(req, "cancelled")
+                continue
+            try:
+                prep = self._prep_admit(req)
+            except ValueError as e:
+                self._fail_req(req, str(e))
+                continue
+            if (prep is not None and wave
+                    and (self._shared_wave_blocks(wave, prep["prompt"])
+                         * self.block_size > prep["cached"])):
+                # an earlier wave member is about to insert a longer shared
+                # prefix than this request would hit now: defer one step
+                # so the re-match reuses those blocks
+                self.pool.release(prep["prefix_blocks"])
+                self.pool.release(prep["tail_alloc"])
+                self._requeue_front(req)
+                break
+            if prep is None:
+                if wave:
+                    self._requeue_front(req)
+                    break
+                # free memory by preempting the youngest slot, then retry
+                # this request first next step
+                preempted = self._preempt_youngest()
+                if not preempted and not self._admit_order:
+                    self._fail_req(req, "KV block pool exhausted")
+                else:
+                    self._requeue_front(req)
+                break
+            prep["req"] = req
+            if prep["partial"]:
+                prep["slot"] = None
+                wave.append(prep)
+                break
+            if not free:
+                req._noslot_bounce = True
+                self.pool.release(prep["prefix_blocks"])
+                self.pool.release(prep["tail_alloc"])
+                self._requeue_front(req)
+                break
+            prep["slot"] = free[0]
+            taken.add(free[0])
+            wave.append(prep)
+
+        groups: dict = {}
+        for m in wave:
+            groups.setdefault((m["t"], m["pb"]), []).append(m)
+        for (t, pb), members in groups.items():
+            self._admit_group(t, pb, members)
+
+    def _admit_group(self, t: int, pb: int, members: List[dict]):
+        """One batched admission for wave members sharing a (tail bucket,
+        prefix bucket); rows padded to a power of two (padding rows write
+        only the reserved dummy block)."""
+        bs = self.block_size
+        b = self._bucket_wave(len(members))
+        a = {"toks": np.zeros((b, t), np.int64),
+             "tail_len": np.ones((b,), np.int32),
+             "tail_alloc": np.full((b, t // bs), self._dummy, np.int32),
+             "pfb": np.full((b, pb), self._dummy, np.int32),
+             "cached": np.zeros((b,), np.int32),
+             "seeds": np.zeros((b,), np.int32),
+             "steps": np.zeros((b,), np.int32),
+             "temps": np.ones((b,), np.float32),
+             "tks": np.zeros((b,), np.int32),
+             "tps": np.ones((b,), np.float32),
+             "ds": np.zeros((b,), bool)}
+        for j, m in enumerate(members):
+            req, sp = m["req"], m["req"].sampling
+            a["toks"][j, :m["tail_len"]] = \
+                m["prompt"][m["cached"]:m["cached"] + m["tail_len"]]
+            a["tail_len"][j] = m["tail_len"]
+            a["tail_alloc"][j, :] = m["tail_alloc"]
+            a["pfb"][j, :len(m["prefix_blocks"])] = m["prefix_blocks"]
+            a["cached"][j] = m["cached"]
+            a["seeds"][j] = req.seed
+            a["steps"][j] = len(req.tokens)
+            a["temps"][j] = sp.temperature
+            a["tks"][j] = sp.top_k
+            a["tps"][j] = sp.top_p
+            a["ds"][j] = sp.do_sample
+        w0 = time.perf_counter()
+        for m in members:
+            if m["req"].admitted_at is None:
+                m["req"].admitted_at = w0
+        first = self._run_admit(a)
+        self.metrics.observe("batcher_admit_wave", time.perf_counter() - w0)
+        for j, m in enumerate(members):
+            self._post_admit(m, int(first[j]))
+
+    def _post_admit(self, m: dict, first: int):
+        """Register one admitted wave member: release padding blocks, enter
+        the prompt's full blocks into the radix cache, bind the slot, and
+        emit the sampled first token. A chunked-prefill member stops after
+        the radix registration and requeues (its sampled token is not the
+        prompt's last position and is dropped)."""
+        req, slot = m["req"], m["slot"]
+        bs = self.block_size
+        n, cached, tail_len = m["n"], m["cached"], m["tail_len"]
+        tail_alloc, prefix_blocks = m["tail_alloc"], m["prefix_blocks"]
+        # cached tokens count only BEYOND the request's own earlier extent
+        # (a resumed chunk pass re-matching its own blocks is no cache win)
+        new_cached = max(0, cached - req._prefill_counted)
+        self.metrics.inc("prefill_cached_tokens", new_cached)
+        self.metrics.inc("prefill_uncached_tokens", tail_len)
+        req._cost_cached += new_cached
+        req._cost_uncached += tail_len
+        req._prefill_counted = max(req._prefill_counted, n)
+        tail_real = tail_alloc[: -(-tail_len // bs)]
+        self.pool.release(tail_alloc[len(tail_real):])   # padding blocks
+
+        n_full = n // bs
+        skip = cached // bs
+        if n_full > skip:
+            self.pool.insert_prefix(m["prompt"][:n_full * bs],
+                                    tail_real[:n_full - skip], skip)
+
+        if m["partial"]:
+            # the radix keeps the chunk's blocks alive (refcount-0 leaves
+            # evict only under pool pressure)
+            self.pool.release(prefix_blocks)
+            self.pool.release(tail_real)
+            self._chunked_admissions += 1
+            if n > req._chunk_high:
+                req._chunk_high = n
+                req._chunk_stalls = 0
+            else:
+                req._chunk_stalls += 1
+                self.metrics.inc("chunk_prefill_stalls")
+                if req._chunk_stalls > 4:
+                    self._fail_req(req, "KV block pool exhausted "
+                                        "(chunked prefill made no progress)")
+                    return
+            if req._cancelled:
+                self._fail_req(req, "cancelled")
+            else:
+                self._requeue_front(req)
+            return
+
+        req._blocks = prefix_blocks + tail_real
+        self.block_tables[slot, :] = self._dummy
+        self.block_tables[slot, :len(req._blocks)] = req._blocks
+        self.context_lens[slot] = n
+        self.active[slot] = req
+        self._admit_order.append(slot)
+        if req.first_token_at is None:
+            req.first_token_at = time.perf_counter()
+        self._emit(req, first)
+        if req.done.is_set() or len(req.tokens) >= req.max_new_tokens:
+            self._finish_slot(slot)
+
+    def _requeue_front(self, req: BatchRequest):
+        """Put a request back at the queue head (chunked-prefill resume,
+        preemption, wave overflow)."""
+        self.metrics.inc("batcher_requeues")
+        with self._lock:
+            self.queue.appendleft(req)
+
+    def _fail_req(self, req: BatchRequest, error: Optional[str] = None):
+        """Terminal failure for a request that never reaches _finish_req
+        (cancelled in queue, refused at admission, pool exhaustion,
+        scheduler stop or error)."""
+        req.error = req.error or error or "failed"
+        req.finished_at = req.finished_at or time.perf_counter()
+        self._observe_finished(req)
+        req.done.set()
+
+    def _emit(self, req: BatchRequest, token: int):
+        """Append a sampled token; finish on eos (eos is not kept)."""
+        if req.eos_token_id is not None and token == req.eos_token_id:
+            self._finish_req(req)
+            return
+        req.tokens.append(token)
+        self._tokens_out += 1
+
+    def _finish_req(self, req: BatchRequest):
+        self.pool.release(req._blocks)
+        req._blocks = []
+        req.finished_at = time.perf_counter()
+        self._observe_finished(req)
+        req.done.set()
+
+    def _cost_record(self, req: BatchRequest, end: float) -> dict:
+        """The request's cost record. Queue ends when the first admission
+        wave carrying it starts, prefill at the first token, decode at
+        finish, so the three phases sum to the end-to-end span."""
+        admitted = req.admitted_at if req.admitted_at is not None else end
+        first = req.first_token_at if req.first_token_at is not None \
+            else admitted
+        return {
+            "queue_ms": round(max(0.0, admitted - req.submitted_at) * 1e3, 3),
+            "prefill_ms": round(max(0.0, first - admitted) * 1e3, 3),
+            "decode_ms": round(max(0.0, end - first) * 1e3, 3),
+            "prefill_cached_tokens": req._cost_cached,
+            "prefill_uncached_tokens": req._cost_uncached,
+            "decode_tokens": len(req.tokens),
+            "weight_passes": req._weight_passes,
+        }
+
+    def _observe_finished(self, req: BatchRequest):
+        m = self.metrics
+        m.inc("batcher_requests_failed" if req.error
+              else "batcher_requests_completed")
+        end = req.finished_at or time.perf_counter()
+        m.observe("batcher_e2e_latency", end - req.submitted_at)
+        if req.first_token_at is not None:
+            m.observe("batcher_ttft", req.first_token_at - req.submitted_at)
+        req.cost = self._cost_record(req, end)
+
+    def _finish_slot(self, slot: int):
+        req = self.active[slot]
+        self.active[slot] = None
+        self.block_tables[slot, :] = self._dummy
+        self.context_lens[slot] = 0
+        if slot in self._admit_order:
+            self._admit_order.remove(slot)
+        if req is not None and not req.done.is_set():
+            self._finish_req(req)
+
+    def _preempt_youngest(self) -> bool:
+        """Free the most recently admitted slot, requeueing its request."""
+        if not self._admit_order:
+            return False
+        self.metrics.inc("batcher_preemptions")
+        slot = self._admit_order.pop()
+        req = self.active[slot]
+        self.active[slot] = None
+        self.block_tables[slot, :] = self._dummy
+        self.context_lens[slot] = 0
+        if req is not None:
+            self.pool.release(req._blocks)
+            req._blocks = []
+            req._preemptions += 1
+            if req._preemptions > 5:
+                self._fail_req(req, "preempted repeatedly: KV pool too small")
+            else:
+                self._requeue_front(req)
+        return True
+
+    def _ensure_growth(self, slot: int, k: int = 1) -> bool:
+        """Make sure the slot owns every block a k-step chunk can write
+        (positions [cl, cl + min(k, remaining) - 1]), allocated up front
+        so the chunk runs without the host."""
+        req = self.active[slot]
+        pos0 = int(self.context_lens[slot])
+        k_eff = max(1, min(k, req.max_new_tokens - len(req.tokens)))
+        bi0 = pos0 // self.block_size
+        bi1 = (pos0 + k_eff - 1) // self.block_size
+        if bi1 >= self.max_blocks:
+            return False
+        need = [bi for bi in range(bi0, bi1 + 1)
+                if self.block_tables[slot, bi] == self._dummy]
+        if not need:
+            return True
+        got = self.pool.alloc(len(need))
+        if got is None:
+            return False
+        for bi, blk in zip(need, got):
+            self.block_tables[slot, bi] = blk
+        req._blocks.extend(got)
+        return True
+
+    # ---- the step -----------------------------------------------------
+
+    @torch.inference_mode()
+    def step(self) -> int:
+        """Admit a wave + one K-token decode chunk. Returns active slots."""
+        t0 = time.perf_counter()
+        busy = self._step_inner()
+        m = self.metrics
+        if busy:   # idle polls would drown the step histogram
+            m.observe("batcher_step", time.perf_counter() - t0)
+        m.gauge("batcher_queue_depth", len(self.queue))
+        m.gauge("batcher_active_slots",
+                sum(a is not None for a in self.active))
+        m.gauge("batcher_free_kv_blocks", self.pool.free_count())
+        return busy
+
+    def _step_inner(self) -> int:
+        # drop cancelled slots first: frees their blocks for admission
+        for slot in range(self.slots):
+            req = self.active[slot]
+            if req is not None and req._cancelled:
+                req.error = req.error or "cancelled"
+                self._finish_slot(slot)
+
+        self._admit_wave()
+
+        active = [i for i, a in enumerate(self.active) if a is not None]
+        if not active:
+            return 0
+        # chunk size: cover the largest remaining budget in one chunk when
+        # the overshoot is small, else the largest chunk a slot can fill
+        max_rem = max(self.active[i].max_new_tokens
+                      - len(self.active[i].tokens) for i in active)
+        chunks = self.decode_chunks
+        up = min((c for c in chunks if c >= max_rem), default=None)
+        if up is not None and up - max_rem <= self.CHUNK_OVERSHOOT_MAX:
+            k = up
+        else:
+            k = next(c for c in chunks if c <= max_rem)
+
+        # growth blocks for every position this chunk can write
+        for slot in range(self.slots):
+            while (self.active[slot] is not None
+                   and not self._ensure_growth(slot, k)):
+                # _preempt_youngest may free `slot` itself: the loop
+                # condition re-checks
+                if not self._preempt_youngest():
+                    self.active[slot].error = "cannot grow KV allocation"
+                    self._finish_slot(slot)
+                    break
+        active = [i for i, a in enumerate(self.active) if a is not None]
+        if not active:
+            return 0
+
+        r = self.slots
+        a = {"k": k, "tokens": np.zeros((r,), np.int64),
+             "bt": self.block_tables, "cl": self.context_lens,
+             "seeds": np.zeros((r,), np.int32),
+             "steps": np.zeros((r,), np.int32),
+             "temps": np.ones((r,), np.float32),
+             "tks": np.zeros((r,), np.int32),
+             "tps": np.ones((r,), np.float32),
+             "ds": np.zeros((r,), bool),
+             "budget": np.zeros((r,), np.int32),
+             "eos": np.full((r,), -1, np.int32)}
+        for i in active:
+            req = self.active[i]
+            sp = req.sampling
+            a["tokens"][i] = req.tokens[-1]
+            a["seeds"][i] = req.seed
+            a["steps"][i] = len(req.tokens)
+            a["temps"][i] = sp.temperature
+            a["tks"][i] = sp.top_k
+            a["tps"][i] = sp.top_p
+            a["ds"][i] = sp.do_sample
+            a["budget"][i] = min(k, req.max_new_tokens - len(req.tokens))
+            if req.eos_token_id is not None:
+                a["eos"][i] = req.eos_token_id
+        self._dispatch_plain_chunk(active, a)
+        return len([x for x in self.active if x is not None])
+
+    def _dispatch_plain_chunk(self, active, a: dict) -> int:
+        """One K-token decode chunk: run, sync, emit, finish dead slots.
+        Returns tokens emitted."""
+        k = int(a["k"])
+        w0 = time.perf_counter()
+        toks, emits = self._run_decode(a)
+        self._step_count += 1
+        self._chunk_sizes.add(k)
+        self.metrics.observe("batcher_decode_chunk", time.perf_counter() - w0)
+        return self._emit_chunk_outputs(active, toks, emits, k, a["budget"])
+
+    def _emit_chunk_outputs(self, active, toks, emits, passes: int,
+                            budget) -> int:
+        """Emit each slot's tokens, advance its context, finish slots that
+        hit eos (stopped before their budget) or their token limit."""
+        emitted = 0
+        for i in active:
+            req = self.active[i]
+            # emits[:, i] is True exactly on the slot's emitted prefix
+            cnt = int(emits[:, i].sum())
+            for tok in toks[:cnt, i]:
+                self._emit(req, int(tok))
+            emitted += cnt
+            req._weight_passes += passes
+            self.context_lens[i] += cnt
+            if cnt < int(budget[i]) or len(req.tokens) >= req.max_new_tokens:
+                self._finish_slot(i)
+        # amortization: emitted tokens per weight-streaming pass (one pass
+        # per decode iteration), the number continuous batching raises
+        self.metrics.gauge("decode_tokens_per_weight_pass",
+                           emitted / passes if passes else 0.0)
+        self.metrics.inc("batcher_weight_passes", passes)
+        self.metrics.inc("batcher_tokens_emitted", emitted)
+        return emitted
+
+    # ---- background loop ----------------------------------------------
+
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                busy = self.step()
+            except Exception as e:   # fail every waiter fast, then stop
+                for slot in range(self.slots):
+                    if self.active[slot] is not None:
+                        self.active[slot].error = f"scheduler error: {e}"
+                        self._finish_slot(slot)
+                with self._lock:
+                    drained = list(self.queue)
+                    self.queue.clear()
+                for req in drained:
+                    self._fail_req(req, f"scheduler error: {e}")
+                self._stop.set()
+                return
+            if not busy and not self.queue:
+                self._work.wait(timeout=0.05)
+                self._work.clear()

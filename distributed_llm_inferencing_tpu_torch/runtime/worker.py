@@ -1,20 +1,28 @@
-"""Worker agent of the port: engine-mode serving over JSON HTTP.
+"""Worker agent of the port: engine-mode and batched serving over JSON HTTP.
 
-Speaks the reference worker's wire protocol for the routes this slice
-ports, so a master can drive either worker:
+Speaks the reference worker's wire protocol for the routes the port has,
+so a master can drive either worker:
 
 - ``GET /health``: status, device inventory from torch.cuda (``platform``,
-  ``kind``, ``count``), loaded models, metrics.
+  ``kind``, ``count``), loaded models (with ``serving`` and, for batched
+  models, the scheduler's stats), metrics.
 - ``POST /load_model``: ``model_name``, ``allow_random_init``, ``dtype``,
-  ``max_seq`` — builds an ``InferenceEngine`` (engine mode).
+  ``max_seq`` — builds an ``InferenceEngine`` (engine mode, the default),
+  or with ``"serving": "batched"`` a ``ContinuousBatcher`` over a paged KV
+  pool (``kv_blocks``, ``kv_block_size``, ``slots``, ``prefill_chunk``,
+  ``decode_chunk_cap``) whose scheduler thread serves concurrent
+  requests.
 - ``POST /unload_model``: ``model_name``.
 - ``POST /inference``: ``model_name``, ``prompt`` or ``prompt_tokens``,
   ``max_new_tokens`` (or ``max_length``), ``sampling``, ``seed``; answers
-  ``status``, ``result``, ``tokens``, ``execution_time`` (+ timings, cost).
+  ``status``, ``result``, ``tokens``, ``execution_time`` and ``cost``
+  (engine mode adds its timings; batched mode adds ``ttft_ms`` and
+  ``scheduler``).
 
-Fields of the reference protocol that this slice does not implement —
-``serving: "batched"``, ``speculative``, ``adapter``, ``quantize``,
-``kv_quantize``, checkpoint paths — get a 400, never a silent ignore.
+Fields of the reference protocol that the port does not implement yet —
+``speculative``, ``kv_host_mb``, ``kv_source``, ``kv_export``,
+``adapter``, ``resume``, ``request_tag``, ``quantize``, ``kv_quantize``,
+checkpoint paths — get a 400, never a silent ignore.
 
 Run: ``python -m distributed_llm_inferencing_tpu_torch worker --port 8100``
 (``--device cpu`` for the plain-PyTorch path without a GPU).
@@ -32,6 +40,8 @@ import torch
 from distributed_llm_inferencing_tpu_torch.models.registry import get_config
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
 from distributed_llm_inferencing_tpu_torch.runtime import httpd
+from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+    ContinuousBatcher)
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
     InferenceEngine)
 from distributed_llm_inferencing_tpu_torch.utils.device import (
@@ -41,17 +51,37 @@ from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
     load_tokenizer)
 
 _UNPORTED_LOAD = ("quantize", "kv_quantize", "embed_quantize",
-                  "checkpoint_path", "native_checkpoint", "mesh")
-_UNPORTED_INFER = ("speculative", "adapter", "resume")
+                  "checkpoint_path", "native_checkpoint", "mesh",
+                  "speculative", "kv_host_mb")
+_UNPORTED_INFER = ("speculative", "adapter", "resume", "kv_source",
+                   "kv_export", "request_tag")
 _DTYPES = ("bfloat16", "float32")
+_SERVING = (None, "engine", "batched")
 
 
 class LoadedModel:
-    def __init__(self, engine, tokenizer, source: str):
+    """One served model: an engine (engine mode) or a batcher."""
+
+    def __init__(self, engine, tokenizer, source: str, batcher=None):
         self.engine = engine
+        self.batcher = batcher
         self.tokenizer = tokenizer
         self.source = source
         self.lock = threading.Lock()   # engine.generate is not reentrant
+
+    @property
+    def cfg(self):
+        return (self.batcher or self.engine).cfg
+
+    def describe(self, name: str) -> dict:
+        if self.batcher is not None:
+            b = self.batcher
+            return {"name": name, "source": self.source,
+                    "serving": "batched", "max_seq": b.max_seq,
+                    "device": str(b.device), "scheduler": b.stats()}
+        return {"name": name, "source": self.source, "serving": "engine",
+                "max_seq": self.engine.max_seq,
+                "device": str(self.engine.device)}
 
 
 def _unported(body, fields):
@@ -81,11 +111,7 @@ class WorkerAgent:
 
     def health(self, body):
         with self._models_lock:
-            loaded = [{"name": n, "source": m.source,
-                       "serving": "engine",
-                       "max_seq": m.engine.max_seq,
-                       "device": str(m.engine.device)}
-                      for n, m in self.models.items()]
+            loaded = [m.describe(n) for n, m in self.models.items()]
         inv = inventory(self.device)
         return {
             "status": "online",
@@ -104,10 +130,10 @@ class WorkerAgent:
         refused = _unported(body, _UNPORTED_LOAD)
         if refused:
             return refused
-        if body.get("serving") not in (None, "engine"):
+        if body.get("serving") not in _SERVING:
             return 400, {"status": "error",
-                         "message": "only engine-mode serving is ported; "
-                                    f"got serving={body.get('serving')!r}"}
+                         "message": "serving must be 'engine' or 'batched'; "
+                                    f"got {body.get('serving')!r}"}
         with self._models_lock:
             if name in self.models:
                 return 200, {"status": "success",
@@ -138,19 +164,40 @@ class WorkerAgent:
                 return 400, {"status": "error",
                              "message": f"dtype must be one of {_DTYPES}"}
             cfg = cfg.replace(dtype=body["dtype"])
+        tok = load_tokenizer(body.get("tokenizer_path"), cfg.vocab_size)
         try:
-            engine = InferenceEngine(
-                cfg, max_seq=body.get("max_seq"), device=self.device,
-                metrics=self.metrics)
+            if body.get("serving") == "batched":
+                # continuous batching over the paged KV pool
+                # (runtime/batcher.py): requests share decode steps
+                # instead of serializing behind the per-model lock
+                batcher = ContinuousBatcher(
+                    cfg, max_seq=body.get("max_seq"),
+                    num_blocks=int(body.get("kv_blocks", 512)),
+                    block_size=int(body.get("kv_block_size", 16)),
+                    slots=int(body.get("slots", 8)),
+                    # chunked prefill cap (blocks); 0/null disables
+                    prefill_chunk=(int(body["prefill_chunk"] or 0)
+                                   if "prefill_chunk" in body else 32),
+                    decode_chunk_cap=body.get("decode_chunk_cap"),
+                    device=self.device, metrics=self.metrics)
+                batcher.start()
+                lm = LoadedModel(None, tok, "random-init", batcher=batcher)
+                stats = batcher.stats()
+            else:
+                engine = InferenceEngine(
+                    cfg, max_seq=body.get("max_seq"), device=self.device,
+                    metrics=self.metrics)
+                lm = LoadedModel(engine, tok, "random-init")
+                stats = engine.stats()
         except NotImplementedError as e:   # config outside the ported arm
             return 400, {"status": "error", "message": str(e)}
-        tok = load_tokenizer(body.get("tokenizer_path"), cfg.vocab_size)
+        except (TypeError, ValueError) as e:   # malformed load fields
+            return 400, {"status": "error", "message": str(e)}
         with self._models_lock:
-            self.models[name] = LoadedModel(engine, tok, "random-init")
+            self.models[name] = lm
         self.metrics.inc("models_loaded")
         return 200, {"status": "success", "message": f"model {name} loaded",
-                     "load_time_s": time.time() - t0,
-                     "stats": engine.stats()}
+                     "load_time_s": time.time() - t0, "stats": stats}
 
     def unload_model(self, body):
         name = body.get("model_name")
@@ -159,6 +206,8 @@ class WorkerAgent:
         if m is None:
             return 404, {"status": "error",
                          "message": f"model {name} not loaded"}
+        if m.batcher is not None:
+            m.batcher.stop()   # fails whatever is still queued or running
         del m
         gc.collect()
         if self.device.type == "cuda":
@@ -177,7 +226,7 @@ class WorkerAgent:
             prompt = m.tokenizer.encode(body.get("prompt", ""))
         if not prompt:
             raise ValueError("empty prompt")
-        vocab = m.engine.cfg.vocab_size
+        vocab = m.cfg.vocab_size
         if not all(0 <= t < vocab for t in prompt):
             # an id past the table would fault the device gather
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
@@ -203,6 +252,9 @@ class WorkerAgent:
             m, prompt, sp, max_new, seed = self._prep(body)
         except (KeyError, ValueError) as e:
             return 400, {"status": "error", "message": str(e)}
+        if m.batcher is not None:
+            return self._inference_batched(m, body, prompt, sp, max_new,
+                                           seed, t0)
         try:
             with self.metrics.time("inference"), m.lock:
                 res = m.engine.generate(
@@ -225,11 +277,43 @@ class WorkerAgent:
             "cost": res.cost(),
         }
 
+    def _inference_batched(self, m, body, prompt, sp, max_new, seed, t0):
+        """Enqueue into the model's batcher and wait: no per-model lock,
+        the scheduler interleaves this request with the others."""
+        req = None
+        try:
+            with self.metrics.time("inference"):
+                req = m.batcher.submit(
+                    prompt, max_new_tokens=max_new, sampling=sp,
+                    eos_token_id=m.tokenizer.eos_token_id, seed=seed)
+                toks = req.wait(timeout=float(body.get("timeout", 300)))
+        except TimeoutError as e:
+            req.cancel()   # free the slot; generate for nobody
+            return 408, {"status": "error", "message": str(e)}
+        except (ValueError, RuntimeError) as e:
+            return 400, {"status": "error", "message": str(e)}
+        self.metrics.inc("requests_completed")
+        self.metrics.inc("tokens_generated", len(toks))
+        return {
+            "status": "success",
+            "result": m.tokenizer.decode(toks),
+            "tokens": toks,
+            "execution_time": time.time() - t0,
+            "ttft_ms": req.ttft_ms,
+            "cost": req.cost,
+            "scheduler": m.batcher.stats(),
+        }
+
     def serve(self, host="0.0.0.0", port=8100, background=False):
         return self.service.serve(host, port, background=background)
 
     def shutdown(self):
         self.service.shutdown()
+        with self._models_lock:
+            batchers = [m.batcher for m in self.models.values()
+                        if m.batcher is not None]
+        for b in batchers:
+            b.stop()
 
 
 def main(argv=None):

@@ -1,10 +1,13 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card:
+flash_attention, flash_decode, paged_flash_decode and fused_decode_step.
 
 Marked ``cuda``: each test skips where no CUDA device is visible (the
 decision is made inside the test, never at import). On a GPU machine run
 ``python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda``.
 Tolerances: f32 2e-5 (summation order only); bf16 rtol = atol = 1e-2
-(both sides round one f32 result to bf16, one ulp is 2^-7 relative).
+(both sides round one f32 result to bf16, one ulp is 2^-7 relative); the
+paged and fused decodes in bf16 rtol 2^-7, atol 1e-4 (at most one ulp
+apart, plus the f32 summation-order error).
 """
 
 import numpy as np
@@ -12,6 +15,8 @@ import pytest
 import torch
 
 from distributed_llm_inferencing_tpu_torch.ops import flash_attention as fa
+from distributed_llm_inferencing_tpu_torch.ops import fused_decode as fd
+from distributed_llm_inferencing_tpu_torch.ops import paged_attention as pa
 from distributed_llm_inferencing_tpu_torch.ops.attention import alibi_slopes
 
 
@@ -28,6 +33,11 @@ def _rand(gen, shape, dtype, dev):
 def _tol(dtype):
     return (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
             else dict(rtol=1e-2, atol=1e-2))
+
+
+def _paged_tol(dtype):
+    return (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+            else dict(rtol=2 ** -7, atol=1e-4))
 
 
 @pytest.mark.cuda
@@ -92,3 +102,105 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(1, 8, 16, 2, device=dev).transpose(2, 3)  # hd strided
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+
+
+def _paged_case(g, dev, dtype, lengths, H, Hkv, hd, bs, nb=None):
+    """A pool of random blocks and per-slot tables that are random
+    permutations of its blocks (block 0 stays the dummy)."""
+    R = len(lengths)
+    mb = max(1, -(-max(lengths) // bs))
+    nb = nb or R * mb + 1
+    k_pool, v_pool = (_rand(g, (nb, bs, Hkv, hd), dtype, dev)
+                      for _ in range(2))
+    perm = torch.randperm(nb - 1, generator=g, device=dev) + 1
+    bt = perm[:R * mb].reshape(R, mb).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return k_pool, v_pool, bt, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,H,Hkv,hd,bs,window", [
+    ([5, 17, 32, 1], 4, 2, 16, 8, None),          # GQA, mid-block tails
+    ([0, 16, 15, 17], 8, 8, 64, 16, None),        # MHA, zero + boundaries
+    ([100, 3], 8, 1, 128, 16, None),               # MQA
+    ([20, 13], 4, 4, 16, 8, 6),                    # window
+    ([300, 65], 8, 2, 256, 16, 64),                # hd 256 + window
+    ([0, 1, 15, 16, 17, 300, 1000, 4096], 32, 8, 128, 16, None),
+])
+def test_paged_flash_decode_kernel_matches_ref(dtype, lengths, H, Hkv, hd,
+                                               bs, window):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    k_pool, v_pool, bt, lens = _paged_case(g, dev, dtype, lengths, H, Hkv,
+                                           hd, bs)
+    q = _rand(g, (len(lengths), 1, H, hd), dtype, dev)
+    n0 = pa.paged_flash_decode.launches
+    out = pa.paged_flash_decode(q, k_pool, v_pool, bt, lens,
+                                sliding_window=window)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode.launches == n0 + 1
+    ref = pa.paged_flash_decode_ref(q, k_pool, v_pool, bt, lens,
+                                    sliding_window=window)
+    torch.testing.assert_close(out.float(), ref.float(), **_paged_tol(dtype))
+    if lengths[0] == 0:
+        assert (out[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,H,Hkv,hd,D,bs,rope,window", [
+    ([7, 21, 12], 4, 2, 16, 32, 8, True, None),    # GQA
+    ([7, 21, 12], 4, 1, 16, 32, 8, True, None),    # MQA
+    ([7, 21, 12], 4, 4, 16, 32, 8, True, None),    # MHA
+    ([19, 8], 4, 2, 16, 32, 8, False, 5),          # no RoPE + window
+    ([0, 16, 17, 33], 8, 2, 64, 256, 16, True, None),
+    ([1, 15, 16, 17, 300, 1000, 4096, 0], 32, 8, 128, 4096, 16, True,
+     None),                                        # llama-3-8b width
+])
+def test_fused_decode_kernel_matches_ref(dtype, lengths, H, Hkv, hd, D, bs,
+                                         rope, window):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    k_pool, v_pool, bt, lens = _paged_case(g, dev, dtype, lengths, H, Hkv,
+                                           hd, bs)
+    R = len(lengths)
+    x = _rand(g, (R, D), dtype, dev)
+    w = (torch.randn(D, H * hd, generator=g, device=dev)
+         / D ** 0.5).to(dtype)
+    cos = sin = None
+    if rope:
+        ang = torch.rand(R, hd // 2, generator=g, device=dev) * 6.0
+        cos = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
+        sin = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
+    n0 = fd.fused_decode_step.launches
+    out = fd.fused_decode_step(x, {"w": w}, k_pool, v_pool, bt, lens,
+                               rope_cos=cos, rope_sin=sin,
+                               sliding_window=window)
+    torch.cuda.synchronize()
+    assert fd.fused_decode_step.launches == n0 + 1
+    ref = fd.fused_decode_step_ref(x, {"w": w}, k_pool, v_pool, bt, lens,
+                                   rope_cos=cos, rope_sin=sin,
+                                   sliding_window=window)
+    # f32: the GEMV sums D products in another order than the host's
+    # matmul; bf16: one output rounding on each side
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else _paged_tol(dtype))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(4)
+    k_pool, v_pool, bt, lens = _paged_case(g, dev, torch.float32, [9, 3], 4,
+                                           2, 16, 8)
+    q = torch.zeros(2, 1, 4, 16, device=dev)
+    with pytest.raises(ValueError):     # int64 tables
+        pa.paged_flash_decode(q, k_pool, v_pool, bt.long(), lens)
+    with pytest.raises(TypeError):      # dtype mix
+        pa.paged_flash_decode(q.bfloat16(), k_pool, v_pool, bt, lens)
+    with pytest.raises(NotImplementedError):
+        fd.fused_decode_step(torch.zeros(2, 32, device=dev),
+                             {"q": None, "scale": None}, k_pool, v_pool, bt,
+                             lens)

@@ -64,3 +64,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         if bad:
             found[os.path.relpath(path, ROOT)] = bad
     assert not found, found
+
+
+@pytest.mark.parametrize("module", [
+    "ops/paged_attention.py", "ops/fused_decode.py", "ops/paged_kvcache.py",
+    "ops/sampling.py", "models/transformer.py", "runtime/block_pool.py",
+    "runtime/batcher.py", "runtime/worker.py",
+])
+def test_batched_serving_modules_are_scanned_and_clean(module):
+    path = os.path.join(PORT, *module.split("/"))
+    assert path in _port_files()
+    with open(path, encoding="utf-8") as f:
+        assert forbidden_imports(f.read()) == []

@@ -59,7 +59,8 @@ def test_load_infer_unload(url):
 
 
 @pytest.mark.parametrize("extra", [
-    {"serving": "batched"}, {"quantize": "int8"}, {"kv_quantize": "int8"},
+    {"serving": "batched", "speculative": "ngram"}, {"quantize": "int8"},
+    {"kv_quantize": "int8"},
     {"dtype": "float16"},
 ])
 def test_unported_load_fields_are_refused(url, extra):
