@@ -15,21 +15,26 @@ Phases (any failure fails the run, exit code != 0):
    hd=128; decode B=4 S=4096 lengths [1, 37, 1000, 4096]; paged decode
    and fused decode R=8 bs=16 over a 2048-block pool, context lengths
    [0, 1, 15, 16, 17, 300, 1000, 4096], the fused q weight [4096, 4096],
-   the last two in f32 as well) plus small f32, sliding-window, ALiBi,
-   MQA/MHA, head_dim 8-256 and zero-length cases. The paged and fused
-   decodes in bf16 are held to one bf16 ulp (PAGED_BF16_TOL). Times the
-   kernel, its plain version and one torch call computing the same
-   function (scaled_dot_product_attention; the yardstick only, the port
-   never calls it; none for the fused kernel),
-   and works out the bound: the larger of bytes / 3.35 TB/s and
-   operations / peak rate.
+   the last two in f32 as well; the fused kernel in its float, int8 and
+   int4 weight forms) plus small f32, sliding-window, ALiBi, MQA/MHA,
+   head_dim 8-256 and zero-length cases. The paged and fused decodes in
+   bf16 are held to one bf16 ulp (PAGED_BF16_TOL). q4_matmul at
+   llama-3-8b's linear and head shapes for b in {1, 8, 32}, x in bf16 and
+   f32, and tests/test_pallas_parity.py's odd shapes, within Q4_TOL and
+   bit-identical across two launches. Times the kernel, its plain version
+   and one torch call computing the same function
+   (scaled_dot_product_attention; for q4_matmul torch.matmul on a bf16
+   weight dequantized beforehand, and torch._weight_int4pack_mm where the
+   installed torch has it; yardsticks only, the port never calls them;
+   none for the fused kernel), and works out the bound: the larger of
+   bytes / 3.35 TB/s and operations / peak rate.
 3. The engine path: the port's worker on a localhost port serves
    full-width llama-3-8b (random weights from a seed, bf16, max_seq 4096)
    through POST /load_model and three POST /inference requests in
    different prefill buckets (one greedy, two sampled, 32 new tokens).
    Kernel launch counts are zeroed just before and read just after, and
    each request must add one flash_attention launch per layer and one
-   flash_decode launch per layer per decode step.
+   flash_decode launch per layer per decode step, and no other.
 4. Cross-check at full width and reduced depth (2 layers, f32): the same
    weights through the kernels on the card and through the plain
    versions on the CPU — the dense path (teacher-forced prefill plus 8
@@ -49,6 +54,21 @@ Phases (any failure fails the run, exit code != 0):
    kernel fed the same tokens). Reports the f32 top-1/top-2 logit gaps
    and each route's logit error against f32; each route's error must
    stay within ROUTE_ERR_FACTOR times the bf16 prefill's.
+7. Quantized serving: the worker loads llama-3-8b (bf16 activations) with
+   "quantize": "int4" — phase 3's requests in engine mode, then phase 5's
+   wave batched with DLI_FUSED_DECODE off and on — and with "quantize":
+   "int8", batched, fused on. Counts are zeroed before each pass and the
+   gate's exact numbers asserted: in int4 a decode weight pass of <= 32
+   rows launches q4_matmul 7 x num_layers + 1 times (6 x num_layers + 1
+   with the fused q), a prefill of more rows only for its gathered head
+   rows. Reports stored weight bytes, peak memory, ms per weight pass and
+   tokens/s beside phases 3 and 5.
+8. Phase 4's cross-check with int4 and with int8 weights.
+9. int4 at full depth: phase 6's prompts through int4 llama-3-8b (bf16),
+   decode steps through the q4_matmul route and through the plain-unpack
+   route, against an f32 forward over the same weights dequantized; the
+   kernel route's worst logit error must stay within ROUTE_ERR_FACTOR x
+   the unpack route's.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no GPU, or without the port
@@ -94,6 +114,16 @@ SHARED_PREFIX, SHARED_TAIL, NEW_TOKENS = 512, 40, 32
 # routes stay under the prefill's own error; a decode fault at depth
 # decorrelates the logits and lands far above)
 ROUTE_STEPS, ROUTE_ERR_FACTOR = 4, 1.5
+# q4_matmul against its plain version: both sum din f32 products of x and
+# exact int4 levels in some order, each within din * 2^-24 * sum|x * w| of
+# the exact sum, then scale once; a bf16 output adds one ulp (2^-7 |ref|)
+Q4_TOL = "2*din*2^-24*(|x|@|levels|)*scale (+ 2^-7*|ref| in bf16)"
+# llama-3-8b's linears (din, dout) as one weight pass calls them
+Q4_SHAPES = {"q": (4096, 4096), "k": (4096, 1024), "gate": (4096, 14336),
+             "down": (14336, 4096), "head": (4096, 128256)}
+Q4_PASS = {"q": 2, "k": 2, "gate": 2, "down": 1}   # x 32 layers, + head
+# the quantized serving phase loads llama-3-8b with these weights
+QUANT_LOAD = {"quantize": "int4"}
 
 
 def log(*a):
@@ -233,6 +263,30 @@ def _cold_ms(torch, fns, iters=30):
     return timed_ms(torch, lambda: next(it)(), iters=iters)
 
 
+def _device_ms(torch, fns, iters=30):
+    """Device time per call: the self device time of every kernel the
+    calls launch, under torch.profiler, over ``iters`` calls round-robin
+    over ``fns`` (cold inputs as in _cold_ms). For calls whose host side
+    outlasts their kernels, where CUDA events around a loop would time
+    the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_llm_inferencing_tpu_torch.profile_engine import (
+        _device_us)
+    it = itertools.cycle(fns)
+    for _ in range(3):
+        next(it)()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            next(it)()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.key and not e.key.startswith("aten::"))
+    return us / 1e3 / iters
+
+
 def _paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs, nb):
     """A random pool of nb blocks; each slot's table is its own random
     permutation of pool blocks (the dummy block 0 aside)."""
@@ -297,7 +351,10 @@ def check_paged(torch, pa, sdpa, lengths, H, Hkv, hd, dtype, bs=16, nb=None,
 
 
 def check_fused(torch, fd, lengths, H, Hkv, hd, D, dtype, bs=16, nb=None,
-                rope=True, window=None, timing=False):
+                rope=True, window=None, timing=False, form="float"):
+    """The fused kernel in one weight form ("float", "int8" or "int4":
+    the q leaf as ops/quant.py stores it) against its plain version."""
+    from distributed_llm_inferencing_tpu_torch.ops import quant as tq
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(len(lengths) * 7 + D)
     R = len(lengths)
@@ -307,9 +364,12 @@ def check_fused(torch, fd, lengths, H, Hkv, hd, D, dtype, bs=16, nb=None,
 
     def xw():
         x = torch.randn(R, D, generator=g, device=dev).to(dtype)
-        w = (torch.randn(D, H * hd, generator=g, device=dev)
-             / D ** 0.5).to(dtype)
-        return x, w
+        w = torch.randn(D, H * hd, generator=g, device=dev) / D ** 0.5
+        if form == "int8":
+            return x, tq.quantize_weight(w)
+        if form == "int4":
+            return x, tq.quantize_weight_int4(w)
+        return x, {"w": w.to(dtype)}
 
     x, w = xw()
     cos = sin = None
@@ -318,65 +378,178 @@ def check_fused(torch, fd, lengths, H, Hkv, hd, D, dtype, bs=16, nb=None,
         cos = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
         sin = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
     kw = dict(rope_cos=cos, rope_sin=sin, sliding_window=window)
-    out = fd.fused_decode_step(x, {"w": w}, k, v, bt, lens, **kw)
+    out = fd.fused_decode_step(x, w, k, v, bt, lens, **kw)
     torch.cuda.synchronize()
-    ref = fd.fused_decode_step_ref(x, {"w": w}, k, v, bt, lens, **kw)
+    ref = fd.fused_decode_step_ref(x, w, k, v, bt, lens, **kw)
     dname = str(dtype).replace("torch.", "")
     tol = FUSED_F32_TOL if dtype == torch.float32 else PAGED_BF16_TOL
     err, ok = _compare(torch, out, ref, tol)
-    row = {"case": f"fused lengths={lengths} H={H} Hkv={Hkv} hd={hd} D={D} "
-                   f"bs={bs} blocks={nb} {dname} rope={rope} window={window}",
+    row = {"case": f"fused {form} lengths={lengths} H={H} Hkv={Hkv} hd={hd} "
+                   f"D={D} bs={bs} blocks={nb} {dname} rope={rope} "
+                   f"window={window}",
            "max_abs_err": err, "tol": tol, "ok": ok}
     if timing:
         keys = _paged_keys(lengths, window)
         flops = 2.0 * R * D * H * hd + 4.0 * H * hd * keys
         es = x.element_size()
-        # the q weight once, the K/V rows of [0, len), x, out, rope rows
-        nbytes = (w.numel() + 2 * keys * Hkv * hd + x.numel()
-                  + R * H * hd) * es + 2 * 4 * R * hd + 4 * (R + bt.numel())
+        # the q weight once (as stored, with its scale), the K/V rows of
+        # [0, len), x, out, rope rows
+        wbytes = sum(t.numel() * t.element_size() for t in w.values())
+        nbytes = wbytes + (2 * keys * Hkv * hd + x.numel()
+                           + R * H * hd) * es + 2 * 4 * R * hd \
+            + 4 * (R + bt.numel())
         row["bound_ms"], row["bound_by"] = _bound_ms(flops, nbytes, dname)
         sets = [(x, w, k, v)] + [
             (*xw(), *_paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs,
                                    nb)[:2]) for _ in range(2)]
         row["ms"] = _cold_ms(torch, [
-            (lambda a=a: fd.fused_decode_step(a[0], {"w": a[1]}, a[2], a[3],
-                                              bt, lens, **kw))
+            (lambda a=a: fd.fused_decode_step(a[0], a[1], a[2], a[3], bt,
+                                              lens, **kw))
             for a in sets])
         row["plain_ms"] = timed_ms(torch, lambda: fd.fused_decode_step_ref(
-            x, {"w": w}, k, v, bt, lens, **kw), iters=5)
+            x, w, k, v, bt, lens, **kw), iters=5)
         row["library_ms"] = None   # no single torch call computes it
     return row
 
 
-def int4_bounds(cfg, rows=(1, 8), tp=2):
-    """Bounds of the two kernels not ported yet (q4_matmul, q4_matmul_row),
-    worked out from their shapes at this config's widths: x [b, din] bf16
-    @ unpack(p4 [din/2, dout] uint8) * scale [dout] f32 -> [b, dout] bf16,
-    one call per linear. The row-parallel twin runs the same on a din/tp
-    shard of o and down (its all-reduce is not counted)."""
-    D, I, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
-    lin = {"q": (D, cfg.num_heads * hd), "k": (D, cfg.num_kv_heads * hd),
-           "v": (D, cfg.num_kv_heads * hd), "o": (cfg.num_heads * hd, D),
-           "gate": (D, I), "up": (D, I), "down": (I, D)}
+def q4_bound_ms(b, din, dout, es=2):
+    """Bound of one q4_matmul call: p4 (din/2 * dout bytes), the f32
+    scale, x and out in x's dtype, over the memory rate; 2*b*din*dout
+    operations at the bf16 rate."""
+    nbytes = din // 2 * dout + 4 * dout + es * b * (din + dout)
+    return _bound_ms(2.0 * b * din * dout, nbytes, "bfloat16")
 
-    def bound(b, din, dout):
-        nbytes = din // 2 * dout + 4 * dout + 2 * b * (din + dout)
-        return _bound_ms(2.0 * b * din * dout, nbytes, "bfloat16")
 
+def int4_row_bounds(cfg, rows=(1, 8), tp=2):
+    """Bounds of the kernel not ported yet, q4_matmul_row: the row-parallel
+    twin of q4_matmul runs the same work on a din/tp shard of o and down
+    (its all-reduce is not counted)."""
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    lin = {"o": (cfg.num_heads * cfg.head_dim, D), "down": (I, D)}
     out = {}
     for b in rows:
-        per = {n: bound(b, *s)[0] for n, s in lin.items()}
-        out[f"q4_matmul b={b}"] = {
-            "per_linear_ms": per,
-            "per_weight_pass_ms": cfg.num_layers * sum(per.values()),
-            "bound_by": bound(b, *lin["gate"])[1]}
-        row = {n: bound(b, lin[n][0] // tp, lin[n][1])[0]
-               for n in ("o", "down")}
+        row = {n: q4_bound_ms(b, din // tp, dout)[0]
+               for n, (din, dout) in lin.items()}
         out[f"q4_matmul_row b={b} tp={tp} (per shard)"] = {
             "per_linear_ms": row,
             "per_weight_pass_ms": cfg.num_layers * sum(row.values()),
-            "bound_by": bound(b, lin["down"][0] // tp, D)[1]}
+            "bound_by": q4_bound_ms(b, I // tp, D)[1]}
     return out
+
+
+def _int4pack_call(torch, x, p4, scale):
+    """torch._weight_int4pack_mm on the same function: per-channel scales
+    (every 128-row group carries the channel's scale), zero 0, levels + 8
+    as its unsigned nibbles. A yardstick only; None where the installed
+    torch lacks it or refuses these inputs."""
+    from distributed_llm_inferencing_tpu_torch.ops.quant import unpack_int4
+    try:
+        din, dout = p4.shape[0] * 2, p4.shape[1]
+        u = (unpack_int4(p4).to(torch.int16) + 8).to(torch.uint8).t()
+        packed = ((u[:, ::2] << 4) | u[:, 1::2]).contiguous()
+        w = torch._convert_weight_to_int4pack(packed, 8)
+        sz = torch.zeros(din // 128, dout, 2, dtype=torch.bfloat16,
+                         device=x.device)
+        sz[..., 0] = scale.to(torch.bfloat16)
+        fn = lambda: torch._weight_int4pack_mm(x, w, 128, sz)  # noqa: E731
+        fn()
+        return fn
+    except Exception as e:   # a yardstick, never a check
+        log(f"  _weight_int4pack_mm not timed: {type(e).__name__}: {e}")
+        return None
+
+
+def check_q4(torch, qm, b, din, dout, dtype, timing=False):
+    """q4_matmul against q4_matmul_ref on random packed bytes (every
+    nibble value, -8 included) and scales near 0.02/7, within Q4_TOL;
+    two launches give the same bits."""
+    from distributed_llm_inferencing_tpu_torch.ops.quant import unpack_int4
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(b * 131 + din + dout)
+
+    def weights():
+        p4 = torch.randint(0, 256, (din // 2, dout), generator=g, device=dev,
+                           dtype=torch.uint8)
+        scale = (0.5 + torch.rand(dout, generator=g, device=dev)) * 0.02 / 7
+        return p4, scale
+
+    p4, scale = weights()
+    x = torch.randn(b, din, generator=g, device=dev).to(dtype)
+    out = qm.q4_matmul(x, p4, scale)
+    again = qm.q4_matmul(x, p4, scale)
+    torch.cuda.synchronize()
+    ref = qm.q4_matmul_ref(x, p4, scale)
+    levels = unpack_int4(p4).float()
+    tol = 2 * din * 2.0 ** -24 * ((x.float().abs() @ levels.abs()) * scale)
+    del levels
+    if dtype == torch.bfloat16:
+        tol = tol + 2 ** -7 * ref.float().abs()
+    err = (out.float() - ref.float()).abs()
+    ok = bool(torch.isfinite(out.float()).all() and (err <= tol).all()
+              and torch.equal(out, again))
+    dname = str(dtype).replace("torch.", "")
+    row = {"case": f"q4_matmul b={b} din={din} dout={dout} {dname}",
+           "max_abs_err": float(err.max()), "tol": Q4_TOL, "ok": ok,
+           "err_over_tol": float((err / tol.clamp_min(1e-30)).max())}
+    if timing:
+        row["bound_ms"], row["bound_by"] = q4_bound_ms(b, din, dout,
+                                                       x.element_size())
+        # cold: weight sets that together exceed the 50 MB L2, as a weight
+        # pass meets each layer's weights once
+        # "ms" is device time from the profiler (at these sizes the
+        # wrapper's host side outlasts the kernels); "event_ms" the CUDA
+        # events around a loop of calls, host included
+        n = max(1, -(-64 * 2 ** 20 // (din // 2 * dout)))
+        sets = [(p4, scale)] + [weights() for _ in range(n - 1)]
+        calls = [(lambda a=a: qm.q4_matmul(x, *a)) for a in sets]
+        row["ms"] = _device_ms(torch, calls)
+        row["event_ms"] = _cold_ms(torch, calls)
+        row["plain_ms"] = timed_ms(torch, lambda: qm.q4_matmul_ref(
+            x, p4, scale), iters=3, warmup=1)
+        # yardstick: the same function over a bf16 weight dequantized
+        # beforehand (4x the bytes), levels exact in bf16
+        dq = [(unpack_int4(a[0]).to(x.dtype), a[1])
+              for a in sets[:max(1, -(-64 * 2 ** 20 // (2 * din * dout)))]]
+        row["library_ms"] = _device_ms(torch, [
+            (lambda a=a: torch.matmul(x, a[0]) * a[1]) for a in dq])
+        del dq
+        fn = _int4pack_call(torch, x, p4, scale)
+        row["library2_ms"] = None if fn is None else _device_ms(torch, [fn])
+        row["library2_max_abs_err"] = None if fn is None else float(
+            (fn().float() - ref.float()).abs().max())   # reported only
+        del sets
+    return row
+
+
+def phase_q4(torch, qm):
+    """q4_matmul at llama-3-8b's shapes for b in {1, 8, 32}, x in bf16
+    and f32, plus tests/test_pallas_parity.py's odd shapes; times at b=8
+    in bf16 (the batched decode shape)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    timed = {n: check_q4(torch, qm, 8, din, dout, bf16, timing=True)
+             for n, (din, dout) in Q4_SHAPES.items()}
+    rows = [timed["head"]] + [r for n, r in timed.items() if n != "head"]
+    for b in (1, 8, 32):
+        for dt in (bf16, f32):
+            for n, (din, dout) in Q4_SHAPES.items():
+                if b == 8 and dt == bf16:
+                    continue
+                rows.append(check_q4(torch, qm, b, din, dout, dt))
+    for b, din, dout in ((1, 64, 128), (4, 64, 192), (8, 128, 384),
+                         (3, 96, 160)):
+        rows += [check_q4(torch, qm, b, din, dout, dt) for dt in (f32, bf16)]
+    for row in rows:
+        log("  check", json.dumps(row))
+    bad = [r["case"] for r in rows if not r["ok"]]
+    assert not bad, f"q4_matmul disagrees with its plain version: {bad}"
+    L = 32
+    per_pass = {k: L * sum(Q4_PASS[n] * timed[n][k] for n in Q4_PASS)
+                + timed["head"][k]
+                for k in ("ms", "event_ms", "plain_ms", "bound_ms",
+                          "library_ms")}
+    log("  q4_matmul per decode weight pass (b=8, bf16: 32 x (2 q/o + 2 k/v "
+        "+ 2 gate/up + down) + head):", json.dumps(per_pass))
+    return rows, per_pass
 
 
 def phase_paged_kernels(torch, pa, fd):
@@ -404,11 +577,25 @@ def phase_paged_kernels(torch, pa, fd):
              check_fused(torch, fd, [100, 33], 8, 8, 64, 512, f32),
              check_fused(torch, fd, [1000, 17], 32, 8, 128, 4096, f32,
                          window=256)]
-    for row in paged + fused:
+    quant = {}
+    for form in ("int8", "int4"):
+        quant[form] = [
+            check_fused(torch, fd, serve, 32, 8, 128, 4096, bf16, nb=2048,
+                        timing=True, form=form),
+            check_fused(torch, fd, serve, 32, 8, 128, 4096, f32, nb=2048,
+                        form=form),
+            check_fused(torch, fd, [7, 21, 12], 4, 2, 16, 32, f32, bs=8,
+                        form=form),
+            check_fused(torch, fd, [19, 8], 4, 4, 16, 32, bf16, bs=8,
+                        rope=False, window=5, form=form),
+            check_fused(torch, fd, [1000, 17], 32, 8, 128, 4096, f32,
+                        window=256, form=form)]
+    every = paged + fused + quant["int8"] + quant["int4"]
+    for row in every:
         log("  check", json.dumps(row))
-    bad = [r["case"] for r in paged + fused if not r["ok"]]
+    bad = [r["case"] for r in every if not r["ok"]]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
-    return paged, fused
+    return paged, fused, quant
 
 
 def phase_kernels(torch, fa):
@@ -455,13 +642,58 @@ def _http(url, body=None, timeout=900):
         return e.code, json.loads(e.read())
 
 
-def phase_main_path(torch, fa):
+def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
+    """Phase 3's three requests through a loaded engine-mode model: counts
+    zeroed before, each request must add one flash_attention launch per
+    layer, one flash_decode launch per layer per decode step and
+    ``q4_per_step`` q4_matmul launches per decode step plus one for the
+    gathered head row of its prefill (int4; 0 otherwise), and nothing
+    else. Returns (launches, request rows)."""
+    L, new = cfg.num_layers, 32
+    # byte tokenizer: BOS + one token per byte -> 100/200/500 tokens,
+    # prefill buckets 128/256/512 (prefill rows > 32: the plain unpack)
+    reqs = [(100, {"do_sample": False}, 0), (200, {}, 1), (500, {}, 2)]
+    for mod, name in kernels.values():   # counts of this path only
+        setattr(getattr(mod, name), "launches", 0)
+    count = lambda: {k: getattr(mod, name).launches  # noqa: E731
+                     for k, (mod, name) in kernels.items()}
+    rows = []
+    for n_tok, sampling, seed in reqs:
+        text = "".join(chr(97 + (i * 7 + seed) % 26)
+                       for i in range(n_tok - 1))
+        n0 = count()
+        st, r = _http(base + "/inference", {
+            "model_name": model_name, "prompt": text,
+            "max_new_tokens": new, "sampling": sampling, "seed": seed})
+        assert st == 200 and r["status"] == "success", r
+        toks, passes = r["tokens"], r["cost"]["weight_passes"]
+        d = {k: v - n0[k] for k, v in count().items()}
+        assert all(0 <= t < cfg.vocab_size for t in toks), toks
+        want = {k: 0 for k in d}
+        want.update(flash_attention=L, flash_decode=L * (passes - 1),
+                    q4_matmul=(1 + q4_per_step * (passes - 1)
+                               if q4_per_step else 0))
+        assert d == want, f"launches {d} != {want}"
+        assert passes <= new and (len(toks) == new or (
+            len(toks) < new and passes >= len(toks) + 1)), (toks, passes)
+        row = {"prompt_tokens": n_tok, "sampling": sampling or "default",
+               "new_tokens": len(toks), "weight_passes": passes,
+               "prefill_ms": r["prefill_ms"],
+               "decode_ms_per_weight_pass": r["decode_ms"] / (passes - 1),
+               "decode_tokens_per_s": r["tokens_per_s"],
+               "execution_s": r["execution_time"],
+               "launches": {k: v for k, v in d.items() if v}}
+        log("  request", json.dumps(row))
+        rows.append(row)
+    return count(), rows
+
+
+def phase_main_path(torch, kernels):
     from distributed_llm_inferencing_tpu_torch.runtime.worker import (
         WorkerAgent)
     from distributed_llm_inferencing_tpu_torch.models.registry import (
         get_config)
     cfg = get_config("llama-3-8b")
-    L, new = cfg.num_layers, 32
     worker = WorkerAgent(device="cuda")
     worker.serve("127.0.0.1", 0, background=True)
     base = f"http://127.0.0.1:{worker.service.port}"
@@ -475,40 +707,8 @@ def phase_main_path(torch, fa):
         assert st == 200 and res["status"] == "success", res
         log(f"  load_model: {res['load_time_s']:.2f} s, "
             f"{res['stats']['param_bytes'] / 1e9:.3f} GB of weights")
-        # byte tokenizer: BOS + one token per byte -> 100/200/500 tokens,
-        # prefill buckets 128/256/512
-        reqs = [(100, {"do_sample": False}, 0), (200, {}, 1), (500, {}, 2)]
-        fa.flash_attention.launches = 0     # counts of the main path only
-        fa.flash_decode.launches = 0
-        rows = []
-        for n_tok, sampling, seed in reqs:
-            text = "".join(chr(97 + (i * 7 + seed) % 26)
-                           for i in range(n_tok - 1))
-            fa0, fd0 = fa.flash_attention.launches, fa.flash_decode.launches
-            st, r = _http(base + "/inference", {
-                "model_name": "llama-3-8b", "prompt": text,
-                "max_new_tokens": new, "sampling": sampling, "seed": seed})
-            assert st == 200 and r["status"] == "success", r
-            toks, passes = r["tokens"], r["cost"]["weight_passes"]
-            d_fa = fa.flash_attention.launches - fa0
-            d_fd = fa.flash_decode.launches - fd0
-            assert all(0 <= t < cfg.vocab_size for t in toks), toks
-            assert d_fa == L, f"flash_attention launches {d_fa} != {L}"
-            assert d_fd == L * (passes - 1), \
-                f"flash_decode launches {d_fd} != {L} x {passes - 1}"
-            assert passes <= new and (len(toks) == new or (
-                len(toks) < new and passes >= len(toks) + 1)), (toks, passes)
-            row = {"prompt_tokens": n_tok, "sampling": sampling or "default",
-                   "new_tokens": len(toks), "weight_passes": passes,
-                   "prefill_ms": r["prefill_ms"],
-                   "decode_tokens_per_s": r["tokens_per_s"],
-                   "execution_s": r["execution_time"],
-                   "flash_attention_launches": d_fa,
-                   "flash_decode_launches": d_fd}
-            log("  request", json.dumps(row))
-            rows.append(row)
-        launches = {"flash_attention": fa.flash_attention.launches,
-                    "flash_decode": fa.flash_decode.launches}
+        launches, rows = _engine_requests(torch, base, kernels, cfg,
+                                          "llama-3-8b", 0)
         peak = torch.cuda.max_memory_allocated()
         log(f"  peak device memory: {peak / 2**30:.3f} GiB "
             "(torch.cuda.max_memory_allocated)")
@@ -523,7 +723,9 @@ def phase_main_path(torch, fa):
 # phase 4: card (kernels) against host (plain versions), full width
 # ---------------------------------------------------------------------
 
-def phase_cross_check(torch, fa):
+def phase_cross_check(torch, fa, qm, quant=None):
+    """Card (kernels) against host (plain versions) at full width, 2
+    layers, f32, with float weights or ``quant`` ("int8"/"int4") ones."""
     from distributed_llm_inferencing_tpu_torch.models.params import (
         init_params)
     from distributed_llm_inferencing_tpu_torch.models.registry import (
@@ -531,7 +733,8 @@ def phase_cross_check(torch, fa):
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         Transformer)
     from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
-    cfg = get_config("llama-3-8b").replace(num_layers=2, dtype="float32")
+    cfg = get_config("llama-3-8b").replace(num_layers=2, dtype="float32",
+                                           quant=quant)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
                          "cuda")
     models = {"cuda": Transformer(cfg, params),
@@ -544,7 +747,8 @@ def phase_cross_check(torch, fa):
     toks[0, 37:] = 0
     forced = torch.randint(0, cfg.vocab_size, (8, B, 1), generator=g)
     logits = {}
-    n0 = (fa.flash_attention.launches, fa.flash_decode.launches)
+    n0 = (fa.flash_attention.launches, fa.flash_decode.launches,
+          qm.q4_matmul.launches)
     with torch.inference_mode():
         for dev, model in models.items():
             cache = init_cache(cfg, B, max_seq, device=dev)
@@ -554,12 +758,19 @@ def phase_cross_check(torch, fa):
                 lg, cache = model.decode_step(forced[t].to(dev), cache)
                 outs.append(lg[:, 0].cpu())
             logits[dev] = torch.cat(outs)
-    n1 = (fa.flash_attention.launches, fa.flash_decode.launches)
-    assert n1[0] - n0[0] == 2 and n1[1] - n0[1] == 16, (n0, n1)
-    errs = {"dense": _xcheck(torch, "dense", logits["cuda"], logits["cpu"])}
+    n1 = (fa.flash_attention.launches, fa.flash_decode.launches,
+          qm.q4_matmul.launches)
+    # int4: prefill rows (2 x 64) and its full-row head take the plain
+    # unpack; each of the 8 decode steps runs 7 linears x 2 layers + head
+    q4 = 8 * 15 if quant == "int4" else 0
+    assert (n1[0] - n0[0], n1[1] - n0[1], n1[2] - n0[2]) == (2, 16, q4), \
+        (n0, n1)
+    what = f"{quant or 'float'} "
+    errs = {"dense": _xcheck(torch, what + "dense", logits["cuda"],
+                             logits["cpu"])}
     host = _paged_run(torch, models["cpu"], "cpu")
     for route in ("paged", "fused"):
-        errs[route] = _xcheck(torch, route,
+        errs[route] = _xcheck(torch, what + route,
                               _paged_run(torch, models["cuda"], "cuda",
                                          route), host)
     del models, params
@@ -586,7 +797,7 @@ def _paged_run(torch, model, dev, route=None):
     paged_decode_steps; decode attention through `route` ("paged" or
     "fused") on the card. Returns the logits rows [N, V] on the host."""
     from distributed_llm_inferencing_tpu_torch.ops import (
-        fused_decode as fd, paged_attention as pa)
+        fused_decode as fd, paged_attention as pa, quant_matmul as qm)
     from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
         init_paged_cache)
     cfg = model.cfg
@@ -598,7 +809,8 @@ def _paged_run(torch, model, dev, route=None):
     tails = torch.randint(0, V, (2, 48), generator=g)
     forced = torch.randint(0, V, (8, 2), generator=g)
     os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
-    n0 = (pa.paged_flash_decode.launches, fd.fused_decode_step.launches)
+    n0 = (pa.paged_flash_decode.launches, fd.fused_decode_step.launches,
+          qm.q4_matmul.launches)
     outs = []
     try:
         with torch.inference_mode():
@@ -623,8 +835,15 @@ def _paged_run(torch, model, dev, route=None):
     finally:
         os.environ.pop("DLI_FUSED_DECODE", None)
     d = (pa.paged_flash_decode.launches - n0[0],
-         fd.fused_decode_step.launches - n0[1])
+         fd.fused_decode_step.launches - n0[1],
+         qm.q4_matmul.launches - n0[2])
     want = {None: (0, 0), "paged": (16, 0), "fused": (0, 16)}[route]
+    # int4 on the card: the 32-row first prefill runs every linear through
+    # the kernel (7 x 2 + head), the 96-row second one only its 2-row
+    # head, each decode step 7 (6 with the fused q) x 2 + head
+    q4 = (15 + 1 + 8 * (13 if route == "fused" else 15)
+          if cfg.quant == "int4" and route else 0)
+    want = want + (q4,)
     assert d == want, f"{route}: kernel launches {d} != {want}"
     return torch.cat(outs)
 
@@ -650,25 +869,52 @@ def _batched_bodies(cfg):
             for i, p in enumerate(prompts)]
 
 
-def _batched_pass(torch, base, worker, kernels, route, cfg):
+def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None):
+    """Phase 5's 8 concurrent requests through a batched llama-3-8b load
+    (``quant``: "int8"/"int4" weights). Counts are zeroed before: the
+    route's attention kernel must launch num_layers times per decode
+    weight pass and no other attention kernel may launch; in int4,
+    q4_matmul launches (7 linears, 6 with the fused q) x num_layers + 1
+    per decode pass, plus, per prefill wave, one for the gathered head
+    rows and 7 x num_layers more if the wave has <= 32 rows."""
     bodies = _batched_bodies(cfg)
     L = cfg.num_layers
-    st, res = _http(base + "/load_model", BATCHED_LOAD)
+    name = BATCHED_LOAD["model_name"]
+    torch.cuda.reset_peak_memory_stats()
+    st, res = _http(base + "/load_model",
+                    dict(BATCHED_LOAD, quantize=quant))
     assert st == 200 and res["status"] == "success", res
-    log(f"  load_model (batched, {route}): {res['load_time_s']:.2f} s")
-    counters = lambda: worker.metrics.snapshot()["counters"]  # noqa: E731
-    c0 = counters()
-    for mod, name in kernels.values():   # counts of this pass only
-        setattr(getattr(mod, name), "launches", 0)
+    st, health = _http(base + "/health")
+    [desc] = [m for m in health["loaded_models"] if m["name"] == name]
+    assert desc["quantize"] == quant, desc
+    log(f"  load_model (batched, {quant or 'bf16'}, {route}): "
+        f"{res['load_time_s']:.2f} s, {desc['param_bytes'] / 1e9:.3f} GB "
+        "of weights")
+    batcher = worker.models[name].batcher
+    wave_rows = []                       # rows of every prefill wave
+    prefill = batcher.model.paged_prefill_tail
+
+    def recorded(tokens, *a, **kw):
+        wave_rows.append(tokens.shape[0] * tokens.shape[1])
+        return prefill(tokens, *a, **kw)
+
+    batcher.model.paged_prefill_tail = recorded
+    snap = lambda: worker.metrics.snapshot()  # noqa: E731
+    s0 = snap()
+    for mod, kname in kernels.values():   # counts of this pass only
+        setattr(getattr(mod, kname), "launches", 0)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
         got = list(ex.map(lambda b: _http(base + "/inference", b), bodies))
     wall = time.perf_counter() - t0
-    launches = {k: getattr(mod, name).launches
-                for k, (mod, name) in kernels.items()}
-    c1 = counters()
-    passes, emitted = (c1.get(k, 0) - c0.get(k, 0) for k in (
-        "batcher_weight_passes", "batcher_tokens_emitted"))
+    launches = {k: getattr(mod, kname).launches
+                for k, (mod, kname) in kernels.items()}
+    s1 = snap()
+    passes, emitted = (s1["counters"].get(k, 0) - s0["counters"].get(k, 0)
+                       for k in ("batcher_weight_passes",
+                                 "batcher_tokens_emitted"))
+    chunk_s = (s1["timings"]["batcher_decode_chunk"]["sum"]
+               - s0["timings"].get("batcher_decode_chunk", {}).get("sum", 0))
     rows, tokens = [], []
     for body, (st, r) in zip(bodies, got):
         assert st == 200 and r["status"] == "success", r
@@ -686,21 +932,35 @@ def _batched_pass(torch, base, worker, kernels, route, cfg):
         f"{mine} launches {launches[mine]} != {L} x {passes} weight passes"
     assert launches[other] == 0 and launches["flash_attention"] == 0 \
         and launches["flash_decode"] == 0, launches
+    q4 = 0
+    if quant == "int4":
+        per_pass = (6 if route == "fused" else 7) * L + 1
+        q4 = passes * per_pass + sum(1 + (7 * L if n <= 32 else 0)
+                                     for n in wave_rows)
+    assert launches["q4_matmul"] == q4, \
+        f"q4_matmul launches {launches['q4_matmul']} != {q4} " \
+        f"({passes} passes, prefill waves of {wave_rows} rows)"
     cached = [r["cost"]["prefill_cached_tokens"] for r in rows[-2:]]
     assert max(cached) >= SHARED_PREFIX, \
         f"shared-prefix requests cached {cached} prompt tokens"
-    summary = {"route": route, "wall_s": wall,
+    peak = torch.cuda.max_memory_allocated()
+    # drop the recorder (it holds the model) before the unload frees it
+    del batcher.model.paged_prefill_tail, batcher, recorded, prefill
+    summary = {"weights": quant or "bf16", "route": route, "wall_s": wall,
                "generated_tokens": sum(len(t) for t in tokens),
                "tokens_per_s": sum(len(t) for t in tokens) / wall,
                "weight_passes": passes,
                "decode_tokens_per_weight_pass": emitted / passes,
+               "decode_chunk_ms_per_weight_pass": 1e3 * chunk_s / passes,
+               "prefill_wave_rows": wave_rows,
+               "param_bytes": desc["param_bytes"],
+               "peak_memory_bytes": peak,
                "launches": launches, "requests": rows}
     for row in rows:
         log("  request", json.dumps(row))
     log("  wave", json.dumps({k: v for k, v in summary.items()
                               if k != "requests"}))
-    st, _ = _http(base + "/unload_model",
-                  {"model_name": BATCHED_LOAD["model_name"]})
+    st, _ = _http(base + "/unload_model", {"model_name": name})
     assert st == 200
     return summary, tokens
 
@@ -715,7 +975,6 @@ def phase_batched(torch, kernels):
     worker.serve("127.0.0.1", 0, background=True)
     base = f"http://127.0.0.1:{worker.service.port}"
     try:
-        torch.cuda.reset_peak_memory_stats()
         os.environ["DLI_FUSED_DECODE"] = "0"
         paged, toks_p = _batched_pass(torch, base, worker, kernels, "paged",
                                       cfg)
@@ -729,7 +988,7 @@ def phase_batched(torch, kernels):
     agree = sum(a == b for i in greedy
                 for a, b in zip(toks_p[i], toks_f[i]))
     total = sum(len(toks_p[i]) for i in greedy)
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(paged["peak_memory_bytes"], fused["peak_memory_bytes"])
     log(f"  greedy tokens equal across the two decode routes: {agree} of "
         f"{total} (bf16 q rounds differently: reported, not asserted)")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
@@ -758,11 +1017,12 @@ def _route_tables(torch, lens, steps, bs):
 
 
 def _route_run(torch, model, pool, bt, lens, first, route, kernels,
-               forced=None):
+               forced=None, q4_per_step=0):
     """ROUTE_STEPS paged_decode_steps through ``route``'s kernel from the
     tokens ``first`` [R]: fed ``forced`` [steps, R] when given, else each
-    step's own argmax. Checks the launches; returns (logits [steps, R, V],
-    the tokens fed [steps, R])."""
+    step's own argmax. Checks the launches (``q4_per_step`` q4_matmul
+    launches per step); returns (logits [steps, R, V], the tokens fed
+    [steps, R])."""
     L = model.cfg.num_layers
     os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
     for mod, name in kernels.values():
@@ -783,6 +1043,7 @@ def _route_run(torch, model, pool, bt, lens, first, route, kernels,
                 for k, (mod, name) in kernels.items()}
     mine = "fused_decode_step" if route == "fused" else "paged_flash_decode"
     want = {k: (L * ROUTE_STEPS if k == mine else 0) for k in launches}
+    want["q4_matmul"] = q4_per_step * ROUTE_STEPS
     assert launches == want, f"{route}: launches {launches} != {want}"
     return torch.stack(logits), torch.stack(fed)
 
@@ -873,6 +1134,156 @@ def phase_route_depth(torch, kernels):
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 7: quantized serving through the port's worker
+# ---------------------------------------------------------------------
+
+def phase_quant_serving(torch, kernels):
+    """llama-3-8b (bf16 activations) loaded with "quantize": "int4": phase
+    3's three engine-mode requests, then phase 5's batched wave with the
+    fused route off and on; then "quantize": "int8", batched, fused on
+    (the int8 form of the fused kernel). Exact launch counts per pass."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = get_config("llama-3-8b")
+    L = cfg.num_layers
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = f"http://127.0.0.1:{worker.service.port}"
+    out = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        st, res = _http(base + "/load_model", {
+            "model_name": "llama-3-8b", "allow_random_init": True,
+            "dtype": "bfloat16", "max_seq": 4096, **QUANT_LOAD})
+        assert st == 200 and res["status"] == "success", res
+        st, health = _http(base + "/health")
+        [desc] = health["loaded_models"]
+        assert desc["quantize"] == "int4", desc
+        log(f"  load_model (engine, int4): {res['load_time_s']:.2f} s, "
+            f"{desc['param_bytes'] / 1e9:.3f} GB of weights")
+        launches, rows = _engine_requests(torch, base, kernels, cfg,
+                                          "llama-3-8b", 7 * L + 1)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  peak device memory (engine, int4): {peak / 2**30:.3f} GiB")
+        st, _ = _http(base + "/unload_model", {"model_name": "llama-3-8b"})
+        assert st == 200
+        out["engine_int4"] = {"param_bytes": desc["param_bytes"],
+                              "peak_memory_bytes": peak,
+                              "launches": launches, "requests": rows}
+        for quant, route in (("int4", "paged"), ("int4", "fused"),
+                             ("int8", "fused")):
+            os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
+            out[f"batched_{quant}_{route}"], _ = _batched_pass(
+                torch, base, worker, kernels, route, cfg, quant=quant)
+    finally:
+        os.environ.pop("DLI_FUSED_DECODE", None)
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 9: int4 at full depth, the kernel route against the plain unpack
+# ---------------------------------------------------------------------
+
+def phase_int4_depth(torch, kernels, qm):
+    """Phase 5's eight prompts through full-depth llama-3-8b with int4
+    weights (bf16 activations): one paged prefill, then ROUTE_STEPS paged
+    decode steps through the q4_matmul route and through the plain-unpack
+    route (the gate forced shut), both fed the tokens of an f32 forward
+    over the same weights dequantized. Each route's largest logit error
+    against that f32 forward; the kernel route's worst must stay within
+    ROUTE_ERR_FACTOR x the unpack route's (the kernel adds no error beyond
+    bf16 rounding)."""
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        init_params)
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
+        PagedKVCache, init_paged_cache)
+    from distributed_llm_inferencing_tpu_torch.ops.quant import (
+        dequantize_weight)
+    cfg, bs = get_config("llama-3-8b").replace(quant="int4"), 16
+    L = cfg.num_layers
+    prompts = [b["prompt_tokens"] for b in _batched_bodies(cfg)]
+    lens = [len(p) for p in prompts]
+    R = len(prompts)
+    bt, nb = _route_tables(torch, lens, ROUTE_STEPS, bs)
+    tokens = torch.zeros(R, bt.shape[1] * bs, dtype=torch.long)
+    for r, p in enumerate(prompts):
+        tokens[r, :len(p)] = torch.tensor(p)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(21),
+                         "cuda")
+    f32 = {}
+    for k, t in params.items():
+        if k.endswith(".p4"):
+            prefix = k[:-len(".p4")]
+            f32[prefix + ".w"] = dequantize_weight(
+                {"p4": t, "scale": params[prefix + ".scale"]})
+        elif not (k.endswith(".scale") and k[:-len(".scale")] + ".p4"
+                  in params):
+            f32[k] = t.float()
+    models = {"int4": Transformer(cfg, params),
+              "f32": Transformer(cfg.replace(quant=None, dtype="float32"),
+                                 f32)}
+    i32 = dict(dtype=torch.int32, device="cuda")
+    bt = bt.cuda()
+    pools, prefill = {}, {}
+    with torch.inference_mode():
+        for name, model in models.items():
+            pools[name] = init_paged_cache(model.cfg, nb, bs, device="cuda")
+            prefill[name], _ = model.paged_prefill_tail(
+                tokens.cuda(), torch.tensor(lens, **i32), bt,
+                torch.zeros(R, 1, **i32), torch.zeros(R, **i32), pools[name])
+    first = prefill["f32"].argmax(-1)
+    ref, fed = _route_run(torch, models["f32"], pools["f32"], bt, lens,
+                          first, "paged", kernels)
+    runs = {}
+    gate = qm.supported
+    for route in ("kernel", "unpack"):
+        pool = PagedKVCache(pools["int4"].k.clone(), pools["int4"].v.clone())
+        if route == "unpack":   # every linear takes the plain unpack
+            qm.supported = lambda *a, **kw: False
+        try:
+            runs[route], _ = _route_run(
+                torch, models["int4"], pool, bt, lens, first, "paged",
+                kernels, forced=fed,
+                q4_per_step=7 * L + 1 if route == "kernel" else 0)
+        finally:
+            qm.supported = gate
+        del pool
+    for t in (ref, *runs.values(), *prefill.values()):
+        assert torch.isfinite(t).all(), "int4 full-depth logits not finite"
+    out = {"prompt_tokens": lens, "steps": ROUTE_STEPS,
+           "prefill_err_int4": (prefill["int4"] - prefill["f32"]).abs()
+           .amax(-1).tolist(),
+           "logit_std_f32": float(ref.std(-1).mean())}
+    for route, lg in runs.items():
+        out[f"err_{route}"] = (lg - ref).abs().amax(-1).tolist()
+        out[f"argmax_agree_{route}"] = int(
+            (lg.argmax(-1) == ref.argmax(-1)).sum())
+    worst = {r: max(map(max, out[f"err_{r}"])) for r in runs}
+    out["worst"] = worst
+    for key in ("prefill_err_int4", "err_kernel", "err_unpack"):
+        log(f"  {key}: {json.dumps(out[key])}")
+    log("  int4 depth summary", json.dumps(
+        {k: v for k, v in out.items()
+         if k not in ("prefill_err_int4", "err_kernel", "err_unpack")}))
+    assert worst["kernel"] <= ROUTE_ERR_FACTOR * worst["unpack"], \
+        f"int4 kernel route off f32 by {worst['kernel']}, over " \
+        f"{ROUTE_ERR_FACTOR} x the unpack route's {worst['unpack']}"
+    del models, params, f32, pools, prefill, runs, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -882,7 +1293,8 @@ def main() -> int:
     try:
         from distributed_llm_inferencing_tpu_torch.ops import build
         from distributed_llm_inferencing_tpu_torch.ops import (
-            flash_attention as fa, fused_decode as fd, paged_attention as pa)
+            flash_attention as fa, fused_decode as fd, paged_attention as pa,
+            quant_matmul as qm)
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script "
               f"({e})", file=sys.stderr)
@@ -894,6 +1306,12 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
+    # every kernel wrapper's launch counter, by kernel name
+    counted = {"flash_attention": (fa, "flash_attention"),
+               "flash_decode": (fa, "flash_decode"),
+               "paged_flash_decode": (pa, "paged_flash_decode"),
+               "fused_decode_step": (fd, "fused_decode_step"),
+               "q4_matmul": (qm, "q4_matmul")}
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -906,40 +1324,56 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     pre, dec = phase_kernels(torch, fa)
-    paged, fused = phase_paged_kernels(torch, pa, fd)
+    paged, fused, fused_q = phase_paged_kernels(torch, pa, fd)
+    q4_rows, q4_pass = phase_q4(torch, qm)
 
     from distributed_llm_inferencing_tpu_torch.models.registry import (
         get_config)
-    q4 = int4_bounds(get_config("llama-3-8b"))
-    log("  bounds of the kernels not ported yet (llama-3-8b int4 shapes):",
-        json.dumps(q4))
+    row_bounds = int4_row_bounds(get_config("llama-3-8b"))
+    log("  bounds of the kernel not ported yet (llama-3-8b int4 shapes):",
+        json.dumps(row_bounds))
 
     log("phase 3: engine path (worker, llama-3-8b bf16, 3 requests)")
-    launches, rows, peak = phase_main_path(torch, fa)
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the engine path"
+    launches, rows, peak = phase_main_path(torch, counted)
+    for name in ("flash_attention", "flash_decode"):
+        assert launches[name] > 0, f"{name} never launched on the engine path"
 
     log("phase 4: card vs host cross-check")
-    xerr = phase_cross_check(torch, fa)
+    xerr = phase_cross_check(torch, fa, qm)
 
     log("phase 5: batched path (worker, llama-3-8b bf16, 8 concurrent "
         "requests, paged then fused decode)")
-    batched = phase_batched(torch, {
-        "flash_attention": (fa, "flash_attention"),
-        "flash_decode": (fa, "flash_decode"),
-        "paged_flash_decode": (pa, "paged_flash_decode"),
-        "fused_decode_step": (fd, "fused_decode_step")})
+    batched = phase_batched(torch, counted)
     launches["paged_flash_decode"] = \
         batched["paged"]["launches"]["paged_flash_decode"]
     launches["fused_decode_step"] = \
         batched["fused"]["launches"]["fused_decode_step"]
 
     log("phase 6: both decode routes at full depth, bf16 against f32")
-    route_depth = phase_route_depth(torch, {
-        "flash_attention": (fa, "flash_attention"),
-        "flash_decode": (fa, "flash_decode"),
-        "paged_flash_decode": (pa, "paged_flash_decode"),
-        "fused_decode_step": (fd, "fused_decode_step")})
+    route_depth = phase_route_depth(torch, counted)
+
+    log("phase 7: quantized serving (worker, llama-3-8b int4: engine, "
+        "batched paged and fused; int8: batched fused)")
+    quant = phase_quant_serving(torch, counted)
+    launches["q4_matmul"] = (
+        quant["engine_int4"]["launches"]["q4_matmul"]
+        + quant["batched_int4_paged"]["launches"]["q4_matmul"]
+        + quant["batched_int4_fused"]["launches"]["q4_matmul"])
+    launches["fused_decode_step[int4]"] = \
+        quant["batched_int4_fused"]["launches"]["fused_decode_step"]
+    launches["fused_decode_step[int8]"] = \
+        quant["batched_int8_fused"]["launches"]["fused_decode_step"]
+    for name in ("paged_flash_decode", "fused_decode_step", "q4_matmul",
+                 "fused_decode_step[int4]", "fused_decode_step[int8]"):
+        assert launches[name] > 0, f"{name} never launched on its path"
+
+    log("phase 8: card vs host cross-check, int4 and int8 weights")
+    for mode in ("int4", "int8"):
+        xerr[mode] = phase_cross_check(torch, fa, qm, quant=mode)
+
+    log("phase 9: int4 at full depth, q4_matmul route vs plain unpack, "
+        "against f32 over the same weights")
+    int4_depth = phase_int4_depth(torch, counted, qm)
 
     csrc = "distributed_llm_inferencing_tpu_torch/csrc/"
     pallas = "distributed_llm_inferencing_tpu/ops/pallas/"
@@ -952,9 +1386,15 @@ def main() -> int:
             ("paged_flash_decode", "paged_attention.cu",
              "paged_attention.py:87", paged),
             ("fused_decode_step", "fused_decode.cu", "fused_decode.py:193",
-             fused)):
+             fused),
+            ("fused_decode_step[int8]", "fused_decode.cu",
+             "fused_decode.py:193", fused_q["int8"]),
+            ("fused_decode_step[int4]", "fused_decode.cu",
+             "fused_decode.py:193", fused_q["int4"]),
+            ("q4_matmul", "quant_matmul.cu", "quant_matmul.py:312",
+             q4_rows)):
         row = checks[0]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": csrc + source,
             "replaces": pallas + replaces, "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -963,11 +1403,16 @@ def main() -> int:
             "shape": row["case"],
             "checks": [{"case": r["case"], "max_abs_err": r["max_abs_err"],
                         "ok": r["ok"]} for r in checks],
-        })
+        }
+        if name == "q4_matmul":
+            entry["library2_ms"] = row["library2_ms"]
+            entry["per_weight_pass_b8"] = q4_pass
+        kernels.append(entry)
     report = {"smi": smi, "kernels": kernels, "requests": rows,
               "peak_memory_bytes": peak, "cross_check_max_abs_err": xerr,
               "batched": batched, "route_depth": route_depth,
-              "int4_bounds": q4,
+              "quant_serving": quant, "int4_depth": int4_depth,
+              "int4_row_bounds": row_bounds,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(HERE, "chiprun_out")
     if os.path.isdir(out_dir):

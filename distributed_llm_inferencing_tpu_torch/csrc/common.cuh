@@ -40,6 +40,25 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
   }
 }
 
+// Quantized weight levels, exactly, without an int-to-float conversion:
+// an 8-bit value v placed in the mantissa of 2^23 reads as 2^23 + v.
+// int4_level: the biased nibble n (0..15) at bit `shift` of `word`, as
+// n - 8 (the split-half packing of ops/quant.py). int8_level: the signed
+// byte at bit `shift`, as its value (v ^ 0x80 is v + 128 unsigned).
+__device__ __forceinline__ float int4_level(uint32_t word, int shift) {
+  return __uint_as_float(0x4B000000u | ((word >> shift) & 0xFu)) -
+         8388616.0f;   // 2^23 + 8
+}
+__device__ __forceinline__ float int8_level(uint32_t word, int shift) {
+  return __uint_as_float(0x4B000000u | (((word >> shift) & 0xFFu) ^ 0x80u)) -
+         8388736.0f;   // 2^23 + 128
+}
+
+__device__ __forceinline__ float load_val(const float* p) { return *p; }
+__device__ __forceinline__ float load_val(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);

@@ -3,16 +3,20 @@
 The port keeps one flat dict ``name -> tensor`` whose names follow the
 reference pytree with the stacked layer axis unrolled:
 
-    embed.tokens [V,D]
+    embed.tokens [V,D]            (embed_quant int8: embed.tokens.q8 [V,D]
+                                   int8 + embed.tokens.rscale [V] f32)
     layers.{i}.attn_norm.scale [D]
-    layers.{i}.{q,k,v,o}.w [din,dout]
+    layers.{i}.{q,k,v,o}.<leaf>
     layers.{i}.mlp_norm.scale [D]
-    layers.{i}.{gate,up,down}.w [din,dout]
+    layers.{i}.{gate,up,down}.<leaf>
     final_norm.scale [D]
-    lm_head.w [D,V]
+    lm_head.<leaf>
 
-Weights keep the reference's [din, dout] layout (y = x @ w), so the bridge
-from a JAX tree is a copy, bitwise, with no transpose.
+where a linear's ``<leaf>`` is, by ``cfg.quant``, ``w`` [din,dout] (float),
+``q`` [din,dout] int8 + ``scale`` [dout] f32 (int8), or ``p4``
+[din/2,dout] uint8 + ``scale`` [dout] f32 (int4; ops/quant.py has the
+layouts). Weights keep the reference's [din, dout] layout (y = x @ w), so
+the bridge from a JAX tree is a copy, bitwise, with no transpose.
 """
 
 from __future__ import annotations
@@ -23,46 +27,77 @@ import numpy as np
 import torch
 
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
+from distributed_llm_inferencing_tpu_torch.ops.quant import (
+    EMBED, LEAF_KEYS, check_modes, refuse_chunked)
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 LAYER_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
 LAYER_NORMS = ("attn_norm", "mlp_norm")
 
 
+def _leaf_shapes(cfg: ModelConfig, prefix: str, din: int, dout: int):
+    if cfg.quant == "int4" and din % 2:
+        raise ValueError(f"{prefix}: int4 packing needs even din, got {din}")
+    rows = din // 2 if cfg.quant == "int4" else din
+    return {f"{prefix}.{k}": (dout,) if k == "scale" else (rows, dout)
+            for k in LEAF_KEYS[cfg.quant or "float"]}
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Name -> shape of every leaf of the llama arm, in init order."""
+    """Name -> shape of every stored tensor of the llama arm under
+    ``cfg.quant`` / ``cfg.embed_quant``, in init order."""
+    check_modes(cfg)
     D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     dims = {"q": (D, cfg.q_dim), "k": (D, cfg.kv_dim), "v": (D, cfg.kv_dim),
             "o": (cfg.q_dim, D), "gate": (D, I), "up": (D, I),
             "down": (I, D)}
-    shapes = {"embed.tokens": (V, D)}
+    shapes = ({f"{EMBED}.q8": (V, D), f"{EMBED}.rscale": (V,)}
+              if cfg.embed_quant else {EMBED: (V, D)})
     for i in range(cfg.num_layers):
         for n in LAYER_NORMS:
             shapes[f"layers.{i}.{n}.scale"] = (D,)
         for n in LAYER_LINEARS:
-            shapes[f"layers.{i}.{n}.w"] = dims[n]
+            shapes.update(_leaf_shapes(cfg, f"layers.{i}.{n}", *dims[n]))
     shapes["final_norm.scale"] = (D,)
-    shapes["lm_head.w"] = (D, V)
+    shapes.update(_leaf_shapes(cfg, "lm_head", D, V))
     return shapes
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 dtype=None) -> Dict[str, torch.Tensor]:
-    """Random weights (normal, std 0.02; norm scales 1), drawn on
-    ``device`` from ``generator`` (which must live on that device).
-    Drawing on the card matters at full width: 8B weights drawn on the
-    host and copied over would take minutes."""
+    """Random weights, drawn on ``device`` from ``generator`` (which must
+    live on that device): float weights normal with std 0.02, norm scales
+    1. With ``cfg.quant`` the linears come out quantized directly, as the
+    JAX package's init does, and the float tree never exists: int8 levels
+    uniform in [-127, 127] with scale 0.02/127; int4 biased nibbles
+    uniform in [1, 15] (levels [-7, 7], what quantization can produce)
+    with scale 0.02/7. ``cfg.embed_quant`` draws the table as int8 levels
+    with row scale 0.02/127. Drawing on the card matters at full width:
+    8B weights drawn on the host and copied over would take minutes."""
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         check_supported)
     check_supported(cfg)
     dtype = torch_dtype(dtype or cfg.dtype)
+    gen = dict(generator=generator, device=device)
     out = {}
     for name, shape in param_shapes(cfg).items():
-        if name.endswith(".scale"):
+        kind = name.rsplit(".", 1)[1]
+        if name.endswith("norm.scale"):
             out[name] = torch.ones(shape, dtype=dtype, device=device)
+        elif kind in ("q", "q8"):
+            out[name] = torch.randint(-127, 128, shape, dtype=torch.int8,
+                                      **gen)
+        elif kind == "p4":
+            lo, hi = (torch.randint(1, 16, shape, dtype=torch.uint8, **gen)
+                      for _ in range(2))
+            out[name] = lo | (hi << 4)
+            del lo, hi
+        elif kind in ("scale", "rscale"):
+            levels = 7.0 if kind == "scale" and cfg.quant == "int4" else 127.0
+            out[name] = torch.full(shape, 0.02 / levels, dtype=torch.float32,
+                                   device=device)
         else:
-            w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=device)
+            w = torch.randn(shape, dtype=torch.float32, **gen)
             out[name] = w.mul_(0.02).to(dtype)
             del w
     return out
@@ -84,44 +119,53 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None
     """The reference's parameter pytree, after
     ``jax.tree.map(np.asarray, params)``, as the port's flat dict.
 
-    Float leaves copy bit for bit (bf16 through its raw 16-bit pattern).
-    Stacked ``[L, ...]`` layer leaves split into per-layer tensors.
-    Quantized leaves (``{"q"}``, ``{"p4"}``, ``{"q8"}``) are not ported.
+    Every leaf copies bit for bit (bf16 through its raw 16-bit pattern;
+    int8 levels, packed int4 bytes and f32 scales as they are). Stacked
+    ``[L, ...]`` layer leaves split into per-layer tensors. ``cfg.quant``
+    and ``cfg.embed_quant`` must describe the tree. A chunk-local int4
+    leaf (``chunked`` marker) raises ``NotImplementedError`` (A12).
     """
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         check_supported)
     check_supported(cfg)
+    expect = param_shapes(cfg)
 
-    def leaf(p, where):
-        if isinstance(p, dict):
-            if any(k in p for k in ("q", "p4", "q8")):
-                raise NotImplementedError(
-                    f"{where}: quantized leaves are not ported yet")
-            raise ValueError(f"{where}: unexpected subtree {sorted(p)}")
-        return p
+    def leaf(p, prefix, keys, stacked):
+        if not isinstance(p, dict):
+            raise ValueError(f"{prefix}: expected a leaf dict, got "
+                             f"{type(p).__name__}")
+        refuse_chunked(p)
+        if set(p) != set(keys):
+            raise ValueError(f"{prefix}: leaf {sorted(p)} does not match "
+                             f"{cfg.name} with quant={cfg.quant!r}, "
+                             f"embed_quant={cfg.embed_quant!r}")
+        for k in keys:
+            a = np.asarray(p[k])
+            if stacked:
+                for i in range(cfg.num_layers):
+                    out[f"layers.{i}.{prefix}.{k}"] = _tensor(a[i], device)
+            else:
+                out[f"{prefix}.{k}"] = _tensor(a, device)
 
-    out = {"embed.tokens": _tensor(leaf(np_tree["embed"]["tokens"],
-                                        "embed.tokens"), device)}
+    out = {}
+    tokens = np_tree["embed"]["tokens"]
+    if isinstance(tokens, dict) or cfg.embed_quant:
+        leaf(tokens, EMBED, ("q8", "rscale"), False)
+    else:
+        out[EMBED] = _tensor(tokens, device)
     layers = np_tree["layers"]
     if "layers_dense" in np_tree:
         raise NotImplementedError("dense-prefix layer segments not ported")
     for n in LAYER_NORMS:
-        stack = np.asarray(layers[n]["scale"])
-        for i in range(cfg.num_layers):
-            out[f"layers.{i}.{n}.scale"] = _tensor(stack[i], device)
+        leaf(layers[n], n, ("scale",), True)
+    keys = LEAF_KEYS[cfg.quant or "float"]
     for n in LAYER_LINEARS:
-        p = layers[n]
-        if set(p) != {"w"}:
-            leaf(p, f"layers.{n}")
-        stack = np.asarray(p["w"])
-        for i in range(cfg.num_layers):
-            out[f"layers.{i}.{n}.w"] = _tensor(stack[i], device)
-    out["final_norm.scale"] = _tensor(np_tree["final_norm"]["scale"], device)
-    head = np_tree["lm_head"]
-    if set(head) != {"w"}:
-        leaf(head, "lm_head")
-    out["lm_head.w"] = _tensor(head["w"], device)
-    expect = param_shapes(cfg)
+        leaf(layers[n], n, keys, True)
+    leaf(np_tree["final_norm"], "final_norm", ("scale",), False)
+    leaf(np_tree["lm_head"], "lm_head", keys, False)
+    if set(out) != set(expect):
+        raise ValueError(f"{cfg.name}: tree names differ from the config's: "
+                         f"{sorted(set(out) ^ set(expect))[:6]}")
     for name, t in out.items():
         if tuple(t.shape) != expect[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != "

@@ -5,8 +5,15 @@ pre-norm RMSNorm, q/k/v/o projections, rotate-half RoPE, gated SiLU MLP,
 untied head. The reference runs its stacked ``[L, ...]`` layers under
 ``lax.scan``; here each layer is its own ``Block`` and the stack is a
 Python loop. A config that switches on anything outside this arm (MoE,
-MLA, ALiBi families, qk-norm, parallel residual, quantization, ...) is
+MLA, ALiBi families, qk-norm, parallel residual, an int8 KV cache, ...) is
 refused at construction rather than served wrong.
+
+Weight-only quantization (ops/quant.py) is in the arm: each linear
+(``Linear``, the reference's ``_linear``) holds its leaf in the stored
+form — float ``w``, int8 ``q`` + ``scale`` (plain torch, as the reference
+leaves it to XLA) or int4 ``p4`` + ``scale`` (``q4_linear``: the
+``q4_matmul`` kernel at decode, ops/quant_matmul.py) — and ``Embed``
+takes the per-row int8 table of ``embed_quant``.
 
 Two attention regimes, as in the reference: prefill attends the fresh K/V
 block (``attend_prefill``), decode attends the cache (``attend_decode``);
@@ -40,6 +47,9 @@ from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
     PagedKVCache, paged_attend_prefix, write_block_run, write_token)
 from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
     paged_flash_decode)
+from distributed_llm_inferencing_tpu_torch.ops.quant import (
+    LEAF_KEYS, leaf_form)
+from distributed_llm_inferencing_tpu_torch.ops.quant_matmul import q4_linear
 from distributed_llm_inferencing_tpu_torch.ops.rope import (
     apply_rope, rope_cos_sin)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import sample_batch
@@ -58,8 +68,7 @@ _LLAMA_ARM = {
     "rope_layers": None, "residual_scale": None, "embed_proj_dim": None,
     "post_norm": False, "kv_lora_rank": None, "q_lora_rank": None,
     "mla_latent_cache": False, "num_experts": 0, "attn_sinks": False,
-    "dense_prefix_layers": 0, "quant": None, "embed_quant": None,
-    "kv_quant": None,
+    "dense_prefix_layers": 0, "kv_quant": None,
 }
 
 
@@ -86,24 +95,57 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.scale, self.eps)
 
 
-class Linear(nn.Module):
-    """y = x @ w with w [din, dout] (the reference layout), in x's dtype."""
+def _leaf(params: Dict[str, torch.Tensor], prefix: str
+          ) -> Dict[str, torch.Tensor]:
+    """The tensors of one leaf of the flat dict: ``prefix.k`` -> ``k``."""
+    n = len(prefix) + 1
+    return {k[n:]: t for k, t in params.items()
+            if k.startswith(prefix + ".")}
 
-    def __init__(self, w: torch.Tensor):
+
+class Linear(nn.Module):
+    """y = x @ W in x's dtype, W [din, dout] (the reference layout) held in
+    its stored form (the reference's ``_linear``): ``{"w"}`` float,
+    ``{"q", "scale"}`` int8 — ``x @ q.to(x.dtype) * scale.to(x.dtype)``,
+    or ``{"p4", "scale"}`` int4 — ``q4_linear``."""
+
+    def __init__(self, leaf: Dict[str, torch.Tensor]):
         super().__init__()
-        self.w = _param(w)
+        self.form = leaf_form(leaf)
+        for k, t in leaf.items():
+            setattr(self, k, _param(t))
+
+    def leaf(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in LEAF_KEYS[self.form]}
 
     def forward(self, x):
+        if self.form == "int4":
+            return q4_linear(x, self.leaf())
+        if self.form == "int8":
+            y = torch.matmul(x, self.q.to(x.dtype))
+            return (y * self.scale.to(x.dtype)).to(x.dtype)
         return torch.matmul(x, self.w).to(x.dtype)
 
 
 class Embed(nn.Module):
-    def __init__(self, tokens: torch.Tensor, dtype: torch.dtype):
+    """Token embedding from a float table, or from the per-row int8 table
+    ``{"q8", "rscale"}``: whole int8 rows gathered, then one scalar
+    multiply per row (the reference's ``embed``)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], dtype: torch.dtype):
         super().__init__()
-        self.tokens = _param(tokens)
+        self.quantized = "embed.tokens" not in params
+        if self.quantized:
+            table = _leaf(params, "embed.tokens")
+            self.q8, self.rscale = (_param(table[k]) for k in ("q8", "rscale"))
+        else:
+            self.tokens = _param(params["embed.tokens"])
         self.dtype = dtype
 
     def forward(self, token_ids):
+        if self.quantized:
+            x = self.q8[token_ids].to(self.dtype)
+            return x * self.rscale[token_ids][..., None].to(self.dtype)
         return F.embedding(token_ids, self.tokens).to(self.dtype)
 
 
@@ -118,7 +160,7 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(p["attn_norm.scale"], cfg.norm_eps)
         self.mlp_norm = RMSNorm(p["mlp_norm.scale"], cfg.norm_eps)
         for n in ("q", "k", "v", "o", "gate", "up", "down"):
-            setattr(self, n, Linear(p[f"{n}.w"]))
+            setattr(self, n, Linear(_leaf(p, n)))
 
     def _kv(self, h, cos_sin):
         cfg = self.cfg
@@ -170,11 +212,16 @@ class Block(nn.Module):
     def paged_decode(self, x, ck, cv, cos_sin, block_tables, context_lens,
                      fused_rope=None):
         """One token per slot at position ``context_lens``. With
-        ``fused_rope`` ((cos, sin) rows of ops/fused_decode.py) the q
-        projection, RoPE and attention run in the fused kernel, which
-        reads this token's K/V back from the pool (the reference's
+        ``fused_rope`` ((cos, sin) rows of ops/fused_decode.py) and a q
+        leaf the fused kernel takes, the q projection (in the leaf's
+        stored form), RoPE and attention run in that kernel, which reads
+        this token's K/V back from the pool (the reference's
         ``fused_q_attend``); otherwise the paged kernel attends q."""
         h = self.attn_norm(x)
+        q_leaf = self.q.leaf()
+        if fused_rope is not None and not fused_decode.supported(
+                self.cfg, q_leaf):
+            fused_rope = None
         if fused_rope is not None:
             k, v = self._kv(h, cos_sin)
         else:
@@ -185,7 +232,7 @@ class Block(nn.Module):
         window = self.cfg.sliding_window
         if fused_rope is not None:
             attn = fused_decode.fused_decode_step(
-                h[:, 0], {"w": self.q.w}, ck, cv, block_tables, new_lens,
+                h[:, 0], q_leaf, ck, cv, block_tables, new_lens,
                 rope_cos=fused_rope[0], rope_sin=fused_rope[1],
                 sliding_window=window)[:, None]
         else:
@@ -203,13 +250,13 @@ class Transformer(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
-        self.embed = Embed(params["embed.tokens"], self.dtype)
+        self.embed = Embed(params, self.dtype)
         self.layers = nn.ModuleList([
             Block(cfg, {k[len(f"layers.{i}."):]: t for k, t in params.items()
                         if k.startswith(f"layers.{i}.")})
             for i in range(cfg.num_layers)])
         self.final_norm = RMSNorm(params["final_norm.scale"], cfg.norm_eps)
-        self.lm_head = Linear(params["lm_head.w"])
+        self.lm_head = Linear(_leaf(params, "lm_head"))
 
     def unembed(self, x):
         """Final norm + logits head, f32."""

@@ -14,10 +14,11 @@ kernel (``csrc/fused_decode.cu``), with q kept on the SM.
   the rotate-half layout with yarn's ``attn_factor`` folded in, from
   ops/rope's table.
 - ``fused_decode_step(x, q_leaf, ...)``: the wrapper. ``q_leaf`` is the
-  q projection's leaf as the JAX package has it; this port runs the float
-  form ``{"w": [D, H*hd]}``. The int8 (``{"q", "scale"}``) and int4
-  (``{"p4", "scale"}``) forms raise ``NotImplementedError`` until the port
-  has quantized leaves.
+  q projection's leaf as the JAX package has it, in any of its three
+  forms: float ``{"w": [D, H*hd]}``, int8 ``{"q", "scale"}`` or int4
+  ``{"p4", "scale"}`` (ops/quant.py layouts). The kernel reads a quantized
+  tile in its stored form and makes the levels in registers; the plain
+  version dequantizes and runs the float one.
 
 The wrapper runs the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises. ``launches`` counts launches.
@@ -37,6 +38,8 @@ from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
     _DTYPE_CODE, _strides, _window)
 from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
     check_paged_inputs, paged_flash_decode_ref)
+from distributed_llm_inferencing_tpu_torch.ops.quant import (
+    LEAF_KEYS, dequantize_weight, leaf_form)
 
 _lib = None
 
@@ -97,25 +100,22 @@ def rope_cos_sin(cfg, positions, head_dim: int):
         cfg.rope_inv_freq, cfg.rope_attn_factor))
 
 
-def _float_weight(q_leaf):
-    if "w" in q_leaf:
-        return q_leaf["w"]
-    if "p4" in q_leaf or "q" in q_leaf:
-        raise NotImplementedError(
-            "fused_decode_step: the int8 and int4 weight forms are not "
-            "ported yet (the port has no quantized leaves)")
-    raise ValueError(f"fused_decode_step: unknown q leaf {sorted(q_leaf)}")
+# weight form -> (the kernel's form code, stored dtype; None: x's)
+_FORMS = {"float": (0, None), "int8": (1, torch.int8),
+          "int4": (2, torch.uint8)}
 
 
 def fused_decode_step_ref(x, q_leaf, k_pool, v_pool, block_tables,
                           context_lens, *, rope_cos=None, rope_sin=None,
                           sliding_window: Optional[int] = None):
-    """Plain version of ``fused_decode_step``: f32 q projection, the
-    rotate-half rotation, then ``paged_flash_decode_ref`` on the f32 q."""
-    w = _float_weight(q_leaf)
+    """Plain version of ``fused_decode_step``: f32 q projection (a
+    quantized leaf dequantized first), the rotate-half rotation, then
+    ``paged_flash_decode_ref`` on the f32 q."""
+    w = (q_leaf["w"].float() if leaf_form(q_leaf) == "float"
+         else dequantize_weight(q_leaf))
     R = x.shape[0]
     hd = k_pool.shape[-1]
-    q = (x.float() @ w.float()).reshape(R, -1, hd)               # [R,H,hd]
+    q = (x.float() @ w).reshape(R, -1, hd)                       # [R,H,hd]
     if rope_cos is not None:
         rot = torch.cat([-q[..., hd // 2:], q[..., :hd // 2]], dim=-1)
         q = q * rope_cos.float()[:, None] + rot * rope_sin.float()[:, None]
@@ -130,7 +130,7 @@ def _kernels():
         lib = build.load("fused_decode")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dli_fused_decode_fwd.argtypes = (
-            [P] * 9 + [I] * 7 + [P, F, I, P])
+            [P] * 10 + [I] * 8 + [P, F, I, P])
         lib.dli_fused_decode_fwd.restype = I
         _lib = lib
     return _lib
@@ -141,34 +141,49 @@ def fused_decode_step(x, q_leaf, k_pool, v_pool, block_tables, context_lens,
                       sliding_window: Optional[int] = None):
     """One fused q projection + RoPE + paged-attention decode step.
 
-    x [R, D] post-attention-norm hidden rows; ``q_leaf`` {"w": [D, H*hd]};
-    k_pool/v_pool [NB,bs,Hkv,hd] already holding this token's K/V (the
-    caller's ``write_token``); block_tables [R,MB] int32; context_lens [R]
-    int32 (fill after this token's write); rope_cos/rope_sin [R, hd] f32
-    or None (no RoPE). Returns attn [R, H, hd] in x's dtype.
+    x [R, D] post-attention-norm hidden rows; ``q_leaf`` {"w": [D, H*hd]}
+    in x's dtype, {"q": int8 [D, H*hd], "scale": f32 [H*hd]} or {"p4":
+    uint8 [D/2, H*hd], "scale"}; k_pool/v_pool [NB,bs,Hkv,hd] already
+    holding this token's K/V (the caller's ``write_token``); block_tables
+    [R,MB] int32; context_lens [R] int32 (fill after this token's write);
+    rope_cos/rope_sin [R, hd] f32 or None (no RoPE). Returns attn
+    [R, H, hd] in x's dtype.
     """
-    w = _float_weight(q_leaf)
+    form = leaf_form(q_leaf)
     if x.device.type == "cpu":
         return fused_decode_step_ref(
             x, q_leaf, k_pool, v_pool, block_tables, context_lens,
             rope_cos=rope_cos, rope_sin=rope_sin,
             sliding_window=sliding_window)
+    code, wdtype = _FORMS[form]
+    w = q_leaf[LEAF_KEYS[form][0]]
     R, D = x.shape
     hd = k_pool.shape[-1]
-    if w.dim() != 2 or w.shape[0] != D or w.shape[1] % hd:
-        raise ValueError(f"fused_decode_step: w {tuple(w.shape)} does not "
-                         f"match x {tuple(x.shape)} and head_dim {hd}")
+    rows = D // 2 if form == "int4" else D
+    if w.dim() != 2 or w.shape[0] != rows or w.shape[1] % hd \
+            or (form == "int4" and D % 2):
+        raise ValueError(f"fused_decode_step: {form} weight "
+                         f"{tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)} and head_dim {hd}")
     H = w.shape[1] // hd
     check_paged_inputs("fused_decode_step", x, k_pool, v_pool, block_tables,
                        context_lens, H, hd)
     if block_tables.shape[0] != R or w.device != x.device \
-            or w.dtype != x.dtype:
-        raise ValueError("fused_decode_step: x, w and the tables must agree "
-                         "on R, device and dtype")
+            or w.dtype != (wdtype or x.dtype):
+        raise ValueError("fused_decode_step: x, the weight and the tables "
+                         "must agree on R and device, and the weight be "
+                         f"{wdtype or x.dtype}")
     if D % 8 or any(t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16
                     for t in (x, w)):
-        raise ValueError("fused_decode_step: x and w need D % 8 == 0, "
-                         "contiguous rows and 16-byte aligned row starts")
+        raise ValueError("fused_decode_step: x and the weight need D % 8 == "
+                         "0, contiguous rows and 16-byte aligned row starts")
+    wscale = None
+    if form != "float":
+        wscale = q_leaf["scale"]
+        if (wscale.shape != (H * hd,) or wscale.dtype != torch.float32
+                or wscale.device != x.device or not wscale.is_contiguous()):
+            raise ValueError("fused_decode_step: scale must be [H*hd] "
+                             "float32, contiguous, on x's device")
     if (rope_cos is None) != (rope_sin is None):
         raise ValueError("fused_decode_step: pass both rope_cos and rope_sin "
                          "or neither")
@@ -186,11 +201,12 @@ def fused_decode_step(x, q_leaf, k_pool, v_pool, block_tables, context_lens,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dli_fused_decode_fwd(
             x.data_ptr(), w.data_ptr(),
+            None if wscale is None else wscale.data_ptr(),
             None if rope_cos is None else rope_cos.data_ptr(),
             None if rope_sin is None else rope_sin.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(),
-            _DTYPE_CODE[x.dtype], R, D, H, k_pool.shape[2], hd,
+            _DTYPE_CODE[x.dtype], code, R, D, H, k_pool.shape[2], hd,
             k_pool.shape[1],
             _strides((x, (0,)), (w, (0,)), (cs, (0,)), (block_tables, (0,)),
                      (k_pool, (0, 1, 2)), (v_pool, (0, 1, 2)),

@@ -1,0 +1,151 @@
+"""int4 weight-only matmul: the ``q4_matmul`` CUDA kernel, its plain
+version, the gate and the linear's dispatch.
+
+Counterpart of the JAX package's ``ops/pallas/quant_matmul.py``. The
+kernel (``csrc/quant_matmul.cu``) computes ``x [b, din] @ unpack(p4
+[din/2, dout]) * scale [dout]`` with the split-half packing of
+ops/quant.py, unpacking the nibbles in registers: the unpacked weight
+never reaches device memory, so a decode step reads half a byte per
+weight.
+
+- ``supported(rows, din, dout)``: the gate. Decode-shaped calls (rows <=
+  ``MAX_PALLAS_ROWS`` = 32, the JAX package's bound) go to the kernel;
+  prefill-sized ones take the plain unpack, where one unpacked weight
+  serves many rows. The JAX thresholds ``din // 2 >= 32`` and ``dout >=
+  128`` came from the TPU's (8, 128) tiling; the CUDA kernel's own
+  constraints replace them: an even ``din`` (split-half packing) and
+  ``dout % 8 == 0`` (each thread reads 8 neighbouring columns of a packed
+  row in one 8-byte load).
+- ``q4_matmul(x, p4, scale)``: the kernel's wrapper; ``launches`` counts
+  its launches. f32 products and sums, times the f32 scale, one rounding
+  to x's dtype (the JAX kernel's numerics).
+- ``q4_matmul_ref``: the plain version: unpack, f32 matmul, times scale.
+- ``q4_linear(x, leaf)``: an int4 linear with any leading dims on x.
+  Decode-shaped calls take ``q4_matmul``; the rest unpack and run
+  ``torch.matmul`` in x's dtype, then ``* scale.to(x.dtype)`` (the product
+  the JAX package leaves to XLA). The two routes round differently in
+  bf16.
+
+The wrapper runs the plain version only for a CPU tensor; for a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from distributed_llm_inferencing_tpu_torch.ops import build
+from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
+    _DTYPE_CODE)
+from distributed_llm_inferencing_tpu_torch.ops.quant import (
+    refuse_chunked, unpack_int4)
+
+MAX_PALLAS_ROWS = 32
+_TILE_N = 256          # columns per block (csrc/quant_matmul.cu kTileN)
+_ROWS_PER_BLOCK = 8    # x rows per block (kRowsMax)
+_MIN_SPLIT_ROWS = 64   # packed rows per contraction split, at least
+_lib = None
+
+
+def supported(rows: int, din: int, dout: int) -> bool:
+    """Gate of the kernel route (see the module note)."""
+    return 1 <= rows <= MAX_PALLAS_ROWS and din % 2 == 0 and din >= 2 \
+        and dout % 8 == 0 and dout >= 8
+
+
+def ksplit(rows: int, din: int, dout: int, sms: int) -> int:
+    """How many blocks share the contraction: enough for about two
+    blocks per SM, each with at least ``_MIN_SPLIT_ROWS`` packed rows."""
+    blocks = -(-dout // _TILE_N) * -(-rows // _ROWS_PER_BLOCK)
+    half = din // 2
+    want = -(-2 * sms // blocks)
+    ks = max(1, min(want, half // _MIN_SPLIT_ROWS))
+    return -(-half // -(-half // ks))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def q4_matmul_ref(x, p4, scale):
+    """Plain version: unpack, f32 matmul, times the f32 scale, one
+    rounding to x's dtype."""
+    w = unpack_int4(p4).float()
+    return ((x.float() @ w) * scale.float()).to(x.dtype)
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        lib = build.load("quant_matmul")
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dli_q4_matmul.argtypes = [P] * 5 + [I] * 4 + [LL, LL, I, P]
+        lib.dli_q4_matmul.restype = I
+        _lib = lib
+    return _lib
+
+
+def q4_matmul(x, p4, scale):
+    """x [b, din] @ unpack(p4 [din/2, dout] uint8) * scale [dout] f32 ->
+    [b, dout] in x's dtype; b <= MAX_PALLAS_ROWS on the card."""
+    if x.device.type == "cpu":
+        return q4_matmul_ref(x, p4, scale)
+    if x.dim() != 2 or p4.dim() != 2 or scale.dim() != 1:
+        raise ValueError(f"q4_matmul: x {tuple(x.shape)}, p4 "
+                         f"{tuple(p4.shape)}, scale {tuple(scale.shape)}")
+    b, din = x.shape
+    dout = p4.shape[1]
+    if x.dtype not in _DTYPE_CODE or p4.dtype != torch.uint8 \
+            or scale.dtype != torch.float32:
+        raise TypeError("q4_matmul: takes float32/bfloat16 x, uint8 p4, "
+                        f"float32 scale; got {x.dtype}/{p4.dtype}/"
+                        f"{scale.dtype}")
+    if not supported(b, din, dout) or p4.shape[0] * 2 != din \
+            or scale.shape[0] != dout:
+        raise ValueError(f"q4_matmul: shapes x {tuple(x.shape)}, p4 "
+                         f"{tuple(p4.shape)}, scale {tuple(scale.shape)} "
+                         "outside the kernel (see supported())")
+    if not all(t.is_cuda and t.device == x.device for t in (p4, scale)):
+        raise ValueError("q4_matmul: x, p4 and scale must lie on one CUDA "
+                         "device")
+    if x.stride(1) != 1 or not p4.is_contiguous() or p4.data_ptr() % 8 \
+            or not scale.is_contiguous():
+        raise ValueError("q4_matmul: x needs a contiguous last dim; p4 and "
+                         "scale must be contiguous, p4 8-byte aligned")
+    ks = ksplit(b, din, dout, _sm_count(x.device.index))
+    out = torch.empty((b, dout), dtype=x.dtype, device=x.device)
+    part = (torch.empty((ks, b, dout), dtype=torch.float32, device=x.device)
+            if ks > 1 else None)
+    lib = _kernels()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dli_q4_matmul(
+            x.data_ptr(), p4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), _DTYPE_CODE[x.dtype],
+            b, din, dout, x.stride(0), out.stride(0), ks, stream)
+    build.check(lib, err, "q4_matmul kernel launch")
+    q4_matmul.launches += 1
+    return out
+
+
+q4_matmul.launches = 0
+
+
+def q4_linear(x, leaf):
+    """An int4 linear over ``leaf`` {"p4", "scale"} with any leading dims
+    on x (the JAX package's ``q4_linear``, single device)."""
+    refuse_chunked(leaf)
+    p4, scale = leaf["p4"], leaf["scale"]
+    din, dout = x.shape[-1], p4.shape[-1]
+    lead = x.shape[:-1]
+    rows = math.prod(lead)
+    if p4.dim() == 2 and supported(rows, din, dout):
+        y = q4_matmul(x.reshape(rows, din), p4, scale).reshape(*lead, dout)
+    else:
+        y = torch.matmul(x, unpack_int4(p4).to(x.dtype)) * scale.to(x.dtype)
+    return y.to(x.dtype)

@@ -1,9 +1,11 @@
 """Where a batched decode step spends its time on the GPU.
 
     python -m distributed_llm_inferencing_tpu_torch.profile_batched \
-        [--model llama-3-8b] [--slots 8] [--new 32] [--reps 2]
+        [--model llama-3-8b] [--slots 8] [--new 32] [--reps 2] \
+        [--quantize int8|int4]
 
-Builds a ``ContinuousBatcher`` on the card (random bf16 weights, 1024
+Builds a ``ContinuousBatcher`` on the card (random weights, bf16
+activations, ``--quantize`` for int8 or int4 linears; 1024
 blocks of 16, max_seq 4096) and drives it synchronously: all requests
 are queued, one admission wave fills every slot, and one ``step()`` then
 decodes all of them together in one chunk. For each decode route (``paged``: ``paged_flash_decode``;
@@ -12,7 +14,7 @@ warm-up round, ``--reps`` timed rounds (admission wave ms, decode chunk
 ms per weight pass, decode tokens per weight pass), and one round with
 the decode chunk under ``torch.profiler``: device time by kernel and the
 device's busy share of the chunk's wall time (one stream, so kernels
-never overlap).
+never overlap), with ``q4_matmul``'s time per launch in int4.
 Prints one JSON object. Needs a GPU.
 """
 
@@ -63,6 +65,7 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--new", type=int, default=32)
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--quantize", choices=("int8", "int4"), default=None)
     args = ap.parse_args(argv)
 
     import torch
@@ -79,11 +82,12 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    cfg = get_config(args.model)
+    cfg = get_config(args.model).replace(quant=args.quantize)
     prompts = [[(i * 7919 + j * 104729) % 30000 + 3 for j in range(n)]
                for i, n in enumerate(PROMPT_LENS[:args.slots])]
     sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
-    out = {"smi": smi, "model": args.model, "slots": args.slots,
+    out = {"smi": smi, "model": args.model, "quantize": args.quantize,
+           "slots": args.slots,
            "prompt_tokens": list(PROMPT_LENS[:args.slots]),
            "new_tokens": args.new, "routes": {}}
     for route in ("paged", "fused"):
@@ -105,19 +109,24 @@ def main(argv=None):
                                     "calls": evt.count}
         device_ms = sum(k["device_ms"] for k in kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])
-        attn = [v for k, v in kernels.items()
-                if "paged_decode_kernel" in k or "fused_decode_kernel" in k]
-        n = sum(v["calls"] for v in attn)
-        ms = sum(v["device_ms"] for v in attn)
+        def per_launch(*names):
+            hits = [v for k, v in kernels.items()
+                    if any(n in k for n in names)]
+            n = sum(v["calls"] for v in hits)
+            ms = sum(v["device_ms"] for v in hits)
+            return {"calls": n, "device_ms": ms,
+                    "us_per_launch": 1e3 * ms / n if n else None}
+
         out["routes"][route] = {
             "timed_rounds": reps,
             "profiled_round": {
                 **prof_round, "device_kernel_ms": device_ms,
                 "device_busy_share":
                     device_ms / prof_round["decode_chunk_ms"],
-                "attention_kernel": {"calls": n, "device_ms": ms,
-                                     "us_per_launch":
-                                         1e3 * ms / n if n else None},
+                "attention_kernel": per_launch("paged_decode_kernel",
+                                               "fused_decode_kernel"),
+                "q4_matmul_kernel": per_launch("q4_matmul_kernel<",
+                                               "q4_finish_kernel<"),
                 "top_kernels": [{"name": k[:90], **v}
                                 for k, v in top[:12]]},
         }

@@ -1,15 +1,18 @@
 """Where an engine-mode request spends its time on the GPU.
 
     python -m distributed_llm_inferencing_tpu_torch.profile_engine \
-        [--model llama-3-8b] [--prompt 500] [--new 32] [--reps 3]
+        [--model llama-3-8b] [--prompt 500] [--new 32] [--reps 3] \
+        [--quantize int8|int4]
 
-Loads the model with random weights (bf16) on the card, runs one request
+Loads the model with random weights (bf16 activations; ``--quantize``
+draws the linears as int8 or int4 weights) on the card, runs one request
 to warm up (first-use cuBLAS and kernel loading), then ``--reps`` timed
 greedy requests (prefill ms and decode tokens/s from CUDA events), then
 one request under ``torch.profiler``: device time by kernel, the two
 attention kernels' time per launch, and the device's busy share of the
 decode wall time (sum of kernel time over wall time; one stream, so
-kernels never overlap). Prints one JSON object. Needs a GPU.
+kernels never overlap), with ``q4_matmul``'s time per launch in int4.
+Prints one JSON object. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ def main(argv=None):
     ap.add_argument("--new", type=int, default=32)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--max-seq", type=int, default=4096)
+    ap.add_argument("--quantize", choices=("int8", "int4"), default=None)
     args = ap.parse_args(argv)
 
     import torch
@@ -43,7 +47,7 @@ def main(argv=None):
     from distributed_llm_inferencing_tpu_torch.models.registry import (
         get_config)
     from distributed_llm_inferencing_tpu_torch.ops import (
-        flash_attention as fa)
+        flash_attention as fa, quant_matmul as qm)
     from distributed_llm_inferencing_tpu_torch.ops.sampling import (
         SamplingParams)
     from distributed_llm_inferencing_tpu_torch.runtime.engine import (
@@ -53,7 +57,8 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    cfg = get_config(args.model).replace(dtype=args.dtype)
+    cfg = get_config(args.model).replace(dtype=args.dtype,
+                                         quant=args.quantize)
     eng = InferenceEngine(cfg, max_seq=args.max_seq, device="cuda")
     prompt = [(i * 7919) % 30000 + 3 for i in range(args.prompt)]
     greedy = SamplingParams.greedy()
@@ -90,6 +95,7 @@ def main(argv=None):
 
     out = {
         "smi": smi, "model": args.model, "dtype": args.dtype,
+        "quantize": args.quantize,
         "prompt_tokens": args.prompt, "new_tokens": args.new,
         "warm_requests": reps,
         "profiled_request": {
@@ -98,10 +104,13 @@ def main(argv=None):
             "device_busy_share": device_ms / wall_ms,
             "prefill_kernel": per_launch("prefill_kernel<"),
             "decode_kernel": per_launch("decode_kernel<"),
+            "q4_matmul_kernel": per_launch("q4_matmul_kernel<"),
+            "q4_finish_kernel": per_launch("q4_finish_kernel<"),
             "top_kernels": [{"name": k[:90], **v} for k, v in top],
         },
         "launches": {"flash_attention": fa.flash_attention.launches,
-                     "flash_decode": fa.flash_decode.launches},
+                     "flash_decode": fa.flash_decode.launches,
+                     "q4_matmul": qm.q4_matmul.launches},
     }
     print(json.dumps(out), flush=True)
 

@@ -47,6 +47,8 @@ from distributed_llm_inferencing_tpu_torch.models.transformer import (
     Transformer)
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
     init_paged_cache)
+from distributed_llm_inferencing_tpu_torch.ops.quant import (
+    maybe_quantize, maybe_quantize_embed)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import (
     SamplingParams, sample_batch)
 from distributed_llm_inferencing_tpu_torch.runtime.block_pool import (
@@ -168,8 +170,9 @@ class ContinuousBatcher:
         if params is None:
             params = init_params(
                 cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-        else:
-            params = {k: t.to(dev) for k, t in params.items()}
+        else:   # as the engine: quantize a float tree on the device
+            params = maybe_quantize_embed(maybe_quantize(
+                {k: t.to(dev) for k, t in params.items()}, cfg), cfg)
         self.params = params
         self.model = Transformer(cfg, params)
 

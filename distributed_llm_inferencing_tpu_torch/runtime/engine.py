@@ -32,6 +32,8 @@ from distributed_llm_inferencing_tpu_torch.models.params import (
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
     Transformer)
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
+from distributed_llm_inferencing_tpu_torch.ops.quant import (
+    maybe_quantize, maybe_quantize_embed)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import (
     SamplingParams, sample)
 from distributed_llm_inferencing_tpu_torch.utils.device import resolve_device
@@ -116,7 +118,10 @@ class InferenceEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, self.device)
         else:
-            params = {k: t.to(self.device) for k, t in params.items()}
+            # weight-only quantization of a float tree (ops/quant.py), on
+            # the device, one weight at a time; a quantized tree passes
+            params = maybe_quantize_embed(maybe_quantize(
+                {k: t.to(self.device) for k, t in params.items()}, cfg), cfg)
         self.params = params
         self.model = Transformer(cfg, params)
         self._buckets_seen = set()

@@ -4,10 +4,14 @@ Speaks the reference worker's wire protocol for the routes the port has,
 so a master can drive either worker:
 
 - ``GET /health``: status, device inventory from torch.cuda (``platform``,
-  ``kind``, ``count``), loaded models (with ``serving`` and, for batched
-  models, the scheduler's stats), metrics.
+  ``kind``, ``count``), loaded models (with ``serving``, the weight
+  quantization, ``param_bytes`` — the bytes the weights take as stored —
+  and, for batched models, the scheduler's stats), metrics.
 - ``POST /load_model``: ``model_name``, ``allow_random_init``, ``dtype``,
-  ``max_seq`` — builds an ``InferenceEngine`` (engine mode, the default),
+  ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
+  ops/quant.py), ``embed_quantize`` (``"int8"``: the per-row int8
+  embedding table) — builds an ``InferenceEngine`` (engine mode, the
+  default),
   or with ``"serving": "batched"`` a ``ContinuousBatcher`` over a paged KV
   pool (``kv_blocks``, ``kv_block_size``, ``slots``, ``prefill_chunk``,
   ``decode_chunk_cap``) whose scheduler thread serves concurrent
@@ -21,8 +25,9 @@ so a master can drive either worker:
 
 Fields of the reference protocol that the port does not implement yet —
 ``speculative``, ``kv_host_mb``, ``kv_source``, ``kv_export``,
-``adapter``, ``resume``, ``request_tag``, ``quantize``, ``kv_quantize``,
-checkpoint paths — get a 400, never a silent ignore.
+``adapter``, ``resume``, ``request_tag``, ``kv_quantize`` (the int8 KV
+cache), checkpoint paths — get a 400, never a silent ignore; so does a
+``quantize`` or ``embed_quantize`` value outside the modes above.
 
 Run: ``python -m distributed_llm_inferencing_tpu_torch worker --port 8100``
 (``--device cpu`` for the plain-PyTorch path without a GPU).
@@ -37,7 +42,9 @@ from typing import Dict
 
 import torch
 
+from distributed_llm_inferencing_tpu_torch.models.params import param_bytes
 from distributed_llm_inferencing_tpu_torch.models.registry import get_config
+from distributed_llm_inferencing_tpu_torch.ops.quant import MODES
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
 from distributed_llm_inferencing_tpu_torch.runtime import httpd
 from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
@@ -50,9 +57,8 @@ from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
 from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
     load_tokenizer)
 
-_UNPORTED_LOAD = ("quantize", "kv_quantize", "embed_quantize",
-                  "checkpoint_path", "native_checkpoint", "mesh",
-                  "speculative", "kv_host_mb")
+_UNPORTED_LOAD = ("kv_quantize", "checkpoint_path", "native_checkpoint",
+                  "mesh", "speculative", "kv_host_mb")
 _UNPORTED_INFER = ("speculative", "adapter", "resume", "kv_source",
                    "kv_export", "request_tag")
 _DTYPES = ("bfloat16", "float32")
@@ -74,14 +80,16 @@ class LoadedModel:
         return (self.batcher or self.engine).cfg
 
     def describe(self, name: str) -> dict:
+        owner = self.batcher or self.engine
+        out = {"name": name, "source": self.source,
+               "serving": "batched" if self.batcher else "engine",
+               "max_seq": owner.max_seq, "device": str(owner.device),
+               "quantize": owner.cfg.quant,
+               "embed_quantize": owner.cfg.embed_quant,
+               "param_bytes": param_bytes(owner.params)}
         if self.batcher is not None:
-            b = self.batcher
-            return {"name": name, "source": self.source,
-                    "serving": "batched", "max_seq": b.max_seq,
-                    "device": str(b.device), "scheduler": b.stats()}
-        return {"name": name, "source": self.source, "serving": "engine",
-                "max_seq": self.engine.max_seq,
-                "device": str(self.engine.device)}
+            out["scheduler"] = self.batcher.stats()
+        return out
 
 
 def _unported(body, fields):
@@ -164,6 +172,16 @@ class WorkerAgent:
                 return 400, {"status": "error",
                              "message": f"dtype must be one of {_DTYPES}"}
             cfg = cfg.replace(dtype=body["dtype"])
+        if body.get("quantize"):
+            if body["quantize"] not in MODES:
+                return 400, {"status": "error",
+                             "message": f"quantize must be one of {MODES}"}
+            cfg = cfg.replace(quant=body["quantize"])
+        if body.get("embed_quantize"):
+            if body["embed_quantize"] != "int8":
+                return 400, {"status": "error",
+                             "message": "embed_quantize must be 'int8'"}
+            cfg = cfg.replace(embed_quant=body["embed_quantize"])
         tok = load_tokenizer(body.get("tokenizer_path"), cfg.vocab_size)
         try:
             if body.get("serving") == "batched":

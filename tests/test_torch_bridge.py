@@ -60,11 +60,20 @@ def test_params_from_jax_is_bitwise(name, dtype):
 
 
 def test_params_from_jax_refuses_quantized_leaves():
-    cfg = jreg.get_config("tiny-llama").replace(dtype="float32", quant="int8")
-    tree = jax.tree.map(np.asarray, jax_init_params(cfg, jax.random.PRNGKey(0)))
+    """Quantized leaves the port does not serve are refused: a chunk-local
+    int4 pack (row-parallel layout, A12), and quantized leaves under a
+    config that says the weights are float."""
+    from distributed_llm_inferencing_tpu.ops.quant import repack_int4_rows
+    cfg = jreg.get_config("tiny-llama").replace(dtype="float32", quant="int4")
+    params = jax_init_params(cfg, jax.random.PRNGKey(0))
+    params["layers"]["o"] = repack_int4_rows(params["layers"]["o"], 2)
+    tree = jax.tree.map(np.asarray, params)
+    tcfg = treg.get_config("tiny-llama").replace(dtype="float32")
     with pytest.raises(NotImplementedError):
-        params_from_jax(tree, treg.get_config("tiny-llama").replace(
-            dtype="float32"), device="cpu")
+        params_from_jax(tree, tcfg.replace(quant="int4"), device="cpu")
+    del tree["layers"]["o"]["chunked"]
+    with pytest.raises(ValueError):
+        params_from_jax(tree, tcfg, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["llama-3-8b", "llama-3-70b", "mistral-7b",

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card:
-flash_attention, flash_decode, paged_flash_decode and fused_decode_step.
+flash_attention, flash_decode, paged_flash_decode, fused_decode_step (float,
+int8 and int4 weight forms) and q4_matmul.
 
 Marked ``cuda``: each test skips where no CUDA device is visible (the
 decision is made inside the test, never at import). On a GPU machine run
@@ -7,7 +8,9 @@ decision is made inside the test, never at import). On a GPU machine run
 Tolerances: f32 2e-5 (summation order only); bf16 rtol = atol = 1e-2
 (both sides round one f32 result to bf16, one ulp is 2^-7 relative); the
 paged and fused decodes in bf16 rtol 2^-7, atol 1e-4 (at most one ulp
-apart, plus the f32 summation-order error).
+apart, plus the f32 summation-order error). q4_matmul: the f32
+summation-order bound 2 * din * 2^-24 * (|x| @ |levels|) * scale, plus one
+bf16 ulp (2^-7 |ref|) in bf16.
 """
 
 import numpy as np
@@ -17,6 +20,8 @@ import torch
 from distributed_llm_inferencing_tpu_torch.ops import flash_attention as fa
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode as fd
 from distributed_llm_inferencing_tpu_torch.ops import paged_attention as pa
+from distributed_llm_inferencing_tpu_torch.ops import quant as tq
+from distributed_llm_inferencing_tpu_torch.ops import quant_matmul as qm
 from distributed_llm_inferencing_tpu_torch.ops.attention import alibi_slopes
 
 
@@ -200,7 +205,99 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take():
         pa.paged_flash_decode(q, k_pool, v_pool, bt.long(), lens)
     with pytest.raises(TypeError):      # dtype mix
         pa.paged_flash_decode(q.bfloat16(), k_pool, v_pool, bt, lens)
-    with pytest.raises(NotImplementedError):
-        fd.fused_decode_step(torch.zeros(2, 32, device=dev),
-                             {"q": None, "scale": None}, k_pool, v_pool, bt,
-                             lens)
+    x = torch.zeros(2, 32, device=dev)
+    with pytest.raises(NotImplementedError):      # chunk-local int4 (A12)
+        fd.fused_decode_step(x, {"p4": None, "scale": None, "chunked": None},
+                             k_pool, v_pool, bt, lens)
+    q8 = torch.zeros(32, 64, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):               # f64 scale
+        fd.fused_decode_step(x, {"q": q8, "scale": torch.ones(
+            64, dtype=torch.float64, device=dev)}, k_pool, v_pool, bt, lens)
+    p4 = torch.zeros(16, 64, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):               # rows 33 > 32
+        qm.q4_matmul(torch.zeros(33, 32, device=dev), p4,
+                     torch.ones(64, device=dev))
+    with pytest.raises(TypeError):                # int8 weight as p4
+        qm.q4_matmul(torch.zeros(2, 32, device=dev), p4.to(torch.int8),
+                     torch.ones(64, device=dev))
+
+
+def _fused_quant_case(g, dev, form, D, H, hd):
+    w = torch.randn(D, H * hd, generator=g, device=dev) / D ** 0.5
+    return (tq.quantize_weight if form == "int8"
+            else tq.quantize_weight_int4)(w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["int8", "int4"])
+@pytest.mark.parametrize("lengths,H,Hkv,hd,D,bs,rope,window", [
+    ([7, 21, 12], 4, 2, 16, 32, 8, True, None),    # GQA
+    ([7, 21, 12], 4, 1, 16, 32, 8, True, None),    # MQA
+    ([19, 8], 4, 4, 16, 32, 8, False, 5),          # MHA, no RoPE, window
+    ([1, 15, 16, 17, 300, 1000, 4096, 0], 32, 8, 128, 4096, 16, True,
+     None),                                        # llama-3-8b width
+])
+def test_fused_decode_quantized_forms_match_ref(dtype, form, lengths, H, Hkv,
+                                                hd, D, bs, rope, window):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    k_pool, v_pool, bt, lens = _paged_case(g, dev, dtype, lengths, H, Hkv,
+                                           hd, bs)
+    R = len(lengths)
+    x = _rand(g, (R, D), dtype, dev)
+    leaf = _fused_quant_case(g, dev, form, D, H, hd)
+    cos = sin = None
+    if rope:
+        ang = torch.rand(R, hd // 2, generator=g, device=dev) * 6.0
+        cos = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
+        sin = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
+    kw = dict(rope_cos=cos, rope_sin=sin, sliding_window=window)
+    n0 = fd.fused_decode_step.launches
+    out = fd.fused_decode_step(x, leaf, k_pool, v_pool, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert fd.fused_decode_step.launches == n0 + 1
+    ref = fd.fused_decode_step_ref(x, leaf, k_pool, v_pool, bt, lens, **kw)
+    # the float form's bars: the kernel scales the f32 sum of x * levels,
+    # the plain version sums x * (levels * scale)
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else _paged_tol(dtype))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def q4_bound(x, p4, scale):
+    """|kernel - plain| allowed for q4_matmul: both sum din f32 products in
+    some order, each within din * 2^-24 * sum|x * w| of the exact sum;
+    bf16 output adds one ulp."""
+    din = x.shape[1]
+    mag = (x.float().abs() @ tq.unpack_int4(p4).float().abs()) * scale
+    return 2 * din * 2.0 ** -24 * mag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,din,dout", [
+    (1, 64, 128), (4, 64, 192), (8, 128, 384), (3, 96, 160),   # JAX parity
+    (1, 4096, 1024), (8, 4096, 4096), (32, 14336, 4096),       # llama-3-8b
+    (5, 4096, 14336), (2, 16, 8), (13, 256, 264),
+])
+def test_q4_matmul_kernel_matches_ref(dtype, rows, din, dout):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(rows * din + dout)
+    leaf = tq.quantize_weight_int4(
+        torch.randn(din, dout, generator=g, device=dev) / din ** 0.5)
+    x = _rand(g, (rows, din), dtype, dev)
+    n0 = qm.q4_matmul.launches
+    out = qm.q4_matmul(x, leaf["p4"], leaf["scale"])
+    torch.cuda.synchronize()
+    assert qm.q4_matmul.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == (rows, dout)
+    ref = qm.q4_matmul_ref(x, leaf["p4"], leaf["scale"])
+    bound = q4_bound(x, leaf["p4"], leaf["scale"])
+    if dtype == torch.bfloat16:
+        bound = bound + 2 ** -7 * ref.float().abs()
+    err = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out.float()).all()
+    assert bool((err <= bound).all()), float((err - bound).max())
+    again = qm.q4_matmul(x, leaf["p4"], leaf["scale"])
+    assert torch.equal(out, again)     # no float atomics: the same bits

@@ -69,7 +69,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("module", [
     "ops/paged_attention.py", "ops/fused_decode.py", "ops/paged_kvcache.py",
     "ops/sampling.py", "models/transformer.py", "runtime/block_pool.py",
-    "runtime/batcher.py", "runtime/worker.py",
+    "runtime/batcher.py", "runtime/worker.py", "ops/quant.py",
+    "ops/quant_matmul.py", "models/params.py",
 ])
 def test_batched_serving_modules_are_scanned_and_clean(module):
     path = os.path.join(PORT, *module.split("/"))

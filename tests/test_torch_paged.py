@@ -134,13 +134,24 @@ def test_fused_decode_step_matches_pallas_interpret(gqa, rope, window):
 
 
 def test_fused_quantized_forms_are_refused():
+    """Chunk-local int4 packs (the JAX package's row-parallel layout) and
+    leaves of no known form are refused; the int8 and int4 forms run."""
     z = torch.zeros(2, 32)
     pool = torch.zeros(4, 8, 2, 16)
     bt = torch.ones(2, 1, dtype=torch.int32)
     lens = torch.ones(2, dtype=torch.int32)
-    for leaf in ({"q": z, "scale": z}, {"p4": z, "scale": z}):
-        with pytest.raises(NotImplementedError):
-            tfd.fused_decode_step(z, leaf, pool, pool, bt, lens)
+    scale = torch.ones(64)
+    chunked = {"p4": torch.zeros(16, 64, dtype=torch.uint8), "scale": scale,
+               "chunked": torch.zeros(2, 0, dtype=torch.int8)}
+    with pytest.raises(NotImplementedError):
+        tfd.fused_decode_step(z, chunked, pool, pool, bt, lens)
+    with pytest.raises(ValueError):
+        tfd.fused_decode_step(z, {"q": z, "p4": z}, pool, pool, bt, lens)
+    for leaf in ({"q": torch.zeros(32, 64, dtype=torch.int8), "scale": scale},
+                 {"p4": torch.full((16, 64), 0x88, dtype=torch.uint8),
+                  "scale": scale}):
+        out = tfd.fused_decode_step(z, leaf, pool, pool, bt, lens)
+        assert out.shape == (2, 4, 16) and (out == 0).all()
 
 
 @pytest.mark.parametrize("over,leaf", [

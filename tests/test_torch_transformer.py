@@ -92,7 +92,8 @@ def test_gather_keeps_only_the_last_real_row():
 @pytest.mark.parametrize("over", [
     {"num_experts": 4}, {"position_embedding": "alibi"},
     {"qk_norm": "rms_head"}, {"parallel_residual": True},
-    {"quant": "int8"}, {"kv_quant": "int8"}, {"tie_word_embeddings": True},
+    {"attn_softcap": 30.0}, {"kv_quant": "int8"},
+    {"tie_word_embeddings": True},
 ])
 def test_configs_outside_the_llama_arm_raise(over):
     cfg = get_config("tiny-llama").replace(dtype="float32", **over)
