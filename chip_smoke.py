@@ -69,6 +69,28 @@ Phases (any failure fails the run, exit code != 0):
    route, against an f32 forward over the same weights dequantized; the
    kernel route's worst logit error must stay within ROUTE_ERR_FACTOR x
    the unpack route's.
+10. Tensor parallelism: the worker loads llama-3-8b (full width and
+   depth) with "mesh": {"tp": 2} in engine mode, bf16 and then int4, and
+   serves phase 3's three requests in each. The leader (this process)
+   spawns one follower; both ranks sit on this machine's card (their
+   data collectives over gloo) or on two cards (NCCL), as printed. Every
+   rank's counts are zeroed before each request and held after it: one
+   flash_attention per layer, one flash_decode per layer per decode step;
+   in int4 per decode step q4_matmul_row 2 x L (o, down) and q4_matmul
+   5 x L + 1 (q, k, v, gate, up, head; one more for the prefill's head
+   row); per weight pass 2 x L + 1 all-reduces (o, down, embedding), one
+   logits gather and one token broadcast. The unload must leave no
+   follower alive.
+11. tp=2 against tp=1 on the same weights: full width, 2 layers, f32,
+   float and int4, a teacher-forced prefill plus 8 decode steps within
+   XCHECK_TOL; then phase 9's prompts and tokens through int4 tp=2 at full
+   depth (bf16), whose worst logit error against phase 9's f32 forward
+   must stay within ROUTE_ERR_FACTOR x the tp=1 q4 route's.
+
+Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
+launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
+chunks, b in {1, 8, 32}, bf16 and f32, and times it on a tp=2 rank's
+chunk.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no GPU, or without the port
@@ -421,9 +443,9 @@ def q4_bound_ms(b, din, dout, es=2):
 
 
 def int4_row_bounds(cfg, rows=(1, 8), tp=2):
-    """Bounds of the kernel not ported yet, q4_matmul_row: the row-parallel
-    twin of q4_matmul runs the same work on a din/tp shard of o and down
-    (its all-reduce is not counted)."""
+    """Bounds of q4_matmul_row on one tp rank: the row-parallel twin of
+    q4_matmul runs the same work on a din/tp shard of o and down (the
+    all-reduce after it is not counted)."""
     D, I = cfg.hidden_size, cfg.intermediate_size
     lin = {"o": (cfg.num_heads * cfg.head_dim, D), "down": (I, D)}
     out = {}
@@ -459,13 +481,22 @@ def _int4pack_call(torch, x, p4, scale):
         return None
 
 
-def check_q4(torch, qm, b, din, dout, dtype, timing=False):
-    """q4_matmul against q4_matmul_ref on random packed bytes (every
-    nibble value, -8 included) and scales near 0.02/7, within Q4_TOL;
-    two launches give the same bits."""
+def check_q4(torch, qm, b, din, dout, dtype, timing=False, chunks=None):
+    """q4_matmul (or, with ``chunks``, q4_matmul_row over a chunk-local
+    pack of that many chunks) against its plain version on random packed
+    bytes (every nibble value, -8 included) and scales near 0.02/7,
+    within Q4_TOL; two launches give the same bits."""
     from distributed_llm_inferencing_tpu_torch.ops.quant import unpack_int4
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(b * 131 + din + dout)
+    g = torch.Generator(device=dev).manual_seed(b * 131 + din + dout
+                                                + (chunks or 0))
+    if chunks is None:
+        name, c = "q4_matmul", 1
+        kernel, plain = qm.q4_matmul, qm.q4_matmul_ref
+    else:
+        name, c = "q4_matmul_row", chunks
+        kernel = lambda x, p4, s: qm.q4_matmul_row(x, p4, s, c)  # noqa
+        plain = lambda x, p4, s: qm.q4_matmul_row_ref(x, p4, s, c)  # noqa
 
     def weights():
         p4 = torch.randint(0, 256, (din // 2, dout), generator=g, device=dev,
@@ -475,11 +506,11 @@ def check_q4(torch, qm, b, din, dout, dtype, timing=False):
 
     p4, scale = weights()
     x = torch.randn(b, din, generator=g, device=dev).to(dtype)
-    out = qm.q4_matmul(x, p4, scale)
-    again = qm.q4_matmul(x, p4, scale)
+    out = kernel(x, p4, scale)
+    again = kernel(x, p4, scale)
     torch.cuda.synchronize()
-    ref = qm.q4_matmul_ref(x, p4, scale)
-    levels = unpack_int4(p4).float()
+    ref = plain(x, p4, scale)
+    levels = unpack_int4(p4, c).float()
     tol = 2 * din * 2.0 ** -24 * ((x.float().abs() @ levels.abs()) * scale)
     del levels
     if dtype == torch.bfloat16:
@@ -488,7 +519,8 @@ def check_q4(torch, qm, b, din, dout, dtype, timing=False):
     ok = bool(torch.isfinite(out.float()).all() and (err <= tol).all()
               and torch.equal(out, again))
     dname = str(dtype).replace("torch.", "")
-    row = {"case": f"q4_matmul b={b} din={din} dout={dout} {dname}",
+    what = "" if chunks is None else f" chunks={chunks}"
+    row = {"case": f"{name} b={b} din={din} dout={dout}{what} {dname}",
            "max_abs_err": float(err.max()), "tol": Q4_TOL, "ok": ok,
            "err_over_tol": float((err / tol.clamp_min(1e-30)).max())}
     if timing:
@@ -501,22 +533,24 @@ def check_q4(torch, qm, b, din, dout, dtype, timing=False):
         # events around a loop of calls, host included
         n = max(1, -(-64 * 2 ** 20 // (din // 2 * dout)))
         sets = [(p4, scale)] + [weights() for _ in range(n - 1)]
-        calls = [(lambda a=a: qm.q4_matmul(x, *a)) for a in sets]
+        calls = [(lambda a=a: kernel(x, *a)) for a in sets]
         row["ms"] = _device_ms(torch, calls)
         row["event_ms"] = _cold_ms(torch, calls)
-        row["plain_ms"] = timed_ms(torch, lambda: qm.q4_matmul_ref(
-            x, p4, scale), iters=3, warmup=1)
+        row["plain_ms"] = timed_ms(torch, lambda: plain(x, p4, scale),
+                                   iters=3, warmup=1)
         # yardstick: the same function over a bf16 weight dequantized
         # beforehand (4x the bytes), levels exact in bf16
-        dq = [(unpack_int4(a[0]).to(x.dtype), a[1])
+        dq = [(unpack_int4(a[0], c).to(x.dtype), a[1])
               for a in sets[:max(1, -(-64 * 2 ** 20 // (2 * din * dout)))]]
         row["library_ms"] = _device_ms(torch, [
             (lambda a=a: torch.matmul(x, a[0]) * a[1]) for a in dq])
         del dq
-        fn = _int4pack_call(torch, x, p4, scale)
-        row["library2_ms"] = None if fn is None else _device_ms(torch, [fn])
-        row["library2_max_abs_err"] = None if fn is None else float(
-            (fn().float() - ref.float()).abs().max())   # reported only
+        if chunks is None:
+            fn = _int4pack_call(torch, x, p4, scale)
+            row["library2_ms"] = (None if fn is None
+                                  else _device_ms(torch, [fn]))
+            row["library2_max_abs_err"] = None if fn is None else float(
+                (fn().float() - ref.float()).abs().max())   # reported only
         del sets
     return row
 
@@ -549,6 +583,44 @@ def phase_q4(torch, qm):
                           "library_ms")}
     log("  q4_matmul per decode weight pass (b=8, bf16: 32 x (2 q/o + 2 k/v "
         "+ 2 gate/up + down) + head):", json.dumps(per_pass))
+    return rows, per_pass
+
+
+def phase_q4_row(torch, qm, cfg):
+    """q4_matmul_row: llama-3-8b's row-parallel o (4096->4096) and down
+    (14336->4096) whole, chunk-local for 2 and 4 chunks (the one-device
+    form), b in {1, 8, 32}, x in bf16 and f32, plus
+    tests/test_pallas_parity.py's chunked case (b=2, 128->256, 2 chunks)
+    and a b=3 twin. Timed on what a tp=2 rank runs, its one chunk: o
+    2048->4096 and down 7168->4096, b=1 (engine decode) and b=8, bf16.
+    Returns (rows, the b=8 pass per rank)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    D, I, tp = cfg.hidden_size, cfg.intermediate_size, 2
+    q_dim = cfg.num_heads * cfg.head_dim
+    rank = {"o": (q_dim // tp, D), "down": (I // tp, D)}
+    timed = {(n, b): check_q4(torch, qm, b, din, dout, bf16, timing=True,
+                              chunks=1)
+             for b in (8, 1) for n, (din, dout) in rank.items()}
+    rows = [timed[("down", 8)]] + [r for k, r in timed.items()
+                                    if k != ("down", 8)]
+    for b in (1, 8, 32):
+        for dt in (bf16, f32):
+            for din, dout in ((q_dim, D), (I, D)):
+                rows += [check_q4(torch, qm, b, din, dout, dt, chunks=c)
+                         for c in (2, 4)]
+    for b in (2, 3):
+        rows += [check_q4(torch, qm, b, 128, 256, dt, chunks=2)
+                 for dt in (f32, bf16)]
+    for row in rows:
+        log("  check", json.dumps(row))
+    bad = [r["case"] for r in rows if not r["ok"]]
+    assert not bad, f"q4_matmul_row disagrees with its plain version: {bad}"
+    per_pass = {k: cfg.num_layers * (timed[("o", 8)][k]
+                                     + timed[("down", 8)][k])
+                for k in ("ms", "event_ms", "plain_ms", "bound_ms",
+                          "library_ms")}
+    log("  q4_matmul_row per decode weight pass per tp=2 rank (b=8, bf16: "
+        "32 x (o + down) on the rank's chunk):", json.dumps(per_pass))
     return rows, per_pass
 
 
@@ -1278,7 +1350,206 @@ def phase_int4_depth(torch, kernels, qm):
     assert worst["kernel"] <= ROUTE_ERR_FACTOR * worst["unpack"], \
         f"int4 kernel route off f32 by {worst['kernel']}, over " \
         f"{ROUTE_ERR_FACTOR} x the unpack route's {worst['unpack']}"
+    kept = {"ref": ref.cpu(), "fed": fed.cpu(), "prompts": prompts,
+            "worst": worst}
     del models, params, f32, pools, prefill, runs, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, kept
+
+
+# ---------------------------------------------------------------------
+# phase 10: tensor-parallel engine serving through the port's worker
+# ---------------------------------------------------------------------
+
+def _tp_want(L, passes, int4, prefill_q4=1):
+    """Exact per-rank counts of one engine-mode request of ``passes``
+    weight passes (a prefill of more than 32 rows, then decode steps of
+    one row) under tp, the same at any tp: kernels, then data
+    collectives."""
+    d = passes - 1
+    launches = {"flash_attention": L, "flash_decode": L * d,
+                "paged_flash_decode": 0, "fused_decode_step": 0,
+                "q4_matmul": prefill_q4 + (5 * L + 1) * d if int4 else 0,
+                "q4_matmul_row": 2 * L * d if int4 else 0}
+    return launches, {"all_reduce": (2 * L + 1) * passes, "gather": passes,
+                      "broadcast": passes}
+
+
+def phase_tp_serving(torch, tp=2):
+    """llama-3-8b at full width and depth through the worker with "mesh":
+    {"tp": tp}, engine mode, bf16 and then int4 weights: phase 3's three
+    requests each, with every rank's kernel launches and data collectives
+    zeroed before each request and held to the exact counts after.
+    Returns a summary per weight form and the launches summed over the
+    ranks and requests."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = get_config("llama-3-8b")
+    L, name = cfg.num_layers, "llama-3-8b"
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = f"http://127.0.0.1:{worker.service.port}"
+    out, total = {}, {}
+    try:
+        for quant in (None, "int4"):
+            torch.cuda.reset_peak_memory_stats()
+            st, res = _http(base + "/load_model", {
+                "model_name": name, "allow_random_init": True,
+                "dtype": "bfloat16", "max_seq": 4096, "mesh": {"tp": tp},
+                **({"quantize": quant} if quant else {})})
+            assert st == 200 and res["status"] == "success", res
+            st, health = _http(base + "/health")
+            [desc] = health["loaded_models"]
+            assert desc["mesh"]["tp"] == tp and desc["quantize"] == quant
+            engine = worker.models[name].engine
+            pids = engine._leader.alive()
+            ranks = [s["device"] for s in engine.rank_stats()]
+            log(f"  load_model (engine, tp={tp}, {quant or 'bf16'}): "
+                f"{res['load_time_s']:.2f} s, {desc['param_bytes'] / 1e9:.3f}"
+                f" GB of weights per rank, ranks on {ranks}, data "
+                f"collectives over {desc['backend']}")
+            rows = []
+            for n_tok, sampling, seed in ((100, {"do_sample": False}, 0),
+                                          (200, {}, 1), (500, {}, 2)):
+                text = "".join(chr(97 + (i * 7 + seed) % 26)
+                               for i in range(n_tok - 1))
+                engine.reset_counts()
+                st, r = _http(base + "/inference", {
+                    "model_name": name, "prompt": text, "max_new_tokens": 32,
+                    "sampling": sampling, "seed": seed})
+                assert st == 200 and r["status"] == "success", r
+                stats = engine.rank_stats()
+                toks, passes = r["tokens"], r["cost"]["weight_passes"]
+                assert all(0 <= t < cfg.vocab_size for t in toks), toks
+                want_k, want_c = _tp_want(L, passes, quant == "int4")
+                for s_ in stats:
+                    assert s_["launches"] == want_k, \
+                        f"rank {s_['rank']}: launches {s_['launches']} != " \
+                        f"{want_k}"
+                    assert s_["collectives"] == want_c, \
+                        f"rank {s_['rank']}: {s_['collectives']} != {want_c}"
+                    for k, v in s_["launches"].items():
+                        total[k] = total.get(k, 0) + v
+                row = {"prompt_tokens": n_tok,
+                       "sampling": sampling or "default",
+                       "new_tokens": len(toks), "weight_passes": passes,
+                       "prefill_ms": r["prefill_ms"],
+                       "decode_ms_per_weight_pass":
+                           r["decode_ms"] / (passes - 1),
+                       "launches_per_rank": {k: v for k, v in
+                                             stats[0]["launches"].items()
+                                             if v},
+                       "collectives_per_rank": stats[0]["collectives"]}
+                log("  request", json.dumps(row))
+                rows.append(row)
+            peak = torch.cuda.max_memory_allocated()
+            del engine       # the next load's peak must not hold it
+            st, _ = _http(base + "/unload_model", {"model_name": name})
+            assert st == 200
+            alive = [p for p in pids if os.path.exists(f"/proc/{p}")]
+            assert not alive, f"tp followers {alive} outlived the unload"
+            out[quant or "bf16"] = {
+                "backend": desc["backend"], "rank_devices": ranks,
+                "param_bytes_per_rank": desc["param_bytes"],
+                "leader_peak_memory_bytes": peak, "requests": rows}
+    finally:
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, total
+
+
+# ---------------------------------------------------------------------
+# phase 11: tp=2 against tp=1 on the same weights
+# ---------------------------------------------------------------------
+
+def phase_tp_cross_check(torch, quant=None, tp=2):
+    """Full width, 2 layers, f32, float or int4 weights from one seed: a
+    teacher-forced prefill of two prompts (37 and 64 tokens) plus 8
+    decode steps through the engine at tp=1 and at ``tp`` ranks (the
+    kernels on every one); every real logit row within XCHECK_TOL, and
+    every rank's counts exact."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    cfg = get_config("llama-3-8b").replace(num_layers=2, dtype="float32",
+                                           quant=quant)
+    g = torch.Generator().manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    prompts = [toks[0, :37].tolist(), toks[1].tolist()]
+    forced = torch.randint(0, cfg.vocab_size, (8, 2), generator=g).tolist()
+    one = InferenceEngine(cfg, max_seq=96, seed=7, device="cuda")
+    pre1, dec1 = one.teacher_forced(prompts, forced)
+    del one
+    gc.collect()
+    two = InferenceEngine(cfg, mesh_spec=MeshSpec(tp=tp), max_seq=96,
+                          seed=7, device="cuda")
+    try:
+        two.reset_counts()
+        pre2, dec2 = two.teacher_forced(prompts, forced)
+        stats = two.rank_stats()
+    finally:
+        two.close()
+    # the prefill's 128 rows take the plain unpack, the head included;
+    # each decode step of 2 rows the kernels
+    want_k, want_c = _tp_want(2, 9, quant == "int4", prefill_q4=0)
+    want_c["broadcast"] = 0          # teacher-forced: nothing sampled
+    for s_ in stats:
+        assert s_["launches"] == want_k and s_["collectives"] == want_c, \
+            (s_, want_k, want_c)
+    a = torch.cat([pre2[0, :37], pre2[1], dec2.reshape(-1, dec2.shape[-1])])
+    b = torch.cat([pre1[0, :37], pre1[1], dec1.reshape(-1, dec1.shape[-1])])
+    err = _xcheck(torch, f"{quant or 'float'} tp={tp} vs tp=1", a, b)
+    del two
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_tp_depth(torch, depth):
+    """Phase 9's prompts and teacher-forced tokens through int4
+    llama-3-8b (bf16, the same seed's weights) at tp=2, full depth: its
+    decode logits' worst error against phase 9's f32 forward must stay
+    within ROUTE_ERR_FACTOR x the tp=1 q4 route's."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    cfg = get_config("llama-3-8b").replace(quant="int4")
+    L = cfg.num_layers
+    ref, fed, prompts = depth["ref"], depth["fed"], depth["prompts"]
+    two = InferenceEngine(cfg, mesh_spec=MeshSpec(tp=2), max_seq=2048,
+                          seed=21, device="cuda")
+    try:
+        two.reset_counts()
+        _, dec = two.teacher_forced(prompts, fed.tolist(), last_only=True)
+        stats = two.rank_stats()
+    finally:
+        two.close()
+    want_k, want_c = _tp_want(L, ROUTE_STEPS + 1, True)
+    want_c["broadcast"] = 0
+    for s_ in stats:
+        assert s_["launches"] == want_k and s_["collectives"] == want_c, \
+            (s_, want_k, want_c)
+    assert torch.isfinite(dec).all(), "tp=2 full-depth logits not finite"
+    err = (dec - ref).abs().amax(-1)                     # [steps, R]
+    out = {"err_tp2": err.tolist(), "worst_tp2": float(err.max()),
+           "worst_tp1_kernel": depth["worst"]["kernel"],
+           "argmax_agree_tp2": int((dec.argmax(-1) == ref.argmax(-1)).sum())}
+    log(f"  err_tp2: {json.dumps(out['err_tp2'])}")
+    log("  tp depth summary", json.dumps(
+        {k: v for k, v in out.items() if k != "err_tp2"}))
+    assert out["worst_tp2"] <= ROUTE_ERR_FACTOR * out["worst_tp1_kernel"], \
+        f"tp=2 int4 off f32 by {out['worst_tp2']}, over " \
+        f"{ROUTE_ERR_FACTOR} x the tp=1 kernel route's " \
+        f"{out['worst_tp1_kernel']}"
+    del two
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1311,7 +1582,8 @@ def main() -> int:
                "flash_decode": (fa, "flash_decode"),
                "paged_flash_decode": (pa, "paged_flash_decode"),
                "fused_decode_step": (fd, "fused_decode_step"),
-               "q4_matmul": (qm, "q4_matmul")}
+               "q4_matmul": (qm, "q4_matmul"),
+               "q4_matmul_row": (qm, "q4_matmul_row")}
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -1326,11 +1598,11 @@ def main() -> int:
     pre, dec = phase_kernels(torch, fa)
     paged, fused, fused_q = phase_paged_kernels(torch, pa, fd)
     q4_rows, q4_pass = phase_q4(torch, qm)
-
     from distributed_llm_inferencing_tpu_torch.models.registry import (
         get_config)
+    row_rows, row_pass = phase_q4_row(torch, qm, get_config("llama-3-8b"))
     row_bounds = int4_row_bounds(get_config("llama-3-8b"))
-    log("  bounds of the kernel not ported yet (llama-3-8b int4 shapes):",
+    log("  q4_matmul_row bounds per tp=2 rank (llama-3-8b int4 shapes):",
         json.dumps(row_bounds))
 
     log("phase 3: engine path (worker, llama-3-8b bf16, 3 requests)")
@@ -1373,7 +1645,20 @@ def main() -> int:
 
     log("phase 9: int4 at full depth, q4_matmul route vs plain unpack, "
         "against f32 over the same weights")
-    int4_depth = phase_int4_depth(torch, counted, qm)
+    int4_depth, depth_kept = phase_int4_depth(torch, counted, qm)
+
+    log("phase 10: tp=2 engine serving (worker, llama-3-8b full depth, "
+        "bf16 then int4, 3 requests each)")
+    tp_serving, tp_launches = phase_tp_serving(torch)
+    launches["q4_matmul_row"] = tp_launches["q4_matmul_row"]
+    assert launches["q4_matmul_row"] > 0, \
+        "q4_matmul_row never launched on the tp path"
+
+    log("phase 11: tp=2 against tp=1 on the same weights (2 layers, f32, "
+        "float and int4), then int4 at full depth against phase 9's f32")
+    tp_xerr = {q or "float": phase_tp_cross_check(torch, q)
+               for q in (None, "int4")}
+    tp_depth = phase_tp_depth(torch, depth_kept)
 
     csrc = "distributed_llm_inferencing_tpu_torch/csrc/"
     pallas = "distributed_llm_inferencing_tpu/ops/pallas/"
@@ -1392,7 +1677,9 @@ def main() -> int:
             ("fused_decode_step[int4]", "fused_decode.cu",
              "fused_decode.py:193", fused_q["int4"]),
             ("q4_matmul", "quant_matmul.cu", "quant_matmul.py:312",
-             q4_rows)):
+             q4_rows),
+            ("q4_matmul_row", "quant_matmul.cu", "quant_matmul.py:295",
+             row_rows)):
         row = checks[0]
         entry = {
             "name": name, "route": "cuda", "source": csrc + source,
@@ -1407,12 +1694,15 @@ def main() -> int:
         if name == "q4_matmul":
             entry["library2_ms"] = row["library2_ms"]
             entry["per_weight_pass_b8"] = q4_pass
+        if name == "q4_matmul_row":
+            entry["per_weight_pass_b8_per_rank"] = row_pass
         kernels.append(entry)
     report = {"smi": smi, "kernels": kernels, "requests": rows,
               "peak_memory_bytes": peak, "cross_check_max_abs_err": xerr,
               "batched": batched, "route_depth": route_depth,
               "quant_serving": quant, "int4_depth": int4_depth,
-              "int4_row_bounds": row_bounds,
+              "int4_row_bounds": row_bounds, "tp_serving": tp_serving,
+              "tp_cross_check_max_abs_err": tp_xerr, "tp_depth": tp_depth,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(HERE, "chiprun_out")
     if os.path.isdir(out_dir):

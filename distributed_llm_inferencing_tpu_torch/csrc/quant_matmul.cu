@@ -1,7 +1,9 @@
-// q4_matmul for NVIDIA Hopper (sm_90a): y = x @ unpack(p4) * scale.
+// q4_matmul and q4_matmul_row for NVIDIA Hopper (sm_90a):
+// y = x @ unpack(p4) * scale.
 //
 // Replaces the Pallas TPU kernel of the JAX package
-// ops/pallas/quant_matmul.py _q4_pallas (_biased_kernel / _signed_kernel):
+// ops/pallas/quant_matmul.py _q4_pallas (_biased_kernel / _signed_kernel),
+// which serves both q4_matmul and, per tp shard, q4_matmul_row:
 // x [b <= 32, din] (f32 or bf16) against the split-half packed int4
 // weight p4 [din/2, dout] uint8 (byte row i holds din row i in its low
 // nibble and din row i + din/2 in its high nibble, each biased by +8),
@@ -38,6 +40,17 @@
 // the whole x would not fit). More than 8 rows of x split over grid.z;
 // each row chunk reads the weight again (L2 serves part of it).
 //
+// q4_matmul_row: the same kernel over the chunk-local layout of the
+// row-parallel leaves (ops/quant.py repack_int4_rows): each of C equal din
+// row groups is its own split-half pack, so packed row i of chunk
+// c = i / (din/2C) pairs din rows i + c*din/2C and that + din/2C. Only
+// the staging of x reads that pairing, per packed row, so split-K
+// boundaries may fall anywhere, inside a chunk or across one; C = 1 is
+// q4_matmul's layout. On a tp rank the rank's slice is one chunk (C = 1)
+// and the caller sums the [b, dout] partials across ranks; on one device
+// holding the whole chunked leaf one launch covers all C chunks, their
+// partial sums added in the same fixed order as any split-K.
+//
 // Interface: plain C, pointers and the stream as void*, the launcher
 // returns its cudaError_t (0 on success) and allocates nothing.
 
@@ -72,12 +85,13 @@ __device__ __forceinline__ void fma_word(float (&acc)[kCols], int j0,
 // Block (n, s, z): columns [n*kTileN, +kTileN), packed rows
 // [s*kchunk, +kchunk), x rows [z*kRowsMax, +RB). ksplit == 1: writes out
 // (scaled, rounded); else writes f32 partial sums part[s][row][col].
+// ch: packed rows per split-half chunk (din/2 for the global layout).
 template <typename T, int RB>
 __global__ void __launch_bounds__(kThreads)
 q4_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ p4,
                  const float* __restrict__ scale, T* __restrict__ out,
                  float* __restrict__ part, int b, int din, int dout,
-                 long long x_sr, long long o_sr, int kchunk) {
+                 long long x_sr, long long o_sr, int kchunk, int ch) {
   extern __shared__ float smem[];
   // phase 1: Xlo [kTileK][RB], Xhi [kTileK][RB]; phase 2: Red
   // [kKWarps][RB][kTileN]
@@ -106,8 +120,10 @@ q4_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ p4,
     for (int i = tid; i < n * RB; i += kThreads) {
       const int k = i / RB, r = i - k * RB;
       const bool live = r < nr;
-      Xlo[i] = live ? load_val(xb + r * x_sr + kt + k) : 0.f;
-      Xhi[i] = live ? load_val(xb + r * x_sr + half + kt + k) : 0.f;
+      const int row = kt + k;               // packed row
+      const int lo = row + (row / ch) * ch;  // its low nibble's din row
+      Xlo[i] = live ? load_val(xb + r * x_sr + lo) : 0.f;
+      Xhi[i] = live ? load_val(xb + r * x_sr + lo + ch) : 0.f;
     }
     __syncthreads();
     if (col < dout) {
@@ -172,7 +188,7 @@ __global__ void q4_finish_kernel(const float* __restrict__ part,
 template <typename T, int RB>
 cudaError_t launch_rb(const T* x, const uint8_t* p4, const float* scale,
                       T* out, float* part, int b, int din, int dout,
-                      long long x_sr, long long o_sr, int ksplit,
+                      long long x_sr, long long o_sr, int ksplit, int ch,
                       cudaStream_t stream) {
   auto kern = q4_matmul_kernel<T, RB>;
   const size_t xs = 2 * kTileK * RB, red = kKWarps * RB * kTileN;
@@ -186,7 +202,7 @@ cudaError_t launch_rb(const T* x, const uint8_t* p4, const float* scale,
   const dim3 grid((dout + kTileN - 1) / kTileN, ksplit,
                   (b + kRowsMax - 1) / kRowsMax);
   kern<<<grid, kThreads, smem, stream>>>(x, p4, scale, out, part, b, din,
-                                         dout, x_sr, o_sr, kchunk);
+                                         dout, x_sr, o_sr, kchunk, ch);
   err = cudaGetLastError();
   if (err != cudaSuccess || ksplit == 1) return err;
   const long long total = (long long)b * dout;
@@ -198,7 +214,7 @@ cudaError_t launch_rb(const T* x, const uint8_t* p4, const float* scale,
 template <typename T>
 cudaError_t launch(const void* x, const void* p4, const void* scale,
                    void* out, void* part, int b, int din, int dout,
-                   long long x_sr, long long o_sr, int ksplit,
+                   long long x_sr, long long o_sr, int ksplit, int ch,
                    cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   const uint8_t* wp = static_cast<const uint8_t*>(p4);
@@ -207,15 +223,15 @@ cudaError_t launch(const void* x, const void* p4, const void* scale,
   float* pp = static_cast<float*>(part);
   if (b == 1)
     return launch_rb<T, 1>(xp, wp, sp, op, pp, b, din, dout, x_sr, o_sr,
-                           ksplit, st);
+                           ksplit, ch, st);
   if (b == 2)
     return launch_rb<T, 2>(xp, wp, sp, op, pp, b, din, dout, x_sr, o_sr,
-                           ksplit, st);
+                           ksplit, ch, st);
   if (b <= 4)
     return launch_rb<T, 4>(xp, wp, sp, op, pp, b, din, dout, x_sr, o_sr,
-                           ksplit, st);
+                           ksplit, ch, st);
   return launch_rb<T, kRowsMax>(xp, wp, sp, op, pp, b, din, dout, x_sr,
-                                o_sr, ksplit, st);
+                                o_sr, ksplit, ch, st);
 }
 
 }  // namespace
@@ -226,21 +242,25 @@ extern "C" {
 // x_sr, p4 [din/2, dout] uint8 contiguous and 8-byte aligned, scale [dout]
 // f32, out [b, dout] with row stride o_sr. ksplit >= 1 splits the
 // contraction; ksplit > 1 needs part, an f32 workspace of ksplit*b*dout.
+// chunks: the pack's chunk-local split-half groups (din % (2 * chunks) ==
+// 0); 1 is the global layout of q4_matmul.
 int dli_q4_matmul(const void* x, const void* p4, const void* scale,
                   void* out, void* part, int dtype, int b, int din, int dout,
-                  long long x_sr, long long o_sr, int ksplit, void* stream) {
-  if (din < 2 || din % 2 != 0 || dout < 8 || dout % 8 != 0 || ksplit < 1 ||
+                  long long x_sr, long long o_sr, int ksplit, int chunks,
+                  void* stream) {
+  if (din < 2 || dout < 8 || dout % 8 != 0 || ksplit < 1 ||
       ksplit > din / 2 || (ksplit > 1 && part == nullptr) || b < 0 ||
-      b > 32)
+      b > 32 || chunks < 1 || din % (2 * chunks) != 0)
     return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ch = din / (2 * chunks);
   if (dtype == 0)
     return launch<float>(x, p4, scale, out, part, b, din, dout, x_sr, o_sr,
-                         ksplit, st);
+                         ksplit, ch, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, p4, scale, out, part, b, din, dout, x_sr,
-                                 o_sr, ksplit, st);
+                                 o_sr, ksplit, ch, st);
   return cudaErrorInvalidValue;
 }
 

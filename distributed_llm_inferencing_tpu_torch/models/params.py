@@ -15,20 +15,27 @@ reference pytree with the stacked layer axis unrolled:
 where a linear's ``<leaf>`` is, by ``cfg.quant``, ``w`` [din,dout] (float),
 ``q`` [din,dout] int8 + ``scale`` [dout] f32 (int8), or ``p4``
 [din/2,dout] uint8 + ``scale`` [dout] f32 (int4; ops/quant.py has the
-layouts). Weights keep the reference's [din, dout] layout (y = x @ w), so
-the bridge from a JAX tree is a copy, bitwise, with no transpose.
+layouts), the last with a ``chunked`` marker where the leaf is packed
+chunk-locally. Weights keep the reference's [din, dout] layout (y = x @
+w), so the bridge from a JAX tree is a copy, bitwise, with no transpose.
+
+Under tensor parallelism every rank draws every leaf of the whole model
+in the same order from the same seeded generator, keeps its shard
+(``init_params``'s ``shard``; parallel/sharding.py) and frees the rest:
+each rank holds exactly what tp=1 would hold, cut, and the peak is one
+whole leaf plus the shards.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
-    EMBED, LEAF_KEYS, check_modes, refuse_chunked)
+    EMBED, LEAF_KEYS, check_modes)
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 LAYER_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
@@ -64,7 +71,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
-                dtype=None) -> Dict[str, torch.Tensor]:
+                dtype=None, shard: Optional[Callable] = None
+                ) -> Dict[str, torch.Tensor]:
     """Random weights, drawn on ``device`` from ``generator`` (which must
     live on that device): float weights normal with std 0.02, norm scales
     1. With ``cfg.quant`` the linears come out quantized directly, as the
@@ -73,7 +81,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     uniform in [1, 15] (levels [-7, 7], what quantization can produce)
     with scale 0.02/7. ``cfg.embed_quant`` draws the table as int8 levels
     with row scale 0.02/127. Drawing on the card matters at full width:
-    8B weights drawn on the host and copied over would take minutes."""
+    8B weights drawn on the host and copied over would take minutes.
+    ``shard(name, tensor)`` (a tp rank's cut) replaces each tensor as soon
+    as it is drawn."""
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         check_supported)
     check_supported(cfg)
@@ -100,6 +110,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
             w = torch.randn(shape, dtype=torch.float32, **gen)
             out[name] = w.mul_(0.02).to(dtype)
             del w
+        if shard is not None:
+            out[name] = shard(name, out[name])
     return out
 
 
@@ -123,7 +135,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None
     int8 levels, packed int4 bytes and f32 scales as they are). Stacked
     ``[L, ...]`` layer leaves split into per-layer tensors. ``cfg.quant``
     and ``cfg.embed_quant`` must describe the tree. A chunk-local int4
-    leaf (``chunked`` marker) raises ``NotImplementedError`` (A12).
+    leaf (the JAX package's tp layout of o and down) keeps its
+    ``chunked`` marker.
     """
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         check_supported)
@@ -134,7 +147,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None
         if not isinstance(p, dict):
             raise ValueError(f"{prefix}: expected a leaf dict, got "
                              f"{type(p).__name__}")
-        refuse_chunked(p)
+        if "chunked" in p and "p4" in keys:
+            keys = keys + ("chunked",)
         if set(p) != set(keys):
             raise ValueError(f"{prefix}: leaf {sorted(p)} does not match "
                              f"{cfg.name} with quant={cfg.quant!r}, "
@@ -163,11 +177,12 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None
         leaf(layers[n], n, keys, True)
     leaf(np_tree["final_norm"], "final_norm", ("scale",), False)
     leaf(np_tree["lm_head"], "lm_head", keys, False)
-    if set(out) != set(expect):
+    markers = {n for n in out if n.endswith(".chunked")}
+    if set(out) - markers != set(expect):
         raise ValueError(f"{cfg.name}: tree names differ from the config's: "
-                         f"{sorted(set(out) ^ set(expect))[:6]}")
+                         f"{sorted((set(out) - markers) ^ set(expect))[:6]}")
     for name, t in out.items():
-        if tuple(t.shape) != expect[name]:
+        if name not in markers and tuple(t.shape) != expect[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                              f"{expect[name]} for {cfg.name}")
     return out

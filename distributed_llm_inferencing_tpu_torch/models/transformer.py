@@ -19,6 +19,20 @@ Two attention regimes, as in the reference: prefill attends the fresh K/V
 block (``attend_prefill``), decode attends the cache (``attend_decode``);
 both write the new K/V into the cache in place first.
 
+Tensor parallelism (the model on one rank of a ``TPGroup``,
+parallel/mesh.py, holding its shard of the weights, parallel/sharding.py):
+each ``Block`` runs its local heads, H/tp and Hkv/tp, through the same
+kernels; the row-parallel o and down sum their partial products over the
+ranks in x's dtype (the JAX package's ``psum``; int4 partials come from
+``q4_matmul_row``); ``Embed`` looks up the rank's vocabulary rows, zeros
+the rest and sums over the ranks; the head's vocabulary columns are
+gathered. That is 2·L + 1 all-reduces and one gather per weight pass.
+In bf16 an o or down output thus rounds twice (each rank's partial, then
+their sum), where one device rounds once: up to one more bf16 ulp per
+row-parallel linear, as in the JAX package. chip_smoke.py holds tp=2 to
+tp=1 within its f32 cross-check tolerance (the sums' order only) and, at
+full depth in bf16, within 1.5x tp=1's error against f32.
+
 The paged entry points serve the continuous batcher (runtime/batcher.py)
 over the block pool (ops/paged_kvcache.py): ``paged_prefill_tail`` (a
 wave of prompt tails, each attending its cached prefix),
@@ -30,7 +44,7 @@ budget/eos lifecycle on the device, one host sync per chunk).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,11 +62,12 @@ from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
 from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
     paged_flash_decode)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
-    LEAF_KEYS, leaf_form)
+    leaf_form, leaf_keys)
 from distributed_llm_inferencing_tpu_torch.ops.quant_matmul import q4_linear
 from distributed_llm_inferencing_tpu_torch.ops.rope import (
     apply_rope, rope_cos_sin)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import sample_batch
+from distributed_llm_inferencing_tpu_torch.parallel.mesh import TPGroup
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 # field -> the value the llama arm requires
@@ -107,32 +122,43 @@ class Linear(nn.Module):
     """y = x @ W in x's dtype, W [din, dout] (the reference layout) held in
     its stored form (the reference's ``_linear``): ``{"w"}`` float,
     ``{"q", "scale"}`` int8 — ``x @ q.to(x.dtype) * scale.to(x.dtype)``,
-    or ``{"p4", "scale"}`` int4 — ``q4_linear``."""
+    or ``{"p4", "scale"[, "chunked"]}`` int4 — ``q4_linear``. A
+    row-parallel linear under tp (``tp`` given) holds a din shard and sums
+    its partial product over the ranks."""
 
-    def __init__(self, leaf: Dict[str, torch.Tensor]):
+    def __init__(self, leaf: Dict[str, torch.Tensor],
+                 tp: Optional[TPGroup] = None):
         super().__init__()
         self.form = leaf_form(leaf)
+        self.keys = leaf_keys(leaf)
+        self.tp = tp
         for k, t in leaf.items():
             setattr(self, k, _param(t))
 
     def leaf(self) -> Dict[str, torch.Tensor]:
-        return {k: getattr(self, k) for k in LEAF_KEYS[self.form]}
+        return {k: getattr(self, k) for k in self.keys}
 
     def forward(self, x):
         if self.form == "int4":
-            return q4_linear(x, self.leaf())
-        if self.form == "int8":
+            y = q4_linear(x, self.leaf(), self.tp.world if self.tp else 1)
+        elif self.form == "int8":
             y = torch.matmul(x, self.q.to(x.dtype))
-            return (y * self.scale.to(x.dtype)).to(x.dtype)
-        return torch.matmul(x, self.w).to(x.dtype)
+            y = (y * self.scale.to(x.dtype)).to(x.dtype)
+        else:
+            y = torch.matmul(x, self.w).to(x.dtype)
+        return y if self.tp is None else self.tp.all_reduce(y)
 
 
 class Embed(nn.Module):
     """Token embedding from a float table, or from the per-row int8 table
     ``{"q8", "rscale"}``: whole int8 rows gathered, then one scalar
-    multiply per row (the reference's ``embed``)."""
+    multiply per row (the reference's ``embed``). Under tp the rank holds
+    rows [rank·V/tp, (rank+1)·V/tp): ids outside them give zero rows,
+    and one sum over the ranks (exact: one rank's row is not zero)
+    assembles the embedding."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], dtype: torch.dtype):
+    def __init__(self, params: Dict[str, torch.Tensor], dtype: torch.dtype,
+                 tp: Optional[TPGroup] = None):
         super().__init__()
         self.quantized = "embed.tokens" not in params
         if self.quantized:
@@ -141,12 +167,23 @@ class Embed(nn.Module):
         else:
             self.tokens = _param(params["embed.tokens"])
         self.dtype = dtype
+        self.tp = tp
+        self.rows = (self.q8 if self.quantized else self.tokens).shape[0]
 
     def forward(self, token_ids):
+        inside = None
+        if self.tp is not None:
+            token_ids = token_ids - self.tp.rank * self.rows
+            inside = (token_ids >= 0) & (token_ids < self.rows)
+            token_ids = torch.where(inside, token_ids, 0)
         if self.quantized:
             x = self.q8[token_ids].to(self.dtype)
-            return x * self.rscale[token_ids][..., None].to(self.dtype)
-        return F.embedding(token_ids, self.tokens).to(self.dtype)
+            x = x * self.rscale[token_ids][..., None].to(self.dtype)
+        else:
+            x = F.embedding(token_ids, self.tokens).to(self.dtype)
+        if inside is None:
+            return x
+        return self.tp.all_reduce(torch.where(inside[..., None], x, 0))
 
 
 class Block(nn.Module):
@@ -154,32 +191,37 @@ class Block(nn.Module):
     (the reference's ``_block_body`` + ``_block_tail``, llama arm). One
     method per cache regime; each writes its K/V in place."""
 
-    def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                 tp: Optional[TPGroup] = None):
         super().__init__()
         self.cfg = cfg
+        world = tp.world if tp else 1
+        self.heads = cfg.num_heads // world          # this rank's heads
+        self.kv_heads = cfg.num_kv_heads // world
         self.attn_norm = RMSNorm(p["attn_norm.scale"], cfg.norm_eps)
         self.mlp_norm = RMSNorm(p["mlp_norm.scale"], cfg.norm_eps)
         for n in ("q", "k", "v", "o", "gate", "up", "down"):
-            setattr(self, n, Linear(_leaf(p, n)))
+            setattr(self, n, Linear(_leaf(p, n),
+                                    tp if n in ("o", "down") else None))
 
     def _kv(self, h, cos_sin):
         cfg = self.cfg
         B, s, _ = h.shape
-        k = self.k(h).view(B, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v(h).view(B, s, cfg.num_kv_heads, cfg.head_dim)
+        k = self.k(h).view(B, s, self.kv_heads, cfg.head_dim)
+        v = self.v(h).view(B, s, self.kv_heads, cfg.head_dim)
         return apply_rope(k, None, cfg.rope_theta, cos_sin=cos_sin), v
 
     def _qkv(self, h, cos_sin):
         cfg = self.cfg
         B, s, _ = h.shape
-        q = self.q(h).view(B, s, cfg.num_heads, cfg.head_dim)
+        q = self.q(h).view(B, s, self.heads, cfg.head_dim)
         k, v = self._kv(h, cos_sin)
         return apply_rope(q, None, cfg.rope_theta, cos_sin=cos_sin), k, v
 
     def _tail(self, x, attn):
         """o projection, residual, MLP (the reference's ``_block_tail``)."""
         B, s = attn.shape[:2]
-        x = x + self.o(attn.reshape(B, s, self.cfg.q_dim))
+        x = x + self.o(attn.reshape(B, s, self.heads * self.cfg.head_dim))
         h = self.mlp_norm(x)
         return x + self.down(F.silu(self.gate(h)) * self.up(h))
 
@@ -243,24 +285,30 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """The whole model over the dense cache. ``params`` is the port's flat
-    dict (models/params.py); the modules hold those tensors, no copy."""
+    dict (models/params.py); the modules hold those tensors, no copy.
+    With ``tp``, ``params`` is this rank's shard (parallel/sharding.py)
+    and every forward runs in lockstep with the other ranks."""
 
-    def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor],
+                 tp: Optional[TPGroup] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.tp = tp
         self.dtype = torch_dtype(cfg.dtype)
-        self.embed = Embed(params, self.dtype)
+        self.embed = Embed(params, self.dtype, tp)
         self.layers = nn.ModuleList([
             Block(cfg, {k[len(f"layers.{i}."):]: t for k, t in params.items()
-                        if k.startswith(f"layers.{i}.")})
+                        if k.startswith(f"layers.{i}.")}, tp)
             for i in range(cfg.num_layers)])
         self.final_norm = RMSNorm(params["final_norm.scale"], cfg.norm_eps)
         self.lm_head = Linear(_leaf(params, "lm_head"))
 
     def unembed(self, x):
-        """Final norm + logits head, f32."""
-        return self.lm_head(self.final_norm(x)).float()
+        """Final norm + logits head, f32 (under tp: the rank's vocabulary
+        columns, gathered)."""
+        logits = self.lm_head(self.final_norm(x)).float()
+        return logits if self.tp is None else self.tp.gather(logits)
 
     def _cos_sin(self, positions):
         cfg = self.cfg

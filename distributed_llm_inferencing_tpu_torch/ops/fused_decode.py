@@ -39,7 +39,7 @@ from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
 from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
     check_paged_inputs, paged_flash_decode_ref)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
-    LEAF_KEYS, dequantize_weight, leaf_form)
+    LEAF_KEYS, dequantize_weight, leaf_form, refuse_chunked)
 
 _lib = None
 
@@ -149,6 +149,7 @@ def fused_decode_step(x, q_leaf, k_pool, v_pool, block_tables, context_lens,
     rope_cos/rope_sin [R, hd] f32 or None (no RoPE). Returns attn
     [R, H, hd] in x's dtype.
     """
+    refuse_chunked(q_leaf)
     form = leaf_form(q_leaf)
     if x.device.type == "cpu":
         return fused_decode_step_ref(

@@ -34,11 +34,15 @@ class KVCache:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device=None) -> KVCache:
+               device=None, num_kv_heads=None) -> KVCache:
+    """A zeroed cache; ``num_kv_heads`` is a tp rank's share of the kv
+    heads (parallel/sharding.py ``local_heads``), all of them by
+    default."""
     if cfg.kv_quant is not None:
         raise NotImplementedError("int8 KV cache is not ported yet")
     dtype = torch_dtype(dtype or cfg.dtype)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, max_seq,
+             num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
     # zeroed, as the reference: the plain attention multiplies unused
     # slots by probability 0, which must not meet uninitialised NaNs
     return KVCache(

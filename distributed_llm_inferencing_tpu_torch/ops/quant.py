@@ -27,9 +27,14 @@ never writes the unpacked weight to device memory.
 In the flat dict a linear ``<prefix>.w`` becomes ``<prefix>.q`` +
 ``<prefix>.scale`` (int8) or ``<prefix>.p4`` + ``<prefix>.scale``
 (int4); ``embed.tokens`` becomes ``embed.tokens.q8`` +
-``embed.tokens.rscale``. Chunk-local int4 packs (the JAX package's
-``repack_int4_rows``, for row-parallel leaves under tensor parallelism)
-are not ported: they come with multi-GPU serving (ROADMAP A12).
+``embed.tokens.rscale``.
+
+Chunk-local int4 packs (``repack_int4_rows``, the JAX package's layout of
+the row-parallel leaves o and down under tensor parallelism): each of C
+equal din row groups is its own split-half pack, so a din shard of the
+leaf is a self-contained pack. Such a leaf carries the zero-size marker
+``<prefix>.chunked`` [C, 0] int8 (the JAX package's, so a tree bridges
+both ways); ``pack_chunks`` reads C from it.
 """
 
 from __future__ import annotations
@@ -49,14 +54,14 @@ _LINEAR_W = re.compile(
 EMBED = "embed.tokens"
 
 
-_CHUNKED = ("chunk-local int4 packs (row-parallel leaves under tensor "
-            "parallelism) are not ported: ROADMAP A12")
-
-
 def refuse_chunked(leaf):
-    """Raise for a leaf carrying the JAX package's ``chunked`` marker."""
+    """Raise for a leaf carrying the ``chunked`` marker, where a consumer
+    takes only the global layout (the fused decode kernel's q leaf, which
+    is column-parallel and never repacked)."""
     if "chunked" in leaf:
-        raise NotImplementedError(_CHUNKED)
+        raise NotImplementedError(
+            "a chunk-local int4 pack (a row-parallel leaf) cannot feed this "
+            "consumer; it takes the global split-half layout")
 
 
 def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -78,12 +83,60 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_int4(p4: torch.Tensor, chunks: int = 1) -> torch.Tensor:
-    """uint8 [..., din/2, dout] -> sign-extended int8 [..., din, dout]."""
-    if chunks != 1:
-        raise NotImplementedError(_CHUNKED)
+    """uint8 [..., din/2, dout] -> sign-extended int8 [..., din, dout].
+    ``chunks > 1``: the chunk-local layout of ``repack_int4_rows``."""
     lo = (p4 & 0xF).to(torch.int8) - 8
     hi = ((p4 >> 4) & 0xF).to(torch.int8) - 8
-    return torch.cat([lo, hi], dim=-2)
+    if chunks == 1:
+        return torch.cat([lo, hi], dim=-2)
+    *lead, half, dout = p4.shape
+    per = half // chunks
+    lo = lo.reshape(*lead, chunks, per, dout)
+    hi = hi.reshape(*lead, chunks, per, dout)
+    return torch.cat([lo, hi], dim=-2).reshape(*lead, 2 * half, dout)
+
+
+def pack_chunks(leaf) -> int:
+    """Chunk count of an int4 leaf (1: the global split-half layout)."""
+    return leaf["chunked"].shape[-2] if "chunked" in leaf else 1
+
+
+def repack_int4_rows(leaf: Dict[str, torch.Tensor], chunks: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Re-pack a split-half int4 leaf so each of ``chunks`` equal din row
+    groups is a self-contained split-half pack of its own rows, and add
+    the ``chunked`` marker. A pure nibble gather on the packed bytes: it
+    never unpacks, and gives the JAX function's bytes. A leaf already
+    chunked for ``chunks`` passes; for another count it raises."""
+    if "chunked" in leaf:
+        if pack_chunks(leaf) != chunks:
+            raise ValueError(f"leaf already chunked x{pack_chunks(leaf)}, "
+                             f"asked for x{chunks}")
+        return leaf
+    p4 = leaf["p4"]
+    *lead, half, dout = p4.shape
+    din = 2 * half
+    if din % (2 * chunks):
+        raise ValueError(f"din={din} not divisible into {chunks} "
+                         "split-half chunks")
+    per = din // chunks
+    # byte (chunk c, local row j) pairs din rows c*per + j and that + per/2;
+    # din row r sits in the low nibble of byte row r (r < half) or the high
+    # nibble of byte row r - half
+    i = torch.arange(half, device=p4.device)
+    r_a = (i // (per // 2)) * per + i % (per // 2)
+    r_b = r_a + per // 2
+
+    def nib(r):
+        lo_sel = r < half
+        rows = torch.index_select(p4, -2, torch.where(lo_sel, r, r - half))
+        return torch.where(lo_sel[:, None], rows & 0xF, (rows >> 4) & 0xF)
+
+    out = dict(leaf)
+    out["p4"] = nib(r_a) | (nib(r_b) << 4)
+    out["chunked"] = torch.zeros((*lead, chunks, 0), dtype=torch.int8,
+                                 device=p4.device)
+    return out
 
 
 def quantize_weight_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -94,17 +147,26 @@ def quantize_weight_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"p4": pack_int4(q.to(torch.int8)), "scale": scale}
 
 
-# a linear leaf's stored tensors, by form
+# a linear leaf's stored tensors, by form; an int4 leaf may also carry
+# the ``chunked`` marker
 LEAF_KEYS = {"float": ("w",), "int8": ("q", "scale"),
              "int4": ("p4", "scale")}
 
 
+def leaf_keys(leaf) -> tuple:
+    """The stored tensors of ``leaf`` in their canonical order."""
+    keys = LEAF_KEYS[leaf_form(leaf)]
+    return keys + ("chunked",) if "chunked" in leaf else keys
+
+
 def leaf_form(leaf) -> str:
-    """"float", "int8" or "int4" for a linear leaf; raises for a chunked
-    leaf and for any other set of keys."""
-    refuse_chunked(leaf)
-    for form, keys in LEAF_KEYS.items():
-        if set(leaf) == set(keys):
+    """"float", "int8" or "int4" for a linear leaf (an int4 one chunked or
+    not); raises for any other set of keys."""
+    keys = set(leaf)
+    if "chunked" in keys and "p4" in keys:
+        keys.discard("chunked")
+    for form, want in LEAF_KEYS.items():
+        if keys == set(want):
             return form
     raise ValueError(f"unknown linear leaf {sorted(leaf)}")
 
@@ -116,8 +178,8 @@ def is_quantized(leaf) -> bool:
 def dequantize_weight(leaf: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The float weight of an int8 or int4 leaf, f32 (tests and plain
     versions)."""
-    refuse_chunked(leaf)
-    levels = unpack_int4(leaf["p4"]) if "p4" in leaf else leaf["q"]
+    levels = (unpack_int4(leaf["p4"], pack_chunks(leaf)) if "p4" in leaf
+              else leaf["q"])
     return levels.float() * leaf["scale"][..., None, :]
 
 

@@ -1,5 +1,5 @@
-"""int4 weight-only matmul: the ``q4_matmul`` CUDA kernel, its plain
-version, the gate and the linear's dispatch.
+"""int4 weight-only matmul: the ``q4_matmul`` and ``q4_matmul_row`` CUDA
+kernels, their plain versions, the gate and the linear's dispatch.
 
 Counterpart of the JAX package's ``ops/pallas/quant_matmul.py``. The
 kernel (``csrc/quant_matmul.cu``) computes ``x [b, din] @ unpack(p4
@@ -19,15 +19,23 @@ weight.
 - ``q4_matmul(x, p4, scale)``: the kernel's wrapper; ``launches`` counts
   its launches. f32 products and sums, times the f32 scale, one rounding
   to x's dtype (the JAX kernel's numerics).
-- ``q4_matmul_ref``: the plain version: unpack, f32 matmul, times scale.
-- ``q4_linear(x, leaf)``: an int4 linear with any leading dims on x.
-  Decode-shaped calls take ``q4_matmul``; the rest unpack and run
-  ``torch.matmul`` in x's dtype, then ``* scale.to(x.dtype)`` (the product
-  the JAX package leaves to XLA). The two routes round differently in
-  bf16.
+- ``q4_matmul_row(x, p4, scale, chunks)``: the same kernel over the
+  chunk-local layout of the row-parallel leaves (ops/quant.py
+  ``repack_int4_rows``); its own ``launches``. A tp rank calls it on its
+  one chunk (``chunks = 1``) and sums the partials across ranks (the
+  JAX package's per-shard kernel plus ``psum``); one device holding the
+  whole chunked leaf calls it with all ``chunks``.
+- ``q4_matmul_ref`` / ``q4_matmul_row_ref``: the plain versions: unpack,
+  f32 matmul, times scale, one rounding.
+- ``q4_linear(x, leaf, shards)``: an int4 linear with any leading dims
+  on x. Decode-shaped calls take a kernel (``q4_matmul_row`` for a
+  chunked leaf, of which this rank holds ``1/shards``); the rest unpack
+  and run ``torch.matmul`` in x's dtype, then ``* scale.to(x.dtype)``
+  (the product the JAX package leaves to XLA). The two routes round
+  differently in bf16.
 
-The wrapper runs the plain version only for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises.
+The wrappers run the plain version only for a CPU tensor; for a CUDA
+tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from distributed_llm_inferencing_tpu_torch.ops import build
 from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
     _DTYPE_CODE)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
-    refuse_chunked, unpack_int4)
+    pack_chunks, unpack_int4)
 
 MAX_PALLAS_ROWS = 32
 _TILE_N = 256          # columns per block (csrc/quant_matmul.cu kTileN)
@@ -75,7 +83,13 @@ def _sm_count(index: int) -> int:
 def q4_matmul_ref(x, p4, scale):
     """Plain version: unpack, f32 matmul, times the f32 scale, one
     rounding to x's dtype."""
-    w = unpack_int4(p4).float()
+    return q4_matmul_row_ref(x, p4, scale, 1)
+
+
+def q4_matmul_row_ref(x, p4, scale, chunks: int):
+    """Plain version of ``q4_matmul_row``: the chunk-aware unpack, f32
+    matmul, times the f32 scale, one rounding to x's dtype."""
+    w = unpack_int4(p4, chunks).float()
     return ((x.float() @ w) * scale.float()).to(x.dtype)
 
 
@@ -84,38 +98,37 @@ def _kernels():
     if _lib is None:
         lib = build.load("quant_matmul")
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dli_q4_matmul.argtypes = [P] * 5 + [I] * 4 + [LL, LL, I, P]
+        lib.dli_q4_matmul.argtypes = [P] * 5 + [I] * 4 + [LL, LL, I, I, P]
         lib.dli_q4_matmul.restype = I
         _lib = lib
     return _lib
 
 
-def q4_matmul(x, p4, scale):
-    """x [b, din] @ unpack(p4 [din/2, dout] uint8) * scale [dout] f32 ->
-    [b, dout] in x's dtype; b <= MAX_PALLAS_ROWS on the card."""
-    if x.device.type == "cpu":
-        return q4_matmul_ref(x, p4, scale)
+def _launch(name, x, p4, scale, chunks):
+    """Check the inputs and launch the kernel (``chunks`` chunk-local
+    split-half packs; 1 is the global layout). Returns [b, dout]."""
     if x.dim() != 2 or p4.dim() != 2 or scale.dim() != 1:
-        raise ValueError(f"q4_matmul: x {tuple(x.shape)}, p4 "
+        raise ValueError(f"{name}: x {tuple(x.shape)}, p4 "
                          f"{tuple(p4.shape)}, scale {tuple(scale.shape)}")
     b, din = x.shape
     dout = p4.shape[1]
     if x.dtype not in _DTYPE_CODE or p4.dtype != torch.uint8 \
             or scale.dtype != torch.float32:
-        raise TypeError("q4_matmul: takes float32/bfloat16 x, uint8 p4, "
+        raise TypeError(f"{name}: takes float32/bfloat16 x, uint8 p4, "
                         f"float32 scale; got {x.dtype}/{p4.dtype}/"
                         f"{scale.dtype}")
     if not supported(b, din, dout) or p4.shape[0] * 2 != din \
-            or scale.shape[0] != dout:
-        raise ValueError(f"q4_matmul: shapes x {tuple(x.shape)}, p4 "
-                         f"{tuple(p4.shape)}, scale {tuple(scale.shape)} "
-                         "outside the kernel (see supported())")
+            or scale.shape[0] != dout or chunks < 1 or din % (2 * chunks):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, p4 "
+                         f"{tuple(p4.shape)}, scale {tuple(scale.shape)}, "
+                         f"{chunks} chunks outside the kernel (see "
+                         "supported())")
     if not all(t.is_cuda and t.device == x.device for t in (p4, scale)):
-        raise ValueError("q4_matmul: x, p4 and scale must lie on one CUDA "
+        raise ValueError(f"{name}: x, p4 and scale must lie on one CUDA "
                          "device")
     if x.stride(1) != 1 or not p4.is_contiguous() or p4.data_ptr() % 8 \
             or not scale.is_contiguous():
-        raise ValueError("q4_matmul: x needs a contiguous last dim; p4 and "
+        raise ValueError(f"{name}: x needs a contiguous last dim; p4 and "
                          "scale must be contiguous, p4 8-byte aligned")
     ks = ksplit(b, din, dout, _sm_count(x.device.index))
     out = torch.empty((b, dout), dtype=x.dtype, device=x.device)
@@ -127,8 +140,17 @@ def q4_matmul(x, p4, scale):
         err = lib.dli_q4_matmul(
             x.data_ptr(), p4.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), _DTYPE_CODE[x.dtype],
-            b, din, dout, x.stride(0), out.stride(0), ks, stream)
-    build.check(lib, err, "q4_matmul kernel launch")
+            b, din, dout, x.stride(0), out.stride(0), ks, chunks, stream)
+    build.check(lib, err, f"{name} kernel launch")
+    return out
+
+
+def q4_matmul(x, p4, scale):
+    """x [b, din] @ unpack(p4 [din/2, dout] uint8) * scale [dout] f32 ->
+    [b, dout] in x's dtype; b <= MAX_PALLAS_ROWS on the card."""
+    if x.device.type == "cpu":
+        return q4_matmul_ref(x, p4, scale)
+    out = _launch("q4_matmul", x, p4, scale, 1)
     q4_matmul.launches += 1
     return out
 
@@ -136,16 +158,37 @@ def q4_matmul(x, p4, scale):
 q4_matmul.launches = 0
 
 
-def q4_linear(x, leaf):
-    """An int4 linear over ``leaf`` {"p4", "scale"} with any leading dims
-    on x (the JAX package's ``q4_linear``, single device)."""
-    refuse_chunked(leaf)
+def q4_matmul_row(x, p4, scale, chunks: int = 1):
+    """``q4_matmul`` over a chunk-local int4 pack of ``chunks`` chunks
+    (ops/quant.py ``repack_int4_rows``): x [b, din] @ unpack_int4(p4,
+    chunks) * scale -> [b, dout] in x's dtype. On a tp rank, p4 is the
+    rank's one chunk and the caller sums the partials over the group."""
+    if x.device.type == "cpu":
+        return q4_matmul_row_ref(x, p4, scale, chunks)
+    out = _launch("q4_matmul_row", x, p4, scale, chunks)
+    q4_matmul_row.launches += 1
+    return out
+
+
+q4_matmul_row.launches = 0
+
+
+def q4_linear(x, leaf, shards: int = 1):
+    """An int4 linear over ``leaf`` {"p4", "scale"[, "chunked"]} with any
+    leading dims on x (the JAX package's ``q4_linear``). A chunked leaf
+    of which this rank holds one of ``shards`` equal din slices (the
+    row-parallel o and down under tp) yields this rank's partial sum:
+    the caller reduces it over the group."""
     p4, scale = leaf["p4"], leaf["scale"]
     din, dout = x.shape[-1], p4.shape[-1]
     lead = x.shape[:-1]
     rows = math.prod(lead)
+    chunks = pack_chunks(leaf) // shards     # on this rank's slice
     if p4.dim() == 2 and supported(rows, din, dout):
-        y = q4_matmul(x.reshape(rows, din), p4, scale).reshape(*lead, dout)
+        x2 = x.reshape(rows, din)
+        y = (q4_matmul_row(x2, p4, scale, chunks) if "chunked" in leaf
+             else q4_matmul(x2, p4, scale)).reshape(*lead, dout)
     else:
-        y = torch.matmul(x, unpack_int4(p4).to(x.dtype)) * scale.to(x.dtype)
+        y = torch.matmul(x, unpack_int4(p4, chunks).to(x.dtype)) \
+            * scale.to(x.dtype)
     return y.to(x.dtype)

@@ -16,11 +16,22 @@ one device:
 PyTorch runs eagerly, so the reference's compiled-program caches and its
 CPU-only XLA workarounds (layer unrolling, weight repacking, the dummy
 batch row) have no counterpart here.
+
+Tensor parallelism (``mesh_spec=MeshSpec(tp=N)``, the reference's mesh
+over tp): the engine built by the caller is rank 0, the leader. It spawns
+N - 1 followers (runtime/lockstep.py), each of which builds the same
+engine on its rank (``group``): random weights drawn whole on every rank
+from the same seed and cut to the rank's shard (parallel/sharding.py),
+or the caller's tree cut the same way. ``generate`` and
+``teacher_forced`` broadcast their op, then every rank runs the same
+steps; only the leader samples, and it broadcasts each token, so the
+ranks agree on every step count. ``close`` stops the followers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import List, Optional, Sequence
 
@@ -36,6 +47,11 @@ from distributed_llm_inferencing_tpu_torch.ops.quant import (
     maybe_quantize, maybe_quantize_embed)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import (
     SamplingParams, sample)
+from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
+    MeshSpec, TPGroup, validate_spec)
+from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
+    chunk_markers, local_heads, shard_params, shard_tensor)
+from distributed_llm_inferencing_tpu_torch.runtime import lockstep
 from distributed_llm_inferencing_tpu_torch.utils.device import resolve_device
 from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
 
@@ -99,7 +115,8 @@ class _Clock:
 
 
 class InferenceEngine:
-    """Owns one model's weights on one device and serves ``generate``."""
+    """Owns one model's weights on one device (or one tp rank's shard of
+    them) and serves ``generate``."""
 
     # decode chunks of the eos path: the host syncs once per chunk to
     # look for eos, never per token
@@ -107,26 +124,111 @@ class InferenceEngine:
     STREAM_CHUNK_MAX = 32
 
     def __init__(self, cfg: ModelConfig, params=None, *,
+                 mesh_spec: Optional[MeshSpec] = None,
                  max_seq: Optional[int] = None, seed: int = 0, device=None,
-                 metrics: Optional[Metrics] = None):
+                 metrics: Optional[Metrics] = None,
+                 group: Optional[TPGroup] = None):
         self.metrics = metrics or Metrics()
-        self.device = resolve_device(device)
+        self.mesh_spec = spec = mesh_spec or MeshSpec()
+        validate_spec(spec, cfg)
         self.cfg = cfg
         self.max_seq = min(max_seq or cfg.max_position_embeddings,
                            cfg.max_position_embeddings)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, gen, self.device)
+        self.group = group
+        self._leader = None
+        self._lock = threading.Lock()   # one lockstep op at a time
+        self.device = base = resolve_device(device)
+        if group is not None:
+            self.device = group.device
+        if spec.tp > 1 and group is None:   # the leader: spawn the rest
+            self._leader = lockstep.Leader(spec.tp, base)
+            self.device = self._leader.group.device
+            self.group = self._leader.group
+            cpu = (None if params is None
+                   else {k: t.cpu() for k, t in params.items()})
+            try:
+                self._leader.run("load", dict(
+                    cfg=cfg, params=cpu, mesh_spec=spec, max_seq=max_seq,
+                    seed=seed, device=str(base)),
+                    lambda: self._load(params, seed))
+            except BaseException:
+                self._leader.stop()
+                raise
         else:
-            # weight-only quantization of a float tree (ops/quant.py), on
-            # the device, one weight at a time; a quantized tree passes
-            params = maybe_quantize_embed(maybe_quantize(
-                {k: t.to(self.device) for k, t in params.items()}, cfg), cfg)
-        self.params = params
-        self.model = Transformer(cfg, params)
+            self._load(params, seed)
         self._buckets_seen = set()
 
-    @torch.inference_mode()
+    def _load(self, params, seed):
+        """Build this rank's weights and model."""
+        cfg, spec = self.cfg, self.mesh_spec
+        rank = self.group.rank if self.group else 0
+        dev = self.device
+        if params is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            params = init_params(
+                cfg, gen, dev,
+                shard=(lambda n, t: shard_tensor(n, t, spec, rank))
+                if spec.tp > 1 else None)
+            params.update(chunk_markers(cfg, spec, dev))
+        else:
+            # weight-only quantization of a float tree (ops/quant.py), on
+            # the device, one weight at a time, before any cut (a scale
+            # spans the whole din); a quantized tree passes
+            params = shard_params(maybe_quantize_embed(maybe_quantize(
+                {k: t.to(dev) for k, t in params.items()}, cfg), cfg),
+                cfg, spec, rank)
+        self.params = params
+        self.model = Transformer(cfg, params, self.group)
+
+    def _op(self, name: str, **kw):
+        """Run ``_<name>`` here, and on every follower under tp."""
+        fn = getattr(self, "_" + name)
+        if self._leader is None:
+            return fn(**kw)
+        with self._lock:
+            return self._leader.run(name, kw, lambda: fn(**kw))
+
+    def _sample(self, logits, gen, sp):
+        """The next tokens: sampled here, or under tp sampled on the
+        leader and broadcast, so every rank feeds the same tokens."""
+        if self.group is None:
+            return sample(logits, gen, sp)
+        if self.group.rank == 0:
+            cur = sample(logits, gen, sp)
+        else:
+            cur = torch.empty(logits.shape[0], dtype=torch.int64,
+                              device=self.device)
+        return self.group.broadcast(cur)
+
+    def _check_request(self, prompts, max_new_tokens):
+        lens = [len(p) for p in prompts]
+        if not lens or min(lens) < 1:
+            raise ValueError("empty prompt")
+        if max(lens) + max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"prompt ({max(lens)}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds engine max_seq {self.max_seq} "
+                f"(context window {self.cfg.max_position_embeddings})")
+
+    def _prefill(self, prompts, cache, gather):
+        """Right-pad ``prompts`` into their bucket and prefill ``cache``;
+        ``gather``: keep only each prompt's last position."""
+        lens = [len(p) for p in prompts]
+        s0 = min(_bucket(max(lens)), self.max_seq)
+        host = torch.zeros((len(prompts), s0), dtype=torch.int64)
+        for i, p in enumerate(prompts):
+            host[i, :len(p)] = torch.as_tensor(p, dtype=torch.int64)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=self.device)
+        self._buckets_seen.add(s0)
+        return self.model.prefill(
+            host.to(self.device), lengths, cache,
+            gather=(lengths - 1).long() if gather else None)
+
+    def _cache(self, batch: int):
+        heads = local_heads(self.cfg, self.mesh_spec)[1]
+        return init_cache(self.cfg, batch, self.max_seq, device=self.device,
+                          num_kv_heads=heads)
+
     def generate(
         self,
         prompts: Sequence[Sequence[int]],
@@ -137,36 +239,29 @@ class InferenceEngine:
     ) -> GenerateResult:
         """Generate continuations for a batch of token-id prompts; a
         sequence stops after ``eos_token_id`` (trimmed from its tokens)."""
-        cfg, dev = self.cfg, self.device
-        sp = sampling or SamplingParams()
-        n = len(prompts)
-        lens = [len(p) for p in prompts]
-        if not lens or min(lens) < 1:
-            raise ValueError("empty prompt")
+        prompts = [list(map(int, p)) for p in prompts]
         if max_new_tokens < 1:
-            return GenerateResult([[] for _ in range(n)], 0.0, 0.0, 0)
-        max_len = max(lens)
-        if max_len + max_new_tokens > self.max_seq:
-            raise ValueError(
-                f"prompt ({max_len}) + max_new_tokens ({max_new_tokens}) "
-                f"exceeds engine max_seq {self.max_seq} "
-                f"(context window {cfg.max_position_embeddings})")
+            if not prompts or min(map(len, prompts)) < 1:
+                raise ValueError("empty prompt")
+            return GenerateResult([[] for _ in prompts], 0.0, 0.0, 0)
+        self._check_request(prompts, max_new_tokens)
+        return self._op("generate", prompts=prompts,
+                        max_new_tokens=int(max_new_tokens),
+                        sampling=sampling or SamplingParams(),
+                        seed=int(seed), eos_token_id=eos_token_id)
 
-        s0 = min(_bucket(max_len), self.max_seq)
-        host = torch.zeros((n, s0), dtype=torch.int64)
-        for i, p in enumerate(prompts):
-            host[i, :len(p)] = torch.as_tensor(p, dtype=torch.int64)
-        tokens = host.to(dev)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        cache = init_cache(cfg, n, self.max_seq, device=dev)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        self._buckets_seen.add(s0)
+    @torch.inference_mode()
+    def _generate(self, prompts, max_new_tokens, sampling, seed,
+                  eos_token_id) -> GenerateResult:
+        dev, sp = self.device, sampling
+        n = len(prompts)
+        cache = self._cache(n)
+        gen = torch.Generator(device=dev).manual_seed(seed)
 
         clock = _Clock(dev)
         clock.mark()
-        last, cache = self.model.prefill(
-            tokens, lengths, cache, gather=(lengths - 1).long())
-        cur = sample(last[:, 0], gen, sp)
+        last, cache = self._prefill(prompts, cache, gather=True)
+        cur = self._sample(last[:, 0], gen, sp)
         clock.mark()
 
         steps = 1
@@ -175,7 +270,7 @@ class InferenceEngine:
             toks = [cur]
             for _ in range(remaining):
                 logits, cache = self.model.decode_step(cur[:, None], cache)
-                cur = sample(logits[:, 0], gen, sp)
+                cur = self._sample(logits[:, 0], gen, sp)
                 toks.append(cur)
             steps += remaining
             clock.mark()
@@ -190,7 +285,7 @@ class InferenceEngine:
                 for _ in range(T):
                     logits, cache = self.model.decode_step(cur[:, None],
                                                            cache)
-                    cur = sample(logits[:, 0], gen, sp)
+                    cur = self._sample(logits[:, 0], gen, sp)
                     chunk.append(cur)
                 rows = torch.stack(chunk, dim=0).tolist()  # one sync/chunk
                 for row in rows:
@@ -209,12 +304,72 @@ class InferenceEngine:
         return GenerateResult(tokens=out, prefill_ms=prefill_ms,
                               decode_ms=decode_ms, steps=steps)
 
+    def teacher_forced(self, prompts: Sequence[Sequence[int]],
+                       forced: Sequence[Sequence[int]],
+                       last_only: bool = False):
+        """Logits of a prefill of ``prompts`` followed by one decode step
+        per row of ``forced`` ([steps][B] tokens fed, not sampled), f32 on
+        the host: (prefill [B, S, V], or [B, V] with ``last_only``, the
+        right-padded block's rows; decode [steps, B, V])."""
+        prompts = [list(map(int, p)) for p in prompts]
+        forced = [list(map(int, row)) for row in forced]
+        self._check_request(prompts, len(forced))
+        return self._op("teacher_forced", prompts=prompts, forced=forced,
+                        last_only=bool(last_only))
+
+    @torch.inference_mode()
+    def _teacher_forced(self, prompts, forced, last_only):
+        cache = self._cache(len(prompts))
+        first, cache = self._prefill(prompts, cache, gather=last_only)
+        steps = []
+        for row in forced:
+            tok = torch.tensor(row, dtype=torch.int64, device=self.device)
+            logits, cache = self.model.decode_step(tok[:, None], cache)
+            steps.append(logits[:, 0].cpu())
+        first = first[:, 0] if last_only else first
+        return first.cpu(), torch.stack(steps) if steps else None
+
+    def rank_stats(self) -> List[dict]:
+        """Every rank's kernel launches and data collectives, the
+        leader's first (one entry without tp)."""
+        out = self._op("stats")
+        return out if self._leader is not None else [out]
+
+    def _stats(self):
+        out = {"rank": self.group.rank if self.group else 0,
+               "device": str(self.device),
+               "launches": lockstep.launch_counts()}
+        if self.group is not None:
+            out["collectives"] = dict(self.group.counts)
+        return out
+
+    def reset_counts(self):
+        """Zero the kernel launch and collective counts on every rank."""
+        self._op("reset_counts")
+
+    def _reset_counts(self):
+        lockstep.reset_launch_counts()
+        if self.group is not None:
+            self.group.counts = dict.fromkeys(self.group.counts, 0)
+
+    def close(self):
+        """Stop the followers (tp); raises if one had to be killed."""
+        if self._leader is not None:
+            with self._lock:
+                self._leader.stop()
+
     def stats(self) -> dict:
-        return {
+        out = {
             "model": self.cfg.name,
             "device": str(self.device),
+            "mesh": self.mesh_spec.axis_sizes(),
             "params": param_count(self.params),
             "param_bytes": param_bytes(self.params),
             "max_seq": self.max_seq,
             "prefill_buckets_seen": sorted(self._buckets_seen),
         }
+        if self.group is not None:
+            # this rank's share; every rank holds the same amount
+            out["backend"] = self.group.backend
+            out["ranks"] = self.group.world
+        return out

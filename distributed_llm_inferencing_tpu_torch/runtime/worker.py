@@ -6,17 +6,21 @@ so a master can drive either worker:
 - ``GET /health``: status, device inventory from torch.cuda (``platform``,
   ``kind``, ``count``), loaded models (with ``serving``, the weight
   quantization, ``param_bytes`` — the bytes the weights take as stored —
-  and, for batched models, the scheduler's stats), metrics.
+  and, for batched models, the scheduler's stats; for engine-mode ones
+  the ``mesh``, and under tp the data collectives' ``backend``, with
+  ``param_bytes`` one rank's share), metrics.
 - ``POST /load_model``: ``model_name``, ``allow_random_init``, ``dtype``,
   ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
   ops/quant.py), ``embed_quantize`` (``"int8"``: the per-row int8
-  embedding table) — builds an ``InferenceEngine`` (engine mode, the
-  default),
+  embedding table), ``mesh`` (``{"tp": N}``: tensor parallelism over N
+  ranks, engine mode; parallel/mesh.py) — builds an ``InferenceEngine``
+  (engine mode, the default),
   or with ``"serving": "batched"`` a ``ContinuousBatcher`` over a paged KV
   pool (``kv_blocks``, ``kv_block_size``, ``slots``, ``prefill_chunk``,
   ``decode_chunk_cap``) whose scheduler thread serves concurrent
   requests.
-- ``POST /unload_model``: ``model_name``.
+- ``POST /unload_model``: ``model_name``; under tp it stops the model's
+  follower processes.
 - ``POST /inference``: ``model_name``, ``prompt`` or ``prompt_tokens``,
   ``max_new_tokens`` (or ``max_length``), ``sampling``, ``seed``; answers
   ``status``, ``result``, ``tokens``, ``execution_time`` and ``cost``
@@ -27,7 +31,9 @@ Fields of the reference protocol that the port does not implement yet —
 ``speculative``, ``kv_host_mb``, ``kv_source``, ``kv_export``,
 ``adapter``, ``resume``, ``request_tag``, ``kv_quantize`` (the int8 KV
 cache), checkpoint paths — get a 400, never a silent ignore; so does a
-``quantize`` or ``embed_quantize`` value outside the modes above.
+``quantize`` or ``embed_quantize`` value outside the modes above, and a
+``mesh`` the port cannot serve (an axis other than tp above 1, tp with
+``"serving": "batched"``, or a tp the model's shapes do not divide).
 
 Run: ``python -m distributed_llm_inferencing_tpu_torch worker --port 8100``
 (``--device cpu`` for the plain-PyTorch path without a GPU).
@@ -46,6 +52,8 @@ from distributed_llm_inferencing_tpu_torch.models.params import param_bytes
 from distributed_llm_inferencing_tpu_torch.models.registry import get_config
 from distributed_llm_inferencing_tpu_torch.ops.quant import MODES
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
+from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
+    MeshSpec, validate_spec)
 from distributed_llm_inferencing_tpu_torch.runtime import httpd
 from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
     ContinuousBatcher)
@@ -58,7 +66,7 @@ from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
     load_tokenizer)
 
 _UNPORTED_LOAD = ("kv_quantize", "checkpoint_path", "native_checkpoint",
-                  "mesh", "speculative", "kv_host_mb")
+                  "speculative", "kv_host_mb")
 _UNPORTED_INFER = ("speculative", "adapter", "resume", "kv_source",
                    "kv_export", "request_tag")
 _DTYPES = ("bfloat16", "float32")
@@ -89,7 +97,18 @@ class LoadedModel:
                "param_bytes": param_bytes(owner.params)}
         if self.batcher is not None:
             out["scheduler"] = self.batcher.stats()
+        else:
+            stats = self.engine.stats()
+            out["mesh"] = stats["mesh"]
+            if "backend" in stats:
+                out["backend"] = stats["backend"]
         return out
+
+    def close(self):
+        if self.batcher is not None:
+            self.batcher.stop()   # fails whatever is still queued or running
+        else:
+            self.engine.close()   # stops tp followers
 
 
 def _unported(body, fields):
@@ -182,6 +201,19 @@ class WorkerAgent:
                 return 400, {"status": "error",
                              "message": "embed_quantize must be 'int8'"}
             cfg = cfg.replace(embed_quant=body["embed_quantize"])
+        try:
+            mesh = MeshSpec.from_dict(body.get("mesh") or {})
+        except (TypeError, ValueError) as e:
+            return 400, {"status": "error", "message": f"mesh: {e}"}
+        try:
+            validate_spec(mesh, cfg)
+        except (NotImplementedError, ValueError) as e:
+            return 400, {"status": "error", "message": f"mesh: {e}"}
+        if mesh.tp > 1 and body.get("serving") == "batched":
+            return 400, {"status": "error",
+                         "message": "batched serving under tp is a later "
+                                    "slice of the port (ROADMAP A12); load "
+                                    "with \"serving\": \"engine\""}
         tok = load_tokenizer(body.get("tokenizer_path"), cfg.vocab_size)
         try:
             if body.get("serving") == "batched":
@@ -203,8 +235,8 @@ class WorkerAgent:
                 stats = batcher.stats()
             else:
                 engine = InferenceEngine(
-                    cfg, max_seq=body.get("max_seq"), device=self.device,
-                    metrics=self.metrics)
+                    cfg, mesh_spec=mesh, max_seq=body.get("max_seq"),
+                    device=self.device, metrics=self.metrics)
                 lm = LoadedModel(engine, tok, "random-init")
                 stats = engine.stats()
         except NotImplementedError as e:   # config outside the ported arm
@@ -224,8 +256,8 @@ class WorkerAgent:
         if m is None:
             return 404, {"status": "error",
                          "message": f"model {name} not loaded"}
-        if m.batcher is not None:
-            m.batcher.stop()   # fails whatever is still queued or running
+        with m.lock:   # after the request in flight, if any
+            m.close()
         del m
         gc.collect()
         if self.device.type == "cuda":
@@ -328,10 +360,9 @@ class WorkerAgent:
     def shutdown(self):
         self.service.shutdown()
         with self._models_lock:
-            batchers = [m.batcher for m in self.models.values()
-                        if m.batcher is not None]
-        for b in batchers:
-            b.stop()
+            models = list(self.models.values())
+        for m in models:
+            m.close()
 
 
 def main(argv=None):

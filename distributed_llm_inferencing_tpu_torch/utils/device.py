@@ -3,6 +3,13 @@
 Entry points run on CUDA unless the caller asks for the CPU. A missing
 GPU is an error, never a quiet switch to the CPU: the CPU path runs the
 kernels' plain versions, which are a reference, not a serving path.
+
+Under tensor parallelism (parallel/mesh.py) rank r of a group runs on
+``cuda:(r % device_count)`` (``rank_device``), and the group's data
+collectives go over NCCL when every rank has a card of its own and over
+gloo when ranks share a card or run on the CPU (``data_backend``): NCCL
+refuses two ranks on one device. That is a rule of the layout, chosen
+before the group forms, not a fallback after a failure.
 """
 
 from __future__ import annotations
@@ -55,3 +62,19 @@ def inventory(device: torch.device) -> dict:
         })
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "devices": devices}
+
+
+def rank_device(device: torch.device, rank: int) -> torch.device:
+    """The device of tp rank ``rank`` when the group runs on ``device``'s
+    type: ``cuda:(rank % device_count)``, or the CPU."""
+    if device.type == "cpu":
+        return device
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def data_backend(device: torch.device, world: int) -> str:
+    """"nccl" when each of ``world`` ranks on ``device``'s type has a
+    card of its own, else "gloo" (a shared card, or the CPU)."""
+    if device.type == "cuda" and world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"

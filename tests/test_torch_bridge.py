@@ -60,17 +60,21 @@ def test_params_from_jax_is_bitwise(name, dtype):
 
 
 def test_params_from_jax_refuses_quantized_leaves():
-    """Quantized leaves the port does not serve are refused: a chunk-local
-    int4 pack (row-parallel layout, A12), and quantized leaves under a
-    config that says the weights are float."""
+    """Quantized leaves under a config that says the weights are float are
+    refused; a chunk-local int4 pack (the JAX package's tp layout of o)
+    bridges bit for bit with its ``chunked`` marker."""
     from distributed_llm_inferencing_tpu.ops.quant import repack_int4_rows
     cfg = jreg.get_config("tiny-llama").replace(dtype="float32", quant="int4")
     params = jax_init_params(cfg, jax.random.PRNGKey(0))
     params["layers"]["o"] = repack_int4_rows(params["layers"]["o"], 2)
     tree = jax.tree.map(np.asarray, params)
     tcfg = treg.get_config("tiny-llama").replace(dtype="float32")
-    with pytest.raises(NotImplementedError):
-        params_from_jax(tree, tcfg.replace(quant="int4"), device="cpu")
+    port = params_from_jax(tree, tcfg.replace(quant="int4"), device="cpu")
+    for i in range(cfg.num_layers):
+        np.testing.assert_array_equal(port[f"layers.{i}.o.p4"].numpy(),
+                                      tree["layers"]["o"]["p4"][i])
+        assert tuple(port[f"layers.{i}.o.chunked"].shape) == (2, 0)
+    assert "layers.0.down.chunked" not in port
     del tree["layers"]["o"]["chunked"]
     with pytest.raises(ValueError):
         params_from_jax(tree, tcfg, device="cpu")

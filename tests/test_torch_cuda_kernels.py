@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card:
 flash_attention, flash_decode, paged_flash_decode, fused_decode_step (float,
-int8 and int4 weight forms) and q4_matmul.
+int8 and int4 weight forms), q4_matmul and q4_matmul_row.
 
 Marked ``cuda``: each test skips where no CUDA device is visible (the
 decision is made inside the test, never at import). On a GPU machine run
@@ -10,7 +10,8 @@ Tolerances: f32 2e-5 (summation order only); bf16 rtol = atol = 1e-2
 paged and fused decodes in bf16 rtol 2^-7, atol 1e-4 (at most one ulp
 apart, plus the f32 summation-order error). q4_matmul: the f32
 summation-order bound 2 * din * 2^-24 * (|x| @ |levels|) * scale, plus one
-bf16 ulp (2^-7 |ref|) in bf16.
+bf16 ulp (2^-7 |ref|) in bf16; q4_matmul_row the same bound over its
+chunk-local unpack.
 """
 
 import numpy as np
@@ -265,12 +266,13 @@ def test_fused_decode_quantized_forms_match_ref(dtype, form, lengths, H, Hkv,
     torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
-def q4_bound(x, p4, scale):
+def q4_bound(x, p4, scale, chunks=1):
     """|kernel - plain| allowed for q4_matmul: both sum din f32 products in
     some order, each within din * 2^-24 * sum|x * w| of the exact sum;
     bf16 output adds one ulp."""
     din = x.shape[1]
-    mag = (x.float().abs() @ tq.unpack_int4(p4).float().abs()) * scale
+    mag = (x.float().abs() @ tq.unpack_int4(p4, chunks).float().abs()) \
+        * scale
     return 2 * din * 2.0 ** -24 * mag
 
 
@@ -301,3 +303,37 @@ def test_q4_matmul_kernel_matches_ref(dtype, rows, din, dout):
     assert bool((err <= bound).all()), float((err - bound).max())
     again = qm.q4_matmul(x, leaf["p4"], leaf["scale"])
     assert torch.equal(out, again)     # no float atomics: the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,din,dout,chunks", [
+    (2, 128, 256, 2), (3, 128, 256, 2),                        # JAX parity
+    (1, 4096, 4096, 2), (8, 4096, 4096, 4), (32, 4096, 4096, 2),   # o
+    (1, 14336, 4096, 4), (8, 14336, 4096, 2), (32, 14336, 4096, 4),  # down
+    (8, 2048, 4096, 1), (1, 7168, 4096, 1),         # a tp=2 rank's chunk
+    (5, 96, 264, 3),                                # odd: 16 rows a chunk
+])
+def test_q4_matmul_row_kernel_matches_ref(dtype, rows, din, dout, chunks):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(rows * din + dout + chunks)
+    leaf = tq.repack_int4_rows(tq.quantize_weight_int4(
+        torch.randn(din, dout, generator=g, device=dev) / din ** 0.5), chunks)
+    x = _rand(g, (rows, din), dtype, dev)
+    n0, m0 = qm.q4_matmul_row.launches, qm.q4_matmul.launches
+    out = qm.q4_matmul_row(x, leaf["p4"], leaf["scale"], chunks)
+    torch.cuda.synchronize()
+    assert qm.q4_matmul_row.launches == n0 + 1
+    assert qm.q4_matmul.launches == m0
+    assert out.dtype == dtype and out.shape == (rows, dout)
+    ref = qm.q4_matmul_row_ref(x, leaf["p4"], leaf["scale"], chunks)
+    bound = q4_bound(x, leaf["p4"], leaf["scale"], chunks)
+    if dtype == torch.bfloat16:
+        bound = bound + 2 ** -7 * ref.float().abs()
+    err = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out.float()).all()
+    assert bool((err <= bound).all()), float((err - bound).max())
+    again = qm.q4_matmul_row(x, leaf["p4"], leaf["scale"], chunks)
+    assert torch.equal(out, again)     # no float atomics: the same bits
+    with pytest.raises(ValueError):    # din must split into 2*chunks
+        qm.q4_matmul_row(x, leaf["p4"], leaf["scale"], din)

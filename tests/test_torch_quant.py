@@ -127,8 +127,9 @@ def test_every_nibble_packs_and_unpacks_as_in_jax():
     np.testing.assert_array_equal(tq.unpack_int4(tp).numpy(), q)
     np.testing.assert_array_equal(tq.unpack_int4(tp).numpy(),
                                   np.asarray(jq.unpack_int4(jp)))
-    with pytest.raises(NotImplementedError):
-        tq.unpack_int4(tp, chunks=2)
+    # the chunk-local layout (tensor parallelism's o and down) as well
+    np.testing.assert_array_equal(tq.unpack_int4(tp, chunks=2).numpy(),
+                                  np.asarray(jq.unpack_int4(jp, 2)))
 
 
 def test_maybe_quantize_on_the_flat_dict():
