@@ -11,19 +11,23 @@ Phases (any failure fails the run, exit code != 0):
    kernel source under distributed_llm_inferencing_tpu_torch/csrc/ with
    nvcc for sm_90a (one nvcc per source, all started together).
 2. Hold each kernel against its plain PyTorch version on the card: the
-   serving path's shapes (llama-3-8b, bf16: prefill B=1 S=512 H=32 Hkv=8
-   hd=128; decode B=4 S=4096 lengths [1, 37, 1000, 4096]; paged decode
-   and fused decode R=8 bs=16 over a 2048-block pool, context lengths
+   serving path's shapes (llama-3-8b, bf16: prefill B=1 H=32 Hkv=8
+   hd=128 at S=512, 2048 and 4096, through the tensor-core form; decode
+   B=4 S=4096 lengths [1, 37, 1000, 4096]; paged decode and fused decode
+   R=8 bs=16 over a 2048-block pool, context lengths
    [0, 1, 15, 16, 17, 300, 1000, 4096], the fused q weight [4096, 4096],
-   the last two in f32 as well; the fused kernel in its float, int8 and
-   int4 weight forms) plus small f32, sliding-window, ALiBi, MQA/MHA,
-   head_dim 8-256 and zero-length cases. The paged and fused decodes in
+   the last two in f32 as well; paged decode also at full occupancy,
+   every slot at 4096; the fused kernel in its float, int8 and int4
+   weight forms) plus small f32, sliding-window, ALiBi, MQA/MHA,
+   head_dim 8-256, ragged-tile, split-edge and zero-length cases. The paged and fused decodes in
    bf16 are held to one bf16 ulp (PAGED_BF16_TOL). q4_matmul at
    llama-3-8b's linear and head shapes for b in {1, 8, 32}, x in bf16 and
    f32, and tests/test_pallas_parity.py's odd shapes, within Q4_TOL and
    bit-identical across two launches. Times the kernel, its plain version
    and one torch call computing the same function
-   (scaled_dot_product_attention; for q4_matmul torch.matmul on a bf16
+   (scaled_dot_product_attention, for paged decode on K/V gathered
+   beforehand and, as library_gather_ms, with the gather in the timed
+   call; for q4_matmul torch.matmul on a bf16
    weight dequantized beforehand, and torch._weight_int4pack_mm where the
    installed torch has it; yardsticks only, the port never calls them;
    none for the fused kernel), and works out the bound: the larger of
@@ -33,7 +37,8 @@ Phases (any failure fails the run, exit code != 0):
    through POST /load_model and three POST /inference requests in
    different prefill buckets (one greedy, two sampled, 32 new tokens).
    Kernel launch counts are zeroed just before and read just after, and
-   each request must add one flash_attention launch per layer and one
+   each request must add one flash_attention launch per layer, each in
+   the tensor-core form (the "flash_attention[mma]" count), and one
    flash_decode launch per layer per decode step, and no other.
 4. Cross-check at full width and reduced depth (2 layers, f32): the same
    weights through the kernels on the card and through the plain
@@ -53,7 +58,12 @@ Phases (any failure fails the run, exit code != 0):
    prefill and ROUTE_STEPS decode steps (f32 greedy; bf16 through each
    kernel fed the same tokens). Reports the f32 top-1/top-2 logit gaps
    and each route's logit error against f32; each route's error must
-   stay within ROUTE_ERR_FACTOR times the bf16 prefill's.
+   stay within ROUTE_ERR_FACTOR times the bf16 prefill's. Then the same
+   prompts through engine-mode (dense) prefill in bf16, the attention
+   once through the tensor-core flash_attention and once through
+   flash_attention_ref on the card (swapped in by this script only),
+   each against the f32 model over every real row: the kernel's worst
+   error must stay within ROUTE_ERR_FACTOR times the plain route's.
 7. Quantized serving: the worker loads llama-3-8b (bf16 activations) with
    "quantize": "int4" — phase 3's requests in engine mode, then phase 5's
    wave batched with DLI_FUSED_DECODE off and on — and with "quantize":
@@ -75,7 +85,8 @@ Phases (any failure fails the run, exit code != 0):
    spawns one follower; both ranks sit on this machine's card (their
    data collectives over gloo) or on two cards (NCCL), as printed. Every
    rank's counts are zeroed before each request and held after it: one
-   flash_attention per layer, one flash_decode per layer per decode step;
+   flash_attention per layer (tensor-core form), one flash_decode per
+   layer per decode step;
    in int4 per decode step q4_matmul_row 2 x L (o, down) and q4_matmul
    5 x L + 1 (q, k, v, gate, up, head; one more for the prefill's head
    row); per weight pass 2 x L + 1 all-reduces (o, down, embedding), one
@@ -199,6 +210,28 @@ def _library_call(torch, sdpa, q, k, v, **kw):
         return lambda: sdpa(qt, kt, vt, **kw)
 
 
+def _gather_library_call(torch, sdpa, q, k_pool, v_pool, bt, mask):
+    """SDPA over each slot's blocks gathered from the pools (``k_pool[bt]``)
+    inside the call, as one would attend a paged cache without a paged
+    kernel; the heads repeated in the call where SDPA lacks enable_gqa."""
+    R, mb = bt.shape
+    bs, Hkv, hd = k_pool.shape[1:]
+    btl, qt, g = bt.long(), q.transpose(1, 2), q.shape[2] // Hkv
+
+    def call(gqa):
+        kt, vt = (p[btl].reshape(R, mb * bs, Hkv, hd).transpose(1, 2)
+                  for p in (k_pool, v_pool))
+        if gqa:
+            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        return sdpa(qt, kt.repeat_interleave(g, dim=1),
+                    vt.repeat_interleave(g, dim=1), attn_mask=mask)
+    try:
+        call(True)
+        return lambda: call(True)
+    except TypeError:
+        return lambda: call(False)
+
+
 def _compare(torch, out, ref, tol):
     atol, rtol = tol
     o, r = out.float(), ref.float()
@@ -225,18 +258,27 @@ def check_prefill(torch, fa, sdpa, B, S, H, Hkv, hd, dtype, window=None,
     err, ok = _compare(torch, out, ref, TOL[dname])
     row = {"case": f"prefill B={B} S={S} H={H} Hkv={Hkv} hd={hd} {dname}"
                    f" window={window} alibi={alibi}",
+           "form": fa.prefill_form(dtype, hd),
            "max_abs_err": err, "tol": TOL[dname], "ok": ok}
     if timing:
         keys = sum(min(i + 1, window or S) for i in range(S))
         flops = 4.0 * B * H * hd * keys
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         row["bound_ms"], row["bound_by"] = _bound_ms(flops, nbytes, dname)
-        row["ms"] = timed_ms(torch, lambda: fa.flash_attention(
-            q, k, v, sliding_window=window, alibi=sl))
+        # "ms" and "library_ms" are device time from the profiler (at
+        # S=512 the wrapper's host side outlasts the kernel); "event_ms"
+        # the CUDA events around a loop of calls, host included
+        call = lambda: fa.flash_attention(  # noqa: E731
+            q, k, v, sliding_window=window, alibi=sl)
+        row["ms"] = _device_ms(torch, [call])
+        row["event_ms"] = timed_ms(torch, call)
+        # the plain version materialises [S, S] scores per head: few runs
+        # at the longest prompts
         row["plain_ms"] = timed_ms(torch, lambda: fa.flash_attention_ref(
-            q, k, v, sliding_window=window, alibi=sl), iters=5)
-        row["library_ms"] = timed_ms(torch, _library_call(
-            torch, sdpa, q, k, v, is_causal=True))
+            q, k, v, sliding_window=window, alibi=sl),
+            **(dict(iters=5) if S < 4096 else dict(iters=2, warmup=1)))
+        row["library_ms"] = _device_ms(torch, [_library_call(
+            torch, sdpa, q, k, v, is_causal=True)])
     return row
 
 
@@ -309,16 +351,24 @@ def _device_ms(torch, fns, iters=30):
     return us / 1e3 / iters
 
 
-def _paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs, nb):
+def _paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs, nb,
+                  disjoint=False):
     """A random pool of nb blocks; each slot's table is its own random
-    permutation of pool blocks (the dummy block 0 aside)."""
+    permutation of pool blocks (the dummy block 0 aside), or with
+    ``disjoint`` one permutation cut into the slots' tables (no block
+    read twice, as in a full pool)."""
     dev = torch.device("cuda")
     R = len(lengths)
     mb = max(1, -(-max(lengths) // bs))
     k = torch.randn(nb, bs, Hkv, hd, generator=g, device=dev).to(dtype)
     v = torch.randn(nb, bs, Hkv, hd, generator=g, device=dev).to(dtype)
-    bt = torch.stack([torch.randperm(nb - 1, generator=g, device=dev)[:mb]
-                      + 1 for _ in range(R)]).to(torch.int32)
+    if disjoint:
+        bt = (torch.randperm(nb - 1, generator=g, device=dev)[:R * mb]
+              + 1).reshape(R, mb).to(torch.int32)
+    else:
+        bt = torch.stack([torch.randperm(nb - 1, generator=g,
+                                         device=dev)[:mb] + 1
+                          for _ in range(R)]).to(torch.int32)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return k, v, bt, lens
 
@@ -328,13 +378,13 @@ def _paged_keys(lengths, window):
 
 
 def check_paged(torch, pa, sdpa, lengths, H, Hkv, hd, dtype, bs=16, nb=None,
-                window=None, timing=False):
+                window=None, timing=False, disjoint=False):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(len(lengths) * 13 + hd)
     R = len(lengths)
     nb = nb or R * max(1, -(-max(lengths) // bs)) + 1
     k, v, bt, lens = _paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs,
-                                   nb)
+                                   nb, disjoint)
     q = torch.randn(R, 1, H, hd, generator=g, device=dev).to(dtype)
     out = pa.paged_flash_decode(q, k, v, bt, lens, sliding_window=window)
     torch.cuda.synchronize()
@@ -353,12 +403,15 @@ def check_paged(torch, pa, sdpa, lengths, H, Hkv, hd, dtype, bs=16, nb=None,
         row["bound_ms"], row["bound_by"] = _bound_ms(flops, nbytes, dname)
         sets = [(q, k, v)] + [
             (torch.randn_like(q), *_paged_inputs(
-                torch, g, dtype, lengths, H, Hkv, hd, bs, nb)[:2])
+                torch, g, dtype, lengths, H, Hkv, hd, bs, nb, disjoint)[:2])
             for _ in range(2)]
-        row["ms"] = _cold_ms(torch, [
-            (lambda a=a: pa.paged_flash_decode(a[0], a[1], a[2], bt, lens,
-                                               sliding_window=window))
-            for a in sets])
+        # device time (its split pass and merge) from the profiler; the
+        # CUDA events around the loop time the wrapper's host side here
+        calls = [(lambda a=a: pa.paged_flash_decode(
+            a[0], a[1], a[2], bt, lens, sliding_window=window))
+            for a in sets]
+        row["ms"] = _device_ms(torch, calls)
+        row["event_ms"] = _cold_ms(torch, calls)
         row["plain_ms"] = timed_ms(torch, lambda: pa.paged_flash_decode_ref(
             q, k, v, bt, lens, sliding_window=window), iters=5)
         # the yardstick attends K/V gathered outside the timed call
@@ -367,8 +420,13 @@ def check_paged(torch, pa, sdpa, lengths, H, Hkv, hd, dtype, bs=16, nb=None,
         vg = v[bt.long()].reshape(R, mb * bs, Hkv, hd)
         mask = (torch.arange(mb * bs, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
-        row["library_ms"] = timed_ms(torch, _library_call(
-            torch, sdpa, q, kg, vg, attn_mask=mask))
+        row["library_ms"] = _device_ms(torch, [_library_call(
+            torch, sdpa, q, kg, vg, attn_mask=mask)])
+        # ... and with the gather in the timed call, as a caller without
+        # a paged kernel would pay it
+        del kg, vg
+        row["library_gather_ms"] = _device_ms(torch, [_gather_library_call(
+            torch, sdpa, q, k, v, bt, mask)])
     return row
 
 
@@ -630,6 +688,9 @@ def phase_paged_kernels(torch, pa, fd):
     serve = [0, 1, 15, 16, 17, 300, 1000, 4096]
     paged = [check_paged(torch, pa, sdpa, serve, 32, 8, 128, bf16, nb=2048,
                          timing=True),
+             # full occupancy: every slot at 4096, no block shared
+             check_paged(torch, pa, sdpa, [4096] * 8, 32, 8, 128, bf16,
+                         nb=8 * 256 + 1, timing=True, disjoint=True),
              check_paged(torch, pa, sdpa, serve, 32, 8, 128, f32, nb=2048),
              check_paged(torch, pa, sdpa, [5, 17, 32, 1], 4, 2, 16, f32,
                          bs=8),
@@ -638,7 +699,15 @@ def phase_paged_kernels(torch, pa, fd):
                          window=64),
              check_paged(torch, pa, sdpa, [90, 3], 8, 1, 256, f32,
                          window=16),
-             check_paged(torch, pa, sdpa, [64, 129], 4, 4, 64, bf16)]
+             check_paged(torch, pa, sdpa, [64, 129], 4, 4, 64, bf16),
+             # split edges (255/256/257/513), length 0, a table far wider
+             # than every length, windows inside and across splits
+             check_paged(torch, pa, sdpa, [255, 256, 257, 513, 0], 32, 8,
+                         128, bf16, nb=1024),
+             check_paged(torch, pa, sdpa, [1000, 700], 32, 8, 128, bf16,
+                         window=400),
+             check_paged(torch, pa, sdpa, [600, 5], 32, 8, 128, f32,
+                         window=100)]
     fused = [check_fused(torch, fd, serve, 32, 8, 128, 4096, bf16, nb=2048,
                          timing=True),
              check_fused(torch, fd, serve, 32, 8, 128, 4096, f32, nb=2048),
@@ -673,14 +742,22 @@ def phase_paged_kernels(torch, pa, fd):
 def phase_kernels(torch, fa):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bf16, f32 = torch.bfloat16, torch.float32
-    pre = [check_prefill(torch, fa, sdpa, 1, 512, 32, 8, 128, bf16,
-                         timing=True),
-           check_prefill(torch, fa, sdpa, 2, 100, 8, 2, 64, f32),
+    # bf16 prefill at the engine's prompt buckets up to max_seq 4096
+    pre = [check_prefill(torch, fa, sdpa, 1, S, 32, 8, 128, bf16,
+                         timing=True) for S in (512, 2048, 4096)]
+    pre += [check_prefill(torch, fa, sdpa, 2, 100, 8, 2, 64, f32),
            check_prefill(torch, fa, sdpa, 2, 300, 8, 2, 128, bf16, window=64),
            check_prefill(torch, fa, sdpa, 1, 64, 8, 8, 32, f32, alibi=True),
            check_prefill(torch, fa, sdpa, 1, 80, 4, 2, 256, f32, window=20,
                          alibi=True),
-           check_prefill(torch, fa, sdpa, 2, 40, 8, 4, 8, f32)]
+           check_prefill(torch, fa, sdpa, 2, 40, 8, 4, 8, f32),
+           # the tensor-core form's edges: ragged tiles, MQA/MHA, hd 64
+           # and 256 (32-key tiles), window across tiles, ALiBi
+           check_prefill(torch, fa, sdpa, 1, 513, 8, 1, 128, bf16,
+                         alibi=True),
+           check_prefill(torch, fa, sdpa, 2, 77, 4, 4, 256, bf16, window=20),
+           check_prefill(torch, fa, sdpa, 1, 100, 8, 2, 64, bf16),
+           check_prefill(torch, fa, sdpa, 2, 40, 8, 4, 8, bf16)]
     dec = [check_decode(torch, fa, sdpa, [1, 37, 1000, 4096], 4096, 32, 8,
                         128, bf16, timing=True),
            check_decode(torch, fa, sdpa, [0, 1, 200], 256, 8, 2, 64, f32),
@@ -702,6 +779,18 @@ def phase_kernels(torch, fa):
 # phase 3: the main path through the port's worker
 # ---------------------------------------------------------------------
 
+def zero_counts(kernels):
+    """Set every launch counter of ``kernels`` (name -> (module, wrapper
+    name, counter attribute)) to 0."""
+    for mod, fn, attr in kernels.values():
+        setattr(getattr(mod, fn), attr, 0)
+
+
+def read_counts(kernels):
+    return {k: getattr(getattr(mod, fn), attr)
+            for k, (mod, fn, attr) in kernels.items()}
+
+
 def _http(url, body=None, timeout=900):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
@@ -715,9 +804,11 @@ def _http(url, body=None, timeout=900):
 
 
 def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
-    """Phase 3's three requests through a loaded engine-mode model: counts
-    zeroed before, each request must add one flash_attention launch per
-    layer, one flash_decode launch per layer per decode step and
+    """Phase 3's three requests through a loaded engine-mode model (bf16
+    activations): counts zeroed before, each request must add one
+    flash_attention launch per layer, each in its tensor-core form
+    ("flash_attention[mma]"), one flash_decode launch per layer per
+    decode step and
     ``q4_per_step`` q4_matmul launches per decode step plus one for the
     gathered head row of its prefill (int4; 0 otherwise), and nothing
     else. Returns (launches, request rows)."""
@@ -725,10 +816,8 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
     # byte tokenizer: BOS + one token per byte -> 100/200/500 tokens,
     # prefill buckets 128/256/512 (prefill rows > 32: the plain unpack)
     reqs = [(100, {"do_sample": False}, 0), (200, {}, 1), (500, {}, 2)]
-    for mod, name in kernels.values():   # counts of this path only
-        setattr(getattr(mod, name), "launches", 0)
-    count = lambda: {k: getattr(mod, name).launches  # noqa: E731
-                     for k, (mod, name) in kernels.items()}
+    zero_counts(kernels)                 # counts of this path only
+    count = lambda: read_counts(kernels)  # noqa: E731
     rows = []
     for n_tok, sampling, seed in reqs:
         text = "".join(chr(97 + (i * 7 + seed) % 26)
@@ -745,6 +834,7 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
         want.update(flash_attention=L, flash_decode=L * (passes - 1),
                     q4_matmul=(1 + q4_per_step * (passes - 1)
                                if q4_per_step else 0))
+        want["flash_attention[mma]"] = L     # bf16: the tensor-core form
         assert d == want, f"launches {d} != {want}"
         assert passes <= new and (len(toks) == new or (
             len(toks) < new and passes >= len(toks) + 1)), (toks, passes)
@@ -973,14 +1063,12 @@ def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None):
     batcher.model.paged_prefill_tail = recorded
     snap = lambda: worker.metrics.snapshot()  # noqa: E731
     s0 = snap()
-    for mod, kname in kernels.values():   # counts of this pass only
-        setattr(getattr(mod, kname), "launches", 0)
+    zero_counts(kernels)                 # counts of this pass only
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
         got = list(ex.map(lambda b: _http(base + "/inference", b), bodies))
     wall = time.perf_counter() - t0
-    launches = {k: getattr(mod, kname).launches
-                for k, (mod, kname) in kernels.items()}
+    launches = read_counts(kernels)
     s1 = snap()
     passes, emitted = (s1["counters"].get(k, 0) - s0["counters"].get(k, 0)
                        for k in ("batcher_weight_passes",
@@ -1097,8 +1185,7 @@ def _route_run(torch, model, pool, bt, lens, first, route, kernels,
     [steps, R])."""
     L = model.cfg.num_layers
     os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
-    for mod, name in kernels.values():
-        setattr(getattr(mod, name), "launches", 0)
+    zero_counts(kernels)
     cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
     cur, logits, fed = first, [], []
     try:
@@ -1111,13 +1198,61 @@ def _route_run(torch, model, pool, bt, lens, first, route, kernels,
                 cur, cl = lg.argmax(-1), cl + 1
     finally:
         os.environ.pop("DLI_FUSED_DECODE", None)
-    launches = {k: getattr(mod, name).launches
-                for k, (mod, name) in kernels.items()}
+    launches = read_counts(kernels)
     mine = "fused_decode_step" if route == "fused" else "paged_flash_decode"
     want = {k: (L * ROUTE_STEPS if k == mine else 0) for k in launches}
     want["q4_matmul"] = q4_per_step * ROUTE_STEPS
     assert launches == want, f"{route}: launches {launches} != {want}"
     return torch.stack(logits), torch.stack(fed)
+
+
+def _prefill_routes(torch, models, prompts, kernels):
+    """Engine-mode (dense-cache) prefill of ``prompts`` through full-depth
+    models: the f32 one, and the bf16 one with its attention through the
+    tensor-core kernel ("kernel") and through ``flash_attention_ref`` on
+    the card ("plain", swapped into the attention dispatch here and
+    nowhere in the package). Returns each bf16 route's largest logit error
+    against f32 per prompt, over the prompt's real rows."""
+    from distributed_llm_inferencing_tpu_torch.ops import attention as ta
+    from distributed_llm_inferencing_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
+    lens = [len(p) for p in prompts]
+    R, S0 = len(prompts), max(lens)
+    L = models["f32"].cfg.num_layers
+    tokens = torch.zeros(R, S0, dtype=torch.long, device="cuda")
+    for r, p in enumerate(prompts):
+        tokens[r, :len(p)] = torch.tensor(p)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    real = torch.arange(S0, device="cuda")[None, :] < lengths[:, None]
+
+    def run(model, plain=False):
+        cache = init_cache(model.cfg, R, S0, device="cuda")
+        zero_counts(kernels)
+        kernel = ta.flash_attention
+        if plain:
+            ta.flash_attention = fa.flash_attention_ref
+        try:
+            with torch.inference_mode():
+                logits, _ = model.prefill(tokens, lengths, cache)
+        finally:
+            ta.flash_attention = kernel
+        n = read_counts(kernels)
+        return logits, (n["flash_attention"], n["flash_attention[mma]"])
+
+    ref, n = run(models["f32"])
+    assert n == (L, 0), f"f32 prefill launches {n} != ({L}, 0)"
+    out = {}
+    for route in ("kernel", "plain"):
+        lg, n = run(models["bf16"], plain=route == "plain")
+        want = (L, L) if route == "kernel" else (0, 0)
+        assert n == want, f"{route} prefill launches {n} != {want}"
+        assert torch.isfinite(lg[real]).all(), f"{route} prefill not finite"
+        err = (lg - ref).abs().amax(-1)
+        out[route] = torch.where(real, err, torch.zeros_like(err)) \
+            .amax(-1).tolist()
+        del lg, err
+    del ref
+    return out
 
 
 def phase_route_depth(torch, kernels):
@@ -1128,7 +1263,12 @@ def phase_route_depth(torch, kernels):
     tokens. Per row and step it reports the f32 top-1/top-2 logit gap,
     each bf16 route's largest logit error against f32 and whether its
     argmax agrees. The bf16 prefill's error against f32 (no decode
-    kernel in it) is the yardstick of bf16 rounding at this depth."""
+    kernel in it) is the yardstick of bf16 rounding at this depth.
+    Then the prefill route: the same prompts through engine-mode
+    prefill, the bf16 attention through the tensor-core kernel and
+    through its plain version, each against f32 over every real row; the
+    kernel's worst error must stay within ROUTE_ERR_FACTOR x the plain
+    route's."""
     from distributed_llm_inferencing_tpu_torch.models.params import (
         init_params)
     from distributed_llm_inferencing_tpu_torch.models.registry import (
@@ -1200,7 +1340,20 @@ def phase_route_depth(torch, kernels):
     worst = {r: max(map(max, out[f"err_{r}"])) for r in runs}
     assert all(e <= bound for e in worst.values()), \
         f"bf16 decode logits off f32 by {worst}, over {bound}"
-    del models, params, pools, prefill, runs, ref
+    del pools, runs, ref
+    gc.collect()
+    dense = _prefill_routes(torch, models, prompts, kernels)
+    for route, errs in dense.items():
+        out[f"dense_prefill_err_{route}"] = errs
+        log(f"  dense_prefill_err_{route}: {json.dumps(errs)}")
+    worst_k, worst_p = max(dense["kernel"]), max(dense["plain"])
+    log("  prefill route summary", json.dumps(
+        {"worst_kernel": worst_k, "worst_plain": worst_p,
+         "factor": worst_k / worst_p}))
+    assert worst_k <= ROUTE_ERR_FACTOR * worst_p, \
+        f"tensor-core prefill off f32 by {worst_k}, over " \
+        f"{ROUTE_ERR_FACTOR} x the plain route's {worst_p}"
+    del models, params, prefill
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1362,13 +1515,14 @@ def phase_int4_depth(torch, kernels, qm):
 # phase 10: tensor-parallel engine serving through the port's worker
 # ---------------------------------------------------------------------
 
-def _tp_want(L, passes, int4, prefill_q4=1):
+def _tp_want(L, passes, int4, prefill_q4=1, bf16=True):
     """Exact per-rank counts of one engine-mode request of ``passes``
     weight passes (a prefill of more than 32 rows, then decode steps of
-    one row) under tp, the same at any tp: kernels, then data
-    collectives."""
+    one row) under tp, the same at any tp: kernels (a bf16 prefill in
+    its tensor-core form), then data collectives."""
     d = passes - 1
-    launches = {"flash_attention": L, "flash_decode": L * d,
+    launches = {"flash_attention": L, "flash_attention[mma]": L if bf16
+                else 0, "flash_decode": L * d,
                 "paged_flash_decode": 0, "fused_decode_step": 0,
                 "q4_matmul": prefill_q4 + (5 * L + 1) * d if int4 else 0,
                 "q4_matmul_row": 2 * L * d if int4 else 0}
@@ -1497,7 +1651,8 @@ def phase_tp_cross_check(torch, quant=None, tp=2):
         two.close()
     # the prefill's 128 rows take the plain unpack, the head included;
     # each decode step of 2 rows the kernels
-    want_k, want_c = _tp_want(2, 9, quant == "int4", prefill_q4=0)
+    want_k, want_c = _tp_want(2, 9, quant == "int4", prefill_q4=0,
+                              bf16=False)
     want_c["broadcast"] = 0          # teacher-forced: nothing sampled
     for s_ in stats:
         assert s_["launches"] == want_k and s_["collectives"] == want_c, \
@@ -1578,12 +1733,12 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     # every kernel wrapper's launch counter, by kernel name
-    counted = {"flash_attention": (fa, "flash_attention"),
-               "flash_decode": (fa, "flash_decode"),
-               "paged_flash_decode": (pa, "paged_flash_decode"),
-               "fused_decode_step": (fd, "fused_decode_step"),
-               "q4_matmul": (qm, "q4_matmul"),
-               "q4_matmul_row": (qm, "q4_matmul_row")}
+    counted = {name: (mod, name, "launches") for mod, name in (
+        (fa, "flash_attention"), (fa, "flash_decode"),
+        (pa, "paged_flash_decode"), (fd, "fused_decode_step"),
+        (qm, "q4_matmul"), (qm, "q4_matmul_row"))}
+    # the prefill's tensor-core launches among flash_attention's
+    counted["flash_attention[mma]"] = (fa, "flash_attention", "launches_mma")
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -1609,6 +1764,8 @@ def main() -> int:
     launches, rows, peak = phase_main_path(torch, counted)
     for name in ("flash_attention", "flash_decode"):
         assert launches[name] > 0, f"{name} never launched on the engine path"
+    assert launches["flash_attention[mma]"] == launches["flash_attention"], \
+        "a bf16 prefill missed the tensor-core kernel"
 
     log("phase 4: card vs host cross-check")
     xerr = phase_cross_check(torch, fa, qm)
@@ -1688,9 +1845,17 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["case"],
+            "timed": [{k: r[k] for k in ("case", "ms", "event_ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms",
+                                         "library_gather_ms") if k in r}
+                      for r in checks if "ms" in r],
             "checks": [{"case": r["case"], "max_abs_err": r["max_abs_err"],
                         "ok": r["ok"]} for r in checks],
         }
+        if name == "flash_attention":
+            entry["launches_mma"] = launches["flash_attention[mma]"]
+        if name == "paged_flash_decode":
+            entry["library_gather_ms"] = row["library_gather_ms"]
         if name == "q4_matmul":
             entry["library2_ms"] = row["library2_ms"]
             entry["per_weight_pass_b8"] = q4_pass

@@ -9,12 +9,32 @@
 //     cache, query at lengths[b]-1, the G grouped heads resident.
 //
 // What bounds them on this card, and what the design does about it:
-//   - Prefill is bounded by operations (4*hd*S^2/2 per head). This first
-//     version runs the two products on the CUDA cores in f32 (no wgmma
-//     yet): one block per (64-row q tile, head, batch) walks the kv tiles
-//     from the window's start up to the causal diagonal only, so the
-//     upper triangle costs nothing, and keeps m/l/acc in f32 (acc in
-//     registers, 8 rows x hd/32 dims per thread).
+//   - Prefill is bounded by operations (4*hd*S^2/2 per head; at S=512
+//     the bytes come close). Two forms, picked by the wrapper from dtype
+//     and hd, never by a failure:
+//     * prefill_mma_kernel, bf16 with hd % 16 == 0 (the serving path):
+//       both products on the tensor cores, in FlashAttention-2's shape.
+//       A block of 4 warps takes 64 q rows, a warp 16; Q is loaded once
+//       into registers as mma A fragments (ldmatrix). K/V tiles of 64
+//       keys (32 above hd 128, for registers) stream through a
+//       two-stage shared-memory ring with 16-byte cp.async, the next
+//       tile's copy in flight while the current one is computed; rows
+//       are padded by 16 bytes so ldmatrix has no bank conflicts.
+//       S = Q.K^T and O += P.V run as mma.sync.m16n8k16 bf16 -> f32 (V
+//       through ldmatrix.trans); the online softmax stays on the
+//       accumulator fragments (quad shuffles for row max and sum, exp2
+//       with scale*log2e folded in), and P goes back into the P.V
+//       product as bf16 A fragments without touching shared memory. The
+//       causal and window masks run only on the diagonal and window-edge
+//       tiles; tiles above the diagonal are never loaded; the flat grid
+//       launches the bottom (longest) q tiles first. mma.sync rather
+//       than wgmma/TMA: it needs no descriptors or warpgroup
+//       choreography, and reaches a large share of the bf16 peak at
+//       these tile sizes; wgmma is the next step if the times ask.
+//     * prefill_kernel, f32 (and hd not a multiple of 16): the products
+//       on the CUDA cores in f32, one block per (64-row q tile, head,
+//       batch) walking the kv tiles from the window's start up to the
+//       causal diagonal only; the f32 cross-checks run it.
 //   - Decode is bounded by bytes (the K/V rows it must read). One block
 //     per (kv head, batch) reads each K/V row once for all G query heads
 //     of its group and stops at lengths[b] (the TPU kernel DMAs every tile
@@ -24,9 +44,11 @@
 // Masking and numerics follow the Pallas kernels: scores in f32, scaled,
 // then ALiBi slope*(kv - q), then the causal/window mask; online softmax
 // with a running max; rows whose denominator is 0 (no admissible key)
-// write 0. Inputs are read in their own layout [B, S, H, hd] through the
-// strides the caller passes (last dim contiguous, row starts 16-byte
-// aligned); no transpose is materialised.
+// write 0. The tensor-core form rounds P to bf16 before P.V (its
+// denominator sums the f32 values), as FlashAttention-2 does. Inputs are
+// read in their own layout [B, S, H, hd] through the strides the caller
+// passes (last dim contiguous, row starts 16-byte aligned); no transpose
+// is materialised.
 //
 // Interface: plain C, pointers and the stream as void*, every launcher
 // returns its cudaError_t (0 on success) and allocates nothing.
@@ -258,6 +280,337 @@ cudaError_t dispatch_prefill(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------
+// Prefill on the tensor cores (bf16, hd % 16 == 0): FlashAttention-2's
+// shape with mma.sync.m16n8k16. One block of kMmaWarps warps per (64-row
+// q tile, head, batch), each warp owning 16 q rows; flat grid, bottom
+// (longest) q tiles first.
+// ---------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using dli::cp_async_16;
+using dli::cp_async_commit;
+using dli::cp_async_wait;
+using dli::ldsm_x4;
+using dli::ldsm_x4_trans;
+using dli::mma_bf16_16816;
+using dli::pack_bf16;
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaBQ = 16 * kMmaWarps;   // q rows per block
+
+// Keys per K/V tile: 64, or 32 above hd 128 where the warp's registers
+// (Q fragments hd/4, O accumulator hd/2, scores BKV/2) run out. Shared
+// rows are padded by 16 bytes, so the 8 rows an ldmatrix reads fall in 8
+// different 16-byte bank groups.
+template <int HD>
+struct MmaTile {
+  static constexpr int BKV = HD <= 128 ? 64 : 32;
+  static constexpr int P = HD + 8;   // row pitch, elements
+  static constexpr size_t smem =
+      sizeof(bf16) * (size_t)(kMmaBQ * P + 4 * BKV * P);
+};
+
+// cp.async `valid` rows of HD values (row r at src + r*stride) into the
+// shared tile at `dst` ([ROWS][HD + 8], a shared address); rows >= valid
+// are zero-filled and never read. Where the block's threads cover whole
+// rows, each thread keeps one chunk column and walks rows by a constant
+// step, so a copy costs a few instructions.
+template <int HD, int ROWS>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const bf16* src,
+                                          long long stride, int valid) {
+  constexpr int CH = HD / 8, P = HD + 8;
+  if constexpr (kMmaThreads % CH == 0 && ROWS % (kMmaThreads / CH) == 0) {
+    constexpr int RP = kMmaThreads / CH;   // rows per pass of the block
+    const int r0 = threadIdx.x / CH, c = (threadIdx.x % CH) * 8;
+    const uint32_t d0 = dst + (r0 * P + c) * 2;
+    const bf16* s0 = src + r0 * stride + c;
+    const long long step = RP * stride;
+#pragma unroll
+    for (int j = 0; j < ROWS / RP; ++j) {
+      const bool ok = r0 + j * RP < valid;
+      cp_async_16(d0 + j * RP * P * 2, ok ? s0 + j * step : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * CH; i += kMmaThreads) {
+      const int r = i / CH, c = (i - r * CH) * 8;
+      const bool ok = r < valid;
+      cp_async_16(dst + (r * P + c) * 2, ok ? src + r * stride + c : src,
+                  ok);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out,
+                   const float* __restrict__ slopes, int B, int S, int H,
+                   int Hkv, long long q_sb, long long q_ss, long long q_sh,
+                   long long k_sb, long long k_ss, long long k_sh,
+                   long long v_sb, long long v_ss, long long v_sh,
+                   long long o_sb, long long o_ss, long long o_sh,
+                   float scale_log2, int window) {
+  constexpr int BQ = kMmaBQ, BKV = MmaTile<HD>::BKV, P = MmaTile<HD>::P;
+  constexpr int KS = HD / 16;    // k-steps of Q.K^T
+  constexpr int NT = BKV / 8;    // 8-key column tiles of S
+  constexpr int DT = HD / 8;     // 8-wide column tiles of O
+  constexpr uint32_t STAGE = BKV * P * 2;   // bytes of one K or V stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // Q [BQ][P], then K [2][BKV][P], then V [2][BKV][P] (bf16), as shared
+  // addresses
+  const uint32_t q_s = dli::smem_u32(smem_raw);
+  const uint32_t k_s = q_s + BQ * P * 2;
+  const uint32_t v_s = k_s + 2 * STAGE;
+
+  const int heads = H * B;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / heads);
+  const int hb = blockIdx.x % heads;
+  const int h = hb % H, b = hb / H;
+  const int kvh = h / (H / Hkv);
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;   // fragment row / column pair
+  const float slope = slopes != nullptr ? slopes[h] * dli::kLog2e : 0.f;
+  const bf16* kb = k + b * k_sb + kvh * k_sh;
+  const bf16* vb = v + b * v_sb + kvh * v_sh;
+  // this lane's ldmatrix row addresses: Q/V fragments take rows
+  // (lane & 7) + 8 * bit 3 and columns 8 * bit 4; K fragments (two 8-key
+  // column tiles at once) rows (lane & 7) + 8 * bit 4, columns 8 * bit 3
+  const int lr = lane & 7, b3 = (lane >> 3) & 1, b4 = lane >> 4;
+  const uint32_t q_lane = q_s + ((warp * 16 + lr + b3 * 8) * P + b4 * 8) * 2;
+  const uint32_t k_lane = ((lr + b4 * 8) * P + b3 * 8) * 2;
+  const uint32_t v_lane = ((lr + b3 * 8) * P + b4 * 8) * 2;
+
+  // causal: keys past the tile's last row never count; window: keys
+  // before (first row - window + 1) never count
+  const int kv_end = min(S, q0 + BQ);
+  int kv_begin = 0;
+  if (window > 0) {
+    kv_begin = max(0, q0 - window + 1);
+    kv_begin -= kv_begin % BKV;
+  }
+  const int n_tiles = (kv_end - kv_begin + BKV - 1) / BKV;
+
+  copy_rows<HD, BQ>(q_s, q + b * q_sb + q0 * q_ss + h * q_sh, q_ss,
+                    min(BQ, S - q0));
+  copy_rows<HD, BKV>(k_s, kb + kv_begin * k_ss, k_ss, min(BKV, S - kv_begin));
+  copy_rows<HD, BKV>(v_s, vb + kv_begin * v_ss, v_ss, min(BKV, S - kv_begin));
+  cp_async_commit();
+
+  uint32_t qf[KS][4];          // Q as A fragments, loaded once
+  float o[DT][4];              // O accumulator: rows gr and gr + 8
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;   // running max (log2 domain)
+  float l0 = 0.f, l1 = 0.f;               // this thread's share of l
+  const int row0 = q0 + warp * 16 + gr;   // this thread's rows: +0, +8
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kv0 = kv_begin + it * BKV;
+    const uint32_t st = (it & 1) * STAGE;
+    if (it + 1 < n_tiles) {   // the next tile's copy flies meanwhile
+      const int nx = kv0 + BKV;
+      copy_rows<HD, BKV>(k_s + (STAGE - st), kb + nx * k_ss, k_ss,
+                         min(BKV, S - nx));
+      copy_rows<HD, BKV>(v_s + (STAGE - st), vb + nx * v_ss, v_ss,
+                         min(BKV, S - nx));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) ldsm_x4(qf[ks], q_lane + ks * 32);
+    }
+    const uint32_t kt = k_s + st + k_lane, vt = v_s + st + v_lane;
+
+    // S = Q K^T: K rows are B's columns (ldmatrix without .trans)
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, kt + (j * 8 * P + ks * 16) * 2);
+        mma_bf16_16816(s[j], qf[ks], kf[0], kf[1]);
+        mma_bf16_16816(s[j + 1], qf[ks], kf[2], kf[3]);
+      }
+    }
+
+    // to the log2 domain: x = s * sc, with sc = scale * log2e folded into
+    // the exponent below; with ALiBi x = s * scale * log2e + slope * log2e
+    // * (kv - q) here and sc = 1. The mask only on the diagonal tile and
+    // the window's edge tiles.
+    float sc = scale_log2;
+    if (slopes != nullptr) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = kv0 + j * 8 + tq * 2 + (e & 1);
+          const int qi = row0 + (e >> 1) * 8;
+          s[j][e] = fmaf(s[j][e], scale_log2, slope * (float)(kj - qi));
+        }
+      sc = 1.f;
+    }
+    if (kv0 + BKV - 1 > q0 || (window > 0 && q0 + BQ - 1 - kv0 >= window)) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = kv0 + j * 8 + tq * 2 + (e & 1);
+          const int qi = row0 + (e >> 1) * 8;
+          if (kj > qi || (window > 0 && qi - kj >= window))
+            s[j][e] = -INFINITY;
+        }
+    }
+
+    // online softmax on the fragments: a row lives in one lane quad
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0 * sc), mn1 = fmaxf(m1, mx1 * sc);
+    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;   // exp2(-inf) = 0
+    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float a0 = dli::fast_exp2(m0 - mu0), a1 = dli::fast_exp2(m1 - mu1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = dli::fast_exp2(fmaf(s[j][0], sc, -mu0));
+      s[j][1] = dli::fast_exp2(fmaf(s[j][1], sc, -mu0));
+      s[j][2] = dli::fast_exp2(fmaf(s[j][2], sc, -mu1));
+      s[j][3] = dli::fast_exp2(fmaf(s[j][3], sc, -mu1));
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      o[d][0] *= a0;
+      o[d][1] *= a0;
+      o[d][2] *= a1;
+      o[d][3] *= a1;
+    }
+
+    // O += P V: P's accumulator fragments are A fragments once packed to
+    // bf16; V rows are B's rows (ldmatrix .trans)
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, vt + (kk * 16 * P + d * 8) * 2);
+        mma_bf16_16816(o[d], pa, vf[0], vf[1]);
+        mma_bf16_16816(o[d + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();   // this stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = row0 + half * 8;
+    if (qi >= S) continue;
+    const float l = half ? l1 : l0;
+    bf16* orow = out + b * o_sb + qi * o_ss + h * o_sh + tq * 2;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      const float x0 = l > 0.f ? o[d][2 * half] / l : 0.f;
+      const float x1 = l > 0.f ? o[d][2 * half + 1] / l : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_prefill_mma(const void* q, const void* k, const void* v,
+                               void* out, const void* slopes, int B, int S,
+                               int H, int Hkv, const long long* st,
+                               float scale, int window, cudaStream_t stream) {
+  auto kern = prefill_mma_kernel<HD>;
+  const size_t smem = MmaTile<HD>::smem;
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      (long long)((S + kMmaBQ - 1) / kMmaBQ) * H * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<const float*>(slopes), B, S, H, Hkv, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      scale * dli::kLog2e, window);
+  return cudaGetLastError();
+}
+
+#define DLI_PREFILL_MMA_CASE(HD)                                           \
+  case HD:                                                                 \
+    return launch_prefill_mma<HD>(q, k, v, out, slopes, B, S, H, Hkv, st,  \
+                                  scale, window, stream);
+
+cudaError_t dispatch_prefill_mma(const void* q, const void* k, const void* v,
+                                 void* out, const void* slopes, int B, int S,
+                                 int H, int Hkv, int hd, const long long* st,
+                                 float scale, int window,
+                                 cudaStream_t stream) {
+  switch (hd) {
+    DLI_PREFILL_MMA_CASE(16)
+    DLI_PREFILL_MMA_CASE(32)
+    DLI_PREFILL_MMA_CASE(48)
+    DLI_PREFILL_MMA_CASE(64)
+    DLI_PREFILL_MMA_CASE(80)
+    DLI_PREFILL_MMA_CASE(96)
+    DLI_PREFILL_MMA_CASE(112)
+    DLI_PREFILL_MMA_CASE(128)
+    DLI_PREFILL_MMA_CASE(144)
+    DLI_PREFILL_MMA_CASE(160)
+    DLI_PREFILL_MMA_CASE(176)
+    DLI_PREFILL_MMA_CASE(192)
+    DLI_PREFILL_MMA_CASE(208)
+    DLI_PREFILL_MMA_CASE(224)
+    DLI_PREFILL_MMA_CASE(240)
+    DLI_PREFILL_MMA_CASE(256)
+  }
+  return cudaErrorInvalidValue;
+}
+
+#undef DLI_PREFILL_MMA_CASE
+
+// ---------------------------------------------------------------------
 // Decode: grid (Hkv, B), kThreads threads.
 // ---------------------------------------------------------------------
 
@@ -417,6 +770,21 @@ int dli_flash_attention_fwd(const void* q, const void* k, const void* v,
                                            Hkv, hd, strides, scale, window,
                                            st);
   return cudaErrorInvalidValue;
+}
+
+// The tensor-core prefill: bf16 only, hd a multiple of 16 up to 256;
+// arguments as dli_flash_attention_fwd's.
+int dli_flash_attention_mma_fwd(const void* q, const void* k, const void* v,
+                                void* out, const void* slopes, int B, int S,
+                                int H, int Hkv, int hd,
+                                const long long* strides, float scale,
+                                int window, void* stream) {
+  if (hd % 16 != 0 || hd > 256 || hd < 16 || H % Hkv != 0)
+    return cudaErrorInvalidValue;
+  if (S <= 0 || B <= 0) return cudaSuccess;
+  return dispatch_prefill_mma(q, k, v, out, slopes, B, S, H, Hkv, hd,
+                              strides, scale, window,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // strides (elements): q b/h, k b/s/h, v b/s/h, out b/h. lengths: [B] int32

@@ -1,5 +1,6 @@
-// The paged online-softmax decode shared by paged_attention.cu and
-// fused_decode.cu: one thread block attends the G query heads of one
+// The single-pass paged online-softmax decode of fused_decode.cu (the
+// pool strides are shared with paged_attention.cu, whose own kernel is
+// split-KV): one thread block attends the G query heads of one
 // (slot, kv head) against the slot's keys in [max(0, len - window), len),
 // read straight out of one layer's block pool [NB, bs, Hkv, hd] in its
 // stored layout.

@@ -18,6 +18,12 @@ A wrapper runs the plain version only for a CPU tensor. For a CUDA
 tensor it launches the kernel, or raises: there is no fallback. Each
 wrapper's ``launches`` counts its kernel launches, so a run can show
 that its attention went through the kernels.
+
+The prefill has two hand-written forms, picked by ``prefill_form`` from
+dtype and head_dim alone: "mma" (bf16, head_dim a multiple of 16: the
+tensor-core kernel, the serving path) and "simt" (f32, or another
+head_dim: the CUDA-core kernel). ``flash_attention.launches_mma`` counts
+the tensor-core launches among ``flash_attention.launches``.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ def _kernels():
         lib.dli_flash_attention_fwd.argtypes = (
             [P, P, P, P, P] + [I] * 6 + [P, F, I, P])
         lib.dli_flash_attention_fwd.restype = I
+        lib.dli_flash_attention_mma_fwd.argtypes = (
+            [P, P, P, P, P] + [I] * 5 + [P, F, I, P])
+        lib.dli_flash_attention_mma_fwd.restype = I
         lib.dli_flash_decode_fwd.argtypes = (
             [P] * 6 + [I] * 5 + [P, F, I, P])
         lib.dli_flash_decode_fwd.restype = I
@@ -145,6 +154,13 @@ def flash_attention_ref(q, k, v, *, sliding_window: Optional[int] = None,
                             sliding_window, alibi)
 
 
+def prefill_form(dtype, head_dim: int) -> str:
+    """Which prefill kernel takes these inputs: "mma" (tensor cores) for
+    bf16 with head_dim % 16 == 0, "simt" (CUDA cores) otherwise."""
+    return "mma" if dtype == torch.bfloat16 and head_dim % 16 == 0 \
+        else "simt"
+
+
 def flash_attention(q, k, v, *, sliding_window: Optional[int] = None,
                     alibi=None):
     """Causal flash attention over the fresh block (prefill).
@@ -161,22 +177,31 @@ def flash_attention(q, k, v, *, sliding_window: Optional[int] = None,
     if k.shape[1] != S:
         raise ValueError("flash_attention: k/v must hold the same S as q")
     window = _window(sliding_window)
+    mma = prefill_form(q.dtype, hd) == "mma"
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    strides = _strides((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
+                       (out, (0, 1, 2)))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _ptr(alibi))
     lib = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dli_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _ptr(alibi), _DTYPE_CODE[q.dtype], B, S, H, k.shape[2], hd,
-            _strides((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
-                     (out, (0, 1, 2))),
-            1.0 / math.sqrt(hd), window, stream)
+        if mma:
+            err = lib.dli_flash_attention_mma_fwd(
+                *ptrs, B, S, H, k.shape[2], hd, strides,
+                1.0 / math.sqrt(hd), window, stream)
+        else:
+            err = lib.dli_flash_attention_fwd(
+                *ptrs, _DTYPE_CODE[q.dtype], B, S, H, k.shape[2], hd,
+                strides, 1.0 / math.sqrt(hd), window, stream)
     build.check(lib, err, "flash_attention kernel launch")
     flash_attention.launches += 1
+    flash_attention.launches_mma += int(mma)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_mma = 0
 
 
 # ----------------------------------------------------------------------

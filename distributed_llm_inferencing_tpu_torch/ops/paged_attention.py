@@ -12,9 +12,17 @@ pool [NB,bs,Hkv,hd] through ``block_tables`` [R,MB] int32 and
 at ``context_lens - 1``). Optional static ``sliding_window``; no ALiBi and
 no int8 pool, as on the TPU. A row with no admissible key comes out 0.
 
+The kernel is split-KV: a first pass attends each slot's keys in ranges
+of ``PAGED_SPLIT`` keys and writes per-range partials (running max,
+denominator, unnormalised output), a second merges them by log-sum-exp.
+``merge_partials`` is that merge in plain PyTorch and
+``paged_flash_decode_split_ref`` the whole split arithmetic, cut as the
+kernel cuts it; ``paged_flash_decode_ref`` stays the plain version.
+
 The wrapper runs the plain version only for a CPU tensor. For a CUDA
 tensor it launches the kernel, or raises: there is no fallback. Its
-``launches`` counts kernel launches.
+``launches`` counts wrapper calls that launched (one split pass and its
+merge each).
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from distributed_llm_inferencing_tpu_torch.ops import build
 from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
     MAX_HEAD_DIM, _DTYPE_CODE, _strides, _window, masked_attention)
 
+# keys per split of the kernel's first pass: a multiple of its 64-key tile
+PAGED_SPLIT = 256
 _lib = None
 
 
@@ -38,7 +48,7 @@ def _kernels():
         lib = build.load("paged_attention")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dli_paged_decode_fwd.argtypes = (
-            [P] * 6 + [I] * 6 + [P, F, I, P])
+            [P] * 7 + [I] * 8 + [P, F, I, P])
         lib.dli_paged_decode_fwd.restype = I
         _lib = lib
     return _lib
@@ -96,6 +106,70 @@ def paged_flash_decode_ref(q, k_pool, v_pool, block_tables, context_lens, *,
                             kv_pos < lens[:, None], sliding_window)
 
 
+def num_splits(max_blocks: int, block_size: int,
+               split: int = PAGED_SPLIT) -> int:
+    """Key ranges of the split pass: the table's width MB*bs over
+    ``split``, so the host never reads ``context_lens``."""
+    return max(1, -(-(max_blocks * block_size) // split))
+
+
+def merge_partials(m, l, acc):
+    """Log-sum-exp merge of split partials along the split axis: m and l
+    [..., NS] (each range's running max and softmax denominator, any
+    common base), acc [..., NS, hd] (its unnormalised output, in the
+    base of m). A range with l == 0 counts for nothing (its m and acc are
+    never read); a row whose l sums to 0 comes out 0. Returns [..., hd]."""
+    live = l > 0
+    top = torch.where(live, m, torch.full_like(m, float("-inf")))
+    top = top.amax(-1, keepdim=True)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.where(live, torch.exp(m - top), torch.zeros_like(m))
+    denom = (w * l).sum(-1, keepdim=True)
+    num = (w[..., None] * torch.where(live[..., None], acc,
+                                      torch.zeros_like(acc))).sum(-2)
+    return torch.where(denom > 0,
+                       num / torch.where(denom > 0, denom,
+                                         torch.ones_like(denom)),
+                       torch.zeros_like(num))
+
+
+def paged_flash_decode_split_ref(q, k_pool, v_pool, block_tables,
+                                 context_lens, *,
+                                 sliding_window: Optional[int] = None,
+                                 split: int = PAGED_SPLIT):
+    """The kernel's split arithmetic in plain PyTorch (f32): each slot's
+    keys [max(0, len - window), len) cut into the ranges
+    [s*split, (s+1)*split) for s < num_splits(MB, bs), a partial (m, l,
+    acc) per range (empty ranges m = -inf, l = 0), then
+    ``merge_partials``. Returns [R,1,H,hd] in q's dtype."""
+    R, MB = block_tables.shape
+    _, bs, Hkv, hd = k_pool.shape
+    H = q.shape[2]
+    ns = num_splits(MB, bs, split)
+    n = ns * split
+    bt = block_tables.long()
+    k = k_pool[bt].reshape(R, MB * bs, Hkv, hd).float()
+    v = v_pool[bt].reshape(R, MB * bs, Hkv, hd).float()
+    pad = (0, 0, 0, 0, 0, n - MB * bs)
+    k, v = (torch.nn.functional.pad(t, pad) for t in (k, v))
+    lens = context_lens.to(torch.int64).to(q.device)
+    pos = torch.arange(n, device=q.device)
+    valid = pos[None, :] < lens[:, None]
+    if sliding_window is not None:
+        valid &= pos[None, :] >= (lens - sliding_window)[:, None]
+    qf = q.float().reshape(R, Hkv, H // Hkv, hd)
+    s = torch.einsum("rhgd,rthd->rhgt", qf, k) / math.sqrt(hd)
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    s = s.reshape(R, Hkv, H // Hkv, ns, split)
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m,
+                                  torch.zeros_like(m))[..., None])
+    acc = torch.einsum("rhgnt,rnthd->rhgnd", p,
+                       v.reshape(R, ns, split, Hkv, hd))
+    out = merge_partials(m, p.sum(-1), acc)
+    return out.reshape(R, 1, H, hd).to(q.dtype)
+
+
 def paged_flash_decode(q, k_pool, v_pool, block_tables, context_lens, *,
                        sliding_window: Optional[int] = None):
     """Paged single-token attention without a gather.
@@ -119,15 +193,19 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, context_lens, *,
         raise ValueError("paged_flash_decode: q must be [R,1,H,hd] with a "
                          "contiguous last dim and 16-byte aligned rows")
     window = _window(sliding_window)
+    bs = k_pool.shape[1]
+    ns = num_splits(block_tables.shape[1], bs)
     out = torch.empty((R, 1, H, hd), dtype=q.dtype, device=q.device)
+    part = torch.empty(R * H * ns * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dli_paged_decode_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             out.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
-            _DTYPE_CODE[q.dtype], R, H, k_pool.shape[2], hd,
-            k_pool.shape[1],
+            part.data_ptr(), _DTYPE_CODE[q.dtype], R, H, k_pool.shape[2], hd,
+            bs, PAGED_SPLIT, ns,
             _strides((q, (0, 2)), (block_tables, (0,)),
                      (k_pool, (0, 1, 2)), (v_pool, (0, 1, 2)),
                      (out, (0, 2))),

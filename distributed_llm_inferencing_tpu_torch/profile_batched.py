@@ -14,7 +14,9 @@ warm-up round, ``--reps`` timed rounds (admission wave ms, decode chunk
 ms per weight pass, decode tokens per weight pass), and one round with
 the decode chunk under ``torch.profiler``: device time by kernel and the
 device's busy share of the chunk's wall time (one stream, so kernels
-never overlap), with ``q4_matmul``'s time per launch in int4.
+never overlap), the attention kernel's time per launch (for
+``paged_flash_decode`` its split pass and merge together) and
+``q4_matmul``'s in int4.
 Prints one JSON object. Needs a GPU.
 """
 
@@ -109,11 +111,14 @@ def main(argv=None):
                                     "calls": evt.count}
         device_ms = sum(k["device_ms"] for k in kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])
-        def per_launch(*names):
-            hits = [v for k, v in kernels.items()
-                    if any(n in k for n in names)]
-            n = sum(v["calls"] for v in hits)
-            ms = sum(v["device_ms"] for v in hits)
+        def per_launch(*names, counted=None):
+            """Device time of the kernels matching ``names``, per call of
+            those matching ``counted`` (default: all of them)."""
+            hit = lambda k, ns: any(n in k for n in ns)  # noqa: E731
+            n = sum(v["calls"] for k, v in kernels.items()
+                    if hit(k, counted or names))
+            ms = sum(v["device_ms"] for k, v in kernels.items()
+                     if hit(k, names))
             return {"calls": n, "device_ms": ms,
                     "us_per_launch": 1e3 * ms / n if n else None}
 
@@ -123,8 +128,11 @@ def main(argv=None):
                 **prof_round, "device_kernel_ms": device_ms,
                 "device_busy_share":
                     device_ms / prof_round["decode_chunk_ms"],
-                "attention_kernel": per_launch("paged_decode_kernel",
-                                               "fused_decode_kernel"),
+                # paged_flash_decode = its split pass + its merge, per call
+                "attention_kernel": per_launch(
+                    "paged_split_kernel", "paged_combine_kernel",
+                    "fused_decode_kernel",
+                    counted=("paged_split_kernel", "fused_decode_kernel")),
                 "q4_matmul_kernel": per_launch("q4_matmul_kernel<",
                                                "q4_finish_kernel<"),
                 "top_kernels": [{"name": k[:90], **v}

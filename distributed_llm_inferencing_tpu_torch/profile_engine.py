@@ -86,8 +86,8 @@ def main(argv=None):
     device_ms = sum(k["device_ms"] for k in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])[:12]
 
-    def per_launch(name):
-        hits = [v for k, v in kernels.items() if name in k]
+    def per_launch(*names):
+        hits = [v for k, v in kernels.items() if any(n in k for n in names)]
         n = sum(v["calls"] for v in hits)
         ms = sum(v["device_ms"] for v in hits)
         return {"calls": n, "device_ms": ms,
@@ -102,7 +102,8 @@ def main(argv=None):
             "wall_ms": wall_ms, "prefill_ms": r.prefill_ms,
             "decode_ms": r.decode_ms, "device_kernel_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
-            "prefill_kernel": per_launch("prefill_kernel<"),
+            "prefill_kernel": per_launch("prefill_kernel<",
+                                         "prefill_mma_kernel<"),
             "decode_kernel": per_launch("decode_kernel<"),
             "q4_matmul_kernel": per_launch("q4_matmul_kernel<"),
             "q4_finish_kernel": per_launch("q4_finish_kernel<"),

@@ -59,13 +59,18 @@ KERNELS = {
 
 
 def launch_counts() -> dict:
-    """This process's kernel launches, by kernel."""
-    return {k: fn.launches for k, fn in KERNELS.items()}
+    """This process's kernel launches, by kernel, and the prefill's
+    tensor-core launches among them as "flash_attention[mma]"."""
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    counts["flash_attention[mma]"] = \
+        flash_attention.flash_attention.launches_mma
+    return counts
 
 
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention.flash_attention.launches_mma = 0
 
 
 class Leader:

@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain versions, on the card:
-flash_attention, flash_decode, paged_flash_decode, fused_decode_step (float,
-int8 and int4 weight forms), q4_matmul and q4_matmul_row.
+flash_attention (both forms: the bf16 tensor-core kernel and the CUDA-core
+one), flash_decode, paged_flash_decode (split-KV), fused_decode_step
+(float, int8 and int4 weight forms), q4_matmul and q4_matmul_row. The
+tensor-core prefill and the split-KV decode are also held to the same bits
+across two launches.
 
 Marked ``cuda``: each test skips where no CUDA device is visible (the
 decision is made inside the test, never at import). On a GPU machine run
@@ -97,6 +100,52 @@ def test_flash_decode_kernel_matches_ref(dtype, lengths, H, Hkv, hd, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window,alibi", [
+    (1, 1, 4, 2, 128, None, False),        # one row
+    (1, 17, 8, 2, 128, None, False),       # under one tile
+    (2, 100, 8, 8, 64, None, False),       # MHA, B=2, ragged last tile
+    (1, 513, 8, 1, 128, None, False),      # MQA, one row past a tile
+    (1, 200, 4, 2, 256, None, False),      # hd 256 (32-key tiles)
+    (2, 130, 4, 4, 16, None, False),       # hd 16
+    (2, 300, 8, 2, 128, 70, False),        # a window across tile edges
+    (1, 150, 4, 2, 64, 33, True),          # window and ALiBi
+    (1, 257, 8, 4, 80, None, True),        # hd 80, ALiBi
+])
+def test_flash_attention_mma_form_edges(B, S, H, Hkv, hd, window, alibi):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(S + hd)
+    dtype = torch.bfloat16
+    q = _rand(g, (B, S, H, hd), dtype, dev)
+    k, v = (_rand(g, (B, S, Hkv, hd), dtype, dev) for _ in range(2))
+    sl = alibi_slopes(H, dev) if alibi else None
+    assert fa.prefill_form(dtype, hd) == "mma"
+    n0, m0 = fa.flash_attention.launches, fa.flash_attention.launches_mma
+    out = fa.flash_attention(q, k, v, sliding_window=window, alibi=sl)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    assert fa.flash_attention.launches_mma == m0 + 1
+    ref = fa.flash_attention_ref(q, k, v, sliding_window=window, alibi=sl)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    again = fa.flash_attention(q, k, v, sliding_window=window, alibi=sl)
+    assert torch.equal(out, again)     # fixed reduction order: same bits
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_keeps_the_cuda_core_form():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = _rand(g, (1, 70, 4, 64), torch.float32, dev)
+    k = _rand(g, (1, 70, 2, 64), torch.float32, dev)
+    n0, m0 = fa.flash_attention.launches, fa.flash_attention.launches_mma
+    out = fa.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.launches_mma) == (n0 + 1, m0)
+    torch.testing.assert_close(out, fa.flash_attention_ref(q, k, k),
+                               **_tol(torch.float32))
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     dev = _cuda()
     q = torch.zeros(1, 8, 2, 12, device=dev)          # hd not % 8
@@ -110,11 +159,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fa.flash_attention(q, q, q)
 
 
-def _paged_case(g, dev, dtype, lengths, H, Hkv, hd, bs, nb=None):
+def _paged_case(g, dev, dtype, lengths, H, Hkv, hd, bs, nb=None, mb=None):
     """A pool of random blocks and per-slot tables that are random
-    permutations of its blocks (block 0 stays the dummy)."""
+    permutations of its blocks (block 0 stays the dummy); ``mb`` table
+    entries per slot (default: enough for the longest length)."""
     R = len(lengths)
-    mb = max(1, -(-max(lengths) // bs))
+    mb = mb or max(1, -(-max(lengths) // bs))
     nb = nb or R * mb + 1
     k_pool, v_pool = (_rand(g, (nb, bs, Hkv, hd), dtype, dev)
                       for _ in range(2))
@@ -151,6 +201,39 @@ def test_paged_flash_decode_kernel_matches_ref(dtype, lengths, H, Hkv, hd,
     torch.testing.assert_close(out.float(), ref.float(), **_paged_tol(dtype))
     if lengths[0] == 0:
         assert (out[0] == 0).all()
+
+
+_SPLIT = pa.PAGED_SPLIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,mb,window", [
+    ([_SPLIT - 1, _SPLIT, _SPLIT + 1, 2 * _SPLIT + 1], None, None),
+    ([0, 1, 300], 256, None),        # MB*bs = 4096, far beyond every length
+    ([600, 300, 5], None, 100),      # a window shorter than a split
+    ([1000, 700], None, 400),        # a window spanning splits
+])
+def test_paged_flash_decode_split_edges(dtype, lengths, mb, window):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(sum(lengths))
+    H, Hkv, hd, bs = 32, 8, 128, 16
+    k_pool, v_pool, bt, lens = _paged_case(g, dev, dtype, lengths, H, Hkv,
+                                           hd, bs, mb=mb)
+    q = _rand(g, (len(lengths), 1, H, hd), dtype, dev)
+    n0 = pa.paged_flash_decode.launches
+    out = pa.paged_flash_decode(q, k_pool, v_pool, bt, lens,
+                                sliding_window=window)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode.launches == n0 + 1
+    ref = pa.paged_flash_decode_ref(q, k_pool, v_pool, bt, lens,
+                                    sliding_window=window)
+    torch.testing.assert_close(out.float(), ref.float(), **_paged_tol(dtype))
+    for i, n in enumerate(lengths):
+        assert bool((out[i] == 0).all()) == (n == 0)
+    again = pa.paged_flash_decode(q, k_pool, v_pool, bt, lens,
+                                  sliding_window=window)
+    assert torch.equal(out, again)     # fixed merge order: same bits
 
 
 @pytest.mark.cuda

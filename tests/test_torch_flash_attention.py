@@ -79,12 +79,26 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting():
     _, q = _rand(rng, 1, 16, 4, 8)
     _, k = _rand(rng, 1, 16, 2, 8)
     lens = torch.tensor([9], dtype=torch.int32)
-    before = (fa.flash_attention.launches, fa.flash_decode.launches)
+    count = lambda: (fa.flash_attention.launches,  # noqa: E731
+                     fa.flash_attention.launches_mma,
+                     fa.flash_decode.launches)
+    before = count()
     assert torch.equal(fa.flash_attention(q, k, k),
                        fa.flash_attention_ref(q, k, k))
     assert torch.equal(fa.flash_decode(q[:, :1], k, k, lens),
                        fa.flash_decode_ref(q[:, :1], k, k, lens))
-    assert (fa.flash_attention.launches, fa.flash_decode.launches) == before
+    assert count() == before
+
+
+@pytest.mark.parametrize("dtype,hd,form", [
+    (torch.bfloat16, 128, "mma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 256, "mma"), (torch.bfloat16, 8, "simt"),
+    (torch.bfloat16, 40, "simt"), (torch.float32, 128, "simt"),
+])
+def test_prefill_form_picks_by_dtype_and_head_dim(dtype, hd, form):
+    """bf16 with head_dim % 16 == 0 takes the tensor-core kernel; f32 and
+    other head dims the CUDA-core one."""
+    assert fa.prefill_form(dtype, hd) == form
 
 
 def test_decode_ref_zero_length_row_is_zero():

@@ -4,6 +4,11 @@ against the JAX package's, on the CPU.
 - ``paged_flash_decode``: the JAX Pallas kernel in interpret mode against
   the port's wrapper on CPU tensors (its plain version), over the cases
   of tests/test_pallas_parity.py plus a row of length 0. f32, 2e-5.
+- the split-KV arithmetic of the CUDA kernel
+  (``paged_flash_decode_split_ref``: per-range partials merged by
+  ``merge_partials``) against ``paged_flash_decode_ref`` and the JAX
+  kernel in interpret mode, at split edges, length 0, tables far wider
+  than every length and windows inside and across ranges. f32, 1e-5.
 - ``fused_decode_step`` (float form): the JAX kernel in interpret mode
   against the port over GQA/MQA/MHA with RoPE, and no RoPE with a window.
   f32, 3e-5 (the kernel's own parity bar in the JAX suite). The gate
@@ -38,11 +43,13 @@ from distributed_llm_inferencing_tpu_torch.models.transformer import (
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode as tfd
 from distributed_llm_inferencing_tpu_torch.ops import paged_kvcache as tpk
 from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
-    paged_flash_decode, paged_flash_decode_ref)
+    PAGED_SPLIT, merge_partials, num_splits, paged_flash_decode,
+    paged_flash_decode_ref, paged_flash_decode_split_ref)
 
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 FUSED_TOL = dict(rtol=3e-5, atol=3e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+SPLIT_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def _t(a):
@@ -86,6 +93,52 @@ def test_paged_flash_decode_matches_pallas_interpret(lens, window):
     # the dispatch the model calls lands on the same function
     via = tpk.paged_attend_decode(*args, sliding_window=window)
     np.testing.assert_array_equal(via.numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("lens,mb,window,split", [
+    ([15, 16, 17, 33], 5, None, 16),   # split - 1, split, split + 1, 2*split + 1
+    ([0, 5, 40], 12, None, 16),        # length 0; MB*bs far beyond every length
+    ([40, 17, 3], 6, 6, 16),           # a window shorter than a split
+    ([45, 33, 20], 6, 20, 16),         # a window spanning splits
+    ([31, 1, 0], 4, None, PAGED_SPLIT),   # the kernel's split: one live range
+])
+def test_paged_split_arithmetic_matches_ref_and_pallas(lens, mb, window,
+                                                       split):
+    rng = np.random.default_rng(sum(lens) + mb + (window or 0))
+    r, bs, h, hkv, hd = len(lens), 8, 4, 2, 16
+    nb = r * mb + 1
+    k_pool, v_pool = _pool(rng, nb, bs, hkv, hd)
+    bt = _tables(rng, r, mb, nb)
+    q = rng.normal(size=(r, 1, h, hd)).astype(np.float32)
+    lens_a = np.asarray(lens, np.int32)
+    jax_out = jax_paged_flash_decode(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(bt), jnp.asarray(lens_a), sliding_window=window,
+        interpret=True)
+    args = (_t(q), _t(k_pool), _t(v_pool), _t(bt), _t(lens_a))
+    out = paged_flash_decode_split_ref(*args, sliding_window=window,
+                                       split=split)
+    assert num_splits(mb, bs, split) == -(-(mb * bs) // split)
+    np.testing.assert_allclose(
+        out.numpy(), paged_flash_decode_ref(
+            *args, sliding_window=window).numpy(), **SPLIT_TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_out), **SPLIT_TOL)
+    for i, n in enumerate(lens):
+        assert (torch.count_nonzero(out[i]) == 0) == (n == 0)
+
+
+def test_merge_partials_ignores_empty_ranges():
+    """An empty range (l = 0) is never read, whatever its m and acc hold;
+    a row whose ranges are all empty comes out 0."""
+    m = torch.tensor([[1.0, float("-inf"), 0.5], [float("-inf")] * 3])
+    l = torch.tensor([[2.0, 0.0, 1.0], [0.0] * 3])
+    acc = torch.randn(2, 3, 4, generator=torch.Generator().manual_seed(0))
+    acc[:, 1] = float("nan")
+    out = merge_partials(m, l, acc)
+    w = torch.exp(torch.tensor([0.0, -0.5]))
+    want = (w[0] * acc[0, 0] + w[1] * acc[0, 2]) / (w[0] * 2.0 + w[1] * 1.0)
+    torch.testing.assert_close(out[0], want)
+    assert torch.equal(out[1], torch.zeros(4))
 
 
 def test_rope_rows_match_jax():
