@@ -13,17 +13,25 @@ Phases (any failure fails the run, exit code != 0):
 2. Hold each kernel against its plain PyTorch version on the card: the
    serving path's shapes (llama-3-8b, bf16: prefill B=1 H=32 Hkv=8
    hd=128 at S=512, 2048 and 4096, through the tensor-core form; decode
-   B=4 S=4096 lengths [1, 37, 1000, 4096]; paged decode and fused decode
+   over a 4096-slot cache at B=4 lengths [1, 37, 1000, 4096], B=1 at 532
+   and 4096, and a tp=2 rank's H=16 Hkv=4 at 4096 (the B=1 rows also
+   time SDPA on the cache sliced to the length, library_sliced_ms);
+   paged decode and fused decode
    R=8 bs=16 over a 2048-block pool, context lengths
    [0, 1, 15, 16, 17, 300, 1000, 4096], the fused q weight [4096, 4096],
    the last two in f32 as well; paged decode also at full occupancy,
    every slot at 4096; the fused kernel in its float, int8 and int4
    weight forms) plus small f32, sliding-window, ALiBi, MQA/MHA,
-   head_dim 8-256, ragged-tile, split-edge and zero-length cases. The paged and fused decodes in
-   bf16 are held to one bf16 ulp (PAGED_BF16_TOL). q4_matmul at
-   llama-3-8b's linear and head shapes for b in {1, 8, 32}, x in bf16 and
-   f32, and tests/test_pallas_parity.py's odd shapes, within Q4_TOL and
-   bit-identical across two launches. Times the kernel, its plain version
+   head_dim 8-256, ragged-tile, split-edge and zero-length cases. The
+   split-KV decodes are bit-identical across two launches. The paged and
+   fused decodes in bf16 are held to one bf16 ulp (PAGED_BF16_TOL).
+   q4_matmul at llama-3-8b's linear and head shapes for b in {1, 8, 32},
+   x in bf16 (the tensor-core form) and f32 (the CUDA-core form), and
+   tests/test_pallas_parity.py's odd shapes, within Q4_TOL and
+   bit-identical across two launches; err_over_tol is each row's margin.
+   Every kernel row is device time from torch.profiler over L2-cold
+   inputs ("ms", the library times too; "event_ms" the CUDA events
+   around the wrapper). Times the kernel, its plain version
    and one torch call computing the same function
    (scaled_dot_product_attention, for paged decode on K/V gathered
    beforehand and, as library_gather_ms, with the gather in the timed
@@ -39,7 +47,9 @@ Phases (any failure fails the run, exit code != 0):
    Kernel launch counts are zeroed just before and read just after, and
    each request must add one flash_attention launch per layer, each in
    the tensor-core form (the "flash_attention[mma]" count), and one
-   flash_decode launch per layer per decode step, and no other.
+   flash_decode launch per layer per decode step, and no other. Every
+   bf16 q4_matmul / q4_matmul_row call of phases 7, 9 and 10 must run in
+   its tensor-core form ("q4_matmul[mma]", "q4_matmul_row[mma]").
 4. Cross-check at full width and reduced depth (2 layers, f32): the same
    weights through the kernels on the card and through the plain
    versions on the CPU — the dense path (teacher-forced prefill plus 8
@@ -106,6 +116,11 @@ chunk.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no GPU, or without the port
 package beside this file, it exits non-zero and prints no result.
+
+``python3 chip_smoke.py --timed-rows`` builds the kernels and runs only
+phase 2's timed rows (``timed_rows``), printing each; from the root of
+another checkout (a parent commit unpacked beside this one, this script
+copied in) it times that tree's kernels the same way.
 """
 
 import concurrent.futures
@@ -295,27 +310,50 @@ def check_decode(torch, fa, sdpa, lengths, S, H, Hkv, hd, dtype, window=None,
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     sl = alibi_slopes(H, dev) if alibi else None
     out = fa.flash_decode(q, k, v, lens, sliding_window=window, alibi=sl)
+    again = fa.flash_decode(q, k, v, lens, sliding_window=window, alibi=sl)
     torch.cuda.synchronize()
     ref = fa.flash_decode_ref(q, k, v, lens, sliding_window=window, alibi=sl)
     dname = str(dtype).replace("torch.", "")
     err, ok = _compare(torch, out, ref, TOL[dname])
     row = {"case": f"decode lengths={lengths} S={S} H={H} Hkv={Hkv} hd={hd}"
                    f" {dname} window={window} alibi={alibi}",
-           "max_abs_err": err, "tol": TOL[dname], "ok": ok}
+           "max_abs_err": err, "tol": TOL[dname],
+           "ok": ok and torch.equal(out, again)}
     if timing:
         keys = sum(min(n, window or n) for n in lengths)   # rows read
         flops = 4.0 * H * hd * keys
         nbytes = (2 * keys * Hkv * hd + 2 * q.numel()) * q.element_size() \
             + 4 * B
         row["bound_ms"], row["bound_by"] = _bound_ms(flops, nbytes, dname)
-        row["ms"] = timed_ms(torch, lambda: fa.flash_decode(
-            q, k, v, lens, sliding_window=window, alibi=sl))
+        # cold: cache sets that together exceed the 50 MB L2, as a decode
+        # step meets each layer's cache once; "ms" and the library times
+        # are device time from the profiler, "event_ms" the CUDA events
+        # around a loop of calls (the wrapper's host side included)
+        n = max(3, -(-64 * 2 ** 20 // (2 * k.numel() * k.element_size())))
+        sets = [(q, k, v)] + [
+            (torch.randn_like(q), torch.randn_like(k), torch.randn_like(v))
+            for _ in range(n - 1)]
+        calls = [(lambda a=a: fa.flash_decode(
+            *a, lens, sliding_window=window, alibi=sl)) for a in sets]
+        row["ms"] = _device_ms(torch, calls)
+        row["event_ms"] = _cold_ms(torch, calls)
         row["plain_ms"] = timed_ms(torch, lambda: fa.flash_decode_ref(
             q, k, v, lens, sliding_window=window, alibi=sl), iters=5)
         mask = (torch.arange(S, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
-        row["library_ms"] = timed_ms(torch, _library_call(
-            torch, sdpa, q, k, v, attn_mask=mask))
+        if window:
+            mask = mask & (torch.arange(S, device=dev)[None, :]
+                           >= (lens - window)[:, None])[:, None, None, :]
+        row["library_ms"] = _device_ms(torch, [
+            _library_call(torch, sdpa, *a, attn_mask=mask) for a in sets])
+        if B == 1:
+            # the best a library call can do at B=1: the host knows the
+            # length, so SDPA attends the cache sliced to it, no mask
+            lo, hi = max(0, lengths[0] - (window or lengths[0])), lengths[0]
+            row["library_sliced_ms"] = _device_ms(torch, [
+                _library_call(torch, sdpa, a[0], a[1][:, lo:hi],
+                              a[2][:, lo:hi]) for a in sets])
+        del sets, calls
     return row
 
 
@@ -482,10 +520,13 @@ def check_fused(torch, fd, lengths, H, Hkv, hd, D, dtype, bs=16, nb=None,
         sets = [(x, w, k, v)] + [
             (*xw(), *_paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs,
                                    nb)[:2]) for _ in range(2)]
-        row["ms"] = _cold_ms(torch, [
-            (lambda a=a: fd.fused_decode_step(a[0], a[1], a[2], a[3], bt,
-                                              lens, **kw))
-            for a in sets])
+        # "ms" device time from the profiler, "event_ms" the CUDA events
+        # around a loop of calls (the wrapper's host side included)
+        calls = [(lambda a=a: fd.fused_decode_step(a[0], a[1], a[2], a[3],
+                                                   bt, lens, **kw))
+                 for a in sets]
+        row["ms"] = _device_ms(torch, calls)
+        row["event_ms"] = _cold_ms(torch, calls)
         row["plain_ms"] = timed_ms(torch, lambda: fd.fused_decode_step_ref(
             x, w, k, v, bt, lens, **kw), iters=5)
         row["library_ms"] = None   # no single torch call computes it
@@ -618,13 +659,14 @@ def phase_q4(torch, qm):
     and f32, plus tests/test_pallas_parity.py's odd shapes; times at b=8
     in bf16 (the batched decode shape)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    timed = {n: check_q4(torch, qm, 8, din, dout, bf16, timing=True)
-             for n, (din, dout) in Q4_SHAPES.items()}
-    rows = [timed["head"]] + [r for n, r in timed.items() if n != "head"]
+    timed = {(n, b): check_q4(torch, qm, b, din, dout, bf16, timing=True)
+             for b in (8, 1) for n, (din, dout) in Q4_SHAPES.items()}
+    rows = [timed[("head", 8)]] + [r for k, r in timed.items()
+                                    if k != ("head", 8)]
     for b in (1, 8, 32):
         for dt in (bf16, f32):
             for n, (din, dout) in Q4_SHAPES.items():
-                if b == 8 and dt == bf16:
+                if b in (1, 8) and dt == bf16:
                     continue
                 rows.append(check_q4(torch, qm, b, din, dout, dt))
     for b, din, dout in ((1, 64, 128), (4, 64, 192), (8, 128, 384),
@@ -635,12 +677,13 @@ def phase_q4(torch, qm):
     bad = [r["case"] for r in rows if not r["ok"]]
     assert not bad, f"q4_matmul disagrees with its plain version: {bad}"
     L = 32
-    per_pass = {k: L * sum(Q4_PASS[n] * timed[n][k] for n in Q4_PASS)
-                + timed["head"][k]
-                for k in ("ms", "event_ms", "plain_ms", "bound_ms",
-                          "library_ms")}
-    log("  q4_matmul per decode weight pass (b=8, bf16: 32 x (2 q/o + 2 k/v "
-        "+ 2 gate/up + down) + head):", json.dumps(per_pass))
+    per_pass = {b: {k: L * sum(Q4_PASS[n] * timed[(n, b)][k]
+                               for n in Q4_PASS) + timed[("head", b)][k]
+                    for k in ("ms", "event_ms", "plain_ms", "bound_ms",
+                              "library_ms")} for b in (8, 1)}
+    for b in (8, 1):
+        log(f"  q4_matmul per decode weight pass (b={b}, bf16: 32 x (2 q/o "
+            "+ 2 k/v + 2 gate/up + down) + head):", json.dumps(per_pass[b]))
     return rows, per_pass
 
 
@@ -760,6 +803,14 @@ def phase_kernels(torch, fa):
            check_prefill(torch, fa, sdpa, 2, 40, 8, 4, 8, bf16)]
     dec = [check_decode(torch, fa, sdpa, [1, 37, 1000, 4096], 4096, 32, 8,
                         128, bf16, timing=True),
+           # the engine's shapes: B=1 over a 4096-slot cache, llama-3-8b
+           # and a tp=2 rank's half of its heads
+           check_decode(torch, fa, sdpa, [532], 4096, 32, 8, 128, bf16,
+                        timing=True),
+           check_decode(torch, fa, sdpa, [4096], 4096, 32, 8, 128, bf16,
+                        timing=True),
+           check_decode(torch, fa, sdpa, [4096], 4096, 16, 4, 128, bf16,
+                        timing=True),
            check_decode(torch, fa, sdpa, [0, 1, 200], 256, 8, 2, 64, f32),
            check_decode(torch, fa, sdpa, [200, 17], 256, 8, 2, 128, bf16,
                         window=64),
@@ -834,7 +885,9 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
         want.update(flash_attention=L, flash_decode=L * (passes - 1),
                     q4_matmul=(1 + q4_per_step * (passes - 1)
                                if q4_per_step else 0))
-        want["flash_attention[mma]"] = L     # bf16: the tensor-core form
+        # bf16: the prefill and every q4_matmul in their tensor-core forms
+        want["flash_attention[mma]"] = L
+        want["q4_matmul[mma]"] = want["q4_matmul"]
         assert d == want, f"launches {d} != {want}"
         assert passes <= new and (len(toks) == new or (
             len(toks) < new and passes >= len(toks) + 1)), (toks, passes)
@@ -910,7 +963,7 @@ def phase_cross_check(torch, fa, qm, quant=None):
     forced = torch.randint(0, cfg.vocab_size, (8, B, 1), generator=g)
     logits = {}
     n0 = (fa.flash_attention.launches, fa.flash_decode.launches,
-          qm.q4_matmul.launches)
+          qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
     with torch.inference_mode():
         for dev, model in models.items():
             cache = init_cache(cfg, B, max_seq, device=dev)
@@ -921,12 +974,12 @@ def phase_cross_check(torch, fa, qm, quant=None):
                 outs.append(lg[:, 0].cpu())
             logits[dev] = torch.cat(outs)
     n1 = (fa.flash_attention.launches, fa.flash_decode.launches,
-          qm.q4_matmul.launches)
+          qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
     # int4: prefill rows (2 x 64) and its full-row head take the plain
-    # unpack; each of the 8 decode steps runs 7 linears x 2 layers + head
+    # unpack; each of the 8 decode steps runs 7 linears x 2 layers + head,
+    # all f32, so all on the CUDA-core form
     q4 = 8 * 15 if quant == "int4" else 0
-    assert (n1[0] - n0[0], n1[1] - n0[1], n1[2] - n0[2]) == (2, 16, q4), \
-        (n0, n1)
+    assert tuple(b - a for a, b in zip(n0, n1)) == (2, 16, q4, 0), (n0, n1)
     what = f"{quant or 'float'} "
     errs = {"dense": _xcheck(torch, what + "dense", logits["cuda"],
                              logits["cpu"])}
@@ -1100,6 +1153,8 @@ def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None):
     assert launches["q4_matmul"] == q4, \
         f"q4_matmul launches {launches['q4_matmul']} != {q4} " \
         f"({passes} passes, prefill waves of {wave_rows} rows)"
+    assert launches["q4_matmul[mma]"] == q4, \
+        f"bf16 q4_matmul calls off the tensor cores: {launches}"
     cached = [r["cost"]["prefill_cached_tokens"] for r in rows[-2:]]
     assert max(cached) >= SHARED_PREFIX, \
         f"shared-prefix requests cached {cached} prompt tokens"
@@ -1202,6 +1257,8 @@ def _route_run(torch, model, pool, bt, lens, first, route, kernels,
     mine = "fused_decode_step" if route == "fused" else "paged_flash_decode"
     want = {k: (L * ROUTE_STEPS if k == mine else 0) for k in launches}
     want["q4_matmul"] = q4_per_step * ROUTE_STEPS
+    if model.cfg.dtype == "bfloat16":      # the tensor-core form
+        want["q4_matmul[mma]"] = want["q4_matmul"]
     assert launches == want, f"{route}: launches {launches} != {want}"
     return torch.stack(logits), torch.stack(fed)
 
@@ -1526,6 +1583,9 @@ def _tp_want(L, passes, int4, prefill_q4=1, bf16=True):
                 "paged_flash_decode": 0, "fused_decode_step": 0,
                 "q4_matmul": prefill_q4 + (5 * L + 1) * d if int4 else 0,
                 "q4_matmul_row": 2 * L * d if int4 else 0}
+    # bf16 activations: every q4 call in its tensor-core form
+    for k in ("q4_matmul", "q4_matmul_row"):
+        launches[f"{k}[mma]"] = launches[k] if bf16 else 0
     return launches, {"all_reduce": (2 * L + 1) * passes, "gather": passes,
                       "broadcast": passes}
 
@@ -1710,6 +1770,41 @@ def phase_tp_depth(torch, depth):
     return out
 
 
+def timed_rows(torch):
+    """Phase 2's timed rows alone (every kernel at its serving shapes,
+    with its bound, plain and library times), for comparing two trees'
+    kernels in one call: ``python3 chip_smoke.py --timed-rows`` from
+    each tree's root times that tree's kernels."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.ops import (
+        flash_attention as fa, fused_decode as fd, paged_attention as pa,
+        quant_matmul as qm)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16, serve = torch.bfloat16, [0, 1, 15, 16, 17, 300, 1000, 4096]
+    rows = [check_prefill(torch, fa, sdpa, 1, 4096, 32, 8, 128, bf16,
+                          timing=True)]
+    rows += [check_decode(torch, fa, sdpa, lens, 4096, H, Hkv, 128, bf16,
+                          timing=True)
+             for lens, H, Hkv in (([1, 37, 1000, 4096], 32, 8),
+                                  ([532], 32, 8), ([4096], 32, 8),
+                                  ([4096], 16, 4))]
+    rows.append(check_paged(torch, pa, sdpa, serve, 32, 8, 128, bf16,
+                            nb=2048, timing=True))
+    rows += [check_fused(torch, fd, serve, 32, 8, 128, 4096, bf16, nb=2048,
+                         timing=True, form=form)
+             for form in ("float", "int8", "int4")]
+    cfg = get_config("llama-3-8b")
+    rank = ((cfg.num_heads * cfg.head_dim // 2, cfg.hidden_size),
+            (cfg.intermediate_size // 2, cfg.hidden_size))
+    for b in (8, 1):
+        rows += [check_q4(torch, qm, b, din, dout, bf16, timing=True)
+                 for din, dout in Q4_SHAPES.values()]
+        rows += [check_q4(torch, qm, b, din, dout, bf16, timing=True,
+                          chunks=1) for din, dout in rank]
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1737,8 +1832,10 @@ def main() -> int:
         (fa, "flash_attention"), (fa, "flash_decode"),
         (pa, "paged_flash_decode"), (fd, "fused_decode_step"),
         (qm, "q4_matmul"), (qm, "q4_matmul_row"))}
-    # the prefill's tensor-core launches among flash_attention's
-    counted["flash_attention[mma]"] = (fa, "flash_attention", "launches_mma")
+    # the tensor-core launches among flash_attention's and the q4 kernels'
+    for mod, name in ((fa, "flash_attention"), (qm, "q4_matmul"),
+                      (qm, "q4_matmul_row")):
+        counted[f"{name}[mma]"] = (mod, name, "launches_mma")
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -1748,6 +1845,14 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  [{name}] {line.strip()}")
+    if sys.argv[1:2] == ["--timed-rows"]:
+        rows = timed_rows(torch)
+        for row in rows:
+            log("  timed", json.dumps(row))
+        bad = [r["case"] for r in rows if not r["ok"]]
+        assert not bad, f"kernels disagree with their plain versions: {bad}"
+        log(smi)
+        return 0
 
     log("phase 2: kernels against their plain versions")
     pre, dec = phase_kernels(torch, fa)
@@ -1784,10 +1889,11 @@ def main() -> int:
     log("phase 7: quantized serving (worker, llama-3-8b int4: engine, "
         "batched paged and fused; int8: batched fused)")
     quant = phase_quant_serving(torch, counted)
-    launches["q4_matmul"] = (
-        quant["engine_int4"]["launches"]["q4_matmul"]
-        + quant["batched_int4_paged"]["launches"]["q4_matmul"]
-        + quant["batched_int4_fused"]["launches"]["q4_matmul"])
+    for k in ("q4_matmul", "q4_matmul[mma]"):
+        launches[k] = sum(quant[p]["launches"][k] for p in (
+            "engine_int4", "batched_int4_paged", "batched_int4_fused"))
+    assert launches["q4_matmul[mma]"] == launches["q4_matmul"], \
+        "a bf16 q4_matmul call missed the tensor-core kernel"
     launches["fused_decode_step[int4]"] = \
         quant["batched_int4_fused"]["launches"]["fused_decode_step"]
     launches["fused_decode_step[int8]"] = \
@@ -1807,9 +1913,12 @@ def main() -> int:
     log("phase 10: tp=2 engine serving (worker, llama-3-8b full depth, "
         "bf16 then int4, 3 requests each)")
     tp_serving, tp_launches = phase_tp_serving(torch)
-    launches["q4_matmul_row"] = tp_launches["q4_matmul_row"]
+    for k in ("q4_matmul_row", "q4_matmul_row[mma]"):
+        launches[k] = tp_launches[k]
     assert launches["q4_matmul_row"] > 0, \
         "q4_matmul_row never launched on the tp path"
+    assert launches["q4_matmul_row[mma]"] == launches["q4_matmul_row"], \
+        "a bf16 q4_matmul_row call missed the tensor-core kernel"
 
     log("phase 11: tp=2 against tp=1 on the same weights (2 layers, f32, "
         "float and int4), then int4 at full depth against phase 9's f32")
@@ -1847,18 +1956,20 @@ def main() -> int:
             "shape": row["case"],
             "timed": [{k: r[k] for k in ("case", "ms", "event_ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms",
-                                         "library_gather_ms") if k in r}
+                                         "library_gather_ms",
+                                         "library_sliced_ms") if k in r}
                       for r in checks if "ms" in r],
             "checks": [{"case": r["case"], "max_abs_err": r["max_abs_err"],
                         "ok": r["ok"]} for r in checks],
         }
-        if name == "flash_attention":
-            entry["launches_mma"] = launches["flash_attention[mma]"]
+        if name in ("flash_attention", "q4_matmul", "q4_matmul_row"):
+            entry["launches_mma"] = launches[f"{name}[mma]"]
         if name == "paged_flash_decode":
             entry["library_gather_ms"] = row["library_gather_ms"]
         if name == "q4_matmul":
             entry["library2_ms"] = row["library2_ms"]
-            entry["per_weight_pass_b8"] = q4_pass
+            entry["per_weight_pass_b8"] = q4_pass[8]
+            entry["per_weight_pass_b1"] = q4_pass[1]
         if name == "q4_matmul_row":
             entry["per_weight_pass_b8_per_rank"] = row_pass
         kernels.append(entry)

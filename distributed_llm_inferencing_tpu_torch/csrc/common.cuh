@@ -16,6 +16,12 @@ namespace dli {
 
 constexpr int kMaxSmem = 232448;   // per-block dynamic shared memory cap
 
+// Strides (elements) of one layer's K or V: a paged pool [NB, bs, Hkv, hd]
+// or a dense cache [B, S, Hkv, hd]; hd contiguous.
+struct PoolStrides {
+  long long sb, ss, sh;
+};
+
 // 16-byte vector loads: 4 floats or 8 bf16 values, widened to f32.
 template <typename T> struct Chunk;
 template <> struct Chunk<float> { static constexpr int N = 4; };
@@ -90,7 +96,7 @@ __device__ void load_tile(float* dst, int pitch, const T* base,
 
 // ---------------------------------------------------------------------
 // Asynchronous copies and tensor-core fragments (sm_80+ PTX, used by the
-// bf16 prefill and the split-KV paged decode).
+// bf16 prefill, the split-KV decodes and the int4 matmul).
 // ---------------------------------------------------------------------
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -111,6 +117,23 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             bool valid) {
   cp_async_16(smem_u32(dst), src, valid);
+}
+
+// 4- and 8-byte global -> shared copies (through L1), zero-filled and
+// reading nothing when valid == false. dst: a shared address aligned to
+// the size, src likewise.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -4,9 +4,10 @@
 //   - prefill_kernel <- ops/pallas/flash_attention.py flash_attention
 //     (kernel _prefill_kernel): causal attention over the fresh block,
 //     positions 0..S-1, optional static window and per-head ALiBi.
-//   - decode_kernel  <- ops/pallas/flash_attention.py flash_decode
-//     (kernel _decode_kernel): one query token per row against the dense
-//     cache, query at lengths[b]-1, the G grouped heads resident.
+//   - decode_split_kernel + decode_combine_kernel <-
+//     ops/pallas/flash_attention.py flash_decode (kernel _decode_kernel):
+//     one query token per row against the dense cache, query at
+//     lengths[b]-1, the G grouped heads read each K/V row once.
 //
 // What bounds them on this card, and what the design does about it:
 //   - Prefill is bounded by operations (4*hd*S^2/2 per head; at S=512
@@ -35,11 +36,18 @@
 //       on the CUDA cores in f32, one block per (64-row q tile, head,
 //       batch) walking the kv tiles from the window's start up to the
 //       causal diagonal only; the f32 cross-checks run it.
-//   - Decode is bounded by bytes (the K/V rows it must read). One block
-//     per (kv head, batch) reads each K/V row once for all G query heads
-//     of its group and stops at lengths[b] (the TPU kernel DMAs every tile
-//     up to S). At batch 1 that is only Hkv blocks on 132 SMs; splitting
-//     the kv axis across blocks (split-KV) is the next step.
+//   - Decode is bounded by bytes (the K/V rows of [max(0, len - window),
+//     len) it must read; the TPU kernel DMAs every tile up to S). Those
+//     are only fast to read with many SMs each keeping loads in flight,
+//     and the engine decodes one row: a grid of (kv head, row) would put
+//     8 blocks on 132 SMs. So decode is split_decode.cuh's split-KV
+//     design, shared with paged_flash_decode: the grid gains a split axis
+//     over the cache's capacity S (the wrapper picks the split length
+//     from B, Hkv and S so that the grid has a block per SM; the host
+//     never reads the lengths), each split streams 64-key K/V tiles with
+//     cp.async into a two-stage ring, q in registers and each K element
+//     read from shared memory serving every head of the block, and a
+//     fixed-order log-sum-exp merge writes q's dtype.
 //
 // Masking and numerics follow the Pallas kernels: scores in f32, scaled,
 // then ALiBi slope*(kv - q), then the causal/window mask; online softmax
@@ -53,21 +61,18 @@
 // Interface: plain C, pointers and the stream as void*, every launcher
 // returns its cudaError_t (0 on success) and allocates nothing.
 
-#include "common.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
 using dli::kMaxSmem;
 using dli::load_tile;
 using dli::store_val;
-using dli::warp_max;
-using dli::warp_sum;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPrefillBQ = 64;     // query rows per prefill block
 constexpr int kPrefillBKV = 32;    // keys per prefill kv tile
-constexpr int kDecodeBKV = 64;     // keys per decode kv tile
 
 // ---------------------------------------------------------------------
 // Prefill: grid (ceil(S/BQ), H, B), kThreads threads.
@@ -611,140 +616,91 @@ cudaError_t dispatch_prefill_mma(const void* q, const void* k, const void* v,
 #undef DLI_PREFILL_MMA_CASE
 
 // ---------------------------------------------------------------------
-// Decode: grid (Hkv, B), kThreads threads.
+// Decode: split_decode.cuh's split-KV pass and merge over the dense cache
+// (row r's key t at k + r*k_sb + t*k_ss), under kernel names of their own.
 // ---------------------------------------------------------------------
 
-size_t decode_smem_bytes(int G, int hd) {
-  return sizeof(float) *
-         (size_t)(2 * G * hd + kDecodeBKV * (hd + 1) + kDecodeBKV * hd +
-                  G * kDecodeBKV + 3 * G);
+using dli::kCombineWarps;
+using dli::kSplitHeads;
+using dli::kSplitThreads;
+using dli::PoolStrides;
+
+// grid (Hkv * ceil(G / kSplitHeads), B, NS)
+template <typename T, int LPK, int CPL>
+__global__ void __launch_bounds__(kSplitThreads)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, float* __restrict__ part,
+                    const int* __restrict__ lengths,
+                    const float* __restrict__ slopes, int H, int Hkv, int hd,
+                    int split, int NS, long long q_sb, long long q_sh,
+                    PoolStrides ks, PoolStrides vs, float scale_log2,
+                    int window) {
+  dli::split_attend<T, LPK, CPL, false>(
+      q, k, v, part, nullptr, lengths, slopes, H, Hkv, hd, 1, split, NS,
+      q_sb, q_sh, 0, ks, vs, scale_log2, window);
 }
 
+// grid B*H
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out,
-              const int* __restrict__ lengths,
-              const float* __restrict__ slopes, int H, int Hkv, int hd,
-              long long q_sb, long long q_sh, long long k_sb, long long k_ss,
-              long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-              long long o_sb, long long o_sh, float scale, int window) {
-  constexpr int BKV = kDecodeBKV;
-  extern __shared__ float smem[];
-  const int G = H / Hkv;
-  const int kp = hd + 1;
-  float* Qs = smem;                 // [G][hd]
-  float* Acc = Qs + G * hd;         // [G][hd]
-  float* Ks = Acc + G * hd;         // [BKV][kp]
-  float* Vs = Ks + BKV * kp;        // [BKV][hd]
-  float* Ps = Vs + BKV * hd;        // [G][BKV]
-  float* m_s = Ps + G * BKV;        // [G]
-  float* l_s = m_s + G;             // [G]
-  float* a_s = l_s + G;             // [G]
-
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = lengths[b];       // valid kv slots: [0, len)
-  const int qpos = len - 1;
-
-  // the group's G query heads are rows kvh*G .. kvh*G+G-1, stride q_sh
-  load_tile(Qs, hd, q + b * q_sb + (long long)kvh * G * q_sh, q_sh, G, G,
-            hd);
-  for (int i = tid; i < G * hd; i += kThreads) Acc[i] = 0.f;
-  for (int i = tid; i < G; i += kThreads) {
-    m_s[i] = -INFINITY;
-    l_s[i] = 0.f;
-  }
-  int kv_begin = 0;
-  if (window > 0) {
-    kv_begin = max(0, len - window);
-    kv_begin -= kv_begin % BKV;
-  }
-
-  for (int kv0 = kv_begin; kv0 < len; kv0 += BKV) {
-    __syncthreads();
-    const int valid = min(BKV, len - kv0);
-    load_tile(Ks, kp, k + b * k_sb + kv0 * k_ss + kvh * k_sh, k_ss, BKV,
-              valid, hd);
-    load_tile(Vs, hd, v + b * v_sb + kv0 * v_ss + kvh * v_sh, v_ss, BKV,
-              valid, hd);
-    __syncthreads();
-
-    for (int i = tid; i < G * BKV; i += kThreads) {
-      const int g = i / BKV, j = i - g * BKV;
-      const int kj = kv0 + j;
-      const float* qrow = Qs + g * hd;
-      const float* krow = Ks + j * kp;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qrow[d], krow[d], s);
-      s *= scale;
-      if (slopes != nullptr) s += slopes[kvh * G + g] * (float)(kj - qpos);
-      const bool ok = kj < len && (window <= 0 || qpos - kj < window);
-      Ps[i] = ok ? s : -INFINITY;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += kWarps) {   // one warp per query head
-      float* prow = Ps + g * BKV;
-      float mx = -INFINITY;
-      for (int j = lane; j < BKV; j += 32) mx = fmaxf(mx, prow[j]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-      for (int j = lane; j < BKV; j += 32) {
-        const float p = expf(prow[j] - m_use);
-        prow[j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_use);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * hd; i += kThreads) {
-      const int g = i / hd, d = i - g * hd;
-      const float* prow = Ps + g * BKV;
-      float a = Acc[i] * a_s[g];
-      for (int j = 0; j < BKV; ++j) a = fmaf(prow[j], Vs[j * hd + d], a);
-      Acc[i] = a;
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i - g * hd;
-    const float l = l_s[g];
-    store_val(out + b * o_sb + (long long)(kvh * G + g) * o_sh + d,
-              l > 0.f ? Acc[i] / l : 0.f);
-  }
+__global__ void __launch_bounds__(32 * kCombineWarps)
+decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                      const int* __restrict__ lengths, int B, int H, int hd,
+                      int split, int NS, long long o_sb, long long o_sh,
+                      int window) {
+  dli::split_combine<T>(part, out, lengths, B, H, hd, split, NS, o_sb, o_sh,
+                        window);
 }
 
-template <typename T>
+template <typename T, int LPK, int CPL>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           void* out, const void* lengths, const void* slopes,
-                          int B, int H, int Hkv, int hd, const long long* st,
+                          void* part, int B, int H, int Hkv, int hd,
+                          int split, int NS, const long long* st,
                           float scale, int window, cudaStream_t stream) {
-  auto kern = decode_kernel<T>;
-  const size_t smem = decode_smem_bytes(H / Hkv, hd);
+  auto kern = decode_split_kernel<T, LPK, CPL>;
+  const size_t smem = dli::split_smem_bytes<T, LPK, CPL, false>(hd, split);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Hkv, B);
-  kern<<<grid, kThreads, smem, stream>>>(
+  const int G = H / Hkv;
+  const dim3 grid(Hkv * ((G + kSplitHeads - 1) / kSplitHeads), B, NS);
+  kern<<<grid, kSplitThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<const T*>(v), static_cast<float*>(part),
       static_cast<const int*>(lengths), static_cast<const float*>(slopes), H,
-      Hkv, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], scale, window);
+      Hkv, hd, split, NS, st[0], st[1], PoolStrides{st[2], st[3], st[4]},
+      PoolStrides{st[5], st[6], st[7]}, scale * dli::kLog2e, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_combine_kernel<T><<<B * H, 32 * kCombineWarps, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(out),
+      static_cast<const int*>(lengths), B, H, hd, split, NS, st[8], st[9],
+      window);
   return cudaGetLastError();
+}
+
+// LPK: the 16-byte chunks of hd rounded up to a power of two, at least 2
+// and at most 32 lanes; f32 above hd 128 gives each lane two chunks (as
+// paged_attention.cu).
+template <typename T>
+cudaError_t dispatch_decode(int chunks, const void* q, const void* k,
+                            const void* v, void* out, const void* lengths,
+                            const void* slopes, void* part, int B, int H,
+                            int Hkv, int hd, int split, int NS,
+                            const long long* st, float scale, int window,
+                            cudaStream_t stream) {
+#define DLI_DECODE_LAUNCH(LPK, CPL)                                        \
+  return launch_decode<T, LPK, CPL>(q, k, v, out, lengths, slopes, part, B, \
+                                    H, Hkv, hd, split, NS, st, scale,       \
+                                    window, stream)
+  if (chunks <= 2) DLI_DECODE_LAUNCH(2, 1);
+  if (chunks <= 4) DLI_DECODE_LAUNCH(4, 1);
+  if (chunks <= 8) DLI_DECODE_LAUNCH(8, 1);
+  if (chunks <= 16) DLI_DECODE_LAUNCH(16, 1);
+  if (chunks <= 32) DLI_DECODE_LAUNCH(32, 1);
+  DLI_DECODE_LAUNCH(32, 2);
+#undef DLI_DECODE_LAUNCH
 }
 
 }  // namespace
@@ -788,22 +744,29 @@ int dli_flash_attention_mma_fwd(const void* q, const void* k, const void* v,
 }
 
 // strides (elements): q b/h, k b/s/h, v b/s/h, out b/h. lengths: [B] int32
-// on the device (read by the kernel; the host never syncs on it).
+// on the device (read by the kernels; the host never syncs on it). split:
+// keys per split (a multiple of 64, at most 4096); NS = ceil(S / split)
+// splits of the cache's capacity S. part: B * H * NS * (hd + 2) f32 of
+// scratch.
 int dli_flash_decode_fwd(const void* q, const void* k, const void* v,
                          void* out, const void* lengths, const void* slopes,
-                         int dtype, int B, int H, int Hkv, int hd,
-                         const long long* strides, float scale, int window,
-                         void* stream) {
-  if (hd % 8 != 0 || hd > 256 || hd < 8 || H % Hkv != 0)
+                         void* part, int dtype, int B, int H, int Hkv,
+                         int hd, int split, int NS, const long long* strides,
+                         float scale, int window, void* stream) {
+  if (hd % 8 != 0 || hd > 256 || hd < 8 || H % Hkv != 0 || split < 64 ||
+      split > 4096 || split % 64 != 0 || NS < 1 || NS > 65535 ||
+      B > 65535 || (long long)B * H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_decode<float>(q, k, v, out, lengths, slopes, B, H, Hkv, hd,
-                                strides, scale, window, st);
+    return dispatch_decode<float>(hd / 4, q, k, v, out, lengths, slopes,
+                                  part, B, H, Hkv, hd, split, NS, strides,
+                                  scale, window, st);
   if (dtype == 1)
-    return launch_decode<__nv_bfloat16>(q, k, v, out, lengths, slopes, B, H,
-                                        Hkv, hd, strides, scale, window, st);
+    return dispatch_decode<__nv_bfloat16>(hd / 8, q, k, v, out, lengths,
+                                          slopes, part, B, H, Hkv, hd, split,
+                                          NS, strides, scale, window, st);
   return cudaErrorInvalidValue;
 }
 

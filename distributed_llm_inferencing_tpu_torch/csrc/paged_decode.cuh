@@ -1,9 +1,8 @@
-// The single-pass paged online-softmax decode of fused_decode.cu (the
-// pool strides are shared with paged_attention.cu, whose own kernel is
-// split-KV): one thread block attends the G query heads of one
-// (slot, kv head) against the slot's keys in [max(0, len - window), len),
-// read straight out of one layer's block pool [NB, bs, Hkv, hd] in its
-// stored layout.
+// The single-pass paged online-softmax decode of fused_decode.cu
+// (paged_attention.cu's own kernel is split-KV, split_decode.cuh): one
+// thread block attends the G query heads of one (slot, kv head) against
+// the slot's keys in [max(0, len - window), len), read straight out of
+// one layer's block pool [NB, bs, Hkv, hd] in its stored layout.
 //
 // The TPU kernels walk a sequential grid axis over the block table with
 // scalar-prefetched block ids driving the DMAs, and load every table
@@ -25,11 +24,6 @@ namespace dli {
 constexpr int kPagedThreads = 256;
 constexpr int kPagedWarps = kPagedThreads / 32;
 constexpr int kPagedBKV = 64;   // keys per tile
-
-// Strides (elements) of one layer's pool [NB, bs, Hkv, hd]; hd contiguous.
-struct PoolStrides {
-  long long sb, ss, sh;
-};
 
 // Shared memory (in floats) that paged_attend needs after the caller's
 // query rows: two [BKV] row-offset arrays (long long), Acc [G][hd],

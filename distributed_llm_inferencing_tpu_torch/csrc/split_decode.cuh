@@ -1,0 +1,408 @@
+// Split-KV single-query attention, shared by the dense flash_decode
+// (flash_attention.cu: decode_split_kernel + decode_combine_kernel) and
+// paged_flash_decode (paged_attention.cu: paged_split_kernel +
+// paged_combine_kernel). The two differ only in how a key row's address
+// is found: stride over row r's dense cache [B, S, Hkv, hd], or a block
+// table into the pool [NB, bs, Hkv, hd] (PAGED). Each file wraps the
+// device functions below in __global__ kernels of its own names, so a
+// profile counts each kernel apart.
+//
+// Bounded by bytes (the K/V rows of [max(0, len - window), len) of every
+// row; 4*H*hd operations per key row, far below the bf16 ridge), which
+// are only fast to read with many SMs each keeping loads in flight:
+//   - The split pass. Grid (Hkv x head groups, R, NS): each block attends
+//     up to kSplitHeads query heads of one (row, kv head) over one fixed
+//     range of `split` keys. NS comes from the capacity the host knows
+//     (the cache's S, the table's MB*bs), so the host never reads the
+//     lengths. A range at or past the row's length, or wholly before the
+//     window's start, writes an empty partial (m = -inf, l = 0) and exits;
+//     the others write f32 partials (m, l, unnormalised acc[hd], log2
+//     domain) to scratch the wrapper allocated.
+//   - Loads in flight. A paged split first copies its block-table entries
+//     into shared memory; both forms resolve each key row's address once,
+//     a tile ahead, into shared memory. 64-key K/V tiles (32 for f32
+//     above hd 128) are fetched straight from the cache in its stored
+//     layout with 16-byte cp.async into a two-stage ring, the next tile's
+//     copy in flight while the current one is computed.
+//   - Scores. q stays in registers; a warp takes a set of keys, LPK lanes
+//     split one key's hd in 16-byte chunks, so each K element read from
+//     shared memory serves every head of the block, and a shuffle
+//     reduction over the LPK lanes finishes the dot. ALiBi (dense only)
+//     adds slope * (key - query position) before the mask. Each lane group
+//     keeps its own online softmax (m, l, acc) over its keys; the groups
+//     merge in shared memory at the end of the split.
+//   - The merge. One block per (row, head), its warps over the splits,
+//     merges a row's partials by log-sum-exp in a fixed order, so two
+//     launches give the same bits; a row whose l sums to 0 writes 0.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace dli {
+
+constexpr int kSplitWarps = 4;
+constexpr int kSplitThreads = 32 * kSplitWarps;
+constexpr int kSplitHeads = 4;   // query heads one split block attends
+constexpr int kCombineWarps = 8;
+
+// LPK lanes per key, CPL 16-byte chunks of hd per lane.
+template <typename T, int LPK, int CPL>
+struct SplitCfg {
+  static constexpr int N = 16 / sizeof(T);       // elements per chunk
+  static constexpr int KPW = 32 / LPK;           // keys per warp step
+  // keys per tile: 64, or 32 where a lane group spans rows past 512 bytes
+  static constexpr int BKV = CPL * LPK * 16 <= 512 ? 64 : 32;
+  static constexpr int KPG = BKV / kSplitWarps / KPW;   // keys per group
+  static constexpr int E = CPL * N;              // hd values per lane
+  static constexpr int NG = kSplitWarps * KPW;   // lane groups per block
+  static constexpr size_t kOffBytes = 4 * BKV * sizeof(long long);
+};
+
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+
+// Dynamic shared memory of one split block: row offsets, the paged form's
+// table entries, then the K/V ring (reused for the lane groups' merge).
+template <typename T, int LPK, int CPL, bool PAGED>
+inline size_t split_smem_bytes(int hd, int split) {
+  using C = SplitCfg<T, LPK, CPL>;
+  const size_t tiles = 4 * (size_t)C::BKV * (hd + C::N) * sizeof(T);
+  const size_t merge = (size_t)C::NG * kSplitHeads * (2 + hd) * sizeof(float);
+  return C::kOffBytes + (PAGED ? align16(sizeof(int) * (split + 2)) : 0) +
+         (tiles > merge ? tiles : merge);
+}
+
+// The split pass for block (blockIdx.x = kv head x head group, blockIdx.y
+// = row r, blockIdx.z = split sp); kSplitThreads threads. part: [R][H][NS]
+// (m, l) pairs, then [R][H][NS][hd] acc, all f32. Dense: ks/vs.sb is the
+// row stride of the cache, block_tables and bs unused. slopes: [H] f32
+// ALiBi slopes or nullptr.
+template <typename T, int LPK, int CPL, bool PAGED>
+__device__ __forceinline__ void split_attend(
+    const T* __restrict__ q, const T* __restrict__ kpool,
+    const T* __restrict__ vpool, float* __restrict__ part,
+    const int* __restrict__ block_tables, const int* __restrict__ lens,
+    const float* __restrict__ slopes, int H, int Hkv, int hd, int bs,
+    int split, int NS, long long q_sr, long long q_sh, long long bt_sr,
+    PoolStrides ks, PoolStrides vs, float scale_log2, int window) {
+  using C = SplitCfg<T, LPK, CPL>;
+  constexpr int N = C::N, KPW = C::KPW, BKV = C::BKV, KPG = C::KPG;
+  constexpr int E = C::E, NG = C::NG, GT = kSplitHeads;
+  const int G = H / Hkv;
+  const int n_hg = (G + GT - 1) / GT;
+  const int kvh = blockIdx.x / n_hg, hg = blockIdx.x % n_hg;
+  const int r = blockIdx.y, sp = blockIdx.z, R = gridDim.y;
+  const int h0 = kvh * G + hg * GT;        // the block's first query head
+  const int ng = min(GT, G - hg * GT);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* ml = part;
+  float* pacc = part + 2LL * R * H * NS;
+
+  const int len = lens[r];
+  const int kv_begin = window > 0 ? max(0, len - window) : 0;
+  const int s0 = max(sp * split, kv_begin);
+  const int s1 = min(sp * split + split, len);
+  if (s0 >= s1) {                          // an empty partial
+    if (tid < ng) {
+      const long long i = ((long long)r * H + h0 + tid) * NS + sp;
+      ml[2 * i] = -INFINITY;
+      ml[2 * i + 1] = 0.f;
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* koff = reinterpret_cast<long long*>(smem_raw);   // [2][BKV]
+  long long* voff = koff + 2 * BKV;                           // [2][BKV]
+  int* bt_s = reinterpret_cast<int*>(voff + 2 * BKV);         // [split + 2]
+  T* Ks = reinterpret_cast<T*>(
+      smem_raw + C::kOffBytes +
+      (PAGED ? align16(sizeof(int) * (split + 2)) : 0));
+  const int P = hd + N;                    // padded row pitch, elements
+  T* Vs = Ks + 2 * BKV * P;                // Ks, Vs: [2][BKV][P]
+
+  const int e0 = PAGED ? s0 / bs : 0;      // table entries it reads
+  if constexpr (PAGED) {
+    const int e1 = (s1 - 1) / bs;
+    const int* bt_row = block_tables + r * bt_sr;
+    for (int i = tid; i <= e1 - e0; i += kSplitThreads)
+      bt_s[i] = bt_row[e0 + i];
+  }
+
+  // q in registers: lane (grp, sub) holds chunks sub, sub + LPK, ... of
+  // every head of the block, widened to f32; ALiBi slopes in log2 units
+  const int grp = lane / LPK, sub = lane % LPK;
+  const int chunks = hd / N;
+  float qr[GT][E], sl[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    sl[g] = !PAGED && slopes != nullptr && g < ng ? slopes[h0 + g] * kLog2e
+                                                  : 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc) {
+      const int c = sub + LPK * cc;
+      if (g < ng && c < chunks) {
+        load_chunk(q + r * q_sr + (long long)(h0 + g) * q_sh + c * N,
+                   &qr[g][cc * N]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) qr[g][cc * N + e] = 0.f;
+      }
+    }
+  }
+  const float qpos = (float)(len - 1);
+  __syncthreads();                         // bt_s is filled
+
+  // row addresses of the tile at t0 into koff/voff[st] (threads
+  // [st0, st0 + BKV), one row each), a tile before its copy
+  const T* kb = kpool + (long long)kvh * ks.sh;
+  const T* vb = vpool + (long long)kvh * vs.sh;
+  auto resolve = [&](int t0, int st, int st0) {
+    const int row = tid - st0, pos = t0 + row;
+    if (row >= 0 && row < BKV && pos < s1) {
+      if constexpr (PAGED) {
+        const long long blk = bt_s[pos / bs - e0];
+        const long long off = pos % bs;
+        koff[st * BKV + row] = blk * ks.sb + off * ks.ss;
+        voff[st * BKV + row] = blk * vs.sb + off * vs.ss;
+      } else {
+        koff[st * BKV + row] = r * ks.sb + pos * ks.ss;
+        voff[st * BKV + row] = r * vs.sb + pos * vs.ss;
+      }
+    }
+  };
+  // one tile's K/V rows [t0, t0 + BKV) into stage st; rows >= s1 zeroed.
+  // A thread keeps one chunk column (CHP >= chunks slots per row) and
+  // walks rows by a constant step.
+  constexpr int CHP = LPK * CPL, RPP = kSplitThreads / CHP;
+  const int cr = tid % CHP, rr = tid / CHP;
+  auto fetch = [&](int t0, int st) {
+    if (cr < chunks) {
+#pragma unroll
+      for (int j = 0; j < BKV / RPP; ++j) {
+        const int row = rr + j * RPP;
+        const bool ok = t0 + row < s1;
+        const int dst = (st * BKV + row) * P + cr * N;
+        cp_async_16(Ks + dst, ok ? kb + koff[st * BKV + row] + cr * N : kb,
+                    ok);
+        cp_async_16(Vs + dst, ok ? vb + voff[st * BKV + row] + cr * N : vb,
+                    ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m[GT], l[GT], acc[GT][E];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+
+  const int n_tiles = (s1 - s0 + BKV - 1) / BKV;
+  resolve(s0, 0, 0);
+  resolve(s0 + BKV, 1, BKV);
+  __syncthreads();
+  fetch(s0, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = s0 + it * BKV, st = it & 1;
+    if (it + 1 < n_tiles) {                // the next tile flies meanwhile
+      fetch(t0 + BKV, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // tile it's addresses are spent: resolve tile it + 2's in their place
+    if (it + 2 < n_tiles) resolve(t0 + 2 * BKV, st, 0);
+    const T* Kt = Ks + st * BKV * P;
+    const T* Vt = Vs + st * BKV * P;
+
+    // scores of this group's KPG keys for every head
+    float s[KPG][GT];
+#pragma unroll
+    for (int i = 0; i < KPG; ++i) {
+      const int j = warp * (BKV / kSplitWarps) + grp + KPW * i;
+      float d[GT];
+#pragma unroll
+      for (int g = 0; g < GT; ++g) d[g] = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < CPL; ++cc) {
+        const int c = sub + LPK * cc;
+        if (c < chunks) {
+          float kv[N];
+          load_chunk(Kt + j * P + c * N, kv);
+#pragma unroll
+          for (int g = 0; g < GT; ++g)
+#pragma unroll
+            for (int e = 0; e < N; ++e)
+              d[g] = fmaf(qr[g][cc * N + e], kv[e], d[g]);
+        }
+      }
+#pragma unroll
+      for (int off = LPK / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+          d[g] += __shfl_xor_sync(0xffffffffu, d[g], off);
+      const bool ok = t0 + j < s1;
+      if (!PAGED && slopes != nullptr) {
+        const float rel = (float)(t0 + j) - qpos;
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+          s[i][g] = ok ? fmaf(d[g], scale_log2, sl[g] * rel) : -INFINITY;
+      } else {
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+          s[i][g] = ok ? d[g] * scale_log2 : -INFINITY;
+      }
+    }
+
+    // the group's online softmax (log2 domain)
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float mt = s[0][g];
+#pragma unroll
+      for (int i = 1; i < KPG; ++i) mt = fmaxf(mt, s[i][g]);
+      const float mn = fmaxf(m[g], mt);
+      const float mu = mn == -INFINITY ? 0.f : mn;   // exp2(-inf) = 0
+      const float a = fast_exp2(m[g] - mu);
+      m[g] = mn;
+      float ps = 0.f;
+#pragma unroll
+      for (int i = 0; i < KPG; ++i) {
+        s[i][g] = fast_exp2(s[i][g] - mu);
+        ps += s[i][g];
+      }
+      l[g] = l[g] * a + ps;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= a;
+    }
+
+    // acc += p * V over the same keys and chunks
+#pragma unroll
+    for (int i = 0; i < KPG; ++i) {
+      const int j = warp * (BKV / kSplitWarps) + grp + KPW * i;
+#pragma unroll
+      for (int cc = 0; cc < CPL; ++cc) {
+        const int c = sub + LPK * cc;
+        if (c < chunks) {
+          float vv[N];
+          load_chunk(Vt + j * P + c * N, vv);
+#pragma unroll
+          for (int g = 0; g < GT; ++g)
+#pragma unroll
+            for (int e = 0; e < N; ++e)
+              acc[g][cc * N + e] = fmaf(s[i][g], vv[e], acc[g][cc * N + e]);
+        }
+      }
+    }
+    __syncthreads();                       // this stage is consumed
+  }
+
+  // merge the NG lane groups' states in the (consumed) tile buffers
+  float* gm = reinterpret_cast<float*>(Ks);   // [NG][GT]
+  float* gl = gm + NG * GT;                   // [NG][GT]
+  float* ga = gl + NG * GT;                   // [NG][GT][hd]
+  const int gi = warp * KPW + grp;
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    if (sub == 0) {
+      gm[gi * GT + g] = m[g];
+      gl[gi * GT + g] = l[g];
+    }
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc) {
+      const int c = sub + LPK * cc;
+      if (c < chunks) {
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          ga[(gi * GT + g) * hd + c * N + e] = acc[g][cc * N + e];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < ng * hd; i += kSplitThreads) {
+    const int g = i / hd, dd = i - g * hd;
+    float M = -INFINITY;
+    for (int k = 0; k < NG; ++k) M = fmaxf(M, gm[k * GT + g]);
+    const float Mu = M == -INFINITY ? 0.f : M;
+    float L = 0.f, A = 0.f;
+    for (int k = 0; k < NG; ++k) {
+      const float f = fast_exp2(gm[k * GT + g] - Mu);   // empty group: 0
+      L += f * gl[k * GT + g];
+      A += f * ga[(k * GT + g) * hd + dd];
+    }
+    const long long pi = ((long long)r * H + h0 + g) * NS + sp;
+    pacc[pi * hd + dd] = A;
+    if (dd == 0) {
+      ml[2 * pi] = M;
+      ml[2 * pi + 1] = L;
+    }
+  }
+}
+
+// The merge for block blockIdx.x = (row, head), kCombineWarps warps:
+// merge the row's partials. The splits in [first, last) are exactly those
+// with keys in the row's range (each one non-empty). Every warp finds the
+// row's max M over all of them; warp w then sums the splits first + w,
+// first + w + kCombineWarps, ... in ascending order, and the warps' sums
+// are added in warp order: a fixed order, so the same bits every launch.
+template <typename T>
+__device__ __forceinline__ void split_combine(
+    const float* __restrict__ part, T* __restrict__ out,
+    const int* __restrict__ lens, int R, int H, int hd, int split, int NS,
+    long long o_sr, long long o_sh, int window) {
+  constexpr int DPL = 256 / 32;            // hd values per lane, at most
+  __shared__ float red_acc[kCombineWarps][256];
+  __shared__ float red_l[kCombineWarps];
+  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int len = lens[r];
+  const int kv_begin = window > 0 ? max(0, len - window) : 0;
+  const int first = kv_begin / split;
+  const int last = min(NS, (len + split - 1) / split);
+  const float* ml = part + 2LL * ((long long)r * H + h) * NS;
+  const float* pa = part + 2LL * R * H * NS + ((long long)r * H + h) * NS * hd;
+  float M = -INFINITY;
+  for (int s = first + lane; s < last; s += 32)
+    if (ml[2 * s + 1] > 0.f) M = fmaxf(M, ml[2 * s]);
+  M = warp_max(M);
+  float L = 0.f, acc[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (int s = first + warp; s < last; s += kCombineWarps) {
+    const float ls = ml[2 * s + 1];
+    const float f = ls > 0.f ? fast_exp2(ml[2 * s] - M) : 0.f;
+    L += f * ls;
+    const float* row = pa + (long long)s * hd;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane + 32 * i;
+      if (d < hd) acc[i] = fmaf(f, row[d], acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) red_acc[warp][d] = acc[i];
+  }
+  if (lane == 0) red_l[warp] = L;
+  __syncthreads();
+  float Lt = 0.f;
+#pragma unroll
+  for (int k = 0; k < kCombineWarps; ++k) Lt += red_l[k];
+  T* orow = out + r * o_sr + h * o_sh;
+  for (int d = threadIdx.x; d < hd; d += 32 * kCombineWarps) {
+    float a = 0.f;
+#pragma unroll
+    for (int k = 0; k < kCombineWarps; ++k) a += red_acc[k][d];
+    store_val(orow + d, Lt > 0.f ? a / Lt : 0.f);
+  }
+}
+
+}  // namespace dli

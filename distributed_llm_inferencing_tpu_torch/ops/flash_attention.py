@@ -10,6 +10,10 @@ the plain versions, which compute the same function:
   q [B,S,H,hd], k/v [B,S,Hkv,hd], positions 0..S-1.
 - ``flash_decode(q, k, v, lengths)``: one query token per row against the
   dense cache, q [B,1,H,hd], k/v [B,S,Hkv,hd], query at ``lengths-1``.
+  The kernel is split-KV: a first pass attends each row's keys in ranges
+  of ``decode_split(...)`` keys (from shapes alone) and writes per-range
+  partials, a second merges them by log-sum-exp;
+  ``flash_decode_split_ref`` is that arithmetic in plain PyTorch.
 
 Both take an optional static ``sliding_window`` and per-head ALiBi
 ``alibi`` slopes [H]; rows with no admissible key come out 0.
@@ -29,6 +33,7 @@ the tensor-core launches among ``flash_attention.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -38,6 +43,11 @@ from distributed_llm_inferencing_tpu_torch.ops import build
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# keys per split of the decode kernel's first pass (multiples of its
+# 64-key tile): 128 as a rule, 64 where the grid would leave half the SMs
+# idle, longer where a row would have more than DECODE_MAX_SPLITS partials
+DECODE_SPLIT, DECODE_MAX_SPLIT, DECODE_MAX_SPLITS = 128, 1024, 64
+_HEADS_PER_BLOCK = 4   # query heads one split block attends (kSplitHeads)
 _lib = None
 
 
@@ -53,7 +63,7 @@ def _kernels():
             [P, P, P, P, P] + [I] * 5 + [P, F, I, P])
         lib.dli_flash_attention_mma_fwd.restype = I
         lib.dli_flash_decode_fwd.argtypes = (
-            [P] * 6 + [I] * 5 + [P, F, I, P])
+            [P] * 7 + [I] * 7 + [P, F, I, P])
         lib.dli_flash_decode_fwd.restype = I
         _lib = lib
     return _lib
@@ -218,6 +228,69 @@ def flash_decode_ref(q, k, v, lengths, *,
                             kv_pos < lengths[:, None], sliding_window, alibi)
 
 
+def decode_split(batch: int, num_heads: int, kv_heads: int, capacity: int,
+                 sms: int) -> int:
+    """Keys per split of the decode kernel, from shapes alone (the host
+    never reads the lengths). 128 keys, two 64-key tiles so that one's
+    copy overlaps the other's compute: on an H100 it was the fastest split
+    from 1 to 8 blocks per SM (llama-3-8b at B=1 and 4, a tp=2 rank). 64
+    where the grid (kv heads x head groups x batch x splits) would leave
+    half the SMs idle; doubled while a row would have more than
+    ``DECODE_MAX_SPLITS`` partials for the merge to read."""
+    groups = kv_heads * -(-(num_heads // kv_heads) // _HEADS_PER_BLOCK)
+    split = DECODE_SPLIT
+    if batch * groups * -(-capacity // split) < sms // 2:
+        split //= 2
+    while -(-capacity // split) > DECODE_MAX_SPLITS \
+            and split < DECODE_MAX_SPLIT:
+        split *= 2
+    return split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def flash_decode_split_ref(q, k, v, lengths, *,
+                           sliding_window: Optional[int] = None, alibi=None,
+                           split: int = 64):
+    """The decode kernel's split arithmetic in plain PyTorch (f32): each
+    row's keys [max(0, len - window), len) cut into the ranges
+    [s*split, (s+1)*split) for s < ceil(S / split), a partial (m, l, acc)
+    per range (empty ranges m = -inf, l = 0), then ops/paged_attention.py
+    ``merge_partials``. Returns [B,1,H,hd] in q's dtype."""
+    from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
+        merge_partials)
+    B, S, Hkv, hd = k.shape
+    H = q.shape[2]
+    G = H // Hkv
+    ns = -(-S // split)
+    n = ns * split
+    pad = (0, 0, 0, 0, 0, n - S)
+    kf, vf = (torch.nn.functional.pad(t.float(), pad) for t in (k, v))
+    lens = lengths.to(torch.int64).to(q.device)
+    pos = torch.arange(n, device=q.device)
+    valid = pos[None, :] < lens[:, None]
+    if sliding_window is not None:
+        valid &= pos[None, :] >= (lens - sliding_window)[:, None]
+    qf = q.float().reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bthd->bhgt", qf, kf) / math.sqrt(hd)
+    if alibi is not None:
+        rel = (pos[None, :] - (lens - 1)[:, None]).float()       # [B, n]
+        s = s + alibi.float().to(q.device).reshape(1, Hkv, G, 1) \
+            * rel[:, None, None]
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    s = s.reshape(B, Hkv, G, ns, split)
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m,
+                                  torch.zeros_like(m))[..., None])
+    acc = torch.einsum("bhgnt,bnthd->bhgnd", p,
+                       vf.reshape(B, ns, split, Hkv, hd))
+    out = merge_partials(m, p.sum(-1), acc)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
 def flash_decode(q, k, v, lengths, *, sliding_window: Optional[int] = None,
                  alibi=None):
     """Cached single-token attention (the decode hot loop).
@@ -240,14 +313,19 @@ def flash_decode(q, k, v, lengths, *, sliding_window: Optional[int] = None,
         raise ValueError("flash_decode: lengths must be [B] int32, "
                          "contiguous, on q's device")
     window = _window(sliding_window)
+    S, Hkv = k.shape[1], k.shape[2]
+    split = decode_split(B, H, Hkv, S, _sm_count(q.device.index))
+    ns = -(-S // split)
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    part = torch.empty(B * H * ns * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dli_flash_decode_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lengths.data_ptr(), _ptr(alibi), _DTYPE_CODE[q.dtype], B, H,
-            k.shape[2], hd,
+            lengths.data_ptr(), _ptr(alibi), part.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, Hkv, hd, split, ns,
             _strides((q, (0, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                      (out, (0, 2))),
             1.0 / math.sqrt(hd), window, stream)

@@ -16,7 +16,7 @@ the decode chunk under ``torch.profiler``: device time by kernel and the
 device's busy share of the chunk's wall time (one stream, so kernels
 never overlap), the attention kernel's time per launch (for
 ``paged_flash_decode`` its split pass and merge together) and
-``q4_matmul``'s in int4.
+the q4 kernels' in int4.
 Prints one JSON object. Needs a GPU.
 """
 
@@ -29,7 +29,8 @@ import os
 import subprocess
 import time
 
-from distributed_llm_inferencing_tpu_torch.profile_engine import _device_us
+from distributed_llm_inferencing_tpu_torch.profile_engine import (
+    Q4_COUNTED, Q4_KERNELS, _device_us, per_launch)
 
 PROMPT_LENS = (60, 130, 250, 500, 300, 400, 700, 1000)
 
@@ -111,17 +112,6 @@ def main(argv=None):
                                     "calls": evt.count}
         device_ms = sum(k["device_ms"] for k in kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])
-        def per_launch(*names, counted=None):
-            """Device time of the kernels matching ``names``, per call of
-            those matching ``counted`` (default: all of them)."""
-            hit = lambda k, ns: any(n in k for n in ns)  # noqa: E731
-            n = sum(v["calls"] for k, v in kernels.items()
-                    if hit(k, counted or names))
-            ms = sum(v["device_ms"] for k, v in kernels.items()
-                     if hit(k, names))
-            return {"calls": n, "device_ms": ms,
-                    "us_per_launch": 1e3 * ms / n if n else None}
-
         out["routes"][route] = {
             "timed_rounds": reps,
             "profiled_round": {
@@ -130,11 +120,10 @@ def main(argv=None):
                     device_ms / prof_round["decode_chunk_ms"],
                 # paged_flash_decode = its split pass + its merge, per call
                 "attention_kernel": per_launch(
-                    "paged_split_kernel", "paged_combine_kernel",
-                    "fused_decode_kernel",
+                    kernels, ("paged_split_kernel", "paged_combine_kernel",
+                              "fused_decode_kernel"),
                     counted=("paged_split_kernel", "fused_decode_kernel")),
-                "q4_matmul_kernel": per_launch("q4_matmul_kernel<",
-                                               "q4_finish_kernel<"),
+                "q4_kernel": per_launch(kernels, Q4_KERNELS, Q4_COUNTED),
                 "top_kernels": [{"name": k[:90], **v}
                                 for k, v in top[:12]]},
         }

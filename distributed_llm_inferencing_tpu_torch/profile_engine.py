@@ -9,9 +9,10 @@ draws the linears as int8 or int4 weights) on the card, runs one request
 to warm up (first-use cuBLAS and kernel loading), then ``--reps`` timed
 greedy requests (prefill ms and decode tokens/s from CUDA events), then
 one request under ``torch.profiler``: device time by kernel, the two
-attention kernels' time per launch, and the device's busy share of the
-decode wall time (sum of kernel time over wall time; one stream, so
-kernels never overlap), with ``q4_matmul``'s time per launch in int4.
+attention kernels' time per launch (``flash_decode``'s split pass and
+merge together), and the device's busy share of the decode wall time
+(sum of kernel time over wall time; one stream, so kernels never
+overlap), with the q4 kernels' time per launch in int4.
 Prints one JSON object. Needs a GPU.
 """
 
@@ -28,6 +29,23 @@ def _device_us(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+# the kernels of one wrapper call, and the one that counts the calls
+Q4_KERNELS = ("q4_mma_kernel<", "q4_matmul_kernel<", "q4_finish_kernel<")
+Q4_COUNTED = ("q4_mma_kernel<", "q4_matmul_kernel<")
+
+
+def per_launch(kernels, names, counted=None):
+    """Device time of the kernels (name -> {"device_ms", "calls"}) whose
+    names contain one of ``names``, per call of those matching
+    ``counted`` (default: all of them)."""
+    hit = lambda k, ns: any(n in k for n in ns)  # noqa: E731
+    n = sum(v["calls"] for k, v in kernels.items()
+            if hit(k, counted or names))
+    ms = sum(v["device_ms"] for k, v in kernels.items() if hit(k, names))
+    return {"calls": n, "device_ms": ms,
+            "us_per_launch": 1e3 * ms / n if n else None}
 
 
 def main(argv=None):
@@ -86,13 +104,6 @@ def main(argv=None):
     device_ms = sum(k["device_ms"] for k in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])[:12]
 
-    def per_launch(*names):
-        hits = [v for k, v in kernels.items() if any(n in k for n in names)]
-        n = sum(v["calls"] for v in hits)
-        ms = sum(v["device_ms"] for v in hits)
-        return {"calls": n, "device_ms": ms,
-                "us_per_launch": 1e3 * ms / n if n else None}
-
     out = {
         "smi": smi, "model": args.model, "dtype": args.dtype,
         "quantize": args.quantize,
@@ -102,16 +113,19 @@ def main(argv=None):
             "wall_ms": wall_ms, "prefill_ms": r.prefill_ms,
             "decode_ms": r.decode_ms, "device_kernel_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
-            "prefill_kernel": per_launch("prefill_kernel<",
-                                         "prefill_mma_kernel<"),
-            "decode_kernel": per_launch("decode_kernel<"),
-            "q4_matmul_kernel": per_launch("q4_matmul_kernel<"),
-            "q4_finish_kernel": per_launch("q4_finish_kernel<"),
+            "prefill_kernel": per_launch(kernels, ("prefill_kernel<",
+                                                   "prefill_mma_kernel<")),
+            # flash_decode = its split pass + its merge, per call
+            "decode_kernel": per_launch(
+                kernels, ("decode_split_kernel<", "decode_combine_kernel<"),
+                counted=("decode_split_kernel<",)),
+            "q4_kernel": per_launch(kernels, Q4_KERNELS, Q4_COUNTED),
             "top_kernels": [{"name": k[:90], **v} for k, v in top],
         },
         "launches": {"flash_attention": fa.flash_attention.launches,
                      "flash_decode": fa.flash_decode.launches,
-                     "q4_matmul": qm.q4_matmul.launches},
+                     "q4_matmul": qm.q4_matmul.launches,
+                     "q4_matmul[mma]": qm.q4_matmul.launches_mma},
     }
     print(json.dumps(out), flush=True)
 

@@ -58,19 +58,24 @@ KERNELS = {
 }
 
 
+# the wrappers with a tensor-core form, which count its launches apart
+MMA_FORMS = ("flash_attention", "q4_matmul", "q4_matmul_row")
+
+
 def launch_counts() -> dict:
-    """This process's kernel launches, by kernel, and the prefill's
-    tensor-core launches among them as "flash_attention[mma]"."""
+    """This process's kernel launches, by kernel, and each wrapper's
+    tensor-core launches among them as "<kernel>[mma]"."""
     counts = {k: fn.launches for k, fn in KERNELS.items()}
-    counts["flash_attention[mma]"] = \
-        flash_attention.flash_attention.launches_mma
+    for k in MMA_FORMS:
+        counts[f"{k}[mma]"] = KERNELS[k].launches_mma
     return counts
 
 
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
-    flash_attention.flash_attention.launches_mma = 0
+    for k in MMA_FORMS:
+        KERNELS[k].launches_mma = 0
 
 
 class Leader:

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions, on the card:
 flash_attention (both forms: the bf16 tensor-core kernel and the CUDA-core
-one), flash_decode, paged_flash_decode (split-KV), fused_decode_step
-(float, int8 and int4 weight forms), q4_matmul and q4_matmul_row. The
-tensor-core prefill and the split-KV decode are also held to the same bits
-across two launches.
+one), flash_decode and paged_flash_decode (both split-KV),
+fused_decode_step (float, int8 and int4 weight forms), q4_matmul and
+q4_matmul_row (both forms: bf16 on the tensor cores, f32 on the CUDA
+cores). The tensor-core kernels and the split-KV decodes are also held to
+the same bits across two launches.
 
 Marked ``cuda``: each test skips where no CUDA device is visible (the
 decision is made inside the test, never at import). On a GPU machine run
@@ -97,6 +98,47 @@ def test_flash_decode_kernel_matches_ref(dtype, lengths, H, Hkv, hd, window,
     torch.cuda.synchronize()
     ref = fa.flash_decode_ref(q, k, v, lens, sliding_window=window, alibi=sl)
     torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,S,H,Hkv,hd,window,alibi", [
+    ("edges", 4096, 32, 8, 128, None, False),   # llama-3-8b heads
+    ([4096], 4096, 32, 8, 128, None, False),     # the engine: B=1, full
+    ([4096, 532], 4096, 16, 4, 128, None, False),   # a tp=2 rank's heads
+    ([0, 300], 512, 8, 8, 64, None, False),      # MHA, a length-0 row
+    ([1000, 3], 1024, 8, 1, 256, None, False),   # MQA, hd 256
+    ("edges", 1024, 8, 2, 64, 100, False),       # window under a split
+    ([900, 700], 1024, 8, 2, 128, 400, True),    # window across splits
+    ([37, 200], 256, 12, 4, 128, None, True),    # G=3, ALiBi
+])
+def test_flash_decode_split_edges(dtype, lengths, S, H, Hkv, hd, window,
+                                  alibi):
+    """The split-KV decode at its own split's edges (split - 1, split,
+    split + 1, 2 * split + 1, and 0 keys), at B=1 over a full cache, MHA,
+    GQA and MQA, hd 64-256, windows and ALiBi; the same bits on a second
+    launch."""
+    dev = _cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if lengths == "edges":
+        sp = fa.decode_split(5, H, Hkv, S, sms)
+        lengths = [min(S, n) for n in (sp - 1, sp, sp + 1, 2 * sp + 1, 0)]
+    g = torch.Generator(device=dev).manual_seed(sum(lengths) + hd)
+    B = len(lengths)
+    q = _rand(g, (B, 1, H, hd), dtype, dev)
+    k, v = (_rand(g, (B, S, Hkv, hd), dtype, dev) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sl = alibi_slopes(H, dev) if alibi else None
+    n0 = fa.flash_decode.launches
+    out = fa.flash_decode(q, k, v, lens, sliding_window=window, alibi=sl)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.launches == n0 + 1
+    ref = fa.flash_decode_ref(q, k, v, lens, sliding_window=window, alibi=sl)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    for i, n in enumerate(lengths):
+        assert bool((out[i] == 0).all()) == (n == 0)
+    again = fa.flash_decode(q, k, v, lens, sliding_window=window, alibi=sl)
+    assert torch.equal(out, again)     # fixed merge order: same bits
 
 
 @pytest.mark.cuda
@@ -420,3 +462,62 @@ def test_q4_matmul_row_kernel_matches_ref(dtype, rows, din, dout, chunks):
     assert torch.equal(out, again)     # no float atomics: the same bits
     with pytest.raises(ValueError):    # din must split into 2*chunks
         qm.q4_matmul_row(x, leaf["p4"], leaf["scale"], din)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 9, 17, 32])
+@pytest.mark.parametrize("din,dout,chunks", [
+    (4096, 1024, None),     # k/v: the contraction split over blocks
+    (256, 264, None),       # dout % 16 == 8: 8-byte weight copies
+    (4096, 4096, 2),        # q4_matmul_row, 2 chunks
+    (14336, 4096, 4),       # q4_matmul_row, 4 chunks (down)
+    (90, 136, 3),           # odd chunk length 15, ragged k-step
+])
+def test_q4_matmul_mma_form_edges(rows, din, dout, chunks):
+    """bf16 q4_matmul / q4_matmul_row through the tensor-core form (its
+    counter moves) at every n-tile count, a masked dout edge, a split
+    contraction, chunk-local packs and an odd chunk length, within the
+    f32 summation-order bound plus one bf16 ulp; the same bits on a
+    second launch."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(rows * din + dout)
+    leaf = tq.quantize_weight_int4(
+        torch.randn(din, dout, generator=g, device=dev) / din ** 0.5)
+    c = chunks or 1
+    if chunks:
+        leaf = tq.repack_int4_rows(leaf, chunks)
+        fn = qm.q4_matmul_row
+        call = lambda x: fn(x, leaf["p4"], leaf["scale"], chunks)  # noqa
+    else:
+        fn = qm.q4_matmul
+        call = lambda x: fn(x, leaf["p4"], leaf["scale"])  # noqa: E731
+    x = _rand(g, (rows, din), torch.bfloat16, dev)
+    assert qm.q4_form(x.dtype, rows) == "mma"
+    n0, m0 = fn.launches, fn.launches_mma
+    out = call(x)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_mma) == (n0 + 1, m0 + 1)
+    ref = qm.q4_matmul_row_ref(x, leaf["p4"], leaf["scale"], c)
+    bound = q4_bound(x, leaf["p4"], leaf["scale"], c) \
+        + 2 ** -7 * ref.float().abs()
+    err = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out.float()).all()
+    assert bool((err <= bound).all()), float((err - bound).max())
+    assert torch.equal(out, call(x))   # no float atomics: the same bits
+
+
+@pytest.mark.cuda
+def test_q4_matmul_f32_keeps_the_cuda_core_form():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    leaf = tq.quantize_weight_int4(
+        torch.randn(256, 512, generator=g, device=dev) / 16)
+    x = _rand(g, (8, 256), torch.float32, dev)
+    assert qm.q4_form(x.dtype, 8) == "simt"
+    n0, m0 = qm.q4_matmul.launches, qm.q4_matmul.launches_mma
+    out = qm.q4_matmul(x, leaf["p4"], leaf["scale"])
+    torch.cuda.synchronize()
+    assert (qm.q4_matmul.launches, qm.q4_matmul.launches_mma) == (n0 + 1, m0)
+    ref = qm.q4_matmul_ref(x, leaf["p4"], leaf["scale"])
+    assert bool(((out - ref).abs()
+                 <= q4_bound(x, leaf["p4"], leaf["scale"])).all())

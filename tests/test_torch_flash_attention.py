@@ -74,6 +74,58 @@ def test_flash_decode_ref_matches_pallas(lengths, H, Hkv, window, alibi):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+SPLIT_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lengths,S,H,Hkv,window,alibi,split", [
+    ([15, 16, 17, 33], 64, 8, 4, None, False, 16),   # split -1, 0, +1
+    ([0, 5, 40], 256, 8, 2, None, False, 16),    # length 0; S far beyond
+    ([40, 17, 3], 64, 8, 2, 6, False, 16),       # a window under a split
+    ([45, 33, 20], 64, 4, 4, 20, False, 16),     # a window across splits
+    ([37, 101], 128, 8, 2, None, True, 32),      # ALiBi, grouped
+    ([64, 1, 0], 64, 4, 1, None, True, 64),      # MQA, ALiBi, one range
+])
+def test_flash_decode_split_arithmetic_matches_ref_and_pallas(
+        lengths, S, H, Hkv, window, alibi, split):
+    """flash_decode_split_ref (the split kernel's cut: per-range partials,
+    then merge_partials) against flash_decode_ref and the JAX kernel in
+    interpret mode, f32."""
+    rng = np.random.default_rng(sum(lengths) + S + split)
+    B, hd = len(lengths), 16
+    (jq, tq), (jk, tk), (jv, tv) = (_rand(rng, B, 1, H, hd),
+                                    _rand(rng, B, S, Hkv, hd),
+                                    _rand(rng, B, S, Hkv, hd))
+    sl = alibi_slopes(H) if alibi else None
+    tsl = torch.tensor(np.asarray(sl)) if alibi else None
+    lens = np.asarray(lengths, np.int32)
+    ref = jax_flash_decode(jq, jk, jv, jnp.asarray(lens),
+                           sliding_window=window, alibi=sl, block_kv=16,
+                           interpret=True)
+    args = (tq, tk, tv, torch.from_numpy(lens))
+    out = fa.flash_decode_split_ref(*args, sliding_window=window,
+                                    alibi=tsl, split=split)
+    np.testing.assert_allclose(
+        out.numpy(), fa.flash_decode_ref(*args, sliding_window=window,
+                                         alibi=tsl).numpy(), **SPLIT_TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **SPLIT_TOL)
+    for i, n in enumerate(lengths):
+        assert (torch.count_nonzero(out[i]) == 0) == (n == 0)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,sms,split", [
+    (1, 32, 8, 4096, 132, 128),    # the engine, llama-3-8b: 256 blocks
+    (1, 16, 4, 4096, 132, 128),    # a tp=2 rank: 128 blocks
+    (4, 32, 8, 4096, 132, 128),    # 1024 blocks
+    (1, 32, 8, 512, 132, 64),      # 32 blocks at 128 keys: halved
+    (1, 32, 8, 65536, 132, 1024),  # at most 64 partials a row
+    (2, 32, 8, 16384, 132, 256),
+])
+def test_decode_split_from_shapes_alone(B, H, Hkv, S, sms, split):
+    """The split length comes from shapes alone (no lengths): 128 keys,
+    64 where half the SMs would idle, longer past 64 splits a row."""
+    assert fa.decode_split(B, H, Hkv, S, sms) == split
+
+
 def test_wrappers_take_the_plain_version_on_cpu_without_counting():
     rng = np.random.default_rng(5)
     _, q = _rand(rng, 1, 16, 4, 8)

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from distributed_llm_inferencing_tpu.models.params import (
     init_params as jax_init_params)
@@ -220,6 +221,68 @@ def test_q4_gate_is_the_kernels_own():
     assert tqm.ksplit(8, 4096, 1024, 132) == 32
     assert tqm.ksplit(8, 4096, 128256, 132) == 1
     assert tqm.ksplit(1, 128, 8, 132) == 1
+
+
+@pytest.mark.parametrize("rows,din,dout,chunks", [
+    (8, 128, 256, 1), (8, 128, 256, 2), (8, 256, 384, 4),
+    (3, 96, 160, 1), (4, 64, 192, 1),          # the parity file's odd shapes
+    (3, 96, 160, 2), (4, 64, 192, 4),
+])
+def test_q4_mma_slot_map_matches_pallas_interpret(rows, din, dout, chunks):
+    """The tensor-core form's k-slot map (low nibbles of 8 packed rows on
+    slots 0-7, high nibbles on 8-15, the chunk pairing in x's rows) and
+    its bf16 levels, as ``q4_matmul_mma_model`` computes them, against the
+    JAX q4_matmul (chunks 1) or q4_matmul_row sharded over ``chunks``
+    devices (each shard's kernel in interpret mode, then psum), f32."""
+    x, leaf = _q4_case(rows, din, dout, rows * din + chunks)
+    if chunks == 1:
+        ref = jqm.q4_matmul(jnp.asarray(x), leaf["p4"], leaf["scale"],
+                            interpret=True)
+    else:
+        leaf = jq.repack_int4_rows(leaf, chunks)
+        mesh = Mesh(np.array(jax.devices()[:chunks]), ("tp",))
+        args = (jax.device_put(jnp.asarray(x),
+                               NamedSharding(mesh, P(None, "tp"))),
+                jax.device_put(leaf["p4"], NamedSharding(mesh, P("tp", None))),
+                jax.device_put(leaf["scale"], NamedSharding(mesh, P(None))))
+        ref = jax.jit(lambda a, p, sc: jqm.q4_matmul_row(
+            a, p, sc, interpret=True, chunks=chunks))(*args)
+    tp4, tsc = _t(leaf["p4"]), _t(leaf["scale"])
+    out = tqm.q4_matmul_mma_model(_t(x), tp4, tsc, chunks)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(
+        out.numpy(), tqm.q4_matmul_row_ref(_t(x), tp4, tsc, chunks).numpy(),
+        rtol=2e-5, atol=2e-5)
+    # every din row sits on exactly one k-slot
+    slots = tqm.mma_slot_rows(din, chunks)
+    assert sorted(slots[slots >= 0].tolist()) == list(range(din))
+
+
+@pytest.mark.parametrize("dtype,rows,form", [
+    (torch.bfloat16, 1, "mma"), (torch.bfloat16, 8, "mma"),
+    (torch.bfloat16, 32, "mma"), (torch.float32, 1, "simt"),
+    (torch.float32, 8, "simt"),
+])
+def test_q4_form_picks_by_dtype(dtype, rows, form):
+    """bf16 x takes the tensor-core kernel at every row count; f32 the
+    CUDA-core one (the f32 cross-checks' kernel)."""
+    assert tqm.q4_form(dtype, rows) == form
+
+
+def test_q4_mma_split_fills_the_card():
+    """The tensor-core form's contraction split: about two blocks per SM,
+    at least 256 packed rows each, cut on the 8-row k-step, at most 8
+    splits (one cluster)."""
+    assert tqm.mma_split(8, 4096, 4096, 132) == (256, 8)    # q/o
+    assert tqm.mma_split(8, 4096, 1024, 132) == (256, 8)    # k/v
+    assert tqm.mma_split(8, 14336, 4096, 132) == (896, 8)   # down
+    assert tqm.mma_split(8, 4096, 128256, 132) == (2048, 1)  # head
+    assert tqm.mma_split(3, 96, 160, 132) == (48, 1)
+    assert tqm.mma_split(1, 2, 8, 132) == (8, 1)
+    for b, din, dout in ((8, 4096, 14336), (1, 7168, 4096), (2, 90, 136)):
+        kchunk, ks = tqm.mma_split(b, din, dout, 132)
+        assert kchunk % 8 == 0 and -(-(din // 2) // kchunk) == ks <= 8
 
 
 # ---- the bridge and the quantized init -----------------------------------
