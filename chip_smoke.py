@@ -19,11 +19,16 @@ Phases (any failure fails the run, exit code != 0):
    paged decode and fused decode
    R=8 bs=16 over a 2048-block pool, context lengths
    [0, 1, 15, 16, 17, 300, 1000, 4096], the fused q weight [4096, 4096],
-   the last two in f32 as well; paged decode also at full occupancy,
-   every slot at 4096; the fused kernel in its float, int8 and int4
-   weight forms) plus small f32, sliding-window, ALiBi, MQA/MHA,
-   head_dim 8-256, ragged-tile, split-edge and zero-length cases. The
-   split-KV decodes are bit-identical across two launches. The paged and
+   the last two in f32 as well; both also at full occupancy, every slot
+   at 4096 with no block shared; the fused kernel in its float, int8 and
+   int4 weight forms, its timed rows with ``unfused_ms``, the device time
+   of the port's unfused route on the same inputs: the model's Linear for
+   the form, RoPE, paged_flash_decode) plus small f32, sliding-window,
+   ALiBi, MQA/MHA, head_dim 8-256, ragged-tile, split-edge, row-group
+   (R=9, 17) and zero-length cases. The split-KV decodes and the fused
+   kernel are bit-identical across two launches; each fused row reports
+   err_over_tol and the kernel's launch plan (cluster size, slots per row
+   group, attention teams) is printed. The paged and
    fused decodes in bf16 are held to one bf16 ulp (PAGED_BF16_TOL).
    q4_matmul at llama-3-8b's linear and head shapes for b in {1, 8, 32},
    x in bf16 (the tensor-core form) and f32 (the CUDA-core form), and
@@ -38,7 +43,8 @@ Phases (any failure fails the run, exit code != 0):
    call; for q4_matmul torch.matmul on a bf16
    weight dequantized beforehand, and torch._weight_int4pack_mm where the
    installed torch has it; yardsticks only, the port never calls them;
-   none for the fused kernel), and works out the bound: the larger of
+   none for the fused kernel, which gets unfused_ms), and works out the
+   bound: the larger of
    bytes / 3.35 TB/s and operations / peak rate.
 3. The engine path: the port's worker on a localhost port serves
    full-width llama-3-8b (random weights from a seed, bf16, max_seq 4096)
@@ -468,17 +474,53 @@ def check_paged(torch, pa, sdpa, lengths, H, Hkv, hd, dtype, bs=16, nb=None,
     return row
 
 
+def _unfused_route(torch, leaf, k, v, bt, lens, cos, sin, window):
+    """The port's unfused decode step on the fused kernel's inputs: the q
+    projection as the model's ``Linear`` runs it for the leaf's form (bf16
+    ``matmul``; int8 ``q.to(bf16)`` + ``matmul``; int4 ``q4_matmul``), the
+    rotate-half RoPE, then ``paged_flash_decode``. A yardstick only: the
+    port never calls it in place of the fused kernel."""
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        Linear)
+    from distributed_llm_inferencing_tpu_torch.ops import (
+        paged_attention as pa)
+    from distributed_llm_inferencing_tpu_torch.ops.rope import apply_rope
+    lin = Linear(leaf)
+    hd = k.shape[-1]
+    cs = None if cos is None else tuple(
+        t[:, None, None, :hd // 2] for t in (cos, sin))
+
+    def call(x):
+        q = lin(x[:, None]).reshape(x.shape[0], 1, -1, hd)
+        if cs is not None:
+            q = apply_rope(q, None, 0.0, cos_sin=cs)
+        return pa.paged_flash_decode(q, k, v, bt, lens,
+                                     sliding_window=window)
+    return call
+
+
+def _err_over_tol(torch, out, ref, tol):
+    """The worst elementwise |out - ref| / (atol + rtol |ref|): at most 1
+    where the check holds."""
+    atol, rtol = tol
+    r = ref.float()
+    return float(((out.float() - r).abs() / (atol + rtol * r.abs())).max())
+
+
 def check_fused(torch, fd, lengths, H, Hkv, hd, D, dtype, bs=16, nb=None,
-                rope=True, window=None, timing=False, form="float"):
+                rope=True, window=None, timing=False, form="float",
+                disjoint=False):
     """The fused kernel in one weight form ("float", "int8" or "int4":
-    the q leaf as ops/quant.py stores it) against its plain version."""
+    the q leaf as ops/quant.py stores it) against its plain version.
+    Timed rows also time the port's unfused route on the same inputs
+    (``unfused_ms``)."""
     from distributed_llm_inferencing_tpu_torch.ops import quant as tq
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(len(lengths) * 7 + D)
     R = len(lengths)
     nb = nb or R * max(1, -(-max(lengths) // bs)) + 1
     k, v, bt, lens = _paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs,
-                                   nb)
+                                   nb, disjoint)
 
     def xw():
         x = torch.randn(R, D, generator=g, device=dev).to(dtype)
@@ -502,10 +544,13 @@ def check_fused(torch, fd, lengths, H, Hkv, hd, D, dtype, bs=16, nb=None,
     dname = str(dtype).replace("torch.", "")
     tol = FUSED_F32_TOL if dtype == torch.float32 else PAGED_BF16_TOL
     err, ok = _compare(torch, out, ref, tol)
+    again = fd.fused_decode_step(x, w, k, v, bt, lens, **kw)
     row = {"case": f"fused {form} lengths={lengths} H={H} Hkv={Hkv} hd={hd} "
                    f"D={D} bs={bs} blocks={nb} {dname} rope={rope} "
                    f"window={window}",
-           "max_abs_err": err, "tol": tol, "ok": ok}
+           "max_abs_err": err, "tol": tol,
+           "err_over_tol": _err_over_tol(torch, out, ref, tol),
+           "ok": ok and bool(torch.equal(out, again))}
     if timing:
         keys = _paged_keys(lengths, window)
         flops = 2.0 * R * D * H * hd + 4.0 * H * hd * keys
@@ -519,7 +564,7 @@ def check_fused(torch, fd, lengths, H, Hkv, hd, D, dtype, bs=16, nb=None,
         row["bound_ms"], row["bound_by"] = _bound_ms(flops, nbytes, dname)
         sets = [(x, w, k, v)] + [
             (*xw(), *_paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs,
-                                   nb)[:2]) for _ in range(2)]
+                                   nb, disjoint)[:2]) for _ in range(2)]
         # "ms" device time from the profiler, "event_ms" the CUDA events
         # around a loop of calls (the wrapper's host side included)
         calls = [(lambda a=a: fd.fused_decode_step(a[0], a[1], a[2], a[3],
@@ -530,6 +575,11 @@ def check_fused(torch, fd, lengths, H, Hkv, hd, D, dtype, bs=16, nb=None,
         row["plain_ms"] = timed_ms(torch, lambda: fd.fused_decode_step_ref(
             x, w, k, v, bt, lens, **kw), iters=5)
         row["library_ms"] = None   # no single torch call computes it
+        # the port's own unfused route on the same inputs, device time
+        row["unfused_ms"] = _device_ms(torch, [
+            (lambda a=a, f=_unfused_route(torch, a[1], a[2], a[3], bt, lens,
+                                          cos, sin, window): f(a[0]))
+            for a in sets])
     return row
 
 
@@ -751,29 +801,44 @@ def phase_paged_kernels(torch, pa, fd):
                          window=400),
              check_paged(torch, pa, sdpa, [600, 5], 32, 8, 128, f32,
                          window=100)]
+    full = dict(nb=8 * 256 + 1, timing=True, disjoint=True)
     fused = [check_fused(torch, fd, serve, 32, 8, 128, 4096, bf16, nb=2048,
                          timing=True),
-             check_fused(torch, fd, serve, 32, 8, 128, 4096, f32, nb=2048),
+             # full occupancy: every slot at 4096, no block shared
+             check_fused(torch, fd, [4096] * 8, 32, 8, 128, 4096, bf16,
+                         **full),
+             check_fused(torch, fd, serve, 32, 8, 128, 4096, f32, nb=2048,
+                         timing=True),
              check_fused(torch, fd, [7, 21, 12], 4, 2, 16, 32, f32, bs=8),
              check_fused(torch, fd, [19, 8], 4, 2, 16, 32, f32, bs=8,
                          rope=False, window=5),
              check_fused(torch, fd, [100, 3, 0], 8, 1, 128, 512, bf16),
              check_fused(torch, fd, [100, 33], 8, 8, 64, 512, f32),
              check_fused(torch, fd, [1000, 17], 32, 8, 128, 4096, f32,
-                         window=256)]
+                         window=256),
+             # the cluster kernel's edges: three row groups, MQA, D = 40
+             check_fused(torch, fd, [(37 * i) % 700 for i in range(17)], 4,
+                         1, 16, 40, f32, bs=8, window=100),
+             check_fused(torch, fd, [(37 * i) % 700 for i in range(17)], 4,
+                         1, 16, 40, bf16, bs=8, window=100)]
     quant = {}
     for form in ("int8", "int4"):
         quant[form] = [
             check_fused(torch, fd, serve, 32, 8, 128, 4096, bf16, nb=2048,
                         timing=True, form=form),
+            check_fused(torch, fd, [4096] * 8, 32, 8, 128, 4096, bf16,
+                        form=form, **full),
             check_fused(torch, fd, serve, 32, 8, 128, 4096, f32, nb=2048,
-                        form=form),
+                        timing=True, form=form),
             check_fused(torch, fd, [7, 21, 12], 4, 2, 16, 32, f32, bs=8,
                         form=form),
             check_fused(torch, fd, [19, 8], 4, 4, 16, 32, bf16, bs=8,
                         rope=False, window=5, form=form),
             check_fused(torch, fd, [1000, 17], 32, 8, 128, 4096, f32,
-                        window=256, form=form)]
+                        window=256, form=form),
+            # two row groups, item edges, length 0
+            check_fused(torch, fd, [0, 255, 257, 1000, 4, 1, 17, 300, 64],
+                        8, 2, 64, 128, bf16, form=form)]
     every = paged + fused + quant["int8"] + quant["int4"]
     for row in every:
         log("  check", json.dumps(row))
@@ -1791,9 +1856,11 @@ def timed_rows(torch):
                                   ([4096], 16, 4))]
     rows.append(check_paged(torch, pa, sdpa, serve, 32, 8, 128, bf16,
                             nb=2048, timing=True))
-    rows += [check_fused(torch, fd, serve, 32, 8, 128, 4096, bf16, nb=2048,
-                         timing=True, form=form)
-             for form in ("float", "int8", "int4")]
+    rows += [check_fused(torch, fd, lens, 32, 8, 128, 4096, bf16, nb=nb,
+                         timing=True, form=form, disjoint=disjoint)
+             for form in ("float", "int8", "int4")
+             for lens, nb, disjoint in ((serve, 2048, False),
+                                        ([4096] * 8, 8 * 256 + 1, True))]
     cfg = get_config("llama-3-8b")
     rank = ((cfg.num_heads * cfg.head_dim // 2, cfg.hidden_size),
             (cfg.intermediate_size // 2, cfg.hidden_size))
@@ -1857,6 +1924,12 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     pre, dec = phase_kernels(torch, fa)
     paged, fused, fused_q = phase_paged_kernels(torch, pa, fd)
+    plans = {f"{str(dt).replace('torch.', '')}/{form}": fd.kernel_plan(
+        dt, form, 4096, 32, 8, 128, 256)
+        for dt in (torch.bfloat16, torch.float32)
+        for form in ("float", "int8", "int4")}
+    log("  fused_decode_step launch plans (llama-3-8b, tables of 256):",
+        json.dumps(plans))
     q4_rows, q4_pass = phase_q4(torch, qm)
     from distributed_llm_inferencing_tpu_torch.models.registry import (
         get_config)
@@ -1957,15 +2030,23 @@ def main() -> int:
             "timed": [{k: r[k] for k in ("case", "ms", "event_ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms",
                                          "library_gather_ms",
-                                         "library_sliced_ms") if k in r}
+                                         "library_sliced_ms", "unfused_ms",
+                                         "err_over_tol") if k in r}
                       for r in checks if "ms" in r],
-            "checks": [{"case": r["case"], "max_abs_err": r["max_abs_err"],
-                        "ok": r["ok"]} for r in checks],
+            "checks": [{k: r[k] for k in ("case", "max_abs_err",
+                                          "err_over_tol", "ok") if k in r}
+                       for r in checks],
         }
         if name in ("flash_attention", "q4_matmul", "q4_matmul_row"):
             entry["launches_mma"] = launches[f"{name}[mma]"]
         if name == "paged_flash_decode":
             entry["library_gather_ms"] = row["library_gather_ms"]
+        if name.startswith("fused_decode_step"):
+            entry["unfused_ms"] = row["unfused_ms"]
+            entry["plan"] = plans
+            entry["full_occupancy"] = {k: checks[1][k] for k in (
+                "case", "ms", "bound_ms", "plain_ms", "unfused_ms",
+                "err_over_tol")}
         if name == "q4_matmul":
             entry["library2_ms"] = row["library2_ms"]
             entry["per_weight_pass_b8"] = q4_pass[8]
@@ -1978,6 +2059,7 @@ def main() -> int:
               "batched": batched, "route_depth": route_depth,
               "quant_serving": quant, "int4_depth": int4_depth,
               "int4_row_bounds": row_bounds, "tp_serving": tp_serving,
+              "fused_plans": plans,
               "tp_cross_check_max_abs_err": tp_xerr, "tp_depth": tp_depth,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -18,8 +18,8 @@
 // The dense flash_decode (flash_attention.cu) shares the same code.
 // The JAX wrapper transposes the whole pool to [NB,Hkv,bs,hd] on every
 // call; here one layer's slice of the [L,...] pool is a strided view and
-// nothing is copied. The fused kernel (csrc/fused_decode.cu) keeps the
-// single-pass dli::paged_attend of paged_decode.cuh.
+// nothing is copied. The fused kernel (csrc/fused_decode.cu) runs the
+// same split loop (split_range) on q held in its shared memory.
 //
 // Interface: plain C, pointers and the stream as void*, the launcher
 // returns its cudaError_t (0 on success) and allocates nothing.

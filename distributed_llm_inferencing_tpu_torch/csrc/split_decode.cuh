@@ -1,11 +1,16 @@
 // Split-KV single-query attention, shared by the dense flash_decode
-// (flash_attention.cu: decode_split_kernel + decode_combine_kernel) and
+// (flash_attention.cu: decode_split_kernel + decode_combine_kernel),
 // paged_flash_decode (paged_attention.cu: paged_split_kernel +
-// paged_combine_kernel). The two differ only in how a key row's address
-// is found: stride over row r's dense cache [B, S, Hkv, hd], or a block
-// table into the pool [NB, bs, Hkv, hd] (PAGED). Each file wraps the
-// device functions below in __global__ kernels of its own names, so a
-// profile counts each kernel apart.
+// paged_combine_kernel) and the attention phase of fused_decode_step
+// (fused_decode.cu: fused_cluster_kernel). They differ in how a key row's
+// address is found: stride over row r's dense cache [B, S, Hkv, hd], or a
+// block table into the pool [NB, bs, Hkv, hd] (PAGED); in where q comes
+// from: q in device memory in the cache's dtype (GlobalQ), or the fused
+// kernel's f32 q in shared memory (SharedQ); and in which threads run a
+// split: a whole block (BlockTeam), or one of the fused kernel's
+// kSplitThreads-thread teams on a named barrier (NamedTeam). Each file
+// wraps the device functions below in __global__ kernels of its own
+// names, so a profile counts each kernel apart.
 //
 // Bounded by bytes (the K/V rows of [max(0, len - window), len) of every
 // row; 4*H*hd operations per key row, far below the bf16 ridge), which
@@ -74,46 +79,76 @@ inline size_t split_smem_bytes(int hd, int split) {
          (tiles > merge ? tiles : merge);
 }
 
-// The split pass for block (blockIdx.x = kv head x head group, blockIdx.y
-// = row r, blockIdx.z = split sp); kSplitThreads threads. part: [R][H][NS]
-// (m, l) pairs, then [R][H][NS][hd] acc, all f32. Dense: ks/vs.sb is the
-// row stride of the cache, block_tables and bs unused. slopes: [H] f32
-// ALiBi slopes or nullptr.
-template <typename T, int LPK, int CPL, bool PAGED>
-__device__ __forceinline__ void split_attend(
-    const T* __restrict__ q, const T* __restrict__ kpool,
-    const T* __restrict__ vpool, float* __restrict__ part,
-    const int* __restrict__ block_tables, const int* __restrict__ lens,
-    const float* __restrict__ slopes, int H, int Hkv, int hd, int bs,
-    int split, int NS, long long q_sr, long long q_sh, long long bt_sr,
-    PoolStrides ks, PoolStrides vs, float scale_log2, int window) {
+// The threads that run one split: the whole block of kSplitThreads
+// threads, or team `id` of a larger block (threads [id * kSplitThreads,
+// (id + 1) * kSplitThreads), warp-aligned) on named barrier 1 + id.
+struct BlockTeam {
+  __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+struct NamedTeam {
+  int id;
+  __device__ __forceinline__ int tid() const {
+    return threadIdx.x - id * kSplitThreads;
+  }
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id + 1), "n"(kSplitThreads)
+                 : "memory");
+  }
+};
+
+// q sources: the 16-byte chunk c (Chunk<T>::N values) of the split's
+// query head g, widened to f32. GlobalQ: q in device memory in T, head g
+// at base + g * sh. SharedQ: f32 rows [heads][hd] in shared memory
+// (16-byte aligned, hd % 4 == 0), read as they are.
+template <typename T>
+struct GlobalQ {
+  const T* base;
+  long long sh;
+  __device__ __forceinline__ void operator()(int g, int c, float* out) const {
+    load_chunk(base + (long long)g * sh + c * Chunk<T>::N, out);
+  }
+};
+
+template <typename T>
+struct SharedQ {
+  const float* base;
+  int hd;
+  __device__ __forceinline__ void operator()(int g, int c, float* out) const {
+    const float4* p = reinterpret_cast<const float4*>(
+        base + g * hd + c * Chunk<T>::N);
+#pragma unroll
+    for (int i = 0; i < Chunk<T>::N / 4; ++i) {
+      const float4 f = p[i];
+      out[4 * i] = f.x;
+      out[4 * i + 1] = f.y;
+      out[4 * i + 2] = f.z;
+      out[4 * i + 3] = f.w;
+    }
+  }
+};
+
+// One split: the ng <= kSplitHeads query heads of the split (q from
+// qsrc) against kv head kvh's keys [s0, s1), s0 < s1, of row r (dense:
+// stride r over the cache; PAGED: through bt_row, the row's block-table
+// entries). slopes: the split's ng ALiBi slopes (dense only) or nullptr.
+// smem_raw: split_smem_bytes(hd, split) bytes, 16-byte aligned, where
+// s1 - s0 <= split. Run by every thread of team tm. On return (past a
+// team barrier) the NG lane groups' states lie in shared memory at the
+// returned pointer; split_merge_groups reads them.
+template <typename T, int LPK, int CPL, bool PAGED, class Team, class QSrc>
+__device__ __forceinline__ const float* split_range(
+    const Team& tm, unsigned char* smem_raw, const QSrc& qsrc,
+    const T* __restrict__ kpool, const T* __restrict__ vpool,
+    const int* __restrict__ bt_row, const float* __restrict__ slopes, int r,
+    int kvh, int ng, int hd, int bs, int split, int s0, int s1, int len,
+    PoolStrides ks, PoolStrides vs, float scale_log2) {
   using C = SplitCfg<T, LPK, CPL>;
   constexpr int N = C::N, KPW = C::KPW, BKV = C::BKV, KPG = C::KPG;
   constexpr int E = C::E, NG = C::NG, GT = kSplitHeads;
-  const int G = H / Hkv;
-  const int n_hg = (G + GT - 1) / GT;
-  const int kvh = blockIdx.x / n_hg, hg = blockIdx.x % n_hg;
-  const int r = blockIdx.y, sp = blockIdx.z, R = gridDim.y;
-  const int h0 = kvh * G + hg * GT;        // the block's first query head
-  const int ng = min(GT, G - hg * GT);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* ml = part;
-  float* pacc = part + 2LL * R * H * NS;
+  const int tid = tm.tid(), warp = tid >> 5, lane = tid & 31;
 
-  const int len = lens[r];
-  const int kv_begin = window > 0 ? max(0, len - window) : 0;
-  const int s0 = max(sp * split, kv_begin);
-  const int s1 = min(sp * split + split, len);
-  if (s0 >= s1) {                          // an empty partial
-    if (tid < ng) {
-      const long long i = ((long long)r * H + h0 + tid) * NS + sp;
-      ml[2 * i] = -INFINITY;
-      ml[2 * i + 1] = 0.f;
-    }
-    return;
-  }
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* koff = reinterpret_cast<long long*>(smem_raw);   // [2][BKV]
   long long* voff = koff + 2 * BKV;                           // [2][BKV]
   int* bt_s = reinterpret_cast<int*>(voff + 2 * BKV);         // [split + 2]
@@ -126,26 +161,23 @@ __device__ __forceinline__ void split_attend(
   const int e0 = PAGED ? s0 / bs : 0;      // table entries it reads
   if constexpr (PAGED) {
     const int e1 = (s1 - 1) / bs;
-    const int* bt_row = block_tables + r * bt_sr;
     for (int i = tid; i <= e1 - e0; i += kSplitThreads)
       bt_s[i] = bt_row[e0 + i];
   }
 
   // q in registers: lane (grp, sub) holds chunks sub, sub + LPK, ... of
-  // every head of the block, widened to f32; ALiBi slopes in log2 units
+  // every head of the split, in f32; ALiBi slopes in log2 units
   const int grp = lane / LPK, sub = lane % LPK;
   const int chunks = hd / N;
   float qr[GT][E], sl[GT];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
-    sl[g] = !PAGED && slopes != nullptr && g < ng ? slopes[h0 + g] * kLog2e
-                                                  : 0.f;
+    sl[g] = !PAGED && slopes != nullptr && g < ng ? slopes[g] * kLog2e : 0.f;
 #pragma unroll
     for (int cc = 0; cc < CPL; ++cc) {
       const int c = sub + LPK * cc;
       if (g < ng && c < chunks) {
-        load_chunk(q + r * q_sr + (long long)(h0 + g) * q_sh + c * N,
-                   &qr[g][cc * N]);
+        qsrc(g, c, &qr[g][cc * N]);
       } else {
 #pragma unroll
         for (int e = 0; e < N; ++e) qr[g][cc * N + e] = 0.f;
@@ -153,7 +185,7 @@ __device__ __forceinline__ void split_attend(
     }
   }
   const float qpos = (float)(len - 1);
-  __syncthreads();                         // bt_s is filled
+  tm.sync();                               // bt_s is filled
 
   // row addresses of the tile at t0 into koff/voff[st] (threads
   // [st0, st0 + BKV), one row each), a tile before its copy
@@ -206,7 +238,7 @@ __device__ __forceinline__ void split_attend(
   const int n_tiles = (s1 - s0 + BKV - 1) / BKV;
   resolve(s0, 0, 0);
   resolve(s0 + BKV, 1, BKV);
-  __syncthreads();
+  tm.sync();
   fetch(s0, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = s0 + it * BKV, st = it & 1;
@@ -216,7 +248,7 @@ __device__ __forceinline__ void split_attend(
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
+    tm.sync();
     // tile it's addresses are spent: resolve tile it + 2's in their place
     if (it + 2 < n_tiles) resolve(t0 + 2 * BKV, st, 0);
     const T* Kt = Ks + st * BKV * P;
@@ -300,7 +332,7 @@ __device__ __forceinline__ void split_attend(
         }
       }
     }
-    __syncthreads();                       // this stage is consumed
+    tm.sync();                       // this stage is consumed
   }
 
   // merge the NG lane groups' states in the (consumed) tile buffers
@@ -324,18 +356,82 @@ __device__ __forceinline__ void split_attend(
       }
     }
   }
-  __syncthreads();
+  tm.sync();
+  return gm;
+}
+
+// Head g's state over the NG lane groups of a finished split (gm from
+// split_range): its max M, denominator L and, returned, acc[dd], all in
+// the base of M (log2 domain), the groups added in a fixed order.
+template <int NG>
+__device__ __forceinline__ float split_merge_groups(const float* gm, int hd,
+                                                    int g, int dd, float& M,
+                                                    float& L) {
+  constexpr int GT = kSplitHeads;
+  const float* gl = gm + NG * GT;
+  const float* ga = gl + NG * GT;
+  M = -INFINITY;
+  for (int k = 0; k < NG; ++k) M = fmaxf(M, gm[k * GT + g]);
+  const float Mu = M == -INFINITY ? 0.f : M;
+  float A = 0.f;
+  L = 0.f;
+  for (int k = 0; k < NG; ++k) {
+    const float f = fast_exp2(gm[k * GT + g] - Mu);   // empty group: 0
+    L += f * gl[k * GT + g];
+    A += f * ga[(k * GT + g) * hd + dd];
+  }
+  return A;
+}
+
+// The split pass for block (blockIdx.x = kv head x head group, blockIdx.y
+// = row r, blockIdx.z = split sp); kSplitThreads threads. part: [R][H][NS]
+// (m, l) pairs, then [R][H][NS][hd] acc, all f32. Dense: ks/vs.sb is the
+// row stride of the cache, block_tables and bs unused. slopes: [H] f32
+// ALiBi slopes or nullptr.
+template <typename T, int LPK, int CPL, bool PAGED>
+__device__ __forceinline__ void split_attend(
+    const T* __restrict__ q, const T* __restrict__ kpool,
+    const T* __restrict__ vpool, float* __restrict__ part,
+    const int* __restrict__ block_tables, const int* __restrict__ lens,
+    const float* __restrict__ slopes, int H, int Hkv, int hd, int bs,
+    int split, int NS, long long q_sr, long long q_sh, long long bt_sr,
+    PoolStrides ks, PoolStrides vs, float scale_log2, int window) {
+  using C = SplitCfg<T, LPK, CPL>;
+  constexpr int GT = kSplitHeads;
+  const int G = H / Hkv;
+  const int n_hg = (G + GT - 1) / GT;
+  const int kvh = blockIdx.x / n_hg, hg = blockIdx.x % n_hg;
+  const int r = blockIdx.y, sp = blockIdx.z, R = gridDim.y;
+  const int h0 = kvh * G + hg * GT;        // the block's first query head
+  const int ng = min(GT, G - hg * GT);
+  const int tid = threadIdx.x;
+  float* ml = part;
+  float* pacc = part + 2LL * R * H * NS;
+
+  const int len = lens[r];
+  const int kv_begin = window > 0 ? max(0, len - window) : 0;
+  const int s0 = max(sp * split, kv_begin);
+  const int s1 = min(sp * split + split, len);
+  if (s0 >= s1) {                          // an empty partial
+    if (tid < ng) {
+      const long long i = ((long long)r * H + h0 + tid) * NS + sp;
+      ml[2 * i] = -INFINITY;
+      ml[2 * i + 1] = 0.f;
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const float* gm = split_range<T, LPK, CPL, PAGED>(
+      BlockTeam{}, smem_raw,
+      GlobalQ<T>{q + r * q_sr + (long long)h0 * q_sh, q_sh}, kpool, vpool,
+      PAGED ? block_tables + r * bt_sr : nullptr,
+      slopes != nullptr ? slopes + h0 : nullptr, r, kvh, ng, hd, bs, split,
+      s0, s1, len, ks, vs, scale_log2);
   for (int i = tid; i < ng * hd; i += kSplitThreads) {
     const int g = i / hd, dd = i - g * hd;
-    float M = -INFINITY;
-    for (int k = 0; k < NG; ++k) M = fmaxf(M, gm[k * GT + g]);
-    const float Mu = M == -INFINITY ? 0.f : M;
-    float L = 0.f, A = 0.f;
-    for (int k = 0; k < NG; ++k) {
-      const float f = fast_exp2(gm[k * GT + g] - Mu);   // empty group: 0
-      L += f * gl[k * GT + g];
-      A += f * ga[(k * GT + g) * hd + dd];
-    }
+    float M, L;
+    const float A = split_merge_groups<C::NG>(gm, hd, g, dd, M, L);
     const long long pi = ((long long)r * H + h0 + g) * NS + sp;
     pacc[pi * hd + dd] = A;
     if (dd == 0) {

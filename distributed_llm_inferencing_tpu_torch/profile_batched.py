@@ -118,11 +118,12 @@ def main(argv=None):
                 **prof_round, "device_kernel_ms": device_ms,
                 "device_busy_share":
                     device_ms / prof_round["decode_chunk_ms"],
-                # paged_flash_decode = its split pass + its merge, per call
+                # paged_flash_decode = its split pass + its merge, per
+                # call; fused_decode_step = one cluster kernel per call
                 "attention_kernel": per_launch(
                     kernels, ("paged_split_kernel", "paged_combine_kernel",
-                              "fused_decode_kernel"),
-                    counted=("paged_split_kernel", "fused_decode_kernel")),
+                              "fused_cluster_kernel"),
+                    counted=("paged_split_kernel", "fused_cluster_kernel")),
                 "q4_kernel": per_launch(kernels, Q4_KERNELS, Q4_COUNTED),
                 "top_kernels": [{"name": k[:90], **v}
                                 for k, v in top[:12]]},

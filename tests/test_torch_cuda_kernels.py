@@ -1,10 +1,12 @@
 """The CUDA kernels against their plain versions, on the card:
 flash_attention (both forms: the bf16 tensor-core kernel and the CUDA-core
 one), flash_decode and paged_flash_decode (both split-KV),
-fused_decode_step (float, int8 and int4 weight forms), q4_matmul and
-q4_matmul_row (both forms: bf16 on the tensor cores, f32 on the CUDA
-cores). The tensor-core kernels and the split-KV decodes are also held to
-the same bits across two launches.
+fused_decode_step (float, int8 and int4 weight forms, bf16 and f32, over
+the cluster kernel's edges: row groups, item edges, windows, MHA/GQA/MQA,
+hd 16-256), q4_matmul and q4_matmul_row (both forms: bf16 on the tensor
+cores, f32 on the CUDA cores). The tensor-core kernels, the split-KV
+decodes and the fused kernel are also held to the same bits across two
+launches.
 
 Marked ``cuda``: each test skips where no CUDA device is visible (the
 decision is made inside the test, never at import). On a GPU machine run
@@ -389,6 +391,59 @@ def test_fused_decode_quantized_forms_match_ref(dtype, form, lengths, H, Hkv,
     tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
            else _paged_tol(dtype))
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+# the cluster kernel's edges: one and several row groups of 8 slots (R 1,
+# 3, 8, 9, 17), lengths at its 256-key item edges and 0, every slot at
+# 4096, windows inside and across items, MHA/GQA/MQA (G = 8: two head
+# groups), hd 16-256, D not a multiple of 16 ranks x 16 rows
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["float", "int8", "int4"])
+@pytest.mark.parametrize("lengths,H,Hkv,hd,D,bs,rope,window", [
+    ([300], 8, 2, 64, 256, 16, True, None),                 # R=1
+    ([0, 255, 257], 32, 8, 128, 512, 16, True, None),       # R=3
+    ([255, 256, 257, 511, 512, 513, 0, 1], 8, 2, 64, 128, 16, True,
+     None),                                                 # R=8
+    ([4096] * 9, 8, 2, 64, 128, 16, True, None),            # R=9, full
+    ([(37 * i) % 700 for i in range(17)], 4, 1, 16, 40, 8, True,
+     100),                                                  # R=17, MQA
+    ([300, 65, 0], 4, 4, 256, 64, 16, False, 64),           # MHA, hd 256
+    ([1000, 700], 32, 8, 128, 4096, 16, True, 400),         # across items
+    ([600, 5], 8, 2, 128, 256, 16, True, 100),              # inside one
+    ([100, 3, 0], 8, 1, 128, 512, 16, True, None),          # G = 8
+    ([4096] * 8, 32, 8, 128, 4096, 16, True, None),         # full, llama
+])
+def test_fused_cluster_edges(dtype, form, lengths, H, Hkv, hd, D, bs, rope,
+                             window):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(6)
+    k_pool, v_pool, bt, lens = _paged_case(g, dev, dtype, lengths, H, Hkv,
+                                           hd, bs)
+    R = len(lengths)
+    x = _rand(g, (R, D), dtype, dev)
+    leaf = ({"w": (torch.randn(D, H * hd, generator=g, device=dev)
+                   / D ** 0.5).to(dtype)} if form == "float"
+            else _fused_quant_case(g, dev, form, D, H, hd))
+    cos = sin = None
+    if rope:
+        ang = torch.rand(R, hd // 2, generator=g, device=dev) * 6.0
+        cos = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
+        sin = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
+    kw = dict(rope_cos=cos, rope_sin=sin, sliding_window=window)
+    n0 = fd.fused_decode_step.launches
+    out = fd.fused_decode_step(x, leaf, k_pool, v_pool, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert fd.fused_decode_step.launches == n0 + 1
+    ref = fd.fused_decode_step_ref(x, leaf, k_pool, v_pool, bt, lens, **kw)
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else _paged_tol(dtype))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    for i, n in enumerate(lengths):
+        assert bool((out[i] == 0).all()) == (n == 0)
+    again = fd.fused_decode_step(x, leaf, k_pool, v_pool, bt, lens, **kw)
+    assert torch.equal(out, again)     # fixed summation orders: same bits
+    assert fd.fused_decode_step.launches == n0 + 2
 
 
 def q4_bound(x, p4, scale, chunks=1):

@@ -13,6 +13,12 @@ against the JAX package's, on the CPU.
   against the port over GQA/MQA/MHA with RoPE, and no RoPE with a window.
   f32, 3e-5 (the kernel's own parity bar in the JAX suite). The gate
   (``supported``/``eligible``) gives the JAX package's verdicts.
+- the CUDA kernel's cluster decomposition
+  (``fused_decode_step_cluster_model``) against the JAX kernel in
+  interpret mode and ``fused_decode_step_ref``: R=1 and above one row
+  group, length 0, item edges, windows inside and across items, D not a
+  multiple of the cluster's slices, MHA/GQA/MQA. f32, 3e-5. The form
+  rule by dtype (``fused_form``) is pinned.
 - ``paged_prefill_tail`` + ``paged_decode_step`` on tiny-llama f32 with
   weights bridged from the JAX tree: logits and the pool after the writes
   within 1e-4 (f32 matmuls in another summation order, 4 layers), with a
@@ -184,6 +190,88 @@ def test_fused_decode_step_matches_pallas_interpret(gqa, rope, window):
         sliding_window=window, **kw_t)
     assert out.shape == (r, h, hd) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **FUSED_TOL)
+
+
+# The cluster kernel's decomposition (fused_decode_step_cluster_model):
+# (lens, h, hkv, d, window, rope, cluster, teams, split). R=1; R above one
+# row group of 8; length 0 and lengths at item edges; a window inside one
+# item and one across items; D=40, not a multiple of cluster x 16 rows;
+# MHA, GQA and MQA (G = 8: two head groups of 4).
+CLUSTER_CASES = [
+    ([21], 4, 2, 32, None, True, 16, 2, 16),
+    ([0, 7, 15, 16, 17, 33, 3, 30, 12], 4, 2, 32, None, True, 3, 2, 16),
+    ([15, 16, 17, 0, 31, 32, 33], 4, 2, 32, None, True, 2, 1, 16),
+    ([40, 17, 3], 4, 2, 32, 6, True, 2, 2, 16),
+    ([45, 33, 20], 4, 2, 32, 20, False, 2, 2, 16),
+    ([29, 11], 4, 2, 40, None, True, 16, 2, 16),
+    ([25, 9, 0], 4, 4, 32, None, True, 3, 2, 16),
+    ([25, 9, 18], 8, 1, 32, 10, True, 3, 2, 8),
+]
+
+
+def cluster_case(rng, lens, h, hkv, d, hd=16, bs=8):
+    """Pools, tables, x and an f32 q weight for one cluster-model case."""
+    r = len(lens)
+    mb = max(1, -(-max(lens) // bs))
+    nb = r * mb + 1
+    k_pool, v_pool = _pool(rng, nb, bs, hkv, hd)
+    bt = _tables(rng, r, mb, nb)
+    x = rng.normal(size=(r, d)).astype(np.float32)
+    w = (rng.normal(size=(d, h * hd)) / np.sqrt(d)).astype(np.float32)
+    return x, w, k_pool, v_pool, bt, np.asarray(lens, np.int32)
+
+
+def cluster_rope(rope, lens, hd=16):
+    """The JAX and the port's RoPE rows at each slot's position."""
+    if not rope:
+        return {}, {}
+    cfg_j = jax_config("tiny-llama").replace(dtype="float32")
+    cfg_t = get_config("tiny-llama").replace(dtype="float32")
+    cos, sin = jfd.rope_cos_sin(cfg_j, jnp.asarray(lens - 1), hd)
+    return (dict(rope_cos=cos, rope_sin=sin),
+            dict(zip(("rope_cos", "rope_sin"),
+                     tfd.rope_cos_sin(cfg_t, _t(lens - 1), hd))))
+
+
+@pytest.mark.parametrize("lens,h,hkv,d,window,rope,cluster,teams,split",
+                         CLUSTER_CASES)
+def test_fused_cluster_model_matches_pallas_and_ref(lens, h, hkv, d, window,
+                                                    rope, cluster, teams,
+                                                    split):
+    """The kernel's decomposition (rank slices of the contraction summed
+    in order, key spans per worker, per-worker then cross-worker
+    log-sum-exp merges) against the JAX kernel in interpret mode and the
+    plain version, float form, f32 at the fused bar."""
+    rng = np.random.default_rng(100 * len(lens) + d + 7 * h + hkv)
+    x, w, k_pool, v_pool, bt, lens_a = cluster_case(rng, lens, h, hkv, d)
+    kw_j, kw_t = cluster_rope(rope, lens_a)
+    ref = jfd.fused_decode_step(
+        jnp.asarray(x), {"w": jnp.asarray(w)}, jnp.asarray(k_pool),
+        jnp.asarray(v_pool), jnp.asarray(bt), jnp.asarray(lens_a),
+        sliding_window=window, interpret=True, **kw_j)
+    args = (_t(x), {"w": _t(w)}, _t(k_pool), _t(v_pool), _t(bt),
+            _t(lens_a))
+    out = tfd.fused_decode_step_cluster_model(
+        *args, sliding_window=window, cluster=cluster, teams=teams,
+        split=split, **kw_t)
+    plain = tfd.fused_decode_step_ref(*args, sliding_window=window, **kw_t)
+    assert out.shape == (len(lens), h, 16) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **FUSED_TOL)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), **FUSED_TOL)
+    for i, n in enumerate(lens):
+        assert (torch.count_nonzero(out[i]) == 0) == (n == 0)
+
+
+def test_fused_form_picks_by_dtype():
+    """The kernel's projection form is a rule by x's dtype alone: bf16 on
+    the tensor cores, f32 on the CUDA cores; the contraction slices are
+    whole ring stages of the form."""
+    assert tfd.fused_form(torch.bfloat16) == "mma"
+    assert tfd.fused_form(torch.float32) == "fma"
+    assert [tfd.fused_stage_rows(torch.bfloat16, f)
+            for f in ("float", "int8", "int4")] == [16, 32, 32]
+    assert [tfd.fused_stage_rows(torch.float32, f)
+            for f in ("float", "int8", "int4")] == [8, 32, 32]
 
 
 def test_fused_quantized_forms_are_refused():

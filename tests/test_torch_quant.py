@@ -17,7 +17,9 @@ the CPU.
   int4 and int4 + embed int8: bit for bit; the port's own quantized init
   draws what the JAX init draws (levels, nibbles, scales).
 - ``fused_decode_step_ref`` in its int8 and int4 forms against the JAX
-  fused kernel in interpret mode: f32, 3e-5 (the float form's bar).
+  fused kernel in interpret mode: f32, 3e-5 (the float form's bar); the
+  CUDA kernel's cluster decomposition (``fused_decode_step_cluster_model``)
+  in both forms against the same kernel and the plain version.
 - Greedy tokens of tiny-llama (f32) with int8, int4 and int4 + embed
   int8 equal the JAX engine's and the JAX batcher's; the port's batcher
   with the fused gate off and on.
@@ -391,6 +393,68 @@ def test_fused_quantized_forms_match_pallas_interpret(form, gqa, rope):
     plain = tfd.fused_decode_step_ref(*args, **kw_t)
     assert torch.equal(out, plain)
     assert tfd.supported(cfg_t, tleaf) == jfd.supported(cfg_j, jleaf)
+
+
+# The cluster kernel's decomposition in the quantized forms: R=1, R above
+# one row group with length 0 and item edges, a window across items with
+# D=40, and MQA with two head groups (the float form's cases:
+# tests/test_torch_paged.py).
+def _cluster_case(rng, lens, h, hkv, d, hd=16, bs=8):
+    """Pools, tables, x and an f32 q weight for one cluster-model case."""
+    r = len(lens)
+    mb = max(1, -(-max(lens) // bs))
+    nb = r * mb + 1
+    k_pool, v_pool = (rng.normal(size=(nb, bs, hkv, hd)).astype(np.float32)
+                      for _ in range(2))
+    bt = (rng.permutation(nb - 1)[:r * mb] + 1).reshape(r, mb) \
+        .astype(np.int32)
+    x = rng.normal(size=(r, d)).astype(np.float32)
+    w = (rng.normal(size=(d, h * hd)) / np.sqrt(d)).astype(np.float32)
+    return x, w, k_pool, v_pool, bt, np.asarray(lens, np.int32)
+
+
+QUANT_CLUSTER_CASES = [
+    ([21], 4, 2, 32, None, True, 16, 2, 16),
+    ([0, 7, 15, 16, 17, 33, 3, 30, 12], 4, 2, 32, None, True, 3, 2, 16),
+    ([45, 33, 20], 4, 4, 40, 20, False, 16, 1, 16),
+    ([25, 9, 18], 8, 1, 32, 10, True, 3, 2, 8),
+]
+
+
+@pytest.mark.parametrize("form", ["int8", "int4"])
+@pytest.mark.parametrize("lens,h,hkv,d,window,rope,cluster,teams,split",
+                         QUANT_CLUSTER_CASES)
+def test_fused_cluster_model_quantized_matches_pallas_and_ref(
+        form, lens, h, hkv, d, window, rope, cluster, teams, split):
+    rng = np.random.default_rng(100 * len(lens) + d + 7 * h + hkv
+                                + 50 * (form == "int4"))
+    x, w, k_pool, v_pool, bt, lens_a = _cluster_case(rng, lens, h, hkv, d)
+    jleaf = (jq.quantize_weight if form == "int8"
+             else jq.quantize_weight_int4)(jnp.asarray(w))
+    tleaf = {k: _t(v) for k, v in jleaf.items()}
+    kw_j, kw_t = {}, {}
+    if rope:
+        cfg_j = jax_config("tiny-llama").replace(dtype="float32")
+        cfg_t = get_config("tiny-llama").replace(dtype="float32")
+        cos, sin = jfd.rope_cos_sin(cfg_j, jnp.asarray(lens_a - 1), 16)
+        kw_j = dict(rope_cos=cos, rope_sin=sin)
+        kw_t = dict(zip(("rope_cos", "rope_sin"),
+                        tfd.rope_cos_sin(cfg_t, _t(lens_a - 1), 16)))
+    ref = jfd.fused_decode_step(
+        jnp.asarray(x), jleaf, jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(bt), jnp.asarray(lens_a), sliding_window=window,
+        interpret=True, **kw_j)
+    args = (_t(x), tleaf, _t(k_pool), _t(v_pool), _t(bt), _t(lens_a))
+    out = tfd.fused_decode_step_cluster_model(
+        *args, sliding_window=window, cluster=cluster, teams=teams,
+        split=split, **kw_t)
+    plain = tfd.fused_decode_step_ref(*args, sliding_window=window, **kw_t)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=3e-5,
+                               atol=3e-5)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=3e-5,
+                               atol=3e-5)
+    for i, n in enumerate(lens):
+        assert (torch.count_nonzero(out[i]) == 0) == (n == 0)
 
 
 # ---- greedy tokens: engine and batcher -----------------------------------
