@@ -113,6 +113,29 @@ Phases (any failure fails the run, exit code != 0):
    XCHECK_TOL; then phase 9's prompts and tokens through int4 tp=2 at full
    depth (bf16), whose worst logit error against phase 9's f32 forward
    must stay within ROUTE_ERR_FACTOR x the tp=1 q4 route's.
+12. The worker's control surface over HTTP: the port's worker serves on a
+   localhost port with an auth key (CONTROL_KEY) and full-width
+   llama-3-8b bf16 (max_seq 4096). A call without the bearer token gets
+   401, /health and /metrics included. Engine mode: phase 3's 500-token
+   prompt, greedy, 32 new tokens, tagged: one flash_attention[mma] per
+   layer and one flash_decode per layer per decode step; the same body
+   and tag again answers idempotent with the same tokens and launches
+   nothing; /inference_stream of the body gives the same tokens in its
+   token events with the same launches (client-clock time to the first
+   token event beside prefill_ms, and to done); after a call at master
+   term 7 a term-6 /inference gets 409 with X-DLI-Stale-Term. Batched
+   mode (phase 5's load, fused off then on): /inference_batch of phase
+   5's 8 bodies, tagged, answers 8 lines, each tag once with 200, and
+   the pass's decode kernel launches num_layers times per weight pass
+   and no other attention kernel (wall time, tokens/s and tokens per
+   pass beside phase 5's); a batch of one greedy body equals /inference
+   of it. With fused off: a 2000-token request is cancelled once it has
+   tokens (its /inference answers an error, blocks_free on /health comes
+   back; time from /cancel); /drain with a request in flight (503 with
+   Retry-After for a new one, /health draining, the request ends 200,
+   drained), /undrain, then 200. /metrics parses line by line (every
+   family typed, buckets non-decreasing) and
+   dli_requests_completed_total moves by the phase's completions.
 
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
@@ -178,6 +201,8 @@ Q4_SHAPES = {"q": (4096, 4096), "k": (4096, 1024), "gate": (4096, 14336),
 Q4_PASS = {"q": 2, "k": 2, "gate": 2, "down": 1}   # x 32 layers, + head
 # the quantized serving phase loads llama-3-8b with these weights
 QUANT_LOAD = {"quantize": "int4"}
+# the bearer token phase 12's worker requires on every route
+CONTROL_KEY = "chip-smoke-control"
 
 
 def log(*a):
@@ -1835,6 +1860,348 @@ def phase_tp_depth(torch, depth):
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 12: the worker's control surface over real HTTP
+# ---------------------------------------------------------------------
+
+def _call(url, body=None, key=None, headers=None, timeout=900):
+    """One HTTP call: (status, response headers, body bytes)."""
+    h = {"Content-Type": "application/json", **(headers or {})}
+    if key:
+        h["Authorization"] = f"Bearer {key}"
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST", headers=h)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def _stream_lines(url, body, key, timeout=900):
+    """POST ``body`` and return [(seconds since the call, line)], each
+    line timed as it arrives (SSE events, JSON lines)."""
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json",
+                 "Authorization": f"Bearer {key}"})
+    t0 = time.perf_counter()
+    out = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        assert r.status == 200, r.status
+        for line in r:
+            line = line.strip()
+            if line:
+                out.append((time.perf_counter() - t0, line))
+    return out
+
+
+def parse_exposition(text):
+    """Prometheus text, checked line by line: every sample's family has a
+    # TYPE, and each histogram's cumulative buckets are in order, never
+    decrease, and end at +Inf equal to its _count. Returns the unlabeled
+    samples by name."""
+    import math
+    import re
+    sample = re.compile(
+        r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{le="([^"]+)"\})? (\S+)$')
+    types, flat, buckets = {}, {}, {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# "):
+            kind, name = line.split()[1:3]
+            assert kind in ("HELP", "TYPE"), line
+            if kind == "TYPE":
+                types[name] = line.split()[3]
+            continue
+        m = sample.match(line)
+        assert m, f"not an exposition sample: {line!r}"
+        name, le, value = m.group(1), m.group(2), float(m.group(3))
+        family = name if name in types else re.sub(
+            r"_(bucket|sum|count)$", "", name)
+        assert family in types, f"{name} has no # TYPE"
+        if le is None:
+            flat[name] = value
+        else:
+            buckets.setdefault(family, []).append(
+                (math.inf if le == "+Inf" else float(le), value))
+    for family, kind in types.items():
+        if kind != "histogram":
+            continue
+        b = buckets[family]
+        les, counts = [x for x, _ in b], [c for _, c in b]
+        assert les == sorted(les) and les[-1] == math.inf, family
+        assert counts == sorted(counts), f"{family}: buckets decrease"
+        assert counts[-1] == flat[family + "_count"], family
+    return flat, types
+
+
+def _wait_for(pred, what, timeout=300.0, every=0.05):
+    """Poll ``pred`` until it is truthy, every 0.05 s by default: the
+    batcher's scheduler is host-bound, and a tighter loop of /health
+    calls would take its GIL time and slow what it measures."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(every)
+    raise AssertionError(f"phase 12: timed out waiting for {what}")
+
+
+def _streaming(worker, tag):
+    """The worker's in-flight request tagged ``tag`` once it has emitted
+    tokens, else None."""
+    req = worker._tagged.get(tag)
+    return req if req is not None and req.tokens else None
+
+
+def phase_control_surface(torch, kernels, batched, smi):
+    """The port's worker on a localhost socket with an auth key, driven
+    over HTTP through every route of its control surface at llama-3-8b
+    bf16 (max_seq 4096): auth, request_tag replay, /inference_stream,
+    lease fencing (engine mode); /inference_batch through each decode
+    kernel, /cancel and /drain (batched mode); /metrics. Launch counts
+    are zeroed before and read after each request or batch."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = get_config("llama-3-8b")
+    L, name = cfg.num_layers, "llama-3-8b"
+    worker = WorkerAgent(device="cuda", auth_key=CONTROL_KEY)
+    worker.serve("127.0.0.1", 0, background=True)
+    base = f"http://127.0.0.1:{worker.service.port}"
+
+    def call(path, body=None, **kw):
+        st, hdrs, raw = _call(base + path, body, key=CONTROL_KEY, **kw)
+        return st, hdrs, json.loads(raw)
+
+    def counted(fn):
+        zero_counts(kernels)
+        out = fn()
+        return out, read_counts(kernels)
+
+    def metrics():
+        st, hdrs, raw = _call(base + "/metrics", key=CONTROL_KEY)
+        assert st == 200 and hdrs["Content-Type"] == \
+            "text/plain; version=0.0.4", (st, hdrs)
+        return parse_exposition(raw.decode())
+
+    def scheduler():
+        st, _, h = call("/health")
+        [m] = [m for m in h["loaded_models"] if m["name"] == name]
+        return m["scheduler"]
+
+    report = {"smi": smi}
+    try:
+        for path in ("/health", "/metrics"):
+            st, _, _ = _call(base + path)
+            assert st == 401, f"{path} without the token: {st}"
+        st, _, _ = _call(base + "/inference", {"model_name": name})
+        assert st == 401, st
+        flat0, _ = metrics()
+        completed = 0
+
+        # ---- engine mode --------------------------------------------
+        st, _, res = call("/load_model", {
+            "model_name": name, "allow_random_init": True,
+            "dtype": "bfloat16", "max_seq": 4096})
+        assert st == 200 and res["status"] == "success", res
+        text = "".join(chr(97 + (i * 7 + 2) % 26) for i in range(499))
+        body = {"model_name": name, "prompt": text, "max_new_tokens": 32,
+                "sampling": {"do_sample": False}, "seed": 2}
+        (st, _, first), d = counted(lambda: call(
+            "/inference", dict(body, request_tag="p12-engine")))
+        assert st == 200 and first["status"] == "success", first
+        completed += 1
+        passes = first["cost"]["weight_passes"]
+        want = dict.fromkeys(d, 0)
+        want.update({"flash_attention": L, "flash_attention[mma]": L,
+                     "flash_decode": L * (passes - 1)})
+        assert d == want, f"/inference launches {d} != {want}"
+        t0 = time.perf_counter()
+        (st, _, again), d = counted(lambda: call(
+            "/inference", dict(body, request_tag="p12-engine")))
+        replay_ms = 1e3 * (time.perf_counter() - t0)
+        assert st == 200 and again["idempotent"] is True, again
+        assert again["tokens"] == first["tokens"]
+        assert not any(d.values()), f"a replay launched kernels: {d}"
+        lines, d = counted(lambda: _stream_lines(
+            base + "/inference_stream", body, CONTROL_KEY))
+        events = [(t, json.loads(line[len(b"data: "):]))
+                  for t, line in lines]
+        assert events[-1][1]["event"] == "done", events[-1]
+        toks = [e["token"] for _, e in events[:-1]]
+        assert all(e["event"] == "token" for _, e in events[:-1])
+        assert toks == first["tokens"], (toks, first["tokens"])
+        assert d == want, f"/inference_stream launches {d} != {want}"
+        completed += 1
+        report["engine"] = {
+            "prompt_tokens": 500, "new_tokens": len(toks),
+            "weight_passes": passes, "launches": {k: v for k, v in
+                                                  want.items() if v},
+            "inference_prefill_ms": first["prefill_ms"],
+            "inference_execution_s": first["execution_time"],
+            "replay_client_ms": replay_ms,
+            "sse_first_token_ms": 1e3 * events[0][0],
+            "sse_done_ms": 1e3 * events[-1][0],
+            "sse_tokens_per_s": events[-1][1]["tokens_per_s"]}
+        log(f"  engine [{smi}]", json.dumps(report["engine"]))
+        # lease fencing: term 7 holds, term 6 is stale
+        fence = lambda t: {"X-DLI-Master-Term": str(t),  # noqa: E731
+                           "X-DLI-Master-Nonce": "smoke-master"}
+        st, _, _ = call("/cancel", {"request_tag": "none"},
+                        headers=fence(7))
+        assert st == 404, st
+        (st, hdrs, res), d = counted(lambda: call(
+            "/inference", dict(body, request_tag="p12-stale"),
+            headers=fence(6)))
+        assert st == 409 and res["stale_term"] is True, res
+        assert hdrs["X-DLI-Stale-Term"] == "7", dict(hdrs)
+        assert not any(d.values()), d
+        st, _, _ = call("/unload_model", {"model_name": name})
+        assert st == 200
+
+        # ---- batched mode, each decode kernel -------------------------
+        report["batched"] = {}
+        for route in ("paged", "fused"):
+            os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
+            st, _, res = call("/load_model", dict(BATCHED_LOAD))
+            assert st == 200 and res["status"] == "success", res
+            bodies = [dict(b, request_tag=f"p12-{route}-{i}")
+                      for i, b in enumerate(_batched_bodies(cfg))]
+            s0 = worker.metrics.snapshot()["counters"]
+            t0 = time.perf_counter()
+            lines, d = counted(lambda: _stream_lines(
+                base + "/inference_batch",
+                {"model_name": name, "requests": bodies}, CONTROL_KEY))
+            wall = time.perf_counter() - t0
+            s1 = worker.metrics.snapshot()["counters"]
+            passes, emitted = (s1[k] - s0.get(k, 0) for k in (
+                "batcher_weight_passes", "batcher_tokens_emitted"))
+            msgs = [json.loads(line) for _, line in lines]
+            assert sorted(m["request_tag"] for m in msgs) == \
+                sorted(b["request_tag"] for b in bodies), msgs
+            assert all(m["status"] == 200 for m in msgs), msgs
+            completed += len(msgs)
+            mine = "paged_flash_decode" if route == "paged" \
+                else "fused_decode_step"
+            want = dict.fromkeys(d, 0)
+            want[mine] = L * passes
+            assert d == want, f"/inference_batch launches {d} != {want}"
+            generated = sum(len(m["body"]["tokens"]) for m in msgs)
+            p5 = batched[route]
+            row = {"wall_s": wall, "generated_tokens": generated,
+                   "tokens_per_s": generated / wall,
+                   "weight_passes": passes,
+                   "decode_tokens_per_weight_pass": emitted / passes,
+                   "launches": {mine: d[mine]},
+                   "phase5_concurrent_inference": {
+                       k: p5[k] for k in ("wall_s", "tokens_per_s",
+                                          "weight_passes",
+                                          "decode_tokens_per_weight_pass")}}
+            # one greedy sub-request alone = /inference of the same body
+            greedy = dict(bodies[0], request_tag=f"p12-{route}-single")
+            one = [json.loads(line) for _, line in _stream_lines(
+                base + "/inference_batch",
+                {"model_name": name, "requests": [greedy]}, CONTROL_KEY)]
+            plain = dict(bodies[0])
+            del plain["request_tag"]
+            st, _, alone = call("/inference", plain)
+            assert st == 200 and len(one) == 1 and one[0]["status"] == 200
+            assert one[0]["body"]["tokens"] == alone["tokens"], \
+                (one[0]["body"]["tokens"], alone["tokens"])
+            completed += 2
+            if route == "paged":
+                row["cancel"] = _cancel_check(worker, call, scheduler,
+                                              bodies)
+                row["drain"], n = _drain_check(worker, call, bodies)
+                completed += n
+            report["batched"][route] = row
+            log(f"  batched ({route}) [{smi}]", json.dumps(row))
+            st, _, _ = call("/unload_model", {"model_name": name})
+            assert st == 200
+
+        # ---- /metrics -------------------------------------------------
+        flat1, types = metrics()
+        done = (flat1["dli_requests_completed_total"]
+                - flat0["dli_requests_completed_total"])
+        assert done == completed, \
+            f"dli_requests_completed_total moved {done}, not {completed}"
+        for k in ("batch_rpcs", "idempotent_hits", "requests_cancelled",
+                  "stale_term_rejections"):
+            assert flat1[f"dli_{k}_total"] >= 1, k
+        assert flat1["dli_draining"] == 0
+        report["metrics"] = {"families": len(types),
+                             "requests_completed": done}
+        log("  metrics", json.dumps(report["metrics"]))
+    finally:
+        os.environ.pop("DLI_FUSED_DECODE", None)
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def _cancel_check(worker, call, scheduler, bodies):
+    """A tagged request of 2000 new tokens on a thread, cancelled once it
+    has tokens: its /inference answers an error and the pool's free
+    blocks come back (its prompt's whole blocks were cached by the batch
+    before, so they stay cached either way)."""
+    free0 = scheduler()["blocks_free"]
+    body = dict(bodies[3], max_new_tokens=2000, request_tag="p12-cancel",
+                sampling={"do_sample": False})
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(call, "/inference", body)
+        req = _wait_for(lambda: _streaming(worker, "p12-cancel"),
+                        "the request to stream tokens")
+        t0 = time.perf_counter()
+        st, _, res = call("/cancel", {"request_tag": "p12-cancel"})
+        assert st == 200, res
+        _wait_for(lambda: scheduler()["blocks_free"] == free0,
+                  "the cancelled request's blocks", every=0.05)
+        freed_ms = 1e3 * (time.perf_counter() - t0)
+        st, _, res = fut.result(timeout=600)
+    assert st == 400 and "cancel" in res["message"], (st, res)
+    assert len(req.tokens) < 2000, len(req.tokens)
+    return {"cancel_to_blocks_free_ms": freed_ms,
+            "tokens_before_cancel": len(req.tokens), "blocks_free": free0}
+
+
+def _drain_check(worker, call, bodies):
+    """/drain with one batched request in flight: a new request gets 503
+    with Retry-After, /health says draining, the request in flight ends
+    200 and /drain answers drained; after /undrain a request gets 200.
+    Returns (the check's numbers, requests completed)."""
+    body = dict(bodies[0], max_new_tokens=64, request_tag="p12-drain")
+    short = dict(bodies[2], max_new_tokens=4)
+    del short["request_tag"]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fut = pool.submit(call, "/inference", body)
+        _wait_for(lambda: _streaming(worker, "p12-drain"),
+                  "the request in flight")
+        t0 = time.perf_counter()
+        drain = pool.submit(call, "/drain", {"timeout": 600})
+        _wait_for(lambda: call("/health")[2]["status"] == "draining",
+                  "/health to say draining", every=0.05)
+        st, hdrs, res = call("/inference", short)
+        assert st == 503 and res["draining"] is True, (st, res)
+        assert hdrs["Retry-After"] == "5", dict(hdrs)
+        st, _, res = fut.result(timeout=600)
+        assert st == 200 and len(res["tokens"]) >= 1, res
+        st, _, res = drain.result(timeout=600)
+        drain_ms = 1e3 * (time.perf_counter() - t0)
+    assert st == 200 and res["drained"] is True, res
+    st, _, _ = call("/undrain", {})
+    assert st == 200
+    st, _, res = call("/inference", short)
+    assert st == 200, res
+    return {"drain_ms": drain_ms}, 2
+
+
 def timed_rows(torch):
     """Phase 2's timed rows alone (every kernel at its serving shapes,
     with its bound, plain and library times), for comparing two trees'
@@ -1999,6 +2366,11 @@ def main() -> int:
                for q in (None, "int4")}
     tp_depth = phase_tp_depth(torch, depth_kept)
 
+    log("phase 12: the worker's control surface over HTTP (llama-3-8b "
+        "bf16: auth, replay, SSE, fencing; /inference_batch paged and "
+        "fused, /cancel, /drain; /metrics)")
+    control = phase_control_surface(torch, counted, batched, smi)
+
     csrc = "distributed_llm_inferencing_tpu_torch/csrc/"
     pallas = "distributed_llm_inferencing_tpu/ops/pallas/"
     kernels = []
@@ -2061,6 +2433,7 @@ def main() -> int:
               "int4_row_bounds": row_bounds, "tp_serving": tp_serving,
               "fused_plans": plans,
               "tp_cross_check_max_abs_err": tp_xerr, "tp_depth": tp_depth,
+              "control_surface": control,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(HERE, "chiprun_out")
     if os.path.isdir(out_dir):

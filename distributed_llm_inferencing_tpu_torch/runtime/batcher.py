@@ -18,6 +18,9 @@ the card without head-of-line blocking.
   tail exceeds ``prefill_chunk`` blocks admit one chunk per step.
 - **Preemption**: under memory pressure the youngest slot goes back to
   the queue; its blocks stay warm in the radix tree.
+- **Streaming and cancel**: a request's ``stream_cb(token)`` fires for
+  each token as its chunk lands; ``cancel`` drops the request at the next
+  step and returns its blocks to the pool there.
 
 Sampling parameters ride as per-row tensors and each row draws from its
 own (seed, step) stream (ops/sampling.py ``sample_batch``), so a request's
@@ -34,9 +37,10 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +62,8 @@ from distributed_llm_inferencing_tpu_torch.runtime.engine import (
 from distributed_llm_inferencing_tpu_torch.utils.device import resolve_device
 from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
 
+log = logging.getLogger(__name__)
+
 TAIL_BUCKETS_X_BS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)  # x block_size
 PREFIX_BUCKETS = (0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512)  # blocks
 
@@ -69,6 +75,7 @@ class BatchRequest:
     max_new_tokens: int
     sampling: SamplingParams
     eos_token_id: Optional[int] = None
+    stream_cb: Optional[Callable[[int], None]] = None
     seed: int = 0    # output is a pure fn of (params, prompt, seed)
     # results
     tokens: List[int] = dataclasses.field(default_factory=list)
@@ -210,10 +217,14 @@ class ContinuousBatcher:
 
     # ---- public API ---------------------------------------------------
 
-    def submit(self, prompt: Sequence[int], max_new_tokens: int = 100,
-               sampling: Optional[SamplingParams] = None,
-               eos_token_id: Optional[int] = None,
-               seed: Optional[int] = None) -> BatchRequest:
+    def make_request(self, prompt: Sequence[int],
+                     max_new_tokens: int = 100,
+                     sampling: Optional[SamplingParams] = None,
+                     eos_token_id: Optional[int] = None,
+                     stream_cb: Optional[Callable[[int], None]] = None,
+                     seed: Optional[int] = None) -> BatchRequest:
+        """Validate and build one request without enqueueing it (ValueError
+        for a bad one), so a bad spec leaves no sibling enqueued."""
         if not prompt:
             raise ValueError("empty prompt")
         if int(max_new_tokens) < 1:
@@ -223,18 +234,49 @@ class ContinuousBatcher:
         req = BatchRequest(prompt=[int(t) for t in prompt],
                            max_new_tokens=int(max_new_tokens),
                            sampling=sampling or SamplingParams(),
-                           eos_token_id=eos_token_id, seed=int(seed))
+                           eos_token_id=eos_token_id, stream_cb=stream_cb,
+                           seed=int(seed))
         if len(req.prompt) + req.max_new_tokens > self.max_seq:
             raise ValueError(
                 f"prompt ({len(req.prompt)}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds max_seq {self.max_seq}")
+        return req
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 100,
+               sampling: Optional[SamplingParams] = None,
+               eos_token_id: Optional[int] = None,
+               stream_cb: Optional[Callable[[int], None]] = None,
+               seed: Optional[int] = None) -> BatchRequest:
+        return self.submit_many([dict(
+            prompt=prompt, max_new_tokens=max_new_tokens, sampling=sampling,
+            eos_token_id=eos_token_id, stream_cb=stream_cb, seed=seed)])[0]
+
+    def submit_many(self, specs: Sequence[dict]) -> List[BatchRequest]:
+        """Validate and build every request of ``specs`` (keyword dicts
+        of ``submit``) first — one bad spec raises and enqueues none —
+        then enqueue them all in order."""
+        return self.enqueue([self.make_request(**spec) for spec in specs])
+
+    def enqueue(self, reqs: Sequence[BatchRequest]) -> List[BatchRequest]:
+        """Enqueue built requests in order under one lock, with one wake
+        of the scheduler."""
+        reqs = list(reqs)
+        if not reqs:
+            return []
         with self._lock:
-            self.queue.append(req)
+            self.queue.extend(reqs)
             depth = len(self.queue)
-        self.metrics.inc("batcher_requests_submitted")
+        self.metrics.inc("batcher_requests_submitted", len(reqs))
         self.metrics.gauge("batcher_queue_depth", depth)
         self._work.set()
-        return req
+        return reqs
+
+    def inflight(self) -> int:
+        """Requests the scheduler still owes an answer (active slots and
+        queue): what a worker's drain waits on."""
+        with self._lock:
+            queued = len(self.queue)
+        return sum(a is not None for a in self.active) + queued
 
     def start(self):
         if self._thread is None:
@@ -582,6 +624,15 @@ class ContinuousBatcher:
             return
         req.tokens.append(token)
         self._tokens_out += 1
+        if req.stream_cb:
+            try:
+                req.stream_cb(token)
+            except Exception:
+                # delivery is best-effort (the client likely went away):
+                # the request runs on, its result whole, unstreamed
+                log.warning("stream callback failed; tokens no longer "
+                            "streamed for this request", exc_info=True)
+                req.stream_cb = None
 
     def _finish_req(self, req: BatchRequest):
         self.pool.release(req._blocks)

@@ -8,10 +8,13 @@ one device:
   sequence is gathered before the head.
 - **decode**: one forward per token over the dense cache, updated in
   place; sampling runs on the device with a per-request generator.
-- **host syncs**: tokens stay on the device. With no eos stop the host
-  syncs once per request; with one, once per decode chunk
-  (``DECODE_CHUNKS``, capped at ``STREAM_CHUNK_MAX``), which is when it
-  must see tokens — the reference's schedule.
+- **host syncs**: tokens stay on the device. With no eos stop and no
+  ``stream_cb`` the host syncs once per request; with either, once per
+  decode chunk (``DECODE_CHUNKS``, capped at ``STREAM_CHUNK_MAX``), which
+  is when it must see tokens — the reference's schedule.
+- **streaming**: ``stream_cb(step, tokens)`` fires with the prefill's
+  tokens right after prefill (step 0), then once per decode step as each
+  chunk lands; a finished row's entry is None.
 
 PyTorch runs eagerly, so the reference's compiled-program caches and its
 CPU-only XLA workarounds (layer unrolling, weight repacking, the dummy
@@ -25,7 +28,9 @@ from the same seed and cut to the rank's shard (parallel/sharding.py),
 or the caller's tree cut the same way. ``generate`` and
 ``teacher_forced`` broadcast their op, then every rank runs the same
 steps; only the leader samples, and it broadcasts each token, so the
-ranks agree on every step count. ``close`` stops the followers.
+ranks agree on every step count. A ``stream_cb`` stays on the leader:
+the followers get only the flag that puts them on the same chunked
+path. ``close`` stops the followers.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -180,13 +185,16 @@ class InferenceEngine:
         self.params = params
         self.model = Transformer(cfg, params, self.group)
 
-    def _op(self, name: str, **kw):
-        """Run ``_<name>`` here, and on every follower under tp."""
+    def _op(self, name: str, _local: Optional[dict] = None, **kw):
+        """Run ``_<name>`` here, and on every follower under tp with
+        ``kw``; ``_local`` holds the leader's own arguments (callbacks),
+        which never go over the wire."""
         fn = getattr(self, "_" + name)
+        mine = dict(kw, **(_local or {}))
         if self._leader is None:
-            return fn(**kw)
+            return fn(**mine)
         with self._lock:
-            return self._leader.run(name, kw, lambda: fn(**kw))
+            return self._leader.run(name, kw, lambda: fn(**mine))
 
     def _sample(self, logits, gen, sp):
         """The next tokens: sampled here, or under tp sampled on the
@@ -236,9 +244,13 @@ class InferenceEngine:
         sampling: Optional[SamplingParams] = None,
         seed: int = 0,
         eos_token_id: Optional[int] = None,
+        stream_cb: Optional[Callable[[int, List[Optional[int]]],
+                                     None]] = None,
     ) -> GenerateResult:
         """Generate continuations for a batch of token-id prompts; a
-        sequence stops after ``eos_token_id`` (trimmed from its tokens)."""
+        sequence stops after ``eos_token_id`` (trimmed from its tokens).
+        ``stream_cb(step, tokens_this_step)`` fires after prefill and
+        after every decode step (finished rows as None)."""
         prompts = [list(map(int, p)) for p in prompts]
         if max_new_tokens < 1:
             if not prompts or min(map(len, prompts)) < 1:
@@ -248,11 +260,14 @@ class InferenceEngine:
         return self._op("generate", prompts=prompts,
                         max_new_tokens=int(max_new_tokens),
                         sampling=sampling or SamplingParams(),
-                        seed=int(seed), eos_token_id=eos_token_id)
+                        seed=int(seed), eos_token_id=eos_token_id,
+                        stream=stream_cb is not None,
+                        _local={"stream_cb": stream_cb})
 
     @torch.inference_mode()
     def _generate(self, prompts, max_new_tokens, sampling, seed,
-                  eos_token_id) -> GenerateResult:
+                  eos_token_id, stream=False,
+                  stream_cb=None) -> GenerateResult:
         dev, sp = self.device, sampling
         n = len(prompts)
         cache = self._cache(n)
@@ -266,7 +281,7 @@ class InferenceEngine:
 
         steps = 1
         remaining = max_new_tokens - 1
-        if eos_token_id is None:
+        if eos_token_id is None and not stream:
             toks = [cur]
             for _ in range(remaining):
                 logits, cache = self.model.decode_step(cur[:, None], cache)
@@ -276,8 +291,11 @@ class InferenceEngine:
             clock.mark()
             out = torch.stack(toks, dim=1).tolist()   # the one sync
         else:
+            # eos stop and/or streaming: the host sees each chunk
             out = [[t] for t in cur.tolist()]
             done = [o[0] == eos_token_id for o in out]
+            if stream_cb:
+                stream_cb(0, [o[0] for o in out])
             while remaining > 0 and not all(done):
                 T = next(c for c in self.DECODE_CHUNKS
                          if c <= min(remaining, self.STREAM_CHUNK_MAX))
@@ -288,7 +306,12 @@ class InferenceEngine:
                     cur = self._sample(logits[:, 0], gen, sp)
                     chunk.append(cur)
                 rows = torch.stack(chunk, dim=0).tolist()  # one sync/chunk
-                for row in rows:
+                for t, row in enumerate(rows):
+                    if stream_cb:   # stream what lands in `out` this step
+                        emit = [None if done[i] else row[i]
+                                for i in range(n)]
+                        if any(e is not None for e in emit):
+                            stream_cb(steps + t, emit)
                     for i in range(n):
                         if not done[i]:
                             out[i].append(row[i])

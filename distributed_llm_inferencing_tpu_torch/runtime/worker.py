@@ -1,14 +1,18 @@
 """Worker agent of the port: engine-mode and batched serving over JSON HTTP.
 
 Speaks the reference worker's wire protocol for the routes the port has,
-so a master can drive either worker:
+so the reference master can drive either worker:
 
-- ``GET /health``: status, device inventory from torch.cuda (``platform``,
-  ``kind``, ``count``), loaded models (with ``serving``, the weight
-  quantization, ``param_bytes`` — the bytes the weights take as stored —
-  and, for batched models, the scheduler's stats; for engine-mode ones
-  the ``mesh``, and under tp the data collectives' ``backend``, with
-  ``param_bytes`` one rank's share), metrics.
+- ``GET /health``: status (``"draining"`` during a drain, else
+  ``"online"``), ``role`` (``"mixed"``: the port has no serving roles
+  yet), ``arena_occupancy`` (null: no host KV arena yet), device
+  inventory from torch.cuda (``platform``, ``kind``, ``count``), loaded
+  models (with ``serving``, the weight quantization, ``param_bytes`` —
+  the bytes the weights take as stored — and, for batched models, the
+  scheduler's stats; for engine-mode ones the ``mesh``, and under tp the
+  data collectives' ``backend``, with ``param_bytes`` one rank's share),
+  metrics.
+- ``GET /metrics``: the metrics registry as Prometheus text exposition.
 - ``POST /load_model``: ``model_name``, ``allow_random_init``, ``dtype``,
   ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
   ops/quant.py), ``embed_quantize`` (``"int8"``: the per-row int8
@@ -22,15 +26,47 @@ so a master can drive either worker:
 - ``POST /unload_model``: ``model_name``; under tp it stops the model's
   follower processes.
 - ``POST /inference``: ``model_name``, ``prompt`` or ``prompt_tokens``,
-  ``max_new_tokens`` (or ``max_length``), ``sampling``, ``seed``; answers
-  ``status``, ``result``, ``tokens``, ``execution_time`` and ``cost``
-  (engine mode adds its timings; batched mode adds ``ttft_ms`` and
-  ``scheduler``).
+  ``max_new_tokens`` (or ``max_length``), ``sampling``, ``seed``,
+  ``timeout``, ``request_tag``; answers ``status``, ``result``,
+  ``tokens``, ``execution_time`` and ``cost`` (engine mode adds its
+  timings; batched mode adds ``ttft_ms`` and ``scheduler``). A
+  ``request_tag`` makes the dispatch idempotent: a repeat replays the
+  cached result (``idempotent: true``, the last ``IDEM_CACHE`` results),
+  a repeat that arrives while the first runs joins it, and a join that
+  outlives its ``timeout`` gets a 408 with ``in_flight: true``.
+- ``POST /inference_batch``: ``model_name`` and ``requests`` (at most
+  ``BATCH_RPC_MAX`` /inference bodies); answers one JSON line
+  ``{request_tag, status, body}`` per sub-request as each completes. A
+  batched model admits the fresh sub-requests in wire order
+  (``ContinuousBatcher.enqueue``); a sub-request that fails prep or
+  validation answers its own error (400, or 500 for a field of the wrong
+  type) and its siblings run on.
+- ``POST /inference_stream``: an /inference body; server-sent events
+  ``token`` (``step``, ``token``, ``text``), then ``done`` (``result``,
+  and ``tokens_per_s`` in engine mode or ``ttft_ms`` batched) or
+  ``error``. A bad body is a plain 400.
+- ``POST /cancel``: ``request_tag`` of an in-flight batched request; its
+  slot and blocks free at the scheduler's next step and its /inference
+  answers an error. 400 without a tag, 404 for a tag not in flight
+  (engine-mode requests are not cancellable mid-generate).
+- ``POST /drain``: new inference gets 503 (``draining: true``,
+  ``Retry-After: 5``) while in-flight requests finish; answers
+  ``drained`` once idle, or after ``timeout`` seconds with what is still
+  ``in_flight``. ``POST /undrain`` re-opens.
 
-Fields of the reference protocol that the port does not implement yet —
-``speculative``, ``kv_host_mb``, ``kv_source``, ``kv_export``,
-``adapter``, ``resume``, ``request_tag``, ``kv_quantize`` (the int8 KV
-cache), checkpoint paths — get a 400, never a silent ignore; so does a
+Every route needs ``Authorization: Bearer <key>`` when the worker has an
+auth key (the ``auth_key`` argument, else ``DLI_AUTH_KEY`` when
+``DLI_AUTH_ENABLED``): 401 without it, /health and /metrics included.
+A call carrying ``X-DLI-Master-Term`` (and ``X-DLI-Master-Nonce``) from a
+master term older than the newest this worker has seen gets a 409
+(``stale_term: true``, header ``X-DLI-Stale-Term``) on the routes that
+dispatch or change state; a call without the headers is never fenced.
+
+Fields of the reference protocol that the port does not implement yet get
+a 400, never a silent ignore, each with the ROADMAP Queue A item that
+brings it: ``speculative`` (A9), ``kv_host_mb``, ``kv_source``,
+``kv_export`` and ``resume`` (A8), ``adapter`` (A10), ``kv_quantize``
+(the int8 KV cache, A1–A3 rest), checkpoint paths (A11); so does a
 ``quantize`` or ``embed_quantize`` value outside the modes above, and a
 ``mesh`` the port cannot serve (an axis other than tp above 1, tp with
 ``"serving": "batched"``, or a tp the model's shapes do not divide).
@@ -41,10 +77,13 @@ Run: ``python -m distributed_llm_inferencing_tpu_torch worker --port 8100``
 
 from __future__ import annotations
 
+import collections
 import gc
+import os
+import queue
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -65,10 +104,22 @@ from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
 from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
     load_tokenizer)
 
+# Completed results kept for idempotent replay: a master retries with the
+# same request_tag after a timeout, and the cached result makes
+# at-least-once delivery execute once.
+IDEM_CACHE = int(os.environ.get("DLI_IDEM_CACHE", 256))
+# Sub-requests per /inference_batch call (each costs a thread).
+BATCH_RPC_MAX = int(os.environ.get("DLI_BATCH_RPC_MAX", 256))
+
+# Lease fencing: the headers a replicated master stamps on every call.
+MASTER_TERM_HEADER = "X-DLI-Master-Term"
+MASTER_NONCE_HEADER = "X-DLI-Master-Nonce"
+STALE_TERM_HEADER = "X-DLI-Stale-Term"
+
 _UNPORTED_LOAD = ("kv_quantize", "checkpoint_path", "native_checkpoint",
                   "speculative", "kv_host_mb")
 _UNPORTED_INFER = ("speculative", "adapter", "resume", "kv_source",
-                   "kv_export", "request_tag")
+                   "kv_export")
 _DTYPES = ("bfloat16", "float32")
 _SERVING = (None, "engine", "batched")
 
@@ -112,37 +163,117 @@ class LoadedModel:
 
 
 def _unported(body, fields):
+    """The message refusing the ``fields`` that ``body`` sets, or None."""
     bad = [f for f in fields if body.get(f) not in (None, {}, "")]
-    if bad:
-        return 400, {"status": "error",
-                     "message": f"not supported by this worker yet: {bad}"}
-    return None
+    return f"not supported by this worker yet: {bad}" if bad else None
+
+
+def _status(res):
+    """(status, payload) of a handler's result."""
+    return (res[0], res[1]) if isinstance(res, tuple) else (200, res)
 
 
 class WorkerAgent:
     """Holds loaded models and serves the lifecycle + inference API."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, auth_key: Optional[str] = None):
         self.device = resolve_device(device)
+        if auth_key is None and os.environ.get(
+                "DLI_AUTH_ENABLED", "").lower() in ("1", "true"):
+            auth_key = os.environ.get("DLI_AUTH_KEY")
         self.models: Dict[str, LoadedModel] = {}
         self._models_lock = threading.Lock()
         self._loading: set = set()
         self.metrics = Metrics()
         self.started = time.time()
-        self.service = httpd.JsonHTTPService("worker")
+        # request_tag -> in-flight batched request, for /cancel
+        self._tagged: Dict[str, object] = {}
+        self._tagged_lock = threading.Lock()
+        # idempotent dispatch: completed results by request_tag (an LRU)
+        # and the executions in flight, which a duplicate joins
+        self._idem: "collections.OrderedDict[str, dict]" = \
+            collections.OrderedDict()
+        self._idem_lock = threading.Lock()
+        self._inflight_tags: Dict[str, threading.Event] = {}
+        # drain: in-flight inference finishes, new inference gets 503
+        self._draining = False
+        self._active = 0
+        self._active_cv = threading.Condition()
+        # the newest (master term, holder nonce) seen on a fenced call
+        self._master_term: tuple = (0, None)
+        self._master_term_lock = threading.Lock()
+        for name in ("requests_completed", "tokens_generated",
+                     "idempotent_hits", "idempotent_joins",
+                     "requests_cancelled", "batch_rpcs",
+                     "batch_sub_requests", "stale_term_rejections"):
+            self.metrics.inc(name, 0)
+        self.metrics.gauge("draining", 0)
+        self.service = httpd.JsonHTTPService("worker", auth_key)
         s = self.service
         s.add("GET", "/health", self.health)
+        s.add("GET", "/metrics", self.prometheus)
         s.add("POST", "/load_model", self.load_model)
         s.add("POST", "/unload_model", self.unload_model)
         s.add("POST", "/inference", self.inference)
+        s.add("POST", "/inference_batch", self.inference_batch)
+        s.add("POST", "/inference_stream", self.inference_stream)
+        s.add("POST", "/cancel", self.cancel)
+        s.add("POST", "/drain", self.drain)
+        s.add("POST", "/undrain", self.undrain)
+
+    # ---- lease fencing -------------------------------------------------
+
+    def note_master_term(self, nonce: str, term: int) -> bool:
+        """True when (term, nonce) is current, advancing the high-water
+        mark if newer; False when stale: an older term, or another holder
+        at the same term (whoever presented a term first holds it)."""
+        with self._master_term_lock:
+            cur_term, cur_nonce = self._master_term
+            if term > cur_term:
+                self._master_term = (int(term), str(nonce))
+                return True
+            if term == cur_term and cur_nonce in (None, nonce):
+                self._master_term = (int(term), str(nonce))
+                return True
+        self.metrics.inc("stale_term_rejections")
+        return False
+
+    def master_term(self) -> int:
+        with self._master_term_lock:
+            return self._master_term[0]
+
+    def _term_guard(self, _request):
+        """None when the caller may proceed, else the 409 for a call from
+        a stale master term."""
+        if _request is None:
+            return None
+        raw = _request.headers.get(MASTER_TERM_HEADER)
+        if not raw:
+            return None       # an unfenced caller
+        try:
+            term = int(raw)
+        except (TypeError, ValueError):
+            return None
+        nonce = _request.headers.get(MASTER_NONCE_HEADER) or ""
+        if self.note_master_term(nonce, term):
+            return None
+        cur = self.master_term()
+        return 409, {"status": "error", "stale_term": True,
+                     "message": f"master term {term} is stale "
+                                f"(current lease term: {cur})"}, \
+            {STALE_TERM_HEADER: str(cur)}
+
+    # ---- status ----------------------------------------------------------
 
     def health(self, body):
         with self._models_lock:
             loaded = [m.describe(n) for n, m in self.models.items()]
         inv = inventory(self.device)
         return {
-            "status": "online",
+            "status": "draining" if self._draining else "online",
             "uptime_s": time.time() - self.started,
+            "role": "mixed",
+            "arena_occupancy": None,
             "device": {k: inv[k] for k in ("platform", "kind", "count")},
             "resources": {"devices": inv["devices"],
                           "device": inv["platform"]},
@@ -150,13 +281,24 @@ class WorkerAgent:
             "metrics": self.metrics.snapshot(),
         }
 
-    def load_model(self, body):
+    def prometheus(self, body):
+        return (self.metrics.prometheus().encode(),
+                "text/plain; version=0.0.4")
+
+    # ---- model lifecycle -------------------------------------------------
+
+    def load_model(self, body, _request=None):
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        if self._draining:
+            return self._refuse_draining()
         name = body.get("model_name")
         if not name:
             return 400, {"status": "error", "message": "model_name required"}
         refused = _unported(body, _UNPORTED_LOAD)
         if refused:
-            return refused
+            return 400, {"status": "error", "message": refused}
         if body.get("serving") not in _SERVING:
             return 400, {"status": "error",
                          "message": "serving must be 'engine' or 'batched'; "
@@ -249,7 +391,10 @@ class WorkerAgent:
         return 200, {"status": "success", "message": f"model {name} loaded",
                      "load_time_s": time.time() - t0, "stats": stats}
 
-    def unload_model(self, body):
+    def unload_model(self, body, _request=None):
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
         name = body.get("model_name")
         with self._models_lock:
             m = self.models.pop(name, None)
@@ -265,7 +410,75 @@ class WorkerAgent:
         self.metrics.inc("models_unloaded")
         return {"status": "success", "message": f"model {name} unloaded"}
 
+    # ---- drain ---------------------------------------------------------
+
+    def _refuse_draining(self):
+        return 503, {"status": "error", "draining": True,
+                     "message": "worker is draining; retry another node"}, \
+            {"Retry-After": "5"}
+
+    def _try_begin_inference(self) -> bool:
+        """Count one inference in, or refuse it during a drain; the check
+        and the count share the lock, so a drain never reports idle with
+        a request about to start."""
+        with self._active_cv:
+            if self._draining:
+                return False
+            self._active += 1
+        return True
+
+    def _end_inference(self):
+        with self._active_cv:
+            self._active -= 1
+            self._active_cv.notify_all()
+
+    def _busy_count(self) -> int:
+        """Requests still owed an answer: the handlers' count, or the
+        batchers' in-flight requests (which a handler that gave up no
+        longer counts), whichever is larger."""
+        with self._active_cv:
+            n = self._active
+        with self._models_lock:
+            models = list(self.models.values())
+        return max(n, sum(m.batcher.inflight() for m in models
+                          if m.batcher is not None))
+
+    def _wait_idle(self, timeout: float) -> bool:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self._busy_count() == 0:
+                return True
+            time.sleep(0.05)
+        return self._busy_count() == 0
+
+    def drain(self, body, _request=None):
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        with self._active_cv:
+            self._draining = True
+        self.metrics.gauge("draining", 1)
+        idle = self._wait_idle(float(body.get("timeout", 30)))
+        return {"status": "success", "drained": idle,
+                "in_flight": self._busy_count()}
+
+    def undrain(self, body, _request=None):
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        with self._active_cv:
+            self._draining = False
+        self.metrics.gauge("draining", 0)
+        return {"status": "success"}
+
+    # ---- inference -------------------------------------------------------
+
     def _prep(self, body):
+        """(model, prompt, sampling, max_new, seed) of an /inference body;
+        ValueError (or KeyError for a model not loaded) for a bad one."""
+        refused = _unported(body, _UNPORTED_INFER)
+        if refused:
+            raise ValueError(refused)
         name = body.get("model_name")
         m = self.models.get(name)
         if m is None:
@@ -293,18 +506,88 @@ class WorkerAgent:
         seed = int(body.get("seed", time.time_ns() % (1 << 31)))
         return m, prompt, sp, max_new, seed
 
-    def inference(self, body):
+    def inference(self, body, _request=None):
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        if not self._try_begin_inference():
+            return self._refuse_draining()
+        try:
+            return self._inference_idempotent(body)
+        finally:
+            self._end_inference()
+
+    def _idem_claim(self, tag: str):
+        """One atomic look at ``tag``: ("cached", result) to replay,
+        ("join", event) of the execution in flight, or ("own", event):
+        the caller runs it and must ``_idem_release``."""
+        with self._idem_lock:
+            cached = self._idem.get(tag)
+            if cached is not None:
+                self._idem.move_to_end(tag)
+                return "cached", cached
+            ev = self._inflight_tags.get(tag)
+            if ev is not None:
+                return "join", ev
+            ev = self._inflight_tags[tag] = threading.Event()
+            return "own", ev
+
+    def _idem_release(self, tag: str, my_ev: threading.Event, res):
+        """End an owned execution: cache a success for replays, drop the
+        in-flight entry and wake the joiners (they look again)."""
+        with self._idem_lock:
+            if isinstance(res, dict):
+                self._idem[tag] = res
+                self._idem.move_to_end(tag)
+                while len(self._idem) > IDEM_CACHE:
+                    self._idem.popitem(last=False)
+            self._inflight_tags.pop(tag, None)
+            my_ev.set()
+
+    def _inference_idempotent(self, body):
+        """Run an /inference body at most once per ``request_tag``: a
+        repeat replays the cached result or joins the running execution;
+        if that execution failed, the joiner runs it again."""
+        tag = str(body["request_tag"]) if body.get("request_tag") else None
+        if tag is None:
+            return self._inference_execute(body)
+        deadline = time.monotonic() + float(body.get("timeout", 300))
+        while True:
+            kind, obj = self._idem_claim(tag)
+            if kind == "cached":
+                self.metrics.inc("idempotent_hits")
+                return dict(obj, idempotent=True)
+            if kind == "own":
+                break
+            self.metrics.inc("idempotent_joins")
+            if not obj.wait(timeout=max(0.0, deadline - time.monotonic())):
+                # in_flight: the generation still runs here; retry this
+                # node rather than generate again elsewhere
+                return 408, {"status": "error", "in_flight": True,
+                             "message": f"execution for tag {tag!r} still "
+                                        "running past the request budget"}
+        res = None
+        try:
+            res = self._inference_execute(body)
+            return res
+        finally:
+            self._idem_release(tag, obj, res if isinstance(res, dict)
+                               else None)
+
+    def _inference_execute(self, body):
         t0 = time.time()
-        refused = _unported(body, _UNPORTED_INFER)
-        if refused:
-            return refused
         try:
             m, prompt, sp, max_new, seed = self._prep(body)
         except (KeyError, ValueError) as e:
             return 400, {"status": "error", "message": str(e)}
         if m.batcher is not None:
-            return self._inference_batched(m, body, prompt, sp, max_new,
-                                           seed, t0)
+            try:
+                req = m.batcher.submit(
+                    prompt, max_new_tokens=max_new, sampling=sp,
+                    eos_token_id=m.tokenizer.eos_token_id, seed=seed)
+            except ValueError as e:
+                return 400, {"status": "error", "message": str(e)}
+            return self._wait_batched(m, req, body, t0)
         try:
             with self.metrics.time("inference"), m.lock:
                 res = m.engine.generate(
@@ -327,21 +610,25 @@ class WorkerAgent:
             "cost": res.cost(),
         }
 
-    def _inference_batched(self, m, body, prompt, sp, max_new, seed, t0):
-        """Enqueue into the model's batcher and wait: no per-model lock,
-        the scheduler interleaves this request with the others."""
-        req = None
+    def _wait_batched(self, m, req, body, t0):
+        """Wait out one submitted batched request (cancellable by its
+        ``request_tag`` meanwhile) and answer as /inference does."""
+        tag = str(body["request_tag"]) if body.get("request_tag") else None
+        if tag is not None:
+            with self._tagged_lock:
+                self._tagged[tag] = req
         try:
             with self.metrics.time("inference"):
-                req = m.batcher.submit(
-                    prompt, max_new_tokens=max_new, sampling=sp,
-                    eos_token_id=m.tokenizer.eos_token_id, seed=seed)
                 toks = req.wait(timeout=float(body.get("timeout", 300)))
         except TimeoutError as e:
             req.cancel()   # free the slot; generate for nobody
             return 408, {"status": "error", "message": str(e)}
-        except (ValueError, RuntimeError) as e:
+        except RuntimeError as e:   # cancelled, refused, or failed
             return 400, {"status": "error", "message": str(e)}
+        finally:
+            if tag is not None:
+                with self._tagged_lock:
+                    self._tagged.pop(tag, None)
         self.metrics.inc("requests_completed")
         self.metrics.inc("tokens_generated", len(toks))
         return {
@@ -353,6 +640,222 @@ class WorkerAgent:
             "cost": req.cost,
             "scheduler": m.batcher.stats(),
         }
+
+    def inference_batch(self, body, _request=None):
+        """N /inference bodies in one call; each sub-request keeps its own
+        semantics (idempotency, drain refusal, errors) and answers its own
+        JSON line as it completes."""
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        subs = body.get("requests")
+        if not isinstance(subs, list) or not subs:
+            return 400, {"status": "error",
+                         "message": "requests: non-empty list required"}
+        if len(subs) > BATCH_RPC_MAX:
+            return 400, {"status": "error",
+                         "message": f"requests: at most {BATCH_RPC_MAX} "
+                                    f"sub-requests per batch RPC"}
+        if self._draining:
+            return self._refuse_draining()
+        model = body.get("model_name")
+        with self._models_lock:
+            m = self.models.get(model)
+        self.metrics.inc("batch_rpcs")
+        self.metrics.inc("batch_sub_requests", len(subs))
+        out: "queue.Queue" = queue.Queue()
+
+        def emit(tag, status, payload):
+            out.put({"request_tag": tag, "status": status, "body": payload})
+
+        def run_generic(sub_body, tag):
+            """One sub-request through /inference's path: engine-mode
+            models, and joins of a tag in flight."""
+            try:
+                if not self._try_begin_inference():
+                    st, pl = _status(self._refuse_draining())
+                else:
+                    try:
+                        st, pl = _status(self._inference_idempotent(sub_body))
+                    finally:
+                        self._end_inference()
+            except Exception as e:
+                st, pl = 500, {"status": "error", "message": str(e)}
+            emit(tag, st, pl)
+
+        owned = []   # (sub_body, tag, idempotency event or None)
+        for sub in subs:
+            sub_body = dict(sub, model_name=model)
+            tag = (str(sub["request_tag"]) if sub.get("request_tag")
+                   else None)
+            if m is not None and m.batcher is not None:
+                if tag is None:
+                    owned.append((sub_body, None, None))
+                    continue
+                kind, obj = self._idem_claim(tag)
+                if kind == "cached":
+                    self.metrics.inc("idempotent_hits")
+                    emit(tag, 200, dict(obj, idempotent=True))
+                    continue
+                if kind == "own":
+                    owned.append((sub_body, tag, obj))
+                    continue
+            threading.Thread(target=run_generic, args=(sub_body, tag),
+                             daemon=True).start()
+        if owned:
+            self._start_owned_batch(m, owned, emit)
+
+        def events():
+            for _ in range(len(subs)):   # one line per sub-request
+                yield out.get()
+
+        return httpd.jsonl_stream(_request, events())
+
+    def _start_owned_batch(self, m, owned, emit):
+        """Build the fresh batched sub-requests, enqueue the valid ones in
+        wire order in one call, then wait each out on a thread. A
+        sub-request that fails prep or validation answers alone."""
+        reqs, metas = [], []
+        for sub_body, tag, my_ev in owned:
+            t0 = time.time()
+            try:
+                _, prompt, sp, max_new, seed = self._prep(sub_body)
+                req = m.batcher.make_request(
+                    prompt, max_new_tokens=max_new, sampling=sp,
+                    eos_token_id=m.tokenizer.eos_token_id, seed=seed)
+            except Exception as e:
+                # every failure resolves this sub in place: one escaping
+                # the loop would leak the earlier subs' inference counts
+                # and tag claims
+                if my_ev is not None:
+                    self._idem_release(tag, my_ev, None)
+                st = 400 if isinstance(e, (KeyError, ValueError)) else 500
+                emit(tag, st, {"status": "error", "message": str(e)})
+                continue
+            if not self._try_begin_inference():
+                if my_ev is not None:
+                    self._idem_release(tag, my_ev, None)
+                emit(tag, *_status(self._refuse_draining()))
+                continue
+            reqs.append(req)
+            metas.append((sub_body, tag, my_ev, t0))
+        try:
+            m.batcher.enqueue(reqs)
+        except Exception as e:
+            for _sub_body, tag, my_ev, _t0 in metas:
+                if my_ev is not None:
+                    self._idem_release(tag, my_ev, None)
+                self._end_inference()
+                emit(tag, 500, {"status": "error", "message": str(e)})
+            return
+        for req, meta in zip(reqs, metas):
+            threading.Thread(target=self._wait_owned,
+                             args=(m, req, emit) + meta, daemon=True).start()
+
+    def _wait_owned(self, m, req, emit, sub_body, tag, my_ev, t0):
+        res = None
+        st, pl = 500, {"status": "error", "message": "internal error"}
+        try:
+            st, pl = _status(self._wait_batched(m, req, sub_body, t0))
+            res = pl if st == 200 else None
+        except Exception as e:
+            st, pl = 500, {"status": "error", "message": str(e)}
+        finally:
+            if my_ev is not None:
+                self._idem_release(tag, my_ev, res)
+            self._end_inference()
+            emit(tag, st, pl)
+
+    def inference_stream(self, body, _request=None):
+        """An /inference body answered as server-sent events: one
+        ``token`` event per token, then ``done`` or ``error``."""
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        if not self._try_begin_inference():
+            return self._refuse_draining()
+        try:
+            try:
+                m, prompt, sp, max_new, seed = self._prep(body)
+            except (KeyError, ValueError) as e:
+                return 400, {"status": "error", "message": str(e)}
+            q: "queue.Queue" = queue.Queue()
+            done = object()
+            text = m.tokenizer.decode
+
+            def token(step, tok):
+                q.put({"event": "token", "step": step, "token": tok,
+                       "text": text([tok])})
+
+            def engine_cb(step, toks):
+                if toks[0] is not None:   # None: the sequence finished
+                    token(step, toks[0])
+
+            def run():
+                try:
+                    if m.batcher is None:
+                        with m.lock:
+                            res = m.engine.generate(
+                                [prompt], max_new_tokens=max_new,
+                                sampling=sp, seed=seed,
+                                eos_token_id=m.tokenizer.eos_token_id,
+                                stream_cb=engine_cb)
+                        q.put({"event": "done",
+                               "result": text(res.tokens[0]),
+                               "tokens_per_s": res.decode_tokens_per_s})
+                    else:
+                        step = [0]
+
+                        def cb(tok):
+                            token(step[0], tok)
+                            step[0] += 1
+
+                        req = m.batcher.submit(
+                            prompt, max_new_tokens=max_new, sampling=sp,
+                            eos_token_id=m.tokenizer.eos_token_id,
+                            stream_cb=cb, seed=seed)
+                        toks = req.wait(
+                            timeout=float(body.get("timeout", 300)))
+                        q.put({"event": "done", "result": text(toks),
+                               "ttft_ms": req.ttft_ms})
+                except Exception as e:
+                    q.put({"event": "error", "message": str(e)})
+                q.put(done)
+
+            threading.Thread(target=run, daemon=True).start()
+
+            def events():
+                while True:
+                    item = q.get()
+                    if item is done:
+                        break
+                    yield item
+                self.metrics.inc("requests_completed")
+
+            return httpd.sse_stream(_request, events())
+        finally:
+            self._end_inference()
+
+    def cancel(self, body, _request=None):
+        """Cancel an in-flight tagged batched request: its slot and blocks
+        free at the scheduler's next step."""
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        tag = body.get("request_tag")
+        if not tag:
+            return 400, {"status": "error", "message": "request_tag required"}
+        with self._tagged_lock:
+            req = self._tagged.get(str(tag))
+        if req is None:
+            return 404, {"status": "error",
+                         "message": f"no in-flight request tagged {tag!r}"}
+        req.cancel()
+        self.metrics.inc("requests_cancelled")
+        return {"status": "success",
+                "message": f"cancel requested for {tag!r}"}
+
+    # ---- lifecycle -------------------------------------------------------
 
     def serve(self, host="0.0.0.0", port=8100, background=False):
         return self.service.serve(host, port, background=background)

@@ -215,7 +215,6 @@ def test_worker_concurrent_inference_equals_direct_submit(worker):
     ("/inference", {"kv_export": True}),
     ("/inference", {"adapter": "a1"}),
     ("/inference", {"resume": {"tokens": [1]}}),
-    ("/inference", {"request_tag": "t1"}),
     ("/inference", {"speculative": "ngram"}),
     ("/load_model", {"speculative": "ngram"}),
     ("/load_model", {"kv_host_mb": 64}),

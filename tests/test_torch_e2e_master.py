@@ -1,0 +1,261 @@
+"""The end-to-end gate: the unchanged master serving through a port worker.
+
+The JAX package's ``Master`` runs in-process (as tests/test_migration.py
+starts it) beside one JAX ``WorkerAgent`` and one port ``WorkerAgent``
+(``device="cpu"``) on localhost sockets. Both serve tiny-llama f32 on the
+same weights: the JAX tree is built once, and a model on it (the JAX
+engine or batcher; the port's through ``params_from_jax``) goes into each
+worker's ``models`` before ``/api/nodes/add``, so the master sees it on
+``/health`` and never calls ``/load_model``. Then, through the master's
+own API (``/api/inference/submit`` and ``/status``):
+
+- engine mode, one node at a time: the port node's greedy result text
+  equals the JAX node's for every prompt;
+- batched mode, both nodes: requests submitted before the dispatcher
+  starts are grouped into ``/inference_batch`` calls; every result equals
+  the JAX engine's text for its prompt, each node serves some, and the
+  port worker counts its batch calls;
+- ``/api/cluster_metrics`` scrapes the port node's ``/metrics``, whose
+  ``requests_completed`` counts the requests it served;
+- ``/api/inference/cancel/<id>`` on a request in flight on the port node
+  relays to its ``/cancel`` and frees the slot and its blocks.
+
+No latency is asserted; every wait polls with a deadline.
+"""
+
+import threading
+import time
+
+import jax
+import numpy as np
+import pytest
+import requests
+
+from distributed_llm_inferencing_tpu.models.params import (
+    init_params as jax_init_params)
+from distributed_llm_inferencing_tpu.models.registry import (
+    get_config as jax_config)
+from distributed_llm_inferencing_tpu.runtime.batcher import (
+    ContinuousBatcher as JaxBatcher)
+from distributed_llm_inferencing_tpu.runtime.engine import (
+    InferenceEngine as JaxEngine)
+from distributed_llm_inferencing_tpu.runtime.master import Master
+from distributed_llm_inferencing_tpu.runtime.worker import (
+    LoadedModel as JaxLoadedModel, WorkerAgent as JaxWorkerAgent)
+from distributed_llm_inferencing_tpu.utils.tokenizer import (
+    load_tokenizer as jax_load_tokenizer)
+from distributed_llm_inferencing_tpu_torch.models.params import (
+    params_from_jax)
+from distributed_llm_inferencing_tpu_torch.models.registry import get_config
+from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+    ContinuousBatcher)
+from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+    InferenceEngine)
+from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+    LoadedModel, WorkerAgent)
+from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
+    load_tokenizer)
+
+MODEL = "tiny-llama"
+MAX_SEQ = 128
+PROMPTS = ["hello world", "the quick brown fox", "abc", "distributed llm"]
+NEW = 12
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    jcfg = jax_config(MODEL).replace(dtype="float32")
+    params = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = get_config(MODEL).replace(dtype="float32")
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    jax_agent, port_agent = JaxWorkerAgent(), WorkerAgent(device="cpu")
+    for agent in (jax_agent, port_agent):
+        agent.serve("127.0.0.1", 0, background=True)
+    jax_agent.models[MODEL] = JaxLoadedModel(
+        JaxEngine(jcfg, params, max_seq=MAX_SEQ),
+        jax_load_tokenizer(None, jcfg.vocab_size), "test")
+    port_agent.models[MODEL] = LoadedModel(
+        InferenceEngine(tcfg, tparams, max_seq=MAX_SEQ, device="cpu"),
+        load_tokenizer(None, tcfg.vocab_size), "test")
+
+    def batched():
+        """Swap each worker's engine for a batcher on the same weights."""
+        jb = JaxBatcher(jcfg.replace(attn_backend="xla"), params,
+                        num_blocks=128, block_size=8, slots=4,
+                        max_seq=MAX_SEQ)
+        tb = ContinuousBatcher(tcfg, tparams, num_blocks=128, block_size=8,
+                               slots=4, max_seq=MAX_SEQ, device="cpu")
+        for agent, b, lm in ((jax_agent, jb, JaxLoadedModel),
+                             (port_agent, tb, LoadedModel)):
+            b.start()
+            agent.models[MODEL] = lm(None, agent.models[MODEL].tokenizer,
+                                     "test", batcher=b)
+
+    masters = []
+
+    def master(**nodes):
+        m = Master(":memory:", health_interval=0.5, disagg=False)
+        srv = m.service.serve("127.0.0.1", 0, background=True)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        ids = {}
+        for name, agent in nodes.items():
+            r = requests.post(f"{base}/api/nodes/add", json={
+                "name": name, "host": "127.0.0.1",
+                "port": agent.service.port}, timeout=30).json()
+            assert r["status"] == "success", r
+            ids[r["node_id"]] = name
+        masters.append(m)
+        return m, base, ids
+
+    yield {"jax": jax_agent, "port": port_agent, "batched": batched,
+           "master": master, "served": {}}
+    for m in masters:
+        m.stop()
+    jax_agent.service.shutdown()
+    for agent in (jax_agent, port_agent):
+        b = agent.models[MODEL].batcher
+        if b is not None:
+            b.stop()
+    port_agent.shutdown()
+
+
+def _submit(base, prompt, new=NEW):
+    r = requests.post(f"{base}/api/inference/submit", json={
+        "model_name": MODEL, "prompt": prompt, "max_new_tokens": new,
+        "sampling": {"do_sample": False}}, timeout=30).json()
+    assert r["status"] == "success", r
+    return r["request_id"]
+
+
+def _row(base, rid):
+    return requests.get(f"{base}/api/inference/status/{rid}",
+                        timeout=30).json()["request"]
+
+
+def _finish(base, rid, timeout=90.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        row = _row(base, rid)
+        if row["status"] in ("completed", "failed"):
+            return row
+        time.sleep(0.05)
+    raise AssertionError(f"request {rid} never finished")
+
+
+def _wait(pred, what, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def _serve_alone(cluster, side):
+    """Every prompt through a master whose only node is ``side``'s."""
+    m, base, _ = cluster["master"](**{side: cluster[side]})
+    rids = [_submit(base, p) for p in PROMPTS]
+    m.start_background()
+    rows = [_finish(base, rid) for rid in rids]
+    assert all(r["status"] == "completed" for r in rows), rows
+    return [r["result"] for r in rows]
+
+
+def test_engine_mode_port_node_equals_jax_node(cluster):
+    jax_texts = _serve_alone(cluster, "jax")
+    port_texts = _serve_alone(cluster, "port")
+    assert port_texts == jax_texts
+    assert any(jax_texts)
+    cluster["served"]["port"] = len(PROMPTS)
+    cluster["reference"] = dict(zip(PROMPTS, jax_texts))
+
+
+def test_batched_mode_through_inference_batch(cluster):
+    ref = cluster["reference"]
+    cluster["batched"]()
+    port = cluster["port"]
+    batch_rpcs = port.metrics.snapshot()["counters"]["batch_rpcs"]
+    m, base, ids = cluster["master"](jax=cluster["jax"], port=port)
+    prompts = PROMPTS * 2
+    rids = [_submit(base, p) for p in prompts]   # before the dispatcher
+    m.start_background()
+    rows = [_finish(base, rid) for rid in rids]
+    assert all(r["status"] == "completed" for r in rows), rows
+    for p, r in zip(prompts, rows):
+        assert r["result"] == ref[p], (p, r)
+    served = [ids[r["node_id"]] for r in rows]
+    assert set(served) == {"jax", "port"}, served
+    assert port.metrics.snapshot()["counters"]["batch_rpcs"] > batch_rpcs
+    cluster["served"]["port"] += served.count("port")
+
+    snap = requests.get(f"{base}/api/cluster_metrics", timeout=30).json()
+    [node] = [n for n in snap["nodes"] if n["name"] == "port"]
+    assert node["scraped"] is True, node
+    assert node["counters"]["requests_completed"] == \
+        cluster["served"]["port"]
+    assert snap["cluster"]["workers_scraped"] == 2
+
+
+class _Held:
+    """Holds a batcher's scheduler thread: each step waits for a permit,
+    so a request stays in flight for as long as the test needs it."""
+
+    def __init__(self, batcher):
+        self.batcher, self.steps = batcher, 0
+        self._sem = threading.Semaphore(0)
+        self._done = threading.Condition()
+        step = batcher.step
+
+        def held():
+            self._sem.acquire()
+            try:
+                return step()
+            finally:
+                with self._done:
+                    self.steps += 1
+                    self._done.notify_all()
+
+        batcher.step = held
+
+    def allow(self):
+        """Let one more step run and wait for it."""
+        with self._done:
+            want = self.steps + 1
+            self._sem.release()
+            assert self._done.wait_for(lambda: self.steps >= want, 60)
+
+    def release(self):
+        del self.batcher.step
+        self._sem.release(1000)
+
+
+def test_cancel_through_the_master_frees_the_port_slot(cluster):
+    port = cluster["port"]
+    b = port.models[MODEL].batcher
+    assert b is not None, "runs after the batched test"
+    free0 = b.stats()["blocks_free"]
+    m, base, _ = cluster["master"](port=port)
+    held = _Held(b)
+    try:
+        # "abc": 4 prompt tokens, no whole block left in the prefix cache
+        rid = _submit(base, "abc", new=100)
+        m.start_background()
+        tag = m._tag(rid)
+        _wait(lambda: tag in port._tagged, "the dispatch on the port node")
+        req = port._tagged[tag]
+        for _ in range(8):
+            if req.tokens:
+                break
+            held.allow()
+        assert req.tokens and b.stats()["active"] == 1
+        c = requests.post(f"{base}/api/inference/cancel/{rid}", timeout=30)
+        assert c.status_code == 200 and "relayed" in c.json()["message"], \
+            c.text
+        held.allow()              # the next step drops the slot
+        assert req.done.is_set() and b.stats()["active"] == 0
+        assert b.stats()["blocks_free"] == free0
+    finally:
+        held.release()
+    row = _finish(base, rid)
+    assert row["status"] == "failed" and "cancel" in row["error"], row
+    assert port.metrics.snapshot()["counters"]["requests_cancelled"] == 1
