@@ -50,8 +50,9 @@ Phases (any failure fails the run, exit code != 0):
    full-width llama-3-8b (random weights from a seed, bf16, max_seq 4096)
    through POST /load_model and three POST /inference requests in
    different prefill buckets (one greedy, two sampled, 32 new tokens).
-   Kernel launch counts are zeroed just before and read just after, and
-   each request must add one flash_attention launch per layer, each in
+   Kernel launch counts are zeroed just before and read just after (a
+   replayed decode program counts what its capture recorded; see 13),
+   and each request must add one flash_attention launch per layer, each in
    the tensor-core form (the "flash_attention[mma]" count), and one
    flash_decode launch per layer per decode step, and no other. Every
    bf16 q4_matmul / q4_matmul_row call of phases 7, 9 and 10 must run in
@@ -136,6 +137,26 @@ Phases (any failure fails the run, exit code != 0):
    drained), /undrain, then 200. /metrics parses line by line (every
    family typed, buckets non-decreasing) and
    dli_requests_completed_total moves by the phase's completions.
+13. The decode programs (runtime/graphs.py): every phase above runs the
+   engine's and the batcher's decode step as a captured CUDA graph (the
+   default), counting each replay's launches, so their exact counts are
+   those of the launches the card ran. Phase 13 runs the same paths with
+   graphs on and off (DLI_CUDA_GRAPHS=0) at full width and depth
+   (llama-3-8b, bf16 activations, max_seq 4096): phase 3's three
+   requests in engine mode, bf16 and int4 (one load each), and phase 5's
+   8 bodies as one /inference_batch (one enqueue: the same admission
+   waves in both modes) per decode route, paged and fused, bf16 and
+   int4, on a fresh load per mode. Both modes must give the same tokens
+   (greedy and sampled), the same launch counts per request, the same
+   weight passes and launches per wave. One replay of each captured
+   program, profiled with torch.profiler, must run on the device exactly
+   the kernels its launch counts add (the capture's record). Reports ms
+   per engine decode step and prefill, ms per batched weight pass and
+   tokens/s, each with graphs on and off, the capture times, the graph
+   pool's bytes, the profiled replays, and torch.cuda.memory_allocated()
+   before each load (cuBLAS's cached workspaces dropped first, no model
+   loaded) and after its unload, which must not be above the first, with
+   no segment of the graphs' pool left.
 
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
@@ -982,7 +1003,8 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
         assert passes <= new and (len(toks) == new or (
             len(toks) < new and passes >= len(toks) + 1)), (toks, passes)
         row = {"prompt_tokens": n_tok, "sampling": sampling or "default",
-               "new_tokens": len(toks), "weight_passes": passes,
+               "tokens": toks, "new_tokens": len(toks),
+               "weight_passes": passes,
                "prefill_ms": r["prefill_ms"],
                "decode_ms_per_weight_pass": r["decode_ms"] / (passes - 1),
                "decode_tokens_per_s": r["tokens_per_s"],
@@ -1249,6 +1271,10 @@ def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None):
     assert max(cached) >= SHARED_PREFIX, \
         f"shared-prefix requests cached {cached} prompt tokens"
     peak = torch.cuda.max_memory_allocated()
+    st, health = _http(base + "/health")
+    [desc] = [m for m in health["loaded_models"] if m["name"] == name]
+    # the captured decode step's scratch (int8: its bf16 weight copies)
+    pool = desc["scheduler"]["decode_graph_pool_bytes"]
     # drop the recorder (it holds the model) before the unload frees it
     del batcher.model.paged_prefill_tail, batcher, recorded, prefill
     summary = {"weights": quant or "bf16", "route": route, "wall_s": wall,
@@ -1259,7 +1285,7 @@ def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None):
                "decode_chunk_ms_per_weight_pass": 1e3 * chunk_s / passes,
                "prefill_wave_rows": wave_rows,
                "param_bytes": desc["param_bytes"],
-               "peak_memory_bytes": peak,
+               "peak_memory_bytes": peak, "decode_graph_pool_bytes": pool,
                "launches": launches, "requests": rows}
     for row in rows:
         log("  request", json.dumps(row))
@@ -1882,10 +1908,11 @@ def _call(url, body=None, key=None, headers=None, timeout=900):
 def _stream_lines(url, body, key, timeout=900):
     """POST ``body`` and return [(seconds since the call, line)], each
     line timed as it arrives (SSE events, JSON lines)."""
-    req = urllib.request.Request(
-        url, data=json.dumps(body).encode(), method="POST",
-        headers={"Content-Type": "application/json",
-                 "Authorization": f"Bearer {key}"})
+    headers = {"Content-Type": "application/json"}
+    if key:
+        headers["Authorization"] = f"Bearer {key}"
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 method="POST", headers=headers)
     t0 = time.perf_counter()
     out = []
     with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -2202,6 +2229,269 @@ def _drain_check(worker, call, bodies):
     return {"drain_ms": drain_ms}, 2
 
 
+# ---------------------------------------------------------------------
+# phase 13: the decode programs, captured (CUDA graphs) and eager
+# ---------------------------------------------------------------------
+
+def _graphs_on(on: bool):
+    os.environ["DLI_CUDA_GRAPHS"] = "1" if on else "0"
+
+
+def _allocated(torch) -> int:
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _baseline(torch) -> int:
+    """The device memory allocated before a load, with no model loaded:
+    cuBLAS's cached workspaces dropped first, so that an unload cannot
+    pass its check by dropping workspaces made before its load."""
+    from distributed_llm_inferencing_tpu_torch.runtime import graphs
+    gc.collect()
+    assert graphs.drop_idle_cublas_workspaces(), \
+        "an owner of decode programs is still alive"
+    return _allocated(torch)
+
+
+# per counted kernel (runtime/lockstep.py names), the device kernels that
+# count one launch of it in a profile (the q4 kernels are those of both
+# q4 wrappers; profile_engine/profile_batched match the same names)
+REPLAY_KERNELS = (
+    ("flash_attention", ("flash_attention",),
+     ("prefill_kernel<", "prefill_mma_kernel<")),
+    ("flash_decode", ("flash_decode",), ("decode_split_kernel<",)),
+    ("paged_flash_decode", ("paged_flash_decode",), ("paged_split_kernel",)),
+    ("fused_decode_step", ("fused_decode_step",), ("fused_cluster_kernel",)),
+    ("q4", ("q4_matmul", "q4_matmul_row"),
+     ("q4_mma_kernel<", "q4_matmul_kernel<")),
+    ("q4[mma]", ("q4_matmul[mma]", "q4_matmul_row[mma]"),
+     ("q4_mma_kernel<",)),
+)
+
+
+def _replay_profiled(torch, kernels, prog, decode):
+    """One replay of the captured ``prog`` under torch.profiler (CUPTI
+    reports each kernel a graph runs): per REPLAY_KERNELS entry, the
+    launches the replay counted and the kernels the device ran; they must
+    be equal, the counted ones must be the capture's record, and the
+    step's ``decode`` kernel must have run."""
+    from torch.profiler import ProfilerActivity, profile
+    assert prog.captured
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prog()
+        torch.cuda.synchronize()
+    counted = read_counts(kernels)
+    names = [e.name for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    record = {}
+    for (fn, attr), n in prog.record.items():
+        name = fn.__name__ + ("[mma]" if attr == "launches_mma" else "")
+        record[name] = record.get(name, 0) + n
+    assert {k: v for k, v in counted.items() if v} == record, \
+        (counted, record)
+    out = {}
+    for label, book, device in REPLAY_KERNELS:
+        out[label] = {"counted": sum(counted[k] for k in book),
+                      "ran": sum(any(d in n for d in device) for n in names)}
+        assert out[label]["counted"] == out[label]["ran"], (label, out)
+    assert out[decode]["ran"] > 0, out
+    return out
+
+
+def _programs(worker, name):
+    """The loaded model's decode programs: (capture seconds of each
+    captured one, /health's decode program stats)."""
+    lm = worker.models[name]
+    progs = (lm.engine or lm.batcher).programs
+    _, health = _http(_worker_base(worker) + "/health")
+    [desc] = [m for m in health["loaded_models"] if m["name"] == name]
+    stats = desc if lm.engine else desc["scheduler"]
+    return ([p.capture_s for p in progs.programs() if p.capture_s is not None],
+            {k: stats[k] for k in ("decode_programs", "decode_graphs_captured",
+                                   "decode_graph_pool_bytes")})
+
+
+def _worker_base(worker) -> str:
+    return f"http://127.0.0.1:{worker.service.port}"
+
+
+def _unload(torch, worker, name, before):
+    """Unload ``name``; the device memory allocated must be back at (or
+    under) ``before``, its value before the load (``_baseline``): the
+    weights, the kept decode state, the graphs and cuBLAS's workspaces
+    all freed, and no segment of the graphs' pool left."""
+    lm = worker.models[name]
+    pool = (lm.engine or lm.batcher).programs.pool
+    del lm
+    st, _ = _http(_worker_base(worker) + "/unload_model", {"model_name": name})
+    assert st == 200
+    after = _allocated(torch)
+    assert after <= before, \
+        f"unload left {after - before} bytes allocated ({before} -> {after})"
+    torch.cuda.empty_cache()
+    left = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if pool is not None and tuple(seg["segment_pool_id"]) == pool]
+    assert not left, f"the graphs' pool {pool} kept segments {left}"
+    return after
+
+
+def _graphs_engine(torch, worker, kernels, cfg, quant):
+    """Phase 3's three requests through one engine-mode load of
+    llama-3-8b (bf16 activations, ``quant`` weights), graphs on and then
+    off: each with _engine_requests' exact counts, and the same tokens
+    and launches on both sides."""
+    name, L = "llama-3-8b", cfg.num_layers
+    before = _baseline(torch)
+    st, res = _http(_worker_base(worker) + "/load_model", {
+        "model_name": name, "allow_random_init": True, "dtype": "bfloat16",
+        "max_seq": 4096, **({"quantize": quant} if quant else {})})
+    assert st == 200 and res["status"] == "success", res
+    runs = {}
+    for on in (True, False):
+        _graphs_on(on)
+        runs[on] = _engine_requests(torch, _worker_base(worker), kernels, cfg,
+                                    name, 7 * L + 1 if quant else 0)[1]
+    capture_s, stats = _programs(worker, name)
+    for a, b in zip(runs[True], runs[False]):
+        assert a["tokens"] == b["tokens"], \
+            f"graphs on/off tokens differ: {a['tokens']} != {b['tokens']}"
+        assert a["launches"] == b["launches"], (a["launches"], b["launches"])
+    # each captured program's replay, profiled on the device
+    replays = [_replay_profiled(torch, kernels, p, "flash_decode")
+               for p in worker.models[name].engine.programs.programs()
+               if p.captured]
+    assert replays, "no captured program"
+    after = _unload(torch, worker, name, before)
+    step_ms = {("on" if on else "off"): [r["decode_ms_per_weight_pass"]
+                                         for r in runs[on]]
+               for on in (True, False)}
+    return {"weights": quant or "bf16", "ms_per_decode_step": step_ms,
+            "prefill_ms": {("on" if on else "off"): [r["prefill_ms"]
+                                                     for r in runs[on]]
+                           for on in (True, False)},
+            "capture_s": capture_s, **stats,
+            "launches_per_request": [r["launches"] for r in runs[True]],
+            "replay_profiled": replays,
+            "tokens_equal": len(runs[True]),
+            "memory_allocated_before_load": before,
+            "memory_allocated_after_unload": after}
+
+
+def _graphs_wave(torch, worker, kernels, cfg, route, quant, on):
+    """Phase 5's 8 bodies as one /inference_batch (one enqueue, so the
+    admission waves do not depend on arrival times) through a fresh
+    batched load of llama-3-8b, whose radix cache starts empty in both
+    modes. The route's decode kernel launches num_layers times per weight
+    pass and no other attention kernel; in int4 q4_matmul as phase 5
+    counts it."""
+    name, L = BATCHED_LOAD["model_name"], cfg.num_layers
+    _graphs_on(on)
+    os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
+    before = _baseline(torch)
+    st, res = _http(_worker_base(worker) + "/load_model",
+                    dict(BATCHED_LOAD, quantize=quant))
+    assert st == 200 and res["status"] == "success", res
+    capture_s, stats = _programs(worker, name)
+    assert stats["decode_graphs_captured"] == int(on), stats  # at the load
+    bodies = [dict(b, request_tag=f"p13-{quant}-{route}-{on}-{i}")
+              for i, b in enumerate(_batched_bodies(cfg))]
+    s0 = worker.metrics.snapshot()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    lines = _stream_lines(_worker_base(worker) + "/inference_batch",
+                          {"model_name": name, "requests": bodies}, None)
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    s1 = worker.metrics.snapshot()
+    passes, emitted = (s1["counters"][k] - s0["counters"].get(k, 0)
+                       for k in ("batcher_weight_passes",
+                                 "batcher_tokens_emitted"))
+    chunk_s = (s1["timings"]["batcher_decode_chunk"]["sum"]
+               - s0["timings"].get("batcher_decode_chunk", {}).get("sum", 0))
+    msgs = {m["request_tag"]: m for m in map(json.loads,
+                                             (x for _, x in lines))}
+    assert all(m["status"] == 200 for m in msgs.values()), msgs
+    tokens = [msgs[b["request_tag"]]["body"]["tokens"] for b in bodies]
+    mine = "paged_flash_decode" if route == "paged" else "fused_decode_step"
+    other = "fused_decode_step" if route == "paged" else "paged_flash_decode"
+    assert launches[mine] == L * passes, (launches, passes)
+    assert launches[other] == launches["flash_decode"] == 0, launches
+    if quant == "int4":
+        assert launches["q4_matmul[mma]"] == launches["q4_matmul"] > 0
+    replay = None
+    if on:   # one replay of the captured step, profiled, every slot idle
+        b = worker.models[name].batcher
+        [prog] = [p for p in b.programs.programs() if p.captured]
+        with torch.inference_mode():
+            b._bufs.load(b._chunk_inputs(1))
+        replay = _replay_profiled(torch, kernels, prog, mine)
+        del b, prog
+    after = _unload(torch, worker, name, before)
+    generated = sum(len(t) for t in tokens)
+    return {"tokens": tokens, "launches": launches, "weight_passes": passes,
+            "wall_s": wall, "tokens_per_s": generated / wall,
+            "decode_tokens_per_weight_pass": emitted / passes,
+            "decode_chunk_ms_per_weight_pass": 1e3 * chunk_s / passes,
+            "capture_s": capture_s, **stats, "replay_profiled": replay,
+            "memory_allocated_before_load": before,
+            "memory_allocated_after_unload": after}
+
+
+def phase_graphs(torch, kernels, smi):
+    """Phase 13: the decode programs at full width and depth (llama-3-8b,
+    bf16 activations, max_seq 4096), captured as CUDA graphs (the
+    default) and run eagerly (DLI_CUDA_GRAPHS=0), through the worker:
+    phase 3's engine requests in bf16 and int4 (one load each, graphs on
+    then off), and phase 5's wave as one /inference_batch per route
+    (paged, fused) in bf16 and int4, on a fresh load per mode. Both modes
+    must give the same tokens, greedy and sampled, and the same launch
+    counts (per request; per weight pass, and the same passes); one
+    replay of each captured program, profiled on the device, must run
+    exactly the kernels its launch counts add; every unload must give
+    back the device memory its load took."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = get_config("llama-3-8b")
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    report = {"smi": smi, "engine": {}, "batched": {}}
+    try:
+        for quant in (None, "int4"):
+            row = _graphs_engine(torch, worker, kernels, cfg, quant)
+            report["engine"][row["weights"]] = row
+            log(f"  engine {row['weights']} [{smi}]", json.dumps(
+                {k: v for k, v in row.items()
+                 if k != "launches_per_request"}))
+        for quant in (None, "int4"):
+            for route in ("paged", "fused"):
+                runs = {on: _graphs_wave(torch, worker, kernels, cfg, route,
+                                         quant, on) for on in (True, False)}
+                on, off = runs[True], runs[False]
+                assert on["tokens"] == off["tokens"], \
+                    f"{quant} {route}: graphs on/off tokens differ"
+                assert on["weight_passes"] == off["weight_passes"] \
+                    and on["launches"] == off["launches"], \
+                    (on["launches"], off["launches"])
+                key = f"{quant or 'bf16'}_{route}"
+                report["batched"][key] = {
+                    mode: {k: v for k, v in r.items() if k != "tokens"}
+                    for mode, r in (("on", on), ("off", off))}
+                log(f"  batched {key} [{smi}]",
+                    json.dumps(report["batched"][key]))
+    finally:
+        os.environ.pop("DLI_CUDA_GRAPHS", None)
+        os.environ.pop("DLI_FUSED_DECODE", None)
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
 def timed_rows(torch):
     """Phase 2's timed rows alone (every kernel at its serving shapes,
     with its bound, plain and library times), for comparing two trees'
@@ -2371,6 +2661,11 @@ def main() -> int:
         "fused, /cancel, /drain; /metrics)")
     control = phase_control_surface(torch, counted, batched, smi)
 
+    log("phase 13: decode programs, CUDA graphs on and off (worker, "
+        "llama-3-8b full depth: engine bf16 and int4; /inference_batch "
+        "paged and fused, bf16 and int4)")
+    graphs_report = phase_graphs(torch, counted, smi)
+
     csrc = "distributed_llm_inferencing_tpu_torch/csrc/"
     pallas = "distributed_llm_inferencing_tpu/ops/pallas/"
     kernels = []
@@ -2433,7 +2728,7 @@ def main() -> int:
               "int4_row_bounds": row_bounds, "tp_serving": tp_serving,
               "fused_plans": plans,
               "tp_cross_check_max_abs_err": tp_xerr, "tp_depth": tp_depth,
-              "control_surface": control,
+              "control_surface": control, "graphs": graphs_report,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(HERE, "chiprun_out")
     if os.path.isdir(out_dir):

@@ -38,12 +38,14 @@ over the block pool (ops/paged_kvcache.py): ``paged_prefill_tail`` (a
 wave of prompt tails, each attending its cached prefix),
 ``paged_decode_step`` (one token per slot; the fused q-projection kernel
 behind ``DLI_FUSED_DECODE``, ops/fused_decode.py) and
-``paged_decode_chunk`` (K steps with sampling and the per-slot
-budget/eos lifecycle on the device, one host sync per chunk).
+``paged_chunk_step`` (one step of a K-step chunk with sampling and the
+per-slot budget/eos lifecycle on the device, over a static
+``PagedChunkState``; one host sync per chunk).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -350,9 +352,14 @@ class Transformer(nn.Module):
 
     def decode_step(self, tokens, cache: KVCache):
         """One decode step: tokens [B, 1], each sequence writing at its
-        own length; lengths advance by one."""
-        return self.forward(tokens, cache, cache.lengths,
-                            cache.lengths[:, None], cache.lengths + 1)
+        own length; ``cache.lengths`` advances by one in place, so the
+        engine's captured step keeps its addresses. Returns (logits,
+        cache)."""
+        new_lengths = cache.lengths + 1
+        logits, _ = self.forward(tokens, cache, cache.lengths,
+                                 cache.lengths[:, None], new_lengths)
+        cache.lengths.copy_(new_lengths)
+        return logits, cache
 
     # ------------------------------------------------------------------
     # Paged cache (continuous-batching serving path)
@@ -401,38 +408,64 @@ class Transformer(nn.Module):
                                    block_tables, context_lens, fused_rope)
         return self.unembed(x)[:, 0], paged
 
-    def paged_decode_chunk(self, k: int, tokens, paged: PagedKVCache,
-                           block_tables, context_lens, seeds, steps0, temps,
-                           tks, tps, ds, budget, eos_ids, dummy_block: int):
-        """K decode steps with sampling on the device for R slots — the
-        reference's stepwise formulation (``_paged_decode_chunk_stepwise``):
-        every step writes the pool and runs the paged (or fused) kernel.
+    def paged_chunk_step(self, s: "PagedChunkState", paged: PagedKVCache,
+                         dummy_block: int):
+        """Step ``s.t`` of a K-step decode chunk with sampling on the
+        device for R slots — the reference's stepwise formulation
+        (``_paged_decode_chunk_stepwise``): the step writes the pool and
+        runs the paged (or fused) kernel.
 
-        Per-slot lifecycle as device tensors: ``budget[r]`` tokens slot r
-        may still emit (0 = inactive); ``eos_ids[r]`` its eos (-1 = none;
-        eos is not emitted). A slot is alive until its budget is spent or
-        it samples eos; dead slots keep running with their writes
-        redirected to ``dummy_block`` and context length 0. Sampling keys
-        on ``steps0 + t`` per slot, so tokens do not depend on the chunk
-        size. No host sync: the caller syncs once on the outputs.
+        Per-slot lifecycle as device tensors: ``s.budget[r]`` tokens slot
+        r may still emit this chunk (0 = inactive); ``s.eos[r]`` its eos
+        (-1 = none; eos is not emitted). A slot is alive until its budget
+        is spent or it samples eos; dead slots keep running with their
+        writes redirected to ``dummy_block`` and context length 0.
+        Sampling keys on ``s.steps0 + s.t`` per slot, so tokens do not
+        depend on the chunk size. Every state tensor of ``s`` is updated
+        in place and the step's token and emit flag land in row ``s.t``
+        of ``s.toks``/``s.emits``; slot r emitted
+        ``toks[:emits[:, r].sum(), r]``. The step touches nothing but
+        ``s`` and the pool and never syncs with the host, so the batcher
+        captures it once and replays it K times (runtime/graphs.py)."""
+        alive = s.alive.bool()
+        t = s.t.long()
+        bt_eff = torch.where(alive[:, None], s.bt, dummy_block)
+        cl_eff = torch.where(alive, s.cl, 0)
+        logits, _ = self.paged_decode_step(s.cur, paged, bt_eff, cl_eff)
+        nxt = sample_batch(logits, s.seeds, s.steps0 + t, s.temps, s.tks,
+                           s.tps, s.ds.bool())
+        emit = alive & ~((s.eos >= 0) & (nxt == s.eos))
+        s.cl.add_(alive.to(s.cl.dtype))
+        s.alive.copy_(emit & (t + 1 < s.budget))
+        s.cur.copy_(nxt)
+        s.toks.index_copy_(0, t, nxt[None])
+        s.emits.index_copy_(0, t, emit[None])
+        s.t.add_(1)
 
-        Returns (toks [K,R], emits [K,R] bool, paged); slot r emitted
-        ``toks[:emits[:, r].sum(), r]``."""
-        alive = budget > 0
-        cur, cl = tokens, context_lens
-        dummy = torch.full_like(block_tables, dummy_block)
-        toks, emits = [], []
-        for t in range(k):
-            bt_eff = torch.where(alive[:, None], block_tables, dummy)
-            cl_eff = torch.where(alive, cl, torch.zeros_like(cl))
-            logits, paged = self.paged_decode_step(cur, paged, bt_eff,
-                                                   cl_eff)
-            nxt = sample_batch(logits, seeds, steps0 + t, temps, tks, tps,
-                               ds)
-            emit = alive & ~((eos_ids >= 0) & (nxt == eos_ids))
-            cl = cl + alive.to(cl.dtype)
-            alive = emit & (t + 1 < budget)
-            cur = nxt
-            toks.append(nxt)
-            emits.append(emit)
-        return torch.stack(toks), torch.stack(emits), paged
+
+@dataclasses.dataclass
+class PagedChunkState:
+    """A decode chunk's inputs and carried state for R slots, as
+    device tensors that ``Transformer.paged_chunk_step`` reads and updates
+    in place: tables ``bt`` [R,MB]; per slot the context length ``cl``,
+    the token fed next ``cur``, the sampling stream (``seeds``,
+    ``steps0``) and parameters (``temps``, ``tks``, ``tps``, ``ds``),
+    ``budget``, ``eos`` and ``alive``; the step counter ``t`` [1]; the
+    outputs ``toks``/``emits`` [K,R]. ``ds``/``alive`` are integers
+    (0 = False), as the batcher packs them (runtime/batcher.py
+    ``_ChunkBuffers``)."""
+    bt: torch.Tensor
+    cl: torch.Tensor
+    cur: torch.Tensor
+    seeds: torch.Tensor
+    steps0: torch.Tensor
+    temps: torch.Tensor
+    tks: torch.Tensor
+    tps: torch.Tensor
+    ds: torch.Tensor
+    budget: torch.Tensor
+    eos: torch.Tensor
+    alive: torch.Tensor
+    t: torch.Tensor
+    toks: torch.Tensor
+    emits: torch.Tensor

@@ -39,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from distributed_llm_inferencing_tpu_torch.ops import build
+from distributed_llm_inferencing_tpu_torch.ops import build, launches
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -205,8 +205,7 @@ def flash_attention(q, k, v, *, sliding_window: Optional[int] = None,
                 *ptrs, _DTYPE_CODE[q.dtype], B, S, H, k.shape[2], hd,
                 strides, 1.0 / math.sqrt(hd), window, stream)
     build.check(lib, err, "flash_attention kernel launch")
-    flash_attention.launches += 1
-    flash_attention.launches_mma += int(mma)
+    launches.count(flash_attention, mma)
     return out
 
 
@@ -330,7 +329,7 @@ def flash_decode(q, k, v, lengths, *, sliding_window: Optional[int] = None,
                      (out, (0, 2))),
             1.0 / math.sqrt(hd), window, stream)
     build.check(lib, err, "flash_decode kernel launch")
-    flash_decode.launches += 1
+    launches.count(flash_decode)
     return out
 
 

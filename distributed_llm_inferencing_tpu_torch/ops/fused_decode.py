@@ -57,7 +57,7 @@ from typing import Optional
 
 import torch
 
-from distributed_llm_inferencing_tpu_torch.ops import build, rope
+from distributed_llm_inferencing_tpu_torch.ops import build, launches, rope
 from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
     _DTYPE_CODE, _strides, _window)
 from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
@@ -409,7 +409,7 @@ def fused_decode_step(x, q_leaf, k_pool, v_pool, block_tables, context_lens,
                      (out, (0, 1))),
             1.0 / math.sqrt(hd), window, stream)
     build.check(lib, err, "fused_decode_step kernel launch")
-    fused_decode_step.launches += 1
+    launches.count(fused_decode_step)
     return out
 
 

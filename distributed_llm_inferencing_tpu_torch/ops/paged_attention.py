@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from distributed_llm_inferencing_tpu_torch.ops import build
+from distributed_llm_inferencing_tpu_torch.ops import build, launches
 from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
     MAX_HEAD_DIM, _DTYPE_CODE, _strides, _window, masked_attention)
 
@@ -211,7 +211,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, context_lens, *,
                      (out, (0, 2))),
             1.0 / math.sqrt(hd), window, stream)
     build.check(lib, err, "paged_flash_decode kernel launch")
-    paged_flash_decode.launches += 1
+    launches.count(paged_flash_decode)
     return out
 
 

@@ -51,7 +51,7 @@ import math
 
 import torch
 
-from distributed_llm_inferencing_tpu_torch.ops import build
+from distributed_llm_inferencing_tpu_torch.ops import build, launches
 from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
     _DTYPE_CODE)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
@@ -236,8 +236,7 @@ def q4_matmul(x, p4, scale):
     if x.device.type == "cpu":
         return q4_matmul_ref(x, p4, scale)
     out, mma = _launch("q4_matmul", x, p4, scale, 1)
-    q4_matmul.launches += 1
-    q4_matmul.launches_mma += int(mma)
+    launches.count(q4_matmul, mma)
     return out
 
 
@@ -253,8 +252,7 @@ def q4_matmul_row(x, p4, scale, chunks: int = 1):
     if x.device.type == "cpu":
         return q4_matmul_row_ref(x, p4, scale, chunks)
     out, mma = _launch("q4_matmul_row", x, p4, scale, chunks)
-    q4_matmul_row.launches += 1
-    q4_matmul_row.launches_mma += int(mma)
+    launches.count(q4_matmul_row, mma)
     return out
 
 

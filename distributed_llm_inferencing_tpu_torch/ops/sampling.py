@@ -6,30 +6,31 @@ pipeline as the reference's ``sample``: temperature, then top-k, then the
 nucleus filter in HF's TopPLogitsWarper order (the token that crosses the
 threshold is kept), and draws from what is left.
 
-Random streams: draws come from an explicit ``torch.Generator`` on the
-logits' device, seeded from the request seed (runtime/engine.py seeds one
-per request). The reference draws from ``jax.random`` keys split per step;
-the two generators give different numbers from the same seed, so a
-sampled request reproduces itself within this port but not the JAX
-package's tokens. Greedy decoding is identical on both sides; the tests
-hold sampled tokens to the support of the reference's ``warp_logits``
-(temperature -> top-k -> top-p; -inf outside what may be drawn).
+Random streams: counter-based, in plain torch ops (``_uniform``: an
+integer hash, no ``torch.Generator``). ``sample`` draws row r of a call
+from the key ``(seeds[r], step)``: the engine (runtime/engine.py) folds
+the row into the request seed (``row_seeds``) and counts the step on the
+device, so a request's tokens are a pure function of (weights, prompt,
+seed), whether its decode step runs eagerly or as a captured CUDA graph
+(a graph would bake a generator's state in) and however the decode is
+chunked — the property the JAX engine gets from splitting its key per
+step. The bits differ from ``jax.random``'s, so sampled tokens are held
+to the support of the reference's ``warp_logits`` (temperature -> top-k
+-> top-p; -inf outside what may be drawn), not to its tokens. Greedy
+decoding is identical on both sides.
 
 ``sample_batch`` is the continuous batcher's sampler: per-row parameters
-as tensors, and per-row draws from a counter-based generator keyed on the
-row's ``(seed, step)`` alone (``_uniform``: an integer hash in plain torch
-ops, no shared ``torch.Generator``). A request's tokens are therefore a
-pure function of (params, prompt, seed), whatever its chunk-mates and
-however admission and preemption interleave — the property the JAX
-batcher gets from ``fold_in(PRNGKey(seed), step)``. The bits differ from
-``jax.random``'s, so sampled tokens are held to the reference's support,
-not to its tokens; greedy rows are ``argmax``, bitwise.
+as tensors, and per-row draws from the same counter-based generator
+keyed on the row's ``(seed, step)`` alone. A request's tokens are
+therefore a pure function of (params, prompt, seed), whatever its
+chunk-mates and however admission and preemption interleave — the
+property the JAX batcher gets from ``fold_in(PRNGKey(seed), step)``;
+greedy rows are ``argmax``, bitwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import torch
 
@@ -54,19 +55,21 @@ def _nucleus(sorted_vals, p: float):
     return sorted_vals.masked_fill(~keep, float("-inf"))
 
 
-def _draw(probs, generator):
+def _draw(probs, key):
     """One categorical draw per row of probs [R, n]: argmax(p / E) with
-    E ~ Exp(1), which picks i with probability p_i. The same fast path
-    ``torch.multinomial`` takes for one sample, minus its validity check,
-    which syncs with the host on every call."""
-    e = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    E = -log(U) ~ Exp(1), which picks i with probability p_i. U comes from
+    the counter-based stream of ``key`` = (seeds [R], steps [R] or [1])
+    (``_uniform``), so the draw never syncs with the host."""
+    seeds, steps = key
+    e = -torch.log(_uniform(seeds, steps, probs.shape[-1]))
     return torch.argmax(probs / e, dim=-1, keepdim=True)
 
 
-def sample(logits, generator: Optional[torch.Generator],
-           params: SamplingParams):
+def sample(logits, key, params: SamplingParams):
     """Next tokens from logits [..., V]; returns [...] int64 on the logits'
-    device. Never syncs with the host (no ``.item()``)."""
+    device. ``key`` = (seeds, steps): row r of the flattened rows draws
+    from ``(seeds[r], steps[r])`` (steps may be one shared [1] counter);
+    greedy reads no key (None is fine). Never syncs with the host."""
     logits = logits.float()
     if not params.do_sample:
         return torch.argmax(logits, dim=-1)
@@ -79,16 +82,15 @@ def sample(logits, generator: Optional[torch.Generator],
         vals, idx = torch.topk(flat, params.top_k, dim=-1)   # descending
         if params.top_p < 1.0:
             vals = _nucleus(vals, params.top_p)
-        j = _draw(torch.softmax(vals, dim=-1), generator)
+        j = _draw(torch.softmax(vals, dim=-1), key)
         out = torch.gather(idx, -1, j)[:, 0]
     else:
         if params.top_p < 1.0:
             sv, si = torch.sort(flat, dim=-1, descending=True)
-            j = _draw(torch.softmax(_nucleus(sv, params.top_p), dim=-1),
-                      generator)
+            j = _draw(torch.softmax(_nucleus(sv, params.top_p), dim=-1), key)
             out = torch.gather(si, -1, j)[:, 0]
         else:
-            out = _draw(torch.softmax(flat, dim=-1), generator)[:, 0]
+            out = _draw(torch.softmax(flat, dim=-1), key)[:, 0]
     return out.reshape(lead)
 
 
@@ -119,6 +121,14 @@ def _uniform(seeds, steps, n: int):
     j = torch.arange(n, dtype=torch.int64, device=seeds.device)
     h = _hash32(_hash32((key[:, None] + j * 0x9E3779B9) & _M32))
     return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def row_seeds(seed: int, rows: int, device=None):
+    """[rows] int64 stream seeds of one request's rows: the row folded
+    into the request ``seed``, so the rows of one call draw
+    independently."""
+    r = torch.arange(rows, dtype=torch.int64, device=device)
+    return _hash32(_hash32(r) ^ (int(seed) & _M32))
 
 
 def _gumbel_argmax(masked, seeds, steps):

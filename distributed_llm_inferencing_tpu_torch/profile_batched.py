@@ -8,15 +8,22 @@ Builds a ``ContinuousBatcher`` on the card (random weights, bf16
 activations, ``--quantize`` for int8 or int4 linears; 1024
 blocks of 16, max_seq 4096) and drives it synchronously: all requests
 are queued, one admission wave fills every slot, and one ``step()`` then
-decodes all of them together in one chunk. For each decode route (``paged``: ``paged_flash_decode``;
-``fused``: ``fused_decode_step`` with ``DLI_FUSED_DECODE=1``) it runs one
-warm-up round, ``--reps`` timed rounds (admission wave ms, decode chunk
-ms per weight pass, decode tokens per weight pass), and one round with
-the decode chunk under ``torch.profiler``: device time by kernel and the
-device's busy share of the chunk's wall time (one stream, so kernels
-never overlap), the attention kernel's time per launch (for
-``paged_flash_decode`` its split pass and merge together) and
-the q4 kernels' in int4.
+decodes all of them together in one chunk. For each decode route
+(``paged``: ``paged_flash_decode``; ``fused``: ``fused_decode_step`` with
+``DLI_FUSED_DECODE=1``), and in it for the decode step captured as a
+CUDA graph and run eagerly (``DLI_CUDA_GRAPHS`` 1 then 0,
+runtime/graphs.py; the batcher captures at construction, as the worker's
+load does, and the capture time is reported), it runs one warm-up
+round, ``--reps`` timed rounds (admission wave ms, decode chunk ms per
+weight pass, decode tokens per weight pass), and one round with the
+decode chunk under ``torch.profiler``: device time by kernel, its sum
+per weight pass, and the device's busy share: that sum over the timed
+rounds' median ms per weight pass (one stream, so kernels never overlap;
+the profiler itself slows the host and each graph replay, so its own
+round's wall time is reported but not divided by), the attention
+kernel's time per launch (for
+``paged_flash_decode`` its split pass and merge together) and the q4
+kernels' in int4.
 Prints one JSON object. Needs a GPU.
 """
 
@@ -26,6 +33,7 @@ import argparse
 import gc
 import json
 import os
+import statistics
 import subprocess
 import time
 
@@ -62,6 +70,41 @@ def _round(b, prompts, new, sp, prof=None):
                 sum(len(r.tokens) - 1 for r in reqs) / passes}
 
 
+def _profile(b, prompts, new, sp, reps):
+    """One warm-up round, ``reps`` timed ones and one with the decode
+    chunk under torch.profiler, through ``b`` as it is set up now."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    _round(b, prompts, new, sp)                                # warm-up
+    timed = [_round(b, prompts, new, sp) for _ in range(reps)]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof_round = _round(b, prompts, new, sp, prof)
+    kernels = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.key and not evt.key.startswith("aten::"):
+            kernels[evt.key] = {"device_ms": us / 1e3, "calls": evt.count}
+    device_ms = sum(k["device_ms"] for k in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])
+    per_pass = device_ms / prof_round["weight_passes"]
+    return {
+        "timed_rounds": timed,
+        "device_ms_per_weight_pass": per_pass,
+        "device_busy_share": per_pass / statistics.median(
+            r["ms_per_weight_pass"] for r in timed),
+        "profiled_round": {
+            **prof_round, "device_kernel_ms": device_ms,
+            # paged_flash_decode = its split pass + its merge, per call;
+            # fused_decode_step = one cluster kernel per call
+            "attention_kernel": per_launch(
+                kernels, ("paged_split_kernel", "paged_combine_kernel",
+                          "fused_cluster_kernel"),
+                counted=("paged_split_kernel", "fused_cluster_kernel")),
+            "q4_kernel": per_launch(kernels, Q4_KERNELS, Q4_COUNTED),
+            "top_kernels": [{"name": k[:90], **v} for k, v in top[:12]]},
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="llama-3-8b")
@@ -72,7 +115,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from distributed_llm_inferencing_tpu_torch.models.registry import (
         get_config)
@@ -95,43 +137,23 @@ def main(argv=None):
            "new_tokens": args.new, "routes": {}}
     for route in ("paged", "fused"):
         os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
+        os.environ["DLI_CUDA_GRAPHS"] = "1"
         # chunked prefill off: the whole wave admits in one step
         b = ContinuousBatcher(cfg, num_blocks=1024, block_size=16,
                               slots=args.slots, max_seq=4096,
                               prefill_chunk=None, device="cuda")
-        _round(b, prompts, args.new, sp)                      # warm-up
-        reps = [_round(b, prompts, args.new, sp) for _ in range(args.reps)]
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        prof_round = _round(b, prompts, args.new, sp, prof)
-        kernels = {}
-        for evt in prof.key_averages():
-            us = _device_us(evt)
-            if us > 0 and evt.key and not evt.key.startswith("aten::"):
-                kernels[evt.key] = {"device_ms": us / 1e3,
-                                    "calls": evt.count}
-        device_ms = sum(k["device_ms"] for k in kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])
-        out["routes"][route] = {
-            "timed_rounds": reps,
-            "profiled_round": {
-                **prof_round, "device_kernel_ms": device_ms,
-                "device_busy_share":
-                    device_ms / prof_round["decode_chunk_ms"],
-                # paged_flash_decode = its split pass + its merge, per
-                # call; fused_decode_step = one cluster kernel per call
-                "attention_kernel": per_launch(
-                    kernels, ("paged_split_kernel", "paged_combine_kernel",
-                              "fused_cluster_kernel"),
-                    counted=("paged_split_kernel", "fused_cluster_kernel")),
-                "q4_kernel": per_launch(kernels, Q4_KERNELS, Q4_COUNTED),
-                "top_kernels": [{"name": k[:90], **v}
-                                for k, v in top[:12]]},
-        }
+        b.warm_decode_programs()
+        out["routes"][route] = {"graphs": {}, "capture_s": [
+            p.capture_s for p in b.programs.programs()]}
+        for mode in ("on", "off"):
+            os.environ["DLI_CUDA_GRAPHS"] = "1" if mode == "on" else "0"
+            out["routes"][route]["graphs"][mode] = _profile(
+                b, prompts, args.new, sp, args.reps)
         b.stop()
         del b
         gc.collect()
         torch.cuda.empty_cache()
+    os.environ.pop("DLI_CUDA_GRAPHS", None)
     os.environ.pop("DLI_FUSED_DECODE", None)
     print(json.dumps(out), flush=True)
 

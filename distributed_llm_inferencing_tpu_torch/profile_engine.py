@@ -5,21 +5,28 @@
         [--quantize int8|int4]
 
 Loads the model with random weights (bf16 activations; ``--quantize``
-draws the linears as int8 or int4 weights) on the card, runs one request
-to warm up (first-use cuBLAS and kernel loading), then ``--reps`` timed
-greedy requests (prefill ms and decode tokens/s from CUDA events), then
-one request under ``torch.profiler``: device time by kernel, the two
-attention kernels' time per launch (``flash_decode``'s split pass and
-merge together), and the device's busy share of the decode wall time
-(sum of kernel time over wall time; one stream, so kernels never
-overlap), with the q4 kernels' time per launch in int4.
-Prints one JSON object. Needs a GPU.
+draws the linears as int8 or int4 weights) on the card, then for the
+decode step captured as a CUDA graph and run eagerly
+(``DLI_CUDA_GRAPHS`` 1 and 0, runtime/graphs.py), in that order on the
+same engine: one request to warm up (first-use cuBLAS and kernel
+loading; with graphs, the capture, whose time is reported), ``--reps``
+timed greedy requests (prefill ms, ms per decode step and decode
+tokens/s from CUDA events), then one request under ``torch.profiler``:
+device time by kernel, the two attention kernels' time per launch
+(``flash_decode``'s split pass and merge together), and the device's
+busy share: the request's kernel time over the timed requests' median
+prefill + decode ms (one stream, so kernels never overlap; the profiler
+itself slows the host and each graph replay, so its own request's wall
+time is reported but not divided by), with the q4 kernels' time per
+launch in int4. Prints one JSON object. Needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import statistics
 import subprocess
 import time
 
@@ -48,37 +55,14 @@ def per_launch(kernels, names, counted=None):
             "us_per_launch": 1e3 * ms / n if n else None}
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="llama-3-8b")
-    ap.add_argument("--dtype", default="bfloat16")
-    ap.add_argument("--prompt", type=int, default=500)
-    ap.add_argument("--new", type=int, default=32)
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--max-seq", type=int, default=4096)
-    ap.add_argument("--quantize", choices=("int8", "int4"), default=None)
-    args = ap.parse_args(argv)
-
+def _profile(eng, prompt, args):
+    """One warm-up request, ``args.reps`` timed ones and one under
+    torch.profiler, greedy, through ``eng`` as it is set up now."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_llm_inferencing_tpu_torch.models.registry import (
-        get_config)
-    from distributed_llm_inferencing_tpu_torch.ops import (
-        flash_attention as fa, quant_matmul as qm)
     from distributed_llm_inferencing_tpu_torch.ops.sampling import (
         SamplingParams)
-    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
-        InferenceEngine)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    cfg = get_config(args.model).replace(dtype=args.dtype,
-                                         quant=args.quantize)
-    eng = InferenceEngine(cfg, max_seq=args.max_seq, device="cuda")
-    prompt = [(i * 7919) % 30000 + 3 for i in range(args.prompt)]
     greedy = SamplingParams.greedy()
     eng.generate([prompt], max_new_tokens=args.new, sampling=greedy)  # warm
 
@@ -103,16 +87,15 @@ def main(argv=None):
             kernels[evt.key] = {"device_ms": us / 1e3, "calls": evt.count}
     device_ms = sum(k["device_ms"] for k in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])[:12]
-
-    out = {
-        "smi": smi, "model": args.model, "dtype": args.dtype,
-        "quantize": args.quantize,
-        "prompt_tokens": args.prompt, "new_tokens": args.new,
-        "warm_requests": reps,
+    return {
+        "timed_requests": reps,
         "profiled_request": {
             "wall_ms": wall_ms, "prefill_ms": r.prefill_ms,
-            "decode_ms": r.decode_ms, "device_kernel_ms": device_ms,
-            "device_busy_share": device_ms / wall_ms,
+            "decode_ms": r.decode_ms,
+            "ms_per_decode_step": r.decode_ms / max(1, r.steps - 1),
+            "device_kernel_ms": device_ms,
+            "device_busy_share": device_ms / statistics.median(
+                t["prefill_ms"] + t["decode_ms"] for t in reps),
             "prefill_kernel": per_launch(kernels, ("prefill_kernel<",
                                                    "prefill_mma_kernel<")),
             # flash_decode = its split pass + its merge, per call
@@ -122,11 +105,48 @@ def main(argv=None):
             "q4_kernel": per_launch(kernels, Q4_KERNELS, Q4_COUNTED),
             "top_kernels": [{"name": k[:90], **v} for k, v in top],
         },
-        "launches": {"flash_attention": fa.flash_attention.launches,
-                     "flash_decode": fa.flash_decode.launches,
-                     "q4_matmul": qm.q4_matmul.launches,
-                     "q4_matmul[mma]": qm.q4_matmul.launches_mma},
     }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="llama-3-8b")
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--prompt", type=int, default=500)
+    ap.add_argument("--new", type=int, default=32)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--max-seq", type=int, default=4096)
+    ap.add_argument("--quantize", choices=("int8", "int4"), default=None)
+    args = ap.parse_args(argv)
+
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.ops import (
+        flash_attention as fa, quant_matmul as qm)
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cfg = get_config(args.model).replace(dtype=args.dtype,
+                                         quant=args.quantize)
+    eng = InferenceEngine(cfg, max_seq=args.max_seq, device="cuda")
+    prompt = [(i * 7919) % 30000 + 3 for i in range(args.prompt)]
+    out = {"smi": smi, "model": args.model, "dtype": args.dtype,
+           "quantize": args.quantize, "prompt_tokens": args.prompt,
+           "new_tokens": args.new, "graphs": {}}
+    for mode in ("on", "off"):
+        os.environ["DLI_CUDA_GRAPHS"] = "1" if mode == "on" else "0"
+        out["graphs"][mode] = _profile(eng, prompt, args)
+    os.environ.pop("DLI_CUDA_GRAPHS", None)
+    out["capture_s"] = [p.capture_s for p in eng.programs.programs()
+                        if p.capture_s is not None]
+    out["launches"] = {"flash_attention": fa.flash_attention.launches,
+                       "flash_decode": fa.flash_decode.launches,
+                       "q4_matmul": qm.q4_matmul.launches,
+                       "q4_matmul[mma]": qm.q4_matmul.launches_mma}
     print(json.dumps(out), flush=True)
 
 

@@ -7,8 +7,15 @@ the card without head-of-line blocking.
 
 - **Chunked decode**: each step runs up to K decode iterations with
   sampling and the per-slot budget/eos lifecycle on the device
-  (``Transformer.paged_decode_chunk``); the host syncs once per chunk.
-  Growth blocks for the whole chunk are allocated before it runs.
+  (``Transformer.paged_chunk_step`` over one static ``PagedChunkState``);
+  the host syncs once per chunk. Growth blocks for the whole chunk are
+  allocated before it runs. The chunk's inputs go to the device in two
+  packed copies (``_ChunkBuffers``, the JAX batcher's ints/floats
+  packs), and each iteration is one decode program (runtime/graphs.py):
+  a CUDA graph captured once per (rows, table width, decode route) and
+  replayed K times, or the same step run eagerly on the CPU and with
+  ``DLI_CUDA_GRAPHS=0``. ``warm_decode_programs`` captures ahead of
+  traffic.
 - **Wave admission**: queued requests are admitted in waves, one batched
   tail prefill (``Transformer.paged_prefill_tail``) with first-token
   sampling per (tail bucket, prefix bucket) group.
@@ -26,17 +33,17 @@ Sampling parameters ride as per-row tensors and each row draws from its
 own (seed, step) stream (ops/sampling.py ``sample_batch``), so a request's
 tokens are a pure function of (params, prompt, seed).
 
-PyTorch runs eagerly, so the JAX package's compiled-program caches
-(``_admit_jit``/``_decode_jit``) become direct calls. Not ported yet (in
-ROADMAP order): overlapped dispatch, speculation, the host KV tier and
-peer transfer, migration, LoRA, the multi-host ``program_hook``,
-pipeline parallelism and the phase profiler.
+Admission (the JAX package's ``_admit_jit``) runs eagerly. Not ported
+yet (in ROADMAP order): overlapped dispatch, speculation, the host KV
+tier and peer transfer, migration, LoRA, the multi-host
+``program_hook``, pipeline parallelism and the phase profiler.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -48,13 +55,15 @@ import torch
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
 from distributed_llm_inferencing_tpu_torch.models.params import init_params
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
-    Transformer)
+    PagedChunkState, Transformer)
+from distributed_llm_inferencing_tpu_torch.ops import fused_decode
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
     init_paged_cache)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
     maybe_quantize, maybe_quantize_embed)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import (
     SamplingParams, sample_batch)
+from distributed_llm_inferencing_tpu_torch.runtime import graphs
 from distributed_llm_inferencing_tpu_torch.runtime.block_pool import (
     BlockPool)
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
@@ -204,6 +213,11 @@ class ContinuousBatcher:
         self._step_count = 0
         self._tokens_out = 0
         self._chunk_sizes: set = set()
+        # the decode chunk's static buffers (made at the first chunk) and
+        # the decode programs over them, by (route, captured)
+        self._bufs: Optional[_ChunkBuffers] = None
+        self.programs = graphs.DecodePrograms(dev, self.metrics)
+        self._programs: dict = {}
 
     @property
     def decode_chunks(self):
@@ -302,6 +316,9 @@ class ContinuousBatcher:
             self.queue.clear()
         for req in drained:
             self._fail_req(req, "scheduler stopped")
+        self.programs.release()
+        self._programs.clear()
+        self._bufs = None
 
     def stats(self) -> dict:
         return {
@@ -318,6 +335,7 @@ class ContinuousBatcher:
             "chunked_admissions": self._chunked_admissions,
             "prefill_chunk": self.prefill_chunk,
             "pool": self.pool.stats(),
+            **self.programs.stats(),
         }
 
     # ---- device programs ----------------------------------------------
@@ -338,18 +356,54 @@ class ContinuousBatcher:
                              t(a["ds"], torch.bool))
         return first.tolist()
 
+    def _decode_program(self) -> graphs.DecodeProgram:
+        """The decode program of this batcher's rows and table width (both
+        fixed) on the current decode route (``fused_decode.eligible``, so
+        a route change never replays the other route's graph): captured
+        on a card unless ``DLI_CUDA_GRAPHS=0``, eager on the CPU."""
+        if self._bufs is None:
+            self._bufs = _ChunkBuffers(self.slots, self.max_blocks,
+                                       max(self.DECODE_CHUNKS), self.device)
+        key = (fused_decode.eligible(self.cfg, self.paged.quantized),
+               graphs.enabled(self.device))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = self.programs.make(
+                functools.partial(self.model.paged_chunk_step,
+                                  self._bufs.state, self.paged, self._dummy),
+                key[1])
+        return prog
+
     def _run_decode(self, a: dict):
-        """One K-token decode chunk. Returns (toks [K,R], emits [K,R]) as
+        """One K-token decode chunk: the inputs into the static buffers,
+        the decode program K times. Returns (toks [K,R], emits [K,R]) as
         host arrays (one host sync)."""
-        t = self._tensor
-        toks, emits, self.paged = self.model.paged_decode_chunk(
-            int(a["k"]), t(a["tokens"], torch.int64), self.paged, t(a["bt"]),
-            t(a["cl"]), t(a["seeds"]), t(a["steps"]),
-            t(a["temps"], torch.float32), t(a["tks"]),
-            t(a["tps"], torch.float32), t(a["ds"], torch.bool),
-            t(a["budget"]), t(a["eos"]), self._dummy)
-        both = torch.stack([toks, emits.to(toks.dtype)]).cpu().numpy()
+        k = int(a["k"])
+        step = self._decode_program()
+        self._bufs.load(a)
+        for _ in range(k):
+            step()
+        s = self._bufs.state
+        both = torch.stack([s.toks[:k], s.emits[:k].to(s.toks.dtype)])
+        both = both.cpu().numpy()
         return both[0], both[1].astype(bool)
+
+    @torch.inference_mode()
+    def warm_decode_programs(self) -> int:
+        """Capture the decode program of the current route ahead of
+        traffic (the JAX batcher's ``warm_decode_programs``): one real
+        step with every slot inactive, whose writes land in the reserved
+        dummy block and whose outputs are dropped, then the capture.
+        Returns the programs captured: 0 with graphs off or already
+        warm."""
+        if not graphs.enabled(self.device):
+            return 0
+        step = self._decode_program()
+        if step.captured:
+            return 0
+        self._bufs.load(self._chunk_inputs(1))
+        step()
+        return 1
 
     # ---- scheduling ---------------------------------------------------
 
@@ -775,17 +829,7 @@ class ContinuousBatcher:
         if not active:
             return 0
 
-        r = self.slots
-        a = {"k": k, "tokens": np.zeros((r,), np.int64),
-             "bt": self.block_tables, "cl": self.context_lens,
-             "seeds": np.zeros((r,), np.int32),
-             "steps": np.zeros((r,), np.int32),
-             "temps": np.ones((r,), np.float32),
-             "tks": np.zeros((r,), np.int32),
-             "tps": np.ones((r,), np.float32),
-             "ds": np.zeros((r,), bool),
-             "budget": np.zeros((r,), np.int32),
-             "eos": np.full((r,), -1, np.int32)}
+        a = self._chunk_inputs(k)
         for i in active:
             req = self.active[i]
             sp = req.sampling
@@ -801,6 +845,21 @@ class ContinuousBatcher:
                 a["eos"][i] = req.eos_token_id
         self._dispatch_plain_chunk(active, a)
         return len([x for x in self.active if x is not None])
+
+    def _chunk_inputs(self, k: int) -> dict:
+        """A K-step chunk's host inputs with every slot inactive (budget
+        0); the step fills in its active slots."""
+        r = self.slots
+        return {"k": k, "tokens": np.zeros((r,), np.int64),
+                "bt": self.block_tables, "cl": self.context_lens,
+                "seeds": np.zeros((r,), np.int32),
+                "steps": np.zeros((r,), np.int32),
+                "temps": np.ones((r,), np.float32),
+                "tks": np.zeros((r,), np.int32),
+                "tps": np.ones((r,), np.float32),
+                "ds": np.zeros((r,), bool),
+                "budget": np.zeros((r,), np.int32),
+                "eos": np.full((r,), -1, np.int32)}
 
     def _dispatch_plain_chunk(self, active, a: dict) -> int:
         """One K-token decode chunk: run, sync, emit, finish dead slots.
@@ -858,3 +917,58 @@ class ContinuousBatcher:
             if not busy and not self.queue:
                 self._work.wait(timeout=0.05)
                 self._work.clear()
+
+
+class _ChunkBuffers:
+    """The decode chunk's static device state (``PagedChunkState``) for R
+    slots over tables of MB blocks, as views of two packed buffers: int32
+    [bt | cl | cur | seeds | steps0 | tks | budget | eos | ds | alive | t]
+    and f32 [temps | tps], plus the outputs toks/emits [kmax, R]. ``load``
+    writes a chunk's host inputs into one staging copy of each (pinned on
+    a card) and copies each to the device once, without a sync: the
+    chunk's own sync on its outputs comes before the next load."""
+
+    ROW_FIELDS = ("cl", "cur", "seeds", "steps0", "tks", "budget", "eos",
+                  "ds", "alive")
+
+    def __init__(self, rows: int, mb: int, kmax: int, device: torch.device):
+        self.rows, self.mb = rows, mb
+        n = rows * mb + len(self.ROW_FIELDS) * rows + 1
+        pin = device.type == "cuda"
+        self.host_ints = torch.empty(n, dtype=torch.int32, pin_memory=pin)
+        self.host_floats = torch.empty(2 * rows, dtype=torch.float32,
+                                       pin_memory=pin)
+        self.ints = torch.empty(n, dtype=torch.int32, device=device)
+        self.floats = torch.empty(2 * rows, dtype=torch.float32,
+                                  device=device)
+        rows_at = {f: rows * (mb + i)
+                   for i, f in enumerate(self.ROW_FIELDS)}
+        fields = {f: self.ints[o:o + rows] for f, o in rows_at.items()}
+        self.state = PagedChunkState(
+            bt=self.ints[:rows * mb].view(rows, mb), **fields,
+            t=self.ints[n - 1:], temps=self.floats[:rows],
+            tps=self.floats[rows:],
+            toks=torch.empty((kmax, rows), dtype=torch.int64, device=device),
+            emits=torch.empty((kmax, rows), dtype=torch.bool, device=device))
+        self._host = {f: self.host_ints[o:o + rows].numpy()
+                      for f, o in rows_at.items()}
+
+    def load(self, a: dict):
+        """One chunk's inputs (``ContinuousBatcher._chunk_inputs``'s
+        keys), every slot's state reset: alive while it has budget, the
+        step counter at 0."""
+        r, mb = self.rows, self.mb
+        ints = self.host_ints.numpy()
+        ints[:r * mb] = np.asarray(a["bt"]).reshape(-1)
+        h = self._host
+        for f, key in (("cl", "cl"), ("cur", "tokens"), ("seeds", "seeds"),
+                       ("steps0", "steps"), ("tks", "tks"),
+                       ("budget", "budget"), ("eos", "eos"), ("ds", "ds")):
+            h[f][:] = a[key]
+        h["alive"][:] = np.asarray(a["budget"]) > 0
+        ints[-1] = 0
+        floats = self.host_floats.numpy()
+        floats[:r] = a["temps"]
+        floats[r:] = a["tps"]
+        self.ints.copy_(self.host_ints, non_blocking=True)
+        self.floats.copy_(self.host_floats, non_blocking=True)

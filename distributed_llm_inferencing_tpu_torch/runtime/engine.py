@@ -6,8 +6,19 @@ one device:
 - **prefill**: one forward over a right-padded prompt block whose length
   is rounded up to a bucket (``_bucket``); the last real logit of each
   sequence is gathered before the head.
-- **decode**: one forward per token over the dense cache, updated in
-  place; sampling runs on the device with a per-request generator.
+- **decode**: one step per token over the dense cache, updated in
+  place, with sampling on the device from counter-based streams keyed on
+  (request seed, row, step) (ops/sampling.py). The step is a decode
+  program (runtime/graphs.py, the reference's ``_decode_fns``): captured
+  as a CUDA graph once per (batch size, ``SamplingParams``) and replayed
+  per token, or run eagerly on the same buffers — on the CPU, with
+  ``DLI_CUDA_GRAPHS=0``, and under tp, whose gloo collectives cannot be
+  captured (capture over NCCL is a later slice). The step works on a
+  persistent per-batch-size state (``_Rows``: the dense cache, the token
+  fed next, the row seeds, the step counter, the request's tokens), kept
+  for ``ROWS_KEPT`` batch sizes and reset by each request's prefill,
+  since a graph holds addresses. Prefill and ``teacher_forced`` run
+  eagerly.
 - **host syncs**: tokens stay on the device. With no eos stop and no
   ``stream_cb`` the host syncs once per request; with either, once per
   decode chunk (``DECODE_CHUNKS``, capped at ``STREAM_CHUNK_MAX``), which
@@ -16,9 +27,8 @@ one device:
   tokens right after prefill (step 0), then once per decode step as each
   chunk lands; a finished row's entry is None.
 
-PyTorch runs eagerly, so the reference's compiled-program caches and its
-CPU-only XLA workarounds (layer unrolling, weight repacking, the dummy
-batch row) have no counterpart here.
+The reference's CPU-only XLA workarounds (layer unrolling, weight
+repacking, the dummy batch row) have no counterpart here.
 
 Tensor parallelism (``mesh_spec=MeshSpec(tp=N)``, the reference's mesh
 over tp): the engine built by the caller is rank 0, the leader. It spawns
@@ -35,7 +45,9 @@ path. ``close`` stops the followers.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import threading
 import time
 from typing import Callable, List, Optional, Sequence
@@ -47,16 +59,17 @@ from distributed_llm_inferencing_tpu_torch.models.params import (
     init_params, param_bytes, param_count)
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
     Transformer)
-from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
+from distributed_llm_inferencing_tpu_torch.ops.kvcache import (
+    KVCache, init_cache)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
     maybe_quantize, maybe_quantize_embed)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import (
-    SamplingParams, sample)
+    SamplingParams, row_seeds, sample)
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
     MeshSpec, TPGroup, validate_spec)
 from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
     chunk_markers, local_heads, shard_params, shard_tensor)
-from distributed_llm_inferencing_tpu_torch.runtime import lockstep
+from distributed_llm_inferencing_tpu_torch.runtime import graphs, lockstep
 from distributed_llm_inferencing_tpu_torch.utils.device import resolve_device
 from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
 
@@ -119,6 +132,28 @@ class _Clock:
         return (b - a) * 1e3
 
 
+@dataclasses.dataclass
+class _Rows:
+    """The engine's decode state for one batch size B, kept across
+    requests: the dense cache, the token fed next ``cur`` [B], each row's
+    stream seed ``seeds`` [B], the step counter ``step`` [1] (the index of
+    the token being sampled; the prefill's is 0) and the request's tokens
+    so far ``hist`` [max_seq, B]; and the decode programs over them, by
+    (``SamplingParams``, captured), oldest first."""
+    cache: KVCache
+    cur: torch.Tensor
+    seeds: torch.Tensor
+    step: torch.Tensor
+    hist: torch.Tensor
+    programs: "collections.OrderedDict" = dataclasses.field(
+        default_factory=collections.OrderedDict)
+
+    def release(self):
+        for prog in self.programs.values():
+            prog.release()
+        self.programs.clear()
+
+
 class InferenceEngine:
     """Owns one model's weights on one device (or one tp rank's shard of
     them) and serves ``generate``."""
@@ -127,6 +162,13 @@ class InferenceEngine:
     # look for eos, never per token
     DECODE_CHUNKS = (64, 32, 16, 8, 4, 2, 1)
     STREAM_CHUNK_MAX = 32
+    # decode programs kept per batch size (FIFO), the JAX engine's cap on
+    # _decode_fns: ~8 sampling configs' worth of its chunk schedule
+    PROGRAMS_MAX = 8 * len(DECODE_CHUNKS)
+    # batch sizes whose _Rows stay allocated between requests (LRU): each
+    # holds 2 x L x B x max_seq x Hkv x hd cache elements, 512 MiB per
+    # row at llama-3-8b with max_seq 4096 in bf16
+    ROWS_KEPT = 2
 
     def __init__(self, cfg: ModelConfig, params=None, *,
                  mesh_spec: Optional[MeshSpec] = None,
@@ -162,6 +204,9 @@ class InferenceEngine:
         else:
             self._load(params, seed)
         self._buckets_seen = set()
+        self._rows: "collections.OrderedDict[int, _Rows]" = \
+            collections.OrderedDict()
+        self.programs = graphs.DecodePrograms(self.device, self.metrics)
 
     def _load(self, params, seed):
         """Build this rank's weights and model."""
@@ -196,13 +241,13 @@ class InferenceEngine:
         with self._lock:
             return self._leader.run(name, kw, lambda: fn(**mine))
 
-    def _sample(self, logits, gen, sp):
+    def _sample(self, logits, key, sp):
         """The next tokens: sampled here, or under tp sampled on the
         leader and broadcast, so every rank feeds the same tokens."""
         if self.group is None:
-            return sample(logits, gen, sp)
+            return sample(logits, key, sp)
         if self.group.rank == 0:
-            cur = sample(logits, gen, sp)
+            cur = sample(logits, key, sp)
         else:
             cur = torch.empty(logits.shape[0], dtype=torch.int64,
                               device=self.device)
@@ -237,6 +282,52 @@ class InferenceEngine:
         return init_cache(self.cfg, batch, self.max_seq, device=self.device,
                           num_kv_heads=heads)
 
+    def _state(self, batch: int) -> _Rows:
+        """The kept ``_Rows`` of ``batch``, made on first use; making one
+        past ``ROWS_KEPT`` frees the least recently used and releases its
+        programs."""
+        st = self._rows.get(batch)
+        if st is not None:
+            self._rows.move_to_end(batch)
+            return st
+        if len(self._rows) >= self.ROWS_KEPT:
+            self._rows.popitem(last=False)[1].release()
+        z = functools.partial(torch.zeros, dtype=torch.int64,
+                              device=self.device)
+        st = self._rows[batch] = _Rows(
+            cache=self._cache(batch), cur=z(batch), seeds=z(batch),
+            step=z(1), hist=z((self.max_seq, batch)))
+        return st
+
+    def _advance(self, st: _Rows, logits, sp):
+        """Sample each row's token of step ``st.step`` from logits [B, V],
+        feed it next, keep it in ``st.hist`` and count the step: device
+        work only, no host sync."""
+        nxt = self._sample(logits, (st.seeds, st.step), sp)
+        st.cur.copy_(nxt)
+        st.hist.index_copy_(0, st.step, nxt[None])
+        st.step.add_(1)
+
+    def _decode_step(self, st: _Rows, sp):
+        """One decode step of every row over ``st``, in place: the
+        program a decode program runs (captured or eager)."""
+        logits, _ = self.model.decode_step(st.cur[:, None], st.cache)
+        self._advance(st, logits[:, 0], sp)
+
+    def _program(self, st: _Rows, sp) -> graphs.DecodeProgram:
+        """The decode program of (batch size, ``sp``), kept in ``st`` up
+        to ``PROGRAMS_MAX`` (FIFO): captured on a card unless
+        ``DLI_CUDA_GRAPHS=0``; eager on the CPU and under tp (the gloo
+        data group cannot be captured)."""
+        capture = graphs.enabled(self.device) and self.group is None
+        prog = st.programs.get((sp, capture))
+        if prog is None:
+            if len(st.programs) >= self.PROGRAMS_MAX:
+                st.programs.popitem(last=False)[1].release()
+            prog = st.programs[sp, capture] = self.programs.make(
+                functools.partial(self._decode_step, st, sp), capture)
+        return prog
+
     def generate(
         self,
         prompts: Sequence[Sequence[int]],
@@ -270,42 +361,38 @@ class InferenceEngine:
                   stream_cb=None) -> GenerateResult:
         dev, sp = self.device, sampling
         n = len(prompts)
-        cache = self._cache(n)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        st = self._state(n)
+        st.seeds.copy_(row_seeds(seed, n, dev))
+        st.step.zero_()
+        step = self._program(st, sp)
 
         clock = _Clock(dev)
         clock.mark()
-        last, cache = self._prefill(prompts, cache, gather=True)
-        cur = self._sample(last[:, 0], gen, sp)
+        last, filled = self._prefill(prompts, st.cache, gather=True)
+        st.cache.lengths.copy_(filled.lengths)
+        self._advance(st, last[:, 0], sp)
         clock.mark()
 
         steps = 1
         remaining = max_new_tokens - 1
         if eos_token_id is None and not stream:
-            toks = [cur]
             for _ in range(remaining):
-                logits, cache = self.model.decode_step(cur[:, None], cache)
-                cur = self._sample(logits[:, 0], gen, sp)
-                toks.append(cur)
+                step()
             steps += remaining
             clock.mark()
-            out = torch.stack(toks, dim=1).tolist()   # the one sync
+            out = st.hist[:steps].T.tolist()   # the one sync
         else:
             # eos stop and/or streaming: the host sees each chunk
-            out = [[t] for t in cur.tolist()]
+            out = [[t] for t in st.hist[0].tolist()]
             done = [o[0] == eos_token_id for o in out]
             if stream_cb:
                 stream_cb(0, [o[0] for o in out])
             while remaining > 0 and not all(done):
                 T = next(c for c in self.DECODE_CHUNKS
                          if c <= min(remaining, self.STREAM_CHUNK_MAX))
-                chunk = []
                 for _ in range(T):
-                    logits, cache = self.model.decode_step(cur[:, None],
-                                                           cache)
-                    cur = self._sample(logits[:, 0], gen, sp)
-                    chunk.append(cur)
-                rows = torch.stack(chunk, dim=0).tolist()  # one sync/chunk
+                    step()
+                rows = st.hist[steps:steps + T].tolist()   # one sync/chunk
                 for t, row in enumerate(rows):
                     if stream_cb:   # stream what lands in `out` this step
                         emit = [None if done[i] else row[i]
@@ -376,7 +463,11 @@ class InferenceEngine:
             self.group.counts = dict.fromkeys(self.group.counts, 0)
 
     def close(self):
-        """Stop the followers (tp); raises if one had to be killed."""
+        """Release the decode programs (their graphs and pool) and the
+        kept decode state, and stop the followers (tp); raises if one had
+        to be killed."""
+        self.programs.release()
+        self._rows.clear()
         if self._leader is not None:
             with self._lock:
                 self._leader.stop()
@@ -390,6 +481,7 @@ class InferenceEngine:
             "param_bytes": param_bytes(self.params),
             "max_seq": self.max_seq,
             "prefill_buckets_seen": sorted(self._buckets_seen),
+            **self.programs.stats(),
         }
         if self.group is not None:
             # this rank's share; every rank holds the same amount

@@ -10,8 +10,9 @@ so the reference master can drive either worker:
   models (with ``serving``, the weight quantization, ``param_bytes`` —
   the bytes the weights take as stored — and, for batched models, the
   scheduler's stats; for engine-mode ones the ``mesh``, and under tp the
-  data collectives' ``backend``, with ``param_bytes`` one rank's share),
-  metrics.
+  data collectives' ``backend``, with ``param_bytes`` one rank's share;
+  for both the decode programs kept, how many are captured CUDA graphs
+  and the bytes their pool holds, runtime/graphs.py), metrics.
 - ``GET /metrics``: the metrics registry as Prometheus text exposition.
 - ``POST /load_model``: ``model_name``, ``allow_random_init``, ``dtype``,
   ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
@@ -22,9 +23,12 @@ so the reference master can drive either worker:
   or with ``"serving": "batched"`` a ``ContinuousBatcher`` over a paged KV
   pool (``kv_blocks``, ``kv_block_size``, ``slots``, ``prefill_chunk``,
   ``decode_chunk_cap``) whose scheduler thread serves concurrent
-  requests.
-- ``POST /unload_model``: ``model_name``; under tp it stops the model's
-  follower processes.
+  requests; a batched load captures its decode program before it
+  answers (``warm_decode_programs``), so the first request pays no
+  capture.
+- ``POST /unload_model``: ``model_name``; releases the model's decode
+  programs (their graphs and graph pool) with its weights, and under tp
+  stops its follower processes.
 - ``POST /inference``: ``model_name``, ``prompt`` or ``prompt_tokens``,
   ``max_new_tokens`` (or ``max_length``), ``sampling``, ``seed``,
   ``timeout``, ``request_tag``; answers ``status``, ``result``,
@@ -85,7 +89,6 @@ import threading
 import time
 from typing import Dict, Optional
 
-import torch
 
 from distributed_llm_inferencing_tpu_torch.models.params import param_bytes
 from distributed_llm_inferencing_tpu_torch.models.registry import get_config
@@ -93,7 +96,7 @@ from distributed_llm_inferencing_tpu_torch.ops.quant import MODES
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
     MeshSpec, validate_spec)
-from distributed_llm_inferencing_tpu_torch.runtime import httpd
+from distributed_llm_inferencing_tpu_torch.runtime import graphs, httpd
 from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
     ContinuousBatcher)
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
@@ -153,6 +156,9 @@ class LoadedModel:
             out["mesh"] = stats["mesh"]
             if "backend" in stats:
                 out["backend"] = stats["backend"]
+            for k in ("decode_programs", "decode_graphs_captured",
+                      "decode_graph_pool_bytes"):
+                out[k] = stats[k]
         return out
 
     def close(self):
@@ -372,6 +378,7 @@ class WorkerAgent:
                                    if "prefill_chunk" in body else 32),
                     decode_chunk_cap=body.get("decode_chunk_cap"),
                     device=self.device, metrics=self.metrics)
+                batcher.warm_decode_programs()
                 batcher.start()
                 lm = LoadedModel(None, tok, "random-init", batcher=batcher)
                 stats = batcher.stats()
@@ -405,8 +412,7 @@ class WorkerAgent:
             m.close()
         del m
         gc.collect()
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
+        graphs.empty_cache(self.device)
         self.metrics.inc("models_unloaded")
         return {"status": "success", "message": f"model {name} unloaded"}
 

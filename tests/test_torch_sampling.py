@@ -1,9 +1,10 @@
 """The port's sampler against the JAX package's.
 
-Greedy must be bitwise (argmax, first maximum on ties). Sampled draws use
-a torch.Generator and cannot reproduce jax.random's stream, so a sampled
-token is held to the support of the reference's ``warp_logits``: it must
-never fall outside temperature -> top-k -> top-p.
+Greedy must be bitwise (argmax, first maximum on ties). Sampled draws
+come from the port's counter-based stream (keyed on (seed, step) per row)
+and cannot reproduce jax.random's, so a sampled token is held to the
+support of the reference's ``warp_logits``: it must never fall outside
+temperature -> top-k -> top-p.
 """
 
 import jax
@@ -45,10 +46,11 @@ def test_sampled_tokens_lie_in_reference_support(params):
     lg = _logits(1, (8, 500)) * 3.0
     jp, tp = jsmp.SamplingParams(**params), tsmp.SamplingParams(**params)
     support = np.isfinite(np.asarray(jsmp.warp_logits(jnp.asarray(lg), jp)))
-    gen = torch.Generator().manual_seed(11)
+    seeds = tsmp.row_seeds(11, 8)
     seen = set()
-    for _ in range(200):
-        tok = tsmp.sample(torch.from_numpy(lg), gen, tp).numpy()
+    for step in range(200):
+        tok = tsmp.sample(torch.from_numpy(lg),
+                          (seeds, torch.tensor([step])), tp).numpy()
         assert support[np.arange(8), tok].all()
         seen.update(zip(range(8), tok.tolist()))
     if params["top_k"] != 1:
@@ -58,17 +60,17 @@ def test_sampled_tokens_lie_in_reference_support(params):
 def test_same_seed_same_draws():
     lg = torch.from_numpy(_logits(2))
     sp = tsmp.SamplingParams(temperature=1.0, top_k=20, top_p=0.9)
-    a = [tsmp.sample(lg, torch.Generator().manual_seed(5), sp)
-         for _ in range(2)]
-    assert torch.equal(a[0], a[1])
+    a, b, c = (tsmp.sample(lg, (tsmp.row_seeds(s, 4), torch.tensor([3])),
+                           sp) for s in (5, 5, 6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
 
 
 def test_draw_frequencies_follow_the_distribution():
     probs = torch.tensor([[0.5, 0.3, 0.2, 0.0]])
-    gen = torch.Generator().manual_seed(0)
+    seeds = tsmp.row_seeds(0, 1)
     counts = torch.zeros(4)
-    for _ in range(4000):
-        counts[tsmp._draw(probs, gen)[0, 0]] += 1
+    for step in range(4000):
+        counts[tsmp._draw(probs, (seeds, torch.tensor([step])))[0, 0]] += 1
     assert counts[3] == 0
     np.testing.assert_allclose((counts / counts.sum()).numpy(),
                                probs[0].numpy(), atol=0.03)
