@@ -158,6 +158,30 @@ Phases (any failure fails the run, exit code != 0):
    loaded) and after its unload, which must not be above the first, with
    no segment of the graphs' pool left.
 
+14. The dense families (models/registry.py; no kernel of their own, the
+   six above at new shapes). (a) Phase 4's cross-check (full width, 2
+   layers, f32, card vs host within XCHECK_TOL, the same exact counts)
+   for one row of each family (FAMILY_XCHECK): gpt2-xl, opt-350m,
+   qwen2-7b, gemma-7b, pythia-6.9b, phi-2, falcon-7b, falcon-rw-1b,
+   bloom-7b1, mpt-7b, gpt-j-6b; the fused route too where the gate
+   concerns the family (gemma-7b and falcon-7b take the fused kernel,
+   gpt2-xl's biased q keeps the paged one), and int4 and int8 weights
+   for gpt2-xl and pythia-6.9b (biased linears). ALiBi families decode
+   through the gather formulation: no paged-kernel launch. (b) gpt2-xl
+   and bloom-7b1 at full width and depth through the worker, bf16:
+   phase 13's engine requests (one flash_attention[mma] per layer per
+   request and one flash_decode per layer per decode step, on the ALiBi
+   arms for bloom) and one /inference_batch of phase 5's bodies (prompts
+   cut to fit gpt2's 1024 positions) per decode route (gpt2-xl: 48
+   paged_flash_decode per weight pass with DLI_FUSED_DECODE off and on;
+   bloom-7b1: none, the gather route), each with graphs on and off:
+   equal tokens and counts, memory back after each unload. Then phase
+   6's prefill check at bloom-7b1's full depth: the ALiBi prefill
+   through the tensor-core kernel within ROUTE_ERR_FACTOR x its plain
+   version's error against f32. (c) ms per decode step and per batched
+   weight pass for these paths, printed with the card's name and power
+   limit, no limit.
+
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
 chunks, b in {1, 8, 32}, bf16 and f32, and times it on a tp=2 rank's
@@ -224,6 +248,31 @@ Q4_PASS = {"q": 2, "k": 2, "gate": 2, "down": 1}   # x 32 layers, + head
 QUANT_LOAD = {"quantize": "int4"}
 # the bearer token phase 12's worker requires on every route
 CONTROL_KEY = "chip-smoke-control"
+# phase 14 (a): one registry row per family, the decode routes of its
+# paged cross-check (fused where the fused gate takes the family) and its
+# weight forms (the biased int4/int8 linears on gpt2-xl and pythia)
+FAMILY_XCHECK = (
+    ("gpt2-xl", ("paged", "fused"), (None, "int4", "int8")),
+    ("opt-350m", ("paged",), (None,)),
+    ("qwen2-7b", ("paged",), (None,)),
+    ("gemma-7b", ("paged", "fused"), (None,)),
+    ("pythia-6.9b", ("paged",), (None, "int4", "int8")),
+    ("phi-2", ("paged",), (None,)),
+    ("falcon-7b", ("paged", "fused"), (None,)),
+    ("falcon-rw-1b", ("paged",), (None,)),
+    ("bloom-7b1", ("paged",), (None,)),
+    ("mpt-7b", ("paged",), (None,)),
+    ("gpt-j-6b", ("paged",), (None,)),
+)
+# phase 14 (b): rows served at full depth through the worker, with the
+# batched decode routes (DLI_FUSED_DECODE off / on) each is driven by;
+# gpt2-xl's biased q keeps the fused route on the paged kernel, and
+# bloom's ALiBi decodes through the gather formulation
+FAMILY_SERVING = (("gpt2-xl", ("paged", "fused")), ("bloom-7b1", ("paged",)))
+# phase 5's prompt lengths, the longest cut so that prompt + new tokens
+# fit gpt2's 1024 positions; phase 14's bloom-7b1 prefill depth check
+FAMILY_PROMPT_LENS = (60, 130, 250, 500, 700, 900)
+FAMILY_DEPTH_LENS = (60, 250, 700)
 
 
 def log(*a):
@@ -1050,9 +1099,36 @@ def phase_main_path(torch, kernels):
 # phase 4: card (kernels) against host (plain versions), full width
 # ---------------------------------------------------------------------
 
-def phase_cross_check(torch, fa, qm, quant=None):
-    """Card (kernels) against host (plain versions) at full width, 2
-    layers, f32, with float weights or ``quant`` ("int8"/"int4") ones."""
+def q4_per_pass(cfg, fused=False):
+    """q4_matmul launches of one int4 weight pass of <= 32 rows: every
+    linear of every layer (the q projection inside the fused kernel when
+    ``fused``) and an untied head."""
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        layer_linears)
+    return ((len(layer_linears(cfg)) - int(fused)) * cfg.num_layers
+            + int(not cfg.tie_word_embeddings))
+
+
+def decode_kernel(cfg, route):
+    """The kernel a batched decode step of ``cfg`` launches per layer with
+    DLI_FUSED_DECODE on (``route`` "fused") or off: the fused kernel
+    where its gate takes the q leaf (no bias), else the paged kernel;
+    None for the ALiBi families, which decode through the gather
+    formulation, as the JAX package does."""
+    from distributed_llm_inferencing_tpu_torch.ops import fused_decode
+    if cfg.position_embedding == "alibi":
+        return None
+    if route == "fused" and fused_decode.supported(cfg) \
+            and not cfg.attn_bias:
+        return "fused_decode_step"
+    return "paged_flash_decode"
+
+
+def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
+                      routes=("paged", "fused")):
+    """Card (kernels) against host (plain versions) at ``name``'s full
+    width, 2 layers, f32, with float weights or ``quant``
+    ("int8"/"int4") ones; the paged path once per decode ``route``."""
     from distributed_llm_inferencing_tpu_torch.models.params import (
         init_params)
     from distributed_llm_inferencing_tpu_torch.models.registry import (
@@ -1060,8 +1136,8 @@ def phase_cross_check(torch, fa, qm, quant=None):
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         Transformer)
     from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
-    cfg = get_config("llama-3-8b").replace(num_layers=2, dtype="float32",
-                                           quant=quant)
+    cfg = get_config(name).replace(num_layers=2, dtype="float32",
+                                   quant=quant)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
                          "cuda")
     models = {"cuda": Transformer(cfg, params),
@@ -1088,15 +1164,15 @@ def phase_cross_check(torch, fa, qm, quant=None):
     n1 = (fa.flash_attention.launches, fa.flash_decode.launches,
           qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
     # int4: prefill rows (2 x 64) and its full-row head take the plain
-    # unpack; each of the 8 decode steps runs 7 linears x 2 layers + head,
-    # all f32, so all on the CUDA-core form
-    q4 = 8 * 15 if quant == "int4" else 0
+    # unpack; each of the 8 decode steps runs every linear x 2 layers +
+    # an untied head, all f32, so all on the CUDA-core form
+    q4 = 8 * q4_per_pass(cfg) if quant == "int4" else 0
     assert tuple(b - a for a, b in zip(n0, n1)) == (2, 16, q4, 0), (n0, n1)
-    what = f"{quant or 'float'} "
+    what = f"{name} {quant or 'float'} "
     errs = {"dense": _xcheck(torch, what + "dense", logits["cuda"],
                              logits["cpu"])}
     host = _paged_run(torch, models["cpu"], "cpu")
-    for route in ("paged", "fused"):
+    for route in routes:
         errs[route] = _xcheck(torch, what + route,
                               _paged_run(torch, models["cuda"], "cuda",
                                          route), host)
@@ -1110,7 +1186,7 @@ def _xcheck(torch, what, a, b):
     assert torch.isfinite(a).all()
     err = (a - b).abs()
     atol, rtol = XCHECK_TOL
-    log(f"  cross-check {what}: llama-3-8b width, 2 layers, f32, "
+    log(f"  cross-check {what}: full width, 2 layers, f32, "
         f"{a.shape[0]} logit rows: max_abs_err {float(err.max()):.3e} "
         f"(tol {atol} + {rtol}*|ref|), logits |max| {float(b.abs().max()):.3f}")
     assert bool((err <= atol + rtol * b.abs()).all()), \
@@ -1164,11 +1240,16 @@ def _paged_run(torch, model, dev, route=None):
     d = (pa.paged_flash_decode.launches - n0[0],
          fd.fused_decode_step.launches - n0[1],
          qm.q4_matmul.launches - n0[2])
-    want = {None: (0, 0), "paged": (16, 0), "fused": (0, 16)}[route]
+    kernel = decode_kernel(cfg, route) if route else None
+    want = tuple(16 if kernel == k else 0
+                 for k in ("paged_flash_decode", "fused_decode_step"))
     # int4 on the card: the 32-row first prefill runs every linear through
-    # the kernel (7 x 2 + head), the 96-row second one only its 2-row
-    # head, each decode step 7 (6 with the fused q) x 2 + head
-    q4 = (15 + 1 + 8 * (13 if route == "fused" else 15)
+    # the kernel (and an untied head on its last row), the 96-row second
+    # one only its 2-row head, each decode step every linear (the q
+    # projection inside the fused kernel) x 2 + head
+    fused = kernel == "fused_decode_step"
+    untied = int(not cfg.tie_word_embeddings)
+    q4 = (q4_per_pass(cfg) + untied + 8 * q4_per_pass(cfg, fused)
           if cfg.quant == "int4" and route else 0)
     want = want + (q4,)
     assert d == want, f"{route}: kernel launches {d} != {want}"
@@ -1179,17 +1260,17 @@ def _paged_run(torch, model, dev, route=None):
 # phase 5: batched serving through the port's worker
 # ---------------------------------------------------------------------
 
-def _batched_bodies(cfg):
-    """8 requests: prompts of PROMPT_LENS tokens plus two that share a
+def _batched_bodies(cfg, lens=PROMPT_LENS):
+    """8 requests: prompts of ``lens`` tokens plus two that share a
     512-token prefix with different 40-token tails; even ones greedy, odd
     ones sampled, all seeded."""
     import numpy as np
     rng = np.random.default_rng(11)
     tok = lambda n: rng.integers(1, cfg.vocab_size, n).tolist()  # noqa
     prefix = tok(SHARED_PREFIX)
-    prompts = [tok(n) for n in PROMPT_LENS] + [
+    prompts = [tok(n) for n in lens] + [
         prefix + tok(SHARED_TAIL), prefix + tok(SHARED_TAIL)]
-    return [{"model_name": BATCHED_LOAD["model_name"], "prompt_tokens": p,
+    return [{"model_name": cfg.name, "prompt_tokens": p,
              "max_new_tokens": NEW_TOKENS, "seed": 100 + i,
              "sampling": ({"do_sample": False} if i % 2 == 0 else
                           {"temperature": 0.8, "top_k": 50, "top_p": 0.95})}
@@ -2297,7 +2378,8 @@ def _replay_profiled(torch, kernels, prog, decode):
         out[label] = {"counted": sum(counted[k] for k in book),
                       "ran": sum(any(d in n for d in device) for n in names)}
         assert out[label]["counted"] == out[label]["ran"], (label, out)
-    assert out[decode]["ran"] > 0, out
+    # ``decode`` None: the ALiBi gather route, no kernel of the port
+    assert decode is None or out[decode]["ran"] > 0, out
     return out
 
 
@@ -2339,11 +2421,11 @@ def _unload(torch, worker, name, before):
 
 
 def _graphs_engine(torch, worker, kernels, cfg, quant):
-    """Phase 3's three requests through one engine-mode load of
-    llama-3-8b (bf16 activations, ``quant`` weights), graphs on and then
-    off: each with _engine_requests' exact counts, and the same tokens
-    and launches on both sides."""
-    name, L = "llama-3-8b", cfg.num_layers
+    """Phase 3's three requests through one engine-mode load of ``cfg``'s
+    model (bf16 activations, ``quant`` weights), graphs on and then off:
+    each with _engine_requests' exact counts, and the same tokens and
+    launches on both sides."""
+    name, L = cfg.name, cfg.num_layers
     before = _baseline(torch)
     st, res = _http(_worker_base(worker) + "/load_model", {
         "model_name": name, "allow_random_init": True, "dtype": "bfloat16",
@@ -2353,7 +2435,7 @@ def _graphs_engine(torch, worker, kernels, cfg, quant):
     for on in (True, False):
         _graphs_on(on)
         runs[on] = _engine_requests(torch, _worker_base(worker), kernels, cfg,
-                                    name, 7 * L + 1 if quant else 0)[1]
+                                    name, q4_per_pass(cfg) if quant else 0)[1]
     capture_s, stats = _programs(worker, name)
     for a, b in zip(runs[True], runs[False]):
         assert a["tokens"] == b["tokens"], \
@@ -2380,24 +2462,26 @@ def _graphs_engine(torch, worker, kernels, cfg, quant):
             "memory_allocated_after_unload": after}
 
 
-def _graphs_wave(torch, worker, kernels, cfg, route, quant, on):
-    """Phase 5's 8 bodies as one /inference_batch (one enqueue, so the
-    admission waves do not depend on arrival times) through a fresh
-    batched load of llama-3-8b, whose radix cache starts empty in both
-    modes. The route's decode kernel launches num_layers times per weight
-    pass and no other attention kernel; in int4 q4_matmul as phase 5
-    counts it."""
-    name, L = BATCHED_LOAD["model_name"], cfg.num_layers
+def _graphs_wave(torch, worker, kernels, cfg, route, quant, on,
+                 lens=PROMPT_LENS):
+    """Phase 5's 8 bodies (prompts of ``lens``) as one /inference_batch
+    (one enqueue, so the admission waves do not depend on arrival times)
+    through a fresh batched load of ``cfg``'s model, whose radix cache
+    starts empty in both modes. The decode kernel of ``route``
+    (``decode_kernel``) launches num_layers times per weight pass and no
+    other attention kernel (none at all on the ALiBi gather route); in
+    int4 q4_matmul as phase 5 counts it."""
+    name, L = cfg.name, cfg.num_layers
     _graphs_on(on)
     os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
     before = _baseline(torch)
     st, res = _http(_worker_base(worker) + "/load_model",
-                    dict(BATCHED_LOAD, quantize=quant))
+                    dict(BATCHED_LOAD, model_name=name, quantize=quant))
     assert st == 200 and res["status"] == "success", res
     capture_s, stats = _programs(worker, name)
     assert stats["decode_graphs_captured"] == int(on), stats  # at the load
-    bodies = [dict(b, request_tag=f"p13-{quant}-{route}-{on}-{i}")
-              for i, b in enumerate(_batched_bodies(cfg))]
+    bodies = [dict(b, request_tag=f"p13-{name}-{quant}-{route}-{on}-{i}")
+              for i, b in enumerate(_batched_bodies(cfg, lens))]
     s0 = worker.metrics.snapshot()
     zero_counts(kernels)
     t0 = time.perf_counter()
@@ -2415,10 +2499,11 @@ def _graphs_wave(torch, worker, kernels, cfg, route, quant, on):
                                              (x for _, x in lines))}
     assert all(m["status"] == 200 for m in msgs.values()), msgs
     tokens = [msgs[b["request_tag"]]["body"]["tokens"] for b in bodies]
-    mine = "paged_flash_decode" if route == "paged" else "fused_decode_step"
-    other = "fused_decode_step" if route == "paged" else "paged_flash_decode"
-    assert launches[mine] == L * passes, (launches, passes)
-    assert launches[other] == launches["flash_decode"] == 0, launches
+    mine = decode_kernel(cfg, route)
+    for k in ("paged_flash_decode", "fused_decode_step", "flash_decode",
+              "flash_attention"):
+        assert launches[k] == (L * passes if k == mine else 0), \
+            (k, launches, passes)
     if quant == "int4":
         assert launches["q4_matmul[mma]"] == launches["q4_matmul"] > 0
     replay = None
@@ -2489,6 +2574,116 @@ def phase_graphs(torch, kernels, smi):
         worker.shutdown()
     gc.collect()
     torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------
+# phase 14: the dense families
+# ---------------------------------------------------------------------
+
+def _family_depth(torch, kernels, name, lens):
+    """Phase 6's prefill check at ``name``'s full depth: prompts of
+    ``lens`` tokens through engine-mode prefill in bf16, the attention
+    through the tensor-core kernel and through its plain version, each
+    against the same weights in f32; the kernel's worst logit error must
+    stay within ROUTE_ERR_FACTOR x the plain route's."""
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        init_params)
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        Transformer)
+    cfg = get_config(name)
+    prompts = [b["prompt_tokens"] for b in _batched_bodies(cfg, lens)]
+    prompts = prompts[:len(lens)]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(23),
+                         "cuda")
+    models = {"bf16": Transformer(cfg, params),
+              "f32": Transformer(cfg.replace(dtype="float32"),
+                                 {k: t.float() for k, t in params.items()})}
+    dense = _prefill_routes(torch, models, prompts, kernels)
+    del models, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst_k, worst_p = max(dense["kernel"]), max(dense["plain"])
+    out = {"prompt_tokens": list(lens), "dense_prefill_err_kernel":
+           dense["kernel"], "dense_prefill_err_plain": dense["plain"],
+           "worst_kernel": worst_k, "worst_plain": worst_p,
+           "factor": worst_k / worst_p}
+    log(f"  {name} full-depth prefill, bf16 vs f32", json.dumps(out))
+    assert worst_k <= ROUTE_ERR_FACTOR * worst_p, \
+        f"{name}: tensor-core prefill off f32 by {worst_k}, over " \
+        f"{ROUTE_ERR_FACTOR} x the plain route's {worst_p}"
+    return out
+
+
+def phase_families(torch, fa, qm, kernels, smi):
+    """Phase 14: the dense families. (a) FAMILY_XCHECK's cross-checks at
+    full width, 2 layers, f32; (b) FAMILY_SERVING's rows at full width
+    and depth through the worker, bf16: phase 3's three requests in
+    engine mode and one /inference_batch per decode route in batched
+    mode, each with graphs on and off (equal tokens and exact counts:
+    FAMILY_SERVING says which kernel a batched step launches), then
+    bloom-7b1's prefill through the tensor-core kernel against f32;
+    (c) ms per engine decode step and per batched weight pass, reported
+    with no limit."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    report = {"smi": smi, "cross_check": {}, "serving": {}}
+    for name, routes, forms in FAMILY_XCHECK:
+        for quant in forms:
+            t0 = time.perf_counter()
+            errs = phase_cross_check(torch, fa, qm, quant, name, routes)
+            errs["seconds"] = time.perf_counter() - t0
+            report["cross_check"][f"{name}/{quant or 'float'}"] = errs
+    launches = {k: 0 for k in kernels}
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    try:
+        for name, routes in FAMILY_SERVING:
+            cfg = get_config(name)
+            row = _graphs_engine(torch, worker, kernels, cfg, None)
+            for n in row["launches_per_request"]:
+                for k, v in n.items():
+                    launches[k] += 2 * v          # graphs on and off
+            waves = {}
+            for route in routes:
+                runs = {on: _graphs_wave(torch, worker, kernels, cfg, route,
+                                         None, on, FAMILY_PROMPT_LENS)
+                        for on in (True, False)}
+                on, off = runs[True], runs[False]
+                assert on["tokens"] == off["tokens"], \
+                    f"{name} {route}: graphs on/off tokens differ"
+                assert on["weight_passes"] == off["weight_passes"] \
+                    and on["launches"] == off["launches"], \
+                    (on["launches"], off["launches"])
+                for r in (on, off):
+                    for k, v in r["launches"].items():
+                        launches[k] += v
+                waves[route] = {
+                    "decode_kernel": decode_kernel(cfg, route),
+                    **{mode: {k: v for k, v in r.items() if k != "tokens"}
+                       for mode, r in (("on", on), ("off", off))}}
+            report["serving"][name] = {"engine": row, "batched": waves}
+            timing = {"engine_ms_per_decode_step": row["ms_per_decode_step"],
+                      "batched_ms_per_weight_pass": {
+                          route: {mode: w[mode][
+                              "decode_chunk_ms_per_weight_pass"]
+                              for mode in ("on", "off")}
+                          for route, w in waves.items()}}
+            log(f"  {name} bf16 through the worker [{smi}]",
+                json.dumps(timing))
+    finally:
+        os.environ.pop("DLI_CUDA_GRAPHS", None)
+        os.environ.pop("DLI_FUSED_DECODE", None)
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["depth"] = _family_depth(torch, kernels, "bloom-7b1",
+                                    FAMILY_DEPTH_LENS)
+    report["launches"] = launches
     return report
 
 
@@ -2666,6 +2861,15 @@ def main() -> int:
         "paged and fused, bf16 and int4)")
     graphs_report = phase_graphs(torch, counted, smi)
 
+    log("phase 14: the dense families (a) cross-checks at full width, 2 "
+        "layers, f32; (b) gpt2-xl and bloom-7b1 at full depth through the "
+        "worker, graphs on and off; bloom-7b1's ALiBi prefill vs f32")
+    families = phase_families(torch, fa, qm, counted, smi)
+    for name in ("flash_attention", "flash_decode"):
+        assert families["launches"][name] > 0, \
+            f"{name} never launched on the families' path"
+    assert families["launches"]["paged_flash_decode"] > 0
+
     csrc = "distributed_llm_inferencing_tpu_torch/csrc/"
     pallas = "distributed_llm_inferencing_tpu/ops/pallas/"
     kernels = []
@@ -2706,6 +2910,8 @@ def main() -> int:
         }
         if name in ("flash_attention", "q4_matmul", "q4_matmul_row"):
             entry["launches_mma"] = launches[f"{name}[mma]"]
+        # phase 14's gpt2-xl and bloom-7b1 serving, beside the llama path
+        entry["family_launches"] = families["launches"].get(name, 0)
         if name == "paged_flash_decode":
             entry["library_gather_ms"] = row["library_gather_ms"]
         if name.startswith("fused_decode_step"):
@@ -2729,6 +2935,7 @@ def main() -> int:
               "fused_plans": plans,
               "tp_cross_check_max_abs_err": tp_xerr, "tp_depth": tp_depth,
               "control_surface": control, "graphs": graphs_report,
+              "families": families,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(HERE, "chiprun_out")
     if os.path.isdir(out_dir):

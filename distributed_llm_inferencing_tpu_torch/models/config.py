@@ -2,9 +2,10 @@
 
 The field names and defaults are those of the JAX package's
 ``models/config.py`` so a configuration reads the same on both sides
-(``dataclasses.asdict`` of one builds the other). Only the llama arm runs
-in this port so far; models/transformer.py refuses, at construction, a
-config that switches on any other feature.
+(``dataclasses.asdict`` of one builds the other). The port runs the dense
+families (models/registry.py); models/transformer.py refuses, at
+construction, a config that switches on a feature it does not serve
+(``check_supported``).
 """
 
 from __future__ import annotations

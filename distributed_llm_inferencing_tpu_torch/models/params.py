@@ -1,23 +1,29 @@
 """Parameters of the port's transformer: random init and the JAX bridge.
 
 The port keeps one flat dict ``name -> tensor`` whose names follow the
-reference pytree with the stacked layer axis unrolled:
+reference pytree with the stacked layer axis unrolled (``?``: only where
+the config has the feature; E = ``embed_proj_dim`` or D):
 
-    embed.tokens [V,D]            (embed_quant int8: embed.tokens.q8 [V,D]
+    embed.tokens [V,E]            (embed_quant int8: embed.tokens.q8 [V,E]
                                    int8 + embed.tokens.rscale [V] f32)
-    layers.{i}.attn_norm.scale [D]
-    layers.{i}.{q,k,v,o}.<leaf>
-    layers.{i}.mlp_norm.scale [D]
-    layers.{i}.{gate,up,down}.<leaf>
-    final_norm.scale [D]
-    lm_head.<leaf>
+    embed.positions [P,D]?        (learned positions)
+    embed.norm.{scale,bias} [E]?  (embed_norm)
+    embed.project_in.w [E,D]?, embed.project_out.w [D,E]?
+    layers.{i}.attn_norm.scale [D] (+ .bias [D] for layernorm)
+    layers.{i}.{q,k,v,o}.<leaf> (+ .b [dout] where biased)
+    layers.{i}.mlp_norm.{scale,bias?} (absent with shared_attn_mlp_norm)
+    layers.{i}.{gate?,up,down}.<leaf> (+ .b; gate only in a gated MLP)
+    final_norm.{scale,bias?} [D]  (absent with post_norm)
+    lm_head.<leaf> (+ .b)         (absent with tie_word_embeddings)
 
 where a linear's ``<leaf>`` is, by ``cfg.quant``, ``w`` [din,dout] (float),
 ``q`` [din,dout] int8 + ``scale`` [dout] f32 (int8), or ``p4``
 [din/2,dout] uint8 + ``scale`` [dout] f32 (int4; ops/quant.py has the
 layouts), the last with a ``chunked`` marker where the leaf is packed
-chunk-locally. Weights keep the reference's [din, dout] layout (y = x @
-w), so the bridge from a JAX tree is a copy, bitwise, with no transpose.
+chunk-locally. Biases, norms, positions and the opt-350m projections stay
+float in the model's dtype. Weights keep the reference's [din, dout]
+layout (y = x @ w), so the bridge from a JAX tree is a copy, bitwise,
+with no transpose.
 
 Under tensor parallelism every rank draws every leaf of the whole model
 in the same order from the same seeded generator, keeps its shard
@@ -42,31 +48,62 @@ LAYER_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
 LAYER_NORMS = ("attn_norm", "mlp_norm")
 
 
-def _leaf_shapes(cfg: ModelConfig, prefix: str, din: int, dout: int):
-    if cfg.quant == "int4" and din % 2:
+def _leaf_shapes(prefix: str, din: int, dout: int, bias: bool = False,
+                 quant: Optional[str] = None):
+    if quant == "int4" and din % 2:
         raise ValueError(f"{prefix}: int4 packing needs even din, got {din}")
-    rows = din // 2 if cfg.quant == "int4" else din
-    return {f"{prefix}.{k}": (dout,) if k == "scale" else (rows, dout)
-            for k in LEAF_KEYS[cfg.quant or "float"]}
+    rows = din // 2 if quant == "int4" else din
+    out = {f"{prefix}.{k}": (dout,) if k == "scale" else (rows, dout)
+           for k in LEAF_KEYS[quant or "float"]}
+    if bias:
+        out[f"{prefix}.b"] = (dout,)
+    return out
+
+
+def _norm_shapes(cfg: ModelConfig, prefix: str, dim: int):
+    keys = ("scale", "bias") if cfg.norm_type == "layernorm" else ("scale",)
+    return {f"{prefix}.{k}": (dim,) for k in keys}
+
+
+def layer_linears(cfg: ModelConfig):
+    """(name, din, dout, biased) of each linear of a block."""
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    out = [("q", D, cfg.q_dim, cfg.attn_bias),
+           ("k", D, cfg.kv_dim, cfg.attn_bias),
+           ("v", D, cfg.kv_dim, cfg.attn_bias),
+           ("o", cfg.q_dim, D, cfg.o_bias_effective)]
+    if cfg.gated_mlp:
+        out.append(("gate", D, I, False))
+    return out + [("up", D, I, cfg.mlp_bias), ("down", I, D, cfg.mlp_bias)]
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Name -> shape of every stored tensor of the llama arm under
+    """Name -> shape of every stored tensor of ``cfg`` under
     ``cfg.quant`` / ``cfg.embed_quant``, in init order."""
     check_modes(cfg)
-    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    dims = {"q": (D, cfg.q_dim), "k": (D, cfg.kv_dim), "v": (D, cfg.kv_dim),
-            "o": (cfg.q_dim, D), "gate": (D, I), "up": (D, I),
-            "down": (I, D)}
-    shapes = ({f"{EMBED}.q8": (V, D), f"{EMBED}.rscale": (V,)}
-              if cfg.embed_quant else {EMBED: (V, D)})
+    D, V = cfg.hidden_size, cfg.vocab_size
+    E = cfg.embed_proj_dim or D
+    shapes = ({f"{EMBED}.q8": (V, E), f"{EMBED}.rscale": (V,)}
+              if cfg.embed_quant else {EMBED: (V, E)})
+    if cfg.position_embedding == "learned":
+        shapes["embed.positions"] = (cfg.max_position_embeddings, D)
+    if cfg.embed_norm:
+        shapes.update(_norm_shapes(cfg, "embed.norm", E))
+    if cfg.embed_proj_dim:
+        shapes.update(_leaf_shapes("embed.project_in", E, D))
+        shapes.update(_leaf_shapes("embed.project_out", D, E))
+    norms = LAYER_NORMS[:1] if cfg.shared_attn_mlp_norm else LAYER_NORMS
     for i in range(cfg.num_layers):
-        for n in LAYER_NORMS:
-            shapes[f"layers.{i}.{n}.scale"] = (D,)
-        for n in LAYER_LINEARS:
-            shapes.update(_leaf_shapes(cfg, f"layers.{i}.{n}", *dims[n]))
-    shapes["final_norm.scale"] = (D,)
-    shapes.update(_leaf_shapes(cfg, "lm_head", D, V))
+        for n in norms:
+            shapes.update(_norm_shapes(cfg, f"layers.{i}.{n}", D))
+        for n, din, dout, bias in layer_linears(cfg):
+            shapes.update(_leaf_shapes(f"layers.{i}.{n}", din, dout,
+                                       bias, cfg.quant))
+    if not cfg.post_norm:
+        shapes.update(_norm_shapes(cfg, "final_norm", D))
+    if not cfg.tie_word_embeddings:
+        shapes.update(_leaf_shapes("lm_head", D, V, cfg.lm_head_bias,
+                                   cfg.quant))
     return shapes
 
 
@@ -74,16 +111,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 dtype=None, shard: Optional[Callable] = None
                 ) -> Dict[str, torch.Tensor]:
     """Random weights, drawn on ``device`` from ``generator`` (which must
-    live on that device): float weights normal with std 0.02, norm scales
-    1. With ``cfg.quant`` the linears come out quantized directly, as the
-    JAX package's init does, and the float tree never exists: int8 levels
-    uniform in [-127, 127] with scale 0.02/127; int4 biased nibbles
-    uniform in [1, 15] (levels [-7, 7], what quantization can produce)
-    with scale 0.02/7. ``cfg.embed_quant`` draws the table as int8 levels
-    with row scale 0.02/127. Drawing on the card matters at full width:
-    8B weights drawn on the host and copied over would take minutes.
-    ``shard(name, tensor)`` (a tp rank's cut) replaces each tensor as soon
-    as it is drawn."""
+    live on that device): float weights, biases and positions normal with
+    std 0.02 (the JAX package draws biases as zeros; random ones put the
+    bias adds to the test), norm scales 1. With ``cfg.quant`` the linears
+    come out quantized directly, as the JAX package's init does, and the
+    float tree never exists: int8 levels uniform in [-127, 127] with
+    scale 0.02/127; int4 biased nibbles uniform in [1, 15] (levels [-7,
+    7], what quantization can produce) with scale 0.02/7.
+    ``cfg.embed_quant`` draws the table as int8 levels with row scale
+    0.02/127. Drawing on the card matters at full width: 8B weights drawn
+    on the host and copied over would take minutes. ``shard(name,
+    tensor)`` (a tp rank's cut) replaces each tensor as soon as it is
+    drawn."""
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         check_supported)
     check_supported(cfg)
@@ -132,23 +171,25 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None
     ``jax.tree.map(np.asarray, params)``, as the port's flat dict.
 
     Every leaf copies bit for bit (bf16 through its raw 16-bit pattern;
-    int8 levels, packed int4 bytes and f32 scales as they are). Stacked
-    ``[L, ...]`` layer leaves split into per-layer tensors. ``cfg.quant``
-    and ``cfg.embed_quant`` must describe the tree. A chunk-local int4
-    leaf (the JAX package's tp layout of o and down) keeps its
-    ``chunked`` marker.
+    int8 levels, packed int4 bytes, f32 scales, biases, positions and
+    norms as they are). Stacked ``[L, ...]`` layer leaves split into
+    per-layer tensors. ``cfg.quant`` and ``cfg.embed_quant`` must
+    describe the tree. A chunk-local int4 leaf (the JAX package's tp
+    layout of o and down) keeps its ``chunked`` marker.
     """
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         check_supported)
     check_supported(cfg)
     expect = param_shapes(cfg)
+    lin_keys = LEAF_KEYS[cfg.quant or "float"]
 
-    def leaf(p, prefix, keys, stacked):
+    def leaf(p, prefix, keys, stacked, optional=("b",)):
         if not isinstance(p, dict):
             raise ValueError(f"{prefix}: expected a leaf dict, got "
                              f"{type(p).__name__}")
         if "chunked" in p and "p4" in keys:
             keys = keys + ("chunked",)
+        keys = keys + tuple(k for k in optional if k in p)
         if set(p) != set(keys):
             raise ValueError(f"{prefix}: leaf {sorted(p)} does not match "
                              f"{cfg.name} with quant={cfg.quant!r}, "
@@ -161,22 +202,38 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None
             else:
                 out[f"{prefix}.{k}"] = _tensor(a, device)
 
+    def norm(p, prefix, stacked):
+        leaf(p, prefix, ("scale",), stacked, optional=("bias",))
+
     out = {}
-    tokens = np_tree["embed"]["tokens"]
+    embed = np_tree["embed"]
+    tokens = embed["tokens"]
     if isinstance(tokens, dict) or cfg.embed_quant:
-        leaf(tokens, EMBED, ("q8", "rscale"), False)
+        leaf(tokens, EMBED, ("q8", "rscale"), False, ())
     else:
         out[EMBED] = _tensor(tokens, device)
-    layers = np_tree["layers"]
+    for k, p in embed.items():
+        if k == "positions":
+            out["embed.positions"] = _tensor(p, device)
+        elif k == "norm":
+            norm(p, "embed.norm", False)
+        elif k in ("project_in", "project_out"):
+            leaf(p, f"embed.{k}", ("w",), False, ())
+        elif k != "tokens":
+            raise ValueError(f"embed.{k}: not a leaf the port serves")
     if "layers_dense" in np_tree:
         raise NotImplementedError("dense-prefix layer segments not ported")
-    for n in LAYER_NORMS:
-        leaf(layers[n], n, ("scale",), True)
-    keys = LEAF_KEYS[cfg.quant or "float"]
-    for n in LAYER_LINEARS:
-        leaf(layers[n], n, keys, True)
-    leaf(np_tree["final_norm"], "final_norm", ("scale",), False)
-    leaf(np_tree["lm_head"], "lm_head", keys, False)
+    for n, p in np_tree["layers"].items():
+        if n in LAYER_NORMS:
+            norm(p, n, True)
+        elif n in LAYER_LINEARS:
+            leaf(p, n, lin_keys, True)
+        else:
+            raise ValueError(f"layers.{n}: not a leaf the port serves")
+    if "final_norm" in np_tree:
+        norm(np_tree["final_norm"], "final_norm", False)
+    if "lm_head" in np_tree:
+        leaf(np_tree["lm_head"], "lm_head", lin_keys, False)
     markers = {n for n in out if n.endswith(".chunked")}
     if set(out) - markers != set(expect):
         raise ValueError(f"{cfg.name}: tree names differ from the config's: "

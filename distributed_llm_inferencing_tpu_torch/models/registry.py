@@ -1,8 +1,10 @@
-"""Model registry: name -> ModelConfig (the llama-family entries).
+"""Model registry: name -> ModelConfig.
 
-An own copy of the reference registry's llama rows (``_llama`` and the
-entries built from it, plus the tiny test configs); the other families
-join as the port grows to run them.
+An own copy of the reference registry's rows for the families the port
+serves: llama (``_llama``), gpt2 (``_gpt2``) and opt (``_opt``), qwen2,
+gemma, gpt-neox/pythia, phi, falcon, bloom, mpt and gpt-j, plus the tiny
+test configs. The rows with experts or latent attention (mixtral, the MoE
+and deepseek proxies) join as the port grows to run them.
 """
 
 from __future__ import annotations
@@ -25,6 +27,28 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def _gpt2(name, hidden, layers, heads, ctx=1024):
+    return ModelConfig(
+        name=name, family="gpt2", vocab_size=50257, hidden_size=hidden,
+        intermediate_size=4 * hidden, num_layers=layers, num_heads=heads,
+        num_kv_heads=heads, head_dim=hidden // heads,
+        max_position_embeddings=ctx, norm_type="layernorm", activation="gelu",
+        gated_mlp=False, position_embedding="learned", attn_bias=True,
+        mlp_bias=True, tie_word_embeddings=True,
+    )
+
+
+def _opt(name, hidden, inter, layers, heads, ctx=2048):
+    return ModelConfig(
+        name=name, family="opt", vocab_size=50272, hidden_size=hidden,
+        intermediate_size=inter, num_layers=layers, num_heads=heads,
+        num_kv_heads=heads, head_dim=hidden // heads,
+        max_position_embeddings=ctx, norm_type="layernorm", activation="relu",
+        gated_mlp=False, position_embedding="learned", attn_bias=True,
+        mlp_bias=True, tie_word_embeddings=True,
+    )
+
+
 def _llama(name, hidden, inter, layers, heads, kv_heads, vocab=128256,
            ctx=8192, theta=500000.0, window=None):
     return ModelConfig(
@@ -38,13 +62,128 @@ def _llama(name, hidden, inter, layers, heads, kv_heads, vocab=128256,
     )
 
 
+# --- GPT-2 (the reference's default model) ---
+register(_gpt2("gpt2", 768, 12, 12))
+register(_gpt2("gpt2-medium", 1024, 24, 16))
+register(_gpt2("gpt2-large", 1280, 36, 20))
+register(_gpt2("gpt2-xl", 1600, 48, 25))
+
+# --- OPT (the reference's other hint): learned positions, ReLU ---
+register(_opt("opt-125m", 768, 3072, 12, 12))
+register(_opt("opt-350m", 1024, 4096, 24, 16).replace(
+    embed_proj_dim=512, post_norm=True))
+register(_opt("opt-1.3b", 2048, 8192, 24, 32))
+
 register(_llama("llama-3-8b", 4096, 14336, 32, 32, 8))
 register(_llama("llama-3-70b", 8192, 28672, 80, 64, 8))
 # llama arch + sliding window
 register(_llama("mistral-7b", 4096, 14336, 32, 32, 8, vocab=32000,
                 ctx=32768, theta=10000.0, window=4096))
 
+# --- Qwen2: llama layout + bias on q/k/v only ---
+register(_llama("qwen2-7b", 3584, 18944, 28, 28, 4, vocab=152064,
+                ctx=32768, theta=1000000.0).replace(
+                    name="qwen2-7b", attn_bias=True, o_bias=False))
+register(_llama("qwen2-0.5b", 896, 4864, 24, 14, 2, vocab=151936,
+                ctx=32768, theta=1000000.0).replace(
+                    name="qwen2-0.5b", attn_bias=True, o_bias=False,
+                    tie_word_embeddings=True))
+
+# --- Gemma: llama layout + tanh-gelu, sqrt(D) embed normalizer, wide
+# head_dim (256 > hidden/heads), tied 256k-vocab head ---
+register(_llama("gemma-7b", 3072, 24576, 28, 16, 16, vocab=256000,
+                ctx=8192, theta=10000.0).replace(
+                    name="gemma-7b", head_dim=256, activation="gelu",
+                    tie_word_embeddings=True, embed_scale=3072 ** 0.5,
+                    norm_eps=1e-6, norm_offset=True))
+register(_llama("gemma-2b", 2048, 16384, 18, 8, 1, vocab=256000,
+                ctx=8192, theta=10000.0).replace(
+                    name="gemma-2b", head_dim=256, activation="gelu",
+                    tie_word_embeddings=True, embed_scale=2048 ** 0.5,
+                    norm_eps=1e-6, norm_offset=True))
+
+# --- GPT-NeoX / Pythia: parallel residual, partial rotary, exact gelu ---
+register(ModelConfig(
+    name="pythia-6.9b", family="gpt-neox", vocab_size=50432,
+    hidden_size=4096, intermediate_size=16384, num_layers=32, num_heads=32,
+    num_kv_heads=32, head_dim=128, max_position_embeddings=2048,
+    norm_type="layernorm", activation="gelu_exact", gated_mlp=False,
+    position_embedding="rope", rope_theta=10000.0, rope_pct=0.25,
+    attn_bias=True, mlp_bias=True, tie_word_embeddings=False,
+    parallel_residual=True))
+register(ModelConfig(
+    name="pythia-1.4b", family="gpt-neox", vocab_size=50304,
+    hidden_size=2048, intermediate_size=8192, num_layers=24, num_heads=16,
+    num_kv_heads=16, head_dim=128, max_position_embeddings=2048,
+    norm_type="layernorm", activation="gelu_exact", gated_mlp=False,
+    position_embedding="rope", rope_theta=10000.0, rope_pct=0.25,
+    attn_bias=True, mlp_bias=True, tie_word_embeddings=False,
+    parallel_residual=True))
+
+# --- Phi-2: parallel residual + single shared norm, biased lm_head ---
+register(ModelConfig(
+    name="phi-2", family="phi", vocab_size=51200, hidden_size=2560,
+    intermediate_size=10240, num_layers=32, num_heads=32, num_kv_heads=32,
+    head_dim=80, max_position_embeddings=2048, norm_type="layernorm",
+    activation="gelu", gated_mlp=False, position_embedding="rope",
+    rope_theta=10000.0, rope_pct=0.4, attn_bias=True, mlp_bias=True,
+    lm_head_bias=True, tie_word_embeddings=False, parallel_residual=True,
+    shared_attn_mlp_norm=True))
+
+# --- Falcon-7B: MQA, parallel residual + shared norm ---
+register(ModelConfig(
+    name="falcon-7b", family="falcon", vocab_size=65024, hidden_size=4544,
+    intermediate_size=18176, num_layers=32, num_heads=71, num_kv_heads=1,
+    head_dim=64, max_position_embeddings=2048, norm_type="layernorm",
+    activation="gelu_exact", gated_mlp=False, position_embedding="rope",
+    rope_theta=10000.0, attn_bias=False, mlp_bias=False,
+    tie_word_embeddings=True, parallel_residual=True,
+    shared_attn_mlp_norm=True))
+
+# --- BLOOM: ALiBi positions, layernormed embedding, tied 250k head ---
+register(ModelConfig(
+    name="bloom-7b1", family="bloom", vocab_size=250880, hidden_size=4096,
+    intermediate_size=16384, num_layers=30, num_heads=32, num_kv_heads=32,
+    head_dim=128, max_position_embeddings=2048, norm_type="layernorm",
+    activation="gelu", gated_mlp=False, position_embedding="alibi",
+    embed_norm=True, attn_bias=True, mlp_bias=True,
+    tie_word_embeddings=True))
+
+# --- Falcon-RW-1B: ALiBi + sequential residual ---
+register(ModelConfig(
+    name="falcon-rw-1b", family="falcon", vocab_size=50304,
+    hidden_size=2048, intermediate_size=8192, num_layers=24, num_heads=32,
+    num_kv_heads=32, head_dim=64, max_position_embeddings=2048,
+    norm_type="layernorm", activation="gelu_exact", gated_mlp=False,
+    position_embedding="alibi", alibi_scale=64 ** -0.5,
+    attn_bias=True, mlp_bias=True, tie_word_embeddings=True))
+
+# --- MPT-7B: ALiBi, bias-free, tied head ---
+register(ModelConfig(
+    name="mpt-7b", family="mpt", vocab_size=50432, hidden_size=4096,
+    intermediate_size=16384, num_layers=32, num_heads=32, num_kv_heads=32,
+    head_dim=128, max_position_embeddings=2048, norm_type="layernorm",
+    activation="gelu_exact", gated_mlp=False, position_embedding="alibi",
+    attn_bias=False, mlp_bias=False, tie_word_embeddings=True))
+
+# --- GPT-J-6B: interleaved partial rotary, shared-norm parallel block ---
+register(ModelConfig(
+    name="gpt-j-6b", family="gptj", vocab_size=50400, hidden_size=4096,
+    intermediate_size=16384, num_layers=28, num_heads=16, num_kv_heads=16,
+    head_dim=256, max_position_embeddings=2048, norm_type="layernorm",
+    activation="gelu", gated_mlp=False, position_embedding="rope",
+    rope_theta=10000.0, rope_pct=0.25, rope_interleaved=True,
+    attn_bias=False, o_bias=False, mlp_bias=True, lm_head_bias=True,
+    tie_word_embeddings=False, parallel_residual=True,
+    shared_attn_mlp_norm=True))
+
 # --- Tiny configs for tests (not real checkpoints) ---
+register(ModelConfig(
+    name="tiny-gpt2", family="gpt2", vocab_size=256, hidden_size=64,
+    intermediate_size=256, num_layers=4, num_heads=4, num_kv_heads=4,
+    head_dim=16, max_position_embeddings=128, norm_type="layernorm",
+    activation="gelu", gated_mlp=False, position_embedding="learned",
+    attn_bias=True, mlp_bias=True, tie_word_embeddings=True))
 register(ModelConfig(
     name="tiny-llama", family="llama", vocab_size=256, hidden_size=64,
     intermediate_size=128, num_layers=4, num_heads=8, num_kv_heads=4,

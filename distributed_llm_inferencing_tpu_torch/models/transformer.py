@@ -1,43 +1,55 @@
-"""Causal transformer, llama arm, as torch ``nn.Module``s.
+"""Causal transformer, the dense families, as torch ``nn.Module``s.
 
-Port of the reference's ``models/transformer.py`` for the llama family:
-pre-norm RMSNorm, q/k/v/o projections, rotate-half RoPE, gated SiLU MLP,
-untied head. The reference runs its stacked ``[L, ...]`` layers under
-``lax.scan``; here each layer is its own ``Block`` and the stack is a
-Python loop. A config that switches on anything outside this arm (MoE,
-MLA, ALiBi families, qk-norm, parallel residual, an int8 KV cache, ...) is
-refused at construction rather than served wrong.
+Port of the reference's ``models/transformer.py`` for the families
+without experts or latent attention: llama/mistral, gpt2, opt, qwen2,
+gemma, gpt-neox/pythia, phi, falcon, bloom, mpt and gpt-j. One block
+covers them through ModelConfig switches, as in the reference: RMSNorm
+or LayerNorm; gated or plain MLP with silu, relu or gelu (tanh or
+exact); biases on any linear; tied or untied head (the tied one reads
+the embedding table, int8 or not); learned, rotary (full, partial or
+interleaved) or ALiBi positions; sequential, parallel (one or two norms)
+or post-norm residuals; gemma's embedding scale, bloom's embedding norm
+and opt-350m's embedding projections. The reference runs its stacked
+``[L, ...]`` layers under ``lax.scan``; here each layer is its own
+``Block`` and the stack is a Python loop. A config that switches on
+anything else (MoE, MLA, qk-norm, softcaps, sinks, per-layer windows or
+rope, an int8 KV cache, ...) is refused at construction rather than
+served wrong (``check_supported``).
 
-Weight-only quantization (ops/quant.py) is in the arm: each linear
-(``Linear``, the reference's ``_linear``) holds its leaf in the stored
-form — float ``w``, int8 ``q`` + ``scale`` (plain torch, as the reference
-leaves it to XLA) or int4 ``p4`` + ``scale`` (``q4_linear``: the
-``q4_matmul`` kernel at decode, ops/quant_matmul.py) — and ``Embed``
-takes the per-row int8 table of ``embed_quant``.
+Weight-only quantization (ops/quant.py): each linear (``Linear``, the
+reference's ``_linear``) holds its leaf in the stored form — float
+``w``, int8 ``q`` + ``scale`` (plain torch, as the reference leaves it
+to XLA) or int4 ``p4`` + ``scale`` (``q4_linear``: the ``q4_matmul``
+kernel at decode, ops/quant_matmul.py) — and its bias, added after the
+product; ``Embed`` takes the per-row int8 table of ``embed_quant``.
 
 Two attention regimes, as in the reference: prefill attends the fresh K/V
 block (``attend_prefill``), decode attends the cache (``attend_decode``);
-both write the new K/V into the cache in place first.
+both write the new K/V into the cache in place first. ALiBi slopes are
+built once per model, on its device, so a captured decode step
+(runtime/graphs.py) copies nothing from the host.
 
 Tensor parallelism (the model on one rank of a ``TPGroup``,
-parallel/mesh.py, holding its shard of the weights, parallel/sharding.py):
-each ``Block`` runs its local heads, H/tp and Hkv/tp, through the same
-kernels; the row-parallel o and down sum their partial products over the
-ranks in x's dtype (the JAX package's ``psum``; int4 partials come from
-``q4_matmul_row``); ``Embed`` looks up the rank's vocabulary rows, zeros
-the rest and sums over the ranks; the head's vocabulary columns are
-gathered. That is 2·L + 1 all-reduces and one gather per weight pass.
-In bf16 an o or down output thus rounds twice (each rank's partial, then
-their sum), where one device rounds once: up to one more bf16 ulp per
-row-parallel linear, as in the JAX package. chip_smoke.py holds tp=2 to
-tp=1 within its f32 cross-check tolerance (the sums' order only) and, at
-full depth in bf16, within 1.5x tp=1's error against f32.
+parallel/mesh.py, holding its shard of the weights, parallel/sharding.py;
+llama arm only, ``llama_arm_gaps``): each ``Block`` runs its local heads,
+H/tp and Hkv/tp, through the same kernels; the row-parallel o and down
+sum their partial products over the ranks in x's dtype (the JAX
+package's ``psum``; int4 partials come from ``q4_matmul_row``);
+``Embed`` looks up the rank's vocabulary rows, zeros the rest and sums
+over the ranks; the head's vocabulary columns are gathered. That is 2·L
++ 1 all-reduces and one gather per weight pass. In bf16 an o or down
+output thus rounds twice (each rank's partial, then their sum), where
+one device rounds once: up to one more bf16 ulp per row-parallel linear,
+as in the JAX package. chip_smoke.py holds tp=2 to tp=1 within its f32
+cross-check tolerance (the sums' order only) and, at full depth in bf16,
+within 1.5x tp=1's error against f32.
 
 The paged entry points serve the continuous batcher (runtime/batcher.py)
 over the block pool (ops/paged_kvcache.py): ``paged_prefill_tail`` (a
 wave of prompt tails, each attending its cached prefix),
 ``paged_decode_step`` (one token per slot; the fused q-projection kernel
-behind ``DLI_FUSED_DECODE``, ops/fused_decode.py) and
+behind ``DLI_FUSED_DECODE``, ops/fused_decode.py; ALiBi families decode
+through the gather formulation, as in the reference) and
 ``paged_chunk_step`` (one step of a K-step chunk with sampling and the
 per-slot budget/eos lifecycle on the device, over a static
 ``PagedChunkState``; one host sync per chunk).
@@ -46,70 +58,79 @@ per-slot budget/eos lifecycle on the device, over a static
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import functools
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
+from distributed_llm_inferencing_tpu_torch.models.params import layer_linears
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode
 from distributed_llm_inferencing_tpu_torch.ops.attention import (
-    attend_decode, attend_prefill)
+    alibi_slopes, attend_decode, attend_prefill)
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import (
     KVCache, block_slots, write_block)
-from distributed_llm_inferencing_tpu_torch.ops.norms import rms_norm
+from distributed_llm_inferencing_tpu_torch.ops.norms import Norm
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
-    PagedKVCache, paged_attend_prefix, write_block_run, write_token)
-from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
-    paged_flash_decode)
+    PagedKVCache, paged_attend_decode, paged_attend_prefix, write_block_run,
+    write_token)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
     leaf_form, leaf_keys)
 from distributed_llm_inferencing_tpu_torch.ops.quant_matmul import q4_linear
 from distributed_llm_inferencing_tpu_torch.ops.rope import (
-    apply_rope, rope_cos_sin)
+    apply_rope, rope_cos_sin, rotary_dim)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import sample_batch
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import TPGroup
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
-# field -> the value the llama arm requires
+# field -> the only value the port serves (features not ported yet)
+_UNPORTED = {
+    "attn_windows": None, "attn_softcap": None, "logit_softcap": None,
+    "logit_scale": None, "post_block_norms": False, "qk_norm": None,
+    "sublayer_postnorm_only": False, "qkv_clip": None, "rope_layers": None,
+    "residual_scale": None, "kv_lora_rank": None, "q_lora_rank": None,
+    "mla_latent_cache": False, "num_experts": 0, "attn_sinks": False,
+    "dense_prefix_layers": 0, "kv_quant": None,
+}
+_ACT = {"silu": F.silu, "relu": F.relu,
+        "gelu": functools.partial(F.gelu, approximate="tanh"),
+        "gelu_exact": functools.partial(F.gelu, approximate="none")}
+# field -> the values the port serves
+_CHOICES = {"norm_type": ("rmsnorm", "layernorm"), "activation": tuple(_ACT),
+            "position_embedding": ("rope", "learned", "alibi")}
+# field -> its llama value: the family switches, which tp does not shard
+# yet (parallel/sharding.py cuts the llama arm's leaves only)
 _LLAMA_ARM = {
     "norm_type": "rmsnorm", "activation": "silu", "gated_mlp": True,
     "position_embedding": "rope", "rope_pct": 1.0, "rope_interleaved": False,
     "embed_norm": False, "attn_bias": False, "o_bias": None,
     "mlp_bias": False, "lm_head_bias": False, "tie_word_embeddings": False,
     "parallel_residual": False, "shared_attn_mlp_norm": False,
-    "attn_windows": None, "attn_softcap": None, "logit_softcap": None,
-    "logit_scale": None, "post_block_norms": False, "embed_scale": None,
-    "qk_norm": None, "sublayer_postnorm_only": False, "qkv_clip": None,
-    "rope_layers": None, "residual_scale": None, "embed_proj_dim": None,
-    "post_norm": False, "kv_lora_rank": None, "q_lora_rank": None,
-    "mla_latent_cache": False, "num_experts": 0, "attn_sinks": False,
-    "dense_prefix_layers": 0, "kv_quant": None,
+    "embed_scale": None, "embed_proj_dim": None, "post_norm": False,
 }
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise for any config feature outside the ported llama arm."""
-    bad = [f"{f}={getattr(cfg, f)!r}" for f, want in _LLAMA_ARM.items()
+    """Raise for any config feature outside the ported families."""
+    bad = [f"{f}={getattr(cfg, f)!r}" for f, want in _UNPORTED.items()
            if getattr(cfg, f) != want]
+    bad += [f"{f}={getattr(cfg, f)!r}" for f, ok in _CHOICES.items()
+            if getattr(cfg, f) not in ok]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: not in the ported llama arm: {', '.join(bad)}")
+            f"{cfg.name}: not in the ported model families: {', '.join(bad)}")
+
+
+def llama_arm_gaps(cfg: ModelConfig) -> List[str]:
+    """The family switches of ``cfg`` off their llama values."""
+    return [f"{f}={getattr(cfg, f)!r}" for f, want in _LLAMA_ARM.items()
+            if getattr(cfg, f) != want]
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
-
-
-class RMSNorm(nn.Module):
-    def __init__(self, scale: torch.Tensor, eps: float):
-        super().__init__()
-        self.scale = _param(scale)
-        self.eps = eps
-
-    def forward(self, x):
-        return rms_norm(x, self.scale, self.eps)
 
 
 def _leaf(params: Dict[str, torch.Tensor], prefix: str
@@ -120,11 +141,16 @@ def _leaf(params: Dict[str, torch.Tensor], prefix: str
             if k.startswith(prefix + ".")}
 
 
+def _norm(cfg: ModelConfig, params, prefix: str) -> Norm:
+    return Norm(_leaf(params, prefix), cfg.norm_type, cfg.norm_eps)
+
+
 class Linear(nn.Module):
-    """y = x @ W in x's dtype, W [din, dout] (the reference layout) held in
-    its stored form (the reference's ``_linear``): ``{"w"}`` float,
-    ``{"q", "scale"}`` int8 — ``x @ q.to(x.dtype) * scale.to(x.dtype)``,
-    or ``{"p4", "scale"[, "chunked"]}`` int4 — ``q4_linear``. A
+    """y = x @ W (+ b) in x's dtype, W [din, dout] (the reference layout)
+    held in its stored form (the reference's ``_linear``): ``{"w"}``
+    float, ``{"q", "scale"}`` int8 — ``x @ q.to(x.dtype) *
+    scale.to(x.dtype)``, or ``{"p4", "scale"[, "chunked"]}`` int4 —
+    ``q4_linear``; a bias ``b`` is added after the product. A
     row-parallel linear under tp (``tp`` given) holds a din shard and sums
     its partial product over the ranks."""
 
@@ -134,6 +160,7 @@ class Linear(nn.Module):
         self.form = leaf_form(leaf)
         self.keys = leaf_keys(leaf)
         self.tp = tp
+        self.b = None
         for k, t in leaf.items():
             setattr(self, k, _param(t))
 
@@ -148,19 +175,23 @@ class Linear(nn.Module):
             y = (y * self.scale.to(x.dtype)).to(x.dtype)
         else:
             y = torch.matmul(x, self.w).to(x.dtype)
+        if self.b is not None:
+            y = (y + self.b).to(x.dtype)
         return y if self.tp is None else self.tp.all_reduce(y)
 
 
 class Embed(nn.Module):
-    """Token embedding from a float table, or from the per-row int8 table
-    ``{"q8", "rscale"}``: whole int8 rows gathered, then one scalar
-    multiply per row (the reference's ``embed``). Under tp the rank holds
-    rows [rank·V/tp, (rank+1)·V/tp): ids outside them give zero rows,
-    and one sum over the ranks (exact: one rank's row is not zero)
-    assembles the embedding."""
+    """Token embedding (the reference's ``embed``): from a float table, or
+    from the per-row int8 table ``{"q8", "rscale"}`` (whole int8 rows
+    gathered, then one scalar multiply per row); then gemma's
+    ``embed_scale``, opt-350m's ``project_in``, the learned positions
+    (clipped to the table) and bloom's embedding norm. Under tp (llama
+    arm) the rank holds rows [rank·V/tp, (rank+1)·V/tp): ids outside
+    them give zero rows, and one sum over the ranks (exact: one rank's
+    row is not zero) assembles the embedding."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], dtype: torch.dtype,
-                 tp: Optional[TPGroup] = None):
+    def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor],
+                 dtype: torch.dtype, tp: Optional[TPGroup] = None):
         super().__init__()
         self.quantized = "embed.tokens" not in params
         if self.quantized:
@@ -171,8 +202,17 @@ class Embed(nn.Module):
         self.dtype = dtype
         self.tp = tp
         self.rows = (self.q8 if self.quantized else self.tokens).shape[0]
+        # the reference multiplies by the scale in the activation dtype
+        self.scale = (None if cfg.embed_scale is None else
+                      float(torch.tensor(cfg.embed_scale, dtype=dtype)))
+        self.project_in = (Linear(_leaf(params, "embed.project_in"))
+                           if cfg.embed_proj_dim else None)
+        self.positions = (_param(params["embed.positions"])
+                          if cfg.position_embedding == "learned" else None)
+        self.norm = (_norm(cfg, params, "embed.norm") if cfg.embed_norm
+                     else None)
 
-    def forward(self, token_ids):
+    def forward(self, token_ids, positions):
         inside = None
         if self.tp is not None:
             token_ids = token_ids - self.tp.rank * self.rows
@@ -183,90 +223,132 @@ class Embed(nn.Module):
             x = x * self.rscale[token_ids][..., None].to(self.dtype)
         else:
             x = F.embedding(token_ids, self.tokens).to(self.dtype)
-        if inside is None:
-            return x
-        return self.tp.all_reduce(torch.where(inside[..., None], x, 0))
+        if inside is not None:
+            x = self.tp.all_reduce(torch.where(inside[..., None], x, 0))
+        if self.scale is not None:   # the embedding output only
+            x = x * self.scale
+        if self.project_in is not None:
+            x = self.project_in(x)
+        if self.positions is not None:
+            pos = positions.long().clamp(0, self.positions.shape[0] - 1)
+            x = x + self.positions[pos].to(x.dtype)
+        return x if self.norm is None else self.norm(x)
 
 
 class Block(nn.Module):
-    """Norm -> QKV (+RoPE) -> cache write + attend -> o -> norm -> MLP
-    (the reference's ``_block_body`` + ``_block_tail``, llama arm). One
-    method per cache regime; each writes its K/V in place."""
+    """Norm -> QKV (+RoPE) -> cache write + attend -> o -> residual and MLP
+    (the reference's ``_block_body`` + ``_block_tail``). One method per
+    cache regime; each writes its K/V in place, and all share ``_tail``,
+    so the regimes cannot drift apart."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                 tp: Optional[TPGroup] = None):
+                 tp: Optional[TPGroup] = None, alibi=None):
         super().__init__()
         self.cfg = cfg
         world = tp.world if tp else 1
         self.heads = cfg.num_heads // world          # this rank's heads
         self.kv_heads = cfg.num_kv_heads // world
-        self.attn_norm = RMSNorm(p["attn_norm.scale"], cfg.norm_eps)
-        self.mlp_norm = RMSNorm(p["mlp_norm.scale"], cfg.norm_eps)
-        for n in ("q", "k", "v", "o", "gate", "up", "down"):
+        self.attn_norm = _norm(cfg, p, "attn_norm")
+        self.mlp_norm = (None if cfg.shared_attn_mlp_norm
+                         else _norm(cfg, p, "mlp_norm"))
+        self.gate = None
+        for n, *_ in layer_linears(cfg):
             setattr(self, n, Linear(_leaf(p, n),
                                     tp if n in ("o", "down") else None))
+        self.act = _ACT[cfg.activation]
+        self.alibi = alibi                # [H] f32 on the device, or None
+
+    def _rope(self, t, cos_sin):
+        cfg = self.cfg
+        if cfg.position_embedding != "rope":
+            return t
+        return apply_rope(t, None, cfg.rope_theta, cfg.rope_pct,
+                          cfg.rope_interleaved, cos_sin=cos_sin)
 
     def _kv(self, h, cos_sin):
         cfg = self.cfg
         B, s, _ = h.shape
         k = self.k(h).view(B, s, self.kv_heads, cfg.head_dim)
         v = self.v(h).view(B, s, self.kv_heads, cfg.head_dim)
-        return apply_rope(k, None, cfg.rope_theta, cos_sin=cos_sin), v
+        return self._rope(k, cos_sin), v
 
     def _qkv(self, h, cos_sin):
-        cfg = self.cfg
         B, s, _ = h.shape
-        q = self.q(h).view(B, s, self.heads, cfg.head_dim)
+        q = self.q(h).view(B, s, self.heads, self.cfg.head_dim)
         k, v = self._kv(h, cos_sin)
-        return apply_rope(q, None, cfg.rope_theta, cos_sin=cos_sin), k, v
+        return self._rope(q, cos_sin), k, v
 
-    def _tail(self, x, attn):
-        """o projection, residual, MLP (the reference's ``_block_tail``)."""
+    def _in(self, x):
+        """The attention input: the block input, normed first unless the
+        block is post-norm."""
+        return x if self.cfg.post_norm else self.attn_norm(x)
+
+    def _mlp(self, h):
+        if self.gate is not None:
+            return self.down(self.act(self.gate(h)) * self.up(h))
+        return self.down(self.act(self.up(h)))
+
+    def _tail(self, x, h, attn):
+        """o projection, then the residual topology and the MLP (the
+        reference's ``_block_tail``): parallel (attention and MLP read
+        the same input, one residual add; one shared norm or two),
+        sequential pre-norm, or post-norm (each residual sum normed)."""
+        cfg = self.cfg
         B, s = attn.shape[:2]
-        x = x + self.o(attn.reshape(B, s, self.heads * self.cfg.head_dim))
-        h = self.mlp_norm(x)
-        return x + self.down(F.silu(self.gate(h)) * self.up(h))
+        attn = self.o(attn.reshape(B, s, self.heads * cfg.head_dim))
+        if cfg.parallel_residual:
+            h2 = h if self.mlp_norm is None else self.mlp_norm(x)
+            return x + attn + self._mlp(h2)
+        x = x + attn
+        if cfg.post_norm:
+            x = self.attn_norm(x)
+            return self.mlp_norm(x + self._mlp(x))
+        return x + self._mlp(self.mlp_norm(x))
 
     def forward(self, x, cache_k, cache_v, slots, cos_sin, new_lengths,
                 is_prefill: bool):
-        q, k, v = self._qkv(self.attn_norm(x), cos_sin)
+        h = self._in(x)
+        q, k, v = self._qkv(h, cos_sin)
         write_block(cache_k, k, None, slots)
         write_block(cache_v, v, None, slots)
+        window = self.cfg.sliding_window
         if is_prefill:
-            attn = attend_prefill(q, k, v,
-                                  sliding_window=self.cfg.sliding_window)
+            attn = attend_prefill(q, k, v, sliding_window=window,
+                                  alibi=self.alibi)
         else:
             attn = attend_decode(q, cache_k, cache_v, new_lengths,
-                                 sliding_window=self.cfg.sliding_window)
-        return self._tail(x, attn)
+                                 sliding_window=window, alibi=self.alibi)
+        return self._tail(x, h, attn)
 
     def paged_prefill(self, x, ck, cv, cos_sin, tail_blocks, prefix_blocks,
                       prefix_len, q_positions, tail_valid):
         """A wave of prompt tails: write their K/V into ``tail_blocks``,
         attend the cached prefix plus the tail (plain torch, as in the
         reference)."""
-        q, k, v = self._qkv(self.attn_norm(x), cos_sin)
+        h = self._in(x)
+        q, k, v = self._qkv(h, cos_sin)
         write_block_run(ck, k, tail_blocks)
         write_block_run(cv, v, tail_blocks)
         attn = paged_attend_prefix(q, k, v, ck, cv, prefix_blocks,
                                    prefix_len, q_positions, tail_valid,
-                                   sliding_window=self.cfg.sliding_window)
-        return self._tail(x, attn)
+                                   sliding_window=self.cfg.sliding_window,
+                                   alibi=self.alibi)
+        return self._tail(x, h, attn)
 
     def paged_decode(self, x, ck, cv, cos_sin, block_tables, context_lens,
-                     fused_rope=None):
-        """One token per slot at position ``context_lens``. With
-        ``fused_rope`` ((cos, sin) rows of ops/fused_decode.py) and a q
-        leaf the fused kernel takes, the q projection (in the leaf's
-        stored form), RoPE and attention run in that kernel, which reads
+                     fused: bool = False, fused_rope=None):
+        """One token per slot at position ``context_lens``. With ``fused``
+        and a q leaf the fused kernel takes (``fused_decode.supported``:
+        no bias), the q projection (in the leaf's stored form), RoPE
+        (``fused_rope``: (cos, sin) rows of ops/fused_decode.py, None
+        without rotary) and attention run in that kernel, which reads
         this token's K/V back from the pool (the reference's
-        ``fused_q_attend``); otherwise the paged kernel attends q."""
-        h = self.attn_norm(x)
+        ``fused_q_attend``); otherwise ``paged_attend_decode`` attends
+        q."""
+        h = self._in(x)
         q_leaf = self.q.leaf()
-        if fused_rope is not None and not fused_decode.supported(
-                self.cfg, q_leaf):
-            fused_rope = None
-        if fused_rope is not None:
+        fused = fused and fused_decode.supported(self.cfg, q_leaf)
+        if fused:
             k, v = self._kv(h, cos_sin)
         else:
             q, k, v = self._qkv(h, cos_sin)
@@ -274,15 +356,16 @@ class Block(nn.Module):
         write_token(cv, v[:, 0], block_tables, context_lens)
         new_lens = context_lens + 1
         window = self.cfg.sliding_window
-        if fused_rope is not None:
+        if fused:
+            cos, sin = fused_rope or (None, None)
             attn = fused_decode.fused_decode_step(
                 h[:, 0], q_leaf, ck, cv, block_tables, new_lens,
-                rope_cos=fused_rope[0], rope_sin=fused_rope[1],
-                sliding_window=window)[:, None]
+                rope_cos=cos, rope_sin=sin, sliding_window=window)[:, None]
         else:
-            attn = paged_flash_decode(q, ck, cv, block_tables, new_lens,
-                                      sliding_window=window)
-        return self._tail(x, attn)
+            attn = paged_attend_decode(q, ck, cv, block_tables, new_lens,
+                                       sliding_window=window,
+                                       alibi=self.alibi)
+        return self._tail(x, h, attn)
 
 
 class Transformer(nn.Module):
@@ -298,24 +381,54 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.tp = tp
         self.dtype = torch_dtype(cfg.dtype)
-        self.embed = Embed(params, self.dtype, tp)
+        # [H] slopes, built once on the model's device: a captured step
+        # must not copy them from the host
+        self.alibi = None
+        if cfg.position_embedding == "alibi":
+            device = next(iter(params.values())).device
+            self.alibi = alibi_slopes(cfg.num_heads, device) \
+                * cfg.alibi_scale
+        self.embed = Embed(cfg, params, self.dtype, tp)
         self.layers = nn.ModuleList([
             Block(cfg, {k[len(f"layers.{i}."):]: t for k, t in params.items()
-                        if k.startswith(f"layers.{i}.")}, tp)
+                        if k.startswith(f"layers.{i}.")}, tp, self.alibi)
             for i in range(cfg.num_layers)])
-        self.final_norm = RMSNorm(params["final_norm.scale"], cfg.norm_eps)
-        self.lm_head = Linear(_leaf(params, "lm_head"))
+        self.final_norm = (None if cfg.post_norm
+                           else _norm(cfg, params, "final_norm"))
+        self.project_out = (Linear(_leaf(params, "embed.project_out"))
+                            if cfg.embed_proj_dim else None)
+        self.lm_head = (None if cfg.tie_word_embeddings
+                        else Linear(_leaf(params, "lm_head")))
 
     def unembed(self, x):
-        """Final norm + logits head, f32 (under tp: the rank's vocabulary
-        columns, gathered)."""
-        logits = self.lm_head(self.final_norm(x)).float()
+        """Final norm (none post-norm), opt-350m's ``project_out``, then the
+        logits head, f32: the untied ``lm_head`` (bias included) or the
+        tied embedding table, whose int8 form applies its row scale to
+        the vocabulary columns (under tp: the rank's vocabulary columns,
+        gathered)."""
+        if self.final_norm is not None:
+            x = self.final_norm(x)
+        if self.project_out is not None:
+            x = self.project_out(x)
+        if self.lm_head is not None:
+            logits = self.lm_head(x)
+        elif self.embed.quantized:
+            logits = torch.matmul(x, self.embed.q8.to(x.dtype).t())
+            logits = logits * self.embed.rscale.to(x.dtype)
+        else:
+            logits = torch.matmul(x, self.embed.tokens.to(x.dtype).t())
+        logits = logits.float()
         return logits if self.tp is None else self.tp.gather(logits)
 
     def _cos_sin(self, positions):
+        """The rows every layer's RoPE shares, over the rotated width; None
+        without rotary positions."""
         cfg = self.cfg
-        return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
-                            cfg.rope_inv_freq, cfg.rope_attn_factor)
+        if cfg.position_embedding != "rope":
+            return None
+        return rope_cos_sin(positions, rotary_dim(cfg.head_dim, cfg.rope_pct),
+                            cfg.rope_theta, cfg.rope_inv_freq,
+                            cfg.rope_attn_factor)
 
     def forward(self, tokens, cache: KVCache, write_starts, q_positions,
                 new_lengths, is_prefill: bool = False, gather=None):
@@ -329,7 +442,7 @@ class Transformer(nn.Module):
         reference: slot index == absolute position."""
         cfg = self.cfg
         B, s = tokens.shape
-        x = self.embed(tokens)
+        x = self.embed(tokens, q_positions)
         cos_sin = self._cos_sin(q_positions)
         slots = block_slots(write_starts, s, cache.max_seq)
         for i, layer in enumerate(self.layers):
@@ -379,7 +492,7 @@ class Transformer(nn.Module):
         ar = torch.arange(t, device=tokens.device)
         q_pos = prefix_len.long()[:, None] + ar
         tail_valid = ar[None, :] < tail_len.long()[:, None]
-        x = self.embed(tokens)
+        x = self.embed(tokens, q_pos)
         cos_sin = self._cos_sin(q_pos)
         for i, layer in enumerate(self.layers):
             x = layer.paged_prefill(x, paged.k[i], paged.v[i], cos_sin,
@@ -397,15 +510,16 @@ class Transformer(nn.Module):
         point at the reserved dummy block with context_len 0; their
         outputs are discarded. Writes the pool in place. Returns
         (logits [R,V] f32, paged)."""
-        cfg = self.cfg
-        x = self.embed(tokens[:, None])
-        cos_sin = self._cos_sin(context_lens.long()[:, None])
+        pos = context_lens.long()[:, None]
+        x = self.embed(tokens[:, None], pos)
+        cos_sin = self._cos_sin(pos)
+        fused = fused_decode.eligible(self.cfg, paged.quantized)
         fused_rope = (fused_decode.rope_rows(cos_sin)
-                      if fused_decode.eligible(cfg, paged.quantized)
-                      else None)
+                      if fused and cos_sin is not None else None)
         for i, layer in enumerate(self.layers):
             x = layer.paged_decode(x, paged.k[i], paged.v[i], cos_sin,
-                                   block_tables, context_lens, fused_rope)
+                                   block_tables, context_lens, fused,
+                                   fused_rope)
         return self.unembed(x)[:, 0], paged
 
     def paged_chunk_step(self, s: "PagedChunkState", paged: PagedKVCache,

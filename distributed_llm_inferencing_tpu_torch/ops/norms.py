@@ -1,9 +1,16 @@
-"""Normalization layers (functional), computed in float32 whatever the
-activation dtype — the reference's recipe (bf16 matmuls, f32 reductions)."""
+"""Normalization layers, computed in float32 whatever the activation
+dtype — the reference's recipe (bf16 matmuls, f32 reductions).
+
+``norm`` / ``Norm`` pick the form by ``norm_type``: "rmsnorm" reads a
+leaf ``{"scale"}``, "layernorm" ``{"scale", "bias"}``.
+"""
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
+from torch import nn
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -23,3 +30,25 @@ def rms_norm(x, scale, eps: float = 1e-5):
     y = xf * (1.0 / torch.sqrt(ms + eps))
     y = y * scale.float()
     return y.to(x.dtype)
+
+
+def norm(x, leaf: Dict[str, torch.Tensor], norm_type: str, eps: float):
+    if norm_type == "rmsnorm":
+        return rms_norm(x, leaf["scale"], eps)
+    return layer_norm(x, leaf["scale"], leaf["bias"], eps)
+
+
+class Norm(nn.Module):
+    """``norm`` over a leaf held as parameters (no copy)."""
+
+    def __init__(self, leaf: Dict[str, torch.Tensor], norm_type: str,
+                 eps: float):
+        super().__init__()
+        self.norm_type, self.eps = norm_type, eps
+        self.scale = nn.Parameter(leaf["scale"], requires_grad=False)
+        self.bias = (nn.Parameter(leaf["bias"], requires_grad=False)
+                     if norm_type == "layernorm" else None)
+
+    def forward(self, x):
+        return norm(x, {"scale": self.scale, "bias": self.bias},
+                    self.norm_type, self.eps)

@@ -19,10 +19,13 @@ small kernel, so the port writes every step.)
 
 ``paged_attend_decode`` is the decode regime: on a CUDA tensor it runs
 the paged kernel (ops/paged_attention.py), on a CPU tensor its plain
-version. ``paged_attend_prefix`` (a prompt tail attending its cached
-prefix plus itself) is plain torch on every device, as in the JAX
-package, which computes it outside any Pallas kernel. The int8 pool
-(``kv_quant``) is not ported yet.
+version — except with ALiBi slopes, which the JAX package keeps off its
+Pallas paged kernel: those take ``gather_attend_decode``, the port of
+the JAX package's XLA gather formulation, plain torch on every device
+(no kernel, and no ``paged_flash_decode`` launch). ``paged_attend_prefix``
+(a prompt tail attending its cached prefix plus itself) is plain torch on
+every device, as in the JAX package, which computes it outside any Pallas
+kernel. The int8 pool (``kv_quant``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -105,15 +108,41 @@ def gather_seq(cache_layer, block_tables):
     return g.reshape(r, mb * cache_layer.shape[1], *cache_layer.shape[2:])
 
 
-# The decode regime (single-token attention over the pool, q [R,1,H,hd],
-# context_lens counting the token just written) under the reference's
-# name: the paged kernel on CUDA, its plain version on the CPU.
-paged_attend_decode = paged_flash_decode
+def gather_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
+                         context_lens, sliding_window: Optional[int] = None,
+                         alibi=None):
+    """Single-token attention over the pool by the JAX package's XLA
+    formulation (its ``paged_attend_decode`` off the Pallas kernel): each
+    slot's blocks gathered into a contiguous [R, MB*bs, Hkv, hd] copy,
+    then the plain masked attention with the query at ``context_lens -
+    1``. Plain torch on every device; the route of the ALiBi families."""
+    r, mb = block_tables.shape
+    k = gather_seq(cache_k_layer, block_tables)
+    v = gather_seq(cache_v_layer, block_tables)
+    kv_pos = torch.arange(k.shape[1], device=q.device).expand(r, -1)
+    lens = context_lens.long()
+    return masked_attention(q, k, v, (lens - 1)[:, None], kv_pos,
+                            kv_pos < lens[:, None], sliding_window, alibi)
+
+
+def paged_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
+                        context_lens, sliding_window: Optional[int] = None,
+                        alibi=None):
+    """The decode regime: q [R,1,H,hd] against the pool, ``context_lens``
+    counting the token just written. The paged kernel on CUDA (its plain
+    version on the CPU); with ``alibi`` slopes [H] the gather formulation,
+    where the JAX package routes them too."""
+    if alibi is not None:
+        return gather_attend_decode(q, cache_k_layer, cache_v_layer,
+                                    block_tables, context_lens,
+                                    sliding_window, alibi)
+    return paged_flash_decode(q, cache_k_layer, cache_v_layer, block_tables,
+                              context_lens, sliding_window=sliding_window)
 
 
 def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
                         prefix_blocks, prefix_len, q_positions, tail_valid,
-                        sliding_window: Optional[int] = None):
+                        sliding_window: Optional[int] = None, alibi=None):
     """Tail-prefill attention: fresh tail K/V plus a cached prefix, whose
     K/V is gathered from the shared blocks — a prefix-cache hit saves the
     prefix's compute, not just its memory.
@@ -121,7 +150,7 @@ def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
     q, k_new, v_new [B,T,...] fresh tail projections; prefix_blocks [B,PB]
     (dummy-padded); prefix_len [B] real cached tokens; q_positions [B,T]
     absolute positions (prefix_len + i); tail_valid [B,T] rows holding
-    real tokens."""
+    real tokens; ``alibi`` [H] f32 slopes or None."""
     b = q.shape[0]
     kp = gather_seq(cache_k_layer, prefix_blocks)     # [B, PB*bs, Hkv, hd]
     vp = gather_seq(cache_v_layer, prefix_blocks)
@@ -133,4 +162,4 @@ def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
     kv_pos = torch.cat([prefix_pos, q_positions.long()], dim=1)
     kv_valid = torch.cat([prefix_valid, tail_valid], dim=1)
     return masked_attention(q, k_all, v_all, q_positions.long(), kv_pos,
-                            kv_valid, sliding_window)
+                            kv_valid, sliding_window, alibi)

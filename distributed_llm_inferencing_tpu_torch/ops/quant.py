@@ -26,8 +26,10 @@ never writes the unpacked weight to device memory.
 
 In the flat dict a linear ``<prefix>.w`` becomes ``<prefix>.q`` +
 ``<prefix>.scale`` (int8) or ``<prefix>.p4`` + ``<prefix>.scale``
-(int4); ``embed.tokens`` becomes ``embed.tokens.q8`` +
-``embed.tokens.rscale``.
+(int4); a bias ``<prefix>.b`` stays as it is, added after the product
+in every form. ``embed.tokens`` becomes ``embed.tokens.q8`` +
+``embed.tokens.rscale``; a tied head reads that table with the row
+scale on its vocabulary columns.
 
 Chunk-local int4 packs (``repack_int4_rows``, the JAX package's layout of
 the row-parallel leaves o and down under tensor parallelism): each of C
@@ -46,8 +48,9 @@ import torch
 
 MODES = ("int8", "int4")
 
-# the llama arm's leaves of the JAX package's _LINEAR_LEAVES, plus the
-# untied head; embeddings, norms and biases stay float
+# the dense families' leaves of the JAX package's _LINEAR_LEAVES, plus
+# the untied head; embeddings (their opt-350m projections too), norms and
+# biases stay float
 LINEAR_LEAVES = ("q", "k", "v", "o", "gate", "up", "down")
 _LINEAR_W = re.compile(
     r"^(layers\.\d+\.(?:%s)|lm_head)\.w$" % "|".join(LINEAR_LEAVES))
@@ -148,7 +151,8 @@ def quantize_weight_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 # a linear leaf's stored tensors, by form; an int4 leaf may also carry
-# the ``chunked`` marker
+# the ``chunked`` marker, and a leaf of any form its bias ``b`` (float,
+# in the model's dtype: quantization leaves it as it is)
 LEAF_KEYS = {"float": ("w",), "int8": ("q", "scale"),
              "int4": ("p4", "scale")}
 
@@ -156,13 +160,13 @@ LEAF_KEYS = {"float": ("w",), "int8": ("q", "scale"),
 def leaf_keys(leaf) -> tuple:
     """The stored tensors of ``leaf`` in their canonical order."""
     keys = LEAF_KEYS[leaf_form(leaf)]
-    return keys + ("chunked",) if "chunked" in leaf else keys
+    return keys + tuple(k for k in ("chunked", "b") if k in leaf)
 
 
 def leaf_form(leaf) -> str:
     """"float", "int8" or "int4" for a linear leaf (an int4 one chunked or
-    not); raises for any other set of keys."""
-    keys = set(leaf)
+    not, any of them biased or not); raises for any other set of keys."""
+    keys = set(leaf) - {"b"}
     if "chunked" in keys and "p4" in keys:
         keys.discard("chunked")
     for form, want in LEAF_KEYS.items():

@@ -81,6 +81,14 @@ def validate_spec(spec: MeshSpec, cfg) -> None:
     tp = spec.tp
     if tp == 1:
         return
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        llama_arm_gaps)
+    gaps = llama_arm_gaps(cfg)
+    if gaps:
+        raise NotImplementedError(
+            f"tp={tp} for the {cfg.family} family ({', '.join(gaps)}) is a "
+            "later slice of the port (ROADMAP A12): parallel/sharding.py "
+            "shards the llama arm's leaves only; load it without a mesh")
     if cfg.num_heads % tp:
         raise ValueError(f"tp={tp} must divide num_heads={cfg.num_heads}")
     if tp > cfg.num_kv_heads:

@@ -14,7 +14,9 @@ so the reference master can drive either worker:
   for both the decode programs kept, how many are captured CUDA graphs
   and the bytes their pool holds, runtime/graphs.py), metrics.
 - ``GET /metrics``: the metrics registry as Prometheus text exposition.
-- ``POST /load_model``: ``model_name``, ``allow_random_init``, ``dtype``,
+- ``POST /load_model``: ``model_name`` (a row of models/registry.py: the
+  llama, gpt2, opt, qwen2, gemma, pythia, phi, falcon, bloom, mpt and
+  gpt-j families), ``allow_random_init``, ``dtype``,
   ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
   ops/quant.py), ``embed_quantize`` (``"int8"``: the per-row int8
   embedding table), ``mesh`` (``{"tp": N}``: tensor parallelism over N
@@ -73,7 +75,10 @@ brings it: ``speculative`` (A9), ``kv_host_mb``, ``kv_source``,
 (the int8 KV cache, A1–A3 rest), checkpoint paths (A11); so does a
 ``quantize`` or ``embed_quantize`` value outside the modes above, and a
 ``mesh`` the port cannot serve (an axis other than tp above 1, tp with
-``"serving": "batched"``, or a tp the model's shapes do not divide).
+``"serving": "batched"``, tp for a family off the llama arm, or a tp the
+model's shapes do not divide), and a model whose config switches on a
+feature outside the ported families (models/transformer.py
+``check_supported``).
 
 Run: ``python -m distributed_llm_inferencing_tpu_torch worker --port 8100``
 (``--device cpu`` for the plain-PyTorch path without a GPU).

@@ -4,7 +4,8 @@ one), flash_decode and paged_flash_decode (both split-KV),
 fused_decode_step (float, int8 and int4 weight forms, bf16 and f32, over
 the cluster kernel's edges: row groups, item edges, windows, MHA/GQA/MQA,
 hd 16-256), q4_matmul and q4_matmul_row (both forms: bf16 on the tensor
-cores, f32 on the CUDA cores). The tensor-core kernels, the split-KV
+cores, f32 on the CUDA cores); the dense families' head shapes (ALiBi
+heads, a group of 71, hd 80 and 256) through the attention kernels. The tensor-core kernels, the split-KV
 decodes and the fused kernel are also held to the same bits across two
 launches.
 
@@ -444,6 +445,90 @@ def test_fused_cluster_edges(dtype, form, lengths, H, Hkv, hd, D, bs, rope,
     again = fd.fused_decode_step(x, leaf, k_pool, v_pool, bt, lens, **kw)
     assert torch.equal(out, again)     # fixed summation orders: same bits
     assert fd.fused_decode_step.launches == n0 + 2
+
+
+# the dense families' shapes (models/registry.py) through the attention
+# kernels: bloom-7b1's and falcon-rw-1b's ALiBi heads (falcon-rw's slopes
+# scaled by hd**-0.5), falcon-7b's one kv head for 71 query heads, phi-2's
+# hd 80 and gemma's hd 256 (gemma-7b MHA, gemma-2b MQA)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,hd,alibi_scale", [
+    (32, 32, 128, 1.0),             # bloom-7b1
+    (32, 32, 64, 64 ** -0.5),       # falcon-rw-1b
+    (71, 1, 64, None),              # falcon-7b: a group of 71
+])
+def test_family_prefill_and_decode(dtype, H, Hkv, hd, alibi_scale):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(H + hd)
+    sl = (None if alibi_scale is None
+          else alibi_slopes(H, dev) * alibi_scale)
+    q = _rand(g, (2, 300, H, hd), dtype, dev)
+    k, v = (_rand(g, (2, 300, Hkv, hd), dtype, dev) for _ in range(2))
+    n0, m0 = fa.flash_attention.launches, fa.flash_attention.launches_mma
+    out = fa.flash_attention(q, k, v, alibi=sl)
+    torch.cuda.synchronize()
+    mma = int(dtype == torch.bfloat16)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.launches_mma) == (n0 + 1, m0 + mma)
+    torch.testing.assert_close(
+        out.float(), fa.flash_attention_ref(q, k, v, alibi=sl).float(),
+        **_tol(dtype))
+    assert torch.equal(out, fa.flash_attention(q, k, v, alibi=sl))
+    lengths = [1, 300, 2047]
+    q = _rand(g, (3, 1, H, hd), dtype, dev)
+    k, v = (_rand(g, (3, 2048, Hkv, hd), dtype, dev) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out = fa.flash_decode(q, k, v, lens, alibi=sl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out.float(), fa.flash_decode_ref(q, k, v, lens, alibi=sl).float(),
+        **_tol(dtype))
+    assert torch.equal(out, fa.flash_decode(q, k, v, lens, alibi=sl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,hd,D", [
+    (71, 1, 64, 4544),              # falcon-7b
+    (32, 32, 80, 2560),             # phi-2
+    (16, 16, 256, 3072),            # gemma-7b
+    (8, 1, 256, 2048),              # gemma-2b
+])
+def test_family_paged_and_fused_decode(dtype, H, Hkv, hd, D):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(D)
+    lengths = [0, 1, 17, 300, 1000, 2048, 5, 64]
+    k_pool, v_pool, bt, lens = _paged_case(g, dev, dtype, lengths, H, Hkv,
+                                           hd, 16)
+    R = len(lengths)
+    q = _rand(g, (R, 1, H, hd), dtype, dev)
+    n0 = pa.paged_flash_decode.launches
+    out = pa.paged_flash_decode(q, k_pool, v_pool, bt, lens)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode.launches == n0 + 1
+    torch.testing.assert_close(
+        out.float(),
+        pa.paged_flash_decode_ref(q, k_pool, v_pool, bt, lens).float(),
+        **_paged_tol(dtype))
+    assert torch.equal(out, pa.paged_flash_decode(q, k_pool, v_pool, bt,
+                                                  lens))
+    x = _rand(g, (R, D), dtype, dev)
+    leaf = {"w": (torch.randn(D, H * hd, generator=g, device=dev)
+                  / D ** 0.5).to(dtype)}
+    ang = torch.rand(R, hd // 2, generator=g, device=dev) * 6.0
+    kw = dict(rope_cos=torch.cat([ang.cos(), ang.cos()], -1).contiguous(),
+              rope_sin=torch.cat([ang.sin(), ang.sin()], -1).contiguous())
+    n0 = fd.fused_decode_step.launches
+    out = fd.fused_decode_step(x, leaf, k_pool, v_pool, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert fd.fused_decode_step.launches == n0 + 1
+    ref = fd.fused_decode_step_ref(x, leaf, k_pool, v_pool, bt, lens, **kw)
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else _paged_tol(dtype))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert torch.equal(out, fd.fused_decode_step(x, leaf, k_pool, v_pool, bt,
+                                                 lens, **kw))
 
 
 def q4_bound(x, p4, scale, chunks=1):

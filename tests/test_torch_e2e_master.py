@@ -55,6 +55,7 @@ from distributed_llm_inferencing_tpu_torch.runtime.worker import (
     LoadedModel, WorkerAgent)
 from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
     load_tokenizer)
+from test_torch_families import family_pair
 
 MODEL = "tiny-llama"
 MAX_SEQ = 128
@@ -62,19 +63,17 @@ PROMPTS = ["hello world", "the quick brown fox", "abc", "distributed llm"]
 NEW = 12
 
 
-@pytest.fixture(scope="module")
-def cluster():
-    jcfg = jax_config(MODEL).replace(dtype="float32")
-    params = jax_init_params(jcfg, jax.random.PRNGKey(0))
-    tcfg = get_config(MODEL).replace(dtype="float32")
-    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+def _cluster(model, jcfg, params, tcfg, tparams):
+    """A JAX and a port worker serving ``model`` on the same weights
+    (``params``, bridged as ``tparams``), and a maker of masters over
+    them. Yields the cluster dict; stops everything after."""
     jax_agent, port_agent = JaxWorkerAgent(), WorkerAgent(device="cpu")
     for agent in (jax_agent, port_agent):
         agent.serve("127.0.0.1", 0, background=True)
-    jax_agent.models[MODEL] = JaxLoadedModel(
+    jax_agent.models[model] = JaxLoadedModel(
         JaxEngine(jcfg, params, max_seq=MAX_SEQ),
         jax_load_tokenizer(None, jcfg.vocab_size), "test")
-    port_agent.models[MODEL] = LoadedModel(
+    port_agent.models[model] = LoadedModel(
         InferenceEngine(tcfg, tparams, max_seq=MAX_SEQ, device="cpu"),
         load_tokenizer(None, tcfg.vocab_size), "test")
 
@@ -88,7 +87,7 @@ def cluster():
         for agent, b, lm in ((jax_agent, jb, JaxLoadedModel),
                              (port_agent, tb, LoadedModel)):
             b.start()
-            agent.models[MODEL] = lm(None, agent.models[MODEL].tokenizer,
+            agent.models[model] = lm(None, agent.models[model].tokenizer,
                                      "test", batcher=b)
 
     masters = []
@@ -108,20 +107,39 @@ def cluster():
         return m, base, ids
 
     yield {"jax": jax_agent, "port": port_agent, "batched": batched,
-           "master": master, "served": {}}
+           "master": master, "served": {}, "model": model}
     for m in masters:
         m.stop()
     jax_agent.service.shutdown()
     for agent in (jax_agent, port_agent):
-        b = agent.models[MODEL].batcher
+        b = agent.models[model].batcher
         if b is not None:
             b.stop()
     port_agent.shutdown()
 
 
-def _submit(base, prompt, new=NEW):
+@pytest.fixture(scope="module")
+def cluster():
+    jcfg = jax_config(MODEL).replace(dtype="float32")
+    params = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = get_config(MODEL).replace(dtype="float32")
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    yield from _cluster(MODEL, jcfg, params, tcfg, tparams)
+
+
+@pytest.fixture(scope="module")
+def gpt2_cluster():
+    """tiny-gpt2, the reference's default family, on the weights of
+    tests/test_torch_families.py (every bias and norm moved off its
+    init)."""
+    jcfg, params, tree, model = family_pair("tiny-gpt2")
+    yield from _cluster("tiny-gpt2", jcfg, params, model.cfg,
+                        params_from_jax(tree, model.cfg, "cpu"))
+
+
+def _submit(base, prompt, new=NEW, model=MODEL):
     r = requests.post(f"{base}/api/inference/submit", json={
-        "model_name": MODEL, "prompt": prompt, "max_new_tokens": new,
+        "model_name": model, "prompt": prompt, "max_new_tokens": new,
         "sampling": {"do_sample": False}}, timeout=30).json()
     assert r["status"] == "success", r
     return r["request_id"]
@@ -154,14 +172,14 @@ def _wait(pred, what, timeout=60.0):
 def _serve_alone(cluster, side):
     """Every prompt through a master whose only node is ``side``'s."""
     m, base, _ = cluster["master"](**{side: cluster[side]})
-    rids = [_submit(base, p) for p in PROMPTS]
+    rids = [_submit(base, p, model=cluster["model"]) for p in PROMPTS]
     m.start_background()
     rows = [_finish(base, rid) for rid in rids]
     assert all(r["status"] == "completed" for r in rows), rows
     return [r["result"] for r in rows]
 
 
-def test_engine_mode_port_node_equals_jax_node(cluster):
+def _engine_mode(cluster):
     jax_texts = _serve_alone(cluster, "jax")
     port_texts = _serve_alone(cluster, "port")
     assert port_texts == jax_texts
@@ -170,14 +188,33 @@ def test_engine_mode_port_node_equals_jax_node(cluster):
     cluster["reference"] = dict(zip(PROMPTS, jax_texts))
 
 
+def test_engine_mode_port_node_equals_jax_node(cluster):
+    _engine_mode(cluster)
+
+
 def test_batched_mode_through_inference_batch(cluster):
+    _batched_mode(cluster)
+
+
+def test_gpt2_engine_mode_port_node_equals_jax_node(gpt2_cluster):
+    """The reference's default family through the unchanged master: the
+    port node's text equals the JAX node's."""
+    _engine_mode(gpt2_cluster)
+
+
+def test_gpt2_batched_mode_through_inference_batch(gpt2_cluster):
+    _batched_mode(gpt2_cluster)
+
+
+def _batched_mode(cluster):
     ref = cluster["reference"]
     cluster["batched"]()
     port = cluster["port"]
     batch_rpcs = port.metrics.snapshot()["counters"]["batch_rpcs"]
     m, base, ids = cluster["master"](jax=cluster["jax"], port=port)
     prompts = PROMPTS * 2
-    rids = [_submit(base, p) for p in prompts]   # before the dispatcher
+    rids = [_submit(base, p, model=cluster["model"])
+            for p in prompts]                    # before the dispatcher
     m.start_background()
     rows = [_finish(base, rid) for rid in rids]
     assert all(r["status"] == "completed" for r in rows), rows
@@ -259,3 +296,57 @@ def test_cancel_through_the_master_frees_the_port_slot(cluster):
     row = _finish(base, rid)
     assert row["status"] == "failed" and "cancel" in row["error"], row
     assert port.metrics.snapshot()["counters"]["requests_cancelled"] == 1
+
+
+@pytest.fixture
+def port_worker():
+    agent = WorkerAgent(device="cpu")
+    agent.serve("127.0.0.1", 0, background=True)
+    yield f"http://127.0.0.1:{agent.service.port}", agent
+    for m in list(agent.models.values()):
+        m.close()
+    agent.shutdown()
+
+
+_TINY_LOAD = {"model_name": "tiny-gpt2", "allow_random_init": True,
+              "dtype": "float32", "max_seq": 64}
+
+
+@pytest.mark.parametrize("serving,quant", [
+    ("engine", None), ("engine", "int8"), ("engine", "int4"),
+    ("batched", None), ("batched", "int8"), ("batched", "int4")])
+def test_load_model_serves_tiny_gpt2(port_worker, serving, quant):
+    """/load_model takes a family's registry name in every weight form and
+    in both serving modes; /inference then answers."""
+    base, agent = port_worker
+    body = dict(_TINY_LOAD, serving=serving,
+                **({"quantize": quant} if quant else {}))
+    if serving == "batched":
+        body.update(kv_blocks=32, kv_block_size=8, slots=2)
+    r = requests.post(f"{base}/load_model", json=body, timeout=60)
+    assert r.status_code == 200, r.text
+    r = requests.post(f"{base}/inference", json={
+        "model_name": "tiny-gpt2", "prompt": "hello", "max_new_tokens": 4,
+        "sampling": {"do_sample": False}}, timeout=60).json()
+    assert r["status"] == "success" and len(r["tokens"]) == 4, r
+    health = requests.get(f"{base}/health", timeout=30).json()
+    [desc] = health["loaded_models"]
+    assert desc["quantize"] == quant
+
+
+def test_load_model_refusals(port_worker, monkeypatch):
+    """tp for a family outside the llama arm is a 400 naming the gap; a
+    config outside the ported families (a gemma2-style softcap) is a 400
+    from the construction check; an unknown name a 400."""
+    base, agent = port_worker
+    from distributed_llm_inferencing_tpu_torch.models import registry
+    style = registry.get_config("tiny-gpt2").replace(
+        name="tiny-gemma2-style", attn_softcap=50.0, logit_softcap=30.0)
+    monkeypatch.setitem(registry._REGISTRY, style.name, style)
+    for body, needle in (
+            (dict(_TINY_LOAD, mesh={"tp": 2}), "llama arm"),
+            (dict(_TINY_LOAD, model_name=style.name), "attn_softcap"),
+            (dict(_TINY_LOAD, model_name="gemma2-9b"), "unknown model")):
+        r = requests.post(f"{base}/load_model", json=body, timeout=60)
+        assert r.status_code == 400 and needle in r.json()["message"], r.text
+    assert not agent.models

@@ -1,0 +1,60 @@
+"""Quantized weights of the dense families against the JAX package, on the
+same weights (CPU, f32 activations).
+
+int8 and int4 weights of one learned-position family (gpt2), one ALiBi
+family (bloom) and one parallel-residual family (pythia), each with
+biased linears whose bias is added after the quantized product:
+
+- logits within 1e-4 over the dense path (a right-padded prefill and 4
+  decode steps) and the paged path (``test_torch_families_paged.py``'s
+  script);
+- greedy tokens equal to the JAX engine's and to the JAX batcher's.
+
+``embed_quant="int8"`` with a tied head (gpt2, gemma's MQA row): the
+head reads the int8 table with its row scale on the vocabulary columns,
+logits within 1e-4 of the JAX package's ``unembed``.
+"""
+
+import pytest
+
+from distributed_llm_inferencing_tpu.ops.sampling import (
+    SamplingParams as JaxSamplingParams)
+from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
+from test_torch_families import family_pair
+from test_torch_families_batcher import batchers, drive
+from test_torch_families_engine import engines, greedy_tokens
+from test_torch_families_paged import _close, _dense_logits, _paged_logits
+
+_QUANT = [(n, q) for n in ("tiny-gpt2", "bloom-7b1", "pythia-6.9b")
+          for q in ("int8", "int4")]
+
+
+@pytest.mark.parametrize("name,quant", _QUANT)
+def test_quantized_families_match_jax(name, quant):
+    jcfg, jparams, _, model = family_pair(name, quant=quant)
+    lin = model.layers[0].q
+    assert lin.form == quant and ("b" in lin.leaf()) == jcfg.attn_bias
+    _close(_dense_logits(jcfg, jparams, model))
+    _close(_paged_logits(jcfg, jparams, model, steps=3))
+
+
+@pytest.mark.parametrize("name", ["tiny-gpt2", "gemma-2b"])
+def test_embed_quant_tied_head_matches_jax(name):
+    jcfg, jparams, tree, model = family_pair(name, embed_quant="int8")
+    assert model.lm_head is None and model.embed.quantized
+    assert set(tree["embed"]["tokens"]) == {"q8", "rscale"}
+    _close(_dense_logits(jcfg, jparams, model))
+
+
+@pytest.mark.parametrize("name,quant", _QUANT)
+def test_quantized_engine_tokens_match_jax(name, quant):
+    jeng, teng = engines(name, quant=quant)
+    assert greedy_tokens(teng, SamplingParams) == \
+        greedy_tokens(jeng, JaxSamplingParams)
+
+
+@pytest.mark.parametrize("name,quant", _QUANT)
+def test_quantized_batcher_tokens_match_jax(monkeypatch, name, quant):
+    monkeypatch.setenv("DLI_FUSED_DECODE", "0")
+    jb, port = batchers(name, quant=quant)
+    assert drive(port(), SamplingParams) == drive(jb, JaxSamplingParams)

@@ -59,12 +59,18 @@ def test_apply_rope_matches(hd, theta):
 
 
 def test_apply_rope_refuses_partial_and_interleaved():
+    """Partial and interleaved rotary are ported (held against the JAX
+    package in tests/test_torch_families.py); what stays refused is a
+    rotated width that is odd or empty, which turns no whole pair (the
+    JAX function fails on it too)."""
     x = torch.zeros(1, 2, 1, 8)
     pos = torch.zeros(1, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        trope.apply_rope(x, pos, 1e4, pct=0.5)
-    with pytest.raises(NotImplementedError):
-        trope.apply_rope(x, pos, 1e4, interleaved=True)
+    with pytest.raises(ValueError):
+        trope.apply_rope(x, pos, 1e4, pct=0.375)          # 3 of 8 dims
+    with pytest.raises(ValueError):
+        trope.apply_rope(x, pos, 1e4, pct=0.125, interleaved=True)
+    with pytest.raises(ValueError):
+        trope.apply_rope(x, pos, 1e4, pct=0.0)
 
 
 @pytest.mark.parametrize("H,Hkv,window,alibi", [

@@ -90,12 +90,15 @@ def test_gather_keeps_only_the_last_real_row():
 
 
 @pytest.mark.parametrize("over", [
-    {"num_experts": 4}, {"position_embedding": "alibi"},
-    {"qk_norm": "rms_head"}, {"parallel_residual": True},
+    {"num_experts": 4}, {"attn_sinks": True},
+    {"qk_norm": "rms_head"}, {"post_block_norms": True},
     {"attn_softcap": 30.0}, {"kv_quant": "int8"},
-    {"tie_word_embeddings": True},
+    {"logit_softcap": 30.0},
 ])
 def test_configs_outside_the_llama_arm_raise(over):
+    """Features outside every ported family (the llama arm's other
+    switches — ALiBi, parallel residual, a tied head — are ported with
+    the dense families and held in tests/test_torch_families*.py)."""
     cfg = get_config("tiny-llama").replace(dtype="float32", **over)
     with pytest.raises(NotImplementedError):
         Transformer(cfg, {})
