@@ -35,7 +35,8 @@ Phases (any failure fails the run, exit code != 0):
    tests/test_pallas_parity.py's odd shapes, within Q4_TOL and
    bit-identical across two launches; err_over_tol is each row's margin.
    Every kernel row is device time from torch.profiler over L2-cold
-   inputs ("ms", the library times too; "event_ms" the CUDA events
+   inputs, in a trace shown to hold every kernel of the timed calls
+   (bracketed_trace) ("ms", the library times too; "event_ms" the CUDA events
    around the wrapper). Times the kernel, its plain version
    and one torch call computing the same function
    (scaled_dot_product_attention, for paged decode on K/V gathered
@@ -149,8 +150,9 @@ Phases (any failure fails the run, exit code != 0):
    int4, on a fresh load per mode. Both modes must give the same tokens
    (greedy and sampled), the same launch counts per request, the same
    weight passes and launches per wave. One replay of each captured
-   program, profiled with torch.profiler, must run on the device exactly
-   the kernels its launch counts add (the capture's record). Reports ms
+   program, profiled with torch.profiler in a trace shown to hold the
+   whole replay (bracketed_trace), must run on the device exactly the
+   kernels its launch counts add (the capture's record). Reports ms
    per engine decode step and prefill, ms per batched weight pass and
    tokens/s, each with graphs on and off, the capture times, the graph
    pool's bytes, the profiled replays, and torch.cuda.memory_allocated()
@@ -181,6 +183,28 @@ Phases (any failure fails the run, exit code != 0):
    version's error against f32. (c) ms per decode step and per batched
    weight pass for these paths, printed with the card's name and power
    limit, no limit.
+15. Model ingestion: checkpoint directories written here from seeded
+   tensors, each with its own safetensors writer, and served by the
+   worker. (a) A Llama-3.1-8B-shaped HF directory (LLAMA31_8B, full
+   width and depth, 4 bf16 shards with their index, the llama3
+   rope_scaling, 131072 positions; the depth is cut, and the cut
+   printed, only if the disk cannot hold it twice): ``checkpoint_path``
+   in engine mode (phase 3's requests and counts; the load's seconds,
+   GB/s of file bytes and peak device memory above the baseline, which
+   must stay within param_bytes + 2 f32 copies of the largest leaf), in
+   batched mode with DLI_FUSED_DECODE off and on (phase 5's pass and
+   counts, then phase 3's greedy request alone), with "quantize":
+   "int4" (phase 7's engine counts); (c) ``python -m
+   distributed_llm_inferencing_tpu_torch convert --quantize int4`` of it
+   and ``native_checkpoint`` (phase 3's requests, the int4 load's
+   tokens). (b) gpt2-xl (48 layers, Conv1D weights, the hub's layout:
+   no "transformer." prefix, no head, attn.bias buffers) and bloom-7b1
+   (BLOOM_LAYERS layers, fused per-head QKV, ALiBi), engine and batched
+   (paged route; bloom's gather route launches no paged kernel). Every
+   param of every load equals, bitwise, the tensor written (int4: ops/
+   quant.py's maybe_quantize of it), and every token equals an
+   InferenceEngine's or ContinuousBatcher's built in this process on the
+   written tensors. Its wall time is printed on a line of its own.
 
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
@@ -468,25 +492,27 @@ def _cold_ms(torch, fns, iters=30):
 
 def _device_ms(torch, fns, iters=30):
     """Device time per call: the self device time of every kernel the
-    calls launch, under torch.profiler, over ``iters`` calls round-robin
-    over ``fns`` (cold inputs as in _cold_ms). For calls whose host side
-    outlasts their kernels, where CUDA events around a loop would time
-    the host."""
-    from torch.profiler import ProfilerActivity, profile
+    calls launch, under torch.profiler (a trace that holds them all, see
+    bracketed_trace), over ``iters`` calls round-robin over ``fns`` (cold
+    inputs as in _cold_ms). For calls whose host side outlasts their
+    kernels, where CUDA events around a loop would time the host."""
+    from torch.profiler import ProfilerActivity
 
     from distributed_llm_inferencing_tpu_torch.profile_engine import (
         _device_us)
     it = itertools.cycle(fns)
     for _ in range(3):
         next(it)()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             next(it)()
-        torch.cuda.synchronize()
+
+    prof, _, _ = bracketed_trace(
+        torch, calls, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     us = sum(_device_us(e) for e in prof.key_averages()
-             if e.key and not e.key.startswith("aten::"))
+             if e.key and not e.key.startswith("aten::")
+             and SPIN not in e.key)
     return us / 1e3 / iters
 
 
@@ -1002,6 +1028,54 @@ def read_counts(kernels):
             for k, (mod, fn, attr) in kernels.items()}
 
 
+# bracketed_trace's spins: one of ~10 ms at 1.98 GHz, then LEAD_IN of ~10
+# us each before the work and one after it
+SPIN = "spin_kernel"
+SPIN_CYCLES = 20_000_000
+MARK_CYCLES = 20_000
+LEAD_IN = 256
+TRACES = 4
+
+
+def bracketed_trace(torch, work, activities):
+    """``work()`` under torch.profiler, in a trace that holds every kernel
+    it ran: returns the profile, what ``work`` returned, and the number
+    of traces taken.
+
+    The profiler drops a prefix of the device kernels it saw, of a length
+    that varies from trace to trace: in 156 traces of decode-step replays
+    (llama-3-8b, gpt2-xl, bloom-7b1; 12 per program behind one 10 ms
+    spin, on an H100) the cut fell before the spin or 0.3 to 3 ms after
+    it, up to 19 kernels into the replay, and one trace held no kernel at
+    all. So ``work`` runs on the current stream behind a long spin and
+    LEAD_IN short ones, and before one more short spin; a trace is kept
+    when it holds at least one lead-in spin and the closing one, which
+    (the drop being a prefix) puts all of ``work``'s kernels inside it.
+    Otherwise it is taken again with twice the lead-in, TRACES times at
+    most. ``work`` must do the same device work each time it is called.
+    """
+    from torch.profiler import profile
+    lead_in, sizes = LEAD_IN, []
+    for _ in range(TRACES):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(lead_in):
+                torch.cuda._sleep(MARK_CYCLES)
+            out = work()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+        device = sorted((e.time_range.start, e.name) for e in prof.events()
+                        if str(e.device_type).endswith("CUDA"))
+        sizes.append(len(device))
+        if (len(device) > 1 and SPIN in device[-1][1]
+                and any(SPIN in name for _, name in device[:-1])):
+            return prof, out, len(sizes)
+        lead_in *= 2
+    raise AssertionError(f"none of {TRACES} traces held all the kernels "
+                         f"of the work (device kernels per trace: {sizes})")
+
+
 def _http(url, body=None, timeout=900):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
@@ -1014,6 +1088,17 @@ def _http(url, body=None, timeout=900):
         return e.code, json.loads(e.read())
 
 
+# phase 3's requests: (prompt tokens, sampling, seed); the byte tokenizer
+# makes BOS + one token per byte -> 100/200/500 tokens, prefill buckets
+# 128/256/512 (prefill rows > 32: the plain unpack)
+ENGINE_REQUESTS = ((100, {"do_sample": False}, 0), (200, {}, 1),
+                   (500, {}, 2))
+
+
+def engine_prompt(n_tok, seed):
+    return "".join(chr(97 + (i * 7 + seed) % 26) for i in range(n_tok - 1))
+
+
 def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
     """Phase 3's three requests through a loaded engine-mode model (bf16
     activations): counts zeroed before, each request must add one
@@ -1024,15 +1109,11 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
     gathered head row of its prefill (int4; 0 otherwise), and nothing
     else. Returns (launches, request rows)."""
     L, new = cfg.num_layers, 32
-    # byte tokenizer: BOS + one token per byte -> 100/200/500 tokens,
-    # prefill buckets 128/256/512 (prefill rows > 32: the plain unpack)
-    reqs = [(100, {"do_sample": False}, 0), (200, {}, 1), (500, {}, 2)]
     zero_counts(kernels)                 # counts of this path only
     count = lambda: read_counts(kernels)  # noqa: E731
     rows = []
-    for n_tok, sampling, seed in reqs:
-        text = "".join(chr(97 + (i * 7 + seed) % 26)
-                       for i in range(n_tok - 1))
+    for n_tok, sampling, seed in ENGINE_REQUESTS:
+        text = engine_prompt(n_tok, seed)
         n0 = count()
         st, r = _http(base + "/inference", {
             "model_name": model_name, "prompt": text,
@@ -1277,9 +1358,12 @@ def _batched_bodies(cfg, lens=PROMPT_LENS):
             for i, p in enumerate(prompts)]
 
 
-def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None):
+def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None,
+                  load=None, check=None):
     """Phase 5's 8 concurrent requests through a batched llama-3-8b load
-    (``quant``: "int8"/"int4" weights). Counts are zeroed before: the
+    (``quant``: "int8"/"int4" weights; ``load``: another load body of the
+    same shapes, and ``check(loaded model)`` run before the unload).
+    Counts are zeroed before: the
     route's attention kernel must launch num_layers times per decode
     weight pass and no other attention kernel may launch; in int4,
     q4_matmul launches (7 linears, 6 with the fused q) x num_layers + 1
@@ -1287,10 +1371,10 @@ def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None):
     rows and 7 x num_layers more if the wave has <= 32 rows."""
     bodies = _batched_bodies(cfg)
     L = cfg.num_layers
-    name = BATCHED_LOAD["model_name"]
+    load = load or dict(BATCHED_LOAD, quantize=quant)
+    name = load["model_name"]
     torch.cuda.reset_peak_memory_stats()
-    st, res = _http(base + "/load_model",
-                    dict(BATCHED_LOAD, quantize=quant))
+    st, res = _http(base + "/load_model", load)
     assert st == 200 and res["status"] == "success", res
     st, health = _http(base + "/health")
     [desc] = [m for m in health["loaded_models"] if m["name"] == name]
@@ -1358,7 +1442,9 @@ def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None):
     pool = desc["scheduler"]["decode_graph_pool_bytes"]
     # drop the recorder (it holds the model) before the unload frees it
     del batcher.model.paged_prefill_tail, batcher, recorded, prefill
+    checked = check(worker.models[name]) if check is not None else None
     summary = {"weights": quant or "bf16", "route": route, "wall_s": wall,
+               "check": checked,
                "generated_tokens": sum(len(t) for t in tokens),
                "tokens_per_s": sum(len(t) for t in tokens) / wall,
                "weight_passes": passes,
@@ -2352,21 +2438,25 @@ REPLAY_KERNELS = (
 
 
 def _replay_profiled(torch, kernels, prog, decode):
-    """One replay of the captured ``prog`` under torch.profiler (CUPTI
-    reports each kernel a graph runs): per REPLAY_KERNELS entry, the
-    launches the replay counted and the kernels the device ran; they must
-    be equal, the counted ones must be the capture's record, and the
-    step's ``decode`` kernel must have run."""
-    from torch.profiler import ProfilerActivity, profile
+    """One replay of the captured ``prog``, profiled on the device (CUPTI
+    reports each kernel a graph runs; bracketed_trace makes sure the trace
+    holds them all): per REPLAY_KERNELS entry, the launches the replay
+    counted and the kernels the device ran; they must be equal, the
+    counted ones must be the capture's record, and the step's ``decode``
+    kernel must have run."""
+    from torch.profiler import ProfilerActivity
     assert prog.captured
-    torch.cuda.synchronize()
-    zero_counts(kernels)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def replay():
+        zero_counts(kernels)
         prog()
-        torch.cuda.synchronize()
-    counted = read_counts(kernels)
-    names = [e.name for e in prof.events()
-             if str(e.device_type).endswith("CUDA")]
+        return read_counts(kernels)
+
+    prof, counted, traces = bracketed_trace(torch, replay,
+                                            [ProfilerActivity.CUDA])
+    names = [name for _, name in sorted(
+        (e.time_range.start, e.name) for e in prof.events()
+        if str(e.device_type).endswith("CUDA"))]
     record = {}
     for (fn, attr), n in prog.record.items():
         name = fn.__name__ + ("[mma]" if attr == "launches_mma" else "")
@@ -2377,9 +2467,11 @@ def _replay_profiled(torch, kernels, prog, decode):
     for label, book, device in REPLAY_KERNELS:
         out[label] = {"counted": sum(counted[k] for k in book),
                       "ran": sum(any(d in n for d in device) for n in names)}
-        assert out[label]["counted"] == out[label]["ran"], (label, out)
+        assert out[label]["counted"] == out[label]["ran"], \
+            (label, out[label], [n[:48] for n in names[:8]])
     # ``decode`` None: the ALiBi gather route, no kernel of the port
     assert decode is None or out[decode]["ran"] > 0, out
+    out["traces"] = traces
     return out
 
 
@@ -2687,6 +2779,610 @@ def phase_families(torch, fa, qm, kernels, smi):
     return report
 
 
+# ---------------------------------------------------------------------
+# phase 15: model ingestion, checkpoint directories through the worker
+# ---------------------------------------------------------------------
+
+# meta-llama/Llama-3.1-8B's config.json (its published fields)
+LLAMA31_8B = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "attention_bias": False, "attention_dropout": 0.0,
+    "bos_token_id": 128000, "eos_token_id": 128001, "hidden_act": "silu",
+    "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_position_embeddings": 131072,
+    "mlp_bias": False, "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "rope_theta": 500000.0, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 128256}
+# openai-community/gpt2-xl's config.json (the hub's files hold f32; these
+# are bf16, 3.1 GB)
+GPT2_XL = {
+    "architectures": ["GPT2LMHeadModel"], "model_type": "gpt2",
+    "activation_function": "gelu_new", "attn_pdrop": 0.1,
+    "bos_token_id": 50256, "embd_pdrop": 0.1, "eos_token_id": 50256,
+    "initializer_range": 0.02, "layer_norm_epsilon": 1e-05, "n_ctx": 1024,
+    "n_embd": 1600, "n_head": 25, "n_layer": 48, "n_positions": 1024,
+    "output_past": True, "resid_pdrop": 0.1, "vocab_size": 50257}
+# bigscience/bloom-7b1's config.json, 30 layers cut to BLOOM_LAYERS
+BLOOM_LAYERS = 4
+BLOOM_7B1 = {
+    "architectures": ["BloomForCausalLM"], "model_type": "bloom",
+    "apply_residual_connection_post_layernorm": False,
+    "attention_dropout": 0.0, "bos_token_id": 1, "eos_token_id": 2,
+    "hidden_dropout": 0.0, "hidden_size": 4096, "initializer_range": 0.02,
+    "layer_norm_epsilon": 1e-05, "n_head": 32, "n_layer": BLOOM_LAYERS,
+    "pad_token_id": 3, "pretraining_tp": 1, "slow_but_exact": False,
+    "use_cache": True, "vocab_size": 250880}
+LLAMA31_SHARDS = 4
+INGEST_SEED = 31
+# what a checkpoint load must fit in beside the weights: a leaf's copy in
+# its file dtype and its transposed twin, or its f32 arithmetic copy
+LOAD_PEAK_LEAVES_F32 = 2
+
+
+def _hf_tensors(conf):
+    """(HF key, shape, kind) of every tensor a checkpoint of ``conf``
+    holds, in file order; kind "w" (normal, std 0.02), "norm" (1 + that),
+    "b" (normal, std 0.02) or "buf" (a buffer the converter never
+    reads). gpt2 and bloom in the hub's layout: no "transformer." prefix,
+    no head (tied), gpt2's Conv1D weights [in, out]."""
+    out = []
+    if conf["model_type"] == "llama":
+        D, I, V = (conf["hidden_size"], conf["intermediate_size"],
+                   conf["vocab_size"])
+        H, KV = conf["num_attention_heads"], conf["num_key_value_heads"]
+        hd = D // H
+        out.append(("model.embed_tokens.weight", (V, D), "w"))
+        for i in range(conf["num_hidden_layers"]):
+            p = f"model.layers.{i}."
+            out += [(p + "input_layernorm.weight", (D,), "norm"),
+                    (p + "self_attn.q_proj.weight", (H * hd, D), "w"),
+                    (p + "self_attn.k_proj.weight", (KV * hd, D), "w"),
+                    (p + "self_attn.v_proj.weight", (KV * hd, D), "w"),
+                    (p + "self_attn.o_proj.weight", (D, H * hd), "w"),
+                    (p + "post_attention_layernorm.weight", (D,), "norm"),
+                    (p + "mlp.gate_proj.weight", (I, D), "w"),
+                    (p + "mlp.up_proj.weight", (I, D), "w"),
+                    (p + "mlp.down_proj.weight", (D, I), "w")]
+        return out + [("model.norm.weight", (D,), "norm"),
+                      ("lm_head.weight", (V, D), "w")]
+    if conf["model_type"] == "gpt2":
+        D, V, P = conf["n_embd"], conf["vocab_size"], conf["n_positions"]
+        out += [("wte.weight", (V, D), "w"), ("wpe.weight", (P, D), "w")]
+        for i in range(conf["n_layer"]):
+            p = f"h.{i}."
+            out += [(p + "ln_1.weight", (D,), "norm"),
+                    (p + "ln_1.bias", (D,), "b"),
+                    (p + "attn.bias", (1, 1, P, P), "buf"),
+                    (p + "attn.c_attn.weight", (D, 3 * D), "w"),
+                    (p + "attn.c_attn.bias", (3 * D,), "b"),
+                    (p + "attn.c_proj.weight", (D, D), "w"),
+                    (p + "attn.c_proj.bias", (D,), "b"),
+                    (p + "ln_2.weight", (D,), "norm"),
+                    (p + "ln_2.bias", (D,), "b"),
+                    (p + "mlp.c_fc.weight", (D, 4 * D), "w"),
+                    (p + "mlp.c_fc.bias", (4 * D,), "b"),
+                    (p + "mlp.c_proj.weight", (4 * D, D), "w"),
+                    (p + "mlp.c_proj.bias", (D,), "b")]
+        return out + [("ln_f.weight", (D,), "norm"), ("ln_f.bias", (D,), "b")]
+    D, V = conf["hidden_size"], conf["vocab_size"]
+    out += [("word_embeddings.weight", (V, D), "w"),
+            ("word_embeddings_layernorm.weight", (D,), "norm"),
+            ("word_embeddings_layernorm.bias", (D,), "b")]
+    for i in range(conf["n_layer"]):
+        p = f"h.{i}."
+        out += [(p + "input_layernorm.weight", (D,), "norm"),
+                (p + "input_layernorm.bias", (D,), "b"),
+                (p + "self_attention.query_key_value.weight", (3 * D, D),
+                 "w"),
+                (p + "self_attention.query_key_value.bias", (3 * D,), "b"),
+                (p + "self_attention.dense.weight", (D, D), "w"),
+                (p + "self_attention.dense.bias", (D,), "b"),
+                (p + "post_attention_layernorm.weight", (D,), "norm"),
+                (p + "post_attention_layernorm.bias", (D,), "b"),
+                (p + "mlp.dense_h_to_4h.weight", (4 * D, D), "w"),
+                (p + "mlp.dense_h_to_4h.bias", (4 * D,), "b"),
+                (p + "mlp.dense_4h_to_h.weight", (D, 4 * D), "w"),
+                (p + "mlp.dense_4h_to_h.bias", (D,), "b")]
+    return out + [("ln_f.weight", (D,), "norm"), ("ln_f.bias", (D,), "b")]
+
+
+def _draw(torch, shape, kind, seed):
+    """One seeded bf16 tensor of ``kind`` on the card."""
+    if kind == "buf":
+        return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.randn(shape, generator=g, device="cuda").mul_(0.02)
+    if kind == "norm":
+        t.add_(1.0)
+    return t.to(torch.bfloat16)
+
+
+_LLAMA_NAMES = {"input_layernorm.weight": "attn_norm.scale",
+                "post_attention_layernorm.weight": "mlp_norm.scale"}
+_GPT2_NAMES = {"ln_1.weight": "attn_norm.scale", "ln_1.bias": "attn_norm.bias",
+               "ln_2.weight": "mlp_norm.scale", "ln_2.bias": "mlp_norm.bias",
+               "attn.c_proj.weight": "o.w", "attn.c_proj.bias": "o.b",
+               "mlp.c_fc.weight": "up.w", "mlp.c_fc.bias": "up.b",
+               "mlp.c_proj.weight": "down.w", "mlp.c_proj.bias": "down.b"}
+_BLOOM_NAMES = {"input_layernorm.weight": "attn_norm.scale",
+                "input_layernorm.bias": "attn_norm.bias",
+                "post_attention_layernorm.weight": "mlp_norm.scale",
+                "post_attention_layernorm.bias": "mlp_norm.bias",
+                "self_attention.dense.weight": "o.w",
+                "self_attention.dense.bias": "o.b",
+                "mlp.dense_h_to_4h.weight": "up.w",
+                "mlp.dense_h_to_4h.bias": "up.b",
+                "mlp.dense_4h_to_h.weight": "down.w",
+                "mlp.dense_4h_to_h.bias": "down.b"}
+_TOP_NAMES = {"model.embed_tokens.weight": "embed.tokens",
+              "model.norm.weight": "final_norm.scale",
+              "wte.weight": "embed.tokens", "wpe.weight": "embed.positions",
+              "word_embeddings.weight": "embed.tokens",
+              "word_embeddings_layernorm.weight": "embed.norm.scale",
+              "word_embeddings_layernorm.bias": "embed.norm.bias",
+              "ln_f.weight": "final_norm.scale", "ln_f.bias": "final_norm.bias"}
+
+
+def _port_names(conf, key, t):
+    """The port's flat-dict tensors that HF tensor ``key`` (written as
+    ``t``) must become, by this script's own reading of the HF layouts:
+    torch ``nn.Linear`` weights [out, in] transposed, gpt2's Conv1D
+    [in, out] as they are, fused QKV split (gpt2 by columns, bloom per
+    head [H, 3, hd])."""
+    mt = conf["model_type"]
+    if key in _TOP_NAMES:
+        return [(_TOP_NAMES[key], t)]
+    if key == "lm_head.weight":
+        return [("lm_head.w", t.T.contiguous())]
+    if mt == "llama":
+        i, rest = key.split(".")[2], key.split(".", 3)[3]
+        if rest in _LLAMA_NAMES:
+            return [(f"layers.{i}.{_LLAMA_NAMES[rest]}", t)]
+        n = rest.split(".")[1].split("_")[0]      # q_proj -> q, ...
+        return [(f"layers.{i}.{n}.w", t.T.contiguous())]
+    _, i, rest = key.split(".", 2)
+    if mt == "gpt2":
+        if rest == "attn.bias":
+            return []
+        D = conf["n_embd"]
+        if rest.startswith("attn.c_attn."):
+            leaf = "w" if rest.endswith("weight") else "b"
+            return [(f"layers.{i}.{n}.{leaf}",
+                     t[..., j * D:(j + 1) * D].contiguous())
+                    for j, n in enumerate("qkv")]
+        return [(f"layers.{i}.{_GPT2_NAMES[rest]}", t)]
+    D, H = conf["hidden_size"], conf["n_head"]
+    if rest.startswith("self_attention.query_key_value."):
+        if rest.endswith("weight"):
+            w3 = t.view(H, 3, D // H, D)
+            return [(f"layers.{i}.{n}.w", w3[:, j].reshape(D, D).T
+                     .contiguous()) for j, n in enumerate("qkv")]
+        b3 = t.view(H, 3, D // H)
+        return [(f"layers.{i}.{n}.b", b3[:, j].reshape(D).contiguous())
+                for j, n in enumerate("qkv")]
+    name = _BLOOM_NAMES[rest]
+    return [(f"layers.{i}.{name}",
+             t.T.contiguous() if name.endswith(".w") else t)]
+
+
+def write_checkpoint(torch, path, conf, seed, shards=1):
+    """Write ``conf``'s checkpoint directory like the hub's: config.json
+    and bf16 safetensors (``shards`` files of about equal bytes with
+    their index), every tensor drawn on the card from ``seed`` and
+    written by this script's own safetensors writer. Returns (the port's
+    flat dict the files must load as, on the card; file bytes; seconds)."""
+    import struct
+    t0 = time.perf_counter()
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(conf, f, indent=2)
+    specs = _hf_tensors(conf)
+    sizes = [2 * int(torch.Size(shape).numel()) for _, shape, _ in specs]
+    total = sum(sizes)
+    groups, acc = [[]], 0
+    for idx, n in enumerate(sizes):
+        if acc >= total * len(groups) / shards and len(groups) < shards:
+            groups.append([])
+        groups[-1].append(idx)
+        acc += n
+    names = (["model.safetensors"] if shards == 1 else
+             [f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+              for k in range(shards)])
+    expected, weight_map, nbytes = {}, {}, 0
+    for fname, group in zip(names, groups):
+        header, off = {}, 0
+        for idx in group:
+            key, shape, _ = specs[idx]
+            header[key] = {"dtype": "BF16", "shape": list(shape),
+                           "data_offsets": [off, off + sizes[idx]]}
+            off += sizes[idx]
+            weight_map[key] = fname
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)))
+            f.write(raw)
+            for idx in group:
+                key, shape, kind = specs[idx]
+                t = _draw(torch, shape, kind, seed * 100003 + idx)
+                f.write(t.view(torch.int16).cpu().numpy().data)
+                for name, e in _port_names(conf, key, t):
+                    expected[name] = e
+                del t
+        nbytes += 8 + len(raw) + off
+    if shards > 1:
+        with open(os.path.join(path, "model.safetensors.index.json"),
+                  "w") as f:
+            json.dump({"metadata": {"total_size": total},
+                       "weight_map": weight_map}, f)
+    torch.cuda.synchronize()
+    return expected, nbytes, time.perf_counter() - t0
+
+
+def _bits(torch, t):
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def _bitwise(torch, got, want):
+    """Every tensor of ``want`` in ``got`` with the same dtype, shape and
+    bits, and no other; returns the count."""
+    assert set(got) == set(want), sorted(set(got) ^ set(want))[:6]
+    bad = [k for k, t in want.items()
+           if got[k].dtype != t.dtype or got[k].shape != t.shape
+           or not torch.equal(_bits(torch, got[k]), _bits(torch, t))]
+    assert not bad, f"params differ from the written tensors: {bad[:6]}"
+    return len(want)
+
+
+def _sampling(body):
+    """The SamplingParams the worker builds from a body's ``sampling``."""
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    sp = body or {}
+    return SamplingParams(temperature=float(sp.get("temperature", 0.8)),
+                          top_k=int(sp.get("top_k", 50)),
+                          top_p=float(sp.get("top_p", 0.95)),
+                          do_sample=bool(sp.get("do_sample", True)))
+
+
+def _timed_load(torch, base, body, nbytes):
+    """/load_model ``body``; returns (its answer, a row of load seconds,
+    GB/s of file bytes over the worker's load time, and the peak device
+    memory the load allocated above what was allocated before it)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, res = _http(base + "/load_model", body)
+    wall = time.perf_counter() - t0
+    assert st == 200 and res["status"] == "success", res
+    peak = torch.cuda.max_memory_allocated() - before
+    row = {"load_s": res["load_time_s"], "wall_s": wall,
+           "file_bytes": nbytes, "gb_per_s": nbytes / 1e9 / res["load_time_s"],
+           "peak_load_bytes": peak,
+           "param_bytes": res["stats"].get("param_bytes")}
+    return res, row
+
+
+def _greedy_batched(base, worker, kernels, cfg, name, route):
+    """Phase 3's greedy request through a batched load, alone: the
+    route's decode kernel (``decode_kernel``) launches num_layers times
+    per weight pass and no other attention kernel launches. Returns its
+    tokens."""
+    n_tok, sampling, seed = ENGINE_REQUESTS[0]
+    s0 = worker.metrics.snapshot()["counters"]
+    zero_counts(kernels)
+    st, r = _http(base + "/inference", {
+        "model_name": name, "prompt": engine_prompt(n_tok, seed),
+        "max_new_tokens": NEW_TOKENS, "sampling": sampling, "seed": seed})
+    assert st == 200 and r["status"] == "success", r
+    launches = read_counts(kernels)
+    passes = (worker.metrics.snapshot()["counters"]["batcher_weight_passes"]
+              - s0.get("batcher_weight_passes", 0))
+    mine = decode_kernel(cfg, route)
+    for k in ("paged_flash_decode", "fused_decode_step", "flash_decode",
+              "flash_attention"):
+        assert launches[k] == (cfg.num_layers * passes if k == mine else 0), \
+            (k, launches, passes)
+    return r["tokens"], launches
+
+
+def _reference_tokens(torch, cfg, params, routes=(), max_seq=4096):
+    """Tokens of an InferenceEngine built in this process on ``params``
+    for phase 3's requests (max_seq 4096, as the worker loads), and of a
+    ContinuousBatcher built as the worker builds BATCHED_LOAD's for phase
+    3's greedy request, per decode route."""
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        ContinuousBatcher)
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
+        ByteTokenizer)
+    tok = ByteTokenizer(cfg.vocab_size)
+    eng = InferenceEngine(cfg, params, max_seq=max_seq, device="cuda")
+    out = {"engine": [eng.generate(
+        [tok.encode(engine_prompt(n, seed))], max_new_tokens=NEW_TOKENS,
+        sampling=_sampling(sp), seed=seed,
+        eos_token_id=tok.eos_token_id).tokens[0]
+        for n, sp, seed in ENGINE_REQUESTS]}
+    eng.close()
+    del eng
+    n, sp, seed = ENGINE_REQUESTS[0]
+    for route in routes:
+        os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
+        b = ContinuousBatcher(
+            cfg, params, max_seq=max_seq,
+            num_blocks=BATCHED_LOAD["kv_blocks"],
+            block_size=BATCHED_LOAD["kv_block_size"],
+            slots=BATCHED_LOAD["slots"], prefill_chunk=32, device="cuda")
+        b.warm_decode_programs()
+        b.start()
+        try:
+            out[route] = b.submit(
+                tok.encode(engine_prompt(n, seed)), max_new_tokens=NEW_TOKENS,
+                sampling=_sampling(sp), eos_token_id=tok.eos_token_id,
+                seed=seed).wait(timeout=600)
+        finally:
+            b.stop()
+        del b
+    os.environ.pop("DLI_FUSED_DECODE", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _ingest_llama(torch, base, worker, kernels, root, report, total):
+    """(a): Llama-3.1-8B's shape at full width (and depth unless the disk
+    cannot hold it twice), bf16, 4 shards: engine, batched (fused off and
+    on), engine int4, then the native int4 checkpoint of the port's
+    convert CLI."""
+    import shutil
+    from distributed_llm_inferencing_tpu_torch.models.convert import (
+        config_from_hf)
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        param_bytes)
+    from distributed_llm_inferencing_tpu_torch.ops.quant import (
+        maybe_quantize)
+    conf = dict(LLAMA31_8B)
+    per_layer = sum(2 * torch.Size(s).numel() for k, s, _ in
+                    _hf_tensors(dict(conf, num_hidden_layers=1))
+                    if ".layers." in k)
+    fixed = sum(2 * torch.Size(s).numel() for k, s, _ in
+                _hf_tensors(dict(conf, num_hidden_layers=0)))
+    free = shutil.disk_usage(root).free
+    layers = conf["num_hidden_layers"]
+    while layers > 1 and 2 * (fixed + layers * per_layer) > free:
+        layers -= 1
+    if layers != conf["num_hidden_layers"]:
+        log(f"  DISK CUT: {free / 1e9:.1f} GB free holds "
+            f"{layers} of {conf['num_hidden_layers']} layers twice over")
+        conf["num_hidden_layers"] = layers
+    report["llama_layers"] = layers
+    report["disk_free_bytes"] = free
+    path = os.path.join(root, "llama-3.1-8b")
+    expected, nbytes, write_s = write_checkpoint(
+        torch, path, conf, INGEST_SEED, shards=LLAMA31_SHARDS)
+    log(f"  wrote {path}: {nbytes / 1e9:.3f} GB in {LLAMA31_SHARDS} shards "
+        f"in {write_s:.1f} s")
+    name = "llama-3.1-8b-ckpt"
+    cfg = config_from_hf(conf, name=path).replace(name=name)
+    assert cfg.rope_inv_freq is not None and cfg.rope_theta == 500000.0
+    L = cfg.num_layers
+    largest = max(t.numel() for t in expected.values())
+    row = {"write_s": write_s, "file_bytes": nbytes,
+           "param_bytes": param_bytes(expected)}
+
+    # engine bf16: the load's time, rate and peak; bitwise; phase 3
+    res, row["engine"] = _timed_load(torch, base, {
+        "model_name": name, "checkpoint_path": path, "max_seq": 4096}, nbytes)
+    bound = param_bytes(expected) + LOAD_PEAK_LEAVES_F32 * 4 * largest
+    row["engine"]["peak_bound_bytes"] = bound
+    log("  load engine bf16", json.dumps(row["engine"]))
+    assert row["engine"]["peak_load_bytes"] <= bound, row["engine"]
+    st, health = _http(base + "/health")
+    [desc] = [m for m in health["loaded_models"] if m["name"] == name]
+    assert desc["source"] == path and desc["param_bytes"] == \
+        param_bytes(expected), desc
+    row["engine"]["health_param_bytes"] = desc["param_bytes"]
+    row["engine"]["bitwise"] = _bitwise(
+        torch, worker.models[name].engine.params, expected)
+    launches, rows = _engine_requests(torch, base, kernels, cfg, name, 0)
+    _add(total, launches)
+    row["engine"]["tokens"] = [r["tokens"] for r in rows]
+    row["engine"]["peak_serving_bytes"] = torch.cuda.max_memory_allocated()
+    st, _ = _http(base + "/unload_model", {"model_name": name})
+    assert st == 200
+
+    # batched, fused off and on: phase 5's exact counts, bitwise, and
+    # phase 3's greedy request alone
+    load = dict(BATCHED_LOAD, model_name=name, checkpoint_path=path)
+    load.pop("allow_random_init")
+    for route in ("paged", "fused"):
+        os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
+
+        def check(lm, route=route):
+            toks, launches = _greedy_batched(base, worker, kernels, cfg,
+                                             name, route)
+            _add(total, launches)
+            return {"bitwise": _bitwise(torch, lm.batcher.params, expected),
+                    "greedy": toks}
+        summary, _ = _batched_pass(torch, base, worker, kernels, route, cfg,
+                                   load=load, check=check)
+        _add(total, summary["launches"])
+        row[f"batched_{route}"] = {k: summary[k] for k in (
+            "check", "weight_passes", "tokens_per_s", "param_bytes",
+            "peak_memory_bytes")}
+    os.environ.pop("DLI_FUSED_DECODE", None)
+
+    # engine int4: the load quantizes each leaf as it lands
+    q_cfg = cfg.replace(quant="int4")
+    expected_q = maybe_quantize(dict(expected), q_cfg)
+    res, row["engine_int4"] = _timed_load(torch, base, {
+        "model_name": name, "checkpoint_path": path, "max_seq": 4096,
+        "quantize": "int4"}, nbytes)
+    row["engine_int4"]["bitwise"] = _bitwise(
+        torch, worker.models[name].engine.params, expected_q)
+    launches, rows = _engine_requests(torch, base, kernels, q_cfg, name,
+                                      q4_per_pass(q_cfg))
+    _add(total, launches)
+    row["engine_int4"]["tokens"] = [r["tokens"] for r in rows]
+    log("  load engine int4", json.dumps(
+        {k: v for k, v in row["engine_int4"].items() if k != "tokens"}))
+    st, _ = _http(base + "/unload_model", {"model_name": name})
+    assert st == 200
+
+    # (c) the native checkpoint: convert --quantize int4, then load it
+    gc.collect()
+    torch.cuda.empty_cache()
+    native = os.path.join(root, "llama-3.1-8b-int4-native")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m",
+                    "distributed_llm_inferencing_tpu_torch", "convert",
+                    "--checkpoint_path", path, "--quantize", "int4",
+                    "--out", native], cwd=HERE, check=True, timeout=900)
+    convert_s = time.perf_counter() - t0
+    native_bytes = sum(os.path.getsize(os.path.join(native, f))
+                       for f in os.listdir(native))
+    res, row["native_int4"] = _timed_load(torch, base, {
+        "model_name": name, "native_checkpoint": native, "max_seq": 4096},
+        native_bytes)
+    row["native_int4"]["convert_s"] = convert_s
+    row["native_int4"]["bitwise"] = _bitwise(
+        torch, worker.models[name].engine.params, expected_q)
+    launches, rows = _engine_requests(torch, base, kernels, q_cfg, name,
+                                      q4_per_pass(q_cfg))
+    _add(total, launches)
+    tokens = [r["tokens"] for r in rows]
+    assert tokens == row["engine_int4"]["tokens"], \
+        "the native int4 checkpoint serves other tokens than its HF load"
+    log("  native int4", json.dumps(row["native_int4"]))
+    st, _ = _http(base + "/unload_model", {"model_name": name})
+    assert st == 200
+    shutil.rmtree(native)
+    shutil.rmtree(path)
+
+    # the in-process references on the written tensors
+    ref = _reference_tokens(torch, cfg, expected, ("paged", "fused"))
+    assert ref["engine"] == row["engine"]["tokens"], \
+        (ref["engine"], row["engine"]["tokens"])
+    for route in ("paged", "fused"):
+        assert ref[route] == row[f"batched_{route}"]["check"]["greedy"], \
+            (route, ref[route])
+    del expected
+    ref_q = _reference_tokens(torch, q_cfg, expected_q)
+    assert ref_q["engine"] == row["engine_int4"]["tokens"], ref_q
+    del expected_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ingest_family(torch, base, worker, kernels, root, conf, routes, total):
+    """(b): one hub-layout checkpoint (no prefix, tied head absent) at
+    full width, bf16: engine mode with phase 3's exact counts, then
+    batched per decode route with phase 3's greedy request; every param
+    bitwise, every token equal to in-process engines on the written
+    tensors."""
+    import shutil
+    from distributed_llm_inferencing_tpu_torch.models.convert import (
+        config_from_hf)
+    mt = conf["model_type"]
+    path = os.path.join(root, mt)
+    expected, nbytes, write_s = write_checkpoint(torch, path, conf,
+                                                 INGEST_SEED + 1)
+    name = f"{mt}-ckpt"
+    cfg = config_from_hf(conf, name=path).replace(name=name)
+    row = {"layers": cfg.num_layers, "write_s": write_s}
+    res, row["engine"] = _timed_load(torch, base, {
+        "model_name": name, "checkpoint_path": path, "max_seq": 4096}, nbytes)
+    row["engine"]["bitwise"] = _bitwise(
+        torch, worker.models[name].engine.params, expected)
+    launches, rows = _engine_requests(torch, base, kernels, cfg, name, 0)
+    _add(total, launches)
+    row["engine"]["tokens"] = [r["tokens"] for r in rows]
+    st, _ = _http(base + "/unload_model", {"model_name": name})
+    assert st == 200
+    load = dict(BATCHED_LOAD, model_name=name, checkpoint_path=path,
+                max_seq=min(4096, cfg.max_position_embeddings))
+    load.pop("allow_random_init")
+    for route in routes:
+        os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
+        res, row[f"batched_{route}"] = _timed_load(torch, base, load, nbytes)
+        row[f"batched_{route}"]["bitwise"] = _bitwise(
+            torch, worker.models[name].batcher.params, expected)
+        toks, launches = _greedy_batched(base, worker, kernels, cfg, name,
+                                         route)
+        _add(total, launches)
+        row[f"batched_{route}"]["greedy"] = toks
+        st, _ = _http(base + "/unload_model", {"model_name": name})
+        assert st == 200
+    os.environ.pop("DLI_FUSED_DECODE", None)
+    shutil.rmtree(path)
+    ref = _reference_tokens(torch, cfg, expected, routes,
+                            max_seq=load["max_seq"])
+    assert ref["engine"] == row["engine"]["tokens"], mt
+    for route in routes:
+        assert ref[route] == row[f"batched_{route}"]["greedy"], (mt, route)
+    log(f"  {mt}", json.dumps({k: ({kk: vv for kk, vv in v.items()
+                                    if kk not in ("tokens", "greedy")}
+                                   if isinstance(v, dict) else v)
+                               for k, v in row.items()}))
+    del expected
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ingestion(torch, kernels, smi):
+    """Phase 15: model ingestion. (a) A Llama-3.1-8B-shaped checkpoint
+    directory, (b) gpt2-xl at full depth and bloom-7b1 at full width and
+    BLOOM_LAYERS layers, (c) the native int4 checkpoint of (a), written
+    here from seeded tensors and served through the worker by
+    ``checkpoint_path`` / ``native_checkpoint``: every param bitwise equal
+    to what was written, exact launch counts, tokens equal to in-process
+    engines on the written tensors; load seconds, GB/s and peak memory
+    reported with the card's name and power limit."""
+    import shutil
+    import tempfile
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dli-ingest-")
+    total = {k: 0 for k in kernels}
+    report = {"smi": smi}
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = f"http://127.0.0.1:{worker.service.port}"
+    try:
+        report["llama"] = _ingest_llama(torch, base, worker, kernels, root,
+                                        report, total)
+        report["gpt2-xl"] = _ingest_family(torch, base, worker, kernels,
+                                           root, GPT2_XL, ("paged",), total)
+        report["bloom-7b1"] = _ingest_family(torch, base, worker, kernels,
+                                             root, BLOOM_7B1, ("paged",),
+                                             total)
+    finally:
+        os.environ.pop("DLI_FUSED_DECODE", None)
+        worker.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    report["launches"] = total
+    report["seconds"] = time.perf_counter() - t0
+    log(f"  phase 15 wall time {report['seconds']:.1f} s [{smi}]")
+    return report
+
+
 def timed_rows(torch):
     """Phase 2's timed rows alone (every kernel at its serving shapes,
     with its bound, plain and library times), for comparing two trees'
@@ -2756,7 +3452,19 @@ def main() -> int:
                       (qm, "q4_matmul_row")):
         counted[f"{name}[mma]"] = (mod, name, "launches_mma")
 
-    log("phase 1: build")
+    phase_s, last = {}, [None, time.perf_counter()]
+
+    def mark(n, text=None):
+        """Log phase ``n``'s header; record the wall time of the one
+        before it (``n`` None: close the last)."""
+        now = time.perf_counter()
+        if last[0] is not None:
+            phase_s[last[0]] = now - last[1]
+        last[:] = [n, now]
+        if n is not None:
+            log(f"phase {n}: {text}")
+
+    mark(1, "build")
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"  built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
@@ -2773,7 +3481,7 @@ def main() -> int:
         log(smi)
         return 0
 
-    log("phase 2: kernels against their plain versions")
+    mark(2, "kernels against their plain versions")
     pre, dec = phase_kernels(torch, fa)
     paged, fused, fused_q = phase_paged_kernels(torch, pa, fd)
     plans = {f"{str(dt).replace('torch.', '')}/{form}": fd.kernel_plan(
@@ -2790,17 +3498,17 @@ def main() -> int:
     log("  q4_matmul_row bounds per tp=2 rank (llama-3-8b int4 shapes):",
         json.dumps(row_bounds))
 
-    log("phase 3: engine path (worker, llama-3-8b bf16, 3 requests)")
+    mark(3, "engine path (worker, llama-3-8b bf16, 3 requests)")
     launches, rows, peak = phase_main_path(torch, counted)
     for name in ("flash_attention", "flash_decode"):
         assert launches[name] > 0, f"{name} never launched on the engine path"
     assert launches["flash_attention[mma]"] == launches["flash_attention"], \
         "a bf16 prefill missed the tensor-core kernel"
 
-    log("phase 4: card vs host cross-check")
+    mark(4, "card vs host cross-check")
     xerr = phase_cross_check(torch, fa, qm)
 
-    log("phase 5: batched path (worker, llama-3-8b bf16, 8 concurrent "
+    mark(5, "batched path (worker, llama-3-8b bf16, 8 concurrent "
         "requests, paged then fused decode)")
     batched = phase_batched(torch, counted)
     launches["paged_flash_decode"] = \
@@ -2808,10 +3516,10 @@ def main() -> int:
     launches["fused_decode_step"] = \
         batched["fused"]["launches"]["fused_decode_step"]
 
-    log("phase 6: both decode routes at full depth, bf16 against f32")
+    mark(6, "both decode routes at full depth, bf16 against f32")
     route_depth = phase_route_depth(torch, counted)
 
-    log("phase 7: quantized serving (worker, llama-3-8b int4: engine, "
+    mark(7, "quantized serving (worker, llama-3-8b int4: engine, "
         "batched paged and fused; int8: batched fused)")
     quant = phase_quant_serving(torch, counted)
     for k in ("q4_matmul", "q4_matmul[mma]"):
@@ -2827,15 +3535,15 @@ def main() -> int:
                  "fused_decode_step[int4]", "fused_decode_step[int8]"):
         assert launches[name] > 0, f"{name} never launched on its path"
 
-    log("phase 8: card vs host cross-check, int4 and int8 weights")
+    mark(8, "card vs host cross-check, int4 and int8 weights")
     for mode in ("int4", "int8"):
         xerr[mode] = phase_cross_check(torch, fa, qm, quant=mode)
 
-    log("phase 9: int4 at full depth, q4_matmul route vs plain unpack, "
+    mark(9, "int4 at full depth, q4_matmul route vs plain unpack, "
         "against f32 over the same weights")
     int4_depth, depth_kept = phase_int4_depth(torch, counted, qm)
 
-    log("phase 10: tp=2 engine serving (worker, llama-3-8b full depth, "
+    mark(10, "tp=2 engine serving (worker, llama-3-8b full depth, "
         "bf16 then int4, 3 requests each)")
     tp_serving, tp_launches = phase_tp_serving(torch)
     for k in ("q4_matmul_row", "q4_matmul_row[mma]"):
@@ -2845,23 +3553,23 @@ def main() -> int:
     assert launches["q4_matmul_row[mma]"] == launches["q4_matmul_row"], \
         "a bf16 q4_matmul_row call missed the tensor-core kernel"
 
-    log("phase 11: tp=2 against tp=1 on the same weights (2 layers, f32, "
+    mark(11, "tp=2 against tp=1 on the same weights (2 layers, f32, "
         "float and int4), then int4 at full depth against phase 9's f32")
     tp_xerr = {q or "float": phase_tp_cross_check(torch, q)
                for q in (None, "int4")}
     tp_depth = phase_tp_depth(torch, depth_kept)
 
-    log("phase 12: the worker's control surface over HTTP (llama-3-8b "
+    mark(12, "the worker's control surface over HTTP (llama-3-8b "
         "bf16: auth, replay, SSE, fencing; /inference_batch paged and "
         "fused, /cancel, /drain; /metrics)")
     control = phase_control_surface(torch, counted, batched, smi)
 
-    log("phase 13: decode programs, CUDA graphs on and off (worker, "
+    mark(13, "decode programs, CUDA graphs on and off (worker, "
         "llama-3-8b full depth: engine bf16 and int4; /inference_batch "
         "paged and fused, bf16 and int4)")
     graphs_report = phase_graphs(torch, counted, smi)
 
-    log("phase 14: the dense families (a) cross-checks at full width, 2 "
+    mark(14, "the dense families (a) cross-checks at full width, 2 "
         "layers, f32; (b) gpt2-xl and bloom-7b1 at full depth through the "
         "worker, graphs on and off; bloom-7b1's ALiBi prefill vs f32")
     families = phase_families(torch, fa, qm, counted, smi)
@@ -2870,6 +3578,19 @@ def main() -> int:
             f"{name} never launched on the families' path"
     assert families["launches"]["paged_flash_decode"] > 0
 
+    mark(15, "model ingestion through the worker (a) a "
+        "Llama-3.1-8B-shaped HF directory: engine, batched paged and "
+        "fused, engine int4; (b) gpt2-xl and bloom-7b1 hub layouts; (c) "
+        "the native int4 checkpoint of the convert CLI")
+    ingestion = phase_ingestion(torch, counted, smi)
+    for name in ("flash_attention", "flash_decode", "paged_flash_decode",
+                 "fused_decode_step", "q4_matmul"):
+        assert ingestion["launches"][name] > 0, \
+            f"{name} never launched on the ingestion path"
+
+    mark(None)
+    log("  wall time by phase (s):", json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}))
     csrc = "distributed_llm_inferencing_tpu_torch/csrc/"
     pallas = "distributed_llm_inferencing_tpu/ops/pallas/"
     kernels = []
@@ -2912,6 +3633,9 @@ def main() -> int:
             entry["launches_mma"] = launches[f"{name}[mma]"]
         # phase 14's gpt2-xl and bloom-7b1 serving, beside the llama path
         entry["family_launches"] = families["launches"].get(name, 0)
+        # phase 15's checkpoints (fused_decode_step's float form only)
+        entry["ingestion_launches"] = ingestion["launches"].get(name, 0) \
+            if "[" not in name else 0
         if name == "paged_flash_decode":
             entry["library_gather_ms"] = row["library_gather_ms"]
         if name.startswith("fused_decode_step"):
@@ -2935,7 +3659,8 @@ def main() -> int:
               "fused_plans": plans,
               "tp_cross_check_max_abs_err": tp_xerr, "tp_depth": tp_depth,
               "control_surface": control, "graphs": graphs_report,
-              "families": families,
+              "families": families, "ingestion": ingestion,
+              "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(HERE, "chiprun_out")
     if os.path.isdir(out_dir):

@@ -72,8 +72,8 @@ def layer_linears(cfg: ModelConfig):
            ("k", D, cfg.kv_dim, cfg.attn_bias),
            ("v", D, cfg.kv_dim, cfg.attn_bias),
            ("o", cfg.q_dim, D, cfg.o_bias_effective)]
-    if cfg.gated_mlp:
-        out.append(("gate", D, I, False))
+    if cfg.gated_mlp:   # biased with mlp_bias, as the JAX converter's
+        out.append(("gate", D, I, cfg.mlp_bias))   # llama branch makes it
     return out + [("up", D, I, cfg.mlp_bias), ("down", I, D, cfg.mlp_bias)]
 
 

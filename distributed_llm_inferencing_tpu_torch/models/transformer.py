@@ -25,8 +25,9 @@ product; ``Embed`` takes the per-row int8 table of ``embed_quant``.
 
 Two attention regimes, as in the reference: prefill attends the fresh K/V
 block (``attend_prefill``), decode attends the cache (``attend_decode``);
-both write the new K/V into the cache in place first. ALiBi slopes are
-built once per model, on its device, so a captured decode step
+both write the new K/V into the cache in place first. ALiBi slopes and a
+scaled RoPE ladder (``rope_inv_freq``: llama3, yarn, linear, longrope)
+are built once per model, on its device, so a captured decode step
 (runtime/graphs.py) copies nothing from the host.
 
 Tensor parallelism (the model on one rank of a ``TPGroup``,
@@ -381,13 +382,18 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.tp = tp
         self.dtype = torch_dtype(cfg.dtype)
-        # [H] slopes, built once on the model's device: a captured step
-        # must not copy them from the host
+        # [H] slopes and a scaled RoPE ladder (llama3, yarn, ...), built
+        # once on the model's device: a captured step must not copy them
+        # from the host
+        device = next(iter(params.values())).device
         self.alibi = None
         if cfg.position_embedding == "alibi":
-            device = next(iter(params.values())).device
             self.alibi = alibi_slopes(cfg.num_heads, device) \
                 * cfg.alibi_scale
+        self.rope_inv_freq = None
+        if cfg.rope_inv_freq is not None:
+            self.rope_inv_freq = torch.tensor(
+                cfg.rope_inv_freq, dtype=torch.float32, device=device)
         self.embed = Embed(cfg, params, self.dtype, tp)
         self.layers = nn.ModuleList([
             Block(cfg, {k[len(f"layers.{i}."):]: t for k, t in params.items()
@@ -427,7 +433,7 @@ class Transformer(nn.Module):
         if cfg.position_embedding != "rope":
             return None
         return rope_cos_sin(positions, rotary_dim(cfg.head_dim, cfg.rope_pct),
-                            cfg.rope_theta, cfg.rope_inv_freq,
+                            cfg.rope_theta, self.rope_inv_freq,
                             cfg.rope_attn_factor)
 
     def forward(self, tokens, cache: KVCache, write_starts, q_positions,

@@ -35,7 +35,9 @@ over tp): the engine built by the caller is rank 0, the leader. It spawns
 N - 1 followers (runtime/lockstep.py), each of which builds the same
 engine on its rank (``group``): random weights drawn whole on every rank
 from the same seed and cut to the rank's shard (parallel/sharding.py),
-or the caller's tree cut the same way. ``generate`` and
+the caller's tree cut the same way, or a checkpoint that every rank reads
+itself, keeping its cut of each tensor as it lands (``loader``), so no
+whole tree is pickled to the followers. ``generate`` and
 ``teacher_forced`` broadcast their op, then every rank runs the same
 steps; only the leader samples, and it broadcasts each token, so the
 ranks agree on every step count. A ``stream_cb`` stays on the leader:
@@ -174,7 +176,8 @@ class InferenceEngine:
                  mesh_spec: Optional[MeshSpec] = None,
                  max_seq: Optional[int] = None, seed: int = 0, device=None,
                  metrics: Optional[Metrics] = None,
-                 group: Optional[TPGroup] = None):
+                 group: Optional[TPGroup] = None,
+                 loader: Optional[Callable] = None):
         self.metrics = metrics or Metrics()
         self.mesh_spec = spec = mesh_spec or MeshSpec()
         validate_spec(spec, cfg)
@@ -196,24 +199,31 @@ class InferenceEngine:
             try:
                 self._leader.run("load", dict(
                     cfg=cfg, params=cpu, mesh_spec=spec, max_seq=max_seq,
-                    seed=seed, device=str(base)),
-                    lambda: self._load(params, seed))
+                    seed=seed, device=str(base), loader=loader),
+                    lambda: self._load(params, seed, loader))
             except BaseException:
                 self._leader.stop()
                 raise
         else:
-            self._load(params, seed)
+            self._load(params, seed, loader)
         self._buckets_seen = set()
         self._rows: "collections.OrderedDict[int, _Rows]" = \
             collections.OrderedDict()
         self.programs = graphs.DecodePrograms(self.device, self.metrics)
 
-    def _load(self, params, seed):
-        """Build this rank's weights and model."""
+    def _load(self, params, seed, loader=None):
+        """Build this rank's weights and model: from ``loader(device,
+        shard)`` (a checkpoint, models/checkpoint.py ``CheckpointSource.
+        load``: every rank reads the files and keeps its cut), from the
+        caller's tree, or drawn from ``seed``."""
         cfg, spec = self.cfg, self.mesh_spec
         rank = self.group.rank if self.group else 0
         dev = self.device
-        if params is None:
+        if loader is not None:
+            params = loader(dev, (lambda n, t: shard_tensor(n, t, spec, rank))
+                            if spec.tp > 1 else None)
+            params.update(chunk_markers(cfg, spec, dev))
+        elif params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
             params = init_params(
                 cfg, gen, dev,

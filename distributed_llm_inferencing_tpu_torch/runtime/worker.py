@@ -14,9 +14,14 @@ so the reference master can drive either worker:
   for both the decode programs kept, how many are captured CUDA graphs
   and the bytes their pool holds, runtime/graphs.py), metrics.
 - ``GET /metrics``: the metrics registry as Prometheus text exposition.
-- ``POST /load_model``: ``model_name`` (a row of models/registry.py: the
-  llama, gpt2, opt, qwen2, gemma, pythia, phi, falcon, bloom, mpt and
-  gpt-j families), ``allow_random_init``, ``dtype``,
+- ``POST /load_model``: ``model_name``; the weights from
+  ``native_checkpoint`` (the port's own format, models/checkpoint.py),
+  else ``checkpoint_path`` (an HF checkpoint directory of one of the 20
+  converter types of models/convert.py), else, with
+  ``allow_random_init``, random weights for a row of models/registry.py
+  (the llama, gpt2, opt, qwen2, gemma, pythia, phi, falcon, bloom, mpt
+  and gpt-j families); ``tokenizer_path`` (default: the checkpoint
+  directory when it holds tokenizer files), ``dtype``,
   ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
   ops/quant.py), ``embed_quantize`` (``"int8"``: the per-row int8
   embedding table), ``mesh`` (``{"tp": N}``: tensor parallelism over N
@@ -72,8 +77,12 @@ Fields of the reference protocol that the port does not implement yet get
 a 400, never a silent ignore, each with the ROADMAP Queue A item that
 brings it: ``speculative`` (A9), ``kv_host_mb``, ``kv_source``,
 ``kv_export`` and ``resume`` (A8), ``adapter`` (A10), ``kv_quantize``
-(the int8 KV cache, A1–A3 rest), checkpoint paths (A11); so does a
-``quantize`` or ``embed_quantize`` value outside the modes above, and a
+(the int8 KV cache, A1–A3 rest); so does a
+``quantize`` or ``embed_quantize`` value outside the modes above, a
+checkpoint the port cannot serve (a path that is not a local directory,
+a converter type or config switch outside the ported families, a tensor
+the files lack, a JAX Orbax directory, tokenizer files on a node without
+``transformers``), and a
 ``mesh`` the port cannot serve (an axis other than tp above 1, tp with
 ``"serving": "batched"``, tp for a family off the llama arm, or a tp the
 model's shapes do not divide), and a model whose config switches on a
@@ -95,8 +104,12 @@ import time
 from typing import Dict, Optional
 
 
+from distributed_llm_inferencing_tpu_torch.models.checkpoint import (
+    CheckpointSource)
 from distributed_llm_inferencing_tpu_torch.models.params import param_bytes
 from distributed_llm_inferencing_tpu_torch.models.registry import get_config
+from distributed_llm_inferencing_tpu_torch.models.transformer import (
+    check_supported)
 from distributed_llm_inferencing_tpu_torch.ops.quant import MODES
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
@@ -110,7 +123,7 @@ from distributed_llm_inferencing_tpu_torch.utils.device import (
     inventory, resolve_device)
 from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
 from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
-    load_tokenizer)
+    has_tokenizer, load_tokenizer)
 
 # Completed results kept for idempotent replay: a master retries with the
 # same request_tag after a timeout, and the cached result makes
@@ -124,8 +137,7 @@ MASTER_TERM_HEADER = "X-DLI-Master-Term"
 MASTER_NONCE_HEADER = "X-DLI-Master-Nonce"
 STALE_TERM_HEADER = "X-DLI-Stale-Term"
 
-_UNPORTED_LOAD = ("kv_quantize", "checkpoint_path", "native_checkpoint",
-                  "speculative", "kv_host_mb")
+_UNPORTED_LOAD = ("kv_quantize", "speculative", "kv_host_mb")
 _UNPORTED_INFER = ("speculative", "adapter", "resume", "kv_source",
                    "kv_export")
 _DTYPES = ("bfloat16", "float32")
@@ -331,29 +343,43 @@ class WorkerAgent:
 
     def _load(self, body, name):
         t0 = time.time()
+        if body.get("dtype") and body["dtype"] not in _DTYPES:
+            return 400, {"status": "error",
+                         "message": f"dtype must be one of {_DTYPES}"}
+        if body.get("quantize") and body["quantize"] not in MODES:
+            return 400, {"status": "error",
+                         "message": f"quantize must be one of {MODES}"}
+        if body.get("embed_quantize") and body["embed_quantize"] != "int8":
+            return 400, {"status": "error",
+                         "message": "embed_quantize must be 'int8'"}
+        native, ckpt = body.get("native_checkpoint"), body.get("checkpoint_path")
+        source = None
         try:
-            cfg = get_config(name)
+            if native or ckpt:
+                # the configuration alone first: a refused type or switch
+                # is refused before any weight is read
+                source = CheckpointSource(
+                    "native" if native else "hf", native or ckpt,
+                    dtype=body.get("dtype") or None,
+                    quantize=body.get("quantize") or None,
+                    embed_quantize=body.get("embed_quantize") or None)
+                cfg = source.config().replace(name=name)
+            else:
+                cfg = get_config(name)
+                if not body.get("allow_random_init"):
+                    return 400, {"status": "error",
+                                 "message": "no checkpoint_path given; pass "
+                                            "allow_random_init=true for a "
+                                            "demo model"}
+                cfg = cfg.replace(dtype=body.get("dtype") or cfg.dtype,
+                                  quant=body.get("quantize") or None,
+                                  embed_quant=body.get("embed_quantize")
+                                  or None)
+            check_supported(cfg)
         except KeyError as e:
             return 400, {"status": "error", "message": str(e)}
-        if not body.get("allow_random_init"):
-            return 400, {"status": "error",
-                         "message": "no checkpoint loading in this worker "
-                                    "yet; pass allow_random_init=true"}
-        if body.get("dtype"):
-            if body["dtype"] not in _DTYPES:
-                return 400, {"status": "error",
-                             "message": f"dtype must be one of {_DTYPES}"}
-            cfg = cfg.replace(dtype=body["dtype"])
-        if body.get("quantize"):
-            if body["quantize"] not in MODES:
-                return 400, {"status": "error",
-                             "message": f"quantize must be one of {MODES}"}
-            cfg = cfg.replace(quant=body["quantize"])
-        if body.get("embed_quantize"):
-            if body["embed_quantize"] != "int8":
-                return 400, {"status": "error",
-                             "message": "embed_quantize must be 'int8'"}
-            cfg = cfg.replace(embed_quant=body["embed_quantize"])
+        except (NotImplementedError, ValueError, OSError) as e:
+            return 400, {"status": "error", "message": str(e)}
         try:
             mesh = MeshSpec.from_dict(body.get("mesh") or {})
         except (TypeError, ValueError) as e:
@@ -367,14 +393,25 @@ class WorkerAgent:
                          "message": "batched serving under tp is a later "
                                     "slice of the port (ROADMAP A12); load "
                                     "with \"serving\": \"engine\""}
-        tok = load_tokenizer(body.get("tokenizer_path"), cfg.vocab_size)
+        # the tokenizer: tokenizer_path, else the checkpoint directory's
+        tok_dir = body.get("tokenizer_path") or next(
+            (d for d in (ckpt, native) if has_tokenizer(d)), None)
         try:
+            tok = load_tokenizer(tok_dir, cfg.vocab_size)
+        except (ValueError, OSError) as e:
+            return 400, {"status": "error", "message": str(e)}
+        params = loader = None
+        try:
+            if source is not None and mesh.tp > 1:
+                loader = source.load   # every rank reads its own cut
+            elif source is not None:
+                params = source.load(self.device)
             if body.get("serving") == "batched":
                 # continuous batching over the paged KV pool
                 # (runtime/batcher.py): requests share decode steps
                 # instead of serializing behind the per-model lock
                 batcher = ContinuousBatcher(
-                    cfg, max_seq=body.get("max_seq"),
+                    cfg, params, max_seq=body.get("max_seq"),
                     num_blocks=int(body.get("kv_blocks", 512)),
                     block_size=int(body.get("kv_block_size", 16)),
                     slots=int(body.get("slots", 8)),
@@ -385,18 +422,19 @@ class WorkerAgent:
                     device=self.device, metrics=self.metrics)
                 batcher.warm_decode_programs()
                 batcher.start()
-                lm = LoadedModel(None, tok, "random-init", batcher=batcher)
+                lm = LoadedModel(None, tok, native or ckpt or "random-init",
+                                 batcher=batcher)
                 stats = batcher.stats()
             else:
                 engine = InferenceEngine(
-                    cfg, mesh_spec=mesh, max_seq=body.get("max_seq"),
-                    device=self.device, metrics=self.metrics)
-                lm = LoadedModel(engine, tok, "random-init")
+                    cfg, params, mesh_spec=mesh, max_seq=body.get("max_seq"),
+                    device=self.device, metrics=self.metrics, loader=loader)
+                lm = LoadedModel(engine, tok, native or ckpt or "random-init")
                 stats = engine.stats()
         except NotImplementedError as e:   # config outside the ported arm
             return 400, {"status": "error", "message": str(e)}
-        except (TypeError, ValueError) as e:   # malformed load fields
-            return 400, {"status": "error", "message": str(e)}
+        except (TypeError, ValueError, OSError) as e:   # malformed load
+            return 400, {"status": "error", "message": str(e)}  # fields/files
         with self._models_lock:
             self.models[name] = lm
         self.metrics.inc("models_loaded")

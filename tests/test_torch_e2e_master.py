@@ -18,7 +18,12 @@ own API (``/api/inference/submit`` and ``/status``):
 - ``/api/cluster_metrics`` scrapes the port node's ``/metrics``, whose
   ``requests_completed`` counts the requests it served;
 - ``/api/inference/cancel/<id>`` on a request in flight on the port node
-  relays to its ``/cancel`` and frees the slot and its blocks.
+  relays to its ``/cancel`` and frees the slot and its blocks;
+- a request whose ``sampling`` names a ``checkpoint_path`` (an HF
+  directory holding a tiny llama and a tiny tokenizer, nothing loaded
+  yet): the master lazy-loads it on the node it routes to, and the port
+  node's text equals the JAX node's, both encoding and decoding with the
+  tokenizer found in the checkpoint directory.
 
 No latency is asserted; every wait polls with a deadline.
 """
@@ -350,3 +355,51 @@ def test_load_model_refusals(port_worker, monkeypatch):
         r = requests.post(f"{base}/load_model", json=body, timeout=60)
         assert r.status_code == 400 and needle in r.json()["message"], r.text
     assert not agent.models
+
+
+def test_checkpoint_path_lazy_load_port_node_equals_jax_node():
+    """The master forwards a request's ``checkpoint_path`` on its lazy
+    /load_model (no dtype: both workers serve the checkpoint in bf16);
+    each node serves the prompts alone; the texts are equal."""
+    from test_torch_convert import with_tokenizer
+    ckpt = with_tokenizer("llama")
+    jax_agent, port_agent = JaxWorkerAgent(), WorkerAgent(device="cpu")
+    for agent in (jax_agent, port_agent):
+        agent.serve("127.0.0.1", 0, background=True)
+    masters, texts = [], {}
+    try:
+        for side, agent in (("jax", jax_agent), ("port", port_agent)):
+            m = Master(":memory:", health_interval=0.5, disagg=False)
+            masters.append(m)
+            srv = m.service.serve("127.0.0.1", 0, background=True)
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            r = requests.post(f"{base}/api/nodes/add", json={
+                "name": side, "host": "127.0.0.1",
+                "port": agent.service.port}, timeout=30).json()
+            assert r["status"] == "success", r
+            rids = []
+            for p in PROMPTS:
+                r = requests.post(f"{base}/api/inference/submit", json={
+                    "model_name": "ckpt-llama", "prompt": p,
+                    "max_new_tokens": 8, "sampling": {
+                        "do_sample": False, "checkpoint_path": ckpt}},
+                    timeout=30).json()
+                assert r["status"] == "success", r
+                rids.append(r["request_id"])
+            m.start_background()
+            rows = [_finish(base, rid, timeout=180) for rid in rids]
+            assert all(r["status"] == "completed" for r in rows), rows
+            texts[side] = [r["result"] for r in rows]
+        assert texts["port"] == texts["jax"] and any(texts["jax"])
+        [m] = requests.get(f"http://127.0.0.1:{port_agent.service.port}"
+                           "/health", timeout=30).json()["loaded_models"]
+        assert m["source"] == ckpt
+        tok = port_agent.models["ckpt-llama"].tokenizer
+        assert tok.encode(PROMPTS[0]) == \
+            jax_agent.models["ckpt-llama"].tokenizer.encode(PROMPTS[0])
+        assert type(tok).__name__ == "HFTokenizer"
+    finally:
+        for m in masters:
+            m.stop()
+        jax_agent.service.shutdown()
+        port_agent.shutdown()

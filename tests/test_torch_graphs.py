@@ -29,7 +29,9 @@ the same launch counts, engine (bf16 and int4) and batched (paged and
 fused route); replays count exactly; after an unload a replay raises,
 the device memory is back and the graphs' pool is gone; unloading one
 model while another serves and captures leaves the other's tokens
-alone. On a GPU machine:
+alone; a kernel library's first load and launch on another thread, in
+the middle of a capture, leaves both the capture and the launch right.
+On a GPU machine:
 ``python -m pytest --noconftest tests/test_torch_graphs.py -m cuda``.
 JAX is imported inside the CPU fixtures only: the card's machine has
 none.
@@ -642,3 +644,79 @@ def test_cuda_unloading_a_model_leaves_anothers_graphs_alone(monkeypatch):
         assert b.generate([PROMPTS[1]], max_new_tokens=16, sampling=sp,
                           seed=i).tokens == tokens, i
     b.close()
+
+
+@pytest.mark.cuda
+def test_cuda_first_kernel_load_beside_a_capture(monkeypatch, tmp_path):
+    """A model loaded later launches its kernels for the first time while
+    another owner may be capturing (ops/build.py loads a library at first
+    use; the CUDA module itself loads at its first launch). Forced here:
+    the engine's capture is paused inside torch.cuda.graph while another
+    thread dlopens a fresh copy of the q4 kernels' library (a module this
+    process never loaded) and launches it on its own stream. The launch
+    must give the already-loaded library's bytes, the capture must still
+    be open when the thread is done, and the captured program must replay
+    the tokens the engine gives with graphs off."""
+    import shutil
+    from distributed_llm_inferencing_tpu_torch.ops import build
+    from distributed_llm_inferencing_tpu_torch.ops import quant as tq
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((8, 512), generator=g, device=dev).bfloat16()
+    leaf = tq.quantize_weight_int4(
+        torch.randn((512, 768), generator=g, device=dev) * 0.05)
+    want = qm.q4_matmul(x, leaf["p4"], leaf["scale"])    # loaded library
+    torch.cuda.synchronize()
+    fresh = tmp_path / "libquant_matmul-fresh.so"
+    shutil.copyfile(build.library_path("quant_matmul"), fresh)
+    real_path = build.library_path
+    monkeypatch.setattr(build, "library_path", lambda name: str(fresh)
+                        if name == "quant_matmul" else real_path(name))
+    monkeypatch.setattr(qm, "_lib", None)
+    monkeypatch.delitem(build._libs, "quant_matmul", raising=False)
+
+    started, loaded, out = threading.Event(), threading.Event(), {}
+
+    def first_load():
+        try:
+            assert started.wait(120)
+            s = torch.cuda.Stream(dev)
+            with torch.cuda.stream(s):
+                out["got"] = qm.q4_matmul(x, leaf["p4"], leaf["scale"])
+            s.synchronize()
+            out["lib"] = qm._lib
+        except BaseException as e:   # reported on the main thread
+            out["error"] = e
+        finally:
+            loaded.set()
+
+    real_capture = graphs.CudaGraphs.capture
+
+    def paused_capture(self, step):
+        def paused():
+            started.set()
+            assert loaded.wait(120)
+            out["capturing"] = torch.cuda.is_current_stream_capturing()
+            step()
+        return real_capture(self, paused)
+
+    monkeypatch.setattr(graphs.CudaGraphs, "capture", paused_capture)
+    _graphs_env(monkeypatch, True)
+    eng = InferenceEngine(_cuda_cfg(), max_seq=256, device="cuda", seed=1)
+    t = threading.Thread(target=first_load)
+    t.start()
+    try:
+        on = eng.generate([PROMPTS[1]], max_new_tokens=16, sampling=GREEDY)
+    finally:
+        started.set()
+        t.join(300)
+    assert not t.is_alive() and "error" not in out, out.get("error")
+    assert out["capturing"] is True
+    assert out["lib"]._name == str(fresh)
+    assert torch.equal(out["got"], want)
+    assert eng.stats()["decode_graphs_captured"] == 1
+    again = eng.generate([PROMPTS[1]], max_new_tokens=16, sampling=GREEDY)
+    _graphs_env(monkeypatch, False)
+    off = eng.generate([PROMPTS[1]], max_new_tokens=16, sampling=GREEDY)
+    assert on.tokens == again.tokens == off.tokens
+    eng.close()

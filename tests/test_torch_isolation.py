@@ -70,10 +70,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "ops/paged_attention.py", "ops/fused_decode.py", "ops/paged_kvcache.py",
     "ops/sampling.py", "models/transformer.py", "runtime/block_pool.py",
     "runtime/batcher.py", "runtime/worker.py", "ops/quant.py",
-    "ops/quant_matmul.py", "models/params.py",
+    "ops/quant_matmul.py", "models/params.py", "models/hf_files.py",
+    "models/convert.py", "models/checkpoint.py", "utils/tokenizer.py",
+    "__main__.py",
 ])
 def test_batched_serving_modules_are_scanned_and_clean(module):
     path = os.path.join(PORT, *module.split("/"))
     assert path in _port_files()
     with open(path, encoding="utf-8") as f:
         assert forbidden_imports(f.read()) == []
+
+
+@pytest.mark.parametrize("module", [
+    "models/hf_files.py", "models/convert.py", "models/checkpoint.py"])
+def test_the_loader_imports_neither_transformers_nor_safetensors(module):
+    """A serving node need not have either: the port reads checkpoint
+    files itself (models/hf_files.py)."""
+    path = os.path.join(PORT, *module.split("/"))
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [n for n in names
+                if n.split(".")[0] in ("transformers", "safetensors")]

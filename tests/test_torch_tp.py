@@ -323,3 +323,40 @@ def test_worker_serves_tp2_and_unload_stops_the_follower():
                 os.kill(pid, 0)
     finally:
         w.shutdown()
+
+
+@pytest.mark.parametrize("quantize", [None, "int4"])
+def test_worker_tp2_checkpoint_each_rank_reads_its_cut(quantize):
+    """``checkpoint_path`` with ``"mesh": {"tp": 2}``: no tree goes to the
+    follower (the engine passes it the checkpoint source, and each rank
+    converts the files and keeps its cut of each tensor); greedy tokens
+    equal the tp=1 load's."""
+    from test_torch_convert import saved
+    w = WorkerAgent(device="cpu")
+    w.serve("127.0.0.1", 0, background=True)
+    url = f"http://127.0.0.1:{w.service.port}"
+    base = {"checkpoint_path": saved("llama"), "dtype": "float32",
+            "max_seq": 64, **({"quantize": quantize} if quantize else {})}
+    body = {"prompt_tokens": [5, 9, 13, 2, 40, 7], "max_new_tokens": 6,
+            "seed": 3, "sampling": {"do_sample": False}}
+    try:
+        toks = {}
+        for name, mesh in (("tp1", {}), ("tp2", {"tp": 2})):
+            r = requests.post(url + "/load_model", json={
+                **base, "model_name": name, "mesh": mesh}, timeout=180)
+            assert r.status_code == 200, r.text
+            a = requests.post(url + "/inference",
+                              json={**body, "model_name": name},
+                              timeout=120).json()
+            assert a["status"] == "success", a
+            toks[name] = a["tokens"]
+        eng = w.models["tp2"].engine
+        assert eng.group.world == 2
+        assert eng.params["layers.0.q.scale" if quantize
+                           else "layers.0.q.w"].shape[-1] == 32 // 2
+        assert toks["tp2"] == toks["tp1"] and len(toks["tp1"]) == 6
+    finally:
+        for name in ("tp1", "tp2"):
+            requests.post(url + "/unload_model", json={"model_name": name},
+                          timeout=120)
+        w.shutdown()

@@ -4,20 +4,52 @@ Starts the worker on a localhost port with ``device="cpu"`` and drives
 the routes the JAX worker also serves: /health, /load_model,
 /inference, /unload_model — including the 400s for request fields this
 slice does not implement.
+
+Checkpoints (``checkpoint_path``, ``native_checkpoint``): the tiny HF
+llama of test_torch_convert.py, loaded by the port's worker and by a JAX
+worker beside it on the same socket API, must give the same greedy
+tokens in engine and batched mode, with float, int8 and int4 weights
+(``"dtype": "float32"``: both compute in f32 on weights converted to
+bf16 first, the JAX worker's order, held here too); a native checkpoint
+written by the port's ``convert`` CLI loads with the same bytes and
+tokens as the HF directory it came from; and each checkpoint the port
+cannot serve gets a 400 that names the cause.
 """
 
+import os
+import subprocess
+import sys
+
+import jax
 import pytest
 import requests
+import torch
 
+from distributed_llm_inferencing_tpu.models.checkpoint import (
+    save_checkpoint as jax_save_checkpoint)
+from distributed_llm_inferencing_tpu.models.params import (
+    init_params as jax_init_params)
+from distributed_llm_inferencing_tpu.models.registry import (
+    get_config as jax_config)
+from distributed_llm_inferencing_tpu.runtime.worker import (
+    WorkerAgent as JaxWorkerAgent)
 from distributed_llm_inferencing_tpu_torch.runtime.worker import WorkerAgent
+from test_torch_convert import _ROOT, assert_bitwise, saved, with_tokenizer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
-def url():
+def worker():
     w = WorkerAgent(device="cpu")
     w.serve("127.0.0.1", 0, background=True)
-    yield f"http://127.0.0.1:{w.service.port}"
+    yield w
     w.shutdown()
+
+
+@pytest.fixture(scope="module")
+def url(worker):
+    return f"http://127.0.0.1:{worker.service.port}"
 
 
 def test_health_reports_the_device(url):
@@ -140,3 +172,209 @@ def test_cuda_is_the_default_device():
         pytest.skip("a GPU is visible: the default resolves")
     with pytest.raises(RuntimeError):
         WorkerAgent()
+
+
+# ---- checkpoints -------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_url():
+    w = JaxWorkerAgent()
+    w.serve("127.0.0.1", 0, background=True)
+    yield f"http://127.0.0.1:{w.service.port}"
+    w.service.shutdown()
+
+
+def _load(url, body, status=200):
+    r = requests.post(url + "/load_model", json=body, timeout=180)
+    assert r.status_code == status, r.text
+    return r.json()
+
+
+def _greedy(url, name, new=8):
+    r = requests.post(url + "/inference", json={
+        "model_name": name, "prompt_tokens": [5, 9, 13, 2, 40, 7, 77, 3],
+        "max_new_tokens": new, "seed": 1,
+        "sampling": {"do_sample": False}}, timeout=120).json()
+    assert r["status"] == "success", r
+    return r["tokens"]
+
+
+def _unload(url, name):
+    r = requests.post(url + "/unload_model", json={"model_name": name},
+                      timeout=60)
+    assert r.status_code == 200, r.text
+
+
+_POOL = {"kv_blocks": 64, "kv_block_size": 8, "slots": 2, "max_seq": 64}
+
+
+@pytest.mark.parametrize("serving,quantize", [
+    ("engine", None), ("engine", "int8"), ("engine", "int4"),
+    ("batched", None), ("batched", "int4")])
+def test_checkpoint_path_tokens_match_the_jax_worker(url, jax_url, serving,
+                                                     quantize):
+    d = saved("llama")
+    name = f"ckpt-{serving}-{quantize}"
+    body = {"model_name": name, "checkpoint_path": d, "dtype": "float32",
+            "serving": serving, **_POOL,
+            **({"quantize": quantize} if quantize else {})}
+    for u in (url, jax_url):
+        _load(u, body)
+    [m] = [m for m in requests.get(url + "/health", timeout=30).json()[
+        "loaded_models"] if m["name"] == name]
+    assert m["source"] == d and m["serving"] == serving
+    assert m["quantize"] == quantize
+    try:
+        got = _greedy(url, name)
+        assert got == _greedy(jax_url, name) and len(got) == 8
+    finally:
+        for u in (url, jax_url):
+            _unload(u, name)
+
+
+def test_float32_load_computes_on_bf16_rounded_weights(url, worker):
+    """The JAX worker converts a checkpoint to bf16 (its config default)
+    and only then applies the body's "dtype": "float32" (ROADMAP Queue
+    C): every float weight served is a bf16 value, though the file holds
+    f32 ones; the tokens above equal the JAX worker's under this order."""
+    from distributed_llm_inferencing_tpu_torch.models import hf_files
+    d = saved("llama")
+    _load(url, {"model_name": "quirk", "checkpoint_path": d,
+                "dtype": "float32", "max_seq": 64})
+    try:
+        params = worker.models["quirk"].engine.params
+        f = hf_files.SafetensorsFile(os.path.join(d, hf_files.SAFETENSORS))
+        stored = f.get("model.layers.0.self_attn.o_proj.weight").clone()
+        f.close()
+        served = params["layers.0.o.w"]
+        assert served.dtype == torch.float32
+        assert torch.equal(served, served.bfloat16().float())
+        assert torch.equal(served, stored.T.bfloat16().float())
+        assert not torch.equal(served, stored.T)
+    finally:
+        _unload(url, "quirk")
+
+
+def test_native_checkpoint_from_the_convert_cli(url, worker):
+    """``convert --quantize int4`` writes the port's native checkpoint
+    (tokenizer files carried along); /load_model with native_checkpoint
+    serves the bytes and tokens of the HF directory loaded with
+    "quantize": "int4", and encodes text with the carried tokenizer."""
+    d = with_tokenizer("llama")
+    out = os.path.join(_ROOT, "llama-native-int4")
+    subprocess.run([sys.executable, "-m",
+                    "distributed_llm_inferencing_tpu_torch", "convert",
+                    "--checkpoint_path", d, "--out", out, "--quantize",
+                    "int4", "--device", "cpu"], check=True, cwd=ROOT,
+                   timeout=300)
+    assert {"config.json", "params.safetensors",
+            "tokenizer.json"} <= set(os.listdir(out))
+    _load(url, {"model_name": "hf-int4", "checkpoint_path": d,
+                "quantize": "int4", "dtype": "float32", "max_seq": 64})
+    _load(url, {"model_name": "native-int4", "native_checkpoint": out,
+                "dtype": "float32", "max_seq": 64})
+    try:
+        assert_bitwise(worker.models["native-int4"].engine.params,
+                       worker.models["hf-int4"].engine.params)
+        assert _greedy(url, "native-int4") == _greedy(url, "hf-int4")
+        [m] = [m for m in requests.get(url + "/health", timeout=30).json()[
+            "loaded_models"] if m["name"] == "native-int4"]
+        assert m["source"] == out and m["quantize"] == "int4"
+        texts = [requests.post(url + "/inference", json={
+            "model_name": n, "prompt": "hello world", "max_new_tokens": 4,
+            "sampling": {"do_sample": False}}, timeout=60).json()["result"]
+            for n in ("native-int4", "hf-int4")]
+        assert texts[0] == texts[1]
+    finally:
+        _unload(url, "native-int4")
+        _unload(url, "hf-int4")
+
+
+def _write_config(name, conf):
+    d = os.path.join(_ROOT, name)
+    os.makedirs(d, exist_ok=True)
+    import json
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(conf, f)
+    return d
+
+
+def _orbax_dir():
+    d = os.path.join(_ROOT, "orbax")
+    if not os.path.isdir(d):
+        cfg = jax_config("tiny-llama")
+        jax_save_checkpoint(d, cfg, jax_init_params(cfg,
+                                                    jax.random.PRNGKey(0)))
+    return d
+
+
+def _missing_key_dir():
+    from distributed_llm_inferencing_tpu_torch.models import hf_files
+    import shutil
+    src = saved("llama")
+    d = os.path.join(_ROOT, "llama-missing-w")
+    shutil.copytree(src, d, dirs_exist_ok=True)
+    f = hf_files.SafetensorsFile(os.path.join(src, hf_files.SAFETENSORS))
+    keep = {k: f.get(k).clone() for k in f.keys()
+            if k != "model.layers.0.self_attn.k_proj.weight"}
+    f.close()
+    hf_files.write_safetensors(os.path.join(d, hf_files.SAFETENSORS), keep)
+    return d
+
+
+@pytest.mark.parametrize("case,cause", [
+    ("qwen3", "qk_norm"), ("phi_qk_layernorm", "qk_layernorm"),
+    ("missing", "model.layers.0.self_attn.k_proj.weight"),
+    ("hub_name", "not a local directory"),
+    ("native_hub_name", "not a local directory"),
+    ("orbax", "Orbax"), ("no_transformers", "transformers"),
+])
+def test_checkpoint_refusals_name_the_cause(url, monkeypatch, case, cause):
+    field = "checkpoint_path"
+    if case == "qwen3":
+        path = _write_config("qwen3", {"model_type": "qwen3"})
+    elif case == "phi_qk_layernorm":
+        path = _write_config("phi-qk", {"model_type": "phi",
+                                        "qk_layernorm": True})
+    elif case == "missing":
+        path = _missing_key_dir()
+    elif case == "hub_name":
+        path = "meta-llama/Llama-3.1-8B"
+    elif case == "native_hub_name":
+        path, field = "meta-llama/Llama-3.1-8B", "native_checkpoint"
+    elif case == "orbax":
+        path, field = _orbax_dir(), "native_checkpoint"
+    else:   # tokenizer files, and no transformers to read them
+        path = with_tokenizer("llama")
+        monkeypatch.setitem(sys.modules, "transformers", None)
+    r = _load(url, {"model_name": f"refused-{case}", field: path,
+                    "max_seq": 64}, status=400)
+    assert r["status"] == "error" and cause in r["message"], r
+    names = [m["name"] for m in
+             requests.get(url + "/health", timeout=30).json()["loaded_models"]]
+    assert f"refused-{case}" not in names
+
+
+def test_native_checkpoint_of_a_random_init(url, worker):
+    """``convert --model_name --allow_random_init`` stores a registry
+    row's seeded weights (the JAX CLI's testing path); they load as
+    drawn and serve."""
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        init_params)
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    out = os.path.join(_ROOT, "tiny-llama-native")
+    subprocess.run([sys.executable, "-m",
+                    "distributed_llm_inferencing_tpu_torch", "convert",
+                    "--model_name", "tiny-llama", "--allow_random_init",
+                    "--dtype", "float32", "--out", out, "--device", "cpu"],
+                   check=True, cwd=ROOT, timeout=300)
+    _load(url, {"model_name": "rnd", "native_checkpoint": out,
+                "max_seq": 64})
+    try:
+        cfg = get_config("tiny-llama").replace(dtype="float32")
+        assert_bitwise(worker.models["rnd"].engine.params, init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"))
+        assert len(_greedy(url, "rnd")) == 8
+    finally:
+        _unload(url, "rnd")
