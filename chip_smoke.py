@@ -36,8 +36,8 @@ Phases (any failure fails the run, exit code != 0):
    bit-identical across two launches; err_over_tol is each row's margin.
    Every kernel row is device time from torch.profiler over L2-cold
    inputs, in a trace shown to hold every kernel of the timed calls
-   (bracketed_trace) ("ms", the library times too; "event_ms" the CUDA events
-   around the wrapper). Times the kernel, its plain version
+   (the port's ops/trace.py bracketed_trace) ("ms", the library times
+   too; "event_ms" the CUDA events around the wrapper). Times the kernel, its plain version
    and one torch call computing the same function
    (scaled_dot_product_attention, for paged decode on K/V gathered
    beforehand and, as library_gather_ms, with the gather in the timed
@@ -46,7 +46,17 @@ Phases (any failure fails the run, exit code != 0):
    installed torch has it; yardsticks only, the port never calls them;
    none for the fused kernel, which gets unfused_ms), and works out the
    bound: the larger of
-   bytes / 3.35 TB/s and operations / peak rate.
+   bytes / 3.35 TB/s and operations / peak rate. The softcap arms
+   (phase_softcap_kernels): flash_attention (both forms), flash_decode
+   and paged_flash_decode with gemma-2's score cap, held to their plain
+   versions (bf16 and f32, hd 128 and 256, GQA and MQA, windows, odd
+   lengths, ALiBi, caps 0.5-50; same bits on a relaunch) and timed at
+   gemma-2-9b's shapes (prefill S=512 and 4096, decode B=1 at 4500 keys,
+   paged R=8 at full occupancy) beside the uncapped arm
+   ("uncapped_ms") and SDPA without a cap (it has none: the pace only).
+   Without a cap each of the three kernels must give the bits it gave
+   before the cap arm existed: digests of their outputs on fixed inputs
+   (uncapped_digests) equal UNCAPPED_DIGESTS.
 3. The engine path: the port's worker on a localhost port serves
    full-width llama-3-8b (random weights from a seed, bf16, max_seq 4096)
    through POST /load_model and three POST /inference requests in
@@ -205,6 +215,27 @@ Phases (any failure fails the run, exit code != 0):
    quant.py's maybe_quantize of it), and every token equals an
    InferenceEngine's or ContinuousBatcher's built in this process on the
    written tensors. Its wall time is printed on a line of its own.
+16. The dense switches of the later families (phase_later). (a) A
+   gemma-2-9b-shaped HF directory (GEMMA2_9B: 42 layers, hidden 3584,
+   16/8 heads of hd 256, sliding window 4096 on alternating layers,
+   attention softcap 50, final softcap 30, tied 256000-row head; 18.5
+   GB) and (b) a Qwen3-8B-shaped one (QWEN3_8B, q/k norms, full width,
+   QWEN3_LAYERS layers, the cut printed), each written by phase 15's
+   writer, served through the worker with max_seq 8192 and deleted
+   before the next is written: engine mode with phase 3's requests plus
+   a 4500-token prompt (past the window), batched on the paged route
+   with phase 5's bodies plus that prompt, each with graphs on and off
+   (equal tokens; exact counts: one flash_attention[mma] per layer per
+   request, one flash_decode per layer per step, one paged_flash_decode
+   per layer per pass, no fused_decode_step; one profiled replay per
+   captured program), every param bitwise equal to the tensor written,
+   tokens equal to an in-process engine's and batcher's on them, memory
+   back after each unload; then the bf16 prefill at full depth (250 and
+   4500 tokens) through the tensor-core kernel against f32, within 1.5x
+   the plain attention's error. (c) Phase 4's card-vs-host check for
+   each later converter type at its published width, 2 layers
+   (LATER_XCHECK; windows cut to XCHECK_WINDOW, printed, so that the
+   prompts pass them). Its wall time is printed on a line of its own.
 
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
@@ -214,6 +245,10 @@ chunk.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no GPU, or without the port
 package beside this file, it exits non-zero and prints no result.
+
+``python3 chip_smoke.py --digests`` builds the attention kernels and
+prints uncapped_digests only (from another tree's root, this script
+copied in, that tree's digests).
 
 ``python3 chip_smoke.py --timed-rows`` builds the kernels and runs only
 phase 2's timed rows (``timed_rows``), printing each; from the root of
@@ -382,7 +417,7 @@ def _compare(torch, out, ref, tol):
 
 
 def check_prefill(torch, fa, sdpa, B, S, H, Hkv, hd, dtype, window=None,
-                  alibi=False, timing=False):
+                  alibi=False, timing=False, softcap=None):
     from distributed_llm_inferencing_tpu_torch.ops.attention import (
         alibi_slopes)
     dev = torch.device("cuda")
@@ -391,15 +426,21 @@ def check_prefill(torch, fa, sdpa, B, S, H, Hkv, hd, dtype, window=None,
     k = torch.randn(B, S, Hkv, hd, generator=g, device=dev).to(dtype)
     v = torch.randn(B, S, Hkv, hd, generator=g, device=dev).to(dtype)
     sl = alibi_slopes(H, dev) if alibi else None
-    out = fa.flash_attention(q, k, v, sliding_window=window, alibi=sl)
+    cap = {} if softcap is None else {"softcap": softcap}
+    out = fa.flash_attention(q, k, v, sliding_window=window, alibi=sl, **cap)
+    again = fa.flash_attention(q, k, v, sliding_window=window, alibi=sl,
+                               **cap)
     torch.cuda.synchronize()
-    ref = fa.flash_attention_ref(q, k, v, sliding_window=window, alibi=sl)
+    ref = fa.flash_attention_ref(q, k, v, sliding_window=window, alibi=sl,
+                                 **cap)
     dname = str(dtype).replace("torch.", "")
     err, ok = _compare(torch, out, ref, TOL[dname])
     row = {"case": f"prefill B={B} S={S} H={H} Hkv={Hkv} hd={hd} {dname}"
-                   f" window={window} alibi={alibi}",
+                   f" window={window} alibi={alibi}"
+                   + ("" if softcap is None else f" softcap={softcap}"),
            "form": fa.prefill_form(dtype, hd),
-           "max_abs_err": err, "tol": TOL[dname], "ok": ok}
+           "max_abs_err": err, "tol": TOL[dname],
+           "ok": ok and torch.equal(out, again)}
     if timing:
         keys = sum(min(i + 1, window or S) for i in range(S))
         flops = 4.0 * B * H * hd * keys
@@ -409,21 +450,26 @@ def check_prefill(torch, fa, sdpa, B, S, H, Hkv, hd, dtype, window=None,
         # S=512 the wrapper's host side outlasts the kernel); "event_ms"
         # the CUDA events around a loop of calls, host included
         call = lambda: fa.flash_attention(  # noqa: E731
-            q, k, v, sliding_window=window, alibi=sl)
+            q, k, v, sliding_window=window, alibi=sl, **cap)
         row["ms"] = _device_ms(torch, [call])
         row["event_ms"] = timed_ms(torch, call)
         # the plain version materialises [S, S] scores per head: few runs
         # at the longest prompts
         row["plain_ms"] = timed_ms(torch, lambda: fa.flash_attention_ref(
-            q, k, v, sliding_window=window, alibi=sl),
+            q, k, v, sliding_window=window, alibi=sl, **cap),
             **(dict(iters=5) if S < 4096 else dict(iters=2, warmup=1)))
+        # SDPA has no score cap: with one, the yardstick attends uncapped
         row["library_ms"] = _device_ms(torch, [_library_call(
             torch, sdpa, q, k, v, is_causal=True)])
+        if softcap is not None:   # the uncapped arm at the same shape
+            row["uncapped_ms"] = _device_ms(torch, [
+                lambda: fa.flash_attention(q, k, v, sliding_window=window,
+                                           alibi=sl)])
     return row
 
 
 def check_decode(torch, fa, sdpa, lengths, S, H, Hkv, hd, dtype, window=None,
-                 alibi=False, timing=False):
+                 alibi=False, timing=False, softcap=None):
     from distributed_llm_inferencing_tpu_torch.ops.attention import (
         alibi_slopes)
     dev = torch.device("cuda")
@@ -434,14 +480,19 @@ def check_decode(torch, fa, sdpa, lengths, S, H, Hkv, hd, dtype, window=None,
     v = torch.randn(B, S, Hkv, hd, generator=g, device=dev).to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     sl = alibi_slopes(H, dev) if alibi else None
-    out = fa.flash_decode(q, k, v, lens, sliding_window=window, alibi=sl)
-    again = fa.flash_decode(q, k, v, lens, sliding_window=window, alibi=sl)
+    cap = {} if softcap is None else {"softcap": softcap}
+    out = fa.flash_decode(q, k, v, lens, sliding_window=window, alibi=sl,
+                          **cap)
+    again = fa.flash_decode(q, k, v, lens, sliding_window=window, alibi=sl,
+                            **cap)
     torch.cuda.synchronize()
-    ref = fa.flash_decode_ref(q, k, v, lens, sliding_window=window, alibi=sl)
+    ref = fa.flash_decode_ref(q, k, v, lens, sliding_window=window, alibi=sl,
+                              **cap)
     dname = str(dtype).replace("torch.", "")
     err, ok = _compare(torch, out, ref, TOL[dname])
     row = {"case": f"decode lengths={lengths} S={S} H={H} Hkv={Hkv} hd={hd}"
-                   f" {dname} window={window} alibi={alibi}",
+                   f" {dname} window={window} alibi={alibi}"
+                   + ("" if softcap is None else f" softcap={softcap}"),
            "max_abs_err": err, "tol": TOL[dname],
            "ok": ok and torch.equal(out, again)}
     if timing:
@@ -459,11 +510,15 @@ def check_decode(torch, fa, sdpa, lengths, S, H, Hkv, hd, dtype, window=None,
             (torch.randn_like(q), torch.randn_like(k), torch.randn_like(v))
             for _ in range(n - 1)]
         calls = [(lambda a=a: fa.flash_decode(
-            *a, lens, sliding_window=window, alibi=sl)) for a in sets]
+            *a, lens, sliding_window=window, alibi=sl, **cap)) for a in sets]
         row["ms"] = _device_ms(torch, calls)
         row["event_ms"] = _cold_ms(torch, calls)
         row["plain_ms"] = timed_ms(torch, lambda: fa.flash_decode_ref(
-            q, k, v, lens, sliding_window=window, alibi=sl), iters=5)
+            q, k, v, lens, sliding_window=window, alibi=sl, **cap), iters=5)
+        if softcap is not None:   # the uncapped arm on the same inputs
+            row["uncapped_ms"] = _device_ms(torch, [
+                (lambda a=a: fa.flash_decode(*a, lens, sliding_window=window,
+                                             alibi=sl)) for a in sets])
         mask = (torch.arange(S, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
         if window:
@@ -496,10 +551,8 @@ def _device_ms(torch, fns, iters=30):
     bracketed_trace), over ``iters`` calls round-robin over ``fns`` (cold
     inputs as in _cold_ms). For calls whose host side outlasts their
     kernels, where CUDA events around a loop would time the host."""
-    from torch.profiler import ProfilerActivity
-
-    from distributed_llm_inferencing_tpu_torch.profile_engine import (
-        _device_us)
+    from distributed_llm_inferencing_tpu_torch.ops.trace import (
+        bracketed_trace, kernel_times)
     it = itertools.cycle(fns)
     for _ in range(3):
         next(it)()
@@ -508,12 +561,8 @@ def _device_ms(torch, fns, iters=30):
         for _ in range(iters):
             next(it)()
 
-    prof, _, _ = bracketed_trace(
-        torch, calls, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if e.key and not e.key.startswith("aten::")
-             and SPIN not in e.key)
-    return us / 1e3 / iters
+    prof, _, _ = bracketed_trace(calls)
+    return sum(k["device_ms"] for k in kernel_times(prof).values()) / iters
 
 
 def _paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs, nb,
@@ -543,7 +592,7 @@ def _paged_keys(lengths, window):
 
 
 def check_paged(torch, pa, sdpa, lengths, H, Hkv, hd, dtype, bs=16, nb=None,
-                window=None, timing=False, disjoint=False):
+                window=None, timing=False, disjoint=False, softcap=None):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(len(lengths) * 13 + hd)
     R = len(lengths)
@@ -551,15 +600,22 @@ def check_paged(torch, pa, sdpa, lengths, H, Hkv, hd, dtype, bs=16, nb=None,
     k, v, bt, lens = _paged_inputs(torch, g, dtype, lengths, H, Hkv, hd, bs,
                                    nb, disjoint)
     q = torch.randn(R, 1, H, hd, generator=g, device=dev).to(dtype)
-    out = pa.paged_flash_decode(q, k, v, bt, lens, sliding_window=window)
+    cap = {} if softcap is None else {"softcap": softcap}
+    out = pa.paged_flash_decode(q, k, v, bt, lens, sliding_window=window,
+                                **cap)
+    again = pa.paged_flash_decode(q, k, v, bt, lens, sliding_window=window,
+                                  **cap)
     torch.cuda.synchronize()
-    ref = pa.paged_flash_decode_ref(q, k, v, bt, lens, sliding_window=window)
+    ref = pa.paged_flash_decode_ref(q, k, v, bt, lens, sliding_window=window,
+                                    **cap)
     dname = str(dtype).replace("torch.", "")
     tol = TOL[dname] if dtype == torch.float32 else PAGED_BF16_TOL
     err, ok = _compare(torch, out, ref, tol)
     row = {"case": f"paged lengths={lengths} H={H} Hkv={Hkv} hd={hd} bs={bs}"
-                   f" blocks={nb} {dname} window={window}",
-           "max_abs_err": err, "tol": tol, "ok": ok}
+                   f" blocks={nb} {dname} window={window}"
+                   + ("" if softcap is None else f" softcap={softcap}"),
+           "max_abs_err": err, "tol": tol,
+           "ok": ok and torch.equal(out, again)}
     if timing:
         keys = _paged_keys(lengths, window)
         flops = 4.0 * H * hd * keys
@@ -573,12 +629,17 @@ def check_paged(torch, pa, sdpa, lengths, H, Hkv, hd, dtype, bs=16, nb=None,
         # device time (its split pass and merge) from the profiler; the
         # CUDA events around the loop time the wrapper's host side here
         calls = [(lambda a=a: pa.paged_flash_decode(
-            a[0], a[1], a[2], bt, lens, sliding_window=window))
+            a[0], a[1], a[2], bt, lens, sliding_window=window, **cap))
             for a in sets]
         row["ms"] = _device_ms(torch, calls)
         row["event_ms"] = _cold_ms(torch, calls)
         row["plain_ms"] = timed_ms(torch, lambda: pa.paged_flash_decode_ref(
-            q, k, v, bt, lens, sliding_window=window), iters=5)
+            q, k, v, bt, lens, sliding_window=window, **cap), iters=5)
+        if softcap is not None:   # the uncapped arm on the same inputs
+            row["uncapped_ms"] = _device_ms(torch, [
+                (lambda a=a: pa.paged_flash_decode(
+                    a[0], a[1], a[2], bt, lens, sliding_window=window))
+                for a in sets])
         # the yardstick attends K/V gathered outside the timed call
         mb = bt.shape[1]
         kg = k[bt.long()].reshape(R, mb * bs, Hkv, hd)
@@ -1012,6 +1073,152 @@ def phase_kernels(torch, fa):
     return pre, dec
 
 
+# gemma-2-9b's attention: 16 query heads over 8 kv heads of hd 256, its
+# attention score softcap and sliding window
+GEMMA_ATTN = dict(H=16, Hkv=8, hd=256)
+GEMMA_SOFTCAP, GEMMA_WINDOW = 50.0, 4096
+# uncapped_digests of the kernels before their cap arm existed (the tree
+# at commit a5beff9, ``python3 chip_smoke.py --digests`` on an NVIDIA H100
+# 80GB HBM3): phase 2 and tests/test_torch_cuda_kernels.py hold the
+# uncapped arms to them
+UNCAPPED_DIGESTS = {
+    "flash_attention/bfloat16/hd128/wNone": "af170f4c81e11005bb6616f2",
+    "flash_attention/bfloat16/hd128/w64": "1b382ce9ca13a6eeaa0e7195",
+    "flash_decode/bfloat16/hd128/wNone": "67fdf27fb4b50eaaf96c6561",
+    "flash_decode/bfloat16/hd128/w100": "1bf69621880cae95d3179b53",
+    "paged_flash_decode/bfloat16/hd128/wNone": "4b735b146baccacba6f4b03a",
+    "paged_flash_decode/bfloat16/hd128/w100": "ff68ab4ff117060b7fbdc2f8",
+    "flash_attention/bfloat16/hd256/wNone": "5d4145431764ad4cce358b79",
+    "flash_attention/bfloat16/hd256/w64": "b9bef58e3f7c572671afb21e",
+    "flash_decode/bfloat16/hd256/wNone": "3f4416cb5c3c4e4724f3597d",
+    "flash_decode/bfloat16/hd256/w100": "a2943d6a14c34efbc8378056",
+    "paged_flash_decode/bfloat16/hd256/wNone": "446a0595638aea221a175084",
+    "paged_flash_decode/bfloat16/hd256/w100": "4273ef510ae36a457714cc4d",
+    "flash_attention/float32/hd128/wNone": "35e94c56ac61039c70be4459",
+    "flash_attention/float32/hd128/w64": "1c5f4443141b3da90b633ca1",
+    "flash_decode/float32/hd128/wNone": "37e72f3deb892f20df9ee309",
+    "flash_decode/float32/hd128/w100": "8e6f91f14ad6370eb9980426",
+    "paged_flash_decode/float32/hd128/wNone": "57936318830bc91b792a49f3",
+    "paged_flash_decode/float32/hd128/w100": "68faf0bed6f5260d9fb2e603",
+    "flash_attention/float32/hd256/wNone": "e8a1d733b1e2a1faf7576fd6",
+    "flash_attention/float32/hd256/w64": "4c498009080036a6fce978ea",
+    "flash_decode/float32/hd256/wNone": "5e0110dac7fbccb21b05e7aa",
+    "flash_decode/float32/hd256/w100": "3a61296a1f048666ce01b60a",
+    "paged_flash_decode/float32/hd256/wNone": "f9315e37c3b100f311a7afb5",
+    "paged_flash_decode/float32/hd256/w100": "9b31e2848a748b6cf1991be5",
+}
+
+
+def phase_softcap_kernels(torch, fa, pa):
+    """Phase 2's softcap arms (flash_attention's two forms, flash_decode
+    and paged_flash_decode, the last two through split_decode.cuh), each
+    held to its plain version (same bits on a relaunch): bf16 and f32, hd
+    128 and 256, GQA and MQA, with and without a window, odd lengths, a
+    cap that bites (0.5-3) and gemma-2's 50; timed at gemma-2-9b's shapes
+    (prefill S=512 and 4096, decode B=1 at 4500 keys of an 8192-slot
+    cache, paged R=8 at full occupancy), each beside the uncapped arm on
+    the same inputs and SDPA without a cap (it has none: the pace only).
+    Returns (prefill rows, decode rows, paged rows), timed rows first."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16, f32 = torch.bfloat16, torch.float32
+    H, Hkv, hd = GEMMA_ATTN["H"], GEMMA_ATTN["Hkv"], GEMMA_ATTN["hd"]
+    cap, win = GEMMA_SOFTCAP, GEMMA_WINDOW
+    pre = [check_prefill(torch, fa, sdpa, 1, S, H, Hkv, hd, bf16,
+                         timing=True, softcap=cap) for S in (512, 4096)]
+    pre += [check_prefill(torch, fa, sdpa, 1, 4500, H, Hkv, hd, bf16,
+                          window=win, softcap=cap),
+            check_prefill(torch, fa, sdpa, 2, 300, 8, 2, 128, bf16,
+                          softcap=2.0),
+            check_prefill(torch, fa, sdpa, 1, 129, 8, 1, 256, bf16,
+                          window=50, softcap=1.0),
+            check_prefill(torch, fa, sdpa, 1, 100, 8, 2, 64, bf16,
+                          alibi=True, softcap=3.0),
+            check_prefill(torch, fa, sdpa, 2, 77, 8, 2, 128, f32,
+                          window=20, softcap=1.5),
+            check_prefill(torch, fa, sdpa, 1, 65, 4, 1, 256, f32,
+                          softcap=0.5),
+            check_prefill(torch, fa, sdpa, 1, 64, 8, 8, 32, f32,
+                          alibi=True, softcap=3.0)]
+    dec = [check_decode(torch, fa, sdpa, [4500], 8192, H, Hkv, hd, bf16,
+                        timing=True, softcap=cap),
+           check_decode(torch, fa, sdpa, [4500], 8192, H, Hkv, hd, bf16,
+                        window=win, softcap=cap),
+           check_decode(torch, fa, sdpa, [0, 77, 1000], 1024, 8, 1, 256,
+                        bf16, window=100, softcap=2.0),
+           check_decode(torch, fa, sdpa, [1, 37, 300], 512, 8, 2, 128, f32,
+                        softcap=1.5),
+           check_decode(torch, fa, sdpa, [90, 3], 128, 4, 1, 256, f32,
+                        window=16, softcap=0.7),
+           check_decode(torch, fa, sdpa, [37, 101], 128, 8, 2, 32, f32,
+                        alibi=True, softcap=3.0)]
+    paged = [check_paged(torch, pa, sdpa, [4096] * 8, H, Hkv, hd, bf16,
+                         nb=8 * 256 + 1, timing=True, disjoint=True,
+                         softcap=cap),
+             check_paged(torch, pa, sdpa, [0, 1, 15, 16, 17, 300, 1000, 4500],
+                         H, Hkv, hd, bf16, nb=2048, window=win, softcap=cap),
+             check_paged(torch, pa, sdpa, [255, 256, 257, 513, 0], 8, 2,
+                         128, f32, softcap=1.5),
+             check_paged(torch, pa, sdpa, [300, 17], 8, 1, 256, bf16,
+                         window=64, softcap=2.0),
+             check_paged(torch, pa, sdpa, [90, 3], 8, 1, 256, f32,
+                         window=16, softcap=0.5)]
+    for row in pre + dec + paged:
+        log("  check", json.dumps(row))
+    bad = [r["case"] for r in pre + dec + paged if not r["ok"]]
+    assert not bad, f"softcap arms disagree with their plain versions: {bad}"
+    return pre, dec, paged
+
+
+def uncapped_digests(torch):
+    """sha256 of each attention kernel's output without a cap on fixed
+    inputs drawn on the host (numpy, seed 2024): flash_attention's two
+    forms (bf16 hd 128 and 256 on the tensor cores, f32 on the CUDA
+    cores), flash_decode and paged_flash_decode in bf16 and f32, with and
+    without a window. The wrappers are called as they were before the cap
+    arm existed, so a tree without it gives its own digests for the
+    comparison (UNCAPPED_DIGESTS)."""
+    import hashlib
+
+    import numpy as np
+
+    from distributed_llm_inferencing_tpu_torch.ops import (
+        flash_attention as fa, paged_attention as pa)
+    rng = np.random.default_rng(2024)
+
+    def t(shape, dtype):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to("cuda").to(dtype)
+
+    def digest(x):
+        torch.cuda.synchronize()
+        bits = x.contiguous().view({2: torch.int16, 4: torch.int32}[
+            x.element_size()]).cpu().numpy()
+        return hashlib.sha256(bits.tobytes()).hexdigest()[:24]
+
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).replace("torch.", "")
+        for hd in (128, 256):
+            q, k, v = t((2, 300, 8, hd), dt), t((2, 300, 2, hd), dt),                 t((2, 300, 2, hd), dt)
+            for w in (None, 64):
+                out[f"flash_attention/{name}/hd{hd}/w{w}"] = digest(
+                    fa.flash_attention(q, k, v, sliding_window=w))
+            q, k, v = t((3, 1, 8, hd), dt), t((3, 600, 2, hd), dt),                 t((3, 600, 2, hd), dt)
+            lens = torch.tensor([1, 200, 600], dtype=torch.int32,
+                                device="cuda")
+            for w in (None, 100):
+                out[f"flash_decode/{name}/hd{hd}/w{w}"] = digest(
+                    fa.flash_decode(q, k, v, lens, sliding_window=w))
+            kp, vp = t((128, 16, 2, hd), dt), t((128, 16, 2, hd), dt)
+            bt = torch.from_numpy(rng.permutation(127)[:3 * 40].reshape(
+                3, 40).astype(np.int32) + 1).to("cuda")
+            for w in (None, 100):
+                out[f"paged_flash_decode/{name}/hd{hd}/w{w}"] = digest(
+                    pa.paged_flash_decode(q, kp, vp, bt, lens,
+                                          sliding_window=w))
+    return out
+
+
 # ---------------------------------------------------------------------
 # phase 3: the main path through the port's worker
 # ---------------------------------------------------------------------
@@ -1026,54 +1233,6 @@ def zero_counts(kernels):
 def read_counts(kernels):
     return {k: getattr(getattr(mod, fn), attr)
             for k, (mod, fn, attr) in kernels.items()}
-
-
-# bracketed_trace's spins: one of ~10 ms at 1.98 GHz, then LEAD_IN of ~10
-# us each before the work and one after it
-SPIN = "spin_kernel"
-SPIN_CYCLES = 20_000_000
-MARK_CYCLES = 20_000
-LEAD_IN = 256
-TRACES = 4
-
-
-def bracketed_trace(torch, work, activities):
-    """``work()`` under torch.profiler, in a trace that holds every kernel
-    it ran: returns the profile, what ``work`` returned, and the number
-    of traces taken.
-
-    The profiler drops a prefix of the device kernels it saw, of a length
-    that varies from trace to trace: in 156 traces of decode-step replays
-    (llama-3-8b, gpt2-xl, bloom-7b1; 12 per program behind one 10 ms
-    spin, on an H100) the cut fell before the spin or 0.3 to 3 ms after
-    it, up to 19 kernels into the replay, and one trace held no kernel at
-    all. So ``work`` runs on the current stream behind a long spin and
-    LEAD_IN short ones, and before one more short spin; a trace is kept
-    when it holds at least one lead-in spin and the closing one, which
-    (the drop being a prefix) puts all of ``work``'s kernels inside it.
-    Otherwise it is taken again with twice the lead-in, TRACES times at
-    most. ``work`` must do the same device work each time it is called.
-    """
-    from torch.profiler import profile
-    lead_in, sizes = LEAD_IN, []
-    for _ in range(TRACES):
-        torch.cuda.synchronize()
-        with profile(activities=activities) as prof:
-            torch.cuda._sleep(SPIN_CYCLES)
-            for _ in range(lead_in):
-                torch.cuda._sleep(MARK_CYCLES)
-            out = work()
-            torch.cuda._sleep(MARK_CYCLES)
-            torch.cuda.synchronize()
-        device = sorted((e.time_range.start, e.name) for e in prof.events()
-                        if str(e.device_type).endswith("CUDA"))
-        sizes.append(len(device))
-        if (len(device) > 1 and SPIN in device[-1][1]
-                and any(SPIN in name for _, name in device[:-1])):
-            return prof, out, len(sizes)
-        lead_in *= 2
-    raise AssertionError(f"none of {TRACES} traces held all the kernels "
-                         f"of the work (device kernels per trace: {sizes})")
 
 
 def _http(url, body=None, timeout=900):
@@ -1099,8 +1258,10 @@ def engine_prompt(n_tok, seed):
     return "".join(chr(97 + (i * 7 + seed) % 26) for i in range(n_tok - 1))
 
 
-def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
-    """Phase 3's three requests through a loaded engine-mode model (bf16
+def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step,
+                     requests=ENGINE_REQUESTS):
+    """Phase 3's three requests (or ``requests``: (prompt tokens,
+    sampling, seed) each) through a loaded engine-mode model (bf16
     activations): counts zeroed before, each request must add one
     flash_attention launch per layer, each in its tensor-core form
     ("flash_attention[mma]"), one flash_decode launch per layer per
@@ -1112,7 +1273,7 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step):
     zero_counts(kernels)                 # counts of this path only
     count = lambda: read_counts(kernels)  # noqa: E731
     rows = []
-    for n_tok, sampling, seed in ENGINE_REQUESTS:
+    for n_tok, sampling, seed in requests:
         text = engine_prompt(n_tok, seed)
         n0 = count()
         st, r = _http(base + "/inference", {
@@ -1206,10 +1367,11 @@ def decode_kernel(cfg, route):
 
 
 def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
-                      routes=("paged", "fused")):
+                      routes=("paged", "fused"), cfg=None):
     """Card (kernels) against host (plain versions) at ``name``'s full
-    width, 2 layers, f32, with float weights or ``quant``
-    ("int8"/"int4") ones; the paged path once per decode ``route``."""
+    width (or ``cfg``'s, a 2-layer config), 2 layers, f32, with float
+    weights or ``quant`` ("int8"/"int4") ones; the paged path once per
+    decode ``route``."""
     from distributed_llm_inferencing_tpu_torch.models.params import (
         init_params)
     from distributed_llm_inferencing_tpu_torch.models.registry import (
@@ -1217,8 +1379,8 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         Transformer)
     from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
-    cfg = get_config(name).replace(num_layers=2, dtype="float32",
-                                   quant=quant)
+    cfg = (cfg or get_config(name)).replace(num_layers=2, dtype="float32",
+                                            quant=quant)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
                          "cuda")
     models = {"cuda": Transformer(cfg, params),
@@ -2445,6 +2607,9 @@ def _replay_profiled(torch, kernels, prog, decode):
     counted ones must be the capture's record, and the step's ``decode``
     kernel must have run."""
     from torch.profiler import ProfilerActivity
+
+    from distributed_llm_inferencing_tpu_torch.ops.trace import (
+        bracketed_trace)
     assert prog.captured
 
     def replay():
@@ -2452,8 +2617,7 @@ def _replay_profiled(torch, kernels, prog, decode):
         prog()
         return read_counts(kernels)
 
-    prof, counted, traces = bracketed_trace(torch, replay,
-                                            [ProfilerActivity.CUDA])
+    prof, counted, traces = bracketed_trace(replay, [ProfilerActivity.CUDA])
     names = [name for _, name in sorted(
         (e.time_range.start, e.name) for e in prof.events()
         if str(e.device_type).endswith("CUDA"))]
@@ -2512,22 +2676,26 @@ def _unload(torch, worker, name, before):
     return after
 
 
-def _graphs_engine(torch, worker, kernels, cfg, quant):
-    """Phase 3's three requests through one engine-mode load of ``cfg``'s
-    model (bf16 activations, ``quant`` weights), graphs on and then off:
-    each with _engine_requests' exact counts, and the same tokens and
-    launches on both sides."""
+def _graphs_engine(torch, worker, kernels, cfg, quant, load=None,
+                   requests=ENGINE_REQUESTS, check=None):
+    """Phase 3's three requests (or ``requests``) through one engine-mode
+    load of ``cfg``'s model (bf16 activations, ``quant`` weights; ``load``:
+    another load body, and ``check(loaded model)`` run after it), graphs
+    on and then off: each with _engine_requests' exact counts, and the
+    same tokens and launches on both sides."""
     name, L = cfg.name, cfg.num_layers
     before = _baseline(torch)
-    st, res = _http(_worker_base(worker) + "/load_model", {
+    st, res = _http(_worker_base(worker) + "/load_model", load or {
         "model_name": name, "allow_random_init": True, "dtype": "bfloat16",
         "max_seq": 4096, **({"quantize": quant} if quant else {})})
     assert st == 200 and res["status"] == "success", res
+    checked = check(worker.models[name]) if check is not None else None
     runs = {}
     for on in (True, False):
         _graphs_on(on)
         runs[on] = _engine_requests(torch, _worker_base(worker), kernels, cfg,
-                                    name, q4_per_pass(cfg) if quant else 0)[1]
+                                    name, q4_per_pass(cfg) if quant else 0,
+                                    requests)[1]
     capture_s, stats = _programs(worker, name)
     for a, b in zip(runs[True], runs[False]):
         assert a["tokens"] == b["tokens"], \
@@ -2542,7 +2710,10 @@ def _graphs_engine(torch, worker, kernels, cfg, quant):
     step_ms = {("on" if on else "off"): [r["decode_ms_per_weight_pass"]
                                          for r in runs[on]]
                for on in (True, False)}
-    return {"weights": quant or "bf16", "ms_per_decode_step": step_ms,
+    return {"weights": quant or "bf16", "check": checked,
+            "load_s": res["load_time_s"],
+            "tokens": [r["tokens"] for r in runs[True]],
+            "ms_per_decode_step": step_ms,
             "prefill_ms": {("on" if on else "off"): [r["prefill_ms"]
                                                      for r in runs[on]]
                            for on in (True, False)},
@@ -2555,20 +2726,21 @@ def _graphs_engine(torch, worker, kernels, cfg, quant):
 
 
 def _graphs_wave(torch, worker, kernels, cfg, route, quant, on,
-                 lens=PROMPT_LENS):
+                 lens=PROMPT_LENS, load=None, check=None):
     """Phase 5's 8 bodies (prompts of ``lens``) as one /inference_batch
     (one enqueue, so the admission waves do not depend on arrival times)
     through a fresh batched load of ``cfg``'s model, whose radix cache
     starts empty in both modes. The decode kernel of ``route``
     (``decode_kernel``) launches num_layers times per weight pass and no
     other attention kernel (none at all on the ALiBi gather route); in
-    int4 q4_matmul as phase 5 counts it."""
+    int4 q4_matmul as phase 5 counts it. ``load``: another load body;
+    ``check(loaded model)`` runs after the batch, before the unload."""
     name, L = cfg.name, cfg.num_layers
     _graphs_on(on)
     os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
     before = _baseline(torch)
-    st, res = _http(_worker_base(worker) + "/load_model",
-                    dict(BATCHED_LOAD, model_name=name, quantize=quant))
+    st, res = _http(_worker_base(worker) + "/load_model", load or dict(
+        BATCHED_LOAD, model_name=name, quantize=quant))
     assert st == 200 and res["status"] == "success", res
     capture_s, stats = _programs(worker, name)
     assert stats["decode_graphs_captured"] == int(on), stats  # at the load
@@ -2606,6 +2778,7 @@ def _graphs_wave(torch, worker, kernels, cfg, route, quant, on,
             b._bufs.load(b._chunk_inputs(1))
         replay = _replay_profiled(torch, kernels, prog, mine)
         del b, prog
+    checked = check(worker.models[name]) if check is not None else None
     after = _unload(torch, worker, name, before)
     generated = sum(len(t) for t in tokens)
     return {"tokens": tokens, "launches": launches, "weight_passes": passes,
@@ -2613,7 +2786,7 @@ def _graphs_wave(torch, worker, kernels, cfg, route, quant, on,
             "decode_tokens_per_weight_pass": emitted / passes,
             "decode_chunk_ms_per_weight_pass": 1e3 * chunk_s / passes,
             "capture_s": capture_s, **stats, "replay_profiled": replay,
-            "memory_allocated_before_load": before,
+            "check": checked, "memory_allocated_before_load": before,
             "memory_allocated_after_unload": after}
 
 
@@ -2970,18 +3143,23 @@ def _port_names(conf, key, t):
              t.T.contiguous() if name.endswith(".w") else t)]
 
 
-def write_checkpoint(torch, path, conf, seed, shards=1):
+def write_checkpoint(torch, path, conf, seed, shards=1, tensors=None,
+                     names=None):
     """Write ``conf``'s checkpoint directory like the hub's: config.json
     and bf16 safetensors (``shards`` files of about equal bytes with
     their index), every tensor drawn on the card from ``seed`` and
-    written by this script's own safetensors writer. Returns (the port's
-    flat dict the files must load as, on the card; file bytes; seconds)."""
+    written by this script's own safetensors writer. ``tensors(conf)``
+    and ``names(conf, key, t)`` (default ``_hf_tensors`` /
+    ``_port_names``) say what the files hold and what each tensor must
+    load as. Returns (the port's flat dict the files must load as, on
+    the card; file bytes; seconds)."""
+    tensors, names = tensors or _hf_tensors, names or _port_names
     import struct
     t0 = time.perf_counter()
     os.makedirs(path)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(conf, f, indent=2)
-    specs = _hf_tensors(conf)
+    specs = tensors(conf)
     sizes = [2 * int(torch.Size(shape).numel()) for _, shape, _ in specs]
     total = sum(sizes)
     groups, acc = [[]], 0
@@ -2990,11 +3168,11 @@ def write_checkpoint(torch, path, conf, seed, shards=1):
             groups.append([])
         groups[-1].append(idx)
         acc += n
-    names = (["model.safetensors"] if shards == 1 else
+    files = (["model.safetensors"] if shards == 1 else
              [f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
               for k in range(shards)])
     expected, weight_map, nbytes = {}, {}, 0
-    for fname, group in zip(names, groups):
+    for fname, group in zip(files, groups):
         header, off = {}, 0
         for idx in group:
             key, shape, _ = specs[idx]
@@ -3011,7 +3189,7 @@ def write_checkpoint(torch, path, conf, seed, shards=1):
                 key, shape, kind = specs[idx]
                 t = _draw(torch, shape, kind, seed * 100003 + idx)
                 f.write(t.view(torch.int16).cpu().numpy().data)
-                for name, e in _port_names(conf, key, t):
+                for name, e in names(conf, key, t):
                     expected[name] = e
                 del t
         nbytes += 8 + len(raw) + off
@@ -3094,9 +3272,11 @@ def _greedy_batched(base, worker, kernels, cfg, name, route):
     return r["tokens"], launches
 
 
-def _reference_tokens(torch, cfg, params, routes=(), max_seq=4096):
+def _reference_tokens(torch, cfg, params, routes=(), max_seq=4096,
+                      requests=ENGINE_REQUESTS):
     """Tokens of an InferenceEngine built in this process on ``params``
-    for phase 3's requests (max_seq 4096, as the worker loads), and of a
+    for phase 3's requests (or ``requests``; max_seq 4096, as the worker
+    loads), and of a
     ContinuousBatcher built as the worker builds BATCHED_LOAD's for phase
     3's greedy request, per decode route."""
     from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
@@ -3111,7 +3291,7 @@ def _reference_tokens(torch, cfg, params, routes=(), max_seq=4096):
         [tok.encode(engine_prompt(n, seed))], max_new_tokens=NEW_TOKENS,
         sampling=_sampling(sp), seed=seed,
         eos_token_id=tok.eos_token_id).tokens[0]
-        for n, sp, seed in ENGINE_REQUESTS]}
+        for n, sp, seed in requests]}
     eng.close()
     del eng
     n, sp, seed = ENGINE_REQUESTS[0]
@@ -3383,6 +3563,416 @@ def phase_ingestion(torch, kernels, smi):
     return report
 
 
+# ---------------------------------------------------------------------
+# phase 16: the dense switches of the later families
+# ---------------------------------------------------------------------
+
+# google/gemma-2-9b's config.json (its published fields): 42 layers,
+# sliding (4096) and global layers alternating, both softcaps
+GEMMA2_9B = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+    "attention_bias": False, "attention_dropout": 0.0,
+    "attn_logit_softcapping": 50.0, "bos_token_id": 2,
+    "cache_implementation": "hybrid", "eos_token_id": 1,
+    "final_logit_softcapping": 30.0, "head_dim": 256,
+    "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "hidden_size": 3584,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 8192, "num_attention_heads": 16,
+    "num_hidden_layers": 42, "num_key_value_heads": 8, "pad_token_id": 0,
+    "query_pre_attn_scalar": 256, "rms_norm_eps": 1e-06,
+    "rope_theta": 10000.0, "sliding_window": 4096,
+    "sliding_window_size": 4096, "torch_dtype": "bfloat16",
+    "use_cache": True, "vocab_size": 256000}
+# Qwen/Qwen3-8B's config.json, 36 layers cut to QWEN3_LAYERS
+QWEN3_LAYERS = 4
+QWEN3_8B = {
+    "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+    "attention_bias": False, "attention_dropout": 0.0,
+    "bos_token_id": 151643, "eos_token_id": 151645, "head_dim": 128,
+    "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 12288, "max_position_embeddings": 40960,
+    "max_window_layers": 36, "num_attention_heads": 32,
+    "num_hidden_layers": QWEN3_LAYERS, "num_key_value_heads": 8,
+    "rms_norm_eps": 1e-06, "rope_scaling": None, "rope_theta": 1000000,
+    "sliding_window": None, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True,
+    "use_sliding_window": False, "vocab_size": 151936}
+# phase 3's requests plus one past gemma-2's 4096-key window, and phase
+# 5's prompt lengths plus the same long one; served with max_seq 8192
+LONG_PROMPT = 4500
+LATER_REQUESTS = ENGINE_REQUESTS + ((LONG_PROMPT, {"do_sample": False}, 3),)
+LATER_LENS = PROMPT_LENS + (LONG_PROMPT,)
+LATER_MAX_SEQ = 8192
+# (c): each later converter type's published config (the repo named in
+# each comment) at full width, cut to 2 layers for phase 4's card-vs-host
+# check: its per-layer keys keep one layer of each kind, and every window
+# is cut to XCHECK_WINDOW so that the check's prompts (<= 68 positions)
+# pass it
+XCHECK_WINDOW = 24
+LATER_XCHECK = {
+    # EleutherAI/gpt-neo-2.7B
+    "gpt_neo": {"model_type": "gpt_neo", "hidden_size": 2560,
+                "num_layers": 2, "num_heads": 20, "window_size": 256,
+                "attention_types": [[["global", "local"], 1]],
+                "vocab_size": 50257, "max_position_embeddings": 2048,
+                "activation_function": "gelu_new",
+                "layer_norm_epsilon": 1e-05},
+    # google/gemma-2-9b
+    "gemma2": dict(GEMMA2_9B, num_hidden_layers=2),
+    # CohereForAI/c4ai-command-r-plus (use_qk_norm: per-head layernorms)
+    "cohere": {"model_type": "cohere", "hidden_size": 12288,
+               "intermediate_size": 33792, "num_attention_heads": 96,
+               "num_key_value_heads": 8, "num_hidden_layers": 2,
+               "vocab_size": 256000, "logit_scale": 0.8333333333333334,
+               "use_qk_norm": True, "layer_norm_eps": 1e-05,
+               "rope_theta": 75000000.0, "max_position_embeddings": 131072},
+    # Qwen/Qwen3-8B
+    "qwen3": dict(QWEN3_8B, num_hidden_layers=2),
+    # ibm-granite/granite-3.1-8b-instruct
+    "granite": {"model_type": "granite", "hidden_size": 4096,
+                "intermediate_size": 12800, "num_attention_heads": 32,
+                "num_key_value_heads": 8, "num_hidden_layers": 2,
+                "vocab_size": 49155, "embedding_multiplier": 12.0,
+                "attention_multiplier": 0.0078125,
+                "residual_multiplier": 0.22, "logits_scaling": 16.0,
+                "rope_theta": 10000000.0, "rms_norm_eps": 1e-05,
+                "max_position_embeddings": 131072,
+                "tie_word_embeddings": True},
+    # allenai/OLMo-2-1124-7B
+    "olmo2": {"model_type": "olmo2", "hidden_size": 4096,
+              "intermediate_size": 11008, "num_attention_heads": 32,
+              "num_key_value_heads": 32, "num_hidden_layers": 2,
+              "vocab_size": 100352, "rms_norm_eps": 1e-06,
+              "rope_theta": 500000, "max_position_embeddings": 4096},
+    # THUDM/GLM-4-9B-0414
+    "glm4": {"model_type": "glm4", "hidden_size": 4096,
+             "intermediate_size": 13696, "num_attention_heads": 32,
+             "num_key_value_heads": 2, "num_hidden_layers": 2,
+             "head_dim": 128, "partial_rotary_factor": 0.5,
+             "vocab_size": 151552, "rms_norm_eps": 1e-05,
+             "max_position_embeddings": 32768, "attention_bias": True},
+    # nvidia/Nemotron-Mini-4B-Instruct
+    "nemotron": {"model_type": "nemotron", "hidden_size": 3072,
+                 "intermediate_size": 9216, "num_attention_heads": 24,
+                 "num_key_value_heads": 8, "num_hidden_layers": 2,
+                 "head_dim": 128, "vocab_size": 256000,
+                 "partial_rotary_factor": 0.5, "norm_eps": 1e-05,
+                 "max_position_embeddings": 4096, "hidden_act": "relu2"},
+    # HuggingFaceTB/SmolLM3-3B (its 4th layer NoPE: the cut keeps one)
+    "smollm3": {"model_type": "smollm3", "hidden_size": 2048,
+                "intermediate_size": 11008, "num_attention_heads": 16,
+                "num_key_value_heads": 4, "num_hidden_layers": 2,
+                "no_rope_layers": [1, 0], "vocab_size": 128256,
+                "rope_theta": 5000000.0, "rms_norm_eps": 1e-06,
+                "max_position_embeddings": 65536,
+                "tie_word_embeddings": True},
+    # tencent/Hunyuan-7B-Instruct
+    "hunyuan_v1_dense": {"model_type": "hunyuan_v1_dense",
+                         "hidden_size": 4096, "intermediate_size": 14336,
+                         "num_attention_heads": 32,
+                         "num_key_value_heads": 8, "num_hidden_layers": 2,
+                         "head_dim": 128, "vocab_size": 128167,
+                         "rms_norm_eps": 1e-05,
+                         "max_position_embeddings": 32768,
+                         "tie_word_embeddings": True},
+    # LGAI-EXAONE/EXAONE-4.0-32B (sliding then global layers)
+    "exaone4": {"model_type": "exaone4", "hidden_size": 5120,
+                "intermediate_size": 27392, "num_attention_heads": 40,
+                "num_key_value_heads": 8, "num_hidden_layers": 2,
+                "head_dim": 128, "vocab_size": 102400,
+                "sliding_window": 4096,
+                "layer_types": ["sliding_attention", "full_attention"],
+                "rms_norm_eps": 1e-05, "max_position_embeddings": 131072},
+}
+
+
+def _later_tensors(conf):
+    """(HF key, shape, kind) of every tensor of a gemma2 or qwen3
+    checkpoint (``_hf_tensors``' kinds; gemma-2's (1 + w) norms are drawn
+    as "w", near 0 as the published ones)."""
+    D, I, V = conf["hidden_size"], conf["intermediate_size"], \
+        conf["vocab_size"]
+    H, KV, hd = (conf["num_attention_heads"], conf["num_key_value_heads"],
+                 conf["head_dim"])
+    gemma = conf["model_type"] == "gemma2"
+    norm = "w" if gemma else "norm"
+    out = [("model.embed_tokens.weight", (V, D), "w")]
+    for i in range(conf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", (D,), norm),
+                (p + "self_attn.q_proj.weight", (H * hd, D), "w"),
+                (p + "self_attn.k_proj.weight", (KV * hd, D), "w"),
+                (p + "self_attn.v_proj.weight", (KV * hd, D), "w"),
+                (p + "self_attn.o_proj.weight", (D, H * hd), "w")]
+        if gemma:
+            out += [(p + n + ".weight", (D,), norm) for n in (
+                "post_attention_layernorm", "pre_feedforward_layernorm",
+                "post_feedforward_layernorm")]
+        else:
+            out += [(p + "self_attn.q_norm.weight", (hd,), norm),
+                    (p + "self_attn.k_norm.weight", (hd,), norm),
+                    (p + "post_attention_layernorm.weight", (D,), norm)]
+        out += [(p + "mlp.gate_proj.weight", (I, D), "w"),
+                (p + "mlp.up_proj.weight", (I, D), "w"),
+                (p + "mlp.down_proj.weight", (D, I), "w")]
+    out.append(("model.norm.weight", (D,), norm))
+    if not gemma:
+        out.append(("lm_head.weight", (V, D), "w"))
+    return out
+
+
+_GEMMA2_NORMS = {"input_layernorm": "attn_norm",
+                 "post_attention_layernorm": "attn_post_norm",
+                 "pre_feedforward_layernorm": "mlp_norm",
+                 "post_feedforward_layernorm": "mlp_post_norm"}
+
+
+def _later_names(conf, key, t):
+    """``_port_names`` for gemma2 and qwen3, by this script's own reading
+    of their layouts: gemma-2's (1 + w) norms stored as 1 + w (f32, one
+    rounding), its q not scaled (query_pre_attn_scalar = head_dim); qwen3
+    the llama layout with q_norm / k_norm as they are."""
+    import torch
+    if conf["model_type"] == "gemma2" and "norm" in key:
+        plus1 = (t.float() + 1.0).to(torch.bfloat16)
+        if key == "model.norm.weight":
+            return [("final_norm.scale", plus1)]
+        i, rest = key.split(".")[2], key.split(".", 3)[3]
+        return [(f"layers.{i}.{_GEMMA2_NORMS[rest[:-len('.weight')]]}.scale",
+                 plus1)]
+    if ".self_attn.q_norm." in key or ".self_attn.k_norm." in key:
+        i, n = key.split(".")[2], key.split(".")[4][0]
+        return [(f"layers.{i}.{n}_norm.scale", t)]
+    return _port_names(dict(conf, model_type="llama"), key, t)
+
+
+def _hidden(torch, model, tokens):
+    """``model``'s final hidden states [1, S, D] for ``tokens`` [1, S]
+    (its prefill with the head left out)."""
+    from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
+    cache = init_cache(model.cfg, 1, tokens.shape[1], device="cuda")
+    lens = torch.tensor([tokens.shape[1]], dtype=torch.int32, device="cuda")
+    model.unembed = lambda x: x       # this instance only
+    try:
+        with torch.inference_mode():
+            h, _ = model.prefill(tokens, lens, cache)
+    finally:
+        del model.unembed
+    return h
+
+
+def _later_depth(torch, kernels, cfg, params, lens):
+    """Phase 6's prefill check at full depth, one prompt at a time (the
+    longest past the window): the bf16 attention through the tensor-core
+    kernel ("kernel") and through ``flash_attention_ref`` on the card
+    ("plain"), each against the same weights in f32; the logits compared
+    in chunks of rows, the head run on the final hidden states (a
+    256000-row head over 4500 rows is 4.6 GB of f32 logits). The
+    kernel's worst error must stay within ROUTE_ERR_FACTOR x the plain
+    route's."""
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_llm_inferencing_tpu_torch.ops import attention as ta
+    from distributed_llm_inferencing_tpu_torch.ops import flash_attention as fa
+    import numpy as np
+    L = cfg.num_layers
+    m16 = Transformer(cfg, params)
+    m32 = Transformer(cfg.replace(dtype="float32"),
+                      {k: t.float() for k, t in params.items()})
+    rng = np.random.default_rng(16)
+    out = {"prompt_tokens": list(lens), "kernel": [], "plain": []}
+    for n in lens:
+        tokens = torch.tensor(rng.integers(1, cfg.vocab_size, n),
+                              device="cuda")[None]
+        zero_counts(kernels)
+        h32 = _hidden(torch, m32, tokens)
+        hs = {}
+        for route in ("kernel", "plain"):
+            kernel = ta.flash_attention
+            if route == "plain":
+                ta.flash_attention = fa.flash_attention_ref
+            try:
+                hs[route] = _hidden(torch, m16, tokens)
+            finally:
+                ta.flash_attention = kernel
+        n_fa = read_counts(kernels)
+        # f32 on the CUDA-core form, bf16 on the tensor cores, plain: none
+        assert (n_fa["flash_attention"], n_fa["flash_attention[mma]"]) == \
+            (2 * L, L), n_fa
+        for route, h in hs.items():
+            worst = 0.0
+            with torch.inference_mode():
+                for a in range(0, n, 512):
+                    ref = m32.unembed(h32[:, a:a + 512])
+                    lg = m16.unembed(h[:, a:a + 512])
+                    assert torch.isfinite(lg).all(), f"{route}: not finite"
+                    worst = max(worst, float((lg - ref).abs().max()))
+                    del ref, lg
+            out[route].append(worst)
+        del h32, hs
+    del m16, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst_k, worst_p = max(out["kernel"]), max(out["plain"])
+    out.update(worst_kernel=worst_k, worst_plain=worst_p,
+               factor=worst_k / worst_p)
+    log(f"  {cfg.name} full-depth prefill, bf16 vs f32", json.dumps(out))
+    assert worst_k <= ROUTE_ERR_FACTOR * worst_p, \
+        f"{cfg.name}: tensor-core prefill off f32 by {worst_k}, over " \
+        f"{ROUTE_ERR_FACTOR} x the plain route's {worst_p}"
+    return out
+
+
+def _later_serving(torch, worker, kernels, root, conf, smi, total):
+    """One seeded HF directory of ``conf`` (written by phase 15's writer)
+    through the worker, bf16, max_seq LATER_MAX_SEQ: engine mode with
+    LATER_REQUESTS and batched mode on the paged route with phase 5's
+    bodies plus the LONG_PROMPT one, each with graphs on and off (equal
+    tokens and exact counts: one flash_attention[mma] per layer per
+    request, one flash_decode per layer per step, one paged_flash_decode
+    per layer per pass, no fused_decode_step: its gate refuses these
+    switches; one profiled replay per captured program); every param
+    bitwise equal to the tensor written; the tokens equal to an
+    in-process engine's and batcher's on the written tensors; the
+    directory deleted before the next is written. Then the full-depth
+    prefill check (``_later_depth``)."""
+    import shutil
+
+    from distributed_llm_inferencing_tpu_torch.models.convert import (
+        config_from_hf)
+    mt = conf["model_type"]
+    path = os.path.join(root, mt)
+    expected, nbytes, write_s = write_checkpoint(
+        torch, path, conf, INGEST_SEED + 2, tensors=_later_tensors,
+        names=_later_names)
+    name = f"{mt}-ckpt"
+    cfg = config_from_hf(conf, name=path).replace(name=name)
+    log(f"  wrote {path}: {nbytes / 1e9:.3f} GB, {cfg.num_layers} layers, "
+        f"in {write_s:.1f} s")
+    row = {"layers": cfg.num_layers, "file_bytes": nbytes,
+           "write_s": write_s, "attn_windows": cfg.attn_windows,
+           "sliding_window": cfg.sliding_window,
+           "attn_softcap": cfg.attn_softcap,
+           "logit_softcap": cfg.logit_softcap, "qk_norm": cfg.qk_norm}
+    body = {"model_name": name, "checkpoint_path": path,
+            "max_seq": LATER_MAX_SEQ}
+    row["engine"] = _graphs_engine(
+        torch, worker, kernels, cfg, None, load=body,
+        requests=LATER_REQUESTS,
+        check=lambda lm: _bitwise(torch, lm.engine.params, expected))
+    for n in row["engine"]["launches_per_request"]:
+        _add(total, {k: 2 * v for k, v in n.items()})   # graphs on, off
+    load = dict(BATCHED_LOAD, **body)
+    load.pop("allow_random_init")
+    base = _worker_base(worker)
+
+    def check(lm):
+        toks, launches = _greedy_batched(base, worker, kernels, cfg, name,
+                                         "paged")
+        _add(total, launches)
+        return {"bitwise": _bitwise(torch, lm.batcher.params, expected),
+                "greedy": toks}
+    runs = {on: _graphs_wave(torch, worker, kernels, cfg, "paged", None, on,
+                             LATER_LENS, load=load,
+                             check=check if on else None)
+            for on in (True, False)}
+    on, off = runs[True], runs[False]
+    assert on["tokens"] == off["tokens"], f"{mt}: graphs on/off tokens differ"
+    assert on["weight_passes"] == off["weight_passes"] \
+        and on["launches"] == off["launches"], (on["launches"],
+                                                off["launches"])
+    for r in (on, off):
+        _add(total, r["launches"])
+    assert on["launches"]["fused_decode_step"] == 0
+    row["batched"] = {mode: {k: v for k, v in r.items() if k != "tokens"}
+                      for mode, r in (("on", on), ("off", off))}
+    shutil.rmtree(path)
+    ref = _reference_tokens(torch, cfg, expected, ("paged",),
+                            max_seq=LATER_MAX_SEQ, requests=LATER_REQUESTS)
+    assert ref["engine"] == row["engine"]["tokens"], \
+        (mt, ref["engine"], row["engine"]["tokens"])
+    assert ref["paged"] == on["check"]["greedy"], (mt, ref["paged"])
+    row["depth"] = _later_depth(torch, kernels, cfg, expected,
+                                (250, LONG_PROMPT))
+    del expected
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing = {"engine_ms_per_decode_step": row["engine"]["ms_per_decode_step"],
+              "engine_prefill_ms": row["engine"]["prefill_ms"],
+              "batched_ms_per_weight_pass": {
+                  mode: row["batched"][mode]["decode_chunk_ms_per_weight_pass"]
+                  for mode in ("on", "off")},
+              "batched_tokens_per_s": {
+                  mode: row["batched"][mode]["tokens_per_s"]
+                  for mode in ("on", "off")}}
+    row["timing"] = timing
+    log(f"  {mt} bf16 through the worker [{smi}]", json.dumps(timing))
+    return row
+
+
+def _later_xcheck_cfg(mt):
+    """LATER_XCHECK's config of ``mt`` (2 layers), every window cut to
+    XCHECK_WINDOW."""
+    from distributed_llm_inferencing_tpu_torch.models.convert import (
+        config_from_hf)
+    cfg = config_from_hf(LATER_XCHECK[mt], name=f"{mt}-xcheck")
+    cut = {}
+    if cfg.sliding_window is not None:
+        cut["sliding_window"] = XCHECK_WINDOW
+    if cfg.attn_windows is not None:
+        cut["attn_windows"] = tuple(None if w is None else XCHECK_WINDOW
+                                    for w in cfg.attn_windows)
+    return cfg.replace(**cut), cut
+
+
+def phase_later(torch, fa, qm, kernels, smi):
+    """Phase 16: the dense switches of the later families. (a) a
+    gemma-2-9b-shaped HF directory at full width and depth and (b) a
+    Qwen3-8B-shaped one at full width, QWEN3_LAYERS layers, through the
+    worker (``_later_serving``); (c) phase 4's card-vs-host check of
+    each later converter type at full width, 2 layers (LATER_XCHECK).
+    Returns the report, launches included; prints its wall time."""
+    import shutil
+    import tempfile
+
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    t0 = time.perf_counter()
+    report = {"smi": smi, "cross_check": {}}
+    total = {k: 0 for k in kernels}
+    root = tempfile.mkdtemp(prefix="dli-later-")
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    try:
+        zero_counts(kernels)
+        report["gemma-2-9b"] = _later_serving(torch, worker, kernels, root,
+                                              GEMMA2_9B, smi, total)
+        report["gemma2_launches"] = dict(total)
+        log(f"  Qwen3-8B shape: DEPTH CUT to {QWEN3_LAYERS} of 36 layers")
+        report["qwen3-8b"] = _later_serving(torch, worker, kernels, root,
+                                            QWEN3_8B, smi, total)
+    finally:
+        os.environ.pop("DLI_CUDA_GRAPHS", None)
+        os.environ.pop("DLI_FUSED_DECODE", None)
+        worker.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    for mt in LATER_XCHECK:
+        cfg, cut = _later_xcheck_cfg(mt)
+        if cut:
+            log(f"  {mt}: WINDOW CUT to {XCHECK_WINDOW} for the 2-layer "
+                f"check ({cut})")
+        t1 = time.perf_counter()
+        errs = phase_cross_check(torch, fa, qm, None, mt, ("paged",),
+                                 cfg=cfg)
+        errs["seconds"] = time.perf_counter() - t1
+        report["cross_check"][mt] = errs
+    report["launches"] = total
+    report["seconds"] = time.perf_counter() - t0
+    log(f"  phase 16 wall time {report['seconds']:.1f} s [{smi}]")
+    return report
+
+
 def timed_rows(torch):
     """Phase 2's timed rows alone (every kernel at its serving shapes,
     with its bound, plain and library times), for comparing two trees'
@@ -3464,6 +4054,10 @@ def main() -> int:
         if n is not None:
             log(f"phase {n}: {text}")
 
+    if sys.argv[1:2] == ["--digests"]:   # the attention kernels' bits only
+        build.build_all(["flash_attention", "paged_attention"])
+        log("  digests", json.dumps(uncapped_digests(torch)))
+        return 0
     mark(1, "build")
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -3484,6 +4078,10 @@ def main() -> int:
     mark(2, "kernels against their plain versions")
     pre, dec = phase_kernels(torch, fa)
     paged, fused, fused_q = phase_paged_kernels(torch, pa, fd)
+    cap_pre, cap_dec, cap_paged = phase_softcap_kernels(torch, fa, pa)
+    digests = uncapped_digests(torch)
+    assert digests == UNCAPPED_DIGESTS, \
+        f"uncapped kernels changed their bits: {digests}"
     plans = {f"{str(dt).replace('torch.', '')}/{form}": fd.kernel_plan(
         dt, form, 4096, 32, 8, 128, 256)
         for dt in (torch.bfloat16, torch.float32)
@@ -3588,6 +4186,16 @@ def main() -> int:
         assert ingestion["launches"][name] > 0, \
             f"{name} never launched on the ingestion path"
 
+    mark(16, "the dense switches: (a) a gemma-2-9b-shaped HF directory "
+        "at full depth and (b) a Qwen3-8B-shaped one through the worker, "
+        "graphs on and off; (c) each later converter type's card-vs-host "
+        "check, 2 layers")
+    later = phase_later(torch, fa, qm, counted, smi)
+    for name in ("flash_attention", "flash_decode", "paged_flash_decode"):
+        assert later["gemma2_launches"][name] > 0, \
+            f"{name}'s softcap arm never launched on gemma-2's path"
+    assert later["launches"]["fused_decode_step"] == 0, later["launches"]
+
     mark(None)
     log("  wall time by phase (s):", json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
@@ -3650,6 +4258,21 @@ def main() -> int:
             entry["per_weight_pass_b1"] = q4_pass[1]
         if name == "q4_matmul_row":
             entry["per_weight_pass_b8_per_rank"] = row_pass
+        # phase 16's later families; the softcap arm's timed rows at
+        # gemma-2-9b's shapes beside the uncapped arm (SDPA: no cap)
+        entry["later_launches"] = later["launches"].get(name, 0) \
+            if "[" not in name else 0
+        cap_rows = {"flash_attention": cap_pre, "flash_decode": cap_dec,
+                    "paged_flash_decode": cap_paged}.get(name)
+        if cap_rows is not None:
+            entry["softcap"] = {
+                "launches": later["gemma2_launches"][name],
+                "timed": [{k: r[k] for k in (
+                    "case", "ms", "uncapped_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err") if k in r}
+                    for r in cap_rows if "ms" in r],
+                "checks": [{k: r[k] for k in ("case", "max_abs_err", "ok")}
+                           for r in cap_rows]}
         kernels.append(entry)
     report = {"smi": smi, "kernels": kernels, "requests": rows,
               "peak_memory_bytes": peak, "cross_check_max_abs_err": xerr,
@@ -3660,6 +4283,7 @@ def main() -> int:
               "tp_cross_check_max_abs_err": tp_xerr, "tp_depth": tp_depth,
               "control_surface": control, "graphs": graphs_report,
               "families": families, "ingestion": ingestion,
+              "later": later, "uncapped_digests": digests,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(HERE, "chiprun_out")

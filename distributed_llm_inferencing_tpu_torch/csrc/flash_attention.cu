@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels of the JAX package:
 //   - prefill_kernel <- ops/pallas/flash_attention.py flash_attention
 //     (kernel _prefill_kernel): causal attention over the fresh block,
-//     positions 0..S-1, optional static window and per-head ALiBi.
+//     positions 0..S-1, optional static window, per-head ALiBi and score
+//     softcap.
 //   - decode_split_kernel + decode_combine_kernel <-
 //     ops/pallas/flash_attention.py flash_decode (kernel _decode_kernel):
 //     one query token per row against the dense cache, query at
@@ -50,7 +51,12 @@
 //     fixed-order log-sum-exp merge writes q's dtype.
 //
 // Masking and numerics follow the Pallas kernels: scores in f32, scaled,
-// then ALiBi slope*(kv - q), then the causal/window mask; online softmax
+// then the softcap cap * tanh(s / cap) where one is given (the JAX
+// package's XLA formulation: its Pallas kernels have no cap; here each
+// kernel has a cap arm, a uniform branch on softcap > 0 that leaves the
+// uncapped arithmetic and bits as they were; tanhf, applied to the
+// scaled score before any log2e folding), then ALiBi slope*(kv - q),
+// then the causal/window mask; online softmax
 // with a running max; rows whose denominator is 0 (no admissible key)
 // write 0. The tensor-core form rounds P to bf16 before P.V (its
 // denominator sums the f32 values), as FlashAttention-2 does. Inputs are
@@ -94,7 +100,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                long long k_sb, long long k_ss, long long k_sh,
                long long v_sb, long long v_ss, long long v_sh,
                long long o_sb, long long o_ss, long long o_sh, float scale,
-               int window) {
+               int window, float softcap) {
   constexpr int BQ = kPrefillBQ;
   constexpr int BKV = kPrefillBKV;
   constexpr int PP = BKV + 1;            // probability row pitch
@@ -115,6 +121,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float slope = slopes != nullptr ? slopes[h] : 0.f;
+  const float cap_in = softcap > 0.f ? 1.f / softcap : 0.f;
 
   load_tile(Qs, qp, q + b * q_sb + q0 * q_ss + h * q_sh, q_ss, BQ,
             min(BQ, S - q0), hd);
@@ -172,6 +179,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int kj = kv0 + sc + 8 * j;
         float val = s[i][j] * scale;
+        if (softcap > 0.f) val = tanhf(val * cap_in) * softcap;
         if (slopes != nullptr) val += slope * (float)(kj - qi);
         const bool ok = kj <= qi && (window <= 0 || qi - kj < window);
         Ps[(sr + i) * PP + sc + 8 * j] = ok ? val : -INFINITY;
@@ -252,7 +260,8 @@ template <typename T, int HDMAX>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            void* out, const void* slopes, int B, int S,
                            int H, int Hkv, int hd, const long long* st,
-                           float scale, int window, cudaStream_t stream) {
+                           float scale, int window, float softcap,
+                           cudaStream_t stream) {
   auto kern = prefill_kernel<T, HDMAX>;
   const size_t smem = prefill_smem_bytes(hd);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
@@ -265,7 +274,7 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<const float*>(slopes), S, H, Hkv, hd, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
-      window);
+      window, softcap);
   return cudaGetLastError();
 }
 
@@ -273,15 +282,16 @@ template <typename T>
 cudaError_t dispatch_prefill(const void* q, const void* k, const void* v,
                              void* out, const void* slopes, int B, int S,
                              int H, int Hkv, int hd, const long long* st,
-                             float scale, int window, cudaStream_t stream) {
+                             float scale, int window, float softcap,
+                             cudaStream_t stream) {
   if (hd <= 64)
     return launch_prefill<T, 64>(q, k, v, out, slopes, B, S, H, Hkv, hd, st,
-                                 scale, window, stream);
+                                 scale, window, softcap, stream);
   if (hd <= 128)
     return launch_prefill<T, 128>(q, k, v, out, slopes, B, S, H, Hkv, hd,
-                                  st, scale, window, stream);
+                                  st, scale, window, softcap, stream);
   return launch_prefill<T, 256>(q, k, v, out, slopes, B, S, H, Hkv, hd, st,
-                                scale, window, stream);
+                                scale, window, softcap, stream);
 }
 
 // ---------------------------------------------------------------------
@@ -355,7 +365,7 @@ prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    long long k_sb, long long k_ss, long long k_sh,
                    long long v_sb, long long v_ss, long long v_sh,
                    long long o_sb, long long o_ss, long long o_sh,
-                   float scale_log2, int window) {
+                   float scale_log2, int window, float scale, float softcap) {
   constexpr int BQ = kMmaBQ, BKV = MmaTile<HD>::BKV, P = MmaTile<HD>::P;
   constexpr int KS = HD / 16;    // k-steps of Q.K^T
   constexpr int NT = BKV / 8;    // 8-key column tiles of S
@@ -378,6 +388,7 @@ prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, tq = lane & 3;   // fragment row / column pair
   const float slope = slopes != nullptr ? slopes[h] * dli::kLog2e : 0.f;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
   const bf16* kb = k + b * k_sb + kvh * k_sh;
   const bf16* vb = v + b * v_sb + kvh * v_sh;
   // this lane's ldmatrix row addresses: Q/V fragments take rows
@@ -454,10 +465,24 @@ prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // to the log2 domain: x = s * sc, with sc = scale * log2e folded into
     // the exponent below; with ALiBi x = s * scale * log2e + slope * log2e
-    // * (kv - q) here and sc = 1. The mask only on the diagonal tile and
-    // the window's edge tiles.
+    // * (kv - q) here and sc = 1; with a softcap (its own arm) x = cap *
+    // tanh(s * (scale / cap)) * log2e (+ the ALiBi term) here and sc = 1.
+    // The mask only on the diagonal tile and the window's edge tiles.
     float sc = scale_log2;
-    if (slopes != nullptr) {
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = kv0 + j * 8 + tq * 2 + (e & 1);
+          const int qi = row0 + (e >> 1) * 8;
+          const float c = tanhf(s[j][e] * cap_in) * softcap;
+          s[j][e] = slopes != nullptr
+                        ? fmaf(c, dli::kLog2e, slope * (float)(kj - qi))
+                        : c * dli::kLog2e;
+        }
+      sc = 1.f;
+    } else if (slopes != nullptr) {
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -563,7 +588,8 @@ template <int HD>
 cudaError_t launch_prefill_mma(const void* q, const void* k, const void* v,
                                void* out, const void* slopes, int B, int S,
                                int H, int Hkv, const long long* st,
-                               float scale, int window, cudaStream_t stream) {
+                               float scale, int window, float softcap,
+                               cudaStream_t stream) {
   auto kern = prefill_mma_kernel<HD>;
   const size_t smem = MmaTile<HD>::smem;
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
@@ -578,19 +604,19 @@ cudaError_t launch_prefill_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<const float*>(slopes), B, S, H, Hkv, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      scale * dli::kLog2e, window);
+      scale * dli::kLog2e, window, scale, softcap);
   return cudaGetLastError();
 }
 
 #define DLI_PREFILL_MMA_CASE(HD)                                           \
   case HD:                                                                 \
     return launch_prefill_mma<HD>(q, k, v, out, slopes, B, S, H, Hkv, st,  \
-                                  scale, window, stream);
+                                  scale, window, softcap, stream);
 
 cudaError_t dispatch_prefill_mma(const void* q, const void* k, const void* v,
                                  void* out, const void* slopes, int B, int S,
                                  int H, int Hkv, int hd, const long long* st,
-                                 float scale, int window,
+                                 float scale, int window, float softcap,
                                  cudaStream_t stream) {
   switch (hd) {
     DLI_PREFILL_MMA_CASE(16)
@@ -634,10 +660,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ slopes, int H, int Hkv, int hd,
                     int split, int NS, long long q_sb, long long q_sh,
                     PoolStrides ks, PoolStrides vs, float scale_log2,
-                    int window) {
+                    int window, float scale, float softcap) {
   dli::split_attend<T, LPK, CPL, false>(
       q, k, v, part, nullptr, lengths, slopes, H, Hkv, hd, 1, split, NS,
-      q_sb, q_sh, 0, ks, vs, scale_log2, window);
+      q_sb, q_sh, 0, ks, vs, scale_log2, window, scale, softcap);
 }
 
 // grid B*H
@@ -656,7 +682,8 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           void* out, const void* lengths, const void* slopes,
                           void* part, int B, int H, int Hkv, int hd,
                           int split, int NS, const long long* st,
-                          float scale, int window, cudaStream_t stream) {
+                          float scale, int window, float softcap,
+                          cudaStream_t stream) {
   auto kern = decode_split_kernel<T, LPK, CPL>;
   const size_t smem = dli::split_smem_bytes<T, LPK, CPL, false>(hd, split);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
@@ -670,7 +697,8 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<float*>(part),
       static_cast<const int*>(lengths), static_cast<const float*>(slopes), H,
       Hkv, hd, split, NS, st[0], st[1], PoolStrides{st[2], st[3], st[4]},
-      PoolStrides{st[5], st[6], st[7]}, scale * dli::kLog2e, window);
+      PoolStrides{st[5], st[6], st[7]}, scale * dli::kLog2e, window, scale,
+      softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<T><<<B * H, 32 * kCombineWarps, 0, stream>>>(
@@ -689,11 +717,11 @@ cudaError_t dispatch_decode(int chunks, const void* q, const void* k,
                             const void* slopes, void* part, int B, int H,
                             int Hkv, int hd, int split, int NS,
                             const long long* st, float scale, int window,
-                            cudaStream_t stream) {
+                            float softcap, cudaStream_t stream) {
 #define DLI_DECODE_LAUNCH(LPK, CPL)                                        \
   return launch_decode<T, LPK, CPL>(q, k, v, out, lengths, slopes, part, B, \
                                     H, Hkv, hd, split, NS, st, scale,       \
-                                    window, stream)
+                                    window, softcap, stream)
   if (chunks <= 2) DLI_DECODE_LAUNCH(2, 1);
   if (chunks <= 4) DLI_DECODE_LAUNCH(4, 1);
   if (chunks <= 8) DLI_DECODE_LAUNCH(8, 1);
@@ -709,22 +737,24 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides (elements): q b/s/h, k b/s/h,
 // v b/s/h, out b/s/h. window <= 0: no window. slopes: [H] f32 or NULL.
+// softcap <= 0: no score cap, else cap * tanh(score / cap) on the scaled
+// score.
 int dli_flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* out, const void* slopes, int dtype, int B,
                             int S, int H, int Hkv, int hd,
                             const long long* strides, float scale,
-                            int window, void* stream) {
+                            int window, float softcap, void* stream) {
   if (hd % 8 != 0 || hd > 256 || hd < 8 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   if (S <= 0 || B <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_prefill<float>(q, k, v, out, slopes, B, S, H, Hkv, hd,
-                                   strides, scale, window, st);
+                                   strides, scale, window, softcap, st);
   if (dtype == 1)
     return dispatch_prefill<__nv_bfloat16>(q, k, v, out, slopes, B, S, H,
                                            Hkv, hd, strides, scale, window,
-                                           st);
+                                           softcap, st);
   return cudaErrorInvalidValue;
 }
 
@@ -734,12 +764,12 @@ int dli_flash_attention_mma_fwd(const void* q, const void* k, const void* v,
                                 void* out, const void* slopes, int B, int S,
                                 int H, int Hkv, int hd,
                                 const long long* strides, float scale,
-                                int window, void* stream) {
+                                int window, float softcap, void* stream) {
   if (hd % 16 != 0 || hd > 256 || hd < 16 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   if (S <= 0 || B <= 0) return cudaSuccess;
   return dispatch_prefill_mma(q, k, v, out, slopes, B, S, H, Hkv, hd,
-                              strides, scale, window,
+                              strides, scale, window, softcap,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -752,7 +782,8 @@ int dli_flash_decode_fwd(const void* q, const void* k, const void* v,
                          void* out, const void* lengths, const void* slopes,
                          void* part, int dtype, int B, int H, int Hkv,
                          int hd, int split, int NS, const long long* strides,
-                         float scale, int window, void* stream) {
+                         float scale, int window, float softcap,
+                         void* stream) {
   if (hd % 8 != 0 || hd > 256 || hd < 8 || H % Hkv != 0 || split < 64 ||
       split > 4096 || split % 64 != 0 || NS < 1 || NS > 65535 ||
       B > 65535 || (long long)B * H > 0x7fffffffLL)
@@ -762,11 +793,12 @@ int dli_flash_decode_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return dispatch_decode<float>(hd / 4, q, k, v, out, lengths, slopes,
                                   part, B, H, Hkv, hd, split, NS, strides,
-                                  scale, window, st);
+                                  scale, window, softcap, st);
   if (dtype == 1)
     return dispatch_decode<__nv_bfloat16>(hd / 8, q, k, v, out, lengths,
                                           slopes, part, B, H, Hkv, hd, split,
-                                          NS, strides, scale, window, st);
+                                          NS, strides, scale, window,
+                                          softcap, st);
   return cudaErrorInvalidValue;
 }
 

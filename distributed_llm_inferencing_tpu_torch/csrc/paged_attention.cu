@@ -5,7 +5,9 @@
 // _paged_decode_kernel): one query token per serving slot, q [R,1,H,hd],
 // against one layer's block pool [NB,bs,Hkv,hd] through block_tables
 // [R,MB] and context_lens [R] (fill after this token's write; the query
-// sits at context_lens - 1), with an optional static sliding window.
+// sits at context_lens - 1), with an optional static sliding window and
+// an optional score softcap (gemma2's cap * tanh(s / cap); its arm in
+// split_decode.cuh).
 //
 // What bounds it on this card, and what the design does about it: it is
 // bounded by bytes, the K/V rows of [max(0, len - window), len) of every
@@ -44,10 +46,12 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                    const int* __restrict__ context_lens, int H, int Hkv,
                    int hd, int bs, int split, int NS, long long q_sr,
                    long long q_sh, long long bt_sr, PoolStrides ks,
-                   PoolStrides vs, float scale_log2, int window) {
+                   PoolStrides vs, float scale_log2, int window,
+                   float scale, float softcap) {
   dli::split_attend<T, LPK, CPL, true>(
       q, kpool, vpool, part, block_tables, context_lens, nullptr, H, Hkv,
-      hd, bs, split, NS, q_sr, q_sh, bt_sr, ks, vs, scale_log2, window);
+      hd, bs, split, NS, q_sr, q_sh, bt_sr, ks, vs, scale_log2, window,
+      scale, softcap);
 }
 
 // grid R*H: split_decode.cuh's merge
@@ -66,7 +70,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const void* bt, const void* lens, void* part, int R,
                    int H, int Hkv, int hd, int bs, int split, int NS,
                    const long long* st, float scale, int window,
-                   cudaStream_t stream) {
+                   float softcap, cudaStream_t stream) {
   auto kern = paged_split_kernel<T, LPK, CPL>;
   const size_t smem = dli::split_smem_bytes<T, LPK, CPL, true>(hd, split);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
@@ -80,7 +84,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(v), static_cast<float*>(part),
       static_cast<const int*>(bt), static_cast<const int*>(lens), H, Hkv, hd,
       bs, split, NS, st[0], st[1], st[2], PoolStrides{st[3], st[4], st[5]},
-      PoolStrides{st[6], st[7], st[8]}, scale * dli::kLog2e, window);
+      PoolStrides{st[6], st[7], st[8]}, scale * dli::kLog2e, window, scale,
+      softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine_kernel<T><<<R * H, 32 * kCombineWarps, 0, stream>>>(
@@ -97,10 +102,11 @@ cudaError_t dispatch(int chunks, const void* q, const void* k, const void* v,
                      void* out, const void* bt, const void* lens, void* part,
                      int R, int H, int Hkv, int hd, int bs, int split, int NS,
                      const long long* st, float scale, int window,
-                     cudaStream_t stream) {
+                     float softcap, cudaStream_t stream) {
 #define DLI_SPLIT_LAUNCH(LPK, CPL)                                          \
   return launch<T, LPK, CPL>(q, k, v, out, bt, lens, part, R, H, Hkv, hd,  \
-                             bs, split, NS, st, scale, window, stream)
+                             bs, split, NS, st, scale, window, softcap,    \
+                             stream)
   if (chunks <= 2) DLI_SPLIT_LAUNCH(2, 1);
   if (chunks <= 4) DLI_SPLIT_LAUNCH(4, 1);
   if (chunks <= 8) DLI_SPLIT_LAUNCH(8, 1);
@@ -117,7 +123,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. strides (elements): q r/h, block_tables
 // r, k pool b/s/h, v pool b/s/h, out r/h. block_tables [R, MB] and
 // context_lens [R] are int32 on the device (read by the kernels; the host
-// never syncs on them). window <= 0: no window. split: keys per split (a
+// never syncs on them). window <= 0: no window. softcap <= 0: no score
+// cap, else cap * tanh(score / cap) on the scaled score. split: keys per split (a
 // multiple of 64, at most 1024); NS = ceil(MB * bs / split) splits. part:
 // R * H * NS * (hd + 2) f32 of scratch.
 int dli_paged_decode_fwd(const void* q, const void* k, const void* v,
@@ -125,7 +132,7 @@ int dli_paged_decode_fwd(const void* q, const void* k, const void* v,
                          const void* context_lens, void* part, int dtype,
                          int R, int H, int Hkv, int hd, int bs, int split,
                          int NS, const long long* strides, float scale,
-                         int window, void* stream) {
+                         int window, float softcap, void* stream) {
   if (hd % 8 != 0 || hd > 256 || hd < 8 || H % Hkv != 0 || bs < 1 ||
       split < 64 || split > 1024 || split % 64 != 0 || NS < 1 ||
       NS > 65535 || R > 65535 || (long long)R * H > 0x7fffffffLL)
@@ -135,11 +142,12 @@ int dli_paged_decode_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return dispatch<float>(hd / 4, q, k, v, out, block_tables, context_lens,
                            part, R, H, Hkv, hd, bs, split, NS, strides,
-                           scale, window, st);
+                           scale, window, softcap, st);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(hd / 8, q, k, v, out, block_tables,
                                    context_lens, part, R, H, Hkv, hd, bs,
-                                   split, NS, strides, scale, window, st);
+                                   split, NS, strides, scale, window,
+                                   softcap, st);
   return cudaErrorInvalidValue;
 }
 

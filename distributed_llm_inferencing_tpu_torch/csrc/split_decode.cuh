@@ -32,8 +32,13 @@
 //   - Scores. q stays in registers; a warp takes a set of keys, LPK lanes
 //     split one key's hd in 16-byte chunks, so each K element read from
 //     shared memory serves every head of the block, and a shuffle
-//     reduction over the LPK lanes finishes the dot. ALiBi (dense only)
-//     adds slope * (key - query position) before the mask. Each lane group
+//     reduction over the LPK lanes finishes the dot. A score softcap
+//     (gemma2: cap * tanh(s * (scale / cap)), tanhf, on the scaled score,
+//     not on its log2e multiple; the quotient made once per split) runs
+//     in an arm of its own, a uniform
+//     branch on softcap > 0, so without a cap the arithmetic and bits are
+//     those of the uncapped kernel. ALiBi (dense only) adds slope * (key -
+//     query position) after the cap and before the mask. Each lane group
 //     keeps its own online softmax (m, l, acc) over its keys; the groups
 //     merge in shared memory at the end of the split.
 //   - The merge. One block per (row, head), its warps over the splits,
@@ -133,7 +138,8 @@ struct SharedQ {
 // qsrc) against kv head kvh's keys [s0, s1), s0 < s1, of row r (dense:
 // stride r over the cache; PAGED: through bt_row, the row's block-table
 // entries). slopes: the split's ng ALiBi slopes (dense only) or nullptr.
-// smem_raw: split_smem_bytes(hd, split) bytes, 16-byte aligned, where
+// softcap > 0: cap the scores at softcap (scale: the unfolded score
+// scale it needs); 0: no cap. smem_raw: split_smem_bytes(hd, split) bytes, 16-byte aligned, where
 // s1 - s0 <= split. Run by every thread of team tm. On return (past a
 // team barrier) the NG lane groups' states lie in shared memory at the
 // returned pointer; split_merge_groups reads them.
@@ -143,7 +149,8 @@ __device__ __forceinline__ const float* split_range(
     const T* __restrict__ kpool, const T* __restrict__ vpool,
     const int* __restrict__ bt_row, const float* __restrict__ slopes, int r,
     int kvh, int ng, int hd, int bs, int split, int s0, int s1, int len,
-    PoolStrides ks, PoolStrides vs, float scale_log2) {
+    PoolStrides ks, PoolStrides vs, float scale_log2, float scale = 0.f,
+    float softcap = 0.f) {
   using C = SplitCfg<T, LPK, CPL>;
   constexpr int N = C::N, KPW = C::KPW, BKV = C::BKV, KPG = C::KPG;
   constexpr int E = C::E, NG = C::NG, GT = kSplitHeads;
@@ -185,6 +192,7 @@ __device__ __forceinline__ const float* split_range(
     }
   }
   const float qpos = (float)(len - 1);
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
   tm.sync();                               // bt_s is filled
 
   // row addresses of the tile at t0 into koff/voff[st] (threads
@@ -281,7 +289,17 @@ __device__ __forceinline__ const float* split_range(
         for (int g = 0; g < GT; ++g)
           d[g] += __shfl_xor_sync(0xffffffffu, d[g], off);
       const bool ok = t0 + j < s1;
-      if (!PAGED && slopes != nullptr) {
+      if (softcap > 0.f) {             // the cap arm
+        const float rel = (float)(t0 + j) - qpos;
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
+          const float c = tanhf(d[g] * cap_in) * softcap;
+          s[i][g] = !ok ? -INFINITY
+                        : (!PAGED && slopes != nullptr
+                               ? fmaf(c, kLog2e, sl[g] * rel)
+                               : c * kLog2e);
+        }
+      } else if (!PAGED && slopes != nullptr) {
         const float rel = (float)(t0 + j) - qpos;
 #pragma unroll
         for (int g = 0; g < GT; ++g)
@@ -387,7 +405,8 @@ __device__ __forceinline__ float split_merge_groups(const float* gm, int hd,
 // = row r, blockIdx.z = split sp); kSplitThreads threads. part: [R][H][NS]
 // (m, l) pairs, then [R][H][NS][hd] acc, all f32. Dense: ks/vs.sb is the
 // row stride of the cache, block_tables and bs unused. slopes: [H] f32
-// ALiBi slopes or nullptr.
+// ALiBi slopes or nullptr. softcap: 0, or the score cap (scale: the
+// unfolded score scale).
 template <typename T, int LPK, int CPL, bool PAGED>
 __device__ __forceinline__ void split_attend(
     const T* __restrict__ q, const T* __restrict__ kpool,
@@ -395,7 +414,8 @@ __device__ __forceinline__ void split_attend(
     const int* __restrict__ block_tables, const int* __restrict__ lens,
     const float* __restrict__ slopes, int H, int Hkv, int hd, int bs,
     int split, int NS, long long q_sr, long long q_sh, long long bt_sr,
-    PoolStrides ks, PoolStrides vs, float scale_log2, int window) {
+    PoolStrides ks, PoolStrides vs, float scale_log2, int window,
+    float scale, float softcap) {
   using C = SplitCfg<T, LPK, CPL>;
   constexpr int GT = kSplitHeads;
   const int G = H / Hkv;
@@ -427,7 +447,7 @@ __device__ __forceinline__ void split_attend(
       GlobalQ<T>{q + r * q_sr + (long long)h0 * q_sh, q_sh}, kpool, vpool,
       PAGED ? block_tables + r * bt_sr : nullptr,
       slopes != nullptr ? slopes + h0 : nullptr, r, kvh, ng, hd, bs, split,
-      s0, s1, len, ks, vs, scale_log2);
+      s0, s1, len, ks, vs, scale_log2, scale, softcap);
   for (int i = tid; i < ng * hd; i += kSplitThreads) {
     const int g = i / hd, dd = i - g * hd;
     float M, L;

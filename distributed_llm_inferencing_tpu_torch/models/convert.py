@@ -6,12 +6,14 @@ JAX function -> port function:
 - ``_qwen2_window`` (:35), ``_yarn_params`` (:54), ``_rope_scaling_params``
   (:100), ``_HF_ACT`` / ``_act_from_hf`` (:203-212) -> the same names here,
   the arithmetic copied (numpy float64, as there), so ``rope_inv_freq``
-  comes out as the same tuple of floats. ``_layer_windows_from_hf``
-  (:182) serves per-layer windows, which none of the 20 types has.
-- ``SUPPORTED_MODEL_TYPES`` (:214) -> ``SUPPORTED_MODEL_TYPES``: the 20 of
+  comes out as the same tuple of floats; ``_layer_windows_from_hf``
+  (:182) -> the same name, the per-layer windows of qwen3, smollm3 and
+  exaone4.
+- ``SUPPORTED_MODEL_TYPES`` (:214) -> ``SUPPORTED_MODEL_TYPES``: the 31 of
   its 39 types whose configs the port's model serves
   (models/transformer.py ``check_supported``); ``REFUSED_MODEL_TYPES``
-  names, for each of the other 19, the switches that still keep it out.
+  names, for each of the other 8 (experts, latent attention), the
+  switches that still keep it out.
 - ``config_from_hf`` (:225) -> ``config_from_hf``, taking the
   ``config.json`` dict. The JAX function reads attributes of a
   ``transformers`` config object, whose class has already filled every
@@ -20,15 +22,23 @@ JAX function -> port function:
   ``__init__``. ``hf_view`` does the same from data: ``HF_DEFAULTS`` holds,
   per type, the class default of every key ``config_from_hf`` reads
   (transformers 4.57.6's config classes), ``HF_ALIASES`` the attribute
-  maps, and ``_derive`` the ``__init__`` rules that touch those keys. The
-  branches then read the view as the JAX branches read the object.
+  maps, and ``_derive`` the ``__init__`` rules that touch those keys
+  (layer types, NoPE layers, GPT-Neo's attention layers, ...). The
+  branches then read the view as the JAX branches read the object: the
+  JAX lines of the later types are gpt_neo :665, gemma2 :704, cohere
+  :756, qwen3 :788, smollm3 :858, hunyuan_v1_dense :887, exaone4 :911,
+  granite :1226, olmo2 :1262, glm4 :1287, nemotron :1319.
 - ``convert_state_dict`` (:1363) -> ``convert_state_dict``, the branches the
   20 types reach: gpt2 :1372, opt :1399, llama :1435 (llama, mistral,
   qwen2, gemma, ernie4_5), gpt-neox :1710, phi :1749, falcon :1777, bloom
   :1836, gptj :1881, mpt :1910, gpt_bigcode :1956, stablelm :2003,
-  codegen :2034, starcoder2 :2074, olmo :2104, phi3 :2136, glm :2312. The
-  output is the port's flat dict (models/params.py): ``[din, dout]``
-  weights, the layer axis unrolled.
+  codegen :2034, starcoder2 :2074, olmo :2104, phi3 :2136, gpt_neo :2164,
+  gemma2 :2200, cohere :2240, olmo2 :2278 (olmo2, exaone4), glm :2312
+  (glm, glm4), nemotron :2351; qwen3, smollm3, hunyuan_v1_dense and
+  granite take the llama branch. The output is the port's flat dict
+  (models/params.py): ``[din, dout]`` weights, the layer axis unrolled;
+  the JAX tree's int32 ``attn_window`` / ``rope_on`` leaves are the
+  config's ``attn_windows`` / ``rope_layers`` here (no tensors).
 - ``load_hf_model`` (:2429) -> ``load_hf_model(path, dtype, device,
   shard)``: a local directory only (the JAX package's opt-in hub download
   is not ported); the files are read by models/hf_files.py, never through
@@ -40,7 +50,9 @@ slices, transposes and absorbs in f32, and casts once to the target dtype.
 Here each tensor is copied to the device in its file dtype and cast once at
 the end; the only arithmetic (gemma's ``(1 + w)`` norms, the llama
 branch's ``+ 0.0`` on the others' norms, which turns -0.0 into +0.0 as it
-does there, and a ``query_pre_attn_scalar`` fold) runs in f32 first. A
+does there, nemotron's LayerNorm1P ``(1 + w)``, and the
+``query_pre_attn_scalar`` / GPT-Neo score folds into q) runs in f32
+first. A
 slice or transpose commutes with the one rounding, so the bits are those
 of the JAX path.
 
@@ -75,35 +87,23 @@ from distributed_llm_inferencing_tpu_torch.utils.device import (
 SUPPORTED_MODEL_TYPES = (
     "gpt2", "opt", "llama", "mistral", "qwen2", "gemma", "gpt_neox", "phi",
     "falcon", "bloom", "gptj", "mpt", "gpt_bigcode", "stablelm", "codegen",
-    "starcoder2", "olmo", "phi3", "glm", "ernie4_5")
+    "starcoder2", "olmo", "phi3", "glm", "ernie4_5", "gpt_neo", "gemma2",
+    "cohere", "qwen3", "granite", "olmo2", "glm4", "nemotron", "smollm3",
+    "hunyuan_v1_dense", "exaone4")
 
 # the JAX converter's other types -> (the switches their configs turn on
 # that the port's model does not serve yet, the ROADMAP Queue A item
 # that brings them)
 REFUSED_MODEL_TYPES = {
     "mixtral": ("num_experts", "A4 experts"),
-    "gpt_neo": ("attn_windows", "3.2"),
-    "gemma2": ("attn_windows, attn_softcap, logit_softcap, "
-               "post_block_norms", "3.2 and 3.4"),
-    "cohere": ("logit_scale", "3.3"),
-    "qwen3": ("qk_norm", "3.1"),
-    "qwen3_moe": ("qk_norm, num_experts", "3.1 and A4 experts"),
-    "granite": ("logit_scale, residual_scale", "3.3"),
-    "olmo2": ("qk_norm, sublayer_postnorm_only", "3.1 and 3.5"),
-    "glm4": ("post_block_norms", "3.4"),
-    "nemotron": ("activation='relu2'", "3.6"),
+    "qwen3_moe": ("num_experts", "A4 experts"),
     "deepseek_v3": ("kv_lora_rank, q_lora_rank, num_experts, "
                     "dense_prefix_layers", "A4 experts and MLA"),
-    "smollm3": ("rope_layers", "3.5"),
-    "hunyuan_v1_dense": ("qk_norm", "3.1"),
-    "exaone4": ("attn_windows, qk_norm, sublayer_postnorm_only, "
-                "rope_layers", "3.1, 3.2 and 3.5"),
     "dbrx": ("num_experts", "A4 experts"),
     "glm4_moe": ("num_experts, dense_prefix_layers", "A4 experts"),
     "ernie4_5_moe": ("num_experts, dense_prefix_layers", "A4 experts"),
-    "gpt_oss": ("attn_windows, num_experts, attn_sinks",
-                "3.2 and A4 experts"),
-    "hunyuan_v1_moe": ("qk_norm, num_experts", "3.1 and A4 experts"),
+    "gpt_oss": ("num_experts, attn_sinks", "A4 experts"),
+    "hunyuan_v1_moe": ("num_experts", "A4 experts"),
 }
 
 # model_type -> the class default (transformers 4.57.6) of every key that
@@ -232,6 +232,94 @@ HF_DEFAULTS = {
                  "hidden_act": "silu", "rope_theta": 500000.0,
                  "rope_scaling": None, "use_bias": False,
                  "vocab_size": 103424, "tie_word_embeddings": True},
+    "gpt_neo": {"vocab_size": 50257, "max_position_embeddings": 2048,
+                "hidden_size": 2048, "num_layers": 24,
+                "attention_types": [[["global", "local"], 12]],
+                "num_heads": 16, "intermediate_size": None,
+                "window_size": 256, "activation_function": "gelu_new",
+                "layer_norm_epsilon": 1e-05, "tie_word_embeddings": True},
+    "gemma2": {"vocab_size": 256000, "hidden_size": 2304,
+               "intermediate_size": 9216, "num_hidden_layers": 26,
+               "num_attention_heads": 8, "num_key_value_heads": 4,
+               "head_dim": 256, "hidden_activation": "gelu_pytorch_tanh",
+               "max_position_embeddings": 8192, "rms_norm_eps": 1e-06,
+               "tie_word_embeddings": True, "rope_theta": 10000.0,
+               "attention_bias": False, "query_pre_attn_scalar": 256,
+               "sliding_window": 4096, "layer_types": None,
+               "final_logit_softcapping": 30.0,
+               "attn_logit_softcapping": 50.0},
+    "cohere": {"vocab_size": 256000, "hidden_size": 8192,
+               "intermediate_size": 22528, "logit_scale": 0.0625,
+               "num_hidden_layers": 40, "num_attention_heads": 64,
+               "num_key_value_heads": None, "hidden_act": "silu",
+               "max_position_embeddings": 8192, "layer_norm_eps": 1e-05,
+               "tie_word_embeddings": True, "rope_theta": 10000.0,
+               "attention_bias": False, "use_qk_norm": False},
+    "qwen3": {"vocab_size": 151936, "hidden_size": 4096,
+              "intermediate_size": 22016, "num_hidden_layers": 32,
+              "num_attention_heads": 32, "num_key_value_heads": 32,
+              "head_dim": 128, "hidden_act": "silu",
+              "max_position_embeddings": 32768, "rms_norm_eps": 1e-06,
+              "tie_word_embeddings": False, "rope_theta": 10000.0,
+              "rope_scaling": None, "attention_bias": False,
+              "use_sliding_window": False, "sliding_window": 4096,
+              "max_window_layers": 28, "layer_types": None},
+    "smollm3": {"vocab_size": 128256, "hidden_size": 2048,
+                "intermediate_size": 11008, "num_hidden_layers": 36,
+                "num_attention_heads": 16, "num_key_value_heads": 4,
+                "hidden_act": "silu", "max_position_embeddings": 32768,
+                "rms_norm_eps": 1e-06, "rope_theta": 2000000.0,
+                "use_sliding_window": False, "sliding_window": None,
+                "no_rope_layers": None, "no_rope_layer_interval": 4,
+                "layer_types": None, "attention_bias": False,
+                "mlp_bias": False, "tie_word_embeddings": True},
+    "hunyuan_v1_dense": {"vocab_size": 290943, "hidden_size": 4096,
+                         "intermediate_size": 11008,
+                         "num_hidden_layers": 32,
+                         "num_attention_heads": 32,
+                         "num_key_value_heads": None, "hidden_act": "silu",
+                         "max_position_embeddings": 2048,
+                         "rms_norm_eps": 1e-05,
+                         "tie_word_embeddings": False,
+                         "rope_theta": 10000.0, "attention_bias": False,
+                         "head_dim": None},
+    "exaone4": {"vocab_size": 102400, "hidden_size": 4096,
+                "intermediate_size": 16384, "num_hidden_layers": 32,
+                "num_attention_heads": 32, "num_key_value_heads": 32,
+                "hidden_act": "silu", "max_position_embeddings": 2048,
+                "rms_norm_eps": 1e-05, "tie_word_embeddings": False,
+                "rope_theta": 10000.0, "sliding_window": 4096,
+                "sliding_window_pattern": 4, "layer_types": None},
+    "granite": {"vocab_size": 32000, "hidden_size": 4096,
+                "intermediate_size": 11008, "num_hidden_layers": 32,
+                "num_attention_heads": 32, "num_key_value_heads": None,
+                "hidden_act": "silu", "max_position_embeddings": 2048,
+                "rms_norm_eps": 1e-06, "tie_word_embeddings": False,
+                "rope_theta": 10000.0, "attention_bias": False,
+                "mlp_bias": False, "embedding_multiplier": 1.0,
+                "logits_scaling": 1.0, "residual_multiplier": 1.0,
+                "attention_multiplier": 1.0},
+    "olmo2": {"vocab_size": 50304, "hidden_size": 4096,
+              "intermediate_size": 11008, "num_hidden_layers": 32,
+              "num_attention_heads": 32, "num_key_value_heads": None,
+              "hidden_act": "silu", "max_position_embeddings": 2048,
+              "tie_word_embeddings": False, "rope_theta": 10000.0,
+              "attention_bias": False, "rms_norm_eps": 1e-05},
+    "glm4": {"vocab_size": 151552, "hidden_size": 4096,
+             "intermediate_size": 13696, "num_hidden_layers": 40,
+             "num_attention_heads": 32, "num_key_value_heads": 2,
+             "partial_rotary_factor": 0.5, "head_dim": 128,
+             "hidden_act": "silu", "max_position_embeddings": 131072,
+             "rms_norm_eps": 1.5625e-07, "tie_word_embeddings": False,
+             "rope_theta": 10000.0, "attention_bias": True},
+    "nemotron": {"vocab_size": 256000, "hidden_size": 6144,
+                 "intermediate_size": 24576, "num_hidden_layers": 32,
+                 "num_attention_heads": 48, "head_dim": None,
+                 "num_key_value_heads": None, "hidden_act": "relu2",
+                 "max_position_embeddings": 4096, "norm_eps": 1e-05,
+                 "tie_word_embeddings": False, "rope_theta": 10000.0,
+                 "partial_rotary_factor": 0.5, "attention_bias": False,
+                 "mlp_bias": False},
 }
 
 # model_type -> transformers' ``attribute_map`` (alias -> stored name)
@@ -252,6 +340,8 @@ HF_ALIASES = {
     "codegen": {"max_position_embeddings": "n_positions",
                 "hidden_size": "n_embd", "num_attention_heads": "n_head",
                 "num_hidden_layers": "n_layer"},
+    "gpt_neo": {"num_attention_heads": "num_heads",
+                "num_hidden_layers": "num_layers"},
 }
 
 # MptAttentionConfig's fields and defaults (it keeps no other key)
@@ -262,10 +352,24 @@ _MPT_ATTN = {"attn_type": "multihead_attention", "attn_pdrop": 0,
              "alibi_bias_max": 8}
 # types whose config __init__ defaults num_key_value_heads to the heads
 _KV_FROM_HEADS = ("llama", "mistral", "qwen2", "phi", "olmo", "phi3",
-                  "ernie4_5")
+                  "ernie4_5", "cohere", "qwen3", "smollm3",
+                  "hunyuan_v1_dense", "granite", "olmo2")
 # types whose config __init__ copies rope_scaling's "type" to "rope_type"
 _ROPE_TYPE_COPY = ("llama", "qwen2", "gpt_neox", "phi", "stablelm",
-                   "starcoder2", "ernie4_5")
+                   "starcoder2", "ernie4_5", "qwen3", "smollm3")
+# transformers' ALLOWED_LAYER_TYPES
+_LAYER_TYPES = ("full_attention", "sliding_attention", "chunked_attention",
+                "linear_attention")
+
+
+def _check_layer_types(kinds, n_layers):
+    """transformers' ``layer_type_validation``."""
+    if not all(k in _LAYER_TYPES for k in kinds):
+        raise ValueError(f"The `layer_types` entries must be in "
+                         f"{_LAYER_TYPES}")
+    if len(kinds) != n_layers:
+        raise ValueError(f"`num_hidden_layers` ({n_layers}) must be equal "
+                         f"to the number of layer types ({len(kinds)})")
 
 
 def _derive(mt: str, v: dict, given: dict):
@@ -289,6 +393,20 @@ def _derive(mt: str, v: dict, given: dict):
             raise ValueError(f"num_hidden_layers "
                              f"({v['num_hidden_layers']}) must be equal to "
                              f"the number of layer types ({len(kinds)})")
+    if mt in ("gemma2", "qwen3", "smollm3", "exaone4"):
+        _derive_layer_types(mt, v)
+    if mt == "gpt_neo":
+        kinds = [k for kinds, n in v["attention_types"] for _ in range(n)
+                 for k in kinds]
+        if len(kinds) != v["num_layers"]:
+            raise ValueError("Configuration for convolutional module is "
+                             "incorrect: len(config.attention_layers) "
+                             f"= {len(kinds)} != config.num_layers = "
+                             f"{v['num_layers']}")
+        # a saved attention_layers is set after __init__ expands the types
+        v.setdefault("attention_layers", kinds)
+    if mt == "nemotron" and v["head_dim"] is None:
+        v["head_dim"] = v["hidden_size"] // v["num_attention_heads"]
     if mt in ("falcon", "bloom") and "n_embed" in given:
         v["hidden_size"] = given["n_embed"]
     if mt == "falcon":
@@ -307,6 +425,38 @@ def _derive(mt: str, v: dict, given: dict):
         ac = v["attn_config"]
         v["attn_config"] = dict(_MPT_ATTN, **{
             k: val for k, val in (ac or {}).items() if k in _MPT_ATTN})
+
+
+def _derive_layer_types(mt: str, v: dict):
+    """The ``__init__`` rules of the layer-typed configs: qwen3's window
+    switch, smollm3's NoPE layers, each one's default ``layer_types``,
+    then their validation."""
+    n = v["num_hidden_layers"]
+    if mt == "qwen3" and not v["use_sliding_window"]:
+        v["sliding_window"] = None
+    if mt == "smollm3" and v["no_rope_layers"] is None:
+        every = v["no_rope_layer_interval"]
+        v["no_rope_layers"] = [int((i + 1) % every != 0) for i in range(n)]
+    if v["layer_types"] is None:
+        if mt == "gemma2":
+            kinds = ["sliding_attention" if (i + 1) % 2 else "full_attention"
+                     for i in range(n)]
+        elif mt == "qwen3":
+            kinds = ["sliding_attention" if v["sliding_window"] is not None
+                     and i >= v["max_window_layers"] else "full_attention"
+                     for i in range(n)]
+        elif mt == "smollm3":
+            kinds = ["sliding_attention" if v["use_sliding_window"]
+                     and v["sliding_window"] is not None
+                     and not v["no_rope_layers"][i] else "full_attention"
+                     for i in range(n)]
+        else:   # exaone4: every pattern-th layer global
+            every = (v["sliding_window_pattern"]
+                     if v["sliding_window"] is not None else 0)
+            kinds = ["sliding_attention" if (i + 1) % every != 0
+                     else "full_attention" for i in range(n)]
+        v["layer_types"] = kinds
+    _check_layer_types(v["layer_types"], n)
 
 
 def hf_view(d: dict) -> types.SimpleNamespace:
@@ -448,6 +598,24 @@ def _rope_scaling_params(hf_config, dim: int, what: str):
     raise NotImplementedError(
         f"{what} rope_scaling type {kind!r} — yarn, llama3, linear and "
         "longrope convert")
+
+
+def _layer_windows_from_hf(hf_config, require_use_flag: bool = False):
+    """Per-layer windows from an HF ``layer_types`` list: (sliding_window,
+    attn_windows, kinds) for the ModelConfig kwargs: a uniform window
+    stays the static ``sliding_window``, a mixed one becomes the
+    per-layer tuple. ``require_use_flag``: gate on use_sliding_window
+    (smollm3) instead of sliding_window's presence alone."""
+    kinds = list(getattr(hf_config, "layer_types", None) or [])
+    win = getattr(hf_config, "sliding_window", None)
+    enabled = (bool(getattr(hf_config, "use_sliding_window", win))
+               if require_use_flag else win is not None)
+    wins = tuple(win if (enabled and t == "sliding_attention") else None
+                 for t in kinds)
+    windowed = any(w is not None for w in wins)
+    uniform = not windowed or len(set(wins)) == 1
+    return ((wins[0] if windowed and uniform else None),
+            (None if uniform else wins), kinds)
 
 
 # HF hidden_act -> the model's activation kinds ("gelu" is the erf form)
@@ -791,7 +959,9 @@ def config_from_hf(d: dict, name: Optional[str] = None) -> ModelConfig:
             rope_theta=getattr(hf, "rope_theta", 10000.0),
             attn_bias=b, o_bias=b, mlp_bias=b,
             tie_word_embeddings=getattr(hf, "tie_word_embeddings", True))
-    # glm: the last of HF_DEFAULTS' types
+    if mt in _LATER:
+        return _LATER[mt](hf, mt, name)
+    # glm, glm4
     return ModelConfig(
         name=name, family="glm", vocab_size=hf.vocab_size,
         hidden_size=hf.hidden_size, intermediate_size=hf.intermediate_size,
@@ -808,8 +978,206 @@ def config_from_hf(d: dict, name: Optional[str] = None) -> ModelConfig:
         rope_pct=float(getattr(hf, "partial_rotary_factor", 0.5)),
         rope_interleaved=True,
         attn_bias=bool(getattr(hf, "attention_bias", True)),
-        o_bias=False, mlp_bias=False, post_block_norms=False,
+        o_bias=False, mlp_bias=False, post_block_norms=mt == "glm4",
         tie_word_embeddings=getattr(hf, "tie_word_embeddings", False))
+
+
+def _heads_kv_hd(hf):
+    """(heads, kv heads, head_dim) as the llama-shaped branches read
+    them: kv heads and head_dim from their keys, else the heads and
+    hidden/heads."""
+    heads = hf.num_attention_heads
+    return (heads, getattr(hf, "num_key_value_heads", None) or heads,
+            getattr(hf, "head_dim", None) or hf.hidden_size // heads)
+
+
+def _llama_shaped(hf, name, **kw):
+    """The common fields of the rmsnorm, gated-silu-shaped later branches
+    (qwen3, smollm3, hunyuan_v1_dense, exaone4, granite, olmo2); ``kw``
+    adds or overrides."""
+    heads, kv, hd = _heads_kv_hd(hf)
+    fields = dict(
+        name=name, family="llama", vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size, intermediate_size=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers, num_heads=heads, num_kv_heads=kv,
+        head_dim=hd, max_position_embeddings=hf.max_position_embeddings,
+        norm_type="rmsnorm", norm_eps=hf.rms_norm_eps,
+        activation=_act_from_hf(hf.hidden_act), gated_mlp=True,
+        position_embedding="rope",
+        rope_theta=getattr(hf, "rope_theta", 10000.0),
+        attn_bias=getattr(hf, "attention_bias", False), mlp_bias=False,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False))
+    fields.update(kw)
+    return ModelConfig(**fields)
+
+
+def _gpt_neo_config(hf, mt, name):
+    kinds = list(hf.attention_layers)
+    if not all(t in ("global", "local") for t in kinds):
+        raise NotImplementedError(
+            f"gpt_neo attention_types {sorted(set(kinds))!r} — only "
+            "global/local convert")
+    win = int(getattr(hf, "window_size", 256))
+    wins = tuple(None if t == "global" else win for t in kinds)
+    uniform = len(set(wins)) == 1
+    heads = hf.num_heads
+    return ModelConfig(
+        name=name, family="gpt_neo", vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        intermediate_size=getattr(hf, "intermediate_size", None)
+        or 4 * hf.hidden_size,
+        num_layers=hf.num_layers, num_heads=heads, num_kv_heads=heads,
+        head_dim=hf.hidden_size // heads,
+        max_position_embeddings=hf.max_position_embeddings,
+        norm_type="layernorm", norm_eps=hf.layer_norm_epsilon,
+        activation=_act_from_hf(getattr(hf, "activation_function",
+                                        "gelu_new")),
+        gated_mlp=False, position_embedding="learned",
+        attn_bias=False, o_bias=True, mlp_bias=True,
+        sliding_window=wins[0] if uniform else None,
+        attn_windows=None if uniform else wins,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", True))
+
+
+def _gemma2_config(hf, mt, name):
+    heads = hf.num_attention_heads
+    kinds = list(getattr(hf, "layer_types", None)
+                 or ["sliding_attention" if i % 2 == 0 else "full_attention"
+                     for i in range(hf.num_hidden_layers)])
+    if not all(t in ("sliding_attention", "full_attention") for t in kinds):
+        raise NotImplementedError(f"gemma2 layer_types "
+                                  f"{sorted(set(kinds))!r}")
+    win = getattr(hf, "sliding_window", None)
+    wins = tuple(win if t == "sliding_attention" else None for t in kinds)
+    uniform = win is None or len(set(wins)) == 1
+    hd = getattr(hf, "head_dim", None) or hf.hidden_size // heads
+    return ModelConfig(
+        name=name, family="gemma2", vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size, intermediate_size=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers, num_heads=heads,
+        num_kv_heads=getattr(hf, "num_key_value_heads", None) or heads,
+        head_dim=hd, max_position_embeddings=hf.max_position_embeddings,
+        norm_type="rmsnorm", norm_eps=hf.rms_norm_eps,
+        activation=_act_from_hf(getattr(hf, "hidden_activation",
+                                        "gelu_pytorch_tanh")),
+        gated_mlp=True, position_embedding="rope",
+        rope_theta=getattr(hf, "rope_theta", 10000.0),
+        attn_bias=getattr(hf, "attention_bias", False), mlp_bias=False,
+        sliding_window=wins[0] if uniform else None,
+        attn_windows=None if uniform else wins,
+        attn_softcap=getattr(hf, "attn_logit_softcapping", None),
+        logit_softcap=getattr(hf, "final_logit_softcapping", None),
+        post_block_norms=True,
+        query_pre_attn_scalar=float(
+            getattr(hf, "query_pre_attn_scalar", None) or hd),
+        embed_scale=hf.hidden_size ** 0.5, norm_offset=True,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", True))
+
+
+def _cohere_config(hf, mt, name):
+    heads = hf.num_attention_heads
+    return ModelConfig(
+        name=name, family="cohere", vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size, intermediate_size=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers, num_heads=heads,
+        num_kv_heads=getattr(hf, "num_key_value_heads", None) or heads,
+        head_dim=hf.hidden_size // heads,
+        max_position_embeddings=hf.max_position_embeddings,
+        norm_type="layernorm", norm_eps=getattr(hf, "layer_norm_eps", 1e-5),
+        activation=_act_from_hf(getattr(hf, "hidden_act", "silu")),
+        gated_mlp=True, position_embedding="rope",
+        rope_theta=getattr(hf, "rope_theta", 10000.0),
+        rope_interleaved=True,
+        attn_bias=getattr(hf, "attention_bias", False), mlp_bias=False,
+        logit_scale=getattr(hf, "logit_scale", None),
+        qk_norm="ln_head" if getattr(hf, "use_qk_norm", False) else None,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", True),
+        parallel_residual=True, shared_attn_mlp_norm=True)
+
+
+def _qwen3_config(hf, mt, name):
+    sw, aw, _ = _layer_windows_from_hf(hf)
+    heads, _, hd = _heads_kv_hd(hf)
+    inv_freq, attn_factor, _ = _rope_scaling_params(hf, hd, mt)
+    return _llama_shaped(
+        hf, name, rope_inv_freq=inv_freq, rope_attn_factor=attn_factor,
+        qk_norm="rms_head", sliding_window=sw, attn_windows=aw,
+        num_experts=0,
+        num_experts_per_tok=getattr(hf, "num_experts_per_tok", 2),
+        moe_norm_topk=bool(getattr(hf, "norm_topk_prob", True)))
+
+
+def _smollm3_config(hf, mt, name):
+    sw, aw, _ = _layer_windows_from_hf(hf, require_use_flag=True)
+    nope = tuple(int(v) for v in getattr(hf, "no_rope_layers", None) or [])
+    return _llama_shaped(
+        hf, name, attn_bias=bool(getattr(hf, "attention_bias", False)),
+        mlp_bias=bool(getattr(hf, "mlp_bias", False)),
+        sliding_window=sw, attn_windows=aw,
+        rope_layers=nope if nope and not all(nope) else None,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", True))
+
+
+def _hunyuan_config(hf, mt, name):
+    return _llama_shaped(
+        hf, name, attn_bias=bool(getattr(hf, "attention_bias", False)),
+        qk_norm="rms_head", qk_norm_after_rope=True)
+
+
+def _exaone4_config(hf, mt, name):
+    sw, aw, kinds = _layer_windows_from_hf(hf)
+    windowed = sw is not None or aw is not None
+    return _llama_shaped(
+        hf, name, family="olmo2", attn_bias=False, qk_norm="rms_head",
+        sublayer_postnorm_only=True, sliding_window=sw, attn_windows=aw,
+        rope_layers=(tuple(1 if t == "sliding_attention" else 0
+                           for t in kinds) if windowed else None))
+
+
+def _granite_config(hf, mt, name):
+    am = float(getattr(hf, "attention_multiplier", 1.0))
+    ls = float(getattr(hf, "logits_scaling", 1.0))
+    return _llama_shaped(
+        hf, name, head_dim=hf.hidden_size // hf.num_attention_heads,
+        mlp_bias=getattr(hf, "mlp_bias", False),
+        embed_scale=float(getattr(hf, "embedding_multiplier", 1.0)),
+        query_pre_attn_scalar=am ** -2,
+        residual_scale=float(getattr(hf, "residual_multiplier", 1.0)),
+        logit_scale=1.0 / ls)
+
+
+def _olmo2_config(hf, mt, name):
+    return _llama_shaped(
+        hf, name, family="olmo2",
+        head_dim=hf.hidden_size // hf.num_attention_heads,
+        qk_norm="rms_full", sublayer_postnorm_only=True)
+
+
+def _nemotron_config(hf, mt, name):
+    heads, kv, hd = _heads_kv_hd(hf)
+    return ModelConfig(
+        name=name, family="nemotron", vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size, intermediate_size=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers, num_heads=heads, num_kv_heads=kv,
+        head_dim=hd, max_position_embeddings=hf.max_position_embeddings,
+        norm_type="layernorm", norm_eps=getattr(hf, "norm_eps", 1e-5),
+        activation=_act_from_hf(hf.hidden_act), gated_mlp=False,
+        position_embedding="rope",
+        rope_theta=getattr(hf, "rope_theta", 10000.0),
+        rope_pct=float(getattr(hf, "partial_rotary_factor", 0.5)),
+        attn_bias=bool(getattr(hf, "attention_bias", False)),
+        mlp_bias=bool(getattr(hf, "mlp_bias", False)), norm_offset=True,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False))
+
+
+# the later types' config_from_hf branches (glm4 shares glm's)
+_LATER = {
+    "gpt_neo": _gpt_neo_config, "gemma2": _gemma2_config,
+    "cohere": _cohere_config, "qwen3": _qwen3_config,
+    "smollm3": _smollm3_config, "hunyuan_v1_dense": _hunyuan_config,
+    "exaone4": _exaone4_config, "granite": _granite_config,
+    "olmo2": _olmo2_config, "nemotron": _nemotron_config,
+}
 
 
 # ---------------------------------------------------------------------
@@ -900,21 +1268,42 @@ def _opt(cfg, r):
                                  r.norm("model.decoder.final_layer_norm"))
 
 
+def _scaled_lin(r, key, scale=1.0):
+    """``r.lin(key)`` with weight and bias times ``scale`` in f32."""
+    for k, t in r.lin(key):
+        yield k, t if scale == 1.0 else t.float() * scale
+
+
+def _q_scale(cfg) -> float:
+    """The score scale folded into q: query_pre_attn_scalar**-0.5 (gemma2,
+    granite's attention_multiplier) over the runtime's hd**-0.5."""
+    return (cfg.head_dim / (cfg.query_pre_attn_scalar or cfg.head_dim)) ** 0.5
+
+
 def _llama(cfg, r):
     # gemma's (1 + w) norms absorbed; the others' + 0.0 as in the JAX
     # branch (f32 arithmetic either way)
     off = 1.0 if cfg.norm_offset else 0.0
-    qs = (cfg.head_dim / (cfg.query_pre_attn_scalar or cfg.head_dim)) ** 0.5
+    qs = _q_scale(cfg)
 
     def lin(key, scale=1.0):
-        for k, t in r.lin(key):
-            yield k, t if scale == 1.0 else t.float() * scale
+        return _scaled_lin(r, key, scale)
 
     yield EMBED, r.t("model.embed_tokens.weight")
     for i in range(cfg.num_layers):
         p, o = f"model.layers.{i}.", f"layers.{i}."
         yield o + "attn_norm.scale", r.f32(p + "input_layernorm.weight") + off
-        yield from _linear_items(o + "q", lin(p + "self_attn.q_proj", qs))
+        # under qk_norm the q norm erases a weight scale: the fold moves
+        # to the q norm's scale (qwen3 names them q_norm/k_norm, hunyuan
+        # query_layernorm/key_layernorm)
+        yield from _linear_items(o + "q", lin(p + "self_attn.q_proj",
+                                              1.0 if cfg.qk_norm else qs))
+        if cfg.qk_norm:
+            for n, alt, sc in (("q", "query", qs), ("k", "key", 1.0)):
+                key = f"{p}self_attn.{n}_norm.weight"
+                if key not in r:
+                    key = f"{p}self_attn.{alt}_layernorm.weight"
+                yield f"{o}{n}_norm.scale", r.f32(key) * sc
         for n in "kvo":
             yield from _linear_items(o + n, lin(f"{p}self_attn.{n}_proj"))
         yield o + "mlp_norm.scale", \
@@ -1235,9 +1624,122 @@ def _glm(cfg, r):
         for n in "qkvo":   # q/k/v biased, o bias-free
             yield from _linear_items(o + n, r.lin(f"{p}self_attn.{n}_proj"))
         yield o + "mlp_norm.scale", r.t(p + "post_attention_layernorm.weight")
+        if cfg.post_block_norms:   # glm4's sandwich
+            yield (o + "attn_post_norm.scale",
+                   r.t(p + "post_self_attn_layernorm.weight"))
+            yield (o + "mlp_post_norm.scale",
+                   r.t(p + "post_mlp_layernorm.weight"))
         yield from _fused_gate_up(cfg, r, p, o)
         yield o + "down.w", r.t(p + "mlp.down_proj.weight").T
     yield "final_norm.scale", r.t("model.norm.weight")
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.w", r.t("lm_head.weight").T
+
+
+def _gpt_neo(cfg, r):
+    # GPT-Neo's scores are unscaled: sqrt(hd) folded into q cancels the
+    # runtime's hd**-0.5 (f32, as the JAX branch)
+    qs = float(cfg.head_dim) ** 0.5
+    yield EMBED, r.t("transformer.wte.weight")
+    yield "embed.positions", r.t("transformer.wpe.weight")
+    for i in range(cfg.num_layers):
+        p, o = f"transformer.h.{i}.", f"layers.{i}."
+        a = p + "attn.attention."
+        yield from _linear_items(o + "attn_norm", r.norm(p + "ln_1"))
+        yield o + "q.w", r.f32(a + "q_proj.weight").T * qs
+        yield from _linear_items(o + "k", r.lin(a + "k_proj", False))
+        yield from _linear_items(o + "v", r.lin(a + "v_proj", False))
+        yield from _linear_items(o + "o", r.lin(a + "out_proj", True))
+        yield from _linear_items(o + "mlp_norm", r.norm(p + "ln_2"))
+        yield from _linear_items(o + "up", r.lin(p + "mlp.c_fc", True))
+        yield from _linear_items(o + "down", r.lin(p + "mlp.c_proj", True))
+    yield from _linear_items("final_norm", r.norm("transformer.ln_f"))
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.w", r.t("lm_head.weight").T
+
+
+def _gemma2(cfg, r):
+    # the (1 + w) rmsnorm convention absorbed on all five norm kinds; the
+    # query_pre_attn_scalar ratio folded into q (weight and bias)
+    qs = _q_scale(cfg)
+    yield EMBED, r.t("model.embed_tokens.weight")
+    for i in range(cfg.num_layers):
+        p, o = f"model.layers.{i}.", f"layers.{i}."
+        for n, hf in (("attn_norm", "input_layernorm"),
+                      ("attn_post_norm", "post_attention_layernorm"),
+                      ("mlp_norm", "pre_feedforward_layernorm"),
+                      ("mlp_post_norm", "post_feedforward_layernorm")):
+            yield f"{o}{n}.scale", r.f32(f"{p}{hf}.weight") + 1.0
+        yield from _linear_items(o + "q", _scaled_lin(
+            r, p + "self_attn.q_proj", qs))
+        for n in "kvo":
+            yield from _linear_items(o + n, r.lin(f"{p}self_attn.{n}_proj"))
+        for n in ("gate", "up", "down"):
+            yield from _linear_items(o + n, r.lin(f"{p}mlp.{n}_proj"))
+    yield "final_norm.scale", r.f32("model.norm.weight") + 1.0
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.w", r.t("lm_head.weight").T
+
+
+def _cohere(cfg, r):
+    # bias-free layernorms: a zero bias is their exact parametric form;
+    # use_qk_norm's [H, hd] per-head scales stored flat
+    zero = torch.zeros((cfg.hidden_size,), device=r.device)
+    yield EMBED, r.t("model.embed_tokens.weight")
+    for i in range(cfg.num_layers):
+        p, o = f"model.layers.{i}.", f"layers.{i}."
+        yield o + "attn_norm.scale", r.t(p + "input_layernorm.weight")
+        yield o + "attn_norm.bias", zero
+        for n in "qkvo":
+            yield from _linear_items(o + n, r.lin(f"{p}self_attn.{n}_proj"))
+        for n in ("gate", "up", "down"):
+            yield from _linear_items(o + n, r.lin(f"{p}mlp.{n}_proj"))
+        if cfg.qk_norm:
+            for n in "qk":
+                yield (f"{o}{n}_norm.scale",
+                       r.t(f"{p}self_attn.{n}_norm.weight").reshape(-1))
+    yield "final_norm.scale", r.t("model.norm.weight")
+    yield "final_norm.bias", zero
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.w", r.t("lm_head.weight").T
+
+
+def _olmo2(cfg, r):
+    # olmo2 and exaone4: the block's two norms are its sublayer-output
+    # norms (sublayer_postnorm_only); q/k norms on the projections
+    yield EMBED, r.t("model.embed_tokens.weight")
+    for i in range(cfg.num_layers):
+        p, o = f"model.layers.{i}.", f"layers.{i}."
+        yield o + "attn_norm.scale", r.t(p + "post_attention_layernorm.weight")
+        yield o + "mlp_norm.scale", r.t(p + "post_feedforward_layernorm.weight")
+        for n in "qkvo":
+            yield from _linear_items(o + n, r.lin(f"{p}self_attn.{n}_proj"))
+        for n in "qk":
+            yield f"{o}{n}_norm.scale", r.t(f"{p}self_attn.{n}_norm.weight")
+        for n in ("gate", "up", "down"):
+            yield from _linear_items(o + n, r.lin(f"{p}mlp.{n}_proj"))
+    yield "final_norm.scale", r.t("model.norm.weight")
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.w", r.t("lm_head.weight").T
+
+
+def _nemotron(cfg, r):
+    # LayerNorm1P: (1 + w) * x_hat + b, the + 1 absorbed (f32)
+    def norm1p(key):
+        yield "scale", r.f32(key + ".weight") + 1.0
+        yield "bias", r.t(key + ".bias")
+
+    yield EMBED, r.t("model.embed_tokens.weight")
+    for i in range(cfg.num_layers):
+        p, o = f"model.layers.{i}.", f"layers.{i}."
+        yield from _linear_items(o + "attn_norm", norm1p(p + "input_layernorm"))
+        for n in "qkvo":
+            yield from _linear_items(o + n, r.lin(f"{p}self_attn.{n}_proj"))
+        yield from _linear_items(o + "mlp_norm",
+                                 norm1p(p + "post_attention_layernorm"))
+        for n in ("up", "down"):
+            yield from _linear_items(o + n, r.lin(f"{p}mlp.{n}_proj"))
+    yield from _linear_items("final_norm", norm1p("model.norm"))
     if not cfg.tie_word_embeddings:
         yield "lm_head.w", r.t("lm_head.weight").T
 
@@ -1247,7 +1749,8 @@ _FAMILIES = {
     "phi": _phi, "falcon": _falcon, "bloom": _bloom, "gptj": _gptj,
     "mpt": _mpt, "gpt_bigcode": _gpt_bigcode, "stablelm": _stablelm,
     "codegen": _codegen, "starcoder2": _starcoder2, "olmo": _olmo,
-    "phi3": _phi3, "glm": _glm,
+    "phi3": _phi3, "glm": _glm, "gpt_neo": _gpt_neo, "gemma2": _gemma2,
+    "cohere": _cohere, "olmo2": _olmo2, "nemotron": _nemotron,
 }
 
 

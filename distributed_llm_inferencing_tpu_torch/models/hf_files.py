@@ -65,6 +65,10 @@ BASE_MODEL_PREFIX = {
     "gpt_bigcode": "transformer", "stablelm": "model",
     "codegen": "transformer", "starcoder2": "model", "olmo": "model",
     "phi3": "model", "glm": "model", "ernie4_5": "model",
+    "gpt_neo": "transformer", "gemma2": "model", "cohere": "model",
+    "qwen3": "model", "smollm3": "model", "hunyuan_v1_dense": "model",
+    "exaone4": "model", "granite": "model", "olmo2": "model",
+    "glm4": "model", "nemotron": "model",
 }
 
 

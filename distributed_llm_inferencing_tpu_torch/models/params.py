@@ -12,6 +12,9 @@ the config has the feature; E = ``embed_proj_dim`` or D):
     layers.{i}.attn_norm.scale [D] (+ .bias [D] for layernorm)
     layers.{i}.{q,k,v,o}.<leaf> (+ .b [dout] where biased)
     layers.{i}.mlp_norm.{scale,bias?} (absent with shared_attn_mlp_norm)
+    layers.{i}.{attn,mlp}_post_norm.{scale,bias?} [D]? (post_block_norms)
+    layers.{i}.{q,k}_norm.scale?  (qk_norm: [hd] for "rms_head", else
+                                   the flat [H*hd] / [Hkv*hd])
     layers.{i}.{gate?,up,down}.<leaf> (+ .b; gate only in a gated MLP)
     final_norm.{scale,bias?} [D]  (absent with post_norm)
     lm_head.<leaf> (+ .b)         (absent with tie_word_embeddings)
@@ -23,7 +26,11 @@ layouts), the last with a ``chunked`` marker where the leaf is packed
 chunk-locally. Biases, norms, positions and the opt-350m projections stay
 float in the model's dtype. Weights keep the reference's [din, dout]
 layout (y = x @ w), so the bridge from a JAX tree is a copy, bitwise,
-with no transpose.
+with no transpose. The reference's int32 per-layer leaves
+(``attn_window``, -1 for a global layer, and ``rope_on``) are no tensors
+here: each ``Block`` holds its window and rope switch as static values
+from ``cfg.attn_windows`` / ``cfg.rope_layers``, and the bridge checks
+that the leaves say the same.
 
 Under tensor parallelism every rank draws every leaf of the whole model
 in the same order from the same seeded generator, keeps its shard
@@ -46,6 +53,8 @@ from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 LAYER_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
 LAYER_NORMS = ("attn_norm", "mlp_norm")
+POST_NORMS = ("attn_post_norm", "mlp_post_norm")
+QK_NORMS = ("q_norm", "k_norm")
 
 
 def _leaf_shapes(prefix: str, din: int, dout: int, bias: bool = False,
@@ -93,9 +102,16 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         shapes.update(_leaf_shapes("embed.project_in", E, D))
         shapes.update(_leaf_shapes("embed.project_out", D, E))
     norms = LAYER_NORMS[:1] if cfg.shared_attn_mlp_norm else LAYER_NORMS
+    if cfg.post_block_norms:
+        norms += POST_NORMS
     for i in range(cfg.num_layers):
         for n in norms:
             shapes.update(_norm_shapes(cfg, f"layers.{i}.{n}", D))
+        if cfg.qk_norm:   # one [hd] scale shared by every head, or flat
+            shared = cfg.qk_norm == "rms_head"
+            for n, dim in zip(QK_NORMS, (cfg.q_dim, cfg.kv_dim)):
+                shapes[f"layers.{i}.{n}.scale"] = (
+                    cfg.head_dim if shared else dim,)
         for n, din, dout, bias in layer_linears(cfg):
             shapes.update(_leaf_shapes(f"layers.{i}.{n}", din, dout,
                                        bias, cfg.quant))
@@ -175,7 +191,10 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None
     norms as they are). Stacked ``[L, ...]`` layer leaves split into
     per-layer tensors. ``cfg.quant`` and ``cfg.embed_quant`` must
     describe the tree. A chunk-local int4 leaf (the JAX package's tp
-    layout of o and down) keeps its ``chunked`` marker.
+    layout of o and down) keeps its ``chunked`` marker. The int32
+    ``attn_window`` / ``rope_on`` leaves must be present exactly when
+    ``cfg.attn_windows`` / ``cfg.rope_layers`` are set, and say the
+    same, or the bridge raises.
     """
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         check_supported)
@@ -223,12 +242,24 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None
             raise ValueError(f"embed.{k}: not a leaf the port serves")
     if "layers_dense" in np_tree:
         raise NotImplementedError("dense-prefix layer segments not ported")
+    static = {"attn_window": None if cfg.attn_windows is None else
+              [-1 if w is None else w for w in cfg.attn_windows],
+              "rope_on": None if cfg.rope_layers is None else
+              list(cfg.rope_layers)}
+    for n, want in static.items():
+        got = np_tree["layers"].get(n)
+        got = None if got is None else np.asarray(got).tolist()
+        if got != want:
+            raise ValueError(f"layers.{n}: leaf {got} does not match "
+                             f"{cfg.name}'s config ({want})")
     for n, p in np_tree["layers"].items():
-        if n in LAYER_NORMS:
+        if n in LAYER_NORMS + POST_NORMS:
             norm(p, n, True)
+        elif n in QK_NORMS:
+            leaf(p, n, ("scale",), True, ())
         elif n in LAYER_LINEARS:
             leaf(p, n, lin_keys, True)
-        else:
+        elif n not in static:
             raise ValueError(f"layers.{n}: not a leaf the port serves")
     if "final_norm" in np_tree:
         norm(np_tree["final_norm"], "final_norm", False)

@@ -9,12 +9,22 @@ exact); biases on any linear; tied or untied head (the tied one reads
 the embedding table, int8 or not); learned, rotary (full, partial or
 interleaved) or ALiBi positions; sequential, parallel (one or two norms)
 or post-norm residuals; gemma's embedding scale, bloom's embedding norm
-and opt-350m's embedding projections. The reference runs its stacked
-``[L, ...]`` layers under ``lax.scan``; here each layer is its own
-``Block`` and the stack is a Python loop. A config that switches on
-anything else (MoE, MLA, qk-norm, softcaps, sinks, per-layer windows or
-rope, an int8 KV cache, ...) is refused at construction rather than
-served wrong (``check_supported``).
+and opt-350m's embedding projections. And the dense switches of the
+later families (gemma2, qwen3, olmo2, glm4, cohere, granite, gpt-neo,
+smollm3, exaone4, hunyuan, nemotron): q/k norms (per head, per head with
+per-head scales, or over the flat projection; before or after RoPE),
+per-layer windows (``attn_windows``) and per-layer NoPE
+(``rope_layers``), the attention score softcap (in the kernels' cap arm)
+and the final logit softcap, gemma2's sandwich norms
+(``post_block_norms``) and olmo2's post-only norms
+(``sublayer_postnorm_only``), granite's residual and cohere's logit
+scales, and nemotron's squared ReLU. The reference runs its stacked
+``[L, ...]`` layers under ``lax.scan`` and carries per-layer windows and
+rope switches as traced leaves; here each layer is its own ``Block``
+holding its window and rope switch as static values, and the stack is a
+Python loop. A config that switches on anything else (MoE, MLA, sinks,
+a QKV clamp, an int8 KV cache, ...) is refused at construction rather
+than served wrong (``check_supported``).
 
 Weight-only quantization (ops/quant.py): each linear (``Linear``, the
 reference's ``_linear``) holds its leaf in the stored form — float
@@ -73,7 +83,8 @@ from distributed_llm_inferencing_tpu_torch.ops.attention import (
     alibi_slopes, attend_decode, attend_prefill)
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import (
     KVCache, block_slots, write_block)
-from distributed_llm_inferencing_tpu_torch.ops.norms import Norm
+from distributed_llm_inferencing_tpu_torch.ops.norms import (
+    Norm, qk_normalize)
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
     PagedKVCache, paged_attend_decode, paged_attend_prefix, write_block_run,
     write_token)
@@ -88,19 +99,24 @@ from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 # field -> the only value the port serves (features not ported yet)
 _UNPORTED = {
-    "attn_windows": None, "attn_softcap": None, "logit_softcap": None,
-    "logit_scale": None, "post_block_norms": False, "qk_norm": None,
-    "sublayer_postnorm_only": False, "qkv_clip": None, "rope_layers": None,
-    "residual_scale": None, "kv_lora_rank": None, "q_lora_rank": None,
+    "qkv_clip": None, "kv_lora_rank": None, "q_lora_rank": None,
     "mla_latent_cache": False, "num_experts": 0, "attn_sinks": False,
     "dense_prefix_layers": 0, "kv_quant": None,
 }
-_ACT = {"silu": F.silu, "relu": F.relu,
+
+
+def _relu2(x):
+    """Squared ReLU (nemotron)."""
+    return torch.square(F.relu(x))
+
+
+_ACT = {"silu": F.silu, "relu": F.relu, "relu2": _relu2,
         "gelu": functools.partial(F.gelu, approximate="tanh"),
         "gelu_exact": functools.partial(F.gelu, approximate="none")}
 # field -> the values the port serves
 _CHOICES = {"norm_type": ("rmsnorm", "layernorm"), "activation": tuple(_ACT),
-            "position_embedding": ("rope", "learned", "alibi")}
+            "position_embedding": ("rope", "learned", "alibi"),
+            "qk_norm": (None, "rms_head", "ln_head", "rms_full")}
 # field -> its llama value: the family switches, which tp does not shard
 # yet (parallel/sharding.py cuts the llama arm's leaves only)
 _LLAMA_ARM = {
@@ -110,6 +126,10 @@ _LLAMA_ARM = {
     "mlp_bias": False, "lm_head_bias": False, "tie_word_embeddings": False,
     "parallel_residual": False, "shared_attn_mlp_norm": False,
     "embed_scale": None, "embed_proj_dim": None, "post_norm": False,
+    "qk_norm": None, "qk_norm_after_rope": False, "attn_windows": None,
+    "rope_layers": None, "attn_softcap": None, "logit_softcap": None,
+    "logit_scale": None, "post_block_norms": False,
+    "sublayer_postnorm_only": False, "residual_scale": None,
 }
 
 
@@ -119,6 +139,11 @@ def check_supported(cfg: ModelConfig):
            if getattr(cfg, f) != want]
     bad += [f"{f}={getattr(cfg, f)!r}" for f, ok in _CHOICES.items()
             if getattr(cfg, f) not in ok]
+    for f in ("attn_windows", "rope_layers"):
+        if getattr(cfg, f) is not None and \
+                len(getattr(cfg, f)) != cfg.num_layers:
+            bad.append(f"{f} of {len(getattr(cfg, f))} layers for "
+                       f"num_layers={cfg.num_layers}")
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not in the ported model families: {', '.join(bad)}")
@@ -144,6 +169,27 @@ def _leaf(params: Dict[str, torch.Tensor], prefix: str
 
 def _norm(cfg: ModelConfig, params, prefix: str) -> Norm:
     return Norm(_leaf(params, prefix), cfg.norm_type, cfg.norm_eps)
+
+
+def _dtype_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: the reference multiplies a weakly
+    typed Python scalar in the activation dtype."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def layer_window(cfg: ModelConfig, i: int) -> Optional[int]:
+    """Layer i's attention window (None: global): its ``attn_windows``
+    entry, else the uniform ``sliding_window`` (the reference's
+    ``_layer_window``, whose -1 is None here)."""
+    if cfg.attn_windows is not None:
+        return cfg.attn_windows[i]
+    return cfg.sliding_window
+
+
+def layer_rope(cfg: ModelConfig, i: int) -> bool:
+    """Whether layer i rotates q/k (``rope_layers``: 0 = NoPE)."""
+    return cfg.position_embedding == "rope" and (
+        cfg.rope_layers is None or bool(cfg.rope_layers[i]))
 
 
 class Linear(nn.Module):
@@ -237,13 +283,16 @@ class Embed(nn.Module):
 
 
 class Block(nn.Module):
-    """Norm -> QKV (+RoPE) -> cache write + attend -> o -> residual and MLP
-    (the reference's ``_block_body`` + ``_block_tail``). One method per
-    cache regime; each writes its K/V in place, and all share ``_tail``,
-    so the regimes cannot drift apart."""
+    """Norm -> QKV (q/k norms, RoPE) -> cache write + attend -> o ->
+    residual and MLP (the reference's ``_block_body`` + ``_block_tail``).
+    One method per cache regime; each writes its K/V in place, and all
+    share ``_tail``, so the regimes cannot drift apart. Layer ``index``'s
+    window (``layer_window``) and rope switch (``layer_rope``) are static
+    values of the block: a captured decode step bakes them in."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                 tp: Optional[TPGroup] = None, alibi=None):
+                 tp: Optional[TPGroup] = None, alibi=None, index: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         world = tp.world if tp else 1
@@ -252,37 +301,62 @@ class Block(nn.Module):
         self.attn_norm = _norm(cfg, p, "attn_norm")
         self.mlp_norm = (None if cfg.shared_attn_mlp_norm
                          else _norm(cfg, p, "mlp_norm"))
+        self.attn_post_norm = self.mlp_post_norm = None
+        if cfg.post_block_norms:   # gemma2 / glm4 sandwich
+            self.attn_post_norm = _norm(cfg, p, "attn_post_norm")
+            self.mlp_post_norm = _norm(cfg, p, "mlp_post_norm")
+        self.q_norm = self.k_norm = None
+        if cfg.qk_norm:
+            self.q_norm = _param(p["q_norm.scale"])
+            self.k_norm = _param(p["k_norm.scale"])
         self.gate = None
         for n, *_ in layer_linears(cfg):
             setattr(self, n, Linear(_leaf(p, n),
                                     tp if n in ("o", "down") else None))
         self.act = _ACT[cfg.activation]
         self.alibi = alibi                # [H] f32 on the device, or None
+        self.window = layer_window(cfg, index)
+        self.rope_on = layer_rope(cfg, index)
+        self.residual_scale = (None if cfg.residual_scale is None else
+                               _dtype_scalar(cfg.residual_scale, dtype))
 
-    def _rope(self, t, cos_sin):
+    def _pos(self, t, cos_sin, scale):
+        """q or k [B,s,heads,hd] after its projection: the q/k norm
+        (``scale``; before RoPE, or after it with ``qk_norm_after_rope``)
+        and this layer's RoPE."""
         cfg = self.cfg
-        if cfg.position_embedding != "rope":
-            return t
-        return apply_rope(t, None, cfg.rope_theta, cfg.rope_pct,
-                          cfg.rope_interleaved, cos_sin=cos_sin)
+        if scale is not None and not cfg.qk_norm_after_rope:
+            t = qk_normalize(t, scale, cfg.qk_norm, cfg.norm_eps)
+        if self.rope_on:
+            t = apply_rope(t, None, cfg.rope_theta, cfg.rope_pct,
+                           cfg.rope_interleaved, cos_sin=cos_sin)
+        if scale is not None and cfg.qk_norm_after_rope:
+            t = qk_normalize(t, scale, cfg.qk_norm, cfg.norm_eps)
+        return t
 
     def _kv(self, h, cos_sin):
         cfg = self.cfg
         B, s, _ = h.shape
         k = self.k(h).view(B, s, self.kv_heads, cfg.head_dim)
         v = self.v(h).view(B, s, self.kv_heads, cfg.head_dim)
-        return self._rope(k, cos_sin), v
+        return self._pos(k, cos_sin, self.k_norm), v
 
     def _qkv(self, h, cos_sin):
         B, s, _ = h.shape
         q = self.q(h).view(B, s, self.heads, self.cfg.head_dim)
         k, v = self._kv(h, cos_sin)
-        return self._rope(q, cos_sin), k, v
+        return self._pos(q, cos_sin, self.q_norm), k, v
 
     def _in(self, x):
         """The attention input: the block input, normed first unless the
-        block is post-norm."""
-        return x if self.cfg.post_norm else self.attn_norm(x)
+        block is post-norm or normalizes its sublayer outputs only."""
+        cfg = self.cfg
+        if cfg.post_norm or cfg.sublayer_postnorm_only:
+            return x
+        return self.attn_norm(x)
+
+    def _scaled(self, y):
+        return y if self.residual_scale is None else y * self.residual_scale
 
     def _mlp(self, h):
         if self.gate is not None:
@@ -293,18 +367,33 @@ class Block(nn.Module):
         """o projection, then the residual topology and the MLP (the
         reference's ``_block_tail``): parallel (attention and MLP read
         the same input, one residual add; one shared norm or two),
-        sequential pre-norm, or post-norm (each residual sum normed)."""
+        sequential pre-norm, or post-norm (each residual sum normed).
+        Each sublayer output is normed by the sandwich norm
+        (``post_block_norms``) or, post-only, by the block's own norm
+        (``sublayer_postnorm_only``: x + norm(f(x))), then scaled by
+        ``residual_scale``, before its residual add."""
         cfg = self.cfg
         B, s = attn.shape[:2]
         attn = self.o(attn.reshape(B, s, self.heads * cfg.head_dim))
+        if self.attn_post_norm is not None:
+            attn = self.attn_post_norm(attn)
+        elif cfg.sublayer_postnorm_only:
+            attn = self.attn_norm(attn)
+        attn = self._scaled(attn)
         if cfg.parallel_residual:
             h2 = h if self.mlp_norm is None else self.mlp_norm(x)
-            return x + attn + self._mlp(h2)
+            return x + attn + self._scaled(self._mlp(h2))
         x = x + attn
         if cfg.post_norm:
             x = self.attn_norm(x)
-            return self.mlp_norm(x + self._mlp(x))
-        return x + self._mlp(self.mlp_norm(x))
+        m = self._mlp(x if cfg.post_norm or cfg.sublayer_postnorm_only
+                      else self.mlp_norm(x))
+        if self.mlp_post_norm is not None:
+            m = self.mlp_post_norm(m)
+        elif cfg.sublayer_postnorm_only:
+            m = self.mlp_norm(m)
+        x = x + self._scaled(m)
+        return self.mlp_norm(x) if cfg.post_norm else x
 
     def forward(self, x, cache_k, cache_v, slots, cos_sin, new_lengths,
                 is_prefill: bool):
@@ -312,13 +401,14 @@ class Block(nn.Module):
         q, k, v = self._qkv(h, cos_sin)
         write_block(cache_k, k, None, slots)
         write_block(cache_v, v, None, slots)
-        window = self.cfg.sliding_window
+        cap = self.cfg.attn_softcap
         if is_prefill:
-            attn = attend_prefill(q, k, v, sliding_window=window,
-                                  alibi=self.alibi)
+            attn = attend_prefill(q, k, v, sliding_window=self.window,
+                                  alibi=self.alibi, softcap=cap)
         else:
             attn = attend_decode(q, cache_k, cache_v, new_lengths,
-                                 sliding_window=window, alibi=self.alibi)
+                                 sliding_window=self.window,
+                                 alibi=self.alibi, softcap=cap)
         return self._tail(x, h, attn)
 
     def paged_prefill(self, x, ck, cv, cos_sin, tail_blocks, prefix_blocks,
@@ -332,8 +422,9 @@ class Block(nn.Module):
         write_block_run(cv, v, tail_blocks)
         attn = paged_attend_prefix(q, k, v, ck, cv, prefix_blocks,
                                    prefix_len, q_positions, tail_valid,
-                                   sliding_window=self.cfg.sliding_window,
-                                   alibi=self.alibi)
+                                   sliding_window=self.window,
+                                   alibi=self.alibi,
+                                   softcap=self.cfg.attn_softcap)
         return self._tail(x, h, attn)
 
     def paged_decode(self, x, ck, cv, cos_sin, block_tables, context_lens,
@@ -356,16 +447,17 @@ class Block(nn.Module):
         write_token(ck, k[:, 0], block_tables, context_lens)
         write_token(cv, v[:, 0], block_tables, context_lens)
         new_lens = context_lens + 1
-        window = self.cfg.sliding_window
         if fused:
             cos, sin = fused_rope or (None, None)
             attn = fused_decode.fused_decode_step(
                 h[:, 0], q_leaf, ck, cv, block_tables, new_lens,
-                rope_cos=cos, rope_sin=sin, sliding_window=window)[:, None]
+                rope_cos=cos, rope_sin=sin,
+                sliding_window=self.window)[:, None]
         else:
             attn = paged_attend_decode(q, ck, cv, block_tables, new_lens,
-                                       sliding_window=window,
-                                       alibi=self.alibi)
+                                       sliding_window=self.window,
+                                       alibi=self.alibi,
+                                       softcap=self.cfg.attn_softcap)
         return self._tail(x, h, attn)
 
 
@@ -397,7 +489,8 @@ class Transformer(nn.Module):
         self.embed = Embed(cfg, params, self.dtype, tp)
         self.layers = nn.ModuleList([
             Block(cfg, {k[len(f"layers.{i}."):]: t for k, t in params.items()
-                        if k.startswith(f"layers.{i}.")}, tp, self.alibi)
+                        if k.startswith(f"layers.{i}.")}, tp, self.alibi,
+                  i, self.dtype)
             for i in range(cfg.num_layers)])
         self.final_norm = (None if cfg.post_norm
                            else _norm(cfg, params, "final_norm"))
@@ -408,10 +501,11 @@ class Transformer(nn.Module):
 
     def unembed(self, x):
         """Final norm (none post-norm), opt-350m's ``project_out``, then the
-        logits head, f32: the untied ``lm_head`` (bias included) or the
-        tied embedding table, whose int8 form applies its row scale to
-        the vocabulary columns (under tp: the rank's vocabulary columns,
-        gathered)."""
+        logits head: the untied ``lm_head`` (bias included) or the tied
+        embedding table, whose int8 form applies its row scale to the
+        vocabulary columns (under tp: the rank's vocabulary columns,
+        gathered); then, in the compute dtype as the reference's
+        ``_head_post``, ``logit_scale`` and ``logit_softcap``; f32 out."""
         if self.final_norm is not None:
             x = self.final_norm(x)
         if self.project_out is not None:
@@ -423,12 +517,18 @@ class Transformer(nn.Module):
             logits = logits * self.embed.rscale.to(x.dtype)
         else:
             logits = torch.matmul(x, self.embed.tokens.to(x.dtype).t())
+        cfg = self.cfg
+        if cfg.logit_scale is not None:
+            logits = logits * _dtype_scalar(cfg.logit_scale, logits.dtype)
+        if cfg.logit_softcap is not None:
+            cap = _dtype_scalar(cfg.logit_softcap, logits.dtype)
+            logits = torch.tanh(logits / cap) * cap
         logits = logits.float()
         return logits if self.tp is None else self.tp.gather(logits)
 
     def _cos_sin(self, positions):
-        """The rows every layer's RoPE shares, over the rotated width; None
-        without rotary positions."""
+        """The rows every rotating layer's RoPE shares, over the rotated
+        width; None without rotary positions."""
         cfg = self.cfg
         if cfg.position_embedding != "rope":
             return None

@@ -7,8 +7,9 @@
 - ``attend_prefill`` / ``attend_decode``: the two regimes of the serving
   path. They pick by tensor device, not by a backend flag: a CUDA tensor
   goes to the hand-written kernel (ops/flash_attention.py), a CPU tensor
-  to the kernel's plain version. Softcap and sinks (gemma2, gpt-oss) are
-  not llama features and raise until their families are ported.
+  to the kernel's plain version. The score softcap (gemma2) runs in the
+  kernels' cap arm; sinks (gpt-oss) raise until their family is
+  ported.
 """
 
 from __future__ import annotations
@@ -35,10 +36,9 @@ def alibi_slopes(num_heads: int, device=None):
     return torch.tensor(slopes, dtype=torch.float32, device=device)
 
 
-def _unported(softcap, sinks):
-    if softcap is not None or sinks is not None:
-        raise NotImplementedError(
-            "attention softcap and sinks are not ported yet")
+def _unported(sinks):
+    if sinks is not None:
+        raise NotImplementedError("attention sinks are not ported yet")
 
 
 def attend(q, k, v, q_positions, kv_positions, kv_valid,
@@ -53,18 +53,18 @@ def attend(q, k, v, q_positions, kv_positions, kv_valid,
     The reference's formulation, except that a row with no admissible key
     yields 0 (as the kernels do) instead of an average over masked slots.
     """
-    _unported(softcap, sinks)
+    _unported(sinks)
     return masked_attention(q, k, v, q_positions, kv_positions, kv_valid,
-                            sliding_window, alibi, scale)
+                            sliding_window, alibi, scale, softcap)
 
 
 def attend_prefill(q, k, v, *, sliding_window: Optional[int] = None,
                    alibi=None, softcap: Optional[float] = None, sinks=None):
     """Causal self-attention over the fresh (uncached) K/V block: the
     prefill kernel on CUDA, its plain version on the CPU."""
-    _unported(softcap, sinks)
+    _unported(sinks)
     return flash_attention(q, k, v, sliding_window=sliding_window,
-                           alibi=alibi)
+                           alibi=alibi, softcap=softcap)
 
 
 def attend_decode(q, cache_k, cache_v, lengths, *,
@@ -73,9 +73,10 @@ def attend_decode(q, cache_k, cache_v, lengths, *,
     """Single-token cached attention: ``lengths`` counts filled slots
     including the token just written; the query sits at ``lengths - 1``.
     Multi-token verification (speculative decoding) is not ported."""
-    _unported(softcap, sinks)
+    _unported(sinks)
     if q.shape[1] != 1:
         raise NotImplementedError(
             "multi-token decode (speculative verify) is not ported yet")
     return flash_decode(q, cache_k, cache_v, lengths,
-                        sliding_window=sliding_window, alibi=alibi)
+                        sliding_window=sliding_window, alibi=alibi,
+                        softcap=softcap)

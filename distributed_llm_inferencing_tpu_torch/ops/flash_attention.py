@@ -15,8 +15,12 @@ the plain versions, which compute the same function:
   partials, a second merges them by log-sum-exp;
   ``flash_decode_split_ref`` is that arithmetic in plain PyTorch.
 
-Both take an optional static ``sliding_window`` and per-head ALiBi
-``alibi`` slopes [H]; rows with no admissible key come out 0.
+Both take an optional static ``sliding_window``, per-head ALiBi
+``alibi`` slopes [H] and a score ``softcap`` (gemma2's
+``cap * tanh(score / cap)`` on the scaled score, before ALiBi and the
+masks); rows with no admissible key come out 0. Without a cap the
+kernels take the branch they always took: the same bits as before the
+cap arm existed.
 
 A wrapper runs the plain version only for a CPU tensor. For a CUDA
 tensor it launches the kernel, or raises: there is no fallback. Each
@@ -57,13 +61,13 @@ def _kernels():
         lib = build.load("flash_attention")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dli_flash_attention_fwd.argtypes = (
-            [P, P, P, P, P] + [I] * 6 + [P, F, I, P])
+            [P, P, P, P, P] + [I] * 6 + [P, F, I, F, P])
         lib.dli_flash_attention_fwd.restype = I
         lib.dli_flash_attention_mma_fwd.argtypes = (
-            [P, P, P, P, P] + [I] * 5 + [P, F, I, P])
+            [P, P, P, P, P] + [I] * 5 + [P, F, I, F, P])
         lib.dli_flash_attention_mma_fwd.restype = I
         lib.dli_flash_decode_fwd.argtypes = (
-            [P] * 7 + [I] * 7 + [P, F, I, P])
+            [P] * 7 + [I] * 7 + [P, F, I, F, P])
         lib.dli_flash_decode_fwd.restype = I
         _lib = lib
     return _lib
@@ -112,17 +116,27 @@ def _window(sliding_window) -> int:
     return int(sliding_window)
 
 
+def _softcap(softcap) -> float:
+    """The kernels' cap argument: 0 for none."""
+    if softcap is None:
+        return 0.0
+    if not float(softcap) > 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    return float(softcap)
+
+
 def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
 def masked_attention(q, k, v, q_pos, kv_pos, kv_valid,
                      sliding_window: Optional[int] = None, alibi=None,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None,
+                     softcap: Optional[float] = None):
     """Causal attention in plain PyTorch, the kernels' function: f32
-    scores, scale (default hd**-0.5), ALiBi slope*(kv - q), mask (kv <= q,
-    slot valid, q - kv < window), softmax, and 0 for a row with no
-    admissible key. q [B,Sq,H,hd]; k/v [B,Skv,Hkv,hd]; q_pos [B,Sq];
+    scores, scale (default hd**-0.5), ``softcap * tanh(s / softcap)``,
+    ALiBi slope*(kv - q), mask (kv <= q, slot valid, q - kv < window),
+    softmax, and 0 for a row with no admissible key. q [B,Sq,H,hd]; k/v [B,Skv,Hkv,hd]; q_pos [B,Sq];
     kv_pos/kv_valid [B,Skv]. GQA groups by reshape (no repeat)."""
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
@@ -131,6 +145,8 @@ def masked_attention(q, k, v, q_pos, kv_pos, kv_valid,
         scale = 1.0 / math.sqrt(hd)
     qf = q.float().reshape(B, Sq, Hkv, G, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
     rel = kv_pos[:, None, :] - q_pos[:, :, None]                # [B,Sq,Skv]
     if alibi is not None:
         sl = alibi.float().to(q.device).reshape(1, Hkv, G, 1, 1)
@@ -154,14 +170,14 @@ def masked_attention(q, k, v, q_pos, kv_pos, kv_valid,
 # ----------------------------------------------------------------------
 
 def flash_attention_ref(q, k, v, *, sliding_window: Optional[int] = None,
-                        alibi=None):
+                        alibi=None, softcap: Optional[float] = None):
     """Plain version of ``flash_attention``."""
     B, S = q.shape[:2]
     pos = torch.arange(S, device=q.device).expand(B, S)
     return masked_attention(q, k, v, pos, pos,
                             torch.ones(B, S, dtype=torch.bool,
                                        device=q.device),
-                            sliding_window, alibi)
+                            sliding_window, alibi, softcap=softcap)
 
 
 def prefill_form(dtype, head_dim: int) -> str:
@@ -172,17 +188,19 @@ def prefill_form(dtype, head_dim: int) -> str:
 
 
 def flash_attention(q, k, v, *, sliding_window: Optional[int] = None,
-                    alibi=None):
+                    alibi=None, softcap: Optional[float] = None):
     """Causal flash attention over the fresh block (prefill).
 
-    q [B,S,H,hd]; k/v [B,S,Hkv,hd]; ``alibi`` [H] f32 slopes. Returns
+    q [B,S,H,hd]; k/v [B,S,Hkv,hd]; ``alibi`` [H] f32 slopes; ``softcap``
+    a score cap or None. Returns
     [B,S,H,hd] in q's dtype. CUDA tensors launch the kernel; CPU tensors
     run ``flash_attention_ref``.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, sliding_window=sliding_window,
-                                   alibi=alibi)
+                                   alibi=alibi, softcap=softcap)
     _check_inputs("flash_attention", q, k, v, alibi)
+    cap = _softcap(softcap)
     B, S, H, hd = q.shape
     if k.shape[1] != S:
         raise ValueError("flash_attention: k/v must hold the same S as q")
@@ -199,11 +217,11 @@ def flash_attention(q, k, v, *, sliding_window: Optional[int] = None,
         if mma:
             err = lib.dli_flash_attention_mma_fwd(
                 *ptrs, B, S, H, k.shape[2], hd, strides,
-                1.0 / math.sqrt(hd), window, stream)
+                1.0 / math.sqrt(hd), window, cap, stream)
         else:
             err = lib.dli_flash_attention_fwd(
                 *ptrs, _DTYPE_CODE[q.dtype], B, S, H, k.shape[2], hd,
-                strides, 1.0 / math.sqrt(hd), window, stream)
+                strides, 1.0 / math.sqrt(hd), window, cap, stream)
     build.check(lib, err, "flash_attention kernel launch")
     launches.count(flash_attention, mma)
     return out
@@ -218,13 +236,15 @@ flash_attention.launches_mma = 0
 # ----------------------------------------------------------------------
 
 def flash_decode_ref(q, k, v, lengths, *,
-                     sliding_window: Optional[int] = None, alibi=None):
+                     sliding_window: Optional[int] = None, alibi=None,
+                     softcap: Optional[float] = None):
     """Plain version of ``flash_decode``."""
     B, S = k.shape[:2]
     lengths = lengths.to(torch.int64)
     kv_pos = torch.arange(S, device=q.device).expand(B, S)
     return masked_attention(q, k, v, (lengths - 1)[:, None], kv_pos,
-                            kv_pos < lengths[:, None], sliding_window, alibi)
+                            kv_pos < lengths[:, None], sliding_window, alibi,
+                            softcap=softcap)
 
 
 def decode_split(batch: int, num_heads: int, kv_heads: int, capacity: int,
@@ -253,7 +273,7 @@ def _sm_count(index: int) -> int:
 
 def flash_decode_split_ref(q, k, v, lengths, *,
                            sliding_window: Optional[int] = None, alibi=None,
-                           split: int = 64):
+                           softcap: Optional[float] = None, split: int = 64):
     """The decode kernel's split arithmetic in plain PyTorch (f32): each
     row's keys [max(0, len - window), len) cut into the ranges
     [s*split, (s+1)*split) for s < ceil(S / split), a partial (m, l, acc)
@@ -275,6 +295,8 @@ def flash_decode_split_ref(q, k, v, lengths, *,
         valid &= pos[None, :] >= (lens - sliding_window)[:, None]
     qf = q.float().reshape(B, Hkv, G, hd)
     s = torch.einsum("bhgd,bthd->bhgt", qf, kf) / math.sqrt(hd)
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
     if alibi is not None:
         rel = (pos[None, :] - (lens - 1)[:, None]).float()       # [B, n]
         s = s + alibi.float().to(q.device).reshape(1, Hkv, G, 1) \
@@ -291,7 +313,7 @@ def flash_decode_split_ref(q, k, v, lengths, *,
 
 
 def flash_decode(q, k, v, lengths, *, sliding_window: Optional[int] = None,
-                 alibi=None):
+                 alibi=None, softcap: Optional[float] = None):
     """Cached single-token attention (the decode hot loop).
 
     q [B,1,H,hd]; k/v [B,S,Hkv,hd] (the cache, already holding the new
@@ -302,8 +324,10 @@ def flash_decode(q, k, v, lengths, *, sliding_window: Optional[int] = None,
     """
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, lengths,
-                                sliding_window=sliding_window, alibi=alibi)
+                                sliding_window=sliding_window, alibi=alibi,
+                                softcap=softcap)
     _check_inputs("flash_decode", q, k, v, alibi)
+    cap = _softcap(softcap)
     B, one, H, hd = q.shape
     if one != 1:
         raise ValueError("flash_decode takes exactly one query token")
@@ -327,7 +351,7 @@ def flash_decode(q, k, v, lengths, *, sliding_window: Optional[int] = None,
             _DTYPE_CODE[q.dtype], B, H, Hkv, hd, split, ns,
             _strides((q, (0, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                      (out, (0, 2))),
-            1.0 / math.sqrt(hd), window, stream)
+            1.0 / math.sqrt(hd), window, cap, stream)
     build.check(lib, err, "flash_decode kernel launch")
     launches.count(flash_decode)
     return out

@@ -2,7 +2,9 @@
 dtype — the reference's recipe (bf16 matmuls, f32 reductions).
 
 ``norm`` / ``Norm`` pick the form by ``norm_type``: "rmsnorm" reads a
-leaf ``{"scale"}``, "layernorm" ``{"scale", "bias"}``.
+leaf ``{"scale"}``, "layernorm" ``{"scale", "bias"}``. ``qk_normalize``
+is the reference's ``_qk_normalize``, the q/k norms of
+``ModelConfig.qk_norm``.
 """
 
 from __future__ import annotations
@@ -52,3 +54,20 @@ class Norm(nn.Module):
     def forward(self, x):
         return norm(x, {"scale": self.scale, "bias": self.bias},
                     self.norm_type, self.eps)
+
+
+def qk_normalize(t, scale, kind: str, eps: float):
+    """``ModelConfig.qk_norm`` on a projected q or k [B,s,H,hd]:
+    "rms_head" RMS-normalizes each head over hd with one shared [hd]
+    scale (qwen3); "ln_head" is a bias-free LayerNorm per head with
+    distinct per-head scales, stored flat [H*hd] (cohere); "rms_full"
+    RMS-normalizes the flattened [H*hd] projection (olmo2)."""
+    B, s, H, hd = t.shape
+    if kind == "rms_full":
+        return rms_norm(t.reshape(B, s, H * hd), scale,
+                        eps).reshape(B, s, H, hd)
+    if kind == "ln_head":
+        return layer_norm(t, scale.reshape(H, hd),
+                          torch.zeros((), dtype=t.dtype, device=t.device),
+                          eps)
+    return rms_norm(t, scale, eps)

@@ -9,8 +9,9 @@ plain version, which computes the same function:
 one query token per serving slot, q [R,1,H,hd], against one layer's block
 pool [NB,bs,Hkv,hd] through ``block_tables`` [R,MB] int32 and
 ``context_lens`` [R] int32 (fill after this token's write: the query sits
-at ``context_lens - 1``). Optional static ``sliding_window``; no ALiBi and
-no int8 pool, as on the TPU. A row with no admissible key comes out 0.
+at ``context_lens - 1``). Optional static ``sliding_window`` and score
+``softcap`` (ops/flash_attention.py); no ALiBi and no int8 pool, as on
+the TPU. A row with no admissible key comes out 0.
 
 The kernel is split-KV: a first pass attends each slot's keys in ranges
 of ``PAGED_SPLIT`` keys and writes per-range partials (running max,
@@ -35,7 +36,8 @@ import torch
 
 from distributed_llm_inferencing_tpu_torch.ops import build, launches
 from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
-    MAX_HEAD_DIM, _DTYPE_CODE, _strides, _window, masked_attention)
+    MAX_HEAD_DIM, _DTYPE_CODE, _softcap, _strides, _window,
+    masked_attention)
 
 # keys per split of the kernel's first pass: a multiple of its 64-key tile
 PAGED_SPLIT = 256
@@ -48,7 +50,7 @@ def _kernels():
         lib = build.load("paged_attention")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dli_paged_decode_fwd.argtypes = (
-            [P] * 7 + [I] * 8 + [P, F, I, P])
+            [P] * 7 + [I] * 8 + [P, F, I, F, P])
         lib.dli_paged_decode_fwd.restype = I
         _lib = lib
     return _lib
@@ -92,7 +94,8 @@ def check_paged_inputs(name, q, k_pool, v_pool, block_tables, context_lens,
 
 
 def paged_flash_decode_ref(q, k_pool, v_pool, block_tables, context_lens, *,
-                           sliding_window: Optional[int] = None):
+                           sliding_window: Optional[int] = None,
+                           softcap: Optional[float] = None):
     """Plain version of ``paged_flash_decode``: gather each slot's blocks
     into a contiguous [R, MB*bs, Hkv, hd] view, then masked attention."""
     R, MB = block_tables.shape
@@ -103,7 +106,8 @@ def paged_flash_decode_ref(q, k_pool, v_pool, block_tables, context_lens, *,
     lens = context_lens.to(torch.int64)
     kv_pos = torch.arange(MB * bs, device=q.device).expand(R, MB * bs)
     return masked_attention(q, k, v, (lens - 1)[:, None], kv_pos,
-                            kv_pos < lens[:, None], sliding_window)
+                            kv_pos < lens[:, None], sliding_window,
+                            softcap=softcap)
 
 
 def num_splits(max_blocks: int, block_size: int,
@@ -136,6 +140,7 @@ def merge_partials(m, l, acc):
 def paged_flash_decode_split_ref(q, k_pool, v_pool, block_tables,
                                  context_lens, *,
                                  sliding_window: Optional[int] = None,
+                                 softcap: Optional[float] = None,
                                  split: int = PAGED_SPLIT):
     """The kernel's split arithmetic in plain PyTorch (f32): each slot's
     keys [max(0, len - window), len) cut into the ranges
@@ -159,6 +164,8 @@ def paged_flash_decode_split_ref(q, k_pool, v_pool, block_tables,
         valid &= pos[None, :] >= (lens - sliding_window)[:, None]
     qf = q.float().reshape(R, Hkv, H // Hkv, hd)
     s = torch.einsum("rhgd,rthd->rhgt", qf, k) / math.sqrt(hd)
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
     s = s.reshape(R, Hkv, H // Hkv, ns, split)
     m = s.amax(-1)
@@ -171,7 +178,8 @@ def paged_flash_decode_split_ref(q, k_pool, v_pool, block_tables,
 
 
 def paged_flash_decode(q, k_pool, v_pool, block_tables, context_lens, *,
-                       sliding_window: Optional[int] = None):
+                       sliding_window: Optional[int] = None,
+                       softcap: Optional[float] = None):
     """Paged single-token attention without a gather.
 
     q [R,1,H,hd]; k_pool/v_pool [NB,bs,Hkv,hd] (one layer's view of the
@@ -182,7 +190,8 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, context_lens, *,
     if q.device.type == "cpu":
         return paged_flash_decode_ref(q, k_pool, v_pool, block_tables,
                                       context_lens,
-                                      sliding_window=sliding_window)
+                                      sliding_window=sliding_window,
+                                      softcap=softcap)
     R, one, H, hd = q.shape
     if one != 1:
         raise ValueError("paged_flash_decode takes exactly one query token")
@@ -193,6 +202,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, context_lens, *,
         raise ValueError("paged_flash_decode: q must be [R,1,H,hd] with a "
                          "contiguous last dim and 16-byte aligned rows")
     window = _window(sliding_window)
+    cap = _softcap(softcap)
     bs = k_pool.shape[1]
     ns = num_splits(block_tables.shape[1], bs)
     out = torch.empty((R, 1, H, hd), dtype=q.dtype, device=q.device)
@@ -209,7 +219,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, context_lens, *,
             _strides((q, (0, 2)), (block_tables, (0,)),
                      (k_pool, (0, 1, 2)), (v_pool, (0, 1, 2)),
                      (out, (0, 2))),
-            1.0 / math.sqrt(hd), window, stream)
+            1.0 / math.sqrt(hd), window, cap, stream)
     build.check(lib, err, "paged_flash_decode kernel launch")
     launches.count(paged_flash_decode)
     return out

@@ -110,7 +110,7 @@ def gather_seq(cache_layer, block_tables):
 
 def gather_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
                          context_lens, sliding_window: Optional[int] = None,
-                         alibi=None):
+                         alibi=None, softcap: Optional[float] = None):
     """Single-token attention over the pool by the JAX package's XLA
     formulation (its ``paged_attend_decode`` off the Pallas kernel): each
     slot's blocks gathered into a contiguous [R, MB*bs, Hkv, hd] copy,
@@ -122,27 +122,30 @@ def gather_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
     kv_pos = torch.arange(k.shape[1], device=q.device).expand(r, -1)
     lens = context_lens.long()
     return masked_attention(q, k, v, (lens - 1)[:, None], kv_pos,
-                            kv_pos < lens[:, None], sliding_window, alibi)
+                            kv_pos < lens[:, None], sliding_window, alibi,
+                            softcap=softcap)
 
 
 def paged_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
                         context_lens, sliding_window: Optional[int] = None,
-                        alibi=None):
+                        alibi=None, softcap: Optional[float] = None):
     """The decode regime: q [R,1,H,hd] against the pool, ``context_lens``
     counting the token just written. The paged kernel on CUDA (its plain
-    version on the CPU); with ``alibi`` slopes [H] the gather formulation,
-    where the JAX package routes them too."""
+    version on the CPU), softcap included; with ``alibi`` slopes [H] the
+    gather formulation, where the JAX package routes them too."""
     if alibi is not None:
         return gather_attend_decode(q, cache_k_layer, cache_v_layer,
                                     block_tables, context_lens,
-                                    sliding_window, alibi)
+                                    sliding_window, alibi, softcap)
     return paged_flash_decode(q, cache_k_layer, cache_v_layer, block_tables,
-                              context_lens, sliding_window=sliding_window)
+                              context_lens, sliding_window=sliding_window,
+                              softcap=softcap)
 
 
 def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
                         prefix_blocks, prefix_len, q_positions, tail_valid,
-                        sliding_window: Optional[int] = None, alibi=None):
+                        sliding_window: Optional[int] = None, alibi=None,
+                        softcap: Optional[float] = None):
     """Tail-prefill attention: fresh tail K/V plus a cached prefix, whose
     K/V is gathered from the shared blocks — a prefix-cache hit saves the
     prefix's compute, not just its memory.
@@ -162,4 +165,5 @@ def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
     kv_pos = torch.cat([prefix_pos, q_positions.long()], dim=1)
     kv_valid = torch.cat([prefix_valid, tail_valid], dim=1)
     return masked_attention(q, k_all, v_all, q_positions.long(), kv_pos,
-                            kv_valid, sliding_window, alibi)
+                            kv_valid, sliding_window, alibi,
+                            softcap=softcap)

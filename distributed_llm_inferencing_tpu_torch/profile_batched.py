@@ -16,7 +16,9 @@ runtime/graphs.py; the batcher captures at construction, as the worker's
 load does, and the capture time is reported), it runs one warm-up
 round, ``--reps`` timed rounds (admission wave ms, decode chunk ms per
 weight pass, decode tokens per weight pass), and one round with the
-decode chunk under ``torch.profiler``: device time by kernel, its sum
+decode chunk under ``torch.profiler`` (in a trace shown to hold all of
+its kernels, ops/trace.py ``bracketed_trace``, the round's admission
+run again before each trace taken): device time by kernel, its sum
 per weight pass, and the device's busy share: that sum over the timed
 rounds' median ms per weight pass (one stream, so kernels never overlap;
 the profiler itself slows the host and each graph replay, so its own
@@ -38,16 +40,13 @@ import subprocess
 import time
 
 from distributed_llm_inferencing_tpu_torch.profile_engine import (
-    Q4_COUNTED, Q4_KERNELS, _device_us, per_launch)
+    Q4_COUNTED, Q4_KERNELS, per_launch)
 
 PROMPT_LENS = (60, 130, 250, 500, 300, 400, 700, 1000)
 
 
-def _round(b, prompts, new, sp, prof=None):
-    """Queue every prompt, admit them in one wave, then decode them in one
-    chunk (under ``prof`` when given, a torch.profiler context)."""
-    import contextlib
-
+def _admit(b, prompts, new, sp):
+    """Queue every prompt and admit them in one wave: (requests, ms)."""
     import torch
     reqs = [b.submit(p, max_new_tokens=new, sampling=sp, seed=i)
             for i, p in enumerate(prompts)]
@@ -55,35 +54,44 @@ def _round(b, prompts, new, sp, prof=None):
     with torch.inference_mode():
         b._admit_wave()
     torch.cuda.synchronize()
+    return reqs, (time.perf_counter() - t0) * 1e3
+
+
+def _chunk(b, reqs, admit_ms):
+    """Decode the admitted requests in one chunk: the round's numbers."""
+    import torch
     t1 = time.perf_counter()
-    with prof or contextlib.nullcontext():
-        b.step()                      # one decode chunk for every slot
-        torch.cuda.synchronize()
+    b.step()                          # one decode chunk for every slot
+    torch.cuda.synchronize()
     t2 = time.perf_counter()
     assert all(r.done.is_set() for r in reqs), "one chunk must finish them"
     passes = max(r.cost["weight_passes"] for r in reqs)
     chunk_ms = (t2 - t1) * 1e3
-    return {"admit_wave_ms": (t1 - t0) * 1e3, "decode_chunk_ms": chunk_ms,
+    return {"admit_wave_ms": admit_ms, "decode_chunk_ms": chunk_ms,
             "weight_passes": passes,
             "ms_per_weight_pass": chunk_ms / passes,
             "decode_tokens_per_weight_pass":
                 sum(len(r.tokens) - 1 for r in reqs) / passes}
 
 
+def _round(b, prompts, new, sp):
+    return _chunk(b, *_admit(b, prompts, new, sp))
+
+
 def _profile(b, prompts, new, sp, reps):
     """One warm-up round, ``reps`` timed ones and one with the decode
     chunk under torch.profiler, through ``b`` as it is set up now."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from distributed_llm_inferencing_tpu_torch.ops.trace import (
+        bracketed_trace, kernel_times)
     _round(b, prompts, new, sp)                                # warm-up
     timed = [_round(b, prompts, new, sp) for _ in range(reps)]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    prof_round = _round(b, prompts, new, sp, prof)
-    kernels = {}
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and evt.key and not evt.key.startswith("aten::"):
-            kernels[evt.key] = {"device_ms": us / 1e3, "calls": evt.count}
+    admitted = []
+
+    def setup():
+        admitted[:] = [_admit(b, prompts, new, sp)]
+    prof, prof_round, _ = bracketed_trace(
+        lambda: _chunk(b, *admitted[0]), setup=setup)
+    kernels = kernel_times(prof)
     device_ms = sum(k["device_ms"] for k in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])
     per_pass = device_ms / prof_round["weight_passes"]

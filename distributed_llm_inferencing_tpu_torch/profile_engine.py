@@ -11,8 +11,9 @@ decode step captured as a CUDA graph and run eagerly
 same engine: one request to warm up (first-use cuBLAS and kernel
 loading; with graphs, the capture, whose time is reported), ``--reps``
 timed greedy requests (prefill ms, ms per decode step and decode
-tokens/s from CUDA events), then one request under ``torch.profiler``:
-device time by kernel, the two attention kernels' time per launch
+tokens/s from CUDA events), then one request under ``torch.profiler``
+in a trace shown to hold all of its kernels (ops/trace.py
+``bracketed_trace``): device time by kernel, the two attention kernels' time per launch
 (``flash_decode``'s split pass and merge together), and the device's
 busy share: the request's kernel time over the timed requests' median
 prefill + decode ms (one stream, so kernels never overlap; the profiler
@@ -29,13 +30,6 @@ import os
 import statistics
 import subprocess
 import time
-
-
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
 
 
 # the kernels of one wrapper call, and the one that counts the calls
@@ -58,11 +52,10 @@ def per_launch(kernels, names, counted=None):
 def _profile(eng, prompt, args):
     """One warm-up request, ``args.reps`` timed ones and one under
     torch.profiler, greedy, through ``eng`` as it is set up now."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from distributed_llm_inferencing_tpu_torch.ops.sampling import (
         SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.ops.trace import (
+        bracketed_trace, kernel_times)
     greedy = SamplingParams.greedy()
     eng.generate([prompt], max_new_tokens=args.new, sampling=greedy)  # warm
 
@@ -73,18 +66,14 @@ def _profile(eng, prompt, args):
                      "decode_tokens_per_s": r.decode_tokens_per_s,
                      "ms_per_decode_step": r.decode_ms / max(1, r.steps - 1)})
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def request():
+        import torch
         t0 = time.perf_counter()
         r = eng.generate([prompt], max_new_tokens=args.new, sampling=greedy)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and evt.key and not evt.key.startswith("aten::"):
-            kernels[evt.key] = {"device_ms": us / 1e3, "calls": evt.count}
+        return r, (time.perf_counter() - t0) * 1e3
+    prof, (r, wall_ms), _ = bracketed_trace(request)
+    kernels = kernel_times(prof)
     device_ms = sum(k["device_ms"] for k in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])[:12]
     return {

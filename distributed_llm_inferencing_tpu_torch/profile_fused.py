@@ -222,22 +222,19 @@ def _cases(torch, g):
 
 
 def _device_ms(torch, fns, iters=30):
-    from torch.profiler import ProfilerActivity, profile
-
-    from distributed_llm_inferencing_tpu_torch.profile_engine import (
-        _device_us)
+    """Device ms per call over ``iters`` calls round-robin over ``fns``, in
+    a trace shown to hold all of their kernels (ops/trace.py)."""
+    from distributed_llm_inferencing_tpu_torch.ops.trace import (
+        bracketed_trace, kernel_times)
     it = itertools.cycle(fns)
     for _ in range(3):
         next(it)()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             next(it)()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if e.key and not e.key.startswith("aten::"))
-    return us / 1e3 / iters
+    prof, _, _ = bracketed_trace(calls)
+    return sum(k["device_ms"] for k in kernel_times(prof).values()) / iters
 
 
 def main(argv=None):

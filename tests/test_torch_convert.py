@@ -110,6 +110,46 @@ HF_TINY = {
     "ernie4_5": ("Ernie4_5Config", "Ernie4_5ForCausalLM",
                  dict(_L, num_key_value_heads=2, head_dim=16,
                       pad_token_id=0)),
+    # the later types: windows of 8 (shorter than the token tests'
+    # prompts) on some layers, caps small enough to bite at these sizes
+    "gpt_neo": ("GPTNeoConfig", "GPTNeoForCausalLM",
+                dict(_T, hidden_size=32, num_layers=2, num_heads=4,
+                     max_position_embeddings=128, window_size=8,
+                     attention_types=[[["global", "local"], 1]])),
+    "gemma2": ("Gemma2Config", "Gemma2ForCausalLM",
+               dict(_L, num_key_value_heads=2, head_dim=16, sliding_window=8,
+                    query_pre_attn_scalar=24, attn_logit_softcapping=0.1,
+                    final_logit_softcapping=0.5, pad_token_id=0)),
+    "cohere": ("CohereConfig", "CohereForCausalLM",
+               dict(_L, num_key_value_heads=2, use_qk_norm=True,
+                    logit_scale=0.5, pad_token_id=0)),
+    "qwen3": ("Qwen3Config", "Qwen3ForCausalLM",
+              dict(_L, num_key_value_heads=2, head_dim=16,
+                   use_sliding_window=True, sliding_window=8,
+                   max_window_layers=1)),
+    "granite": ("GraniteConfig", "GraniteForCausalLM",
+                dict(_L, num_key_value_heads=2, embedding_multiplier=2.0,
+                     attention_multiplier=0.3, residual_multiplier=0.5,
+                     logits_scaling=2.0, pad_token_id=0)),
+    "olmo2": ("Olmo2Config", "Olmo2ForCausalLM",
+              dict(_L, num_key_value_heads=2, pad_token_id=0)),
+    "glm4": ("Glm4Config", "Glm4ForCausalLM",
+             dict(_L, num_key_value_heads=2, head_dim=16,
+                  partial_rotary_factor=0.5, attention_bias=True,
+                  pad_token_id=0)),
+    "nemotron": ("NemotronConfig", "NemotronForCausalLM",
+                 dict(_L, num_key_value_heads=2, partial_rotary_factor=0.5,
+                      pad_token_id=0)),
+    "smollm3": ("SmolLM3Config", "SmolLM3ForCausalLM",
+                dict(_L, num_key_value_heads=2, no_rope_layers=[1, 0],
+                     use_sliding_window=True, sliding_window=8,
+                     pad_token_id=0)),
+    "hunyuan_v1_dense": ("HunYuanDenseV1Config", "HunYuanDenseV1ForCausalLM",
+                         dict(_L, num_key_value_heads=2, head_dim=8,
+                              pad_token_id=0)),
+    "exaone4": ("Exaone4Config", "Exaone4ForCausalLM",
+                dict(_L, num_key_value_heads=2, sliding_window=8,
+                     sliding_window_pattern=2, pad_token_id=0)),
 }
 TYPES = list(HF_TINY)
 # a weights-only case: biases on every linear, the gated MLP's gate too
@@ -229,7 +269,7 @@ def test_config_from_hf_class_defaults_match_jax(mt):
 
 
 @pytest.mark.parametrize("conf,switch", [
-    ({"model_type": "qwen3"}, "qk_norm"),
+    ({"model_type": "qwen3_moe"}, "num_experts"),
     ({"model_type": "mixtral"}, "num_experts"),
     ({"model_type": "phi", "qk_layernorm": True}, "qk_layernorm"),
     ({"model_type": "qwen2", "use_sliding_window": True,
@@ -239,6 +279,17 @@ def test_config_from_hf_class_defaults_match_jax(mt):
 def test_refused_types_and_switches_name_the_cause(conf, switch):
     with pytest.raises(NotImplementedError, match=switch):
         convert.config_from_hf(conf)
+
+
+@pytest.mark.parametrize("mt", sorted(convert.REFUSED_MODEL_TYPES))
+def test_experts_and_latent_attention_types_stay_refused(mt):
+    """The types of ROADMAP Queue A's experts and latent attention items
+    are refused by name, naming the switch that keeps each out."""
+    switches, _ = convert.REFUSED_MODEL_TYPES[mt]
+    assert "num_experts" in switches
+    with pytest.raises(NotImplementedError,
+                       match=f"{mt!r}.*{switches.split(',')[0]}"):
+        convert.config_from_hf({"model_type": mt})
 
 
 def test_rope_scaling_type_aliases_match_jax():

@@ -51,10 +51,11 @@ def batch_prompts():
     return out + [out[0][:16] + rng.integers(0, 128, 7).tolist()]
 
 
-def drive(b, sampling, max_new=8, steps=300):
+def drive(b, sampling, max_new=8, steps=300, prompts=None):
     b.DECODE_CHUNKS = (4,)
     reqs = [b.submit(p, max_new_tokens=max_new, sampling=sampling.greedy(),
-                     seed=50 + i) for i, p in enumerate(batch_prompts())]
+                     seed=50 + i)
+            for i, p in enumerate(prompts or batch_prompts())]
     for _ in range(steps):
         b.step()
         if all(r.done.is_set() for r in reqs):
@@ -63,7 +64,10 @@ def drive(b, sampling, max_new=8, steps=300):
             [r.cost["prefill_cached_tokens"] for r in reqs])
 
 
-def check_tokens(mt, monkeypatch):
+def check_tokens(mt, monkeypatch, prompts=None):
+    """``mt``'s engine and batcher tokens against the JAX package's; the
+    batchers serve ``prompts`` (default ``batch_prompts()``: three fresh
+    prompts, the fourth sharing the first's first 16 tokens)."""
     monkeypatch.setenv("DLI_FUSED_DECODE", "0")
     jcfg, jparams, cfg, params = loaded(mt)
     ref = JaxEngine(jcfg, jparams, max_seq=96).generate(
@@ -71,10 +75,11 @@ def check_tokens(mt, monkeypatch):
     got = InferenceEngine(cfg, params, max_seq=96, device="cpu").generate(
         PROMPTS, max_new_tokens=8, sampling=SamplingParams.greedy()).tokens
     assert got == ref and all(len(t) == 8 for t in ref)
-    ref = drive(JaxBatcher(jcfg, jparams, **POOL), JaxSamplingParams)
+    ref = drive(JaxBatcher(jcfg, jparams, **POOL), JaxSamplingParams,
+                prompts=prompts)
     assert ref[1][3] == 16                              # the prefix hit
     assert drive(ContinuousBatcher(cfg, params, device="cpu", **POOL),
-                 SamplingParams) == ref
+                 SamplingParams, prompts=prompts) == ref
 
 
 @pytest.mark.parametrize("mt", GROUP)

@@ -5,8 +5,12 @@ fused_decode_step (float, int8 and int4 weight forms, bf16 and f32, over
 the cluster kernel's edges: row groups, item edges, windows, MHA/GQA/MQA,
 hd 16-256), q4_matmul and q4_matmul_row (both forms: bf16 on the tensor
 cores, f32 on the CUDA cores); the dense families' head shapes (ALiBi
-heads, a group of 71, hd 80 and 256) through the attention kernels. The tensor-core kernels, the split-KV
-decodes and the fused kernel are also held to the same bits across two
+heads, a group of 71, hd 80 and 256) through the attention kernels; the
+softcap arms of flash_attention, flash_decode and paged_flash_decode
+(gemma-2's heads and cap, caps that bite, GQA/MQA, windows, ALiBi), and
+the uncapped arms' bits against digests taken before the cap arm
+existed. The tensor-core kernels, the split-KV decodes, the softcap arms
+and the fused kernel are also held to the same bits across two
 launches.
 
 Marked ``cuda``: each test skips where no CUDA device is visible (the
@@ -661,3 +665,95 @@ def test_q4_matmul_f32_keeps_the_cuda_core_form():
     ref = qm.q4_matmul_ref(x, leaf["p4"], leaf["scale"])
     assert bool(((out - ref).abs()
                  <= q4_bound(x, leaf["p4"], leaf["scale"])).all())
+
+
+# ---- the softcap arms (gemma2's cap * tanh(score / cap)) -----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window,alibi,cap", [
+    (1, 512, 16, 8, 256, None, False, 50.0),     # gemma-2-9b's heads
+    (1, 300, 16, 8, 256, 64, False, 50.0),
+    (2, 77, 8, 2, 128, None, False, 1.5),        # odd length, GQA
+    (1, 129, 8, 1, 256, 50, False, 1.0),         # MQA, window
+    (2, 100, 8, 2, 64, 20, True, 3.0),           # with ALiBi
+])
+def test_softcap_prefill_matches_ref(dtype, B, S, H, Hkv, hd, window, alibi,
+                                     cap):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(S + hd)
+    q = _rand(g, (B, S, H, hd), dtype, dev)
+    k, v = (_rand(g, (B, S, Hkv, hd), dtype, dev) for _ in range(2))
+    sl = alibi_slopes(H, dev) if alibi else None
+    kw = dict(sliding_window=window, alibi=sl, softcap=cap)
+    out = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = fa.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    uncapped = fa.flash_attention_ref(q, k, v, sliding_window=window,
+                                      alibi=sl)
+    if cap < 10:   # the cap bites
+        assert not torch.allclose(ref.float(), uncapped.float(),
+                                  **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,S,H,Hkv,hd,window,alibi,cap", [
+    ([4500], 8192, 16, 8, 256, 4096, False, 50.0),   # past the window
+    ([1, 37, 300], 512, 8, 2, 128, None, False, 1.5),
+    ([0, 77, 1000], 1024, 8, 1, 256, 100, False, 2.0),
+    ([37, 101], 128, 8, 2, 32, None, True, 3.0),
+])
+def test_softcap_flash_decode_matches_ref(dtype, lengths, S, H, Hkv, hd,
+                                          window, alibi, cap):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(S + hd + 1)
+    B = len(lengths)
+    q = _rand(g, (B, 1, H, hd), dtype, dev)
+    k, v = (_rand(g, (B, S, Hkv, hd), dtype, dev) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sl = alibi_slopes(H, dev) if alibi else None
+    kw = dict(sliding_window=window, alibi=sl, softcap=cap)
+    out = fa.flash_decode(q, k, v, lens, **kw)
+    again = fa.flash_decode(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = fa.flash_decode_ref(q, k, v, lens, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,H,Hkv,hd,window,cap", [
+    ([4096] * 8, 16, 8, 256, None, 50.0),        # full occupancy
+    ([0, 1, 17, 300, 4500], 16, 8, 256, 4096, 50.0),
+    ([255, 256, 257, 513, 0], 8, 2, 128, None, 1.5),
+    ([300, 17], 8, 1, 256, 64, 2.0),
+])
+def test_softcap_paged_decode_matches_ref(dtype, lengths, H, Hkv, hd, window,
+                                          cap):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(len(lengths) + hd)
+    kp, vp, bt, lens = _paged_case(g, dev, dtype, lengths, H, Hkv, hd, 16)
+    q = _rand(g, (len(lengths), 1, H, hd), dtype, dev)
+    kw = dict(sliding_window=window, softcap=cap)
+    out = pa.paged_flash_decode(q, kp, vp, bt, lens, **kw)
+    again = pa.paged_flash_decode(q, kp, vp, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = pa.paged_flash_decode_ref(q, kp, vp, bt, lens, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **_paged_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_uncapped_kernels_keep_their_bits():
+    """Without a cap, flash_attention, flash_decode and paged_flash_decode
+    give the bits the kernels gave before the cap arm existed
+    (chip_smoke.UNCAPPED_DIGESTS, digests of their outputs on fixed
+    inputs, measured on an H100 from the tree without the arm)."""
+    _cuda()
+    import chip_smoke
+    assert chip_smoke.uncapped_digests(torch) == chip_smoke.UNCAPPED_DIGESTS

@@ -52,6 +52,12 @@ from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
     MeshSpec, validate_spec)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+# the JAX package's forward entry points, jitted once per config (static)
+# and shapes: its eager op-by-op dispatch retraces every scan per call
+jit_prefill, jit_decode_step, jit_paged_prefill_tail, jit_paged_decode_step = (
+    jax.jit(f, static_argnums=1) for f in (
+        jtf.prefill, jtf.decode_step, jtf.paged_prefill_tail,
+        jtf.paged_decode_step))
 _TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
              num_layers=2, num_heads=4, num_kv_heads=4, head_dim=16,
              max_position_embeddings=128)
@@ -154,7 +160,7 @@ def test_dense_logits_match_jax(name):
     lens = np.asarray([11, 16], np.int32)
     toks = rng.integers(0, jcfg.vocab_size, (B, S0)).astype(np.int32)
     toks[0, 11:] = 0                                   # right padding
-    jlog, jcache = jtf.prefill(jparams, jcfg, jnp.asarray(toks),
+    jlog, jcache = jit_prefill(jparams, jcfg, jnp.asarray(toks),
                                jnp.asarray(lens),
                                jax_init_cache(jcfg, B, max_seq))
     with torch.inference_mode():
@@ -166,7 +172,7 @@ def test_dense_logits_match_jax(name):
                                        np.asarray(jlog)[b, :n], **TOL)
         for _ in range(6):                              # teacher-forced
             nxt = rng.integers(0, jcfg.vocab_size, (B, 1)).astype(np.int32)
-            jlog, jcache = jtf.decode_step(jparams, jcfg, jnp.asarray(nxt),
+            jlog, jcache = jit_decode_step(jparams, jcfg, jnp.asarray(nxt),
                                            jcache)
             tlog, tcache = model.decode_step(torch.from_numpy(nxt).long(),
                                              tcache)
@@ -196,14 +202,9 @@ def test_apply_rope_partial_and_interleaved_match_jax(pct, interleaved, hd):
 
 
 @pytest.mark.parametrize("over", [
-    {"attn_windows": (None, 4)}, {"attn_softcap": 50.0},
-    {"logit_softcap": 30.0}, {"logit_scale": 0.5},
-    {"post_block_norms": True}, {"qk_norm": "rms_head"},
-    {"sublayer_postnorm_only": True}, {"qkv_clip": 8.0},
-    {"rope_layers": (1, 0)}, {"residual_scale": 0.5},
-    {"kv_lora_rank": 16}, {"num_experts": 4}, {"attn_sinks": True},
-    {"dense_prefix_layers": 1}, {"kv_quant": "int8"},
-    {"activation": "relu2"},
+    {"qkv_clip": 8.0}, {"kv_lora_rank": 16}, {"num_experts": 4},
+    {"attn_sinks": True}, {"dense_prefix_layers": 1}, {"kv_quant": "int8"},
+    {"qk_norm": "rms_whole"}, {"activation": "swish"},
 ])
 def test_features_outside_the_families_stay_refused(over):
     _, cfg = tiny_config("tiny-gpt2")

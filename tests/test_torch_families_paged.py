@@ -24,14 +24,15 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_llm_inferencing_tpu.models import transformer as jtf
 from distributed_llm_inferencing_tpu.ops.kvcache import (
     init_cache as jax_init_cache)
 from distributed_llm_inferencing_tpu.ops.paged_kvcache import (
     init_paged_cache as jax_init_paged)
 from distributed_llm_inferencing_tpu_torch.ops import paged_kvcache as tpk
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
-from test_torch_families import FAMILIES, TOL, family_pair
+from test_torch_families import (
+    FAMILIES, TOL, family_pair, jit_decode_step, jit_paged_decode_step,
+    jit_paged_prefill_tail, jit_prefill)
 
 _FUSED = ["tiny-gpt2", "gemma-7b", "gemma-2b", "falcon-7b"]
 
@@ -54,7 +55,7 @@ def _paged_logits(jcfg, jparams, model, steps=6):
     out = []
     with torch.inference_mode():
         for toks, *rest in waves:
-            jl, jpool = jtf.paged_prefill_tail(
+            jl, jpool = jit_paged_prefill_tail(
                 jparams, jcfg, jnp.asarray(toks, jnp.int32),
                 *map(jnp.asarray, rest), jpool)
             tl, _ = model.paged_prefill_tail(
@@ -64,7 +65,7 @@ def _paged_logits(jcfg, jparams, model, steps=6):
         bt, cl = _i32([[1, 2, 3, 4], [6, 7, 8, 9]]), _i32([26, 19])
         for _ in range(steps):
             nxt = rng.integers(0, jcfg.vocab_size, 2).astype(np.int32)
-            jl, jpool = jtf.paged_decode_step(
+            jl, jpool = jit_paged_decode_step(
                 jparams, jcfg, jnp.asarray(nxt), jpool, jnp.asarray(bt),
                 jnp.asarray(cl))
             tl, _ = model.paged_decode_step(
@@ -81,7 +82,7 @@ def _dense_logits(jcfg, jparams, model, steps=4):
     rng = np.random.default_rng(1)
     toks = rng.integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
     lens = _i32([9, 16])
-    jl, jc = jtf.prefill(jparams, jcfg, jnp.asarray(toks), jnp.asarray(lens),
+    jl, jc = jit_prefill(jparams, jcfg, jnp.asarray(toks), jnp.asarray(lens),
                          jax_init_cache(jcfg, 2, 32))
     out = []
     with torch.inference_mode():
@@ -91,7 +92,7 @@ def _dense_logits(jcfg, jparams, model, steps=4):
         out.append((np.asarray(jl)[:, 8], tl[:, 8]))
         for _ in range(steps):
             nxt = rng.integers(0, jcfg.vocab_size, (2, 1)).astype(np.int32)
-            jl, jc = jtf.decode_step(jparams, jcfg, jnp.asarray(nxt), jc)
+            jl, jc = jit_decode_step(jparams, jcfg, jnp.asarray(nxt), jc)
             tl, tc = model.decode_step(torch.from_numpy(nxt).long(), tc)
             out.append((jl, tl))
     return out

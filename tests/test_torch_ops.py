@@ -73,14 +73,17 @@ def test_apply_rope_refuses_partial_and_interleaved():
         trope.apply_rope(x, pos, 1e4, pct=0.0)
 
 
-@pytest.mark.parametrize("H,Hkv,window,alibi", [
-    (8, 4, None, False),    # GQA
-    (4, 4, None, False),    # MHA
-    (8, 1, None, False),    # MQA
-    (8, 2, 5, False),       # window
-    (4, 4, None, True),     # ALiBi
+@pytest.mark.parametrize("H,Hkv,window,alibi,softcap", [
+    (8, 4, None, False, None),    # GQA
+    (4, 4, None, False, None),    # MHA
+    (8, 1, None, False, None),    # MQA
+    (8, 2, 5, False, None),       # window
+    (4, 4, None, True, None),     # ALiBi
+    (8, 2, None, False, 0.7),     # softcap (gemma2)
+    (8, 1, 5, False, 0.5),        # softcap and window, MQA
+    (4, 4, None, True, 0.7),      # softcap before ALiBi
 ])
-def test_attend_matches(H, Hkv, window, alibi):
+def test_attend_matches(H, Hkv, window, alibi, softcap):
     rng = np.random.default_rng(3)
     B, Sq, Skv, hd = 2, 6, 20, 16
     q = rng.normal(size=(B, Sq, H, hd)).astype(np.float32)
@@ -96,18 +99,25 @@ def test_attend_matches(H, Hkv, window, alibi):
     tsl = tatt.alibi_slopes(H) if alibi else None
     if alibi:
         np.testing.assert_array_equal(tsl.numpy(), np.asarray(jsl))
-    out = tatt.attend(*targs, sliding_window=window, alibi=tsl)
-    ref = jatt.attend(*jargs, sliding_window=window, alibi=jsl)
+    out = tatt.attend(*targs, sliding_window=window, alibi=tsl,
+                      softcap=softcap)
+    ref = jatt.attend(*jargs, sliding_window=window, alibi=jsl,
+                      softcap=softcap)
     _close(out, ref, 1e-5)
 
 
 def test_attend_refuses_softcap_and_sinks():
+    """Sinks (gpt-oss) stay refused on every entry point; the softcap is
+    served since its kernel arm (held in test_attend_matches)."""
     q = torch.zeros(1, 1, 2, 8)
     pos = torch.zeros(1, 1, dtype=torch.int64)
     with pytest.raises(NotImplementedError):
-        tatt.attend(q, q, q, pos, pos, pos == 0, softcap=30.0)
+        tatt.attend(q, q, q, pos, pos, pos == 0, sinks=torch.zeros(2))
     with pytest.raises(NotImplementedError):
         tatt.attend_prefill(q, q, q, sinks=torch.zeros(2))
+    with pytest.raises(NotImplementedError):
+        tatt.attend_decode(q, q, q, torch.ones(1, dtype=torch.int32),
+                           sinks=torch.zeros(2))
 
 
 @pytest.mark.parametrize("starts", [[0, 3], [5, 12]])

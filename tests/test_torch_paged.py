@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_llm_inferencing_tpu.models import transformer as jtf
 from distributed_llm_inferencing_tpu.models.params import (
     init_params as jax_init_params)
 from distributed_llm_inferencing_tpu.models.registry import (
@@ -51,6 +50,7 @@ from distributed_llm_inferencing_tpu_torch.ops import paged_kvcache as tpk
 from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
     PAGED_SPLIT, merge_partials, num_splits, paged_flash_decode,
     paged_flash_decode_ref, paged_flash_decode_split_ref)
+from test_torch_families import jit_paged_decode_step, jit_paged_prefill_tail
 
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 FUSED_TOL = dict(rtol=3e-5, atol=3e-5)
@@ -352,7 +352,7 @@ def test_paged_prefill_and_decode_match_jax(monkeypatch, fused):
         nonlocal jpaged
         args = [np.asarray(a, np.int32)
                 for a in (toks, tail_len, tail_blocks, pfb, pfl)]
-        jl, jpaged = jtf.paged_prefill_tail(
+        jl, jpaged = jit_paged_prefill_tail(
             jparams, jcfg, *[jnp.asarray(a) for a in args], jpaged)
         with torch.inference_mode():
             tl, _ = model.paged_prefill_tail(
@@ -377,7 +377,7 @@ def test_paged_prefill_and_decode_match_jax(monkeypatch, fused):
     cl = np.asarray([21, 11, 0], np.int32)
     for _ in range(4):   # teacher-forced
         toks = rng.integers(0, V, 3).astype(np.int32)
-        jl, jpaged = jtf.paged_decode_step(
+        jl, jpaged = jit_paged_decode_step(
             jparams, jcfg, jnp.asarray(toks), jpaged, jnp.asarray(bt),
             jnp.asarray(cl))
         with torch.inference_mode():

@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_llm_inferencing_tpu.models import transformer as jtf
 from distributed_llm_inferencing_tpu.models.params import (
     init_params as jax_init_params)
 from distributed_llm_inferencing_tpu.models.registry import (
@@ -24,6 +23,7 @@ from distributed_llm_inferencing_tpu_torch.models.registry import get_config
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
     Transformer)
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
+from test_torch_families import jit_decode_step, jit_prefill
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -53,7 +53,7 @@ def test_prefill_and_decode_logits_match(over):
     toks[0, 11:] = 0                                   # right padding
 
     jcache = jax_init_cache(jcfg, B, max_seq)
-    jlog, jcache = jtf.prefill(jparams, jcfg, jnp.asarray(toks),
+    jlog, jcache = jit_prefill(jparams, jcfg, jnp.asarray(toks),
                                jnp.asarray(lens), jcache)
     with torch.inference_mode():
         tcache = init_cache(model.cfg, B, max_seq, device="cpu")
@@ -65,7 +65,7 @@ def test_prefill_and_decode_logits_match(over):
         _caches_close(jcache, tcache)
         nxt = rng.integers(0, jcfg.vocab_size, size=(8, B)).astype(np.int32)
         for t in range(8):                              # teacher-forced
-            jlog, jcache = jtf.decode_step(jparams, jcfg,
+            jlog, jcache = jit_decode_step(jparams, jcfg,
                                            jnp.asarray(nxt[t][:, None]),
                                            jcache)
             tlog, tcache = model.decode_step(
@@ -91,14 +91,16 @@ def test_gather_keeps_only_the_last_real_row():
 
 @pytest.mark.parametrize("over", [
     {"num_experts": 4}, {"attn_sinks": True},
-    {"qk_norm": "rms_head"}, {"post_block_norms": True},
-    {"attn_softcap": 30.0}, {"kv_quant": "int8"},
-    {"logit_softcap": 30.0},
+    {"qkv_clip": 8.0}, {"kv_lora_rank": 16},
+    {"dense_prefix_layers": 1}, {"kv_quant": "int8"},
+    {"q_lora_rank": 8},
 ])
 def test_configs_outside_the_llama_arm_raise(over):
     """Features outside every ported family (the llama arm's other
     switches — ALiBi, parallel residual, a tied head — are ported with
-    the dense families and held in tests/test_torch_families*.py)."""
+    the dense families and held in tests/test_torch_families*.py; the
+    later families' switches — q/k norms, softcaps, sandwich norms, ...
+    — in tests/test_torch_switches.py)."""
     cfg = get_config("tiny-llama").replace(dtype="float32", **over)
     with pytest.raises(NotImplementedError):
         Transformer(cfg, {})

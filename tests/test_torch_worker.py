@@ -34,7 +34,8 @@ from distributed_llm_inferencing_tpu.models.registry import (
 from distributed_llm_inferencing_tpu.runtime.worker import (
     WorkerAgent as JaxWorkerAgent)
 from distributed_llm_inferencing_tpu_torch.runtime.worker import WorkerAgent
-from test_torch_convert import _ROOT, assert_bitwise, saved, with_tokenizer
+from test_torch_convert import (
+    TYPES, _ROOT, assert_bitwise, jax_params, saved, with_tokenizer)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -232,6 +233,33 @@ def test_checkpoint_path_tokens_match_the_jax_worker(url, jax_url, serving,
             _unload(u, name)
 
 
+@pytest.mark.parametrize("mt", TYPES[20:])
+def test_later_types_serve_from_checkpoint_path(url, worker, mt):
+    """Each converter type of the dense switches (gemma2, qwen3, ...)
+    through /load_model with ``checkpoint_path`` (engine mode, bf16 as
+    the JAX worker converts): params bitwise equal to the JAX
+    converter's, and greedy /inference tokens equal to an in-process
+    engine's on those params (test_torch_convert_tokens_c.py holds the
+    engines and batchers to the JAX package's)."""
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    d = saved(mt)
+    name = f"later-{mt}"
+    _load(url, {"model_name": name, "checkpoint_path": d, "max_seq": 64})
+    try:
+        tcfg, want = jax_params(d, "bfloat16")
+        assert_bitwise(worker.models[name].engine.params, want)
+        eos = worker.models[name].tokenizer.eos_token_id
+        ref = InferenceEngine(tcfg, want, max_seq=64, device="cpu").generate(
+            [[5, 9, 13, 2, 40, 7, 77, 3]], max_new_tokens=8, seed=1,
+            sampling=SamplingParams.greedy(), eos_token_id=eos).tokens[0]
+        assert _greedy(url, name) == ref and ref
+    finally:
+        _unload(url, name)
+
+
 def test_float32_load_computes_on_bf16_rounded_weights(url, worker):
     """The JAX worker converts a checkpoint to bf16 (its config default)
     and only then applies the body's "dtype": "float32" (ROADMAP Queue
@@ -323,7 +351,7 @@ def _missing_key_dir():
 
 
 @pytest.mark.parametrize("case,cause", [
-    ("qwen3", "qk_norm"), ("phi_qk_layernorm", "qk_layernorm"),
+    ("qwen3_moe", "num_experts"), ("phi_qk_layernorm", "qk_layernorm"),
     ("missing", "model.layers.0.self_attn.k_proj.weight"),
     ("hub_name", "not a local directory"),
     ("native_hub_name", "not a local directory"),
@@ -331,8 +359,8 @@ def _missing_key_dir():
 ])
 def test_checkpoint_refusals_name_the_cause(url, monkeypatch, case, cause):
     field = "checkpoint_path"
-    if case == "qwen3":
-        path = _write_config("qwen3", {"model_type": "qwen3"})
+    if case == "qwen3_moe":
+        path = _write_config("qwen3_moe", {"model_type": "qwen3_moe"})
     elif case == "phi_qk_layernorm":
         path = _write_config("phi-qk", {"model_type": "phi",
                                         "qk_layernorm": True})
