@@ -236,6 +236,49 @@ Phases (any failure fails the run, exit code != 0):
    each later converter type at its published width, 2 layers
    (LATER_XCHECK; windows cut to XCHECK_WINDOW, printed, so that the
    prompts pass them). Its wall time is printed on a line of its own.
+17. The KV plane (phase_kv_plane), llama-3-8b at full width and depth,
+   bf16 weights. (a) The int8 KV cache in engine mode, max_seq 8192:
+   phase 3's requests plus a 4000-token one, against the bf16 cache at
+   the same max_seq (cache bytes: int8 levels plus one f32 scale per
+   head vector, L x S x Hkv x (2 hd + 8) bytes, against L x S x Hkv x 4
+   hd; ms per decode step, graphs on; exact counts: the int8 decode is
+   the plain route, 0 flash_decode), and phase 4's card-vs-host check
+   with the int8 cache (2 layers, f32, dense and paged). (b) The int8
+   paged pool: phase 5's bodies through the worker with
+   DLI_FUSED_DECODE=1 (the fused gate refuses the pool: 0
+   paged_flash_decode and 0 fused_decode_step launches, the gather
+   route), and ms per weight pass of one 32-step chunk with 8 slots
+   live, against the bf16 pool on the same weights. (c) The host KV
+   tier: a pool of TIER_BLOCKS blocks where a TIER_PROMPT-token prompt's
+   blocks are evicted by the 1500-token requests after it; served again,
+   the prompt restores them from the arena (prefill_cached_tokens > 0),
+   its tokens equal to its first serving's, greedy and seeded-sampled
+   (TIER_PROMPT is four 512-token admission chunks and one block, so the
+   cold serving's last admission has the restore's shape, a 16-token
+   tail over 128 cached blocks: a GEMM's bits depend on its row count);
+   offload GB/s, restore ms per block, and ms per weight pass with the
+   tier on and off (kv_host_mb 0) under the same requests. (d)
+   Disaggregation: a prefill-role, a decode-role and a mixed worker in
+   this process, each loading llama-3-8b; a TIER_PROMPT-token prompt
+   runs as the master's disaggregation path runs it (a one-token
+   kv_export pass on the prefill worker, then the request on the decode
+   worker with a kv_source; the JAX package, the master's home, does
+   not run on the card: the unchanged master drives the same two calls
+   in tests/test_torch_e2e_master.py), decode on the fused route over
+   the fetched pages; its text equals the mixed worker's, with every
+   block fetched and the decode worker's pages bitwise equal to the
+   prefill worker's (one fetch's cap raised to KV_FETCH_MB: the
+   prompt's 128 bf16 blocks are 268.5 MB of frames, past the 256 MiB
+   default); /kv_fetch bytes and MB/s over loopback, TTFT against
+   recompute. Before that, one prompt at the default serving cap: the
+   stream is cut before its last block (0 missing), the fetched blocks
+   are bitwise equal to the source's and the rest is recomputed (its
+   tokens reported). Then again with DLI_KV_HOST_DTYPE=int8 on the
+   prefill worker: the wire bytes' ratio, and every restored element
+   within half a quantization step of its head vector plus one bf16
+   step (INT8_PAGE_TOL) of the source's (its lossy tokens reported, not
+   asserted). Its wall time is printed on a line of its own, and each
+   kernel's launches in it ("kv_plane_launches").
 
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
@@ -249,6 +292,9 @@ package beside this file, it exits non-zero and prints no result.
 ``python3 chip_smoke.py --digests`` builds the attention kernels and
 prints uncapped_digests only (from another tree's root, this script
 copied in, that tree's digests).
+
+``python3 chip_smoke.py --kv-plane`` builds the kernels and runs only
+phase 17.
 
 ``python3 chip_smoke.py --timed-rows`` builds the kernels and runs only
 phase 2's timed rows (``timed_rows``), printing each; from the root of
@@ -284,6 +330,13 @@ FUSED_F32_TOL = (1e-4, 1e-4)
 # cross-check (phase 4): f32 GEMMs over K up to 14336 in another
 # summation order on card and host, through 2 layers and the head
 XCHECK_TOL = (1e-3, 1e-3)
+# the same with an int8 KV cache: card and host quantize K/V computed in
+# another summation order, and a value that sits on a rounding boundary
+# takes the next level on one side (a step of its head vector's
+# |max|/127, ~0.8% of it, in one element); the levels are held apart
+# (at most one step, on a small share of elements) and the logits within
+# this
+INT8_KV_XCHECK_TOL = (1e-2, 1e-2)
 # phase 5's serving configuration and traffic
 BATCHED_LOAD = {"model_name": "llama-3-8b", "allow_random_init": True,
                 "dtype": "bfloat16", "serving": "batched", "slots": 8,
@@ -1259,7 +1312,7 @@ def engine_prompt(n_tok, seed):
 
 
 def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step,
-                     requests=ENGINE_REQUESTS):
+                     requests=ENGINE_REQUESTS, decode_kernel=True):
     """Phase 3's three requests (or ``requests``: (prompt tokens,
     sampling, seed) each) through a loaded engine-mode model (bf16
     activations): counts zeroed before, each request must add one
@@ -1268,7 +1321,8 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step,
     decode step and
     ``q4_per_step`` q4_matmul launches per decode step plus one for the
     gathered head row of its prefill (int4; 0 otherwise), and nothing
-    else. Returns (launches, request rows)."""
+    else; with ``decode_kernel`` False (an int8 KV cache: the plain
+    decode route) no flash_decode. Returns (launches, request rows)."""
     L, new = cfg.num_layers, 32
     zero_counts(kernels)                 # counts of this path only
     count = lambda: read_counts(kernels)  # noqa: E731
@@ -1284,7 +1338,8 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step,
         d = {k: v - n0[k] for k, v in count().items()}
         assert all(0 <= t < cfg.vocab_size for t in toks), toks
         want = {k: 0 for k in d}
-        want.update(flash_attention=L, flash_decode=L * (passes - 1),
+        want.update(flash_attention=L,
+                    flash_decode=L * (passes - 1) * int(decode_kernel),
                     q4_matmul=(1 + q4_per_step * (passes - 1)
                                if q4_per_step else 0))
         # bf16: the prefill and every q4_matmul in their tensor-core forms
@@ -1355,10 +1410,10 @@ def decode_kernel(cfg, route):
     """The kernel a batched decode step of ``cfg`` launches per layer with
     DLI_FUSED_DECODE on (``route`` "fused") or off: the fused kernel
     where its gate takes the q leaf (no bias), else the paged kernel;
-    None for the ALiBi families, which decode through the gather
-    formulation, as the JAX package does."""
+    None for the ALiBi families and an int8 KV pool, which decode
+    through the gather formulation, as the JAX package does."""
     from distributed_llm_inferencing_tpu_torch.ops import fused_decode
-    if cfg.position_embedding == "alibi":
+    if cfg.position_embedding == "alibi" or cfg.kv_quant:
         return None
     if route == "fused" and fused_decode.supported(cfg) \
             and not cfg.attn_bias:
@@ -1392,7 +1447,7 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
     toks = torch.randint(0, cfg.vocab_size, (B, S0), generator=g)
     toks[0, 37:] = 0
     forced = torch.randint(0, cfg.vocab_size, (8, B, 1), generator=g)
-    logits = {}
+    logits, caches = {}, {}
     n0 = (fa.flash_attention.launches, fa.flash_decode.launches,
           qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
     with torch.inference_mode():
@@ -1404,31 +1459,63 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
                 lg, cache = model.decode_step(forced[t].to(dev), cache)
                 outs.append(lg[:, 0].cpu())
             logits[dev] = torch.cat(outs)
+            caches[dev] = cache
     n1 = (fa.flash_attention.launches, fa.flash_decode.launches,
           qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
     # int4: prefill rows (2 x 64) and its full-row head take the plain
     # unpack; each of the 8 decode steps runs every linear x 2 layers +
     # an untied head, all f32, so all on the CUDA-core form
     q4 = 8 * q4_per_pass(cfg) if quant == "int4" else 0
-    assert tuple(b - a for a, b in zip(n0, n1)) == (2, 16, q4, 0), (n0, n1)
+    decode = 0 if cfg.kv_quant else 16   # an int8 cache: the plain route
+    assert tuple(b - a for a, b in zip(n0, n1)) == (2, decode, q4, 0), \
+        (n0, n1)
     what = f"{name} {quant or 'float'} "
-    errs = {"dense": _xcheck(torch, what + "dense", logits["cuda"],
-                             logits["cpu"])}
+    tol = XCHECK_TOL
+    if cfg.kv_quant:
+        tol = INT8_KV_XCHECK_TOL
+        errs = {"levels": _level_check(torch, caches)}
+    else:
+        errs = {}
+    errs["dense"] = _xcheck(torch, what + "dense", logits["cuda"],
+                            logits["cpu"], tol)
     host = _paged_run(torch, models["cpu"], "cpu")
     for route in routes:
         errs[route] = _xcheck(torch, what + route,
                               _paged_run(torch, models["cuda"], "cuda",
-                                         route), host)
+                                         route), host, tol)
     del models, params
     gc.collect()
     torch.cuda.empty_cache()
     return errs
 
 
-def _xcheck(torch, what, a, b):
+def _level_check(torch, caches):
+    """An int8 cache's levels on card and host: at most one step apart,
+    on at most 1% of the elements; the scales (each a head vector's
+    |max|/127) within the f32 cross-check's relative tolerance. Returns
+    the shares."""
+    card, host = caches["cuda"], caches["cpu"]
+    out = {}
+    for name in ("k", "v"):
+        a = getattr(card, name).cpu().int()
+        b = getattr(host, name).int()
+        d = (a - b).abs()
+        share = float((d > 0).float().mean())
+        assert int(d.max()) <= 1 and share <= 0.01, (name, int(d.max()),
+                                                      share)
+        sa = getattr(card, name + "_scale").cpu()
+        sb = getattr(host, name + "_scale")
+        rel = float(((sa - sb).abs() / sb.clamp(min=1e-30)).max())
+        assert rel <= XCHECK_TOL[1], (name, rel)
+        out[name] = {"levels_off_by_one": share, "scale_rel_err": rel}
+    log("  int8 cache, card vs host:", json.dumps(out))
+    return out
+
+
+def _xcheck(torch, what, a, b, tol=XCHECK_TOL):
     assert torch.isfinite(a).all()
     err = (a - b).abs()
-    atol, rtol = XCHECK_TOL
+    atol, rtol = tol
     log(f"  cross-check {what}: full width, 2 layers, f32, "
         f"{a.shape[0]} logit rows: max_abs_err {float(err.max()):.3e} "
         f"(tol {atol} + {rtol}*|ref|), logits |max| {float(b.abs().max()):.3f}")
@@ -1578,12 +1665,14 @@ def _batched_pass(torch, base, worker, kernels, route, cfg, quant=None,
                      "greedy": body["sampling"].get("do_sample") is False,
                      "new_tokens": len(toks), "ttft_ms": r["ttft_ms"],
                      "cost": r["cost"]})
-    other = "fused_decode_step" if route == "paged" else "paged_flash_decode"
-    mine = "paged_flash_decode" if route == "paged" else "fused_decode_step"
-    assert launches[mine] == L * passes, \
-        f"{mine} launches {launches[mine]} != {L} x {passes} weight passes"
-    assert launches[other] == 0 and launches["flash_attention"] == 0 \
-        and launches["flash_decode"] == 0, launches
+    # "gather": an int8 pool's plain route, no decode kernel at all
+    mine = {"paged": "paged_flash_decode",
+            "fused": "fused_decode_step"}.get(route)
+    for k in ("paged_flash_decode", "fused_decode_step", "flash_attention",
+              "flash_decode"):
+        want = L * passes if k == mine else 0
+        assert launches[k] == want, \
+            f"{k} launches {launches[k]} != {want} ({passes} weight passes)"
     q4 = 0
     if quant == "int4":
         per_pass = (6 if route == "fused" else 7) * L + 1
@@ -3973,6 +4062,494 @@ def phase_later(torch, fa, qm, kernels, smi):
     return report
 
 
+# ---------------------------------------------------------------------
+# phase 17: the KV plane (int8 cache, host tier, KV transfer)
+# ---------------------------------------------------------------------
+
+KV_MAX_SEQ = 8192
+KV_ENGINE_REQUESTS = ENGINE_REQUESTS + ((4000, {"do_sample": False}, 3),)
+# the tier's pressure: a pool that holds one TIER_PROMPT-token prompt (129
+# blocks of 16) and its growth; the 1500-token requests after it evict it.
+# TIER_PROMPT = 4 x 512 + 16: its cold serving admits four chunks of 32
+# blocks (the batcher's prefill_chunk) and then a 16-token tail over 128
+# cached blocks, the shape of the tail a restore or a fetch leaves
+TIER_BLOCKS, TIER_PROMPT, TIER_PRESSURE, TIER_NEW = 160, 2064, 1500, 16
+TIER_ARENA_MB = 2048
+# the prompt's 129 bf16 blocks take 271 MB: more than the default 256 MB
+# arena holds (runtime/kvtier.py DEFAULT_HOST_MB)
+DISAGG_LOAD = dict(BATCHED_LOAD, slots=2, kv_blocks=256, kv_host_mb=1024)
+KV_FETCH_MB = 512
+
+
+def _cache_bytes(cache):
+    return sum(t.nbytes for t in (cache.k, cache.v, cache.k_scale,
+                                  cache.v_scale) if t is not None)
+
+
+def _kv_engine(torch, kernels, cfg):
+    """(a): the engine with the bf16 and the int8 cache at max_seq 8192,
+    the same requests; returns the report and the launches."""
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = f"http://127.0.0.1:{worker.service.port}"
+    out, total = {}, {}
+    try:
+        for kv in (None, "int8"):
+            load = {"model_name": cfg.name, "allow_random_init": True,
+                    "dtype": "bfloat16", "max_seq": KV_MAX_SEQ}
+            if kv:
+                load["kv_quantize"] = kv
+            st, res = _http(base + "/load_model", load)
+            assert st == 200 and res["status"] == "success", res
+            launches, rows = _engine_requests(
+                torch, base, kernels, cfg, cfg.name, 0,
+                requests=KV_ENGINE_REQUESTS, decode_kernel=kv is None)
+            _add(total, launches)
+            engine = worker.models[cfg.name].engine
+            cache = engine._state(1).cache
+            assert cache.quantized == (kv == "int8")
+            out[kv or "bf16"] = {
+                "cache_bytes": _cache_bytes(cache), "requests": rows,
+                "launches": launches,
+                # the requests after the first of their sampling key
+                # replay captured programs: the steady step
+                "steady_ms_per_step": [r["decode_ms_per_weight_pass"]
+                                       for r in rows[2:]]}
+            st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+            assert st == 200
+    finally:
+        worker.shutdown()
+    L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    assert out["int8"]["cache_bytes"] == L * KV_MAX_SEQ * Hkv * (2 * hd + 8)
+    assert out["bf16"]["cache_bytes"] == L * KV_MAX_SEQ * Hkv * hd * 4
+    greedy = [i for i, r in enumerate(KV_ENGINE_REQUESTS)
+              if r[1].get("do_sample") is False]
+    agree = [sum(a == b for a, b in zip(out["bf16"]["requests"][i]["tokens"],
+                                        out["int8"]["requests"][i]["tokens"]))
+             for i in greedy]
+    out["greedy_tokens_agree_int8_vs_bf16"] = agree
+    log("  int8 KV engine:", json.dumps({
+        "cache_gb": {k: out[k]["cache_bytes"] / 1e9 for k in ("bf16",
+                                                              "int8")},
+        "steady_ms_per_step": {k: out[k]["steady_ms_per_step"]
+                               for k in ("bf16", "int8")},
+        "greedy_tokens_agree": agree}))
+    return out, total
+
+
+def _kv_batched(torch, kernels, cfg, params):
+    """(b): phase 5's bodies over the int8 pool through the worker (the
+    gather route with the fused kernel asked for), then ms per weight
+    pass of one 32-step chunk with 8 slots live, bf16 pool against int8
+    pool on ``params``."""
+    from distributed_llm_inferencing_tpu_torch.ops import fused_decode
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.profile_batched import (
+        PROMPT_LENS as lens, _round)
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        ContinuousBatcher)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = f"http://127.0.0.1:{worker.service.port}"
+
+    def check(lm):
+        b = lm.batcher
+        assert b.paged.quantized and b.paged.k.dtype == torch.int8
+        assert fused_decode.enabled() and \
+            not fused_decode.eligible(b.cfg, b.paged.quantized)
+        return {"pool_bytes": sum(t.nbytes for t in b.paged.leaves())}
+    os.environ["DLI_FUSED_DECODE"] = "1"
+    try:
+        wave, _ = _batched_pass(torch, base, worker, kernels, "gather", cfg,
+                                load=dict(BATCHED_LOAD, kv_quantize="int8"),
+                                check=check)
+    finally:
+        os.environ.pop("DLI_FUSED_DECODE", None)
+        worker.shutdown()
+    total = dict(wave["launches"])
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
+    # the batched profile's 8 prompts: every slot live in one chunk
+    prompts = [[(i * 7919 + j * 104729) % 30000 + 3 for j in range(n)]
+               for i, n in enumerate(lens)]
+    full = {}
+    for kv in (None, "int8"):
+        b = ContinuousBatcher(cfg.replace(kv_quant=kv), params,
+                              num_blocks=1024, block_size=16, slots=8,
+                              max_seq=4096, prefill_chunk=None,
+                              device="cuda", kv_host_mb=0)
+        b.warm_decode_programs()
+        _round(b, prompts, NEW_TOKENS, sp)                      # warm-up
+        zero_counts(kernels)
+        rounds = [_round(b, prompts, NEW_TOKENS, sp) for _ in range(2)]
+        launches = read_counts(kernels)
+        _add(total, launches)
+        passes = sum(r["weight_passes"] for r in rounds)
+        got = launches["paged_flash_decode"]
+        assert got == (0 if kv else cfg.num_layers * passes), (kv, launches)
+        assert launches["fused_decode_step"] == 0, launches
+        full[kv or "bf16"] = {
+            "ms_per_weight_pass": min(r["ms_per_weight_pass"]
+                                      for r in rounds),
+            "rounds": rounds,
+            "pool_bytes": sum(t.nbytes for t in b.paged.leaves()),
+            "paged_flash_decode": got, "weight_passes": passes}
+        b.stop()
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("  int8 pool:", json.dumps({
+        "worker_wave_ms_per_weight_pass":
+            wave["decode_chunk_ms_per_weight_pass"],
+        "full_occupancy_ms_per_weight_pass": {
+            k: v["ms_per_weight_pass"] for k, v in full.items()},
+        "pool_gb": {k: v["pool_bytes"] / 1e9 for k, v in full.items()}}))
+    return {"worker_wave": wave, "full_occupancy": full}, total
+
+
+def _serve_one(b, prompt, sampled, seed):
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    sp = (SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
+          if sampled else SamplingParams.greedy())
+    r = b.submit(prompt, max_new_tokens=TIER_NEW, sampling=sp, seed=seed)
+    while not r.done.is_set():
+        b.step()
+    return r.wait(), r.cost
+
+
+def _kv_tier(torch, kernels, cfg, params):
+    """(c): the same requests through a batcher with the tier on and one
+    with it off (kv_host_mb 0), paged route, on ``params``."""
+    import numpy as np
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        ContinuousBatcher)
+    rng = np.random.default_rng(17)
+    tok = lambda n: rng.integers(1, cfg.vocab_size, n).tolist()  # noqa
+    prompt = tok(TIER_PROMPT)
+    pressure = [tok(TIER_PRESSURE) for _ in range(4)]
+    out, total = {}, {}
+    os.environ["DLI_FUSED_DECODE"] = "0"
+    try:
+        for mb in (TIER_ARENA_MB, 0):
+            b = ContinuousBatcher(cfg, params, num_blocks=TIER_BLOCKS,
+                                  block_size=16, slots=2, max_seq=4096,
+                                  device="cuda", kv_host_mb=mb)
+            b.warm_decode_programs()
+            t = {"offload_s": 0.0, "offload_blocks": 0, "restore_s": 0.0,
+                 "restore_blocks": 0}
+            if mb:
+                arena, offload, restore = (b.kvtier.arena,
+                                           b._offload_evicted,
+                                           b._run_restore)
+
+                def timed_offload(ev):
+                    n0, t0 = arena.offloaded, time.perf_counter()
+                    offload(ev)
+                    t["offload_s"] += time.perf_counter() - t0
+                    t["offload_blocks"] += arena.offloaded - n0
+
+                def timed_restore(blocks, pages):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    restore(blocks, pages)
+                    torch.cuda.synchronize()
+                    t["restore_s"] += time.perf_counter() - t0
+                    t["restore_blocks"] += len(blocks)
+                b.pool.set_evict_hook(timed_offload)
+                b._run_restore = timed_restore
+            zero_counts(kernels)
+            m0 = b.metrics.snapshot()
+            w0 = time.perf_counter()
+            first = [_serve_one(b, prompt, s, 7) for s in (False, True)]
+            again = []
+            for sampled, qs in ((False, pressure[:2]), (True, pressure[2:])):
+                for q in qs:
+                    _serve_one(b, q, False, 1)
+                again.append(_serve_one(b, prompt, sampled, 7))
+            wall = time.perf_counter() - w0
+            m1 = b.metrics.snapshot()
+            _add(total, read_counts(kernels))
+            d = lambda k: m1["counters"].get(k, 0) - m0["counters"].get(  # noqa
+                k, 0)
+            passes = d("batcher_weight_passes")
+            chunk_s = (m1["timings"]["batcher_decode_chunk"]["sum"]
+                       - m0["timings"].get("batcher_decode_chunk",
+                                           {}).get("sum", 0))
+            for (toks, _), (toks2, cost) in zip(first, again):
+                assert toks2 == toks, (mb, toks, toks2)
+                if mb:
+                    assert cost["prefill_cached_tokens"] > 0, cost
+                    assert cost["arena_restored_bytes"] > 0, cost
+            block_bytes = sum(lf[:, 0].nbytes for lf in b.paged.leaves())
+            row = {"kv_host_mb": mb, "wall_s": wall, "weight_passes": passes,
+                   "decode_chunk_ms_per_weight_pass": 1e3 * chunk_s / passes,
+                   "wall_ms_per_weight_pass": 1e3 * wall / passes,
+                   "evictions": d("radix_evictions") or b.pool.stats()[
+                       "evictions"],
+                   "restored_blocks": d("kvtier_restored_blocks"),
+                   "offloaded_blocks": d("kvtier_offloaded_blocks"),
+                   "cached_tokens_again": [c["prefill_cached_tokens"]
+                                           for _, c in again],
+                   "tokens_equal_first_serving": True}
+            if mb:
+                assert row["restored_blocks"] > 0 and \
+                    row["offloaded_blocks"] > 0, row
+                row["offload_gb_per_s"] = (t["offload_blocks"] * block_bytes
+                                           / t["offload_s"] / 1e9)
+                row["restore_ms_per_block"] = (1e3 * t["restore_s"]
+                                               / t["restore_blocks"])
+                row["block_bytes"] = block_bytes
+                row["timing"] = t
+            out["on" if mb else "off"] = row
+            log("  tier", json.dumps(row))
+            b.stop()
+            del b
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("DLI_FUSED_DECODE", None)
+    return out, total
+
+
+# the int8 arena's pages on the decode worker against the source's: each
+# element within half a quantization step of its (layer, block, head)
+# vector, amax/254, plus one bf16 step (2^-7 relative) of the value the
+# dequantization rounds to bf16
+INT8_PAGE_TOL = 2.0 ** -7
+
+
+def _prefix_pages(torch, worker, cfg, text, nblocks):
+    """The device pages ([L, nblocks, bs, Hkv, hd] f32, one per pool
+    leaf) of ``text``'s first ``nblocks`` blocks in ``worker``'s pool,
+    found through its radix cache (the match's references released)."""
+    lm = worker.models[cfg.name]
+    toks = lm.tokenizer.encode(text)
+    b = lm.batcher
+    blocks, _ = b.pool.match_prefix(toks[:nblocks * b.block_size])
+    try:
+        assert len(blocks) == nblocks, (len(blocks), nblocks)
+        idx = torch.as_tensor(blocks, dtype=torch.long,
+                              device=b.paged.k.device)
+        return [lf.index_select(1, idx).float() for lf in b.paged.leaves()]
+    finally:
+        b.pool.release(blocks)
+
+
+def _check_fetched_pages(torch, workers, cfg, text, fetched, want, kind):
+    """The decode worker's restored pages against the prefill worker's
+    native ones: the ``fetched`` blocks bitwise equal for a native
+    arena, within INT8_PAGE_TOL's bound for an int8 one; a block that
+    was recomputed (past a cut fetch) is only reported."""
+    dec = _prefix_pages(torch, workers["decode"], cfg, text, want)
+    src = _prefix_pages(torch, workers["prefill"], cfg, text, want)
+    worst_ratio, tail_err, tail_amax = 0.0, 0.0, 0.0
+    for d, s in zip(dec, src):
+        df, sf = d[:, :fetched], s[:, :fetched]
+        if kind == "int8_arena":
+            # quantize_page's floor of a vector's scale: 1e-8 / 127
+            amax = sf.abs().amax(dim=(2, 4), keepdim=True).clamp_min(1e-8)
+            half = amax / 254
+            err = (df - sf).abs()
+            bound = half + INT8_PAGE_TOL * (sf.abs() + half)
+            assert bool((err <= bound).all()), \
+                f"int8 arena page error {float((err - bound).max())} " \
+                "past its bound"
+            worst_ratio = max(worst_ratio, float((err / half).max()))
+        else:
+            assert torch.equal(df, sf), f"{kind}: fetched pages differ"
+        if fetched < want:
+            tail_err = max(tail_err, float(
+                (d[:, fetched:] - s[:, fetched:]).abs().max()))
+            tail_amax = max(tail_amax, float(s[:, fetched:].abs().max()))
+    del dec, src
+    torch.cuda.empty_cache()
+    return {"fetched_pages": ("within amax/254" if kind == "int8_arena"
+                              else "bitwise equal"),
+            "worst_err_in_half_steps": worst_ratio,
+            "recomputed_block_max_abs_diff": tail_err,
+            "recomputed_block_source_abs_max": tail_amax}
+
+
+def _disagg_once(torch, bases, workers, cfg, text, kind):
+    """One disaggregated request as the master runs it (a one-token
+    kv_export pass on the prefill worker, then the request on the decode
+    worker naming it as kv_source), beside the same request on the mixed
+    worker. ``kind``: "native" (the prefill worker's arena native, the
+    fetch cap raised), "int8_arena", or "default_cap" (native, the
+    serving cap at its default: the stream is cut before its last block,
+    which the decode worker recomputes)."""
+    body = {"model_name": cfg.name, "prompt": text,
+            "max_new_tokens": NEW_TOKENS, "seed": 5,
+            "sampling": {"do_sample": False}}
+    st, ref = _http(bases["mixed"] + "/inference", body)
+    assert st == 200 and ref["status"] == "success", ref
+    dec = workers["decode"].metrics
+    src = workers["prefill"].metrics
+    c0, s0 = dec.snapshot()["counters"], src.snapshot()["counters"]
+    t0 = time.perf_counter()
+    st, p1 = _http(bases["prefill"] + "/inference", dict(
+        body, max_new_tokens=1, kv_export=True,
+        request_tag=f"disagg.{kind}.p"))
+    p1_ms = (time.perf_counter() - t0) * 1e3
+    assert st == 200 and p1["status"] == "success", p1
+    t0 = time.perf_counter()
+    st, got = _http(bases["decode"] + "/inference", dict(
+        body, kv_source={"url": bases["prefill"], "model": cfg.name}))
+    call_ms = (time.perf_counter() - t0) * 1e3
+    assert st == 200 and got["status"] == "success", got
+    assert len(got["tokens"]) == NEW_TOKENS, got
+    c1, s1 = dec.snapshot()["counters"], src.snapshot()["counters"]
+    d = lambda c, a, k: c[k] - a.get(k, 0)  # noqa
+    blocks = int(d(c1, c0, "kv_transfer_blocks"))
+    nbytes = d(c1, c0, "kv_transfer_bytes")
+    fetch_ms = d(c1, c0, "kv_transfer_ms")
+    n = len(text) + 1                          # BOS + one token per byte
+    want = (n - 1) // 16
+    served = int(d(s1, s0, "kv_fetch_served_blocks"))
+    assert d(s1, s0, "kv_fetch_missing_blocks") == 0
+    assert served == blocks, (served, blocks)
+    if kind == "default_cap":
+        # the rest of the stream was cut (truncated), not missing
+        assert 0 < blocks < want, (blocks, want)
+    else:
+        assert blocks == want, (blocks, n)
+    assert d(c1, c0, "kv_transfer_failures") == 0
+    assert got["cost"]["prefill_cached_tokens"] == blocks * 16, got["cost"]
+    pages = _check_fetched_pages(torch, workers, cfg, text, blocks, want,
+                                 kind)
+    equal = got["tokens"] == ref["tokens"]
+    if kind == "native":
+        assert equal and got["result"] == ref["result"], (got, ref)
+    row = {"prompt_tokens": n, "blocks": blocks, "truncated": want - blocks,
+           "wire_bytes": nbytes,
+           "served_bytes": d(s1, s0, "kv_fetch_served_bytes"),
+           "raw_bytes": d(s1, s0, "kv_wire_raw_bytes"),
+           "fetch_ms": fetch_ms, "fetch_mb_per_s": nbytes / fetch_ms / 1e3,
+           "prefill_call_ms": p1_ms, "decode_call_ms": call_ms,
+           "decode_ttft_ms_after_fetch": got["ttft_ms"],
+           "ttft_disagg_ms": p1_ms + fetch_ms + got["ttft_ms"],
+           "ttft_recompute_ms": ref["ttft_ms"],
+           "pages": pages, "tokens_equal": equal,
+           "tokens_agree": sum(a == b for a, b in zip(got["tokens"],
+                                                      ref["tokens"]))}
+    log(f"  disagg ({kind})", json.dumps(row))
+    return row
+
+
+def _kv_disagg(torch, kernels, cfg):
+    """(d): three workers in this process (prefill, decode, mixed), each
+    loading llama-3-8b batched; the decode route fused. The prompt's 128
+    bf16 blocks make 268.5 MB of frames, past the 256 MiB default cap of
+    one /kv_fetch (DLI_KV_FETCH_MAX_MB, both ends): the phase serves one
+    prompt at the default cap (the stream cut, the last block
+    recomputed), then raises the cap to KV_FETCH_MB."""
+    from distributed_llm_inferencing_tpu_torch.runtime import (
+        worker as worker_mod)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    workers, bases = {}, {}
+    os.environ["DLI_FUSED_DECODE"] = "1"
+    os.environ["DLI_KV_FETCH_MAX_MB"] = str(KV_FETCH_MB)   # the client's
+    cap = worker_mod.KV_FETCH_MAX_MB
+    zero_counts(kernels)
+    try:
+        for role in ("prefill", "decode", "mixed"):
+            w = workers[role] = WorkerAgent(device="cuda", role=role)
+            w.serve("127.0.0.1", 0, background=True)
+            bases[role] = f"http://127.0.0.1:{w.service.port}"
+            st, res = _http(bases[role] + "/load_model", DISAGG_LOAD)
+            assert st == 200 and res["status"] == "success", res
+            st, h = _http(bases[role] + "/health")
+            assert h["role"] == role and h["arena_occupancy"] is not None, h
+        # the server's cap at its default; the client's, raised, is not
+        # reached by a stream the server cut
+        out = {"default_cap": _disagg_once(
+            torch, bases, workers, cfg, engine_prompt(TIER_PROMPT, 7),
+            "default_cap")}
+        worker_mod.KV_FETCH_MAX_MB = KV_FETCH_MB               # the server's
+        out["native"] = _disagg_once(torch, bases, workers, cfg,
+                                     engine_prompt(TIER_PROMPT, 5), "native")
+        # the prefill worker again with an int8 arena (the same seeded
+        # weights: the load draws them from the same seed)
+        os.environ["DLI_KV_HOST_DTYPE"] = "int8"
+        st, _ = _http(bases["prefill"] + "/unload_model",
+                      {"model_name": cfg.name})
+        assert st == 200
+        st, res = _http(bases["prefill"] + "/load_model", DISAGG_LOAD)
+        assert st == 200 and res["status"] == "success", res
+        os.environ.pop("DLI_KV_HOST_DTYPE")
+        assert workers["prefill"].models[cfg.name].batcher.kvtier.arena \
+            .dtype == "int8"
+        out["int8_arena"] = _disagg_once(torch, bases, workers, cfg,
+                                         engine_prompt(TIER_PROMPT, 6),
+                                         "int8_arena")
+        out["int8_wire_ratio"] = (
+            out["int8_arena"]["wire_bytes"] / out["int8_arena"]["blocks"]
+            / (out["native"]["wire_bytes"] / out["native"]["blocks"]))
+        assert out["int8_wire_ratio"] < 0.55, out["int8_wire_ratio"]
+        launches = read_counts(kernels)
+        assert launches["fused_decode_step"] > 0 and \
+            launches["paged_flash_decode"] == 0, launches
+    finally:
+        os.environ.pop("DLI_FUSED_DECODE", None)
+        os.environ.pop("DLI_KV_HOST_DTYPE", None)
+        os.environ.pop("DLI_KV_FETCH_MAX_MB", None)
+        worker_mod.KV_FETCH_MAX_MB = cap
+        for w in workers.values():
+            w.shutdown()
+    log(f"  int8 arena's wire bytes per block / native: "
+        f"{out['int8_wire_ratio']:.4f}")
+    return out, launches
+
+
+def phase_kv_plane(torch, fa, qm, kernels, smi):
+    """Phase 17 (see the module docstring): (a) the int8 KV cache in
+    engine mode and its card-vs-host check; (b) the int8 paged pool; (c)
+    the host tier; (d) disaggregation and its int8 wire."""
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        init_params)
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    cfg = get_config("llama-3-8b")
+    report, total = {"smi": smi}, {}
+    t0 = time.perf_counter()
+    report["engine"], launches = _kv_engine(torch, kernels, cfg)
+    _add(total, launches)
+    report["cross_check_max_abs_err"] = phase_cross_check(
+        torch, fa, qm, name="llama-3-8b int8-kv",
+        cfg=cfg.replace(kv_quant="int8"), routes=("paged",))
+    report["seconds_engine"] = time.perf_counter() - t0
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    t0 = time.perf_counter()
+    report["batched"], launches = _kv_batched(torch, kernels, cfg, params)
+    _add(total, launches)
+    report["seconds_batched"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["tier"], launches = _kv_tier(torch, kernels, cfg, params)
+    _add(total, launches)
+    report["seconds_tier"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["disagg"], launches = _kv_disagg(torch, kernels, cfg)
+    _add(total, launches)
+    report["seconds_disagg"] = time.perf_counter() - t0
+    report["launches"] = total
+    log("  kv plane launches:", json.dumps(total))
+    out_dir = os.path.join(HERE, "chiprun_out")
+    if os.path.isdir(out_dir):
+        with open(os.path.join(out_dir, "phase17.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    return report
+
+
 def timed_rows(torch):
     """Phase 2's timed rows alone (every kernel at its serving shapes,
     with its bound, plain and library times), for comparing two trees'
@@ -4066,6 +4643,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  [{name}] {line.strip()}")
+    if sys.argv[1:2] == ["--kv-plane"]:   # phase 17 alone
+        report = phase_kv_plane(torch, fa, qm, counted, smi)
+        log("  kv plane seconds:", json.dumps(
+            {k: round(v, 1) for k, v in report.items()
+             if k.startswith("seconds")}))
+        log(smi)
+        return 0
     if sys.argv[1:2] == ["--timed-rows"]:
         rows = timed_rows(torch)
         for row in rows:
@@ -4196,6 +4780,15 @@ def main() -> int:
             f"{name}'s softcap arm never launched on gemma-2's path"
     assert later["launches"]["fused_decode_step"] == 0, later["launches"]
 
+    mark(17, "the KV plane: (a) the int8 KV cache, engine, max_seq 8192; "
+        "(b) the int8 paged pool; (c) the host KV tier; (d) "
+        "disaggregated prefill over /kv_fetch, native and int8 arenas")
+    kv_plane = phase_kv_plane(torch, fa, qm, counted, smi)
+    for name in ("flash_attention", "paged_flash_decode",
+                 "fused_decode_step", "flash_decode"):
+        assert kv_plane["launches"][name] > 0, \
+            f"{name} never launched on the KV plane's path"
+
     mark(None)
     log("  wall time by phase (s):", json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
@@ -4262,6 +4855,9 @@ def main() -> int:
         # gemma-2-9b's shapes beside the uncapped arm (SDPA: no cap)
         entry["later_launches"] = later["launches"].get(name, 0) \
             if "[" not in name else 0
+        # phase 17's KV plane (the int8 routes launch no decode kernel)
+        entry["kv_plane_launches"] = kv_plane["launches"].get(name, 0) \
+            if "[" not in name else 0
         cap_rows = {"flash_attention": cap_pre, "flash_decode": cap_dec,
                     "paged_flash_decode": cap_paged}.get(name)
         if cap_rows is not None:
@@ -4283,7 +4879,8 @@ def main() -> int:
               "tp_cross_check_max_abs_err": tp_xerr, "tp_depth": tp_depth,
               "control_surface": control, "graphs": graphs_report,
               "families": families, "ingestion": ingestion,
-              "later": later, "uncapped_digests": digests,
+              "later": later, "kv_plane": kv_plane,
+              "uncapped_digests": digests,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(HERE, "chiprun_out")

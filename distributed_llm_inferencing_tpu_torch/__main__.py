@@ -1,7 +1,7 @@
 """CLI of the port:
 
 - ``python -m distributed_llm_inferencing_tpu_torch worker [--host
-  --port --device]`` starts the worker agent (runtime/worker.py);
+  --port --device --role]`` starts the worker agent (runtime/worker.py);
 - ``python -m distributed_llm_inferencing_tpu_torch convert
   --checkpoint_path DIR --out DIR [--dtype --quantize --embed_quantize
   --device]`` converts an HF checkpoint directory into a native checkpoint
@@ -17,7 +17,8 @@ import argparse
 import sys
 
 USAGE = ("usage: python -m distributed_llm_inferencing_tpu_torch "
-         "{worker [--host H] [--port P] [--device cuda|cpu] | convert "
+         "{worker [--host H] [--port P] [--device cuda|cpu] "
+         "[--role prefill|decode|mixed] | convert "
          "--out DIR (--checkpoint_path DIR | --model_name NAME "
          "--allow_random_init) [--dtype D] [--quantize int8|int4] "
          "[--embed_quantize int8] [--device cuda|cpu]}")

@@ -23,8 +23,23 @@ scales, and nemotron's squared ReLU. The reference runs its stacked
 rope switches as traced leaves; here each layer is its own ``Block``
 holding its window and rope switch as static values, and the stack is a
 Python loop. A config that switches on anything else (MoE, MLA, sinks,
-a QKV clamp, an int8 KV cache, ...) is refused at construction rather
-than served wrong (``check_supported``).
+a QKV clamp, ...) is refused at construction rather than served wrong
+(``check_supported``).
+
+The int8 KV cache (``kv_quant="int8"``, the reference's): each block
+quantizes its fresh K/V per (token, head) (ops/kvcache.py ``quant_kv``)
+and writes levels and scales in place, in every cache regime. Prefill
+attends the fresh K/V through the prefill kernel; decode attends the
+dequantized cache by the plain formulation (dense: ``attend_decode``;
+paged: ``gather_attend_decode``), where the reference pins a quantized
+cache, so an int8 decode launches no ``flash_decode``,
+``paged_flash_decode`` or ``fused_decode_step``. An int8 pool's decode
+chunk keeps the reference's chunk semantics (its side-buffer
+formulation, which for an int8 pool is not only a layout): the chunk's
+own K/V stays in full-precision side buffers that its later steps
+attend, and is quantized into the pool once, at the chunk's end
+(``paged_chunk_flush``); a native pool's chunk writes every step in
+place, as before.
 
 Weight-only quantization (ops/quant.py): each linear (``Linear``, the
 reference's ``_linear``) holds its leaf in the stored form — float
@@ -81,13 +96,15 @@ from distributed_llm_inferencing_tpu_torch.models.params import layer_linears
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode
 from distributed_llm_inferencing_tpu_torch.ops.attention import (
     alibi_slopes, attend_decode, attend_prefill)
+from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
+    masked_attention)
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import (
-    KVCache, block_slots, write_block)
+    KVCache, block_slots, dequant_kv, quant_kv, write_block)
 from distributed_llm_inferencing_tpu_torch.ops.norms import (
     Norm, qk_normalize)
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
-    PagedKVCache, paged_attend_decode, paged_attend_prefix, write_block_run,
-    write_token)
+    PagedKVCache, gather_seq, paged_attend_decode, paged_attend_prefix,
+    write_block_run, write_token)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
     leaf_form, leaf_keys)
 from distributed_llm_inferencing_tpu_torch.ops.quant_matmul import q4_linear
@@ -101,7 +118,7 @@ from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 _UNPORTED = {
     "qkv_clip": None, "kv_lora_rank": None, "q_lora_rank": None,
     "mla_latent_cache": False, "num_experts": 0, "attn_sinks": False,
-    "dense_prefix_layers": 0, "kv_quant": None,
+    "dense_prefix_layers": 0,
 }
 
 
@@ -116,7 +133,8 @@ _ACT = {"silu": F.silu, "relu": F.relu, "relu2": _relu2,
 # field -> the values the port serves
 _CHOICES = {"norm_type": ("rmsnorm", "layernorm"), "activation": tuple(_ACT),
             "position_embedding": ("rope", "learned", "alibi"),
-            "qk_norm": (None, "rms_head", "ln_head", "rms_full")}
+            "qk_norm": (None, "rms_head", "ln_head", "rms_full"),
+            "kv_quant": (None, "int8")}
 # field -> its llama value: the family switches, which tp does not shard
 # yet (parallel/sharding.py cuts the llama arm's leaves only)
 _LLAMA_ARM = {
@@ -395,39 +413,57 @@ class Block(nn.Module):
         x = x + self._scaled(m)
         return self.mlp_norm(x) if cfg.post_norm else x
 
-    def forward(self, x, cache_k, cache_v, slots, cos_sin, new_lengths,
+    @staticmethod
+    def _write(write, cache, k, v):
+        """Write fresh K/V [B,s,Hkv,hd] into ``cache`` (k, v, k_scale,
+        v_scale; the scales None for a native cache) through ``write(layer,
+        new)``; an int8 cache gets ``quant_kv``'s levels and scales."""
+        ck, cv, cks, cvs = cache
+        if cks is not None:
+            k, ks = quant_kv(k)
+            v, vs = quant_kv(v)
+            write(cks, ks)
+            write(cvs, vs)
+        write(ck, k)
+        write(cv, v)
+
+    def forward(self, x, cache, slots, cos_sin, new_lengths,
                 is_prefill: bool):
+        """``cache``: this layer's (k, v, k_scale, v_scale) views."""
         h = self._in(x)
         q, k, v = self._qkv(h, cos_sin)
-        write_block(cache_k, k, None, slots)
-        write_block(cache_v, v, None, slots)
+        self._write(lambda c, n: write_block(c, n, None, slots), cache, k, v)
         cap = self.cfg.attn_softcap
         if is_prefill:
             attn = attend_prefill(q, k, v, sliding_window=self.window,
                                   alibi=self.alibi, softcap=cap)
         else:
-            attn = attend_decode(q, cache_k, cache_v, new_lengths,
+            attn = attend_decode(q, cache[0], cache[1], new_lengths,
                                  sliding_window=self.window,
-                                 alibi=self.alibi, softcap=cap)
+                                 alibi=self.alibi, softcap=cap,
+                                 k_scale=cache[2], v_scale=cache[3])
         return self._tail(x, h, attn)
 
-    def paged_prefill(self, x, ck, cv, cos_sin, tail_blocks, prefix_blocks,
+    def paged_prefill(self, x, cache, cos_sin, tail_blocks, prefix_blocks,
                       prefix_len, q_positions, tail_valid):
         """A wave of prompt tails: write their K/V into ``tail_blocks``,
         attend the cached prefix plus the tail (plain torch, as in the
-        reference)."""
+        reference). ``cache``: this layer's pool views (``PagedKVCache.
+        layer``)."""
         h = self._in(x)
         q, k, v = self._qkv(h, cos_sin)
-        write_block_run(ck, k, tail_blocks)
-        write_block_run(cv, v, tail_blocks)
-        attn = paged_attend_prefix(q, k, v, ck, cv, prefix_blocks,
-                                   prefix_len, q_positions, tail_valid,
-                                   sliding_window=self.window,
+        self._write(lambda c, n: write_block_run(c, n, tail_blocks), cache,
+                    k, v)
+        attn = paged_attend_prefix(q, k, v, cache[0], cache[1],
+                                   prefix_blocks, prefix_len, q_positions,
+                                   tail_valid, sliding_window=self.window,
                                    alibi=self.alibi,
-                                   softcap=self.cfg.attn_softcap)
+                                   softcap=self.cfg.attn_softcap,
+                                   k_scale_layer=cache[2],
+                                   v_scale_layer=cache[3])
         return self._tail(x, h, attn)
 
-    def paged_decode(self, x, ck, cv, cos_sin, block_tables, context_lens,
+    def paged_decode(self, x, cache, cos_sin, block_tables, context_lens,
                      fused: bool = False, fused_rope=None):
         """One token per slot at position ``context_lens``. With ``fused``
         and a q leaf the fused kernel takes (``fused_decode.supported``:
@@ -444,8 +480,9 @@ class Block(nn.Module):
             k, v = self._kv(h, cos_sin)
         else:
             q, k, v = self._qkv(h, cos_sin)
-        write_token(ck, k[:, 0], block_tables, context_lens)
-        write_token(cv, v[:, 0], block_tables, context_lens)
+        self._write(lambda c, n: write_token(c, n[:, 0], block_tables,
+                                             context_lens), cache, k, v)
+        ck, cv = cache[:2]
         new_lens = context_lens + 1
         if fused:
             cos, sin = fused_rope or (None, None)
@@ -457,7 +494,32 @@ class Block(nn.Module):
             attn = paged_attend_decode(q, ck, cv, block_tables, new_lens,
                                        sliding_window=self.window,
                                        alibi=self.alibi,
-                                       softcap=self.cfg.attn_softcap)
+                                       softcap=self.cfg.attn_softcap,
+                                       k_scale_layer=cache[2],
+                                       v_scale_layer=cache[3])
+        return self._tail(x, h, attn)
+
+    def paged_chunk_q8(self, x, cache, cos_sin, block_tables, q_pos,
+                       side_k, side_v, t, kv_pos, kv_valid):
+        """Step ``t`` of an int8 pool's decode chunk for this layer: the
+        token's K/V goes to row ``t`` of the chunk's side buffers
+        ``side_k``/``side_v`` [R, K, Hkv, hd] (compute dtype); q attends
+        the pool's blocks, dequantized, then the side buffers, by the
+        plain formulation over ``kv_pos``/``kv_valid`` (the pool below
+        the chunk's start, the side rows up to ``t``)."""
+        h = self._in(x)
+        q, k, v = self._qkv(h, cos_sin)
+        side_k.index_copy_(1, t, k.to(side_k.dtype))
+        side_v.index_copy_(1, t, v.to(side_v.dtype))
+        ck, cv, cks, cvs = cache
+        kp = dequant_kv(gather_seq(ck, block_tables),
+                        gather_seq(cks, block_tables), side_k.dtype)
+        vp = dequant_kv(gather_seq(cv, block_tables),
+                        gather_seq(cvs, block_tables), side_v.dtype)
+        attn = masked_attention(q, torch.cat([kp, side_k], dim=1),
+                                torch.cat([vp, side_v], dim=1), q_pos,
+                                kv_pos, kv_valid, self.window, self.alibi,
+                                softcap=self.cfg.attn_softcap)
         return self._tail(x, h, attn)
 
 
@@ -552,11 +614,12 @@ class Transformer(nn.Module):
         cos_sin = self._cos_sin(q_positions)
         slots = block_slots(write_starts, s, cache.max_seq)
         for i, layer in enumerate(self.layers):
-            x = layer(x, cache.k[i], cache.v[i], slots, cos_sin,
-                      new_lengths, is_prefill)
+            x = layer(x, cache.layer(i), slots, cos_sin, new_lengths,
+                      is_prefill)
         if gather is not None:
             x = x[torch.arange(B, device=x.device), gather][:, None]
-        return self.unembed(x), KVCache(cache.k, cache.v, new_lengths)
+        return self.unembed(x), dataclasses.replace(cache,
+                                                    lengths=new_lengths)
 
     def prefill(self, tokens, lengths, cache: KVCache, gather=None):
         """Prefill a right-padded prompt block: tokens [B, S0], lengths
@@ -601,7 +664,7 @@ class Transformer(nn.Module):
         x = self.embed(tokens, q_pos)
         cos_sin = self._cos_sin(q_pos)
         for i, layer in enumerate(self.layers):
-            x = layer.paged_prefill(x, paged.k[i], paged.v[i], cos_sin,
+            x = layer.paged_prefill(x, paged.layer(i), cos_sin,
                                     tail_blocks, prefix_blocks, prefix_len,
                                     q_pos, tail_valid)
         last = (tail_len.long() - 1).clamp(min=0)
@@ -623,7 +686,7 @@ class Transformer(nn.Module):
         fused_rope = (fused_decode.rope_rows(cos_sin)
                       if fused and cos_sin is not None else None)
         for i, layer in enumerate(self.layers):
-            x = layer.paged_decode(x, paged.k[i], paged.v[i], cos_sin,
+            x = layer.paged_decode(x, paged.layer(i), cos_sin,
                                    block_tables, context_lens, fused,
                                    fused_rope)
         return self.unembed(x)[:, 0], paged
@@ -649,9 +712,13 @@ class Transformer(nn.Module):
         captures it once and replays it K times (runtime/graphs.py)."""
         alive = s.alive.bool()
         t = s.t.long()
-        bt_eff = torch.where(alive[:, None], s.bt, dummy_block)
-        cl_eff = torch.where(alive, s.cl, 0)
-        logits, _ = self.paged_decode_step(s.cur, paged, bt_eff, cl_eff)
+        if paged.quantized:
+            logits = self._paged_chunk_logits_q8(s, paged, alive, t)
+            s.wrote.index_copy_(0, t, alive[None])
+        else:
+            bt_eff = torch.where(alive[:, None], s.bt, dummy_block)
+            cl_eff = torch.where(alive, s.cl, 0)
+            logits, _ = self.paged_decode_step(s.cur, paged, bt_eff, cl_eff)
         nxt = sample_batch(logits, s.seeds, s.steps0 + t, s.temps, s.tks,
                            s.tps, s.ds.bool())
         emit = alive & ~((s.eos >= 0) & (nxt == s.eos))
@@ -661,6 +728,51 @@ class Transformer(nn.Module):
         s.toks.index_copy_(0, t, nxt[None])
         s.emits.index_copy_(0, t, emit[None])
         s.t.add_(1)
+
+    def _paged_chunk_logits_q8(self, s, paged, alive, t):
+        """An int8 pool's chunk step (the reference's side-buffer
+        formulation): every slot's query at its position (0 once dead)
+        attends its table's blocks below the chunk's start ``s.cl0``,
+        dequantized, and the chunk's side rows up to ``t``; the pool is
+        not written until ``paged_chunk_flush``."""
+        r, mb = s.bt.shape
+        dev = s.bt.device
+        q_pos = torch.where(alive, s.cl, 0).long()[:, None]
+        x = self.embed(s.cur[:, None], q_pos)
+        cos_sin = self._cos_sin(q_pos)
+        cl0 = s.cl0.long()[:, None]
+        pool_pos = torch.arange(mb * paged.block_size, device=dev).expand(
+            r, -1)
+        side = torch.arange(s.side_k.shape[2], device=dev)
+        kv_pos = torch.cat([pool_pos, cl0 + side], dim=1)
+        kv_valid = torch.cat([pool_pos < cl0, (side <= t).expand(r, -1)],
+                             dim=1)
+        for i, layer in enumerate(self.layers):
+            x = layer.paged_chunk_q8(x, paged.layer(i), cos_sin, s.bt, q_pos,
+                                     s.side_k[i], s.side_v[i], t, kv_pos,
+                                     kv_valid)
+        return self.unembed(x)[:, 0]
+
+    def paged_chunk_flush(self, s: "PagedChunkState", paged: PagedKVCache,
+                          dummy_block: int, k: int):
+        """The end of an int8 pool's K-step chunk: the side buffers'
+        first ``k`` rows quantized (``quant_kv``) and written into the
+        pool at each step's position, the steps a slot did not write
+        (``s.wrote``) into ``dummy_block`` (the reference's one scatter
+        after its scan)."""
+        r, mb = s.bt.shape
+        bs = paged.block_size
+        pos = s.cl0.long()[None, :] + torch.arange(
+            k, device=s.bt.device)[:, None]                      # [K, R]
+        blk = torch.gather(s.bt.long(), 1,
+                           (pos // bs).clamp(max=mb - 1).T).T
+        blk = torch.where(s.wrote[:k], blk, dummy_block)
+        off = pos % bs
+        for side, lv, sc in ((s.side_k, paged.k, paged.k_scale),
+                             (s.side_v, paged.v, paged.v_scale)):
+            q8, scale = quant_kv(side[:, :, :k].transpose(1, 2))
+            lv[:, blk, off] = q8
+            sc[:, blk, off] = scale
 
 
 @dataclasses.dataclass
@@ -673,7 +785,10 @@ class PagedChunkState:
     ``budget``, ``eos`` and ``alive``; the step counter ``t`` [1]; the
     outputs ``toks``/``emits`` [K,R]. ``ds``/``alive`` are integers
     (0 = False), as the batcher packs them (runtime/batcher.py
-    ``_ChunkBuffers``)."""
+    ``_ChunkBuffers``). An int8 pool's chunk also carries the chunk's
+    start ``cl0`` [R], its side buffers ``side_k``/``side_v`` [L, R,
+    K, Hkv, hd] (compute dtype) and ``wrote`` [K, R]: which slots wrote
+    at each step."""
     bt: torch.Tensor
     cl: torch.Tensor
     cur: torch.Tensor
@@ -689,3 +804,7 @@ class PagedChunkState:
     t: torch.Tensor
     toks: torch.Tensor
     emits: torch.Tensor
+    cl0: Optional[torch.Tensor] = None
+    side_k: Optional[torch.Tensor] = None
+    side_v: Optional[torch.Tensor] = None
+    wrote: Optional[torch.Tensor] = None

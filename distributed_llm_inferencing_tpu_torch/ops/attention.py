@@ -9,7 +9,8 @@
   goes to the hand-written kernel (ops/flash_attention.py), a CPU tensor
   to the kernel's plain version. The score softcap (gemma2) runs in the
   kernels' cap arm; sinks (gpt-oss) raise until their family is
-  ported.
+  ported. An int8 cache decodes by the plain formulation on every
+  device, as the JAX package pins it.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
     flash_attention, flash_decode, masked_attention)
+from distributed_llm_inferencing_tpu_torch.ops.kvcache import dequant_kv
 
 
 def alibi_slopes(num_heads: int, device=None):
@@ -69,14 +71,28 @@ def attend_prefill(q, k, v, *, sliding_window: Optional[int] = None,
 
 def attend_decode(q, cache_k, cache_v, lengths, *,
                   sliding_window: Optional[int] = None, alibi=None,
-                  softcap: Optional[float] = None, sinks=None):
+                  softcap: Optional[float] = None, sinks=None,
+                  k_scale=None, v_scale=None):
     """Single-token cached attention: ``lengths`` counts filled slots
     including the token just written; the query sits at ``lengths - 1``.
-    Multi-token verification (speculative decoding) is not ported."""
+    An int8 cache (``k_scale``/``v_scale`` [B,S,Hkv] given) is
+    dequantized to q's dtype and attended by the plain formulation, where
+    the JAX package pins a quantized cache (its XLA fuses the dequantize
+    into the attention matmul); no ``flash_decode`` launch. Multi-token
+    verification (speculative decoding) is not ported."""
     _unported(sinks)
     if q.shape[1] != 1:
         raise NotImplementedError(
             "multi-token decode (speculative verify) is not ported yet")
+    if k_scale is not None:
+        k = dequant_kv(cache_k, k_scale, q.dtype)
+        v = dequant_kv(cache_v, v_scale, q.dtype)
+        B, S = k.shape[:2]
+        kv_pos = torch.arange(S, device=q.device).expand(B, S)
+        lens = lengths.long()
+        return masked_attention(q, k, v, (lens - 1)[:, None], kv_pos,
+                                kv_pos < lens[:, None], sliding_window,
+                                alibi, softcap=softcap)
     return flash_decode(q, cache_k, cache_v, lengths,
                         sliding_window=sliding_window, alibi=alibi,
                         softcap=softcap)

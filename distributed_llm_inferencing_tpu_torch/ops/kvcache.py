@@ -4,17 +4,24 @@
   reads and writes the view ``k[i]``.
 - ``lengths``: [B] int32 on the cache's device — filled slots per
   sequence (the same for every layer).
+- ``k_scale``/``v_scale``: [L, B, max_seq, Hkv] f32, present only under
+  ``cfg.kv_quant == "int8"``: ``k``/``v`` then hold int8 levels with one
+  symmetric scale per (token, head) (``quant_kv``), about half the bf16
+  cache's bytes. Reads dequantize (``dequant_kv``) and attend through
+  the plain attention, as in the JAX package, whose XLA fuses the
+  dequantize into its attention matmul; no kernel has an int8 arm.
 
 Writes are in place: the reference's engine donates its cache buffers to
 each jitted step (its runtime/engine.py, prefill and decode programs), so
 XLA updates them where they lie; writing into the same tensors here keeps
-the same memory footprint — one cache, never a copy per step. The int8
-cache mode (``kv_quant``) is not ported yet.
+the same memory footprint — one cache, never a copy per step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional
 
 import torch
 
@@ -24,13 +31,41 @@ from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor         # [L, B, S, Hkv, hd]
+    k: torch.Tensor         # [L, B, S, Hkv, hd] (model dtype, or int8)
     v: torch.Tensor         # [L, B, S, Hkv, hd]
     lengths: torch.Tensor   # [B] int32
+    k_scale: Optional[torch.Tensor] = None   # [L, B, S, Hkv] f32 (int8)
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_seq(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def layer(self, i: int):
+        """Layer i's views (k, v, k_scale, v_scale), the scales None for
+        a native cache."""
+        return tuple(None if t is None else t[i]
+                     for t in (self.k, self.v, self.k_scale, self.v_scale))
+
+
+def quant_kv(x):
+    """[..., Hkv, hd] -> (int8 [..., Hkv, hd], f32 scale [..., Hkv]):
+    symmetric per (token, head), the JAX package's ``quant_kv`` step for
+    step (``torch.round`` rounds half to even, as ``jnp.round``)."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    q = torch.round(x32 / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequant_kv(q, scale, dtype):
+    """Inverse of ``quant_kv``: f32 levels times their scale, cast to
+    ``dtype``."""
+    return (q.float() * scale[..., None].float()).to(dtype)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -38,17 +73,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     """A zeroed cache; ``num_kv_heads`` is a tp rank's share of the kv
     heads (parallel/sharding.py ``local_heads``), all of them by
     default."""
-    if cfg.kv_quant is not None:
-        raise NotImplementedError("int8 KV cache is not ported yet")
     dtype = torch_dtype(dtype or cfg.dtype)
     shape = (cfg.num_layers, batch, max_seq,
              num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.kv_quant == "int8":
+        z = functools.partial(torch.zeros, device=device)
+        return KVCache(k=z(shape, dtype=torch.int8),
+                       v=z(shape, dtype=torch.int8), lengths=lengths,
+                       k_scale=z(shape[:-1], dtype=torch.float32),
+                       v_scale=z(shape[:-1], dtype=torch.float32))
+    if cfg.kv_quant is not None:
+        raise ValueError(f"unknown kv_quant mode {cfg.kv_quant!r}")
     # zeroed, as the reference: the plain attention multiplies unused
     # slots by probability 0, which must not meet uninitialised NaNs
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
+        v=torch.zeros(shape, dtype=dtype, device=device), lengths=lengths)
 
 
 def block_slots(starts, s: int, max_seq: int):

@@ -25,7 +25,15 @@ the JAX package's XLA gather formulation, plain torch on every device
 (no kernel, and no ``paged_flash_decode`` launch). ``paged_attend_prefix``
 (a prompt tail attending its cached prefix plus itself) is plain torch on
 every device, as in the JAX package, which computes it outside any Pallas
-kernel. The int8 pool (``kv_quant``) is not ported yet.
+kernel.
+
+The int8 pool (``cfg.kv_quant == "int8"``) holds int8 ``k``/``v`` and
+per-(token, head) f32 scales ``k_scale``/``v_scale`` [L, NB, bs, Hkv]
+(ops/kvcache.py ``quant_kv``). It always decodes through
+``gather_attend_decode``, dequantizing the gathered blocks, and never
+through ``paged_flash_decode``, as the JAX package routes it (its Pallas
+paged kernel has no int8 rule); ``paged_attend_prefix`` dequantizes the
+gathered prefix.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
 from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
     masked_attention)
+from distributed_llm_inferencing_tpu_torch.ops.kvcache import dequant_kv
 from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
     paged_flash_decode)
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
@@ -45,8 +54,12 @@ from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 @dataclasses.dataclass
 class PagedKVCache:
-    k: torch.Tensor   # [L, NB, bs, Hkv, hd]
+    k: torch.Tensor   # [L, NB, bs, Hkv, hd] (model dtype, or int8)
     v: torch.Tensor   # [L, NB, bs, Hkv, hd]
+    # per-token-per-head scales, present iff cfg.kv_quant == "int8":
+    # [L, NB, bs, Hkv] f32
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def num_blocks(self) -> int:
@@ -58,17 +71,36 @@ class PagedKVCache:
 
     @property
     def quantized(self) -> bool:
-        return False
+        return self.k_scale is not None
+
+    def leaves(self):
+        """The pool's tensors, each [L, NB, bs, ...] (k, v, then the
+        scales of an int8 pool): what a block's pages are cut from."""
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale)
+                if t is not None]
+
+    def layer(self, i: int):
+        """Layer i's views (k, v, k_scale, v_scale), the scales None
+        for a native pool."""
+        return tuple(None if t is None else t[i]
+                     for t in (self.k, self.v, self.k_scale, self.v_scale))
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      dtype=None, device=None) -> PagedKVCache:
-    if cfg.kv_quant is not None:
-        raise NotImplementedError("int8 paged KV (k_scale/v_scale) is not "
-                                  "ported yet")
     dtype = torch_dtype(dtype or cfg.dtype)
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.head_dim)
+    if cfg.kv_quant == "int8":
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device))
+    if cfg.kv_quant is not None:
+        raise ValueError(f"unknown kv_quant mode {cfg.kv_quant!r}")
     # zeroed, as the reference: the plain attention multiplies unread
     # slots by probability 0, which must not meet uninitialised NaNs
     return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -110,15 +142,21 @@ def gather_seq(cache_layer, block_tables):
 
 def gather_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
                          context_lens, sliding_window: Optional[int] = None,
-                         alibi=None, softcap: Optional[float] = None):
+                         alibi=None, softcap: Optional[float] = None,
+                         k_scale_layer=None, v_scale_layer=None):
     """Single-token attention over the pool by the JAX package's XLA
     formulation (its ``paged_attend_decode`` off the Pallas kernel): each
-    slot's blocks gathered into a contiguous [R, MB*bs, Hkv, hd] copy,
+    slot's blocks gathered into a contiguous [R, MB*bs, Hkv, hd] copy
+    (an int8 pool's dequantized to q's dtype with its gathered scales),
     then the plain masked attention with the query at ``context_lens -
-    1``. Plain torch on every device; the route of the ALiBi families."""
+    1``. Plain torch on every device; the route of the ALiBi families and
+    of the int8 pool."""
     r, mb = block_tables.shape
     k = gather_seq(cache_k_layer, block_tables)
     v = gather_seq(cache_v_layer, block_tables)
+    if k_scale_layer is not None:
+        k = dequant_kv(k, gather_seq(k_scale_layer, block_tables), q.dtype)
+        v = dequant_kv(v, gather_seq(v_scale_layer, block_tables), q.dtype)
     kv_pos = torch.arange(k.shape[1], device=q.device).expand(r, -1)
     lens = context_lens.long()
     return masked_attention(q, k, v, (lens - 1)[:, None], kv_pos,
@@ -128,15 +166,18 @@ def gather_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
 
 def paged_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
                         context_lens, sliding_window: Optional[int] = None,
-                        alibi=None, softcap: Optional[float] = None):
+                        alibi=None, softcap: Optional[float] = None,
+                        k_scale_layer=None, v_scale_layer=None):
     """The decode regime: q [R,1,H,hd] against the pool, ``context_lens``
     counting the token just written. The paged kernel on CUDA (its plain
-    version on the CPU), softcap included; with ``alibi`` slopes [H] the
-    gather formulation, where the JAX package routes them too."""
-    if alibi is not None:
+    version on the CPU), softcap included; with ``alibi`` slopes [H] or
+    an int8 pool's scales the gather formulation, where the JAX package
+    routes them too."""
+    if alibi is not None or k_scale_layer is not None:
         return gather_attend_decode(q, cache_k_layer, cache_v_layer,
                                     block_tables, context_lens,
-                                    sliding_window, alibi, softcap)
+                                    sliding_window, alibi, softcap,
+                                    k_scale_layer, v_scale_layer)
     return paged_flash_decode(q, cache_k_layer, cache_v_layer, block_tables,
                               context_lens, sliding_window=sliding_window,
                               softcap=softcap)
@@ -145,10 +186,12 @@ def paged_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
 def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
                         prefix_blocks, prefix_len, q_positions, tail_valid,
                         sliding_window: Optional[int] = None, alibi=None,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None,
+                        k_scale_layer=None, v_scale_layer=None):
     """Tail-prefill attention: fresh tail K/V plus a cached prefix, whose
     K/V is gathered from the shared blocks — a prefix-cache hit saves the
-    prefix's compute, not just its memory.
+    prefix's compute, not just its memory. An int8 pool's prefix is
+    dequantized to q's dtype; the tail attends its own fresh K/V.
 
     q, k_new, v_new [B,T,...] fresh tail projections; prefix_blocks [B,PB]
     (dummy-padded); prefix_len [B] real cached tokens; q_positions [B,T]
@@ -157,6 +200,11 @@ def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
     b = q.shape[0]
     kp = gather_seq(cache_k_layer, prefix_blocks)     # [B, PB*bs, Hkv, hd]
     vp = gather_seq(cache_v_layer, prefix_blocks)
+    if k_scale_layer is not None:
+        kp = dequant_kv(kp, gather_seq(k_scale_layer, prefix_blocks),
+                        q.dtype)
+        vp = dequant_kv(vp, gather_seq(v_scale_layer, prefix_blocks),
+                        q.dtype)
     p = kp.shape[1]
     prefix_pos = torch.arange(p, device=q.device).expand(b, p)
     prefix_valid = prefix_pos < prefix_len.long()[:, None]

@@ -25,6 +25,21 @@ the card without head-of-line blocking.
   tail exceeds ``prefill_chunk`` blocks admit one chunk per step.
 - **Preemption**: under memory pressure the youngest slot goes back to
   the queue; its blocks stay warm in the radix tree.
+- **Host KV tier** (runtime/kvtier.py, on by default: ``kv_host_mb`` or
+  ``DLI_KV_HOST_MB``, 256 MB; 0 disables it): a radix block the pool
+  evicts is copied off the device into a bounded host arena keyed by its
+  token-chain digest (``_offload_evicted``, the pool's evict hook, which
+  runs before anything can overwrite the block); a later admission that
+  misses the radix cache restores matching blocks from the arena in
+  place (``_restore_from_arena``) instead of prefilling them, with the
+  exact evicted bytes, so its tokens equal a cold prefill's.
+- **Cross-node KV transfer** (runtime/kvwire.py): a request with
+  ``kv_export`` parks its prompt's KV in the arena at finish
+  (``_export_request_kv``), where a peer's ``/kv_fetch`` reads it; a
+  request with ``kv_source`` (or the worker's ``prefetch_kv`` on the
+  handler thread) pulls the missing blocks from that peer into the arena
+  before admission restores them. Any failure costs a recompute, never
+  the request (``kv_transfer_failures`` counts it).
 - **Streaming and cancel**: a request's ``stream_cb(token)`` fires for
   each token as its chunk lands; ``cancel`` drops the request at the next
   step and returns its blocks to the pool there.
@@ -33,10 +48,12 @@ Sampling parameters ride as per-row tensors and each row draws from its
 own (seed, step) stream (ops/sampling.py ``sample_batch``), so a request's
 tokens are a pure function of (params, prompt, seed).
 
-Admission (the JAX package's ``_admit_jit``) runs eagerly. Not ported
-yet (in ROADMAP order): overlapped dispatch, speculation, the host KV
-tier and peer transfer, migration, LoRA, the multi-host
-``program_hook``, pipeline parallelism and the phase profiler.
+Admission (the JAX package's ``_admit_jit``) runs eagerly, and so do the
+tier's restores: each writes the pool's tensors in place (``index_copy_``),
+never new tensors, because the captured decode programs hold the pool's
+addresses. Not ported yet (in ROADMAP order): overlapped dispatch,
+migration, speculation, LoRA, the multi-host ``program_hook``, pipeline
+parallelism and the phase profiler.
 """
 
 from __future__ import annotations
@@ -45,9 +62,10 @@ import collections
 import dataclasses
 import functools
 import logging
+import os
 import threading
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +75,7 @@ from distributed_llm_inferencing_tpu_torch.models.params import init_params
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
     PagedChunkState, Transformer)
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode
+from distributed_llm_inferencing_tpu_torch.ops import kvblock_quant as kvq
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
     init_paged_cache)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
@@ -64,12 +83,15 @@ from distributed_llm_inferencing_tpu_torch.ops.quant import (
 from distributed_llm_inferencing_tpu_torch.ops.sampling import (
     SamplingParams, sample_batch)
 from distributed_llm_inferencing_tpu_torch.runtime import graphs
+from distributed_llm_inferencing_tpu_torch.runtime import kvtier as kvtier_mod
+from distributed_llm_inferencing_tpu_torch.runtime import kvwire
 from distributed_llm_inferencing_tpu_torch.runtime.block_pool import (
     BlockPool)
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
     InferenceEngine)
 from distributed_llm_inferencing_tpu_torch.utils.device import resolve_device
-from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
+from distributed_llm_inferencing_tpu_torch.utils.metrics import (
+    KV_TIER_COUNTERS, Metrics)
 
 log = logging.getLogger(__name__)
 
@@ -86,6 +108,11 @@ class BatchRequest:
     eos_token_id: Optional[int] = None
     stream_cb: Optional[Callable[[int], None]] = None
     seed: int = 0    # output is a pure fn of (params, prompt, seed)
+    # disaggregation: the peer to pull this request's prefix KV from
+    # ({"url", "model"}), and whether to park its prompt's KV in the host
+    # arena at finish for a decode peer's /kv_fetch
+    kv_source: Optional[dict] = None
+    kv_export: bool = False
     # results
     tokens: List[int] = dataclasses.field(default_factory=list)
     error: Optional[str] = None
@@ -116,6 +143,10 @@ class BatchRequest:
     _cost_cached: int = 0
     _cost_uncached: int = 0
     _weight_passes: int = 0
+    _arena_restored_bytes: int = 0
+    _arena_offloaded_bytes: int = 0
+    _kv_transfer_bytes: int = 0
+    _peer_fetch_done: bool = False
 
     def wait(self, timeout: Optional[float] = None) -> List[int]:
         if not self.done.wait(timeout):
@@ -147,6 +178,9 @@ class ContinuousBatcher:
     # the engine's schedule. Each step picks the largest chunk some active
     # slot can fill; budget/eos masks handle slots that finish mid-chunk.
     DECODE_CHUNKS = InferenceEngine.DECODE_CHUNKS
+    # Blocks per staged copy between the pool and the host tier (per leaf:
+    # 64 MB at llama-3-8b's bf16 blocks of 16 tokens)
+    STAGE_BLOCKS = 32
     # Rounding the chunk up past the largest remaining budget costs dead
     # steps for finished slots but saves a host round trip; allowed while
     # the overshoot stays this small.
@@ -157,7 +191,9 @@ class ContinuousBatcher:
                  slots: int = 8, max_seq: Optional[int] = None,
                  seed: int = 0, prefill_chunk: Optional[int] = 32,
                  decode_chunk_cap: Optional[int] = None, device=None,
-                 metrics: Optional[Metrics] = None):
+                 metrics: Optional[Metrics] = None,
+                 kv_host_mb: Optional[float] = None,
+                 kv_digest_chunk: Optional[int] = None, kv_fetcher=None):
         self.metrics = metrics or Metrics()
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -202,6 +238,7 @@ class ContinuousBatcher:
         self.block_tables = np.full((slots, self.max_blocks), self._dummy,
                                     np.int32)
         self.context_lens = np.zeros((slots,), np.int32)
+        self._init_kvtier(kv_host_mb, kv_digest_chunk, kv_fetcher)
         self.active: List[Optional[BatchRequest]] = [None] * slots
         self._admit_order: collections.deque = collections.deque()
 
@@ -218,6 +255,42 @@ class ContinuousBatcher:
         self._bufs: Optional[_ChunkBuffers] = None
         self.programs = graphs.DecodePrograms(dev, self.metrics)
         self._programs: dict = {}
+
+    def _init_kvtier(self, kv_host_mb, kv_digest_chunk, kv_fetcher):
+        """The host KV tier (the JAX batcher's settings): ``kv_host_mb``,
+        else ``DLI_KV_HOST_MB``, else 256 MB of arena; 0 disables the tier
+        and its advertisement. ``DLI_KV_HOST_DTYPE`` "int8" stores blocks
+        quantized (ops/kvblock_quant.py), "native" (the default) the
+        exact device bytes. ``kv_fetcher``: the worker's shared
+        ``KVFetchClient``; a batcher without one builds its own at its
+        first peer fetch."""
+        if kv_host_mb is None:
+            try:
+                kv_host_mb = float(os.environ.get(
+                    "DLI_KV_HOST_MB", kvtier_mod.DEFAULT_HOST_MB))
+            except ValueError:
+                kv_host_mb = kvtier_mod.DEFAULT_HOST_MB
+        kv_dtype = os.environ.get("DLI_KV_HOST_DTYPE", "native")
+        if kv_dtype not in kvtier_mod.HOST_DTYPES:
+            kv_dtype = "native"
+        self.kvtier = (kvtier_mod.KVTier(
+            self.block_size, kv_host_mb,
+            digest_chunk=kv_digest_chunk or kvtier_mod.DIGEST_CHUNK,
+            dtype=kv_dtype)
+            if kv_host_mb and kv_host_mb > 0 else None)
+        self.kv_fetcher = kv_fetcher
+        self._stage_bufs: Optional[List[torch.Tensor]] = None
+        # single-flight peer fetches: concurrent fetches to one (peer,
+        # model) coalesce onto one leader transfer of the digest union
+        self._kvf_lock = threading.Lock()
+        self._kvf_inflight: Dict[tuple, dict] = {}
+        # the request whose admission prep is allocating: the arena
+        # offloads its alloc triggers are billed to it
+        self._admitting: Optional[BatchRequest] = None
+        if self.kvtier is not None:
+            self.pool.set_evict_hook(self._offload_evicted)
+            for name in KV_TIER_COUNTERS:
+                self.metrics.inc(name, 0)
 
     @property
     def decode_chunks(self):
@@ -236,9 +309,14 @@ class ContinuousBatcher:
                      sampling: Optional[SamplingParams] = None,
                      eos_token_id: Optional[int] = None,
                      stream_cb: Optional[Callable[[int], None]] = None,
-                     seed: Optional[int] = None) -> BatchRequest:
+                     seed: Optional[int] = None,
+                     kv_source: Optional[dict] = None,
+                     kv_export: bool = False,
+                     kv_transfer_bytes: int = 0) -> BatchRequest:
         """Validate and build one request without enqueueing it (ValueError
-        for a bad one), so a bad spec leaves no sibling enqueued."""
+        for a bad one), so a bad spec leaves no sibling enqueued.
+        ``kv_transfer_bytes``: what a submit-time ``prefetch_kv`` moved,
+        for the request's cost record."""
         if not prompt:
             raise ValueError("empty prompt")
         if int(max_new_tokens) < 1:
@@ -249,7 +327,11 @@ class ContinuousBatcher:
                            max_new_tokens=int(max_new_tokens),
                            sampling=sampling or SamplingParams(),
                            eos_token_id=eos_token_id, stream_cb=stream_cb,
-                           seed=int(seed))
+                           seed=int(seed),
+                           kv_source=(kv_source if isinstance(kv_source, dict)
+                                      else None),
+                           kv_export=bool(kv_export))
+        req._kv_transfer_bytes = int(kv_transfer_bytes or 0)
         if len(req.prompt) + req.max_new_tokens > self.max_seq:
             raise ValueError(
                 f"prompt ({len(req.prompt)}) + max_new_tokens "
@@ -260,10 +342,13 @@ class ContinuousBatcher:
                sampling: Optional[SamplingParams] = None,
                eos_token_id: Optional[int] = None,
                stream_cb: Optional[Callable[[int], None]] = None,
-               seed: Optional[int] = None) -> BatchRequest:
+               seed: Optional[int] = None, **kv) -> BatchRequest:
+        """``kv``: ``make_request``'s ``kv_source``, ``kv_export`` and
+        ``kv_transfer_bytes``."""
         return self.submit_many([dict(
             prompt=prompt, max_new_tokens=max_new_tokens, sampling=sampling,
-            eos_token_id=eos_token_id, stream_cb=stream_cb, seed=seed)])[0]
+            eos_token_id=eos_token_id, stream_cb=stream_cb, seed=seed,
+            **kv)])[0]
 
     def submit_many(self, specs: Sequence[dict]) -> List[BatchRequest]:
         """Validate and build every request of ``specs`` (keyword dicts
@@ -335,6 +420,11 @@ class ContinuousBatcher:
             "chunked_admissions": self._chunked_admissions,
             "prefill_chunk": self.prefill_chunk,
             "pool": self.pool.stats(),
+            # the host KV tier and the prefix digests the master routes by
+            "kvtier": (self.kvtier.stats()
+                       if self.kvtier is not None else None),
+            "prefix_digests": (self.kvtier.index.advertise()
+                               if self.kvtier is not None else None),
             **self.programs.stats(),
         }
 
@@ -362,8 +452,14 @@ class ContinuousBatcher:
         a route change never replays the other route's graph): captured
         on a card unless ``DLI_CUDA_GRAPHS=0``, eager on the CPU."""
         if self._bufs is None:
+            side = None
+            if self.paged.quantized:   # the int8 chunk's side buffers
+                side = (self.cfg.num_layers, self.slots,
+                        max(self.DECODE_CHUNKS), self.cfg.num_kv_heads,
+                        self.cfg.head_dim, self.model.dtype)
             self._bufs = _ChunkBuffers(self.slots, self.max_blocks,
-                                       max(self.DECODE_CHUNKS), self.device)
+                                       max(self.DECODE_CHUNKS), self.device,
+                                       side)
         key = (fused_decode.eligible(self.cfg, self.paged.quantized),
                graphs.enabled(self.device))
         prog = self._programs.get(key)
@@ -384,6 +480,8 @@ class ContinuousBatcher:
         for _ in range(k):
             step()
         s = self._bufs.state
+        if self.paged.quantized:
+            self.model.paged_chunk_flush(s, self.paged, self._dummy, k)
         both = torch.stack([s.toks[:k], s.emits[:k].to(s.toks.dtype)])
         both = both.cpu().numpy()
         return both[0], both[1].astype(bool)
@@ -404,6 +502,292 @@ class ContinuousBatcher:
         self._bufs.load(self._chunk_inputs(1))
         step()
         return 1
+
+    # ---- host KV tier (offload on evict, restore on admission) --------
+
+    def _stage(self) -> List[torch.Tensor]:
+        """Per pool leaf, a host buffer of ``STAGE_BLOCKS`` blocks, each
+        block contiguous ([STAGE_BLOCKS, L, bs, ...]): every copy between
+        the pool and the arena goes through it. Page-locked on a card, so
+        the copy engine moves it directly (a pageable copy is staged by
+        the driver through a buffer of its own): a restore took 0.50 ms
+        per 2 MB block through it against 1.28 pageable (PERF.md §5).
+        Made at the first offload or restore."""
+        if self._stage_bufs is None:
+            pin = self.device.type == "cuda"
+            self._stage_bufs = [
+                torch.empty((self.STAGE_BLOCKS, lf.shape[0])
+                            + tuple(lf.shape[2:]), dtype=lf.dtype,
+                            pin_memory=pin)
+                for lf in self.paged.leaves()]
+        return self._stage_bufs
+
+    def _read_blocks(self, ids: Sequence[int]) -> List[list]:
+        """The pages of blocks ``ids`` on the host: per block, one page per
+        pool leaf (k, v[, k_scale, v_scale]), each [L, bs, ...] in memory
+        of its own. The device-to-host copies run on the stream that
+        writes the pool, which waits for every write queued before them,
+        and return before the caller can launch anything else."""
+        out = []
+        for c in range(0, len(ids), self.STAGE_BLOCKS):
+            part = list(ids[c:c + self.STAGE_BLOCKS])
+            idx = torch.as_tensor(part, dtype=torch.long, device=self.device)
+            pages = []
+            for lf, buf in zip(self.paged.leaves(), self._stage()):
+                buf[:len(part)].copy_(lf.index_select(1, idx).transpose(0, 1))
+                pages.append(kvq.to_numpy(buf[:len(part)]))
+            out += [[p[j].copy() for p in pages] for j in range(len(part))]
+        return out
+
+    def _offload_evicted(self, evictions):
+        """The pool's evict hook: copy each evicted radix block's device
+        pages into the host arena under its token-chain digest. It runs
+        inside ``pool.alloc``, after the block id went back to the free
+        list and before anything that could overwrite it is launched
+        (allocs run on the scheduler thread between programs, never in a
+        capture). Blocks the arena already holds (a restored block's
+        entry stays there) are not copied again."""
+        ev = [(b, toks) for b, toks in evictions if toks]
+        if not ev:
+            return
+        digs = [self.kvtier.block_digests(toks)[-1] for _, toks in ev]
+        keep = [j for j, d in enumerate(digs)
+                if not self.kvtier.arena.peek(d)]
+        if not keep:
+            return
+        stored = nbytes = 0
+        for j, cols in zip(keep, self._read_blocks([ev[j][0] for j in keep])):
+            if self.kvtier.arena.put(digs[j], cols):
+                stored += 1
+                nbytes += sum(c.nbytes for c in cols)
+        self.metrics.inc("kvtier_offloaded_blocks", stored)
+        if self._admitting is not None and nbytes:
+            # cost ledger: the alloc that evicted these blocks belongs to
+            # the request admitting or growing
+            self._admitting._arena_offloaded_bytes += nbytes
+
+    def _run_restore(self, blocks: Sequence[int], pages: Sequence[tuple]):
+        """Write host pages back into ``blocks`` of every pool leaf, in
+        place (``index_copy_``): the captured decode programs hold the
+        pool's addresses, so its tensors are never replaced. Each copy to
+        the device completes before the staging buffer is filled again."""
+        for c in range(0, len(blocks), self.STAGE_BLOCKS):
+            part = pages[c:c + self.STAGE_BLOCKS]
+            idx = torch.as_tensor(list(blocks[c:c + len(part)]),
+                                  dtype=torch.long, device=self.device)
+            for j, (lf, buf) in enumerate(zip(self.paged.leaves(),
+                                              self._stage())):
+                for i, pg in enumerate(part):
+                    buf[i].copy_(kvq.to_torch(pg[j]))
+                lf.index_copy_(1, idx, buf[:len(part)].to(
+                    self.device).transpose(0, 1))
+
+    def _restore_from_arena(self, prompt, n, prefix_blocks, cached):
+        """Second-tier prefix lookup on a (partial) radix miss: restore
+        the longest consecutive run of arena-held blocks that extends the
+        radix match, register them in the radix tree, and return the
+        extended (prefix_blocks, cached). Opportunistic: no free blocks or
+        an arena LRU race fall back to prefilling that span. A native
+        arena restores the exact evicted bytes (tokens equal a cold
+        prefill's); an int8 one its bounded-error dequantization."""
+        bs = self.block_size
+        start = cached // bs
+        limit = (n - 1) // bs   # >= 1 token must remain for the tail
+        if start >= limit:
+            return prefix_blocks, cached
+        digs = self.kvtier.block_digests(prompt[:limit * bs])
+        run = []
+        for i in range(start, limit):
+            if not self.kvtier.arena.peek(digs[i]):
+                break
+            run.append(digs[i])
+        if not run:
+            return prefix_blocks, cached
+        blocks = self.pool.alloc(len(run))
+        if blocks is None:
+            return prefix_blocks, cached
+        pages = []
+        for d in run:
+            pg = self.kvtier.arena.get(d)
+            if pg is None:   # LRU-dropped by this alloc's own offloads
+                break
+            pages.append(pg)
+        if len(pages) < len(blocks):
+            self.pool.release(blocks[len(pages):])
+            blocks = blocks[:len(pages)]
+        if not blocks:
+            return prefix_blocks, cached
+        self._run_restore(blocks, pages)
+        end = start + len(blocks)
+        self.pool.insert_prefix(prompt[:end * bs], blocks, skip=start)
+        self.metrics.inc("kvtier_restored_blocks", len(blocks))
+        self.metrics.inc("kvtier_restored_tokens", len(blocks) * bs)
+        if self._admitting is not None:
+            self._admitting._arena_restored_bytes += sum(
+                p.nbytes for pg in pages for p in pg)
+        return prefix_blocks + blocks, end * bs
+
+    def _get_kv_fetcher(self):
+        """The worker's shared peer-fetch client, or this batcher's own."""
+        if self.kv_fetcher is None:
+            self.kv_fetcher = kvwire.KVFetchClient(metrics=self.metrics)
+        return self.kv_fetcher
+
+    def _fetch_into_arena(self, url, model, prompt, limit,
+                          start: int = 0) -> int:
+        """Pull the arena-missing chain digests of ``prompt``'s blocks
+        ``[start, limit)`` from the peer at ``url`` into this arena. Any
+        failure (transport, corrupt frame, blocks the peer lacks, shape
+        drift) degrades to recompute. Returns the wire bytes stored.
+        Single-flight: concurrent calls for one (peer, model) coalesce; the
+        first leads and fetches the union of every caller's missing
+        digests, the others wait for it and find their blocks in the
+        arena, so each digest crosses the wire once."""
+        bs = self.block_size
+        digs = self.kvtier.block_digests(prompt[:limit * bs])
+        want = [d for d in digs[start:limit]
+                if not self.kvtier.arena.peek(d)]
+        if not want:
+            return 0
+        key = (str(url), str(model))
+        with self._kvf_lock:
+            fl = self._kvf_inflight.get(key)
+            leader = fl is None
+            if leader:
+                fl = {"pending": dict.fromkeys(want, True),
+                      "event": threading.Event()}
+                self._kvf_inflight[key] = fl
+            else:
+                for d in want:
+                    fl["pending"].setdefault(d, True)
+        if not leader:
+            self.metrics.inc("kv_prefetch_coalesced")
+            fl["event"].wait(timeout=90.0)
+            return 0
+        total = 0
+        try:
+            while True:
+                with self._kvf_lock:
+                    batch = [d for d in fl["pending"]
+                             if not self.kvtier.arena.peek(d)]
+                    fl["pending"].clear()
+                if not batch:
+                    break
+                total += self._wire_fetch(url, model, batch)
+        finally:
+            with self._kvf_lock:
+                self._kvf_inflight.pop(key, None)
+            fl["event"].set()
+        return total
+
+    def _admit_fetched(self, digest, obj, expect) -> bool:
+        """Check one fetched block's pages against the live pool's (shape
+        and dtype; a quantized record's logical ones) before the arena
+        takes it: a mismatched peer costs a recompute, never a fault in
+        the restore."""
+        if kvq.is_quantized_block(obj):
+            specs = kvq.logical_specs(obj)
+        else:
+            specs = [(tuple(p.shape), p.dtype) for p in obj]
+        if (len(specs) != len(expect)
+                or any(shp != eshp or dt != edt
+                       for (shp, dt), (eshp, edt) in zip(specs, expect))):
+            self.metrics.inc("kv_transfer_failures")
+            return False
+        return self.kvtier.arena.put(digest, obj, count_offload=False)
+
+    def _wire_fetch(self, url, model, want) -> int:
+        """One transfer of ``want`` digests (the single-flight leader's
+        round), each block checked and put in the arena as its frame
+        decodes. A fault mid-stream keeps the blocks that landed; the rest
+        recomputes."""
+        expect = [((lf.shape[0],) + tuple(lf.shape[2:]),
+                   kvq.host_dtype(lf.dtype)) for lf in self.paged.leaves()]
+        w0 = time.perf_counter()
+        blocks = bytes_in = 0
+        try:
+            for d, obj in self._get_kv_fetcher().fetch_stream(
+                    url, model, want):
+                if self._admit_fetched(d, obj, expect):
+                    blocks += 1
+                    bytes_in += kvwire.stored_nbytes(obj)
+        except Exception:
+            self.metrics.inc("kv_transfer_failures")
+            log.warning("kv fetch from %s failed; recomputing", url,
+                        exc_info=True)
+        self.metrics.inc("kv_transfer_blocks", blocks)
+        self.metrics.inc("kv_transfer_bytes", bytes_in)
+        self.metrics.inc("kv_transfer_ms", (time.perf_counter() - w0) * 1e3)
+        return bytes_in
+
+    def prefetch_kv(self, prompt: Sequence[int], kv_source) -> int:
+        """The transfer of a disaggregated request, on the caller's thread
+        before submission (the worker's handler thread): pull the
+        prompt's prefix blocks from the ``kv_source`` peer ({"url",
+        "model"}) into the arena, so admission pays only the restore and
+        co-resident decode streams never wait on the wire. Returns the
+        bytes moved (0 on any failure: the request recomputes)."""
+        if self.kvtier is None or not isinstance(kv_source, dict):
+            return 0
+        url = kv_source.get("url")
+        if not url:
+            return 0
+        prompt = [int(t) for t in prompt]
+        limit = (len(prompt) - 1) // self.block_size
+        if limit <= 0:
+            return 0
+        try:
+            return self._fetch_into_arena(
+                url, str(kv_source.get("model") or ""), prompt, limit)
+        except Exception:
+            self.metrics.inc("kv_transfer_failures")
+            return 0
+
+    def _restore_from_peer(self, req, prompt, n, prefix_blocks, cached):
+        """The scheduler-thread fetch of a request submitted with
+        ``kv_source``: pull the missing block digests from the peer into
+        the arena, which ``_restore_from_arena`` then restores. Returns
+        (prefix_blocks, cached) unchanged. The worker never takes this
+        path (it prefetches on its handler thread, ``prefetch_kv``, and
+        submits without ``kv_source``); it is kept for direct batcher
+        users, whose ``submit(kv_source=...)`` the JAX batcher accepts
+        too."""
+        src = req.kv_source
+        if src is None or req._peer_fetch_done:
+            return prefix_blocks, cached
+        url = src.get("url")
+        req._peer_fetch_done = True
+        bs = self.block_size
+        start, limit = cached // bs, (n - 1) // bs
+        if not url or start >= limit:
+            return prefix_blocks, cached
+        req._kv_transfer_bytes += self._fetch_into_arena(
+            url, str(src.get("model") or ""), prompt, limit, start=start)
+        return prefix_blocks, cached
+
+    def _export_request_kv(self, req):
+        """Park the request's prompt KV in the arena under its token-chain
+        digests, the blocks a peer's ``/kv_fetch`` asks for: at finish of
+        a ``kv_export`` pass, while the request still owns its blocks, so
+        the device bytes are exactly the prompt's. Blocks the arena holds
+        already are skipped."""
+        if req.error or not req._blocks:
+            return
+        bs = self.block_size
+        n_full = min(len(req.prompt) // bs, len(req._blocks))
+        if n_full <= 0:
+            return
+        digs = self.kvtier.block_digests(req.prompt[:n_full * bs])
+        keep = [i for i in range(n_full)
+                if not self.kvtier.arena.peek(digs[i])]
+        if not keep:
+            return
+        stored = 0
+        for i, cols in zip(keep, self._read_blocks(
+                [req._blocks[i] for i in keep])):
+            if self.kvtier.arena.put(digs[i], cols, count_offload=False):
+                stored += 1
+        self.metrics.inc("kvtier_exported_blocks", stored)
 
     # ---- scheduling ---------------------------------------------------
 
@@ -445,12 +829,27 @@ class ContinuousBatcher:
         None if blocks are unavailable (the caller preempts or requeues).
         A preempted request's generated tokens are part of the prefill:
         generation resumes where it left off, nothing is re-emitted."""
+        self._admitting = req
+        try:
+            return self._prep_admit_blocks(req)
+        finally:
+            self._admitting = None
+
+    def _prep_admit_blocks(self, req: BatchRequest) -> Optional[dict]:
         bs = self.block_size
         prompt = req.prompt + req.tokens
         n = len(prompt)
         # leave >= 1 token for the tail: prefill must produce the last
         # token's logits
         prefix_blocks, cached = self.pool.match_prefix(prompt[:n - 1])
+        if self.kvtier is not None:
+            # a disaggregated request pulls its missing prefix blocks
+            # from its prefill peer into the arena, then the radix match
+            # extends from the arena before anything is recomputed
+            prefix_blocks, cached = self._restore_from_peer(
+                req, prompt, n, prefix_blocks, cached)
+            prefix_blocks, cached = self._restore_from_arena(
+                prompt, n, prefix_blocks, cached)
         tail_alloc = []
         partial = False
         try:
@@ -689,6 +1088,15 @@ class ContinuousBatcher:
                 req.stream_cb = None
 
     def _finish_req(self, req: BatchRequest):
+        if req.kv_export and self.kvtier is not None:
+            # a disaggregated prefill pass: park the prompt's KV in the
+            # arena while the blocks are still owned, for the decode
+            # peer's /kv_fetch (best effort: the peer recomputes)
+            try:
+                self._export_request_kv(req)
+            except Exception:
+                log.warning("kv export failed; the decode peer will "
+                            "recompute", exc_info=True)
         self.pool.release(req._blocks)
         req._blocks = []
         req.finished_at = time.perf_counter()
@@ -710,6 +1118,9 @@ class ContinuousBatcher:
             "prefill_uncached_tokens": req._cost_uncached,
             "decode_tokens": len(req.tokens),
             "weight_passes": req._weight_passes,
+            "arena_restored_bytes": req._arena_restored_bytes,
+            "arena_offloaded_bytes": req._arena_offloaded_bytes,
+            "kv_transfer_bytes": req._kv_transfer_bytes,
         }
 
     def _observe_finished(self, req: BatchRequest):
@@ -767,7 +1178,11 @@ class ContinuousBatcher:
                 if self.block_tables[slot, bi] == self._dummy]
         if not need:
             return True
-        got = self.pool.alloc(len(need))
+        self._admitting = req   # growth's offloads bill to this request
+        try:
+            got = self.pool.alloc(len(need))
+        finally:
+            self._admitting = None
         if got is None:
             return False
         for bi, blk in zip(need, got):
@@ -789,6 +1204,12 @@ class ContinuousBatcher:
         m.gauge("batcher_active_slots",
                 sum(a is not None for a in self.active))
         m.gauge("batcher_free_kv_blocks", self.pool.free_count())
+        if self.kvtier is not None:
+            a = self.kvtier.arena.stats()
+            m.gauge("kvtier_host_blocks", a["blocks"])
+            m.gauge("kvtier_host_bytes", a["bytes"])
+            m.gauge("kvtier_logical_bytes", a["logical_bytes"])
+            m.gauge("kvtier_occupancy", a["occupancy"])
         return busy
 
     def _step_inner(self) -> int:
@@ -922,16 +1343,20 @@ class ContinuousBatcher:
 class _ChunkBuffers:
     """The decode chunk's static device state (``PagedChunkState``) for R
     slots over tables of MB blocks, as views of two packed buffers: int32
-    [bt | cl | cur | seeds | steps0 | tks | budget | eos | ds | alive | t]
-    and f32 [temps | tps], plus the outputs toks/emits [kmax, R]. ``load``
+    [bt | cl | cur | seeds | steps0 | tks | budget | eos | ds | alive | cl0
+    | t] and f32 [temps | tps], plus the outputs toks/emits [kmax, R] (and
+    an int8 pool's side buffers and ``wrote``). ``load``
     writes a chunk's host inputs into one staging copy of each (pinned on
     a card) and copies each to the device once, without a sync: the
     chunk's own sync on its outputs comes before the next load."""
 
     ROW_FIELDS = ("cl", "cur", "seeds", "steps0", "tks", "budget", "eos",
-                  "ds", "alive")
+                  "ds", "alive", "cl0")
 
-    def __init__(self, rows: int, mb: int, kmax: int, device: torch.device):
+    def __init__(self, rows: int, mb: int, kmax: int, device: torch.device,
+                 side: Optional[tuple] = None):
+        """``side``: (L, R, K, Hkv, hd, dtype) of an int8 pool's side
+        buffers, else None."""
         self.rows, self.mb = rows, mb
         n = rows * mb + len(self.ROW_FIELDS) * rows + 1
         pin = device.type == "cuda"
@@ -950,6 +1375,12 @@ class _ChunkBuffers:
             tps=self.floats[rows:],
             toks=torch.empty((kmax, rows), dtype=torch.int64, device=device),
             emits=torch.empty((kmax, rows), dtype=torch.bool, device=device))
+        if side is not None:
+            *shape, dtype = side
+            self.state.side_k = torch.zeros(shape, dtype=dtype, device=device)
+            self.state.side_v = torch.zeros(shape, dtype=dtype, device=device)
+            self.state.wrote = torch.zeros((kmax, rows), dtype=torch.bool,
+                                           device=device)
         self._host = {f: self.host_ints[o:o + rows].numpy()
                       for f, o in rows_at.items()}
 
@@ -961,7 +1392,8 @@ class _ChunkBuffers:
         ints = self.host_ints.numpy()
         ints[:r * mb] = np.asarray(a["bt"]).reshape(-1)
         h = self._host
-        for f, key in (("cl", "cl"), ("cur", "tokens"), ("seeds", "seeds"),
+        for f, key in (("cl", "cl"), ("cl0", "cl"), ("cur", "tokens"),
+                       ("seeds", "seeds"),
                        ("steps0", "steps"), ("tks", "tks"),
                        ("budget", "budget"), ("eos", "eos"), ("ds", "ds")):
             h[f][:] = a[key]

@@ -4,8 +4,11 @@ The port's own copy of the JAX package's ``BlockPool`` over its
 pure-Python ``_PyPool`` (``native/__init__.py``), with the same semantics:
 FIFO free list, reference counts, a radix tree of whole-block token
 chunks, and LRU eviction of unreferenced leaves when an ``alloc`` runs
-short. The C++ pool and the eviction hook (used only by the host KV tier)
-are not ported yet.
+short, with its eviction log: ``set_evict_hook(fn)`` has every alloc that
+evicted radix blocks hand ``fn`` their ``(block id, token chain)`` pairs,
+which the host KV tier (runtime/kvtier.py) copies off the device before
+anything overwrites them. The C++ pool is not ported (the pure-Python
+one has the same semantics).
 
 API (block ids are ints in [0, num_blocks)):
   - alloc(n) -> n fresh block ids (refcount 1), or None if the pool is
@@ -21,8 +24,11 @@ API (block ids are ints in [0, num_blocks)):
 from __future__ import annotations
 
 import collections
+import logging
 import threading
 from typing import List, Optional, Sequence, Tuple
+
+log = logging.getLogger(__name__)
 
 
 class BlockPool:
@@ -33,6 +39,7 @@ class BlockPool:
         self.block_size = block_size
         self._lock = threading.Lock()
         self._py = _PyPool(num_blocks, block_size)
+        self._evict_hook = None
 
     def _check_blocks(self, blocks: Sequence[int]) -> List[int]:
         blocks = [int(b) for b in blocks]
@@ -46,11 +53,33 @@ class BlockPool:
         with self._lock:
             return len(self._py.free_list)
 
+    def set_evict_hook(self, fn) -> None:
+        """Register ``fn(evictions)``: ``evictions`` lists ``(block_id,
+        token_chain)`` for the radix blocks an alloc evicted. Called
+        outside the pool lock, after the alloc that evicted them returns
+        but before its caller can run anything that overwrites the
+        blocks: the window in which their device KV is still intact.
+        ``None`` unregisters."""
+        with self._lock:
+            self._evict_hook = fn
+            self._py.set_evict_log(self.num_blocks if fn is not None else 0)
+
     def alloc(self, n: int) -> Optional[List[int]]:
         if n == 0:
             return []
         with self._lock:
-            return self._py.alloc(n)
+            got = self._py.alloc(n)
+            hook = self._evict_hook
+            evicted = self._py.drain_evictions() if hook is not None else []
+        if evicted:
+            try:
+                hook(evicted)
+            except Exception:
+                # the hook is an opportunistic offload: a failure loses
+                # that copy, nothing more; raising here would lose the
+                # ids this alloc handed out
+                log.exception("evict hook failed; evictions not offloaded")
+        return got
 
     def release(self, blocks: Sequence[int]) -> None:
         if not blocks:
@@ -114,6 +143,17 @@ class _PyPool:
         self.evictable = set()        # (last_use, block)
         self.clock = 0
         self.hits = self.misses = self.evictions = 0
+        self.evict_log_cap = 0
+        self.evict_log = []           # (block, full token chain)
+
+    def set_evict_log(self, cap: int):
+        self.evict_log_cap = cap
+        if cap <= 0:
+            self.evict_log.clear()
+
+    def drain_evictions(self):
+        out, self.evict_log = self.evict_log, []
+        return out
 
     def _evictable_add(self, n):
         if (not n.in_evictable and n is not self.root and not n.children
@@ -140,6 +180,15 @@ class _PyPool:
             return False
         key = min(self.evictable)
         victim = self.block_node.pop(key[1])
+        if self.evict_log_cap > 0:
+            chain, node = [], victim
+            while node is not None and node.parent is not None:
+                chain.append(node.tokens)
+                node = node.parent
+            self.evict_log.append(
+                (victim.block, [t for toks in reversed(chain) for t in toks]))
+            if len(self.evict_log) > self.evict_log_cap:
+                self.evict_log.pop(0)
         self.evictable.discard(key)
         victim.in_evictable = False
         self.free_list.append(victim.block)

@@ -6,7 +6,7 @@ bearer-token auth on every route (``auth_key``: 401 without
 ``Authorization: Bearer <key>``), raw ``(bytes, content_type)`` answers,
 ``(status, payload, headers)`` triples, handlers that take the request
 (``_request``) to stream their own answer (``jsonl_stream``,
-``sse_stream``), and a shutdown that also closes kept-alive client
+``sse_stream``, ``binary_stream``), and a shutdown that also closes kept-alive client
 sockets. Its tracing, fault injection and in-flight cap join with the
 port's tracing subsystem.
 """
@@ -247,6 +247,31 @@ def jsonl_stream(request_handler, events):
     except (BrokenPipeError, ConnectionResetError):
         # the caller went away: the producers still finish, so their
         # results land in the idempotency cache for the retry
+        request_handler.close_connection = True
+    raise _Streaming()
+
+
+def binary_stream(request_handler, chunks,
+                  content_type="application/octet-stream"):
+    """Write a chunked binary answer from an iterator of byte chunks: the
+    KV-transfer twin of ``jsonl_stream`` (runtime/kvwire.py frames ride it
+    out of ``POST /kv_fetch``). Chunked framing delimits the body, so the
+    peer's pooled keep-alive session gets its connection back."""
+    request_handler.send_response(200)
+    request_handler.send_header("Content-Type", content_type)
+    request_handler.send_header("Transfer-Encoding", "chunked")
+    request_handler.end_headers()
+    try:
+        for data in chunks:
+            if not data:
+                continue
+            request_handler.wfile.write(
+                f"{len(data):x}\r\n".encode() + data + b"\r\n")
+            request_handler.wfile.flush()
+        request_handler.wfile.write(b"0\r\n\r\n")
+        request_handler.wfile.flush()
+    except (BrokenPipeError, ConnectionResetError):
+        # the fetching peer went away mid-transfer: it recomputes
         request_handler.close_connection = True
     raise _Streaming()
 

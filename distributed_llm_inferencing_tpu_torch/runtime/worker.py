@@ -4,8 +4,10 @@ Speaks the reference worker's wire protocol for the routes the port has,
 so the reference master can drive either worker:
 
 - ``GET /health``: status (``"draining"`` during a drain, else
-  ``"online"``), ``role`` (``"mixed"``: the port has no serving roles
-  yet), ``arena_occupancy`` (null: no host KV arena yet), device
+  ``"online"``), ``role`` (``WORKER_ROLES``: the ``role`` argument, else
+  ``DLI_WORKER_ROLE``, else ``"mixed"``; ``POST /role`` changes it),
+  ``arena_occupancy`` (the fullest batched model's host KV arena, the
+  fraction of its budget stored; null without an arena), device
   inventory from torch.cuda (``platform``, ``kind``, ``count``), loaded
   models (with ``serving``, the weight quantization, ``param_bytes`` —
   the bytes the weights take as stored — and, for batched models, the
@@ -29,16 +31,24 @@ so the reference master can drive either worker:
   (engine mode, the default),
   or with ``"serving": "batched"`` a ``ContinuousBatcher`` over a paged KV
   pool (``kv_blocks``, ``kv_block_size``, ``slots``, ``prefill_chunk``,
-  ``decode_chunk_cap``) whose scheduler thread serves concurrent
-  requests; a batched load captures its decode program before it
-  answers (``warm_decode_programs``), so the first request pays no
-  capture.
+  ``decode_chunk_cap``, and the host KV tier's ``kv_host_mb``, 0 to
+  disable it, and ``kv_digest_chunk``; runtime/kvtier.py) whose
+  scheduler thread serves concurrent requests; a batched load captures
+  its decode program before it answers (``warm_decode_programs``), so
+  the first request pays no capture. ``kv_quantize`` (``"int8"``) makes
+  either mode's KV cache int8 (ops/kvcache.py).
 - ``POST /unload_model``: ``model_name``; releases the model's decode
   programs (their graphs and graph pool) with its weights, and under tp
   stops its follower processes.
 - ``POST /inference``: ``model_name``, ``prompt`` or ``prompt_tokens``,
   ``max_new_tokens`` (or ``max_length``), ``sampling``, ``seed``,
-  ``timeout``, ``request_tag``; answers ``status``, ``result``,
+  ``timeout``, ``request_tag``, and for a batched model the
+  disaggregation fields the master sends: ``kv_export`` (park the
+  prompt's KV in the host arena at finish, for a peer's ``/kv_fetch``)
+  and ``kv_source`` (``{"url", "model"}``: pull the prompt's prefix KV
+  from that peer into the arena on the handler thread before
+  submitting; a failed pull costs a recompute); answers ``status``,
+  ``result``,
   ``tokens``, ``execution_time`` and ``cost`` (engine mode adds its
   timings; batched mode adds ``ttft_ms`` and ``scheduler``). A
   ``request_tag`` makes the dispatch idempotent: a repeat replays the
@@ -64,6 +74,14 @@ so the reference master can drive either worker:
   ``Retry-After: 5``) while in-flight requests finish; answers
   ``drained`` once idle, or after ``timeout`` seconds with what is still
   ``in_flight``. ``POST /undrain`` re-opens.
+- ``POST /role``: ``role``, one of ``WORKER_ROLES``; the master's
+  elastic rebalancer moves nodes between the prefill and decode pools
+  with it (the worker serves whatever it is sent either way).
+- ``POST /kv_fetch``: ``model_name`` and ``digests`` (at most
+  ``kvwire.MAX_DIGESTS`` block digests); streams the matching host-arena
+  blocks as runtime/kvwire.py frames, then the terminal frame with the
+  digests the arena lacked; past ``DLI_KV_FETCH_MAX_MB`` the stream is
+  cut and the terminal frame counts what was not sent.
 
 Every route needs ``Authorization: Bearer <key>`` when the worker has an
 auth key (the ``auth_key`` argument, else ``DLI_AUTH_KEY`` when
@@ -75,10 +93,10 @@ dispatch or change state; a call without the headers is never fenced.
 
 Fields of the reference protocol that the port does not implement yet get
 a 400, never a silent ignore, each with the ROADMAP Queue A item that
-brings it: ``speculative`` (A9), ``kv_host_mb``, ``kv_source``,
-``kv_export`` and ``resume`` (A8), ``adapter`` (A10), ``kv_quantize``
-(the int8 KV cache, A1–A3 rest); so does a
-``quantize`` or ``embed_quantize`` value outside the modes above, a
+brings it: ``speculative`` (A9), ``resume`` (A8, migration; and no
+``/migrate_out``), ``adapter`` (A10); so does a ``quantize``,
+``embed_quantize`` or ``kv_quantize`` value outside the modes above, a
+``kv_host_mb`` or ``kv_digest_chunk`` that is not a number, a
 checkpoint the port cannot serve (a path that is not a local directory,
 a converter type or config switch outside the ported families, a tensor
 the files lack, a JAX Orbax directory, tokenizer files on a node without
@@ -96,6 +114,7 @@ Run: ``python -m distributed_llm_inferencing_tpu_torch worker --port 8100``
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import gc
 import os
 import queue
@@ -114,14 +133,16 @@ from distributed_llm_inferencing_tpu_torch.ops.quant import MODES
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
     MeshSpec, validate_spec)
-from distributed_llm_inferencing_tpu_torch.runtime import graphs, httpd
+from distributed_llm_inferencing_tpu_torch.runtime import (
+    graphs, httpd, kvwire)
 from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
     ContinuousBatcher)
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
     InferenceEngine)
 from distributed_llm_inferencing_tpu_torch.utils.device import (
     inventory, resolve_device)
-from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
+from distributed_llm_inferencing_tpu_torch.utils.metrics import (
+    KV_SERVE_COUNTERS, Metrics)
 from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
     has_tokenizer, load_tokenizer)
 
@@ -137,9 +158,18 @@ MASTER_TERM_HEADER = "X-DLI-Master-Term"
 MASTER_NONCE_HEADER = "X-DLI-Master-Nonce"
 STALE_TERM_HEADER = "X-DLI-Stale-Term"
 
-_UNPORTED_LOAD = ("kv_quantize", "speculative", "kv_host_mb")
-_UNPORTED_INFER = ("speculative", "adapter", "resume", "kv_source",
-                   "kv_export")
+# Disaggregated serving role: "prefill" nodes take long prompts' prefill
+# passes, "decode" nodes the decode (pulling prefix KV from prefill peers
+# over /kv_fetch), "mixed" both; POST /role changes it at run time.
+WORKER_ROLES = ("prefill", "decode", "mixed")
+ROLE_CODE = {"mixed": 0.0, "prefill": 1.0, "decode": 2.0}
+# Byte budget of one /kv_fetch answer: past it the stream is cut, and
+# the fetching peer recomputes the rest.
+KV_FETCH_MAX_MB = float(os.environ.get("DLI_KV_FETCH_MAX_MB", 256))
+
+_UNPORTED_LOAD = ("speculative",)
+_UNPORTED_INFER = ("speculative", "adapter", "resume")
+_KV_MODES = ("int8",)
 _DTYPES = ("bfloat16", "float32")
 _SERVING = (None, "engine", "batched")
 
@@ -199,8 +229,14 @@ def _status(res):
 class WorkerAgent:
     """Holds loaded models and serves the lifecycle + inference API."""
 
-    def __init__(self, device=None, auth_key: Optional[str] = None):
+    def __init__(self, device=None, auth_key: Optional[str] = None,
+                 role: Optional[str] = None):
         self.device = resolve_device(device)
+        role = (role or os.environ.get("DLI_WORKER_ROLE") or "mixed").lower()
+        if role not in WORKER_ROLES:
+            raise ValueError(f"worker role must be one of {WORKER_ROLES}, "
+                             f"got {role!r}")
+        self.role = role
         if auth_key is None and os.environ.get(
                 "DLI_AUTH_ENABLED", "").lower() in ("1", "true"):
             auth_key = os.environ.get("DLI_AUTH_KEY")
@@ -225,12 +261,21 @@ class WorkerAgent:
         # the newest (master term, holder nonce) seen on a fenced call
         self._master_term: tuple = (0, None)
         self._master_term_lock = threading.Lock()
+        # the peer-fetch client every batched model shares (pooled
+        # connections per prefill peer), made at the first batched load
+        self._peer_client = None
+        self._peer_client_lock = threading.Lock()
         for name in ("requests_completed", "tokens_generated",
                      "idempotent_hits", "idempotent_joins",
                      "requests_cancelled", "batch_rpcs",
-                     "batch_sub_requests", "stale_term_rejections"):
+                     "batch_sub_requests", "stale_term_rejections",
+                     # the serving side of /kv_fetch; raw: the bytes the
+                     # served blocks restore to, sent: the stored
+                     # (possibly int8) bytes that crossed the wire
+                     *KV_SERVE_COUNTERS):
             self.metrics.inc(name, 0)
         self.metrics.gauge("draining", 0)
+        self.metrics.gauge("worker_role", ROLE_CODE[self.role])
         self.service = httpd.JsonHTTPService("worker", auth_key)
         s = self.service
         s.add("GET", "/health", self.health)
@@ -243,6 +288,8 @@ class WorkerAgent:
         s.add("POST", "/cancel", self.cancel)
         s.add("POST", "/drain", self.drain)
         s.add("POST", "/undrain", self.undrain)
+        s.add("POST", "/role", self.set_role)
+        s.add("POST", "/kv_fetch", self.kv_fetch)
 
     # ---- lease fencing -------------------------------------------------
 
@@ -292,11 +339,15 @@ class WorkerAgent:
         with self._models_lock:
             loaded = [m.describe(n) for n, m in self.models.items()]
         inv = inventory(self.device)
+        # the fullest arena: the master keeps prefill off a node whose
+        # arena would evict what a decode peer is about to fetch
+        occ = [lm["scheduler"]["kvtier"]["occupancy"] for lm in loaded
+               if (lm.get("scheduler") or {}).get("kvtier")]
         return {
             "status": "draining" if self._draining else "online",
             "uptime_s": time.time() - self.started,
-            "role": "mixed",
-            "arena_occupancy": None,
+            "role": self.role,
+            "arena_occupancy": max(occ) if occ else None,
             "device": {k: inv[k] for k in ("platform", "kind", "count")},
             "resources": {"devices": inv["devices"],
                           "device": inv["platform"]},
@@ -322,6 +373,16 @@ class WorkerAgent:
         refused = _unported(body, _UNPORTED_LOAD)
         if refused:
             return 400, {"status": "error", "message": refused}
+        if body.get("kv_quantize") and body["kv_quantize"] not in _KV_MODES:
+            return 400, {"status": "error",
+                         "message": f"kv_quantize must be one of {_KV_MODES}"}
+        for f in ("kv_host_mb", "kv_digest_chunk"):
+            try:
+                if body.get(f) is not None:
+                    float(body[f])
+            except (TypeError, ValueError):
+                return 400, {"status": "error",
+                             "message": f"{f} must be a number"}
         if body.get("serving") not in _SERVING:
             return 400, {"status": "error",
                          "message": "serving must be 'engine' or 'batched'; "
@@ -375,6 +436,8 @@ class WorkerAgent:
                                   quant=body.get("quantize") or None,
                                   embed_quant=body.get("embed_quantize")
                                   or None)
+            if body.get("kv_quantize"):
+                cfg = cfg.replace(kv_quant=body["kv_quantize"])
             check_supported(cfg)
         except KeyError as e:
             return 400, {"status": "error", "message": str(e)}
@@ -419,7 +482,15 @@ class WorkerAgent:
                     prefill_chunk=(int(body["prefill_chunk"] or 0)
                                    if "prefill_chunk" in body else 32),
                     decode_chunk_cap=body.get("decode_chunk_cap"),
-                    device=self.device, metrics=self.metrics)
+                    device=self.device, metrics=self.metrics,
+                    # the host KV tier: None defers to DLI_KV_HOST_MB
+                    kv_host_mb=(float(body["kv_host_mb"])
+                                if body.get("kv_host_mb") is not None
+                                else None),
+                    kv_digest_chunk=(int(body["kv_digest_chunk"])
+                                     if body.get("kv_digest_chunk")
+                                     else None),
+                    kv_fetcher=self.peer_client())
                 batcher.warm_decode_programs()
                 batcher.start()
                 lm = LoadedModel(None, tok, native or ckpt or "random-init",
@@ -631,11 +702,15 @@ class WorkerAgent:
             return 400, {"status": "error", "message": str(e)}
         if m.batcher is not None:
             try:
+                pre = self._prefetch_kv(m, body, prompt)
                 req = m.batcher.submit(
                     prompt, max_new_tokens=max_new, sampling=sp,
-                    eos_token_id=m.tokenizer.eos_token_id, seed=seed)
+                    eos_token_id=m.tokenizer.eos_token_id, seed=seed,
+                    kv_export=bool(body.get("kv_export")),
+                    kv_transfer_bytes=pre)
             except ValueError as e:
                 return 400, {"status": "error", "message": str(e)}
+            self._note_prefix(m, body, prompt)
             return self._wait_batched(m, req, body, t0)
         try:
             with self.metrics.time("inference"), m.lock:
@@ -771,7 +846,8 @@ class WorkerAgent:
                 _, prompt, sp, max_new, seed = self._prep(sub_body)
                 req = m.batcher.make_request(
                     prompt, max_new_tokens=max_new, sampling=sp,
-                    eos_token_id=m.tokenizer.eos_token_id, seed=seed)
+                    eos_token_id=m.tokenizer.eos_token_id, seed=seed,
+                    kv_export=bool(sub_body.get("kv_export")))
             except Exception as e:
                 # every failure resolves this sub in place: one escaping
                 # the loop would leak the earlier subs' inference counts
@@ -786,8 +862,20 @@ class WorkerAgent:
                     self._idem_release(tag, my_ev, None)
                 emit(tag, *_status(self._refuse_draining()))
                 continue
+            self._note_prefix(m, sub_body, prompt)
             reqs.append(req)
             metas.append((sub_body, tag, my_ev, t0))
+        # the peer KV pulls run concurrently: one dead peer's connect
+        # timeout then delays the batch once, not once per sub-request
+        fetch = [i for i, meta in enumerate(metas)
+                 if meta[0].get("kv_source")]
+        if fetch:
+            with concurrent.futures.ThreadPoolExecutor(
+                    max_workers=min(8, len(fetch))) as ex:
+                for i, pre in zip(fetch, ex.map(
+                        lambda i: self._prefetch_kv(
+                            m, metas[i][0], reqs[i].prompt), fetch)):
+                    reqs[i]._kv_transfer_bytes = pre
         try:
             m.batcher.enqueue(reqs)
         except Exception as e:
@@ -859,10 +947,14 @@ class WorkerAgent:
                             token(step[0], tok)
                             step[0] += 1
 
+                        pre = self._prefetch_kv(m, body, prompt)
                         req = m.batcher.submit(
                             prompt, max_new_tokens=max_new, sampling=sp,
                             eos_token_id=m.tokenizer.eos_token_id,
-                            stream_cb=cb, seed=seed)
+                            stream_cb=cb, seed=seed,
+                            kv_export=bool(body.get("kv_export")),
+                            kv_transfer_bytes=pre)
+                        self._note_prefix(m, body, prompt)
                         toks = req.wait(
                             timeout=float(body.get("timeout", 300)))
                         q.put({"event": "done", "result": text(toks),
@@ -904,6 +996,111 @@ class WorkerAgent:
         return {"status": "success",
                 "message": f"cancel requested for {tag!r}"}
 
+    # ---- the KV plane: roles, transfer --------------------------------
+
+    def set_role(self, body, _request=None):
+        """Change this worker's serving role (the master's elastic
+        rebalancer): re-advertised on the next /health and in the
+        ``worker_role`` gauge; what it is sent, it serves either way."""
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        role = str(body.get("role") or "").lower()
+        if role not in WORKER_ROLES:
+            return 400, {"status": "error",
+                         "message": f"role must be one of {WORKER_ROLES},"
+                                    f" got {role!r}"}
+        prev, self.role = self.role, role
+        self.metrics.gauge("worker_role", ROLE_CODE[role])
+        if prev != role:
+            self.metrics.inc("role_flips")
+        return {"status": "success", "role": role, "previous": prev}
+
+    def peer_client(self) -> kvwire.KVFetchClient:
+        """The peer-fetch client every batched model of this worker
+        shares (its auth key, its metrics)."""
+        with self._peer_client_lock:
+            if self._peer_client is None:
+                self._peer_client = kvwire.KVFetchClient(
+                    auth_key=self.service.auth_key, metrics=self.metrics)
+            return self._peer_client
+
+    def kv_fetch(self, body, _request=None):
+        """Stream the host-arena blocks of ``digests`` as kvwire frames,
+        each in the form the arena stores it (an int8 arena's records as
+        kvq8 frames), then the terminal frame: the digests the arena no
+        longer holds are reported missing, and past ``KV_FETCH_MAX_MB``
+        the stream is cut and the rest counted as truncated; the peer
+        recomputes either."""
+        name = body.get("model_name")
+        with self._models_lock:
+            m = self.models.get(name)
+        if m is None or m.batcher is None or m.batcher.kvtier is None:
+            return 404, {"status": "error",
+                         "message": f"model {name} not serving a KV "
+                                    "arena on this worker"}
+        digests = body.get("digests")
+        if (not isinstance(digests, list) or not digests
+                or not all(isinstance(d, str) for d in digests)):
+            return 400, {"status": "error",
+                         "message": "digests: non-empty list of strings "
+                                    "required"}
+        if len(digests) > kvwire.MAX_DIGESTS:
+            return 400, {"status": "error",
+                         "message": f"at most {kvwire.MAX_DIGESTS} "
+                                    "digests per fetch"}
+        arena = m.batcher.kvtier.arena
+        cap = int(KV_FETCH_MAX_MB * 1024 * 1024)
+        self.metrics.inc("kv_fetch_requests")
+
+        def frames():
+            sent = served = truncated = 0
+            missing = []
+            for i, d in enumerate(digests):
+                obj = arena.peek_stored(d)
+                if obj is None:
+                    missing.append(d)
+                    self.metrics.inc("kv_fetch_missing_blocks")
+                    continue
+                frame = kvwire.encode_stored(d, obj)
+                if sent + len(frame) > cap:
+                    truncated = len(digests) - i
+                    break
+                sent += len(frame)
+                served += 1
+                self.metrics.inc("kv_fetch_served_blocks")
+                self.metrics.inc("kv_fetch_served_bytes", len(frame))
+                self.metrics.inc("kv_wire_sent_bytes",
+                                 kvwire.stored_nbytes(obj))
+                self.metrics.inc("kv_wire_raw_bytes",
+                                 kvwire.logical_nbytes(obj))
+                yield frame
+            yield kvwire.encode_end(served, missing, truncated,
+                                    served_bytes=sent)
+
+        return httpd.binary_stream(_request, frames())
+
+    def _prefetch_kv(self, m, body, prompt) -> int:
+        """Pull a disaggregated dispatch's prefix KV (its ``kv_source``)
+        into the model's arena on this handler thread, so the transfer
+        overlaps the batcher's decode loop; the request is then submitted
+        without it (a dead peer costs this request a recompute, never the
+        scheduler a connect timeout). Returns the bytes moved."""
+        src = body.get("kv_source")
+        if not src or m.batcher is None:
+            return 0
+        return m.batcher.prefetch_kv(prompt, src)
+
+    @staticmethod
+    def _note_prefix(m, body, prompt) -> None:
+        """Feed a served prompt's text to the prefix-digest advertisement
+        (the master routes on text digests; it never tokenizes);
+        token-id prompts have no text and are not advertised."""
+        b = m.batcher
+        if (b is not None and b.kvtier is not None
+                and isinstance(body.get("prompt"), str) and body["prompt"]):
+            b.kvtier.note_text(body["prompt"], len(prompt))
+
     # ---- lifecycle -------------------------------------------------------
 
     def serve(self, host="0.0.0.0", port=8100, background=False):
@@ -915,6 +1112,8 @@ class WorkerAgent:
             models = list(self.models.values())
         for m in models:
             m.close()
+        if self._peer_client is not None:
+            self._peer_client.close()
 
 
 def main(argv=None):
@@ -924,8 +1123,12 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=8100)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch path)")
+    ap.add_argument("--role", choices=WORKER_ROLES, default=None,
+                    help="serving role (default: DLI_WORKER_ROLE, else "
+                         "mixed)")
     args = ap.parse_args(argv)
-    WorkerAgent(device=args.device).serve(args.host, args.port)
+    WorkerAgent(device=args.device, role=args.role).serve(args.host,
+                                                          args.port)
 
 
 if __name__ == "__main__":

@@ -34,6 +34,26 @@ HIST_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
 # Rolling-window size for snapshot() percentiles.
 WINDOW = 4096
 
+# The KV plane's counters, under the JAX package's names, registered at 0
+# by their owners so a scrape tells "none yet" from "not exported": the
+# batcher's host tier and peer transfers (runtime/batcher.py), the
+# serving side of /kv_fetch and the role flips (runtime/worker.py), and
+# the peer-fetch client's connections (runtime/kvwire.py). The tier's
+# gauges: kvtier_host_blocks, kvtier_host_bytes, kvtier_logical_bytes,
+# kvtier_occupancy; the worker's: worker_role (0 mixed, 1 prefill, 2
+# decode).
+KV_TIER_COUNTERS = (
+    "kvtier_offloaded_blocks", "kvtier_restored_blocks",
+    "kvtier_restored_tokens", "kvtier_exported_blocks",
+    "kv_transfer_blocks", "kv_transfer_bytes", "kv_transfer_ms",
+    "kv_transfer_failures", "kv_prefetch_coalesced")
+KV_SERVE_COUNTERS = (
+    "kv_fetch_requests", "kv_fetch_served_blocks", "kv_fetch_served_bytes",
+    "kv_fetch_missing_blocks", "kv_wire_raw_bytes", "kv_wire_sent_bytes",
+    "role_flips")
+KV_PEER_COUNTERS = ("worker_peer_conns_created", "worker_peer_conns_reused",
+                    "kv_fetch_queued")
+
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 
 

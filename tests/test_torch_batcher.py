@@ -41,6 +41,7 @@ from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
 from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
     ContinuousBatcher)
 from distributed_llm_inferencing_tpu_torch.runtime.worker import WorkerAgent
+from test_torch_families import one_torch_thread  # noqa: F401
 
 CHUNKS = (4,)   # one decode program on the JAX side
 
@@ -211,13 +212,13 @@ def test_worker_concurrent_inference_equals_direct_submit(worker):
 
 
 @pytest.mark.parametrize("route,extra", [
-    ("/inference", {"kv_source": {"url": "http://x", "model": "m"}}),
-    ("/inference", {"kv_export": True}),
+    ("/load_model", {"kv_quantize": "fp8"}),
+    ("/load_model", {"kv_digest_chunk": "wide"}),
     ("/inference", {"adapter": "a1"}),
     ("/inference", {"resume": {"tokens": [1]}}),
     ("/inference", {"speculative": "ngram"}),
     ("/load_model", {"speculative": "ngram"}),
-    ("/load_model", {"kv_host_mb": 64}),
+    ("/load_model", {"kv_host_mb": "lots"}),
 ])
 def test_worker_refuses_unported_batched_fields(worker, route, extra):
     _, url = worker

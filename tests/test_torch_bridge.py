@@ -18,6 +18,7 @@ from distributed_llm_inferencing_tpu.models.params import (
 from distributed_llm_inferencing_tpu_torch.models import registry as treg
 from distributed_llm_inferencing_tpu_torch.models.params import (
     init_params, param_shapes, params_from_jax)
+from test_torch_families import one_torch_thread  # noqa: F401
 
 
 def _np_tree(name, dtype):

@@ -46,6 +46,7 @@ from distributed_llm_inferencing_tpu_torch.models import convert, hf_files
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
 from distributed_llm_inferencing_tpu_torch.models.params import (
     params_from_jax)
+from test_torch_families import one_torch_thread  # noqa: F401
 
 _T = dict(vocab_size=128)
 _L = dict(_T, hidden_size=32, intermediate_size=64, num_hidden_layers=2,

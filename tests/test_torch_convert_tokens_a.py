@@ -4,10 +4,14 @@ package's, on the CPU in f32: the first ten converter types of
 ``test_torch_convert_tokens_b.py``).
 
 Each type's tiny saved checkpoint is loaded by the JAX
-``load_hf_model`` and by the port's, in f32, and served by both
-packages' engines (greedy, one ragged batch) and batchers (four prompts,
-the fourth sharing the first's first 16 tokens); the tokens must be
-equal, and so must each batcher request's cached prompt tokens.
+``load_hf_model`` and by the port's, in f32. One JAX reference per type,
+the JAX engine's greedy tokens for four prompts in one ragged batch (the
+fourth sharing the first's first 16 tokens), holds both of the port's
+serving modes: the port's engine on the same batch, and the port's
+batcher serving the four prompts as separate requests, must give those
+tokens, and the batcher's fourth request must find the shared 16 tokens
+in its prefix cache. (The JAX batcher gives the JAX engine's tokens on
+these prompts; one JAX program set per type instead of two.)
 """
 
 import jax.numpy as jnp
@@ -17,8 +21,6 @@ import pytest
 from distributed_llm_inferencing_tpu.models import convert as jconvert
 from distributed_llm_inferencing_tpu.ops.sampling import (
     SamplingParams as JaxSamplingParams)
-from distributed_llm_inferencing_tpu.runtime.batcher import (
-    ContinuousBatcher as JaxBatcher)
 from distributed_llm_inferencing_tpu.runtime.engine import (
     InferenceEngine as JaxEngine)
 from distributed_llm_inferencing_tpu_torch.models import convert
@@ -28,9 +30,9 @@ from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
     InferenceEngine)
 from test_torch_convert import TYPES, saved
+from test_torch_families import one_torch_thread  # noqa: F401
 
 GROUP = TYPES[:10]
-PROMPTS = [[3, 17, 52, 9, 1, 30, 44], list(range(5, 45))]
 POOL = dict(num_blocks=128, block_size=8, slots=4, max_seq=96, seed=0)
 
 
@@ -65,21 +67,19 @@ def drive(b, sampling, max_new=8, steps=300, prompts=None):
 
 
 def check_tokens(mt, monkeypatch, prompts=None):
-    """``mt``'s engine and batcher tokens against the JAX package's; the
-    batchers serve ``prompts`` (default ``batch_prompts()``: three fresh
+    """``mt``'s engine and batcher tokens against the JAX engine's greedy
+    tokens for ``prompts`` (default ``batch_prompts()``: three fresh
     prompts, the fourth sharing the first's first 16 tokens)."""
     monkeypatch.setenv("DLI_FUSED_DECODE", "0")
     jcfg, jparams, cfg, params = loaded(mt)
+    prompts = prompts or batch_prompts()
     ref = JaxEngine(jcfg, jparams, max_seq=96).generate(
-        PROMPTS, max_new_tokens=8, sampling=JaxSamplingParams.greedy()).tokens
+        prompts, max_new_tokens=8, sampling=JaxSamplingParams.greedy()).tokens
     got = InferenceEngine(cfg, params, max_seq=96, device="cpu").generate(
-        PROMPTS, max_new_tokens=8, sampling=SamplingParams.greedy()).tokens
+        prompts, max_new_tokens=8, sampling=SamplingParams.greedy()).tokens
     assert got == ref and all(len(t) == 8 for t in ref)
-    ref = drive(JaxBatcher(jcfg, jparams, **POOL), JaxSamplingParams,
-                prompts=prompts)
-    assert ref[1][3] == 16                              # the prefix hit
     assert drive(ContinuousBatcher(cfg, params, device="cpu", **POOL),
-                 SamplingParams, prompts=prompts) == ref
+                 SamplingParams, prompts=prompts) == (ref, [0, 0, 0, 16])
 
 
 @pytest.mark.parametrize("mt", GROUP)

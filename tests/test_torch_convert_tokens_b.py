@@ -7,6 +7,7 @@ import pytest
 
 from test_torch_convert import TYPES
 from test_torch_convert_tokens_a import check_tokens
+from test_torch_families import one_torch_thread  # noqa: F401
 
 GROUP = TYPES[10:20]
 

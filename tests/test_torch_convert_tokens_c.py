@@ -3,16 +3,15 @@ package's, on the CPU in f32: the later converter types of
 ``test_torch_convert.HF_TINY`` (gpt_neo to exaone4; the check is
 ``test_torch_convert_tokens_a.check_tokens``). Each windowed type's
 window (8) is shorter than the prompts, so it cuts in prefill and in
-decode. The batchers serve ``batch_prompts``' shape with the three fresh
-prompts in one tail bucket (18-22 tokens): one admission program for
-them on the JAX side, not two (the other token files cover prompts
-across buckets)."""
+decode. The prompts have ``batch_prompts``' shape with the three fresh
+ones at 18-22 tokens (the other token files cover prompts of 9-23)."""
 
 import numpy as np
 import pytest
 
 from test_torch_convert import TYPES
 from test_torch_convert_tokens_a import check_tokens
+from test_torch_families import one_torch_thread  # noqa: F401
 
 GROUP = TYPES[20:]
 

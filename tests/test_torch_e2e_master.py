@@ -23,7 +23,13 @@ own API (``/api/inference/submit`` and ``/status``):
   directory holding a tiny llama and a tiny tokenizer, nothing loaded
   yet): the master lazy-loads it on the node it routes to, and the port
   node's text equals the JAX node's, both encoding and decoding with the
-  tokenizer found in the checkpoint directory.
+  tokenizer found in the checkpoint directory;
+- disaggregation: with a prefill-role and a decode-role port worker (the
+  host KV arena on by default), a prompt of at least 256 characters
+  takes the master's two-phase path (a one-token ``kv_export`` pass on
+  the prefill node, then the request on the decode node with a
+  ``kv_source``); the text equals the JAX engine's on the same weights,
+  and the decode worker's counters show the blocks it fetched.
 
 No latency is asserted; every wait polls with a deadline.
 """
@@ -40,6 +46,8 @@ from distributed_llm_inferencing_tpu.models.params import (
     init_params as jax_init_params)
 from distributed_llm_inferencing_tpu.models.registry import (
     get_config as jax_config)
+from distributed_llm_inferencing_tpu.ops.sampling import (
+    SamplingParams as JaxSamplingParams)
 from distributed_llm_inferencing_tpu.runtime.batcher import (
     ContinuousBatcher as JaxBatcher)
 from distributed_llm_inferencing_tpu.runtime.engine import (
@@ -60,7 +68,7 @@ from distributed_llm_inferencing_tpu_torch.runtime.worker import (
     LoadedModel, WorkerAgent)
 from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
     load_tokenizer)
-from test_torch_families import family_pair
+from test_torch_families import family_pair, one_torch_thread  # noqa: F401
 
 MODEL = "tiny-llama"
 MAX_SEQ = 128
@@ -403,3 +411,58 @@ def test_checkpoint_path_lazy_load_port_node_equals_jax_node():
             m.stop()
         jax_agent.service.shutdown()
         port_agent.shutdown()
+
+
+def test_disaggregated_prompt_through_the_master():
+    """The unchanged master splits a long prompt across a prefill-role
+    and a decode-role port worker; the decode worker fetches the prompt's
+    KV over /kv_fetch and answers the JAX engine's text."""
+    model = "tiny-llama-long"     # 1k positions: room for a long prompt
+    jcfg = jax_config(model).replace(dtype="float32")
+    params = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = get_config(model).replace(dtype="float32")
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    prompt = ("The quick brown fox jumps over the lazy dog. " * 6)[:264]
+    assert len(prompt) >= 256
+    tok = jax_load_tokenizer(None, jcfg.vocab_size)
+    ref = tok.decode(JaxEngine(jcfg, params, max_seq=320).generate(
+        [tok.encode(prompt)], max_new_tokens=NEW,
+        sampling=JaxSamplingParams.greedy()).tokens[0])
+    agents = {}
+    for role in ("prefill", "decode"):
+        agent = agents[role] = WorkerAgent(device="cpu", role=role)
+        b = ContinuousBatcher(tcfg, tparams, num_blocks=96, block_size=8,
+                              slots=2, max_seq=320, device="cpu",
+                              metrics=agent.metrics,
+                              kv_fetcher=agent.peer_client())
+        b.start()
+        agent.models[model] = LoadedModel(
+            None, load_tokenizer(None, tcfg.vocab_size), "test", batcher=b)
+        agent.serve("127.0.0.1", 0, background=True)
+    m = Master(":memory:", health_interval=0.5, disagg=True)
+    try:
+        srv = m.service.serve("127.0.0.1", 0, background=True)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        ids = {}
+        for role, agent in agents.items():
+            r = requests.post(f"{base}/api/nodes/add", json={
+                "name": role, "host": "127.0.0.1",
+                "port": agent.service.port}, timeout=30).json()
+            assert r["status"] == "success", r
+            ids[r["node_id"]] = role
+        rid = _submit(base, prompt, model=model)
+        m.start_background()
+        row = _finish(base, rid)
+        assert row["status"] == "completed", row
+        assert row["result"] == ref and ids[row["node_id"]] == "decode"
+        counters = {role: a.metrics.snapshot()["counters"]
+                    for role, a in agents.items()}
+        n = len(tok.encode(prompt))
+        assert counters["decode"]["kv_transfer_blocks"] == (n - 1) // 8
+        assert counters["decode"]["kv_transfer_failures"] == 0
+        assert counters["prefill"]["kv_fetch_served_blocks"] == (n - 1) // 8
+        assert counters["prefill"]["kvtier_exported_blocks"] == n // 8
+    finally:
+        m.stop()
+        for agent in agents.values():
+            agent.shutdown()

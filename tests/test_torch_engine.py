@@ -24,6 +24,7 @@ from distributed_llm_inferencing_tpu_torch.models.registry import get_config
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
     InferenceEngine, _bucket)
+from test_torch_families import one_torch_thread  # noqa: F401
 
 PROMPTS = [[3, 17, 52, 9, 1, 30, 44], list(range(5, 45))]   # buckets 16, 64
 

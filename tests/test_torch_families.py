@@ -52,6 +52,20 @@ from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
     MeshSpec, validate_spec)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's plain versions on one intra-op thread for the module
+    that defines or imports this fixture (restored after it). The suite
+    runs its files in parallel processes, where torch's default of a
+    thread per core oversubscribes the machine and its many tiny ops
+    wait on descheduled threads: beside seven busy processes, a 0.6 s
+    test of tests/test_torch_kvtier.py took 17.6 s."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 # the JAX package's forward entry points, jitted once per config (static)
 # and shapes: its eager op-by-op dispatch retraces every scan per call
 jit_prefill, jit_decode_step, jit_paged_prefill_tail, jit_paged_decode_step = (
@@ -203,7 +217,7 @@ def test_apply_rope_partial_and_interleaved_match_jax(pct, interleaved, hd):
 
 @pytest.mark.parametrize("over", [
     {"qkv_clip": 8.0}, {"kv_lora_rank": 16}, {"num_experts": 4},
-    {"attn_sinks": True}, {"dense_prefix_layers": 1}, {"kv_quant": "int8"},
+    {"attn_sinks": True}, {"dense_prefix_layers": 1}, {"kv_quant": "fp8"},
     {"qk_norm": "rms_whole"}, {"activation": "swish"},
 ])
 def test_features_outside_the_families_stay_refused(over):

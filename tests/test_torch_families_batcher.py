@@ -25,7 +25,8 @@ from distributed_llm_inferencing_tpu_torch.models.params import (
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
 from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
     ContinuousBatcher)
-from test_torch_families import FAMILIES, family_pair
+from test_torch_families import (  # noqa: F401
+    FAMILIES, family_pair, one_torch_thread)
 
 CHUNKS = (4,)
 POOL = dict(num_blocks=128, block_size=8, slots=4, max_seq=96, seed=0)

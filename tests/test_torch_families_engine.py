@@ -21,7 +21,8 @@ from distributed_llm_inferencing_tpu_torch.models.params import (
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
     InferenceEngine)
-from test_torch_families import FAMILIES, family_pair
+from test_torch_families import (  # noqa: F401
+    FAMILIES, family_pair, one_torch_thread)
 
 PROMPTS = [[3, 17, 52, 9, 1, 30, 44], list(range(5, 45))]
 

@@ -30,9 +30,9 @@ from distributed_llm_inferencing_tpu.ops.paged_kvcache import (
     init_paged_cache as jax_init_paged)
 from distributed_llm_inferencing_tpu_torch.ops import paged_kvcache as tpk
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
-from test_torch_families import (
+from test_torch_families import (  # noqa: F401
     FAMILIES, TOL, family_pair, jit_decode_step, jit_paged_decode_step,
-    jit_paged_prefill_tail, jit_prefill)
+    jit_paged_prefill_tail, jit_prefill, one_torch_thread)
 
 _FUSED = ["tiny-gpt2", "gemma-7b", "gemma-2b", "falcon-7b"]
 

@@ -8,21 +8,32 @@ biased linears whose bias is added after the quantized product:
 - logits within 1e-4 over the dense path (a right-padded prefill and 4
   decode steps) and the paged path (``test_torch_families_paged.py``'s
   script);
-- greedy tokens equal to the JAX engine's and to the JAX batcher's.
+- greedy tokens of the port's engine and batcher equal to the JAX
+  batcher's: one JAX batcher run per case (its tokens and cached prompt
+  tokens, kept for the module) holds both.
 
 ``embed_quant="int8"`` with a tied head (gpt2, gemma's MQA row): the
 head reads the int8 table with its row scale on the vocabulary columns,
 logits within 1e-4 of the JAX package's ``unembed``.
 """
 
+import functools
+
 import pytest
 
 from distributed_llm_inferencing_tpu.ops.sampling import (
     SamplingParams as JaxSamplingParams)
+from distributed_llm_inferencing_tpu.runtime.batcher import (
+    ContinuousBatcher as JaxBatcher)
+from distributed_llm_inferencing_tpu_torch.models.params import (
+    params_from_jax)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import SamplingParams
-from test_torch_families import family_pair
-from test_torch_families_batcher import batchers, drive
-from test_torch_families_engine import engines, greedy_tokens
+from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+    ContinuousBatcher)
+from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+    InferenceEngine)
+from test_torch_families import family_pair, one_torch_thread  # noqa: F401
+from test_torch_families_batcher import POOL, drive, prompts
 from test_torch_families_paged import _close, _dense_logits, _paged_logits
 
 _QUANT = [(n, q) for n in ("tiny-gpt2", "bloom-7b1", "pythia-6.9b")
@@ -46,15 +57,30 @@ def test_embed_quant_tied_head_matches_jax(name):
     _close(_dense_logits(jcfg, jparams, model))
 
 
+@functools.lru_cache(maxsize=None)
+def _served(name, quant):
+    """(the JAX batcher's tokens and cached prompt tokens for
+    ``prompts()``, the port's config, its params) of ``name``'s tiny
+    variant with ``quant`` weights: one JAX run per case for the engine
+    and the batcher checks."""
+    jcfg, jparams, tree, model = family_pair(name, quant=quant)
+    ref = drive(JaxBatcher(jcfg, jparams, **POOL), JaxSamplingParams)
+    assert ref[1][3] == 16                              # the prefix hit
+    return ref, model.cfg, params_from_jax(tree, model.cfg, "cpu")
+
+
 @pytest.mark.parametrize("name,quant", _QUANT)
 def test_quantized_engine_tokens_match_jax(name, quant):
-    jeng, teng = engines(name, quant=quant)
-    assert greedy_tokens(teng, SamplingParams) == \
-        greedy_tokens(jeng, JaxSamplingParams)
+    (ref, _), cfg, params = _served(name, quant)
+    got = InferenceEngine(cfg, params, max_seq=POOL["max_seq"],
+                          device="cpu").generate(
+        prompts(), max_new_tokens=10, sampling=SamplingParams.greedy())
+    assert got.tokens == ref
 
 
 @pytest.mark.parametrize("name,quant", _QUANT)
 def test_quantized_batcher_tokens_match_jax(monkeypatch, name, quant):
     monkeypatch.setenv("DLI_FUSED_DECODE", "0")
-    jb, port = batchers(name, quant=quant)
-    assert drive(port(), SamplingParams) == drive(jb, JaxSamplingParams)
+    ref, cfg, params = _served(name, quant)
+    b = ContinuousBatcher(cfg, params, device="cpu", **POOL)
+    assert drive(b, SamplingParams) == ref

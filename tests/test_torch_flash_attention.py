@@ -16,6 +16,7 @@ from distributed_llm_inferencing_tpu.ops.attention import alibi_slopes
 from distributed_llm_inferencing_tpu.ops.pallas import (
     flash_attention as jax_flash_attention, flash_decode as jax_flash_decode)
 from distributed_llm_inferencing_tpu_torch.ops import flash_attention as fa
+from test_torch_families import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

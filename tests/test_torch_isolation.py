@@ -1,10 +1,12 @@
-"""The port imports neither jax nor the JAX package.
+"""The port imports neither jax nor the JAX package, nor ``ml_dtypes``.
 
 An AST scan of every module of ``distributed_llm_inferencing_tpu_torch``
 (and of chip_smoke.py, which drives it on the card) for ``import jax``,
-``from jax...``, and imports of ``distributed_llm_inferencing_tpu`` or
-its submodules. The port's own name shares that prefix, so the scan
-matches whole dotted components, not strings.
+``from jax...``, imports of ``distributed_llm_inferencing_tpu`` or its
+submodules, and of ``ml_dtypes`` (a JAX dependency the machine with the
+card lacks; the port keeps bf16 pages as raw words,
+ops/kvblock_quant.py). The port's own name shares that prefix, so the
+scan matches whole dotted components, not strings.
 """
 
 import ast
@@ -14,7 +16,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "distributed_llm_inferencing_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "distributed_llm_inferencing_tpu")
+FORBIDDEN = ("jax", "jaxlib", "distributed_llm_inferencing_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -49,6 +51,8 @@ def forbidden_imports(source: str):
     ("import distributed_llm_inferencing_tpu_torch.ops", False),
     ("import jaxtyping", False),
     ("def f():\n    import jax\n", True),
+    ("import ml_dtypes", True),
+    ("from ml_dtypes import bfloat16", True),
 ])
 def test_scanner(src, bad):
     assert bool(forbidden_imports(src)) == bad
@@ -72,7 +76,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "runtime/batcher.py", "runtime/worker.py", "ops/quant.py",
     "ops/quant_matmul.py", "models/params.py", "models/hf_files.py",
     "models/convert.py", "models/checkpoint.py", "utils/tokenizer.py",
-    "__main__.py",
+    "__main__.py", "ops/kvcache.py", "ops/kvblock_quant.py",
+    "runtime/kvtier.py", "runtime/kvwire.py",
 ])
 def test_batched_serving_modules_are_scanned_and_clean(module):
     path = os.path.join(PORT, *module.split("/"))

@@ -18,6 +18,7 @@ from distributed_llm_inferencing_tpu_torch.ops import attention as tatt
 from distributed_llm_inferencing_tpu_torch.ops import kvcache as tkv
 from distributed_llm_inferencing_tpu_torch.ops import norms as tnorms
 from distributed_llm_inferencing_tpu_torch.ops import rope as trope
+from test_torch_families import one_torch_thread  # noqa: F401
 
 
 def _pair(a):

@@ -50,7 +50,8 @@ from distributed_llm_inferencing_tpu_torch.ops import paged_kvcache as tpk
 from distributed_llm_inferencing_tpu_torch.ops.paged_attention import (
     PAGED_SPLIT, merge_partials, num_splits, paged_flash_decode,
     paged_flash_decode_ref, paged_flash_decode_split_ref)
-from test_torch_families import jit_paged_decode_step, jit_paged_prefill_tail
+from test_torch_families import (  # noqa: F401
+    jit_paged_decode_step, jit_paged_prefill_tail, one_torch_thread)
 
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 FUSED_TOL = dict(rtol=3e-5, atol=3e-5)
@@ -409,5 +410,13 @@ def test_paged_writes_are_in_place():
     assert (paged.k[1, 1] == 1).all() and (paged.k[1, 5] == 1).all()
     g = tpk.gather_seq(layer, torch.tensor([[5, 1]], dtype=torch.int32))
     assert g.shape == (1, 8, 4, 8) and (g == 1).all()
-    with pytest.raises(NotImplementedError):
-        tpk.init_paged_cache(cfg.replace(kv_quant="int8"), 6, 4)
+    # the int8 pool's scale planes are written in place too
+    q8 = tpk.init_paged_cache(cfg.replace(kv_quant="int8"), 6, 4)
+    scales = q8.k_scale[1]
+    tpk.write_token(scales, torch.full((2, 4), 0.5),
+                    torch.tensor([[2, 3], [4, 5]], dtype=torch.int32),
+                    torch.tensor([5, 2], dtype=torch.int32))
+    assert (q8.k_scale[1, 3, 1] == 0.5).all() and scales.data_ptr() == \
+        q8.k_scale[1].data_ptr()
+    with pytest.raises(ValueError):
+        tpk.init_paged_cache(cfg.replace(kv_quant="fp8"), 6, 4)

@@ -58,6 +58,7 @@ from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
     ContinuousBatcher)
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
     InferenceEngine)
+from test_torch_families import one_torch_thread  # noqa: F401
 
 Q4_SHAPES = [(1, 64, 128), (4, 64, 192), (8, 128, 384), (3, 96, 160)]
 # the three weight configurations of the slice: (quant, embed_quant)

@@ -15,6 +15,7 @@ import torch
 
 from distributed_llm_inferencing_tpu.ops import sampling as jsmp
 from distributed_llm_inferencing_tpu_torch.ops import sampling as tsmp
+from test_torch_families import one_torch_thread  # noqa: F401
 
 
 def _logits(seed, shape=(4, 300)):

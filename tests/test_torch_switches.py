@@ -35,8 +35,9 @@ from distributed_llm_inferencing_tpu_torch.ops import norms
 from distributed_llm_inferencing_tpu_torch.ops import paged_kvcache as tpk
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
     MeshSpec, validate_spec)
-from test_torch_families import (
-    family_pair, jit_paged_decode_step, jit_paged_prefill_tail)
+from test_torch_families import (  # noqa: F401
+    family_pair, jit_paged_decode_step, jit_paged_prefill_tail,
+    one_torch_thread)
 from test_torch_families_paged import _close, _dense_logits, _i32
 
 # case -> (tiny registry row, switches)

@@ -63,6 +63,7 @@ from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
     InferenceEngine)
 from distributed_llm_inferencing_tpu_torch.runtime.worker import WorkerAgent
+from test_torch_families import one_torch_thread  # noqa: F401
 
 PROMPTS = [[3, 17, 52, 9, 1, 30, 44], list(range(5, 45))]
 FORCED = [[7, 11], [250, 0], [31, 64]]

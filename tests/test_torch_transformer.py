@@ -23,7 +23,8 @@ from distributed_llm_inferencing_tpu_torch.models.registry import get_config
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
     Transformer)
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
-from test_torch_families import jit_decode_step, jit_prefill
+from test_torch_families import (  # noqa: F401
+    jit_decode_step, jit_prefill, one_torch_thread)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -92,7 +93,7 @@ def test_gather_keeps_only_the_last_real_row():
 @pytest.mark.parametrize("over", [
     {"num_experts": 4}, {"attn_sinks": True},
     {"qkv_clip": 8.0}, {"kv_lora_rank": 16},
-    {"dense_prefix_layers": 1}, {"kv_quant": "int8"},
+    {"dense_prefix_layers": 1}, {"kv_quant": "fp8"},
     {"q_lora_rank": 8},
 ])
 def test_configs_outside_the_llama_arm_raise(over):

@@ -36,6 +36,7 @@ from distributed_llm_inferencing_tpu.runtime.worker import (
 from distributed_llm_inferencing_tpu_torch.runtime.worker import WorkerAgent
 from test_torch_convert import (
     TYPES, _ROOT, assert_bitwise, jax_params, saved, with_tokenizer)
+from test_torch_families import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -93,7 +94,7 @@ def test_load_infer_unload(url):
 
 @pytest.mark.parametrize("extra", [
     {"serving": "batched", "speculative": "ngram"}, {"quantize": "int3"},
-    {"embed_quantize": "int4"}, {"kv_quantize": "int8"},
+    {"embed_quantize": "int4"}, {"kv_quantize": "fp8"},
     {"dtype": "float16"},
 ])
 def test_unported_load_fields_are_refused(url, extra):

@@ -64,6 +64,7 @@ from distributed_llm_inferencing_tpu_torch.runtime.worker import (
 from distributed_llm_inferencing_tpu_torch.utils import metrics as port_metrics
 from distributed_llm_inferencing_tpu_torch.utils.tokenizer import (
     load_tokenizer)
+from test_torch_families import one_torch_thread  # noqa: F401
 
 MODEL = "tiny-llama"
 SIDES = ("jax", "port")
