@@ -107,8 +107,10 @@ Phases (any failure fails the run, exit code != 0):
    route, against an f32 forward over the same weights dequantized; the
    kernel route's worst logit error must stay within ROUTE_ERR_FACTOR x
    the unpack route's.
-10. Tensor parallelism: the worker loads llama-3-8b (full width and
-   depth) with "mesh": {"tp": 2} in engine mode, bf16 and then int4, and
+10. Tensor parallelism: the worker loads llama-3-8b at full width and
+   TP_SERVING_LAYERS of its 32 layers (registered as TP_SERVING_NAME;
+   phase 11 runs tp=2 at full depth) with "mesh": {"tp": 2} in engine
+   mode, bf16 and then int4, and
    serves phase 3's three requests in each. The leader (this process)
    spawns one follower; both ranks sit on this machine's card (their
    data collectives over gloo) or on two cards (NCCL), as printed. Every
@@ -280,6 +282,38 @@ Phases (any failure fails the run, exit code != 0):
    asserted). Its wall time is printed on a line of its own, and each
    kernel's launches in it ("kv_plane_launches").
 
+18. Speculation, overlapped dispatch and live migration, llama-3-8b
+   (seeded weights). (a) The engine's verify step: at 2 layers in f32,
+   its logits for 5 query rows on the card against the host's within
+   XCHECK_TOL, and speculative greedy tokens equal to plain greedy; at
+   full depth in bf16, two repetitive and two random prompts (300 and 900
+   tokens) of 64 new tokens, speculative (gamma 4, the adaptive
+   controller off) against plain: tokens per verify step, ms per emitted
+   token, greedy agreement (reported: random weights copy nothing and
+   bf16 near-ties part), graphs on and off equal (asserted), and no
+   decode kernel launched by a verify step. (b) The batcher's
+   speculative chunk through the worker, full depth bf16, paged route:
+   phase 5's bodies plus two repetitive ones as one /inference_batch,
+   one load per SPEC_MODES entry (wave on and off, adaptive on and off),
+   then the first again with graphs off (equal tokens); counted around
+   each chunk, no decode kernel inside a speculative chunk, and
+   paged_flash_decode num_layers times per plain pass; tokens per pass,
+   ms per verify iteration against the plain pass, the spec_wave_*
+   counters. (c) Overlapped dispatch at full occupancy: 8 requests on 8
+   slots in chunks of 16, with the overlap off and on over one batcher
+   (the first run admits cold, the next two over cached prompt blocks):
+   equal tokens, overlapped pairs > 0, ms per pass. (d) Live migration:
+   two port workers on the card; a 1500-token prompt generating 256
+   tokens is migrated with /migrate_out once it has emitted 64, and
+   re-dispatched to the other worker with its resume record and the
+   source as kv_source, as the master builds the body: no token lost or
+   repeated, the fetched pages bitwise equal to the source's export,
+   greedy agreement with an undisturbed run reported; then two more
+   migrations resumed straight into the destination's batcher with
+   kv_source, the receive-overlapped restore on and off (TTFT reported).
+   Its wall time is printed on a line of its own, and each kernel's
+   launches in it ("spec_migrate_launches").
+
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
 chunks, b in {1, 8, 32}, bf16 and f32, and times it on a tp=2 rank's
@@ -295,6 +329,9 @@ copied in, that tree's digests).
 
 ``python3 chip_smoke.py --kv-plane`` builds the kernels and runs only
 phase 17.
+
+``python3 chip_smoke.py --spec-migrate`` builds the kernels and runs only
+phase 18.
 
 ``python3 chip_smoke.py --timed-rows`` builds the kernels and runs only
 phase 2's timed rows (``timed_rows``), printing each; from the root of
@@ -358,6 +395,11 @@ Q4_SHAPES = {"q": (4096, 4096), "k": (4096, 1024), "gate": (4096, 14336),
 Q4_PASS = {"q": 2, "k": 2, "gate": 2, "down": 1}   # x 32 layers, + head
 # the quantized serving phase loads llama-3-8b with these weights
 QUANT_LOAD = {"quantize": "int4"}
+# phase 10's depth: the tp engine runs eager over gloo on one card (~0.2 s
+# per weight pass at 32 layers, PERF.md §5), and phase 11 holds tp=2 to
+# tp=1 at full depth; 8 of the 32 layers keep its serving and exact
+# per-rank counts in a quarter of the time
+TP_SERVING_LAYERS, TP_SERVING_NAME = 8, "llama-3-8b-8-layers"
 # the bearer token phase 12's worker requires on every route
 CONTROL_KEY = "chip-smoke-control"
 # phase 14 (a): one registry row per family, the decode routes of its
@@ -2125,18 +2167,20 @@ def _tp_want(L, passes, int4, prefill_q4=1, bf16=True):
 
 
 def phase_tp_serving(torch, tp=2):
-    """llama-3-8b at full width and depth through the worker with "mesh":
-    {"tp": tp}, engine mode, bf16 and then int4 weights: phase 3's three
-    requests each, with every rank's kernel launches and data collectives
-    zeroed before each request and held to the exact counts after.
+    """llama-3-8b at full width and TP_SERVING_LAYERS deep through the
+    worker with "mesh": {"tp": tp}, engine mode, bf16 and then int4
+    weights: phase 3's three requests each, with every rank's kernel
+    launches and data collectives zeroed before each request and held to
+    the exact counts after.
     Returns a summary per weight form and the launches summed over the
     ranks and requests."""
     from distributed_llm_inferencing_tpu_torch.models.registry import (
-        get_config)
+        get_config, register)
     from distributed_llm_inferencing_tpu_torch.runtime.worker import (
         WorkerAgent)
-    cfg = get_config("llama-3-8b")
-    L, name = cfg.num_layers, "llama-3-8b"
+    cfg = register(get_config("llama-3-8b").replace(
+        name=TP_SERVING_NAME, num_layers=TP_SERVING_LAYERS))
+    L, name = cfg.num_layers, cfg.name
     worker = WorkerAgent(device="cuda")
     worker.serve("127.0.0.1", 0, background=True)
     base = f"http://127.0.0.1:{worker.service.port}"
@@ -4550,6 +4594,573 @@ def phase_kv_plane(torch, fa, qm, kernels, smi):
     return report
 
 
+# ---------------------------------------------------------------------
+# phase 18: speculation, overlapped dispatch, live migration
+# ---------------------------------------------------------------------
+
+# (a)/(b) the drafts per verify pass; (a) the engine's new tokens and its
+# prompt lengths (a repetitive and a random prompt at each)
+SPEC_GAMMA, SPEC_NEW, SPEC_LENS = 4, 64, (300, 900)
+# (b) the wave's speculation settings, one load each: (DLI_SPEC_WAVE,
+# DLI_SPEC_ADAPTIVE); the first also runs with graphs off on a fresh load
+SPEC_MODES = (("wave", "1", "0"), ("wave_adaptive", "1", "1"),
+              ("global", "0", "0"), ("global_adaptive", "0", "1"))
+# (c) full occupancy: 8 slots, chunks of 16 (three overlapped pairs per
+# request), 128 new tokens
+OVERLAP_CAP, OVERLAP_NEW = 16, 128
+# (d) a 1500-token prompt generating 256 tokens, migrated once it has
+# emitted MIGRATE_AT; two port workers on the card
+MIGRATE_PROMPT, MIGRATE_NEW, MIGRATE_AT = 1500, 256, 64
+MIGRATE_LOAD = dict(BATCHED_LOAD, slots=2, kv_blocks=512, kv_host_mb=1024)
+
+
+# every launch counted in phase 18, banked before each zeroing of the counts
+_PHASE18_LAUNCHES: dict = {}
+
+
+def _bank(kernels):
+    """Add the counts so far to phase 18's total, then zero them."""
+    _add(_PHASE18_LAUNCHES, read_counts(kernels))
+    zero_counts(kernels)
+
+
+def _spec_prompts(cfg, lens=SPEC_LENS, seed=18):
+    """A repetitive prompt (a 24-token phrase repeated) and a random one
+    at each length of ``lens``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in lens:
+        phrase = rng.integers(1, cfg.vocab_size, 24).tolist()
+        out.append((phrase * (n // 24 + 1))[:n])
+        out.append(rng.integers(1, cfg.vocab_size, n).tolist())
+    return out
+
+
+def _spec_engine(torch, kernels):
+    """(a) The engine's verify step: at 2 layers in f32, its logits on
+    the card against the host's and its greedy tokens against plain
+    decode's (asserted); at full depth in bf16, four prompts of 64 new
+    tokens, speculative (graphs on and off: equal tokens, asserted) and
+    plain, with the verify steps' tokens per pass, ms per emitted token
+    and greedy agreement reported."""
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        init_params)
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    greedy = SamplingParams.greedy()
+    full = get_config("llama-3-8b")
+    cfg = full.replace(num_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                         "cuda")
+    g = torch.Generator().manual_seed(18)
+    toks = torch.randint(1, cfg.vocab_size, (1, 40), generator=g)
+    drafts = torch.randint(1, cfg.vocab_size, (1, SPEC_GAMMA + 1),
+                           generator=g)
+    logits = {}
+    _bank(kernels)
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            model = Transformer(cfg, params if dev == "cuda" else
+                                {k: t.cpu() for k, t in params.items()})
+            cache = init_cache(cfg, 1, 96, device=dev)
+            lens = torch.tensor([40], dtype=torch.int32, device=dev)
+            _, cache = model.prefill(toks.to(dev), lens, cache)
+            q_pos = lens.long()[:, None] + torch.arange(SPEC_GAMMA + 1,
+                                                        device=dev)
+            lg, _ = model.forward(drafts.to(dev), cache, lens, q_pos,
+                                  lens + SPEC_GAMMA + 1)
+            logits[dev] = lg[0].cpu()
+            del model, cache
+    counts = read_counts(kernels)
+    assert counts["flash_attention"] == cfg.num_layers and \
+        counts["flash_decode"] == 0, counts
+    out = {"verify_max_abs_err": _xcheck(
+        torch, "verify (5 query rows)", logits["cuda"], logits["cpu"])}
+    os.environ["DLI_SPEC_ADAPTIVE"] = "0"
+    try:
+        eng = InferenceEngine(cfg, params, max_seq=256, device="cuda")
+        agree = []
+        for p in _spec_prompts(cfg, (40,)):
+            plain = eng.generate([p], 48, greedy).tokens
+            spec = eng.generate([p], 48, greedy, speculative="ngram",
+                                spec_gamma=SPEC_GAMMA).tokens
+            assert spec == plain, "2-layer f32: speculative tokens differ"
+            agree.append(len(spec[0]))
+        eng.close()
+        out["f32_greedy_equal_tokens"] = agree
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = InferenceEngine(full, max_seq=2048, device="cuda", seed=0)
+        L = full.num_layers
+        prompts = _spec_prompts(full)
+        # the plain step's and the verify step's captures, outside the
+        # timed requests
+        eng.generate([prompts[0][:64]], 8, greedy)
+        eng.generate([prompts[0][:64]], 8, greedy, speculative="ngram",
+                     spec_gamma=SPEC_GAMMA)
+        rows = []
+        for i, p in enumerate(prompts):
+            _bank(kernels)
+            plain = eng.generate([p], SPEC_NEW, greedy)
+            c_plain = read_counts(kernels)
+            _bank(kernels)
+            spec = eng.generate([p], SPEC_NEW, greedy, speculative="ngram",
+                                spec_gamma=SPEC_GAMMA)
+            c_spec = read_counts(kernels)
+            assert c_plain["flash_decode"] == L * (plain.steps - 1), c_plain
+            # a verify step launches no decode kernel: the prefill alone
+            assert c_spec["flash_attention"] == L and \
+                c_spec["flash_decode"] == 0, c_spec
+            os.environ["DLI_CUDA_GRAPHS"] = "0"
+            try:
+                eager = eng.generate([p], SPEC_NEW, greedy,
+                                     speculative="ngram",
+                                     spec_gamma=SPEC_GAMMA)
+            finally:
+                os.environ.pop("DLI_CUDA_GRAPHS")
+            assert eager.tokens == spec.tokens, \
+                "verify step: graphs on and off disagree"
+            n = len(spec.tokens[0])
+            pt, st = plain.tokens[0], spec.tokens[0]
+            rows.append({
+                "prompt_tokens": len(p),
+                "repetitive": i % 2 == 0,
+                "new_tokens": n,
+                "verify_steps": spec.steps - 1,
+                "tokens_per_verify_step": (n - 1) / max(1, spec.steps - 1),
+                "ms_per_token_spec": spec.decode_ms / max(1, n - 1),
+                "ms_per_token_plain": plain.decode_ms / max(1, len(pt) - 1),
+                "ms_per_verify_step": spec.decode_ms / max(1,
+                                                           spec.steps - 1),
+                "greedy_agree_with_plain": sum(
+                    a == b for a, b in zip(pt, st)),
+                "greedy_equal_prefix": next(
+                    (j for j, (a, b) in enumerate(zip(pt, st)) if a != b),
+                    min(len(pt), len(st)))})
+            log("  engine spec", json.dumps(rows[-1]))
+        out["bf16_full_depth"] = rows
+        eng.close()
+    finally:
+        os.environ.pop("DLI_SPEC_ADAPTIVE", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spec_bodies(cfg):
+    """Phase 5's eight bodies plus two repetitive greedy ones."""
+    bodies = _batched_bodies(cfg)
+    for i, p in enumerate(_spec_prompts(cfg, (400, 800), seed=19)[::2]):
+        bodies.append({"model_name": cfg.name, "prompt_tokens": p,
+                       "max_new_tokens": NEW_TOKENS, "seed": 200 + i,
+                       "sampling": {"do_sample": False}})
+    return bodies
+
+
+def _spec_wave_pass(torch, base, worker, kernels, cfg, mode, wave, adaptive,
+                    graphs_on=True):
+    """One load with ``speculative`` on (``DLI_SPEC_WAVE``/``_ADAPTIVE``
+    as given) and the ten bodies served as one /inference_batch on the
+    paged route.
+    Asserted: every speculative chunk launches no decode kernel (counted
+    around each chunk), and paged_flash_decode launches num_layers per
+    plain weight pass. Reported: tokens per weight pass, ms per verify
+    iteration and per plain pass, the spec_wave_* counters."""
+    L = cfg.num_layers
+    os.environ.update(DLI_SPEC_WAVE=wave, DLI_SPEC_ADAPTIVE=adaptive,
+                      DLI_CUDA_GRAPHS="1" if graphs_on else "0")
+    load = dict(BATCHED_LOAD, speculative="ngram", spec_gamma=SPEC_GAMMA)
+    st, res = _http(base + "/load_model", load)
+    assert st == 200 and res["status"] == "success", res
+    b = worker.models[cfg.name].batcher
+    assert b.spec_wave == (wave == "1"), b.stats()
+    spec = {"chunks": 0, "iterations": 0, "s": 0.0, "inside": 0}
+    run = b._run_spec_decode
+    names = ("paged_flash_decode", "fused_decode_step", "flash_decode",
+             "flash_attention")
+
+    def counted(a):
+        c0 = read_counts(kernels)
+        t0 = time.perf_counter()
+        out = run(a)
+        spec["s"] += time.perf_counter() - t0
+        c1 = read_counts(kernels)
+        spec["inside"] += sum(c1[k] - c0[k] for k in names)
+        spec["chunks"] += 1
+        spec["iterations"] += int(a["k"])
+        return out
+
+    b._run_spec_decode = counted
+    captured = b.stats()["decode_graphs_captured"]
+    bodies = [dict(x, request_tag=f"p18-{mode}-{graphs_on}-{i}")
+              for i, x in enumerate(_spec_bodies(cfg))]
+    s0 = worker.metrics.snapshot()
+    _bank(kernels)
+    t0 = time.perf_counter()
+    # one enqueue in wire order: the admission waves (and so the bits of
+    # their rows) do not depend on arrival times
+    lines = _stream_lines(base + "/inference_batch",
+                          {"model_name": cfg.name, "requests": bodies}, None)
+    wall = time.perf_counter() - t0
+    msgs = {m["request_tag"]: m for m in map(json.loads,
+                                             (x for _, x in lines))}
+    got = [(msgs[x["request_tag"]]["status"], msgs[x["request_tag"]]["body"])
+           for x in bodies]
+    launches = read_counts(kernels)
+    s1 = worker.metrics.snapshot()
+    d = lambda k: s1["counters"].get(k, 0) - s0["counters"].get(k, 0)  # noqa
+    passes, emitted = d("batcher_weight_passes"), d("batcher_tokens_emitted")
+    chunk_s = (s1["timings"]["batcher_decode_chunk"]["sum"]
+               - s0["timings"].get("batcher_decode_chunk", {}).get("sum", 0))
+    tokens = []
+    for body, (code, r) in zip(bodies, got):
+        assert code == 200 and r["status"] == "success", r
+        assert 1 <= len(r["tokens"]) <= NEW_TOKENS, r
+        tokens.append(r["tokens"])
+    assert spec["inside"] == 0, \
+        f"a speculative chunk launched {spec['inside']} decode kernels"
+    plain_passes = passes - spec["iterations"]
+    for k in names:
+        want = L * plain_passes if k == "paged_flash_decode" else 0
+        assert launches[k] == want, \
+            f"{mode}: {k} launches {launches[k]} != {want} " \
+            f"({plain_passes} plain passes of {passes})"
+    if adaptive == "0":
+        assert plain_passes == 0 and spec["chunks"] > 0, (passes, spec)
+    plain_s = chunk_s - spec["s"]
+    row = {"mode": mode, "graphs": graphs_on, "wall_s": wall,
+           "programs_captured_at_load": captured,
+           "weight_passes": passes, "spec_iterations": spec["iterations"],
+           "spec_chunks": spec["chunks"],
+           "decode_tokens_per_weight_pass": emitted / passes,
+           "ms_per_verify_iteration": (1e3 * spec["s"]
+                                       / max(1, spec["iterations"])),
+           "ms_per_plain_pass": (1e3 * plain_s / plain_passes
+                                 if plain_passes else None),
+           "spec_accepted_tokens": b.stats()["spec_accepted_tokens"],
+           "spec_wave": b.stats()["spec_wave"],
+           "spec_adaptive": b.stats()["spec_adaptive"],
+           "counters": {k: d(k) for k in (
+               "spec_wave_dispatches", "spec_wave_drafted_tokens",
+               "spec_wave_accepted_tokens", "spec_wave_plain_rides")},
+           "launches": launches}
+    log("  spec wave", json.dumps(row))
+    del b._run_spec_decode, b, run, counted
+    st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+    assert st == 200
+    return row, tokens
+
+
+def _spec_batched(torch, kernels, cfg):
+    """(b) The batched speculative chunk through the worker: the four
+    SPEC_MODES, then the first again with graphs off (equal tokens)."""
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = f"http://127.0.0.1:{worker.service.port}"
+    rows, toks = [], {}
+    os.environ["DLI_FUSED_DECODE"] = "0"
+    try:
+        for mode, wave, adaptive in SPEC_MODES:
+            row, toks[mode] = _spec_wave_pass(torch, base, worker, kernels,
+                                              cfg, mode, wave, adaptive)
+            rows.append(row)
+        mode, wave, adaptive = SPEC_MODES[0]
+        row, eager = _spec_wave_pass(torch, base, worker, kernels, cfg,
+                                     mode, wave, adaptive, graphs_on=False)
+        rows.append(row)
+        assert eager == toks[mode], \
+            "speculative chunk: graphs on and off disagree"
+    finally:
+        for k in ("DLI_FUSED_DECODE", "DLI_SPEC_WAVE", "DLI_SPEC_ADAPTIVE",
+                  "DLI_CUDA_GRAPHS"):
+            os.environ.pop(k, None)
+        worker.shutdown()
+    greedy = [i for i, b in enumerate(_spec_bodies(cfg))
+              if b["sampling"].get("do_sample") is False]
+    first = toks[SPEC_MODES[0][0]]
+    agree = {m: [sum(a == b for i in greedy
+                     for a, b in zip(first[i], t[i])),
+                 sum(len(first[i]) for i in greedy)]
+             for m, t in toks.items()}
+    log("  greedy tokens equal to the wave mode's:", json.dumps(agree))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"modes": rows, "greedy_agree_with_wave": agree}
+
+
+def _overlap(torch, kernels, cfg):
+    """(c) Overlapped dispatch at full occupancy: 8 requests (phase 5's
+    prompts, no eos, greedy and sampled) on 8 slots, chunks capped at
+    OVERLAP_CAP, with ``decode_overlap`` off and on over one batcher:
+    equal tokens, overlapped pairs > 0, exact paged launches."""
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        ContinuousBatcher)
+    L = cfg.num_layers
+    os.environ["DLI_FUSED_DECODE"] = "0"
+    try:
+        b = ContinuousBatcher(cfg, None, num_blocks=1024, block_size=16,
+                              slots=8, max_seq=4096, seed=0, device="cuda",
+                              decode_chunk_cap=OVERLAP_CAP)
+        b.warm_decode_programs()
+        bodies = _batched_bodies(cfg)
+        out = {}
+        for on in (False, True, False):
+            b.decode_overlap = on
+            m0 = b.metrics.snapshot()
+            _bank(kernels)
+            reqs = [b.submit(x["prompt_tokens"], OVERLAP_NEW,
+                             SamplingParams(**x["sampling"]),
+                             seed=x["seed"]) for x in bodies]
+            # all admitted in one wave: queue empty, every slot live
+            while not all(r.done.is_set() for r in reqs):
+                b.step()
+            m1 = b.metrics.snapshot()
+            d = lambda k: m1["counters"].get(k, 0) - \
+                m0["counters"].get(k, 0)  # noqa
+            passes = d("batcher_weight_passes")
+            launches = read_counts(kernels)
+            assert launches["paged_flash_decode"] == L * passes, launches
+            chunk_s = (m1["timings"]["batcher_decode_chunk"]["sum"]
+                       - m0["timings"].get("batcher_decode_chunk",
+                                           {}).get("sum", 0))
+            row = {"overlap": on, "weight_passes": passes,
+                   "overlapped_dispatches": d(
+                       "batcher_overlapped_dispatches"),
+                   "ms_per_pass": 1e3 * chunk_s / passes,
+                   "tokens": [r.wait() for r in reqs]}
+            out.setdefault(on, []).append(row)
+        b.stop()
+    finally:
+        os.environ.pop("DLI_FUSED_DECODE", None)
+    # the first run admits cold, the next two over the prompts' cached
+    # blocks (an admission's bits depend on its rows): on against the
+    # second off, asserted; against the first, reported
+    cold, on, off = out[False][0], out[True][0], out[False][1]
+    assert on["tokens"] == off["tokens"], \
+        "overlapped dispatch changed the tokens"
+    assert on["overlapped_dispatches"] > 0 and \
+        off["overlapped_dispatches"] == cold["overlapped_dispatches"] == 0
+    rows = [dict({k: v for k, v in r.items() if k != "tokens"},
+                 tokens_equal_cold=r["tokens"] == cold["tokens"])
+            for r in (cold, on, off)]
+    for r in rows:
+        log("  overlap", json.dumps(r))
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _wait_tokens(worker, tag, n, timeout=300.0):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        req = worker._tagged.get(tag)
+        if req is not None and len(req.tokens) >= n:
+            return req
+        time.sleep(0.002)
+    raise AssertionError(f"{tag} never reached {n} tokens")
+
+
+def _migrate_once(torch, bases, workers, cfg, prompt, seed, tag):
+    """One request on the source worker, migrated with /migrate_out once
+    it has emitted MIGRATE_AT tokens: its dispatch answers 303 with the
+    resume record. Returns the record."""
+    body = {"model_name": cfg.name, "prompt_tokens": prompt,
+            "max_new_tokens": MIGRATE_NEW, "seed": seed,
+            "sampling": {"do_sample": False}, "request_tag": tag}
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(_http, bases["src"] + "/inference", body)
+        _wait_tokens(workers["src"], tag, MIGRATE_AT)
+        st, r = _http(bases["src"] + "/migrate_out",
+                      {"request_tag": tag, "model_name": cfg.name})
+        assert st == 200 and r["status"] == "success", r
+        st, res = fut.result()
+    assert st == 303 and res["status"] == "migrated", res
+    rec = res["resume"]
+    assert MIGRATE_AT <= len(rec["tokens"]) < MIGRATE_NEW, len(rec["tokens"])
+    assert rec["prompt_tokens"] == prompt and rec["seed"] == seed
+    return rec
+
+
+def _restored_pages_equal(torch, src_b, dst_b, seq, nblocks):
+    """The destination's pool pages of ``seq``'s first ``nblocks`` blocks
+    (found through its radix) bitwise against the source's exported
+    arena pages, the bytes that crossed the wire."""
+    from distributed_llm_inferencing_tpu_torch.ops import (
+        kvblock_quant as kvq)
+    bs = dst_b.block_size
+    digs = src_b.kvtier.block_digests(seq[:nblocks * bs])
+    blocks, _ = dst_b.pool.match_prefix(seq[:nblocks * bs])
+    try:
+        assert len(blocks) == nblocks, (len(blocks), nblocks)
+        idx = torch.as_tensor(blocks, dtype=torch.long,
+                              device=dst_b.paged.k.device)
+        for j, lf in enumerate(dst_b.paged.leaves()):
+            got = lf.index_select(1, idx).transpose(0, 1).cpu()
+            want = torch.stack([kvq.to_torch(
+                src_b.kvtier.arena.peek_pages(d)[j]) for d in digs])
+            assert torch.equal(got, want), "restored pages differ"
+    finally:
+        dst_b.pool.release(blocks)
+
+
+def _migration(torch, kernels, cfg):
+    """(d) Live migration between two port workers on the card, the
+    master's calls made by hand (tests/test_torch_e2e_master.py drives
+    the unchanged master): /migrate_out on the source mid-stream, the
+    303's resume record re-dispatched to the destination with the source
+    as kv_source (the master's body, JAX runtime/master.py:2697-2711):
+    no token lost or repeated, the fetched pages bitwise equal to the
+    source's export, greedy agreement with an undisturbed run reported.
+    Then two more migrations resumed straight into the destination's
+    batcher with kv_source (its receive-overlapped restore), with the
+    overlap on and off: their TTFTs reported."""
+    import numpy as np
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    workers, bases = {}, {}
+    os.environ["DLI_FUSED_DECODE"] = "1"
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(1, cfg.vocab_size, MIGRATE_PROMPT).tolist()
+               for _ in range(3)]
+    out = {}
+    try:
+        for role in ("src", "dst"):
+            w = workers[role] = WorkerAgent(device="cuda")
+            w.serve("127.0.0.1", 0, background=True)
+            bases[role] = f"http://127.0.0.1:{w.service.port}"
+            st, res = _http(bases[role] + "/load_model", MIGRATE_LOAD)
+            assert st == 200 and res["status"] == "success", res
+        src_b = workers["src"].models[cfg.name].batcher
+        dst_b = workers["dst"].models[cfg.name].batcher
+        _bank(kernels)
+        rec = _migrate_once(torch, bases, workers, cfg, prompts[0], 31,
+                            "mig.0")
+        c0 = dst_b.metrics.snapshot()["counters"]
+        t0 = time.perf_counter()
+        st, got = _http(bases["dst"] + "/inference", {
+            "model_name": cfg.name, "prompt_tokens": prompts[0],
+            "max_new_tokens": MIGRATE_NEW, "seed": 31,
+            "sampling": {"do_sample": False}, "resume": rec,
+            "kv_source": {"url": bases["src"], "model": cfg.name}})
+        call_ms = (time.perf_counter() - t0) * 1e3
+        assert st == 200 and got["status"] == "success", got
+        c1 = dst_b.metrics.snapshot()["counters"]
+        toks, n0 = got["tokens"], len(rec["tokens"])
+        # the record is the stream's cursor: nothing repeated, nothing lost
+        assert toks[:n0] == rec["tokens"], "resume re-emitted other tokens"
+        assert len(toks) == MIGRATE_NEW or (
+            toks and toks[-1] != workers["dst"].models[cfg.name]
+            .tokenizer.eos_token_id), len(toks)
+        blocks = int(c1["kv_transfer_blocks"] - c0.get(
+            "kv_transfer_blocks", 0))
+        n_ctx = MIGRATE_PROMPT + n0 - 1      # KV on the source's device
+        assert blocks == n_ctx // 16, (blocks, n_ctx)
+        _restored_pages_equal(torch, src_b, dst_b, prompts[0] + rec["tokens"],
+                              blocks)
+        st, ref = _http(bases["src"] + "/inference", {
+            "model_name": cfg.name, "prompt_tokens": prompts[0],
+            "max_new_tokens": MIGRATE_NEW, "seed": 31,
+            "sampling": {"do_sample": False}})
+        assert st == 200, ref
+        agree = sum(a == b for a, b in zip(toks, ref["tokens"]))
+        out["worker"] = {
+            "resume_tokens": n0, "new_tokens": len(toks) - n0,
+            "fetched_blocks": blocks, "fetched_pages": "bitwise equal",
+            "destination_call_ms": call_ms,
+            "destination_ttft_ms": got["ttft_ms"],
+            "kv_transfer_ms": c1["kv_transfer_ms"] - c0.get(
+                "kv_transfer_ms", 0),
+            "greedy_agree_with_undisturbed": [agree, len(ref["tokens"])],
+            "duplicated_tokens": 0, "lost_tokens": 0}
+        log("  migration (worker)", json.dumps(out["worker"]))
+        # the receive-overlapped restore: a batcher user's kv_source
+        sp = SamplingParams.greedy()
+        for i, on in ((1, True), (2, False)):
+            rec = _migrate_once(torch, bases, workers, cfg, prompts[i],
+                                40 + i, f"mig.{i}")
+            dst_b._wire_overlap = on
+            c0 = dst_b.metrics.snapshot()
+            req = dst_b.submit(prompts[i], MIGRATE_NEW, sp, resume=rec,
+                               kv_source={"url": bases["src"],
+                                          "model": cfg.name})
+            toks = req.wait(timeout=600)
+            c1 = dst_b.metrics.snapshot()
+            n0 = len(rec["tokens"])
+            assert toks[:n0] == rec["tokens"]
+            blocks = int(c1["counters"]["kv_transfer_blocks"]
+                         - c0["counters"].get("kv_transfer_blocks", 0))
+            assert blocks == (MIGRATE_PROMPT + n0 - 1) // 16, blocks
+            _restored_pages_equal(torch, src_b, dst_b,
+                                  prompts[i] + rec["tokens"], blocks)
+            row = {"receive_overlap": on, "resume_tokens": n0,
+                   "fetched_blocks": blocks, "ttft_ms": req.ttft_ms,
+                   "kv_transfer_ms": c1["counters"]["kv_transfer_ms"]
+                   - c0["counters"].get("kv_transfer_ms", 0),
+                   # the gauge moves on an overlapped fetch only
+                   "overlap_ratio": (c1["gauges"].get(
+                       "kv_restore_overlap_ratio") if on else None)}
+            out[f"restore_overlap_{'on' if on else 'off'}"] = row
+            log("  migration (batcher kv_source)", json.dumps(row))
+        out["launches"] = read_counts(kernels)
+        assert out["launches"]["fused_decode_step"] > 0
+        assert workers["src"].metrics.snapshot()["counters"][
+            "requests_migrated_out"] == 3
+    finally:
+        os.environ.pop("DLI_FUSED_DECODE", None)
+        for w in workers.values():
+            w.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_migrate(torch, kernels, smi):
+    """Phase 18 (see the module docstring): (a) the engine's verify step;
+    (b) the batcher's speculative chunk through the worker; (c)
+    overlapped dispatch; (d) live migration."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    cfg = get_config("llama-3-8b")
+    report, t_all = {"smi": smi}, time.perf_counter()
+    _PHASE18_LAUNCHES.clear()
+    zero_counts(kernels)
+    for key, fn in (("engine", lambda: _spec_engine(torch, kernels)),
+                    ("batched", lambda: _spec_batched(torch, kernels, cfg)),
+                    ("overlap", lambda: _overlap(torch, kernels, cfg)),
+                    ("migration", lambda: _migration(torch, kernels, cfg))):
+        t0 = time.perf_counter()
+        report[key] = fn()
+        report[f"seconds_{key}"] = time.perf_counter() - t0
+    _bank(kernels)
+    report["launches"] = dict(_PHASE18_LAUNCHES)
+    log("  phase 18 launches:", json.dumps(report["launches"]))
+    report["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 18 wall time: {report['seconds']:.1f} s", json.dumps(
+        {k: round(v, 1) for k, v in report.items()
+         if k.startswith("seconds_")}))
+    out_dir = os.path.join(HERE, "chiprun_out")
+    if os.path.isdir(out_dir):
+        with open(os.path.join(out_dir, "phase18.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    return report
+
+
 def timed_rows(torch):
     """Phase 2's timed rows alone (every kernel at its serving shapes,
     with its bound, plain and library times), for comparing two trees'
@@ -4650,6 +5261,10 @@ def main() -> int:
              if k.startswith("seconds")}))
         log(smi)
         return 0
+    if sys.argv[1:2] == ["--spec-migrate"]:   # phase 18 alone
+        phase_spec_migrate(torch, counted, smi)
+        log(smi)
+        return 0
     if sys.argv[1:2] == ["--timed-rows"]:
         rows = timed_rows(torch)
         for row in rows:
@@ -4725,7 +5340,8 @@ def main() -> int:
         "against f32 over the same weights")
     int4_depth, depth_kept = phase_int4_depth(torch, counted, qm)
 
-    mark(10, "tp=2 engine serving (worker, llama-3-8b full depth, "
+    mark(10, f"tp=2 engine serving (worker, llama-3-8b width, "
+        f"{TP_SERVING_LAYERS} layers, "
         "bf16 then int4, 3 requests each)")
     tp_serving, tp_launches = phase_tp_serving(torch)
     for k in ("q4_matmul_row", "q4_matmul_row[mma]"):
@@ -4788,6 +5404,18 @@ def main() -> int:
                  "fused_decode_step", "flash_decode"):
         assert kv_plane["launches"][name] > 0, \
             f"{name} never launched on the KV plane's path"
+
+    mark(18, "speculation, overlap, migration: (a) the engine's verify "
+        "step, 2 layers f32 and full depth bf16; (b) the batched "
+        "speculative chunk through the worker, wave and global, adaptive "
+        "on and off; (c) overlapped dispatch at full occupancy; (d) live "
+        "migration between two workers")
+    spec = phase_spec_migrate(torch, counted, smi)
+
+    for name in ("flash_attention", "flash_decode", "paged_flash_decode",
+                 "fused_decode_step"):
+        assert spec["launches"][name] > 0, \
+            f"{name} never launched on phase 18's path"
 
     mark(None)
     log("  wall time by phase (s):", json.dumps(
@@ -4858,6 +5486,10 @@ def main() -> int:
         # phase 17's KV plane (the int8 routes launch no decode kernel)
         entry["kv_plane_launches"] = kv_plane["launches"].get(name, 0) \
             if "[" not in name else 0
+        # phase 18: speculation (verify passes launch no decode kernel),
+        # overlapped pairs and migration
+        entry["spec_migrate_launches"] = spec["launches"].get(name, 0) \
+            if "[" not in name else 0
         cap_rows = {"flash_attention": cap_pre, "flash_decode": cap_dec,
                     "paged_flash_decode": cap_paged}.get(name)
         if cap_rows is not None:
@@ -4879,7 +5511,7 @@ def main() -> int:
               "tp_cross_check_max_abs_err": tp_xerr, "tp_depth": tp_depth,
               "control_surface": control, "graphs": graphs_report,
               "families": families, "ingestion": ingestion,
-              "later": later, "kv_plane": kv_plane,
+              "later": later, "kv_plane": kv_plane, "spec_migrate": spec,
               "uncapped_digests": digests,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}

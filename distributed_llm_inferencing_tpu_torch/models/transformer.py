@@ -78,7 +78,17 @@ behind ``DLI_FUSED_DECODE``, ops/fused_decode.py; ALiBi families decode
 through the gather formulation, as in the reference) and
 ``paged_chunk_step`` (one step of a K-step chunk with sampling and the
 per-slot budget/eos lifecycle on the device, over a static
-``PagedChunkState``; one host sync per chunk).
+``PagedChunkState``; one host sync per chunk) and ``paged_spec_step``
+(one verify iteration of a speculative chunk over a static
+``SpecChunkState``: on-device prompt-lookup drafts, gamma + 1 query rows
+per slot attending the pool (gathered once per chunk under
+``PREGATHER_MAX_BYTES``, else per layer) and the chunk's side buffers by
+the plain formulation, as the reference's ``paged_speculative_chunk``
+does, whose verify attention reaches no Pallas kernel; the kept entries
+go to the pool in one scatter, ``paged_spec_flush``). The engine's
+verify step (ops/speculative.py ``verify_step``) runs ``forward`` over a
+block of gamma + 1 tokens, attended by ``attend_decode``'s multi-query
+formulation.
 """
 
 from __future__ import annotations
@@ -111,8 +121,15 @@ from distributed_llm_inferencing_tpu_torch.ops.quant_matmul import q4_linear
 from distributed_llm_inferencing_tpu_torch.ops.rope import (
     apply_rope, rope_cos_sin, rotary_dim)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import sample_batch
+from distributed_llm_inferencing_tpu_torch.ops.speculative import (
+    accept_rejection_batch, propose_ngram_device)
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import TPGroup
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
+
+# The speculative chunk gathers the pool once per chunk when the gathered
+# [L, R, MB*bs, Hkv, hd] K and V fit this (the JAX package's
+# _PREGATHER_MAX_BYTES), else per layer inside each iteration.
+PREGATHER_MAX_BYTES = 256 * 1024 * 1024
 
 # field -> the only value the port serves (features not ported yet)
 _UNPORTED = {
@@ -428,8 +445,10 @@ class Block(nn.Module):
         write(cv, v)
 
     def forward(self, x, cache, slots, cos_sin, new_lengths,
-                is_prefill: bool):
-        """``cache``: this layer's (k, v, k_scale, v_scale) views."""
+                is_prefill: bool, q_positions=None):
+        """``cache``: this layer's (k, v, k_scale, v_scale) views;
+        ``q_positions`` [B, s]: a multi-token decode block's positions
+        (speculative verification)."""
         h = self._in(x)
         q, k, v = self._qkv(h, cos_sin)
         self._write(lambda c, n: write_block(c, n, None, slots), cache, k, v)
@@ -441,7 +460,8 @@ class Block(nn.Module):
             attn = attend_decode(q, cache[0], cache[1], new_lengths,
                                  sliding_window=self.window,
                                  alibi=self.alibi, softcap=cap,
-                                 k_scale=cache[2], v_scale=cache[3])
+                                 k_scale=cache[2], v_scale=cache[3],
+                                 q_positions=q_positions)
         return self._tail(x, h, attn)
 
     def paged_prefill(self, x, cache, cos_sin, tail_blocks, prefix_blocks,
@@ -499,28 +519,45 @@ class Block(nn.Module):
                                        v_scale_layer=cache[3])
         return self._tail(x, h, attn)
 
-    def paged_chunk_q8(self, x, cache, cos_sin, block_tables, q_pos,
-                       side_k, side_v, t, kv_pos, kv_valid):
-        """Step ``t`` of an int8 pool's decode chunk for this layer: the
-        token's K/V goes to row ``t`` of the chunk's side buffers
-        ``side_k``/``side_v`` [R, K, Hkv, hd] (compute dtype); q attends
-        the pool's blocks, dequantized, then the side buffers, by the
-        plain formulation over ``kv_pos``/``kv_valid`` (the pool below
-        the chunk's start, the side rows up to ``t``)."""
+    def paged_side(self, x, cache, cos_sin, block_tables, q_pos, side_k,
+                   side_v, off, kv_pos, kv_valid, pool=None):
+        """A decode chunk's step for this layer in the side-buffer
+        formulation (an int8 pool's plain chunk, the speculative chunk):
+        the block's fresh K/V [R, s, Hkv, hd] goes to entries ``off`` [s]
+        of the chunk's side buffers ``side_k``/``side_v`` [R, E, Hkv, hd]
+        (compute dtype); q attends the pool's blocks (``pool``: this
+        layer's (k, v) gathered once per chunk, else gathered here, an
+        int8 pool dequantized) and then the side entries, by the plain
+        formulation over ``kv_pos``/``kv_valid`` (the pool below the
+        chunk's start, the side entries it keeps). The pool is not
+        written: the chunk's flush does that."""
         h = self._in(x)
         q, k, v = self._qkv(h, cos_sin)
-        side_k.index_copy_(1, t, k.to(side_k.dtype))
-        side_v.index_copy_(1, t, v.to(side_v.dtype))
-        ck, cv, cks, cvs = cache
-        kp = dequant_kv(gather_seq(ck, block_tables),
-                        gather_seq(cks, block_tables), side_k.dtype)
-        vp = dequant_kv(gather_seq(cv, block_tables),
-                        gather_seq(cvs, block_tables), side_v.dtype)
+        side_k.index_copy_(1, off, k.to(side_k.dtype))
+        side_v.index_copy_(1, off, v.to(side_v.dtype))
+        if pool is not None:
+            kp, vp = pool
+        else:
+            kp, vp = gather_pool(cache, block_tables, side_k.dtype)
         attn = masked_attention(q, torch.cat([kp, side_k], dim=1),
                                 torch.cat([vp, side_v], dim=1), q_pos,
                                 kv_pos, kv_valid, self.window, self.alibi,
                                 softcap=self.cfg.attn_softcap)
         return self._tail(x, h, attn)
+
+
+def gather_pool(cache, block_tables, dtype):
+    """One layer's pool (k, v[, k_scale, v_scale]) gathered through
+    ``block_tables`` [R, MB] into [R, MB*bs, Hkv, hd] each, an int8 pool
+    dequantized to ``dtype``."""
+    ck, cv, cks, cvs = cache
+    if cks is None:
+        return (gather_seq(ck, block_tables).to(dtype),
+                gather_seq(cv, block_tables).to(dtype))
+    return (dequant_kv(gather_seq(ck, block_tables),
+                       gather_seq(cks, block_tables), dtype),
+            dequant_kv(gather_seq(cv, block_tables),
+                       gather_seq(cvs, block_tables), dtype))
 
 
 class Transformer(nn.Module):
@@ -613,9 +650,10 @@ class Transformer(nn.Module):
         x = self.embed(tokens, q_positions)
         cos_sin = self._cos_sin(q_positions)
         slots = block_slots(write_starts, s, cache.max_seq)
+        q_multi = None if is_prefill or s == 1 else q_positions
         for i, layer in enumerate(self.layers):
             x = layer(x, cache.layer(i), slots, cos_sin, new_lengths,
-                      is_prefill)
+                      is_prefill, q_multi)
         if gather is not None:
             x = x[torch.arange(B, device=x.device), gather][:, None]
         return self.unembed(x), dataclasses.replace(cache,
@@ -748,9 +786,9 @@ class Transformer(nn.Module):
         kv_valid = torch.cat([pool_pos < cl0, (side <= t).expand(r, -1)],
                              dim=1)
         for i, layer in enumerate(self.layers):
-            x = layer.paged_chunk_q8(x, paged.layer(i), cos_sin, s.bt, q_pos,
-                                     s.side_k[i], s.side_v[i], t, kv_pos,
-                                     kv_valid)
+            x = layer.paged_side(x, paged.layer(i), cos_sin, s.bt, q_pos,
+                                 s.side_k[i], s.side_v[i], t, kv_pos,
+                                 kv_valid)
         return self.unembed(x)[:, 0]
 
     def paged_chunk_flush(self, s: "PagedChunkState", paged: PagedKVCache,
@@ -773,6 +811,127 @@ class Transformer(nn.Module):
             q8, scale = quant_kv(side[:, :, :k].transpose(1, 2))
             lv[:, blk, off] = q8
             sc[:, blk, off] = scale
+
+    # ------------------------------------------------------------------
+    # Speculative chunk (the batcher's on-device prompt-lookup drafting)
+    # ------------------------------------------------------------------
+
+    def paged_spec_gather(self, s: "SpecChunkState", paged: PagedKVCache):
+        """The once-per-chunk pool gather of a speculative chunk whose
+        gathered pool fits ``PREGATHER_MAX_BYTES``: every layer's blocks
+        through ``s.bt`` into ``s.pool_k``/``s.pool_v`` [L, R, MB*bs,
+        Hkv, hd] (an int8 pool dequantized), in place."""
+        for i in range(self.cfg.num_layers):
+            kp, vp = gather_pool(paged.layer(i), s.bt, s.pool_k.dtype)
+            s.pool_k[i].copy_(kp)
+            s.pool_v[i].copy_(vp)
+
+    def paged_spec_step(self, s: "SpecChunkState", paged: PagedKVCache,
+                        gamma: int):
+        """Iteration ``s.t`` of a speculative chunk for R slots (the JAX
+        package's ``paged_speculative_chunk`` loop body): draft ``gamma``
+        tokens per slot from the history buffer
+        (``propose_ngram_device``), score [cur, drafts] in one forward,
+        accept per row (``accept_rejection_batch`` with the per-slot
+        widths ``s.gammas``), clamp at eos and budget, and append the kept
+        tokens to the history.
+
+        K/V of the gamma+1 scored tokens go to the side buffers at the
+        static entries ``t*(gamma+1) + [0, gamma]``, each entry's position
+        to ``s.side_pos``; ``s.acc_mask`` marks the entries a slot keeps
+        (entry i of the block iff i < n_keep, entry 0 for a live slot),
+        so attention sees the pool below the chunk's start, the kept side
+        entries and the current block (causally). The pool is written
+        once, after the chunk (``paged_spec_flush``). Iteration t of slot
+        r emitted ``s.toks[t, r, :s.keeps[t, r]]``; ``s.eos_out`` is the
+        cumulative eos flag. Touches only ``s`` (and reads the pool), and
+        never syncs with the host: captured once, replayed K times."""
+        r, mb = s.bt.shape
+        dev = s.bt.device
+        g1 = gamma + 1
+        alive = s.alive.bool()
+        t = s.t.long()
+        cl = s.cl.long()
+        idx = torch.arange(g1, device=dev)
+        qp = torch.where(alive, cl, 0)[:, None] + idx              # [R, G1]
+        hist = s.hist[:, :-1]                   # the last column: a dump
+        drafts, _ = propose_ngram_device(hist, cl + 1, gamma)
+        toks_in = torch.cat([s.cur.long()[:, None], drafts], dim=1)
+        x = self.embed(toks_in, qp)
+        cos_sin = self._cos_sin(qp)
+
+        off = t * g1 + idx
+        s.side_pos.index_copy_(1, off, qp.to(s.side_pos.dtype))
+        e = s.side_pos.shape[1]
+        is_cur = (torch.arange(e, device=dev) // g1) == t
+        pool_pos = torch.arange(mb * paged.block_size, device=dev).expand(
+            r, -1)
+        kv_pos = torch.cat([pool_pos, s.side_pos.long()], dim=1)
+        kv_valid = torch.cat([pool_pos < s.cl0.long()[:, None],
+                              s.acc_mask | is_cur[None, :]], dim=1)
+        for i, layer in enumerate(self.layers):
+            pool = (None if s.pool_k is None
+                    else (s.pool_k[i], s.pool_v[i]))
+            x = layer.paged_side(x, paged.layer(i), cos_sin, s.bt, qp,
+                                 s.side_k[i], s.side_v[i], off, kv_pos,
+                                 kv_valid, pool)
+        logits = self.unembed(x)                                 # [R,G1,V]
+
+        emitted = s.emitted.long()
+        toks_out, n_emit = accept_rejection_batch(
+            logits, drafts, s.seeds, s.steps0.long() + emitted, s.temps,
+            s.tks, s.tps, s.ds.bool(), widths=s.gammas)
+        eos = s.eos.long()
+        emit_sl = idx[None, :] < n_emit[:, None]
+        is_eos = (toks_out == eos[:, None]) & (eos >= 0)[:, None] & emit_sl
+        eos_pos = torch.where(is_eos, idx, g1).amin(dim=1)
+        rem = s.budget.long() - emitted
+        n_keep = torch.minimum(torch.minimum(n_emit, eos_pos), rem)
+        n_keep = torch.where(alive, n_keep, 0)
+        # an eos counts only if plain decode would reach it inside the
+        # budget; cut by the budget first, the slot re-derives it
+        hit_eos = (eos_pos < n_emit) & (eos_pos < rem)
+        kept = idx[None, :] < n_keep[:, None]
+        s.acc_mask.index_copy_(1, off, kept | ((idx == 0)[None, :]
+                                               & alive[:, None]))
+        dump = hist.shape[1]
+        cols = cl[:, None] + 1 + idx
+        cols = torch.where(kept & (cols < dump), cols, dump)
+        rows = torch.arange(r, device=dev)[:, None].expand(r, g1)
+        s.hist[rows, cols] = toks_out.to(s.hist.dtype)
+        emitted2 = emitted + n_keep
+        eos_seen = s.eos_seen.bool() | (hit_eos & alive)
+        last = torch.gather(toks_out, 1, (n_keep - 1).clamp(min=0)[:, None])
+        s.cur.copy_(torch.where(n_keep > 0, last[:, 0], s.cur.long()))
+        s.cl.copy_(cl + n_keep)
+        s.emitted.copy_(emitted2)
+        s.eos_seen.copy_(eos_seen)
+        s.alive.copy_(alive & ~hit_eos & (emitted2 < s.budget.long()))
+        s.toks.index_copy_(0, t, toks_out[None])
+        s.keeps.index_copy_(0, t, n_keep[None])
+        s.eos_out.index_copy_(0, t, eos_seen[None])
+        s.t.add_(1)
+
+    def paged_spec_flush(self, s: "SpecChunkState", paged: PagedKVCache,
+                         dummy_block: int):
+        """The end of a speculative chunk: the side entries its slots kept
+        (``s.acc_mask``) written into the pool at their positions in one
+        scatter (an int8 pool quantized by ``quant_kv``), every other
+        entry into ``dummy_block``."""
+        r, mb = s.bt.shape
+        bs = paged.block_size
+        pos = s.side_pos.long()
+        blk = torch.gather(s.bt.long(), 1, (pos // bs).clamp(max=mb - 1))
+        blk = torch.where(s.acc_mask, blk, dummy_block)
+        off = pos % bs
+        for side, lv, sc in ((s.side_k, paged.k, paged.k_scale),
+                             (s.side_v, paged.v, paged.v_scale)):
+            if sc is None:
+                lv[:, blk, off] = side.to(lv.dtype)
+            else:
+                q8, scale = quant_kv(side)
+                lv[:, blk, off] = q8
+                sc[:, blk, off] = scale
 
 
 @dataclasses.dataclass
@@ -808,3 +967,47 @@ class PagedChunkState:
     side_k: Optional[torch.Tensor] = None
     side_v: Optional[torch.Tensor] = None
     wrote: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class SpecChunkState:
+    """A speculative chunk's inputs and carried state for R slots, as
+    device tensors that ``Transformer.paged_spec_step`` reads and updates
+    in place: tables ``bt`` [R,MB]; the token history ``hist`` [R, H+1]
+    (row r valid to ``cl[r] + 1``; the last column takes dropped writes);
+    per slot ``cur``, ``cl`` (and the chunk's start ``cl0``), the sampling
+    stream (``seeds``, ``steps0``) and parameters (``temps``, ``tks``,
+    ``tps``, ``ds``), ``budget``, ``eos``, the draft width ``gammas``,
+    ``alive``, ``emitted`` and ``eos_seen``; the iteration ``t`` [1];
+    the side buffers ``side_k``/``side_v`` [L, R, E, Hkv, hd] (compute
+    dtype, E = K·(gamma+1)) with ``side_pos`` [R, E] and ``acc_mask``
+    [R, E]; the outputs ``toks`` [K, R, gamma+1], ``keeps`` and
+    ``eos_out`` [K, R]; and, when the chunk gathers the pool once,
+    ``pool_k``/``pool_v`` [L, R, MB*bs, Hkv, hd]."""
+    bt: torch.Tensor
+    hist: torch.Tensor
+    cur: torch.Tensor
+    cl: torch.Tensor
+    cl0: torch.Tensor
+    seeds: torch.Tensor
+    steps0: torch.Tensor
+    temps: torch.Tensor
+    tks: torch.Tensor
+    tps: torch.Tensor
+    ds: torch.Tensor
+    budget: torch.Tensor
+    eos: torch.Tensor
+    gammas: torch.Tensor
+    alive: torch.Tensor
+    emitted: torch.Tensor
+    eos_seen: torch.Tensor
+    t: torch.Tensor
+    side_k: torch.Tensor
+    side_v: torch.Tensor
+    side_pos: torch.Tensor
+    acc_mask: torch.Tensor
+    toks: torch.Tensor
+    keeps: torch.Tensor
+    eos_out: torch.Tensor
+    pool_k: Optional[torch.Tensor] = None
+    pool_v: Optional[torch.Tensor] = None

@@ -72,25 +72,32 @@ def attend_prefill(q, k, v, *, sliding_window: Optional[int] = None,
 def attend_decode(q, cache_k, cache_v, lengths, *,
                   sliding_window: Optional[int] = None, alibi=None,
                   softcap: Optional[float] = None, sinks=None,
-                  k_scale=None, v_scale=None):
-    """Single-token cached attention: ``lengths`` counts filled slots
-    including the token just written; the query sits at ``lengths - 1``.
+                  k_scale=None, v_scale=None, q_positions=None):
+    """Cached attention for decode-regime queries. Single-token: ``lengths``
+    counts filled slots including the token just written; the query sits
+    at ``lengths - 1``. Multi-token (speculative verification,
+    ops/speculative.py ``verify_step``): ``q_positions`` [B, Sq] masks
+    each query causally at its own position, by the plain formulation,
+    as the JAX package does (its flash-decode kernel takes one query).
     An int8 cache (``k_scale``/``v_scale`` [B,S,Hkv] given) is
     dequantized to q's dtype and attended by the plain formulation, where
     the JAX package pins a quantized cache (its XLA fuses the dequantize
-    into the attention matmul); no ``flash_decode`` launch. Multi-token
-    verification (speculative decoding) is not ported."""
+    into the attention matmul); no ``flash_decode`` launch."""
     _unported(sinks)
-    if q.shape[1] != 1:
-        raise NotImplementedError(
-            "multi-token decode (speculative verify) is not ported yet")
-    if k_scale is not None:
-        k = dequant_kv(cache_k, k_scale, q.dtype)
-        v = dequant_kv(cache_v, v_scale, q.dtype)
+    multi = q.shape[1] != 1
+    if multi and q_positions is None:
+        raise ValueError("a multi-token decode needs q_positions")
+    if k_scale is not None or multi:
+        k, v = cache_k, cache_v
+        if k_scale is not None:
+            k = dequant_kv(cache_k, k_scale, q.dtype)
+            v = dequant_kv(cache_v, v_scale, q.dtype)
         B, S = k.shape[:2]
         kv_pos = torch.arange(S, device=q.device).expand(B, S)
         lens = lengths.long()
-        return masked_attention(q, k, v, (lens - 1)[:, None], kv_pos,
+        q_pos = (q_positions.long() if q_positions is not None
+                 else (lens - 1)[:, None])
+        return masked_attention(q, k, v, q_pos, kv_pos,
                                 kv_pos < lens[:, None], sliding_window,
                                 alibi, softcap=softcap)
     return flash_decode(q, cache_k, cache_v, lengths,

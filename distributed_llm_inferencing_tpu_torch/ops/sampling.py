@@ -26,6 +26,11 @@ therefore a pure function of (params, prompt, seed), whatever its
 chunk-mates and however admission and preemption interleave — the
 property the JAX batcher gets from ``fold_in(PRNGKey(seed), step)``;
 greedy rows are ``argmax``, bitwise.
+
+``warp_logits`` (speculation only, ops/speculative.py) gives the warped
+logits ``sample`` draws from; ``batch_support`` the masked logits
+``sample_batch`` draws from, per row; ``tagged_uniform`` a second stream
+per (seed, step), independent of the draws, for acceptance tests.
 """
 
 from __future__ import annotations
@@ -156,6 +161,25 @@ def nucleus_mask_sorted(sorted_vals, width, top_ps):
     return m.masked_fill(m < thresh, float("-inf")), thresh
 
 
+def batch_support(logits, temps, top_ks, top_ps):
+    """The scaled logits [..., V] f32 masked to each row's sampling
+    support (-inf outside): temperature, then the top-k cut (the k-th
+    largest logit) and the nucleus threshold over the full sorted
+    vocabulary. temps/top_ps f32 and top_ks int (0 disables) have the
+    logits' leading shape. ``softmax`` of it is what ``sample_batch``
+    draws from."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    scaled = logits / temps.float().clamp(min=1e-6)[..., None]
+    k = torch.where(top_ks <= 0, v, top_ks.clamp(1, v)).long()
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    kth = torch.gather(sorted_desc, -1, (k - 1)[..., None])
+    _, thresh = nucleus_mask_sorted(sorted_desc, k[..., None],
+                                    top_ps.float()[..., None])
+    return scaled.masked_fill((scaled < kth) | (scaled < thresh),
+                              float("-inf"))
+
+
 def sample_batch(logits, seeds, steps, temps, top_ks, top_ps, do_sample):
     """Per-row sampling for the continuous batcher.
 
@@ -165,21 +189,58 @@ def sample_batch(logits, seeds, steps, temps, top_ks, top_ps, do_sample):
     int64 on the logits' device, with no host sync.
 
     One draw over the full, sorted vocabulary: the top-k cut (the k-th
-    largest logit) and the nucleus threshold mask the scaled logits, and
-    a Gumbel-max draw picks among what is left. The JAX package adds a
-    top-PREFIX_K tier so that ``lax.cond`` can skip the sort when every
-    row is covered; here the sort runs every step, so one tier gives the
-    same support for every k.
+    largest logit) and the nucleus threshold mask the scaled logits
+    (``batch_support``), and a Gumbel-max draw picks among what is left.
+    The JAX package adds a top-PREFIX_K tier so that ``lax.cond`` can
+    skip the sort when every row is covered; here the sort runs every
+    step, so one tier gives the same support for every k.
     """
-    logits = logits.float()
-    v = logits.shape[-1]
-    scaled = logits / temps.float().clamp(min=1e-6)[:, None]
-    k = torch.where(top_ks <= 0, v, top_ks.clamp(1, v)).long()
-    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
-    kth = torch.gather(sorted_desc, -1, (k - 1)[:, None])
-    _, thresh = nucleus_mask_sorted(sorted_desc, k[:, None],
-                                    top_ps.float()[:, None])
-    masked = scaled.masked_fill((scaled < kth) | (scaled < thresh),
-                                float("-inf"))
+    masked = batch_support(logits, temps, top_ks, top_ps)
     sampled = _gumbel_argmax(masked, seeds, steps)
-    return torch.where(do_sample, sampled, torch.argmax(logits, dim=-1))
+    return torch.where(do_sample, sampled, torch.argmax(logits.float(),
+                                                        dim=-1))
+
+
+def tagged_uniform(seeds, steps, tag: int):
+    """f32 uniforms in (0, 1) of the broadcast shape of seeds and steps:
+    entry i a pure function of (seeds[i], steps[i], tag), from a stream
+    that ``_uniform``'s draws at the same (seed, step) never share (the
+    acceptance tests of speculative verification, ops/speculative.py)."""
+    key = _hash32(_hash32(seeds.long() & _M32) ^ (steps.long() & _M32))
+    h = _hash32(_hash32(key ^ (int(tag) & _M32)))
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def _mask_top_k(logits, k: int):
+    """Keep the k largest logits per row (ties at the k-th kept)."""
+    if k <= 0 or k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < kth, float("-inf"))
+
+
+def _mask_top_p(logits, p: float):
+    """Nucleus filter over the full vocabulary: keep the smallest prefix
+    of the sorted distribution reaching mass p (the crossing token kept,
+    HF's TopPLogitsWarper)."""
+    if p >= 1.0:
+        return logits
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < p
+    num_keep = keep.sum(dim=-1, keepdim=True)
+    thresh = torch.gather(sorted_logits, -1, num_keep - 1)
+    return logits.masked_fill(logits < thresh, float("-inf"))
+
+
+def warp_logits(logits, params: SamplingParams):
+    """The HF warper pipeline (temperature -> top_k -> top_p) as masked
+    logits [..., V] f32, -inf outside the sampling support: ``softmax``
+    of it is the distribution ``sample`` draws from (the JAX package's
+    ``warp_logits``, which only speculative verification uses). Greedy
+    params return the raw logits."""
+    logits = logits.float()
+    if not params.do_sample:
+        return logits
+    logits = logits / max(params.temperature, 1e-6)
+    return _mask_top_p(_mask_top_k(logits, params.top_k), params.top_p)

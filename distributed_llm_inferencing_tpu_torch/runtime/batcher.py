@@ -43,6 +43,29 @@ the card without head-of-line blocking.
 - **Streaming and cancel**: a request's ``stream_cb(token)`` fires for
   each token as its chunk lands; ``cancel`` drops the request at the next
   step and returns its blocks to the pool there.
+- **Overlapped dispatch** (``decode_overlap``, ``DLI_DECODE_OVERLAP``, on):
+  when every active slot provably emits two whole chunks (no eos, no
+  stream callback, the budget, nothing queued), the second chunk
+  continues from the first's state on the device and the pair syncs once
+  (``_step_overlapped``).
+- **Speculation** (``speculative="ngram"``, ``spec_gamma``): each chunk
+  runs ceil(K / (gamma+1)) verify iterations of
+  ``Transformer.paged_spec_step`` (prompt-lookup drafts from a device
+  copy of the token history, ``_hist``; up to gamma + 1 tokens per slot
+  per weight pass), captured like the plain step and replayed. Wave mode
+  (``DLI_SPEC_WAVE``, on) gives each request its own
+  ``AdaptiveSpecController`` and the pass per-slot widths, so a
+  draft-hostile request rides at width 0; off, one global controller
+  picks the wave's gamma. ``DLI_SPEC_ADAPTIVE=0`` pins always-draft.
+- **Live migration**: ``migrate_out`` flags a request; at the next step
+  boundary (``_service_migrations``, first in the step) an active slot
+  exports its KV through its context length into the arena and frees
+  like a preemption, and the request ends "migrated" with a
+  ``resume_record`` (the JAX batcher's keys) that ``make_request``'s
+  ``resume`` continues from, on this package's batcher or the JAX one's.
+- **Receive-overlapped restore** (``DLI_KV_WIRE_OVERLAP``, on): a
+  scheduler-thread fetch of a ``kv_source`` restores runs of landed
+  blocks in place while later frames arrive.
 
 Sampling parameters ride as per-row tensors and each row draws from its
 own (seed, step) stream (ops/sampling.py ``sample_batch``), so a request's
@@ -51,9 +74,9 @@ tokens are a pure function of (params, prompt, seed).
 Admission (the JAX package's ``_admit_jit``) runs eagerly, and so do the
 tier's restores: each writes the pool's tensors in place (``index_copy_``),
 never new tensors, because the captured decode programs hold the pool's
-addresses. Not ported yet (in ROADMAP order): overlapped dispatch,
-migration, speculation, LoRA, the multi-host ``program_hook``, pipeline
-parallelism and the phase profiler.
+addresses. Not ported yet (in ROADMAP order): LoRA (and the adapter of a
+resume record), the multi-host ``program_hook``, pipeline parallelism and
+the phase profiler.
 """
 
 from __future__ import annotations
@@ -73,7 +96,7 @@ import torch
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
 from distributed_llm_inferencing_tpu_torch.models.params import init_params
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
-    PagedChunkState, Transformer)
+    PREGATHER_MAX_BYTES, PagedChunkState, SpecChunkState, Transformer)
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode
 from distributed_llm_inferencing_tpu_torch.ops import kvblock_quant as kvq
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
@@ -82,6 +105,8 @@ from distributed_llm_inferencing_tpu_torch.ops.quant import (
     maybe_quantize, maybe_quantize_embed)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import (
     SamplingParams, sample_batch)
+from distributed_llm_inferencing_tpu_torch.ops.speculative import (
+    AdaptiveSpecController)
 from distributed_llm_inferencing_tpu_torch.runtime import graphs
 from distributed_llm_inferencing_tpu_torch.runtime import kvtier as kvtier_mod
 from distributed_llm_inferencing_tpu_torch.runtime import kvwire
@@ -147,6 +172,20 @@ class BatchRequest:
     _arena_offloaded_bytes: int = 0
     _kv_transfer_bytes: int = 0
     _peer_fetch_done: bool = False
+    # speculation: draft tokens accepted beyond one per iteration,
+    # rejected, and proposed; and in wave mode the request's own drafting
+    # controller (made at its first speculative chunk, or loaded from a
+    # resume record), which follows it across preemptions
+    _spec_acc: int = 0
+    _spec_rej: int = 0
+    _spec_drafted: int = 0
+    _spec_ctl: Optional[object] = None
+    # live migration: ``migrate_out`` flags the request, the scheduler
+    # exports its KV and hands off ``resume_record`` at the next step
+    # boundary; ``_migrated`` is the terminal "handed off" outcome
+    _migrate_requested: bool = False
+    _migrated: bool = False
+    resume_record: Optional[dict] = None
 
     def wait(self, timeout: Optional[float] = None) -> List[int]:
         if not self.done.wait(timeout):
@@ -185,6 +224,9 @@ class ContinuousBatcher:
     # steps for finished slots but saves a host round trip; allowed while
     # the overshoot stays this small.
     CHUNK_OVERSHOOT_MAX = 8
+    # blocks landed per in-place restore while a peer fetch still
+    # receives (the JAX batcher's receive-overlap cadence)
+    RESTORE_RUN = 8
 
     def __init__(self, cfg: ModelConfig, params=None, *,
                  num_blocks: int = 512, block_size: int = 16,
@@ -193,7 +235,11 @@ class ContinuousBatcher:
                  decode_chunk_cap: Optional[int] = None, device=None,
                  metrics: Optional[Metrics] = None,
                  kv_host_mb: Optional[float] = None,
-                 kv_digest_chunk: Optional[int] = None, kv_fetcher=None):
+                 kv_digest_chunk: Optional[int] = None, kv_fetcher=None,
+                 speculative: Optional[str] = None, spec_gamma: int = 4,
+                 spec_adaptive: Optional[bool] = None,
+                 spec_wave: Optional[bool] = None,
+                 decode_overlap: Optional[bool] = None):
         self.metrics = metrics or Metrics()
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -217,6 +263,9 @@ class ContinuousBatcher:
                                   if decode_chunk_cap else None)
         self.metrics.gauge("decode_tokens_per_weight_pass", 0.0)
         self.metrics.gauge("batcher_queue_depth", 0.0)
+        self.metrics.inc("batcher_requests_migrated", 0)
+        self._init_speculation(speculative, spec_gamma, spec_adaptive,
+                               spec_wave, decode_overlap)
 
         dev = self.device
         if params is None:
@@ -255,6 +304,71 @@ class ContinuousBatcher:
         self._bufs: Optional[_ChunkBuffers] = None
         self.programs = graphs.DecodePrograms(dev, self.metrics)
         self._programs: dict = {}
+        # the speculative chunk's static buffers and program per gamma
+        self._spec_progs: Dict[int, tuple] = {}
+
+    def _init_speculation(self, speculative, spec_gamma, spec_adaptive,
+                          spec_wave, decode_overlap):
+        """The JAX batcher's speculation and overlap settings.
+
+        - ``decode_overlap`` (else ``DLI_DECODE_OVERLAP``, on): a chunk
+          pair whose every slot provably emits the whole chunk twice (no
+          eos, no stream callback, budget for both, nothing queued) runs
+          back to back, the second fed on the device by the first's last
+          tokens, with one sync for the pair (``_step_overlapped``).
+        - ``speculative`` ("ngram" or None) and ``spec_gamma``: on-device
+          prompt-lookup drafting (``Transformer.paged_spec_step``), up to
+          gamma + 1 tokens per slot per iteration; greedy tokens equal
+          plain decode, sampled rows keep the target distribution.
+        - ``spec_adaptive`` (else ``DLI_SPEC_ADAPTIVE``, on): controllers
+          (ops/speculative.py) shrink gamma or fall back to plain chunks
+          when acceptance or measured tok/s says drafting loses.
+        - ``spec_wave`` (else ``DLI_SPEC_WAVE``, on): each request keeps
+          its own controller and the shared verify pass takes per-slot
+          widths as data, so a draft-hostile request rides it at width 0
+          as plain decode while its chunk-mates keep drafting; off, one
+          global controller picks one gamma for the wave."""
+        def env_on(name):
+            return os.environ.get(name, "1") not in ("0", "false")
+        if decode_overlap is None:
+            decode_overlap = env_on("DLI_DECODE_OVERLAP")
+        self.decode_overlap = bool(decode_overlap)
+        self._overlapped_dispatches = 0
+        self.metrics.inc("batcher_overlapped_dispatches", 0)
+        if speculative not in (None, "ngram"):
+            raise ValueError(f"unknown speculative mode {speculative!r}")
+        self.speculative = speculative
+        self.spec_gamma = int(spec_gamma)
+        self._spec_accepted = 0
+        if spec_adaptive is None:
+            spec_adaptive = env_on("DLI_SPEC_ADAPTIVE")
+        self._spec_adaptive = bool(spec_adaptive)
+        if spec_wave is None:
+            spec_wave = env_on("DLI_SPEC_WAVE")
+        self.spec_wave = bool(spec_wave) and bool(speculative)
+        self._spec_wave_dispatches = 0
+        # wave mode's cross-request arbitration: the throughput EMAs and
+        # probe clocks measure the host, so a fresh request's controller
+        # starts from them (_seed_wave_ctl)
+        self._wave_shared = {"spec_tps": None, "plain_tps": None,
+                             "since_plain_probe": 0, "since_probe": 0}
+        if self.spec_wave:
+            for name in ("spec_wave_dispatches", "spec_wave_drafted_tokens",
+                         "spec_wave_accepted_tokens",
+                         "spec_wave_plain_rides"):
+                self.metrics.inc(name, 0)
+            self.metrics.gauge("spec_wave_drafting_slots", 0.0)
+            self.metrics.gauge("spec_wave_gamma_mean", 0.0)
+        # spec_gamma < 1 asks for no drafts: no controller, plain chunks
+        self._spec_ctl = None
+        if (speculative and self._spec_adaptive and self.spec_gamma >= 1
+                and not self.spec_wave):
+            self._spec_ctl = AdaptiveSpecController(self.spec_gamma)
+        # the drafting history on the host, kept incrementally: row i
+        # holds slot i's prompt and emitted tokens; each speculative
+        # chunk copies it into its device buffer
+        self._hist = (np.zeros((self.slots, self.max_seq + 1), np.int32)
+                      if speculative else None)
 
     def _init_kvtier(self, kv_host_mb, kv_digest_chunk, kv_fetcher):
         """The host KV tier (the JAX batcher's settings): ``kv_host_mb``,
@@ -279,6 +393,9 @@ class ContinuousBatcher:
             dtype=kv_dtype)
             if kv_host_mb and kv_host_mb > 0 else None)
         self.kv_fetcher = kv_fetcher
+        # receive-overlapped restore of a peer fetch (_restore_from_peer)
+        self._wire_overlap = os.environ.get(
+            "DLI_KV_WIRE_OVERLAP", "1") not in ("0", "false", "no", "")
         self._stage_bufs: Optional[List[torch.Tensor]] = None
         # single-flight peer fetches: concurrent fetches to one (peer,
         # model) coalesce onto one leader transfer of the digest union
@@ -291,6 +408,7 @@ class ContinuousBatcher:
             self.pool.set_evict_hook(self._offload_evicted)
             for name in KV_TIER_COUNTERS:
                 self.metrics.inc(name, 0)
+            self.metrics.gauge("kv_restore_overlap_ratio", 0.0)
 
     @property
     def decode_chunks(self):
@@ -312,15 +430,27 @@ class ContinuousBatcher:
                      seed: Optional[int] = None,
                      kv_source: Optional[dict] = None,
                      kv_export: bool = False,
-                     kv_transfer_bytes: int = 0) -> BatchRequest:
+                     kv_transfer_bytes: int = 0,
+                     resume: Optional[dict] = None) -> BatchRequest:
         """Validate and build one request without enqueueing it (ValueError
         for a bad one), so a bad spec leaves no sibling enqueued.
         ``kv_transfer_bytes``: what a submit-time ``prefetch_kv`` moved,
-        for the request's cost record."""
+        for the request's cost record. ``resume``: a migrated request's
+        resume record (``_finish_migrated``, this package's or the JAX
+        one's): its seed, its emitted tokens (pre-seeded, never
+        re-emitted: admission prefills prompt + tokens as after a
+        preemption, so the continuation is the undisturbed run's tail)
+        and its speculation controller's state."""
         if not prompt:
             raise ValueError("empty prompt")
         if int(max_new_tokens) < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if not isinstance(resume, dict):
+            resume = None
+        if resume is not None and resume.get("seed") is not None:
+            # the position-keyed draws continue the source's stream only
+            # under its seed
+            seed = int(resume["seed"])
         if seed is None:
             seed = time.time_ns() % (1 << 31)
         req = BatchRequest(prompt=[int(t) for t in prompt],
@@ -332,6 +462,21 @@ class ContinuousBatcher:
                                       else None),
                            kv_export=bool(kv_export))
         req._kv_transfer_bytes = int(kv_transfer_bytes or 0)
+        if resume is not None and resume.get("tokens"):
+            req.tokens = [int(t) for t in resume["tokens"]]
+            if len(req.tokens) >= req.max_new_tokens:
+                raise ValueError(
+                    f"resume record carries {len(req.tokens)} emitted "
+                    f"tokens >= max_new_tokens {req.max_new_tokens}: the "
+                    "source should have completed, not migrated")
+            state = resume.get("spec")
+            if (state and self.spec_wave and self._spec_adaptive
+                    and self.spec_gamma >= 1):
+                # the request-owned policy state migrates; the throughput
+                # EMAs start from this host's
+                req._spec_ctl = self._seed_wave_ctl(
+                    AdaptiveSpecController(self.spec_gamma))
+                req._spec_ctl.load_state(state)
         if len(req.prompt) + req.max_new_tokens > self.max_seq:
             raise ValueError(
                 f"prompt ({len(req.prompt)}) + max_new_tokens "
@@ -343,8 +488,8 @@ class ContinuousBatcher:
                eos_token_id: Optional[int] = None,
                stream_cb: Optional[Callable[[int], None]] = None,
                seed: Optional[int] = None, **kv) -> BatchRequest:
-        """``kv``: ``make_request``'s ``kv_source``, ``kv_export`` and
-        ``kv_transfer_bytes``."""
+        """``kv``: ``make_request``'s ``kv_source``, ``kv_export``,
+        ``kv_transfer_bytes`` and ``resume``."""
         return self.submit_many([dict(
             prompt=prompt, max_new_tokens=max_new_tokens, sampling=sampling,
             eos_token_id=eos_token_id, stream_cb=stream_cb, seed=seed,
@@ -403,6 +548,7 @@ class ContinuousBatcher:
             self._fail_req(req, "scheduler stopped")
         self.programs.release()
         self._programs.clear()
+        self._spec_progs.clear()
         self._bufs = None
 
     def stats(self) -> dict:
@@ -419,6 +565,13 @@ class ContinuousBatcher:
             "chunk_sizes": sorted(self._chunk_sizes),
             "chunked_admissions": self._chunked_admissions,
             "prefill_chunk": self.prefill_chunk,
+            "decode_overlap": self.decode_overlap,
+            "overlapped_dispatches": self._overlapped_dispatches,
+            "speculative": self.speculative,
+            "spec_accepted_tokens": self._spec_accepted,
+            "spec_adaptive": (self._spec_ctl.stats()
+                              if self._spec_ctl is not None else None),
+            "spec_wave": self._spec_wave_stats(),
             "pool": self.pool.stats(),
             # the host KV tier and the prefix digests the master routes by
             "kvtier": (self.kvtier.stats()
@@ -426,6 +579,23 @@ class ContinuousBatcher:
             "prefix_digests": (self.kvtier.index.advertise()
                                if self.kvtier is not None else None),
             **self.programs.stats(),
+        }
+
+    def _spec_wave_stats(self) -> Optional[dict]:
+        """Wave mode's view over the ACTIVE requests' controllers: the
+        live width mix, not lifetime history."""
+        if not self.spec_wave:
+            return None
+        ctls = [a._spec_ctl for a in self.active
+                if a is not None and a._spec_ctl is not None]
+        return {
+            "dispatches": self._spec_wave_dispatches,
+            "active_controllers": len(ctls),
+            "drafting": sum(c.mode == "spec" for c in ctls),
+            "plain": sum(c.mode == "plain" for c in ctls),
+            "fallbacks": sum(c.fallbacks for c in ctls),
+            "gamma_mean": (round(float(np.mean([c.gamma for c in ctls])),
+                                 2) if ctls else None),
         }
 
     # ---- device programs ----------------------------------------------
@@ -470,38 +640,124 @@ class ContinuousBatcher:
                 key[1])
         return prog
 
-    def _run_decode(self, a: dict):
-        """One K-token decode chunk: the inputs into the static buffers,
-        the decode program K times. Returns (toks [K,R], emits [K,R]) as
-        host arrays (one host sync)."""
+    def _launch_decode(self, a: dict, cont: bool = False):
+        """Queue one K-token decode chunk: the inputs into the static
+        buffers (``cont``: the second chunk of an overlapped pair, whose
+        state continues from the first's on the device, with no host
+        input), the decode program K times. Returns its (toks, emits)
+        [2, K, R] on the device, a copy the next chunk cannot overwrite;
+        nothing syncs."""
         k = int(a["k"])
         step = self._decode_program()
-        self._bufs.load(a)
+        if cont:
+            self._bufs.advance()
+        else:
+            self._bufs.load(a)
         for _ in range(k):
             step()
         s = self._bufs.state
         if self.paged.quantized:
             self.model.paged_chunk_flush(s, self.paged, self._dummy, k)
-        both = torch.stack([s.toks[:k], s.emits[:k].to(s.toks.dtype)])
-        both = both.cpu().numpy()
+        return torch.stack([s.toks[:k], s.emits[:k].to(s.toks.dtype)])
+
+    def _run_decode(self, a: dict):
+        """One K-token decode chunk. Returns (toks [K,R], emits [K,R]) as
+        host arrays (one host sync)."""
+        both = self._launch_decode(a).cpu().numpy()
         return both[0], both[1].astype(bool)
+
+    def _spec_program(self, gamma: int):
+        """(buffers, program) of the speculative chunk at static width
+        ``gamma`` over this batcher's rows and table width: the iteration
+        ``Transformer.paged_spec_step`` captured on a card unless
+        ``DLI_CUDA_GRAPHS=0``, eager on the CPU; the chunk replays it K
+        times (its buffers hold K up to the largest decode chunk)."""
+        capture = graphs.enabled(self.device)
+        ent = self._spec_progs.get((gamma, capture))
+        if ent is None:
+            cfg = self.cfg
+            kmax = -(-max(self.DECODE_CHUNKS) // (gamma + 1))
+            row_bytes = (2 * self.model.dtype.itemsize * cfg.num_layers
+                         * self.max_blocks * self.block_size
+                         * cfg.num_kv_heads * cfg.head_dim)
+            bufs = _SpecBuffers(
+                self.slots, self.max_blocks, self.max_seq + 1, kmax, gamma,
+                cfg, self.model.dtype, self.device,
+                pool_tokens=(self.max_blocks * self.block_size
+                             if self.slots * row_bytes
+                             <= PREGATHER_MAX_BYTES else 0))
+            prog = self.programs.make(
+                functools.partial(self.model.paged_spec_step, bufs.state,
+                                  self.paged, gamma), capture)
+            ent = self._spec_progs[gamma, capture] = (bufs, prog)
+        return ent
+
+    def _run_spec_decode(self, a: dict):
+        """One speculative chunk of ``a["k"]`` verify iterations at static
+        width ``a["gamma"]`` (per-slot widths ``a["gammas"]``): inputs
+        and the history into the static buffers, the pool gathered once
+        when it fits, the program K times, the kept side entries flushed
+        into the pool. Returns (toks [K,R,G+1], keeps [K,R], eos_seen
+        [K,R]) as host arrays (one host sync)."""
+        k, g = int(a["k"]), int(a["gamma"])
+        bufs, prog = self._spec_program(g)
+        bufs.load(a, self._hist)
+        st = bufs.state
+        if st.pool_k is not None:
+            self.model.paged_spec_gather(st, self.paged)
+        for _ in range(k):
+            prog()
+        self.model.paged_spec_flush(st, self.paged, self._dummy)
+        r = self.slots
+        out = torch.cat([st.toks[:k].reshape(-1), st.keeps[:k].reshape(-1),
+                         st.eos_out[:k].reshape(-1).long()]).cpu().numpy()
+        n = k * r * (g + 1)
+        return (out[:n].reshape(k, r, g + 1),
+                out[n:n + k * r].reshape(k, r),
+                out[n + k * r:].reshape(k, r).astype(bool))
+
+    def _spec_gammas(self) -> List[int]:
+        """The static widths a speculative chunk can take: spec_gamma, and
+        without wave mode the global controller's halvings."""
+        if not (self.speculative and self.spec_gamma >= 1):
+            return []
+        gs = {self.spec_gamma}
+        if not self.spec_wave:
+            g = self.spec_gamma
+            while g > 2:
+                g = max(2, g // 2)
+                gs.add(g)
+        return sorted(gs)
+
+    def _spec_inputs(self, k: int, gamma: int) -> dict:
+        """A speculative chunk's host inputs with every slot inactive."""
+        return dict(self._chunk_inputs(k), gamma=gamma,
+                    gammas=np.zeros((self.slots,), np.int32))
 
     @torch.inference_mode()
     def warm_decode_programs(self) -> int:
-        """Capture the decode program of the current route ahead of
-        traffic (the JAX batcher's ``warm_decode_programs``): one real
+        """Capture the decode program of the current route, and with
+        speculation the speculative chunk's at each static width, ahead
+        of traffic (the JAX batcher's ``warm_decode_programs``): one real
         step with every slot inactive, whose writes land in the reserved
-        dummy block and whose outputs are dropped, then the capture.
-        Returns the programs captured: 0 with graphs off or already
-        warm."""
+        dummy block (or in the side buffers alone) and whose outputs are
+        dropped, then the capture. Returns the programs captured: 0 with
+        graphs off or already warm."""
         if not graphs.enabled(self.device):
             return 0
+        n = 0
         step = self._decode_program()
-        if step.captured:
-            return 0
-        self._bufs.load(self._chunk_inputs(1))
-        step()
-        return 1
+        if not step.captured:
+            self._bufs.load(self._chunk_inputs(1))
+            step()
+            n += 1
+        for g in self._spec_gammas():
+            bufs, prog = self._spec_program(g)
+            if not prog.captured:
+                bufs.load(self._spec_inputs(1, g), self._hist)
+                prog()
+                n += 1
+        return n
 
     # ---- host KV tier (offload on evict, restore on admission) --------
 
@@ -634,7 +890,7 @@ class ContinuousBatcher:
         return self.kv_fetcher
 
     def _fetch_into_arena(self, url, model, prompt, limit,
-                          start: int = 0) -> int:
+                          start: int = 0, progress=None) -> int:
         """Pull the arena-missing chain digests of ``prompt``'s blocks
         ``[start, limit)`` from the peer at ``url`` into this arena. Any
         failure (transport, corrupt frame, blocks the peer lacks, shape
@@ -642,7 +898,9 @@ class ContinuousBatcher:
         Single-flight: concurrent calls for one (peer, model) coalesce; the
         first leads and fetches the union of every caller's missing
         digests, the others wait for it and find their blocks in the
-        arena, so each digest crosses the wire once."""
+        arena, so each digest crosses the wire once. ``progress(stream)``,
+        if given, runs on the leader's thread after each block lands (the
+        receive-overlapped restore's consumer)."""
         bs = self.block_size
         digs = self.kvtier.block_digests(prompt[:limit * bs])
         want = [d for d in digs[start:limit]
@@ -673,7 +931,8 @@ class ContinuousBatcher:
                     fl["pending"].clear()
                 if not batch:
                     break
-                total += self._wire_fetch(url, model, batch)
+                total += self._wire_fetch(url, model, batch,
+                                          progress=progress)
         finally:
             with self._kvf_lock:
                 self._kvf_inflight.pop(key, None)
@@ -696,21 +955,24 @@ class ContinuousBatcher:
             return False
         return self.kvtier.arena.put(digest, obj, count_offload=False)
 
-    def _wire_fetch(self, url, model, want) -> int:
+    def _wire_fetch(self, url, model, want, progress=None) -> int:
         """One transfer of ``want`` digests (the single-flight leader's
         round), each block checked and put in the arena as its frame
-        decodes. A fault mid-stream keeps the blocks that landed; the rest
-        recomputes."""
+        decodes (``kvwire.FetchStream``: the socket's next frames arrive
+        meanwhile), ``progress(stream)`` called after each. A fault
+        mid-stream keeps the blocks that landed; the rest recomputes."""
         expect = [((lf.shape[0],) + tuple(lf.shape[2:]),
                    kvq.host_dtype(lf.dtype)) for lf in self.paged.leaves()]
         w0 = time.perf_counter()
         blocks = bytes_in = 0
         try:
-            for d, obj in self._get_kv_fetcher().fetch_stream(
-                    url, model, want):
+            stream = self._get_kv_fetcher().fetch_stream(url, model, want)
+            for d, obj in stream:
                 if self._admit_fetched(d, obj, expect):
                     blocks += 1
                     bytes_in += kvwire.stored_nbytes(obj)
+                    if progress is not None:
+                        progress(stream)
         except Exception:
             self.metrics.inc("kv_transfer_failures")
             log.warning("kv fetch from %s failed; recomputing", url,
@@ -745,39 +1007,80 @@ class ContinuousBatcher:
 
     def _restore_from_peer(self, req, prompt, n, prefix_blocks, cached):
         """The scheduler-thread fetch of a request submitted with
-        ``kv_source``: pull the missing block digests from the peer into
-        the arena, which ``_restore_from_arena`` then restores. Returns
-        (prefix_blocks, cached) unchanged. The worker never takes this
+        ``kv_source``: pull its missing block digests from the peer into
+        the arena. With the receive overlap on (``DLI_KV_WIRE_OVERLAP``,
+        the default) runs of about ``RESTORE_RUN`` landed blocks restore
+        into the pool in place (``_restore_from_arena``) while the
+        receiver thread pulls later frames off the socket, so the scatter
+        of block N overlaps the receive of block N+1; the share of the
+        transfer's wall time spent restoring meanwhile is the
+        ``kv_restore_overlap_ratio`` gauge. Off, the whole transfer lands
+        first and admission restores it after. Returns the (possibly
+        extended) (prefix_blocks, cached). The worker never takes this
         path (it prefetches on its handler thread, ``prefetch_kv``, and
-        submits without ``kv_source``); it is kept for direct batcher
-        users, whose ``submit(kv_source=...)`` the JAX batcher accepts
-        too."""
+        submits without ``kv_source``); it serves direct batcher users,
+        whose ``submit(kv_source=...)`` the JAX batcher accepts too."""
         src = req.kv_source
         if src is None or req._peer_fetch_done:
             return prefix_blocks, cached
         url = src.get("url")
-        req._peer_fetch_done = True
+        if not url:
+            req._peer_fetch_done = True
+            return prefix_blocks, cached
         bs = self.block_size
         start, limit = cached // bs, (n - 1) // bs
-        if not url or start >= limit:
+        if start >= limit:
             return prefix_blocks, cached
-        req._kv_transfer_bytes += self._fetch_into_arena(
-            url, str(src.get("model") or ""), prompt, limit, start=start)
-        return prefix_blocks, cached
+        digs = self.kvtier.block_digests(prompt[:limit * bs])
+        if all(self.kvtier.arena.peek(d) for d in digs[start:limit]):
+            return prefix_blocks, cached   # nothing missing: no transfer
+        req._peer_fetch_done = True
+        state = {"pb": prefix_blocks, "cached": cached, "arrived": 0,
+                 "overlap_s": 0.0}
 
-    def _export_request_kv(self, req):
-        """Park the request's prompt KV in the arena under its token-chain
-        digests, the blocks a peer's ``/kv_fetch`` asks for: at finish of
-        a ``kv_export`` pass, while the request still owns its blocks, so
-        the device bytes are exactly the prompt's. Blocks the arena holds
-        already are skipped."""
+        def scatter_ready(stream):
+            state["arrived"] += 1
+            if (state["arrived"] < self.RESTORE_RUN
+                    and not stream.receiving_done):
+                return
+            state["arrived"] = 0
+            t0 = time.perf_counter()
+            receiving = not stream.receiving_done
+            state["pb"], state["cached"] = self._restore_from_arena(
+                prompt, n, state["pb"], state["cached"])
+            if receiving:
+                state["overlap_s"] += time.perf_counter() - t0
+
+        w0 = time.perf_counter()
+        got = self._fetch_into_arena(
+            url, str(src.get("model") or ""), prompt, limit, start=start,
+            progress=scatter_ready if self._wire_overlap else None)
+        req._kv_transfer_bytes += got
+        wall = time.perf_counter() - w0
+        if got and self._wire_overlap and wall > 0:
+            self.metrics.gauge("kv_restore_overlap_ratio",
+                               min(1.0, state["overlap_s"] / wall))
+        return state["pb"], state["cached"]
+
+    def _export_request_kv(self, req, seq=None, n_ctx=None):
+        """Park a request's KV in the arena under its token-chain digests,
+        the blocks a peer's ``/kv_fetch`` asks for, while the request
+        still owns its blocks: at finish of a ``kv_export`` pass ``seq``
+        is the prompt, whose KV the pass wrote in full; for a migration
+        (``_service_migrations``) ``seq`` is prompt + emitted tokens and
+        ``n_ctx`` the slot's context length, so only positions whose KV
+        is on the device export (the last emitted token's KV would come
+        with the next chunk: the destination prefills it). Blocks the
+        arena holds already are skipped."""
         if req.error or not req._blocks:
             return
         bs = self.block_size
-        n_full = min(len(req.prompt) // bs, len(req._blocks))
+        seq = list(req.prompt) if seq is None else list(seq)
+        n = len(seq) if n_ctx is None else min(int(n_ctx), len(seq))
+        n_full = min(n // bs, len(req._blocks))
         if n_full <= 0:
             return
-        digs = self.kvtier.block_digests(req.prompt[:n_full * bs])
+        digs = self.kvtier.block_digests(seq[:n_full * bs])
         keep = [i for i in range(n_full)
                 if not self.kvtier.arena.peek(digs[i])]
         if not keep:
@@ -1048,9 +1351,15 @@ class ContinuousBatcher:
         self.context_lens[slot] = n
         self.active[slot] = req
         self._admit_order.append(slot)
+        if self._hist is not None:
+            known = m["prompt"][: self.max_seq + 1]
+            self._hist[slot, :len(known)] = known
         if req.first_token_at is None:
             req.first_token_at = time.perf_counter()
         self._emit(req, first)
+        if self._hist is not None and req.tokens:
+            # the admission's sampled token extends the history
+            self._hist[slot, min(n, self.max_seq)] = req.tokens[-1]
         if req.done.is_set() or len(req.tokens) >= req.max_new_tokens:
             self._finish_slot(slot)
 
@@ -1121,16 +1430,24 @@ class ContinuousBatcher:
             "arena_restored_bytes": req._arena_restored_bytes,
             "arena_offloaded_bytes": req._arena_offloaded_bytes,
             "kv_transfer_bytes": req._kv_transfer_bytes,
+            "spec_accepted_tokens": req._spec_acc,
+            "spec_rejected_tokens": req._spec_rej,
+            "spec_drafted_tokens": req._spec_drafted,
         }
 
     def _observe_finished(self, req: BatchRequest):
         m = self.metrics
-        m.inc("batcher_requests_failed" if req.error
+        m.inc("batcher_requests_migrated" if req._migrated
+              else "batcher_requests_failed" if req.error
               else "batcher_requests_completed")
         end = req.finished_at or time.perf_counter()
-        m.observe("batcher_e2e_latency", end - req.submitted_at)
-        if req.first_token_at is not None:
-            m.observe("batcher_ttft", req.first_token_at - req.submitted_at)
+        if not req._migrated:
+            # a handed-off request's span is not a served request: the
+            # destination observes the real one
+            m.observe("batcher_e2e_latency", end - req.submitted_at)
+            if req.first_token_at is not None:
+                m.observe("batcher_ttft",
+                          req.first_token_at - req.submitted_at)
         req.cost = self._cost_record(req, end)
 
     def _finish_slot(self, slot: int):
@@ -1213,7 +1530,11 @@ class ContinuousBatcher:
         return busy
 
     def _step_inner(self) -> int:
-        # drop cancelled slots first: frees their blocks for admission
+        # migrations first: a flagged slot must not ride another chunk
+        # (its export would go stale), and its slot and blocks are this
+        # step's admission capacity
+        self._service_migrations()
+        # drop cancelled slots next: frees their blocks for admission
         for slot in range(self.slots):
             req = self.active[slot]
             if req is not None and req._cancelled:
@@ -1264,6 +1585,10 @@ class ContinuousBatcher:
             a["budget"][i] = min(k, req.max_new_tokens - len(req.tokens))
             if req.eos_token_id is not None:
                 a["eos"][i] = req.eos_token_id
+        if self.speculative:
+            return self._step_speculative(active, a)
+        if self._overlap_eligible(active, k):
+            return self._step_overlapped(active, a, k)
         self._dispatch_plain_chunk(active, a)
         return len([x for x in self.active if x is not None])
 
@@ -1291,12 +1616,16 @@ class ContinuousBatcher:
         self._step_count += 1
         self._chunk_sizes.add(k)
         self.metrics.observe("batcher_decode_chunk", time.perf_counter() - w0)
+        # the drafting history stays current through plain chunks (the
+        # controllers interleave them)
+        self._apply_plain_hist(toks, emits, a["cl"])
         return self._emit_chunk_outputs(active, toks, emits, k, a["budget"])
 
     def _emit_chunk_outputs(self, active, toks, emits, passes: int,
-                            budget) -> int:
+                            budget=None) -> int:
         """Emit each slot's tokens, advance its context, finish slots that
-        hit eos (stopped before their budget) or their token limit."""
+        hit eos (stopped before their budget; an overlapped pair is
+        eos-free and passes no budget) or their token limit."""
         emitted = 0
         for i in active:
             req = self.active[i]
@@ -1307,7 +1636,8 @@ class ContinuousBatcher:
             emitted += cnt
             req._weight_passes += passes
             self.context_lens[i] += cnt
-            if cnt < int(budget[i]) or len(req.tokens) >= req.max_new_tokens:
+            hit_eos = budget is not None and cnt < int(budget[i])
+            if hit_eos or len(req.tokens) >= req.max_new_tokens:
                 self._finish_slot(i)
         # amortization: emitted tokens per weight-streaming pass (one pass
         # per decode iteration), the number continuous batching raises
@@ -1316,6 +1646,346 @@ class ContinuousBatcher:
         self.metrics.inc("batcher_weight_passes", passes)
         self.metrics.inc("batcher_tokens_emitted", emitted)
         return emitted
+
+
+    # ---- overlapped dispatch ------------------------------------------
+
+    def _overlap_eligible(self, active, k: int) -> bool:
+        """A chunk pair can run back to back with no host decision between
+        them: overlap on, nothing queued, and every active slot provably
+        emits ``k`` tokens in each (no eos to look for, no stream callback
+        wanting its tokens per chunk, a budget covering both), with
+        growth blocks for 2k allocated."""
+        if not self.decode_overlap:
+            return False
+        with self._lock:
+            if self.queue:
+                return False
+        for i in active:
+            req = self.active[i]
+            if (req.eos_token_id is not None or req.stream_cb is not None
+                    or req.max_new_tokens - len(req.tokens) < 2 * k):
+                return False
+        # growth may fail at the pool's or the table's edge: the step then
+        # runs one chunk (blocks already granted back the next one)
+        return all(self._ensure_growth(i, 2 * k) for i in active)
+
+    def _step_overlapped(self, active, a: dict, k: int) -> int:
+        """Chunk A, then chunk B continued from A's state on the device
+        (A's last tokens feed B without visiting the host), and one sync
+        for the pair: A's outputs copy out while B is queued. The 2k
+        growth ran after the step built ``a``, whose table is the
+        batcher's own array, so both chunks load the refreshed tables."""
+        w0 = time.perf_counter()
+        out_a = self._launch_decode(a)
+        out_b = self._launch_decode(a, cont=True)
+        both = torch.cat([out_a, out_b], dim=1).cpu().numpy()   # one sync
+        self._step_count += 2
+        self._chunk_sizes.add(k)
+        self._overlapped_dispatches += 1
+        self.metrics.inc("batcher_overlapped_dispatches")
+        dt = time.perf_counter() - w0
+        self.metrics.observe("batcher_decode_chunk", dt / 2)
+        self.metrics.observe("batcher_decode_chunk", dt / 2)
+        toks, emits = both[0], both[1].astype(bool)
+        self._apply_plain_hist(toks, emits, a["cl"])
+        self._emit_chunk_outputs(active, toks, emits, 2 * k)
+        return len([x for x in self.active if x is not None])
+
+    # ---- speculation --------------------------------------------------
+
+    def _apply_spec_hist(self, toks, keeps, cl):
+        """Append a speculative chunk's kept tokens ([K,R,G+1], keeps
+        [K,R]) to the host history, after each slot's ``cl[r] + 1``
+        known tokens."""
+        if self._hist is None:
+            return
+        for r in range(keeps.shape[1]):
+            pos = int(cl[r]) + 1
+            for t in range(keeps.shape[0]):
+                for tok in toks[t, r, :int(keeps[t, r])]:
+                    if pos <= self.max_seq:
+                        self._hist[r, pos] = int(tok)
+                    pos += 1
+
+    def _apply_plain_hist(self, toks, emits, cl):
+        """A plain chunk's tokens into the history: the speculative case
+        at width one (``emits`` a 0/1 keep column)."""
+        if self._hist is None:
+            return
+        self._apply_spec_hist(np.asarray(toks)[:, :, None],
+                              np.asarray(emits).astype(np.int32), cl)
+
+    def _emit_spec_outputs(self, active, toks, keeps, eos_seen, k_it: int,
+                           gammas) -> dict:
+        """Emit each slot's kept tokens ([K,R,G+1] outputs), advance its
+        context and cost ledger, finish it on the device's cumulative eos
+        flag or an exhausted budget (a slot may emit less than its budget
+        when its drafts miss). Returns {slot: (req, emitted, live
+        iterations, drafted)}."""
+        out = {}
+        for i in active:
+            req = self.active[i]
+            cnt = int(keeps[:, i].sum())
+            for t in range(keeps.shape[0]):
+                for tok in toks[t, i, :int(keeps[t, i])]:
+                    self._emit(req, int(tok))
+            live = int((keeps[:, i] > 0).sum())
+            acc_i = cnt - live
+            drafted_i = int(gammas[i]) * live
+            self._spec_accepted += acc_i
+            req._weight_passes += k_it
+            req._spec_acc += acc_i
+            req._spec_rej += max(0, drafted_i - acc_i)
+            req._spec_drafted += drafted_i
+            self.context_lens[i] += cnt
+            out[i] = (req, cnt, live, drafted_i)
+            if bool(eos_seen[-1, i]) or len(req.tokens) >= req.max_new_tokens:
+                self._finish_slot(i)
+        return out
+
+    def _spec_captured(self, gamma: int) -> bool:
+        """Whether the speculative chunk at ``gamma`` runs a capture next
+        (its time then is not decode time, for the controllers)."""
+        _, prog = self._spec_program(gamma)
+        return prog.graphs is not None and not prog.captured
+
+    def _plain_captured(self) -> bool:
+        prog = self._decode_program()
+        return prog.graphs is not None and not prog.captured
+
+    def _spec_chunk(self, active, a: dict, gamma: int, gammas):
+        """One speculative chunk covering ``a``'s K-token budget in
+        ceil(K / (gamma+1)) iterations: run, sync, append the history,
+        emit. Block growth covers K tokens: kept writes never pass the
+        budget, and rejected entries scatter to the dummy block. Returns
+        (per-slot results, k_it, elapsed s)."""
+        k_it = -(-int(a["k"]) // (gamma + 1))
+        args = dict(a, k=k_it, gamma=gamma, gammas=gammas)
+        w0 = time.perf_counter()
+        toks, keeps, eos_seen = self._run_spec_decode(args)
+        self._step_count += 1
+        dt = time.perf_counter() - w0
+        self.metrics.observe("batcher_decode_chunk", dt)
+        self._apply_spec_hist(toks, keeps, a["cl"])
+        per = self._emit_spec_outputs(active, toks, keeps, eos_seen, k_it,
+                                      gammas)
+        emitted = sum(cnt for (_, cnt, _, _) in per.values())
+        m = self.metrics
+        # a verify iteration streams the weights once, however wide
+        m.gauge("decode_tokens_per_weight_pass",
+                emitted / k_it if k_it else 0.0)
+        m.inc("batcher_weight_passes", k_it)
+        m.inc("batcher_tokens_emitted", emitted)
+        return per, k_it, dt
+
+    def _step_speculative(self, active, a: dict) -> int:
+        """A speculative chunk in place of the plain one (the JAX batcher's
+        ``_step_speculative``). Wave mode: per-slot widths
+        (``_step_spec_wave``). Off: one global controller picks one gamma
+        for the wave, 0 running the whole chunk plain; every chunk's
+        acceptance, tokens and time feed it back."""
+        if self.spec_wave:
+            return self._step_spec_wave(active, a)
+        ctl = self._spec_ctl
+        gamma = ctl.choose() if ctl is not None else self.spec_gamma
+        m = self.metrics
+        if ctl is not None:
+            m.gauge("spec_mode", 1.0 if gamma else 0.0)
+            m.gauge("spec_gamma_current", float(gamma or ctl.gamma))
+            acc = ctl.acceptance()
+            if acc is not None:
+                m.gauge("spec_acceptance_rate", acc)
+        if gamma <= 0:
+            compiled = self._plain_captured()
+            w0 = time.perf_counter()
+            emitted = self._dispatch_plain_chunk(active, a)
+            if ctl is not None:
+                ctl.record("plain", emitted=emitted,
+                           elapsed_s=time.perf_counter() - w0,
+                           compiled=compiled)
+            return len([x for x in self.active if x is not None])
+        compiled = self._spec_captured(gamma)
+        per, _, dt = self._spec_chunk(
+            active, a, gamma, np.full((self.slots,), gamma, np.int32))
+        emitted = sum(cnt for (_, cnt, _, _) in per.values())
+        live_iters = sum(live for (_, _, live, _) in per.values())
+        if ctl is not None:
+            ctl.record("spec", emitted=emitted, elapsed_s=dt,
+                       drafted=gamma * live_iters,
+                       accepted=emitted - live_iters, compiled=compiled)
+            if ctl.fallbacks:
+                m.gauge("spec_fallbacks", float(ctl.fallbacks))
+        return len([x for x in self.active if x is not None])
+
+    def _seed_wave_ctl(self, ctl):
+        """A fresh per-request controller seeded from the shared
+        arbitration state (the throughput EMAs and probe clocks measure
+        the host, not the request); it starts in plain mode when those
+        already say drafting loses."""
+        sh = self._wave_shared
+        ctl.spec_tps = sh["spec_tps"]
+        ctl.plain_tps = sh["plain_tps"]
+        ctl._since_plain_probe = sh["since_plain_probe"]
+        ctl._since_probe = sh["since_probe"]
+        if (ctl.spec_tps is not None and ctl.plain_tps is not None
+                and ctl.spec_tps < ctl.plain_tps * ctl.hysteresis):
+            ctl.mode = "plain"
+        return ctl
+
+    def _sync_wave_shared(self, ctl):
+        """One controller's arbitration state back to the shared store
+        (the last writer wins: active controllers tick together)."""
+        sh = self._wave_shared
+        sh["spec_tps"] = ctl.spec_tps
+        sh["plain_tps"] = ctl.plain_tps
+        sh["since_plain_probe"] = ctl._since_plain_probe
+        sh["since_probe"] = ctl._since_probe
+
+    def _step_spec_wave(self, active, a: dict) -> int:
+        """Wave-level speculation: one verify pass serves the active wave
+        with per-slot widths as data, each from the request's own
+        controller; a width-0 slot rides the pass as plain decode (one
+        exact token per iteration). Only when every slot chooses 0 does
+        the step run a plain chunk. The program's static width stays
+        ``spec_gamma``: width mixes change data, never the capture."""
+        m = self.metrics
+        g_max = self.spec_gamma
+        gammas = np.zeros((self.slots,), np.int32)
+        for i in active:
+            req = self.active[i]
+            if self._spec_adaptive and g_max >= 1:
+                if req._spec_ctl is None:
+                    req._spec_ctl = self._seed_wave_ctl(
+                        AdaptiveSpecController(g_max))
+                gammas[i] = req._spec_ctl.choose()
+            else:
+                gammas[i] = max(0, g_max)
+        drafting = [i for i in active if gammas[i] > 0]
+        riding = [i for i in active if gammas[i] == 0]
+        m.gauge("spec_wave_drafting_slots", float(len(drafting)))
+        m.gauge("spec_wave_gamma_mean",
+                float(np.mean([gammas[i] for i in active])))
+        m.gauge("spec_mode", 1.0 if drafting else 0.0)
+        if not drafting:
+            compiled = self._plain_captured()
+            reqs = {i: self.active[i] for i in active}
+            before = {i: len(r.tokens) for i, r in reqs.items()}
+            w0 = time.perf_counter()
+            self._dispatch_plain_chunk(active, a)
+            dt = time.perf_counter() - w0
+            for i, req in reqs.items():
+                if req._spec_ctl is not None:
+                    req._spec_ctl.record(
+                        "plain", emitted=len(req.tokens) - before[i],
+                        elapsed_s=dt, compiled=compiled)
+                    self._sync_wave_shared(req._spec_ctl)
+            return len([x for x in self.active if x is not None])
+        compiled = self._spec_captured(g_max)
+        per, _, dt = self._spec_chunk(active, a, g_max, gammas)
+        self._spec_wave_dispatches += 1
+        m.inc("spec_wave_dispatches")
+        emitted = sum(cnt for (_, cnt, _, _) in per.values())
+        drafted_total = sum(d for (_, _, _, d) in per.values())
+        accepted_total = emitted - sum(live for (_, _, live, _)
+                                       in per.values())
+        for i, (req, cnt, live, drafted_i) in per.items():
+            if req._spec_ctl is None:
+                continue
+            if int(gammas[i]) > 0:
+                req._spec_ctl.record("spec", emitted=cnt, elapsed_s=dt,
+                                     drafted=drafted_i,
+                                     accepted=cnt - live,
+                                     compiled=compiled)
+            else:
+                req._spec_ctl.record("plain", emitted=cnt, elapsed_s=dt,
+                                     compiled=compiled)
+            self._sync_wave_shared(req._spec_ctl)
+        m.inc("spec_wave_drafted_tokens", drafted_total)
+        m.inc("spec_wave_accepted_tokens", accepted_total)
+        m.inc("spec_wave_plain_rides", len(riding))
+        if drafted_total:
+            m.gauge("spec_acceptance_rate", accepted_total / drafted_total)
+        return len([x for x in self.active if x is not None])
+
+    # ---- live migration -----------------------------------------------
+
+    def migrate_out(self, req: BatchRequest,
+                    timeout: float = 10.0) -> Optional[dict]:
+        """Snapshot and evict one request (the worker's ``POST
+        /migrate_out``): the scheduler exports its computed KV into the
+        host arena and hands back a resume record at its next step
+        boundary. Blocks until the request is terminal; returns the
+        record, or None when it completed or failed first (the caller
+        answers 409 and the result stands) or the scheduler did not get
+        to it within ``timeout``."""
+        req._migrate_requested = True
+        self._work.set()
+        if not req.done.wait(timeout):
+            req._migrate_requested = False
+            return None
+        return req.resume_record if req._migrated else None
+
+    def _service_migrations(self):
+        """At the step boundary: a flagged active slot exports its KV
+        through its context length (``_export_request_kv``) and frees like
+        a preemption (the radix keeps its blocks warm, the arena holds
+        the export for a peer's /kv_fetch); a flagged queued request hands
+        off its record alone."""
+        pending = any(a is not None and a._migrate_requested
+                      for a in self.active)
+        with self._lock:
+            queued = [r for r in self.queue if r._migrate_requested]
+            for r in queued:
+                self.queue.remove(r)
+        for req in queued:
+            self._finish_migrated(req)
+        if not pending:
+            return
+        for slot in range(self.slots):
+            req = self.active[slot]
+            if req is None or not req._migrate_requested:
+                continue
+            if self.kvtier is not None:
+                try:
+                    self._export_request_kv(
+                        req, seq=req.prompt + req.tokens,
+                        n_ctx=int(self.context_lens[slot]))
+                except Exception:
+                    log.warning("migration KV export failed for slot %d; "
+                                "the destination will recompute", slot,
+                                exc_info=True)
+            self.pool.release(req._blocks)
+            req._blocks = []
+            self.active[slot] = None
+            self.block_tables[slot, :] = self._dummy
+            self.context_lens[slot] = 0
+            if slot in self._admit_order:
+                self._admit_order.remove(slot)
+            self._finish_migrated(req)
+
+    def _finish_migrated(self, req: BatchRequest):
+        """The terminal "handed off" outcome: the resume record (the JAX
+        batcher's keys) holds what a destination needs to continue the
+        stream exactly: the emitted tokens (it re-emits none), the seed
+        of the position-keyed draws, the budget and eos, and the
+        speculation controller's state."""
+        req.resume_record = {
+            "prompt_tokens": list(req.prompt),
+            "tokens": list(req.tokens),
+            "seed": int(req.seed),
+            "steps": len(req.tokens),
+            "max_new_tokens": int(req.max_new_tokens),
+            "eos_token_id": req.eos_token_id,
+            "spec": (req._spec_ctl.export_state()
+                     if req._spec_ctl is not None else None),
+            "adapter": None,
+        }
+        req._migrated = True
+        req.error = "migrated"
+        req.finished_at = time.perf_counter()
+        self._observe_finished(req)
+        req.done.set()
 
     # ---- background loop ----------------------------------------------
 
@@ -1404,3 +2074,102 @@ class _ChunkBuffers:
         floats[r:] = a["tps"]
         self.ints.copy_(self.host_ints, non_blocking=True)
         self.floats.copy_(self.host_floats, non_blocking=True)
+
+    def advance(self):
+        """The next chunk of an overlapped pair, on the device alone: every
+        live slot of the last chunk emitted its whole budget (the pair's
+        eligibility), so it continues from the last chunk's context and
+        token with the same budget, its step counter ``budget`` further
+        on. The staging copies are left alone (the last chunk's may still
+        be queued)."""
+        s = self.state
+        s.steps0.add_(s.budget)
+        s.cl0.copy_(s.cl)
+        s.alive.copy_(s.budget > 0)
+        s.t.zero_()
+
+
+class _SpecBuffers:
+    """The speculative chunk's static device state (``SpecChunkState``)
+    for R slots, tables of MB blocks, histories of H tokens, K iterations
+    of width gamma: a packed int32 buffer [bt | hist | cur | cl | cl0 |
+    seeds | steps0 | tks | budget | eos | ds | gammas | alive | emitted |
+    eos_seen | t] and f32 [temps | tps], staged through pinned copies as
+    ``_ChunkBuffers`` does; the side buffers, entry positions and kept
+    mask; the outputs; and, when ``pool_tokens`` > 0, the once-per-chunk
+    pool gather [L, R, pool_tokens, Hkv, hd]."""
+
+    ROW_FIELDS = ("cur", "cl", "cl0", "seeds", "steps0", "tks", "budget",
+                  "eos", "ds", "gammas", "alive", "emitted", "eos_seen")
+
+    def __init__(self, rows: int, mb: int, hh: int, kmax: int, gamma: int,
+                 cfg, dtype, device: torch.device, pool_tokens: int = 0):
+        self.rows, self.mb, self.hh = rows, mb, hh
+        g1 = gamma + 1
+        e = kmax * g1
+        hist_at = rows * mb
+        rows_at = hist_at + rows * (hh + 1)
+        n = rows_at + len(self.ROW_FIELDS) * rows + 1
+        pin = device.type == "cuda"
+        self.host_ints = torch.zeros(n, dtype=torch.int32, pin_memory=pin)
+        self.host_floats = torch.empty(2 * rows, dtype=torch.float32,
+                                       pin_memory=pin)
+        self.ints = torch.zeros(n, dtype=torch.int32, device=device)
+        self.floats = torch.empty(2 * rows, dtype=torch.float32,
+                                  device=device)
+        at = {f: rows_at + rows * i for i, f in enumerate(self.ROW_FIELDS)}
+        side = (cfg.num_layers, rows, e, cfg.num_kv_heads, cfg.head_dim)
+        pool = None
+        if pool_tokens:
+            pool = (cfg.num_layers, rows, pool_tokens, cfg.num_kv_heads,
+                    cfg.head_dim)
+        self.state = SpecChunkState(
+            bt=self.ints[:hist_at].view(rows, mb),
+            hist=self.ints[hist_at:rows_at].view(rows, hh + 1),
+            **{f: self.ints[o:o + rows] for f, o in at.items()},
+            t=self.ints[n - 1:], temps=self.floats[:rows],
+            tps=self.floats[rows:],
+            side_k=torch.zeros(side, dtype=dtype, device=device),
+            side_v=torch.zeros(side, dtype=dtype, device=device),
+            side_pos=torch.zeros((rows, e), dtype=torch.int64,
+                                 device=device),
+            acc_mask=torch.zeros((rows, e), dtype=torch.bool,
+                                 device=device),
+            toks=torch.zeros((kmax, rows, g1), dtype=torch.int64,
+                             device=device),
+            keeps=torch.zeros((kmax, rows), dtype=torch.int64,
+                              device=device),
+            eos_out=torch.zeros((kmax, rows), dtype=torch.bool,
+                                device=device),
+            pool_k=(None if pool is None else
+                    torch.zeros(pool, dtype=dtype, device=device)),
+            pool_v=(None if pool is None else
+                    torch.zeros(pool, dtype=dtype, device=device)))
+        ints = self.host_ints.numpy()
+        self._bt = ints[:hist_at].reshape(rows, mb)
+        self._hist = ints[hist_at:rows_at].reshape(rows, hh + 1)
+        self._host = {f: ints[o:o + rows] for f, o in at.items()}
+
+    def load(self, a: dict, hist: np.ndarray):
+        """One chunk's inputs (``ContinuousBatcher._spec_inputs``' keys)
+        and the host history [R, H]; every slot's state reset (alive while
+        it has budget, nothing emitted, no side entry kept)."""
+        self._bt[:] = np.asarray(a["bt"])
+        self._hist[:, :-1] = hist
+        h = self._host
+        for f, key in (("cur", "tokens"), ("cl", "cl"), ("cl0", "cl"),
+                       ("seeds", "seeds"), ("steps0", "steps"),
+                       ("tks", "tks"), ("budget", "budget"), ("eos", "eos"),
+                       ("ds", "ds"), ("gammas", "gammas")):
+            h[f][:] = a[key]
+        h["alive"][:] = np.asarray(a["budget"]) > 0
+        h["emitted"][:] = 0
+        h["eos_seen"][:] = 0
+        self.host_ints.numpy()[-1] = 0
+        floats = self.host_floats.numpy()
+        floats[:self.rows] = a["temps"]
+        floats[self.rows:] = a["tps"]
+        self.ints.copy_(self.host_ints, non_blocking=True)
+        self.floats.copy_(self.host_floats, non_blocking=True)
+        self.state.acc_mask.zero_()
+        self.state.side_pos.zero_()

@@ -26,6 +26,17 @@ one device:
 - **streaming**: ``stream_cb(step, tokens)`` fires with the prefill's
   tokens right after prefill (step 0), then once per decode step as each
   chunk lands; a finished row's entry is None.
+- **speculation** (``generate(speculative="ngram", spec_gamma=g)``, one
+  sequence): prompt lookup drafts ``g`` tokens on the host between verify
+  steps (ops/speculative.py ``propose_ngram``), and the verify step
+  scores them in one forward and keeps the agreeing prefix (1 to g + 1
+  tokens per weight pass, one host sync each). The verify step is a
+  decode program like the plain step, captured per (g,
+  ``SamplingParams``). Greedy tokens equal plain decode's; sampled ones
+  keep its distribution, drawn per position. An adaptive controller
+  (``DLI_SPEC_ADAPTIVE``, on) runs plain chunks instead while drafting
+  measurably loses. Refused under tp (ROADMAP Queue A item 6.1): the
+  tp engine runs its steps eagerly in lockstep.
 
 The reference's CPU-only XLA workarounds (layer unrolling, weight
 repacking, the dummy batch row) have no counterpart here.
@@ -50,6 +61,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import os
 import threading
 import time
 from typing import Callable, List, Optional, Sequence
@@ -67,6 +79,8 @@ from distributed_llm_inferencing_tpu_torch.ops.quant import (
     maybe_quantize, maybe_quantize_embed)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import (
     SamplingParams, row_seeds, sample)
+from distributed_llm_inferencing_tpu_torch.ops.speculative import (
+    AdaptiveSpecController, propose_ngram, verify_step)
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
     MeshSpec, TPGroup, validate_spec)
 from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
@@ -141,7 +155,8 @@ class _Rows:
     stream seed ``seeds`` [B], the step counter ``step`` [1] (the index of
     the token being sampled; the prefill's is 0) and the request's tokens
     so far ``hist`` [max_seq, B]; and the decode programs over them, by
-    (``SamplingParams``, captured), oldest first."""
+    (``SamplingParams``, captured), oldest first; and the verify step's
+    drafts in and tokens out."""
     cache: KVCache
     cur: torch.Tensor
     seeds: torch.Tensor
@@ -149,6 +164,11 @@ class _Rows:
     hist: torch.Tensor
     programs: "collections.OrderedDict" = dataclasses.field(
         default_factory=collections.OrderedDict)
+    # a verify step's drafts [B, G] in, tokens [B, G+1] and emitted
+    # counts [B] out (views of these at each width; made at first use)
+    spec_in: Optional[torch.Tensor] = None
+    spec_out: Optional[torch.Tensor] = None
+    spec_n: Optional[torch.Tensor] = None
 
     def release(self):
         for prog in self.programs.values():
@@ -324,18 +344,35 @@ class InferenceEngine:
         logits, _ = self.model.decode_step(st.cur[:, None], st.cache)
         self._advance(st, logits[:, 0], sp)
 
-    def _program(self, st: _Rows, sp) -> graphs.DecodeProgram:
-        """The decode program of (batch size, ``sp``), kept in ``st`` up
+    def _verify(self, st: _Rows, sp, gamma: int):
+        """One verify step of every row over ``st``, in place: the drafts
+        in ``st.spec_in[:, :gamma]``, the tokens and counts out in
+        ``st.spec_out``/``st.spec_n``; the last emitted token is fed
+        next and the step counter moves by the emitted count (the draws
+        are keyed per position)."""
+        toks, n = verify_step(self.model, st.cache, st.cur,
+                              st.spec_in[:, :gamma], (st.seeds, st.step), sp)
+        st.spec_out[:, :gamma + 1].copy_(toks)
+        st.spec_n.copy_(n)
+        st.cur.copy_(torch.gather(toks, 1, (n - 1)[:, None])[:, 0])
+        st.step.add_(n[:1])
+
+    def _program(self, st: _Rows, sp, gamma: int = 0
+                 ) -> graphs.DecodeProgram:
+        """The decode program of (batch size, ``sp``), or with ``gamma``
+        the verify step of (batch size, gamma, ``sp``), kept in ``st`` up
         to ``PROGRAMS_MAX`` (FIFO): captured on a card unless
         ``DLI_CUDA_GRAPHS=0``; eager on the CPU and under tp (the gloo
         data group cannot be captured)."""
         capture = graphs.enabled(self.device) and self.group is None
-        prog = st.programs.get((sp, capture))
+        key = (sp, capture) if not gamma else ("spec", gamma, sp, capture)
+        prog = st.programs.get(key)
         if prog is None:
             if len(st.programs) >= self.PROGRAMS_MAX:
                 st.programs.popitem(last=False)[1].release()
-            prog = st.programs[sp, capture] = self.programs.make(
-                functools.partial(self._decode_step, st, sp), capture)
+            fn = (functools.partial(self._decode_step, st, sp) if not gamma
+                  else functools.partial(self._verify, st, sp, gamma))
+            prog = st.programs[key] = self.programs.make(fn, capture)
         return prog
 
     def generate(
@@ -347,11 +384,20 @@ class InferenceEngine:
         eos_token_id: Optional[int] = None,
         stream_cb: Optional[Callable[[int, List[Optional[int]]],
                                      None]] = None,
+        speculative: Optional[str] = None,
+        spec_gamma: int = 4,
     ) -> GenerateResult:
         """Generate continuations for a batch of token-id prompts; a
         sequence stops after ``eos_token_id`` (trimmed from its tokens).
         ``stream_cb(step, tokens_this_step)`` fires after prefill and
-        after every decode step (finished rows as None)."""
+        after every decode step (finished rows as None).
+        ``speculative="ngram"``: prompt-lookup speculative decoding of one
+        sequence, ``spec_gamma`` drafts per verify step."""
+        if speculative is not None:
+            return self._generate_speculative(
+                prompts, max_new_tokens, sampling or SamplingParams(),
+                int(seed), eos_token_id, stream_cb, speculative,
+                spec_gamma)
         prompts = [list(map(int, p)) for p in prompts]
         if max_new_tokens < 1:
             if not prompts or min(map(len, prompts)) < 1:
@@ -422,6 +468,110 @@ class InferenceEngine:
         self.metrics.observe("engine_decode", decode_ms / 1e3)
         self.metrics.inc("engine_decode_steps", steps)
         return GenerateResult(tokens=out, prefill_ms=prefill_ms,
+                              decode_ms=decode_ms, steps=steps)
+
+    @torch.inference_mode()
+    def _generate_speculative(self, prompts, max_new_tokens, sp, seed,
+                              eos_token_id, stream_cb, mode, gamma):
+        """The prompt-lookup loop (the JAX engine's
+        ``_generate_speculative``): the verify program per step, 1 to
+        gamma + 1 tokens per host sync, or plain chunks while the
+        adaptive controller says drafting loses."""
+        if mode != "ngram":
+            raise ValueError(f"unknown speculative mode {mode!r}")
+        if self.group is not None:
+            raise ValueError(
+                "speculative decoding under tp is not ported yet (ROADMAP "
+                "Queue A item 6.1); load without a mesh")
+        if len(prompts) != 1:
+            raise ValueError("speculative decoding serves one sequence")
+        gamma = max(1, int(gamma))
+        prompt = [int(t) for t in prompts[0]]
+        if not prompt:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            return GenerateResult([[]], 0.0, 0.0, 0)
+        if len(prompt) + max_new_tokens + gamma + 1 > self.max_seq:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
+                f" + gamma ({gamma}) exceeds engine max_seq {self.max_seq}")
+        dev = self.device
+        st = self._state(1)
+        if st.spec_in is None:
+            z = functools.partial(torch.zeros, dtype=torch.int64, device=dev)
+            st.spec_in, st.spec_out, st.spec_n = z((1, 16)), z((1, 17)), z(1)
+        st.seeds.copy_(row_seeds(seed, 1, dev))
+        st.step.zero_()
+        clock = _Clock(dev)
+        clock.mark()
+        last, filled = self._prefill([prompt], st.cache, gather=True)
+        st.cache.lengths.copy_(filled.lengths)
+        self._advance(st, last[:, 0], sp)
+        cur = int(st.hist[0, 0])
+        clock.mark()
+        hit_eos = eos_token_id is not None and cur == eos_token_id
+        out: List[int] = [] if hit_eos else [cur]
+        if stream_cb and not hit_eos:
+            stream_cb(0, [cur])
+        history = prompt + out
+        steps, pos = 1, 1          # weight passes; tokens sampled so far
+        # fresh per request (its tokens are a function of its own
+        # inputs), with a short probe cadence, as the JAX engine's
+        ctl = (AdaptiveSpecController(gamma, probe_every=8)
+               if os.environ.get("DLI_SPEC_ADAPTIVE", "1")
+               not in ("0", "false") else None)
+        while len(out) < max_new_tokens and not hit_eos:
+            g_now = ctl.choose() if ctl is not None else gamma
+            p0 = time.perf_counter()
+            if g_now == 0:
+                rem = max_new_tokens - len(out)
+                T = next(c for c in self.DECODE_CHUNKS
+                         if c <= min(rem, self.STREAM_CHUNK_MAX))
+                prog = self._program(st, sp)
+                compiled = prog.graphs is not None and not prog.captured
+                for _ in range(T):
+                    prog()
+                emitted = st.hist[pos:pos + T, 0].tolist()
+                steps += T
+            else:
+                drafts = propose_ngram(history, g_now) \
+                    or [history[-1]] * g_now
+                st.spec_in[0, :g_now].copy_(torch.tensor(drafts))
+                prog = self._program(st, sp, g_now)
+                compiled = prog.graphs is not None and not prog.captured
+                prog()
+                both = torch.cat([st.spec_n, st.spec_out[0]]).tolist()
+                emitted = both[1:1 + both[0]]
+                steps += 1
+            pos += len(emitted)
+            kept = []
+            for t in emitted:
+                if eos_token_id is not None and t == eos_token_id:
+                    hit_eos = True
+                    break
+                kept.append(t)
+                if len(out) + len(kept) >= max_new_tokens:
+                    break
+            if ctl is not None:
+                dt = time.perf_counter() - p0
+                if g_now == 0:
+                    ctl.record("plain", emitted=len(emitted), elapsed_s=dt,
+                               compiled=compiled)
+                else:
+                    ctl.record("spec", emitted=len(emitted), elapsed_s=dt,
+                               drafted=g_now, accepted=len(emitted) - 1,
+                               compiled=compiled)
+            out.extend(kept)
+            history.extend(kept)
+            if stream_cb:
+                for j, t in enumerate(kept):
+                    stream_cb(len(out) - len(kept) + j, [t])
+        clock.mark()
+        prefill_ms, decode_ms = clock.ms(0, 1), clock.ms(1, 2)
+        self.metrics.observe("engine_prefill", prefill_ms / 1e3)
+        self.metrics.observe("engine_decode", decode_ms / 1e3)
+        self.metrics.inc("engine_decode_steps", steps)
+        return GenerateResult(tokens=[out], prefill_ms=prefill_ms,
                               decode_ms=decode_ms, steps=steps)
 
     def teacher_forced(self, prompts: Sequence[Sequence[int]],

@@ -29,8 +29,9 @@ graph: every kernel of the step launched by one call from the host.
 - ``DecodePrograms``: what one owner's programs (an engine's or a
   batcher's) share. The owner keys and keeps each program with the state
   it runs over (the engine per batch size and ``SamplingParams``, capped
-  FIFO as the JAX engine caps ``_decode_fns``; the batcher per decode
-  route). Its graphs capture into one memory pool
+  FIFO as the JAX engine caps ``_decode_fns``, and its verify step per
+  gamma and ``SamplingParams``; the batcher per decode route, and its
+  speculative chunk's iteration per static draft width). Its graphs capture into one memory pool
   (``torch.cuda.graph_pool_handle``): they never replay at the same time,
   and a step leaves nothing of its own alive in the pool (its results
   land in the owner's static buffers), so one pool serves them all.

@@ -31,8 +31,9 @@ so the reference master can drive either worker:
   (engine mode, the default),
   or with ``"serving": "batched"`` a ``ContinuousBatcher`` over a paged KV
   pool (``kv_blocks``, ``kv_block_size``, ``slots``, ``prefill_chunk``,
-  ``decode_chunk_cap``, and the host KV tier's ``kv_host_mb``, 0 to
-  disable it, and ``kv_digest_chunk``; runtime/kvtier.py) whose
+  ``decode_chunk_cap``, the host KV tier's ``kv_host_mb``, 0 to
+  disable it, and ``kv_digest_chunk``, runtime/kvtier.py; and on-device
+  speculative decoding, ``speculative`` "ngram" with ``spec_gamma``) whose
   scheduler thread serves concurrent requests; a batched load captures
   its decode program before it answers (``warm_decode_programs``), so
   the first request pays no capture. ``kv_quantize`` (``"int8"``) makes
@@ -47,8 +48,12 @@ so the reference master can drive either worker:
   prompt's KV in the host arena at finish, for a peer's ``/kv_fetch``)
   and ``kv_source`` (``{"url", "model"}``: pull the prompt's prefix KV
   from that peer into the arena on the handler thread before
-  submitting; a failed pull costs a recompute); answers ``status``,
-  ``result``,
+  submitting; a failed pull costs a recompute) and ``resume`` (a
+  migrated request's record: its prompt ids, seed, emitted tokens and
+  speculation state; its prefix KV, emitted tokens included, is what
+  ``kv_source`` prefetches); in engine mode ``speculative`` ("ngram", one
+  sequence, not under tp) and ``spec_gamma`` (1 to 16); answers
+  ``status``, ``result``,
   ``tokens``, ``execution_time`` and ``cost`` (engine mode adds its
   timings; batched mode adds ``ttft_ms`` and ``scheduler``). A
   ``request_tag`` makes the dispatch idempotent: a repeat replays the
@@ -82,6 +87,15 @@ so the reference master can drive either worker:
   blocks as runtime/kvwire.py frames, then the terminal frame with the
   digests the arena lacked; past ``DLI_KV_FETCH_MAX_MB`` the stream is
   cut and the terminal frame counts what was not sent.
+- ``POST /migrate_out``: ``request_tag`` (and ``model_name``) of an
+  in-flight batched request: its KV is exported into the host arena and
+  its slot freed at the scheduler's next step, and its own dispatch
+  (/inference, or its /inference_batch line) answers 303 ``{"status":
+  "migrated", "resume": ...}`` for the master to re-dispatch elsewhere
+  with the resume record and this worker as ``kv_source``. 400 without
+  a tag, 404 for a tag not in flight, 409 when the request completed
+  first (its result stands) or serves in engine mode; lease-fenced;
+  ``requests_migrated_out`` counts the handoffs.
 
 Every route needs ``Authorization: Bearer <key>`` when the worker has an
 auth key (the ``auth_key`` argument, else ``DLI_AUTH_KEY`` when
@@ -93,8 +107,10 @@ dispatch or change state; a call without the headers is never fenced.
 
 Fields of the reference protocol that the port does not implement yet get
 a 400, never a silent ignore, each with the ROADMAP Queue A item that
-brings it: ``speculative`` (A9), ``resume`` (A8, migration; and no
-``/migrate_out``), ``adapter`` (A10); so does a ``quantize``,
+brings it: ``adapter`` (A10); so does a ``speculative`` mode other than
+"ngram", a ``spec_gamma`` outside [1, 16] (per request) or not an
+integer, ``speculative`` on a batched model's request or under tp
+(Queue A item 6.1), a ``quantize``,
 ``embed_quantize`` or ``kv_quantize`` value outside the modes above, a
 ``kv_host_mb`` or ``kv_digest_chunk`` that is not a number, a
 checkpoint the port cannot serve (a path that is not a local directory,
@@ -167,8 +183,11 @@ ROLE_CODE = {"mixed": 0.0, "prefill": 1.0, "decode": 2.0}
 # the fetching peer recomputes the rest.
 KV_FETCH_MAX_MB = float(os.environ.get("DLI_KV_FETCH_MAX_MB", 256))
 
-_UNPORTED_LOAD = ("speculative",)
-_UNPORTED_INFER = ("speculative", "adapter", "resume")
+_UNPORTED_LOAD = ()
+_UNPORTED_INFER = ("adapter",)
+# How long a /migrate_out snapshot may wait on the scheduler before the
+# route gives up (the request then keeps running here).
+MIGRATE_TIMEOUT_S = 10.0
 _KV_MODES = ("int8",)
 _DTYPES = ("bfloat16", "float32")
 _SERVING = (None, "engine", "batched")
@@ -267,7 +286,8 @@ class WorkerAgent:
         self._peer_client_lock = threading.Lock()
         for name in ("requests_completed", "tokens_generated",
                      "idempotent_hits", "idempotent_joins",
-                     "requests_cancelled", "batch_rpcs",
+                     "requests_cancelled", "requests_migrated_out",
+                     "batch_rpcs",
                      "batch_sub_requests", "stale_term_rejections",
                      # the serving side of /kv_fetch; raw: the bytes the
                      # served blocks restore to, sent: the stored
@@ -290,6 +310,7 @@ class WorkerAgent:
         s.add("POST", "/undrain", self.undrain)
         s.add("POST", "/role", self.set_role)
         s.add("POST", "/kv_fetch", self.kv_fetch)
+        s.add("POST", "/migrate_out", self.migrate_out)
 
     # ---- lease fencing -------------------------------------------------
 
@@ -373,6 +394,16 @@ class WorkerAgent:
         refused = _unported(body, _UNPORTED_LOAD)
         if refused:
             return 400, {"status": "error", "message": refused}
+        if body.get("speculative") not in (None, "ngram"):
+            return 400, {"status": "error",
+                         "message": "unknown speculative mode "
+                                    f"{body['speculative']!r} (supported: "
+                                    "'ngram')"}
+        try:
+            int(body.get("spec_gamma", 4))
+        except (TypeError, ValueError):
+            return 400, {"status": "error",
+                         "message": "spec_gamma must be an integer"}
         if body.get("kv_quantize") and body["kv_quantize"] not in _KV_MODES:
             return 400, {"status": "error",
                          "message": f"kv_quantize must be one of {_KV_MODES}"}
@@ -490,7 +521,10 @@ class WorkerAgent:
                     kv_digest_chunk=(int(body["kv_digest_chunk"])
                                      if body.get("kv_digest_chunk")
                                      else None),
-                    kv_fetcher=self.peer_client())
+                    kv_fetcher=self.peer_client(),
+                    # on-device prompt-lookup speculative decoding
+                    speculative=body.get("speculative"),
+                    spec_gamma=int(body.get("spec_gamma", 4)))
                 batcher.warm_decode_programs()
                 batcher.start()
                 lm = LoadedModel(None, tok, native or ckpt or "random-init",
@@ -594,8 +628,12 @@ class WorkerAgent:
     # ---- inference -------------------------------------------------------
 
     def _prep(self, body):
-        """(model, prompt, sampling, max_new, seed) of an /inference body;
-        ValueError (or KeyError for a model not loaded) for a bad one."""
+        """(model, prompt, sampling, max_new, seed, extra) of an
+        /inference body; ValueError (or KeyError for a model not loaded)
+        for a bad one. ``extra``: the engine's ``speculative`` and
+        ``spec_gamma``, or the batcher's ``resume`` record. A resume
+        record's prompt ids and seed win over the body's (the stream
+        continues exactly only on the source's)."""
         refused = _unported(body, _UNPORTED_INFER)
         if refused:
             raise ValueError(refused)
@@ -603,7 +641,12 @@ class WorkerAgent:
         m = self.models.get(name)
         if m is None:
             raise KeyError(f"model {name} not loaded")
-        if "prompt_tokens" in body:
+        resume = body.get("resume")
+        resume = resume if isinstance(resume, dict) else None
+        if (resume and resume.get("prompt_tokens")
+                and "prompt_tokens" not in body):
+            prompt = [int(t) for t in resume["prompt_tokens"]]
+        elif "prompt_tokens" in body:
             prompt = [int(t) for t in body["prompt_tokens"]]
         else:
             prompt = m.tokenizer.encode(body.get("prompt", ""))
@@ -623,8 +666,28 @@ class WorkerAgent:
             max_new = int(body["max_new_tokens"])
         else:   # reference parity: max_length counts prompt + new
             max_new = max(1, int(body.get("max_length", 100)) - len(prompt))
-        seed = int(body.get("seed", time.time_ns() % (1 << 31)))
-        return m, prompt, sp, max_new, seed
+        spec = body.get("speculative")
+        try:
+            gamma = int(body.get("spec_gamma", 4))
+        except (TypeError, ValueError):
+            raise ValueError("spec_gamma must be an integer")
+        if spec is not None:
+            if spec != "ngram":
+                raise ValueError(f"unknown speculative mode {spec!r} "
+                                 "(supported: 'ngram')")
+            if not 1 <= gamma <= 16:
+                raise ValueError("spec_gamma must be in [1, 16]")
+            if m.batcher is not None:
+                raise ValueError(
+                    "speculative decoding is engine-mode only; this model "
+                    "serves via the continuous batcher")
+        if resume is not None and resume.get("seed") is not None:
+            seed = int(resume["seed"])
+        else:
+            seed = int(body.get("seed", time.time_ns() % (1 << 31)))
+        extra = ({"resume": resume} if m.batcher is not None
+                 else {"speculative": spec, "spec_gamma": gamma})
+        return m, prompt, sp, max_new, seed, extra
 
     def inference(self, body, _request=None):
         stale = self._term_guard(_request)
@@ -697,17 +760,18 @@ class WorkerAgent:
     def _inference_execute(self, body):
         t0 = time.time()
         try:
-            m, prompt, sp, max_new, seed = self._prep(body)
+            m, prompt, sp, max_new, seed, extra = self._prep(body)
         except (KeyError, ValueError) as e:
             return 400, {"status": "error", "message": str(e)}
         if m.batcher is not None:
             try:
-                pre = self._prefetch_kv(m, body, prompt)
+                pre = self._prefetch_kv(
+                    m, body, self._resume_seq(prompt, extra["resume"]))
                 req = m.batcher.submit(
                     prompt, max_new_tokens=max_new, sampling=sp,
                     eos_token_id=m.tokenizer.eos_token_id, seed=seed,
                     kv_export=bool(body.get("kv_export")),
-                    kv_transfer_bytes=pre)
+                    kv_transfer_bytes=pre, resume=extra["resume"])
             except ValueError as e:
                 return 400, {"status": "error", "message": str(e)}
             self._note_prefix(m, body, prompt)
@@ -716,7 +780,8 @@ class WorkerAgent:
             with self.metrics.time("inference"), m.lock:
                 res = m.engine.generate(
                     [prompt], max_new_tokens=max_new, sampling=sp,
-                    seed=seed, eos_token_id=m.tokenizer.eos_token_id)
+                    seed=seed, eos_token_id=m.tokenizer.eos_token_id,
+                    **extra)
         except ValueError as e:   # request-shape errors are the caller's
             return 400, {"status": "error", "message": str(e)}
         self.metrics.inc("requests_completed")
@@ -747,7 +812,13 @@ class WorkerAgent:
         except TimeoutError as e:
             req.cancel()   # free the slot; generate for nobody
             return 408, {"status": "error", "message": str(e)}
-        except RuntimeError as e:   # cancelled, refused, or failed
+        except RuntimeError as e:   # cancelled, refused, failed, migrated
+            if req._migrated:
+                # the live-migration handoff rides the open dispatch: the
+                # master re-dispatches the resume record elsewhere
+                return 303, {"status": "migrated",
+                             "resume": req.resume_record,
+                             "request_tag": tag}
             return 400, {"status": "error", "message": str(e)}
         finally:
             if tag is not None:
@@ -843,11 +914,12 @@ class WorkerAgent:
         for sub_body, tag, my_ev in owned:
             t0 = time.time()
             try:
-                _, prompt, sp, max_new, seed = self._prep(sub_body)
+                _, prompt, sp, max_new, seed, extra = self._prep(sub_body)
                 req = m.batcher.make_request(
                     prompt, max_new_tokens=max_new, sampling=sp,
                     eos_token_id=m.tokenizer.eos_token_id, seed=seed,
-                    kv_export=bool(sub_body.get("kv_export")))
+                    kv_export=bool(sub_body.get("kv_export")),
+                    resume=extra["resume"])
             except Exception as e:
                 # every failure resolves this sub in place: one escaping
                 # the loop would leak the earlier subs' inference counts
@@ -874,7 +946,8 @@ class WorkerAgent:
                     max_workers=min(8, len(fetch))) as ex:
                 for i, pre in zip(fetch, ex.map(
                         lambda i: self._prefetch_kv(
-                            m, metas[i][0], reqs[i].prompt), fetch)):
+                            m, metas[i][0],
+                            reqs[i].prompt + reqs[i].tokens), fetch)):
                     reqs[i]._kv_transfer_bytes = pre
         try:
             m.batcher.enqueue(reqs)
@@ -913,7 +986,7 @@ class WorkerAgent:
             return self._refuse_draining()
         try:
             try:
-                m, prompt, sp, max_new, seed = self._prep(body)
+                m, prompt, sp, max_new, seed, extra = self._prep(body)
             except (KeyError, ValueError) as e:
                 return 400, {"status": "error", "message": str(e)}
             q: "queue.Queue" = queue.Queue()
@@ -936,7 +1009,7 @@ class WorkerAgent:
                                 [prompt], max_new_tokens=max_new,
                                 sampling=sp, seed=seed,
                                 eos_token_id=m.tokenizer.eos_token_id,
-                                stream_cb=engine_cb)
+                                stream_cb=engine_cb, **extra)
                         q.put({"event": "done",
                                "result": text(res.tokens[0]),
                                "tokens_per_s": res.decode_tokens_per_s})
@@ -947,13 +1020,15 @@ class WorkerAgent:
                             token(step[0], tok)
                             step[0] += 1
 
-                        pre = self._prefetch_kv(m, body, prompt)
+                        pre = self._prefetch_kv(
+                            m, body,
+                            self._resume_seq(prompt, extra["resume"]))
                         req = m.batcher.submit(
                             prompt, max_new_tokens=max_new, sampling=sp,
                             eos_token_id=m.tokenizer.eos_token_id,
                             stream_cb=cb, seed=seed,
                             kv_export=bool(body.get("kv_export")),
-                            kv_transfer_bytes=pre)
+                            kv_transfer_bytes=pre, resume=extra["resume"])
                         self._note_prefix(m, body, prompt)
                         toks = req.wait(
                             timeout=float(body.get("timeout", 300)))
@@ -1079,6 +1154,51 @@ class WorkerAgent:
                                     served_bytes=sent)
 
         return httpd.binary_stream(_request, frames())
+
+    def migrate_out(self, body, _request=None):
+        """Live migration of an in-flight tagged batched request (the
+        master's rebalancer and drain): its batcher exports the request's
+        computed KV into the host arena (where a destination's /kv_fetch
+        finds it) and frees its slot at the next step boundary; the
+        original dispatch then answers 303 with the resume record. 400
+        without a tag, 404 for a tag not in flight, 409 when the request
+        completed first (its result stands) or serves in engine mode;
+        lease-fenced."""
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        tag = body.get("request_tag")
+        if not tag:
+            return 400, {"status": "error", "message": "request_tag required"}
+        with self._tagged_lock:
+            req = self._tagged.get(str(tag))
+        if req is None:
+            return 404, {"status": "error",
+                         "message": f"no in-flight request tagged {tag!r}"}
+        name = body.get("model_name")
+        with self._models_lock:
+            models = ([self.models[name]] if name in self.models
+                      else list(self.models.values()))
+        batcher = next((m.batcher for m in models
+                        if m.batcher is not None), None)
+        if batcher is None:
+            return 409, {"status": "error",
+                         "message": "engine-mode requests cannot migrate"}
+        rec = batcher.migrate_out(req, timeout=MIGRATE_TIMEOUT_S)
+        if rec is None:
+            return 409, {"status": "error",
+                         "message": f"request {tag!r} completed before "
+                                    "the snapshot (or cannot migrate)"}
+        self.metrics.inc("requests_migrated_out")
+        return {"status": "success", "request_tag": str(tag)}
+
+    @staticmethod
+    def _resume_seq(prompt, resume):
+        """The sequence whose prefix KV a dispatch prefetches: the prompt,
+        and a migrated request's emitted tokens after it."""
+        if not isinstance(resume, dict):
+            return prompt
+        return prompt + [int(t) for t in resume.get("tokens") or []]
 
     def _prefetch_kv(self, m, body, prompt) -> int:
         """Pull a disaggregated dispatch's prefix KV (its ``kv_source``)

@@ -215,9 +215,9 @@ def test_worker_concurrent_inference_equals_direct_submit(worker):
     ("/load_model", {"kv_quantize": "fp8"}),
     ("/load_model", {"kv_digest_chunk": "wide"}),
     ("/inference", {"adapter": "a1"}),
-    ("/inference", {"resume": {"tokens": [1]}}),
+    ("/inference", {"resume": {"tokens": [1, 2]}}),
     ("/inference", {"speculative": "ngram"}),
-    ("/load_model", {"speculative": "ngram"}),
+    ("/load_model", {"speculative": "medusa"}),
     ("/load_model", {"kv_host_mb": "lots"}),
 ])
 def test_worker_refuses_unported_batched_fields(worker, route, extra):

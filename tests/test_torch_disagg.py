@@ -22,7 +22,8 @@ prefill worker, then the request on the decode worker with a
 - an int8 arena (``DLI_KV_HOST_DTYPE=int8``) on the prefill side: kvq8
   frames at under a third of the raw bytes, greedy tokens still equal;
 - a batcher used directly pulls a request's ``kv_source`` itself, at
-  admission;
+  admission, with its receive-overlapped restore (``DLI_KV_WIRE_OVERLAP``)
+  on and off: the same blocks and a cold run's tokens;
 - a cut fetch (an injected ``rpc:/kv_fetch`` fault, a dead peer, a peer
   without the model) costs a recompute: the request succeeds with a cold
   run's tokens, and ``kv_transfer_failures`` counts it.
@@ -305,6 +306,35 @@ def test_batcher_pulls_its_kv_source_on_the_scheduler_thread(fleet):
         _blocks(prompt)
     assert req.cost["kv_transfer_bytes"] > 0
     assert req.cost["prefill_cached_tokens"] == 8 * _blocks(prompt)
+    b.kv_fetcher.close()
+
+
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "serial"])
+def test_receive_overlapped_restore_equals_serial_and_cold(fleet, overlap):
+    """The batcher's own ``kv_source`` fetch with the receive overlap on
+    (runs of ``RESTORE_RUN`` landed blocks restored while later frames
+    arrive: 12 blocks, so a run lands mid-stream) and off
+    (``DLI_KV_WIRE_OVERLAP=0``: the whole fetch, then the restore): the
+    same blocks restored and a cold run's tokens, greedy and sampled."""
+    prompt = f"<overlap {overlap}> " + LONG[:90]
+    toks = load_tokenizer(None, fleet.tcfg.vocab_size).encode(prompt)
+    _infer(fleet.p_src[1], prompt, max_new=1, kv_export=True)
+    b = ContinuousBatcher(fleet.tcfg, fleet.tparams, device="cpu", **POOL)
+    b._wire_overlap = overlap
+    assert b.RESTORE_RUN < _blocks(prompt)
+    for sampled in (False, True):
+        ref = _infer(fleet.p_cold[1], prompt, sampled=sampled)
+        req = b.submit(toks, max_new_tokens=8, seed=11, sampling=(
+            SamplingParams(temperature=0.8, top_k=20) if sampled
+            else SamplingParams.greedy()),
+            kv_source={"url": fleet.p_src[1], "model": MODEL})
+        while not req.done.is_set():
+            b.step()
+        assert req.wait() == ref["tokens"], sampled
+    m = b.metrics.snapshot()
+    assert m["counters"]["kv_transfer_blocks"] == _blocks(prompt)
+    assert m["counters"]["kvtier_restored_blocks"] == _blocks(prompt)
+    assert (m["gauges"]["kv_restore_overlap_ratio"] > 0) == overlap
     b.kv_fetcher.close()
 
 

@@ -29,7 +29,13 @@ own API (``/api/inference/submit`` and ``/status``):
   takes the master's two-phase path (a one-token ``kv_export`` pass on
   the prefill node, then the request on the decode node with a
   ``kv_source``); the text equals the JAX engine's on the same weights,
-  and the decode worker's counters show the blocks it fetched.
+  and the decode worker's counters show the blocks it fetched;
+- live migration: the master's rebalancer drains a port worker whose
+  request is mid-stream (its scheduler held step by step): it POSTs
+  /migrate_out, the port dispatch answers 303 with the resume record,
+  and the master re-dispatches it to a JAX node with the port worker as
+  its ``kv_source``; the text equals an undisturbed JAX node's, no
+  attempt is burned, and the JAX node fetched the port's blocks.
 
 No latency is asserted; every wait polls with a deadline.
 """
@@ -466,3 +472,78 @@ def test_disaggregated_prompt_through_the_master():
         m.stop()
         for agent in agents.values():
             agent.shutdown()
+
+
+def test_master_drains_a_port_worker_mid_stream():
+    """The unchanged master's rebalancer migrates a port worker's
+    in-flight request off it when it drains: the resume lands on a JAX
+    node, which fetches the port's exported KV, and the text equals the
+    JAX engine's undisturbed text on the same weights."""
+    jcfg = jax_config(MODEL).replace(dtype="float32")
+    params = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = get_config(MODEL).replace(dtype="float32")
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    prompt, new = "please continue the story", 60
+    tok = jax_load_tokenizer(None, jcfg.vocab_size)
+    ref = tok.decode(JaxEngine(jcfg, params, max_seq=MAX_SEQ).generate(
+        [tok.encode(prompt)], max_new_tokens=new,
+        sampling=JaxSamplingParams.greedy()).tokens[0])
+    port, jax_agent = WorkerAgent(device="cpu"), JaxWorkerAgent()
+    pb = ContinuousBatcher(tcfg, tparams, num_blocks=64, block_size=8,
+                           slots=2, max_seq=MAX_SEQ, device="cpu",
+                           metrics=port.metrics)
+    jb = JaxBatcher(jcfg.replace(attn_backend="xla"), params, num_blocks=64,
+                    block_size=8, slots=2, max_seq=MAX_SEQ,
+                    metrics=jax_agent.metrics,
+                    kv_fetcher=jax_agent.peer_client())
+    for agent, b, lm, load in ((port, pb, LoadedModel, load_tokenizer),
+                               (jax_agent, jb, JaxLoadedModel,
+                                jax_load_tokenizer)):
+        b.DECODE_CHUNKS = (4,)
+        b.start()
+        agent.models[MODEL] = lm(None, load(None, jcfg.vocab_size), "test",
+                                 batcher=b)
+        agent.serve("127.0.0.1", 0, background=True)
+    m = Master(":memory:", health_interval=0.1, disagg=False,
+               rebalance=True, rebalance_interval_s=0.05,
+               rebalance_sustain_s=0.5)
+    held = _Held(pb)
+    try:
+        srv = m.service.serve("127.0.0.1", 0, background=True)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def add(name, agent):
+            r = requests.post(f"{base}/api/nodes/add", json={
+                "name": name, "host": "127.0.0.1",
+                "port": agent.service.port}, timeout=30).json()
+            assert r["status"] == "success", r
+
+        add("port", port)          # the only node: the request lands here
+        rid = _submit(base, prompt, new=new)
+        m.start_background()
+        tag = m._tag(rid)
+        _wait(lambda: tag in port._tagged, "the dispatch on the port node")
+        req = port._tagged[tag]
+        while len(req.tokens) < 8:
+            held.allow()
+        add("jax", jax_agent)
+        threading.Thread(target=lambda: requests.post(
+            f"http://127.0.0.1:{port.service.port}/drain",
+            json={"timeout": 30}, timeout=60), daemon=True).start()
+        _wait(lambda: req._migrate_requested, "the rebalancer's migrate_out")
+        held.allow()               # the step that services the migration
+        row = _finish(base, rid)
+        assert row["status"] == "completed", row
+        assert row["result"] == ref and row["attempts"] == 0
+        assert req._migrated and len(req.resume_record["tokens"]) >= 8
+        assert port.metrics.snapshot()["counters"][
+            "requests_migrated_out"] == 1
+        assert m.metrics.snapshot()["counters"]["requests_migrated"] == 1
+        assert jax_agent.metrics.snapshot()["counters"][
+            "kv_transfer_blocks"] > 0
+    finally:
+        held.release()
+        m.stop()
+        for agent in (port, jax_agent):
+            agent.service.shutdown()
+            agent.models[MODEL].batcher.stop()

@@ -12,6 +12,8 @@ CPU (tiny-llama f32, weights bridged from the JAX tree):
 - the counter-based engine sampler: draws inside the reference's
   ``warp_logits`` support, reproducible per seed, each row of a call on
   its own stream;
+- the engine's verify program, the batcher's speculative chunk and its
+  overlapped pairs through the stand-in capture: the eager tokens;
 - the capture/replay control flow through stand-ins for the graph: one
   whose capture records the step's launches without running anything
   (launch accounting: counts equal the eager loop's, the capture adds
@@ -26,7 +28,9 @@ CPU (tiny-llama f32, weights bridged from the JAX tree):
 CUDA (marked ``cuda``, skipped without a card; hd 32, since tiny-llama's
 hd 8 is below the MMA tile): graphs on and off give the same tokens and
 the same launch counts, engine (bf16 and int4) and batched (paged and
-fused route); replays count exactly; after an unload a replay raises,
+fused route), the captured speculative chunk (no decode kernel) and
+overlapped pairs (the single-chunk path's tokens); replays count
+exactly; after an unload a replay raises,
 the device memory is back and the graphs' pool is gone; unloading one
 model while another serves and captures leaves the other's tokens
 alone; a kernel library's first load and launch on another thread, in
@@ -396,6 +400,47 @@ def test_captured_flow_gives_the_eager_tokens(monkeypatch, jax_tree,
     assert out[0] == out[1]
 
 
+def test_captured_speculative_flow_gives_the_eager_tokens(monkeypatch,
+                                                         jax_tree):
+    """The engine's verify program and the batcher's speculative chunk
+    (adaptive off) and overlapped pairs through the stand-in capture give
+    the eager tokens, sampled included; a speculative batcher warms two
+    programs (the plain step and the chunk's iteration)."""
+    np_params = jax_tree[2]
+    monkeypatch.setenv("DLI_SPEC_ADAPTIVE", "0")
+    rep = ([5, 9, 13, 2] * 5)[:18]
+    out = {}
+    for captured in (True, False):
+        monkeypatch.setattr(graphs, "enabled", lambda device: captured)
+        eng = _engine(np_params)
+        eng.programs._graphs_cls = _ReplayingGraphs
+        toks = [eng.generate([rep], max_new_tokens=12, sampling=sp,
+                             seed=4, speculative="ngram",
+                             spec_gamma=3).tokens
+                for sp in (GREEDY, SAMPLED)]
+        assert eng.stats()["decode_graphs_captured"] == 2 * int(captured)
+        b = ContinuousBatcher(_cfg(), params_from_jax(np_params, _cfg(),
+                                                      "cpu"),
+                              num_blocks=64, block_size=8, slots=4,
+                              max_seq=96, seed=0, device="cpu",
+                              speculative="ngram", spec_gamma=3,
+                              spec_adaptive=False)
+        b.programs._graphs_cls = _ReplayingGraphs
+        b.DECODE_CHUNKS = (8, 4)
+        assert b.warm_decode_programs() == 2 * int(captured)
+        toks.append(_drive(b, _batcher_prompts()[:1] + [rep]))
+        o = ContinuousBatcher(_cfg(), params_from_jax(np_params, _cfg(),
+                                                      "cpu"),
+                              num_blocks=64, block_size=8, slots=4,
+                              max_seq=96, seed=0, device="cpu",
+                              decode_chunk_cap=2)
+        o.programs._graphs_cls = _ReplayingGraphs
+        toks.append(_drive(o, _batcher_prompts()[:2], max_new=8))
+        assert o.stats()["overlapped_dispatches"] > 0
+        out[captured] = toks
+    assert out[True] == out[False]
+
+
 # ---- eviction and release ---------------------------------------------
 
 def test_fifo_eviction_and_release(monkeypatch, jax_tree):
@@ -720,3 +765,70 @@ def test_cuda_first_kernel_load_beside_a_capture(monkeypatch, tmp_path):
     off = eng.generate([PROMPTS[1]], max_new_tokens=16, sampling=GREEDY)
     assert on.tokens == again.tokens == off.tokens
     eng.close()
+
+
+@pytest.mark.cuda
+def test_cuda_speculative_chunk_graphs_on_and_off_agree(monkeypatch):
+    """The captured speculative chunk (wave on, adaptive off: every chunk
+    speculative) gives the eager tokens, greedy and sampled, and no
+    decode kernel launches; its warm-up captures two programs."""
+    _cuda()
+    monkeypatch.setenv("DLI_FUSED_DECODE", "0")
+    rng = np.random.default_rng(4)
+    phrase = rng.integers(1, 256, 6).tolist()
+    prompts = [(phrase * 8)[:40], rng.integers(1, 256, 9).tolist(),
+               (phrase * 20)[:100], rng.integers(1, 256, 23).tolist()]
+    out = {}
+    for on in (True, False):
+        _graphs_env(monkeypatch, on)
+        b = ContinuousBatcher(_cuda_cfg(), num_blocks=128, block_size=16,
+                              slots=4, max_seq=256, seed=1, device="cuda",
+                              speculative="ngram", spec_gamma=4,
+                              spec_adaptive=False)
+        assert b.warm_decode_programs() == 2 * int(on)
+        lockstep.reset_launch_counts()
+        reqs = [b.submit(p, max_new_tokens=40, seed=i,
+                         sampling=GREEDY if i % 2 else SAMPLED)
+                for i, p in enumerate(prompts)]
+        for _ in range(200):
+            b.step()
+            if all(r.done.is_set() for r in reqs):
+                break
+        counts = lockstep.launch_counts()
+        assert counts["paged_flash_decode"] == counts["flash_decode"] == 0
+        out[on] = [r.wait() for r in reqs]
+        assert b.stats()["spec_wave"]["dispatches"] > 0
+        b.stop()
+    assert out[True] == out[False]
+
+
+@pytest.mark.cuda
+def test_cuda_overlapped_pair_graphs_on_and_off_agree(monkeypatch):
+    """Overlapped pairs (chunk B fed on the device by A's last tokens)
+    captured and eager: the single-chunk path's tokens and exact
+    launches, with pairs dispatched."""
+    _cuda()
+    monkeypatch.setenv("DLI_FUSED_DECODE", "0")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 256, n).tolist() for n in (40, 9, 100, 23)]
+    out = {}
+    for on, overlap in ((True, True), (False, True), (True, False)):
+        _graphs_env(monkeypatch, on)
+        b = ContinuousBatcher(_cuda_cfg(), num_blocks=128, block_size=16,
+                              slots=4, max_seq=256, seed=1, device="cuda",
+                              decode_chunk_cap=8, decode_overlap=overlap)
+        lockstep.reset_launch_counts()
+        reqs = [b.submit(p, max_new_tokens=40, seed=i,
+                         sampling=GREEDY if i % 2 else SAMPLED)
+                for i, p in enumerate(prompts)]
+        for _ in range(200):
+            b.step()
+            if all(r.done.is_set() for r in reqs):
+                break
+        passes = b.metrics.snapshot()["counters"]["batcher_weight_passes"]
+        assert lockstep.launch_counts()["paged_flash_decode"] == \
+            b.cfg.num_layers * passes
+        assert (b.stats()["overlapped_dispatches"] > 0) == overlap
+        out[on, overlap] = [r.wait() for r in reqs]
+        b.stop()
+    assert out[True, True] == out[False, True] == out[True, False]

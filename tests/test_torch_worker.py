@@ -93,7 +93,7 @@ def test_load_infer_unload(url):
 
 
 @pytest.mark.parametrize("extra", [
-    {"serving": "batched", "speculative": "ngram"}, {"quantize": "int3"},
+    {"serving": "batched", "speculative": "medusa"}, {"quantize": "int3"},
     {"embed_quantize": "int4"}, {"kv_quantize": "fp8"},
     {"dtype": "float16"},
 ])
@@ -136,13 +136,71 @@ def test_load_int4_and_infer(url, serving):
     assert r.status_code == 200
 
 
-@pytest.mark.parametrize("extra", [{"speculative": "ngram"},
+@pytest.mark.parametrize("extra", [{"speculative": "medusa"},
                                    {"adapter": "a1"}])
 def test_unported_inference_fields_are_refused(url, extra):
+    requests.post(url + "/load_model", json={
+        "model_name": "tiny-llama", "allow_random_init": True,
+        "dtype": "float32", "max_seq": 64}, timeout=60)
     r = requests.post(url + "/inference", json={
         "model_name": "tiny-llama", "prompt_tokens": [1, 2],
         "max_new_tokens": 2, **extra}, timeout=30)
     assert r.status_code == 400
+    requests.post(url + "/unload_model", json={"model_name": "tiny-llama"},
+                  timeout=30)
+
+
+# the JAX worker's 400s for the speculation fields of an /inference body
+_SPEC_REFUSED = [
+    ("engine", {"speculative": "medusa"}),
+    ("engine", {"speculative": "ngram", "spec_gamma": 0}),
+    ("engine", {"speculative": "ngram", "spec_gamma": 17}),
+    ("engine", {"speculative": "ngram", "spec_gamma": "four"}),
+    ("batched", {"speculative": "ngram"}),
+]
+
+
+@pytest.mark.parametrize("serving,extra", _SPEC_REFUSED)
+def test_speculation_fields_refused_as_the_jax_worker_does(url, serving,
+                                                           extra):
+    requests.post(url + "/load_model", json={
+        "model_name": "tiny-llama", "allow_random_init": True,
+        "dtype": "float32", "max_seq": 64, "serving": serving,
+        "kv_blocks": 32, "kv_block_size": 8, "slots": 2}, timeout=60)
+    r = requests.post(url + "/inference", json={
+        "model_name": "tiny-llama", "prompt_tokens": [1, 2],
+        "max_new_tokens": 2, **extra}, timeout=30)
+    assert r.status_code == 400 and r.json()["status"] == "error"
+    requests.post(url + "/unload_model", json={"model_name": "tiny-llama"},
+                  timeout=30)
+
+
+def test_engine_speculation_serves_the_plain_greedy_tokens(url, jax_url):
+    """An engine-mode /inference with ``speculative`` answers the greedy
+    tokens of the same body without it, and both workers answer the
+    engine-mode refusals above with a 400 (the JAX worker refuses them
+    before it generates)."""
+    load = {"model_name": "tiny-llama", "allow_random_init": True,
+            "dtype": "float32", "max_seq": 96}
+    base = {"model_name": "tiny-llama",
+            "prompt_tokens": ([5, 9, 13, 2, 40, 7] * 4)[:22],
+            "max_new_tokens": 16, "seed": 3,
+            "sampling": {"do_sample": False}}
+    for u in (url, jax_url):
+        assert requests.post(u + "/load_model", json=load,
+                             timeout=120).status_code == 200
+        codes = [requests.post(u + "/inference", json=dict(base, **extra),
+                               timeout=60).status_code
+                 for serving, extra in _SPEC_REFUSED if serving == "engine"]
+        assert codes == [400] * len(codes), (u, codes)
+    plain = requests.post(url + "/inference", json=base, timeout=120)
+    spec = requests.post(url + "/inference", json=dict(
+        base, speculative="ngram", spec_gamma=3), timeout=120)
+    assert plain.status_code == spec.status_code == 200, spec.text
+    assert spec.json()["tokens"] == plain.json()["tokens"]
+    for u in (url, jax_url):
+        requests.post(u + "/unload_model", json={"model_name": "tiny-llama"},
+                      timeout=30)
 
 
 def test_out_of_vocab_prompt_is_refused(url):
