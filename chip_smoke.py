@@ -101,7 +101,10 @@ Phases (any failure fails the run, exit code != 0):
    with the fused q), a prefill of more rows only for its gathered head
    rows. Reports stored weight bytes, peak memory, ms per weight pass and
    tokens/s beside phases 3 and 5.
-8. Phase 4's cross-check with int4 and with int8 weights.
+8. Phase 4's cross-check with int4 and with int8 weights. The host
+   model's int8/int4 linears widen their levels to f32 once
+   (``_widen_levels_once``: the plain path's arithmetic, bit for bit on
+   the CPU at tiny sizes) instead of in every call.
 9. int4 at full depth: phase 6's prompts through int4 llama-3-8b (bf16),
    decode steps through the q4_matmul route and through the plain-unpack
    route, against an f32 forward over the same weights dequantized; the
@@ -154,8 +157,9 @@ Phases (any failure fails the run, exit code != 0):
    engine's and the batcher's decode step as a captured CUDA graph (the
    default), counting each replay's launches, so their exact counts are
    those of the launches the card ran. Phase 13 runs the same paths with
-   graphs on and off (DLI_CUDA_GRAPHS=0) at full width and depth
-   (llama-3-8b, bf16 activations, max_seq 4096): phase 3's three
+   graphs on and off (DLI_CUDA_GRAPHS=0) at full width (llama-3-8b cut
+   to GRAPHS_LAYERS = 16 of its 32 layers, the cut printed;
+   bf16 activations, max_seq 4096): phase 3's three
    requests in engine mode, bf16 and int4 (one load each), and phase 5's
    8 bodies as one /inference_batch (one enqueue: the same admission
    waves in both modes) per decode route, paged and fused, bf16 and
@@ -182,12 +186,15 @@ Phases (any failure fails the run, exit code != 0):
    gpt2-xl's biased q keeps the paged one), and int4 and int8 weights
    for gpt2-xl and pythia-6.9b (biased linears). ALiBi families decode
    through the gather formulation: no paged-kernel launch. (b) gpt2-xl
-   and bloom-7b1 at full width and depth through the worker, bf16:
+   and bloom-7b1 at full width through the worker, bf16, at
+   FAMILY_SERVING_LAYERS (16 of 48, 10 of 30, the cuts
+   printed):
    phase 13's engine requests (one flash_attention[mma] per layer per
    request and one flash_decode per layer per decode step, on the ALiBi
    arms for bloom) and one /inference_batch of phase 5's bodies (prompts
-   cut to fit gpt2's 1024 positions) per decode route (gpt2-xl: 48
-   paged_flash_decode per weight pass with DLI_FUSED_DECODE off and on;
+   cut to fit gpt2's 1024 positions) per decode route (gpt2-xl: one
+   paged_flash_decode per layer per weight pass with DLI_FUSED_DECODE
+   off and on;
    bloom-7b1: none, the gather route), each with graphs on and off:
    equal tokens and counts, memory back after each unload. Then phase
    6's prefill check at bloom-7b1's full depth: the ALiBi prefill
@@ -198,9 +205,10 @@ Phases (any failure fails the run, exit code != 0):
 15. Model ingestion: checkpoint directories written here from seeded
    tensors, each with its own safetensors writer, and served by the
    worker. (a) A Llama-3.1-8B-shaped HF directory (LLAMA31_8B, full
-   width and depth, 4 bf16 shards with their index, the llama3
-   rope_scaling, 131072 positions; the depth is cut, and the cut
-   printed, only if the disk cannot hold it twice): ``checkpoint_path``
+   width, INGEST_LAYERS = 16 of its 32 layers, 4 bf16 shards
+   with their index, the llama3 rope_scaling, 131072 positions; the depth
+   is cut further, and the cut printed, if the disk cannot hold it
+   twice): ``checkpoint_path``
    in engine mode (phase 3's requests and counts; the load's seconds,
    GB/s of file bytes and peak device memory above the baseline, which
    must stay within param_bytes + 2 f32 copies of the largest leaf), in
@@ -283,7 +291,8 @@ Phases (any failure fails the run, exit code != 0):
    kernel's launches in it ("kv_plane_launches").
 
 18. Speculation, overlapped dispatch and live migration, llama-3-8b
-   (seeded weights). (a) The engine's verify step: at 2 layers in f32,
+   (seeded weights; cut to SPEC_LAYERS = 16 of its 32 layers, the cut
+   printed). (a) The engine's verify step: at 2 layers in f32,
    its logits for 5 query rows on the card against the host's within
    XCHECK_TOL, and speculative greedy tokens equal to plain greedy; at
    full depth in bf16, two repetitive and two random prompts (300 and 900
@@ -314,6 +323,40 @@ Phases (any failure fails the run, exit code != 0):
    Its wall time is printed on a line of its own, and each kernel's
    launches in it ("spec_migrate_launches").
 
+19. Multi-LoRA and the experts behind the softmax router (seeded
+   weights; DLI_LORA_HOST_MB 1024, DLI_LORA_SLOTS 2, DLI_LORA_MAX_RANK
+   16). (a) llama-3-8b at full depth in bf16 with three rank-16
+   ``synth:`` adapters over /load_adapter: batched, phase 5's eight
+   bodies as one /inference_batch on base weights, then mixing base, a1
+   and a2 rows (greedy and sampled), then a3 and a1 rows (a3 evicts a2
+   from its device slot in place, so the captured lora program replays
+   over rewritten pack rows), on a load with graphs on and one with
+   graphs off: equal tokens; DLI_FUSED_DECODE=1, every chunk counted: a
+   chunk with an adapter row launches paged_flash_decode num_layers
+   times per pass and no fused_decode_step, a base-only chunk the fused
+   kernel. Engine mode in bf16 and int4 (base, a1 greedy, a1 sampled;
+   graphs on and off over one load): equal tokens, flash_attention per
+   request, flash_decode (and q4_matmul: every linear plus the head) per
+   step. ms per pass and per step with and without adapters. A mixed
+   batch (base, a1, a2) on the card against dedicated single-row runs on
+   the host, 2 layers f32, within XCHECK_TOL. (b) mixtral-8x7b at full
+   width, 2 layers, f32, card against host within XCHECK_TOL in dense
+   and capacity dispatch (auto takes one of the two by the token count)
+   over prompts in runs of one token (the host's capacity dispatch drops
+   choices); moe-proxy-8e at full width,
+   2 layers, f32, dense dispatch: the paged pool's prefill and decode on
+   the paged and the fused route (the fused gate takes the MoE rows, as
+   the JAX gate does) against the host's; moe-proxy-8e
+   (bf16) and mixtral-8x7b (int8, 47 GB stored) at full depth through
+   the worker: engine requests (graphs on and off over one load) and
+   batched bodies as one /inference_batch on the paged route (a fresh
+   load per graphs setting; moe-proxy-8e on the fused route too, one
+   fused_decode_step per layer per pass), two requests and four bodies
+   for moe-proxy-8e, one each for mixtral-8x7b: equal tokens per route,
+   exact launches, ms per step and per pass, stored bytes and peak
+   device memory. Its wall time is
+   printed, and each kernel's launches in it ("lora_moe_launches").
+
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
 chunks, b in {1, 8, 32}, bf16 and f32, and times it on a tp=2 rank's
@@ -333,6 +376,9 @@ phase 17.
 ``python3 chip_smoke.py --spec-migrate`` builds the kernels and runs only
 phase 18.
 
+``python3 chip_smoke.py --lora-moe`` builds the kernels and runs only
+phase 19.
+
 ``python3 chip_smoke.py --timed-rows`` builds the kernels and runs only
 phase 2's timed rows (``timed_rows``), printing each; from the root of
 another checkout (a parent commit unpacked beside this one, this script
@@ -340,6 +386,7 @@ copied in) it times that tree's kernels the same way.
 """
 
 import concurrent.futures
+import functools
 import gc
 import itertools
 import json
@@ -418,11 +465,22 @@ FAMILY_XCHECK = (
     ("mpt-7b", ("paged",), (None,)),
     ("gpt-j-6b", ("paged",), (None,)),
 )
-# phase 14 (b): rows served at full depth through the worker, with the
+# phase 14 (b): rows served through the worker (FAMILY_SERVING_LAYERS
+# deep), with the
 # batched decode routes (DLI_FUSED_DECODE off / on) each is driven by;
 # gpt2-xl's biased q keeps the fused route on the paged kernel, and
 # bloom's ALiBi decodes through the gather formulation
 FAMILY_SERVING = (("gpt2-xl", ("paged", "fused")), ("bloom-7b1", ("paged",)))
+# depth cuts, so that the whole smoke, phase 19 included, ends inside
+# its 1200 s on the slower of the H100 hosts seen (1307.1 s uncut on
+# one, PERF.md §6): phase 13's llama-3-8b, phase 14's served rows, phase
+# 15's Llama-3.1-8B-shaped directory and phase 18's llama-3-8b run a
+# third to a half of their layers (each cut is printed); full width,
+# every path and check kept
+GRAPHS_LAYERS = 16                                  # of llama-3-8b's 32
+FAMILY_SERVING_LAYERS = {"gpt2-xl": 16, "bloom-7b1": 10}   # of 48, 30
+INGEST_LAYERS = 16                                  # of Llama-3.1-8B's 32
+SPEC_LAYERS = 16                                    # phase 18, of 32
 # phase 5's prompt lengths, the longest cut so that prompt + new tokens
 # fit gpt2's 1024 positions; phase 14's bloom-7b1 prefill depth check
 FAMILY_PROMPT_LENS = (60, 130, 250, 500, 700, 900)
@@ -1463,6 +1521,29 @@ def decode_kernel(cfg, route):
     return "paged_flash_decode"
 
 
+def _widen_levels_once(torch, model):
+    """The host model's int8 and int4 linears with their levels widened
+    to f32 once: each computes what Linear.forward's plain path does (x
+    @ levels in f32, then times the scale, then the bias), without the
+    per-call int4 unpack and f32 widening that took most of a quantized
+    cross-check's host time."""
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        Linear)
+    from distributed_llm_inferencing_tpu_torch.ops.quant import (
+        pack_chunks, unpack_int4)
+
+    def forward(m, levels, x):
+        y = (torch.matmul(x, levels) * m.scale.to(x.dtype)).to(x.dtype)
+        return y if m.b is None else (y + m.b).to(x.dtype)
+    for m in model.modules():
+        if isinstance(m, Linear) and m.form in ("int8", "int4"):
+            assert m.tp is None
+            levels = (unpack_int4(m.p4, pack_chunks(m.leaf()))
+                      if m.form == "int4" else m.q).float()
+            m.forward = functools.partial(forward, m, levels)
+    return model
+
+
 def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
                       routes=("paged", "fused"), cfg=None):
     """Card (kernels) against host (plain versions) at ``name``'s full
@@ -1481,8 +1562,8 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
                          "cuda")
     models = {"cuda": Transformer(cfg, params),
-              "cpu": Transformer(cfg, {k: t.cpu() for k, t in
-                                       params.items()})}
+              "cpu": _widen_levels_once(torch, Transformer(
+                  cfg, {k: t.cpu() for k, t in params.items()}))}
     g = torch.Generator().manual_seed(8)
     B, S0, max_seq = 2, 64, 96
     lens = torch.tensor([37, 64], dtype=torch.int32)
@@ -2936,10 +3017,12 @@ def phase_graphs(torch, kernels, smi):
     exactly the kernels its launch counts add; every unload must give
     back the device memory its load took."""
     from distributed_llm_inferencing_tpu_torch.models.registry import (
-        get_config)
+        get_config, register)
     from distributed_llm_inferencing_tpu_torch.runtime.worker import (
         WorkerAgent)
-    cfg = get_config("llama-3-8b")
+    cfg = register(get_config("llama-3-8b").replace(
+        name=f"llama-3-8b-{GRAPHS_LAYERS}-layers", num_layers=GRAPHS_LAYERS))
+    log(f"  llama-3-8b: DEPTH CUT to {GRAPHS_LAYERS} of 32 layers")
     worker = WorkerAgent(device="cuda")
     worker.serve("127.0.0.1", 0, background=True)
     report = {"smi": smi, "engine": {}, "batched": {}}
@@ -3026,7 +3109,7 @@ def phase_families(torch, fa, qm, kernels, smi):
     (c) ms per engine decode step and per batched weight pass, reported
     with no limit."""
     from distributed_llm_inferencing_tpu_torch.models.registry import (
-        get_config)
+        get_config, register)
     from distributed_llm_inferencing_tpu_torch.runtime.worker import (
         WorkerAgent)
     report = {"smi": smi, "cross_check": {}, "serving": {}}
@@ -3041,7 +3124,11 @@ def phase_families(torch, fa, qm, kernels, smi):
     worker.serve("127.0.0.1", 0, background=True)
     try:
         for name, routes in FAMILY_SERVING:
-            cfg = get_config(name)
+            depth = FAMILY_SERVING_LAYERS[name]
+            log(f"  {name}: DEPTH CUT to {depth} of "
+                f"{get_config(name).num_layers} layers")
+            cfg = register(get_config(name).replace(
+                name=f"{name}-{depth}-layers", num_layers=depth))
             row = _graphs_engine(torch, worker, kernels, cfg, None)
             for n in row["launches_per_request"]:
                 for k, v in n.items():
@@ -3468,7 +3555,8 @@ def _ingest_llama(torch, base, worker, kernels, root, report, total):
         param_bytes)
     from distributed_llm_inferencing_tpu_torch.ops.quant import (
         maybe_quantize)
-    conf = dict(LLAMA31_8B)
+    conf = dict(LLAMA31_8B, num_hidden_layers=INGEST_LAYERS)
+    log(f"  Llama-3.1-8B shape: DEPTH CUT to {INGEST_LAYERS} of 32 layers")
     per_layer = sum(2 * torch.Size(s).numel() for k, s, _ in
                     _hf_tensors(dict(conf, num_hidden_layers=1))
                     if ".layers." in k)
@@ -4656,7 +4744,7 @@ def _spec_engine(torch, kernels):
     from distributed_llm_inferencing_tpu_torch.runtime.engine import (
         InferenceEngine)
     greedy = SamplingParams.greedy()
-    full = get_config("llama-3-8b")
+    full = get_config("llama-3-8b").replace(num_layers=SPEC_LAYERS)
     cfg = full.replace(num_layers=2, dtype="float32")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
                          "cuda")
@@ -4778,7 +4866,8 @@ def _spec_wave_pass(torch, base, worker, kernels, cfg, mode, wave, adaptive,
     L = cfg.num_layers
     os.environ.update(DLI_SPEC_WAVE=wave, DLI_SPEC_ADAPTIVE=adaptive,
                       DLI_CUDA_GRAPHS="1" if graphs_on else "0")
-    load = dict(BATCHED_LOAD, speculative="ngram", spec_gamma=SPEC_GAMMA)
+    load = dict(BATCHED_LOAD, model_name=cfg.name, speculative="ngram",
+                spec_gamma=SPEC_GAMMA)
     st, res = _http(base + "/load_model", load)
     assert st == 200 and res["status"] == "success", res
     b = worker.models[cfg.name].batcher
@@ -5044,7 +5133,8 @@ def _migration(torch, kernels, cfg):
             w = workers[role] = WorkerAgent(device="cuda")
             w.serve("127.0.0.1", 0, background=True)
             bases[role] = f"http://127.0.0.1:{w.service.port}"
-            st, res = _http(bases[role] + "/load_model", MIGRATE_LOAD)
+            st, res = _http(bases[role] + "/load_model",
+                            dict(MIGRATE_LOAD, model_name=cfg.name))
             assert st == 200 and res["status"] == "success", res
         src_b = workers["src"].models[cfg.name].batcher
         dst_b = workers["dst"].models[cfg.name].batcher
@@ -5135,8 +5225,10 @@ def phase_spec_migrate(torch, kernels, smi):
     (b) the batcher's speculative chunk through the worker; (c)
     overlapped dispatch; (d) live migration."""
     from distributed_llm_inferencing_tpu_torch.models.registry import (
-        get_config)
-    cfg = get_config("llama-3-8b")
+        get_config, register)
+    cfg = register(get_config("llama-3-8b").replace(
+        name=f"llama-3-8b-{SPEC_LAYERS}-layers", num_layers=SPEC_LAYERS))
+    log(f"  llama-3-8b: DEPTH CUT to {SPEC_LAYERS} of 32 layers")
     report, t_all = {"smi": smi}, time.perf_counter()
     _PHASE18_LAUNCHES.clear()
     zero_counts(kernels)
@@ -5158,6 +5250,574 @@ def phase_spec_migrate(torch, kernels, smi):
     if os.path.isdir(out_dir):
         with open(os.path.join(out_dir, "phase18.json"), "w") as f:
             json.dump(report, f, indent=1)
+    return report
+
+
+# ---------------------------------------------------------------------
+# phase 19: multi-LoRA serving and the experts behind the softmax router
+# ---------------------------------------------------------------------
+
+# three rank-16 adapters of llama-3-8b (167.8 MB each in f32); the host
+# store's default 64 MB holds none of them, and two device slots make the
+# third adapter evict one in place
+LORA_SOURCES = {f"a{i}": f"synth:rank=16,seed={i},scale=0.8"
+                for i in (1, 2, 3)}
+LORA_ENV = {"DLI_LORA_HOST_MB": "1024", "DLI_LORA_SLOTS": "2",
+            "DLI_LORA_MAX_RANK": "16", "DLI_DECODE_OVERLAP": "0",
+            "DLI_FUSED_DECODE": "1"}
+# (b) mixtral-8x7b's 2-layer f32 cross-check: (dispatch, rows, prompt
+# tokens), runs of one token so that positions route alike and capacity
+# dispatch drops choices; the host runs every expert of every token in
+# the dense mode, so its prompt is short
+MOE_XCHECK = (("dense", 1, 16), ("capacity", 2, 64))
+MIXTRAL_LOAD = {"model_name": "mixtral-8x7b", "allow_random_init": True,
+                "dtype": "bfloat16", "quantize": "int8", "max_seq": 4096}
+MOE_BATCHED = {"serving": "batched", "slots": 4, "kv_blocks": 512,
+               "kv_block_size": 16}
+MOE_NEW = 16
+# engine requests of (b): (prompt tokens in runs, sampling, seed)
+MOE_REQUESTS = ((200, {"do_sample": False}, 0), (100, {}, 1))
+
+# every launch counted in phase 19, banked before each zeroing
+_PHASE19_LAUNCHES: dict = {}
+
+
+def _bank19(kernels):
+    _add(_PHASE19_LAUNCHES, read_counts(kernels))
+    zero_counts(kernels)
+
+
+class _Env:
+    """Environment variables set for a block, restored after it."""
+
+    def __init__(self, **kw):
+        self.kw, self.old = kw, {}
+
+    def __enter__(self):
+        for k, v in self.kw.items():
+            self.old[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _runs_prompt(cfg, n, seed):
+    """``n`` tokens in runs of one token (positions route alike)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        out += [int(rng.integers(1, cfg.vocab_size))] * int(
+            rng.integers(8, 24))
+    return out[:n]
+
+
+def _counted_wave(base, worker, kernels, name, bodies, cfg, fused):
+    """``bodies`` as one /inference_batch (one enqueue, wire order) on a
+    loaded batched model, each decode chunk counted: a chunk with an
+    adapter row must launch paged_flash_decode num_layers times per pass
+    and no fused_decode_step; a base-only one the route's kernel
+    (``fused``: the fused kernel) num_layers times per pass; nothing
+    else launches. Returns (tokens, launches, timing)."""
+    import numpy as np
+    L = cfg.num_layers
+    b = worker.models[name].batcher
+    run = b._run_decode
+    acc = {"lora": [0, 0.0], "base": [0, 0.0], "bad": []}
+
+    def counted(a):
+        lora = bool(np.any(a["aids"]))
+        k = int(a["k"])
+        c0 = read_counts(kernels)
+        t0 = time.perf_counter()
+        out = run(a)
+        dt = time.perf_counter() - t0
+        c1 = read_counts(kernels)
+        d = {x: c1[x] - c0[x] for x in c1 if c1[x] != c0[x]}
+        kern = ("fused_decode_step" if fused and not lora
+                else "paged_flash_decode")
+        if d != {kern: L * k}:
+            acc["bad"].append((lora, k, d))
+        acc["lora" if lora else "base"][0] += k
+        acc["lora" if lora else "base"][1] += dt
+        return out
+
+    b._run_decode = counted
+    _bank19(kernels)
+    try:
+        lines = _stream_lines(base + "/inference_batch",
+                              {"model_name": name, "requests": bodies}, None)
+    finally:
+        del b._run_decode
+    launches = read_counts(kernels)
+    _bank19(kernels)
+    msgs = {m["request_tag"]: m for m in map(json.loads,
+                                             (x for _, x in lines))}
+    tokens = []
+    for body in bodies:
+        m = msgs[body["request_tag"]]
+        assert m["status"] == 200 and m["body"]["status"] == "success", m
+        tokens.append(m["body"]["tokens"])
+    assert not acc["bad"], f"{name}: chunk launches {acc['bad'][:3]}"
+    timing = {f"ms_per_pass_{k}": (1e3 * acc[k][1] / acc[k][0]
+                                   if acc[k][0] else None)
+              for k in ("lora", "base")}
+    timing.update(passes_lora=acc["lora"][0], passes_base=acc["base"][0])
+    return tokens, launches, timing
+
+
+def _lora_bodies(cfg, adapters, tag):
+    """Phase 5's eight bodies (greedy and sampled, two sharing a
+    512-token prefix) at 16 new tokens, each given the adapter of
+    ``adapters`` at its index (None: the base model)."""
+    return [dict(body, request_tag=f"p19-{tag}-{i}", max_new_tokens=16,
+                 **({"adapter": adapters[i % len(adapters)]}
+                    if adapters[i % len(adapters)] else {}))
+            for i, body in enumerate(_batched_bodies(cfg))]
+
+
+def _lora_batched(torch, kernels, cfg, quant=None):
+    """(a) Batched: a load, the three adapters over /load_adapter, then
+    wave 0 (the eight bodies on base weights), wave 1 (base, a1 and a2
+    rows mixed), wave 2 (a3 and a1: a3 evicts a2 from its device slot in
+    place, so the captured lora program replays over rewritten pack
+    rows); the same load and waves 1-2 with graphs off give the same
+    tokens. Exact launches per chunk (``_counted_wave``)."""
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    waves = {"mixed": (None, "a1", "a2"), "evict": ("a3", "a1")}
+    out, tokens = {}, {}
+    for on in (True, False):
+        _graphs_on(on)
+        worker = WorkerAgent(device="cuda")
+        worker.serve("127.0.0.1", 0, background=True)
+        base = _worker_base(worker)
+        try:
+            load = dict(BATCHED_LOAD, **({"quantize": quant} if quant
+                                         else {}))
+            st, res = _http(base + "/load_model", load)
+            assert st == 200 and res["status"] == "success", res
+            for name, src in LORA_SOURCES.items():
+                st, r = _http(base + "/load_adapter", {
+                    "model_name": cfg.name, "adapter": name, "source": src})
+                assert st == 200 and r["rank"] == 16, r
+            for wave, ads in [("base", (None,))] + list(waves.items()):
+                toks, launches, timing = _counted_wave(
+                    base, worker, kernels, cfg.name,
+                    _lora_bodies(cfg, ads, f"{wave}-{on}-{quant}"), cfg,
+                    fused=True)
+                tokens[(wave, on)] = toks
+                if on:
+                    out[wave] = dict(timing, launches={
+                        k: v for k, v in launches.items() if v})
+            stats = worker.models[cfg.name].batcher.lora_stats()
+            assert stats["slotted"] == ["a1", "a3"], stats
+            out["lora_stats" if on else "lora_stats_graphs_off"] = stats
+        finally:
+            st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+            worker.shutdown()
+            _graphs_on(True)
+    for wave in ("base",) + tuple(waves):
+        assert tokens[(wave, True)] == tokens[(wave, False)], \
+            f"lora wave {wave}: graphs on and off disagree"
+    log(f"  lora batched {quant or 'bf16'}", json.dumps(out))
+    return out
+
+
+def _lora_engine(torch, kernels, cfg, quant=None):
+    """(a) Engine mode: base and a1 requests (greedy and sampled), graphs
+    on then off over one load: equal tokens; flash_attention num_layers
+    per request, flash_decode num_layers per decode step, and with int4
+    weights q4_matmul every linear per decode step plus the gathered head
+    row of the prefill, all in their tensor-core forms. ms per step with
+    and without the adapter."""
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    L = cfg.num_layers
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = _worker_base(worker)
+    reqs = ((200, {"do_sample": False}, 0, None),
+            (200, {"do_sample": False}, 0, "a1"),
+            (500, {}, 1, "a1"))
+    q4 = q4_per_pass(cfg) if quant == "int4" else 0
+    out, toks = {"requests": []}, {}
+    try:
+        load = {"model_name": cfg.name, "allow_random_init": True,
+                "dtype": "bfloat16", "max_seq": 4096,
+                **({"quantize": quant} if quant else {})}
+        st, res = _http(base + "/load_model", load)
+        assert st == 200 and res["status"] == "success", res
+        st, r = _http(base + "/load_adapter", {
+            "model_name": cfg.name, "adapter": "a1",
+            "source": LORA_SOURCES["a1"]})
+        assert st == 200, r
+        # graphs on twice: the first call of each program captures it, the
+        # repeat's step time is the replay's
+        for it, on in enumerate((True, True, False)):
+            _graphs_on(on)
+            for n_tok, sampling, seed, ad in reqs:
+                _bank19(kernels)
+                st, r = _http(base + "/inference", {
+                    "model_name": cfg.name, "prompt": engine_prompt(
+                        n_tok, seed), "max_new_tokens": NEW_TOKENS,
+                    "sampling": sampling, "seed": seed,
+                    **({"adapter": ad} if ad else {})})
+                assert st == 200 and r["status"] == "success", r
+                passes = r["cost"]["weight_passes"]
+                d = {k: v for k, v in read_counts(kernels).items() if v}
+                want = {"flash_attention": L, "flash_attention[mma]": L,
+                        "flash_decode": L * (passes - 1)}
+                if q4:
+                    want["q4_matmul"] = want["q4_matmul[mma]"] = \
+                        1 + q4 * (passes - 1)
+                assert d == want, f"engine {quant} {ad}: {d} != {want}"
+                prev = toks.setdefault((n_tok, seed, ad, on), r["tokens"])
+                assert prev == r["tokens"], (n_tok, ad, on)
+                if it == 1:
+                    out["requests"].append({
+                        "prompt_tokens": n_tok, "adapter": ad,
+                        "sampling": sampling or "default",
+                        "ms_per_step": r["decode_ms"] / (passes - 1),
+                        "prefill_ms": r["prefill_ms"], "launches": d})
+    finally:
+        _bank19(kernels)
+        _graphs_on(True)
+        _http(base + "/unload_model", {"model_name": cfg.name})
+        worker.shutdown()
+    for n_tok, _, seed, ad in reqs:
+        assert toks[(n_tok, seed, ad, True)] == toks[(n_tok, seed, ad, False)]
+    assert toks[(200, 0, None, True)] != toks[(200, 0, "a1", True)], \
+        "the adapter left the greedy tokens alone"
+    log(f"  lora engine {quant or 'bf16'}", json.dumps(out))
+    return out
+
+
+def _lora_xcheck(torch, kernels, cfg):
+    """(a) A mixed batch (base, a1, a2 rows; one prefill and 4 decode
+    steps on the card, through flash_attention and flash_decode) against
+    dedicated single-row runs of each adapter on the host, llama-3-8b's
+    width at 2 layers in f32: within XCHECK_TOL."""
+    from distributed_llm_inferencing_tpu_torch.models import lora
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        init_params)
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        LoRARows, Transformer)
+    from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
+    cfg = cfg.replace(num_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                         "cuda")
+    ads = [None] + [lora.resolve(cfg, n, LORA_SOURCES[n])
+                    for n in ("a1", "a2")]
+    pack = lora.build_pack(cfg, ads, 16)
+    g = torch.Generator().manual_seed(9)
+    B, S0, steps = 3, 64, 4
+    lens = torch.tensor([40, 64, 51], dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (B, S0), generator=g)
+    forced = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=g)
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            model = Transformer(cfg, params if dev == "cuda" else
+                                {k: t.cpu() for k, t in params.items()})
+            dpack = {t: {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+                     for t, p in pack.items()}
+            rows = [list(range(B))] if dev == "cuda" else [[r] for r in
+                                                            range(B)]
+            logits = [None] * B
+            _bank19(kernels)
+            for rr in rows:
+                idx = torch.tensor(rr)
+                ids = idx.to(dev)
+                lr = LoRARows(dpack, ids)
+                cache = init_cache(cfg, len(rr), 96, device=dev)
+                ln = lens[idx].to(dev)
+                lg, cache = model.prefill(toks[idx].to(dev), ln, cache,
+                                          gather=(ln - 1).long(), lora=lr)
+                seq = [lg[:, 0].cpu()]
+                for t in range(steps):
+                    lg, cache = model.decode_step(forced[t][idx].to(dev),
+                                                  cache, lr)
+                    seq.append(lg[:, 0].cpu())
+                for j, r in enumerate(rr):
+                    logits[r] = torch.stack([s[j] for s in seq])
+            if dev == "cuda":
+                d = {k: v for k, v in read_counts(kernels).items() if v}
+                assert d == {"flash_attention": 2,
+                             "flash_decode": 2 * steps}, d
+            out[dev] = torch.stack(logits)
+            del model
+    _bank19(kernels)
+    err = _xcheck(torch, "llama-3-8b mixed adapters vs dedicated",
+                  out["cuda"].flatten(0, 1), out["cpu"].flatten(0, 1))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def _moe_drops(ttf):
+    """A wrapper of ``ttf.moe_gates`` that counts the choices capacity
+    dispatch drops (its caller passes the flat [N, D] input)."""
+    import numpy as np
+    real, n = ttf.moe_gates, [0]
+
+    def gates(x, w, cfg):
+        g = real(x, w, cfg)
+        if x.dim() == 2:
+            k, e = cfg.num_experts_per_tok, cfg.num_experts
+            c = max(1, int(cfg.moe_capacity_factor * k * x.shape[0] / e))
+            idx = torch_topk_idx(g, k)
+            counts = np.zeros(e, int)
+            for row in idx:
+                for ex in row:
+                    n[0] += counts[ex] >= c
+                    counts[ex] += 1
+        return g
+    return real, gates, n
+
+
+def torch_topk_idx(g, k):
+    return g.topk(k, dim=-1).indices.cpu().numpy()
+
+
+def _moe_xcheck(torch, kernels):
+    """(b) mixtral-8x7b at full width, 2 layers, f32, card against host
+    in each dispatch mode of MOE_XCHECK (prefill over prompts in runs of
+    one token, then 4 decode steps): logits within XCHECK_TOL, and the
+    host's capacity dispatch drops choices. Then moe-proxy-8e (the row
+    served on both decode routes) at its full width, 2 layers, f32, dense
+    dispatch: the serving path over the paged pool (``_paged_run``) on
+    the paged and the fused route (the fused gate takes the MoE rows, as
+    the JAX gate does) against the host's."""
+    from distributed_llm_inferencing_tpu_torch.models import transformer
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        init_params)
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
+    base = get_config("mixtral-8x7b").replace(num_layers=2, dtype="float32")
+    params = init_params(base, torch.Generator(device="cuda").manual_seed(11),
+                         "cuda")
+    host = {k: t.cpu() for k, t in params.items()}
+    real, gates, drops = _moe_drops(transformer)
+    errs, steps = {}, 4
+    try:
+        for mode, B, S0 in MOE_XCHECK:
+            cfg = base.replace(moe_dispatch=mode)
+            toks = torch.tensor([_runs_prompt(cfg, S0, 40 + r)
+                                 for r in range(B)])
+            lens = torch.full((B,), S0, dtype=torch.int32)
+            g = torch.Generator().manual_seed(41)
+            forced = torch.randint(0, cfg.vocab_size, (steps, B, 1),
+                                   generator=g)
+            out, dropped = {}, {}
+            for dev, p in (("cuda", params), ("cpu", host)):
+                model = transformer.Transformer(cfg, p)
+                drops[0] = 0
+                transformer.moe_gates = gates if dev == "cpu" else real
+                _bank19(kernels)
+                with torch.inference_mode():
+                    cache = init_cache(cfg, B, S0 + steps, device=dev)
+                    lg, cache = model.prefill(toks.to(dev), lens.to(dev),
+                                              cache)
+                    seq = [lg.flatten(0, 1).cpu()]
+                    for t in range(steps):
+                        lg, cache = model.decode_step(forced[t].to(dev),
+                                                      cache)
+                        seq.append(lg[:, 0].cpu())
+                out[dev] = torch.cat(seq)
+                dropped[dev] = drops[0]
+                if dev == "cuda":
+                    d = {k: v for k, v in read_counts(kernels).items() if v}
+                    assert d == {"flash_attention": 2,
+                                 "flash_decode": 2 * steps}, d
+                del model
+            errs[mode] = {"max_abs_err": _xcheck(
+                torch, f"mixtral-8x7b {mode} dispatch", out["cuda"],
+                out["cpu"]), "host_dropped_choices": int(dropped["cpu"])}
+            if mode != "dense":
+                assert dropped["cpu"] > 0, f"{mode}: no choice dropped"
+        del params, host
+        transformer.moe_gates = real
+        _bank19(kernels)
+        cfg = get_config("moe-proxy-8e").replace(
+            num_layers=2, dtype="float32", moe_dispatch="dense")
+        params = init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(12), "cuda")
+        host = {k: t.cpu() for k, t in params.items()}
+        ref = _paged_run(torch, transformer.Transformer(cfg, host), "cpu")
+        card = transformer.Transformer(cfg, params)
+        errs["moe-proxy-8e paged pool"] = {route: _xcheck(
+            torch, f"moe-proxy-8e dense dispatch {route}",
+            _paged_run(torch, card, "cuda", route), ref)
+            for route in ("paged", "fused")}
+        del card
+    finally:
+        transformer.moe_gates = real
+        _bank19(kernels)
+    del params, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _moe_engine(torch, base, kernels, cfg, requests):
+    """``requests`` ((prompt tokens in runs, sampling, seed) each) through
+    a loaded engine-mode MoE model, graphs on (twice: the repeat's step
+    time is the replay's) then off: equal tokens, flash_attention
+    num_layers per request (tensor-core) and flash_decode num_layers per
+    decode step. ms per step."""
+    L = cfg.num_layers
+    toks, rows = {}, []
+    for it, on in enumerate((True, True, False)):
+        _graphs_on(on)
+        for n, sampling, seed in requests:
+            _bank19(kernels)
+            st, r = _http(base + "/inference", {
+                "model_name": cfg.name, "prompt_tokens": _runs_prompt(
+                    cfg, n, seed), "max_new_tokens": MOE_NEW,
+                "sampling": sampling, "seed": seed})
+            assert st == 200 and r["status"] == "success", r
+            passes = r["cost"]["weight_passes"]
+            d = {k: v for k, v in read_counts(kernels).items() if v}
+            want = {"flash_attention": L, "flash_attention[mma]": L,
+                    "flash_decode": L * (passes - 1)}
+            assert d == want, f"{cfg.name} engine: {d} != {want}"
+            prev = toks.setdefault((n, on), r["tokens"])
+            assert prev == r["tokens"], (cfg.name, n, on)
+            if it == 1:
+                rows.append({"prompt_tokens": n, "new": len(r["tokens"]),
+                             "prefill_ms": r["prefill_ms"],
+                             "ms_per_step": r["decode_ms"] / (passes - 1),
+                             "launches": d})
+    _graphs_on(True)
+    _bank19(kernels)
+    for n, _, _ in requests:
+        assert toks[(n, True)] == toks[(n, False)], \
+            f"{cfg.name} engine: graphs on and off disagree"
+    return rows
+
+
+def _moe_bodies(cfg, tag, lens):
+    return [{"model_name": cfg.name, "request_tag": f"p19-{tag}-{i}",
+             "prompt_tokens": _runs_prompt(cfg, n, 60 + i),
+             "max_new_tokens": MOE_NEW, "seed": 300 + i,
+             "sampling": ({"do_sample": False} if i % 2 == 0 else {})}
+            for i, n in enumerate(lens)]
+
+
+def _moe_model(torch, kernels, cfg, load, requests, lens, fused=False):
+    """(b) One MoE row through the worker: engine mode (``requests``,
+    graphs on and off over one load), then batched mode (bodies of
+    ``lens`` prompt tokens as one /inference_batch, paged route, and with
+    ``fused`` the fused route too), once per graphs setting on a fresh
+    load: equal tokens per route, exact launches (the fused kernel once
+    per layer per pass on its route), ms per step and per pass, the
+    stored bytes and the peak device memory above the load's start."""
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    out = {}
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = _worker_base(worker)
+    try:
+        modes = ("engine", "batched_on", "batched_off") + (
+            ("fused_on", "fused_off") if fused else ())
+        toks = {}
+        for mode in modes:
+            body = dict(load, model_name=cfg.name,
+                        **(MOE_BATCHED if mode != "engine" else {}))
+            _graphs_on(not mode.endswith("_off"))
+            os.environ["DLI_FUSED_DECODE"] = \
+                "1" if mode.startswith("fused") else "0"
+            gc.collect()
+            torch.cuda.empty_cache()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            st, res = _http(base + "/load_model", body)
+            assert st == 200 and res["status"] == "success", res
+            load_s = time.perf_counter() - t0
+            if mode == "engine":
+                rows = _moe_engine(torch, base, kernels, cfg, requests)
+            else:
+                tokens, launches, timing = _counted_wave(
+                    base, worker, kernels, cfg.name,
+                    _moe_bodies(cfg, mode, lens), cfg,
+                    fused=mode.startswith("fused"))
+                toks[mode] = tokens
+                rows = dict(timing, launches={k: v for k, v in
+                                              launches.items() if v})
+            out[mode] = {"load_s": load_s,
+                         "param_bytes": worker.models[cfg.name].describe(
+                             cfg.name)["param_bytes"],
+                         "peak_bytes_above_start": (
+                             torch.cuda.max_memory_allocated() - start),
+                         "result": rows}
+            st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+            assert st == 200
+            _graphs_on(True)
+        for route in ("batched", "fused")[:1 + fused]:
+            assert toks[f"{route}_on"] == toks[f"{route}_off"], \
+                f"{cfg.name} {route}: graphs on and off disagree"
+    finally:
+        _graphs_on(True)
+        os.environ["DLI_FUSED_DECODE"] = "0"
+        worker.shutdown()
+    log(f"  moe {cfg.name}", json.dumps(out))
+    return out
+
+
+def phase_lora_moe(torch, kernels, smi):
+    """Phase 19 (see the module docstring): (a) multi-LoRA on llama-3-8b;
+    (b) the experts of mixtral-8x7b and moe-proxy-8e."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    llama = get_config("llama-3-8b")
+    report, t_all = {"smi": smi}, time.perf_counter()
+    _PHASE19_LAUNCHES.clear()
+    zero_counts(kernels)
+    with _Env(**LORA_ENV):
+        for key, fn in (
+                ("lora_xcheck", lambda: _lora_xcheck(torch, kernels, llama)),
+                ("lora_batched", lambda: _lora_batched(torch, kernels,
+                                                       llama)),
+                ("lora_engine", lambda: _lora_engine(torch, kernels, llama)),
+                ("lora_int4_engine", lambda: _lora_engine(
+                    torch, kernels, llama, "int4")),
+                ("moe_xcheck", lambda: _moe_xcheck(torch, kernels)),
+                ("moe_proxy", lambda: _moe_model(
+                    torch, kernels, get_config("moe-proxy-8e"),
+                    {"allow_random_init": True, "dtype": "bfloat16",
+                     "max_seq": 4096}, MOE_REQUESTS, (300, 120, 40, 600),
+                    fused=True)),
+                # one engine request and one batched body: ~235 ms a step
+                ("mixtral_int8", lambda: _moe_model(
+                    torch, kernels, get_config("mixtral-8x7b"),
+                    MIXTRAL_LOAD, MOE_REQUESTS[:1], (300,)))):
+            t0 = time.perf_counter()
+            # the MoE rows decode on the paged route unless a check asks
+            # for the fused one
+            with _Env(DLI_FUSED_DECODE="0" if key.startswith(
+                    ("moe", "mixtral")) else "1"):
+                report[key] = fn()
+            report[f"seconds_{key}"] = time.perf_counter() - t0
+            log(f"  phase 19 {key}: {report[f'seconds_{key}']:.1f} s")
+    _bank19(kernels)
+    report["launches"] = dict(_PHASE19_LAUNCHES)
+    log("  phase 19 launches:", json.dumps(report["launches"]))
+    report["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 19 wall time: {report['seconds']:.1f} s")
+    out_dir = os.path.join(HERE, "chiprun_out")
+    if os.path.isdir(out_dir):
+        with open(os.path.join(out_dir, "phase19.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
     return report
 
 
@@ -5263,6 +5923,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--spec-migrate"]:   # phase 18 alone
         phase_spec_migrate(torch, counted, smi)
+        log(smi)
+        return 0
+    if sys.argv[1:2] == ["--lora-moe"]:   # phase 19 alone
+        phase_lora_moe(torch, counted, smi)
         log(smi)
         return 0
     if sys.argv[1:2] == ["--timed-rows"]:
@@ -5417,6 +6081,18 @@ def main() -> int:
         assert spec["launches"][name] > 0, \
             f"{name} never launched on phase 18's path"
 
+    mark(19, "multi-LoRA and experts: (a) llama-3-8b with three rank-16 "
+        "adapters through the worker, batched (mixed waves, an in-place "
+        "slot eviction, graphs on and off) and engine (bf16, int4), a "
+        "2-layer f32 mixed-vs-dedicated cross-check; (b) mixtral-8x7b 2 "
+        "layers f32 card vs host in each dispatch mode, moe-proxy-8e bf16 "
+        "and mixtral-8x7b int8 at full depth, engine and batched")
+    lora_moe = phase_lora_moe(torch, counted, smi)
+    for name in ("flash_attention", "flash_decode", "paged_flash_decode",
+                 "fused_decode_step", "q4_matmul"):
+        assert lora_moe["launches"][name] > 0, \
+            f"{name} never launched on phase 19's path"
+
     mark(None)
     log("  wall time by phase (s):", json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
@@ -5490,6 +6166,9 @@ def main() -> int:
         # overlapped pairs and migration
         entry["spec_migrate_launches"] = spec["launches"].get(name, 0) \
             if "[" not in name else 0
+        # phase 19: adapter passes (never fused) and the MoE rows
+        entry["lora_moe_launches"] = lora_moe["launches"].get(name, 0) \
+            if "[" not in name else 0
         cap_rows = {"flash_attention": cap_pre, "flash_decode": cap_dec,
                     "paged_flash_decode": cap_paged}.get(name)
         if cap_rows is not None:
@@ -5512,6 +6191,7 @@ def main() -> int:
               "control_surface": control, "graphs": graphs_report,
               "families": families, "ingestion": ingestion,
               "later": later, "kv_plane": kv_plane, "spec_migrate": spec,
+              "lora_moe": lora_moe,
               "uncapped_digests": digests,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}

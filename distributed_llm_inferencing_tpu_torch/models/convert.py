@@ -9,11 +9,13 @@ JAX function -> port function:
   comes out as the same tuple of floats; ``_layer_windows_from_hf``
   (:182) -> the same name, the per-layer windows of qwen3, smollm3 and
   exaone4.
-- ``SUPPORTED_MODEL_TYPES`` (:214) -> ``SUPPORTED_MODEL_TYPES``: the 31 of
+- ``SUPPORTED_MODEL_TYPES`` (:214) -> ``SUPPORTED_MODEL_TYPES``: the 33 of
   its 39 types whose configs the port's model serves
-  (models/transformer.py ``check_supported``); ``REFUSED_MODEL_TYPES``
-  names, for each of the other 8 (experts, latent attention), the
-  switches that still keep it out.
+  (models/transformer.py ``check_supported``), mixtral (:257-261,
+  ``num_local_experts``) and qwen3_moe (:788-805) among them;
+  ``REFUSED_MODEL_TYPES`` names, for each of the other 6 (other routers,
+  shared experts, latent attention, ...), the switches that still keep
+  it out.
 - ``config_from_hf`` (:225) -> ``config_from_hf``, taking the
   ``config.json`` dict. The JAX function reads attributes of a
   ``transformers`` config object, whose class has already filled every
@@ -35,7 +37,9 @@ JAX function -> port function:
   codegen :2034, starcoder2 :2074, olmo :2104, phi3 :2136, gpt_neo :2164,
   gemma2 :2200, cohere :2240, olmo2 :2278 (olmo2, exaone4), glm :2312
   (glm, glm4), nemotron :2351; qwen3, smollm3, hunyuan_v1_dense and
-  granite take the llama branch. The output is the port's flat dict
+  granite take the llama branch, and so do mixtral and qwen3_moe, whose
+  MoE blocks give the router and the stacked experts (:1475-1518,
+  ``_experts``). The output is the port's flat dict
   (models/params.py): ``[din, dout]`` weights, the layer axis unrolled;
   the JAX tree's int32 ``attn_window`` / ``rope_on`` leaves are the
   config's ``attn_windows`` / ``rope_layers`` here (no tensors).
@@ -89,21 +93,25 @@ SUPPORTED_MODEL_TYPES = (
     "falcon", "bloom", "gptj", "mpt", "gpt_bigcode", "stablelm", "codegen",
     "starcoder2", "olmo", "phi3", "glm", "ernie4_5", "gpt_neo", "gemma2",
     "cohere", "qwen3", "granite", "olmo2", "glm4", "nemotron", "smollm3",
-    "hunyuan_v1_dense", "exaone4")
+    "hunyuan_v1_dense", "exaone4", "mixtral", "qwen3_moe")
 
 # the JAX converter's other types -> (the switches their configs turn on
 # that the port's model does not serve yet, the ROADMAP Queue A item
 # that brings them)
 REFUSED_MODEL_TYPES = {
-    "mixtral": ("num_experts", "A4 experts"),
-    "qwen3_moe": ("num_experts", "A4 experts"),
-    "deepseek_v3": ("kv_lora_rank, q_lora_rank, num_experts, "
+    "deepseek_v3": ("kv_lora_rank, q_lora_rank, num_experts with "
+                    "moe_router='deepseek_v3', moe_shared_experts, "
                     "dense_prefix_layers", "A4 experts and MLA"),
-    "dbrx": ("num_experts", "A4 experts"),
-    "glm4_moe": ("num_experts, dense_prefix_layers", "A4 experts"),
-    "ernie4_5_moe": ("num_experts, dense_prefix_layers", "A4 experts"),
-    "gpt_oss": ("num_experts, attn_sinks", "A4 experts"),
-    "hunyuan_v1_moe": ("num_experts", "A4 experts"),
+    "dbrx": ("num_experts with qkv_clip", "A4 experts"),
+    "glm4_moe": ("num_experts with moe_router='deepseek_v3', "
+                 "moe_shared_experts, dense_prefix_layers", "A4 experts"),
+    "ernie4_5_moe": ("num_experts with moe_router='ernie', "
+                     "moe_shared_experts, dense_prefix_layers",
+                     "A4 experts"),
+    "gpt_oss": ("num_experts with moe_router='topk_softmax', expert "
+                "biases, moe_swiglu_limit, attn_sinks", "A4 experts"),
+    "hunyuan_v1_moe": ("num_experts with moe_shared_experts",
+                       "A4 experts"),
 }
 
 # model_type -> the class default (transformers 4.57.6) of every key that
@@ -131,6 +139,24 @@ HF_DEFAULTS = {
                 "max_position_embeddings": 131072, "rms_norm_eps": 1e-06,
                 "rope_theta": 10000.0, "sliding_window": 4096,
                 "vocab_size": 32000, "tie_word_embeddings": False},
+    "mixtral": {"vocab_size": 32000, "hidden_size": 4096,
+                "intermediate_size": 14336, "num_hidden_layers": 32,
+                "num_attention_heads": 32, "num_key_value_heads": 8,
+                "head_dim": None, "max_position_embeddings": 131072,
+                "rms_norm_eps": 1e-05, "rope_theta": 1000000.0,
+                "sliding_window": None, "tie_word_embeddings": False,
+                "num_local_experts": 8, "num_experts_per_tok": 2},
+    "qwen3_moe": {"vocab_size": 151936, "hidden_size": 2048,
+                  "intermediate_size": 6144, "moe_intermediate_size": 768,
+                  "num_hidden_layers": 24, "num_attention_heads": 32,
+                  "num_key_value_heads": 4, "hidden_act": "silu",
+                  "max_position_embeddings": 32768, "rms_norm_eps": 1e-06,
+                  "tie_word_embeddings": False, "rope_theta": 10000.0,
+                  "rope_scaling": None, "attention_bias": False,
+                  "use_sliding_window": False, "sliding_window": 4096,
+                  "num_experts": 128, "num_experts_per_tok": 8,
+                  "norm_topk_prob": False, "mlp_only_layers": None,
+                  "decoder_sparse_step": 1},
     "qwen2": {"hidden_size": 4096, "intermediate_size": 22016,
               "num_hidden_layers": 32, "num_attention_heads": 32,
               "num_key_value_heads": 32, "max_position_embeddings": 32768,
@@ -353,10 +379,11 @@ _MPT_ATTN = {"attn_type": "multihead_attention", "attn_pdrop": 0,
 # types whose config __init__ defaults num_key_value_heads to the heads
 _KV_FROM_HEADS = ("llama", "mistral", "qwen2", "phi", "olmo", "phi3",
                   "ernie4_5", "cohere", "qwen3", "smollm3",
-                  "hunyuan_v1_dense", "granite", "olmo2")
+                  "hunyuan_v1_dense", "granite", "olmo2", "mixtral",
+                  "qwen3_moe")
 # types whose config __init__ copies rope_scaling's "type" to "rope_type"
 _ROPE_TYPE_COPY = ("llama", "qwen2", "gpt_neox", "phi", "stablelm",
-                   "starcoder2", "ernie4_5", "qwen3", "smollm3")
+                   "starcoder2", "ernie4_5", "qwen3", "smollm3", "qwen3_moe")
 # transformers' ALLOWED_LAYER_TYPES
 _LAYER_TYPES = ("full_attention", "sliding_attention", "chunked_attention",
                 "linear_attention")
@@ -395,6 +422,11 @@ def _derive(mt: str, v: dict, given: dict):
                              f"the number of layer types ({len(kinds)})")
     if mt in ("gemma2", "qwen3", "smollm3", "exaone4"):
         _derive_layer_types(mt, v)
+    if mt == "qwen3_moe":
+        if not v["use_sliding_window"]:
+            v["sliding_window"] = None
+        if v["mlp_only_layers"] is None:
+            v["mlp_only_layers"] = []
     if mt == "gpt_neo":
         kinds = [k for kinds, n in v["attention_types"] for _ in range(n)
                  for k in kinds]
@@ -666,7 +698,7 @@ def config_from_hf(d: dict, name: Optional[str] = None) -> ModelConfig:
             norm_type="layernorm", activation="relu", gated_mlp=False,
             position_embedding="learned", attn_bias=True, mlp_bias=True,
             tie_word_embeddings=True)
-    if mt in ("llama", "mistral", "qwen2", "gemma"):
+    if mt in ("llama", "mistral", "mixtral", "qwen2", "gemma"):
         head_dim = (getattr(hf, "head_dim", None)
                     or hf.hidden_size // hf.num_attention_heads)
         inv_freq, attn_factor, _ = _rope_scaling_params(hf, head_dim, mt)
@@ -693,7 +725,8 @@ def config_from_hf(d: dict, name: Optional[str] = None) -> ModelConfig:
                                         mt == "gemma"),
             sliding_window=_qwen2_window(hf) if mt == "qwen2"
             else getattr(hf, "sliding_window", None),
-            num_experts=0,
+            num_experts=(getattr(hf, "num_local_experts", 0)
+                         if mt == "mixtral" else 0),
             num_experts_per_tok=getattr(hf, "num_experts_per_tok", 2),
             embed_scale=(hf.hidden_size ** 0.5 if mt == "gemma" else None),
             norm_offset=mt == "gemma")
@@ -1096,15 +1129,27 @@ def _cohere_config(hf, mt, name):
 
 
 def _qwen3_config(hf, mt, name):
+    """qwen3 and qwen3_moe (the JAX branch :788): the MoE type is
+    mixtral-shaped, its experts ``moe_intermediate_size`` wide, refused
+    with dense ``mlp_only_layers`` or a ``decoder_sparse_step`` past 1."""
     sw, aw, _ = _layer_windows_from_hf(hf)
     heads, _, hd = _heads_kv_hd(hf)
     inv_freq, attn_factor, _ = _rope_scaling_params(hf, hd, mt)
+    num_experts, extra = 0, {}
+    if mt == "qwen3_moe":
+        num_experts = hf.num_experts
+        if list(getattr(hf, "mlp_only_layers", []) or []):
+            raise NotImplementedError("qwen3_moe with mlp_only_layers")
+        if getattr(hf, "decoder_sparse_step", 1) != 1:
+            raise NotImplementedError(
+                "qwen3_moe with decoder_sparse_step != 1")
+        extra["intermediate_size"] = hf.moe_intermediate_size
     return _llama_shaped(
         hf, name, rope_inv_freq=inv_freq, rope_attn_factor=attn_factor,
         qk_norm="rms_head", sliding_window=sw, attn_windows=aw,
-        num_experts=0,
+        num_experts=num_experts,
         num_experts_per_tok=getattr(hf, "num_experts_per_tok", 2),
-        moe_norm_topk=bool(getattr(hf, "norm_topk_prob", True)))
+        moe_norm_topk=bool(getattr(hf, "norm_topk_prob", True)), **extra)
 
 
 def _smollm3_config(hf, mt, name):
@@ -1174,6 +1219,7 @@ def _nemotron_config(hf, mt, name):
 _LATER = {
     "gpt_neo": _gpt_neo_config, "gemma2": _gemma2_config,
     "cohere": _cohere_config, "qwen3": _qwen3_config,
+    "qwen3_moe": _qwen3_config,
     "smollm3": _smollm3_config, "hunyuan_v1_dense": _hunyuan_config,
     "exaone4": _exaone4_config, "granite": _granite_config,
     "olmo2": _olmo2_config, "nemotron": _nemotron_config,
@@ -1308,11 +1354,35 @@ def _llama(cfg, r):
             yield from _linear_items(o + n, lin(f"{p}self_attn.{n}_proj"))
         yield o + "mlp_norm.scale", \
             r.f32(p + "post_attention_layernorm.weight") + off
+        if cfg.is_moe:
+            yield from _experts(cfg, r, p, o)
+            continue
         for n in ("gate", "up", "down"):
             yield from _linear_items(o + n, lin(f"{p}mlp.{n}_proj"))
     yield "final_norm.scale", r.f32("model.norm.weight") + off
     if not cfg.tie_word_embeddings:
         yield "lm_head.w", r.t("lm_head.weight").T
+
+
+def _experts(cfg, r, p, o):
+    """An MoE block's router and stacked experts (the JAX llama branch
+    :1475-1518): qwen3_moe's router ``mlp.gate`` and experts
+    ``mlp.experts.N.{gate,up,down}_proj``, mixtral's
+    ``block_sparse_moe.gate`` and ``block_sparse_moe.experts.N.{w1, w3,
+    w2}`` (gate, up, down); each weight transposed to [din, dout] and
+    stacked over the experts."""
+    if p + "mlp.gate.weight" in r:
+        router, ex = p + "mlp.gate.weight", p + "mlp.experts.{}."
+        names = {"gate": "gate_proj", "up": "up_proj", "down": "down_proj"}
+    else:
+        router, ex = (p + "block_sparse_moe.gate.weight",
+                      p + "block_sparse_moe.experts.{}.")
+        names = {"gate": "w1", "up": "w3", "down": "w2"}
+    yield o + "router.w", r.t(router).T
+    for n, hf in names.items():
+        yield f"{o}experts.{n}.w", torch.stack(
+            [r.t(ex.format(e) + hf + ".weight").T
+             for e in range(cfg.num_experts)])
 
 
 def _per_head_qkv(w, b, H, hd, D):

@@ -15,7 +15,13 @@ the config has the feature; E = ``embed_proj_dim`` or D):
     layers.{i}.{attn,mlp}_post_norm.{scale,bias?} [D]? (post_block_norms)
     layers.{i}.{q,k}_norm.scale?  (qk_norm: [hd] for "rms_head", else
                                    the flat [H*hd] / [Hkv*hd])
-    layers.{i}.{gate?,up,down}.<leaf> (+ .b; gate only in a gated MLP)
+    layers.{i}.{gate?,up,down}.<leaf> (+ .b; gate only in a gated MLP;
+                                   absent in an MoE block)
+    layers.{i}.router.w [D,E]?    (MoE: the router, kept float)
+    layers.{i}.experts.{gate,up}.<leaf> [E,D,I], .down.<leaf> [E,I,D]?
+                                  (MoE: stacked expert weights; int8 q
+                                   [E,din,dout] + scale [E,dout], int4
+                                   p4 [E,din/2,dout] + scale [E,dout])
     final_norm.{scale,bias?} [D]  (absent with post_norm)
     lm_head.<leaf> (+ .b)         (absent with tie_word_embeddings)
 
@@ -52,17 +58,20 @@ from distributed_llm_inferencing_tpu_torch.ops.quant import (
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 LAYER_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
+EXPERT_LEAVES = ("gate", "up", "down")
 LAYER_NORMS = ("attn_norm", "mlp_norm")
 POST_NORMS = ("attn_post_norm", "mlp_post_norm")
 QK_NORMS = ("q_norm", "k_norm")
 
 
 def _leaf_shapes(prefix: str, din: int, dout: int, bias: bool = False,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, lead: tuple = ()):
+    """A linear leaf's tensors; ``lead``: stacked leading axes (the
+    experts' [E])."""
     if quant == "int4" and din % 2:
         raise ValueError(f"{prefix}: int4 packing needs even din, got {din}")
     rows = din // 2 if quant == "int4" else din
-    out = {f"{prefix}.{k}": (dout,) if k == "scale" else (rows, dout)
+    out = {f"{prefix}.{k}": lead + ((dout,) if k == "scale" else (rows, dout))
            for k in LEAF_KEYS[quant or "float"]}
     if bias:
         out[f"{prefix}.b"] = (dout,)
@@ -75,15 +84,24 @@ def _norm_shapes(cfg: ModelConfig, prefix: str, dim: int):
 
 
 def layer_linears(cfg: ModelConfig):
-    """(name, din, dout, biased) of each linear of a block."""
+    """(name, din, dout, biased) of each linear of a block (an MoE
+    block's MLP is its experts, ``expert_leaves``)."""
     D, I = cfg.hidden_size, cfg.intermediate_size
     out = [("q", D, cfg.q_dim, cfg.attn_bias),
            ("k", D, cfg.kv_dim, cfg.attn_bias),
            ("v", D, cfg.kv_dim, cfg.attn_bias),
            ("o", cfg.q_dim, D, cfg.o_bias_effective)]
+    if cfg.is_moe:
+        return out
     if cfg.gated_mlp:   # biased with mlp_bias, as the JAX converter's
         out.append(("gate", D, I, cfg.mlp_bias))   # llama branch makes it
     return out + [("up", D, I, cfg.mlp_bias), ("down", I, D, cfg.mlp_bias)]
+
+
+def expert_leaves(cfg: ModelConfig):
+    """(name, din, dout) of each stacked expert leaf of an MoE block."""
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    return [("gate", D, I), ("up", D, I), ("down", I, D)]
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -115,6 +133,12 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         for n, din, dout, bias in layer_linears(cfg):
             shapes.update(_leaf_shapes(f"layers.{i}.{n}", din, dout,
                                        bias, cfg.quant))
+        if cfg.is_moe:
+            shapes[f"layers.{i}.router.w"] = (D, cfg.num_experts)
+            for n, din, dout in expert_leaves(cfg):
+                shapes.update(_leaf_shapes(
+                    f"layers.{i}.experts.{n}", din, dout, False, cfg.quant,
+                    (cfg.num_experts,)))
     if not cfg.post_norm:
         shapes.update(_norm_shapes(cfg, "final_norm", D))
     if not cfg.tie_word_embeddings:
@@ -259,6 +283,13 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None
             leaf(p, n, ("scale",), True, ())
         elif n in LAYER_LINEARS:
             leaf(p, n, lin_keys, True)
+        elif n == "router" and cfg.is_moe:
+            leaf(p, n, ("w",), True, ())
+        elif n == "experts" and cfg.is_moe:
+            if set(p) != set(EXPERT_LEAVES):
+                raise ValueError(f"layers.experts: leaves {sorted(p)}")
+            for e in EXPERT_LEAVES:
+                leaf(p[e], f"experts.{e}", lin_keys, True, ())
         elif n not in static:
             raise ValueError(f"layers.{n}: not a leaf the port serves")
     if "final_norm" in np_tree:

@@ -3,8 +3,9 @@
 An own copy of the reference registry's rows for the families the port
 serves: llama (``_llama``), gpt2 (``_gpt2``) and opt (``_opt``), qwen2,
 gemma, gpt-neox/pythia, phi, falcon, bloom, mpt and gpt-j, plus the tiny
-test configs. The rows with experts or latent attention (mixtral, the MoE
-and deepseek proxies) join as the port grows to run them.
+test configs, and the rows with experts behind the softmax router
+(mixtral-8x7b, moe-proxy-8e, tiny-mixtral). The rows with latent
+attention (the deepseek proxies) join as the port grows to run them.
 """
 
 from __future__ import annotations
@@ -79,6 +80,18 @@ register(_llama("llama-3-70b", 8192, 28672, 80, 64, 8))
 # llama arch + sliding window
 register(_llama("mistral-7b", 4096, 14336, 32, 32, 8, vocab=32000,
                 ctx=32768, theta=10000.0, window=4096))
+
+# --- Mixtral: Mistral + 8-expert MoE ---
+register(_llama("mixtral-8x7b", 4096, 14336, 32, 32, 8, vocab=32000,
+                ctx=32768, theta=1000000.0).replace(
+                    name="mixtral-8x7b", num_experts=8, num_experts_per_tok=2))
+
+# --- MoE proxy: an 8-expert ~2.6B-total (~0.8B active) llama-layout MoE
+# that one card serves in bf16 ---
+register(_llama("moe-proxy-8e", 1536, 4096, 16, 12, 4, vocab=32000,
+                ctx=4096, theta=10000.0).replace(
+                    name="moe-proxy-8e", num_experts=8,
+                    num_experts_per_tok=2))
 
 # --- Qwen2: llama layout + bias on q/k/v only ---
 register(_llama("qwen2-7b", 3584, 18944, 28, 28, 4, vocab=152064,
@@ -196,3 +209,10 @@ register(ModelConfig(
     head_dim=8, max_position_embeddings=1024, norm_type="rmsnorm",
     activation="silu", gated_mlp=True, position_embedding="rope",
     attn_bias=False, mlp_bias=False, tie_word_embeddings=False))
+register(ModelConfig(
+    name="tiny-mixtral", family="llama", vocab_size=256, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=8, num_kv_heads=4,
+    head_dim=8, max_position_embeddings=128, norm_type="rmsnorm",
+    activation="silu", gated_mlp=True, position_embedding="rope",
+    attn_bias=False, mlp_bias=False, tie_word_embeddings=False,
+    num_experts=4, num_experts_per_tok=2))

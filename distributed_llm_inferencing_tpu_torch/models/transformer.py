@@ -1,8 +1,9 @@
 """Causal transformer, the dense families, as torch ``nn.Module``s.
 
 Port of the reference's ``models/transformer.py`` for the families
-without experts or latent attention: llama/mistral, gpt2, opt, qwen2,
-gemma, gpt-neox/pythia, phi, falcon, bloom, mpt and gpt-j. One block
+without latent attention: llama/mistral (and mixtral's experts), gpt2,
+opt, qwen2, gemma, gpt-neox/pythia, phi, falcon, bloom, mpt and gpt-j.
+One block
 covers them through ModelConfig switches, as in the reference: RMSNorm
 or LayerNorm; gated or plain MLP with silu, relu or gelu (tanh or
 exact); biases on any linear; tied or untied head (the tied one reads
@@ -22,9 +23,33 @@ scales, and nemotron's squared ReLU. The reference runs its stacked
 ``[L, ...]`` layers under ``lax.scan`` and carries per-layer windows and
 rope switches as traced leaves; here each layer is its own ``Block``
 holding its window and rope switch as static values, and the stack is a
-Python loop. A config that switches on anything else (MoE, MLA, sinks,
-a QKV clamp, ...) is refused at construction rather than served wrong
-(``check_supported``).
+Python loop. A config that switches on anything else (another router,
+shared experts, MLA, sinks, a QKV clamp, ...) is refused at construction
+rather than served wrong (``check_supported``).
+
+Experts behind the softmax router (mixtral, qwen3_moe; the reference's
+``_moe``): each MoE block holds a float router [D, E] and the stacked
+expert leaves gate/up [E, D, I] and down [E, I, D] in the weights' stored
+form (``_ew``: float, or int8 / int4 levels times the per-column scale
+applied to the product). Softmax, top-k and, with ``moe_norm_topk``,
+renormalized gates (``_moe_gates``); then every expert for every token
+weighted by its gate (``_moe_dense``), or GShard capacity dispatch
+(``_moe_capacity``: C = max(1, int(cf * k * N / E)) slots per expert,
+token-then-choice priority, a choice past its expert's C dropped) where N
+counts every position of the padded input, as the reference's does;
+``moe_dispatch="auto"`` is dense at N <= ``MOE_AUTO_DENSE_MAX_TOKENS``
+(decode) and capacity above. Plain torch, as the reference's plain XLA.
+The reference's capacity arm fails on quantized experts (it multiplies an
+[E, C, I] product by the [E, I] scale); the port broadcasts the scale over
+C (ROADMAP Queue C).
+
+Multi-LoRA (the reference's ``_lora_apply``): a forward given ``lora``
+(``LoRARows``: a stacked pack per projection and a slot per row) adds
+each row's adapter delta (ops/lora.py ``gathered_delta``) after the q, k,
+v, o, gate, up and down linears, over any weight form (an adapter over an
+int4 base adds after ``q4_matmul``). A forward without it runs no delta
+code at all. The fused decode kernel owns q end to end, so a pass with
+adapter rows always takes the unfused route, as the reference's gate.
 
 The int8 KV cache (``kv_quant="int8"``, the reference's): each block
 quantizes its fresh K/V per (token, head) (ops/kvcache.py ``quant_kv``)
@@ -102,7 +127,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
-from distributed_llm_inferencing_tpu_torch.models.params import layer_linears
+from distributed_llm_inferencing_tpu_torch.models.params import (
+    EXPERT_LEAVES, layer_linears)
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode
 from distributed_llm_inferencing_tpu_torch.ops.attention import (
     alibi_slopes, attend_decode, attend_prefill)
@@ -110,13 +136,14 @@ from distributed_llm_inferencing_tpu_torch.ops.flash_attention import (
     masked_attention)
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import (
     KVCache, block_slots, dequant_kv, quant_kv, write_block)
+from distributed_llm_inferencing_tpu_torch.ops.lora import gathered_delta
 from distributed_llm_inferencing_tpu_torch.ops.norms import (
     Norm, qk_normalize)
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
     PagedKVCache, gather_seq, paged_attend_decode, paged_attend_prefix,
     write_block_run, write_token)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
-    leaf_form, leaf_keys)
+    leaf_form, leaf_keys, pack_chunks, unpack_int4)
 from distributed_llm_inferencing_tpu_torch.ops.quant_matmul import q4_linear
 from distributed_llm_inferencing_tpu_torch.ops.rope import (
     apply_rope, rope_cos_sin, rotary_dim)
@@ -134,9 +161,13 @@ PREGATHER_MAX_BYTES = 256 * 1024 * 1024
 # field -> the only value the port serves (features not ported yet)
 _UNPORTED = {
     "qkv_clip": None, "kv_lora_rank": None, "q_lora_rank": None,
-    "mla_latent_cache": False, "num_experts": 0, "attn_sinks": False,
-    "dense_prefix_layers": 0,
+    "mla_latent_cache": False, "attn_sinks": False,
+    "dense_prefix_layers": 0, "moe_shared_experts": 0,
+    "moe_swiglu_limit": None,
 }
+# the reference's token count at or below which "auto" dispatch runs the
+# dense MoE path (_MOE_AUTO_DENSE_MAX_TOKENS): decode steps stay dense
+MOE_AUTO_DENSE_MAX_TOKENS = 32
 
 
 def _relu2(x):
@@ -151,7 +182,8 @@ _ACT = {"silu": F.silu, "relu": F.relu, "relu2": _relu2,
 _CHOICES = {"norm_type": ("rmsnorm", "layernorm"), "activation": tuple(_ACT),
             "position_embedding": ("rope", "learned", "alibi"),
             "qk_norm": (None, "rms_head", "ln_head", "rms_full"),
-            "kv_quant": (None, "int8")}
+            "kv_quant": (None, "int8"), "moe_router": ("softmax",),
+            "moe_dispatch": ("auto", "dense", "capacity")}
 # field -> its llama value: the family switches, which tp does not shard
 # yet (parallel/sharding.py cuts the llama arm's leaves only)
 _LLAMA_ARM = {
@@ -165,6 +197,7 @@ _LLAMA_ARM = {
     "rope_layers": None, "attn_softcap": None, "logit_softcap": None,
     "logit_scale": None, "post_block_norms": False,
     "sublayer_postnorm_only": False, "residual_scale": None,
+    "num_experts": 0,
 }
 
 
@@ -174,6 +207,8 @@ def check_supported(cfg: ModelConfig):
            if getattr(cfg, f) != want]
     bad += [f"{f}={getattr(cfg, f)!r}" for f, ok in _CHOICES.items()
             if getattr(cfg, f) not in ok]
+    if cfg.is_moe and cfg.mlp_bias:
+        bad.append("mlp_bias=True with num_experts (per-expert biases)")
     for f in ("attn_windows", "rope_layers"):
         if getattr(cfg, f) is not None and \
                 len(getattr(cfg, f)) != cfg.num_layers:
@@ -225,6 +260,108 @@ def layer_rope(cfg: ModelConfig, i: int) -> bool:
     """Whether layer i rotates q/k (``rope_layers``: 0 = NoPE)."""
     return cfg.position_embedding == "rope" and (
         cfg.rope_layers is None or bool(cfg.rope_layers[i]))
+
+
+@dataclasses.dataclass
+class LoRARows:
+    """The adapter of every row of a forward: ``pack`` maps each targeted
+    projection to its stacked device pack ``{"a": [L, S, din, rmax], "b":
+    [L, S, rmax, dout]}`` (the alpha / rank scale folded into B), ``ids``
+    [B] each row's slot (0: the base model's zero slot). The batcher's
+    pack holds every target at (slots + 1, ``DLI_LORA_MAX_RANK``); the
+    engine's one adapter's targets at slot 0 and its own rank."""
+    pack: Dict[str, Dict[str, torch.Tensor]]
+    ids: torch.Tensor
+
+    def layer(self, i: int, target: str) -> Dict[str, torch.Tensor]:
+        p = self.pack[target]
+        return {"a": p["a"][i], "b": p["b"][i]}
+
+
+def _ew(operand, leaf: Dict[str, torch.Tensor], eq: str, scale_at=None):
+    """Expert einsum ``eq`` of ``operand`` with a stacked expert leaf in
+    its stored form (the reference's ``_ew``): float ``w``, or int8 /
+    int4 levels in the operand's dtype with the [E, out] scale on the
+    product, ``scale_at`` reshaping it to the product's layout."""
+    if "w" in leaf:
+        return torch.einsum(eq, operand, leaf["w"])
+    if "p4" in leaf:
+        qw = unpack_int4(leaf["p4"], pack_chunks(leaf))
+    else:
+        qw = leaf["q"]
+    y = torch.einsum(eq, operand, qw.to(operand.dtype))
+    scale = leaf["scale"].to(operand.dtype)
+    return y * (scale if scale_at is None else scale_at(scale))
+
+
+def moe_gates(x, router_w, cfg: ModelConfig):
+    """Softmax-router gates [..., E] f32 (the reference's ``_moe_gates``,
+    "softmax" arm): softmax over the router logits, every expert whose
+    probability reaches the k-th largest kept, renormalized over the kept
+    ones with ``moe_norm_topk``."""
+    logits = torch.matmul(x.float(), router_w.float())
+    probs = torch.softmax(logits, dim=-1)
+    kth = torch.topk(probs, cfg.num_experts_per_tok, dim=-1).values[..., -1:]
+    gate = torch.where(probs >= kth, probs, 0.0)
+    if cfg.moe_norm_topk:
+        gate = gate / gate.sum(dim=-1, keepdim=True)
+    return gate
+
+
+def moe_dense(x, router_w, experts, cfg: ModelConfig, act):
+    """Every expert for every token, weighted by its gate (the
+    reference's ``_moe_dense``): no permutation and no drops, E/k times
+    the FLOPs of a dispatch, the trade at decode's token counts."""
+    gate = moe_gates(x, router_w, cfg)
+    g = _ew(x, experts["gate"], "...d,edi->...ei")
+    u = _ew(x, experts["up"], "...d,edi->...ei")
+    out = _ew(act(g) * u, experts["down"], "...ei,eid->...ed")
+    out = torch.einsum("...ed,...e->...d", out.float(), gate)
+    return out.to(x.dtype)
+
+
+def moe_capacity(x, router_w, experts, cfg: ModelConfig, act):
+    """GShard capacity dispatch (the reference's ``_moe_capacity``): each
+    expert takes at most C = max(1, int(cf * k * N / E)) of the N
+    positions of ``x`` (padding positions compete too), in token order,
+    then choice order; a choice past its expert's capacity is dropped
+    (the token's other choices still apply)."""
+    *lead, d = x.shape
+    xf = x.reshape(-1, d)
+    n = xf.shape[0]
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    c = max(1, int(cfg.moe_capacity_factor * k * n / e))
+    gate = moe_gates(xf, router_w, cfg)                      # [N, E]
+    gate_vals, gate_idx = torch.topk(gate, k, dim=-1)        # [N, k]
+    onehot = F.one_hot(gate_idx, e).float()                  # [N, k, E]
+    flat = onehot.reshape(n * k, e)
+    pos = (torch.cumsum(flat, dim=0) * flat - 1.0).reshape(n, k, e)
+    keep = (pos >= 0) & (pos < c)
+    slot = pos.clamp(0, c - 1).long()
+    combine = torch.einsum("nke,nkec->nec",
+                           onehot * gate_vals[..., None] * keep,
+                           F.one_hot(slot, c).float())       # [N, E, C]
+    dispatch = (combine > 0).to(x.dtype)
+    ex_in = torch.einsum("nec,nd->ecd", dispatch, xf)        # [E, C, D]
+    per_slot = functools.partial(torch.unsqueeze, dim=1)     # [E, 1, out]
+    g = _ew(ex_in, experts["gate"], "ecd,edi->eci", per_slot)
+    u = _ew(ex_in, experts["up"], "ecd,edi->eci", per_slot)
+    out = _ew(act(g) * u, experts["down"], "eci,eid->ecd", per_slot)
+    y = torch.einsum("ecd,nec->nd", out.float(), combine)
+    return y.reshape(*lead, d).to(x.dtype)
+
+
+def moe(x, router_w, experts, cfg: ModelConfig, act):
+    """The routed MLP by ``cfg.moe_dispatch``: "auto" is dense at N <=
+    ``MOE_AUTO_DENSE_MAX_TOKENS`` positions and capacity above."""
+    mode = cfg.moe_dispatch
+    if mode == "auto":
+        n = 1
+        for size in x.shape[:-1]:
+            n *= size
+        mode = "dense" if n <= MOE_AUTO_DENSE_MAX_TOKENS else "capacity"
+    fn = moe_capacity if mode == "capacity" else moe_dense
+    return fn(x, router_w, experts, cfg, act)
 
 
 class Linear(nn.Module):
@@ -348,6 +485,12 @@ class Block(nn.Module):
         for n, *_ in layer_linears(cfg):
             setattr(self, n, Linear(_leaf(p, n),
                                     tp if n in ("o", "down") else None))
+        self.router = self.experts = None
+        if cfg.is_moe:
+            self.router = _param(p["router.w"])
+            self.experts = {n: _leaf(p, f"experts.{n}")
+                            for n in EXPERT_LEAVES}
+        self.index = index
         self.act = _ACT[cfg.activation]
         self.alibi = alibi                # [H] f32 on the device, or None
         self.window = layer_window(cfg, index)
@@ -369,17 +512,26 @@ class Block(nn.Module):
             t = qk_normalize(t, scale, cfg.qk_norm, cfg.norm_eps)
         return t
 
-    def _kv(self, h, cos_sin):
+    def _proj(self, name: str, x, lora: Optional[LoRARows]):
+        """Linear ``name`` of x, plus the rows' adapter delta when
+        ``lora`` targets it (the reference's ``_lora_apply``)."""
+        y = getattr(self, name)(x)
+        if lora is None or name not in lora.pack:
+            return y
+        return y + gathered_delta(x, lora.layer(self.index, name), lora.ids)
+
+    def _kv(self, h, cos_sin, lora=None):
         cfg = self.cfg
         B, s, _ = h.shape
-        k = self.k(h).view(B, s, self.kv_heads, cfg.head_dim)
-        v = self.v(h).view(B, s, self.kv_heads, cfg.head_dim)
+        k = self._proj("k", h, lora).view(B, s, self.kv_heads, cfg.head_dim)
+        v = self._proj("v", h, lora).view(B, s, self.kv_heads, cfg.head_dim)
         return self._pos(k, cos_sin, self.k_norm), v
 
-    def _qkv(self, h, cos_sin):
+    def _qkv(self, h, cos_sin, lora=None):
         B, s, _ = h.shape
-        q = self.q(h).view(B, s, self.heads, self.cfg.head_dim)
-        k, v = self._kv(h, cos_sin)
+        q = self._proj("q", h, lora).view(B, s, self.heads,
+                                          self.cfg.head_dim)
+        k, v = self._kv(h, cos_sin, lora)
         return self._pos(q, cos_sin, self.q_norm), k, v
 
     def _in(self, x):
@@ -393,12 +545,17 @@ class Block(nn.Module):
     def _scaled(self, y):
         return y if self.residual_scale is None else y * self.residual_scale
 
-    def _mlp(self, h):
+    def _mlp(self, h, lora=None):
+        if self.router is not None:
+            return moe(h, self.router, self.experts, self.cfg, self.act)
         if self.gate is not None:
-            return self.down(self.act(self.gate(h)) * self.up(h))
-        return self.down(self.act(self.up(h)))
+            a = (self.act(self._proj("gate", h, lora))
+                 * self._proj("up", h, lora))
+        else:
+            a = self.act(self._proj("up", h, lora))
+        return self._proj("down", a, lora)
 
-    def _tail(self, x, h, attn):
+    def _tail(self, x, h, attn, lora=None):
         """o projection, then the residual topology and the MLP (the
         reference's ``_block_tail``): parallel (attention and MLP read
         the same input, one residual add; one shared norm or two),
@@ -409,7 +566,8 @@ class Block(nn.Module):
         ``residual_scale``, before its residual add."""
         cfg = self.cfg
         B, s = attn.shape[:2]
-        attn = self.o(attn.reshape(B, s, self.heads * cfg.head_dim))
+        attn = self._proj("o", attn.reshape(B, s, self.heads * cfg.head_dim),
+                          lora)
         if self.attn_post_norm is not None:
             attn = self.attn_post_norm(attn)
         elif cfg.sublayer_postnorm_only:
@@ -417,12 +575,12 @@ class Block(nn.Module):
         attn = self._scaled(attn)
         if cfg.parallel_residual:
             h2 = h if self.mlp_norm is None else self.mlp_norm(x)
-            return x + attn + self._scaled(self._mlp(h2))
+            return x + attn + self._scaled(self._mlp(h2, lora))
         x = x + attn
         if cfg.post_norm:
             x = self.attn_norm(x)
         m = self._mlp(x if cfg.post_norm or cfg.sublayer_postnorm_only
-                      else self.mlp_norm(x))
+                      else self.mlp_norm(x), lora)
         if self.mlp_post_norm is not None:
             m = self.mlp_post_norm(m)
         elif cfg.sublayer_postnorm_only:
@@ -445,12 +603,12 @@ class Block(nn.Module):
         write(cv, v)
 
     def forward(self, x, cache, slots, cos_sin, new_lengths,
-                is_prefill: bool, q_positions=None):
+                is_prefill: bool, q_positions=None, lora=None):
         """``cache``: this layer's (k, v, k_scale, v_scale) views;
         ``q_positions`` [B, s]: a multi-token decode block's positions
-        (speculative verification)."""
+        (speculative verification); ``lora``: the rows' adapters."""
         h = self._in(x)
-        q, k, v = self._qkv(h, cos_sin)
+        q, k, v = self._qkv(h, cos_sin, lora)
         self._write(lambda c, n: write_block(c, n, None, slots), cache, k, v)
         cap = self.cfg.attn_softcap
         if is_prefill:
@@ -462,16 +620,16 @@ class Block(nn.Module):
                                  alibi=self.alibi, softcap=cap,
                                  k_scale=cache[2], v_scale=cache[3],
                                  q_positions=q_positions)
-        return self._tail(x, h, attn)
+        return self._tail(x, h, attn, lora)
 
     def paged_prefill(self, x, cache, cos_sin, tail_blocks, prefix_blocks,
-                      prefix_len, q_positions, tail_valid):
+                      prefix_len, q_positions, tail_valid, lora=None):
         """A wave of prompt tails: write their K/V into ``tail_blocks``,
         attend the cached prefix plus the tail (plain torch, as in the
         reference). ``cache``: this layer's pool views (``PagedKVCache.
         layer``)."""
         h = self._in(x)
-        q, k, v = self._qkv(h, cos_sin)
+        q, k, v = self._qkv(h, cos_sin, lora)
         self._write(lambda c, n: write_block_run(c, n, tail_blocks), cache,
                     k, v)
         attn = paged_attend_prefix(q, k, v, cache[0], cache[1],
@@ -481,10 +639,10 @@ class Block(nn.Module):
                                    softcap=self.cfg.attn_softcap,
                                    k_scale_layer=cache[2],
                                    v_scale_layer=cache[3])
-        return self._tail(x, h, attn)
+        return self._tail(x, h, attn, lora)
 
     def paged_decode(self, x, cache, cos_sin, block_tables, context_lens,
-                     fused: bool = False, fused_rope=None):
+                     fused: bool = False, fused_rope=None, lora=None):
         """One token per slot at position ``context_lens``. With ``fused``
         and a q leaf the fused kernel takes (``fused_decode.supported``:
         no bias), the q projection (in the leaf's stored form), RoPE
@@ -499,7 +657,7 @@ class Block(nn.Module):
         if fused:
             k, v = self._kv(h, cos_sin)
         else:
-            q, k, v = self._qkv(h, cos_sin)
+            q, k, v = self._qkv(h, cos_sin, lora)
         self._write(lambda c, n: write_token(c, n[:, 0], block_tables,
                                              context_lens), cache, k, v)
         ck, cv = cache[:2]
@@ -517,10 +675,10 @@ class Block(nn.Module):
                                        softcap=self.cfg.attn_softcap,
                                        k_scale_layer=cache[2],
                                        v_scale_layer=cache[3])
-        return self._tail(x, h, attn)
+        return self._tail(x, h, attn, lora)
 
     def paged_side(self, x, cache, cos_sin, block_tables, q_pos, side_k,
-                   side_v, off, kv_pos, kv_valid, pool=None):
+                   side_v, off, kv_pos, kv_valid, pool=None, lora=None):
         """A decode chunk's step for this layer in the side-buffer
         formulation (an int8 pool's plain chunk, the speculative chunk):
         the block's fresh K/V [R, s, Hkv, hd] goes to entries ``off`` [s]
@@ -532,7 +690,7 @@ class Block(nn.Module):
         chunk's start, the side entries it keeps). The pool is not
         written: the chunk's flush does that."""
         h = self._in(x)
-        q, k, v = self._qkv(h, cos_sin)
+        q, k, v = self._qkv(h, cos_sin, lora)
         side_k.index_copy_(1, off, k.to(side_k.dtype))
         side_v.index_copy_(1, off, v.to(side_v.dtype))
         if pool is not None:
@@ -543,7 +701,7 @@ class Block(nn.Module):
                                 torch.cat([vp, side_v], dim=1), q_pos,
                                 kv_pos, kv_valid, self.window, self.alibi,
                                 softcap=self.cfg.attn_softcap)
-        return self._tail(x, h, attn)
+        return self._tail(x, h, attn, lora)
 
 
 def gather_pool(cache, block_tables, dtype):
@@ -636,13 +794,15 @@ class Transformer(nn.Module):
                             cfg.rope_attn_factor)
 
     def forward(self, tokens, cache: KVCache, write_starts, q_positions,
-                new_lengths, is_prefill: bool = False, gather=None):
+                new_lengths, is_prefill: bool = False, gather=None,
+                lora: Optional[LoRARows] = None):
         """Run the model over a block of tokens [B, s], updating the cache
         in place. ``write_starts`` [B]: first slot of the block;
         ``q_positions`` [B, s]: absolute positions; ``new_lengths`` [B]:
         cache lengths after the block. ``gather`` [B] (optional) keeps
         only that position's row before the head — the engine's
-        last-logit gather, without the [B, s, V] logits. Returns
+        last-logit gather, without the [B, s, V] logits. ``lora``: each
+        row's adapter (``LoRARows``), None for the base model. Returns
         (logits [B, s or 1, V] f32, cache). Invariant, as in the
         reference: slot index == absolute position."""
         cfg = self.cfg
@@ -653,13 +813,14 @@ class Transformer(nn.Module):
         q_multi = None if is_prefill or s == 1 else q_positions
         for i, layer in enumerate(self.layers):
             x = layer(x, cache.layer(i), slots, cos_sin, new_lengths,
-                      is_prefill, q_multi)
+                      is_prefill, q_multi, lora)
         if gather is not None:
             x = x[torch.arange(B, device=x.device), gather][:, None]
         return self.unembed(x), dataclasses.replace(cache,
                                                     lengths=new_lengths)
 
-    def prefill(self, tokens, lengths, cache: KVCache, gather=None):
+    def prefill(self, tokens, lengths, cache: KVCache, gather=None,
+                lora: Optional[LoRARows] = None):
         """Prefill a right-padded prompt block: tokens [B, S0], lengths
         [B]. Padding lands in slots the masks exclude and later decode
         steps overwrite."""
@@ -668,16 +829,18 @@ class Transformer(nn.Module):
         return self.forward(
             tokens, cache,
             torch.zeros(B, dtype=torch.int32, device=tokens.device), pos,
-            lengths, is_prefill=True, gather=gather)
+            lengths, is_prefill=True, gather=gather, lora=lora)
 
-    def decode_step(self, tokens, cache: KVCache):
+    def decode_step(self, tokens, cache: KVCache,
+                    lora: Optional[LoRARows] = None):
         """One decode step: tokens [B, 1], each sequence writing at its
         own length; ``cache.lengths`` advances by one in place, so the
         engine's captured step keeps its addresses. Returns (logits,
         cache)."""
         new_lengths = cache.lengths + 1
         logits, _ = self.forward(tokens, cache, cache.lengths,
-                                 cache.lengths[:, None], new_lengths)
+                                 cache.lengths[:, None], new_lengths,
+                                 lora=lora)
         cache.lengths.copy_(new_lengths)
         return logits, cache
 
@@ -686,7 +849,8 @@ class Transformer(nn.Module):
     # ------------------------------------------------------------------
 
     def paged_prefill_tail(self, tokens, tail_len, tail_blocks,
-                           prefix_blocks, prefix_len, paged: PagedKVCache):
+                           prefix_blocks, prefix_len, paged: PagedKVCache,
+                           lora: Optional[LoRARows] = None):
         """Prefill a wave of prompt tails into paged blocks, each row
         attending its own cached prefix (never recomputed).
 
@@ -704,33 +868,35 @@ class Transformer(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer.paged_prefill(x, paged.layer(i), cos_sin,
                                     tail_blocks, prefix_blocks, prefix_len,
-                                    q_pos, tail_valid)
+                                    q_pos, tail_valid, lora)
         last = (tail_len.long() - 1).clamp(min=0)
         x = x[torch.arange(b, device=x.device), last][:, None]
         return self.unembed(x)[:, 0], paged
 
     def paged_decode_step(self, tokens, paged: PagedKVCache, block_tables,
-                          context_lens):
+                          context_lens, lora: Optional[LoRARows] = None):
         """One decode step for R slots. tokens [R] next token per slot;
         block_tables [R,MB] int32; context_lens [R] int32 — cached tokens
         BEFORE this step (the new token writes there). Inactive slots
         point at the reserved dummy block with context_len 0; their
-        outputs are discarded. Writes the pool in place. Returns
-        (logits [R,V] f32, paged)."""
+        outputs are discarded. Writes the pool in place. A pass with
+        adapter rows (``lora``) never takes the fused kernel, which owns
+        q end to end. Returns (logits [R,V] f32, paged)."""
         pos = context_lens.long()[:, None]
         x = self.embed(tokens[:, None], pos)
         cos_sin = self._cos_sin(pos)
-        fused = fused_decode.eligible(self.cfg, paged.quantized)
+        fused = (fused_decode.eligible(self.cfg, paged.quantized)
+                 and lora is None)
         fused_rope = (fused_decode.rope_rows(cos_sin)
                       if fused and cos_sin is not None else None)
         for i, layer in enumerate(self.layers):
             x = layer.paged_decode(x, paged.layer(i), cos_sin,
                                    block_tables, context_lens, fused,
-                                   fused_rope)
+                                   fused_rope, lora)
         return self.unembed(x)[:, 0], paged
 
     def paged_chunk_step(self, s: "PagedChunkState", paged: PagedKVCache,
-                         dummy_block: int):
+                         dummy_block: int, lora: Optional[LoRARows] = None):
         """Step ``s.t`` of a K-step decode chunk with sampling on the
         device for R slots — the reference's stepwise formulation
         (``_paged_decode_chunk_stepwise``): the step writes the pool and
@@ -747,16 +913,19 @@ class Transformer(nn.Module):
         of ``s.toks``/``s.emits``; slot r emitted
         ``toks[:emits[:, r].sum(), r]``. The step touches nothing but
         ``s`` and the pool and never syncs with the host, so the batcher
-        captures it once and replays it K times (runtime/graphs.py)."""
+        captures it once and replays it K times (runtime/graphs.py).
+        ``lora``: the slots' adapters, whose ids (``s.aids``) ride the
+        chunk's inputs."""
         alive = s.alive.bool()
         t = s.t.long()
         if paged.quantized:
-            logits = self._paged_chunk_logits_q8(s, paged, alive, t)
+            logits = self._paged_chunk_logits_q8(s, paged, alive, t, lora)
             s.wrote.index_copy_(0, t, alive[None])
         else:
             bt_eff = torch.where(alive[:, None], s.bt, dummy_block)
             cl_eff = torch.where(alive, s.cl, 0)
-            logits, _ = self.paged_decode_step(s.cur, paged, bt_eff, cl_eff)
+            logits, _ = self.paged_decode_step(s.cur, paged, bt_eff, cl_eff,
+                                               lora)
         nxt = sample_batch(logits, s.seeds, s.steps0 + t, s.temps, s.tks,
                            s.tps, s.ds.bool())
         emit = alive & ~((s.eos >= 0) & (nxt == s.eos))
@@ -767,7 +936,7 @@ class Transformer(nn.Module):
         s.emits.index_copy_(0, t, emit[None])
         s.t.add_(1)
 
-    def _paged_chunk_logits_q8(self, s, paged, alive, t):
+    def _paged_chunk_logits_q8(self, s, paged, alive, t, lora=None):
         """An int8 pool's chunk step (the reference's side-buffer
         formulation): every slot's query at its position (0 once dead)
         attends its table's blocks below the chunk's start ``s.cl0``,
@@ -788,7 +957,7 @@ class Transformer(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer.paged_side(x, paged.layer(i), cos_sin, s.bt, q_pos,
                                  s.side_k[i], s.side_v[i], t, kv_pos,
-                                 kv_valid)
+                                 kv_valid, lora=lora)
         return self.unembed(x)[:, 0]
 
     def paged_chunk_flush(self, s: "PagedChunkState", paged: PagedKVCache,
@@ -827,7 +996,7 @@ class Transformer(nn.Module):
             s.pool_v[i].copy_(vp)
 
     def paged_spec_step(self, s: "SpecChunkState", paged: PagedKVCache,
-                        gamma: int):
+                        gamma: int, lora: Optional[LoRARows] = None):
         """Iteration ``s.t`` of a speculative chunk for R slots (the JAX
         package's ``paged_speculative_chunk`` loop body): draft ``gamma``
         tokens per slot from the history buffer
@@ -874,7 +1043,7 @@ class Transformer(nn.Module):
                     else (s.pool_k[i], s.pool_v[i]))
             x = layer.paged_side(x, paged.layer(i), cos_sin, s.bt, qp,
                                  s.side_k[i], s.side_v[i], off, kv_pos,
-                                 kv_valid, pool)
+                                 kv_valid, pool, lora)
         logits = self.unembed(x)                                 # [R,G1,V]
 
         emitted = s.emitted.long()
@@ -967,6 +1136,7 @@ class PagedChunkState:
     side_k: Optional[torch.Tensor] = None
     side_v: Optional[torch.Tensor] = None
     wrote: Optional[torch.Tensor] = None
+    aids: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -1011,3 +1181,4 @@ class SpecChunkState:
     eos_out: torch.Tensor
     pool_k: Optional[torch.Tensor] = None
     pool_v: Optional[torch.Tensor] = None
+    aids: Optional[torch.Tensor] = None

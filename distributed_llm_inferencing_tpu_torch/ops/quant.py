@@ -48,12 +48,13 @@ import torch
 
 MODES = ("int8", "int4")
 
-# the dense families' leaves of the JAX package's _LINEAR_LEAVES, plus
-# the untied head; embeddings (their opt-350m projections too), norms and
-# biases stay float
+# the dense families' leaves of the JAX package's _LINEAR_LEAVES, the MoE
+# experts' stacked leaves and the untied head; embeddings (their opt-350m
+# projections too), norms, biases and the MoE router stay float
 LINEAR_LEAVES = ("q", "k", "v", "o", "gate", "up", "down")
 _LINEAR_W = re.compile(
-    r"^(layers\.\d+\.(?:%s)|lm_head)\.w$" % "|".join(LINEAR_LEAVES))
+    r"^(layers\.\d+\.(?:%s|experts\.(?:gate|up|down))|lm_head)\.w$"
+    % "|".join(LINEAR_LEAVES))
 EMBED = "embed.tokens"
 
 

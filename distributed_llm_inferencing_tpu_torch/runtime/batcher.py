@@ -66,6 +66,23 @@ the card without head-of-line blocking.
 - **Receive-overlapped restore** (``DLI_KV_WIRE_OVERLAP``, on): a
   scheduler-thread fetch of a ``kv_source`` restores runs of landed
   blocks in place while later frames arrive.
+- **Multi-LoRA** (models/lora.py; the JAX batcher's slot plumbing): a
+  bounded host adapter store (``load_adapter``, ``DLI_LORA_HOST_MB``)
+  feeds ``DLI_LORA_SLOTS`` device slots of one pack (plus slot 0, the
+  base model's zeros) at ``DLI_LORA_MAX_RANK``, allocated at the first
+  adapter admission and rewritten in place, one slot at a time, when an
+  admission binds an adapter to a slot (``_assign_lora_slot``): a
+  captured program's addresses never move. A request pins its adapter
+  from submit to its terminal outcome; its rows' slot ids ride the
+  admission's and the chunk's inputs, and a wave with any adapter row
+  runs the lora variant of each program (keyed like the JAX batcher's
+  ``use_lora``; the fused kernel never takes it), a base-only wave the
+  base program, untouched. An adapter's KV is its own: the radix cache
+  matches and inserts it under a namespace per loaded adapter
+  (runtime/block_pool.py), and the host tier, the peer fetch and the
+  export leave adapter requests out, so no adapter request reuses base
+  KV or the reverse (the JAX batcher's radix cache is adapter-blind,
+  ROADMAP Queue C; the port's tokens equal its dedicated batcher's).
 
 Sampling parameters ride as per-row tensors and each row draws from its
 own (seed, step) stream (ops/sampling.py ``sample_batch``), so a request's
@@ -74,9 +91,8 @@ tokens are a pure function of (params, prompt, seed).
 Admission (the JAX package's ``_admit_jit``) runs eagerly, and so do the
 tier's restores: each writes the pool's tensors in place (``index_copy_``),
 never new tensors, because the captured decode programs hold the pool's
-addresses. Not ported yet (in ROADMAP order): LoRA (and the adapter of a
-resume record), the multi-host ``program_hook``, pipeline parallelism and
-the phase profiler.
+addresses. Not ported yet (in ROADMAP order): the multi-host
+``program_hook``, pipeline parallelism and the phase profiler.
 """
 
 from __future__ import annotations
@@ -93,10 +109,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from distributed_llm_inferencing_tpu_torch.models import lora as lora_mod
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
 from distributed_llm_inferencing_tpu_torch.models.params import init_params
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
-    PREGATHER_MAX_BYTES, PagedChunkState, SpecChunkState, Transformer)
+    PREGATHER_MAX_BYTES, LoRARows, PagedChunkState, SpecChunkState,
+    Transformer)
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode
 from distributed_llm_inferencing_tpu_torch.ops import kvblock_quant as kvq
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
@@ -138,6 +156,12 @@ class BatchRequest:
     # arena at finish for a decode peer's /kv_fetch
     kv_source: Optional[dict] = None
     kv_export: bool = False
+    # multi-LoRA: the adapter the request runs through (None: base), the
+    # device slot its rows gather (bound at admission prep, stable while
+    # its refcount pins the slot), and the exactly-once pin release
+    adapter: Optional[str] = None
+    _lora_slot: int = 0
+    _lora_released: bool = False
     # results
     tokens: List[int] = dataclasses.field(default_factory=list)
     error: Optional[str] = None
@@ -288,6 +312,7 @@ class ContinuousBatcher:
                                     np.int32)
         self.context_lens = np.zeros((slots,), np.int32)
         self._init_kvtier(kv_host_mb, kv_digest_chunk, kv_fetcher)
+        self._init_lora()
         self.active: List[Optional[BatchRequest]] = [None] * slots
         self._admit_order: collections.deque = collections.deque()
 
@@ -410,6 +435,27 @@ class ContinuousBatcher:
                 self.metrics.inc(name, 0)
             self.metrics.gauge("kv_restore_overlap_ratio", 0.0)
 
+    def _init_lora(self):
+        """The adapter plane (the JAX batcher's): a host store, the slot
+        names (index 0: the base model), refcounts, LRU clocks, and each
+        loaded adapter's generation (its radix namespace). The device
+        pack is made at the first adapter admission."""
+        self._lora_lock = threading.Lock()
+        self._lora_store = lora_mod.LoRAHostStore()
+        self._lora_max_rank = lora_mod.max_rank_from_env()
+        self._lora_slot_names: List[Optional[str]] = \
+            [None] * (lora_mod.slots_from_env() + 1)
+        self._lora_refs: Dict[str, int] = {}
+        self._lora_last_use: Dict[str, int] = {}
+        self._lora_seq = 0
+        self._lora_gen: Dict[str, int] = {}
+        self._lora_pack: Optional[dict] = None
+        self.metrics.gauge("lora_host_bytes", 0.0)
+        self.metrics.gauge("lora_host_adapters", 0.0)
+        for name in ("lora_loads", "lora_evictions", "lora_load_failures",
+                     "lora_requests"):
+            self.metrics.inc(name, 0)
+
     @property
     def decode_chunks(self):
         """DECODE_CHUNKS filtered by ``decode_chunk_cap`` (a live view:
@@ -431,9 +477,12 @@ class ContinuousBatcher:
                      kv_source: Optional[dict] = None,
                      kv_export: bool = False,
                      kv_transfer_bytes: int = 0,
-                     resume: Optional[dict] = None) -> BatchRequest:
+                     resume: Optional[dict] = None,
+                     adapter: Optional[str] = None) -> BatchRequest:
         """Validate and build one request without enqueueing it (ValueError
         for a bad one), so a bad spec leaves no sibling enqueued.
+        ``adapter``: a loaded LoRA adapter (a resume record's wins); the
+        last check pins it (ValueError for one not loaded).
         ``kv_transfer_bytes``: what a submit-time ``prefetch_kv`` moved,
         for the request's cost record. ``resume``: a migrated request's
         resume record (``_finish_migrated``, this package's or the JAX
@@ -447,6 +496,10 @@ class ContinuousBatcher:
             raise ValueError("max_new_tokens must be >= 1")
         if not isinstance(resume, dict):
             resume = None
+        if resume is not None and resume.get("adapter"):
+            # the continuation runs under the source's adapter, never on
+            # base weights
+            adapter = str(resume["adapter"])
         if resume is not None and resume.get("seed") is not None:
             # the position-keyed draws continue the source's stream only
             # under its seed
@@ -460,7 +513,8 @@ class ContinuousBatcher:
                            seed=int(seed),
                            kv_source=(kv_source if isinstance(kv_source, dict)
                                       else None),
-                           kv_export=bool(kv_export))
+                           kv_export=bool(kv_export),
+                           adapter=str(adapter) if adapter else None)
         req._kv_transfer_bytes = int(kv_transfer_bytes or 0)
         if resume is not None and resume.get("tokens"):
             req.tokens = [int(t) for t in resume["tokens"]]
@@ -481,6 +535,11 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt ({len(req.prompt)}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds max_seq {self.max_seq}")
+        if req.adapter:
+            # last: the pin is the one side effect, so no earlier raise
+            # can leak a refcount
+            self._pin_lora(req.adapter)
+            self.metrics.inc("lora_requests")
         return req
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 100,
@@ -489,7 +548,7 @@ class ContinuousBatcher:
                stream_cb: Optional[Callable[[int], None]] = None,
                seed: Optional[int] = None, **kv) -> BatchRequest:
         """``kv``: ``make_request``'s ``kv_source``, ``kv_export``,
-        ``kv_transfer_bytes`` and ``resume``."""
+        ``kv_transfer_bytes``, ``resume`` and ``adapter``."""
         return self.submit_many([dict(
             prompt=prompt, max_new_tokens=max_new_tokens, sampling=sampling,
             eos_token_id=eos_token_id, stream_cb=stream_cb, seed=seed,
@@ -497,9 +556,18 @@ class ContinuousBatcher:
 
     def submit_many(self, specs: Sequence[dict]) -> List[BatchRequest]:
         """Validate and build every request of ``specs`` (keyword dicts
-        of ``submit``) first — one bad spec raises and enqueues none —
-        then enqueue them all in order."""
-        return self.enqueue([self.make_request(**spec) for spec in specs])
+        of ``submit``) first — one bad spec raises and enqueues none, and
+        drops the adapter pins its built siblings took — then enqueue
+        them all in order."""
+        reqs: List[BatchRequest] = []
+        try:
+            for spec in specs:
+                reqs.append(self.make_request(**spec))
+        except Exception:
+            for r in reqs:
+                self._release_lora(r)
+            raise
+        return self.enqueue(reqs)
 
     def enqueue(self, reqs: Sequence[BatchRequest]) -> List[BatchRequest]:
         """Enqueue built requests in order under one lock, with one wake
@@ -578,6 +646,8 @@ class ContinuousBatcher:
                        if self.kvtier is not None else None),
             "prefix_digests": (self.kvtier.index.advertise()
                                if self.kvtier is not None else None),
+            # the resident adapters the master's affinity routing reads
+            "adapters": self.lora_stats(),
             **self.programs.stats(),
         }
 
@@ -598,6 +668,154 @@ class ContinuousBatcher:
                                  2) if ctls else None),
         }
 
+    # ---- multi-LoRA adapters (models/lora.py) -------------------------
+
+    def load_adapter(self, name: str, source: str) -> dict:
+        """Make an adapter host-resident (the worker's ``POST
+        /load_adapter``); its device slot is bound at the first admission
+        that needs it. Idempotent for a resident name. Returns ``{name,
+        rank, nbytes, evicted}``; ValueError on any problem (a bad
+        source, a shape mismatch, a store full of pinned adapters)."""
+        lora_mod.validate_base_model(self.cfg)
+        with self._lora_lock:
+            ad = self._lora_store.get(name)
+            evicted: List[str] = []
+            if ad is None:
+                try:
+                    ad = lora_mod.resolve(self.cfg, name, source,
+                                          max_rank=self._lora_max_rank)
+                    pinned = {n for n, c in self._lora_refs.items() if c}
+                    evicted = self._lora_store.put(ad, pinned=pinned)
+                except ValueError:
+                    self.metrics.inc("lora_load_failures")
+                    raise
+                self._lora_gen[name] = self._lora_gen.get(name, 0) + 1
+                self.metrics.inc("lora_loads")
+                self.metrics.inc("lora_evictions", len(evicted))
+                # a host-evicted adapter (refcount 0) loses its slot; no
+                # row references it, so the slot's pack rows can wait for
+                # the slot's next binding
+                for i in range(1, len(self._lora_slot_names)):
+                    if self._lora_slot_names[i] in evicted:
+                        self._lora_slot_names[i] = None
+            self._gauge_lora()
+            return {"name": ad.name, "rank": ad.rank, "nbytes": ad.nbytes,
+                    "evicted": evicted}
+
+    def unload_adapter(self, name: str) -> bool:
+        """Drop an adapter from the host store and its slot; ValueError
+        while live requests reference it."""
+        with self._lora_lock:
+            if self._lora_refs.get(name, 0):
+                raise ValueError(
+                    f"adapter {name!r} has live requests; drain first")
+            for i in range(1, len(self._lora_slot_names)):
+                if self._lora_slot_names[i] == name:
+                    self._lora_slot_names[i] = None
+            dropped = self._lora_store.drop(name)
+            self._gauge_lora()
+            return dropped
+
+    def lora_stats(self) -> dict:
+        with self._lora_lock:
+            return {
+                "resident": sorted(self._lora_store.names()),
+                "slotted": [n for n in self._lora_slot_names[1:] if n],
+                "slots": len(self._lora_slot_names) - 1,
+                "host": self._lora_store.stats(),
+                "active_refs": {n: c for n, c in self._lora_refs.items()
+                                if c},
+            }
+
+    def _gauge_lora(self):
+        st = self._lora_store.stats()
+        self.metrics.gauge("lora_host_bytes", st["bytes"])
+        self.metrics.gauge("lora_host_adapters", st["adapters"])
+
+    def _pin_lora(self, name: str):
+        """The submit-time refcount: pins the adapter against host
+        eviction (and its slot, once bound, against reuse) from the
+        moment the request exists. ValueError when not resident."""
+        with self._lora_lock:
+            if self._lora_store.get(name) is None:
+                raise ValueError(
+                    f"unknown adapter {name!r} (POST /load_adapter first)")
+            self._lora_refs[name] = self._lora_refs.get(name, 0) + 1
+
+    def _release_lora(self, req: BatchRequest):
+        """The exactly-once release at the terminal point (finished,
+        failed, cancelled, migrated). The slot stays bound for reuse:
+        only a new adapter's need reclaims it."""
+        if not req.adapter or req._lora_released:
+            return
+        req._lora_released = True
+        with self._lora_lock:
+            n = self._lora_refs.get(req.adapter, 0)
+            if n > 1:
+                self._lora_refs[req.adapter] = n - 1
+            else:
+                self._lora_refs.pop(req.adapter, None)
+
+    def _assign_lora_slot(self, name: str) -> int:
+        """Bind an adapter to a device slot at admission prep: its slot
+        if bound, else a free one, else the least recently used slot no
+        request pins (ValueError when every slot is pinned). A new
+        binding writes the adapter into that slot of the pack."""
+        with self._lora_lock:
+            ad = self._lora_store.get(name)
+            if ad is None:
+                raise ValueError(
+                    f"adapter {name!r} evicted from the host store "
+                    "before admission (DLI_LORA_HOST_MB)")
+            names = self._lora_slot_names
+            if name in names:
+                s = names.index(name)
+            else:
+                free = [i for i in range(1, len(names)) if names[i] is None]
+                if free:
+                    s = free[0]
+                else:
+                    idle = [i for i in range(1, len(names))
+                            if not self._lora_refs.get(names[i], 0)]
+                    if not idle:
+                        raise ValueError(
+                            f"adapter {name!r}: all {len(names) - 1} "
+                            "device adapter slots are pinned by live "
+                            "requests (DLI_LORA_SLOTS)")
+                    s = min(idle, key=lambda i: self._lora_last_use.get(
+                        names[i], 0))
+                    self.metrics.inc("lora_evictions")
+                names[s] = name
+                self._write_lora_slot(s, ad)
+            self._lora_seq += 1
+            self._lora_last_use[name] = self._lora_seq
+            return s
+
+    def _write_lora_slot(self, s: int, ad):
+        """Slot ``s`` of the device pack rewritten in place with ``ad``'s
+        rows (``models.lora.slot_arrays``: the JAX ``build_pack``'s
+        values), one copy per target and factor. The pack is allocated
+        once, at the first binding, at (slots + 1, max_rank) per target:
+        the captured programs read its addresses. Runs on the scheduler
+        thread between programs, after the last chunk's sync."""
+        cfg, rmax = self.cfg, self._lora_max_rank
+        if self._lora_pack is None:
+            S, L = len(self._lora_slot_names), cfg.num_layers
+            self._lora_pack = {}
+            for t in lora_mod.lora_targets(cfg):
+                din, dout = lora_mod.target_dims(cfg, t)
+                self._lora_pack[t] = {
+                    "a": torch.zeros((L, S, din, rmax), dtype=torch.float32,
+                                     device=self.device),
+                    "b": torch.zeros((L, S, rmax, dout), dtype=torch.float32,
+                                     device=self.device)}
+        for t, p in self._lora_pack.items():
+            rows = [lora_mod.slot_arrays(cfg, ad, t, li, rmax)
+                    for li in range(cfg.num_layers)]
+            for j, k in enumerate(("a", "b")):
+                p[k][:, s].copy_(torch.from_numpy(
+                    np.stack([r[j] for r in rows])))
+
     # ---- device programs ----------------------------------------------
 
     def _tensor(self, a, dtype=torch.int32):
@@ -605,22 +823,29 @@ class ContinuousBatcher:
 
     def _run_admit(self, a: dict) -> List[int]:
         """One admission wave: batched tail prefill + first-token
-        sampling. Returns first tokens [B] (one host sync)."""
+        sampling; with ``a["aids"]`` (a wave with adapter rows) each row
+        gathers its slot of the pack. Returns first tokens [B] (one host
+        sync)."""
         t = self._tensor
+        lora = (LoRARows(self._lora_pack, t(a["aids"], torch.int64))
+                if "aids" in a else None)
         last, self.paged = self.model.paged_prefill_tail(
             t(a["toks"], torch.int64), t(a["tail_len"]), t(a["tail_alloc"]),
-            t(a["pfb"]), t(a["cached"]), self.paged)
+            t(a["pfb"]), t(a["cached"]), self.paged, lora)
         first = sample_batch(last, t(a["seeds"]), t(a["steps"]),
                              t(a["temps"], torch.float32), t(a["tks"]),
                              t(a["tps"], torch.float32),
                              t(a["ds"], torch.bool))
         return first.tolist()
 
-    def _decode_program(self) -> graphs.DecodeProgram:
+    def _decode_program(self, use_lora: bool = False
+                        ) -> graphs.DecodeProgram:
         """The decode program of this batcher's rows and table width (both
         fixed) on the current decode route (``fused_decode.eligible``, so
-        a route change never replays the other route's graph): captured
-        on a card unless ``DLI_CUDA_GRAPHS=0``, eager on the CPU."""
+        a route change never replays the other route's graph), and with
+        ``use_lora`` its variant that adds each slot's adapter delta
+        (never fused): captured on a card unless ``DLI_CUDA_GRAPHS=0``,
+        eager on the CPU."""
         if self._bufs is None:
             side = None
             if self.paged.quantized:   # the int8 chunk's side buffers
@@ -630,15 +855,20 @@ class ContinuousBatcher:
             self._bufs = _ChunkBuffers(self.slots, self.max_blocks,
                                        max(self.DECODE_CHUNKS), self.device,
                                        side)
-        key = (fused_decode.eligible(self.cfg, self.paged.quantized),
-               graphs.enabled(self.device))
+        key = (fused_decode.eligible(self.cfg, self.paged.quantized)
+               and not use_lora, use_lora, graphs.enabled(self.device))
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = self.programs.make(
                 functools.partial(self.model.paged_chunk_step,
-                                  self._bufs.state, self.paged, self._dummy),
-                key[1])
+                                  self._bufs.state, self.paged, self._dummy,
+                                  self._lora_rows(self._bufs.state.aids,
+                                                  use_lora)),
+                key[2])
         return prog
+
+    def _lora_rows(self, ids, use_lora: bool) -> Optional[LoRARows]:
+        return LoRARows(self._lora_pack, ids) if use_lora else None
 
     def _launch_decode(self, a: dict, cont: bool = False):
         """Queue one K-token decode chunk: the inputs into the static
@@ -648,7 +878,7 @@ class ContinuousBatcher:
         [2, K, R] on the device, a copy the next chunk cannot overwrite;
         nothing syncs."""
         k = int(a["k"])
-        step = self._decode_program()
+        step = self._decode_program(bool(np.any(a["aids"])))
         if cont:
             self._bufs.advance()
         else:
@@ -666,21 +896,25 @@ class ContinuousBatcher:
         both = self._launch_decode(a).cpu().numpy()
         return both[0], both[1].astype(bool)
 
-    def _spec_program(self, gamma: int):
+    def _spec_program(self, gamma: int, use_lora: bool = False):
         """(buffers, program) of the speculative chunk at static width
-        ``gamma`` over this batcher's rows and table width: the iteration
+        ``gamma`` over this batcher's rows and table width (``use_lora``:
+        its variant with the slots' adapter deltas): the iteration
         ``Transformer.paged_spec_step`` captured on a card unless
         ``DLI_CUDA_GRAPHS=0``, eager on the CPU; the chunk replays it K
         times (its buffers hold K up to the largest decode chunk)."""
         capture = graphs.enabled(self.device)
-        ent = self._spec_progs.get((gamma, capture))
+        ent = self._spec_progs.get((gamma, use_lora, capture))
         if ent is None:
+            # the base and lora variants share one set of buffers
+            bufs = next((b for (g, _, c), (b, _) in self._spec_progs.items()
+                         if g == gamma and c == capture), None)
             cfg = self.cfg
             kmax = -(-max(self.DECODE_CHUNKS) // (gamma + 1))
             row_bytes = (2 * self.model.dtype.itemsize * cfg.num_layers
                          * self.max_blocks * self.block_size
                          * cfg.num_kv_heads * cfg.head_dim)
-            bufs = _SpecBuffers(
+            bufs = bufs or _SpecBuffers(
                 self.slots, self.max_blocks, self.max_seq + 1, kmax, gamma,
                 cfg, self.model.dtype, self.device,
                 pool_tokens=(self.max_blocks * self.block_size
@@ -688,8 +922,10 @@ class ContinuousBatcher:
                              <= PREGATHER_MAX_BYTES else 0))
             prog = self.programs.make(
                 functools.partial(self.model.paged_spec_step, bufs.state,
-                                  self.paged, gamma), capture)
-            ent = self._spec_progs[gamma, capture] = (bufs, prog)
+                                  self.paged, gamma,
+                                  self._lora_rows(bufs.state.aids,
+                                                  use_lora)), capture)
+            ent = self._spec_progs[gamma, use_lora, capture] = (bufs, prog)
         return ent
 
     def _run_spec_decode(self, a: dict):
@@ -700,7 +936,7 @@ class ContinuousBatcher:
         into the pool. Returns (toks [K,R,G+1], keeps [K,R], eos_seen
         [K,R]) as host arrays (one host sync)."""
         k, g = int(a["k"]), int(a["gamma"])
-        bufs, prog = self._spec_program(g)
+        bufs, prog = self._spec_program(g, bool(np.any(a["aids"])))
         bufs.load(a, self._hist)
         st = bufs.state
         if st.pool_k is not None:
@@ -1114,11 +1350,15 @@ class ContinuousBatcher:
             b *= 2
         return b
 
-    def _shared_wave_blocks(self, wave: List[dict], prompt: List[int]) -> int:
+    def _shared_wave_blocks(self, wave: List[dict], prompt: List[int],
+                            ns=None) -> int:
         """Longest common full-block prefix (in blocks) between `prompt`
-        and any prompt already in the admission wave."""
+        and any prompt of the radix namespace ``ns`` already in the
+        admission wave."""
         best = 0
         for m in wave:
+            if m["ns"] != ns:
+                continue
             n = 0
             for a, b in zip(m["prompt"], prompt):
                 if a != b:
@@ -1131,12 +1371,25 @@ class ContinuousBatcher:
         """Host-side admission prep: radix prefix match + block allocation.
         None if blocks are unavailable (the caller preempts or requeues).
         A preempted request's generated tokens are part of the prefill:
-        generation resumes where it left off, nothing is re-emitted."""
+        generation resumes where it left off, nothing is re-emitted. An
+        adapter request binds its adapter to a device slot first
+        (ValueError when every slot is pinned: the request fails, it is
+        never served on base weights)."""
+        if req.adapter:
+            req._lora_slot = self._assign_lora_slot(req.adapter)
         self._admitting = req
         try:
             return self._prep_admit_blocks(req)
         finally:
             self._admitting = None
+
+    def _kv_namespace(self, req: BatchRequest):
+        """The radix namespace of ``req``'s KV: None (the base tree) for
+        the base model, else its adapter's name and load generation, so a
+        reloaded name never matches the blocks of its earlier weights."""
+        if not req.adapter:
+            return None
+        return (req.adapter, self._lora_gen.get(req.adapter, 0))
 
     def _prep_admit_blocks(self, req: BatchRequest) -> Optional[dict]:
         bs = self.block_size
@@ -1144,8 +1397,9 @@ class ContinuousBatcher:
         n = len(prompt)
         # leave >= 1 token for the tail: prefill must produce the last
         # token's logits
-        prefix_blocks, cached = self.pool.match_prefix(prompt[:n - 1])
-        if self.kvtier is not None:
+        ns = self._kv_namespace(req)
+        prefix_blocks, cached = self.pool.match_prefix(prompt[:n - 1], ns)
+        if self.kvtier is not None and ns is None:
             # a disaggregated request pulls its missing prefix blocks
             # from its prefill peer into the arena, then the radix match
             # extends from the arena before anything is recomputed
@@ -1177,7 +1431,8 @@ class ContinuousBatcher:
             raise
         return {"t": t, "pb": pb, "n": n, "cached": cached,
                 "tail_len": tail_len, "prompt": prompt, "partial": partial,
-                "prefix_blocks": prefix_blocks, "tail_alloc": tail_alloc}
+                "prefix_blocks": prefix_blocks, "tail_alloc": tail_alloc,
+                "ns": ns}
 
     def _admit_wave(self):
         """Admit queued requests into free slots as bucketed waves: one
@@ -1214,7 +1469,8 @@ class ContinuousBatcher:
                 self._fail_req(req, str(e))
                 continue
             if (prep is not None and wave
-                    and (self._shared_wave_blocks(wave, prep["prompt"])
+                    and (self._shared_wave_blocks(wave, prep["prompt"],
+                                                  prep["ns"])
                          * self.block_size > prep["cached"])):
                 # an earlier wave member is about to insert a longer shared
                 # prefix than this request would hit now: defer one step
@@ -1273,6 +1529,7 @@ class ContinuousBatcher:
              "tks": np.zeros((b,), np.int32),
              "tps": np.ones((b,), np.float32),
              "ds": np.zeros((b,), bool)}
+        aids = np.zeros((b,), np.int32)
         for j, m in enumerate(members):
             req, sp = m["req"], m["req"].sampling
             a["toks"][j, :m["tail_len"]] = \
@@ -1287,6 +1544,11 @@ class ContinuousBatcher:
             a["tks"][j] = sp.top_k
             a["tps"][j] = sp.top_p
             a["ds"][j] = sp.do_sample
+            aids[j] = req._lora_slot
+        if aids.any():
+            # the key's presence selects the lora program: a base-only
+            # wave runs the base one, untouched
+            a["aids"] = aids
         w0 = time.perf_counter()
         for m in members:
             if m["req"].admitted_at is None:
@@ -1321,7 +1583,7 @@ class ContinuousBatcher:
         skip = cached // bs
         if n_full > skip:
             self.pool.insert_prefix(m["prompt"][:n_full * bs],
-                                    tail_real[:n_full - skip], skip)
+                                    tail_real[:n_full - skip], skip, m["ns"])
 
         if m["partial"]:
             # the radix keeps the chunk's blocks alive (refcount-0 leaves
@@ -1397,7 +1659,7 @@ class ContinuousBatcher:
                 req.stream_cb = None
 
     def _finish_req(self, req: BatchRequest):
-        if req.kv_export and self.kvtier is not None:
+        if req.kv_export and self.kvtier is not None and not req.adapter:
             # a disaggregated prefill pass: park the prompt's KV in the
             # arena while the blocks are still owned, for the decode
             # peer's /kv_fetch (best effort: the peer recomputes)
@@ -1436,6 +1698,7 @@ class ContinuousBatcher:
         }
 
     def _observe_finished(self, req: BatchRequest):
+        self._release_lora(req)   # every terminal outcome comes here
         m = self.metrics
         m.inc("batcher_requests_migrated" if req._migrated
               else "batcher_requests_failed" if req.error
@@ -1585,6 +1848,7 @@ class ContinuousBatcher:
             a["budget"][i] = min(k, req.max_new_tokens - len(req.tokens))
             if req.eos_token_id is not None:
                 a["eos"][i] = req.eos_token_id
+            a["aids"][i] = req._lora_slot
         if self.speculative:
             return self._step_speculative(active, a)
         if self._overlap_eligible(active, k):
@@ -1605,7 +1869,8 @@ class ContinuousBatcher:
                 "tps": np.ones((r,), np.float32),
                 "ds": np.zeros((r,), bool),
                 "budget": np.zeros((r,), np.int32),
-                "eos": np.full((r,), -1, np.int32)}
+                "eos": np.full((r,), -1, np.int32),
+                "aids": np.zeros((r,), np.int32)}
 
     def _dispatch_plain_chunk(self, active, a: dict) -> int:
         """One K-token decode chunk: run, sync, emit, finish dead slots.
@@ -1946,7 +2211,7 @@ class ContinuousBatcher:
             req = self.active[slot]
             if req is None or not req._migrate_requested:
                 continue
-            if self.kvtier is not None:
+            if self.kvtier is not None and not req.adapter:
                 try:
                     self._export_request_kv(
                         req, seq=req.prompt + req.tokens,
@@ -1979,7 +2244,7 @@ class ContinuousBatcher:
             "eos_token_id": req.eos_token_id,
             "spec": (req._spec_ctl.export_state()
                      if req._spec_ctl is not None else None),
-            "adapter": None,
+            "adapter": req.adapter,
         }
         req._migrated = True
         req.error = "migrated"
@@ -2021,7 +2286,7 @@ class _ChunkBuffers:
     chunk's own sync on its outputs comes before the next load."""
 
     ROW_FIELDS = ("cl", "cur", "seeds", "steps0", "tks", "budget", "eos",
-                  "ds", "alive", "cl0")
+                  "ds", "alive", "cl0", "aids")
 
     def __init__(self, rows: int, mb: int, kmax: int, device: torch.device,
                  side: Optional[tuple] = None):
@@ -2065,7 +2330,8 @@ class _ChunkBuffers:
         for f, key in (("cl", "cl"), ("cl0", "cl"), ("cur", "tokens"),
                        ("seeds", "seeds"),
                        ("steps0", "steps"), ("tks", "tks"),
-                       ("budget", "budget"), ("eos", "eos"), ("ds", "ds")):
+                       ("budget", "budget"), ("eos", "eos"), ("ds", "ds"),
+                       ("aids", "aids")):
             h[f][:] = a[key]
         h["alive"][:] = np.asarray(a["budget"]) > 0
         ints[-1] = 0
@@ -2100,7 +2366,8 @@ class _SpecBuffers:
     pool gather [L, R, pool_tokens, Hkv, hd]."""
 
     ROW_FIELDS = ("cur", "cl", "cl0", "seeds", "steps0", "tks", "budget",
-                  "eos", "ds", "gammas", "alive", "emitted", "eos_seen")
+                  "eos", "ds", "gammas", "alive", "emitted", "eos_seen",
+                  "aids")
 
     def __init__(self, rows: int, mb: int, hh: int, kmax: int, gamma: int,
                  cfg, dtype, device: torch.device, pool_tokens: int = 0):
@@ -2160,7 +2427,7 @@ class _SpecBuffers:
         for f, key in (("cur", "tokens"), ("cl", "cl"), ("cl0", "cl"),
                        ("seeds", "seeds"), ("steps0", "steps"),
                        ("tks", "tks"), ("budget", "budget"), ("eos", "eos"),
-                       ("ds", "ds"), ("gammas", "gammas")):
+                       ("ds", "ds"), ("gammas", "gammas"), ("aids", "aids")):
             h[f][:] = a[key]
         h["alive"][:] = np.asarray(a["budget"]) > 0
         h["emitted"][:] = 0

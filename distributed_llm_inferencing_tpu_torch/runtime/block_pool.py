@@ -15,10 +15,19 @@ API (block ids are ints in [0, num_blocks)):
     exhausted even after evicting unreferenced cached blocks.
   - release(blocks): drop one reference per block (freeing it, or
     returning it to the prefix cache's evictable set).
-  - match_prefix(tokens) -> (blocks, n_tokens): longest cached prefix in
-    whole blocks; the caller receives one reference per returned block.
-  - insert_prefix(tokens, blocks, skip): register freshly filled blocks
-    for tokens' prefix; ``skip`` = leading blocks already cached.
+  - match_prefix(tokens, namespace=None) -> (blocks, n_tokens): longest
+    cached prefix in whole blocks; the caller receives one reference per
+    returned block.
+  - insert_prefix(tokens, blocks, skip, namespace=None): register freshly
+    filled blocks for tokens' prefix; ``skip`` = leading blocks already
+    cached.
+
+``namespace`` (the port's addition): blocks whose KV is not the base
+model's (a LoRA adapter's, whose k and v deltas change it) live in a
+radix tree of their own per namespace, so a request matches only KV its
+own weights wrote; ``None`` is the base tree, whose keys are exactly the
+JAX pool's. A namespaced block's eviction logs no token chain (None):
+the host tier, keyed by base token chains, never stores it.
 """
 
 from __future__ import annotations
@@ -93,13 +102,14 @@ class BlockPool:
         with self._lock:
             return self._py.refcount[block]
 
-    def match_prefix(self, tokens: Sequence[int]) -> Tuple[List[int], int]:
+    def match_prefix(self, tokens: Sequence[int], namespace=None
+                     ) -> Tuple[List[int], int]:
         with self._lock:
-            blocks = self._py.match(tokens)
+            blocks = self._py.match(tokens, namespace)
         return blocks, len(blocks) * self.block_size
 
     def insert_prefix(self, tokens: Sequence[int], blocks: Sequence[int],
-                      skip: int) -> None:
+                      skip: int, namespace=None) -> None:
         blocks = self._check_blocks(blocks)
         need = len(tokens) // self.block_size - skip
         if need <= 0:
@@ -109,7 +119,7 @@ class BlockPool:
                 f"insert_prefix needs {need} blocks for "
                 f"{len(tokens)} tokens with skip={skip}, got {len(blocks)}")
         with self._lock:
-            self._py.insert(tokens, blocks, skip)
+            self._py.insert(tokens, blocks, skip, namespace)
 
     def stats(self) -> dict:
         with self._lock:
@@ -139,6 +149,7 @@ class _PyPool:
         self.free_list = collections.deque(range(num_blocks))
         self.refcount = [0] * num_blocks
         self.root = _Node()
+        self.ns_roots = {}            # namespace -> the root of its tree
         self.block_node = {}          # block -> _Node
         self.evictable = set()        # (last_use, block)
         self.clock = 0
@@ -186,7 +197,8 @@ class _PyPool:
                 chain.append(node.tokens)
                 node = node.parent
             self.evict_log.append(
-                (victim.block, [t for toks in reversed(chain) for t in toks]))
+                (victim.block, None if node is not self.root else
+                 [t for toks in reversed(chain) for t in toks]))
             if len(self.evict_log) > self.evict_log_cap:
                 self.evict_log.pop(0)
         self.evictable.discard(key)
@@ -221,10 +233,20 @@ class _PyPool:
                     else:
                         self._evictable_add(self.block_node[b])
 
-    def match(self, tokens):
+    def _tree(self, namespace, create: bool):
+        if namespace is None:
+            return self.root
+        if create and namespace not in self.ns_roots:
+            self.ns_roots[namespace] = _Node()
+        return self.ns_roots.get(namespace)
+
+    def match(self, tokens, namespace=None):
         bs = self.block_size
-        cur = self.root
+        cur = self._tree(namespace, False)
         self.clock += 1
+        if cur is None:
+            self.misses += 1
+            return []
         out = []
         for i in range(len(tokens) // bs):
             child = cur.children.get(tuple(tokens[i * bs:(i + 1) * bs]))
@@ -240,9 +262,9 @@ class _PyPool:
             self.misses += 1
         return out
 
-    def insert(self, tokens, blocks, skip):
+    def insert(self, tokens, blocks, skip, namespace=None):
         bs = self.block_size
-        cur = self.root
+        cur = self._tree(namespace, True)
         self.clock += 1
         for i in range(len(tokens) // bs):
             key = tuple(tokens[i * bs:(i + 1) * bs])

@@ -37,6 +37,18 @@ one device:
   (``DLI_SPEC_ADAPTIVE``, on) runs plain chunks instead while drafting
   measurably loses. Refused under tp (ROADMAP Queue A item 6.1): the
   tp engine runs its steps eagerly in lockstep.
+- **LoRA adapters** (``load_adapter``, ``generate(adapter=name)``, the
+  JAX engine's single-stream hook): one adapter per request. Each loaded
+  adapter keeps a device pack of its own (per target ``[L, 1, din, r]``
+  / ``[L, 1, r, dout]`` f32, the scale folded into B) and every row
+  gathers slot 0 of it (models/transformer.py ``LoRARows``), the same
+  delta the batcher's mixed waves gather per row. Decode programs are
+  keyed by the adapter too, and released when it is unloaded or
+  reloaded. An unknown adapter raises (no request is served on base
+  weights in its place); adapters with speculation raise, as the JAX
+  engine's; under tp ``load_adapter`` raises (ROADMAP Queue A item
+  9.11: the JAX engine lets XLA place the pack on its mesh, the port's
+  lockstep ranks would need their cut of it).
 
 The reference's CPU-only XLA workarounds (layer unrolling, weight
 repacking, the dummy batch row) have no counterpart here.
@@ -66,13 +78,15 @@ import threading
 import time
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from distributed_llm_inferencing_tpu_torch.models import lora as lora_mod
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
 from distributed_llm_inferencing_tpu_torch.models.params import (
     init_params, param_bytes, param_count)
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
-    Transformer)
+    LoRARows, Transformer)
 from distributed_llm_inferencing_tpu_torch.ops.kvcache import (
     KVCache, init_cache)
 from distributed_llm_inferencing_tpu_torch.ops.quant import (
@@ -154,14 +168,17 @@ class _Rows:
     requests: the dense cache, the token fed next ``cur`` [B], each row's
     stream seed ``seeds`` [B], the step counter ``step`` [1] (the index of
     the token being sampled; the prefill's is 0) and the request's tokens
-    so far ``hist`` [max_seq, B]; and the decode programs over them, by
-    (``SamplingParams``, captured), oldest first; and the verify step's
-    drafts in and tokens out."""
+    so far ``hist`` [max_seq, B]; the rows' adapter slots ``lora_ids``
+    [B] (all 0: an adapter request's rows gather its pack's one slot);
+    and the decode programs over them, by (``SamplingParams``, captured,
+    adapter), oldest first; and the verify step's drafts in and tokens
+    out."""
     cache: KVCache
     cur: torch.Tensor
     seeds: torch.Tensor
     step: torch.Tensor
     hist: torch.Tensor
+    lora_ids: torch.Tensor
     programs: "collections.OrderedDict" = dataclasses.field(
         default_factory=collections.OrderedDict)
     # a verify step's drafts [B, G] in, tokens [B, G+1] and emitted
@@ -174,6 +191,11 @@ class _Rows:
         for prog in self.programs.values():
             prog.release()
         self.programs.clear()
+
+    def release_adapter(self, name: str):
+        """Release the decode programs of adapter ``name``."""
+        for key in [k for k in self.programs if k[-1] == name]:
+            self.programs.pop(key).release()
 
 
 class InferenceEngine:
@@ -230,6 +252,9 @@ class InferenceEngine:
         self._rows: "collections.OrderedDict[int, _Rows]" = \
             collections.OrderedDict()
         self.programs = graphs.DecodePrograms(self.device, self.metrics)
+        # LoRA adapters: name -> LoRAAdapter, and its device pack
+        self._adapters: dict = {}
+        self._adapter_packs: dict = {}
 
     def _load(self, params, seed, loader=None):
         """Build this rank's weights and model: from ``loader(device,
@@ -293,9 +318,10 @@ class InferenceEngine:
                 f"exceeds engine max_seq {self.max_seq} "
                 f"(context window {self.cfg.max_position_embeddings})")
 
-    def _prefill(self, prompts, cache, gather):
+    def _prefill(self, prompts, cache, gather, lora=None):
         """Right-pad ``prompts`` into their bucket and prefill ``cache``;
-        ``gather``: keep only each prompt's last position."""
+        ``gather``: keep only each prompt's last position; ``lora``: the
+        rows' adapter."""
         lens = [len(p) for p in prompts]
         s0 = min(_bucket(max(lens)), self.max_seq)
         host = torch.zeros((len(prompts), s0), dtype=torch.int64)
@@ -305,7 +331,7 @@ class InferenceEngine:
         self._buckets_seen.add(s0)
         return self.model.prefill(
             host.to(self.device), lengths, cache,
-            gather=(lengths - 1).long() if gather else None)
+            gather=(lengths - 1).long() if gather else None, lora=lora)
 
     def _cache(self, batch: int):
         heads = local_heads(self.cfg, self.mesh_spec)[1]
@@ -326,7 +352,7 @@ class InferenceEngine:
                               device=self.device)
         st = self._rows[batch] = _Rows(
             cache=self._cache(batch), cur=z(batch), seeds=z(batch),
-            step=z(1), hist=z((self.max_seq, batch)))
+            step=z(1), hist=z((self.max_seq, batch)), lora_ids=z(batch))
         return st
 
     def _advance(self, st: _Rows, logits, sp):
@@ -338,10 +364,10 @@ class InferenceEngine:
         st.hist.index_copy_(0, st.step, nxt[None])
         st.step.add_(1)
 
-    def _decode_step(self, st: _Rows, sp):
+    def _decode_step(self, st: _Rows, sp, lora=None):
         """One decode step of every row over ``st``, in place: the
         program a decode program runs (captured or eager)."""
-        logits, _ = self.model.decode_step(st.cur[:, None], st.cache)
+        logits, _ = self.model.decode_step(st.cur[:, None], st.cache, lora)
         self._advance(st, logits[:, 0], sp)
 
     def _verify(self, st: _Rows, sp, gamma: int):
@@ -357,23 +383,76 @@ class InferenceEngine:
         st.cur.copy_(torch.gather(toks, 1, (n - 1)[:, None])[:, 0])
         st.step.add_(n[:1])
 
-    def _program(self, st: _Rows, sp, gamma: int = 0
-                 ) -> graphs.DecodeProgram:
-        """The decode program of (batch size, ``sp``), or with ``gamma``
-        the verify step of (batch size, gamma, ``sp``), kept in ``st`` up
-        to ``PROGRAMS_MAX`` (FIFO): captured on a card unless
-        ``DLI_CUDA_GRAPHS=0``; eager on the CPU and under tp (the gloo
-        data group cannot be captured)."""
+    def _program(self, st: _Rows, sp, gamma: int = 0,
+                 adapter: Optional[str] = None) -> graphs.DecodeProgram:
+        """The decode program of (batch size, ``sp``, ``adapter``), or
+        with ``gamma`` the verify step of (batch size, gamma, ``sp``),
+        kept in ``st`` up to ``PROGRAMS_MAX`` (FIFO): captured on a card
+        unless ``DLI_CUDA_GRAPHS=0``; eager on the CPU and under tp (the
+        gloo data group cannot be captured). An adapter's program reads
+        its pack, whose addresses hold until it is unloaded or reloaded,
+        which releases the program."""
         capture = graphs.enabled(self.device) and self.group is None
-        key = (sp, capture) if not gamma else ("spec", gamma, sp, capture)
+        key = ((sp, capture, adapter) if not gamma
+               else ("spec", gamma, sp, capture, None))
         prog = st.programs.get(key)
         if prog is None:
             if len(st.programs) >= self.PROGRAMS_MAX:
                 st.programs.popitem(last=False)[1].release()
-            fn = (functools.partial(self._decode_step, st, sp) if not gamma
+            lora = (None if adapter is None else
+                    LoRARows(self._adapter_packs[adapter], st.lora_ids))
+            fn = (functools.partial(self._decode_step, st, sp, lora)
+                  if not gamma
                   else functools.partial(self._verify, st, sp, gamma))
             prog = st.programs[key] = self.programs.make(fn, capture)
         return prog
+
+    # ---- LoRA adapters (single-stream delta hook) ---------------------
+
+    def load_adapter(self, adapter=None, *, name=None, source=None):
+        """Make a LoRA adapter available to ``generate(adapter=...)``: a
+        ``models.lora.LoRAAdapter``, or ``name`` + ``source`` (a
+        checkpoint directory or a ``synth:`` URI). ValueError on any
+        problem. Reloading a name replaces its pack and releases its
+        decode programs."""
+        if self.group is not None:
+            raise ValueError(
+                "LoRA adapters under tp are not ported yet (ROADMAP Queue A "
+                "item 9.11); load the model without a mesh")
+        if adapter is None:
+            adapter = lora_mod.resolve(self.cfg, name, source)
+        else:
+            lora_mod.check_adapter(self.cfg, adapter)
+        # per target {"a": [L, 1, din, r], "b": [L, 1, r, dout]}, the
+        # alpha / rank scale folded into B (the JAX engine's tree)
+        targets = adapter.layers[0].keys() if adapter.layers else ()
+        pack = {}
+        for t in targets:
+            rows = [lora_mod.slot_arrays(self.cfg, adapter, t, li,
+                                         adapter.rank)
+                    for li in range(self.cfg.num_layers)]
+            pack[t] = {k: torch.from_numpy(np.stack([r[j][None]
+                                                     for r in rows]))
+                       .to(self.device) for j, k in enumerate(("a", "b"))}
+        self._drop_adapter_programs(adapter.name)
+        self._adapters[adapter.name] = adapter
+        self._adapter_packs[adapter.name] = pack
+        return adapter
+
+    def unload_adapter(self, name: str) -> bool:
+        self._drop_adapter_programs(name)
+        self._adapter_packs.pop(name, None)
+        return self._adapters.pop(name, None) is not None
+
+    def _drop_adapter_programs(self, name: str):
+        for st in self._rows.values():
+            st.release_adapter(name)
+
+    def adapter_stats(self) -> dict:
+        """The resident adapters, for the worker's /health (the master's
+        adapter affinity reads it)."""
+        return {"resident": sorted(self._adapters),
+                "bytes": sum(a.nbytes for a in self._adapters.values())}
 
     def generate(
         self,
@@ -386,13 +465,23 @@ class InferenceEngine:
                                      None]] = None,
         speculative: Optional[str] = None,
         spec_gamma: int = 4,
+        adapter: Optional[str] = None,
     ) -> GenerateResult:
         """Generate continuations for a batch of token-id prompts; a
         sequence stops after ``eos_token_id`` (trimmed from its tokens).
         ``stream_cb(step, tokens_this_step)`` fires after prefill and
         after every decode step (finished rows as None).
         ``speculative="ngram"``: prompt-lookup speculative decoding of one
-        sequence, ``spec_gamma`` drafts per verify step."""
+        sequence, ``spec_gamma`` drafts per verify step. ``adapter``: a
+        loaded LoRA adapter every row runs through (ValueError for one
+        not loaded)."""
+        if speculative is not None and adapter is not None:
+            raise ValueError(
+                "LoRA adapters do not combine with speculative decoding "
+                "(the verify program has no delta hook)")
+        if adapter is not None and adapter not in self._adapters:
+            raise ValueError(
+                f"unknown adapter {adapter!r} (load_adapter first)")
         if speculative is not None:
             return self._generate_speculative(
                 prompts, max_new_tokens, sampling or SamplingParams(),
@@ -408,23 +497,26 @@ class InferenceEngine:
                         max_new_tokens=int(max_new_tokens),
                         sampling=sampling or SamplingParams(),
                         seed=int(seed), eos_token_id=eos_token_id,
-                        stream=stream_cb is not None,
+                        stream=stream_cb is not None, adapter=adapter,
                         _local={"stream_cb": stream_cb})
 
     @torch.inference_mode()
     def _generate(self, prompts, max_new_tokens, sampling, seed,
-                  eos_token_id, stream=False,
+                  eos_token_id, stream=False, adapter=None,
                   stream_cb=None) -> GenerateResult:
         dev, sp = self.device, sampling
         n = len(prompts)
         st = self._state(n)
         st.seeds.copy_(row_seeds(seed, n, dev))
         st.step.zero_()
-        step = self._program(st, sp)
+        step = self._program(st, sp, adapter=adapter)
+        lora = (None if adapter is None else
+                LoRARows(self._adapter_packs[adapter], st.lora_ids))
 
         clock = _Clock(dev)
         clock.mark()
-        last, filled = self._prefill(prompts, st.cache, gather=True)
+        last, filled = self._prefill(prompts, st.cache, gather=True,
+                                     lora=lora)
         st.cache.lengths.copy_(filled.lengths)
         self._advance(st, last[:, 0], sp)
         clock.mark()
@@ -641,6 +733,7 @@ class InferenceEngine:
             "param_bytes": param_bytes(self.params),
             "max_seq": self.max_seq,
             "prefill_buckets_seen": sorted(self._buckets_seen),
+            "adapters": sorted(self._adapters),
             **self.programs.stats(),
         }
         if self.group is not None:

@@ -22,7 +22,8 @@ so the reference master can drive either worker:
   converter types of models/convert.py), else, with
   ``allow_random_init``, random weights for a row of models/registry.py
   (the llama, gpt2, opt, qwen2, gemma, pythia, phi, falcon, bloom, mpt
-  and gpt-j families); ``tokenizer_path`` (default: the checkpoint
+  and gpt-j families, and the experts of mixtral-8x7b, moe-proxy-8e
+  and tiny-mixtral); ``tokenizer_path`` (default: the checkpoint
   directory when it holds tokenizer files), ``dtype``,
   ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
   ops/quant.py), ``embed_quantize`` (``"int8"``: the per-row int8
@@ -38,6 +39,18 @@ so the reference master can drive either worker:
   its decode program before it answers (``warm_decode_programs``), so
   the first request pays no capture. ``kv_quantize`` (``"int8"``) makes
   either mode's KV cache int8 (ops/kvcache.py).
+- ``POST /load_adapter``: ``model_name``, ``adapter`` and ``source`` (a
+  ``lora_config.json`` + ``lora.npz`` directory or a ``synth:`` URI,
+  models/lora.py) make a LoRA adapter resident for that model (idempotent;
+  400 for a missing field or an adapter the model refuses, 404 for a
+  model not loaded); ``POST /unload_adapter``: ``model_name`` and
+  ``adapter`` (409 while requests reference it, 404 when not resident).
+  An /inference body's ``adapter`` then runs the request through it, in
+  either mode (a resume record's adapter wins); an adapter not resident
+  is a 400, and no request is ever served on base weights in its place.
+  ``/health`` advertises the resident adapters (engine mode:
+  ``loaded_models[i].adapters``, batched: ``.scheduler.adapters``),
+  which the master's adapter affinity reads.
 - ``POST /unload_model``: ``model_name``; releases the model's decode
   programs (their graphs and graph pool) with its weights, and under tp
   stops its follower processes.
@@ -107,8 +120,7 @@ dispatch or change state; a call without the headers is never fenced.
 
 Fields of the reference protocol that the port does not implement yet get
 a 400, never a silent ignore, each with the ROADMAP Queue A item that
-brings it: ``adapter`` (A10); so does a ``speculative`` mode other than
-"ngram", a ``spec_gamma`` outside [1, 16] (per request) or not an
+brings it: a ``speculative`` mode other than "ngram", a ``spec_gamma`` outside [1, 16] (per request) or not an
 integer, ``speculative`` on a batched model's request or under tp
 (Queue A item 6.1), a ``quantize``,
 ``embed_quantize`` or ``kv_quantize`` value outside the modes above, a
@@ -184,7 +196,7 @@ ROLE_CODE = {"mixed": 0.0, "prefill": 1.0, "decode": 2.0}
 KV_FETCH_MAX_MB = float(os.environ.get("DLI_KV_FETCH_MAX_MB", 256))
 
 _UNPORTED_LOAD = ()
-_UNPORTED_INFER = ("adapter",)
+_UNPORTED_INFER = ()
 # How long a /migrate_out snapshot may wait on the scheduler before the
 # route gives up (the request then keeps running here).
 MIGRATE_TIMEOUT_S = 10.0
@@ -220,6 +232,7 @@ class LoadedModel:
         else:
             stats = self.engine.stats()
             out["mesh"] = stats["mesh"]
+            out["adapters"] = self.engine.adapter_stats()
             if "backend" in stats:
                 out["backend"] = stats["backend"]
             for k in ("decode_programs", "decode_graphs_captured",
@@ -302,6 +315,8 @@ class WorkerAgent:
         s.add("GET", "/metrics", self.prometheus)
         s.add("POST", "/load_model", self.load_model)
         s.add("POST", "/unload_model", self.unload_model)
+        s.add("POST", "/load_adapter", self.load_adapter)
+        s.add("POST", "/unload_adapter", self.unload_adapter)
         s.add("POST", "/inference", self.inference)
         s.add("POST", "/inference_batch", self.inference_batch)
         s.add("POST", "/inference_stream", self.inference_stream)
@@ -564,6 +579,72 @@ class WorkerAgent:
         self.metrics.inc("models_unloaded")
         return {"status": "success", "message": f"model {name} unloaded"}
 
+    # ---- LoRA adapters ---------------------------------------------------
+
+    def load_adapter(self, body, _request=None):
+        """Make a LoRA adapter resident for a loaded model (the JAX
+        worker's route: lease-fenced, refused while draining; the master's
+        lazy dispatch-time load lands here). Idempotent for a resident
+        name. 400 for missing fields or any refusal (a bad source, a
+        shape or rank mismatch, a store full of pinned adapters, a MoE
+        base, tp), 404 for a model not loaded."""
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        if self._draining:
+            return self._refuse_draining()
+        model = body.get("model_name")
+        adapter = body.get("adapter")
+        source = body.get("source")
+        if not (model and adapter and source):
+            return 400, {"status": "error",
+                         "message": "model_name, adapter and source "
+                                    "required"}
+        m = self.models.get(model)
+        if m is None:
+            return 404, {"status": "error",
+                         "message": f"model {model} not loaded"}
+        with self.metrics.time("load_adapter"):
+            try:
+                if m.batcher is not None:
+                    info = m.batcher.load_adapter(adapter, source)
+                else:
+                    with m.lock:   # not beside a generate using its pack
+                        ad = m.engine.load_adapter(name=adapter,
+                                                   source=source)
+                    info = {"name": ad.name, "rank": ad.rank,
+                            "nbytes": ad.nbytes, "evicted": []}
+            except ValueError as e:
+                return 400, {"status": "error", "adapter": adapter,
+                             "message": str(e)}
+        return {"status": "success", **info}
+
+    def unload_adapter(self, body, _request=None):
+        """Drop a resident adapter (lease-fenced): 409 while requests
+        still reference it, 404 for a model not loaded or an adapter not
+        resident."""
+        stale = self._term_guard(_request)
+        if stale:
+            return stale
+        model = body.get("model_name")
+        adapter = body.get("adapter")
+        m = self.models.get(model)
+        if m is None:
+            return 404, {"status": "error",
+                         "message": f"model {model} not loaded"}
+        try:
+            if m.batcher is not None:
+                dropped = m.batcher.unload_adapter(adapter)
+            else:
+                with m.lock:
+                    dropped = m.engine.unload_adapter(adapter)
+        except ValueError as e:
+            return 409, {"status": "error", "message": str(e)}
+        if not dropped:
+            return 404, {"status": "error",
+                         "message": f"adapter {adapter} not resident"}
+        return {"status": "success", "adapter": adapter}
+
     # ---- drain ---------------------------------------------------------
 
     def _refuse_draining(self):
@@ -630,10 +711,10 @@ class WorkerAgent:
     def _prep(self, body):
         """(model, prompt, sampling, max_new, seed, extra) of an
         /inference body; ValueError (or KeyError for a model not loaded)
-        for a bad one. ``extra``: the engine's ``speculative`` and
-        ``spec_gamma``, or the batcher's ``resume`` record. A resume
-        record's prompt ids and seed win over the body's (the stream
-        continues exactly only on the source's)."""
+        for a bad one. ``extra``: the ``adapter``, and the engine's
+        ``speculative`` and ``spec_gamma``, or the batcher's ``resume``
+        record. A resume record's prompt ids, seed and adapter win over
+        the body's (the stream continues exactly only on the source's)."""
         refused = _unported(body, _UNPORTED_INFER)
         if refused:
             raise ValueError(refused)
@@ -685,8 +766,13 @@ class WorkerAgent:
             seed = int(resume["seed"])
         else:
             seed = int(body.get("seed", time.time_ns() % (1 << 31)))
+        if resume is not None and resume.get("adapter"):
+            adapter = str(resume["adapter"])
+        else:
+            adapter = body.get("adapter") or None
         extra = ({"resume": resume} if m.batcher is not None
                  else {"speculative": spec, "spec_gamma": gamma})
+        extra["adapter"] = adapter
         return m, prompt, sp, max_new, seed, extra
 
     def inference(self, body, _request=None):
@@ -766,12 +852,13 @@ class WorkerAgent:
         if m.batcher is not None:
             try:
                 pre = self._prefetch_kv(
-                    m, body, self._resume_seq(prompt, extra["resume"]))
+                    m, body, self._resume_seq(prompt, extra["resume"]),
+                    extra["adapter"])
                 req = m.batcher.submit(
                     prompt, max_new_tokens=max_new, sampling=sp,
                     eos_token_id=m.tokenizer.eos_token_id, seed=seed,
                     kv_export=bool(body.get("kv_export")),
-                    kv_transfer_bytes=pre, resume=extra["resume"])
+                    kv_transfer_bytes=pre, **extra)
             except ValueError as e:
                 return 400, {"status": "error", "message": str(e)}
             self._note_prefix(m, body, prompt)
@@ -918,8 +1005,7 @@ class WorkerAgent:
                 req = m.batcher.make_request(
                     prompt, max_new_tokens=max_new, sampling=sp,
                     eos_token_id=m.tokenizer.eos_token_id, seed=seed,
-                    kv_export=bool(sub_body.get("kv_export")),
-                    resume=extra["resume"])
+                    kv_export=bool(sub_body.get("kv_export")), **extra)
             except Exception as e:
                 # every failure resolves this sub in place: one escaping
                 # the loop would leak the earlier subs' inference counts
@@ -1022,13 +1108,14 @@ class WorkerAgent:
 
                         pre = self._prefetch_kv(
                             m, body,
-                            self._resume_seq(prompt, extra["resume"]))
+                            self._resume_seq(prompt, extra["resume"]),
+                            extra["adapter"])
                         req = m.batcher.submit(
                             prompt, max_new_tokens=max_new, sampling=sp,
                             eos_token_id=m.tokenizer.eos_token_id,
                             stream_cb=cb, seed=seed,
                             kv_export=bool(body.get("kv_export")),
-                            kv_transfer_bytes=pre, resume=extra["resume"])
+                            kv_transfer_bytes=pre, **extra)
                         self._note_prefix(m, body, prompt)
                         toks = req.wait(
                             timeout=float(body.get("timeout", 300)))
@@ -1200,14 +1287,15 @@ class WorkerAgent:
             return prompt
         return prompt + [int(t) for t in resume.get("tokens") or []]
 
-    def _prefetch_kv(self, m, body, prompt) -> int:
+    def _prefetch_kv(self, m, body, prompt, adapter=None) -> int:
         """Pull a disaggregated dispatch's prefix KV (its ``kv_source``)
         into the model's arena on this handler thread, so the transfer
         overlaps the batcher's decode loop; the request is then submitted
         without it (a dead peer costs this request a recompute, never the
-        scheduler a connect timeout). Returns the bytes moved."""
+        scheduler a connect timeout). An adapter request fetches nothing:
+        the tier holds base KV only. Returns the bytes moved."""
         src = body.get("kv_source")
-        if not src or m.batcher is None:
+        if not src or m.batcher is None or adapter:
             return 0
         return m.batcher.prefetch_kv(prompt, src)
 

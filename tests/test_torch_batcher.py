@@ -214,7 +214,7 @@ def test_worker_concurrent_inference_equals_direct_submit(worker):
 @pytest.mark.parametrize("route,extra", [
     ("/load_model", {"kv_quantize": "fp8"}),
     ("/load_model", {"kv_digest_chunk": "wide"}),
-    ("/inference", {"adapter": "a1"}),
+    ("/inference", {"adapter": "never-loaded"}),
     ("/inference", {"resume": {"tokens": [1, 2]}}),
     ("/inference", {"speculative": "ngram"}),
     ("/load_model", {"speculative": "medusa"}),

@@ -152,7 +152,20 @@ HF_TINY = {
                 dict(_L, num_key_value_heads=2, sliding_window=8,
                      sliding_window_pattern=2, pad_token_id=0)),
 }
+# the experts behind the softmax router: configs and params here, tokens
+# in test_torch_moe.py (held to the JAX batcher, whose capacity dispatch
+# sees other shapes than the engine's)
+MOE_TYPES = {
+    "mixtral": ("MixtralConfig", "MixtralForCausalLM",
+                dict(_L, num_key_value_heads=2, num_local_experts=4,
+                     num_experts_per_tok=2, sliding_window=None)),
+    "qwen3_moe": ("Qwen3MoeConfig", "Qwen3MoeForCausalLM",
+                  dict(_L, num_key_value_heads=2, head_dim=16,
+                       moe_intermediate_size=48, num_experts=4,
+                       num_experts_per_tok=2, norm_topk_prob=True)),
+}
 TYPES = list(HF_TINY)
+HF_TINY.update(MOE_TYPES)
 # a weights-only case: biases on every linear, the gated MLP's gate too
 # (the JAX engine cannot shard a gate bias: ROADMAP Queue C)
 HF_TINY["ernie4_5+bias"] = ("Ernie4_5Config", "Ernie4_5ForCausalLM",
@@ -238,20 +251,20 @@ def _outcome(fn, d):
 # ---- configuration -------------------------------------------------------
 
 def test_supported_types_are_the_jax_converters_minus_the_refused():
-    assert set(convert.SUPPORTED_MODEL_TYPES) == set(TYPES)
+    assert set(convert.SUPPORTED_MODEL_TYPES) == set(TYPES) | set(MOE_TYPES)
     assert set(convert.SUPPORTED_MODEL_TYPES) | set(
         convert.REFUSED_MODEL_TYPES) == set(jconvert.SUPPORTED_MODEL_TYPES)
     assert not set(convert.SUPPORTED_MODEL_TYPES) & set(
         convert.REFUSED_MODEL_TYPES)
 
 
-@pytest.mark.parametrize("mt", TYPES)
+@pytest.mark.parametrize("mt", TYPES + list(MOE_TYPES))
 def test_config_from_hf_matches_jax(mt):
     d = saved(mt)
     assert port_config(d) == jax_config(d)
 
 
-@pytest.mark.parametrize("mt", TYPES)
+@pytest.mark.parametrize("mt", TYPES + list(MOE_TYPES))
 def test_config_from_hf_class_defaults_match_jax(mt):
     """Every key but model_type deleted, then each key deleted in turn:
     the port's defaults table and derivations give the JAX result (or the
@@ -270,8 +283,8 @@ def test_config_from_hf_class_defaults_match_jax(mt):
 
 
 @pytest.mark.parametrize("conf,switch", [
-    ({"model_type": "qwen3_moe"}, "num_experts"),
-    ({"model_type": "mixtral"}, "num_experts"),
+    ({"model_type": "dbrx"}, "num_experts"),
+    ({"model_type": "gpt_oss"}, "num_experts"),
     ({"model_type": "phi", "qk_layernorm": True}, "qk_layernorm"),
     ({"model_type": "qwen2", "use_sliding_window": True,
       "max_window_layers": 2, "num_hidden_layers": 4}, "max_window_layers"),
@@ -314,7 +327,7 @@ def test_rope_scaling_type_aliases_match_jax():
 # ---- weights -------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("mt", TYPES + ["ernie4_5+bias"])
+@pytest.mark.parametrize("mt", TYPES + ["ernie4_5+bias"] + list(MOE_TYPES))
 def test_load_hf_model_params_bitwise(mt, dtype):
     d = saved(mt)
     tcfg, want = jax_params(d, dtype)

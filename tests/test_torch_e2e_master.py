@@ -35,7 +35,13 @@ own API (``/api/inference/submit`` and ``/status``):
   /migrate_out, the port dispatch answers 303 with the resume record,
   and the master re-dispatches it to a JAX node with the port worker as
   its ``kv_source``; the text equals an undisturbed JAX node's, no
-  attempt is burned, and the JAX node fetched the port's blocks.
+  attempt is burned, and the JAX node fetched the port's blocks;
+- multi-LoRA: an adapter registered on the master (``POST
+  /api/adapters/register``, a ``synth:`` source) and named on submits:
+  the master's dispatch lazy-loads it with ``/load_adapter`` on the port
+  node (engine and batched), whose text equals a JAX node's and differs
+  from the base model's;
+- experts: tiny-mixtral through a port node, text equal to a JAX node's.
 
 No latency is asserted; every wait polls with a deadline.
 """
@@ -547,3 +553,108 @@ def test_master_drains_a_port_worker_mid_stream():
         for agent in (port, jax_agent):
             agent.service.shutdown()
             agent.models[MODEL].batcher.stop()
+
+
+def _side_by_side(model, jcfg, params, tcfg, tparams, bodies,
+                  batched=False, register=None):
+    """Each side's worker serving ``model`` on the same weights, behind a
+    master of its own: the result texts of ``bodies`` submitted to each
+    master (``register``: adapter -> source, registered first), and the
+    port worker."""
+    texts, masters = {}, []
+    jax_agent, port_agent = JaxWorkerAgent(), WorkerAgent(device="cpu")
+    pool = dict(num_blocks=64, block_size=8, slots=4, max_seq=MAX_SEQ)
+    if batched:
+        jb = JaxBatcher(jcfg.replace(attn_backend="xla"), params, **pool)
+        tb = ContinuousBatcher(tcfg, tparams, device="cpu", **pool)
+        for b in (jb, tb):
+            b.start()
+        jax_agent.models[model] = JaxLoadedModel(
+            None, jax_load_tokenizer(None, jcfg.vocab_size), "test",
+            batcher=jb)
+        port_agent.models[model] = LoadedModel(
+            None, load_tokenizer(None, tcfg.vocab_size), "test", batcher=tb)
+    else:
+        jax_agent.models[model] = JaxLoadedModel(
+            JaxEngine(jcfg, params, max_seq=MAX_SEQ),
+            jax_load_tokenizer(None, jcfg.vocab_size), "test")
+        port_agent.models[model] = LoadedModel(
+            InferenceEngine(tcfg, tparams, max_seq=MAX_SEQ, device="cpu"),
+            load_tokenizer(None, tcfg.vocab_size), "test")
+    try:
+        for side, agent in (("jax", jax_agent), ("port", port_agent)):
+            agent.serve("127.0.0.1", 0, background=True)
+            m = Master(":memory:", health_interval=0.5, disagg=False)
+            masters.append(m)
+            srv = m.service.serve("127.0.0.1", 0, background=True)
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            r = requests.post(f"{base}/api/nodes/add", json={
+                "name": side, "host": "127.0.0.1",
+                "port": agent.service.port}, timeout=30).json()
+            assert r["status"] == "success", r
+            for name, src in (register or {}).items():
+                r = requests.post(f"{base}/api/adapters/register", json={
+                    "adapter": name, "source": src, "model_name": model},
+                    timeout=30).json()
+                assert r["status"] == "success", r
+            rids = []
+            for body in bodies:
+                r = requests.post(f"{base}/api/inference/submit",
+                                  json=dict(body, model_name=model),
+                                  timeout=30).json()
+                assert r["status"] == "success", r
+                rids.append(r["request_id"])
+            m.start_background()
+            rows = [_finish(base, rid, timeout=120) for rid in rids]
+            assert all(r["status"] == "completed" for r in rows), rows
+            texts[side] = [r["result"] for r in rows]
+        return texts, port_agent
+    finally:
+        for m in masters:
+            m.stop()
+        jax_agent.service.shutdown()
+        for agent in (jax_agent, port_agent):
+            b = agent.models[model].batcher
+            if b is not None:
+                b.stop()
+        port_agent.shutdown()
+
+
+@pytest.mark.parametrize("batched", [False, True],
+                         ids=["engine", "batched"])
+def test_adapter_lazy_loaded_by_the_master_on_a_port_node(batched):
+    jcfg = jax_config(MODEL).replace(dtype="float32")
+    params = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = get_config(MODEL).replace(dtype="float32")
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    greedy = {"max_new_tokens": 8, "sampling": {"do_sample": False}}
+    # the base row's prompt shares no full block with the adapter rows':
+    # the JAX batcher's radix cache is adapter-blind (ROADMAP Queue C)
+    bodies = [dict(greedy, prompt=p, adapter="tenant-a")
+              for p in PROMPTS[:2]]
+    bodies.append(dict(greedy, prompt=PROMPTS[2]))
+    texts, port = _side_by_side(
+        MODEL, jcfg, params, tcfg, tparams, bodies, batched=batched,
+        register={"tenant-a": "synth:rank=4,seed=3,scale=0.8"})
+    assert texts["port"] == texts["jax"]
+    tok = jax_load_tokenizer(None, jcfg.vocab_size)
+    base = tok.decode(JaxEngine(jcfg, params, max_seq=MAX_SEQ).generate(
+        [tok.encode(PROMPTS[0])], max_new_tokens=8,
+        sampling=JaxSamplingParams.greedy()).tokens[0])
+    assert texts["port"][0] != base   # the adapter bites
+    lm = port.models[MODEL]
+    stats = (lm.batcher.lora_stats() if batched
+             else lm.engine.adapter_stats())
+    assert stats["resident"] == ["tenant-a"]
+
+
+def test_tiny_mixtral_through_a_port_node():
+    jcfg = jax_config("tiny-mixtral").replace(dtype="float32")
+    params = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = get_config("tiny-mixtral").replace(dtype="float32")
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    bodies = [{"prompt": p + " " + p, "max_new_tokens": 8,
+               "sampling": {"do_sample": False}} for p in PROMPTS[:2]]
+    texts, _ = _side_by_side("tiny-mixtral", jcfg, params, tcfg, tparams,
+                             bodies)
+    assert texts["port"] == texts["jax"] and any(texts["jax"])

@@ -528,3 +528,44 @@ def test_greedy_tokens_match_jax_batcher(monkeypatch, quant_trees):
         assert _drive(tb, _batch_prompts()) == want, f"fused={fused}"
         assert tfd.fused_decode_step.launches == n0   # CPU: plain version
     assert os.environ["DLI_FUSED_DECODE"] == "1"
+
+
+@pytest.mark.parametrize("name", ["tiny-llama", "tiny-gpt2"])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_smoke_host_levels_widened_once_are_bitwise(monkeypatch, name,
+                                                    quant):
+    """The host side of the smoke's quantized cross-checks
+    (``chip_smoke._widen_levels_once``: each int8/int4 linear widens its
+    levels to f32 once) gives the plain path's logits bit for bit: the
+    dense prefill (the int4 unpack branch), decode steps (q4_matmul's
+    plain version) and the paged path."""
+    import chip_smoke
+    monkeypatch.setenv("DLI_FUSED_DECODE", "0")   # _paged_run sets it
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        init_params)
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_llm_inferencing_tpu_torch.ops.kvcache import (
+        init_cache)
+    cfg = get_config(name).replace(dtype="float32", quant=quant)
+    params = init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    outs = []
+    for widen in (False, True):
+        model = Transformer(cfg, params)
+        if widen:
+            chip_smoke._widen_levels_once(torch, model)
+        g = torch.Generator().manual_seed(8)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=g)
+        lens = torch.tensor([25, 40], dtype=torch.int32)
+        with torch.inference_mode():
+            cache = init_cache(cfg, 2, 64, device="cpu")
+            lg, cache = model.prefill(toks, lens, cache)
+            seq = [lg]
+            for _ in range(4):
+                lg, cache = model.decode_step(torch.randint(
+                    0, cfg.vocab_size, (2, 1), generator=g), cache)
+                seq.append(lg)
+            seq.append(chip_smoke._paged_run(torch, model, "cpu"))
+        outs.append(seq)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

@@ -91,7 +91,7 @@ def test_gather_keeps_only_the_last_real_row():
 
 
 @pytest.mark.parametrize("over", [
-    {"num_experts": 4}, {"attn_sinks": True},
+    {"num_experts": 4, "moe_router": "deepseek_v3"}, {"attn_sinks": True},
     {"qkv_clip": 8.0}, {"kv_lora_rank": 16},
     {"dense_prefix_layers": 1}, {"kv_quant": "fp8"},
     {"q_lora_rank": 8},

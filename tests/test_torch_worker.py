@@ -137,7 +137,7 @@ def test_load_int4_and_infer(url, serving):
 
 
 @pytest.mark.parametrize("extra", [{"speculative": "medusa"},
-                                   {"adapter": "a1"}])
+                                   {"adapter": "never-loaded"}])
 def test_unported_inference_fields_are_refused(url, extra):
     requests.post(url + "/load_model", json={
         "model_name": "tiny-llama", "allow_random_init": True,
@@ -410,7 +410,7 @@ def _missing_key_dir():
 
 
 @pytest.mark.parametrize("case,cause", [
-    ("qwen3_moe", "num_experts"), ("phi_qk_layernorm", "qk_layernorm"),
+    ("dbrx", "num_experts"), ("phi_qk_layernorm", "qk_layernorm"),
     ("missing", "model.layers.0.self_attn.k_proj.weight"),
     ("hub_name", "not a local directory"),
     ("native_hub_name", "not a local directory"),
@@ -418,8 +418,8 @@ def _missing_key_dir():
 ])
 def test_checkpoint_refusals_name_the_cause(url, monkeypatch, case, cause):
     field = "checkpoint_path"
-    if case == "qwen3_moe":
-        path = _write_config("qwen3_moe", {"model_type": "qwen3_moe"})
+    if case == "dbrx":
+        path = _write_config("dbrx", {"model_type": "dbrx"})
     elif case == "phi_qk_layernorm":
         path = _write_config("phi-qk", {"model_type": "phi",
                                         "qk_layernorm": True})
