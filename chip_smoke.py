@@ -356,6 +356,35 @@ Phases (any failure fails the run, exit code != 0):
    exact launches, ms per step and per pass, stored bytes and peak
    device memory. Its wall time is
    printed, and each kernel's launches in it ("lora_moe_launches").
+20. The other experts and latent attention. (a) deepseek-proxy (latent
+   attention, the deepseek_v3 router, a shared expert, one dense-prefix
+   layer) at full width and all 12 layers through the worker, bf16:
+   engine mode, phase 3's three requests on the latent cache and on the
+   materialized one (DLI_MLA_LATENT=0), graphs on and off over one load
+   (equal tokens), no attention kernel and no q4_matmul launched; the
+   cache bytes exact by formula ([12, B, S, 1, 160] and no v plane
+   against 2 x [12, B, S, 16, 96]: 19.2x); int4 on the latent cache, one
+   q4_matmul per quantized linear per layer per step (not kv_b_k /
+   kv_b_v, read whole by the absorbed decode) plus the head; phase 5's
+   eight bodies as one /inference_batch on the paged route (the
+   materialized pool), no paged_flash_decode and no fused_decode_step.
+   ms per step and per pass, stored bytes, peak memory. (b) Card against
+   host within XCHECK_TOL, f32, one row per converter type at the
+   published widths of EXPERT_XCHECK's public models, 2 layers (dbrx 1),
+   teacher-forced prefill plus 8 decode steps on the dense and the paged
+   path (a latent-attention row's dense path on the latent cache too;
+   the CARD_REFERENCE rows against the plain versions on the card, as
+   phase 6 swaps them in, since their host side passed 30 s),
+   with exact launches: rows 1-3 for glm4_moe, ernie4_5_moe,
+   hunyuan_v1_moe and dbrx (ernie4_5_moe's fused route too), none for
+   gpt_oss (sinks) and deepseek_v3 (latent attention); DeepSeek-V3's
+   router at its widths on [64, 7168] inputs within 1e-6, and
+   deepseek-proxy's dense and MoE layer. (c) A gpt-oss-20b-shaped
+   checkpoint written by this script (GPT_OSS_LAYERS of its 24 layers)
+   through the worker, bf16: engine requests and one /inference_batch,
+   graphs on and off (equal tokens), no attention kernel launched, every
+   param bitwise as written. Report in chiprun_out/phase20.json
+   ("experts_mla_launches" per kernel).
 
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
@@ -378,6 +407,9 @@ phase 18.
 
 ``python3 chip_smoke.py --lora-moe`` builds the kernels and runs only
 phase 19.
+
+``python3 chip_smoke.py --experts-mla`` builds the kernels and runs only
+phase 20.
 
 ``python3 chip_smoke.py --timed-rows`` builds the kernels and runs only
 phase 2's timed rows (``timed_rows``), printing each; from the root of
@@ -1412,7 +1444,8 @@ def engine_prompt(n_tok, seed):
 
 
 def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step,
-                     requests=ENGINE_REQUESTS, decode_kernel=True):
+                     requests=ENGINE_REQUESTS, decode_kernel=True,
+                     prefill_kernel=True):
     """Phase 3's three requests (or ``requests``: (prompt tokens,
     sampling, seed) each) through a loaded engine-mode model (bf16
     activations): counts zeroed before, each request must add one
@@ -1422,7 +1455,9 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step,
     ``q4_per_step`` q4_matmul launches per decode step plus one for the
     gathered head row of its prefill (int4; 0 otherwise), and nothing
     else; with ``decode_kernel`` False (an int8 KV cache: the plain
-    decode route) no flash_decode. Returns (launches, request rows)."""
+    decode route) no flash_decode, with ``prefill_kernel`` False (latent
+    attention, sinks: the plain prefill) no flash_attention. Returns
+    (launches, request rows)."""
     L, new = cfg.num_layers, 32
     zero_counts(kernels)                 # counts of this path only
     count = lambda: read_counts(kernels)  # noqa: E731
@@ -1438,12 +1473,12 @@ def _engine_requests(torch, base, kernels, cfg, model_name, q4_per_step,
         d = {k: v - n0[k] for k, v in count().items()}
         assert all(0 <= t < cfg.vocab_size for t in toks), toks
         want = {k: 0 for k in d}
-        want.update(flash_attention=L,
+        want.update(flash_attention=L * int(prefill_kernel),
                     flash_decode=L * (passes - 1) * int(decode_kernel),
                     q4_matmul=(1 + q4_per_step * (passes - 1)
                                if q4_per_step else 0))
         # bf16: the prefill and every q4_matmul in their tensor-core forms
-        want["flash_attention[mma]"] = L
+        want["flash_attention[mma]"] = want["flash_attention"]
         want["q4_matmul[mma]"] = want["q4_matmul"]
         assert d == want, f"launches {d} != {want}"
         assert passes <= new and (len(toks) == new or (
@@ -1498,22 +1533,27 @@ def phase_main_path(torch, kernels):
 
 def q4_per_pass(cfg, fused=False):
     """q4_matmul launches of one int4 weight pass of <= 32 rows: every
-    linear of every layer (the q projection inside the fused kernel when
-    ``fused``) and an untied head."""
+    linear of every layer (each layer's own: a dense-prefix layer's MLP;
+    the q projection inside the fused kernel when ``fused``; not latent
+    attention's kv_b_k / kv_b_v over the latent cache, which its absorbed
+    einsums read whole) and an untied head."""
     from distributed_llm_inferencing_tpu_torch.models.params import (
         layer_linears)
-    return ((len(layer_linears(cfg)) - int(fused)) * cfg.num_layers
-            + int(not cfg.tie_word_embeddings))
+    per = [len(layer_linears(cfg.layer_cfg(i))) - int(fused)
+           - 2 * int(cfg.mla_latent_cache) for i in range(cfg.num_layers)]
+    return sum(per) + int(not cfg.tie_word_embeddings)
 
 
 def decode_kernel(cfg, route):
     """The kernel a batched decode step of ``cfg`` launches per layer with
     DLI_FUSED_DECODE on (``route`` "fused") or off: the fused kernel
     where its gate takes the q leaf (no bias), else the paged kernel;
-    None for the ALiBi families and an int8 KV pool, which decode
-    through the gather formulation, as the JAX package does."""
+    None for the ALiBi families, an int8 KV pool, sinks and latent
+    attention, which decode through the gather formulation, as the JAX
+    package does."""
     from distributed_llm_inferencing_tpu_torch.ops import fused_decode
-    if cfg.position_embedding == "alibi" or cfg.kv_quant:
+    if cfg.position_embedding == "alibi" or cfg.kv_quant or cfg.mla \
+            or cfg.attn_sinks:
         return None
     if route == "fused" and fused_decode.supported(cfg) \
             and not cfg.attn_bias:
@@ -1544,12 +1584,39 @@ def _widen_levels_once(torch, model):
     return model
 
 
+class _PlainKernels:
+    """Within the block, the model's attention kernels are swapped for
+    their plain versions (on the card: phase 6's way of running the plain
+    path there)."""
+
+    def __enter__(self):
+        from distributed_llm_inferencing_tpu_torch.ops import (
+            attention as ta, flash_attention as fa, paged_attention as pa,
+            paged_kvcache as pk)
+        self.old = [(ta, "flash_attention", ta.flash_attention),
+                    (ta, "flash_decode", ta.flash_decode),
+                    (pk, "paged_flash_decode", pk.paged_flash_decode)]
+        ta.flash_attention = fa.flash_attention_ref
+        ta.flash_decode = fa.flash_decode_ref
+        pk.paged_flash_decode = pa.paged_flash_decode_ref
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.old:
+            setattr(mod, name, fn)
+
+
 def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
-                      routes=("paged", "fused"), cfg=None):
+                      routes=("paged", "fused"), cfg=None, layers=2,
+                      ref_on_card=False):
     """Card (kernels) against host (plain versions) at ``name``'s full
-    width (or ``cfg``'s, a 2-layer config), 2 layers, f32, with float
-    weights or ``quant`` ("int8"/"int4") ones; the paged path once per
-    decode ``route``."""
+    width (or ``cfg``'s), ``layers`` layers, f32, with float weights or
+    ``quant`` ("int8"/"int4") ones; the paged path once per decode
+    ``route``. Sinks and latent attention launch no attention kernel (the
+    plain formulation on every device); a latent-attention config's dense
+    path is checked on the latent cache too. ``ref_on_card``: the
+    reference runs on the card with the attention kernels swapped for
+    their plain versions (``_PlainKernels``), where the host's f32
+    forward at the row's width would take too long."""
     from distributed_llm_inferencing_tpu_torch.models.params import (
         init_params)
     from distributed_llm_inferencing_tpu_torch.models.registry import (
@@ -1557,13 +1624,14 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         Transformer)
     from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
-    cfg = (cfg or get_config(name)).replace(num_layers=2, dtype="float32",
-                                            quant=quant)
+    cfg = (cfg or get_config(name)).replace(num_layers=layers,
+                                            dtype="float32", quant=quant)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
                          "cuda")
+    host = params if ref_on_card else {k: t.cpu()
+                                       for k, t in params.items()}
     models = {"cuda": Transformer(cfg, params),
-              "cpu": _widen_levels_once(torch, Transformer(
-                  cfg, {k: t.cpu() for k, t in params.items()}))}
+              "cpu": _widen_levels_once(torch, Transformer(cfg, host))}
     g = torch.Generator().manual_seed(8)
     B, S0, max_seq = 2, 64, 96
     lens = torch.tensor([37, 64], dtype=torch.int32)
@@ -1573,25 +1641,34 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
     logits, caches = {}, {}
     n0 = (fa.flash_attention.launches, fa.flash_decode.launches,
           qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
+    if cfg.mla:   # the latent cache's dense path beside the materialized
+        lat = cfg.replace(mla_latent_cache=True)
+        models.update({"cuda-latent": Transformer(lat, params),
+                       "cpu-latent": Transformer(lat, host)})
     with torch.inference_mode():
-        for dev, model in models.items():
-            cache = init_cache(cfg, B, max_seq, device=dev)
-            lg, cache = model.prefill(toks.to(dev), lens.to(dev), cache)
-            outs = [torch.cat([lg[0, :37], lg[1]]).cpu()]
-            for t in range(8):
-                lg, cache = model.decode_step(forced[t].to(dev), cache)
-                outs.append(lg[:, 0].cpu())
-            logits[dev] = torch.cat(outs)
-            caches[dev] = cache
+        for key, model in models.items():
+            ref = key.startswith("cpu")
+            dev = "cuda" if ref_on_card or not ref else "cpu"
+            with _PlainKernels() if ref and ref_on_card else _Env():
+                cache = init_cache(model.cfg, B, max_seq, device=dev)
+                lg, cache = model.prefill(toks.to(dev), lens.to(dev), cache)
+                outs = [torch.cat([lg[0, :37], lg[1]]).cpu()]
+                for t in range(8):
+                    lg, cache = model.decode_step(forced[t].to(dev), cache)
+                    outs.append(lg[:, 0].cpu())
+            logits[key] = torch.cat(outs)
+            caches[key] = cache
     n1 = (fa.flash_attention.launches, fa.flash_decode.launches,
           qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
     # int4: prefill rows (2 x 64) and its full-row head take the plain
     # unpack; each of the 8 decode steps runs every linear x 2 layers +
     # an untied head, all f32, so all on the CUDA-core form
     q4 = 8 * q4_per_pass(cfg) if quant == "int4" else 0
-    decode = 0 if cfg.kv_quant else 16   # an int8 cache: the plain route
-    assert tuple(b - a for a, b in zip(n0, n1)) == (2, decode, q4, 0), \
-        (n0, n1)
+    # sinks, latent attention: no kernel; an int8 cache: the plain decode
+    attn = int(not (cfg.mla or cfg.attn_sinks))
+    decode = 0 if cfg.kv_quant else 8 * layers * attn
+    assert tuple(b - a for a, b in zip(n0, n1)) == (layers * attn, decode,
+                                                    q4, 0), (n0, n1)
     what = f"{name} {quant or 'float'} "
     tol = XCHECK_TOL
     if cfg.kv_quant:
@@ -1601,12 +1678,20 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
         errs = {}
     errs["dense"] = _xcheck(torch, what + "dense", logits["cuda"],
                             logits["cpu"], tol)
-    host = _paged_run(torch, models["cpu"], "cpu")
+    if cfg.mla:
+        errs["dense_latent"] = _xcheck(torch, what + "dense, latent cache",
+                                       logits["cuda-latent"],
+                                       logits["cpu-latent"], tol)
+    if ref_on_card:
+        with _PlainKernels():
+            ref = _paged_run(torch, models["cpu"], "cuda")
+    else:
+        ref = _paged_run(torch, models["cpu"], "cpu")
     for route in routes:
         errs[route] = _xcheck(torch, what + route,
                               _paged_run(torch, models["cuda"], "cuda",
-                                         route), host, tol)
-    del models, params
+                                         route), ref, tol)
+    del models, params, host
     gc.collect()
     torch.cuda.empty_cache()
     return errs
@@ -1694,7 +1779,7 @@ def _paged_run(torch, model, dev, route=None):
          fd.fused_decode_step.launches - n0[1],
          qm.q4_matmul.launches - n0[2])
     kernel = decode_kernel(cfg, route) if route else None
-    want = tuple(16 if kernel == k else 0
+    want = tuple(8 * cfg.num_layers if kernel == k else 0
                  for k in ("paged_flash_decode", "fused_decode_step"))
     # int4 on the card: the 32-row first prefill runs every linear through
     # the kernel (and an untied head on its last row), the 96-row second
@@ -5317,13 +5402,17 @@ def _runs_prompt(cfg, n, seed):
     return out[:n]
 
 
-def _counted_wave(base, worker, kernels, name, bodies, cfg, fused):
+def _counted_wave(base, worker, kernels, name, bodies, cfg, fused,
+                  quiet=False, bank=None):
     """``bodies`` as one /inference_batch (one enqueue, wire order) on a
     loaded batched model, each decode chunk counted: a chunk with an
     adapter row must launch paged_flash_decode num_layers times per pass
     and no fused_decode_step; a base-only one the route's kernel
     (``fused``: the fused kernel) num_layers times per pass; nothing
-    else launches. Returns (tokens, launches, timing)."""
+    else launches (``quiet``: nothing at all, the gather route of sinks
+    and latent attention). ``bank`` (default ``_bank19``) files the
+    counts. Returns (tokens, launches, timing)."""
+    bank = bank or _bank19
     import numpy as np
     L = cfg.num_layers
     b = worker.models[name].batcher
@@ -5341,21 +5430,21 @@ def _counted_wave(base, worker, kernels, name, bodies, cfg, fused):
         d = {x: c1[x] - c0[x] for x in c1 if c1[x] != c0[x]}
         kern = ("fused_decode_step" if fused and not lora
                 else "paged_flash_decode")
-        if d != {kern: L * k}:
+        if d != ({} if quiet else {kern: L * k}):
             acc["bad"].append((lora, k, d))
         acc["lora" if lora else "base"][0] += k
         acc["lora" if lora else "base"][1] += dt
         return out
 
     b._run_decode = counted
-    _bank19(kernels)
+    bank(kernels)
     try:
         lines = _stream_lines(base + "/inference_batch",
                               {"model_name": name, "requests": bodies}, None)
     finally:
         del b._run_decode
     launches = read_counts(kernels)
-    _bank19(kernels)
+    bank(kernels)
     msgs = {m["request_tag"]: m for m in map(json.loads,
                                              (x for _, x in lines))}
     tokens = []
@@ -5567,8 +5656,8 @@ def _moe_drops(ttf):
     import numpy as np
     real, n = ttf.moe_gates, [0]
 
-    def gates(x, w, cfg):
-        g = real(x, w, cfg)
+    def gates(x, w, cfg, b=None):
+        g = real(x, w, cfg, b)
         if x.dim() == 2:
             k, e = cfg.num_experts_per_tok, cfg.num_experts
             c = max(1, int(cfg.moe_capacity_factor * k * x.shape[0] / e))
@@ -5820,6 +5909,450 @@ def phase_lora_moe(torch, kernels, smi):
             json.dump(report, f, indent=1, default=str)
     return report
 
+# ---------------------------------------------------------------------
+# phase 20: the other experts and latent attention
+# ---------------------------------------------------------------------
+
+_PHASE20_LAUNCHES: dict = {}
+MLA_NAME = "deepseek-proxy"
+MLA_BATCHED = dict(BATCHED_LOAD, model_name=MLA_NAME)
+# (b): each converter type at the published config of its public model
+# (the config.json fields config_from_hf reads); depth is the only cut
+EXPERT_XCHECK = {
+    "glm4_moe": {   # zai-org/GLM-4.5-Air
+        "model_type": "glm4_moe", "vocab_size": 151552, "hidden_size": 4096,
+        "intermediate_size": 10944, "moe_intermediate_size": 1408,
+        "num_hidden_layers": 46, "num_attention_heads": 96,
+        "num_key_value_heads": 8, "head_dim": 128,
+        "partial_rotary_factor": 0.5, "n_routed_experts": 128,
+        "n_shared_experts": 1, "num_experts_per_tok": 8,
+        "first_k_dense_replace": 1, "n_group": 1, "topk_group": 1,
+        "routed_scaling_factor": 1.0, "norm_topk_prob": True,
+        "use_qk_norm": False, "attention_bias": True,
+        "rope_theta": 1000000, "rms_norm_eps": 1e-05,
+        "max_position_embeddings": 131072, "tie_word_embeddings": False},
+    "ernie4_5_moe": {   # baidu/ERNIE-4.5-21B-A3B-PT
+        "model_type": "ernie4_5_moe", "vocab_size": 103424,
+        "hidden_size": 2560, "intermediate_size": 12288,
+        "moe_intermediate_size": 1536, "num_hidden_layers": 28,
+        "num_attention_heads": 20, "num_key_value_heads": 4,
+        "moe_num_experts": 64, "moe_k": 6, "moe_num_shared_experts": 2,
+        "moe_layer_start_index": 1, "moe_layer_end_index": 27,
+        "moe_layer_interval": 1, "rope_theta": 500000,
+        "rms_norm_eps": 1e-05, "max_position_embeddings": 131072,
+        "use_bias": False, "tie_word_embeddings": True},
+    "hunyuan_v1_moe": {   # tencent/Hunyuan-A13B-Instruct
+        "model_type": "hunyuan_v1_moe", "vocab_size": 128167,
+        "hidden_size": 4096, "intermediate_size": 3072,
+        "num_hidden_layers": 32, "num_attention_heads": 32,
+        "num_key_value_heads": 8, "head_dim": 128, "num_experts": 64,
+        "moe_topk": 8, "rope_theta": 10000.0, "rms_norm_eps": 1e-05,
+        "max_position_embeddings": 32768, "attention_bias": False,
+        "tie_word_embeddings": False},
+    "dbrx": {   # databricks/dbrx-instruct
+        "model_type": "dbrx", "vocab_size": 100352, "d_model": 6144,
+        "n_heads": 48, "n_layers": 40, "max_seq_len": 32768,
+        "attn_config": {"kv_n_heads": 8, "clip_qkv": 8,
+                        "rope_theta": 500000},
+        "ffn_config": {"ffn_hidden_size": 10752, "moe_num_experts": 16,
+                       "moe_top_k": 4, "moe_normalize_expert_weights": 1,
+                       "ffn_act_fn": {"name": "silu"}}},
+    "gpt_oss": {   # openai/gpt-oss-20b
+        "model_type": "gpt_oss", "vocab_size": 201088, "hidden_size": 2880,
+        "intermediate_size": 2880, "num_hidden_layers": 24,
+        "num_attention_heads": 64, "num_key_value_heads": 8, "head_dim": 64,
+        "num_local_experts": 32, "num_experts_per_tok": 4,
+        "sliding_window": 128,
+        "layer_types": ["sliding_attention", "full_attention"] * 12,
+        "rope_theta": 150000,
+        "rope_scaling": {"rope_type": "yarn", "factor": 32.0,
+                         "beta_fast": 32.0, "beta_slow": 1.0,
+                         "truncate": False,
+                         "original_max_position_embeddings": 4096},
+        "swiglu_limit": 7.0, "rms_norm_eps": 1e-05,
+        "max_position_embeddings": 131072, "tie_word_embeddings": False},
+    "deepseek_v3": {   # deepseek-ai/DeepSeek-V3
+        "model_type": "deepseek_v3", "vocab_size": 129280,
+        "hidden_size": 7168, "intermediate_size": 18432,
+        "moe_intermediate_size": 2048, "num_hidden_layers": 61,
+        "num_attention_heads": 128, "num_key_value_heads": 128,
+        "q_lora_rank": 1536, "kv_lora_rank": 512, "qk_rope_head_dim": 64,
+        "qk_nope_head_dim": 128, "v_head_dim": 128, "n_routed_experts": 256,
+        "n_shared_experts": 1, "n_group": 8, "topk_group": 4,
+        "num_experts_per_tok": 8, "routed_scaling_factor": 2.5,
+        "first_k_dense_replace": 3, "norm_topk_prob": True,
+        "rope_theta": 10000,
+        "rope_scaling": {"type": "yarn", "factor": 40, "beta_fast": 32,
+                         "beta_slow": 1, "mscale": 1.0,
+                         "mscale_all_dim": 1.0,
+                         "original_max_position_embeddings": 4096},
+        "rms_norm_eps": 1e-06, "max_position_embeddings": 163840,
+        "tie_word_embeddings": False},
+}
+# depth of each (b) row; the decode routes of its paged check (the fused
+# kernel where its gate takes the type: no q bias, clamp, q/k norm,
+# partial or interleaved rotary, sinks or latent attention)
+EXPERT_LAYERS = {"dbrx": 1}
+EXPERT_ROUTES = {"ernie4_5_moe": ("paged", "fused")}
+# the rows whose reference runs on the card, the attention kernels
+# swapped for their plain versions: with the host's f32 forward these
+# rows took 40.7, 74.3 and 55.6 s (every expert's weights read on 8 host
+# cores per decode step), past the 30 s a row may take
+CARD_REFERENCE = ("glm4_moe", "hunyuan_v1_moe", "dbrx")
+V3_GATE_ROWS = 64
+# (c): gpt-oss-20b's shape served from a written checkpoint, two of its
+# sliding / full window pairs
+GPT_OSS_LAYERS = 4
+GPT_OSS_NAME = "gpt-oss-20b-ckpt"
+
+
+def _bank20(kernels):
+    _add(_PHASE20_LAUNCHES, read_counts(kernels))
+    zero_counts(kernels)
+
+
+def _mla_engine(torch, worker, kernels, cfg, latent, quant=None):
+    """(a) One engine-mode load of deepseek-proxy (``latent``: "1" the
+    latent cache, "0" the materialized one; ``quant``), phase 3's
+    requests with graphs on, then off over the same load: equal tokens,
+    exact launches (none but the int4 linears' q4_matmul), the cache's
+    bytes, ms per step, stored bytes and peak memory."""
+    base = _worker_base(worker)
+    before = _baseline(torch)
+    torch.cuda.reset_peak_memory_stats()
+    load = {"model_name": cfg.name, "allow_random_init": True,
+            "dtype": "bfloat16", "max_seq": 4096}
+    if quant:
+        load["quantize"] = quant
+    with _Env(DLI_MLA_LATENT=latent):
+        st, res = _http(base + "/load_model", load)
+    assert st == 200 and res["status"] == "success", res
+    engine = worker.models[cfg.name].engine
+    ecfg = engine.cfg
+    assert ecfg.mla_latent_cache == (latent == "1"), ecfg.mla_latent_cache
+    q4 = q4_per_pass(ecfg) if quant == "int4" else 0
+    out, toks = {}, {}
+    for on in (True, False):
+        _graphs_on(on)
+        launches, rows = _engine_requests(
+            torch, base, kernels, ecfg, cfg.name, q4, decode_kernel=False,
+            prefill_kernel=False)
+        _bank20(kernels)
+        toks[on] = [r["tokens"] for r in rows]
+        out["graphs_on" if on else "graphs_off"] = {
+            "ms_per_step": [r["decode_ms_per_weight_pass"] for r in rows],
+            "prefill_ms": [r["prefill_ms"] for r in rows],
+            "launches": {k: v for k, v in launches.items() if v}}
+    _graphs_on(True)
+    assert toks[True] == toks[False], \
+        f"{cfg.name} latent={latent}: graphs on and off disagree"
+    cache = engine._state(1).cache
+    L, S = cfg.num_layers, engine.max_seq
+    want = (L * S * (cfg.qk_rope_head_dim + cfg.kv_lora_rank) * 2
+            if latent == "1" else 2 * L * S * cfg.num_heads * cfg.head_dim * 2)
+    assert _cache_bytes(cache) == want, (_cache_bytes(cache), want)
+    if latent == "1":
+        assert tuple(cache.k.shape) == (L, 1, S, 1, 160) and \
+            cache.v.numel() == 0, (cache.k.shape, cache.v.shape)
+    out.update(cache_bytes_b1=_cache_bytes(cache), q4_per_step=q4,
+               param_bytes=worker.models[cfg.name].describe(
+                   cfg.name)["param_bytes"],
+               peak_bytes_above_start=(torch.cuda.max_memory_allocated()
+                                       - before),
+               tokens=toks[True])
+    st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+    assert st == 200
+    log(f"  {cfg.name} engine latent={latent} quant={quant}:", json.dumps(
+        {k: v for k, v in out.items() if k != "tokens"}))
+    return out
+
+
+def _batched_no_kernel(torch, worker, kernels, cfg, load, tag):
+    """Phase 5's eight bodies as one /inference_batch on a fresh batched
+    load per graphs setting (the paged route): equal tokens, no kernel
+    launched, ms per pass, stored bytes."""
+    base = _worker_base(worker)
+    out, toks = {}, {}
+    bodies = [dict(b, model_name=cfg.name, request_tag=f"p20-{tag}-{i}")
+              for i, b in enumerate(_batched_bodies(cfg))]
+    for on in (True, False):
+        _graphs_on(on)
+        with _Env(DLI_FUSED_DECODE="0"):
+            st, res = _http(base + "/load_model", load)
+            assert st == 200 and res["status"] == "success", res
+            tokens, launches, timing = _counted_wave(
+                base, worker, kernels, cfg.name,
+                [dict(b, request_tag=f"{b['request_tag']}-{on}")
+                 for b in bodies], cfg, False, quiet=True, bank=_bank20)
+        assert not any(launches.values()), launches
+        toks[on] = tokens
+        out["graphs_on" if on else "graphs_off"] = dict(
+            timing, param_bytes=worker.models[cfg.name].describe(
+                cfg.name)["param_bytes"])
+        st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+        assert st == 200
+    _graphs_on(True)
+    assert toks[True] == toks[False], f"{tag}: graphs on and off disagree"
+    assert all(0 <= t < cfg.vocab_size for ts in toks[True] for t in ts)
+    log(f"  {cfg.name} batched ({tag}):", json.dumps(out))
+    return out
+
+
+def _mla_serving(torch, kernels):
+    """(a) deepseek-proxy through the worker (see the module docstring)."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = get_config(MLA_NAME)
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    out = {}
+    try:
+        out["latent"] = _mla_engine(torch, worker, kernels, cfg, "1")
+        out["materialized"] = _mla_engine(torch, worker, kernels, cfg, "0")
+        out["latent_int4"] = _mla_engine(torch, worker, kernels, cfg, "1",
+                                         "int4")
+        out["batched"] = _batched_no_kernel(torch, worker, kernels, cfg,
+                                            MLA_BATCHED, "mla")
+    finally:
+        _graphs_on(True)
+        worker.shutdown()
+    ratio = (out["materialized"]["cache_bytes_b1"]
+             / out["latent"]["cache_bytes_b1"])
+    assert abs(ratio - 19.2) < 1e-9, ratio
+    out["cache_ratio"] = ratio
+    # the two caches hold the same attention: greedy rows agree (bf16
+    # rounding may part them late, so only the first tokens are held)
+    for i, (n, sp, _) in enumerate(ENGINE_REQUESTS):
+        if sp.get("do_sample") is False:
+            a, b = (out[k]["tokens"][i] for k in ("latent", "materialized"))
+            out.setdefault("greedy_tokens_agree", []).append(
+                sum(x == y for x, y in zip(a, b)))
+    return out
+
+
+def _v3_gate_row(torch):
+    """DeepSeek-V3's router at its widths (256 experts, 8 groups, top-4
+    groups, top-8, scale 2.5) on [V3_GATE_ROWS, 7168] f32 inputs: card
+    against host within 1e-6, the same experts picked."""
+    from distributed_llm_inferencing_tpu_torch.models import transformer
+    from distributed_llm_inferencing_tpu_torch.models.convert import (
+        config_from_hf)
+    cfg = config_from_hf(EXPERT_XCHECK["deepseek_v3"], name="v3-router")
+    g = torch.Generator(device="cuda").manual_seed(20)
+    D, E = cfg.hidden_size, cfg.num_experts
+    x = torch.randn(V3_GATE_ROWS, D, generator=g, device="cuda")
+    w = torch.randn(D, E, generator=g, device="cuda").mul_(0.02)
+    bias = torch.randn(E, generator=g, device="cuda").mul_(0.02)
+    card = transformer.moe_gates(x, w, cfg, bias)
+    host = transformer.moe_gates(x.cpu(), w.cpu(), cfg, bias.cpu())
+    assert torch.equal(card.cpu() > 0, host > 0), "V3 router picks differ"
+    assert int((host > 0).sum(-1).max()) == cfg.num_experts_per_tok
+    err = float((card.cpu() - host).abs().max())
+    assert err <= 1e-6, err
+    log(f"  DeepSeek-V3 router, card vs host, [{V3_GATE_ROWS}, {D}] x "
+        f"{E} experts: max_abs_err {err:.3e} (tol 1e-6)")
+    return {"max_abs_err": err, "rows": V3_GATE_ROWS, "experts": E}
+
+
+def _expert_xcheck(torch, fa, qm, kernels):
+    """(b): one card-vs-host row per converter type (EXPERT_XCHECK, the
+    depth cut to EXPERT_LAYERS; deepseek_v3's first layers are its dense
+    prefix; windows cut to XCHECK_WINDOW so they bite in 72 positions),
+    then deepseek-proxy's dense and MoE layer and V3's router."""
+    from distributed_llm_inferencing_tpu_torch.models.convert import (
+        config_from_hf)
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    out = {}
+    for mt, conf in EXPERT_XCHECK.items():
+        t0 = time.perf_counter()
+        cfg = config_from_hf(conf, name=f"{mt}-xcheck")
+        layers = EXPERT_LAYERS.get(mt, 2)
+        reduced = f"{layers} of {cfg.num_layers} layers"
+        if cfg.dense_prefix_layers >= layers:   # deepseek_v3: all prefix
+            cfg = cfg.dense_segment_cfg(num_layers=layers)
+            reduced += " (its dense prefix)"
+        if cfg.attn_windows is not None:
+            cfg = cfg.replace(attn_windows=tuple(
+                None if w is None else XCHECK_WINDOW
+                for w in cfg.attn_windows[:layers]), num_layers=layers)
+            reduced += f", windows cut to {XCHECK_WINDOW}"
+        on_card = mt in CARD_REFERENCE
+        if on_card:
+            reduced += "; reference: the plain versions on the card"
+        log(f"  {mt}: {reduced}")
+        _bank20(kernels)
+        errs = phase_cross_check(torch, fa, qm, None, mt,
+                                 EXPERT_ROUTES.get(mt, ("paged",)), cfg=cfg,
+                                 layers=layers, ref_on_card=on_card)
+        launches = {k: v for k, v in read_counts(kernels).items() if v}
+        _bank20(kernels)
+        out[mt] = dict(errs, reduced=reduced, launches=launches,
+                       seconds=time.perf_counter() - t0)
+        log(f"  {mt} row:", json.dumps(out[mt]))
+    t0 = time.perf_counter()
+    errs = phase_cross_check(torch, fa, qm, None, MLA_NAME, ("paged",))
+    out[MLA_NAME] = dict(errs, reduced="2 of 12 layers (dense prefix, MoE)",
+                         launches={k: v for k, v in
+                                   read_counts(kernels).items() if v},
+                         seconds=time.perf_counter() - t0)
+    _bank20(kernels)
+    out["v3_router"] = _v3_gate_row(torch)
+    return out
+
+
+def _gpt_oss_tensors(conf):
+    """(HF key, shape, kind) of every tensor of a gpt_oss checkpoint (HF
+    modeling_gpt_oss.py's names; the experts' fused gate_up [E, D, 2I]
+    and down [E, I, D] stacks as stored)."""
+    D, I, V = conf["hidden_size"], conf["intermediate_size"], \
+        conf["vocab_size"]
+    H, KV, hd = (conf["num_attention_heads"], conf["num_key_value_heads"],
+                 conf["head_dim"])
+    E = conf["num_local_experts"]
+    out = [("model.embed_tokens.weight", (V, D), "w")]
+    for i in range(conf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        a, m = p + "self_attn.", p + "mlp."
+        out += [(p + "input_layernorm.weight", (D,), "norm")]
+        for n, dout, din in (("q", H * hd, D), ("k", KV * hd, D),
+                             ("v", KV * hd, D), ("o", D, H * hd)):
+            out += [(f"{a}{n}_proj.weight", (dout, din), "w"),
+                    (f"{a}{n}_proj.bias", (dout,), "b")]
+        out += [(a + "sinks", (H,), "w"),
+                (p + "post_attention_layernorm.weight", (D,), "norm"),
+                (m + "router.weight", (E, D), "w"),
+                (m + "router.bias", (E,), "b"),
+                (m + "experts.gate_up_proj", (E, D, 2 * I), "w"),
+                (m + "experts.gate_up_proj_bias", (E, 2 * I), "b"),
+                (m + "experts.down_proj", (E, I, D), "w"),
+                (m + "experts.down_proj_bias", (E, D), "b")]
+    return out + [("model.norm.weight", (D,), "norm"),
+                  ("lm_head.weight", (V, D), "w")]
+
+
+def _gpt_oss_names(conf, key, t):
+    """``_port_names`` for gpt_oss, by this script's own reading of its
+    layout: linears transposed, the router's bias and the sinks as they
+    are, gate the even and up the odd columns of the fused stacks."""
+    if key in ("model.embed_tokens.weight", "model.norm.weight",
+               "lm_head.weight"):
+        return _port_names(dict(conf, model_type="llama"), key, t)
+    i, rest = key.split(".")[2], key.split(".", 3)[3]
+    o = f"layers.{i}."
+    if rest in _LLAMA_NAMES:
+        return [(o + _LLAMA_NAMES[rest], t)]
+    if rest == "self_attn.sinks":
+        return [(o + "sinks", t)]
+    if rest.startswith("self_attn."):
+        n, leaf = rest.split(".")[1][0], rest.split(".")[2]
+        return [(f"{o}{n}.{'w' if leaf == 'weight' else 'b'}",
+                 t.T.contiguous() if leaf == "weight" else t)]
+    if rest == "mlp.router.weight":
+        return [(o + "router.w", t.T.contiguous())]
+    if rest == "mlp.router.bias":
+        return [(o + "router.bias", t)]
+    leaf = "b" if rest.endswith("_bias") else "w"
+    if "gate_up" in rest:
+        return [(f"{o}experts.gate.{leaf}", t[..., 0::2].contiguous()),
+                (f"{o}experts.up.{leaf}", t[..., 1::2].contiguous())]
+    return [(f"{o}experts.down.{leaf}", t)]
+
+
+def _gpt_oss_serving(torch, kernels):
+    """(c): a gpt-oss-20b-shaped directory (GPT_OSS_LAYERS layers) written
+    from seeded tensors, served through the worker in engine mode (graphs
+    on and off over one load) and batched mode (a fresh load per graphs
+    setting): equal tokens, no attention kernel, every param bitwise."""
+    import shutil
+    import tempfile
+
+    from distributed_llm_inferencing_tpu_torch.models.convert import (
+        config_from_hf)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    conf = dict(EXPERT_XCHECK["gpt_oss"], num_hidden_layers=GPT_OSS_LAYERS,
+                layer_types=EXPERT_XCHECK["gpt_oss"]["layer_types"][
+                    :GPT_OSS_LAYERS])
+    log(f"  gpt-oss-20b shape: DEPTH CUT to {GPT_OSS_LAYERS} of 24 layers")
+    root = tempfile.mkdtemp(prefix="dli-gptoss-")
+    path = os.path.join(root, "gpt-oss")
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = _worker_base(worker)
+    out = {}
+    try:
+        expected, nbytes, write_s = write_checkpoint(
+            torch, path, conf, INGEST_SEED + 4, tensors=_gpt_oss_tensors,
+            names=_gpt_oss_names)
+        cfg = config_from_hf(conf, name=path).replace(name=GPT_OSS_NAME)
+        out.update(file_bytes=nbytes, write_s=write_s)
+        log(f"  wrote {path}: {nbytes / 1e9:.3f} GB in {write_s:.1f} s")
+        body = {"model_name": GPT_OSS_NAME, "checkpoint_path": path,
+                "max_seq": 4096}
+        st, res = _http(base + "/load_model", body)
+        assert st == 200 and res["status"] == "success", res
+        out["bitwise"] = _bitwise(torch, worker.models[
+            GPT_OSS_NAME].engine.params, expected)
+        toks = {}
+        for on in (True, False):
+            _graphs_on(on)
+            launches, rows = _engine_requests(
+                torch, base, kernels, cfg, GPT_OSS_NAME, 0,
+                decode_kernel=False, prefill_kernel=False)
+            _bank20(kernels)
+            toks[on] = [r["tokens"] for r in rows]
+            out["engine_" + ("on" if on else "off")] = {
+                "ms_per_step": [r["decode_ms_per_weight_pass"]
+                                for r in rows],
+                "prefill_ms": [r["prefill_ms"] for r in rows]}
+        _graphs_on(True)
+        assert toks[True] == toks[False], "gpt-oss: graphs on/off disagree"
+        st, _ = _http(base + "/unload_model", {"model_name": GPT_OSS_NAME})
+        assert st == 200
+        del expected
+        load = dict(BATCHED_LOAD, **body)
+        load.pop("allow_random_init")
+        out["batched"] = _batched_no_kernel(torch, worker, kernels, cfg,
+                                            load, "gpt-oss")
+    finally:
+        _graphs_on(True)
+        worker.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  gpt-oss-20b shape through the worker:", json.dumps(out))
+    return out
+
+
+def phase_experts_mla(torch, fa, qm, kernels, smi):
+    """Phase 20 (see the module docstring)."""
+    report, t_all = {"smi": smi}, time.perf_counter()
+    _PHASE20_LAUNCHES.clear()
+    zero_counts(kernels)
+    for key, fn in (("mla_serving", lambda: _mla_serving(torch, kernels)),
+                    ("expert_xcheck", lambda: _expert_xcheck(
+                        torch, fa, qm, kernels)),
+                    ("gpt_oss_serving", lambda: _gpt_oss_serving(
+                        torch, kernels))):
+        t0 = time.perf_counter()
+        with _Env(DLI_FUSED_DECODE="0"):
+            report[key] = fn()
+        report[f"seconds_{key}"] = time.perf_counter() - t0
+        log(f"  phase 20 {key}: {report[f'seconds_{key}']:.1f} s")
+    _bank20(kernels)
+    report["launches"] = dict(_PHASE20_LAUNCHES)
+    log("  phase 20 launches:", json.dumps(report["launches"]))
+    report["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 20 wall time: {report['seconds']:.1f} s [{smi}]")
+    out_dir = os.path.join(HERE, "chiprun_out")
+    if os.path.isdir(out_dir):
+        with open(os.path.join(out_dir, "phase20.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+    return report
+
 
 def timed_rows(torch):
     """Phase 2's timed rows alone (every kernel at its serving shapes,
@@ -5927,6 +6460,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--lora-moe"]:   # phase 19 alone
         phase_lora_moe(torch, counted, smi)
+        log(smi)
+        return 0
+    if sys.argv[1:2] == ["--experts-mla"]:   # phase 20 alone
+        phase_experts_mla(torch, fa, qm, counted, smi)
         log(smi)
         return 0
     if sys.argv[1:2] == ["--timed-rows"]:
@@ -6093,6 +6630,16 @@ def main() -> int:
         assert lora_moe["launches"][name] > 0, \
             f"{name} never launched on phase 19's path"
 
+    mark(20, "the other experts and latent attention: (a) deepseek-proxy "
+        "through the worker, latent and materialized cache, bf16 and int4, "
+        "engine and batched; (b) each experts converter type's card-vs-host "
+        "check at its public model's widths; (c) a gpt-oss-20b-shaped "
+        "checkpoint through the worker")
+    experts_mla = phase_experts_mla(torch, fa, qm, counted, smi)
+    assert experts_mla["launches"]["flash_attention"] > 0 and \
+        experts_mla["launches"]["paged_flash_decode"] > 0 and \
+        experts_mla["launches"]["q4_matmul"] > 0, experts_mla["launches"]
+
     mark(None)
     log("  wall time by phase (s):", json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
@@ -6169,6 +6716,10 @@ def main() -> int:
         # phase 19: adapter passes (never fused) and the MoE rows
         entry["lora_moe_launches"] = lora_moe["launches"].get(name, 0) \
             if "[" not in name else 0
+        # phase 20: the GQA experts' rows; sinks and latent attention
+        # launch no attention kernel
+        entry["experts_mla_launches"] = experts_mla["launches"].get(
+            name, 0) if "[" not in name else 0
         cap_rows = {"flash_attention": cap_pre, "flash_decode": cap_dec,
                     "paged_flash_decode": cap_paged}.get(name)
         if cap_rows is not None:
@@ -6191,7 +6742,7 @@ def main() -> int:
               "control_surface": control, "graphs": graphs_report,
               "families": families, "ingestion": ingestion,
               "later": later, "kv_plane": kv_plane, "spec_migrate": spec,
-              "lora_moe": lora_moe,
+              "lora_moe": lora_moe, "experts_mla": experts_mla,
               "uncapped_digests": digests,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}

@@ -9,13 +9,14 @@ JAX function -> port function:
   comes out as the same tuple of floats; ``_layer_windows_from_hf``
   (:182) -> the same name, the per-layer windows of qwen3, smollm3 and
   exaone4.
-- ``SUPPORTED_MODEL_TYPES`` (:214) -> ``SUPPORTED_MODEL_TYPES``: the 33 of
-  its 39 types whose configs the port's model serves
-  (models/transformer.py ``check_supported``), mixtral (:257-261,
-  ``num_local_experts``) and qwen3_moe (:788-805) among them;
-  ``REFUSED_MODEL_TYPES`` names, for each of the other 6 (other routers,
-  shared experts, latent attention, ...), the switches that still keep
-  it out.
+- ``SUPPORTED_MODEL_TYPES`` (:214) -> ``SUPPORTED_MODEL_TYPES``: all 39
+  of its types, mixtral (:257-261, ``num_local_experts``), qwen3_moe
+  (:788-805) and the other experts and latent attention among them
+  (gpt_oss :942, hunyuan_v1_moe :985, ernie4_5_moe :1018, glm4_moe
+  :1064, dbrx :1119, deepseek_v3 :1156, with yarn's mscale fold at
+  :61-99); what the JAX converter refuses (per-layer expert lists,
+  interleaved or early-ending MoE layers, a dbrx p-norm other than 1) is
+  refused here with the same cause.
 - ``config_from_hf`` (:225) -> ``config_from_hf``, taking the
   ``config.json`` dict. The JAX function reads attributes of a
   ``transformers`` config object, whose class has already filled every
@@ -31,15 +32,19 @@ JAX function -> port function:
   :756, qwen3 :788, smollm3 :858, hunyuan_v1_dense :887, exaone4 :911,
   granite :1226, olmo2 :1262, glm4 :1287, nemotron :1319.
 - ``convert_state_dict`` (:1363) -> ``convert_state_dict``, the branches the
-  20 types reach: gpt2 :1372, opt :1399, llama :1435 (llama, mistral,
+  types reach: gpt2 :1372, opt :1399, llama :1435 (llama, mistral,
   qwen2, gemma, ernie4_5), gpt-neox :1710, phi :1749, falcon :1777, bloom
   :1836, gptj :1881, mpt :1910, gpt_bigcode :1956, stablelm :2003,
   codegen :2034, starcoder2 :2074, olmo :2104, phi3 :2136, gpt_neo :2164,
   gemma2 :2200, cohere :2240, olmo2 :2278 (olmo2, exaone4), glm :2312
   (glm, glm4), nemotron :2351; qwen3, smollm3, hunyuan_v1_dense and
-  granite take the llama branch, and so do mixtral and qwen3_moe, whose
-  MoE blocks give the router and the stacked experts (:1475-1518,
-  ``_experts``). The output is the port's flat dict
+  granite take the llama branch, and so do mixtral, qwen3_moe,
+  glm4_moe, ernie4_5_moe and hunyuan_v1_moe, whose MoE blocks give the
+  router (with its selection bias), the stacked experts (with their
+  biases) and the shared experts, after a dense prefix's MLP layers
+  (:1446-1534, ``_experts``); dbrx :1535 (its fused expert stacks),
+  gpt_oss :1579 and deepseek_v3 :1622 (MLA's column permutation, the
+  segments) have branches of their own. The output is the port's flat dict
   (models/params.py): ``[din, dout]`` weights, the layer axis unrolled;
   the JAX tree's int32 ``attn_window`` / ``rope_on`` leaves are the
   config's ``attn_windows`` / ``rope_layers`` here (no tensors).
@@ -93,26 +98,8 @@ SUPPORTED_MODEL_TYPES = (
     "falcon", "bloom", "gptj", "mpt", "gpt_bigcode", "stablelm", "codegen",
     "starcoder2", "olmo", "phi3", "glm", "ernie4_5", "gpt_neo", "gemma2",
     "cohere", "qwen3", "granite", "olmo2", "glm4", "nemotron", "smollm3",
-    "hunyuan_v1_dense", "exaone4", "mixtral", "qwen3_moe")
-
-# the JAX converter's other types -> (the switches their configs turn on
-# that the port's model does not serve yet, the ROADMAP Queue A item
-# that brings them)
-REFUSED_MODEL_TYPES = {
-    "deepseek_v3": ("kv_lora_rank, q_lora_rank, num_experts with "
-                    "moe_router='deepseek_v3', moe_shared_experts, "
-                    "dense_prefix_layers", "A4 experts and MLA"),
-    "dbrx": ("num_experts with qkv_clip", "A4 experts"),
-    "glm4_moe": ("num_experts with moe_router='deepseek_v3', "
-                 "moe_shared_experts, dense_prefix_layers", "A4 experts"),
-    "ernie4_5_moe": ("num_experts with moe_router='ernie', "
-                     "moe_shared_experts, dense_prefix_layers",
-                     "A4 experts"),
-    "gpt_oss": ("num_experts with moe_router='topk_softmax', expert "
-                "biases, moe_swiglu_limit, attn_sinks", "A4 experts"),
-    "hunyuan_v1_moe": ("num_experts with moe_shared_experts",
-                       "A4 experts"),
-}
+    "hunyuan_v1_dense", "exaone4", "mixtral", "qwen3_moe", "gpt_oss",
+    "hunyuan_v1_moe", "ernie4_5_moe", "glm4_moe", "dbrx", "deepseek_v3")
 
 # model_type -> the class default (transformers 4.57.6) of every key that
 # config_from_hf reads for it; a key absent here and from config.json
@@ -346,6 +333,66 @@ HF_DEFAULTS = {
                  "tie_word_embeddings": False, "rope_theta": 10000.0,
                  "partial_rotary_factor": 0.5, "attention_bias": False,
                  "mlp_bias": False},
+    # the experts and latent attention (their __init__ rules: _derive)
+    "gpt_oss": {"vocab_size": 201088, "hidden_size": 2880,
+                "intermediate_size": 2880, "num_hidden_layers": 36,
+                "num_attention_heads": 64, "num_key_value_heads": 8,
+                "head_dim": 64, "max_position_embeddings": 131072,
+                "rms_norm_eps": 1e-05, "rope_theta": 150000.0,
+                "rope_scaling": {"rope_type": "yarn", "factor": 32.0,
+                                 "beta_fast": 32.0, "beta_slow": 1.0,
+                                 "truncate": False,
+                                 "original_max_position_embeddings": 4096},
+                "sliding_window": 128, "layer_types": None,
+                "num_local_experts": 128, "num_experts_per_tok": 4,
+                "tie_word_embeddings": False},
+    "hunyuan_v1_moe": {"vocab_size": 290943, "hidden_size": 4096,
+                       "intermediate_size": 11008, "num_hidden_layers": 32,
+                       "num_attention_heads": 32,
+                       "num_key_value_heads": None, "head_dim": None,
+                       "hidden_act": "silu", "max_position_embeddings": 2048,
+                       "rms_norm_eps": 1e-05, "rope_theta": 10000.0,
+                       "attention_bias": False, "num_experts": 1,
+                       "moe_topk": 1, "tie_word_embeddings": False},
+    "ernie4_5_moe": {"vocab_size": 103424, "hidden_size": 2560,
+                     "intermediate_size": 12288, "num_hidden_layers": 28,
+                     "num_attention_heads": 20, "num_key_value_heads": 4,
+                     "hidden_act": "silu", "max_position_embeddings": 131072,
+                     "rms_norm_eps": 1e-05, "rope_theta": 500000.0,
+                     "rope_scaling": None, "use_bias": False,
+                     "moe_intermediate_size": 1536, "moe_k": 6,
+                     "moe_num_experts": 64, "moe_num_shared_experts": 2,
+                     "moe_layer_start_index": 1, "moe_layer_end_index": -1,
+                     "moe_layer_interval": 1, "tie_word_embeddings": True},
+    "glm4_moe": {"vocab_size": 151552, "hidden_size": 4096,
+                 "intermediate_size": 10944, "num_hidden_layers": 46,
+                 "num_attention_heads": 96, "partial_rotary_factor": 0.5,
+                 "num_key_value_heads": 8, "hidden_act": "silu",
+                 "max_position_embeddings": 131072, "rms_norm_eps": 1e-05,
+                 "rope_theta": 10000.0, "rope_scaling": None,
+                 "attention_bias": False, "moe_intermediate_size": 1408,
+                 "num_experts_per_tok": 8, "n_shared_experts": 1,
+                 "n_routed_experts": 128, "routed_scaling_factor": 1.0,
+                 "n_group": 1, "topk_group": 1, "first_k_dense_replace": 1,
+                 "norm_topk_prob": True, "use_qk_norm": False,
+                 "tie_word_embeddings": False},
+    "dbrx": {"d_model": 2048, "n_heads": 16, "n_layers": 24,
+             "max_seq_len": 2048, "vocab_size": 32000, "attn_config": None,
+             "ffn_config": None, "tie_word_embeddings": False},
+    "deepseek_v3": {"vocab_size": 129280, "hidden_size": 7168,
+                    "intermediate_size": 18432,
+                    "moe_intermediate_size": 2048, "num_hidden_layers": 61,
+                    "num_attention_heads": 128, "num_key_value_heads": 128,
+                    "n_shared_experts": 1, "n_routed_experts": 256,
+                    "routed_scaling_factor": 2.5, "kv_lora_rank": 512,
+                    "q_lora_rank": 1536, "qk_rope_head_dim": 64,
+                    "v_head_dim": 128, "qk_nope_head_dim": 128, "n_group": 8,
+                    "topk_group": 4, "num_experts_per_tok": 8,
+                    "first_k_dense_replace": 3, "norm_topk_prob": True,
+                    "hidden_act": "silu", "max_position_embeddings": 4096,
+                    "rms_norm_eps": 1e-06, "tie_word_embeddings": False,
+                    "rope_theta": 10000.0, "rope_scaling": None,
+                    "rope_interleave": True, "attention_bias": False},
 }
 
 # model_type -> transformers' ``attribute_map`` (alias -> stored name)
@@ -368,6 +415,9 @@ HF_ALIASES = {
                 "num_hidden_layers": "n_layer"},
     "gpt_neo": {"num_attention_heads": "num_heads",
                 "num_hidden_layers": "num_layers"},
+    "dbrx": {"num_attention_heads": "n_heads", "hidden_size": "d_model",
+             "num_hidden_layers": "n_layers",
+             "max_position_embeddings": "max_seq_len"},
 }
 
 # MptAttentionConfig's fields and defaults (it keeps no other key)
@@ -376,14 +426,25 @@ _MPT_ATTN = {"attn_type": "multihead_attention", "attn_pdrop": 0,
              "prefix_lm": False, "qk_ln": False,
              "attn_uses_sequence_id": False, "alibi": True,
              "alibi_bias_max": 8}
+# DbrxAttentionConfig's and DbrxFFNConfig's fields and defaults (an
+# unknown key is a ValueError there); the keys PretrainedConfig's
+# serialization adds, which both drop
+_DBRX_ATTN = {"attn_pdrop": 0.0, "clip_qkv": None, "kv_n_heads": 1,
+              "rope_theta": 10000.0}
+_DBRX_FFN = {"ffn_act_fn": None, "ffn_hidden_size": 3584,
+             "moe_num_experts": 4, "moe_top_k": 1, "moe_jitter_eps": None,
+             "moe_loss_weight": 0.01, "moe_normalize_expert_weights": 1.0}
+_DBRX_DROPPED = ("model_type", "attn_implementation", "transformers_version",
+                 "_commit_hash", "torch_dtype", "dtype")
 # types whose config __init__ defaults num_key_value_heads to the heads
 _KV_FROM_HEADS = ("llama", "mistral", "qwen2", "phi", "olmo", "phi3",
                   "ernie4_5", "cohere", "qwen3", "smollm3",
                   "hunyuan_v1_dense", "granite", "olmo2", "mixtral",
-                  "qwen3_moe")
+                  "qwen3_moe", "gpt_oss", "hunyuan_v1_moe", "deepseek_v3")
 # types whose config __init__ copies rope_scaling's "type" to "rope_type"
 _ROPE_TYPE_COPY = ("llama", "qwen2", "gpt_neox", "phi", "stablelm",
-                   "starcoder2", "ernie4_5", "qwen3", "smollm3", "qwen3_moe")
+                   "starcoder2", "ernie4_5", "qwen3", "smollm3", "qwen3_moe",
+                   "gpt_oss", "ernie4_5_moe", "glm4_moe", "deepseek_v3")
 # transformers' ALLOWED_LAYER_TYPES
 _LAYER_TYPES = ("full_attention", "sliding_attention", "chunked_attention",
                 "linear_attention")
@@ -412,6 +473,10 @@ def _derive(mt: str, v: dict, given: dict):
             rs["rope_type"] = rs["type"]
         if mt == "phi3" and rs.get("type") in ("su", "yarn"):
             rs["type"] = "longrope"
+        if mt == "deepseek_v3":
+            for key in ("beta_fast", "beta_slow", "factor"):
+                if key in rs:
+                    rs[key] = float(rs[key])
     if mt == "qwen2":
         if not v["use_sliding_window"]:
             v["sliding_window"] = None
@@ -437,6 +502,35 @@ def _derive(mt: str, v: dict, given: dict):
                              f"{v['num_layers']}")
         # a saved attention_layers is set after __init__ expands the types
         v.setdefault("attention_layers", kinds)
+    if mt == "gpt_oss":
+        if v["head_dim"] is None:
+            v["head_dim"] = v["hidden_size"] // v["num_attention_heads"]
+        if v["layer_types"] is None:
+            v["layer_types"] = ["sliding_attention" if (i + 1) % 2
+                                else "full_attention"
+                                for i in range(v["num_hidden_layers"])]
+        _check_layer_types(v["layer_types"], v["num_hidden_layers"])
+        v["attention_bias"] = True   # set whatever the file says
+    if mt == "ernie4_5_moe" and v["moe_layer_end_index"] == -1:
+        v["moe_layer_end_index"] = v["num_hidden_layers"] - 1
+    if mt == "deepseek_v3":
+        v["qk_head_dim"] = v["qk_nope_head_dim"] + v["qk_rope_head_dim"]
+        v["head_dim"] = v["qk_rope_head_dim"]
+    if mt == "dbrx":
+        if v["tie_word_embeddings"]:
+            raise ValueError("tie_word_embeddings is not supported for "
+                             "DBRX models.")
+        for key, fields in (("attn_config", _DBRX_ATTN),
+                            ("ffn_config", _DBRX_FFN)):
+            given_sub = {k: val for k, val in (v[key] or {}).items()
+                         if k not in _DBRX_DROPPED}
+            unknown = set(given_sub) - set(fields)
+            if unknown:
+                raise ValueError(f"Found unknown kwargs={sorted(unknown)}")
+            v[key] = dict(fields, **given_sub)
+        if v["ffn_config"]["ffn_act_fn"] is None:
+            v["ffn_config"]["ffn_act_fn"] = {"name": "silu"}
+        v["num_key_value_heads"] = v["attn_config"]["kv_n_heads"]
     if mt == "nemotron" and v["head_dim"] is None:
         v["head_dim"] = v["hidden_size"] // v["num_attention_heads"]
     if mt in ("falcon", "bloom") and "n_embed" in given:
@@ -495,11 +589,6 @@ def hf_view(d: dict) -> types.SimpleNamespace:
     """``config.json``'s dict as the attributes a ``transformers`` config
     object of its ``model_type`` would have for config_from_hf."""
     mt = d.get("model_type")
-    if mt in REFUSED_MODEL_TYPES:
-        switches, item = REFUSED_MODEL_TYPES[mt]
-        raise NotImplementedError(
-            f"model_type {mt!r} is not served by the port yet: its config "
-            f"switches on {switches} (ROADMAP Queue A {item})")
     if mt not in HF_DEFAULTS:
         raise NotImplementedError(
             f"unsupported model_type {mt!r}; the port converts "
@@ -1215,8 +1304,176 @@ def _nemotron_config(hf, mt, name):
         tie_word_embeddings=getattr(hf, "tie_word_embeddings", False))
 
 
+def _gpt_oss_config(hf, mt, name):
+    """gpt-oss (the JAX branch :942): llama-shaped attention with biases,
+    yarn RoPE and alternating windows, per-head sinks, and experts with
+    biases behind the topk_softmax router, through the clamped swish
+    GLU."""
+    heads = hf.num_attention_heads
+    hd = getattr(hf, "head_dim", None) or hf.hidden_size // heads
+    inv_freq, attn_factor, _ = _rope_scaling_params(hf, hd, mt)
+    sw, aw, _ = _layer_windows_from_hf(hf)
+    return ModelConfig(
+        name=name, family="gpt_oss", vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size, intermediate_size=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers, num_heads=heads,
+        num_kv_heads=getattr(hf, "num_key_value_heads", None) or heads,
+        head_dim=hd, max_position_embeddings=hf.max_position_embeddings,
+        norm_type="rmsnorm", norm_eps=hf.rms_norm_eps, activation="silu",
+        gated_mlp=True, position_embedding="rope",
+        rope_theta=getattr(hf, "rope_theta", 150000.0),
+        rope_inv_freq=inv_freq, rope_attn_factor=attn_factor,
+        attn_bias=bool(getattr(hf, "attention_bias", True)), mlp_bias=True,
+        sliding_window=sw, attn_windows=aw, attn_sinks=True,
+        num_experts=hf.num_local_experts,
+        num_experts_per_tok=getattr(hf, "num_experts_per_tok", 4),
+        moe_router="topk_softmax",
+        moe_swiglu_limit=float(getattr(hf, "swiglu_limit", 7.0)),
+        moe_swiglu_alpha=1.702,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False))
+
+
+def _hunyuan_moe_config(hf, mt, name):
+    """hunyuan_v1_moe (the JAX branch :985): the dense hunyuan layout with
+    the softmax router and one shared expert of the same width; per-layer
+    expert lists are refused."""
+    ne, tk = hf.num_experts, getattr(hf, "moe_topk", 1)
+    if not isinstance(ne, int) or not isinstance(tk, int):
+        raise NotImplementedError(
+            "hunyuan_v1_moe with per-layer num_experts/moe_topk lists")
+    return _llama_shaped(
+        hf, name, attn_bias=bool(getattr(hf, "attention_bias", False)),
+        qk_norm="rms_head", qk_norm_after_rope=True, num_experts=ne,
+        num_experts_per_tok=tk, moe_shared_experts=1)
+
+
+def _ernie_moe_config(hf, mt, name):
+    """ernie4_5_moe (the JAX branch :1018): softmax scores under the
+    bias-corrected selection (the "ernie" router), shared experts and a
+    dense prefix (``moe_layer_start_index``); interleaved MoE layers and
+    an early MoE end are refused."""
+    L = hf.num_hidden_layers
+    if getattr(hf, "moe_layer_interval", 1) != 1:
+        raise NotImplementedError("ernie4_5_moe with moe_layer_interval != 1")
+    if getattr(hf, "moe_layer_end_index", L - 1) not in (-1, L - 1):
+        raise NotImplementedError(
+            "ernie4_5_moe with moe_layer_end_index before the last layer")
+    fk = getattr(hf, "moe_layer_start_index", 0) or 0
+    mixed = 0 < fk < L
+    b = bool(getattr(hf, "use_bias", False))
+    return _llama_shaped(
+        hf, name, intermediate_size=hf.moe_intermediate_size,
+        attn_bias=b, o_bias=b, mlp_bias=b,
+        num_experts=hf.moe_num_experts,
+        num_experts_per_tok=getattr(hf, "moe_k", 2), moe_router="ernie",
+        moe_shared_experts=getattr(hf, "moe_num_shared_experts", 0) or 0,
+        dense_prefix_layers=fk if mixed else 0,
+        dense_intermediate_size=hf.intermediate_size if mixed else None,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", True))
+
+
+def _deepseek_routing(hf, all_dense: bool, mixed: bool, fk: int) -> dict:
+    """The deepseek_v3 router's fields, shared experts and dense prefix of
+    glm4_moe and deepseek_v3 (``first_k_dense_replace``: every layer
+    dense at or past L, a dense prefix below)."""
+    E = 0 if all_dense else hf.n_routed_experts
+    return dict(
+        num_experts=E,
+        num_experts_per_tok=getattr(hf, "num_experts_per_tok", 8),
+        moe_router="deepseek_v3" if E else "softmax",
+        moe_n_group=getattr(hf, "n_group", 1) or 1,
+        moe_topk_group=getattr(hf, "topk_group", 1) or 1,
+        moe_routed_scale=float(getattr(hf, "routed_scaling_factor", 1.0)),
+        moe_norm_topk=bool(getattr(hf, "norm_topk_prob", True)),
+        moe_shared_experts=(getattr(hf, "n_shared_experts", 0) or 0)
+        if E else 0,
+        dense_prefix_layers=fk if mixed else 0,
+        dense_intermediate_size=hf.intermediate_size if mixed else None,
+        intermediate_size=(hf.intermediate_size if all_dense
+                           else hf.moe_intermediate_size))
+
+
+def _glm4_moe_config(hf, mt, name):
+    """glm4_moe (the JAX branch :1064): the llama block with optional
+    per-head q/k norms and partial rotary, deepseek_v3 routing, shared
+    experts and a dense prefix."""
+    L = hf.num_hidden_layers
+    fk = getattr(hf, "first_k_dense_replace", 0) or 0
+    heads, _, hd = _heads_kv_hd(hf)
+    pct = float(getattr(hf, "partial_rotary_factor", 1.0))
+    inv_freq, attn_factor, _ = _rope_scaling_params(hf, int(hd * pct), mt)
+    return _llama_shaped(
+        hf, name, rope_pct=pct, rope_inv_freq=inv_freq,
+        rope_attn_factor=attn_factor,
+        attn_bias=bool(getattr(hf, "attention_bias", False)), o_bias=False,
+        qk_norm=("rms_head" if getattr(hf, "use_qk_norm", False) else None),
+        **_deepseek_routing(hf, fk >= L, 0 < fk < L, fk))
+
+
+def _dbrx_config(hf, mt, name):
+    """dbrx (the JAX branch :1119): bias-free LayerNorms, a fused Wqkv with
+    the ``clip_qkv`` clamp, 16 GLU experts behind the softmax router whose
+    p-norm renormalization converts only for p = 1 (renormalize) or None
+    (none)."""
+    ac, fc = hf.attn_config, hf.ffn_config
+    p = fc.get("moe_normalize_expert_weights", 1.0)
+    if p is not None and float(p) != 1.0:
+        raise NotImplementedError(
+            f"dbrx moe_normalize_expert_weights={p} — only 1.0 (L1 over "
+            "positive softmax weights == renormalize) or None convert")
+    act = fc.get("ffn_act_fn") or {}
+    return ModelConfig(
+        name=name, family="dbrx", vocab_size=hf.vocab_size,
+        hidden_size=hf.d_model, intermediate_size=fc["ffn_hidden_size"],
+        num_layers=hf.n_layers, num_heads=hf.n_heads,
+        num_kv_heads=ac["kv_n_heads"], head_dim=hf.d_model // hf.n_heads,
+        max_position_embeddings=hf.max_seq_len, norm_type="layernorm",
+        activation=_act_from_hf(act.get("name", "silu")), gated_mlp=True,
+        position_embedding="rope",
+        rope_theta=ac.get("rope_theta", 10000.0), attn_bias=False,
+        mlp_bias=False,
+        qkv_clip=float(ac["clip_qkv"]) if ac.get("clip_qkv") else None,
+        num_experts=fc["moe_num_experts"],
+        num_experts_per_tok=fc["moe_top_k"], moe_norm_topk=p is not None,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False))
+
+
+def _deepseek_v3_config(hf, mt, name):
+    """deepseek_v3 (the JAX branch :1156): latent attention with yarn over
+    the decoupled rope head, whose ``mscale_all_dim`` score multiplier
+    (its square) is folded into q through ``query_pre_attn_scalar``, and
+    the deepseek_v3 router, shared experts and a dense prefix."""
+    nd, rd = hf.qk_nope_head_dim, hf.qk_rope_head_dim
+    inv_freq, attn_factor, score_scale = _rope_scaling_params(hf, rd, mt)
+    qpas = (nd + rd) / score_scale ** 4 if score_scale != 1.0 else None
+    L = hf.num_hidden_layers
+    fk = getattr(hf, "first_k_dense_replace", 0) or 0
+    return ModelConfig(
+        name=name, family="deepseek", vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size, num_layers=L,
+        num_heads=hf.num_attention_heads,
+        num_kv_heads=hf.num_attention_heads, head_dim=nd + rd,
+        max_position_embeddings=hf.max_position_embeddings,
+        norm_type="rmsnorm", norm_eps=hf.rms_norm_eps,
+        activation=_act_from_hf(hf.hidden_act), gated_mlp=True,
+        position_embedding="rope",
+        rope_theta=getattr(hf, "rope_theta", 10000.0),
+        rope_interleaved=bool(getattr(hf, "rope_interleave", True)),
+        rope_inv_freq=inv_freq, rope_attn_factor=attn_factor,
+        query_pre_attn_scalar=qpas,
+        attn_bias=bool(getattr(hf, "attention_bias", False)),
+        mlp_bias=False, q_lora_rank=getattr(hf, "q_lora_rank", None),
+        kv_lora_rank=hf.kv_lora_rank, qk_nope_head_dim=nd,
+        qk_rope_head_dim=rd, v_head_dim=hf.v_head_dim,
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False),
+        **_deepseek_routing(hf, fk >= L, 0 < fk < L, fk))
+
+
 # the later types' config_from_hf branches (glm4 shares glm's)
 _LATER = {
+    "gpt_oss": _gpt_oss_config, "hunyuan_v1_moe": _hunyuan_moe_config,
+    "ernie4_5_moe": _ernie_moe_config, "glm4_moe": _glm4_moe_config,
+    "dbrx": _dbrx_config, "deepseek_v3": _deepseek_v3_config,
     "gpt_neo": _gpt_neo_config, "gemma2": _gemma2_config,
     "cohere": _cohere_config, "qwen3": _qwen3_config,
     "qwen3_moe": _qwen3_config,
@@ -1354,7 +1611,7 @@ def _llama(cfg, r):
             yield from _linear_items(o + n, lin(f"{p}self_attn.{n}_proj"))
         yield o + "mlp_norm.scale", \
             r.f32(p + "post_attention_layernorm.weight") + off
-        if cfg.is_moe:
+        if cfg.layer_cfg(i).is_moe:   # not a dense-prefix layer
             yield from _experts(cfg, r, p, o)
             continue
         for n in ("gate", "up", "down"):
@@ -1366,23 +1623,153 @@ def _llama(cfg, r):
 
 def _experts(cfg, r, p, o):
     """An MoE block's router and stacked experts (the JAX llama branch
-    :1475-1518): qwen3_moe's router ``mlp.gate`` and experts
-    ``mlp.experts.N.{gate,up,down}_proj``, mixtral's
-    ``block_sparse_moe.gate`` and ``block_sparse_moe.experts.N.{w1, w3,
-    w2}`` (gate, up, down); each weight transposed to [din, dout] and
-    stacked over the experts."""
-    if p + "mlp.gate.weight" in r:
-        router, ex = p + "mlp.gate.weight", p + "mlp.experts.{}."
+    :1475-1534): the router ``mlp.gate`` (qwen3_moe, glm4_moe,
+    ernie4_5_moe), ``mlp.gate.wg`` (hunyuan_v1_moe) or mixtral's
+    ``block_sparse_moe.gate``; the deepseek_v3 / ernie router's selection
+    bias (``mlp.gate.e_score_correction_bias``, or ernie's [1, E]
+    ``mlp.moe_statics.e_score_correction_bias``); the experts
+    ``mlp.experts.N.{gate,up,down}_proj`` (with their biases where the
+    files hold them: ernie4_5_moe ``use_bias``) or mixtral's
+    ``block_sparse_moe.experts.N.{w1, w3, w2}``, each weight transposed to
+    [din, dout] and stacked over the experts; and the shared experts'
+    linears (``mlp.shared_experts.*``, hunyuan's ``mlp.shared_mlp.*``)."""
+    router = next((p + c for c in ("mlp.gate.weight", "mlp.gate.wg.weight")
+                   if p + c in r), None)
+    if router is not None:
+        ex = p + "mlp.experts.{}."
         names = {"gate": "gate_proj", "up": "up_proj", "down": "down_proj"}
     else:
         router, ex = (p + "block_sparse_moe.gate.weight",
                       p + "block_sparse_moe.experts.{}.")
         names = {"gate": "w1", "up": "w3", "down": "w2"}
     yield o + "router.w", r.t(router).T
+    if cfg.moe_router in ("deepseek_v3", "ernie"):
+        bias = p + "mlp.gate.e_score_correction_bias"
+        if bias not in r:
+            bias = p + "mlp.moe_statics.e_score_correction_bias"
+        yield o + "router.bias", r.t(bias).reshape(-1)
     for n, hf in names.items():
         yield f"{o}experts.{n}.w", torch.stack(
             [r.t(ex.format(e) + hf + ".weight").T
              for e in range(cfg.num_experts)])
+        if ex.format(0) + hf + ".bias" in r:
+            yield f"{o}experts.{n}.b", torch.stack(
+                [r.t(ex.format(e) + hf + ".bias")
+                 for e in range(cfg.num_experts)])
+    if cfg.moe_shared_experts:
+        sh = (p + "mlp.shared_experts."
+              if p + "mlp.shared_experts.gate_proj.weight" in r
+              else p + "mlp.shared_mlp.")
+        for n in ("gate", "up", "down"):
+            yield from _linear_items(f"{o}shared_{n}", r.lin(sh + n + "_proj"))
+
+
+def _dbrx(cfg, r):
+    """dbrx (the JAX branch :1535): ``norm_attn_norm.{norm_1, attn.Wqkv,
+    attn.out_proj, norm_2}`` with bias-free LayerNorms (zero biases, the
+    exact equivalent), and the fused expert stacks ``ffn.experts.mlp.
+    {w1, v1, w2}`` [E*I, D]: w1 / v1 (gate / up) transposed per expert,
+    w2 (down) as stored."""
+    D, E, I = cfg.hidden_size, cfg.num_experts, cfg.intermediate_size
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    zb = torch.zeros(D, dtype=torch.float32, device=r.device)
+    yield EMBED, r.t("transformer.wte.weight")
+    for i in range(cfg.num_layers):
+        p, o = f"transformer.blocks.{i}.", f"layers.{i}."
+        a = p + "norm_attn_norm."
+        yield o + "attn_norm.scale", r.t(a + "norm_1.weight")
+        yield o + "attn_norm.bias", zb
+        qkv = r.t(a + "attn.Wqkv.weight").T                  # [D, D+2kvd]
+        yield o + "q.w", qkv[:, :D]
+        yield o + "k.w", qkv[:, D:D + kvd]
+        yield o + "v.w", qkv[:, D + kvd:]
+        del qkv
+        yield o + "o.w", r.t(a + "attn.out_proj.weight").T
+        yield o + "mlp_norm.scale", r.t(a + "norm_2.weight")
+        yield o + "mlp_norm.bias", zb
+        yield o + "router.w", r.t(p + "ffn.router.layer.weight").T
+        for n, hf in (("gate", "w1"), ("up", "v1"), ("down", "w2")):
+            w = r.t(p + "ffn.experts.mlp." + hf).reshape(E, I, D)
+            yield f"{o}experts.{n}.w", w if n == "down" else w.transpose(1, 2)
+    yield "final_norm.scale", r.t("transformer.norm_f.weight")
+    yield "final_norm.bias", zb
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.w", r.t("lm_head.weight").T
+
+
+def _gpt_oss(cfg, r):
+    """gpt_oss (the JAX branch :1579): llama names with biases, the
+    per-layer ``self_attn.sinks``, the router ``mlp.router`` (a linear
+    with its bias), and the experts' fused ``gate_up_proj`` [E, D, 2I]
+    (gate the even columns, up the odd) and ``down_proj`` [E, I, D], each
+    with its bias, contracted as stored."""
+    yield EMBED, r.t("model.embed_tokens.weight")
+    for i in range(cfg.num_layers):
+        p, o = f"model.layers.{i}.", f"layers.{i}."
+        yield o + "attn_norm.scale", r.t(p + "input_layernorm.weight")
+        for n in "qkvo":
+            yield from _linear_items(o + n, r.lin(f"{p}self_attn.{n}_proj"))
+        yield o + "sinks", r.t(p + "self_attn.sinks")
+        yield o + "mlp_norm.scale", r.t(p + "post_attention_layernorm.weight")
+        yield o + "router.w", r.t(p + "mlp.router.weight").T
+        yield o + "router.bias", r.t(p + "mlp.router.bias")
+        e = p + "mlp.experts."
+        gu, gub = r.t(e + "gate_up_proj"), r.t(e + "gate_up_proj_bias")
+        yield o + "experts.gate.w", gu[..., 0::2]
+        yield o + "experts.gate.b", gub[..., 0::2]
+        yield o + "experts.up.w", gu[..., 1::2]
+        yield o + "experts.up.b", gub[..., 1::2]
+        del gu, gub
+        yield o + "experts.down.w", r.t(e + "down_proj")
+        yield o + "experts.down.b", r.t(e + "down_proj_bias")
+    yield "final_norm.scale", r.t("model.norm.weight")
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.w", r.t("lm_head.weight").T
+
+
+def _deepseek(cfg, r):
+    """deepseek_v3 (the JAX branch :1622): latent attention's projections,
+    q's per-head columns permuted from HF's [nope | rope] to [rope |
+    nope] and scaled in f32 by the folded ``mscale_all_dim`` (``_q_scale``
+    over ``query_pre_attn_scalar``); ``kv_b_proj`` split per head into
+    ``kv_b_k`` (nope) and ``kv_b_v``; a dense prefix's MLP, then the
+    router with its selection bias, the experts and the shared experts."""
+    H, hd = cfg.num_heads, cfg.head_dim
+    nd, vd = cfg.qk_nope_head_dim, cfg.v_head_dim_effective
+    qs = _q_scale(cfg)
+
+    def q_permute(w):
+        w = w.float().reshape(-1, H, hd)
+        return torch.cat([w[..., nd:], w[..., :nd]], dim=-1).reshape(
+            -1, H * hd) * qs
+
+    yield EMBED, r.t("model.embed_tokens.weight")
+    for i in range(cfg.num_layers):
+        p, o = f"model.layers.{i}.", f"layers.{i}."
+        a = p + "self_attn."
+        yield o + "attn_norm.scale", r.t(p + "input_layernorm.weight")
+        yield from _linear_items(o + "kv_a", r.lin(a + "kv_a_proj_with_mqa"))
+        yield o + "kv_a_norm.scale", r.t(a + "kv_a_layernorm.weight")
+        kv_b = r.t(a + "kv_b_proj.weight").T.reshape(-1, H, nd + vd)
+        yield o + "kv_b_k.w", kv_b[..., :nd].reshape(-1, H * nd)
+        yield o + "kv_b_v.w", kv_b[..., nd:].reshape(-1, H * vd)
+        del kv_b
+        yield from _linear_items(o + "o", r.lin(a + "o_proj"))
+        yield o + "mlp_norm.scale", r.t(p + "post_attention_layernorm.weight")
+        if cfg.q_lora_rank:
+            yield from _linear_items(o + "q_a", r.lin(a + "q_a_proj"))
+            yield o + "q_a_norm.scale", r.t(a + "q_a_layernorm.weight")
+            yield o + "q_b.w", q_permute(r.t(a + "q_b_proj.weight").T)
+        else:
+            yield o + "q.w", q_permute(r.t(a + "q_proj.weight").T)
+        if cfg.layer_cfg(i).is_moe:
+            yield from _experts(cfg, r, p, o)
+        else:
+            for n in ("gate", "up", "down"):
+                yield from _linear_items(o + n, r.lin(f"{p}mlp.{n}_proj"))
+    yield "final_norm.scale", r.t("model.norm.weight")
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.w", r.t("lm_head.weight").T
 
 
 def _per_head_qkv(w, b, H, hd, D):
@@ -1821,6 +2208,7 @@ _FAMILIES = {
     "codegen": _codegen, "starcoder2": _starcoder2, "olmo": _olmo,
     "phi3": _phi3, "glm": _glm, "gpt_neo": _gpt_neo, "gemma2": _gemma2,
     "cohere": _cohere, "olmo2": _olmo2, "nemotron": _nemotron,
+    "dbrx": _dbrx, "gpt_oss": _gpt_oss, "deepseek": _deepseek,
 }
 
 

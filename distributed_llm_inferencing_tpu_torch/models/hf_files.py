@@ -68,7 +68,10 @@ BASE_MODEL_PREFIX = {
     "gpt_neo": "transformer", "gemma2": "model", "cohere": "model",
     "qwen3": "model", "smollm3": "model", "hunyuan_v1_dense": "model",
     "exaone4": "model", "granite": "model", "olmo2": "model",
-    "glm4": "model", "nemotron": "model",
+    "glm4": "model", "nemotron": "model", "mixtral": "model",
+    "qwen3_moe": "model", "gpt_oss": "model", "hunyuan_v1_moe": "model",
+    "ernie4_5_moe": "model", "glm4_moe": "model", "dbrx": "transformer",
+    "deepseek_v3": "model",
 }
 
 

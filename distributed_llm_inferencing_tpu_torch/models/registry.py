@@ -3,9 +3,10 @@
 An own copy of the reference registry's rows for the families the port
 serves: llama (``_llama``), gpt2 (``_gpt2``) and opt (``_opt``), qwen2,
 gemma, gpt-neox/pythia, phi, falcon, bloom, mpt and gpt-j, plus the tiny
-test configs, and the rows with experts behind the softmax router
-(mixtral-8x7b, moe-proxy-8e, tiny-mixtral). The rows with latent
-attention (the deepseek proxies) join as the port grows to run them.
+test configs, the rows with experts behind the softmax router
+(mixtral-8x7b, moe-proxy-8e, tiny-mixtral), and the deepseek proxies
+(latent attention, the deepseek_v3 router, shared experts and a dense
+prefix: deepseek-proxy, tiny-deepseek): every row of the reference's.
 """
 
 from __future__ import annotations
@@ -92,6 +93,23 @@ register(_llama("moe-proxy-8e", 1536, 4096, 16, 12, 4, vocab=32000,
                 ctx=4096, theta=10000.0).replace(
                     name="moe-proxy-8e", num_experts=8,
                     num_experts_per_tok=2))
+
+# --- DeepSeek proxy: V3's mechanisms (latent attention, sigmoid
+# group-limited routing, shared experts, a dense prefix) at a size one
+# card serves; dims follow V3's ratios (kv_lora_rank ~ D/14, rope head =
+# nope/2, v = nope) ---
+register(ModelConfig(
+    name="deepseek-proxy", family="deepseek", vocab_size=32000,
+    hidden_size=1024, intermediate_size=512, num_layers=12, num_heads=16,
+    num_kv_heads=16, head_dim=96, qk_nope_head_dim=64,
+    qk_rope_head_dim=32, v_head_dim=64, q_lora_rank=384, kv_lora_rank=128,
+    max_position_embeddings=4096, norm_type="rmsnorm", activation="silu",
+    gated_mlp=True, position_embedding="rope", rope_theta=10000.0,
+    rope_interleaved=True, attn_bias=False, mlp_bias=False,
+    tie_word_embeddings=False, num_experts=8, num_experts_per_tok=2,
+    moe_router="deepseek_v3", moe_n_group=4, moe_topk_group=2,
+    moe_routed_scale=2.5, moe_shared_experts=1,
+    dense_prefix_layers=1, dense_intermediate_size=2048))
 
 # --- Qwen2: llama layout + bias on q/k/v only ---
 register(_llama("qwen2-7b", 3584, 18944, 28, 28, 4, vocab=152064,
@@ -216,3 +234,16 @@ register(ModelConfig(
     activation="silu", gated_mlp=True, position_embedding="rope",
     attn_bias=False, mlp_bias=False, tie_word_embeddings=False,
     num_experts=4, num_experts_per_tok=2))
+register(ModelConfig(
+    name="tiny-deepseek", family="deepseek", vocab_size=256,
+    hidden_size=64, intermediate_size=32, num_layers=3, num_heads=8,
+    num_kv_heads=8, head_dim=24, qk_nope_head_dim=16, qk_rope_head_dim=8,
+    v_head_dim=16, q_lora_rank=32, kv_lora_rank=16,
+    max_position_embeddings=128, norm_type="rmsnorm", activation="silu",
+    gated_mlp=True, position_embedding="rope", rope_interleaved=True,
+    attn_bias=False, mlp_bias=False, tie_word_embeddings=False,
+    num_experts=4, num_experts_per_tok=2, moe_router="deepseek_v3",
+    moe_n_group=2, moe_topk_group=1, moe_routed_scale=2.5,
+    moe_shared_experts=1,
+    # one dense-MLP layer ahead of the MoE layers (first_k_dense_replace)
+    dense_prefix_layers=1, dense_intermediate_size=48))

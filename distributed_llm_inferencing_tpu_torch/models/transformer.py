@@ -1,7 +1,8 @@
-"""Causal transformer, the dense families, as torch ``nn.Module``s.
+"""Causal transformer, every family of the reference, as torch ``nn.Module``s.
 
-Port of the reference's ``models/transformer.py`` for the families
-without latent attention: llama/mistral (and mixtral's experts), gpt2,
+Port of the reference's ``models/transformer.py``: llama/mistral (and
+the experts of mixtral, qwen3_moe, glm4_moe, ernie4_5_moe,
+hunyuan_v1_moe, dbrx and gpt-oss), deepseek's latent attention, gpt2,
 opt, qwen2, gemma, gpt-neox/pythia, phi, falcon, bloom, mpt and gpt-j.
 One block
 covers them through ModelConfig switches, as in the reference: RMSNorm
@@ -23,16 +24,24 @@ scales, and nemotron's squared ReLU. The reference runs its stacked
 ``[L, ...]`` layers under ``lax.scan`` and carries per-layer windows and
 rope switches as traced leaves; here each layer is its own ``Block``
 holding its window and rope switch as static values, and the stack is a
-Python loop. A config that switches on anything else (another router,
-shared experts, MLA, sinks, a QKV clamp, ...) is refused at construction
-rather than served wrong (``check_supported``).
+Python loop. The reference's two stacked segments of a mixed stack
+(``layer_segments``: the dense-MLP prefix ``layers_dense`` ahead of the
+MoE layers) are here the first ``dense_prefix_layers`` Blocks, each
+built from ``cfg.dense_segment_cfg()``. dbrx's ``qkv_clip`` clamps q, k
+and v after projection; gpt-oss's sinks join every softmax as a column
+(ops/flash_attention.py ``masked_attention``), by the plain formulation
+in every regime, as the reference routes them. A config outside the
+served choices is refused at construction rather than served wrong
+(``check_supported``).
 
-Experts behind the softmax router (mixtral, qwen3_moe; the reference's
-``_moe``): each MoE block holds a float router [D, E] and the stacked
-expert leaves gate/up [E, D, I] and down [E, I, D] in the weights' stored
-form (``_ew``: float, or int8 / int4 levels times the per-column scale
-applied to the product). Softmax, top-k and, with ``moe_norm_topk``,
-renormalized gates (``_moe_gates``); then every expert for every token
+Experts (the reference's ``_moe``): each MoE block holds a float router
+[D, E] (with an f32 bias [E] for the deepseek_v3, ernie and topk_softmax
+routers) and the stacked expert leaves gate/up [E, D, I] and down [E, I,
+D] in the weights' stored form (``_ew``: float, or int8 / int4 levels
+times the per-column scale applied to the product), with gpt-oss's [E,
+out] biases; the four routers of ``moe_gates``; gpt-oss's clamped swish
+GLU (``glu_h``); an always-on shared-experts MLP (``shared_gate/up/down``
+linears) added outside the routing; then every expert for every token
 weighted by its gate (``_moe_dense``), or GShard capacity dispatch
 (``_moe_capacity``: C = max(1, int(cf * k * N / E)) slots per expert,
 token-then-choice priority, a choice past its expert's C dropped) where N
@@ -129,6 +138,8 @@ from torch import nn
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
 from distributed_llm_inferencing_tpu_torch.models.params import (
     EXPERT_LEAVES, layer_linears)
+from distributed_llm_inferencing_tpu_torch.ops.quant import (
+    leaf_form, leaf_keys, pack_chunks, unpack_int4)
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode
 from distributed_llm_inferencing_tpu_torch.ops.attention import (
     alibi_slopes, attend_decode, attend_prefill)
@@ -142,8 +153,6 @@ from distributed_llm_inferencing_tpu_torch.ops.norms import (
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
     PagedKVCache, gather_seq, paged_attend_decode, paged_attend_prefix,
     write_block_run, write_token)
-from distributed_llm_inferencing_tpu_torch.ops.quant import (
-    leaf_form, leaf_keys, pack_chunks, unpack_int4)
 from distributed_llm_inferencing_tpu_torch.ops.quant_matmul import q4_linear
 from distributed_llm_inferencing_tpu_torch.ops.rope import (
     apply_rope, rope_cos_sin, rotary_dim)
@@ -158,13 +167,6 @@ from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 # _PREGATHER_MAX_BYTES), else per layer inside each iteration.
 PREGATHER_MAX_BYTES = 256 * 1024 * 1024
 
-# field -> the only value the port serves (features not ported yet)
-_UNPORTED = {
-    "qkv_clip": None, "kv_lora_rank": None, "q_lora_rank": None,
-    "mla_latent_cache": False, "attn_sinks": False,
-    "dense_prefix_layers": 0, "moe_shared_experts": 0,
-    "moe_swiglu_limit": None,
-}
 # the reference's token count at or below which "auto" dispatch runs the
 # dense MoE path (_MOE_AUTO_DENSE_MAX_TOKENS): decode steps stay dense
 MOE_AUTO_DENSE_MAX_TOKENS = 32
@@ -182,7 +184,8 @@ _ACT = {"silu": F.silu, "relu": F.relu, "relu2": _relu2,
 _CHOICES = {"norm_type": ("rmsnorm", "layernorm"), "activation": tuple(_ACT),
             "position_embedding": ("rope", "learned", "alibi"),
             "qk_norm": (None, "rms_head", "ln_head", "rms_full"),
-            "kv_quant": (None, "int8"), "moe_router": ("softmax",),
+            "kv_quant": (None, "int8"),
+            "moe_router": ("softmax", "deepseek_v3", "ernie", "topk_softmax"),
             "moe_dispatch": ("auto", "dense", "capacity")}
 # field -> its llama value: the family switches, which tp does not shard
 # yet (parallel/sharding.py cuts the llama arm's leaves only)
@@ -197,18 +200,15 @@ _LLAMA_ARM = {
     "rope_layers": None, "attn_softcap": None, "logit_softcap": None,
     "logit_scale": None, "post_block_norms": False,
     "sublayer_postnorm_only": False, "residual_scale": None,
-    "num_experts": 0,
+    "num_experts": 0, "kv_lora_rank": None, "q_lora_rank": None,
+    "qkv_clip": None, "attn_sinks": False,
 }
 
 
 def check_supported(cfg: ModelConfig):
     """Raise for any config feature outside the ported families."""
-    bad = [f"{f}={getattr(cfg, f)!r}" for f, want in _UNPORTED.items()
-           if getattr(cfg, f) != want]
-    bad += [f"{f}={getattr(cfg, f)!r}" for f, ok in _CHOICES.items()
-            if getattr(cfg, f) not in ok]
-    if cfg.is_moe and cfg.mlp_bias:
-        bad.append("mlp_bias=True with num_experts (per-expert biases)")
+    bad = [f"{f}={getattr(cfg, f)!r}" for f, ok in _CHOICES.items()
+           if getattr(cfg, f) not in ok]
     for f in ("attn_windows", "rope_layers"):
         if getattr(cfg, f) is not None and \
                 len(getattr(cfg, f)) != cfg.num_layers:
@@ -294,33 +294,103 @@ def _ew(operand, leaf: Dict[str, torch.Tensor], eq: str, scale_at=None):
     return y * (scale if scale_at is None else scale_at(scale))
 
 
-def moe_gates(x, router_w, cfg: ModelConfig):
-    """Softmax-router gates [..., E] f32 (the reference's ``_moe_gates``,
-    "softmax" arm): softmax over the router logits, every expert whose
-    probability reaches the k-th largest kept, renormalized over the kept
-    ones with ``moe_norm_topk``."""
+def _wfull(leaf: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
+    """A linear leaf's weight in ``dtype`` with its scale applied (the
+    reference's ``_wfull``): what latent attention's absorbed einsums
+    read from ``kv_b_k`` / ``kv_b_v`` in any stored form."""
+    if "w" in leaf:
+        return leaf["w"].to(dtype)
+    levels = (unpack_int4(leaf["p4"], pack_chunks(leaf)) if "p4" in leaf
+              else leaf["q"])
+    return levels.to(dtype) * leaf["scale"].to(dtype)
+
+
+def moe_gates(x, router_w, cfg: ModelConfig, router_b=None):
+    """Router gates [..., E] f32 (the reference's ``_moe_gates``).
+
+    "softmax" (mixtral): softmax over the router logits, every expert
+    whose probability reaches the k-th largest kept, renormalized over
+    the kept ones with ``moe_norm_topk``. "deepseek_v3" (sigmoid scores)
+    and "ernie" (softmax scores): the selection ranks scores + the
+    router's bias ``router_b`` under group-limited top-k (groups scored
+    by their top-2 sum, the top ``moe_topk_group`` groups eligible, the
+    others masked with -inf, as the reference does where HF fills 0);
+    the weights are the unbiased scores, renormalized with
+    ``moe_norm_topk``, times ``moe_routed_scale``. "topk_softmax"
+    (gpt-oss): the bias is part of the router linear; softmax over the k
+    picks. Every tie with the k-th value is kept (``>=``), as there."""
     logits = torch.matmul(x.float(), router_w.float())
+    k = cfg.num_experts_per_tok
+    if cfg.moe_router in ("deepseek_v3", "ernie"):
+        scores = (torch.sigmoid(logits) if cfg.moe_router == "deepseek_v3"
+                  else torch.softmax(logits, dim=-1))
+        choice = scores + router_b.float()
+        g = cfg.moe_n_group
+        gs = choice.reshape(*choice.shape[:-1], g, cfg.num_experts // g)
+        group_scores = torch.topk(gs, 2, dim=-1).values.sum(dim=-1)
+        gkth = torch.topk(group_scores, cfg.moe_topk_group,
+                          dim=-1).values[..., -1:]
+        eligible = (group_scores >= gkth)[..., None].expand(
+            gs.shape).reshape(choice.shape)
+        ranked = torch.where(eligible, choice, float("-inf"))
+        kth = torch.topk(ranked, k, dim=-1).values[..., -1:]
+        gate = torch.where((ranked >= kth) & eligible, scores, 0.0)
+        if cfg.moe_norm_topk:
+            gate = gate / (gate.sum(dim=-1, keepdim=True) + 1e-20)
+        return gate * cfg.moe_routed_scale
+    if cfg.moe_router == "topk_softmax":
+        logits = logits + router_b.float()
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        sel = logits >= kth
+        picked = torch.softmax(torch.where(sel, logits, float("-inf")),
+                               dim=-1)
+        return torch.where(sel, picked, 0.0)
     probs = torch.softmax(logits, dim=-1)
-    kth = torch.topk(probs, cfg.num_experts_per_tok, dim=-1).values[..., -1:]
+    kth = torch.topk(probs, k, dim=-1).values[..., -1:]
     gate = torch.where(probs >= kth, probs, 0.0)
     if cfg.moe_norm_topk:
         gate = gate / gate.sum(dim=-1, keepdim=True)
     return gate
 
 
-def moe_dense(x, router_w, experts, cfg: ModelConfig, act):
+def glu_h(gate, up, cfg: ModelConfig, act):
+    """An expert's hidden activation (the reference's ``_glu_h``):
+    act(gate) * up, or gpt-oss's clamped swish GLU — gate clamped above
+    at ``moe_swiglu_limit``, up to +-limit, then (up + 1) * gate *
+    sigmoid(alpha * gate)."""
+    if cfg.moe_swiglu_limit is not None:
+        lim = cfg.moe_swiglu_limit
+        gate = torch.clamp(gate, max=lim)
+        up = torch.clamp(up, -lim, lim)
+        return (up + 1.0) * (gate * torch.sigmoid(
+            cfg.moe_swiglu_alpha * gate))
+    return act(gate) * up
+
+
+def _expert_bias(y, leaf, at=None):
+    """``y`` plus the expert leaf's [E, out] bias (gpt-oss), ``at``
+    reshaping it to y's layout; y as it is without one."""
+    if "b" not in leaf:
+        return y
+    return y + (leaf["b"] if at is None else at(leaf["b"]))
+
+
+def moe_dense(x, router_w, experts, cfg: ModelConfig, act, router_b=None):
     """Every expert for every token, weighted by its gate (the
     reference's ``_moe_dense``): no permutation and no drops, E/k times
     the FLOPs of a dispatch, the trade at decode's token counts."""
-    gate = moe_gates(x, router_w, cfg)
-    g = _ew(x, experts["gate"], "...d,edi->...ei")
-    u = _ew(x, experts["up"], "...d,edi->...ei")
-    out = _ew(act(g) * u, experts["down"], "...ei,eid->...ed")
+    gate = moe_gates(x, router_w, cfg, router_b)
+    g = _expert_bias(_ew(x, experts["gate"], "...d,edi->...ei"),
+                     experts["gate"])
+    u = _expert_bias(_ew(x, experts["up"], "...d,edi->...ei"), experts["up"])
+    out = _expert_bias(_ew(glu_h(g, u, cfg, act), experts["down"],
+                           "...ei,eid->...ed"), experts["down"])
     out = torch.einsum("...ed,...e->...d", out.float(), gate)
     return out.to(x.dtype)
 
 
-def moe_capacity(x, router_w, experts, cfg: ModelConfig, act):
+def moe_capacity(x, router_w, experts, cfg: ModelConfig, act,
+                 router_b=None):
     """GShard capacity dispatch (the reference's ``_moe_capacity``): each
     expert takes at most C = max(1, int(cf * k * N / E)) of the N
     positions of ``x`` (padding positions compete too), in token order,
@@ -331,7 +401,7 @@ def moe_capacity(x, router_w, experts, cfg: ModelConfig, act):
     n = xf.shape[0]
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     c = max(1, int(cfg.moe_capacity_factor * k * n / e))
-    gate = moe_gates(xf, router_w, cfg)                      # [N, E]
+    gate = moe_gates(xf, router_w, cfg, router_b)            # [N, E]
     gate_vals, gate_idx = torch.topk(gate, k, dim=-1)        # [N, k]
     onehot = F.one_hot(gate_idx, e).float()                  # [N, k, E]
     flat = onehot.reshape(n * k, e)
@@ -344,14 +414,18 @@ def moe_capacity(x, router_w, experts, cfg: ModelConfig, act):
     dispatch = (combine > 0).to(x.dtype)
     ex_in = torch.einsum("nec,nd->ecd", dispatch, xf)        # [E, C, D]
     per_slot = functools.partial(torch.unsqueeze, dim=1)     # [E, 1, out]
-    g = _ew(ex_in, experts["gate"], "ecd,edi->eci", per_slot)
-    u = _ew(ex_in, experts["up"], "ecd,edi->eci", per_slot)
-    out = _ew(act(g) * u, experts["down"], "eci,eid->ecd", per_slot)
+    g = _expert_bias(_ew(ex_in, experts["gate"], "ecd,edi->eci", per_slot),
+                     experts["gate"], per_slot)
+    u = _expert_bias(_ew(ex_in, experts["up"], "ecd,edi->eci", per_slot),
+                     experts["up"], per_slot)
+    out = _expert_bias(_ew(glu_h(g, u, cfg, act), experts["down"],
+                           "eci,eid->ecd", per_slot), experts["down"],
+                       per_slot)
     y = torch.einsum("ecd,nec->nd", out.float(), combine)
     return y.reshape(*lead, d).to(x.dtype)
 
 
-def moe(x, router_w, experts, cfg: ModelConfig, act):
+def moe(x, router_w, experts, cfg: ModelConfig, act, router_b=None):
     """The routed MLP by ``cfg.moe_dispatch``: "auto" is dense at N <=
     ``MOE_AUTO_DENSE_MAX_TOKENS`` positions and capacity above."""
     mode = cfg.moe_dispatch
@@ -361,7 +435,7 @@ def moe(x, router_w, experts, cfg: ModelConfig, act):
             n *= size
         mode = "dense" if n <= MOE_AUTO_DENSE_MAX_TOKENS else "capacity"
     fn = moe_capacity if mode == "capacity" else moe_dense
-    return fn(x, router_w, experts, cfg, act)
+    return fn(x, router_w, experts, cfg, act, router_b)
 
 
 class Linear(nn.Module):
@@ -460,7 +534,21 @@ class Block(nn.Module):
     One method per cache regime; each writes its K/V in place, and all
     share ``_tail``, so the regimes cannot drift apart. Layer ``index``'s
     window (``layer_window``) and rope switch (``layer_rope``) are static
-    values of the block: a captured decode step bakes them in."""
+    values of the block: a captured decode step bakes them in. ``cfg`` is
+    the layer's config (``ModelConfig.layer_cfg``): a dense-prefix layer
+    of a mixed stack is a dense-MLP block.
+
+    Latent attention (``cfg.mla``, the reference's ``_mla_qkv``): q and
+    kv pass through low-rank bottlenecks with an RMSNorm at each, per-head
+    dims ordered [rope | nope], k's rope part computed once and shared by
+    every head, v zero-padded from ``v_head_dim`` to ``head_dim`` so every
+    cache and attention path keeps one width, and sliced back before o.
+    Its attention takes the plain formulation in every regime, as the
+    reference's ``_cfg_backend`` routes it. Over the engine's latent cache
+    (``cfg.mla_latent_cache``) the block writes one [k_rot | c] row per
+    token: prefill attends materialized K/V, decode the absorbed
+    formulation (``_latent_attend``). Sinks (``cfg.attn_sinks``) ride
+    every attention call, which then takes the plain formulation too."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
                  tp: Optional[TPGroup] = None, alibi=None, index: int = 0,
@@ -481,13 +569,26 @@ class Block(nn.Module):
         if cfg.qk_norm:
             self.q_norm = _param(p["q_norm.scale"])
             self.k_norm = _param(p["k_norm.scale"])
+        self.q_a_norm = self.kv_a_norm = None
+        if cfg.mla:   # the bottlenecks' RMSNorms
+            if cfg.q_lora_rank:
+                self.q_a_norm = Norm(_leaf(p, "q_a_norm"), "rmsnorm",
+                                     cfg.norm_eps)
+            self.kv_a_norm = Norm(_leaf(p, "kv_a_norm"), "rmsnorm",
+                                  cfg.norm_eps)
+        self.sinks = _param(p["sinks"]) if cfg.attn_sinks else None
+        # the plain attention formulation on every device (latent
+        # attention; sinks pass their column and take it by themselves)
+        self.plain = cfg.mla
         self.gate = None
         for n, *_ in layer_linears(cfg):
             setattr(self, n, Linear(_leaf(p, n),
                                     tp if n in ("o", "down") else None))
-        self.router = self.experts = None
+        self.router = self.router_b = self.experts = None
         if cfg.is_moe:
             self.router = _param(p["router.w"])
+            if "router.bias" in p:
+                self.router_b = _param(p["router.bias"])
             self.experts = {n: _leaf(p, f"experts.{n}")
                             for n in EXPERT_LEAVES}
         self.index = index
@@ -520,19 +621,105 @@ class Block(nn.Module):
             return y
         return y + gathered_delta(x, lora.layer(self.index, name), lora.ids)
 
+    def _clip(self, t):
+        """dbrx's ``clip_qkv``: q, k and v clamped after projection,
+        before the q/k norms and RoPE."""
+        c = self.cfg.qkv_clip
+        return t if c is None else torch.clamp(t, -c, c)
+
     def _kv(self, h, cos_sin, lora=None):
         cfg = self.cfg
         B, s, _ = h.shape
         k = self._proj("k", h, lora).view(B, s, self.kv_heads, cfg.head_dim)
         v = self._proj("v", h, lora).view(B, s, self.kv_heads, cfg.head_dim)
-        return self._pos(k, cos_sin, self.k_norm), v
+        return self._pos(self._clip(k), cos_sin, self.k_norm), self._clip(v)
 
     def _qkv(self, h, cos_sin, lora=None):
+        if self.cfg.mla:
+            return self._mla_qkv(h, cos_sin)
         B, s, _ = h.shape
         q = self._proj("q", h, lora).view(B, s, self.heads,
                                           self.cfg.head_dim)
         k, v = self._kv(h, cos_sin, lora)
-        return self._pos(q, cos_sin, self.q_norm), k, v
+        return self._pos(self._clip(q), cos_sin, self.q_norm), k, v
+
+    def _rope_rot(self, t, cos_sin):
+        """RoPE over the whole (rope-wide) last axis of ``t``."""
+        return apply_rope(t, None, self.cfg.rope_theta, 1.0,
+                          self.cfg.rope_interleaved, cos_sin=cos_sin)
+
+    def _mla_q(self, h, cos_sin):
+        """Latent attention's q [B,s,H,hd], per-head [rope | nope], the
+        rope slice rotated (the reference's ``_mla_q``)."""
+        cfg = self.cfg
+        B, s, _ = h.shape
+        rd = cfg.qk_rope_head_dim
+        if cfg.q_lora_rank:
+            q = self.q_b(self.q_a_norm(self.q_a(h)))
+        else:
+            q = self.q(h)
+        q = q.view(B, s, self.heads, cfg.head_dim)
+        return torch.cat([self._rope_rot(q[..., :rd], cos_sin), q[..., rd:]],
+                         dim=-1)
+
+    def _mla_kv_latent(self, h, cos_sin):
+        """(k_rot [B,s,1,rd] rotated, c [B,s,r] normed): the kv
+        bottleneck (the reference's ``_mla_kv_latent``)."""
+        r = self.cfg.kv_lora_rank
+        ckv = self.kv_a(h)
+        return (self._rope_rot(ckv[..., r:][:, :, None, :], cos_sin),
+                self.kv_a_norm(ckv[..., :r]))
+
+    def _mla_qkv(self, h, cos_sin):
+        """Materialized latent attention: q, k, v [B,s,H,hd], k's rope
+        part shared by the heads, v zero-padded to hd."""
+        cfg = self.cfg
+        B, s, _ = h.shape
+        H, hd, rd = self.heads, cfg.head_dim, cfg.qk_rope_head_dim
+        vd = cfg.v_head_dim_effective
+        q = self._mla_q(h, cos_sin)
+        k_rot, c = self._mla_kv_latent(h, cos_sin)
+        k = torch.cat([k_rot.expand(B, s, H, rd),
+                       self.kv_b_k(c).view(B, s, H, hd - rd)], dim=-1)
+        v = self.kv_b_v(c).view(B, s, H, vd)
+        if vd < hd:
+            v = F.pad(v, (0, hd - vd))
+        return q, k, v
+
+    def _latent_attend(self, h, cache, slots, cos_sin, new_lengths,
+                       is_prefill: bool, q_positions=None):
+        """Latent attention over the latent cache (the reference's
+        ``_mla_latent_attn``): write the block's [k_rot | c] rows, then
+        attend — prefill with materialized per-head K/V over the fresh
+        block, decode by the absorbed formulation: q_nope folded through
+        kv_b_k, MQA over the (rd + r)-wide rows with v their c slice, at
+        the materialized head_dim's score scale, and the context lifted
+        through kv_b_v. Returns attn [B,s,H,v_head_dim]."""
+        cfg = self.cfg
+        B, s, _ = h.shape
+        H, hd, rd = self.heads, cfg.head_dim, cfg.qk_rope_head_dim
+        r, nd = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+        vd = cfg.v_head_dim_effective
+        q = self._mla_q(h, cos_sin)
+        k_rot, c = self._mla_kv_latent(h, cos_sin)
+        ck = cache[0]
+        write_block(ck, torch.cat([k_rot, c[:, :, None, :]], dim=-1), None,
+                    slots)
+        wk = _wfull(self.kv_b_k.leaf(), q.dtype).view(r, H, nd)
+        wv = _wfull(self.kv_b_v.leaf(), q.dtype).view(r, H, vd)
+        if is_prefill:
+            k = torch.cat([k_rot.expand(B, s, H, rd),
+                           torch.einsum("bsr,rhn->bshn", c, wk)], dim=-1)
+            v = torch.einsum("bsr,rhv->bshv", c, wv)
+            if vd < hd:
+                v = F.pad(v, (0, hd - vd))
+            return attend_prefill(q, k, v, plain=True)[..., :vd]
+        q_eff = torch.cat([q[..., :rd], torch.einsum(
+            "bshn,rhn->bshr", q[..., rd:], wk)], dim=-1)
+        ctx = attend_decode(q_eff, ck, ck[..., rd:], new_lengths,
+                            q_positions=q_positions, plain=True,
+                            scale=1.0 / float(hd) ** 0.5)     # [B,s,H,r]
+        return torch.einsum("bshr,rhv->bshv", ctx, wv)
 
     def _in(self, x):
         """The attention input: the block input, normed first unless the
@@ -547,7 +734,12 @@ class Block(nn.Module):
 
     def _mlp(self, h, lora=None):
         if self.router is not None:
-            return moe(h, self.router, self.experts, self.cfg, self.act)
+            out = moe(h, self.router, self.experts, self.cfg, self.act,
+                      self.router_b)
+            if self.cfg.moe_shared_experts:   # always on, outside routing
+                out = out + self.shared_down(
+                    self.act(self.shared_gate(h)) * self.shared_up(h))
+            return out
         if self.gate is not None:
             a = (self.act(self._proj("gate", h, lora))
                  * self._proj("up", h, lora))
@@ -566,7 +758,8 @@ class Block(nn.Module):
         ``residual_scale``, before its residual add."""
         cfg = self.cfg
         B, s = attn.shape[:2]
-        attn = self._proj("o", attn.reshape(B, s, self.heads * cfg.head_dim),
+        vd = cfg.v_head_dim_effective   # latent attention's v rode padded
+        attn = self._proj("o", attn[..., :vd].reshape(B, s, self.heads * vd),
                           lora)
         if self.attn_post_norm is not None:
             attn = self.attn_post_norm(attn)
@@ -608,18 +801,24 @@ class Block(nn.Module):
         ``q_positions`` [B, s]: a multi-token decode block's positions
         (speculative verification); ``lora``: the rows' adapters."""
         h = self._in(x)
+        if self.cfg.mla_latent_cache:
+            attn = self._latent_attend(h, cache, slots, cos_sin, new_lengths,
+                                       is_prefill, q_positions)
+            return self._tail(x, h, attn, lora)
         q, k, v = self._qkv(h, cos_sin, lora)
         self._write(lambda c, n: write_block(c, n, None, slots), cache, k, v)
         cap = self.cfg.attn_softcap
         if is_prefill:
             attn = attend_prefill(q, k, v, sliding_window=self.window,
-                                  alibi=self.alibi, softcap=cap)
+                                  alibi=self.alibi, softcap=cap,
+                                  sinks=self.sinks, plain=self.plain)
         else:
             attn = attend_decode(q, cache[0], cache[1], new_lengths,
                                  sliding_window=self.window,
                                  alibi=self.alibi, softcap=cap,
                                  k_scale=cache[2], v_scale=cache[3],
-                                 q_positions=q_positions)
+                                 q_positions=q_positions, sinks=self.sinks,
+                                 plain=self.plain)
         return self._tail(x, h, attn, lora)
 
     def paged_prefill(self, x, cache, cos_sin, tail_blocks, prefix_blocks,
@@ -638,7 +837,7 @@ class Block(nn.Module):
                                    alibi=self.alibi,
                                    softcap=self.cfg.attn_softcap,
                                    k_scale_layer=cache[2],
-                                   v_scale_layer=cache[3])
+                                   v_scale_layer=cache[3], sinks=self.sinks)
         return self._tail(x, h, attn, lora)
 
     def paged_decode(self, x, cache, cos_sin, block_tables, context_lens,
@@ -652,7 +851,7 @@ class Block(nn.Module):
         ``fused_q_attend``); otherwise ``paged_attend_decode`` attends
         q."""
         h = self._in(x)
-        q_leaf = self.q.leaf()
+        q_leaf = self.q.leaf() if fused else None
         fused = fused and fused_decode.supported(self.cfg, q_leaf)
         if fused:
             k, v = self._kv(h, cos_sin)
@@ -674,7 +873,8 @@ class Block(nn.Module):
                                        alibi=self.alibi,
                                        softcap=self.cfg.attn_softcap,
                                        k_scale_layer=cache[2],
-                                       v_scale_layer=cache[3])
+                                       v_scale_layer=cache[3],
+                                       sinks=self.sinks, plain=self.plain)
         return self._tail(x, h, attn, lora)
 
     def paged_side(self, x, cache, cos_sin, block_tables, q_pos, side_k,
@@ -700,7 +900,8 @@ class Block(nn.Module):
         attn = masked_attention(q, torch.cat([kp, side_k], dim=1),
                                 torch.cat([vp, side_v], dim=1), q_pos,
                                 kv_pos, kv_valid, self.window, self.alibi,
-                                softcap=self.cfg.attn_softcap)
+                                softcap=self.cfg.attn_softcap,
+                                sinks=self.sinks)
         return self._tail(x, h, attn, lora)
 
 
@@ -745,8 +946,9 @@ class Transformer(nn.Module):
                 cfg.rope_inv_freq, dtype=torch.float32, device=device)
         self.embed = Embed(cfg, params, self.dtype, tp)
         self.layers = nn.ModuleList([
-            Block(cfg, {k[len(f"layers.{i}."):]: t for k, t in params.items()
-                        if k.startswith(f"layers.{i}.")}, tp, self.alibi,
+            Block(cfg.layer_cfg(i),
+                  {k[len(f"layers.{i}."):]: t for k, t in params.items()
+                   if k.startswith(f"layers.{i}.")}, tp, self.alibi,
                   i, self.dtype)
             for i in range(cfg.num_layers)])
         self.final_norm = (None if cfg.post_norm
@@ -789,9 +991,10 @@ class Transformer(nn.Module):
         cfg = self.cfg
         if cfg.position_embedding != "rope":
             return None
-        return rope_cos_sin(positions, rotary_dim(cfg.head_dim, cfg.rope_pct),
-                            cfg.rope_theta, self.rope_inv_freq,
-                            cfg.rope_attn_factor)
+        rot = (cfg.qk_rope_head_dim if cfg.mla   # the decoupled rope head
+               else rotary_dim(cfg.head_dim, cfg.rope_pct))
+        return rope_cos_sin(positions, rot, cfg.rope_theta,
+                            self.rope_inv_freq, cfg.rope_attn_factor)
 
     def forward(self, tokens, cache: KVCache, write_starts, q_positions,
                 new_lengths, is_prefill: bool = False, gather=None,

@@ -8,9 +8,10 @@
   path. They pick by tensor device, not by a backend flag: a CUDA tensor
   goes to the hand-written kernel (ops/flash_attention.py), a CPU tensor
   to the kernel's plain version. The score softcap (gemma2) runs in the
-  kernels' cap arm; sinks (gpt-oss) raise until their family is
-  ported. An int8 cache decodes by the plain formulation on every
-  device, as the JAX package pins it.
+  kernels' cap arm. Sinks (gpt-oss) and ``plain`` (latent attention,
+  whose 192-wide heads and zero-padded v the JAX package keeps off its
+  kernels: ``_cfg_backend``) take the plain formulation on every device,
+  as the JAX package routes them; so does an int8 cache's decode.
 """
 
 from __future__ import annotations
@@ -38,11 +39,6 @@ def alibi_slopes(num_heads: int, device=None):
     return torch.tensor(slopes, dtype=torch.float32, device=device)
 
 
-def _unported(sinks):
-    if sinks is not None:
-        raise NotImplementedError("attention sinks are not ported yet")
-
-
 def attend(q, k, v, q_positions, kv_positions, kv_valid,
            sliding_window: Optional[int] = None, alibi=None,
            softcap: Optional[float] = None, sinks=None,
@@ -55,16 +51,23 @@ def attend(q, k, v, q_positions, kv_positions, kv_valid,
     The reference's formulation, except that a row with no admissible key
     yields 0 (as the kernels do) instead of an average over masked slots.
     """
-    _unported(sinks)
     return masked_attention(q, k, v, q_positions, kv_positions, kv_valid,
-                            sliding_window, alibi, scale, softcap)
+                            sliding_window, alibi, scale, softcap, sinks)
 
 
 def attend_prefill(q, k, v, *, sliding_window: Optional[int] = None,
-                   alibi=None, softcap: Optional[float] = None, sinks=None):
+                   alibi=None, softcap: Optional[float] = None, sinks=None,
+                   plain: bool = False):
     """Causal self-attention over the fresh (uncached) K/V block: the
-    prefill kernel on CUDA, its plain version on the CPU."""
-    _unported(sinks)
+    prefill kernel on CUDA, its plain version on the CPU; the plain
+    formulation on every device with ``sinks`` [H] or ``plain``."""
+    if sinks is not None or plain:
+        B, S = q.shape[:2]
+        pos = torch.arange(S, device=q.device).expand(B, S)
+        return masked_attention(
+            q, k, v, pos, pos,
+            torch.ones(B, S, dtype=torch.bool, device=q.device),
+            sliding_window, alibi, softcap=softcap, sinks=sinks)
     return flash_attention(q, k, v, sliding_window=sliding_window,
                            alibi=alibi, softcap=softcap)
 
@@ -72,7 +75,8 @@ def attend_prefill(q, k, v, *, sliding_window: Optional[int] = None,
 def attend_decode(q, cache_k, cache_v, lengths, *,
                   sliding_window: Optional[int] = None, alibi=None,
                   softcap: Optional[float] = None, sinks=None,
-                  k_scale=None, v_scale=None, q_positions=None):
+                  k_scale=None, v_scale=None, q_positions=None,
+                  plain: bool = False, scale: Optional[float] = None):
     """Cached attention for decode-regime queries. Single-token: ``lengths``
     counts filled slots including the token just written; the query sits
     at ``lengths - 1``. Multi-token (speculative verification,
@@ -82,12 +86,14 @@ def attend_decode(q, cache_k, cache_v, lengths, *,
     An int8 cache (``k_scale``/``v_scale`` [B,S,Hkv] given) is
     dequantized to q's dtype and attended by the plain formulation, where
     the JAX package pins a quantized cache (its XLA fuses the dequantize
-    into the attention matmul); no ``flash_decode`` launch."""
-    _unported(sinks)
+    into the attention matmul); no ``flash_decode`` launch. ``sinks``,
+    ``plain`` and a ``scale`` (MLA's latent decode: the materialized
+    head_dim's) take the plain formulation too."""
     multi = q.shape[1] != 1
     if multi and q_positions is None:
         raise ValueError("a multi-token decode needs q_positions")
-    if k_scale is not None or multi:
+    if (k_scale is not None or multi or plain or sinks is not None
+            or scale is not None):
         k, v = cache_k, cache_v
         if k_scale is not None:
             k = dequant_kv(cache_k, k_scale, q.dtype)
@@ -99,7 +105,7 @@ def attend_decode(q, cache_k, cache_v, lengths, *,
                  else (lens - 1)[:, None])
         return masked_attention(q, k, v, q_pos, kv_pos,
                                 kv_pos < lens[:, None], sliding_window,
-                                alibi, softcap=softcap)
+                                alibi, scale, softcap, sinks)
     return flash_decode(q, cache_k, cache_v, lengths,
                         sliding_window=sliding_window, alibi=alibi,
                         softcap=softcap)

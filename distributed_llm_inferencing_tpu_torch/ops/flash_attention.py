@@ -132,14 +132,19 @@ def _ptr(t) -> Optional[int]:
 def masked_attention(q, k, v, q_pos, kv_pos, kv_valid,
                      sliding_window: Optional[int] = None, alibi=None,
                      scale: Optional[float] = None,
-                     softcap: Optional[float] = None):
+                     softcap: Optional[float] = None, sinks=None):
     """Causal attention in plain PyTorch, the kernels' function: f32
     scores, scale (default hd**-0.5), ``softcap * tanh(s / softcap)``,
     ALiBi slope*(kv - q), mask (kv <= q, slot valid, q - kv < window),
-    softmax, and 0 for a row with no admissible key. q [B,Sq,H,hd]; k/v [B,Skv,Hkv,hd]; q_pos [B,Sq];
-    kv_pos/kv_valid [B,Skv]. GQA groups by reshape (no repeat)."""
+    softmax, and 0 for a row with no admissible key. q [B,Sq,H,hd]; k
+    [B,Skv,Hkv,hd]; v [B,Skv,Hkv,vd] (vd may differ from hd: MLA's
+    latent decode reads v as a slice of k); q_pos [B,Sq];
+    kv_pos/kv_valid [B,Skv]. GQA groups by reshape (no repeat).
+    ``sinks`` [H] (gpt-oss): one f32 logit per head joins every row's
+    softmax as a column with no value row, as the reference's ``attend``
+    adds and drops it; no kernel has that arm."""
     B, Sq, H, hd = q.shape
-    Hkv = k.shape[2]
+    Hkv, vd = k.shape[2], v.shape[-1]
     G = H // Hkv
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
@@ -156,13 +161,19 @@ def masked_attention(q, k, v, q_pos, kv_pos, kv_valid,
         mask = mask & (-rel < sliding_window)
     s = s.masked_fill(~mask[:, None, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
+    if sinks is not None:
+        sk = sinks.float().reshape(1, Hkv, G, 1, 1)
+        m = torch.maximum(m, sk)
     m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True).permute(0, 3, 1, 2, 4)      # [B,Sq,Hkv,G,1]
+    l = p.sum(dim=-1, keepdim=True)
+    if sinks is not None:   # the sink's share of the denominator
+        l = l + torch.exp(sk - m)
+    l = l.permute(0, 3, 1, 2, 4)                                # [B,Sq,Hkv,G,1]
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     out = torch.where(l > 0, o / torch.where(l > 0, l, torch.ones_like(l)),
                       torch.zeros_like(o))
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return out.reshape(B, Sq, H, vd).to(q.dtype)
 
 
 # ----------------------------------------------------------------------

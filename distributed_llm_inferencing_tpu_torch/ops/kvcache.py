@@ -1,7 +1,10 @@
 """Static-shape dense KV cache, updated in place.
 
 - ``k``/``v``: [L, B, max_seq, Hkv, hd] stacked over layers; layer ``i``
-  reads and writes the view ``k[i]``.
+  reads and writes the view ``k[i]``. Under ``cfg.mla_latent_cache``
+  (the engine's MLA layout, the reference's) ``k`` is [L, B, max_seq, 1,
+  qk_rope_head_dim + kv_lora_rank], one shared latent row per token, and
+  ``v`` is zero-width.
 - ``lengths``: [B] int32 on the cache's device — filled slots per
   sequence (the same for every layer).
 - ``k_scale``/``v_scale``: [L, B, max_seq, Hkv] f32, present only under
@@ -74,13 +77,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     heads (parallel/sharding.py ``local_heads``), all of them by
     default."""
     dtype = torch_dtype(dtype or cfg.dtype)
+    # mla_latent_cache: one shared [k_rot | c] row per token in the k
+    # plane ([L, B, S, 1, rd + r]) and a zero-width v plane
     shape = (cfg.num_layers, batch, max_seq,
-             num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
+             num_kv_heads or cfg.cache_kv_heads, cfg.cache_head_dim)
+    vshape = shape[:-1] + (cfg.cache_v_head_dim,)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.kv_quant == "int8":
         z = functools.partial(torch.zeros, device=device)
         return KVCache(k=z(shape, dtype=torch.int8),
-                       v=z(shape, dtype=torch.int8), lengths=lengths,
+                       v=z(vshape, dtype=torch.int8), lengths=lengths,
                        k_scale=z(shape[:-1], dtype=torch.float32),
                        v_scale=z(shape[:-1], dtype=torch.float32))
     if cfg.kv_quant is not None:
@@ -89,7 +95,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     # slots by probability 0, which must not meet uninitialised NaNs
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device), lengths=lengths)
+        v=torch.zeros(vshape, dtype=dtype, device=device), lengths=lengths)
 
 
 def block_slots(starts, s: int, max_seq: int):

@@ -19,8 +19,9 @@ small kernel, so the port writes every step.)
 
 ``paged_attend_decode`` is the decode regime: on a CUDA tensor it runs
 the paged kernel (ops/paged_attention.py), on a CPU tensor its plain
-version — except with ALiBi slopes, which the JAX package keeps off its
-Pallas paged kernel: those take ``gather_attend_decode``, the port of
+version — except with ALiBi slopes, sinks or latent attention, which the
+JAX package keeps off its Pallas paged kernel: those take
+``gather_attend_decode``, the port of
 the JAX package's XLA gather formulation, plain torch on every device
 (no kernel, and no ``paged_flash_decode`` launch). ``paged_attend_prefix``
 (a prompt tail attending its cached prefix plus itself) is plain torch on
@@ -143,14 +144,15 @@ def gather_seq(cache_layer, block_tables):
 def gather_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
                          context_lens, sliding_window: Optional[int] = None,
                          alibi=None, softcap: Optional[float] = None,
-                         k_scale_layer=None, v_scale_layer=None):
+                         k_scale_layer=None, v_scale_layer=None,
+                         sinks=None):
     """Single-token attention over the pool by the JAX package's XLA
     formulation (its ``paged_attend_decode`` off the Pallas kernel): each
     slot's blocks gathered into a contiguous [R, MB*bs, Hkv, hd] copy
     (an int8 pool's dequantized to q's dtype with its gathered scales),
     then the plain masked attention with the query at ``context_lens -
-    1``. Plain torch on every device; the route of the ALiBi families and
-    of the int8 pool."""
+    1``. Plain torch on every device; the route of the ALiBi families, of
+    the int8 pool, of sinks and of latent attention's padded pool."""
     r, mb = block_tables.shape
     k = gather_seq(cache_k_layer, block_tables)
     v = gather_seq(cache_v_layer, block_tables)
@@ -161,23 +163,25 @@ def gather_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
     lens = context_lens.long()
     return masked_attention(q, k, v, (lens - 1)[:, None], kv_pos,
                             kv_pos < lens[:, None], sliding_window, alibi,
-                            softcap=softcap)
+                            softcap=softcap, sinks=sinks)
 
 
 def paged_attend_decode(q, cache_k_layer, cache_v_layer, block_tables,
                         context_lens, sliding_window: Optional[int] = None,
                         alibi=None, softcap: Optional[float] = None,
-                        k_scale_layer=None, v_scale_layer=None):
+                        k_scale_layer=None, v_scale_layer=None,
+                        sinks=None, plain: bool = False):
     """The decode regime: q [R,1,H,hd] against the pool, ``context_lens``
     counting the token just written. The paged kernel on CUDA (its plain
-    version on the CPU), softcap included; with ``alibi`` slopes [H] or
-    an int8 pool's scales the gather formulation, where the JAX package
-    routes them too."""
-    if alibi is not None or k_scale_layer is not None:
+    version on the CPU), softcap included; with ``alibi`` slopes [H], an
+    int8 pool's scales, ``sinks`` [H] or ``plain`` (latent attention)
+    the gather formulation, where the JAX package routes them too."""
+    if (alibi is not None or k_scale_layer is not None
+            or sinks is not None or plain):
         return gather_attend_decode(q, cache_k_layer, cache_v_layer,
                                     block_tables, context_lens,
                                     sliding_window, alibi, softcap,
-                                    k_scale_layer, v_scale_layer)
+                                    k_scale_layer, v_scale_layer, sinks)
     return paged_flash_decode(q, cache_k_layer, cache_v_layer, block_tables,
                               context_lens, sliding_window=sliding_window,
                               softcap=softcap)
@@ -187,7 +191,8 @@ def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
                         prefix_blocks, prefix_len, q_positions, tail_valid,
                         sliding_window: Optional[int] = None, alibi=None,
                         softcap: Optional[float] = None,
-                        k_scale_layer=None, v_scale_layer=None):
+                        k_scale_layer=None, v_scale_layer=None,
+                        sinks=None):
     """Tail-prefill attention: fresh tail K/V plus a cached prefix, whose
     K/V is gathered from the shared blocks — a prefix-cache hit saves the
     prefix's compute, not just its memory. An int8 pool's prefix is
@@ -214,4 +219,4 @@ def paged_attend_prefix(q, k_new, v_new, cache_k_layer, cache_v_layer,
     kv_valid = torch.cat([prefix_valid, tail_valid], dim=1)
     return masked_attention(q, k_all, v_all, q_positions.long(), kv_pos,
                             kv_valid, sliding_window, alibi,
-                            softcap=softcap)
+                            softcap=softcap, sinks=sinks)

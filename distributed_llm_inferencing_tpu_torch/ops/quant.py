@@ -48,10 +48,13 @@ import torch
 
 MODES = ("int8", "int4")
 
-# the dense families' leaves of the JAX package's _LINEAR_LEAVES, the MoE
+# the JAX package's _LINEAR_LEAVES (the dense linears, latent
+# attention's bottlenecks and expansions, the shared experts), the MoE
 # experts' stacked leaves and the untied head; embeddings (their opt-350m
-# projections too), norms, biases and the MoE router stay float
-LINEAR_LEAVES = ("q", "k", "v", "o", "gate", "up", "down")
+# projections too), norms, biases, sinks and the MoE router stay float
+LINEAR_LEAVES = ("q", "k", "v", "o", "gate", "up", "down",
+                 "q_a", "q_b", "kv_a", "kv_b_k", "kv_b_v",
+                 "shared_gate", "shared_up", "shared_down")
 _LINEAR_W = re.compile(
     r"^(layers\.\d+\.(?:%s|experts\.(?:gate|up|down))|lm_head)\.w$"
     % "|".join(LINEAR_LEAVES))

@@ -115,5 +115,5 @@ def shard_params(params: Dict[str, torch.Tensor], cfg, spec: MeshSpec,
 def local_heads(cfg, spec: MeshSpec):
     """(q heads, kv heads) on one rank: the rank's share of each. The
     rank's KV cache holds its kv heads (the JAX package's
-    ``cache_specs``)."""
-    return cfg.num_heads // spec.tp, cfg.num_kv_heads // spec.tp
+    ``cache_specs``): one latent row under ``mla_latent_cache``."""
+    return cfg.num_heads // spec.tp, cfg.cache_kv_heads // spec.tp

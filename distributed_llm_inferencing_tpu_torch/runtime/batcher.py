@@ -266,7 +266,9 @@ class ContinuousBatcher:
                  decode_overlap: Optional[bool] = None):
         self.metrics = metrics or Metrics()
         self.device = resolve_device(device)
-        self.cfg = cfg
+        # the paged pool holds latent attention materialized, per head,
+        # as the JAX batcher pins it (the latent layout is the engine's)
+        self.cfg = cfg = cfg.replace(mla_latent_cache=False)
         self.block_size = block_size
         self.slots = slots
         self.max_seq = min(max_seq or cfg.max_position_embeddings,

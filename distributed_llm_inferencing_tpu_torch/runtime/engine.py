@@ -50,6 +50,13 @@ one device:
   9.11: the JAX engine lets XLA place the pack on its mesh, the port's
   lockstep ranks would need their cut of it).
 
+- **latent attention** (deepseek): served from the latent cache, one
+  [k_rot | c] row per token and layer (``latent_cache``, the JAX
+  engine's rule; ``DLI_MLA_LATENT=0`` keeps the materialized per-head
+  layout), ~19x fewer cache bytes at deepseek-proxy. ``kv_b_k`` /
+  ``kv_b_v`` keep their stored form: the absorbed decode reads them
+  whole (models/transformer.py ``_wfull``), as the JAX engine does.
+
 The reference's CPU-only XLA workarounds (layer unrolling, weight
 repacking, the dummy batch row) have no counterpart here.
 
@@ -198,6 +205,17 @@ class _Rows:
             self.programs.pop(key).release()
 
 
+def latent_cache(cfg: ModelConfig) -> bool:
+    """Whether the engine serves ``cfg`` from the latent cache (the JAX
+    engine's rule): latent attention with no int8 KV cache, no window and
+    no score softcap, unless ``DLI_MLA_LATENT=0`` asks for the
+    materialized layout. The port runs no sp or pp mesh, and its tp
+    refuses latent attention (``llama_arm_gaps``)."""
+    return (cfg.mla and cfg.kv_quant is None and cfg.sliding_window is None
+            and cfg.attn_windows is None and cfg.attn_softcap is None
+            and os.environ.get("DLI_MLA_LATENT") != "0")
+
+
 class InferenceEngine:
     """Owns one model's weights on one device (or one tp rank's shard of
     them) and serves ``generate``."""
@@ -223,7 +241,7 @@ class InferenceEngine:
         self.metrics = metrics or Metrics()
         self.mesh_spec = spec = mesh_spec or MeshSpec()
         validate_spec(spec, cfg)
-        self.cfg = cfg
+        self.cfg = cfg = cfg.replace(mla_latent_cache=latent_cache(cfg))
         self.max_seq = min(max_seq or cfg.max_position_embeddings,
                            cfg.max_position_embeddings)
         self.group = group

@@ -1,6 +1,6 @@
 """The port's model ingestion against the JAX package's, on the CPU.
 
-For each of the 20 converter types the port serves (models/convert.py
+For each of the 39 converter types the port serves (models/convert.py
 ``SUPPORTED_MODEL_TYPES``), a tiny HF model is built in memory from a
 config (``HF_TINY``, after tests/test_numerics_hf.py), every parameter
 moved by a seeded numpy draw (so biases and norms are under test), and
@@ -164,12 +164,69 @@ MOE_TYPES = {
                        moe_intermediate_size=48, num_experts=4,
                        num_experts_per_tok=2, norm_topk_prob=True)),
 }
+# the other experts and latent attention: the deepseek_v3, ernie and
+# topk_softmax routers (group-limited selection at 2 groups, one
+# eligible), shared experts, dense prefixes (glm4_moe, ernie4_5_moe,
+# deepseek_v3: layer 0 dense), dbrx's clip_qkv at a value that bites, and
+# gpt-oss's sinks, alternating windows of 8, yarn RoPE and a GLU clamp
+# that bites; deepseek_v3's yarn with mscale_all_dim (a q fold)
+EXPERT_TYPES = {
+    "glm4_moe": ("Glm4MoeConfig", "Glm4MoeForCausalLM",
+                 dict(_L, num_key_value_heads=2, head_dim=16,
+                      partial_rotary_factor=0.5, attention_bias=True,
+                      use_qk_norm=True, moe_intermediate_size=48,
+                      n_routed_experts=4, num_experts_per_tok=2,
+                      n_shared_experts=1, n_group=2, topk_group=1,
+                      routed_scaling_factor=2.5, first_k_dense_replace=1,
+                      pad_token_id=0)),
+    "ernie4_5_moe": ("Ernie4_5_MoeConfig", "Ernie4_5_MoeForCausalLM",
+                     dict(_L, num_key_value_heads=2,
+                          moe_intermediate_size=48, moe_num_experts=4,
+                          moe_k=2, moe_num_shared_experts=1,
+                          moe_layer_start_index=1, pad_token_id=0)),
+    "hunyuan_v1_moe": ("HunYuanMoEV1Config", "HunYuanMoEV1ForCausalLM",
+                       dict(_L, num_key_value_heads=2, head_dim=8,
+                            num_experts=4, moe_topk=2, pad_token_id=0)),
+    "dbrx": ("DbrxConfig", "DbrxForCausalLM",
+             dict(_T, d_model=32, n_heads=4, n_layers=2, max_seq_len=128,
+                  attn_config={"kv_n_heads": 2, "clip_qkv": 0.3},
+                  ffn_config={"ffn_hidden_size": 64, "moe_num_experts": 4,
+                              "moe_top_k": 2})),
+    "gpt_oss": ("GptOssConfig", "GptOssForCausalLM",
+                dict(_L, num_key_value_heads=2, head_dim=8,
+                     num_local_experts=4, num_experts_per_tok=2,
+                     sliding_window=8,
+                     rope_scaling={"rope_type": "yarn", "factor": 4.0,
+                                   "beta_fast": 32.0, "beta_slow": 1.0,
+                                   "truncate": False,
+                                   "original_max_position_embeddings": 32},
+                     swiglu_limit=0.5, pad_token_id=0)),
+    "deepseek_v3": ("DeepseekV3Config", "DeepseekV3ForCausalLM",
+                    dict(_L, num_key_value_heads=4, moe_intermediate_size=48,
+                         n_routed_experts=4, n_group=2, topk_group=1,
+                         num_experts_per_tok=2, n_shared_experts=1,
+                         first_k_dense_replace=1, kv_lora_rank=16,
+                         q_lora_rank=24, qk_rope_head_dim=8,
+                         qk_nope_head_dim=16, v_head_dim=16,
+                         rope_scaling={"type": "yarn", "factor": 4,
+                                       "original_max_position_embeddings": 32,
+                                       "mscale": 1.0, "mscale_all_dim": 1.0,
+                                       "beta_fast": 32, "beta_slow": 1},
+                         pad_token_id=0)),
+}
 TYPES = list(HF_TINY)
 HF_TINY.update(MOE_TYPES)
+HF_TINY.update(EXPERT_TYPES)
 # a weights-only case: biases on every linear, the gated MLP's gate too
 # (the JAX engine cannot shard a gate bias: ROADMAP Queue C)
 HF_TINY["ernie4_5+bias"] = ("Ernie4_5Config", "Ernie4_5ForCausalLM",
                             dict(HF_TINY["ernie4_5"][2], use_bias=True))
+# and the experts' biases (ernie4_5_moe use_bias: expert, shared and
+# dense-prefix biases)
+HF_TINY["ernie4_5_moe+bias"] = ("Ernie4_5_MoeConfig",
+                                "Ernie4_5_MoeForCausalLM",
+                                dict(HF_TINY["ernie4_5_moe"][2],
+                                     use_bias=True))
 _ROOT = tempfile.mkdtemp(prefix="dli-convert-")
 atexit.register(shutil.rmtree, _ROOT, True)
 
@@ -251,20 +308,25 @@ def _outcome(fn, d):
 # ---- configuration -------------------------------------------------------
 
 def test_supported_types_are_the_jax_converters_minus_the_refused():
-    assert set(convert.SUPPORTED_MODEL_TYPES) == set(TYPES) | set(MOE_TYPES)
-    assert set(convert.SUPPORTED_MODEL_TYPES) | set(
-        convert.REFUSED_MODEL_TYPES) == set(jconvert.SUPPORTED_MODEL_TYPES)
-    assert not set(convert.SUPPORTED_MODEL_TYPES) & set(
-        convert.REFUSED_MODEL_TYPES)
+    """The port converts every type of the JAX converter (none is refused
+    since the experts and latent attention were ported)."""
+    assert set(convert.SUPPORTED_MODEL_TYPES) == \
+        set(TYPES) | set(MOE_TYPES) | set(EXPERT_TYPES)
+    assert set(convert.SUPPORTED_MODEL_TYPES) == set(
+        jconvert.SUPPORTED_MODEL_TYPES)
+    assert not hasattr(convert, "REFUSED_MODEL_TYPES")
 
 
-@pytest.mark.parametrize("mt", TYPES + list(MOE_TYPES))
+ALL_TYPES = TYPES + list(MOE_TYPES) + list(EXPERT_TYPES)
+
+
+@pytest.mark.parametrize("mt", ALL_TYPES)
 def test_config_from_hf_matches_jax(mt):
     d = saved(mt)
     assert port_config(d) == jax_config(d)
 
 
-@pytest.mark.parametrize("mt", TYPES + list(MOE_TYPES))
+@pytest.mark.parametrize("mt", ALL_TYPES)
 def test_config_from_hf_class_defaults_match_jax(mt):
     """Every key but model_type deleted, then each key deleted in turn:
     the port's defaults table and derivations give the JAX result (or the
@@ -283,27 +345,32 @@ def test_config_from_hf_class_defaults_match_jax(mt):
 
 
 @pytest.mark.parametrize("conf,switch", [
-    ({"model_type": "dbrx"}, "num_experts"),
-    ({"model_type": "gpt_oss"}, "num_experts"),
+    ({"model_type": "hunyuan_v1_moe", "num_experts": [4, 4],
+      "num_hidden_layers": 2}, "per-layer"),
+    ({"model_type": "ernie4_5_moe", "moe_layer_interval": 2},
+     "moe_layer_interval"),
+    ({"model_type": "ernie4_5_moe", "moe_layer_end_index": 3},
+     "moe_layer_end_index"),
+    ({"model_type": "dbrx", "ffn_config": {
+        "moe_normalize_expert_weights": 2.0}}, "moe_normalize_expert"),
     ({"model_type": "phi", "qk_layernorm": True}, "qk_layernorm"),
     ({"model_type": "qwen2", "use_sliding_window": True,
       "max_window_layers": 2, "num_hidden_layers": 4}, "max_window_layers"),
     ({"model_type": "t5"}, "t5"),
 ])
 def test_refused_types_and_switches_name_the_cause(conf, switch):
+    """What the JAX converter refuses, the port refuses with the same
+    cause (the experts' refusals: per-layer expert lists, interleaved or
+    early-ending MoE layers, a p-norm other than 1)."""
     with pytest.raises(NotImplementedError, match=switch):
         convert.config_from_hf(conf)
-
-
-@pytest.mark.parametrize("mt", sorted(convert.REFUSED_MODEL_TYPES))
-def test_experts_and_latent_attention_types_stay_refused(mt):
-    """The types of ROADMAP Queue A's experts and latent attention items
-    are refused by name, naming the switch that keeps each out."""
-    switches, _ = convert.REFUSED_MODEL_TYPES[mt]
-    assert "num_experts" in switches
-    with pytest.raises(NotImplementedError,
-                       match=f"{mt!r}.*{switches.split(',')[0]}"):
-        convert.config_from_hf({"model_type": mt})
+    if conf["model_type"] != "t5":
+        d = os.path.join(_ROOT, f"refused-{conf['model_type']}-{switch}")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(conf, f)
+        with pytest.raises(NotImplementedError, match=switch):
+            jconvert.config_from_hf(transformers.AutoConfig.from_pretrained(d))
 
 
 def test_rope_scaling_type_aliases_match_jax():
@@ -327,7 +394,8 @@ def test_rope_scaling_type_aliases_match_jax():
 # ---- weights -------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("mt", TYPES + ["ernie4_5+bias"] + list(MOE_TYPES))
+@pytest.mark.parametrize("mt", TYPES + ["ernie4_5+bias"] + list(MOE_TYPES)
+                         + list(EXPERT_TYPES) + ["ernie4_5_moe+bias"])
 def test_load_hf_model_params_bitwise(mt, dtype):
     d = saved(mt)
     tcfg, want = jax_params(d, dtype)

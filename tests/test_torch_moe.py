@@ -179,8 +179,8 @@ class _Drops:
         self.n, self.cfg = 0, cfg
         real = ttf.moe_gates
 
-        def gates(x, w, c):
-            g = real(x, w, c)
+        def gates(x, w, c, b=None):
+            g = real(x, w, c, b)
             if x.dim() == 2:
                 self.n += _dropped(g.numpy(), c)
             return g
@@ -343,9 +343,6 @@ def test_registry_rows_match_reference_and_tp_refuses(name):
 
 
 @pytest.mark.parametrize("over", [
-    {"moe_router": "deepseek_v3"}, {"moe_router": "ernie"},
-    {"moe_router": "topk_softmax"}, {"moe_shared_experts": 1},
-    {"mlp_bias": True}, {"moe_swiglu_limit": 7.0},
     {"moe_dispatch": "all_to_all"},
 ])
 def test_other_routers_and_expert_switches_stay_refused(over):

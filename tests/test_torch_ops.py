@@ -107,20 +107,6 @@ def test_attend_matches(H, Hkv, window, alibi, softcap):
     _close(out, ref, 1e-5)
 
 
-def test_attend_refuses_softcap_and_sinks():
-    """Sinks (gpt-oss) stay refused on every entry point; the softcap is
-    served since its kernel arm (held in test_attend_matches)."""
-    q = torch.zeros(1, 1, 2, 8)
-    pos = torch.zeros(1, 1, dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        tatt.attend(q, q, q, pos, pos, pos == 0, sinks=torch.zeros(2))
-    with pytest.raises(NotImplementedError):
-        tatt.attend_prefill(q, q, q, sinks=torch.zeros(2))
-    with pytest.raises(NotImplementedError):
-        tatt.attend_decode(q, q, q, torch.ones(1, dtype=torch.int32),
-                           sinks=torch.zeros(2))
-
-
 @pytest.mark.parametrize("starts", [[0, 3], [5, 12]])
 def test_write_block_matches_in_place(starts):
     rng = np.random.default_rng(4)

@@ -35,7 +35,8 @@ from distributed_llm_inferencing_tpu.runtime.worker import (
     WorkerAgent as JaxWorkerAgent)
 from distributed_llm_inferencing_tpu_torch.runtime.worker import WorkerAgent
 from test_torch_convert import (
-    TYPES, _ROOT, assert_bitwise, jax_params, saved, with_tokenizer)
+    EXPERT_TYPES, TYPES, _ROOT, assert_bitwise, jax_params, saved,
+    with_tokenizer)
 from test_torch_families import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -319,6 +320,63 @@ def test_later_types_serve_from_checkpoint_path(url, worker, mt):
         _unload(url, name)
 
 
+@pytest.mark.parametrize("mt", list(EXPERT_TYPES))
+def test_expert_types_serve_from_checkpoint_path(url, worker, mt):
+    """Each experts or latent-attention converter type through
+    /load_model with ``checkpoint_path`` in both serving modes: params
+    bitwise equal to the JAX converter's, greedy /inference tokens equal
+    to an in-process engine's and batcher's on those params
+    (test_torch_convert_tokens_d.py holds those to the JAX package's)."""
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    d = saved(mt)
+    name = f"experts-{mt}"
+    tcfg, want = jax_params(d, "bfloat16")
+    for serving in ("engine", "batched"):
+        body = {"model_name": name, "checkpoint_path": d, "max_seq": 64}
+        if serving == "batched":
+            body.update(serving="batched", kv_blocks=32, kv_block_size=8,
+                        slots=2)
+        _load(url, body)
+        try:
+            lm = worker.models[name]
+            assert_bitwise((lm.batcher or lm.engine).params, want)
+            eos = lm.tokenizer.eos_token_id
+            ref = InferenceEngine(tcfg, want, max_seq=64,
+                                  device="cpu").generate(
+                [[5, 9, 13, 2, 40, 7, 77, 3]], max_new_tokens=8, seed=1,
+                sampling=SamplingParams.greedy(),
+                eos_token_id=eos).tokens[0]
+            assert _greedy(url, name) == ref and ref, serving
+        finally:
+            _unload(url, name)
+
+
+@pytest.mark.parametrize("serving", ["engine", "batched"])
+def test_deepseek_rows_load_by_name(url, worker, serving):
+    """tiny-deepseek by name in either mode (deepseek-proxy is its
+    full-size row, driven on the card): the engine on the latent cache,
+    the batcher on the materialized pool; /health names the row."""
+    body = {"model_name": "tiny-deepseek", "allow_random_init": True,
+            "dtype": "float32", "max_seq": 64}
+    if serving == "batched":
+        body.update(serving="batched", kv_blocks=32, kv_block_size=8,
+                    slots=2)
+    _load(url, body)
+    try:
+        lm = worker.models["tiny-deepseek"]
+        owner = lm.batcher or lm.engine
+        assert owner.cfg.mla_latent_cache == (serving == "engine")
+        assert len(_greedy(url, "tiny-deepseek")) == 8
+        [m] = [m for m in requests.get(url + "/health", timeout=30).json()[
+            "loaded_models"] if m["name"] == "tiny-deepseek"]
+        assert m["serving"] == serving
+    finally:
+        _unload(url, "tiny-deepseek")
+
+
 def test_float32_load_computes_on_bf16_rounded_weights(url, worker):
     """The JAX worker converts a checkpoint to bf16 (its config default)
     and only then applies the body's "dtype": "float32" (ROADMAP Queue
@@ -410,7 +468,8 @@ def _missing_key_dir():
 
 
 @pytest.mark.parametrize("case,cause", [
-    ("dbrx", "num_experts"), ("phi_qk_layernorm", "qk_layernorm"),
+    ("dbrx", "moe_normalize_expert_weights"),
+    ("phi_qk_layernorm", "qk_layernorm"),
     ("missing", "model.layers.0.self_attn.k_proj.weight"),
     ("hub_name", "not a local directory"),
     ("native_hub_name", "not a local directory"),
@@ -419,7 +478,9 @@ def _missing_key_dir():
 def test_checkpoint_refusals_name_the_cause(url, monkeypatch, case, cause):
     field = "checkpoint_path"
     if case == "dbrx":
-        path = _write_config("dbrx", {"model_type": "dbrx"})
+        # the JAX converter's refusal of a p-norm other than 1
+        path = _write_config("dbrx", {"model_type": "dbrx", "ffn_config": {
+            "moe_normalize_expert_weights": 2.0}})
     elif case == "phi_qk_layernorm":
         path = _write_config("phi-qk", {"model_type": "phi",
                                         "qk_layernorm": True})
