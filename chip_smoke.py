@@ -385,6 +385,48 @@ Phases (any failure fails the run, exit code != 0):
    graphs on and off (equal tokens), no attention kernel launched, every
    param bitwise as written. Report in chiprun_out/phase20.json
    ("experts_mla_launches" per kernel).
+21. Tensor parallelism for what one host serves (both ranks on this
+   card, gloo). (a) llama-3-8b at full width and TP_SERVING_LAYERS of
+   its 32 layers (phase 10's cut, printed) through the worker with
+   "mesh": {"tp": 2}, "serving": "batched" (phase 5's load): phase 5's
+   eight bodies as one /inference_batch in bf16 with DLI_FUSED_DECODE
+   off and then on, each on a fresh load (the fused gate is off under
+   tp: the same tokens), held against a tp=1 load of the same weights
+   (at least half of the first tokens equal; bf16 near ties may break
+   either way), then in int4; every rank's counts zeroed before each
+   batch and held
+   after: paged_flash_decode num_layers times per weight pass, no other
+   attention kernel; in int4, 5 q4_matmul per layer plus the head and 2
+   q4_matmul_row per layer per decode pass, the head (and at <= 32 rows
+   the layers' too) per admission wave; 2L + 1 all-reduces and one
+   gather per forward, no broadcast (every rank samples the gathered
+   logits); every rank's programs and their outputs' digest equal; ms
+   per pass, tokens/s, weight bytes per rank; no follower alive after
+   each unload. (b) llama-3-8b, full width, 2 layers, f32: the batcher's
+   scheduler (an admission wave of two prompts, then 8 greedy decode
+   steps) at tp=2 against tp=1 on the same weights, every logits row
+   the leader computed within XCHECK_TOL and the tokens equal (a token
+   may differ only over a near tie), float and int4 weights, and an
+   int8 KV pool (its chunk's side buffers and flush; every rank's pool
+   shard against tp=1's pool as phase 4 holds an int8 cache, the levels
+   at most one step apart on at most 1%: tp's K/V come from GEMMs of
+   other widths, so a value on a rounding boundary takes the next level
+   on one side); with the sublayers scaled
+   by SPEC_RESIDUAL_SCALE, on two prompts p + c + p (c the model's
+   greedy continuation of p) whose drafts the model accepts, the tp=2
+   speculative engine's and speculative batcher's
+   greedy tokens equal plain greedy, with drafts accepted by both. (c)
+   TP_FAMILY_ROWS (ALiBi, parallel residual and
+   row biases, lm_head bias and partial RoPE, gemma-2's softcaps,
+   sandwich norms and windows, gemma-2b's one kv head replicated,
+   q/k/v biases, learned positions, Qwen3's q/k norms) at their
+   published widths, 2 layers, f32: the engine at tp=2 against tp=1,
+   teacher-forced prefill plus 4 decode steps within XCHECK_TOL, exact
+   counts on each rank (the all-reduces by the count rule of
+   models/transformer.py). One follower serves (b) and (c)
+   (``DLI_TP_KEEP_GROUPS``; the spawn it saves per model is timed).
+   Report in chiprun_out/phase21.json ("tp_batched_launches" per kernel,
+   every rank's).
 
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
@@ -411,6 +453,9 @@ phase 19.
 ``python3 chip_smoke.py --experts-mla`` builds the kernels and runs only
 phase 20.
 
+``python3 chip_smoke.py --tp-batched`` builds the kernels and runs only
+phase 21.
+
 ``python3 chip_smoke.py --timed-rows`` builds the kernels and runs only
 phase 2's timed rows (``timed_rows``), printing each; from the root of
 another checkout (a parent commit unpacked beside this one, this script
@@ -426,6 +471,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -1697,8 +1743,9 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
     return errs
 
 
-def _level_check(torch, caches):
-    """An int8 cache's levels on card and host: at most one step apart,
+def _level_check(torch, caches, what="card vs host"):
+    """An int8 cache's levels on card and host (``caches["cuda"]``,
+    ``caches["cpu"]``; or ``what`` else): at most one step apart,
     on at most 1% of the elements; the scales (each a head vector's
     |max|/127) within the f32 cross-check's relative tolerance. Returns
     the shares."""
@@ -1716,7 +1763,7 @@ def _level_check(torch, caches):
         rel = float(((sa - sb).abs() / sb.clamp(min=1e-30)).max())
         assert rel <= XCHECK_TOL[1], (name, rel)
         out[name] = {"levels_off_by_one": share, "scale_rel_err": rel}
-    log("  int8 cache, card vs host:", json.dumps(out))
+    log(f"  int8 cache, {what}:", json.dumps(out))
     return out
 
 
@@ -6354,6 +6401,649 @@ def phase_experts_mla(torch, fa, qm, kernels, smi):
     return report
 
 
+# ---------------------------------------------------------------------
+# phase 21: batched serving, speculation and the families under tp
+# ---------------------------------------------------------------------
+
+# (c): registry shapes at their published widths, 2 layers, f32, each
+# tp=2 against tp=1 on the engine; "gemma2" / "qwen3": LATER_XCHECK's
+# gemma-2-9b and Qwen3-8B configs (gemma-2's windows cut as there)
+# phase 21's speculation: at full width the seeded weights' sublayers
+# outweigh the token's embedding, so the model's continuation of
+# p + c + p is not c and no draft is accepted (0 of 16 prompts on the
+# card); sublayers scaled by this leave the next token mostly the
+# current token's, as a trained model's continuation of repeated text
+# repeats, and drafts accept
+SPEC_RESIDUAL_SCALE = 1e-3
+TP_FAMILY_ROWS = ("bloom-7b1", "pythia-6.9b", "phi-2", "gemma2", "gemma-2b",
+                  "qwen2-7b", "opt-1.3b", "qwen3")
+_PHASE21_LAUNCHES: dict = {}
+
+
+def _bank21(stats):
+    """Add every rank's launches of ``stats`` (``rank_stats``) to phase
+    21's total."""
+    for s in stats:
+        for k, v in s["launches"].items():
+            _PHASE21_LAUNCHES[k] = _PHASE21_LAUNCHES.get(k, 0) + v
+
+
+def _tp_all_reduces(cfg):
+    """The count rule's all-reduces per weight pass (models/transformer.py):
+    the embedding's, then two per layer (o, down), one in a parallel
+    block without sublayer norms or residual scale, plus one per
+    "rms_full" layer."""
+    per = 1 if cfg.parallel_residual and not (
+        cfg.post_block_norms or cfg.sublayer_postnorm_only
+        or cfg.residual_scale is not None) else 2
+    return 1 + cfg.num_layers * (per + (cfg.qk_norm == "rms_full"))
+
+
+def _same_ranks(stats, what):
+    """Every rank ran the leader's programs with its outputs, and counted
+    the same launches and collectives."""
+    lead = stats[0]
+    for s in stats[1:]:
+        for k in ("launches", "collectives", "programs_run",
+                  "outputs_digest"):
+            assert s.get(k) == lead.get(k), \
+                f"{what}: rank {s['rank']} {k} {s.get(k)} != {lead.get(k)}"
+
+
+def _tp_batched_wave(torch, worker, cfg, quant, fused):
+    """Phase 5's bodies as one /inference_batch through the loaded tp
+    batched model, every rank's counts zeroed before and held after:
+    paged_flash_decode num_layers times per weight pass (the fused gate is
+    off under tp, whatever DLI_FUSED_DECODE says), no other attention
+    kernel; in int4, per decode pass 5 q4_matmul per layer plus the head
+    and 2 q4_matmul_row per layer, per admission wave the head and, at
+    <= 32 rows, as many again; 2L + 1 all-reduces and one gather per
+    forward (decode pass or admission wave), no broadcast."""
+    name, L = cfg.name, cfg.num_layers
+    b = worker.models[name].batcher
+    waves = []
+    prefill = b.model.paged_prefill_tail
+
+    def recorded(tokens, *a, **kw):
+        waves.append(tokens.shape[0] * tokens.shape[1])
+        return prefill(tokens, *a, **kw)
+
+    b.model.paged_prefill_tail = recorded
+    bodies = [dict(x, request_tag=f"p21-{quant}-{fused}-{i}")
+              for i, x in enumerate(_batched_bodies(cfg))]
+    s0 = worker.metrics.snapshot()
+    b.reset_counts()
+    t0 = time.perf_counter()
+    with _Env(DLI_FUSED_DECODE="1" if fused else "0"):
+        lines = _stream_lines(_worker_base(worker) + "/inference_batch",
+                              {"model_name": name, "requests": bodies}, None)
+    wall = time.perf_counter() - t0
+    stats = b.rank_stats()
+    s1 = worker.metrics.snapshot()
+    del b.model.paged_prefill_tail
+    passes, emitted = (s1["counters"][k] - s0["counters"].get(k, 0)
+                       for k in ("batcher_weight_passes",
+                                 "batcher_tokens_emitted"))
+    chunk_s = (s1["timings"]["batcher_decode_chunk"]["sum"]
+               - s0["timings"].get("batcher_decode_chunk", {}).get("sum", 0))
+    msgs = [json.loads(x) for _, x in lines]
+    assert all(m["status"] == 200 for m in msgs), msgs
+    tags = {m["request_tag"]: m["body"]["tokens"] for m in msgs}
+    tokens = [tags[b["request_tag"]] for b in bodies]
+    small = sum(n <= 32 for n in waves)
+    want = {"paged_flash_decode": L * passes, "fused_decode_step": 0,
+            "flash_attention": 0, "flash_decode": 0,
+            "q4_matmul": (passes * (5 * L + 1) + len(waves) + small * 5 * L
+                          if quant == "int4" else 0),
+            "q4_matmul_row": (passes + small) * 2 * L if quant == "int4"
+            else 0}
+    forwards = passes + len(waves)
+    want_c = {"all_reduce": (2 * L + 1) * forwards, "gather": forwards,
+              "broadcast": 0}
+    for s in stats:
+        got = {k: s["launches"][k] for k in want}
+        assert got == want, f"rank {s['rank']}: launches {got} != {want}"
+        for k in ("q4_matmul", "q4_matmul_row"):
+            assert s["launches"][f"{k}[mma]"] == want[k], s["launches"]
+        assert s["collectives"] == want_c, \
+            f"rank {s['rank']}: {s['collectives']} != {want_c}"
+    _same_ranks(stats, f"tp batched {quant} fused={fused}")
+    _bank21(stats)
+    generated = sum(len(t) for t in tokens)
+    row = {"weights": quant or "bf16", "DLI_FUSED_DECODE": int(fused),
+           "weight_passes": passes, "admission_waves": len(waves),
+           "wall_s": wall, "tokens_per_s": generated / wall,
+           "decode_tokens_per_weight_pass": emitted / passes,
+           "decode_chunk_ms_per_weight_pass": 1e3 * chunk_s / passes,
+           "launches_per_rank": {k: v for k, v in
+                                 stats[0]["launches"].items() if v},
+           "collectives_per_rank": stats[0]["collectives"]}
+    log("  tp=2 batched pass", json.dumps(row))
+    return row, tokens
+
+
+def _tp1_batched_tokens(worker, cfg):
+    """Phase 5's bodies through a tp=1 batched bf16 load of ``cfg`` on
+    the same seeded weights: each request's tokens, in body order."""
+    base = _worker_base(worker)
+    st, res = _http(base + "/load_model", dict(BATCHED_LOAD,
+                                                model_name=cfg.name))
+    assert st == 200 and res["status"] == "success", res
+    try:
+        bodies = [dict(x, request_tag=f"p21-tp1-{i}")
+                  for i, x in enumerate(_batched_bodies(cfg))]
+        lines = _stream_lines(base + "/inference_batch",
+                              {"model_name": cfg.name, "requests": bodies},
+                              None)
+    finally:
+        st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+        assert st == 200
+    msgs = [json.loads(x) for _, x in lines]
+    assert all(m["status"] == 200 for m in msgs), msgs
+    tags = {m["request_tag"]: m["body"]["tokens"] for m in msgs}
+    return [tags[b["request_tag"]] for b in bodies]
+
+
+def _vs_tp1(got, ref):
+    """tp=2's tokens against tp=1's, per request: the tokens they share
+    before the first that differs. bf16 partials summed over the ranks
+    round otherwise than one GEMM, so a near tie may break the other way
+    and the two then go apart; a fault in the tp path would give logits
+    unrelated to tp=1's, and next to no first token equal. So at least
+    half of the first tokens must be equal."""
+    shared = [next((i for i, (a, b) in enumerate(zip(g, r)) if a != b),
+                   min(len(g), len(r))) for g, r in zip(got, ref)]
+    first = sum(n > 0 for n in shared)
+    assert 2 * first >= len(ref), \
+        f"tp=2's first tokens equal tp=1's on {first} of {len(ref)}"
+    return {"shared_prefix_tokens": shared, "first_token_equal": first,
+            "requests": len(ref)}
+
+
+def _tp_batched_serving(torch):
+    """(a): llama-3-8b at full width and TP_SERVING_LAYERS layers through
+    the worker, "mesh": {"tp": 2}, "serving": "batched": phase 5's bodies
+    on a bf16 load with DLI_FUSED_DECODE=0 and then =1 (over the first
+    run's prefixes), each held against a tp=1 load of the same weights
+    by ``_vs_tp1``, then on an int4 load; every follower gone after each
+    unload. (b) holds the fused gate's on and off runs bitwise equal."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config, register)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = register(get_config("llama-3-8b").replace(
+        name=TP_SERVING_NAME, num_layers=TP_SERVING_LAYERS))
+    log(f"  (a) depth cut: llama-3-8b at {TP_SERVING_LAYERS} of its 32 "
+        "layers (phase 10's; two ranks share the card over gloo)")
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = _worker_base(worker)
+    out = {}
+    try:
+        ref = _tp1_batched_tokens(worker, cfg)
+        for quant in (None, "int4"):
+            torch.cuda.reset_peak_memory_stats()
+            st, res = _http(base + "/load_model", dict(
+                BATCHED_LOAD, model_name=cfg.name, mesh={"tp": 2},
+                **({"quantize": quant} if quant else {})))
+            assert st == 200 and res["status"] == "success", res
+            st, health = _http(base + "/health")
+            [desc] = health["loaded_models"]
+            sched = desc["scheduler"]
+            assert sched["mesh"]["tp"] == 2 and sched["ranks"] == 2, sched
+            assert sched["decode_graphs_captured"] == 0, sched
+            pids = worker.models[cfg.name].batcher._leader.alive()
+            log(f"  load_model (batched, tp=2, {quant or 'bf16'}): "
+                f"{res['load_time_s']:.2f} s, "
+                f"{desc['param_bytes'] / 1e9:.3f} GB of weights per rank, "
+                f"data collectives over {sched['backend']}")
+            rows = []
+            for fused in (False, True) if quant is None else (False,):
+                row, toks = _tp_batched_wave(torch, worker, cfg, quant,
+                                             fused)
+                if quant is None:
+                    row["vs_tp1"] = _vs_tp1(toks, ref)
+                    log("  tp=2 bf16 against tp=1:",
+                        json.dumps(row["vs_tp1"]))
+                rows.append(row)
+            peak = torch.cuda.max_memory_allocated()
+            st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+            assert st == 200
+            alive = [p for p in pids if os.path.exists(f"/proc/{p}")]
+            assert not alive, f"tp followers {alive} outlived the unload"
+            out[quant or "bf16"] = {
+                "param_bytes_per_rank": desc["param_bytes"],
+                "backend": sched["backend"],
+                "leader_peak_memory_bytes": peak, "passes": rows}
+    finally:
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _xcheck_prompts(torch, vocab, steps):
+    """Phase 11's prompts (37 and 64 tokens) and ``steps`` forced rows."""
+    g = torch.Generator().manual_seed(8)
+    toks = torch.randint(0, vocab, (2, 64), generator=g)
+    forced = torch.randint(0, vocab, (steps, 2), generator=g).tolist()
+    return [toks[0, :37].tolist(), toks[1].tolist()], forced
+
+
+def _served_rows(torch, b, prompts, new):
+    """``prompts`` through ``b``'s scheduler, greedy, stepped to the end:
+    (tokens, passes, each program's logits rows on the leader) — an
+    admission wave's rows, then each decode step's slots, as
+    ``Transformer.unembed`` gave them (under tp gathered)."""
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    rows, unembed = [], b.model.unembed
+
+    def recorded(x):
+        out = unembed(x)
+        rows.append(out.reshape(-1, out.shape[-1]).cpu())
+        return out
+
+    b.model.unembed = recorded
+    try:
+        reqs = [b.submit(p, max_new_tokens=new,
+                         sampling=SamplingParams.greedy(), seed=i)
+                for i, p in enumerate(prompts)]
+        for _ in range(100):
+            b.step()
+            if all(r.done.is_set() for r in reqs):
+                break
+        toks = [r.wait() for r in reqs]
+    finally:
+        del b.model.unembed
+    passes = b.metrics.snapshot()["counters"]["batcher_weight_passes"]
+    return toks, passes, rows
+
+
+def _greedy_rows_xcheck(torch, what, got, ref, tol):
+    """Two greedy runs' logits rows, program by program (``_served_rows``:
+    tp=2's, tp=1's), every row within ``tol``. Where a row's greedy
+    token differs, tp=1's two best logits must lie within twice the
+    tolerance of each other (a tie the two summation orders may break
+    either way), and the row's slot (every slot, after an admission
+    row), fed another token from then on, is compared no further.
+    Returns (max_abs_err, rows compared, ties)."""
+    atol, rtol = tol
+    cut, errs, n, ties = set(), [], 0, 0
+    assert len(got) == len(ref), (what, len(got), len(ref))
+    for c, (a, b) in enumerate(zip(got, ref)):
+        keep = [j for j in range(b.shape[0]) if j not in cut]
+        a, b = a[keep], b[keep]
+        assert torch.isfinite(a).all() and a.shape == b.shape, what
+        err = (a - b).abs()
+        assert bool((err <= atol + rtol * b.abs()).all()), \
+            f"tp=2 and tp=1 logits disagree ({what}, program {c}: " \
+            f"max_abs_err {float(err.max()):.3e})"
+        errs.append(float(err.max()))
+        n += len(keep)
+        for i in (a.argmax(-1) != b.argmax(-1)).nonzero().flatten().tolist():
+            top = b[i].topk(2).values
+            gap = float(top[0] - top[1])
+            assert gap <= 2 * (atol + rtol * float(top[0].abs())), \
+                f"{what}: program {c} row {keep[i]} takes another token " \
+                f"over a gap of {gap:.3e}"
+            ties += 1
+            cut.update(range(b.shape[0]) if c == 0 else {keep[i]})
+    log(f"  cross-check {what}: full width, 2 layers, f32, {n} logit rows "
+        f"through the scheduler: max_abs_err {max(errs):.3e} (tol {atol} + "
+        f"{rtol}*|ref|), {ties} near ties")
+    return max(errs), n, ties
+
+
+def _check_xcheck_counts(label, over, stats, L, steps):
+    """(b)'s exact counts on every rank: the admission's 128 rows take
+    the plain unpack, its head's two gathered rows the kernel; the int8
+    pool decodes on the gather route; 2L + 1 all-reduces and a gather
+    per forward."""
+    int4 = over.get("quant") == "int4"
+    want = {"paged_flash_decode": 0 if over.get("kv_quant") else L * steps,
+            "fused_decode_step": 0, "flash_attention": 0,
+            "flash_decode": 0,
+            "q4_matmul": 1 + steps * (5 * L + 1) if int4 else 0,
+            "q4_matmul_row": steps * 2 * L if int4 else 0}
+    want_c = {"all_reduce": (2 * L + 1) * (steps + 1),
+              "gather": steps + 1, "broadcast": 0}
+    for s in stats:
+        got = {k: s["launches"][k] for k in want}
+        assert got == want and s["collectives"] == want_c, \
+            (label, {k: v for k, v in s.items() if k != "pool"}, want,
+             want_c)
+    _same_ranks(stats, f"batcher xcheck {label}")
+    _bank21(stats)
+
+
+def _tp_batcher_xcheck(torch):
+    """(b): the batcher's scheduler at tp=2 against tp=1 on the same
+    weights (llama-3-8b, full width, 2 layers, f32): two prompts admitted
+    in one wave, then 8 greedy decode steps in one chunk, with float and
+    int4 weights and an int8 KV pool (whose chunk runs through its side
+    buffers and flush), every logits row the leader computed within
+    XCHECK_TOL (``_greedy_rows_xcheck``); float at tp=2 again with
+    DLI_FUSED_DECODE=1, bitwise equal; every rank's counts exact. The
+    int8 pool's levels are held as phase 4 holds an int8 cache's
+    (``_level_check``): tp computes K/V through GEMMs of other widths and
+    sums, so a value on a rounding boundary takes the next level on one
+    side; every rank's pool shard (``rank_stats(pool_blocks)``), side by
+    side, against tp=1's pool over the blocks the run wrote. tp=1 runs
+    its programs eagerly (DLI_CUDA_GRAPHS=0) so each step's logits are
+    seen."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        ContinuousBatcher)
+    cfg0 = get_config("llama-3-8b").replace(num_layers=2, dtype="float32")
+    L, steps = 2, 8
+    prompts, _ = _xcheck_prompts(torch, cfg0.vocab_size, 0)
+    kw = dict(num_blocks=64, block_size=16, slots=2, max_seq=128, seed=7,
+              device="cuda", kv_host_mb=0, decode_overlap=False)
+    blocks = range(1, kw["num_blocks"] + 1)      # 0: the dummy
+    out = {}
+    for label, over in (("float", {}), ("int4", {"quant": "int4"}),
+                        ("int8_kv_pool", {"kv_quant": "int8"})):
+        cfg = cfg0.replace(**over)
+        runs = {}
+        # float: tp=2 once more with DLI_FUSED_DECODE=1, whose gate is
+        # off under tp: the same route, so the same bits
+        for tp, fused in (((1, "0"), (2, "0"), (2, "1")) if not over
+                          else ((1, "0"), (2, "0"))):
+            with _Env(DLI_CUDA_GRAPHS="0", DLI_FUSED_DECODE=fused):
+                b = ContinuousBatcher(cfg, mesh_spec=MeshSpec(tp=tp), **kw)
+                try:
+                    b.reset_counts()
+                    toks, passes, rows = _served_rows(torch, b, prompts,
+                                                      steps + 1)
+                    stats = b.rank_stats(pool_blocks=blocks)
+                finally:
+                    b.stop()
+            runs[tp, fused] = (toks, passes, rows, stats)
+            del b
+            gc.collect()
+        runs[1] = runs.pop((1, "0"))
+        for key in [k for k in runs if k != 1]:
+            toks, passes, rows, stats = runs.pop(key)
+            assert passes == steps and len(rows) == steps + 1, \
+                (passes, len(rows))
+            if key == (2, "1"):
+                assert toks == runs[2][0] and all(
+                    torch.equal(a, b) for a, b in zip(rows, runs[2][2])), \
+                    "tp=2 logits differ with DLI_FUSED_DECODE=1"
+            runs[2] = toks, passes, rows, stats
+            _check_xcheck_counts(label, over, stats, L, steps)
+        toks, passes, rows, stats = runs[2]
+        row = {"fused_gate_on_equal": True} if not over else {}
+        err, n, ties = _greedy_rows_xcheck(
+            torch, f"batcher {label} tp=2 vs tp=1", rows, runs[1][2],
+            XCHECK_TOL)
+        if not ties:
+            assert toks == runs[1][0], (label, toks, runs[1][0])
+        if over.get("kv_quant"):
+            # k, v, k_scale, v_scale: the ranks' kv heads side by side
+            pools = {"cuda": [torch.cat(ls, dim=3)
+                              for ls in zip(*(s["pool"] for s in stats))],
+                     "cpu": runs[1][3][0]["pool"]}
+            written = pools["cpu"][2].flatten(2).ne(0).any(-1).any(0)
+            row["levels"] = _level_check(torch, {
+                side: types.SimpleNamespace(**{
+                    n_: t[:, written] for n_, t in
+                    zip(("k", "v", "k_scale", "v_scale"), p)})
+                for side, p in pools.items()}, "tp=2 ranks vs tp=1")
+            row["blocks_compared"] = int(written.sum())
+        row.update(max_abs_err=err, logit_rows=n, near_ties=ties,
+                   tokens_equal=toks == runs[1][0])
+        out[label] = row
+        del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _accepted_drafts(prompt, tokens, gamma):
+    """The drafts a greedy prompt-lookup run (``propose_ngram``, gamma
+    fixed) accepts when its tokens are ``tokens``: the engine's loop,
+    replayed on the host."""
+    from distributed_llm_inferencing_tpu_torch.ops.speculative import (
+        propose_ngram)
+    n, accepted = 1, 0
+    while n < len(tokens):
+        hist = list(prompt) + tokens[:n]
+        drafts = propose_ngram(hist, gamma) or [hist[-1]] * gamma
+        k = 0
+        while (k < gamma and n + k < len(tokens)
+               and drafts[k] == tokens[n + k]):
+            k += 1
+        accepted += k
+        n += k + 1
+    return accepted
+
+
+def _accepting_prompts(torch, eng, vocab, new, gamma):
+    """Two prompts ``p + c + p`` (``p`` random, ``c`` the engine's greedy
+    continuation of ``p``), each one whose plain greedy tokens the
+    n-gram drafts foretell at least once (``_accepted_drafts``), and
+    those tokens."""
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    greedy, g, found = SamplingParams.greedy(), \
+        torch.Generator().manual_seed(21), []
+    for _ in range(16):
+        p = torch.randint(0, vocab, (12,), generator=g).tolist()
+        q = p + eng.generate([p], 12, sampling=greedy).tokens[0] + p
+        plain = eng.generate([q], new, sampling=greedy).tokens[0]
+        if _accepted_drafts(q, plain, gamma):
+            found.append((q, plain))
+            if len(found) == 2:
+                return found
+    raise AssertionError(f"{len(found)} of 16 prompts p + c + p draft any "
+                         "accepted token")
+
+
+def _tp_speculation(torch):
+    """(b): on two prompts whose drafts the model accepts
+    (``_accepting_prompts``; llama-3-8b, 2 layers, f32, tp=2,
+    residual_scale SPEC_RESIDUAL_SCALE), the speculative engine's greedy
+    tokens equal its plain ones, with drafts accepted
+    (fewer verify steps than tokens after the first; no decode kernel in
+    a verify step; one broadcast, the leader's outcome, per weight
+    pass); the speculative batcher's (wave on, adaptive off) equal a
+    plain tp=2 batcher's, with drafts accepted."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        ContinuousBatcher)
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    cfg = get_config("llama-3-8b").replace(
+        num_layers=2, dtype="float32", residual_scale=SPEC_RESIDUAL_SCALE)
+    L, new, gamma, greedy = 2, 24, 4, SamplingParams.greedy()
+    out = {}
+    eng = InferenceEngine(cfg, mesh_spec=MeshSpec(tp=2), max_seq=256,
+                          seed=7, device="cuda")
+    try:
+        with _Env(DLI_SPEC_ADAPTIVE="0"):
+            found = _accepting_prompts(torch, eng, cfg.vocab_size, new,
+                                       gamma)
+            (prompt, plain), prompts = found[0], [q for q, _ in found]
+            eng.reset_counts()
+            res = eng.generate([prompt], new, sampling=greedy,
+                               speculative="ngram", spec_gamma=gamma)
+            stats = eng.rank_stats()
+    finally:
+        eng.close()
+    assert res.tokens == [plain], (res.tokens, plain)
+    verify = res.steps - 1
+    accepted = len(plain) - 1 - verify
+    assert verify > 0 and accepted > 0, (verify, accepted)
+    want = {"flash_attention": L, "flash_decode": 0,
+            "paged_flash_decode": 0, "fused_decode_step": 0}
+    want_c = {"all_reduce": (2 * L + 1) * res.steps, "gather": res.steps,
+              "broadcast": res.steps}
+    for s in stats:
+        got = {k: s["launches"][k] for k in want}
+        assert got == want and s["collectives"] == want_c, \
+            (s, want, want_c)
+    _bank21(stats)
+    out["engine"] = {"prompt_tokens": len(prompt), "new_tokens": len(plain),
+                     "verify_steps": verify, "accepted_drafts": accepted,
+                     "tokens_per_verify_step": (len(plain) - 1) / verify}
+    kw = dict(num_blocks=64, block_size=16, slots=2, max_seq=128, seed=7,
+              device="cuda", kv_host_mb=0, mesh_spec=MeshSpec(tp=2))
+    toks = {}
+    for mode in ("plain", "spec"):
+        extra = (dict(speculative="ngram", spec_gamma=gamma,
+                      spec_adaptive=False, spec_wave=True)
+                 if mode == "spec" else {})
+        b = ContinuousBatcher(cfg, **kw, **extra)
+        try:
+            b.reset_counts()
+            reqs = [b.submit(p, max_new_tokens=new, sampling=greedy,
+                             seed=i) for i, p in enumerate(prompts)]
+            for _ in range(200):
+                b.step()
+                if all(r.done.is_set() for r in reqs):
+                    break
+            toks[mode] = [r.wait() for r in reqs]
+            stats = b.rank_stats()
+            _same_ranks(stats, f"batcher {mode}")
+            _bank21(stats)
+            if mode == "spec":
+                spec_chunks = len(b._spec_progs)
+                c = b.metrics.snapshot()["counters"]
+                out["batcher"] = {
+                    "weight_passes": c["batcher_weight_passes"],
+                    "tokens_emitted": c["batcher_tokens_emitted"],
+                    "spec_accepted_tokens":
+                        b.stats()["spec_accepted_tokens"]}
+                assert spec_chunks > 0 and c["batcher_weight_passes"] > 0
+                assert out["batcher"]["spec_accepted_tokens"] > 0, out
+        finally:
+            b.stop()
+    assert toks["spec"] == toks["plain"], toks
+    log("  tp=2 speculation", json.dumps(out))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_family_cfg(row):
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    if row in LATER_XCHECK:
+        cfg, _ = _later_xcheck_cfg(row)
+    else:
+        cfg = get_config(row).replace(num_layers=2)
+    return cfg.replace(dtype="float32")
+
+
+def _tp_families(torch):
+    """(c): each TP_FAMILY_ROWS shape, 2 layers, f32, through the engine
+    at tp=1 and tp=2 on the same seeded weights: a teacher-forced prefill
+    of two prompts plus 4 decode steps within XCHECK_TOL, every rank's
+    counts exact (one f32 flash_attention per layer, one flash_decode per
+    layer per step; the all-reduces by ``_tp_all_reduces``)."""
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    out, steps = {}, 4
+    for row in TP_FAMILY_ROWS:
+        cfg = _tp_family_cfg(row)
+        L = cfg.num_layers
+        prompts, forced = _xcheck_prompts(torch, cfg.vocab_size, steps)
+        t0 = time.perf_counter()
+        one = InferenceEngine(cfg, max_seq=96, seed=7, device="cuda")
+        pre1, dec1 = one.teacher_forced(prompts, forced)
+        del one
+        gc.collect()
+        two = InferenceEngine(cfg, mesh_spec=MeshSpec(tp=2), max_seq=96,
+                              seed=7, device="cuda")
+        try:
+            two.reset_counts()
+            pre2, dec2 = two.teacher_forced(prompts, forced)
+            stats = two.rank_stats()
+            local = (two.model.layers[0].heads, two.model.layers[0].kv_heads)
+        finally:
+            two.close()
+        want = {"flash_attention": L, "flash_attention[mma]": 0,
+                "flash_decode": L * steps, "paged_flash_decode": 0,
+                "fused_decode_step": 0}
+        want_c = {"all_reduce": _tp_all_reduces(cfg) * (steps + 1),
+                  "gather": steps + 1, "broadcast": 0}
+        for s in stats:
+            got = {k: s["launches"][k] for k in want}
+            assert got == want and s["collectives"] == want_c, \
+                (row, s, want, want_c)
+        _bank21(stats)
+        a, b = (torch.cat([p[0, :37], p[1], d.reshape(-1, d.shape[-1])])
+                for p, d in ((pre2, dec2), (pre1, dec1)))
+        err = _xcheck(torch, f"{row} tp=2 vs tp=1 (2 layers, f32)", a, b)
+        out[row] = {"max_abs_err": err, "local_heads": local,
+                    "all_reduce_per_pass": _tp_all_reduces(cfg),
+                    "seconds": time.perf_counter() - t0}
+        del two
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_batched(torch, smi):
+    """Phase 21 (see the module docstring)."""
+    from distributed_llm_inferencing_tpu_torch.runtime import lockstep
+    report, t_all = {"smi": smi}, time.perf_counter()
+    _PHASE21_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    report["serving"] = _tp_batched_serving(torch)
+    report["seconds_serving"] = time.perf_counter() - t0
+    # (b) and (c) build many tp models: with DLI_TP_KEEP_GROUPS each takes
+    # the group the last one released (runtime/lockstep.py), so the
+    # phase spawns once; the spawn and the stop are timed
+    acquired, take = [0], lockstep.leader
+
+    def counted(*a):
+        acquired[0] += 1
+        return take(*a)
+
+    lockstep.leader = counted
+    try:
+        with _Env(DLI_TP_KEEP_GROUPS="1", DLI_FUSED_DECODE="0"):
+            t0 = time.perf_counter()
+            counted(2, torch.device("cuda")).stop()
+            report["group_spawn_s"] = time.perf_counter() - t0
+            for key, fn in (("batcher_xcheck", _tp_batcher_xcheck),
+                            ("speculation", _tp_speculation),
+                            ("families", _tp_families)):
+                t0 = time.perf_counter()
+                report[key] = fn(torch)
+                report[f"seconds_{key}"] = time.perf_counter() - t0
+                log(f"  phase 21 {key}: {report[f'seconds_{key}']:.1f} s")
+    finally:
+        lockstep.leader = take
+        t0 = time.perf_counter()
+        lockstep.stop_idle_groups()
+        report["group_stop_s"] = time.perf_counter() - t0
+    # the first acquisition spawned; every later one reused the group
+    report["tp_models_on_one_group"] = acquired[0] - 1
+    log(f"  phase 21: {acquired[0] - 1} tp models on one kept group; a "
+        f"spawn took {report['group_spawn_s']:.2f} s, the stop "
+        f"{report['group_stop_s']:.2f} s [{smi}]")
+    report["launches"] = dict(_PHASE21_LAUNCHES)
+    log("  phase 21 launches (every rank):", json.dumps(report["launches"]))
+    report["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 21 wall time: {report['seconds']:.1f} s [{smi}]")
+    out_dir = os.path.join(HERE, "chiprun_out")
+    if os.path.isdir(out_dir):
+        with open(os.path.join(out_dir, "phase21.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+    return report
+
+
 def timed_rows(torch):
     """Phase 2's timed rows alone (every kernel at its serving shapes,
     with its bound, plain and library times), for comparing two trees'
@@ -6466,6 +7156,10 @@ def main() -> int:
         phase_experts_mla(torch, fa, qm, counted, smi)
         log(smi)
         return 0
+    if sys.argv[1:2] == ["--tp-batched"]:   # phase 21 alone
+        phase_tp_batched(torch, smi)
+        log(smi)
+        return 0
     if sys.argv[1:2] == ["--timed-rows"]:
         rows = timed_rows(torch)
         for row in rows:
@@ -6554,9 +7248,15 @@ def main() -> int:
 
     mark(11, "tp=2 against tp=1 on the same weights (2 layers, f32, "
         "float and int4), then int4 at full depth against phase 9's f32")
-    tp_xerr = {q or "float": phase_tp_cross_check(torch, q)
-               for q in (None, "int4")}
-    tp_depth = phase_tp_depth(torch, depth_kept)
+    # its three tp engines on one group (DLI_TP_KEEP_GROUPS): one spawn
+    from distributed_llm_inferencing_tpu_torch.runtime import lockstep
+    try:
+        with _Env(DLI_TP_KEEP_GROUPS="1"):
+            tp_xerr = {q or "float": phase_tp_cross_check(torch, q)
+                       for q in (None, "int4")}
+            tp_depth = phase_tp_depth(torch, depth_kept)
+    finally:
+        lockstep.stop_idle_groups()
 
     mark(12, "the worker's control surface over HTTP (llama-3-8b "
         "bf16: auth, replay, SSE, fencing; /inference_batch paged and "
@@ -6640,6 +7340,19 @@ def main() -> int:
         experts_mla["launches"]["paged_flash_decode"] > 0 and \
         experts_mla["launches"]["q4_matmul"] > 0, experts_mla["launches"]
 
+    mark(21, "tensor parallelism for what one host serves: (a) batched "
+        "serving at tp=2 through the worker (llama-3-8b width, "
+        f"{TP_SERVING_LAYERS} layers, bf16 with DLI_FUSED_DECODE off and "
+        "on, int4); (b) the batcher and speculation at tp=2 against tp=1 "
+        "and plain decode (2 layers, f32); (c) the families at tp=2 "
+        "against tp=1 at their published widths (2 layers, f32)")
+    tp_batched = phase_tp_batched(torch, smi)
+    for name in ("flash_attention", "flash_decode", "paged_flash_decode",
+                 "q4_matmul", "q4_matmul_row"):
+        assert tp_batched["launches"].get(name, 0) > 0, \
+            f"{name} never launched on phase 21's path"
+    assert tp_batched["launches"]["fused_decode_step"] == 0
+
     mark(None)
     log("  wall time by phase (s):", json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
@@ -6720,6 +7433,10 @@ def main() -> int:
         # launch no attention kernel
         entry["experts_mla_launches"] = experts_mla["launches"].get(
             name, 0) if "[" not in name else 0
+        # phase 21: every tp rank's launches (batched tp serving, the
+        # tp batcher and speculation checks, the families under tp)
+        entry["tp_batched_launches"] = tp_batched["launches"].get(
+            name, 0) if "[" not in name else 0
         cap_rows = {"flash_attention": cap_pre, "flash_decode": cap_dec,
                     "paged_flash_decode": cap_paged}.get(name)
         if cap_rows is not None:
@@ -6743,6 +7460,7 @@ def main() -> int:
               "families": families, "ingestion": ingestion,
               "later": later, "kv_plane": kv_plane, "spec_migrate": spec,
               "lora_moe": lora_moe, "experts_mla": experts_mla,
+              "tp_batched": tp_batched,
               "uncapped_digests": digests,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}

@@ -91,18 +91,26 @@ are built once per model, on its device, so a captured decode step
 
 Tensor parallelism (the model on one rank of a ``TPGroup``,
 parallel/mesh.py, holding its shard of the weights, parallel/sharding.py;
-llama arm only, ``llama_arm_gaps``): each ``Block`` runs its local heads,
-H/tp and Hkv/tp, through the same kernels; the row-parallel o and down
+every dense family, ``tp_gaps`` names what stays refused): each ``Block``
+runs its local heads, H/tp q heads and the kv heads they read
+(``local_heads``; replicated when tp > Hkv), through the same kernels,
+with the rank's slice of the ALiBi slopes; the row-parallel o and down
 sum their partial products over the ranks in x's dtype (the JAX
-package's ``psum``; int4 partials come from ``q4_matmul_row``);
-``Embed`` looks up the rank's vocabulary rows, zeros the rest and sums
-over the ranks; the head's vocabulary columns are gathered. That is 2·L
-+ 1 all-reduces and one gather per weight pass. In bf16 an o or down
-output thus rounds twice (each rank's partial, then their sum), where
-one device rounds once: up to one more bf16 ulp per row-parallel linear,
-as in the JAX package. chip_smoke.py holds tp=2 to tp=1 within its f32
-cross-check tolerance (the sums' order only) and, at full depth in bf16,
-within 1.5x tp=1's error against f32.
+package's ``psum``; int4 partials come from ``q4_matmul_row``) and then
+add their replicated biases once; ``Embed`` looks up the rank's
+vocabulary rows, zeros the rest and sums over the ranks; the head's
+vocabulary columns (an untied head's bias with them) are gathered before
+the logit scale and softcap. The count rule per weight pass: one
+all-reduce for the embedding, then per layer two (o, down), or one in a
+parallel-residual block (gpt-neox, gpt-j, phi, falcon: the sum of o's
+and down's partials reduced at once, ``Block._tail_parallel_tp``), plus
+one for "rms_full" q/k norms (q's and k's sums of squares together);
+and one gather. In bf16 an o or down output thus rounds twice (each
+rank's partial, then their sum), where one device rounds once: up to one
+more bf16 ulp per row-parallel linear, as in the JAX package.
+chip_smoke.py holds tp=2 to tp=1 within its f32 cross-check tolerance
+(the sums' order only) and, at full depth in bf16, within 1.5x tp=1's
+error against f32.
 
 The paged entry points serve the continuous batcher (runtime/batcher.py)
 over the block pool (ops/paged_kvcache.py): ``paged_prefill_tail`` (a
@@ -159,7 +167,10 @@ from distributed_llm_inferencing_tpu_torch.ops.rope import (
 from distributed_llm_inferencing_tpu_torch.ops.sampling import sample_batch
 from distributed_llm_inferencing_tpu_torch.ops.speculative import (
     accept_rejection_batch, propose_ngram_device)
-from distributed_llm_inferencing_tpu_torch.parallel.mesh import TPGroup
+from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
+    MeshSpec, TPGroup)
+from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
+    kv_weights, local_heads)
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
 
 # The speculative chunk gathers the pool once per chunk when the gathered
@@ -187,22 +198,11 @@ _CHOICES = {"norm_type": ("rmsnorm", "layernorm"), "activation": tuple(_ACT),
             "kv_quant": (None, "int8"),
             "moe_router": ("softmax", "deepseek_v3", "ernie", "topk_softmax"),
             "moe_dispatch": ("auto", "dense", "capacity")}
-# field -> its llama value: the family switches, which tp does not shard
-# yet (parallel/sharding.py cuts the llama arm's leaves only)
-_LLAMA_ARM = {
-    "norm_type": "rmsnorm", "activation": "silu", "gated_mlp": True,
-    "position_embedding": "rope", "rope_pct": 1.0, "rope_interleaved": False,
-    "embed_norm": False, "attn_bias": False, "o_bias": None,
-    "mlp_bias": False, "lm_head_bias": False, "tie_word_embeddings": False,
-    "parallel_residual": False, "shared_attn_mlp_norm": False,
-    "embed_scale": None, "embed_proj_dim": None, "post_norm": False,
-    "qk_norm": None, "qk_norm_after_rope": False, "attn_windows": None,
-    "rope_layers": None, "attn_softcap": None, "logit_softcap": None,
-    "logit_scale": None, "post_block_norms": False,
-    "sublayer_postnorm_only": False, "residual_scale": None,
-    "num_experts": 0, "kv_lora_rank": None, "q_lora_rank": None,
-    "qkv_clip": None, "attn_sinks": False,
-}
+# field -> its value off the features tp does not shard yet (the experts,
+# latent attention, dbrx's clip and gpt-oss's sinks: ROADMAP Queue A
+# item 9.8); parallel/sharding.py cuts every dense family's leaves
+_TP_REFUSED = {"num_experts": 0, "kv_lora_rank": None, "q_lora_rank": None,
+               "qkv_clip": None, "attn_sinks": False}
 
 
 def check_supported(cfg: ModelConfig):
@@ -219,9 +219,9 @@ def check_supported(cfg: ModelConfig):
             f"{cfg.name}: not in the ported model families: {', '.join(bad)}")
 
 
-def llama_arm_gaps(cfg: ModelConfig) -> List[str]:
-    """The family switches of ``cfg`` off their llama values."""
-    return [f"{f}={getattr(cfg, f)!r}" for f, want in _LLAMA_ARM.items()
+def tp_gaps(cfg: ModelConfig) -> List[str]:
+    """The switches of ``cfg`` that tp does not serve yet, by name."""
+    return [f"{f}={getattr(cfg, f)!r}" for f, want in _TP_REFUSED.items()
             if getattr(cfg, f) != want]
 
 
@@ -444,8 +444,9 @@ class Linear(nn.Module):
     float, ``{"q", "scale"}`` int8 — ``x @ q.to(x.dtype) *
     scale.to(x.dtype)``, or ``{"p4", "scale"[, "chunked"]}`` int4 —
     ``q4_linear``; a bias ``b`` is added after the product. A
-    row-parallel linear under tp (``tp`` given) holds a din shard and sums
-    its partial product over the ranks."""
+    row-parallel linear under tp (``tp`` given) holds a din shard: its
+    ``partial`` product is summed over the ranks, and ``finish`` adds the
+    replicated bias once, after the sum."""
 
     def __init__(self, leaf: Dict[str, torch.Tensor],
                  tp: Optional[TPGroup] = None):
@@ -460,17 +461,24 @@ class Linear(nn.Module):
     def leaf(self) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in self.keys}
 
-    def forward(self, x):
+    def partial(self, x):
+        """x @ W in x's dtype, no bias: under tp, this rank's share of a
+        row-parallel product."""
         if self.form == "int4":
-            y = q4_linear(x, self.leaf(), self.tp.world if self.tp else 1)
-        elif self.form == "int8":
+            return q4_linear(x, self.leaf(), self.tp.world if self.tp else 1)
+        if self.form == "int8":
             y = torch.matmul(x, self.q.to(x.dtype))
-            y = (y * self.scale.to(x.dtype)).to(x.dtype)
-        else:
-            y = torch.matmul(x, self.w).to(x.dtype)
-        if self.b is not None:
-            y = (y + self.b).to(x.dtype)
-        return y if self.tp is None else self.tp.all_reduce(y)
+            return (y * self.scale.to(x.dtype)).to(x.dtype)
+        return torch.matmul(x, self.w).to(x.dtype)
+
+    def finish(self, y):
+        """The sum of ``y`` over the ranks (under tp), then the bias."""
+        if self.tp is not None:
+            y = self.tp.all_reduce(y)
+        return y if self.b is None else (y + self.b).to(y.dtype)
+
+    def forward(self, x):
+        return self.finish(self.partial(x))
 
 
 class Embed(nn.Module):
@@ -478,10 +486,11 @@ class Embed(nn.Module):
     from the per-row int8 table ``{"q8", "rscale"}`` (whole int8 rows
     gathered, then one scalar multiply per row); then gemma's
     ``embed_scale``, opt-350m's ``project_in``, the learned positions
-    (clipped to the table) and bloom's embedding norm. Under tp (llama
-    arm) the rank holds rows [rank·V/tp, (rank+1)·V/tp): ids outside
-    them give zero rows, and one sum over the ranks (exact: one rank's
-    row is not zero) assembles the embedding."""
+    (clipped to the table) and bloom's embedding norm. Under tp the rank
+    holds rows [rank·V/tp, (rank+1)·V/tp): ids outside them give zero
+    rows, and one sum over the ranks (exact: one rank's row is not zero)
+    assembles the embedding; the scale, the projection, the positions and
+    the norm (all replicated) follow the sum."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor],
                  dtype: torch.dtype, tp: Optional[TPGroup] = None):
@@ -555,9 +564,19 @@ class Block(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
-        world = tp.world if tp else 1
-        self.heads = cfg.num_heads // world          # this rank's heads
-        self.kv_heads = cfg.num_kv_heads // world
+        self.tp = tp
+        spec = MeshSpec(tp=tp.world if tp else 1)
+        # this rank's q heads and the kv heads they read
+        self.heads, self.kv_heads = local_heads(cfg, spec)
+        # "rms_full" under replication: each global kv head's square
+        # counted once in the sum over the ranks
+        self.k_weight = None
+        if tp is not None and cfg.qk_norm == "rms_full":
+            w = kv_weights(cfg, tp.world, tp.rank)
+            if any(x != 1.0 for x in w):
+                self.k_weight = torch.tensor(
+                    w, dtype=torch.float32,
+                    device=p["attn_norm.scale"].device)[:, None]
         self.attn_norm = _norm(cfg, p, "attn_norm")
         self.mlp_norm = (None if cfg.shared_attn_mlp_norm
                          else _norm(cfg, p, "mlp_norm"))
@@ -599,19 +618,44 @@ class Block(nn.Module):
         self.residual_scale = (None if cfg.residual_scale is None else
                                _dtype_scalar(cfg.residual_scale, dtype))
 
-    def _pos(self, t, cos_sin, scale):
-        """q or k [B,s,heads,hd] after its projection: the q/k norm
-        (``scale``; before RoPE, or after it with ``qk_norm_after_rope``)
-        and this layer's RoPE."""
+    def _rope(self, t, cos_sin):
+        if not self.rope_on:
+            return t
         cfg = self.cfg
-        if scale is not None and not cfg.qk_norm_after_rope:
-            t = qk_normalize(t, scale, cfg.qk_norm, cfg.norm_eps)
-        if self.rope_on:
-            t = apply_rope(t, None, cfg.rope_theta, cfg.rope_pct,
-                           cfg.rope_interleaved, cos_sin=cos_sin)
-        if scale is not None and cfg.qk_norm_after_rope:
-            t = qk_normalize(t, scale, cfg.qk_norm, cfg.norm_eps)
-        return t
+        return apply_rope(t, None, cfg.rope_theta, cfg.rope_pct,
+                          cfg.rope_interleaved, cos_sin=cos_sin)
+
+    def _norm_qk(self, q, k):
+        """The q/k norms of q and k [B,s,heads,hd]. "rms_full" under tp
+        normalizes over every rank's heads: one all-reduce carries the
+        sums of squares of both (k's weighted per kv head under
+        replication, ``kv_weights``)."""
+        cfg = self.cfg
+        if cfg.qk_norm != "rms_full" or self.tp is None:
+            return (qk_normalize(q, self.q_norm, cfg.qk_norm, cfg.norm_eps),
+                    qk_normalize(k, self.k_norm, cfg.qk_norm, cfg.norm_eps))
+        kk = k.float().square()
+        if self.k_weight is not None:
+            kk = kk * self.k_weight
+        ss = self.tp.all_reduce(torch.stack(
+            [q.float().square().sum(dim=(-2, -1)), kk.sum(dim=(-2, -1))],
+            dim=-1))
+        return (qk_normalize(q, self.q_norm, "rms_full", cfg.norm_eps,
+                             ms=ss[..., 0:1] / cfg.q_dim),
+                qk_normalize(k, self.k_norm, "rms_full", cfg.norm_eps,
+                             ms=ss[..., 1:2] / cfg.kv_dim))
+
+    def _qk_pos(self, q, k, cos_sin):
+        """q and k after their projections: the q/k norms (before RoPE,
+        or after it with ``qk_norm_after_rope``) and this layer's RoPE."""
+        cfg = self.cfg
+        norm = cfg.qk_norm is not None
+        if norm and not cfg.qk_norm_after_rope:
+            q, k = self._norm_qk(q, k)
+        q, k = self._rope(q, cos_sin), self._rope(k, cos_sin)
+        if norm and cfg.qk_norm_after_rope:
+            q, k = self._norm_qk(q, k)
+        return q, k
 
     def _proj(self, name: str, x, lora: Optional[LoRARows]):
         """Linear ``name`` of x, plus the rows' adapter delta when
@@ -627,21 +671,28 @@ class Block(nn.Module):
         c = self.cfg.qkv_clip
         return t if c is None else torch.clamp(t, -c, c)
 
-    def _kv(self, h, cos_sin, lora=None):
+    def _kv_raw(self, h, lora=None):
         cfg = self.cfg
         B, s, _ = h.shape
         k = self._proj("k", h, lora).view(B, s, self.kv_heads, cfg.head_dim)
         v = self._proj("v", h, lora).view(B, s, self.kv_heads, cfg.head_dim)
-        return self._pos(self._clip(k), cos_sin, self.k_norm), self._clip(v)
+        return self._clip(k), self._clip(v)
+
+    def _kv(self, h, cos_sin):
+        """k (RoPE'd) and v alone: the fused decode route, whose kernel
+        owns q (no q/k norms there, ``fused_decode.supported``)."""
+        k, v = self._kv_raw(h)
+        return self._rope(k, cos_sin), v
 
     def _qkv(self, h, cos_sin, lora=None):
         if self.cfg.mla:
             return self._mla_qkv(h, cos_sin)
         B, s, _ = h.shape
-        q = self._proj("q", h, lora).view(B, s, self.heads,
-                                          self.cfg.head_dim)
-        k, v = self._kv(h, cos_sin, lora)
-        return self._pos(self._clip(q), cos_sin, self.q_norm), k, v
+        q = self._clip(self._proj("q", h, lora).view(B, s, self.heads,
+                                                     self.cfg.head_dim))
+        k, v = self._kv_raw(h, lora)
+        q, k = self._qk_pos(q, k, cos_sin)
+        return q, k, v
 
     def _rope_rot(self, t, cos_sin):
         """RoPE over the whole (rope-wide) last axis of ``t``."""
@@ -732,7 +783,9 @@ class Block(nn.Module):
     def _scaled(self, y):
         return y if self.residual_scale is None else y * self.residual_scale
 
-    def _mlp(self, h, lora=None):
+    def _mlp(self, h, lora=None, partial: bool = False):
+        """The MLP of h; with ``partial`` (tp's fused parallel residual)
+        down's partial product, before its sum and bias."""
         if self.router is not None:
             out = moe(h, self.router, self.experts, self.cfg, self.act,
                       self.router_b)
@@ -745,6 +798,8 @@ class Block(nn.Module):
                  * self._proj("up", h, lora))
         else:
             a = self.act(self._proj("up", h, lora))
+        if partial:
+            return self.down.partial(a)
         return self._proj("down", a, lora)
 
     def _tail(self, x, h, attn, lora=None):
@@ -755,12 +810,20 @@ class Block(nn.Module):
         Each sublayer output is normed by the sandwich norm
         (``post_block_norms``) or, post-only, by the block's own norm
         (``sublayer_postnorm_only``: x + norm(f(x))), then scaled by
-        ``residual_scale``, before its residual add."""
+        ``residual_scale``, before its residual add. Under tp a parallel
+        block with no sublayer norm and no residual scale (every parallel
+        family) sums o's and down's partial products over the ranks in
+        one all-reduce (``_tail_parallel_tp``)."""
         cfg = self.cfg
         B, s = attn.shape[:2]
         vd = cfg.v_head_dim_effective   # latent attention's v rode padded
-        attn = self._proj("o", attn[..., :vd].reshape(B, s, self.heads * vd),
-                          lora)
+        attn = attn[..., :vd].reshape(B, s, self.heads * vd)
+        if (self.tp is not None and cfg.parallel_residual
+                and self.attn_post_norm is None
+                and not cfg.sublayer_postnorm_only
+                and self.residual_scale is None):
+            return self._tail_parallel_tp(x, h, attn)
+        attn = self._proj("o", attn, lora)
         if self.attn_post_norm is not None:
             attn = self.attn_post_norm(attn)
         elif cfg.sublayer_postnorm_only:
@@ -780,6 +843,20 @@ class Block(nn.Module):
             m = self.mlp_norm(m)
         x = x + self._scaled(m)
         return self.mlp_norm(x) if cfg.post_norm else x
+
+    def _tail_parallel_tp(self, x, h, attn):
+        """A parallel-residual block under tp: x + o(attn) + mlp(h2), with
+        the sum of o's and down's partial products reduced over the ranks
+        at once (one all-reduce per layer where two sublayers would take
+        two, and half the bytes of reducing both), then o's and down's
+        biases added once each."""
+        h2 = h if self.mlp_norm is None else self.mlp_norm(x)
+        y = self.tp.all_reduce(self.o.partial(attn)
+                               + self._mlp(h2, partial=True))
+        for b in (self.o.b, self.down.b):
+            if b is not None:
+                y = (y + b).to(x.dtype)
+        return x + y
 
     @staticmethod
     def _write(write, cache, k, v):
@@ -940,6 +1017,9 @@ class Transformer(nn.Module):
         if cfg.position_embedding == "alibi":
             self.alibi = alibi_slopes(cfg.num_heads, device) \
                 * cfg.alibi_scale
+            if tp is not None:   # the rank's q heads' slice of the [H]
+                hl = cfg.num_heads // tp.world
+                self.alibi = self.alibi[tp.rank * hl:(tp.rank + 1) * hl]
         self.rope_inv_freq = None
         if cfg.rope_inv_freq is not None:
             self.rope_inv_freq = torch.tensor(
@@ -964,7 +1044,8 @@ class Transformer(nn.Module):
         embedding table, whose int8 form applies its row scale to the
         vocabulary columns (under tp: the rank's vocabulary columns,
         gathered); then, in the compute dtype as the reference's
-        ``_head_post``, ``logit_scale`` and ``logit_softcap``; f32 out."""
+        ``_head_post``, ``logit_scale`` and ``logit_softcap``, after the
+        gather, so every rank holds the same logits; f32 out."""
         if self.final_norm is not None:
             x = self.final_norm(x)
         if self.project_out is not None:
@@ -976,14 +1057,15 @@ class Transformer(nn.Module):
             logits = logits * self.embed.rscale.to(x.dtype)
         else:
             logits = torch.matmul(x, self.embed.tokens.to(x.dtype).t())
+        if self.tp is not None:
+            logits = self.tp.gather(logits)
         cfg = self.cfg
         if cfg.logit_scale is not None:
             logits = logits * _dtype_scalar(cfg.logit_scale, logits.dtype)
         if cfg.logit_softcap is not None:
             cap = _dtype_scalar(cfg.logit_softcap, logits.dtype)
             logits = torch.tanh(logits / cap) * cap
-        logits = logits.float()
-        return logits if self.tp is None else self.tp.gather(logits)
+        return logits.float()
 
     def _cos_sin(self, positions):
         """The rows every rotating layer's RoPE shares, over the rotated
@@ -1088,7 +1170,8 @@ class Transformer(nn.Module):
         pos = context_lens.long()[:, None]
         x = self.embed(tokens[:, None], pos)
         cos_sin = self._cos_sin(pos)
-        fused = (fused_decode.eligible(self.cfg, paged.quantized)
+        fused = (fused_decode.eligible(self.cfg, paged.quantized,
+                                       self.tp.world if self.tp else 1)
                  and lora is None)
         fused_rope = (fused_decode.rope_rows(cos_sin)
                       if fused and cos_sin is not None else None)

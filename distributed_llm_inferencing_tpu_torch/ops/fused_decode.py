@@ -82,12 +82,14 @@ def enabled() -> bool:
     return os.environ.get("DLI_FUSED_DECODE", "0") not in ("0", "false", "")
 
 
-def eligible(cfg, quantized_cache: bool) -> bool:
+def eligible(cfg, quantized_cache: bool, tp: int = 1) -> bool:
     """The one routing predicate of the serving decode step
-    (models/transformer.py ``Transformer.paged_decode_step``). The port
-    runs on one GPU, so the JAX gate's single-device clause always
-    holds."""
-    return enabled() and not quantized_cache and supported(cfg)
+    (models/transformer.py ``Transformer.paged_decode_step``). False
+    under tp (``tp`` > 1), as the JAX gate's single-device clause
+    (``jax.device_count() == 1``) is on any multi-device run: a tp rank's
+    batched decode takes ``paged_flash_decode``."""
+    return (tp == 1 and enabled() and not quantized_cache
+            and supported(cfg))
 
 
 def supported(cfg, q_leaf=None) -> bool:

@@ -56,16 +56,21 @@ class Norm(nn.Module):
                     self.norm_type, self.eps)
 
 
-def qk_normalize(t, scale, kind: str, eps: float):
+def qk_normalize(t, scale, kind: str, eps: float, ms=None):
     """``ModelConfig.qk_norm`` on a projected q or k [B,s,H,hd]:
     "rms_head" RMS-normalizes each head over hd with one shared [hd]
     scale (qwen3); "ln_head" is a bias-free LayerNorm per head with
     distinct per-head scales, stored flat [H*hd] (cohere); "rms_full"
-    RMS-normalizes the flattened [H*hd] projection (olmo2)."""
+    RMS-normalizes the flattened [H*hd] projection (olmo2), over the
+    mean square ``ms`` [B,s,1] f32 when given (a tp rank's heads are a
+    slice of the projection: the mean spans every rank's)."""
     B, s, H, hd = t.shape
     if kind == "rms_full":
-        return rms_norm(t.reshape(B, s, H * hd), scale,
-                        eps).reshape(B, s, H, hd)
+        if ms is None:
+            return rms_norm(t.reshape(B, s, H * hd), scale,
+                            eps).reshape(B, s, H, hd)
+        y = t.reshape(B, s, H * hd).float() * (1.0 / torch.sqrt(ms + eps))
+        return (y * scale.float()).to(t.dtype).reshape(B, s, H, hd)
     if kind == "ln_head":
         return layer_norm(t, scale.reshape(H, hd),
                           torch.zeros((), dtype=t.dtype, device=t.device),

@@ -9,17 +9,18 @@ its shard of the weights on its own device (utils/device.py
 (models/transformer.py).
 
 - ``MeshSpec`` / ``validate_spec``: the JAX package's spec and its shape
-  checks. This slice serves tensor parallelism only: dp, pp, sp or ep
-  above 1 raise ``NotImplementedError``, and so does tp above the kv
-  head count (the JAX package replicates kv heads there).
+  checks. The port serves tensor parallelism only: dp, pp, sp or ep
+  above 1 raise ``NotImplementedError``; tp above the kv head count
+  replicates the kv heads, as the JAX package does.
 - ``TPGroup``: one rank's view of a tp group of processes on one host,
   created or joined through a file store at ``store_path``. Two
   process groups: ``control`` (gloo, on the CPU) carries the lockstep
   executor's ops (runtime/lockstep.py); ``data`` carries the model's
   tensors, over the backend ``data_backend`` picks from the layout.
   Every data collective is counted in ``counts``: ``all_reduce`` (the
-  embedding's, o's and down's sums), ``gather`` (the head's logits) and
-  ``broadcast`` (the leader's sampled tokens).
+  embedding's, o's and down's sums, and "rms_full" q/k norms' mean
+  squares), ``gather`` (the head's logits) and ``broadcast`` (the
+  engine leader's sampled tokens).
 
 A collective that fails raises; nothing retries or falls back to one
 rank.
@@ -70,34 +71,41 @@ class MeshSpec:
 
 
 def validate_spec(spec: MeshSpec, cfg) -> None:
-    """The JAX package's tp shape checks, plus what this slice does not
-    serve yet; raises before any weight is drawn."""
+    """The JAX package's tp shape checks, plus what the port does not
+    serve under tp yet; raises before any weight is drawn.
+
+    As the JAX package: tp divides the heads and the intermediate width;
+    it divides the kv heads or exceeds them (the kv heads then replicate,
+    parallel/sharding.py ``kv_map``). The port's own: tp divides the
+    vocabulary (the embedding and the head split it), and an int4
+    row-parallel leaf's din splits into tp split-half chunks. Refused by
+    name (``tp_gaps``): the experts, latent attention, ``qkv_clip`` and
+    sinks (ROADMAP Queue A item 9.8); and any axis but tp above 1 (items
+    9.4, 9.7, 9.8)."""
     later = [f"{a}={n}" for a, n in spec.axis_sizes().items()
              if a != "tp" and n > 1]
     if later:
         raise NotImplementedError(
             f"mesh {', '.join(later)}: only tensor parallelism is ported; "
-            "dp, pp, sp and ep come in a later slice (ROADMAP A12)")
+            "pp, sp, dp and ep are later slices (ROADMAP Queue A items "
+            "9.4, 9.7, 9.8)")
     tp = spec.tp
     if tp == 1:
         return
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
-        llama_arm_gaps)
-    gaps = llama_arm_gaps(cfg)
+        tp_gaps)
+    gaps = tp_gaps(cfg)
     if gaps:
         raise NotImplementedError(
-            f"tp={tp} for the {cfg.family} family ({', '.join(gaps)}) is a "
-            "later slice of the port (ROADMAP A12): parallel/sharding.py "
-            "shards the llama arm's leaves only; load it without a mesh")
+            f"tp={tp} with {', '.join(gaps)} is a later slice of the port "
+            "(ROADMAP Queue A item 9.8: the experts, latent attention, "
+            "qkv_clip and sinks under tp); load it without a mesh")
     if cfg.num_heads % tp:
         raise ValueError(f"tp={tp} must divide num_heads={cfg.num_heads}")
-    if tp > cfg.num_kv_heads:
-        raise NotImplementedError(
-            f"tp={tp} > num_kv_heads={cfg.num_kv_heads} replicates the kv "
-            "heads in the JAX package; not ported yet (ROADMAP A12)")
-    if cfg.num_kv_heads % tp:
+    if tp <= cfg.num_kv_heads and cfg.num_kv_heads % tp:
         raise ValueError(
-            f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads}")
+            f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads} (or "
+            "exceed it, which replicates the kv heads)")
     if cfg.intermediate_size % tp:
         raise ValueError(f"tp={tp} must divide intermediate_size="
                          f"{cfg.intermediate_size}")

@@ -91,8 +91,28 @@ tokens are a pure function of (params, prompt, seed).
 Admission (the JAX package's ``_admit_jit``) runs eagerly, and so do the
 tier's restores: each writes the pool's tensors in place (``index_copy_``),
 never new tensors, because the captured decode programs hold the pool's
-addresses. Not ported yet (in ROADMAP order): the multi-host
-``program_hook``, pipeline parallelism and the phase profiler.
+addresses.
+
+Tensor parallelism (``mesh_spec``, tp > 1; the JAX batcher's mesh and
+its multi-host ``program_hook``): this batcher is the leader, rank 0,
+and runs the whole scheduler (queue, admission waves, radix cache,
+``BlockPool``, preemption, growth). Each device program it launches
+(``_device_program``: admission, the decode chunk, the speculative
+chunk) goes to the followers first with its full host inputs
+(runtime/lockstep.py ``batcher_program``); each follower is a
+``BatcherRank`` holding only its shard of the weights and of the pool
+(the kv heads its q heads read), and replays the programs in order.
+Every rank samples from the gathered logits, so every rank ends each
+program with the same tokens (``rank_stats``: programs run and an
+outputs digest per rank). The programs run eagerly (gloo collectives
+cannot be captured; ``warm_decode_programs`` does nothing), the decode
+route is ``paged_flash_decode`` (the fused kernel's gate is off under tp),
+and what the followers could not replay is off or refused: the host KV
+tier (ROADMAP Queue A item 9.12), ``kv_source`` / ``kv_export`` (9.13),
+``resume`` and ``migrate_out`` (9.14), overlapped pairs (9.15) and
+adapters (9.11). A failed program (a follower gone) fails the requests
+in flight, marks the group broken and fails every later request at once.
+Not ported yet: pipeline parallelism and the phase profiler.
 """
 
 from __future__ import annotations
@@ -104,6 +124,7 @@ import logging
 import os
 import threading
 import time
+import zlib
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -111,7 +132,6 @@ import torch
 
 from distributed_llm_inferencing_tpu_torch.models import lora as lora_mod
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
-from distributed_llm_inferencing_tpu_torch.models.params import init_params
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
     PREGATHER_MAX_BYTES, LoRARows, PagedChunkState, SpecChunkState,
     Transformer)
@@ -119,19 +139,21 @@ from distributed_llm_inferencing_tpu_torch.ops import fused_decode
 from distributed_llm_inferencing_tpu_torch.ops import kvblock_quant as kvq
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
     init_paged_cache)
-from distributed_llm_inferencing_tpu_torch.ops.quant import (
-    maybe_quantize, maybe_quantize_embed)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import (
     SamplingParams, sample_batch)
 from distributed_llm_inferencing_tpu_torch.ops.speculative import (
     AdaptiveSpecController)
-from distributed_llm_inferencing_tpu_torch.runtime import graphs
+from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
+    MeshSpec, TPGroup, validate_spec)
+from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
+    local_heads)
+from distributed_llm_inferencing_tpu_torch.runtime import graphs, lockstep
 from distributed_llm_inferencing_tpu_torch.runtime import kvtier as kvtier_mod
 from distributed_llm_inferencing_tpu_torch.runtime import kvwire
 from distributed_llm_inferencing_tpu_torch.runtime.block_pool import (
     BlockPool)
 from distributed_llm_inferencing_tpu_torch.runtime.engine import (
-    InferenceEngine)
+    InferenceEngine, rank_params)
 from distributed_llm_inferencing_tpu_torch.utils.device import resolve_device
 from distributed_llm_inferencing_tpu_torch.utils.metrics import (
     KV_TIER_COUNTERS, Metrics)
@@ -230,17 +252,261 @@ class BatchRequest:
         return (self.first_token_at - self.submitted_at) * 1e3
 
 
-class ContinuousBatcher:
-    """Slot-based continuous batching scheduler on one device.
+class BatcherRank:
+    """One rank's device side of a batched model: its model (under tp its
+    shard of the weights, parallel/sharding.py), its pool of
+    ``num_blocks`` blocks (under tp its shard: the kv heads its q heads
+    read), and the device programs over them — admission
+    (``_run_admit``), the decode chunk (``_run_decode``) and the
+    speculative chunk (``_run_spec_decode``), run through
+    ``_run_program``, which keeps a count and a digest of every
+    program's outputs. ``ContinuousBatcher`` is rank 0 and adds the
+    scheduler; a tp follower (runtime/lockstep.py) is a bare
+    ``BatcherRank`` that holds no pool bookkeeping and ``replay``s the
+    leader's programs in order. Every rank samples from the gathered
+    logits, the same bits on every rank, so every rank ends each program
+    with the same tokens; the digest shows it (``_stats``)."""
+
+    DECODE_CHUNKS = InferenceEngine.DECODE_CHUNKS
+    _PROGRAMS = {"admit": "_run_admit", "decode": "_run_decode",
+                 "spec": "_run_spec_decode"}
+
+    def __init__(self, cfg: ModelConfig, params=None, *, spec: MeshSpec,
+                 num_blocks: int, block_size: int, slots: int, max_seq: int,
+                 seed: int = 0, dummy: int = 0, device=None, loader=None,
+                 group: Optional[TPGroup] = None):
+        self.cfg = cfg
+        self.metrics = Metrics()
+        self._init_rank(params, spec=spec, num_blocks=num_blocks,
+                        block_size=block_size, slots=slots, max_seq=max_seq,
+                        seed=seed, dummy=dummy, device=device, loader=loader,
+                        group=group)
+        self._hist = None
+
+    def _init_rank(self, params, *, spec: MeshSpec, num_blocks: int,
+                   block_size: int, slots: int, max_seq: int, seed: int,
+                   dummy: int, device, loader, group: Optional[TPGroup]):
+        """The rank's weights (runtime/engine.py ``rank_params``), model,
+        pool and program tables; ``dummy``: the reserved block every
+        inactive table entry points at."""
+        cfg = self.cfg
+        self.group = group
+        self.tp = spec.tp
+        self.device = dev = (group.device if group is not None
+                             else resolve_device(device))
+        self.block_size, self.slots, self.max_seq = block_size, slots, max_seq
+        self.max_blocks = -(-max_seq // block_size)
+        self.kv_heads = local_heads(cfg, spec)[1]
+        self.params = rank_params(cfg, spec, group.rank if group else 0, dev,
+                                  params, seed, loader)
+        self.model = Transformer(cfg, self.params, group)
+        self._dummy = dummy
+        self.paged = init_paged_cache(cfg, num_blocks, block_size,
+                                      device=dev, num_kv_heads=self.kv_heads)
+        # gloo collectives cannot be captured: under tp every program
+        # runs eagerly
+        self._capture = graphs.enabled(dev) and group is None
+        # the decode chunk's static buffers (made at the first chunk) and
+        # the decode programs over them, by (route, captured)
+        self._bufs: Optional[_ChunkBuffers] = None
+        self.programs = graphs.DecodePrograms(dev, self.metrics)
+        self._programs: dict = {}
+        # the speculative chunk's static buffers and program per gamma
+        self._spec_progs: Dict[int, tuple] = {}
+        self._programs_run = 0
+        self._outputs_digest = 0
+
+    def _run_program(self, kind: str, a: dict):
+        """Device program ``kind`` on host inputs ``a``; its host outputs
+        go into the rank's digest."""
+        out = getattr(self, self._PROGRAMS[kind])(a)
+        self._programs_run += 1
+        for part in (out if isinstance(out, tuple) else (out,)):
+            self._outputs_digest = zlib.crc32(
+                np.ascontiguousarray(part).tobytes(), self._outputs_digest)
+        return out
+
+    def replay(self, kind: str, a: dict):
+        """A follower's run of the leader's program ``kind``: the decode
+        chunk sizes and a speculative chunk's history ride in ``a``."""
+        self.DECODE_CHUNKS = a.pop("chunks")
+        if kind == "spec":
+            self._hist = a.pop("hist")
+        self._run_program(kind, a)
+
+    def _stats(self, pool_blocks: Optional[List[int]] = None) -> dict:
+        """The rank's launches and collectives, its programs run and
+        their outputs' digest (equal on every rank), and with
+        ``pool_blocks`` those blocks of its pool shard on the host
+        (``PagedKVCache.leaves``)."""
+        out = dict(lockstep.rank_stats(self.group, self.device),
+                   programs_run=self._programs_run,
+                   outputs_digest=self._outputs_digest)
+        if pool_blocks is not None:
+            ix = torch.as_tensor(pool_blocks, device=self.device)
+            out["pool"] = [t[:, ix].cpu() for t in self.paged.leaves()]
+        return out
+
+    def _reset_counts(self):
+        lockstep.reset_counts(self.group)
+
+    def release_programs(self):
+        self.programs.release()
+        self._programs.clear()
+        self._spec_progs.clear()
+        self._bufs = None
+
+    def _tensor(self, a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _run_admit(self, a: dict) -> List[int]:
+        """One admission wave: batched tail prefill + first-token
+        sampling; with ``a["aids"]`` (a wave with adapter rows) each row
+        gathers its slot of the pack. Returns first tokens [B] (one host
+        sync)."""
+        t = self._tensor
+        lora = (LoRARows(self._lora_pack, t(a["aids"], torch.int64))
+                if "aids" in a else None)
+        last, self.paged = self.model.paged_prefill_tail(
+            t(a["toks"], torch.int64), t(a["tail_len"]), t(a["tail_alloc"]),
+            t(a["pfb"]), t(a["cached"]), self.paged, lora)
+        first = sample_batch(last, t(a["seeds"]), t(a["steps"]),
+                             t(a["temps"], torch.float32), t(a["tks"]),
+                             t(a["tps"], torch.float32),
+                             t(a["ds"], torch.bool))
+        return first.tolist()
+
+    def _decode_program(self, use_lora: bool = False
+                        ) -> graphs.DecodeProgram:
+        """The decode program of this batcher's rows and table width (both
+        fixed) on the current decode route (``fused_decode.eligible``, so
+        a route change never replays the other route's graph), and with
+        ``use_lora`` its variant that adds each slot's adapter delta
+        (never fused): captured on a card unless ``DLI_CUDA_GRAPHS=0``,
+        eager on the CPU and under tp."""
+        if self._bufs is None:
+            side = None
+            if self.paged.quantized:   # the int8 chunk's side buffers
+                side = (self.cfg.num_layers, self.slots,
+                        max(self.DECODE_CHUNKS), self.kv_heads,
+                        self.cfg.head_dim, self.model.dtype)
+            self._bufs = _ChunkBuffers(self.slots, self.max_blocks,
+                                       max(self.DECODE_CHUNKS), self.device,
+                                       side)
+        key = (fused_decode.eligible(self.cfg, self.paged.quantized,
+                                     self.tp) and not use_lora,
+               use_lora, self._capture)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = self.programs.make(
+                functools.partial(self.model.paged_chunk_step,
+                                  self._bufs.state, self.paged, self._dummy,
+                                  self._lora_rows(self._bufs.state.aids,
+                                                  use_lora)),
+                key[2])
+        return prog
+
+    def _lora_rows(self, ids, use_lora: bool) -> Optional[LoRARows]:
+        return LoRARows(self._lora_pack, ids) if use_lora else None
+
+    def _launch_decode(self, a: dict, cont: bool = False):
+        """Queue one K-token decode chunk: the inputs into the static
+        buffers (``cont``: the second chunk of an overlapped pair, whose
+        state continues from the first's on the device, with no host
+        input), the decode program K times. Returns its (toks, emits)
+        [2, K, R] on the device, a copy the next chunk cannot overwrite;
+        nothing syncs."""
+        k = int(a["k"])
+        step = self._decode_program(bool(np.any(a["aids"])))
+        if cont:
+            self._bufs.advance()
+        else:
+            self._bufs.load(a)
+        for _ in range(k):
+            step()
+        s = self._bufs.state
+        if self.paged.quantized:
+            self.model.paged_chunk_flush(s, self.paged, self._dummy, k)
+        return torch.stack([s.toks[:k], s.emits[:k].to(s.toks.dtype)])
+
+    def _run_decode(self, a: dict):
+        """One K-token decode chunk. Returns (toks [K,R], emits [K,R]) as
+        host arrays (one host sync)."""
+        both = self._launch_decode(a).cpu().numpy()
+        return both[0], both[1].astype(bool)
+
+    def _spec_program(self, gamma: int, use_lora: bool = False):
+        """(buffers, program) of the speculative chunk at static width
+        ``gamma`` over this batcher's rows and table width (``use_lora``:
+        its variant with the slots' adapter deltas): the iteration
+        ``Transformer.paged_spec_step`` captured on a card unless
+        ``DLI_CUDA_GRAPHS=0``, eager on the CPU and under tp; the chunk
+        replays it K
+        times (its buffers hold K up to the largest decode chunk)."""
+        capture = self._capture
+        ent = self._spec_progs.get((gamma, use_lora, capture))
+        if ent is None:
+            # the base and lora variants share one set of buffers
+            bufs = next((b for (g, _, c), (b, _) in self._spec_progs.items()
+                         if g == gamma and c == capture), None)
+            cfg = self.cfg
+            kmax = -(-max(self.DECODE_CHUNKS) // (gamma + 1))
+            row_bytes = (2 * self.model.dtype.itemsize * cfg.num_layers
+                         * self.max_blocks * self.block_size
+                         * self.kv_heads * cfg.head_dim)
+            bufs = bufs or _SpecBuffers(
+                self.slots, self.max_blocks, self.max_seq + 1, kmax, gamma,
+                cfg, self.kv_heads, self.model.dtype, self.device,
+                pool_tokens=(self.max_blocks * self.block_size
+                             if self.slots * row_bytes
+                             <= PREGATHER_MAX_BYTES else 0))
+            prog = self.programs.make(
+                functools.partial(self.model.paged_spec_step, bufs.state,
+                                  self.paged, gamma,
+                                  self._lora_rows(bufs.state.aids,
+                                                  use_lora)), capture)
+            ent = self._spec_progs[gamma, use_lora, capture] = (bufs, prog)
+        return ent
+
+    def _run_spec_decode(self, a: dict):
+        """One speculative chunk of ``a["k"]`` verify iterations at static
+        width ``a["gamma"]`` (per-slot widths ``a["gammas"]``): inputs
+        and the history into the static buffers, the pool gathered once
+        when it fits, the program K times, the kept side entries flushed
+        into the pool. Returns (toks [K,R,G+1], keeps [K,R], eos_seen
+        [K,R]) as host arrays (one host sync)."""
+        k, g = int(a["k"]), int(a["gamma"])
+        bufs, prog = self._spec_program(g, bool(np.any(a["aids"])))
+        bufs.load(a, self._hist)
+        st = bufs.state
+        if st.pool_k is not None:
+            self.model.paged_spec_gather(st, self.paged)
+        for _ in range(k):
+            prog()
+        self.model.paged_spec_flush(st, self.paged, self._dummy)
+        r = self.slots
+        out = torch.cat([st.toks[:k].reshape(-1), st.keeps[:k].reshape(-1),
+                         st.eos_out[:k].reshape(-1).long()]).cpu().numpy()
+        n = k * r * (g + 1)
+        return (out[:n].reshape(k, r, g + 1),
+                out[n:n + k * r].reshape(k, r),
+                out[n + k * r:].reshape(k, r).astype(bool))
+
+
+
+class ContinuousBatcher(BatcherRank):
+    """Slot-based continuous batching scheduler on one device, or the
+    leader of a tp group (``mesh_spec``) whose followers replay its
+    device programs (``BatcherRank``).
 
     Drive it with the owned background thread (``start()``/``stop()``) or
     synchronously through ``step()`` (tests, custom loops).
     """
 
-    # Decode-chunk sizes (tokens per dispatched chunk), tried in order:
-    # the engine's schedule. Each step picks the largest chunk some active
-    # slot can fill; budget/eos masks handle slots that finish mid-chunk.
-    DECODE_CHUNKS = InferenceEngine.DECODE_CHUNKS
+    # Decode-chunk sizes (DECODE_CHUNKS, tokens per dispatched chunk) are
+    # tried in order: the engine's schedule. Each step picks the largest
+    # chunk some active slot can fill; budget/eos masks handle slots that
+    # finish mid-chunk.
     # Blocks per staged copy between the pool and the host tier (per leaf:
     # 64 MB at llama-3-8b's bf16 blocks of 16 tokens)
     STAGE_BLOCKS = 32
@@ -263,12 +529,23 @@ class ContinuousBatcher:
                  speculative: Optional[str] = None, spec_gamma: int = 4,
                  spec_adaptive: Optional[bool] = None,
                  spec_wave: Optional[bool] = None,
-                 decode_overlap: Optional[bool] = None):
+                 decode_overlap: Optional[bool] = None,
+                 mesh_spec: Optional[MeshSpec] = None,
+                 loader: Optional[Callable] = None):
+        """``mesh_spec`` (tp) and ``loader`` (each rank reads a checkpoint
+        and keeps its cut) as the engine's."""
         self.metrics = metrics or Metrics()
         self.device = resolve_device(device)
         # the paged pool holds latent attention materialized, per head,
         # as the JAX batcher pins it (the latent layout is the engine's)
         self.cfg = cfg = cfg.replace(mla_latent_cache=False)
+        self.mesh_spec = spec = mesh_spec or MeshSpec()
+        validate_spec(spec, cfg)
+        if spec.tp > 1 and kv_host_mb:
+            raise ValueError(
+                f"the host KV tier under tp (kv_host_mb={kv_host_mb}) is a "
+                "later slice of the port (ROADMAP Queue A item 9.12); load "
+                "with kv_host_mb 0 or without a mesh")
         self.block_size = block_size
         self.slots = slots
         self.max_seq = min(max_seq or cfg.max_position_embeddings,
@@ -290,30 +567,49 @@ class ContinuousBatcher:
         self.metrics.gauge("decode_tokens_per_weight_pass", 0.0)
         self.metrics.gauge("batcher_queue_depth", 0.0)
         self.metrics.inc("batcher_requests_migrated", 0)
+        # overlapped pairs continue a chunk on the device with no program
+        # boundary a follower could replay: off under tp (the JAX hook's
+        # rule; ROADMAP Queue A item 9.15)
         self._init_speculation(speculative, spec_gamma, spec_adaptive,
-                               spec_wave, decode_overlap)
-
-        dev = self.device
-        if params is None:
-            params = init_params(
-                cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-        else:   # as the engine: quantize a float tree on the device
-            params = maybe_quantize_embed(maybe_quantize(
-                {k: t.to(dev) for k, t in params.items()}, cfg), cfg)
-        self.params = params
-        self.model = Transformer(cfg, params)
+                               spec_wave,
+                               False if spec.tp > 1 else decode_overlap)
 
         # +1: block 0 is the reserved dummy every inactive table entry
         # points at, so it never carries real KV
         self.pool = BlockPool(num_blocks + 1, block_size)
-        [self._dummy] = self.pool.alloc(1)
+        [dummy] = self.pool.alloc(1)
         self.metrics.gauge("batcher_free_kv_blocks", self.pool.free_count())
-        self.paged = init_paged_cache(cfg, num_blocks + 1, block_size,
-                                      device=dev)
+        # the weights (a float tree quantized on the device, as the
+        # engine's), the pool and the programs: here, and under tp on
+        # every follower (``batcher_load``)
+        rank = dict(spec=spec, num_blocks=num_blocks + 1,
+                    block_size=block_size, slots=slots,
+                    max_seq=self.max_seq, seed=seed, dummy=dummy,
+                    loader=loader)
+        self._leader = None
+        if spec.tp > 1:
+            self._leader = lockstep.leader(spec.tp, self.device)
+            cpu = (None if params is None
+                   else {k: t.cpu() for k, t in params.items()})
+            try:
+                self._leader.run(
+                    "batcher_load", dict(rank, cfg=cfg, params=cpu,
+                                         device=str(self.device)),
+                    lambda: self._init_rank(params, device=self.device,
+                                            group=self._leader.group,
+                                            **rank))
+            except BaseException:
+                self._leader.stop("batcher_stop")
+                raise
+        else:
+            self._init_rank(params, device=self.device, group=None, **rank)
         self.block_tables = np.full((slots, self.max_blocks), self._dummy,
                                     np.int32)
         self.context_lens = np.zeros((slots,), np.int32)
-        self._init_kvtier(kv_host_mb, kv_digest_chunk, kv_fetcher)
+        # no host tier under tp (its restores would write one rank's pool
+        # alone; ROADMAP Queue A item 9.12)
+        self._init_kvtier(0 if spec.tp > 1 else kv_host_mb, kv_digest_chunk,
+                          kv_fetcher)
         self._init_lora()
         self.active: List[Optional[BatchRequest]] = [None] * slots
         self._admit_order: collections.deque = collections.deque()
@@ -323,16 +619,12 @@ class ContinuousBatcher:
         self._work = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # why the scheduler loop stopped on an error: later requests fail
+        # at once instead of waiting on a loop that is gone
+        self._error: Optional[str] = None
         self._step_count = 0
         self._tokens_out = 0
         self._chunk_sizes: set = set()
-        # the decode chunk's static buffers (made at the first chunk) and
-        # the decode programs over them, by (route, captured)
-        self._bufs: Optional[_ChunkBuffers] = None
-        self.programs = graphs.DecodePrograms(dev, self.metrics)
-        self._programs: dict = {}
-        # the speculative chunk's static buffers and program per gamma
-        self._spec_progs: Dict[int, tuple] = {}
 
     def _init_speculation(self, speculative, spec_gamma, spec_adaptive,
                           spec_wave, decode_overlap):
@@ -494,6 +786,14 @@ class ContinuousBatcher:
         and its speculation controller's state."""
         if not prompt:
             raise ValueError("empty prompt")
+        if self.group is not None:
+            for f, v, item in (("kv_source", kv_source, "9.13"),
+                               ("kv_export", kv_export, "9.13"),
+                               ("resume", resume, "9.14")):
+                if v:
+                    raise ValueError(
+                        f"{f} under tp is a later slice of the port "
+                        f"(ROADMAP Queue A item {item})")
         if int(max_new_tokens) < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if not isinstance(resume, dict):
@@ -577,6 +877,10 @@ class ContinuousBatcher:
         reqs = list(reqs)
         if not reqs:
             return []
+        if self._error is not None:   # the loop is gone: fail, not hang
+            for req in reqs:
+                self._fail_req(req, f"scheduler error: {self._error}")
+            return reqs
         with self._lock:
             self.queue.extend(reqs)
             depth = len(self.queue)
@@ -616,13 +920,30 @@ class ContinuousBatcher:
             self.queue.clear()
         for req in drained:
             self._fail_req(req, "scheduler stopped")
-        self.programs.release()
-        self._programs.clear()
-        self._spec_progs.clear()
-        self._bufs = None
+        self.release_programs()
+        if self._leader is not None:
+            self._leader.stop("batcher_stop")   # and join the followers
+
+    def rank_stats(self, pool_blocks: Optional[Sequence[int]] = None
+                   ) -> List[dict]:
+        """Every rank's launches, collectives, programs run and outputs
+        digest, and with ``pool_blocks`` its shard of those pool blocks
+        (``_stats``), the leader's first (one entry without tp)."""
+        kw = {} if pool_blocks is None else {"pool_blocks": list(pool_blocks)}
+        if self._leader is None:
+            return [self._stats(**kw)]
+        return self._leader.run("batcher_stats", kw,
+                                lambda: self._stats(**kw))
+
+    def reset_counts(self):
+        """Zero the kernel launch and collective counts on every rank."""
+        if self._leader is None:
+            self._reset_counts()
+        else:
+            self._leader.run("reset_counts", {}, self._reset_counts)
 
     def stats(self) -> dict:
-        return {
+        out = {
             "slots": self.slots,
             "device": str(self.device),
             "active": sum(a is not None for a in self.active),
@@ -650,8 +971,14 @@ class ContinuousBatcher:
                                if self.kvtier is not None else None),
             # the resident adapters the master's affinity routing reads
             "adapters": self.lora_stats(),
+            "mesh": self.mesh_spec.axis_sizes(),
             **self.programs.stats(),
         }
+        if self.group is not None:
+            # this rank's share; every rank holds the same amount
+            out["backend"] = self.group.backend
+            out["ranks"] = self.group.world
+        return out
 
     def _spec_wave_stats(self) -> Optional[dict]:
         """Wave mode's view over the ACTIVE requests' controllers: the
@@ -677,7 +1004,12 @@ class ContinuousBatcher:
         /load_adapter``); its device slot is bound at the first admission
         that needs it. Idempotent for a resident name. Returns ``{name,
         rank, nbytes, evicted}``; ValueError on any problem (a bad
-        source, a shape mismatch, a store full of pinned adapters)."""
+        source, a shape mismatch, a store full of pinned adapters; under
+        tp, ROADMAP Queue A item 9.11)."""
+        if self.group is not None:
+            raise ValueError(
+                "LoRA adapters under tp are not ported yet (ROADMAP Queue A "
+                "item 9.11); load the model without a mesh")
         lora_mod.validate_base_model(self.cfg)
         with self._lora_lock:
             ad = self._lora_store.get(name)
@@ -820,139 +1152,20 @@ class ContinuousBatcher:
 
     # ---- device programs ----------------------------------------------
 
-    def _tensor(self, a, dtype=torch.int32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
-
-    def _run_admit(self, a: dict) -> List[int]:
-        """One admission wave: batched tail prefill + first-token
-        sampling; with ``a["aids"]`` (a wave with adapter rows) each row
-        gathers its slot of the pack. Returns first tokens [B] (one host
-        sync)."""
-        t = self._tensor
-        lora = (LoRARows(self._lora_pack, t(a["aids"], torch.int64))
-                if "aids" in a else None)
-        last, self.paged = self.model.paged_prefill_tail(
-            t(a["toks"], torch.int64), t(a["tail_len"]), t(a["tail_alloc"]),
-            t(a["pfb"]), t(a["cached"]), self.paged, lora)
-        first = sample_batch(last, t(a["seeds"]), t(a["steps"]),
-                             t(a["temps"], torch.float32), t(a["tks"]),
-                             t(a["tps"], torch.float32),
-                             t(a["ds"], torch.bool))
-        return first.tolist()
-
-    def _decode_program(self, use_lora: bool = False
-                        ) -> graphs.DecodeProgram:
-        """The decode program of this batcher's rows and table width (both
-        fixed) on the current decode route (``fused_decode.eligible``, so
-        a route change never replays the other route's graph), and with
-        ``use_lora`` its variant that adds each slot's adapter delta
-        (never fused): captured on a card unless ``DLI_CUDA_GRAPHS=0``,
-        eager on the CPU."""
-        if self._bufs is None:
-            side = None
-            if self.paged.quantized:   # the int8 chunk's side buffers
-                side = (self.cfg.num_layers, self.slots,
-                        max(self.DECODE_CHUNKS), self.cfg.num_kv_heads,
-                        self.cfg.head_dim, self.model.dtype)
-            self._bufs = _ChunkBuffers(self.slots, self.max_blocks,
-                                       max(self.DECODE_CHUNKS), self.device,
-                                       side)
-        key = (fused_decode.eligible(self.cfg, self.paged.quantized)
-               and not use_lora, use_lora, graphs.enabled(self.device))
-        prog = self._programs.get(key)
-        if prog is None:
-            prog = self._programs[key] = self.programs.make(
-                functools.partial(self.model.paged_chunk_step,
-                                  self._bufs.state, self.paged, self._dummy,
-                                  self._lora_rows(self._bufs.state.aids,
-                                                  use_lora)),
-                key[2])
-        return prog
-
-    def _lora_rows(self, ids, use_lora: bool) -> Optional[LoRARows]:
-        return LoRARows(self._lora_pack, ids) if use_lora else None
-
-    def _launch_decode(self, a: dict, cont: bool = False):
-        """Queue one K-token decode chunk: the inputs into the static
-        buffers (``cont``: the second chunk of an overlapped pair, whose
-        state continues from the first's on the device, with no host
-        input), the decode program K times. Returns its (toks, emits)
-        [2, K, R] on the device, a copy the next chunk cannot overwrite;
-        nothing syncs."""
-        k = int(a["k"])
-        step = self._decode_program(bool(np.any(a["aids"])))
-        if cont:
-            self._bufs.advance()
-        else:
-            self._bufs.load(a)
-        for _ in range(k):
-            step()
-        s = self._bufs.state
-        if self.paged.quantized:
-            self.model.paged_chunk_flush(s, self.paged, self._dummy, k)
-        return torch.stack([s.toks[:k], s.emits[:k].to(s.toks.dtype)])
-
-    def _run_decode(self, a: dict):
-        """One K-token decode chunk. Returns (toks [K,R], emits [K,R]) as
-        host arrays (one host sync)."""
-        both = self._launch_decode(a).cpu().numpy()
-        return both[0], both[1].astype(bool)
-
-    def _spec_program(self, gamma: int, use_lora: bool = False):
-        """(buffers, program) of the speculative chunk at static width
-        ``gamma`` over this batcher's rows and table width (``use_lora``:
-        its variant with the slots' adapter deltas): the iteration
-        ``Transformer.paged_spec_step`` captured on a card unless
-        ``DLI_CUDA_GRAPHS=0``, eager on the CPU; the chunk replays it K
-        times (its buffers hold K up to the largest decode chunk)."""
-        capture = graphs.enabled(self.device)
-        ent = self._spec_progs.get((gamma, use_lora, capture))
-        if ent is None:
-            # the base and lora variants share one set of buffers
-            bufs = next((b for (g, _, c), (b, _) in self._spec_progs.items()
-                         if g == gamma and c == capture), None)
-            cfg = self.cfg
-            kmax = -(-max(self.DECODE_CHUNKS) // (gamma + 1))
-            row_bytes = (2 * self.model.dtype.itemsize * cfg.num_layers
-                         * self.max_blocks * self.block_size
-                         * cfg.num_kv_heads * cfg.head_dim)
-            bufs = bufs or _SpecBuffers(
-                self.slots, self.max_blocks, self.max_seq + 1, kmax, gamma,
-                cfg, self.model.dtype, self.device,
-                pool_tokens=(self.max_blocks * self.block_size
-                             if self.slots * row_bytes
-                             <= PREGATHER_MAX_BYTES else 0))
-            prog = self.programs.make(
-                functools.partial(self.model.paged_spec_step, bufs.state,
-                                  self.paged, gamma,
-                                  self._lora_rows(bufs.state.aids,
-                                                  use_lora)), capture)
-            ent = self._spec_progs[gamma, use_lora, capture] = (bufs, prog)
-        return ent
-
-    def _run_spec_decode(self, a: dict):
-        """One speculative chunk of ``a["k"]`` verify iterations at static
-        width ``a["gamma"]`` (per-slot widths ``a["gammas"]``): inputs
-        and the history into the static buffers, the pool gathered once
-        when it fits, the program K times, the kept side entries flushed
-        into the pool. Returns (toks [K,R,G+1], keeps [K,R], eos_seen
-        [K,R]) as host arrays (one host sync)."""
-        k, g = int(a["k"]), int(a["gamma"])
-        bufs, prog = self._spec_program(g, bool(np.any(a["aids"])))
-        bufs.load(a, self._hist)
-        st = bufs.state
-        if st.pool_k is not None:
-            self.model.paged_spec_gather(st, self.paged)
-        for _ in range(k):
-            prog()
-        self.model.paged_spec_flush(st, self.paged, self._dummy)
-        r = self.slots
-        out = torch.cat([st.toks[:k].reshape(-1), st.keeps[:k].reshape(-1),
-                         st.eos_out[:k].reshape(-1).long()]).cpu().numpy()
-        n = k * r * (g + 1)
-        return (out[:n].reshape(k, r, g + 1),
-                out[n:n + k * r].reshape(k, r),
-                out[n + k * r:].reshape(k, r).astype(bool))
+    def _device_program(self, kind: str, a: dict):
+        """Run device program ``kind`` ("admit", "decode" or "spec") on
+        host inputs ``a`` here and, under tp, on every follower first (the
+        JAX batcher's ``program_hook``): the followers get the full
+        inputs, the decode chunk sizes their buffers must hold, and for a
+        speculative chunk the drafting history."""
+        if self._leader is None:
+            return self._run_program(kind, a)
+        payload = dict(a, chunks=tuple(self.DECODE_CHUNKS))
+        if kind == "spec":
+            payload["hist"] = self._hist
+        return self._leader.run(
+            "batcher_program", {"kind": kind, "a": payload},
+            lambda: self._run_program(kind, a))
 
     def _spec_gammas(self) -> List[int]:
         """The static widths a speculative chunk can take: spec_gamma, and
@@ -980,8 +1193,9 @@ class ContinuousBatcher:
         step with every slot inactive, whose writes land in the reserved
         dummy block (or in the side buffers alone) and whose outputs are
         dropped, then the capture. Returns the programs captured: 0 with
-        graphs off or already warm."""
-        if not graphs.enabled(self.device):
+        graphs off (under tp too: every program runs eagerly) or already
+        warm."""
+        if not self._capture:
             return 0
         n = 0
         step = self._decode_program()
@@ -1555,7 +1769,14 @@ class ContinuousBatcher:
         for m in members:
             if m["req"].admitted_at is None:
                 m["req"].admitted_at = w0
-        first = self._run_admit(a)
+        try:
+            first = self._device_program("admit", a)
+        except Exception as e:
+            # the wave's requests left the queue and hold no slot yet:
+            # fail them here, before the loop fails the rest
+            for m in members:
+                self._fail_req(m["req"], f"scheduler error: {e}")
+            raise
         self.metrics.observe("batcher_admit_wave", time.perf_counter() - w0)
         for j, m in enumerate(members):
             self._post_admit(m, int(first[j]))
@@ -1879,7 +2100,7 @@ class ContinuousBatcher:
         Returns tokens emitted."""
         k = int(a["k"])
         w0 = time.perf_counter()
-        toks, emits = self._run_decode(a)
+        toks, emits = self._device_program("decode", a)
         self._step_count += 1
         self._chunk_sizes.add(k)
         self.metrics.observe("batcher_decode_chunk", time.perf_counter() - w0)
@@ -2030,7 +2251,7 @@ class ContinuousBatcher:
         k_it = -(-int(a["k"]) // (gamma + 1))
         args = dict(a, k=k_it, gamma=gamma, gammas=gammas)
         w0 = time.perf_counter()
-        toks, keeps, eos_seen = self._run_spec_decode(args)
+        toks, keeps, eos_seen = self._device_program("spec", args)
         self._step_count += 1
         dt = time.perf_counter() - w0
         self.metrics.observe("batcher_decode_chunk", dt)
@@ -2185,7 +2406,12 @@ class ContinuousBatcher:
         boundary. Blocks until the request is terminal; returns the
         record, or None when it completed or failed first (the caller
         answers 409 and the result stands) or the scheduler did not get
-        to it within ``timeout``."""
+        to it within ``timeout``. ValueError under tp (ROADMAP Queue A
+        item 9.14)."""
+        if self.group is not None:
+            raise ValueError(
+                "migration under tp is a later slice of the port (ROADMAP "
+                "Queue A item 9.14)")
         req._migrate_requested = True
         self._work.set()
         if not req.done.wait(timeout):
@@ -2261,6 +2487,7 @@ class ContinuousBatcher:
             try:
                 busy = self.step()
             except Exception as e:   # fail every waiter fast, then stop
+                self._error = f"{type(e).__name__}: {e}"
                 for slot in range(self.slots):
                     if self.active[slot] is not None:
                         self.active[slot].error = f"scheduler error: {e}"
@@ -2372,7 +2599,8 @@ class _SpecBuffers:
                   "aids")
 
     def __init__(self, rows: int, mb: int, hh: int, kmax: int, gamma: int,
-                 cfg, dtype, device: torch.device, pool_tokens: int = 0):
+                 cfg, kv_heads: int, dtype, device: torch.device,
+                 pool_tokens: int = 0):
         self.rows, self.mb, self.hh = rows, mb, hh
         g1 = gamma + 1
         e = kmax * g1
@@ -2387,10 +2615,10 @@ class _SpecBuffers:
         self.floats = torch.empty(2 * rows, dtype=torch.float32,
                                   device=device)
         at = {f: rows_at + rows * i for i, f in enumerate(self.ROW_FIELDS)}
-        side = (cfg.num_layers, rows, e, cfg.num_kv_heads, cfg.head_dim)
+        side = (cfg.num_layers, rows, e, kv_heads, cfg.head_dim)
         pool = None
         if pool_tokens:
-            pool = (cfg.num_layers, rows, pool_tokens, cfg.num_kv_heads,
+            pool = (cfg.num_layers, rows, pool_tokens, kv_heads,
                     cfg.head_dim)
         self.state = SpecChunkState(
             bt=self.ints[:hist_at].view(rows, mb),

@@ -35,8 +35,10 @@ one device:
   ``SamplingParams``). Greedy tokens equal plain decode's; sampled ones
   keep its distribution, drawn per position. An adaptive controller
   (``DLI_SPEC_ADAPTIVE``, on) runs plain chunks instead while drafting
-  measurably loses. Refused under tp (ROADMAP Queue A item 6.1): the
-  tp engine runs its steps eagerly in lockstep.
+  measurably loses. Under tp the leader drafts and decides, and each
+  device step is a lockstep op (``spec_prefill``, ``spec_plain``,
+  ``spec_verify`` with its drafts); the leader's verify outcome is
+  broadcast, so every rank keeps the same tokens.
 - **LoRA adapters** (``load_adapter``, ``generate(adapter=name)``, the
   JAX engine's single-stream hook): one adapter per request. Each loaded
   adapter keeps a device pack of its own (per target ``[L, 1, din, r]``
@@ -69,10 +71,11 @@ the caller's tree cut the same way, or a checkpoint that every rank reads
 itself, keeping its cut of each tensor as it lands (``loader``), so no
 whole tree is pickled to the followers. ``generate`` and
 ``teacher_forced`` broadcast their op, then every rank runs the same
-steps; only the leader samples, and it broadcasts each token, so the
-ranks agree on every step count. A ``stream_cb`` stays on the leader:
-the followers get only the flag that puts them on the same chunked
-path. ``close`` stops the followers.
+steps; only the leader samples, and it broadcasts each token (and each
+verify step's tokens and count), so the ranks agree on every step count.
+A ``stream_cb`` stays on the leader: the followers get only the flag that
+puts them on the same chunked path. A speculative request holds the
+lockstep lock across its ops. ``close`` stops the followers.
 """
 
 from __future__ import annotations
@@ -210,10 +213,35 @@ def latent_cache(cfg: ModelConfig) -> bool:
     engine's rule): latent attention with no int8 KV cache, no window and
     no score softcap, unless ``DLI_MLA_LATENT=0`` asks for the
     materialized layout. The port runs no sp or pp mesh, and its tp
-    refuses latent attention (``llama_arm_gaps``)."""
+    refuses latent attention (``tp_gaps``)."""
     return (cfg.mla and cfg.kv_quant is None and cfg.sliding_window is None
             and cfg.attn_windows is None and cfg.attn_softcap is None
             and os.environ.get("DLI_MLA_LATENT") != "0")
+
+
+def rank_params(cfg: ModelConfig, spec: MeshSpec, rank: int, dev,
+                params=None, seed: int = 0, loader: Optional[Callable] = None):
+    """Rank ``rank``'s weights on ``dev`` (all of them at tp=1): from
+    ``loader(device, shard)`` (a checkpoint, models/checkpoint.py
+    ``CheckpointSource.load``: every rank reads the files and keeps its
+    cut), from the caller's tree, or drawn from ``seed``."""
+    cut = ((lambda n, t: shard_tensor(n, t, cfg, spec, rank))
+           if spec.tp > 1 else None)
+    if loader is not None:
+        params = loader(dev, cut)
+        params.update(chunk_markers(cfg, spec, dev))
+    elif params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(cfg, gen, dev, shard=cut)
+        params.update(chunk_markers(cfg, spec, dev))
+    else:
+        # weight-only quantization of a float tree (ops/quant.py), on
+        # the device, one weight at a time, before any cut (a scale
+        # spans the whole din); a quantized tree passes
+        params = shard_params(maybe_quantize_embed(maybe_quantize(
+            {k: t.to(dev) for k, t in params.items()}, cfg), cfg),
+            cfg, spec, rank)
+    return params
 
 
 class InferenceEngine:
@@ -246,12 +274,13 @@ class InferenceEngine:
                            cfg.max_position_embeddings)
         self.group = group
         self._leader = None
-        self._lock = threading.Lock()   # one lockstep op at a time
+        # one lockstep op, or one speculative request's ops, at a time
+        self._lock = threading.RLock()
         self.device = base = resolve_device(device)
         if group is not None:
             self.device = group.device
         if spec.tp > 1 and group is None:   # the leader: spawn the rest
-            self._leader = lockstep.Leader(spec.tp, base)
+            self._leader = lockstep.leader(spec.tp, base)
             self.device = self._leader.group.device
             self.group = self._leader.group
             cpu = (None if params is None
@@ -275,33 +304,11 @@ class InferenceEngine:
         self._adapter_packs: dict = {}
 
     def _load(self, params, seed, loader=None):
-        """Build this rank's weights and model: from ``loader(device,
-        shard)`` (a checkpoint, models/checkpoint.py ``CheckpointSource.
-        load``: every rank reads the files and keeps its cut), from the
-        caller's tree, or drawn from ``seed``."""
-        cfg, spec = self.cfg, self.mesh_spec
+        """Build this rank's weights (``rank_params``) and model."""
         rank = self.group.rank if self.group else 0
-        dev = self.device
-        if loader is not None:
-            params = loader(dev, (lambda n, t: shard_tensor(n, t, spec, rank))
-                            if spec.tp > 1 else None)
-            params.update(chunk_markers(cfg, spec, dev))
-        elif params is None:
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            params = init_params(
-                cfg, gen, dev,
-                shard=(lambda n, t: shard_tensor(n, t, spec, rank))
-                if spec.tp > 1 else None)
-            params.update(chunk_markers(cfg, spec, dev))
-        else:
-            # weight-only quantization of a float tree (ops/quant.py), on
-            # the device, one weight at a time, before any cut (a scale
-            # spans the whole din); a quantized tree passes
-            params = shard_params(maybe_quantize_embed(maybe_quantize(
-                {k: t.to(dev) for k, t in params.items()}, cfg), cfg),
-                cfg, spec, rank)
-        self.params = params
-        self.model = Transformer(cfg, params, self.group)
+        self.params = rank_params(self.cfg, self.mesh_spec, rank,
+                                  self.device, params, seed, loader)
+        self.model = Transformer(self.cfg, self.params, self.group)
 
     def _op(self, name: str, _local: Optional[dict] = None, **kw):
         """Run ``_<name>`` here, and on every follower under tp with
@@ -396,6 +403,9 @@ class InferenceEngine:
         are keyed per position)."""
         toks, n = verify_step(self.model, st.cache, st.cur,
                               st.spec_in[:, :gamma], (st.seeds, st.step), sp)
+        if self.group is not None:   # the leader's outcome on every rank
+            both = self.group.broadcast(torch.cat([n[:, None], toks], 1))
+            n, toks = both[:, 0], both[:, 1:]
         st.spec_out[:, :gamma + 1].copy_(toks)
         st.spec_n.copy_(n)
         st.cur.copy_(torch.gather(toks, 1, (n - 1)[:, None])[:, 0])
@@ -580,19 +590,16 @@ class InferenceEngine:
         return GenerateResult(tokens=out, prefill_ms=prefill_ms,
                               decode_ms=decode_ms, steps=steps)
 
-    @torch.inference_mode()
     def _generate_speculative(self, prompts, max_new_tokens, sp, seed,
                               eos_token_id, stream_cb, mode, gamma):
         """The prompt-lookup loop (the JAX engine's
         ``_generate_speculative``): the verify program per step, 1 to
         gamma + 1 tokens per host sync, or plain chunks while the
-        adaptive controller says drafting loses."""
+        adaptive controller says drafting loses. The leader drafts and
+        decides; each device step is an op (``_spec_*``) every tp rank
+        runs."""
         if mode != "ngram":
             raise ValueError(f"unknown speculative mode {mode!r}")
-        if self.group is not None:
-            raise ValueError(
-                "speculative decoding under tp is not ported yet (ROADMAP "
-                "Queue A item 6.1); load without a mesh")
         if len(prompts) != 1:
             raise ValueError("speculative decoding serves one sequence")
         gamma = max(1, int(gamma))
@@ -605,20 +612,17 @@ class InferenceEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
                 f" + gamma ({gamma}) exceeds engine max_seq {self.max_seq}")
-        dev = self.device
-        st = self._state(1)
-        if st.spec_in is None:
-            z = functools.partial(torch.zeros, dtype=torch.int64, device=dev)
-            st.spec_in, st.spec_out, st.spec_n = z((1, 16)), z((1, 17)), z(1)
-        st.seeds.copy_(row_seeds(seed, 1, dev))
-        st.step.zero_()
-        clock = _Clock(dev)
+        with self._lock:   # no other request's op between this one's
+            return self._speculative_loop(prompt, max_new_tokens, sp, seed,
+                                          eos_token_id, stream_cb, gamma)
+
+    def _speculative_loop(self, prompt, max_new_tokens, sp, seed,
+                          eos_token_id, stream_cb, gamma):
+        clock = _Clock(self.device)
         clock.mark()
-        last, filled = self._prefill([prompt], st.cache, gather=True)
-        st.cache.lengths.copy_(filled.lengths)
-        self._advance(st, last[:, 0], sp)
-        cur = int(st.hist[0, 0])
+        cur = self._op("spec_prefill", prompt=prompt, sp=sp, seed=seed)
         clock.mark()
+        st = self._rows[1]
         hit_eos = eos_token_id is not None and cur == eos_token_id
         out: List[int] = [] if hit_eos else [cur]
         if stream_cb and not hit_eos:
@@ -637,19 +641,13 @@ class InferenceEngine:
                 rem = max_new_tokens - len(out)
                 T = next(c for c in self.DECODE_CHUNKS
                          if c <= min(rem, self.STREAM_CHUNK_MAX))
-                prog = self._program(st, sp)
-                compiled = prog.graphs is not None and not prog.captured
-                for _ in range(T):
-                    prog()
+                compiled = self._op("spec_plain", sp=sp, n=T)
                 emitted = st.hist[pos:pos + T, 0].tolist()
                 steps += T
             else:
                 drafts = propose_ngram(history, g_now) \
                     or [history[-1]] * g_now
-                st.spec_in[0, :g_now].copy_(torch.tensor(drafts))
-                prog = self._program(st, sp, g_now)
-                compiled = prog.graphs is not None and not prog.captured
-                prog()
+                compiled = self._op("spec_verify", sp=sp, drafts=drafts)
                 both = torch.cat([st.spec_n, st.spec_out[0]]).tolist()
                 emitted = both[1:1 + both[0]]
                 steps += 1
@@ -684,6 +682,44 @@ class InferenceEngine:
         return GenerateResult(tokens=[out], prefill_ms=prefill_ms,
                               decode_ms=decode_ms, steps=steps)
 
+    @torch.inference_mode()
+    def _spec_prefill(self, prompt, sp, seed):
+        """A speculative request's prefill and first token into the
+        batch-1 rows. Returns the token."""
+        dev = self.device
+        st = self._state(1)
+        if st.spec_in is None:
+            z = functools.partial(torch.zeros, dtype=torch.int64, device=dev)
+            st.spec_in, st.spec_out, st.spec_n = z((1, 16)), z((1, 17)), z(1)
+        st.seeds.copy_(row_seeds(seed, 1, dev))
+        st.step.zero_()
+        last, filled = self._prefill([prompt], st.cache, gather=True)
+        st.cache.lengths.copy_(filled.lengths)
+        self._advance(st, last[:, 0], sp)
+        return int(st.hist[0, 0])
+
+    @torch.inference_mode()
+    def _spec_plain(self, sp, n):
+        """``n`` plain decode steps of the batch-1 rows. Returns whether
+        the program captured its graph on this call (its time then is
+        not decode time, for the controller)."""
+        prog = self._program(self._rows[1], sp)
+        compiled = prog.graphs is not None and not prog.captured
+        for _ in range(n):
+            prog()
+        return compiled
+
+    @torch.inference_mode()
+    def _spec_verify(self, sp, drafts):
+        """One verify step of the batch-1 rows over ``drafts``. Returns
+        whether it captured, as ``_spec_plain``."""
+        st = self._rows[1]
+        st.spec_in[0, :len(drafts)].copy_(torch.tensor(drafts))
+        prog = self._program(st, sp, len(drafts))
+        compiled = prog.graphs is not None and not prog.captured
+        prog()
+        return compiled
+
     def teacher_forced(self, prompts: Sequence[Sequence[int]],
                        forced: Sequence[Sequence[int]],
                        last_only: bool = False):
@@ -716,21 +752,14 @@ class InferenceEngine:
         return out if self._leader is not None else [out]
 
     def _stats(self):
-        out = {"rank": self.group.rank if self.group else 0,
-               "device": str(self.device),
-               "launches": lockstep.launch_counts()}
-        if self.group is not None:
-            out["collectives"] = dict(self.group.counts)
-        return out
+        return lockstep.rank_stats(self.group, self.device)
 
     def reset_counts(self):
         """Zero the kernel launch and collective counts on every rank."""
         self._op("reset_counts")
 
     def _reset_counts(self):
-        lockstep.reset_launch_counts()
-        if self.group is not None:
-            self.group.counts = dict.fromkeys(self.group.counts, 0)
+        lockstep.reset_counts(self.group)
 
     def close(self):
         """Release the decode programs (their graphs and pool) and the

@@ -1,4 +1,4 @@
-"""Lockstep execution of one engine over a tp group of processes.
+"""Lockstep execution of one engine or batcher over a tp group of processes.
 
 The port's counterpart of the JAX package's ``runtime/multihost.py``
 (``LockstepExecutor``): every rank launches the same ops in the same
@@ -10,13 +10,33 @@ the leader broadcasts over the control group:
 
 - ``load``: build the rank's engine (runtime/engine.py) from the leader's
   arguments; every rank reports whether it succeeded;
-- ``generate`` / ``teacher_forced``: run the rank's side of the request.
-  The leader resolves the seed and validates the request before it
-  broadcasts; it alone samples and broadcasts each token (the engine's
-  ``_sample``), so every rank runs the same number of steps;
-- ``stats`` / ``reset_counts``: each rank's kernel launch counts and
-  collective counts, gathered on the leader, or zeroed;
-- ``stop``: leave the loop and exit.
+- ``generate`` / ``teacher_forced``, and a speculative request's
+  ``spec_prefill`` / ``spec_plain`` / ``spec_verify``: run the rank's
+  side of the request. The leader resolves the seed and validates the
+  request before it broadcasts; it alone samples and broadcasts each
+  token (the engine's ``_sample``; a verify step's tokens and count),
+  so every rank runs the same number of steps;
+- ``batcher_load``: build the rank's side of a batched model
+  (runtime/batcher.py ``BatcherRank``: its shard of the weights and of
+  the paged pool, no scheduler); every rank reports;
+- ``batcher_program``: one device program of the leader's scheduler
+  (``kind`` "admit", "decode" or "spec") with its full host inputs,
+  replayed in order (the JAX package's ``program_hook``). Every rank
+  samples from the gathered logits, the same bits on every rank, so
+  every rank ends each program with the same tokens and history;
+- ``stats`` / ``batcher_stats`` / ``reset_counts``: each rank's kernel
+  launch counts and collective counts (a batcher rank adds its programs
+  run and a digest of their outputs), gathered on the leader, or zeroed;
+- ``stop`` / ``batcher_stop``: leave the loop and exit;
+- ``release`` (``DLI_TP_KEEP_GROUPS=1``): drop the rank's model and wait
+  for the next load.
+
+With ``DLI_TP_KEEP_GROUPS=1`` (off by default; tests and the smoke,
+which build many tp models in one process) a healthy group that an
+engine or batcher stops is released instead, kept idle, and the next
+``leader`` of its size on its device takes it, so a script pays one
+spawn per group size; ``stop_idle_groups`` ends the kept ones. Without
+it every model spawns its followers and its unload joins them.
 
 Failure is loud. A follower that fails to load makes the load fail; one
 that fails in a request prints its traceback and exits, so the leader's
@@ -28,6 +48,7 @@ with a timeout and raises if one had to be killed.
 
 from __future__ import annotations
 
+import gc
 import multiprocessing
 import os
 import shutil
@@ -44,8 +65,15 @@ from distributed_llm_inferencing_tpu_torch.ops import (
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import TPGroup
 
 # ops whose ranks report back (error or payload) on the control group
-REPLY_OPS = ("load", "stats", "reset_counts")
+REPLY_OPS = ("load", "stats", "reset_counts", "batcher_load",
+             "batcher_stats")
+STOP_OPS = ("stop", "batcher_stop")
+# ops a follower runs by another name than "_" + op
+_METHODS = {"batcher_program": "replay", "batcher_stats": "_stats"}
 STOP_TIMEOUT_S = 60.0
+# released groups kept for reuse (DLI_TP_KEEP_GROUPS), by (world, device)
+_IDLE: dict = {}
+_IDLE_LOCK = threading.Lock()
 
 # every kernel wrapper (each counts its launches), by kernel name
 KERNELS = {
@@ -78,10 +106,56 @@ def reset_launch_counts():
         KERNELS[k].launches_mma = 0
 
 
+def rank_stats(group, device) -> dict:
+    """This rank's kernel launches and, under tp, data collectives."""
+    out = {"rank": group.rank if group else 0, "device": str(device),
+           "launches": launch_counts()}
+    if group is not None:
+        out["collectives"] = dict(group.counts)
+    return out
+
+
+def reset_counts(group):
+    reset_launch_counts()
+    if group is not None:
+        group.counts = dict.fromkeys(group.counts, 0)
+
+
+def _keep_groups() -> bool:
+    return os.environ.get("DLI_TP_KEEP_GROUPS") == "1"
+
+
+def leader(world: int, device: torch.device) -> "Leader":
+    """A tp group of ``world`` ranks on ``device``: a kept idle one
+    (``DLI_TP_KEEP_GROUPS=1``) whose followers are all alive, else a new
+    one."""
+    if _keep_groups():
+        with _IDLE_LOCK:
+            idle = _IDLE.get((world, str(device)), [])
+            while idle:
+                ld = idle.pop()
+                if len(ld.alive()) == world - 1:
+                    return ld
+                ld.broken = "a follower exited while the group was kept"
+                ld._reap(force=True)
+    return Leader(world, device)
+
+
+def stop_idle_groups():
+    """Stop and join every kept idle group."""
+    with _IDLE_LOCK:
+        kept = [ld for lds in _IDLE.values() for ld in lds]
+        _IDLE.clear()
+    for ld in kept:
+        with ld._lock:
+            ld._stop("stop")
+
+
 class Leader:
     """Rank 0's side: the followers' processes and the group."""
 
     def __init__(self, world: int, device: torch.device):
+        self._key = (world, str(device))
         if device.type == "cuda":
             # build every kernel once, before two ranks could race nvcc
             from distributed_llm_inferencing_tpu_torch.ops import build
@@ -94,6 +168,9 @@ class Leader:
             args=(r, world, str(device), store, os.getpid()))
             for r in range(1, world)]
         self.broken = None
+        # one op at a time: a batcher's scheduler thread and a stats call
+        # from another thread never interleave their broadcasts
+        self._lock = threading.Lock()
         for p in self.procs:
             p.start()
         try:
@@ -114,6 +191,10 @@ class Leader:
         For a reply op, returns every rank's payload in rank order (the
         leader's first); raises if any rank failed. Otherwise returns
         ``local()``'s result."""
+        with self._lock:
+            return self._run(op, kw, local)
+
+    def _run(self, op: str, kw: dict, local):
         if self.broken:
             raise RuntimeError(f"tp group is broken: {self.broken}")
         try:
@@ -135,12 +216,33 @@ class Leader:
             raise RuntimeError(f"tp {op} failed: {'; '.join(errors)}")
         return [payload for _, payload in replies]
 
-    def stop(self):
-        """Stop and join every follower; raises if one had to be
-        killed."""
+    def stop(self, op: str = "stop"):
+        """Stop (``op``: one of ``STOP_OPS``) and join every follower;
+        raises if one had to be killed. With ``DLI_TP_KEEP_GROUPS=1`` a
+        healthy group is released and kept idle instead."""
+        with self._lock:
+            if not (_keep_groups() and self._release()):
+                self._stop(op)
+
+    def _release(self) -> bool:
+        """Have every follower drop its model, zero the collective counts
+        and keep the group idle for ``leader``; False if it cannot be."""
+        if self.broken or len(self.alive()) != len(self.procs):
+            return False
+        try:
+            self.group.broadcast_object(("release", {}))
+        except Exception as e:   # a follower already gone
+            self.broken = f"release: {type(e).__name__}: {e}"
+            return False
+        self.group.counts = dict.fromkeys(self.group.counts, 0)
+        with _IDLE_LOCK:
+            _IDLE.setdefault(self._key, []).append(self)
+        return True
+
+    def _stop(self, op: str):
         if not self.broken:
             try:
-                self.group.broadcast_object(("stop", {}))
+                self.group.broadcast_object((op, {}))
             except Exception as e:   # a follower already gone
                 self.broken = f"stop: {type(e).__name__}: {e}"
             else:
@@ -178,22 +280,32 @@ def _watch_leader(leader_pid: int):
 def follower_main(rank: int, world: int, device: str, store: str,
                   leader_pid: int):
     """A follower's process: join the group, then serve the leader's ops
-    until ``stop``."""
+    until ``stop`` (or ``batcher_stop``)."""
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        BatcherRank)
     from distributed_llm_inferencing_tpu_torch.runtime.engine import (
         InferenceEngine)
     _watch_leader(leader_pid)
     group = TPGroup(rank, world, torch.device(device), store)
-    engine = None
+    served = None   # the rank's engine or batcher side
     while True:
         op, kw = group.broadcast_object()
-        if op == "stop":
+        if op in STOP_OPS:
             break
+        if op == "release":
+            served = None
+            gc.collect()
+            if group.device.type == "cuda":
+                torch.cuda.empty_cache()
+            reset_counts(group)
+            continue
         try:
-            if op == "load":
-                engine = InferenceEngine(**kw, group=group)
+            if op in ("load", "batcher_load"):
+                served = (InferenceEngine if op == "load"
+                          else BatcherRank)(**kw, group=group)
                 out = None
             else:
-                out = getattr(engine, "_" + op)(**kw)
+                out = getattr(served, _METHODS.get(op, "_" + op))(**kw)
             err = None
         except Exception as e:
             if op not in REPLY_OPS:   # the leader's collective fails next

@@ -14,7 +14,9 @@ so the reference master can drive either worker:
   scheduler's stats; for engine-mode ones the ``mesh``, and under tp the
   data collectives' ``backend``, with ``param_bytes`` one rank's share;
   for both the decode programs kept, how many are captured CUDA graphs
-  and the bytes their pool holds, runtime/graphs.py), metrics.
+  and the bytes their pool holds, runtime/graphs.py; a batched model's
+  scheduler stats carry its ``mesh`` and, under tp, ``backend`` too),
+  metrics.
 - ``GET /metrics``: the metrics registry as Prometheus text exposition.
 - ``POST /load_model``: ``model_name``; the weights from
   ``native_checkpoint`` (the port's own format, models/checkpoint.py),
@@ -28,8 +30,8 @@ so the reference master can drive either worker:
   ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
   ops/quant.py), ``embed_quantize`` (``"int8"``: the per-row int8
   embedding table), ``mesh`` (``{"tp": N}``: tensor parallelism over N
-  ranks, engine mode; parallel/mesh.py) — builds an ``InferenceEngine``
-  (engine mode, the default),
+  ranks in either mode; parallel/mesh.py) — builds an
+  ``InferenceEngine`` (engine mode, the default),
   or with ``"serving": "batched"`` a ``ContinuousBatcher`` over a paged KV
   pool (``kv_blocks``, ``kv_block_size``, ``slots``, ``prefill_chunk``,
   ``decode_chunk_cap``, the host KV tier's ``kv_host_mb``, 0 to
@@ -65,7 +67,7 @@ so the reference master can drive either worker:
   migrated request's record: its prompt ids, seed, emitted tokens and
   speculation state; its prefix KV, emitted tokens included, is what
   ``kv_source`` prefetches); in engine mode ``speculative`` ("ngram", one
-  sequence, not under tp) and ``spec_gamma`` (1 to 16); answers
+  sequence) and ``spec_gamma`` (1 to 16); answers
   ``status``, ``result``,
   ``tokens``, ``execution_time`` and ``cost`` (engine mode adds its
   timings; batched mode adds ``ttft_ms`` and ``scheduler``). A
@@ -120,20 +122,27 @@ dispatch or change state; a call without the headers is never fenced.
 
 Fields of the reference protocol that the port does not implement yet get
 a 400, never a silent ignore, each with the ROADMAP Queue A item that
-brings it: a ``speculative`` mode other than "ngram", a ``spec_gamma`` outside [1, 16] (per request) or not an
-integer, ``speculative`` on a batched model's request or under tp
-(Queue A item 6.1), a ``quantize``,
+brings it: a ``speculative`` mode other than "ngram", a ``spec_gamma``
+outside [1, 16] (per request) or not an integer, ``speculative`` on a
+batched model's request (the batched load's own ``speculative`` serves
+it), a ``quantize``,
 ``embed_quantize`` or ``kv_quantize`` value outside the modes above, a
 ``kv_host_mb`` or ``kv_digest_chunk`` that is not a number, a
 checkpoint the port cannot serve (a path that is not a local directory,
 a converter type or config switch outside the ported families, a tensor
 the files lack, a JAX Orbax directory, tokenizer files on a node without
 ``transformers``), and a
-``mesh`` the port cannot serve (an axis other than tp above 1, tp with
-``"serving": "batched"``, tp for a family off the llama arm, or a tp the
-model's shapes do not divide), and a model whose config switches on a
-feature outside the ported families (models/transformer.py
-``check_supported``).
+``mesh`` the port cannot serve (an axis other than tp above 1, items 9.4,
+9.7 and 9.8; tp with the experts, latent attention, ``qkv_clip`` or
+sinks, item 9.8; or a tp the model's shapes do not divide), and a model
+whose config switches on a feature outside the ported families
+(models/transformer.py ``check_supported``). A batched model under tp
+refuses what its followers cannot replay: a load's ``kv_host_mb`` above
+0 (the host KV tier, item 9.12; a tp load has no tier unless asked),
+an /inference ``kv_source`` or ``kv_export`` and ``/kv_fetch`` (item
+9.13), ``resume`` and ``/migrate_out`` (item 9.14), and
+``/load_adapter`` under tp in either mode (item 9.11); its overlapped
+decode pairs are off (item 9.15).
 
 Run: ``python -m distributed_llm_inferencing_tpu_torch worker --port 8100``
 (``--device cpu`` for the plain-PyTorch path without a GPU).
@@ -201,6 +210,10 @@ _UNPORTED_INFER = ()
 # route gives up (the request then keeps running here).
 MIGRATE_TIMEOUT_S = 10.0
 _KV_MODES = ("int8",)
+# /inference fields a batched model under tp refuses, with the ROADMAP
+# Queue A item that brings each (the followers cannot replay them yet)
+TP_LATER_FIELDS = {"kv_source": "9.13", "kv_export": "9.13",
+                   "resume": "9.14"}
 _DTYPES = ("bfloat16", "float32")
 _SERVING = (None, "engine", "batched")
 
@@ -497,11 +510,6 @@ class WorkerAgent:
             validate_spec(mesh, cfg)
         except (NotImplementedError, ValueError) as e:
             return 400, {"status": "error", "message": f"mesh: {e}"}
-        if mesh.tp > 1 and body.get("serving") == "batched":
-            return 400, {"status": "error",
-                         "message": "batched serving under tp is a later "
-                                    "slice of the port (ROADMAP A12); load "
-                                    "with \"serving\": \"engine\""}
         # the tokenizer: tokenizer_path, else the checkpoint directory's
         tok_dir = body.get("tokenizer_path") or next(
             (d for d in (ckpt, native) if has_tokenizer(d)), None)
@@ -515,6 +523,11 @@ class WorkerAgent:
                 loader = source.load   # every rank reads its own cut
             elif source is not None:
                 params = source.load(self.device)
+            # a batched tp load has no host tier unless it asks for one
+            # (then a 400: ROADMAP Queue A item 9.12)
+            kv_host_mb = (float(body["kv_host_mb"])
+                          if body.get("kv_host_mb") is not None
+                          else 0.0 if mesh.tp > 1 else None)
             if body.get("serving") == "batched":
                 # continuous batching over the paged KV pool
                 # (runtime/batcher.py): requests share decode steps
@@ -530,16 +543,15 @@ class WorkerAgent:
                     decode_chunk_cap=body.get("decode_chunk_cap"),
                     device=self.device, metrics=self.metrics,
                     # the host KV tier: None defers to DLI_KV_HOST_MB
-                    kv_host_mb=(float(body["kv_host_mb"])
-                                if body.get("kv_host_mb") is not None
-                                else None),
+                    kv_host_mb=kv_host_mb,
                     kv_digest_chunk=(int(body["kv_digest_chunk"])
                                      if body.get("kv_digest_chunk")
                                      else None),
                     kv_fetcher=self.peer_client(),
                     # on-device prompt-lookup speculative decoding
                     speculative=body.get("speculative"),
-                    spec_gamma=int(body.get("spec_gamma", 4)))
+                    spec_gamma=int(body.get("spec_gamma", 4)),
+                    mesh_spec=mesh, loader=loader)
                 batcher.warm_decode_programs()
                 batcher.start()
                 lm = LoadedModel(None, tok, native or ckpt or "random-init",
@@ -762,6 +774,12 @@ class WorkerAgent:
                 raise ValueError(
                     "speculative decoding is engine-mode only; this model "
                     "serves via the continuous batcher")
+        if m.batcher is not None and m.batcher.group is not None:
+            for f, item in TP_LATER_FIELDS.items():
+                if body.get(f):
+                    raise ValueError(
+                        f"{f} on a batched model under tp is a later slice "
+                        f"of the port (ROADMAP Queue A item {item})")
         if resume is not None and resume.get("seed") is not None:
             seed = int(resume["seed"])
         else:
@@ -1197,6 +1215,12 @@ class WorkerAgent:
         name = body.get("model_name")
         with self._models_lock:
             m = self.models.get(name)
+        if m is not None and m.batcher is not None \
+                and m.batcher.group is not None:
+            return 400, {"status": "error",
+                         "message": "/kv_fetch from a batched model under "
+                                    "tp is a later slice of the port "
+                                    "(ROADMAP Queue A item 9.13)"}
         if m is None or m.batcher is None or m.batcher.kvtier is None:
             return 404, {"status": "error",
                          "message": f"model {name} not serving a KV "
@@ -1250,19 +1274,26 @@ class WorkerAgent:
         original dispatch then answers 303 with the resume record. 400
         without a tag, 404 for a tag not in flight, 409 when the request
         completed first (its result stands) or serves in engine mode;
-        lease-fenced."""
+        400 for a batched model under tp (``model_name``); lease-fenced."""
         stale = self._term_guard(_request)
         if stale:
             return stale
         tag = body.get("request_tag")
         if not tag:
             return 400, {"status": "error", "message": "request_tag required"}
+        name = body.get("model_name")
+        m = self.models.get(name)
+        if m is not None and m.batcher is not None \
+                and m.batcher.group is not None:
+            return 400, {"status": "error",
+                         "message": "migration under tp is a later slice "
+                                    "of the port (ROADMAP Queue A item "
+                                    "9.14)"}
         with self._tagged_lock:
             req = self._tagged.get(str(tag))
         if req is None:
             return 404, {"status": "error",
                          "message": f"no in-flight request tagged {tag!r}"}
-        name = body.get("model_name")
         with self._models_lock:
             models = ([self.models[name]] if name in self.models
                       else list(self.models.values()))

@@ -9,7 +9,8 @@ heads, a group of 71, hd 80 and 256) through the attention kernels; the
 softcap arms of flash_attention, flash_decode and paged_flash_decode
 (gemma-2's heads and cap, caps that bite, GQA/MQA, windows, ALiBi), and
 the uncapped arms' bits against digests taken before the cap arm
-existed. The tensor-core kernels, the split-KV decodes, the softcap arms
+existed; the decodes at a tp rank's shapes over a replicated kv head.
+The tensor-core kernels, the split-KV decodes, the softcap arms
 and the fused kernel are also held to the same bits across two
 launches.
 
@@ -250,6 +251,39 @@ def test_paged_flash_decode_kernel_matches_ref(dtype, lengths, H, Hkv, hd,
     torch.testing.assert_close(out.float(), ref.float(), **_paged_tol(dtype))
     if lengths[0] == 0:
         assert (out[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hd", [
+    (4, 256),      # gemma-2b at tp=2: 4 q heads over its one kv head
+    (4, 128),      # llama-3-8b at tp=8: each rank's 4 q heads, 1 kv head
+    (2, 128),      # llama-3-8b at tp=16
+])
+def test_tp_rank_shapes_over_a_replicated_kv_head(dtype, H, hd):
+    """paged_flash_decode and flash_decode at a tp rank's shapes where
+    the kv heads replicate (tp > Hkv, parallel/sharding.py ``kv_map``):
+    the rank's H q heads over its one kv head (Hkv_local = 1), held to
+    the plain versions (PAGED_BF16_TOL / TOL)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(H * hd)
+    lengths = [0, 1, 17, 300, 1000, 4096]
+    k_pool, v_pool, bt, lens = _paged_case(g, dev, dtype, lengths, H, 1,
+                                           hd, 16)
+    q = _rand(g, (len(lengths), 1, H, hd), dtype, dev)
+    out = pa.paged_flash_decode(q, k_pool, v_pool, bt, lens)
+    torch.cuda.synchronize()
+    ref = pa.paged_flash_decode_ref(q, k_pool, v_pool, bt, lens)
+    torch.testing.assert_close(out.float(), ref.float(), **_paged_tol(dtype))
+    dense = [4096, 532]
+    q = _rand(g, (len(dense), 1, H, hd), dtype, dev)
+    k, v = (_rand(g, (len(dense), 4096, 1, hd), dtype, dev)
+            for _ in range(2))
+    dl = torch.tensor(dense, dtype=torch.int32, device=dev)
+    out = fa.flash_decode(q, k, v, dl)
+    torch.cuda.synchronize()
+    ref = fa.flash_decode_ref(q, k, v, dl)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
 
 
 _SPLIT = pa.PAGED_SPLIT

@@ -360,17 +360,18 @@ def test_load_model_serves_tiny_gpt2(port_worker, serving, quant):
 
 
 def test_load_model_refusals(port_worker, monkeypatch):
-    """tp for a family outside the llama arm is a 400 naming the gap; a
-    config outside the served choices (the JAX package's all-to-all expert
-    dispatch) is a 400 from the construction check; an unknown name a
-    400."""
+    """tp for the experts is a 400 naming the gap (ROADMAP Queue A item
+    9.8); a config outside the served choices (the JAX package's
+    all-to-all expert dispatch) is a 400 from the construction check; an
+    unknown name a 400."""
     base, agent = port_worker
     from distributed_llm_inferencing_tpu_torch.models import registry
     style = registry.get_config("tiny-mixtral").replace(
         name="tiny-mixtral-all-to-all", moe_dispatch="all_to_all")
     monkeypatch.setitem(registry._REGISTRY, style.name, style)
     for body, needle in (
-            (dict(_TINY_LOAD, mesh={"tp": 2}), "llama arm"),
+            (dict(_TINY_LOAD, model_name="tiny-mixtral", mesh={"tp": 2}),
+             "num_experts"),
             (dict(_TINY_LOAD, model_name=style.name), "moe_dispatch"),
             (dict(_TINY_LOAD, model_name="gemma2-9b"), "unknown model")):
         r = requests.post(f"{base}/load_model", json=body, timeout=60)

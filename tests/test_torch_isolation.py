@@ -77,7 +77,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "ops/quant_matmul.py", "models/params.py", "models/hf_files.py",
     "models/convert.py", "models/checkpoint.py", "utils/tokenizer.py",
     "__main__.py", "ops/kvcache.py", "ops/kvblock_quant.py",
-    "runtime/kvtier.py", "runtime/kvwire.py",
+    "runtime/kvtier.py", "runtime/kvwire.py", "parallel/mesh.py",
+    "parallel/sharding.py", "runtime/lockstep.py", "runtime/engine.py",
+    "ops/norms.py",
 ])
 def test_batched_serving_modules_are_scanned_and_clean(module):
     path = os.path.join(PORT, *module.split("/"))

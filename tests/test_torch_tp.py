@@ -14,9 +14,9 @@ the CPU.
   tp=1, for float and int4 weights (the JAX int4 kernels in interpret
   mode); teacher-forced logits within 1e-4 of the JAX tp=2 forward's
   and of the port's tp=1 (f32: sums in another order).
-- The worker: ``"mesh": {"tp": 2}`` loads and serves; batched + tp, pp >
-  1 and a tp that does not divide the heads are 400s; /unload_model
-  leaves no follower process alive.
+- The worker: ``"mesh": {"tp": 2}`` loads and serves; batched + tp with
+  a host KV tier, pp > 1 and a tp that does not divide the heads are
+  400s; /unload_model leaves no follower process alive.
 
 Each tp engine spawns one follower (the port's own entry point, which
 imports neither jax nor this module) and joins it through a file store in
@@ -176,12 +176,21 @@ def test_validate_spec_refuses_what_the_slice_does_not_serve():
     cfg = get_config("tiny-llama")      # H=8, Hkv=4, I=128, V=256
     validate_spec(MeshSpec(tp=2), cfg)
     validate_spec(MeshSpec(tp=4), cfg.replace(quant="int4"))
+    validate_spec(MeshSpec(tp=8), cfg)  # tp > Hkv: the kv heads replicate
     for spec in (MeshSpec(pp=2), MeshSpec(dp=2), MeshSpec(sp=2, tp=2),
-                 MeshSpec(ep=2), MeshSpec(tp=8)):
+                 MeshSpec(ep=2)):
         with pytest.raises(NotImplementedError):
             validate_spec(spec, cfg)
+    # the experts, latent attention, dbrx's clip and gpt-oss's sinks,
+    # by name (ROADMAP Queue A item 9.8)
+    for over in ({"qkv_clip": 8.0}, {"attn_sinks": True}):
+        with pytest.raises(NotImplementedError, match=next(iter(over))):
+            validate_spec(MeshSpec(tp=2), cfg.replace(**over))
     with pytest.raises(ValueError):
         validate_spec(MeshSpec(tp=3), cfg)
+    with pytest.raises(ValueError):     # tp <= Hkv=6 must divide it
+        validate_spec(MeshSpec(tp=4), cfg.replace(num_heads=12,
+                                                  num_kv_heads=6))
     with pytest.raises(ValueError):     # int4 down: din 36, not 4 x 2k
         validate_spec(MeshSpec(tp=4), cfg.replace(intermediate_size=36,
                                                   quant="int4"))
@@ -297,7 +306,8 @@ def test_worker_serves_tp2_and_unload_stops_the_follower():
     base = {"model_name": "tiny-llama", "allow_random_init": True,
             "dtype": "float32", "max_seq": 64}
     try:
-        for extra in ({"mesh": {"tp": 2}, "serving": "batched"},
+        for extra in ({"mesh": {"tp": 2}, "serving": "batched",
+                       "kv_host_mb": 8},
                       {"mesh": {"pp": 2}}, {"mesh": {"tp": 3}},
                       {"mesh": {"tp": 2, "nope": 1}}):
             r = requests.post(url + "/load_model", json={**base, **extra},
