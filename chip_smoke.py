@@ -184,7 +184,9 @@ Phases (any failure fails the run, exit code != 0):
    bloom-7b1, mpt-7b, gpt-j-6b; the fused route too where the gate
    concerns the family (gemma-7b and falcon-7b take the fused kernel,
    gpt2-xl's biased q keeps the paged one), and int4 and int8 weights
-   for gpt2-xl and pythia-6.9b (biased linears). ALiBi families decode
+   for gpt2-xl and pythia-6.9b (biased linears); the
+   FAMILY_CARD_REFERENCE rows against the plain versions on the card.
+   ALiBi families decode
    through the gather formulation: no paged-kernel launch. (b) gpt2-xl
    and bloom-7b1 at full width through the worker, bf16, at
    FAMILY_SERVING_LAYERS (16 of 48, 10 of 30, the cuts
@@ -245,7 +247,8 @@ Phases (any failure fails the run, exit code != 0):
    the plain attention's error. (c) Phase 4's card-vs-host check for
    each later converter type at its published width, 2 layers
    (LATER_XCHECK; windows cut to XCHECK_WINDOW, printed, so that the
-   prompts pass them). Its wall time is printed on a line of its own.
+   prompts pass them; the LATER_CARD_REFERENCE rows against the plain
+   versions on the card). Its wall time is printed on a line of its own.
 17. The KV plane (phase_kv_plane), llama-3-8b at full width and depth,
    bf16 weights. (a) The int8 KV cache in engine mode, max_seq 8192:
    phase 3's requests plus a 4000-token one, against the bf16 cache at
@@ -340,10 +343,11 @@ Phases (any failure fails the run, exit code != 0):
    step. ms per pass and per step with and without adapters. A mixed
    batch (base, a1, a2) on the card against dedicated single-row runs on
    the host, 2 layers f32, within XCHECK_TOL. (b) mixtral-8x7b at full
-   width, 2 layers, f32, card against host within XCHECK_TOL in dense
+   width, 2 layers, f32, the kernels against their plain versions on the
+   card (the host's f32 forward took ~33 s) within XCHECK_TOL in dense
    and capacity dispatch (auto takes one of the two by the token count)
-   over prompts in runs of one token (the host's capacity dispatch drops
-   choices); moe-proxy-8e at full width,
+   over prompts in runs of one token (the reference's capacity dispatch
+   drops choices); moe-proxy-8e at full width,
    2 layers, f32, dense dispatch: the paged pool's prefill and decode on
    the paged and the fused route (the fused gate takes the MoE rows, as
    the JAX gate does) against the host's; moe-proxy-8e
@@ -374,7 +378,7 @@ Phases (any failure fails the run, exit code != 0):
    teacher-forced prefill plus 8 decode steps on the dense and the paged
    path (a latent-attention row's dense path on the latent cache too;
    the CARD_REFERENCE rows against the plain versions on the card, as
-   phase 6 swaps them in, since their host side passed 30 s),
+   phase 6 swaps them in, since their host side passed 20 s),
    with exact launches: rows 1-3 for glm4_moe, ernie4_5_moe,
    hunyuan_v1_moe and dbrx (ernie4_5_moe's fused route too), none for
    gpt_oss (sinks) and deepseek_v3 (latent attention); DeepSeek-V3's
@@ -401,8 +405,9 @@ Phases (any failure fails the run, exit code != 0):
    the layers' too) per admission wave; 2L + 1 all-reduces and one
    gather per forward, no broadcast (every rank samples the gathered
    logits); every rank's programs and their outputs' digest equal; ms
-   per pass, tokens/s, weight bytes per rank; no follower alive after
-   each unload. (b) llama-3-8b, full width, 2 layers, f32: the batcher's
+   per pass, tokens/s, weight bytes per rank; each load on the phase's
+   kept pair, each unload releasing it. (b) llama-3-8b, full width, 2
+   layers, f32: the batcher's
    scheduler (an admission wave of two prompts, then 8 greedy decode
    steps) at tp=2 against tp=1 on the same weights, every logits row
    the leader computed within XCHECK_TOL and the tokens equal (a token
@@ -423,10 +428,45 @@ Phases (any failure fails the run, exit code != 0):
    published widths, 2 layers, f32: the engine at tp=2 against tp=1,
    teacher-forced prefill plus 4 decode steps within XCHECK_TOL, exact
    counts on each rank (the all-reduces by the count rule of
-   models/transformer.py). One follower serves (b) and (c)
-   (``DLI_TP_KEEP_GROUPS``; the spawn it saves per model is timed).
-   Report in chiprun_out/phase21.json ("tp_batched_launches" per kernel,
-   every rank's).
+   models/transformer.py). One follower serves (a), (b) and (c)
+   (``DLI_TP_KEEP_GROUPS``; the spawn it saves per model is timed):
+   the pair phase 11 spawns (its spawn timed there), kept through
+   phases 21 and 22. Report in chiprun_out/phase21.json
+   ("tp_batched_launches" per kernel, every rank's).
+22. Pipeline and sequence parallelism (every rank on this card, gloo,
+   eager; every model on phase 11's kept pair or one kept group of
+   four, each unload releasing it). (a) llama-3-8b at full width and
+   depth through the worker with "mesh": {"pp": 2} (16 layers per
+   stage): phase 5's bodies as one /inference_batch in bf16 with
+   DLI_FUSED_DECODE off and then on over the same load, held against
+   phase 5's pp=1 tokens by ``_vs_tp1``, then int4; phase 3's
+   500-token request in engine mode against phase 3's tokens. Every
+   stage's counts exact by the written rules (``_pp_batched_want``,
+   ``_pp_hops_want``: the paged or fused kernel once per local layer
+   per microbatch step, 7 q4_matmul per layer and the head on the last
+   stage, an admission's q4 rows by microbatch; pp hops out and back
+   per pass and wave, one broadcast per program; the engine's
+   flash_attention per local layer per prefill, flash_decode per local
+   layer per step, one hop each way and one broadcast per pass); ms per
+   pass and step, weights per stage. (b) sp=2 against sp=1 on one
+   PP_SP_LONG-token prompt at full width and depth in f32 (the weights
+   replicate over sp): the prefill's last logits and every decode
+   step's within XCHECK_TOL, greedy tokens equal, sp - 1 ring hops per
+   layer per prefill and one combine per layer per step on each rank,
+   no attention kernel (the ring is plain torch); prefill ms at both.
+   (c) 2 layers, f32: the pp=2 batcher against pp=1 (float, int4, an
+   int8 pool: tokens equal, the stages' pool slices against pp=1's
+   pool, the int8 levels by ``_level_check``); pp=2 speculation, chunk
+   and wave, greedy equal to plain with drafts accepted (sublayers
+   scaled by SPEC_RESIDUAL_SCALE); pp x tp, sp x tp and pp x sp on one
+   group of four; gemma-2's windows and tied head, moe-proxy-8e's
+   experts and deepseek-proxy's latent attention (materialized; its
+   experts too), each in one microbatch (capacity dispatch counts a
+   call's positions), at pp=2; a window, bloom's ALiBi and gemma-2's
+   caps at sp=2; each
+   against one device within XCHECK_TOL. Report in
+   chiprun_out/phase22.json ("pp_sp_launches" per kernel, every
+   rank's).
 
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
@@ -455,6 +495,9 @@ phase 20.
 
 ``python3 chip_smoke.py --tp-batched`` builds the kernels and runs only
 phase 21.
+
+``python3 chip_smoke.py --pp-sp`` builds the kernels and runs only
+phase 22 (with its own pp=1 references).
 
 ``python3 chip_smoke.py --timed-rows`` builds the kernels and runs only
 phase 2's timed rows (``timed_rows``), printing each; from the root of
@@ -543,6 +586,16 @@ FAMILY_XCHECK = (
     ("mpt-7b", ("paged",), (None,)),
     ("gpt-j-6b", ("paged",), (None,)),
 )
+# the rows of phases 14 (a) and 16 (c) whose reference runs on the card,
+# the attention kernels swapped for their plain versions (as phase 20's
+# CARD_REFERENCE): their host f32 forwards took 6.2-43.4 s each, 201 s of
+# the two phases' 395 (NVIDIA H100 80GB HBM3, on a host whose build took
+# 129.7 s);
+# the others (1.5-3.5 s) keep the host's
+FAMILY_CARD_REFERENCE = ("qwen2-7b", "gemma-7b", "pythia-6.9b", "falcon-7b",
+                         "bloom-7b1", "mpt-7b", "gpt-j-6b")
+LATER_CARD_REFERENCE = ("gemma2", "cohere", "qwen3", "granite", "olmo2",
+                        "glm4", "nemotron", "hunyuan_v1_dense", "exaone4")
 # phase 14 (b): rows served through the worker (FAMILY_SERVING_LAYERS
 # deep), with the
 # batched decode routes (DLI_FUSED_DECODE off / on) each is driven by;
@@ -1999,7 +2052,8 @@ def phase_batched(torch, kernels):
     gc.collect()
     torch.cuda.empty_cache()
     return {"paged": paged, "fused": fused,
-            "greedy_tokens_agree": [agree, total], "peak_memory_bytes": peak}
+            "greedy_tokens_agree": [agree, total], "peak_memory_bytes": peak,
+            "tokens_paged": toks_p}
 
 
 # ---------------------------------------------------------------------
@@ -3246,9 +3300,13 @@ def phase_families(torch, fa, qm, kernels, smi):
         WorkerAgent)
     report = {"smi": smi, "cross_check": {}, "serving": {}}
     for name, routes, forms in FAMILY_XCHECK:
+        on_card = name in FAMILY_CARD_REFERENCE
+        if on_card:
+            log(f"  {name}: reference: the plain versions on the card")
         for quant in forms:
             t0 = time.perf_counter()
-            errs = phase_cross_check(torch, fa, qm, quant, name, routes)
+            errs = phase_cross_check(torch, fa, qm, quant, name, routes,
+                                     ref_on_card=on_card)
             errs["seconds"] = time.perf_counter() - t0
             report["cross_check"][f"{name}/{quant or 'float'}"] = errs
     launches = {k: 0 for k in kernels}
@@ -4315,9 +4373,12 @@ def phase_later(torch, fa, qm, kernels, smi):
         if cut:
             log(f"  {mt}: WINDOW CUT to {XCHECK_WINDOW} for the 2-layer "
                 f"check ({cut})")
+        on_card = mt in LATER_CARD_REFERENCE
+        if on_card:
+            log(f"  {mt}: reference: the plain versions on the card")
         t1 = time.perf_counter()
         errs = phase_cross_check(torch, fa, qm, None, mt, ("paged",),
-                                 cfg=cfg)
+                                 cfg=cfg, ref_on_card=on_card)
         errs["seconds"] = time.perf_counter() - t1
         report["cross_check"][mt] = errs
     report["launches"] = total
@@ -5723,10 +5784,12 @@ def torch_topk_idx(g, k):
 
 
 def _moe_xcheck(torch, kernels):
-    """(b) mixtral-8x7b at full width, 2 layers, f32, card against host
+    """(b) mixtral-8x7b at full width, 2 layers, f32, the kernels against
+    their plain versions on the card (``_PlainKernels``: the host's f32
+    forward of its experts took 32.5-34.2 s beside an NVIDIA H100)
     in each dispatch mode of MOE_XCHECK (prefill over prompts in runs of
     one token, then 4 decode steps): logits within XCHECK_TOL, and the
-    host's capacity dispatch drops choices. Then moe-proxy-8e (the row
+    reference's capacity dispatch drops choices. Then moe-proxy-8e (the row
     served on both decode routes) at its full width, 2 layers, f32, dense
     dispatch: the serving path over the paged pool (``_paged_run``) on
     the paged and the fused route (the fused gate takes the MoE rows, as
@@ -5740,7 +5803,6 @@ def _moe_xcheck(torch, kernels):
     base = get_config("mixtral-8x7b").replace(num_layers=2, dtype="float32")
     params = init_params(base, torch.Generator(device="cuda").manual_seed(11),
                          "cuda")
-    host = {k: t.cpu() for k, t in params.items()}
     real, gates, drops = _moe_drops(transformer)
     errs, steps = {}, 4
     try:
@@ -5753,33 +5815,35 @@ def _moe_xcheck(torch, kernels):
             forced = torch.randint(0, cfg.vocab_size, (steps, B, 1),
                                    generator=g)
             out, dropped = {}, {}
-            for dev, p in (("cuda", params), ("cpu", host)):
-                model = transformer.Transformer(cfg, p)
+            for side in ("card", "ref"):
+                model = transformer.Transformer(cfg, params)
                 drops[0] = 0
-                transformer.moe_gates = gates if dev == "cpu" else real
+                transformer.moe_gates = gates if side == "ref" else real
                 _bank19(kernels)
-                with torch.inference_mode():
-                    cache = init_cache(cfg, B, S0 + steps, device=dev)
-                    lg, cache = model.prefill(toks.to(dev), lens.to(dev),
+                with torch.inference_mode(), (
+                        _PlainKernels() if side == "ref" else _Env()):
+                    cache = init_cache(cfg, B, S0 + steps, device="cuda")
+                    lg, cache = model.prefill(toks.cuda(), lens.cuda(),
                                               cache)
                     seq = [lg.flatten(0, 1).cpu()]
                     for t in range(steps):
-                        lg, cache = model.decode_step(forced[t].to(dev),
+                        lg, cache = model.decode_step(forced[t].cuda(),
                                                       cache)
                         seq.append(lg[:, 0].cpu())
-                out[dev] = torch.cat(seq)
-                dropped[dev] = drops[0]
-                if dev == "cuda":
-                    d = {k: v for k, v in read_counts(kernels).items() if v}
-                    assert d == {"flash_attention": 2,
-                                 "flash_decode": 2 * steps}, d
+                out[side] = torch.cat(seq)
+                dropped[side] = drops[0]
+                d = {k: v for k, v in read_counts(kernels).items() if v}
+                assert d == ({"flash_attention": 2,
+                              "flash_decode": 2 * steps}
+                             if side == "card" else {}), (side, d)
                 del model
             errs[mode] = {"max_abs_err": _xcheck(
-                torch, f"mixtral-8x7b {mode} dispatch", out["cuda"],
-                out["cpu"]), "host_dropped_choices": int(dropped["cpu"])}
+                torch, f"mixtral-8x7b {mode} dispatch (plain on the card)",
+                out["card"], out["ref"]),
+                "reference_dropped_choices": int(dropped["ref"])}
             if mode != "dense":
-                assert dropped["cpu"] > 0, f"{mode}: no choice dropped"
-        del params, host
+                assert dropped["ref"] > 0, f"{mode}: no choice dropped"
+        del params
         transformer.moe_gates = real
         _bank19(kernels)
         cfg = get_config("moe-proxy-8e").replace(
@@ -6044,8 +6108,12 @@ EXPERT_ROUTES = {"ernie4_5_moe": ("paged", "fused")}
 # the rows whose reference runs on the card, the attention kernels
 # swapped for their plain versions: with the host's f32 forward these
 # rows took 40.7, 74.3 and 55.6 s (every expert's weights read on 8 host
-# cores per decode step), past the 30 s a row may take
-CARD_REFERENCE = ("glm4_moe", "hunyuan_v1_moe", "dbrx")
+# cores per decode step), past the 30 s a row may take; ernie4_5_moe
+# too (20.1 s on the host beside an NVIDIA H100), to pay for phase 22.
+# gpt_oss (sinks) and deepseek_v3 (latent attention) launch no attention
+# kernel: against the plain versions on the card they would compare a
+# path with itself, so they keep the host's
+CARD_REFERENCE = ("glm4_moe", "hunyuan_v1_moe", "dbrx", "ernie4_5_moe")
 V3_GATE_ROWS = 64
 # (c): gpt-oss-20b's shape served from a written checkpoint, two of its
 # sliding / full window pairs
@@ -6565,8 +6633,9 @@ def _tp_batched_serving(torch):
     the worker, "mesh": {"tp": 2}, "serving": "batched": phase 5's bodies
     on a bf16 load with DLI_FUSED_DECODE=0 and then =1 (over the first
     run's prefixes), each held against a tp=1 load of the same weights
-    by ``_vs_tp1``, then on an int4 load; every follower gone after each
-    unload. (b) holds the fused gate's on and off runs bitwise equal."""
+    by ``_vs_tp1``, then on an int4 load; each load takes the phase's
+    kept pair and each unload releases it (DLI_TP_KEEP_GROUPS). (b)
+    holds the fused gate's on and off runs bitwise equal."""
     from distributed_llm_inferencing_tpu_torch.models.registry import (
         get_config, register)
     from distributed_llm_inferencing_tpu_torch.runtime.worker import (
@@ -6608,9 +6677,7 @@ def _tp_batched_serving(torch):
                 rows.append(row)
             peak = torch.cuda.max_memory_allocated()
             st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
-            assert st == 200
-            alive = [p for p in pids if os.path.exists(f"/proc/{p}")]
-            assert not alive, f"tp followers {alive} outlived the unload"
+            assert st == 200 and _released(pids), "the unload kept serving"
             out[quant or "bf16"] = {
                 "param_bytes_per_rank": desc["param_bytes"],
                 "backend": sched["backend"],
@@ -6993,17 +7060,16 @@ def _tp_families(torch):
     return out
 
 
-def phase_tp_batched(torch, smi):
-    """Phase 21 (see the module docstring)."""
+def phase_tp_batched(torch, smi, spawn_s=None, keep=False):
+    """Phase 21 (see the module docstring). ``spawn_s``: the spawn of the
+    kept pair phase 11 made (and (b) takes), else (b) spawns it here;
+    ``keep``: leave the pair for phase 22, else stop it."""
     from distributed_llm_inferencing_tpu_torch.runtime import lockstep
     report, t_all = {"smi": smi}, time.perf_counter()
     _PHASE21_LAUNCHES.clear()
-    t0 = time.perf_counter()
-    report["serving"] = _tp_batched_serving(torch)
-    report["seconds_serving"] = time.perf_counter() - t0
-    # (b) and (c) build many tp models: with DLI_TP_KEEP_GROUPS each takes
-    # the group the last one released (runtime/lockstep.py), so the
-    # phase spawns once; the spawn and the stop are timed
+    # every tp model of the phase, the worker's included, takes the group
+    # the last one released (DLI_TP_KEEP_GROUPS; runtime/lockstep.py), so
+    # the phase spawns at most once; the spawn and the stop are timed
     acquired, take = [0], lockstep.leader
 
     def counted(*a):
@@ -7012,10 +7078,14 @@ def phase_tp_batched(torch, smi):
 
     lockstep.leader = counted
     try:
-        with _Env(DLI_TP_KEEP_GROUPS="1", DLI_FUSED_DECODE="0"):
+        with _Env(DLI_TP_KEEP_GROUPS="1"):
             t0 = time.perf_counter()
             counted(2, torch.device("cuda")).stop()
-            report["group_spawn_s"] = time.perf_counter() - t0
+            report["group_spawn_s"] = (time.perf_counter() - t0
+                                       if spawn_s is None else spawn_s)
+            report["serving"] = _tp_batched_serving(torch)
+            report["seconds_serving"] = time.perf_counter() - t0
+        with _Env(DLI_TP_KEEP_GROUPS="1", DLI_FUSED_DECODE="0"):
             for key, fn in (("batcher_xcheck", _tp_batcher_xcheck),
                             ("speculation", _tp_speculation),
                             ("families", _tp_families)):
@@ -7026,13 +7096,16 @@ def phase_tp_batched(torch, smi):
     finally:
         lockstep.leader = take
         t0 = time.perf_counter()
-        lockstep.stop_idle_groups()
+        if not keep:
+            lockstep.stop_idle_groups()
         report["group_stop_s"] = time.perf_counter() - t0
-    # the first acquisition spawned; every later one reused the group
+    # the first acquisition spawned (or took phase 11's pair); every
+    # later one, the worker's loads included, reused the group
     report["tp_models_on_one_group"] = acquired[0] - 1
     log(f"  phase 21: {acquired[0] - 1} tp models on one kept group; a "
-        f"spawn took {report['group_spawn_s']:.2f} s, the stop "
-        f"{report['group_stop_s']:.2f} s [{smi}]")
+        f"spawn took {report['group_spawn_s']:.2f} s"
+        + ("" if keep else f", the stop {report['group_stop_s']:.2f} s")
+        + f" [{smi}]")
     report["launches"] = dict(_PHASE21_LAUNCHES)
     log("  phase 21 launches (every rank):", json.dumps(report["launches"]))
     report["seconds"] = time.perf_counter() - t_all
@@ -7040,6 +7113,597 @@ def phase_tp_batched(torch, smi):
     out_dir = os.path.join(HERE, "chiprun_out")
     if os.path.isdir(out_dir):
         with open(os.path.join(out_dir, "phase21.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+    return report
+
+
+# ---------------------------------------------------------------------
+# phase 22: pipeline and sequence parallelism (pp x sp x tp grids)
+# ---------------------------------------------------------------------
+
+PP_SP_LONG = 4096          # (b)'s prompt tokens
+PP_SP_NEW = 32             # tokens generated per (a) engine / (b) request
+_PHASE22_LAUNCHES: dict = {}
+
+
+def _bank22(stats):
+    """Add every rank's launches of ``stats`` to phase 22's total."""
+    for s in stats:
+        for k, v in s["launches"].items():
+            _PHASE22_LAUNCHES[k] = _PHASE22_LAUNCHES.get(k, 0) + v
+
+
+def _pp_stage_counts(stats, pp):
+    """Per stage (from each stage's tp rank 0): weights, launches and hops,
+    for the report."""
+    return {s["grid"]["pp"]: {
+        "param_bytes": s["param_bytes"], "layers": s["layers"],
+        "launches": {k: v for k, v in s["launches"].items() if v},
+        "collectives": s["collectives"]}
+        for s in stats if s["grid"]["tp"] == 0 and s["grid"]["sp"] == 0}
+
+
+def _pp_batched_want(L_loc, pp, last, passes, chunks, waves, quant, fused):
+    """Phase 22's rule for one stage of a pp batched pass: every decode
+    pass runs the stage's layers once per microbatch (pp of them), on the
+    fused or the paged kernel; an admission runs the plain prefix
+    attention. In int4 each microbatch step's 7 linears per layer go to
+    q4_matmul (its rows R/pp <= 32), plus the head on the last stage; an
+    admission wave of ``rows`` tokens (``waves``: per wave b·t, b rows)
+    microbatches into pp parts whose layers take the kernel at <= 32
+    rows, and whose head rows (b/pp) always do. Hops: stage 0 sends pp
+    per pass and per wave and receives the last stage's tokens pp per
+    pass but the last of each chunk; the last stage the reverse; one
+    broadcast (the last stage's outputs) per program."""
+    route = "fused_decode_step" if fused else "paged_flash_decode"
+    want = {"paged_flash_decode": 0, "fused_decode_step": 0,
+            "flash_attention": 0, "flash_decode": 0, "q4_matmul": 0,
+            "q4_matmul_row": 0}
+    want[route] = L_loc * pp * passes
+    if quant == "int4":
+        want["q4_matmul"] = pp * passes * (7 * L_loc + last) + sum(
+            pp * (7 * L_loc * (rows // pp <= 32) + last)
+            for rows, _ in waves)
+    return want
+
+
+def _pp_hops_want(p, pp, passes, chunks, waves):
+    out = pp * (passes + waves)
+    back = pp * (passes - chunks)
+    sends, recvs = (out, back) if p == 0 else (back, out)
+    if 0 < p < pp - 1:
+        sends = recvs = out
+    return {"send": sends, "recv": recvs, "broadcast": chunks + waves}
+
+
+def _pp_batched_wave(torch, worker, cfg, quant, fused):
+    """Phase 5's bodies as one /inference_batch through the loaded pp=2
+    batched model: every rank's counts zeroed before and held after by
+    ``_pp_batched_want`` / ``_pp_hops_want`` per stage, every rank's
+    programs and digests equal. Returns (row, tokens)."""
+    from distributed_llm_inferencing_tpu_torch.parallel import (
+        paged_pipeline)
+    name, pp = cfg.name, 2
+    b = worker.models[name].batcher
+    L_loc = cfg.num_layers // pp
+    waves, chunks = [], [0]
+    take_w, take_c = (paged_pipeline.prefill_tail_pp,
+                      paged_pipeline.decode_chunk_pp)
+
+    def wave(model, group, tokens, *a, **kw):
+        waves.append((tokens.shape[0] * tokens.shape[1], tokens.shape[0]))
+        return take_w(model, group, tokens, *a, **kw)
+
+    def chunk(*a, **kw):
+        chunks[0] += 1
+        return take_c(*a, **kw)
+
+    paged_pipeline.prefill_tail_pp = wave
+    paged_pipeline.decode_chunk_pp = chunk
+    bodies = [dict(x, request_tag=f"p22-{quant}-{fused}-{i}")
+              for i, x in enumerate(_batched_bodies(cfg))]
+    try:
+        s0 = worker.metrics.snapshot()
+        b.reset_counts()
+        t0 = time.perf_counter()
+        with _Env(DLI_FUSED_DECODE="1" if fused else "0"):
+            lines = _stream_lines(
+                _worker_base(worker) + "/inference_batch",
+                {"model_name": name, "requests": bodies}, None)
+        wall = time.perf_counter() - t0
+        stats = b.rank_stats()
+        s1 = worker.metrics.snapshot()
+    finally:
+        paged_pipeline.prefill_tail_pp = take_w
+        paged_pipeline.decode_chunk_pp = take_c
+    passes, emitted = (s1["counters"][k] - s0["counters"].get(k, 0)
+                       for k in ("batcher_weight_passes",
+                                 "batcher_tokens_emitted"))
+    chunk_s = (s1["timings"]["batcher_decode_chunk"]["sum"]
+               - s0["timings"].get("batcher_decode_chunk", {}).get("sum", 0))
+    msgs = [json.loads(x) for _, x in lines]
+    assert all(m["status"] == 200 for m in msgs), msgs
+    tags = {m["request_tag"]: m["body"]["tokens"] for m in msgs}
+    tokens = [tags[x["request_tag"]] for x in bodies]
+    lead = stats[0]
+    for s in stats:
+        p = s["grid"]["pp"]
+        want = _pp_batched_want(L_loc, pp, int(p == pp - 1), passes,
+                                chunks[0], waves, quant, fused)
+        got = {k: s["launches"][k] for k in want}
+        assert got == want, f"stage {p}: launches {got} != {want}"
+        assert s["launches"]["q4_matmul[mma]"] == want["q4_matmul"]
+        hops = _pp_hops_want(p, pp, passes, chunks[0], len(waves))
+        got_h = {k: s["collectives"][k] for k in hops}
+        assert got_h == hops, f"stage {p}: hops {got_h} != {hops}"
+        assert s["programs_run"] == lead["programs_run"] and \
+            s["outputs_digest"] == lead["outputs_digest"], s
+    _bank22(stats)
+    generated = sum(len(t) for t in tokens)
+    row = {"weights": quant or "bf16", "DLI_FUSED_DECODE": int(fused),
+           "weight_passes": passes, "decode_chunks": chunks[0],
+           "admission_waves": len(waves), "wall_s": wall,
+           "tokens_per_s": generated / wall,
+           "decode_tokens_per_weight_pass": emitted / passes,
+           "decode_chunk_ms_per_weight_pass": 1e3 * chunk_s / passes,
+           "stages": _pp_stage_counts(stats, pp)}
+    log("  pp=2 batched pass", json.dumps(row))
+    return row, tokens
+
+
+def _released(pids):
+    """Whether the group of follower ``pids`` is kept idle (released by
+    an unload under DLI_TP_KEEP_GROUPS), not serving and not gone."""
+    from distributed_llm_inferencing_tpu_torch.runtime import lockstep
+    return any(ld.alive() == pids for lds in lockstep._IDLE.values()
+               for ld in lds)
+
+
+def _pp_batched_serving(torch, ref):
+    """(a) batched: llama-3-8b at full width and depth through the worker
+    with "mesh": {"pp": 2} (16 layers per stage, both ranks on the card
+    over gloo): phase 5's bodies with DLI_FUSED_DECODE off and then on
+    over the first run's prefixes, held against the pp=1 tokens ``ref``
+    by ``_vs_tp1``; then on an int4 load. Each load takes the kept pair
+    and each unload releases it (DLI_TP_KEEP_GROUPS)."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = get_config("llama-3-8b")
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = _worker_base(worker)
+    out = {}
+    try:
+        if ref is None:    # phase 22 alone: the pp=1 load's tokens here
+            ref = _tp1_batched_tokens(worker, cfg)
+        for quant in (None, "int4"):
+            torch.cuda.reset_peak_memory_stats()
+            st, res = _http(base + "/load_model", dict(
+                BATCHED_LOAD, mesh={"pp": 2},
+                **({"quantize": quant} if quant else {})))
+            assert st == 200 and res["status"] == "success", res
+            st, health = _http(base + "/health")
+            [desc] = health["loaded_models"]
+            sched = desc["scheduler"]
+            assert sched["mesh"]["pp"] == 2 and sched["ranks"] == 2, sched
+            assert sched["decode_graphs_captured"] == 0, sched
+            pids = worker.models[cfg.name].batcher._leader.alive()
+            log(f"  load_model (batched, pp=2, {quant or 'bf16'}): "
+                f"{res['load_time_s']:.2f} s, "
+                f"{desc['param_bytes'] / 1e9:.3f} GB of weights on stage "
+                f"0, data over {sched['backend']}")
+            rows = []
+            for fused in (False, True) if quant is None else (False,):
+                row, toks = _pp_batched_wave(torch, worker, cfg, quant,
+                                             fused)
+                if quant is None:
+                    row["vs_pp1"] = _vs_tp1(toks, ref)
+                    log("  pp=2 bf16 against pp=1:",
+                        json.dumps(row["vs_pp1"]))
+                rows.append(row)
+            peak = torch.cuda.max_memory_allocated()
+            st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+            assert st == 200 and _released(pids), "the unload kept serving"
+            out[quant or "bf16"] = {"leader_peak_memory_bytes": peak,
+                                    "passes": rows}
+    finally:
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_engine_serving(torch, ref):
+    """(a) engine: llama-3-8b bf16, full depth, "mesh": {"pp": 2} through
+    the worker: phase 3's 500-token request (32 tokens) against its pp=1
+    tokens ``ref`` (``_vs_tp1``; one microbatch, so the stages run pp=1's
+    GEMM shapes and the tokens should be equal, which is reported); per
+    stage one flash_attention (tensor-core form) per local layer for the
+    prefill and one flash_decode per local layer per decode step; per
+    forward one hop out and one in on each stage, one broadcast (the
+    leader's token) per weight pass."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = get_config("llama-3-8b")
+    n_tok, sampling, seed = ENGINE_REQUESTS[2]
+    body = {"model_name": cfg.name, "prompt": engine_prompt(n_tok, seed),
+            "max_new_tokens": PP_SP_NEW, "sampling": sampling, "seed": seed}
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = _worker_base(worker)
+    try:
+        if ref is None:    # phase 22 alone: the pp=1 engine's tokens here
+            st, res = _http(base + "/load_model", {
+                "model_name": cfg.name, "allow_random_init": True,
+                "dtype": "bfloat16", "max_seq": 4096})
+            assert st == 200, res
+            st, r = _http(base + "/inference", body)
+            assert st == 200 and r["status"] == "success", r
+            ref = r["tokens"]
+            assert _http(base + "/unload_model",
+                         {"model_name": cfg.name})[0] == 200
+        st, res = _http(base + "/load_model", {
+            "model_name": cfg.name, "allow_random_init": True,
+            "dtype": "bfloat16", "max_seq": 4096, "mesh": {"pp": 2}})
+        assert st == 200 and res["status"] == "success", res
+        eng = worker.models[cfg.name].engine
+        pids = eng._leader.alive()
+        eng.reset_counts()
+        st, r = _http(base + "/inference", body)
+        assert st == 200 and r["status"] == "success", r
+        stats = eng.rank_stats()
+        passes, L_loc = r["cost"]["weight_passes"], cfg.num_layers // 2
+        want = {"flash_attention": L_loc, "flash_attention[mma]": L_loc,
+                "flash_decode": L_loc * (passes - 1),
+                "paged_flash_decode": 0, "fused_decode_step": 0,
+                "q4_matmul": 0}
+        for s in stats:
+            got = {k: s["launches"][k] for k in want}
+            assert got == want, f"stage {s['grid']['pp']}: {got} != {want}"
+            hops = {"send": passes, "recv": passes, "broadcast": passes}
+            got_h = {k: s["collectives"][k] for k in hops}
+            assert got_h == hops, (s["grid"], got_h, hops)
+        _bank22(stats)
+        row = {"prompt_tokens": n_tok, "new_tokens": len(r["tokens"]),
+               "weight_passes": passes, "prefill_ms": r["prefill_ms"],
+               "decode_ms_per_weight_pass": r["decode_ms"] / (passes - 1),
+               "vs_pp1": _vs_tp1([r["tokens"]], [ref]),
+               "tokens_equal_pp1": r["tokens"] == ref,
+               "stages": _pp_stage_counts(stats, 2)}
+        log("  pp=2 engine request", json.dumps(row))
+        assert _http(base + "/unload_model",
+                     {"model_name": cfg.name})[0] == 200
+        assert _released(pids), "the unload kept serving"
+    finally:
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _sp_long_prompt(torch):
+    """(b): llama-3-8b at full width and depth in f32 (the weights
+    replicate over sp: 2 x 32 GB on the card), one PP_SP_LONG-token
+    prompt and PP_SP_NEW greedy tokens through the engine at sp=1 and
+    sp=2 on the same seeded weights: the prefill's last logits and every
+    decode step's within XCHECK_TOL (teacher-forced on sp=1's tokens),
+    the tokens equal; per rank sp - 1 ring hops per layer per prefill,
+    one combine per layer per decode step plus the prefill's logits, no
+    attention kernel (the ring is plain torch); prefill ms at both."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    cfg = get_config("llama-3-8b").replace(dtype="float32")
+    L, greedy = cfg.num_layers, SamplingParams.greedy()
+    g = torch.Generator().manual_seed(22)
+    prompt = torch.randint(0, cfg.vocab_size, (PP_SP_LONG,),
+                           generator=g).tolist()
+    max_seq = PP_SP_LONG + 2 * PP_SP_NEW
+    out = {}
+    runs = {}
+    for sp in (1, 2):
+        eng = InferenceEngine(cfg, mesh_spec=MeshSpec(sp=sp),
+                              max_seq=max_seq, seed=3, device="cuda")
+        try:
+            res = eng.generate([prompt], PP_SP_NEW, sampling=greedy)
+            forced = [[t] for t in (runs[1][0] if sp == 2
+                                    else res.tokens[0])[:-1]]
+            eng.reset_counts()
+            t0 = time.perf_counter()
+            last, dec = eng.teacher_forced([prompt], forced, last_only=True)
+            tf_s = time.perf_counter() - t0
+            stats = eng.rank_stats()
+        finally:
+            eng.close()
+        runs[sp] = (res.tokens[0], res.prefill_ms, last, dec, stats, tf_s)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    toks2, pre2_ms, last2, dec2, stats, _ = runs[2]
+    toks1, pre1_ms, last1, dec1, _, _ = runs[1]
+    steps = len(dec1)
+    for s in stats:
+        c = s["collectives"]
+        assert c["ring"] == L and c["combine"] == L * steps + 1, s
+        assert not any(s["launches"][k] for k in (
+            "flash_attention", "flash_decode", "paged_flash_decode",
+            "fused_decode_step")), s["launches"]
+    _bank22(stats)
+    a = torch.cat([last2, dec2.reshape(-1, dec2.shape[-1])])
+    b = torch.cat([last1, dec1.reshape(-1, dec1.shape[-1])])
+    err = _xcheck(torch, f"sp=2 vs sp=1 ({PP_SP_LONG}-token prompt, full "
+                  "depth)", a, b)
+    assert toks2 == toks1, (toks2, toks1)
+    out = {"prompt_tokens": PP_SP_LONG, "new_tokens": len(toks1),
+           "max_abs_err": err, "tokens_equal": True,
+           "prefill_ms_sp1": pre1_ms, "prefill_ms_sp2": pre2_ms,
+           "ring_hops_per_rank": stats[0]["collectives"]["ring"],
+           "combines_per_rank": stats[0]["collectives"]["combine"],
+           "param_bytes_per_rank": stats[0]["param_bytes"]}
+    log("  sp=2 long prompt", json.dumps(out))
+    return out
+
+
+def _pp_pool_check(torch, label, stats_pp, stats_one, int8):
+    """The pp=2 stages' pool slices (layers side by side) against pp=1's
+    pool over the blocks: float within XCHECK_TOL, an int8 pool's levels
+    by ``_level_check``."""
+    pools = [torch.cat(ls, dim=0) for ls in zip(
+        *(s["pool"] for s in sorted(stats_pp,
+                                    key=lambda s: s["grid"]["pp"])
+          if s["grid"]["tp"] == 0))]
+    one = stats_one[0]["pool"]
+    if not int8:
+        err = float(max((a - b).abs().max() for a, b in zip(pools, one)))
+        atol, rtol = XCHECK_TOL
+        assert all(bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+                   for a, b in zip(pools, one)), (label, err)
+        return {"pool_max_abs_err": err}
+    written = one[2].flatten(2).ne(0).any(-1).any(0)
+    return {"levels": _level_check(torch, {
+        side: types.SimpleNamespace(**{
+            n: t[:, written] for n, t in
+            zip(("k", "v", "k_scale", "v_scale"), p)})
+        for side, p in (("cuda", pools), ("cpu", one))},
+        f"{label} pp=2 stages vs pp=1")}
+
+
+def _pp_batcher_xcheck(torch):
+    """(c) the pp=2 batcher's scheduler against pp=1 on the same weights
+    (llama-3-8b, full width, 2 layers, f32): two prompts in one
+    admission wave, then 8 greedy decode steps; float and int4 weights
+    and an int8 pool: the tokens equal and the stages' pool slices,
+    layers side by side, against pp=1's pool (the K/V every layer wrote,
+    which the last layer's output and the next step's input rest on;
+    the leader, stage 0, computes no logits); every rank's programs and
+    digests equal."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        ContinuousBatcher)
+    cfg0 = get_config("llama-3-8b").replace(num_layers=2, dtype="float32")
+    prompts, _ = _xcheck_prompts(torch, cfg0.vocab_size, 0)
+    kw = dict(num_blocks=64, block_size=16, slots=2, max_seq=128, seed=7,
+              device="cuda", kv_host_mb=0, decode_overlap=False)
+    blocks = range(1, kw["num_blocks"] + 1)
+    out = {}
+    for label, over in (("float", {}), ("int4", {"quant": "int4"}),
+                        ("int8_kv_pool", {"kv_quant": "int8"})):
+        cfg = cfg0.replace(**over)
+        runs = {}
+        for pp in (1, 2):
+            with _Env(DLI_CUDA_GRAPHS="0", DLI_FUSED_DECODE="0"):
+                b = ContinuousBatcher(cfg, mesh_spec=MeshSpec(pp=pp), **kw)
+                try:
+                    b.reset_counts()
+                    toks, passes, _ = _served_rows(torch, b, prompts, 9)
+                    stats = b.rank_stats(pool_blocks=blocks)
+                finally:
+                    b.stop()
+            runs[pp] = (toks, stats)
+            del b
+            gc.collect()
+        toks, stats = runs[2]
+        assert toks == runs[1][0], (label, toks, runs[1][0])
+        lead = stats[0]
+        assert all(s["outputs_digest"] == lead["outputs_digest"]
+                   for s in stats), label
+        _bank22(stats)
+        out[label] = dict(_pp_pool_check(torch, label, stats, runs[1][1],
+                                         bool(over.get("kv_quant"))),
+                          tokens_equal=True)
+        log(f"  pp=2 batcher {label}:", json.dumps(out[label]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_speculation(torch):
+    """(c) speculation at pp=2 (llama-3-8b, 2 layers, f32, the sublayers
+    scaled by SPEC_RESIDUAL_SCALE): on two prompts whose drafts the model
+    accepts, the speculative batcher's chunk (wave off) and wave mode
+    (on), adaptive off, give the plain pp=2 batcher's greedy tokens, with
+    drafts accepted."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.ops.sampling import (
+        SamplingParams)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
+        ContinuousBatcher)
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    cfg = get_config("llama-3-8b").replace(
+        num_layers=2, dtype="float32", residual_scale=SPEC_RESIDUAL_SCALE)
+    new, gamma, greedy = 24, 4, SamplingParams.greedy()
+    one = InferenceEngine(cfg, max_seq=256, seed=7, device="cuda")
+    with _Env(DLI_SPEC_ADAPTIVE="0"):
+        prompts = [q for q, _ in _accepting_prompts(
+            torch, one, cfg.vocab_size, new, gamma)]
+    del one
+    gc.collect()
+    kw = dict(num_blocks=64, block_size=16, slots=2, max_seq=128, seed=7,
+              device="cuda", kv_host_mb=0, mesh_spec=MeshSpec(pp=2))
+    toks, out = {}, {}
+    for mode in ("plain", "chunk", "wave"):
+        extra = ({} if mode == "plain" else dict(
+            speculative="ngram", spec_gamma=gamma, spec_adaptive=False,
+            spec_wave=mode == "wave"))
+        b = ContinuousBatcher(cfg, **kw, **extra)
+        try:
+            b.reset_counts()
+            reqs = [b.submit(p, max_new_tokens=new, sampling=greedy,
+                             seed=i) for i, p in enumerate(prompts)]
+            for _ in range(200):
+                b.step()
+                if all(r.done.is_set() for r in reqs):
+                    break
+            toks[mode] = [r.wait() for r in reqs]
+            stats = b.rank_stats()
+            assert all(s["outputs_digest"] == stats[0]["outputs_digest"]
+                       for s in stats), mode
+            _bank22(stats)
+            if mode != "plain":
+                acc = b.stats()["spec_accepted_tokens"]
+                assert acc > 0, (mode, acc)
+                out[mode] = {"spec_accepted_tokens": acc,
+                             "weight_passes": b.metrics.snapshot()[
+                                 "counters"]["batcher_weight_passes"]}
+        finally:
+            b.stop()
+        del b
+        gc.collect()
+    assert toks["chunk"] == toks["plain"] and toks["wave"] == toks["plain"]
+    log("  pp=2 speculation", json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_sp_xcheck(torch, label, cfg, spec, steps=4, max_seq=96,
+                  n_micro=None):
+    """An engine on ``spec`` (``n_micro``: its pipeline microbatches)
+    against one device on the same seeded weights (2 layers, f32): a
+    teacher-forced prefill of phase 11's two prompts and ``steps`` decode
+    steps within XCHECK_TOL."""
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    prompts, forced = _xcheck_prompts(torch, cfg.vocab_size, steps)
+    got = {}
+    for key, mesh in (("one", None), ("grid", spec)):
+        eng = InferenceEngine(cfg, mesh_spec=mesh, max_seq=max_seq, seed=7,
+                              device="cuda", pipeline_microbatches=n_micro)
+        try:
+            eng.reset_counts()
+            got[key] = eng.teacher_forced(prompts, forced)
+            if key == "grid":
+                stats = eng.rank_stats()
+        finally:
+            eng.close()
+        del eng
+        gc.collect()
+    _bank22(stats)
+    a, b = (torch.cat([p[0, :37], p[1], d.reshape(-1, d.shape[-1])])
+            for p, d in (got["grid"], got["one"]))
+    err = _xcheck(torch, f"{label} {spec.axis_sizes()} vs one device", a, b)
+    return {"max_abs_err": err,
+            "collectives": {str(tuple(s["grid"].values())): s["collectives"]
+                            for s in stats}}
+
+
+def _pp_sp_rows(torch):
+    """(c): one row each for pp x tp (float and int4 weights), sp x tp
+    and pp x sp on one 4-rank group (llama-3-8b, 2 layers, f32); rows
+    under pp=2: gemma-2's
+    per-layer windows and tied head, mixtral's experts (moe-proxy-8e
+    shapes), deepseek-proxy's latent attention (materialized; no dense
+    prefix); rows under sp=2: a window (Qwen2-7B, cut to XCHECK_WINDOW),
+    bloom's ALiBi, gemma-2's softcaps."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    out = {}
+    llama = get_config("llama-3-8b").replace(num_layers=2, dtype="float32")
+    for label, cfg, spec in (
+            ("pp2_tp2", llama, MeshSpec(pp=2, tp=2)),
+            # int4 weights: a stage's o and down through q4_matmul_row
+            ("pp2_tp2_int4", llama.replace(quant="int4"),
+             MeshSpec(pp=2, tp=2)),
+            ("sp2_tp2", llama, MeshSpec(sp=2, tp=2)),
+            ("pp2_sp2", llama, MeshSpec(pp=2, sp=2))):
+        out[label] = _pp_sp_xcheck(torch, label, cfg, spec)
+    gemma2 = _tp_family_cfg("gemma2")
+    # the expert rows run one microbatch: capacity dispatch sizes each
+    # expert's slots by the positions of the call, a microbatch's under
+    # pp (as the JAX pipeline), so two microbatches drop other choices
+    # than one device's batch (NVIDIA H100: 2.375 and 3.420 at
+    # two)
+    rows = (("pp2_gemma2", gemma2, MeshSpec(pp=2), None),
+            ("pp2_experts", get_config("moe-proxy-8e").replace(
+                num_layers=2, dtype="float32"), MeshSpec(pp=2), 1),
+            ("pp2_latent", get_config("deepseek-proxy").replace(
+                num_layers=2, dense_prefix_layers=0, dtype="float32"),
+             MeshSpec(pp=2), 1),
+            ("sp2_window", get_config("qwen2-7b").replace(
+                num_layers=2, dtype="float32",
+                sliding_window=XCHECK_WINDOW), MeshSpec(sp=2), None),
+            ("sp2_alibi", _tp_family_cfg("bloom-7b1"), MeshSpec(sp=2),
+             None),
+            ("sp2_softcap", gemma2, MeshSpec(sp=2), None))
+    for label, cfg, spec, n_micro in rows:
+        t0 = time.perf_counter()
+        out[label] = _pp_sp_xcheck(torch, label, cfg, spec,
+                                   n_micro=n_micro)
+        out[label]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pp_sp(torch, smi, refs=None):
+    """Phase 22 (see the module docstring). ``refs``: phase 5's paged
+    pp=1 tokens and phase 3's 500-token request's, when they ran."""
+    from distributed_llm_inferencing_tpu_torch.runtime import lockstep
+    refs = refs or {}
+    report, t_all = {"smi": smi}, time.perf_counter()
+    _PHASE22_LAUNCHES.clear()
+    # every model of the phase on one kept pair (phase 11's, when it ran)
+    # and one kept group of four
+    try:
+        with _Env(DLI_TP_KEEP_GROUPS="1", DLI_FUSED_DECODE="0"):
+            for key, fn in (
+                    ("batched", lambda: _pp_batched_serving(
+                        torch, refs.get("batched"))),
+                    ("engine", lambda: _pp_engine_serving(
+                        torch, refs.get("engine"))),
+                    ("sp_long", lambda: _sp_long_prompt(torch)),
+                    ("batcher_xcheck", lambda: _pp_batcher_xcheck(torch)),
+                    ("speculation", lambda: _pp_speculation(torch)),
+                    ("rows", lambda: _pp_sp_rows(torch))):
+                t0 = time.perf_counter()
+                report[key] = fn()
+                report[f"seconds_{key}"] = time.perf_counter() - t0
+                log(f"  phase 22 {key}: {report[f'seconds_{key}']:.1f} s")
+    finally:
+        lockstep.stop_idle_groups()
+    report["launches"] = dict(_PHASE22_LAUNCHES)
+    log("  phase 22 launches (every rank):", json.dumps(report["launches"]))
+    for name in ("flash_attention", "flash_decode", "paged_flash_decode",
+                 "fused_decode_step", "q4_matmul", "q4_matmul_row"):
+        assert report["launches"].get(name, 0) > 0, \
+            f"{name} never launched on phase 22's path"
+    report["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 22 wall time: {report['seconds']:.1f} s [{smi}]")
+    out_dir = os.path.join(HERE, "chiprun_out")
+    if os.path.isdir(out_dir):
+        with open(os.path.join(out_dir, "phase22.json"), "w") as f:
             json.dump(report, f, indent=1, default=str)
     return report
 
@@ -7121,6 +7785,7 @@ def main() -> int:
         now = time.perf_counter()
         if last[0] is not None:
             phase_s[last[0]] = now - last[1]
+            log(f"  phase {last[0]} took {phase_s[last[0]]:.1f} s")
         last[:] = [n, now]
         if n is not None:
             log(f"phase {n}: {text}")
@@ -7158,6 +7823,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--tp-batched"]:   # phase 21 alone
         phase_tp_batched(torch, smi)
+        log(smi)
+        return 0
+    if sys.argv[1:2] == ["--pp-sp"]:   # phase 22 alone
+        phase_pp_sp(torch, smi)
         log(smi)
         return 0
     if sys.argv[1:2] == ["--timed-rows"]:
@@ -7248,15 +7917,22 @@ def main() -> int:
 
     mark(11, "tp=2 against tp=1 on the same weights (2 layers, f32, "
         "float and int4), then int4 at full depth against phase 9's f32")
-    # its three tp engines on one group (DLI_TP_KEEP_GROUPS): one spawn
+    # its three tp engines on one group (DLI_TP_KEEP_GROUPS): one spawn,
+    # timed; the pair stays for phases 21 and 22 (stopped after 22)
     from distributed_llm_inferencing_tpu_torch.runtime import lockstep
     try:
         with _Env(DLI_TP_KEEP_GROUPS="1"):
+            t0 = time.perf_counter()
+            lockstep.leader(2, torch.device("cuda")).stop()
+            pair_spawn_s = time.perf_counter() - t0
+            log(f"  a tp pair's spawn: {pair_spawn_s:.2f} s (kept for "
+                "phases 11, 21 and 22)")
             tp_xerr = {q or "float": phase_tp_cross_check(torch, q)
                        for q in (None, "int4")}
             tp_depth = phase_tp_depth(torch, depth_kept)
-    finally:
+    except BaseException:
         lockstep.stop_idle_groups()
+        raise
 
     mark(12, "the worker's control surface over HTTP (llama-3-8b "
         "bf16: auth, replay, SSE, fencing; /inference_batch paged and "
@@ -7322,7 +7998,7 @@ def main() -> int:
         "adapters through the worker, batched (mixed waves, an in-place "
         "slot eviction, graphs on and off) and engine (bf16, int4), a "
         "2-layer f32 mixed-vs-dedicated cross-check; (b) mixtral-8x7b 2 "
-        "layers f32 card vs host in each dispatch mode, moe-proxy-8e bf16 "
+        "layers f32 kernels vs plain in each dispatch mode, moe-proxy-8e bf16 "
         "and mixtral-8x7b int8 at full depth, engine and batched")
     lora_moe = phase_lora_moe(torch, counted, smi)
     for name in ("flash_attention", "flash_decode", "paged_flash_decode",
@@ -7346,12 +8022,22 @@ def main() -> int:
         "on, int4); (b) the batcher and speculation at tp=2 against tp=1 "
         "and plain decode (2 layers, f32); (c) the families at tp=2 "
         "against tp=1 at their published widths (2 layers, f32)")
-    tp_batched = phase_tp_batched(torch, smi)
+    tp_batched = phase_tp_batched(torch, smi, spawn_s=pair_spawn_s,
+                                  keep=True)
     for name in ("flash_attention", "flash_decode", "paged_flash_decode",
                  "q4_matmul", "q4_matmul_row"):
         assert tp_batched["launches"].get(name, 0) > 0, \
             f"{name} never launched on phase 21's path"
     assert tp_batched["launches"]["fused_decode_step"] == 0
+
+    mark(22, "pipeline and sequence parallelism: (a) pp=2 through the "
+        "worker at llama-3-8b's full width and depth (batched bf16 with "
+        "DLI_FUSED_DECODE off and on, int4; engine bf16); (b) sp=2 on a "
+        f"{PP_SP_LONG}-token prompt at full depth, f32, against sp=1; (c) "
+        "the pp batcher, speculation, pp x tp, sp x tp, pp x sp and family "
+        "rows (2 layers, f32)")
+    pp_sp = phase_pp_sp(torch, smi, refs={
+        "batched": batched["tokens_paged"], "engine": rows[2]["tokens"]})
 
     mark(None)
     log("  wall time by phase (s):", json.dumps(
@@ -7437,6 +8123,10 @@ def main() -> int:
         # tp batcher and speculation checks, the families under tp)
         entry["tp_batched_launches"] = tp_batched["launches"].get(
             name, 0) if "[" not in name else 0
+        # phase 22: every rank's launches (every pp stage's; the sp ring
+        # launches no attention kernel)
+        entry["pp_sp_launches"] = pp_sp["launches"].get(
+            name, 0) if "[" not in name else 0
         cap_rows = {"flash_attention": cap_pre, "flash_decode": cap_dec,
                     "paged_flash_decode": cap_paged}.get(name)
         if cap_rows is not None:
@@ -7460,7 +8150,7 @@ def main() -> int:
               "families": families, "ingestion": ingestion,
               "later": later, "kv_plane": kv_plane, "spec_migrate": spec,
               "lora_moe": lora_moe, "experts_mla": experts_mla,
-              "tp_batched": tp_batched,
+              "tp_batched": tp_batched, "pp_sp": pp_sp,
               "uncapped_digests": digests,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}

@@ -119,7 +119,8 @@ def load_checkpoint(path: str, dtype=None, device=None,
     """(cfg, params on ``device``) of a native checkpoint: float leaves
     cast to ``dtype`` (default the stored config's), then quantized by
     ``quantize`` / ``embed_quantize`` where still float, then cut by
-    ``shard(name, tensor)``, one tensor at a time."""
+    ``shard(name, tensor)``, one tensor at a time (None: not this rank's;
+    a ``shard.keep(name)`` predicate skips reading the others)."""
     from distributed_llm_inferencing_tpu_torch.models.convert import (
         stored_leaves)
     from distributed_llm_inferencing_tpu_torch.models.params import (
@@ -132,19 +133,25 @@ def load_checkpoint(path: str, dtype=None, device=None,
     target = torch_dtype(cfg.dtype)
     f = SafetensorsFile(os.path.join(path, PARAMS_FILE), NATIVE_DTYPES)
     out = {}
+    # a pp stage's cut names the tensors it holds: the others stay unread
+    keep = getattr(shard, "keep", None) or (lambda name: True)
     try:
         names = set(f.keys())
         for name in list(f.keys()):
+            if not keep(name):
+                continue
             t = f.get(name).to(device, copy=True)
             if t.is_floating_point() and t.dtype != target \
                     and not _quant_scale(name, names):
                 t = t.to(target)
             for k, s in stored_leaves(cfg, name, t):
-                out[k] = shard(k, s) if shard is not None else s
+                s = shard(k, s) if shard is not None else s
+                if s is not None:
+                    out[k] = s
             del t
     finally:
         f.close()
-    expect = param_shapes(cfg)
+    expect = [n for n in param_shapes(cfg) if keep(n)]
     got = {n for n in out if not n.endswith(".chunked")}
     if got != set(expect):
         raise ValueError(f"{path}: tensors differ from the config's: "

@@ -2274,9 +2274,12 @@ def convert_state_dict(cfg: ModelConfig, files: CheckpointFiles, dtype=None,
                 f"{tuple(t.shape)}; {cfg.name}'s config wants "
                 f"{want.get(name)}")
         for k, s in stored_leaves(cfg, name, t):
-            out[k] = shard(k, s) if shard is not None else s
+            s = shard(k, s) if shard is not None else s
+            if s is not None:   # else another pp stage's
+                out[k] = s
         del t
-    missing = set(expect) - set(out)
+    keep = getattr(shard, "keep", None) or (lambda name: True)
+    missing = {n for n in expect if keep(n)} - set(out)
     if missing:
         raise ValueError(f"{files.path}: no tensor converts to "
                          f"{sorted(missing)[:6]}")

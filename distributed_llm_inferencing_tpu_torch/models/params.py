@@ -50,11 +50,12 @@ here: each ``Block`` holds its window and rope switch as static values
 from ``cfg.attn_windows`` / ``cfg.rope_layers``, and the bridge checks
 that the leaves say the same.
 
-Under tensor parallelism every rank draws every leaf of the whole model
-in the same order from the same seeded generator, keeps its shard
-(``init_params``'s ``shard``; parallel/sharding.py) and frees the rest:
-each rank holds exactly what tp=1 would hold, cut, and the peak is one
-whole leaf plus the shards.
+Under tensor or pipeline parallelism every rank draws every leaf of the
+whole model in the same order from the same seeded generator, keeps its
+share (``init_params``'s ``shard``; parallel/sharding.py: its tp cut of
+its pp stage's leaves) and frees the rest: each rank holds exactly what
+pp=1 and tp=1 would hold for its layers, cut, and the peak is one whole
+leaf plus the shares.
 """
 
 from __future__ import annotations
@@ -256,6 +257,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
             del w
         if shard is not None:
             out[name] = shard(name, out[name])
+            if out[name] is None:   # not this rank's (another stage's)
+                del out[name]
     return out
 
 

@@ -169,6 +169,8 @@ from distributed_llm_inferencing_tpu_torch.ops.speculative import (
     accept_rejection_batch, propose_ngram_device)
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
     MeshSpec, TPGroup)
+from distributed_llm_inferencing_tpu_torch.parallel.ring import (
+    SeqShard, ring_attend_decode, ring_attend_prefill)
 from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
     kv_weights, local_heads)
 from distributed_llm_inferencing_tpu_torch.utils.device import torch_dtype
@@ -493,7 +495,8 @@ class Embed(nn.Module):
     the norm (all replicated) follow the sum."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                 dtype: torch.dtype, tp: Optional[TPGroup] = None):
+                 dtype: torch.dtype, tp: Optional[TPGroup] = None,
+                 table_only: bool = False):
         super().__init__()
         self.quantized = "embed.tokens" not in params
         if self.quantized:
@@ -507,12 +510,14 @@ class Embed(nn.Module):
         # the reference multiplies by the scale in the activation dtype
         self.scale = (None if cfg.embed_scale is None else
                       float(torch.tensor(cfg.embed_scale, dtype=dtype)))
+        # the last pp stage of a tied head holds the table alone
         self.project_in = (Linear(_leaf(params, "embed.project_in"))
-                           if cfg.embed_proj_dim else None)
+                           if cfg.embed_proj_dim and not table_only else None)
         self.positions = (_param(params["embed.positions"])
-                          if cfg.position_embedding == "learned" else None)
-        self.norm = (_norm(cfg, params, "embed.norm") if cfg.embed_norm
-                     else None)
+                          if cfg.position_embedding == "learned"
+                          and not table_only else None)
+        self.norm = (_norm(cfg, params, "embed.norm")
+                     if cfg.embed_norm and not table_only else None)
 
     def forward(self, token_ids, positions):
         inside = None
@@ -561,10 +566,12 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
                  tp: Optional[TPGroup] = None, alibi=None, index: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 seq: Optional[SeqShard] = None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
+        self.seq = seq
         spec = MeshSpec(tp=tp.world if tp else 1)
         # this rank's q heads and the kv heads they read
         self.heads, self.kv_heads = local_heads(cfg, spec)
@@ -873,16 +880,22 @@ class Block(nn.Module):
         write(cv, v)
 
     def forward(self, x, cache, slots, cos_sin, new_lengths,
-                is_prefill: bool, q_positions=None, lora=None):
+                is_prefill: bool, q_positions=None, lora=None,
+                positions=None):
         """``cache``: this layer's (k, v, k_scale, v_scale) views;
         ``q_positions`` [B, s]: a multi-token decode block's positions
-        (speculative verification); ``lora``: the rows' adapters."""
+        (speculative verification); ``lora``: the rows' adapters;
+        ``positions`` [B, s]: the block's positions (under sp, this
+        rank's chunk's)."""
         h = self._in(x)
         if self.cfg.mla_latent_cache:
             attn = self._latent_attend(h, cache, slots, cos_sin, new_lengths,
                                        is_prefill, q_positions)
             return self._tail(x, h, attn, lora)
         q, k, v = self._qkv(h, cos_sin, lora)
+        if self.seq is not None:
+            return self._tail(x, h, self._seq_attend(
+                q, k, v, cache, new_lengths, is_prefill, positions), lora)
         self._write(lambda c, n: write_block(c, n, None, slots), cache, k, v)
         cap = self.cfg.attn_softcap
         if is_prefill:
@@ -897,6 +910,50 @@ class Block(nn.Module):
                                  q_positions=q_positions, sinks=self.sinks,
                                  plain=self.plain)
         return self._tail(x, h, attn, lora)
+
+    def _seq_attend(self, q, k, v, cache, new_lengths, is_prefill: bool,
+                    positions):
+        """Attention under sp (parallel/ring.py) over this rank's cache
+        shard, which holds positions [lo, lo + cache_len): a prefill
+        chunk's ring, each visiting chunk written where its positions
+        fall in the shard; or one decode token, written on the rank
+        that owns its position (the others keep their slot's bits), then
+        the combined partials. The prefill attends the fresh K/V, the
+        decode the (dequantized) shard, as the single-rank regimes do."""
+        sh, cap = self.seq, self.cfg.attn_softcap
+        if is_prefill:
+            c = q.shape[1]
+            valid = positions < new_lengths.long()[:, None]
+
+            def write_chunk(kc, vc, origin):
+                at = sh.owned(origin, c)
+                if at is not None:
+                    src, dst = at
+                    self._write(lambda t, n: t[:, dst].copy_(
+                        n[:, src].to(t.dtype)), cache, kc, vc)
+
+            return ring_attend_prefill(
+                q, k, v, positions, valid, sh, sliding_window=self.window,
+                alibi=self.alibi, softcap=cap, on_chunk=write_chunk)
+        B = q.shape[0]
+        slot = new_lengths.long() - 1 - sh.lo
+        own = (slot >= 0) & (slot < sh.cache_len)
+        slot = slot.clamp(0, sh.cache_len - 1)
+        rows = torch.arange(B, device=q.device)
+
+        def write_token(t, n):
+            keep = own.view(-1, *([1] * (n.dim() - 2)))
+            t[rows, slot] = torch.where(keep, n[:, 0].to(t.dtype),
+                                        t[rows, slot])
+
+        self._write(write_token, cache, k, v)
+        ck, cv, cks, cvs = cache
+        if cks is not None:
+            ck, cv = (dequant_kv(ck, cks, q.dtype),
+                      dequant_kv(cv, cvs, q.dtype))
+        return ring_attend_decode(q, ck, cv, new_lengths, sh,
+                                  sliding_window=self.window,
+                                  alibi=self.alibi, softcap=cap)
 
     def paged_prefill(self, x, cache, cos_sin, tail_blocks, prefix_blocks,
                       prefix_len, q_positions, tail_valid, lora=None):
@@ -1000,14 +1057,31 @@ class Transformer(nn.Module):
     """The whole model over the dense cache. ``params`` is the port's flat
     dict (models/params.py); the modules hold those tensors, no copy.
     With ``tp``, ``params`` is this rank's shard (parallel/sharding.py)
-    and every forward runs in lockstep with the other ranks."""
+    and every forward runs in lockstep with the other ranks.
+
+    A pp stage (``layers``: the global indices it holds) builds each of
+    its blocks with its global index, so every per-layer switch (window,
+    rope, a mixed stack's segment) is pp=1's; the first stage embeds, the
+    last holds the final norm and the head (and, tied, the table).
+    ``forward`` is ``embed``, ``run_layers`` and ``head``, which
+    parallel/pipeline.py calls per microbatch on each stage. Under sp
+    (``seq``, parallel/ring.py) a prefill block's tokens are cut to this
+    rank's chunk, each block attends by the ring, and the head assembles
+    the chunks' logits over the sp group."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                 tp: Optional[TPGroup] = None):
+                 tp: Optional[TPGroup] = None, *,
+                 layers: Optional[range] = None,
+                 seq: Optional[SeqShard] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.tp = tp
+        self.seq = seq
+        self.layer_range = (range(cfg.num_layers) if layers is None
+                            else layers)
+        self.first = self.layer_range.start == 0
+        self.last = self.layer_range.stop == cfg.num_layers
         self.dtype = torch_dtype(cfg.dtype)
         # [H] slopes and a scaled RoPE ladder (llama3, yarn, ...), built
         # once on the model's device: a captured step must not copy them
@@ -1024,18 +1098,22 @@ class Transformer(nn.Module):
         if cfg.rope_inv_freq is not None:
             self.rope_inv_freq = torch.tensor(
                 cfg.rope_inv_freq, dtype=torch.float32, device=device)
-        self.embed = Embed(cfg, params, self.dtype, tp)
+        self.embed = None
+        if self.first or (self.last and cfg.tie_word_embeddings):
+            self.embed = Embed(cfg, params, self.dtype, tp,
+                               table_only=not self.first)
         self.layers = nn.ModuleList([
             Block(cfg.layer_cfg(i),
                   {k[len(f"layers.{i}."):]: t for k, t in params.items()
                    if k.startswith(f"layers.{i}.")}, tp, self.alibi,
-                  i, self.dtype)
-            for i in range(cfg.num_layers)])
-        self.final_norm = (None if cfg.post_norm
+                  i, self.dtype, seq)
+            for i in self.layer_range])
+        last = self.last
+        self.final_norm = (None if cfg.post_norm or not last
                            else _norm(cfg, params, "final_norm"))
         self.project_out = (Linear(_leaf(params, "embed.project_out"))
-                            if cfg.embed_proj_dim else None)
-        self.lm_head = (None if cfg.tie_word_embeddings
+                            if cfg.embed_proj_dim and last else None)
+        self.lm_head = (None if cfg.tie_word_embeddings or not last
                         else Linear(_leaf(params, "lm_head")))
 
     def unembed(self, x):
@@ -1090,19 +1168,55 @@ class Transformer(nn.Module):
         row's adapter (``LoRARows``), None for the base model. Returns
         (logits [B, s or 1, V] f32, cache). Invariant, as in the
         reference: slot index == absolute position."""
-        cfg = self.cfg
-        B, s = tokens.shape
+        if self.seq is not None and is_prefill:
+            tokens, q_positions = (self.seq.chunk(tokens),
+                                   self.seq.chunk(q_positions))
         x = self.embed(tokens, q_positions)
+        x = self.run_layers(x, cache, write_starts, q_positions, new_lengths,
+                            is_prefill, lora)
+        return (self.head(x, gather, is_prefill),
+                dataclasses.replace(cache, lengths=new_lengths))
+
+    def run_layers(self, x, cache: KVCache, write_starts, q_positions,
+                   new_lengths, is_prefill: bool = False,
+                   lora: Optional[LoRARows] = None):
+        """This model's (or stage's) blocks over hidden states x [B, s,
+        D], its cache holding its layers: ``forward``'s arguments."""
+        s = x.shape[1]
         cos_sin = self._cos_sin(q_positions)
-        slots = block_slots(write_starts, s, cache.max_seq)
+        slots = (None if self.seq is not None
+                 else block_slots(write_starts, s, cache.max_seq))
         q_multi = None if is_prefill or s == 1 else q_positions
         for i, layer in enumerate(self.layers):
             x = layer(x, cache.layer(i), slots, cos_sin, new_lengths,
-                      is_prefill, q_multi, lora)
+                      is_prefill, q_multi, lora, positions=q_positions)
+        return x
+
+    def head(self, x, gather=None, is_prefill: bool = False):
+        """Logits of the last blocks' output x [B, s, D]: of position
+        ``gather`` [B] per row (else of every position). Under sp a
+        prefill's x is this rank's chunk: a gathered row's logits come
+        from the rank whose chunk holds its position, every row's over
+        the sp group (one combine), as do a whole block's chunks."""
+        B = x.shape[0]
+        rows = torch.arange(B, device=x.device)
+        sharded = self.seq is not None and is_prefill
+        if gather is not None and sharded:
+            c = x.shape[1]
+            idx = gather.long() - self.seq.rank * c
+            own = (idx >= 0) & (idx < c)
+            logits = self.unembed(x[rows, idx.clamp(0, c - 1)][:, None])
+            return self.seq.group.all_reduce(
+                torch.where(own[:, None, None], logits, 0.0), key="combine")
         if gather is not None:
-            x = x[torch.arange(B, device=x.device), gather][:, None]
-        return self.unembed(x), dataclasses.replace(cache,
-                                                    lengths=new_lengths)
+            x = x[rows, gather][:, None]
+        logits = self.unembed(x)
+        if sharded:
+            c = logits.shape[1]
+            full = logits.new_zeros(B, c * self.seq.world, logits.shape[-1])
+            full[:, self.seq.rank * c:(self.seq.rank + 1) * c] = logits
+            logits = self.seq.group.all_reduce(full, key="combine")
+        return logits
 
     def prefill(self, tokens, lengths, cache: KVCache, gather=None,
                 lora: Optional[LoRARows] = None):
@@ -1276,7 +1390,7 @@ class Transformer(nn.Module):
         gathered pool fits ``PREGATHER_MAX_BYTES``: every layer's blocks
         through ``s.bt`` into ``s.pool_k``/``s.pool_v`` [L, R, MB*bs,
         Hkv, hd] (an int8 pool dequantized), in place."""
-        for i in range(self.cfg.num_layers):
+        for i in range(len(self.layers)):
             kp, vp = gather_pool(paged.layer(i), s.bt, s.pool_k.dtype)
             s.pool_k[i].copy_(kp)
             s.pool_v[i].copy_(vp)

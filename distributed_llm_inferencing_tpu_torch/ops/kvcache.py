@@ -72,14 +72,15 @@ def dequant_kv(q, scale, dtype):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device=None, num_kv_heads=None) -> KVCache:
+               device=None, num_kv_heads=None, num_layers=None) -> KVCache:
     """A zeroed cache; ``num_kv_heads`` is a tp rank's share of the kv
     heads (parallel/sharding.py ``local_heads``), all of them by
-    default."""
+    default; ``num_layers`` a pp stage's layers, all by default
+    (``max_seq``: an sp rank's slice of the positions)."""
     dtype = torch_dtype(dtype or cfg.dtype)
     # mla_latent_cache: one shared [k_rot | c] row per token in the k
     # plane ([L, B, S, 1, rd + r]) and a zero-width v plane
-    shape = (cfg.num_layers, batch, max_seq,
+    shape = (num_layers or cfg.num_layers, batch, max_seq,
              num_kv_heads or cfg.cache_kv_heads, cfg.cache_head_dim)
     vshape = shape[:-1] + (cfg.cache_v_head_dim,)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)

@@ -89,13 +89,14 @@ class PagedKVCache:
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      dtype=None, device=None,
-                     num_kv_heads=None) -> PagedKVCache:
+                     num_kv_heads=None, num_layers=None) -> PagedKVCache:
     """A zeroed pool; ``num_kv_heads`` is a tp rank's kv heads
     (parallel/sharding.py ``local_heads``: the ones its q heads read, the
-    JAX package's ``paged_cache_specs``), all of them by default. An int8
-    pool's per-(token, head) scales follow the heads."""
+    JAX package's ``paged_cache_specs``), all of them by default, and
+    ``num_layers`` a pp stage's layers. An int8 pool's per-(token, head)
+    scales follow the heads."""
     dtype = torch_dtype(dtype or cfg.dtype)
-    shape = (cfg.num_layers, num_blocks, block_size,
+    shape = (num_layers or cfg.num_layers, num_blocks, block_size,
              num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_quant == "int8":
         return PagedKVCache(

@@ -40,6 +40,15 @@ plain cut, Hkv/tp contiguous heads.
 
 Every shard is a fresh contiguous tensor, so the full leaf it came from
 can be freed and a packed slice is aligned for the kernels.
+
+Pipeline stages (``stage_keep``): stage p of pp holds layers
+[p·L/pp, (p+1)·L/pp) whole, under their global names. Stage 0 holds the
+embedding (table, learned positions, bloom's norm, opt-350m's
+``project_in``); the last stage the final norm, ``project_out`` and the
+head, and with a tied head a copy of the table. The JAX package shards
+the stacked layer axis over pp (its ``param_specs``) and replicates the
+rest; a stage here keeps only what its layers and its end of the model
+read.
 """
 
 from __future__ import annotations
@@ -150,14 +159,43 @@ def shard_tensor(name: str, t: torch.Tensor, cfg, spec: MeshSpec, rank: int,
         memory_format=torch.contiguous_format)
 
 
-def chunk_markers(cfg, spec: MeshSpec, device=None
+def stage_range(cfg, spec: MeshSpec, stage: int) -> range:
+    """The global indices of the layers pp stage ``stage`` holds."""
+    n = cfg.num_layers // spec.pp
+    return range(stage * n, (stage + 1) * n)
+
+
+def stage_keep(cfg, spec: MeshSpec, stage: int):
+    """Whether pp stage ``stage`` holds stored tensor ``name`` (a
+    predicate on names; None at pp=1, where every rank holds all)."""
+    if spec.pp == 1:
+        return None
+    layers = stage_range(cfg, spec, stage)
+    first, last = stage == 0, stage == spec.pp - 1
+
+    def keep(name: str) -> bool:
+        if name.startswith("layers."):
+            return int(name.split(".", 2)[1]) in layers
+        if name.startswith("embed.tokens"):
+            return first or (last and cfg.tie_word_embeddings)
+        if name.startswith("embed.project_out"):
+            return last
+        if name.startswith("embed."):
+            return first
+        return last   # final_norm, lm_head
+    return keep
+
+
+def chunk_markers(cfg, spec: MeshSpec, device=None, layers=None
                   ) -> Dict[str, torch.Tensor]:
-    """The ``chunked`` markers of the repacked row-parallel int4 leaves."""
+    """The ``chunked`` markers of the repacked row-parallel int4 leaves
+    (of ``layers``, default every layer)."""
     if cfg.quant != "int4" or spec.tp == 1:
         return {}
     return {f"layers.{i}.{n}.chunked": torch.zeros(
         (spec.tp, 0), dtype=torch.int8, device=device)
-        for i in range(cfg.num_layers) for n in ROW}
+        for i in (layers if layers is not None else range(cfg.num_layers))
+        for n in ROW}
 
 
 def shard_params(params: Dict[str, torch.Tensor], cfg, spec: MeshSpec,

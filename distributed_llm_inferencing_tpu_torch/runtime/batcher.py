@@ -112,7 +112,22 @@ tier (ROADMAP Queue A item 9.12), ``kv_source`` / ``kv_export`` (9.13),
 ``resume`` and ``migrate_out`` (9.14), overlapped pairs (9.15) and
 adapters (9.11). A failed program (a follower gone) fails the requests
 in flight, marks the group broken and fails every later request at once.
-Not ported yet: pipeline parallelism and the phase profiler.
+
+Pipeline parallelism (``mesh_spec`` pp > 1, alone or with tp; the JAX
+batcher's pp programs, parallel/paged_pipeline.py): the slot count and
+each admission wave's rows are rounded up to a multiple of pp, the slots
+form pp microbatches, and every stage is a ``BatcherRank`` holding its
+layers and their slice of the pool, replaying the leader's programs as
+under tp: admission, the decode chunk (paged and fused routes by the
+same gate as at pp=1, an int8 pool's side buffers and flush) and the
+speculative chunk with per-slot widths (wave mode). The last stage
+samples; its outputs reach every rank in one broadcast per program.
+Refused under pp as under tp: the host tier, ``kv_source`` /
+``kv_export`` / ``/kv_fetch``, ``resume`` / ``/migrate_out`` (items
+9.12-9.14), overlapped pairs stay off (9.15); LoRA adapters under pp are
+a ``ValueError``, as in the JAX batcher. Batched serving with sp (or dp)
+is refused, as the JAX batcher refuses it: the scheduler owns the batch
+dimension. Not ported yet: the phase profiler.
 """
 
 from __future__ import annotations
@@ -132,6 +147,7 @@ import torch
 
 from distributed_llm_inferencing_tpu_torch.models import lora as lora_mod
 from distributed_llm_inferencing_tpu_torch.models.config import ModelConfig
+from distributed_llm_inferencing_tpu_torch.models.params import param_bytes
 from distributed_llm_inferencing_tpu_torch.models.transformer import (
     PREGATHER_MAX_BYTES, LoRARows, PagedChunkState, SpecChunkState,
     Transformer)
@@ -143,10 +159,11 @@ from distributed_llm_inferencing_tpu_torch.ops.sampling import (
     SamplingParams, sample_batch)
 from distributed_llm_inferencing_tpu_torch.ops.speculative import (
     AdaptiveSpecController)
+from distributed_llm_inferencing_tpu_torch.parallel import paged_pipeline
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
-    MeshSpec, TPGroup, validate_spec)
+    MeshSpec, TPGroup, grid_coords, validate_spec)
 from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
-    local_heads)
+    local_heads, stage_range)
 from distributed_llm_inferencing_tpu_torch.runtime import graphs, lockstep
 from distributed_llm_inferencing_tpu_torch.runtime import kvtier as kvtier_mod
 from distributed_llm_inferencing_tpu_torch.runtime import kvwire
@@ -291,19 +308,25 @@ class BatcherRank:
         inactive table entry points at."""
         cfg = self.cfg
         self.group = group
-        self.tp = spec.tp
+        if group is not None:
+            group.configure(spec)
+        self.tp, self.pp = spec.tp, spec.pp
         self.device = dev = (group.device if group is not None
                              else resolve_device(device))
         self.block_size, self.slots, self.max_seq = block_size, slots, max_seq
         self.max_blocks = -(-max_seq // block_size)
         self.kv_heads = local_heads(cfg, spec)[1]
-        self.params = rank_params(cfg, spec, group.rank if group else 0, dev,
-                                  params, seed, loader)
-        self.model = Transformer(cfg, self.params, group)
+        rank = group.rank if group else 0
+        self.params = rank_params(cfg, spec, rank, dev, params, seed, loader)
+        self.model = Transformer(
+            cfg, self.params, None if group is None else group.tp,
+            layers=stage_range(cfg, spec, grid_coords(spec, rank)[0]))
+        self.num_layers = len(self.model.layers)
         self._dummy = dummy
         self.paged = init_paged_cache(cfg, num_blocks, block_size,
-                                      device=dev, num_kv_heads=self.kv_heads)
-        # gloo collectives cannot be captured: under tp every program
+                                      device=dev, num_kv_heads=self.kv_heads,
+                                      num_layers=self.num_layers)
+        # gloo collectives cannot be captured: in a group every program
         # runs eagerly
         self._capture = graphs.enabled(dev) and group is None
         # the decode chunk's static buffers (made at the first chunk) and
@@ -328,8 +351,15 @@ class BatcherRank:
 
     def replay(self, kind: str, a: dict):
         """A follower's run of the leader's program ``kind``: the decode
-        chunk sizes and a speculative chunk's history ride in ``a``."""
+        chunk sizes, the leader's ``DLI_FUSED_DECODE`` (so every pp stage
+        takes the leader's decode route) and a speculative chunk's
+        history ride in ``a``."""
         self.DECODE_CHUNKS = a.pop("chunks")
+        fused = a.pop("fused_env")
+        if fused is None:
+            os.environ.pop("DLI_FUSED_DECODE", None)
+        else:
+            os.environ["DLI_FUSED_DECODE"] = fused
         if kind == "spec":
             self._hist = a.pop("hist")
         self._run_program(kind, a)
@@ -341,7 +371,10 @@ class BatcherRank:
         (``PagedKVCache.leaves``)."""
         out = dict(lockstep.rank_stats(self.group, self.device),
                    programs_run=self._programs_run,
-                   outputs_digest=self._outputs_digest)
+                   outputs_digest=self._outputs_digest,
+                   param_bytes=param_bytes(self.params),
+                   layers=[self.model.layer_range.start,
+                           self.model.layer_range.stop])
         if pool_blocks is not None:
             ix = torch.as_tensor(pool_blocks, device=self.device)
             out["pool"] = [t[:, ix].cpu() for t in self.paged.leaves()]
@@ -367,13 +400,22 @@ class BatcherRank:
         t = self._tensor
         lora = (LoRARows(self._lora_pack, t(a["aids"], torch.int64))
                 if "aids" in a else None)
-        last, self.paged = self.model.paged_prefill_tail(
-            t(a["toks"], torch.int64), t(a["tail_len"]), t(a["tail_alloc"]),
-            t(a["pfb"]), t(a["cached"]), self.paged, lora)
-        first = sample_batch(last, t(a["seeds"]), t(a["steps"]),
-                             t(a["temps"], torch.float32), t(a["tks"]),
-                             t(a["tps"], torch.float32),
-                             t(a["ds"], torch.bool))
+        args = (t(a["toks"], torch.int64), t(a["tail_len"]),
+                t(a["tail_alloc"]), t(a["pfb"]), t(a["cached"]), self.paged)
+        if self.pp > 1:   # the last stage samples, every rank gets it
+            last = paged_pipeline.prefill_tail_pp(self.model, self.group,
+                                                  *args)
+        else:
+            last, self.paged = self.model.paged_prefill_tail(*args, lora)
+        first = torch.empty(len(a["toks"]), dtype=torch.int64,
+                            device=self.device)
+        if last is not None:
+            first = sample_batch(last, t(a["seeds"]), t(a["steps"]),
+                                 t(a["temps"], torch.float32), t(a["tks"]),
+                                 t(a["tps"], torch.float32),
+                                 t(a["ds"], torch.bool)).long()
+        if self.pp > 1:
+            first = paged_pipeline.broadcast_from_last(self.group, first)
         return first.tolist()
 
     def _decode_program(self, use_lora: bool = False
@@ -387,7 +429,7 @@ class BatcherRank:
         if self._bufs is None:
             side = None
             if self.paged.quantized:   # the int8 chunk's side buffers
-                side = (self.cfg.num_layers, self.slots,
+                side = (self.num_layers, self.slots,
                         max(self.DECODE_CHUNKS), self.kv_heads,
                         self.cfg.head_dim, self.model.dtype)
             self._bufs = _ChunkBuffers(self.slots, self.max_blocks,
@@ -422,6 +464,10 @@ class BatcherRank:
             self._bufs.advance()
         else:
             self._bufs.load(a)
+        if self.pp > 1:
+            return paged_pipeline.decode_chunk_pp(
+                self.model, self.group, self._bufs.state, self.paged,
+                self._dummy, k)
         for _ in range(k):
             step()
         s = self._bufs.state
@@ -451,12 +497,13 @@ class BatcherRank:
                          if g == gamma and c == capture), None)
             cfg = self.cfg
             kmax = -(-max(self.DECODE_CHUNKS) // (gamma + 1))
-            row_bytes = (2 * self.model.dtype.itemsize * cfg.num_layers
+            row_bytes = (2 * self.model.dtype.itemsize * self.num_layers
                          * self.max_blocks * self.block_size
                          * self.kv_heads * cfg.head_dim)
             bufs = bufs or _SpecBuffers(
                 self.slots, self.max_blocks, self.max_seq + 1, kmax, gamma,
-                cfg, self.kv_heads, self.model.dtype, self.device,
+                cfg, self.num_layers, self.kv_heads, self.model.dtype,
+                self.device,
                 pool_tokens=(self.max_blocks * self.block_size
                              if self.slots * row_bytes
                              <= PREGATHER_MAX_BYTES else 0))
@@ -481,6 +528,12 @@ class BatcherRank:
         st = bufs.state
         if st.pool_k is not None:
             self.model.paged_spec_gather(st, self.paged)
+        if self.pp > 1:
+            out = paged_pipeline.spec_chunk_pp(
+                self.model, self.group, st, self.paged, self._dummy, k,
+                g).cpu().numpy()
+            return (out[..., :g + 1], out[..., g + 1],
+                    out[..., g + 2].astype(bool))
         for _ in range(k):
             prog()
         self.model.paged_spec_flush(st, self.paged, self._dummy)
@@ -540,12 +593,19 @@ class ContinuousBatcher(BatcherRank):
         # as the JAX batcher pins it (the latent layout is the engine's)
         self.cfg = cfg = cfg.replace(mla_latent_cache=False)
         self.mesh_spec = spec = mesh_spec or MeshSpec()
-        validate_spec(spec, cfg)
-        if spec.tp > 1 and kv_host_mb:
+        if spec.sp > 1:
             raise ValueError(
-                f"the host KV tier under tp (kv_host_mb={kv_host_mb}) is a "
-                "later slice of the port (ROADMAP Queue A item 9.12); load "
-                "with kv_host_mb 0 or without a mesh")
+                f"batched serving shards tensors (tp) and pipeline stages "
+                f"(pp); sp={spec.sp} unsupported (the slot scheduler owns "
+                "the batch dim), as in the JAX batcher")
+        validate_spec(spec, cfg)
+        if spec.world > 1 and kv_host_mb:
+            raise ValueError(
+                f"the host KV tier under tp or pp (kv_host_mb={kv_host_mb}) "
+                "is a later slice of the port (ROADMAP Queue A item 9.12); "
+                "load with kv_host_mb 0 or without a mesh")
+        # the slots microbatch over the pp stages (the JAX batcher's rule)
+        slots = -(-slots // spec.pp) * spec.pp
         self.block_size = block_size
         self.slots = slots
         self.max_seq = min(max_seq or cfg.max_position_embeddings,
@@ -568,11 +628,11 @@ class ContinuousBatcher(BatcherRank):
         self.metrics.gauge("batcher_queue_depth", 0.0)
         self.metrics.inc("batcher_requests_migrated", 0)
         # overlapped pairs continue a chunk on the device with no program
-        # boundary a follower could replay: off under tp (the JAX hook's
-        # rule; ROADMAP Queue A item 9.15)
+        # boundary a follower could replay: off under tp or pp (the JAX
+        # hook's rule; ROADMAP Queue A item 9.15)
         self._init_speculation(speculative, spec_gamma, spec_adaptive,
                                spec_wave,
-                               False if spec.tp > 1 else decode_overlap)
+                               False if spec.world > 1 else decode_overlap)
 
         # +1: block 0 is the reserved dummy every inactive table entry
         # points at, so it never carries real KV
@@ -587,8 +647,8 @@ class ContinuousBatcher(BatcherRank):
                     max_seq=self.max_seq, seed=seed, dummy=dummy,
                     loader=loader)
         self._leader = None
-        if spec.tp > 1:
-            self._leader = lockstep.leader(spec.tp, self.device)
+        if spec.world > 1:
+            self._leader = lockstep.leader(spec.world, self.device)
             cpu = (None if params is None
                    else {k: t.cpu() for k, t in params.items()})
             try:
@@ -606,10 +666,10 @@ class ContinuousBatcher(BatcherRank):
         self.block_tables = np.full((slots, self.max_blocks), self._dummy,
                                     np.int32)
         self.context_lens = np.zeros((slots,), np.int32)
-        # no host tier under tp (its restores would write one rank's pool
-        # alone; ROADMAP Queue A item 9.12)
-        self._init_kvtier(0 if spec.tp > 1 else kv_host_mb, kv_digest_chunk,
-                          kv_fetcher)
+        # no host tier under tp or pp (its restores would write one rank's
+        # pool alone; ROADMAP Queue A item 9.12)
+        self._init_kvtier(0 if spec.world > 1 else kv_host_mb,
+                          kv_digest_chunk, kv_fetcher)
         self._init_lora()
         self.active: List[Optional[BatchRequest]] = [None] * slots
         self._admit_order: collections.deque = collections.deque()
@@ -792,7 +852,7 @@ class ContinuousBatcher(BatcherRank):
                                ("resume", resume, "9.14")):
                 if v:
                     raise ValueError(
-                        f"{f} under tp is a later slice of the port "
+                        f"{f} under tp or pp is a later slice of the port "
                         f"(ROADMAP Queue A item {item})")
         if int(max_new_tokens) < 1:
             raise ValueError("max_new_tokens must be >= 1")
@@ -1005,7 +1065,11 @@ class ContinuousBatcher(BatcherRank):
         that needs it. Idempotent for a resident name. Returns ``{name,
         rank, nbytes, evicted}``; ValueError on any problem (a bad
         source, a shape mismatch, a store full of pinned adapters; under
-        tp, ROADMAP Queue A item 9.11)."""
+        tp, ROADMAP Queue A item 9.11; under pp, as the JAX batcher)."""
+        if self.mesh_spec.pp > 1:
+            raise ValueError(
+                "LoRA serving does not support pp > 1 (as the JAX batcher: "
+                "the pipelined programs hold no delta pack)")
         if self.group is not None:
             raise ValueError(
                 "LoRA adapters under tp are not ported yet (ROADMAP Queue A "
@@ -1160,7 +1224,8 @@ class ContinuousBatcher(BatcherRank):
         speculative chunk the drafting history."""
         if self._leader is None:
             return self._run_program(kind, a)
-        payload = dict(a, chunks=tuple(self.DECODE_CHUNKS))
+        payload = dict(a, chunks=tuple(self.DECODE_CHUNKS),
+                       fused_env=os.environ.get("DLI_FUSED_DECODE"))
         if kind == "spec":
             payload["hist"] = self._hist
         return self._leader.run(
@@ -1734,6 +1799,8 @@ class ContinuousBatcher(BatcherRank):
         only the reserved dummy block)."""
         bs = self.block_size
         b = self._bucket_wave(len(members))
+        pp = self.mesh_spec.pp   # wave rows microbatch over the stages
+        b = -(-b // pp) * pp
         a = {"toks": np.zeros((b, t), np.int64),
              "tail_len": np.ones((b,), np.int32),
              "tail_alloc": np.full((b, t // bs), self._dummy, np.int32),
@@ -2599,8 +2666,8 @@ class _SpecBuffers:
                   "aids")
 
     def __init__(self, rows: int, mb: int, hh: int, kmax: int, gamma: int,
-                 cfg, kv_heads: int, dtype, device: torch.device,
-                 pool_tokens: int = 0):
+                 cfg, num_layers: int, kv_heads: int, dtype,
+                 device: torch.device, pool_tokens: int = 0):
         self.rows, self.mb, self.hh = rows, mb, hh
         g1 = gamma + 1
         e = kmax * g1
@@ -2615,10 +2682,10 @@ class _SpecBuffers:
         self.floats = torch.empty(2 * rows, dtype=torch.float32,
                                   device=device)
         at = {f: rows_at + rows * i for i, f in enumerate(self.ROW_FIELDS)}
-        side = (cfg.num_layers, rows, e, kv_heads, cfg.head_dim)
+        side = (num_layers, rows, e, kv_heads, cfg.head_dim)
         pool = None
         if pool_tokens:
-            pool = (cfg.num_layers, rows, pool_tokens, kv_heads,
+            pool = (num_layers, rows, pool_tokens, kv_heads,
                     cfg.head_dim)
         self.state = SpecChunkState(
             bt=self.ints[:hist_at].view(rows, mb),

@@ -76,6 +76,18 @@ verify step's tokens and count), so the ranks agree on every step count.
 A ``stream_cb`` stays on the leader: the followers get only the flag that
 puts them on the same chunked path. A speculative request holds the
 lockstep lock across its ops. ``close`` stops the followers.
+
+Pipeline and sequence parallelism (``MeshSpec(pp=N, sp=M, tp=K)``, any
+composition; parallel/mesh.py lays the N·M·K ranks out as a grid): each
+pp stage holds its layers and their slice of the cache, and a prefill or
+a decode step runs the GPipe schedule over ``pipeline_microbatches``
+(parallel/pipeline.py ``Pipeline``); each sp rank holds a contiguous
+slice of the cache's positions, ``max_seq`` rounded down and the prompt
+bucket up to a multiple of sp, and attention runs as a ring
+(parallel/ring.py). The leader samples and broadcasts every token as
+under tp. Refused as the JAX engine refuses them: ``load_adapter`` under
+pp, speculation under pp or sp; the latent cache is off under either
+(latent attention serves materialized).
 """
 
 from __future__ import annotations
@@ -106,9 +118,12 @@ from distributed_llm_inferencing_tpu_torch.ops.sampling import (
 from distributed_llm_inferencing_tpu_torch.ops.speculative import (
     AdaptiveSpecController, propose_ngram, verify_step)
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
-    MeshSpec, TPGroup, validate_spec)
+    MeshSpec, TPGroup, grid_coords, validate_spec)
+from distributed_llm_inferencing_tpu_torch.parallel.pipeline import Pipeline
+from distributed_llm_inferencing_tpu_torch.parallel.ring import SeqShard
 from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
-    chunk_markers, local_heads, shard_params, shard_tensor)
+    chunk_markers, local_heads, shard_params, shard_tensor, stage_keep,
+    stage_range)
 from distributed_llm_inferencing_tpu_torch.runtime import graphs, lockstep
 from distributed_llm_inferencing_tpu_torch.utils.device import resolve_device
 from distributed_llm_inferencing_tpu_torch.utils.metrics import Metrics
@@ -208,39 +223,54 @@ class _Rows:
             self.programs.pop(key).release()
 
 
-def latent_cache(cfg: ModelConfig) -> bool:
+def latent_cache(cfg: ModelConfig, spec: Optional[MeshSpec] = None) -> bool:
     """Whether the engine serves ``cfg`` from the latent cache (the JAX
-    engine's rule): latent attention with no int8 KV cache, no window and
-    no score softcap, unless ``DLI_MLA_LATENT=0`` asks for the
-    materialized layout. The port runs no sp or pp mesh, and its tp
-    refuses latent attention (``tp_gaps``)."""
+    engine's rule): latent attention with no int8 KV cache, no window, no
+    score softcap and no sp or pp axis, unless ``DLI_MLA_LATENT=0`` asks
+    for the materialized layout (tp refuses latent attention,
+    ``tp_gaps``)."""
+    spec = spec or MeshSpec()
     return (cfg.mla and cfg.kv_quant is None and cfg.sliding_window is None
             and cfg.attn_windows is None and cfg.attn_softcap is None
+            and spec.sp == 1 and spec.pp == 1
             and os.environ.get("DLI_MLA_LATENT") != "0")
 
 
 def rank_params(cfg: ModelConfig, spec: MeshSpec, rank: int, dev,
                 params=None, seed: int = 0, loader: Optional[Callable] = None):
-    """Rank ``rank``'s weights on ``dev`` (all of them at tp=1): from
-    ``loader(device, shard)`` (a checkpoint, models/checkpoint.py
-    ``CheckpointSource.load``: every rank reads the files and keeps its
-    cut), from the caller's tree, or drawn from ``seed``."""
-    cut = ((lambda n, t: shard_tensor(n, t, cfg, spec, rank))
-           if spec.tp > 1 else None)
+    """Grid rank ``rank``'s weights on ``dev`` (all of them on one
+    device): its pp stage's leaves (parallel/sharding.py ``stage_keep``),
+    each cut to its tp rank's shard; from ``loader(device, shard)`` (a
+    checkpoint, models/checkpoint.py ``CheckpointSource.load``: every
+    rank reads its stage's tensors and keeps its cut), from the caller's
+    tree, or drawn from ``seed`` (every leaf drawn in pp=1's order, the
+    other stages' dropped as drawn)."""
+    stage, _, t_rank = grid_coords(spec, rank)
+    keep = stage_keep(cfg, spec, stage)
+    layers = stage_range(cfg, spec, stage)
+
+    def cut(n, t):
+        if keep is not None and not keep(n):
+            return None
+        return shard_tensor(n, t, cfg, spec, t_rank) if spec.tp > 1 else t
+    cut.keep = keep
     if loader is not None:
         params = loader(dev, cut)
-        params.update(chunk_markers(cfg, spec, dev))
+        params.update(chunk_markers(cfg, spec, dev, layers))
     elif params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = init_params(cfg, gen, dev, shard=cut)
-        params.update(chunk_markers(cfg, spec, dev))
+        params.update(chunk_markers(cfg, spec, dev, layers))
     else:
         # weight-only quantization of a float tree (ops/quant.py), on
         # the device, one weight at a time, before any cut (a scale
         # spans the whole din); a quantized tree passes
         params = shard_params(maybe_quantize_embed(maybe_quantize(
-            {k: t.to(dev) for k, t in params.items()}, cfg), cfg),
-            cfg, spec, rank)
+            {k: t.to(dev) for k, t in params.items()
+             if keep is None or keep(k)}, cfg), cfg), cfg,
+            MeshSpec(tp=spec.tp), t_rank)
+        if keep is not None:   # the other stages' chunk markers
+            params = {k: t for k, t in params.items() if keep(k)}
     return params
 
 
@@ -265,13 +295,19 @@ class InferenceEngine:
                  max_seq: Optional[int] = None, seed: int = 0, device=None,
                  metrics: Optional[Metrics] = None,
                  group: Optional[TPGroup] = None,
-                 loader: Optional[Callable] = None):
+                 loader: Optional[Callable] = None,
+                 pipeline_microbatches: Optional[int] = None):
         self.metrics = metrics or Metrics()
         self.mesh_spec = spec = mesh_spec or MeshSpec()
         validate_spec(spec, cfg)
-        self.cfg = cfg = cfg.replace(mla_latent_cache=latent_cache(cfg))
+        self.cfg = cfg = cfg.replace(
+            mla_latent_cache=latent_cache(cfg, spec))
         self.max_seq = min(max_seq or cfg.max_position_embeddings,
                            cfg.max_position_embeddings)
+        # sp cuts the cache's positions: rounded down, never past the
+        # model's window (the JAX engine's rule)
+        self.max_seq -= self.max_seq % spec.sp
+        self._n_micro = pipeline_microbatches
         self.group = group
         self._leader = None
         # one lockstep op, or one speculative request's ops, at a time
@@ -279,8 +315,8 @@ class InferenceEngine:
         self.device = base = resolve_device(device)
         if group is not None:
             self.device = group.device
-        if spec.tp > 1 and group is None:   # the leader: spawn the rest
-            self._leader = lockstep.leader(spec.tp, base)
+        if spec.world > 1 and group is None:   # the leader: spawn the rest
+            self._leader = lockstep.leader(spec.world, base)
             self.device = self._leader.group.device
             self.group = self._leader.group
             cpu = (None if params is None
@@ -288,7 +324,8 @@ class InferenceEngine:
             try:
                 self._leader.run("load", dict(
                     cfg=cfg, params=cpu, mesh_spec=spec, max_seq=max_seq,
-                    seed=seed, device=str(base), loader=loader),
+                    seed=seed, device=str(base), loader=loader,
+                    pipeline_microbatches=pipeline_microbatches),
                     lambda: self._load(params, seed, loader))
             except BaseException:
                 self._leader.stop()
@@ -304,11 +341,26 @@ class InferenceEngine:
         self._adapter_packs: dict = {}
 
     def _load(self, params, seed, loader=None):
-        """Build this rank's weights (``rank_params``) and model."""
-        rank = self.group.rank if self.group else 0
-        self.params = rank_params(self.cfg, self.mesh_spec, rank,
-                                  self.device, params, seed, loader)
-        self.model = Transformer(self.cfg, self.params, self.group)
+        """Lay the group out as the mesh's grid, then build this rank's
+        weights (``rank_params``), its stage's model over its tp and sp
+        groups, and the pipeline over it under pp (``runner``: what a
+        prefill or decode step calls)."""
+        spec, grp = self.mesh_spec, self.group
+        if grp is not None:
+            grp.configure(spec)
+        rank = grp.rank if grp else 0
+        self.params = rank_params(self.cfg, spec, rank, self.device, params,
+                                  seed, loader)
+        stage = grid_coords(spec, rank)[0]
+        seq = None
+        if spec.sp > 1:
+            seq = SeqShard(grp.sp_ring, grp.sp, grp.coords[1], spec.sp,
+                           self.max_seq // spec.sp)
+        self.model = Transformer(
+            self.cfg, self.params, None if grp is None else grp.tp,
+            layers=stage_range(self.cfg, spec, stage), seq=seq)
+        self.runner = (Pipeline(self.model, grp, self._n_micro)
+                       if spec.pp > 1 else self.model)
 
     def _op(self, name: str, _local: Optional[dict] = None, **kw):
         """Run ``_<name>`` here, and on every follower under tp with
@@ -344,24 +396,30 @@ class InferenceEngine:
                 f"(context window {self.cfg.max_position_embeddings})")
 
     def _prefill(self, prompts, cache, gather, lora=None):
-        """Right-pad ``prompts`` into their bucket and prefill ``cache``;
-        ``gather``: keep only each prompt's last position; ``lora``: the
-        rows' adapter."""
+        """Right-pad ``prompts`` into their bucket (under sp rounded up to
+        a multiple of sp) and prefill ``cache``; ``gather``: keep only
+        each prompt's last position; ``lora``: the rows' adapter."""
         lens = [len(p) for p in prompts]
         s0 = min(_bucket(max(lens)), self.max_seq)
+        sp = self.mesh_spec.sp
+        s0 = min(s0 + (-s0 % sp), self.max_seq)
         host = torch.zeros((len(prompts), s0), dtype=torch.int64)
         for i, p in enumerate(prompts):
             host[i, :len(p)] = torch.as_tensor(p, dtype=torch.int64)
         lengths = torch.tensor(lens, dtype=torch.int32, device=self.device)
         self._buckets_seen.add(s0)
-        return self.model.prefill(
+        return self.runner.prefill(
             host.to(self.device), lengths, cache,
             gather=(lengths - 1).long() if gather else None, lora=lora)
 
     def _cache(self, batch: int):
-        heads = local_heads(self.cfg, self.mesh_spec)[1]
-        return init_cache(self.cfg, batch, self.max_seq, device=self.device,
-                          num_kv_heads=heads)
+        """A dense cache of this rank's share: its tp kv heads, its pp
+        stage's layers, its sp slice of the positions."""
+        spec = self.mesh_spec
+        return init_cache(self.cfg, batch, self.max_seq // spec.sp,
+                          device=self.device,
+                          num_kv_heads=local_heads(self.cfg, spec)[1],
+                          num_layers=len(self.model.layers))
 
     def _state(self, batch: int) -> _Rows:
         """The kept ``_Rows`` of ``batch``, made on first use; making one
@@ -392,7 +450,7 @@ class InferenceEngine:
     def _decode_step(self, st: _Rows, sp, lora=None):
         """One decode step of every row over ``st``, in place: the
         program a decode program runs (captured or eager)."""
-        logits, _ = self.model.decode_step(st.cur[:, None], st.cache, lora)
+        logits, _ = self.runner.decode_step(st.cur[:, None], st.cache, lora)
         self._advance(st, logits[:, 0], sp)
 
     def _verify(self, st: _Rows, sp, gamma: int):
@@ -443,10 +501,14 @@ class InferenceEngine:
         checkpoint directory or a ``synth:`` URI). ValueError on any
         problem. Reloading a name replaces its pack and releases its
         decode programs."""
+        if self.mesh_spec.pp > 1:
+            raise ValueError(
+                "LoRA serving does not support pp > 1 (as the JAX engine: "
+                "the stages hold no delta pack)")
         if self.group is not None:
             raise ValueError(
-                "LoRA adapters under tp are not ported yet (ROADMAP Queue A "
-                "item 9.11); load the model without a mesh")
+                "LoRA adapters under tp or sp are not ported yet (ROADMAP "
+                "Queue A item 9.11); load the model without a mesh")
         if adapter is None:
             adapter = lora_mod.resolve(self.cfg, name, source)
         else:
@@ -602,6 +664,9 @@ class InferenceEngine:
             raise ValueError(f"unknown speculative mode {mode!r}")
         if len(prompts) != 1:
             raise ValueError("speculative decoding serves one sequence")
+        if self.mesh_spec.sp > 1 or self.mesh_spec.pp > 1:
+            raise ValueError("speculative decoding supports tp meshes (not "
+                             "sp or pp, as the JAX engine)")
         gamma = max(1, int(gamma))
         prompt = [int(t) for t in prompts[0]]
         if not prompt:
@@ -740,7 +805,7 @@ class InferenceEngine:
         steps = []
         for row in forced:
             tok = torch.tensor(row, dtype=torch.int64, device=self.device)
-            logits, cache = self.model.decode_step(tok[:, None], cache)
+            logits, cache = self.runner.decode_step(tok[:, None], cache)
             steps.append(logits[:, 0].cpu())
         first = first[:, 0] if last_only else first
         return first.cpu(), torch.stack(steps) if steps else None
@@ -752,7 +817,10 @@ class InferenceEngine:
         return out if self._leader is not None else [out]
 
     def _stats(self):
-        return lockstep.rank_stats(self.group, self.device)
+        return dict(lockstep.rank_stats(self.group, self.device),
+                    param_bytes=param_bytes(self.params),
+                    layers=[self.model.layer_range.start,
+                            self.model.layer_range.stop])
 
     def reset_counts(self):
         """Zero the kernel launch and collective counts on every rank."""

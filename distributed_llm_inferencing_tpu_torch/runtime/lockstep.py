@@ -1,15 +1,17 @@
-"""Lockstep execution of one engine or batcher over a tp group of processes.
+"""Lockstep execution of one engine or batcher over a group of processes.
 
 The port's counterpart of the JAX package's ``runtime/multihost.py``
 (``LockstepExecutor``): every rank launches the same ops in the same
-order, so the collectives inside each forward pair up. The process that
-serves (the worker, rank 0) is the leader. It spawns ``tp - 1`` follower
-processes (a ``spawn`` context: CUDA state does not survive a fork),
-which join the group (parallel/mesh.py ``TPGroup``), then loop on the ops
-the leader broadcasts over the control group:
+order, so the collectives and hops inside each forward pair up. The
+process that serves (the worker, rank 0) is the leader. It spawns
+``pp·sp·tp - 1`` follower processes (a ``spawn`` context: CUDA state does
+not survive a fork), which join the group (parallel/mesh.py ``TPGroup``),
+then loop on the ops the leader broadcasts over the control group:
 
 - ``load``: build the rank's engine (runtime/engine.py) from the leader's
-  arguments; every rank reports whether it succeeded;
+  arguments, after laying the group out as the mesh's grid
+  (``TPGroup.configure``: the tp, sp and pp subgroups of this load);
+  every rank reports whether it succeeded;
 - ``generate`` / ``teacher_forced``, and a speculative request's
   ``spec_prefill`` / ``spec_plain`` / ``spec_verify``: run the rank's
   side of the request. The leader resolves the seed and validates the
@@ -18,24 +20,28 @@ the leader broadcasts over the control group:
   so every rank runs the same number of steps;
 - ``batcher_load``: build the rank's side of a batched model
   (runtime/batcher.py ``BatcherRank``: its shard of the weights and of
-  the paged pool, no scheduler); every rank reports;
+  the paged pool, under pp its stage's; no scheduler); every rank
+  reports;
 - ``batcher_program``: one device program of the leader's scheduler
   (``kind`` "admit", "decode" or "spec") with its full host inputs,
-  replayed in order (the JAX package's ``program_hook``). Every rank
-  samples from the gathered logits, the same bits on every rank, so
-  every rank ends each program with the same tokens and history;
+  replayed in order (the JAX package's ``program_hook``). Under tp every
+  rank samples from the gathered logits, the same bits on every rank;
+  under pp the last stage samples and broadcasts; so every rank ends
+  each program with the same tokens and history;
 - ``stats`` / ``batcher_stats`` / ``reset_counts``: each rank's kernel
   launch counts and collective counts (a batcher rank adds its programs
   run and a digest of their outputs), gathered on the leader, or zeroed;
 - ``stop`` / ``batcher_stop``: leave the loop and exit;
-- ``release`` (``DLI_TP_KEEP_GROUPS=1``): drop the rank's model and wait
-  for the next load.
+- ``release`` (``DLI_TP_KEEP_GROUPS=1``): drop the rank's model and its
+  grid's subgroups, and wait for the next load.
 
 With ``DLI_TP_KEEP_GROUPS=1`` (off by default; tests and the smoke,
 which build many tp models in one process) a healthy group that an
 engine or batcher stops is released instead, kept idle, and the next
-``leader`` of its size on its device takes it, so a script pays one
-spawn per group size; ``stop_idle_groups`` ends the kept ones. Without
+``leader`` of its size on its device takes it, whatever its grid (a kept
+pair serves tp=2, pp=2 or sp=2 alike: each load builds its subgroups),
+so a script pays one spawn per group size; ``stop_idle_groups`` ends the
+kept ones. Without
 it every model spawns its followers and its unload joins them.
 
 Failure is loud. A follower that fails to load makes the load fail; one
@@ -107,11 +113,13 @@ def reset_launch_counts():
 
 
 def rank_stats(group, device) -> dict:
-    """This rank's kernel launches and, under tp, data collectives."""
+    """This rank's kernel launches and, in a group, data collectives and
+    hops and its place on the grid (p, s, t)."""
     out = {"rank": group.rank if group else 0, "device": str(device),
            "launches": launch_counts()}
     if group is not None:
         out["collectives"] = dict(group.counts)
+        out["grid"] = dict(zip(("pp", "sp", "tp"), group.coords))
     return out
 
 
@@ -126,7 +134,7 @@ def _keep_groups() -> bool:
 
 
 def leader(world: int, device: torch.device) -> "Leader":
-    """A tp group of ``world`` ranks on ``device``: a kept idle one
+    """A group of ``world`` ranks on ``device``: a kept idle one
     (``DLI_TP_KEEP_GROUPS=1``) whose followers are all alive, else a new
     one."""
     if _keep_groups():
@@ -234,7 +242,7 @@ class Leader:
         except Exception as e:   # a follower already gone
             self.broken = f"release: {type(e).__name__}: {e}"
             return False
-        self.group.counts = dict.fromkeys(self.group.counts, 0)
+        self.group.release_grid()
         with _IDLE_LOCK:
             _IDLE.setdefault(self._key, []).append(self)
         return True
@@ -294,6 +302,7 @@ def follower_main(rank: int, world: int, device: str, store: str,
             break
         if op == "release":
             served = None
+            group.release_grid()
             gc.collect()
             if group.device.type == "cuda":
                 torch.cuda.empty_cache()

@@ -11,11 +11,12 @@ so the reference master can drive either worker:
   inventory from torch.cuda (``platform``, ``kind``, ``count``), loaded
   models (with ``serving``, the weight quantization, ``param_bytes`` —
   the bytes the weights take as stored — and, for batched models, the
-  scheduler's stats; for engine-mode ones the ``mesh``, and under tp the
-  data collectives' ``backend``, with ``param_bytes`` one rank's share;
+  scheduler's stats; for engine-mode ones the ``mesh``'s axis sizes, and
+  in a group (tp, pp or sp) the data collectives' ``backend``, with
+  ``param_bytes`` one rank's share;
   for both the decode programs kept, how many are captured CUDA graphs
   and the bytes their pool holds, runtime/graphs.py; a batched model's
-  scheduler stats carry its ``mesh`` and, under tp, ``backend`` too),
+  scheduler stats carry its ``mesh`` and, in a group, ``backend`` too),
   metrics.
 - ``GET /metrics``: the metrics registry as Prometheus text exposition.
 - ``POST /load_model``: ``model_name``; the weights from
@@ -29,8 +30,9 @@ so the reference master can drive either worker:
   directory when it holds tokenizer files), ``dtype``,
   ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
   ops/quant.py), ``embed_quantize`` (``"int8"``: the per-row int8
-  embedding table), ``mesh`` (``{"tp": N}``: tensor parallelism over N
-  ranks in either mode; parallel/mesh.py) — builds an
+  embedding table), ``mesh`` (``{"tp": N}``, ``{"pp": N}`` in either
+  mode, ``{"sp": N}`` in engine mode, and their compositions: a grid
+  of pp·sp·tp ranks; parallel/mesh.py) — builds an
   ``InferenceEngine`` (engine mode, the default),
   or with ``"serving": "batched"`` a ``ContinuousBatcher`` over a paged KV
   pool (``kv_blocks``, ``kv_block_size``, ``slots``, ``prefill_chunk``,
@@ -132,17 +134,21 @@ checkpoint the port cannot serve (a path that is not a local directory,
 a converter type or config switch outside the ported families, a tensor
 the files lack, a JAX Orbax directory, tokenizer files on a node without
 ``transformers``), and a
-``mesh`` the port cannot serve (an axis other than tp above 1, items 9.4,
-9.7 and 9.8; tp with the experts, latent attention, ``qkv_clip`` or
-sinks, item 9.8; or a tp the model's shapes do not divide), and a model
-whose config switches on a feature outside the ported families
-(models/transformer.py ``check_supported``). A batched model under tp
-refuses what its followers cannot replay: a load's ``kv_host_mb`` above
-0 (the host KV tier, item 9.12; a tp load has no tier unless asked),
-an /inference ``kv_source`` or ``kv_export`` and ``/kv_fetch`` (item
-9.13), ``resume`` and ``/migrate_out`` (item 9.14), and
-``/load_adapter`` under tp in either mode (item 9.11); its overlapped
-decode pairs are off (item 9.15).
+``mesh`` the port cannot serve (dp, item 9.16, or ep, item 9.8, above
+1; tp with the experts, latent attention, ``qkv_clip`` or sinks, item
+9.8; or a tp the model's shapes do not divide), and a model whose config
+switches on a feature outside the ported families
+(models/transformer.py ``check_supported``). Refused as the JAX worker
+refuses them: batched serving with sp (the scheduler owns the batch
+dimension), pp that does not divide the layers or over a mixed
+dense/MoE stack, sp with sinks or with tp above the kv heads, and
+``/load_adapter`` under pp. A batched model under tp or pp refuses what
+its followers cannot replay: a load's ``kv_host_mb`` above 0 (the host
+KV tier, item 9.12; such a load has no tier unless asked), an
+/inference ``kv_source`` or ``kv_export`` and ``/kv_fetch`` (item 9.13),
+``resume`` and ``/migrate_out`` (item 9.14), and ``/load_adapter``
+under tp in either mode (item 9.11); its overlapped decode pairs are off
+(item 9.15).
 
 Run: ``python -m distributed_llm_inferencing_tpu_torch worker --port 8100``
 (``--device cpu`` for the plain-PyTorch path without a GPU).
@@ -506,6 +512,11 @@ class WorkerAgent:
             mesh = MeshSpec.from_dict(body.get("mesh") or {})
         except (TypeError, ValueError) as e:
             return 400, {"status": "error", "message": f"mesh: {e}"}
+        if body.get("serving") == "batched" and (mesh.sp > 1 or mesh.dp > 1):
+            # the JAX worker's refusal, before any weight is read
+            return 400, {"status": "error",
+                         "message": "batched serving supports tp/pp mesh "
+                                    "axes; drop dp/sp or use default mode"}
         try:
             validate_spec(mesh, cfg)
         except (NotImplementedError, ValueError) as e:
@@ -519,15 +530,15 @@ class WorkerAgent:
             return 400, {"status": "error", "message": str(e)}
         params = loader = None
         try:
-            if source is not None and mesh.tp > 1:
+            if source is not None and mesh.world > 1:
                 loader = source.load   # every rank reads its own cut
             elif source is not None:
                 params = source.load(self.device)
-            # a batched tp load has no host tier unless it asks for one
+            # a batched tp or pp load has no host tier unless it asks
             # (then a 400: ROADMAP Queue A item 9.12)
             kv_host_mb = (float(body["kv_host_mb"])
                           if body.get("kv_host_mb") is not None
-                          else 0.0 if mesh.tp > 1 else None)
+                          else 0.0 if mesh.world > 1 else None)
             if body.get("serving") == "batched":
                 # continuous batching over the paged KV pool
                 # (runtime/batcher.py): requests share decode steps
@@ -778,8 +789,8 @@ class WorkerAgent:
             for f, item in TP_LATER_FIELDS.items():
                 if body.get(f):
                     raise ValueError(
-                        f"{f} on a batched model under tp is a later slice "
-                        f"of the port (ROADMAP Queue A item {item})")
+                        f"{f} on a batched model under tp or pp is a later "
+                        f"slice of the port (ROADMAP Queue A item {item})")
         if resume is not None and resume.get("seed") is not None:
             seed = int(resume["seed"])
         else:
@@ -1219,7 +1230,7 @@ class WorkerAgent:
                 and m.batcher.group is not None:
             return 400, {"status": "error",
                          "message": "/kv_fetch from a batched model under "
-                                    "tp is a later slice of the port "
+                                    "tp or pp is a later slice of the port "
                                     "(ROADMAP Queue A item 9.13)"}
         if m is None or m.batcher is None or m.batcher.kvtier is None:
             return 404, {"status": "error",
@@ -1286,9 +1297,9 @@ class WorkerAgent:
         if m is not None and m.batcher is not None \
                 and m.batcher.group is not None:
             return 400, {"status": "error",
-                         "message": "migration under tp is a later slice "
-                                    "of the port (ROADMAP Queue A item "
-                                    "9.14)"}
+                         "message": "migration under tp or pp is a later "
+                                    "slice of the port (ROADMAP Queue A "
+                                    "item 9.14)"}
         with self._tagged_lock:
             req = self._tagged.get(str(tag))
         if req is None:

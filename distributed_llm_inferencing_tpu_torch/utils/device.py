@@ -4,12 +4,13 @@ Entry points run on CUDA unless the caller asks for the CPU. A missing
 GPU is an error, never a quiet switch to the CPU: the CPU path runs the
 kernels' plain versions, which are a reference, not a serving path.
 
-Under tensor parallelism (parallel/mesh.py) rank r of a group runs on
-``cuda:(r % device_count)`` (``rank_device``), and the group's data
-collectives go over NCCL when every rank has a card of its own and over
-gloo when ranks share a card or run on the CPU (``data_backend``): NCCL
-refuses two ranks on one device. That is a rule of the layout, chosen
-before the group forms, not a fallback after a failure.
+In a group of ranks (parallel/mesh.py: a pp × sp × tp grid) rank r runs
+on ``cuda:(r % device_count)`` (``rank_device``), and the group's data
+collectives and hops, its subgroups' too, go over NCCL when every rank
+has a card of its own and over gloo when ranks share a card or run on
+the CPU (``data_backend``): NCCL refuses two ranks on one device. That
+is a rule of the layout, chosen before the group forms, not a fallback
+after a failure.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def inventory(device: torch.device) -> dict:
 
 
 def rank_device(device: torch.device, rank: int) -> torch.device:
-    """The device of tp rank ``rank`` when the group runs on ``device``'s
+    """The device of grid rank ``rank`` when the group runs on ``device``'s
     type: ``cuda:(rank % device_count)``, or the CPU."""
     if device.type == "cpu":
         return device

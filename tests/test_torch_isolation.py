@@ -79,7 +79,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "__main__.py", "ops/kvcache.py", "ops/kvblock_quant.py",
     "runtime/kvtier.py", "runtime/kvwire.py", "parallel/mesh.py",
     "parallel/sharding.py", "runtime/lockstep.py", "runtime/engine.py",
-    "ops/norms.py",
+    "ops/norms.py", "parallel/pipeline.py", "parallel/paged_pipeline.py",
+    "parallel/ring.py",
 ])
 def test_batched_serving_modules_are_scanned_and_clean(module):
     path = os.path.join(PORT, *module.split("/"))

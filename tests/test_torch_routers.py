@@ -221,8 +221,8 @@ def test_tp_refuses_experts_and_latent_attention_by_name(name, field):
 
 
 def test_pp_refuses_a_mixed_stack():
-    """The JAX package refuses pp for a dense-prefix stack; the port runs
-    no pp at all, and says so."""
+    """The JAX package refuses pp for a dense-prefix stack, and so does
+    the port, whose pp serves every uniform stack."""
     with pytest.raises(NotImplementedError, match="pp=2"):
         validate_spec(MeshSpec(pp=2), treg.get_config("tiny-deepseek"))
 

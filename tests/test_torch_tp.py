@@ -15,8 +15,8 @@ the CPU.
   mode); teacher-forced logits within 1e-4 of the JAX tp=2 forward's
   and of the port's tp=1 (f32: sums in another order).
 - The worker: ``"mesh": {"tp": 2}`` loads and serves; batched + tp with
-  a host KV tier, pp > 1 and a tp that does not divide the heads are
-  400s; /unload_model leaves no follower process alive.
+  a host KV tier, dp > 1, batched sp and a tp that does not divide the
+  heads are 400s; /unload_model leaves no follower process alive.
 
 Each tp engine spawns one follower (the port's own entry point, which
 imports neither jax nor this module) and joins it through a file store in
@@ -173,14 +173,21 @@ def test_shard_params_matches_jax_placement(quant):
 
 
 def test_validate_spec_refuses_what_the_slice_does_not_serve():
-    cfg = get_config("tiny-llama")      # H=8, Hkv=4, I=128, V=256
+    cfg = get_config("tiny-llama")      # H=8, Hkv=4, I=128, V=256, L=4
     validate_spec(MeshSpec(tp=2), cfg)
     validate_spec(MeshSpec(tp=4), cfg.replace(quant="int4"))
     validate_spec(MeshSpec(tp=8), cfg)  # tp > Hkv: the kv heads replicate
-    for spec in (MeshSpec(pp=2), MeshSpec(dp=2), MeshSpec(sp=2, tp=2),
-                 MeshSpec(ep=2)):
+    # pp and sp and their compositions serve (later slices)
+    for spec in (MeshSpec(pp=2), MeshSpec(sp=2, tp=2), MeshSpec(pp=4),
+                 MeshSpec(pp=2, sp=2, tp=2)):
+        validate_spec(spec, cfg)
+    for spec in (MeshSpec(dp=2), MeshSpec(ep=2)):
         with pytest.raises(NotImplementedError):
             validate_spec(spec, cfg)
+    with pytest.raises(ValueError):     # pp must divide the 4 layers
+        validate_spec(MeshSpec(pp=3), cfg)
+    with pytest.raises(ValueError):     # the ring shards the kv heads
+        validate_spec(MeshSpec(sp=2, tp=8), cfg)
     # the experts, latent attention, dbrx's clip and gpt-oss's sinks,
     # by name (ROADMAP Queue A item 9.8)
     for over in ({"qkv_clip": 8.0}, {"attn_sinks": True}):
@@ -308,7 +315,9 @@ def test_worker_serves_tp2_and_unload_stops_the_follower():
     try:
         for extra in ({"mesh": {"tp": 2}, "serving": "batched",
                        "kv_host_mb": 8},
-                      {"mesh": {"pp": 2}}, {"mesh": {"tp": 3}},
+                      {"mesh": {"dp": 2}},
+                      {"mesh": {"sp": 2}, "serving": "batched"},
+                      {"mesh": {"tp": 3}},
                       {"mesh": {"tp": 2, "nope": 1}}):
             r = requests.post(url + "/load_model", json={**base, **extra},
                               timeout=60)
