@@ -459,14 +459,57 @@ Phases (any failure fails the run, exit code != 0):
    pool, the int8 levels by ``_level_check``); pp=2 speculation, chunk
    and wave, greedy equal to plain with drafts accepted (sublayers
    scaled by SPEC_RESIDUAL_SCALE); pp x tp, sp x tp and pp x sp on one
-   group of four; gemma-2's windows and tied head, moe-proxy-8e's
-   experts and deepseek-proxy's latent attention (materialized; its
-   experts too), each in one microbatch (capacity dispatch counts a
-   call's positions), at pp=2; a window, bloom's ALiBi and gemma-2's
-   caps at sp=2; each
-   against one device within XCHECK_TOL. Report in
-   chiprun_out/phase22.json ("pp_sp_launches" per kernel, every
-   rank's).
+   group of four; gemma-2's windows and tied head at pp=2 (the experts'
+   and latent attention's pp rows run at pp=2 x ep=2 in phase 23 (c));
+   a window, bloom's ALiBi and gemma-2's caps at sp=2; each
+   against one device within XCHECK_TOL. The group of four stays kept
+   for phase 23. Report in chiprun_out/phase22.json ("pp_sp_launches"
+   per kernel, every rank's).
+23. Expert parallelism, and tp for the experts, latent attention,
+   qkv_clip and sinks (every rank on this card, gloo, eager; every model
+   on phase 22's kept group of four, each unload releasing it). (a)
+   mixtral-8x7b at full width and MIXTRAL_EP_LAYERS of its 32 layers
+   (the cut printed: 93.4 GB in bf16 at 32) through the worker with
+   "mesh": {"tp": 2, "ep": 2}: phase 3's three requests in engine mode,
+   then phase 5's eight bodies as one /inference_batch in bf16 and the
+   first MLA_EP_BODIES of them in int4, engine and bf16 first tokens
+   held against a tp=1 load of the same weights at the counts the card
+   gave (MIXTRAL_EP_EQUAL; ``_vs_tp1``: a router's near tie, broken the
+   other way by bf16 rounding, parts MoE tokens at once; the leader's
+   smallest router margin printed before each miss); every rank's
+   weight bytes exact by the closed-form cut rule (2 of 8 experts'
+   halves per layer, half of attention, the embedding and the head);
+   every rank's router inputs bit-equal (``route_digest``) and its
+   counts zeroed before each request or batch
+   and held after: flash_attention once per layer per prefill,
+   flash_decode once per layer per step, paged_flash_decode once per
+   layer per pass, no fused_decode_step (its gate is off under tp), in
+   int4 a q4_matmul per column-parallel linear (q, k, v, the head) and a
+   q4_matmul_row per o per pass (the experts take the plain unpack), the
+   all-reduces (the embedding's and o's), one expert all-reduce per
+   layer, the gather and the broadcasts by the rule; ms per step and
+   per pass. (b) deepseek-proxy at full width and all 12 layers, bf16,
+   tp=2 x ep=2: engine mode (phase 3's first request, MLA_EP_NEW tokens)
+   on the latent cache (its [12, B, S, 1, 160] row replicated on every
+   rank) and on the materialized one (8 of 16 heads per rank), the cache
+   bytes by formula, and the first MLA_EP_BODIES of phase 5's bodies
+   batched on the materialized pool; no attention kernel; tokens against
+   phase 20's tp=1 tokens on the same seed, the batched first tokens
+   held at MLA_EP_EQUAL, the engine's reported with the margin before
+   the miss (through 11 routed layers in bf16 they part at the first
+   near tie); the same model at
+   all 12 layers in f32 on both caches against tp=1 within XCHECK_TOL,
+   router margins printed. (c) 2 layers (dbrx 1), f32: the
+   EXPERT_XCHECK types at their public widths on their grids (EP_ROWS:
+   tp=2 x ep=2; deepseek_v3's two dense-prefix layers at tp=2 on both
+   caches; hunyuan_v1_moe at ep=4, its odd vocabulary not splitting
+   over tp), teacher-forced on two prompts of 37 and 64 positions (the
+   capacity arm) plus 8 decode steps, against phase 20's card logits on
+   the same seeded weights within XCHECK_TOL, each row's smallest
+   router margin printed beside its error; moe-proxy-8e and
+   deepseek-proxy (no dense prefix) at pp=2 x ep=2 in one microbatch
+   against one device. Report in chiprun_out/phase23.json
+   ("ep_moe_launches" per kernel, every rank's).
 
 Phase 2 also holds q4_matmul_row to Q4_TOL (bit-identical across two
 launches) at llama-3-8b's o and down shapes, chunk-local for 2 and 4
@@ -498,6 +541,9 @@ phase 21.
 
 ``python3 chip_smoke.py --pp-sp`` builds the kernels and runs only
 phase 22 (with its own pp=1 references).
+
+``python3 chip_smoke.py --ep-moe`` builds the kernels and runs only
+phase 23 (with its own tp=1 references).
 
 ``python3 chip_smoke.py --timed-rows`` builds the kernels and runs only
 phase 2's timed rows (``timed_rows``), printing each; from the root of
@@ -1683,6 +1729,11 @@ def _widen_levels_once(torch, model):
     return model
 
 
+# phase 20's card logits per experts row (``phase_cross_check(keep=)``),
+# phase 23's tp=1 references on the same seeded weights and inputs
+_CARD_LOGITS: dict = {}
+
+
 class _PlainKernels:
     """Within the block, the model's attention kernels are swapped for
     their plain versions (on the card: phase 6's way of running the plain
@@ -1704,9 +1755,83 @@ class _PlainKernels:
             setattr(mod, name, fn)
 
 
+def _xcheck_cfg(cfg, name, quant, layers):
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    return (cfg or get_config(name)).replace(num_layers=layers,
+                                             dtype="float32", quant=quant)
+
+
+def _xcheck_params(torch, cfg):
+    """The cross-check's weights, drawn on the card from seed 7."""
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        init_params)
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                       "cuda")
+
+
+def _dense_rows(torch, models, dev_of, plain_of=lambda key: False):
+    """Each model's teacher-forced dense path (``models``: key ->
+    ``Transformer``): a prefill of two prompts (37 and 64 tokens) and 8
+    decode steps, on device ``dev_of(key)`` (the attention kernels swapped
+    for their plain versions where ``plain_of(key)``). Returns (logits
+    rows on the host, caches) by key."""
+    from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
+    g = torch.Generator().manual_seed(8)
+    B, S0, max_seq = 2, 64, 96
+    lens = torch.tensor([37, 64], dtype=torch.int32)
+    cfg = next(iter(models.values())).cfg
+    toks = torch.randint(0, cfg.vocab_size, (B, S0), generator=g)
+    toks[0, 37:] = 0
+    forced = torch.randint(0, cfg.vocab_size, (8, B, 1), generator=g)
+    logits, caches = {}, {}
+    with torch.inference_mode():
+        for key, model in models.items():
+            dev = dev_of(key)
+            with _PlainKernels() if plain_of(key) else _Env():
+                cache = init_cache(model.cfg, B, max_seq, device=dev)
+                # the cache keeps the lengths tensor it is given and
+                # each decode step advances it in place: each model its
+                # own copy
+                lg, cache = model.prefill(toks.to(dev), lens.to(dev).clone(),
+                                          cache)
+                outs = [torch.cat([lg[0, :37], lg[1]]).cpu()]
+                for t in range(8):
+                    lg, cache = model.decode_step(forced[t].to(dev), cache)
+                    outs.append(lg[:, 0].cpu())
+            logits[key] = torch.cat(outs)
+            caches[key] = cache
+    return logits, caches
+
+
+def _host_side(torch, cfg, params=None):
+    """The host (plain versions, f32) side of a cross-check of ``cfg``
+    (``_xcheck_cfg``): its dense rows on the materialized and, with
+    latent attention, the latent cache, and its paged rows. ``params``:
+    the card's weights; without them they are drawn here from the same
+    seed and dropped from the card once copied, and the side runs as on
+    a thread while the card serves (phase 20): it reads and sets no
+    launch count and no environment (``_paged_run(count=False)``)."""
+    from distributed_llm_inferencing_tpu_torch.models.transformer import (
+        Transformer)
+    threaded = params is None
+    if threaded:
+        params = _xcheck_params(torch, cfg)
+    host = {k: t.cpu() for k, t in params.items()}
+    del params
+    models = {"cpu": _widen_levels_once(torch, Transformer(cfg, host))}
+    if cfg.mla:
+        models["cpu-latent"] = Transformer(
+            cfg.replace(mla_latent_cache=True), host)
+    logits, caches = _dense_rows(torch, models, lambda key: "cpu")
+    return {"logits": logits, "caches": caches,
+            "paged": _paged_run(torch, models["cpu"], "cpu",
+                                count=not threaded)}
+
+
 def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
                       routes=("paged", "fused"), cfg=None, layers=2,
-                      ref_on_card=False):
+                      ref_on_card=False, keep=None, host=None):
     """Card (kernels) against host (plain versions) at ``name``'s full
     width (or ``cfg``'s), ``layers`` layers, f32, with float weights or
     ``quant`` ("int8"/"int4") ones; the paged path once per decode
@@ -1715,48 +1840,27 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
     path is checked on the latent cache too. ``ref_on_card``: the
     reference runs on the card with the attention kernels swapped for
     their plain versions (``_PlainKernels``), where the host's f32
-    forward at the row's width would take too long."""
-    from distributed_llm_inferencing_tpu_torch.models.params import (
-        init_params)
-    from distributed_llm_inferencing_tpu_torch.models.registry import (
-        get_config)
+    forward at the row's width would take too long; ``host``: the host
+    side already computed (``_host_side``). ``keep``: the card's
+    dense-path logits are kept in ``_CARD_LOGITS[keep]`` (phase 23 holds
+    its grids against them: the same seeded weights and inputs)."""
     from distributed_llm_inferencing_tpu_torch.models.transformer import (
         Transformer)
-    from distributed_llm_inferencing_tpu_torch.ops.kvcache import init_cache
-    cfg = (cfg or get_config(name)).replace(num_layers=layers,
-                                            dtype="float32", quant=quant)
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
-                         "cuda")
-    host = params if ref_on_card else {k: t.cpu()
-                                       for k, t in params.items()}
-    models = {"cuda": Transformer(cfg, params),
-              "cpu": _widen_levels_once(torch, Transformer(cfg, host))}
-    g = torch.Generator().manual_seed(8)
-    B, S0, max_seq = 2, 64, 96
-    lens = torch.tensor([37, 64], dtype=torch.int32)
-    toks = torch.randint(0, cfg.vocab_size, (B, S0), generator=g)
-    toks[0, 37:] = 0
-    forced = torch.randint(0, cfg.vocab_size, (8, B, 1), generator=g)
-    logits, caches = {}, {}
-    n0 = (fa.flash_attention.launches, fa.flash_decode.launches,
-          qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
+    cfg = _xcheck_cfg(cfg, name, quant, layers)
+    params = _xcheck_params(torch, cfg)
+    models = {"cuda": Transformer(cfg, params)}
+    if ref_on_card:
+        models["cpu"] = _widen_levels_once(torch, Transformer(cfg, params))
     if cfg.mla:   # the latent cache's dense path beside the materialized
         lat = cfg.replace(mla_latent_cache=True)
-        models.update({"cuda-latent": Transformer(lat, params),
-                       "cpu-latent": Transformer(lat, host)})
-    with torch.inference_mode():
-        for key, model in models.items():
-            ref = key.startswith("cpu")
-            dev = "cuda" if ref_on_card or not ref else "cpu"
-            with _PlainKernels() if ref and ref_on_card else _Env():
-                cache = init_cache(model.cfg, B, max_seq, device=dev)
-                lg, cache = model.prefill(toks.to(dev), lens.to(dev), cache)
-                outs = [torch.cat([lg[0, :37], lg[1]]).cpu()]
-                for t in range(8):
-                    lg, cache = model.decode_step(forced[t].to(dev), cache)
-                    outs.append(lg[:, 0].cpu())
-            logits[key] = torch.cat(outs)
-            caches[key] = cache
+        models["cuda-latent"] = Transformer(lat, params)
+        if ref_on_card:
+            models["cpu-latent"] = Transformer(lat, params)
+    n0 = (fa.flash_attention.launches, fa.flash_decode.launches,
+          qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
+    logits, caches = _dense_rows(
+        torch, models, lambda key: "cuda",
+        lambda key: key.startswith("cpu"))
     n1 = (fa.flash_attention.launches, fa.flash_decode.launches,
           qm.q4_matmul.launches, qm.q4_matmul.launches_mma)
     # int4: prefill rows (2 x 64) and its full-row head take the plain
@@ -1768,6 +1872,10 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
     decode = 0 if cfg.kv_quant else 8 * layers * attn
     assert tuple(b - a for a, b in zip(n0, n1)) == (layers * attn, decode,
                                                     q4, 0), (n0, n1)
+    if not ref_on_card:
+        host = host or _host_side(torch, cfg, params)
+        logits.update(host["logits"])
+        caches.update(host["caches"])
     what = f"{name} {quant or 'float'} "
     tol = XCHECK_TOL
     if cfg.kv_quant:
@@ -1781,11 +1889,14 @@ def phase_cross_check(torch, fa, qm, quant=None, name="llama-3-8b",
         errs["dense_latent"] = _xcheck(torch, what + "dense, latent cache",
                                        logits["cuda-latent"],
                                        logits["cpu-latent"], tol)
+    if keep is not None:
+        _CARD_LOGITS[keep] = {k: logits[k] for k in ("cuda", "cuda-latent")
+                              if k in logits}
     if ref_on_card:
         with _PlainKernels():
             ref = _paged_run(torch, models["cpu"], "cuda")
     else:
-        ref = _paged_run(torch, models["cpu"], "cpu")
+        ref = host["paged"]
     for route in routes:
         errs[route] = _xcheck(torch, what + route,
                               _paged_run(torch, models["cuda"], "cuda",
@@ -1832,47 +1943,26 @@ def _xcheck(torch, what, a, b, tol=XCHECK_TOL):
     return float(err.max())
 
 
-def _paged_run(torch, model, dev, route=None):
+def _paged_run(torch, model, dev, route=None, count=True):
     """paged_prefill_tail (a 32-token prompt, then a wave of two tails, one
     reusing that prompt's blocks as its cached prefix) + 8 teacher-forced
     paged_decode_steps; decode attention through `route` ("paged" or
-    "fused") on the card. Returns the logits rows [N, V] on the host."""
+    "fused") on the card. Returns the logits rows [N, V] on the host.
+    ``count`` False (the host side on a thread, ``_host_side``): neither
+    the launch counts nor DLI_FUSED_DECODE are read or set; a model whose
+    fused gate is shut (``fused_decode.supported``) is the only one run
+    so."""
     from distributed_llm_inferencing_tpu_torch.ops import (
         fused_decode as fd, paged_attention as pa, quant_matmul as qm)
-    from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
-        init_paged_cache)
     cfg = model.cfg
-    V, bs = cfg.vocab_size, 16
-    g = torch.Generator().manual_seed(9)
-    i32 = dict(dtype=torch.int32, device=dev)
-    paged = init_paged_cache(cfg, 16, bs, device=dev)
-    prompt = torch.randint(0, V, (1, 32), generator=g)
-    tails = torch.randint(0, V, (2, 48), generator=g)
-    forced = torch.randint(0, V, (8, 2), generator=g)
+    if not count:
+        assert not fd.supported(cfg), cfg.name
+        return _paged_rows(torch, model, dev)
     os.environ["DLI_FUSED_DECODE"] = "1" if route == "fused" else "0"
     n0 = (pa.paged_flash_decode.launches, fd.fused_decode_step.launches,
           qm.q4_matmul.launches)
-    outs = []
     try:
-        with torch.inference_mode():
-            lg, _ = model.paged_prefill_tail(
-                prompt.to(dev), torch.tensor([32], **i32),
-                torch.tensor([[1, 2]], **i32), torch.tensor([[0, 0]], **i32),
-                torch.tensor([0], **i32), paged)
-            outs.append(lg.cpu())
-            lg, _ = model.paged_prefill_tail(
-                tails.to(dev), torch.tensor([20, 37], **i32),
-                torch.tensor([[3, 4, 5], [6, 7, 8]], **i32),
-                torch.tensor([[1, 2], [0, 0]], **i32),
-                torch.tensor([32, 0], **i32), paged)
-            outs.append(lg.cpu())
-            bt = torch.tensor([[1, 2, 3, 4], [6, 7, 8, 9]], **i32)
-            cl = torch.tensor([52, 37], **i32)
-            for t in range(8):
-                lg, _ = model.paged_decode_step(forced[t].to(dev), paged, bt,
-                                                cl)
-                outs.append(lg.cpu())
-                cl = cl + 1
+        rows = _paged_rows(torch, model, dev)
     finally:
         os.environ.pop("DLI_FUSED_DECODE", None)
     d = (pa.paged_flash_decode.launches - n0[0],
@@ -1891,6 +1981,39 @@ def _paged_run(torch, model, dev, route=None):
           if cfg.quant == "int4" and route else 0)
     want = want + (q4,)
     assert d == want, f"{route}: kernel launches {d} != {want}"
+    return rows
+
+
+def _paged_rows(torch, model, dev):
+    """``_paged_run``'s forwards: the logits rows [N, V] on the host."""
+    from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
+        init_paged_cache)
+    V, bs = model.cfg.vocab_size, 16
+    g = torch.Generator().manual_seed(9)
+    i32 = dict(dtype=torch.int32, device=dev)
+    paged = init_paged_cache(model.cfg, 16, bs, device=dev)
+    prompt = torch.randint(0, V, (1, 32), generator=g)
+    tails = torch.randint(0, V, (2, 48), generator=g)
+    forced = torch.randint(0, V, (8, 2), generator=g)
+    outs = []
+    with torch.inference_mode():
+        lg, _ = model.paged_prefill_tail(
+            prompt.to(dev), torch.tensor([32], **i32),
+            torch.tensor([[1, 2]], **i32), torch.tensor([[0, 0]], **i32),
+            torch.tensor([0], **i32), paged)
+        outs.append(lg.cpu())
+        lg, _ = model.paged_prefill_tail(
+            tails.to(dev), torch.tensor([20, 37], **i32),
+            torch.tensor([[3, 4, 5], [6, 7, 8]], **i32),
+            torch.tensor([[1, 2], [0, 0]], **i32),
+            torch.tensor([32, 0], **i32), paged)
+        outs.append(lg.cpu())
+        bt = torch.tensor([[1, 2, 3, 4], [6, 7, 8, 9]], **i32)
+        cl = torch.tensor([52, 37], **i32)
+        for t in range(8):
+            lg, _ = model.paged_decode_step(forced[t].to(dev), paged, bt, cl)
+            outs.append(lg.cpu())
+            cl = cl + 1
     return torch.cat(outs)
 
 
@@ -6210,6 +6333,7 @@ def _batched_no_kernel(torch, worker, kernels, cfg, load, tag):
     assert toks[True] == toks[False], f"{tag}: graphs on and off disagree"
     assert all(0 <= t < cfg.vocab_size for ts in toks[True] for t in ts)
     log(f"  {cfg.name} batched ({tag}):", json.dumps(out))
+    out["tokens"] = toks[True]
     return out
 
 
@@ -6271,37 +6395,59 @@ def _v3_gate_row(torch):
     return {"max_abs_err": err, "rows": V3_GATE_ROWS, "experts": E}
 
 
-def _expert_xcheck(torch, fa, qm, kernels):
+def _expert_row_cfg(mt):
+    """(config, layers, the cut in words) of EXPERT_XCHECK's row ``mt``:
+    the depth cut to EXPERT_LAYERS (deepseek_v3's first layers are its
+    dense prefix), windows cut to XCHECK_WINDOW so they bite in 72
+    positions."""
+    from distributed_llm_inferencing_tpu_torch.models.convert import (
+        config_from_hf)
+    cfg = config_from_hf(EXPERT_XCHECK[mt], name=f"{mt}-xcheck")
+    layers = EXPERT_LAYERS.get(mt, 2)
+    reduced = f"{layers} of {cfg.num_layers} layers"
+    if cfg.dense_prefix_layers >= layers:   # deepseek_v3: all prefix
+        cfg = cfg.dense_segment_cfg(num_layers=layers)
+        reduced += " (its dense prefix)"
+    if cfg.attn_windows is not None:
+        cfg = cfg.replace(attn_windows=tuple(
+            None if w is None else XCHECK_WINDOW
+            for w in cfg.attn_windows[:layers]), num_layers=layers)
+        reduced += f", windows cut to {XCHECK_WINDOW}"
+    return cfg, layers, reduced
+
+
+def _host_rows(torch, pool):
+    """The host sides of the EXPERT_XCHECK rows not in CARD_REFERENCE,
+    submitted to ``pool`` in row order: row -> future."""
+    out = {}
+    for mt in EXPERT_XCHECK:
+        if mt not in CARD_REFERENCE:
+            cfg, layers, _ = _expert_row_cfg(mt)
+            out[mt] = pool.submit(_host_side, torch,
+                                  _xcheck_cfg(cfg, mt, None, layers))
+    return out
+
+
+def _expert_xcheck(torch, fa, qm, kernels, hosts=None):
     """(b): one card-vs-host row per converter type (EXPERT_XCHECK, the
     depth cut to EXPERT_LAYERS; deepseek_v3's first layers are its dense
     prefix; windows cut to XCHECK_WINDOW so they bite in 72 positions),
-    then deepseek-proxy's dense and MoE layer and V3's router."""
-    from distributed_llm_inferencing_tpu_torch.models.convert import (
-        config_from_hf)
-    from distributed_llm_inferencing_tpu_torch.models.registry import (
-        get_config)
+    then deepseek-proxy's dense and MoE layer and V3's router. ``hosts``:
+    a row's host side computed on a thread (``_host_rows``)."""
     out = {}
-    for mt, conf in EXPERT_XCHECK.items():
+    for mt in EXPERT_XCHECK:
         t0 = time.perf_counter()
-        cfg = config_from_hf(conf, name=f"{mt}-xcheck")
-        layers = EXPERT_LAYERS.get(mt, 2)
-        reduced = f"{layers} of {cfg.num_layers} layers"
-        if cfg.dense_prefix_layers >= layers:   # deepseek_v3: all prefix
-            cfg = cfg.dense_segment_cfg(num_layers=layers)
-            reduced += " (its dense prefix)"
-        if cfg.attn_windows is not None:
-            cfg = cfg.replace(attn_windows=tuple(
-                None if w is None else XCHECK_WINDOW
-                for w in cfg.attn_windows[:layers]), num_layers=layers)
-            reduced += f", windows cut to {XCHECK_WINDOW}"
+        cfg, layers, reduced = _expert_row_cfg(mt)
         on_card = mt in CARD_REFERENCE
         if on_card:
             reduced += "; reference: the plain versions on the card"
         log(f"  {mt}: {reduced}")
         _bank20(kernels)
+        host = (hosts or {}).get(mt)
         errs = phase_cross_check(torch, fa, qm, None, mt,
                                  EXPERT_ROUTES.get(mt, ("paged",)), cfg=cfg,
-                                 layers=layers, ref_on_card=on_card)
+                                 layers=layers, ref_on_card=on_card, keep=mt,
+                                 host=host.result() if host else None)
         launches = {k: v for k, v in read_counts(kernels).items() if v}
         _bank20(kernels)
         out[mt] = dict(errs, reduced=reduced, launches=launches,
@@ -6443,20 +6589,28 @@ def _gpt_oss_serving(torch, kernels):
 
 
 def phase_experts_mla(torch, fa, qm, kernels, smi):
-    """Phase 20 (see the module docstring)."""
+    """Phase 20 (see the module docstring). The host side of the (b) rows
+    whose reference stays on the host (``_host_side``: f32 forwards of
+    15-30 s) runs on a thread while (c) serves on the card, which
+    measures no memory peak; (a) does, so it runs first, alone."""
     report, t_all = {"smi": smi}, time.perf_counter()
     _PHASE20_LAUNCHES.clear()
     zero_counts(kernels)
-    for key, fn in (("mla_serving", lambda: _mla_serving(torch, kernels)),
-                    ("expert_xcheck", lambda: _expert_xcheck(
-                        torch, fa, qm, kernels)),
-                    ("gpt_oss_serving", lambda: _gpt_oss_serving(
-                        torch, kernels))):
-        t0 = time.perf_counter()
-        with _Env(DLI_FUSED_DECODE="0"):
-            report[key] = fn()
-        report[f"seconds_{key}"] = time.perf_counter() - t0
-        log(f"  phase 20 {key}: {report[f'seconds_{key}']:.1f} s")
+    hosts = {}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        for key, fn in (
+                ("mla_serving", lambda: _mla_serving(torch, kernels)),
+                ("gpt_oss_serving", lambda: _gpt_oss_serving(
+                    torch, kernels)),
+                ("expert_xcheck", lambda: _expert_xcheck(
+                    torch, fa, qm, kernels, hosts))):
+            if key == "gpt_oss_serving":
+                hosts = _host_rows(torch, pool)
+            t0 = time.perf_counter()
+            with _Env(DLI_FUSED_DECODE="0"):
+                report[key] = fn()
+            report[f"seconds_{key}"] = time.perf_counter() - t0
+            log(f"  phase 20 {key}: {report[f'seconds_{key}']:.1f} s")
     _bank20(kernels)
     report["launches"] = dict(_PHASE20_LAUNCHES)
     log("  phase 20 launches:", json.dumps(report["launches"]))
@@ -6507,27 +6661,58 @@ def _tp_all_reduces(cfg):
     return 1 + cfg.num_layers * (per + (cfg.qk_norm == "rms_full"))
 
 
+
+
 def _same_ranks(stats, what):
-    """Every rank ran the leader's programs with its outputs, and counted
-    the same launches and collectives."""
+    """Every rank ran the leader's programs with its outputs, counted the
+    same launches and collectives and, with experts, routed the same
+    router inputs (``route_digest``)."""
     lead = stats[0]
     for s in stats[1:]:
         for k in ("launches", "collectives", "programs_run",
-                  "outputs_digest"):
+                  "outputs_digest", "route_digest"):
             assert s.get(k) == lead.get(k), \
                 f"{what}: rank {s['rank']} {k} {s.get(k)} != {lead.get(k)}"
 
 
-def _tp_batched_wave(torch, worker, cfg, quant, fused):
-    """Phase 5's bodies as one /inference_batch through the loaded tp
-    batched model, every rank's counts zeroed before and held after:
-    paged_flash_decode num_layers times per weight pass (the fused gate is
-    off under tp, whatever DLI_FUSED_DECODE says), no other attention
-    kernel; in int4, per decode pass 5 q4_matmul per layer plus the head
-    and 2 q4_matmul_row per layer, per admission wave the head and, at
-    <= 32 rows, as many again; 2L + 1 all-reduces and one gather per
-    forward (decode pass or admission wave), no broadcast."""
+def _grid_linears(cfg):
+    """Per weight pass of ``cfg`` under tp: (column-parallel linears,
+    row-parallel linears, all-reduces, expert all-reduces) by the count
+    rule of models/transformer.py — each layer's linears (its own config:
+    a dense-prefix layer's MLP; an MoE layer's shared experts, whose
+    ``shared_down`` is row-parallel, the routed experts no linear), the
+    embedding's all-reduce and one per row-parallel linear, one expert
+    all-reduce per MoE layer."""
+    from distributed_llm_inferencing_tpu_torch.models.params import (
+        layer_linears)
+    from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
+        row_leaves)
+    per = [[n for n, *_ in layer_linears(cfg.layer_cfg(i))]
+           for i in range(cfg.num_layers)]
+    row = sum(n in row_leaves(cfg, i) for i, names in enumerate(per)
+              for n in names)
+    col = sum(len(names) for names in per) - row
+    moe = sum(cfg.layer_cfg(i).is_moe for i in range(cfg.num_layers))
+    return col, row, 1 + row, moe
+
+
+def _tp_batched_wave(torch, worker, cfg, quant, fused, bank=None,
+                     n_bodies=None):
+    """Phase 5's bodies as one /inference_batch through the loaded tp (or
+    tp x ep) batched model, every rank's counts zeroed before and held
+    after: paged_flash_decode num_layers times per weight pass (the fused
+    gate is off under tp, whatever DLI_FUSED_DECODE says; none on the
+    gather route of latent attention), no other attention kernel; in
+    int4, per decode pass a q4_matmul per column-parallel linear plus the
+    head and a q4_matmul_row per row-parallel one (``_grid_linears``:
+    llama's 5 and 2 per layer), per admission wave the head and, at <= 32
+    rows, as many again; per forward (decode pass or admission wave) the
+    rule's all-reduces (llama's 2L + 1), one expert all-reduce per MoE
+    layer and one gather, no broadcast. ``bank`` files every rank's
+    launches (default: phase 21's); ``n_bodies``: the first of phase 5's
+    bodies only."""
     name, L = cfg.name, cfg.num_layers
+    col, row_l, reduces, experts = _grid_linears(cfg)
     b = worker.models[name].batcher
     waves = []
     prefill = b.model.paged_prefill_tail
@@ -6538,7 +6723,7 @@ def _tp_batched_wave(torch, worker, cfg, quant, fused):
 
     b.model.paged_prefill_tail = recorded
     bodies = [dict(x, request_tag=f"p21-{quant}-{fused}-{i}")
-              for i, x in enumerate(_batched_bodies(cfg))]
+              for i, x in enumerate(_batched_bodies(cfg)[:n_bodies])]
     s0 = worker.metrics.snapshot()
     b.reset_counts()
     t0 = time.perf_counter()
@@ -6559,15 +6744,18 @@ def _tp_batched_wave(torch, worker, cfg, quant, fused):
     tags = {m["request_tag"]: m["body"]["tokens"] for m in msgs}
     tokens = [tags[b["request_tag"]] for b in bodies]
     small = sum(n <= 32 for n in waves)
-    want = {"paged_flash_decode": L * passes, "fused_decode_step": 0,
+    paged = L * passes if decode_kernel(cfg, "paged") else 0
+    want = {"paged_flash_decode": paged, "fused_decode_step": 0,
             "flash_attention": 0, "flash_decode": 0,
-            "q4_matmul": (passes * (5 * L + 1) + len(waves) + small * 5 * L
+            "q4_matmul": (passes * (col + 1) + len(waves) + small * col
                           if quant == "int4" else 0),
-            "q4_matmul_row": (passes + small) * 2 * L if quant == "int4"
+            "q4_matmul_row": (passes + small) * row_l if quant == "int4"
             else 0}
     forwards = passes + len(waves)
-    want_c = {"all_reduce": (2 * L + 1) * forwards, "gather": forwards,
+    want_c = {"all_reduce": reduces * forwards, "gather": forwards,
               "broadcast": 0}
+    if experts:
+        want_c["expert_all_reduce"] = experts * forwards
     for s in stats:
         got = {k: s["launches"][k] for k in want}
         assert got == want, f"rank {s['rank']}: launches {got} != {want}"
@@ -6576,7 +6764,7 @@ def _tp_batched_wave(torch, worker, cfg, quant, fused):
         assert s["collectives"] == want_c, \
             f"rank {s['rank']}: {s['collectives']} != {want_c}"
     _same_ranks(stats, f"tp batched {quant} fused={fused}")
-    _bank21(stats)
+    (bank or _bank21)(stats)
     generated = sum(len(t) for t in tokens)
     row = {"weights": quant or "bf16", "DLI_FUSED_DECODE": int(fused),
            "weight_passes": passes, "admission_waves": len(waves),
@@ -6612,17 +6800,22 @@ def _tp1_batched_tokens(worker, cfg):
     return [tags[b["request_tag"]] for b in bodies]
 
 
-def _vs_tp1(got, ref):
+def _vs_tp1(got, ref, at_least=None):
     """tp=2's tokens against tp=1's, per request: the tokens they share
     before the first that differs. bf16 partials summed over the ranks
     round otherwise than one GEMM, so a near tie may break the other way
     and the two then go apart; a fault in the tp path would give logits
     unrelated to tp=1's, and next to no first token equal. So at least
-    half of the first tokens must be equal."""
+    half of the first tokens must be equal, or ``at_least`` of them
+    (phase 23's experts: a router's near tie moves a whole expert's
+    output, so bf16 rounding parts their tokens at the first token more
+    often; each phase 23 run holds the count its runs on the card gave,
+    and prints the leader's smallest router margin before each miss)."""
     shared = [next((i for i, (a, b) in enumerate(zip(g, r)) if a != b),
                    min(len(g), len(r))) for g, r in zip(got, ref)]
     first = sum(n > 0 for n in shared)
-    assert 2 * first >= len(ref), \
+    need = -(-len(ref) // 2) if at_least is None else at_least
+    assert first >= need, \
         f"tp=2's first tokens equal tp=1's on {first} of {len(ref)}"
     return {"shared_prefix_tokens": shared, "first_token_equal": first,
             "requests": len(ref)}
@@ -7589,11 +7782,12 @@ def _pp_speculation(torch):
 
 
 def _pp_sp_xcheck(torch, label, cfg, spec, steps=4, max_seq=96,
-                  n_micro=None):
+                  n_micro=None, bank=None):
     """An engine on ``spec`` (``n_micro``: its pipeline microbatches)
     against one device on the same seeded weights (2 layers, f32): a
     teacher-forced prefill of phase 11's two prompts and ``steps`` decode
-    steps within XCHECK_TOL."""
+    steps within XCHECK_TOL. ``bank`` files every rank's launches
+    (default: phase 22's)."""
     from distributed_llm_inferencing_tpu_torch.runtime.engine import (
         InferenceEngine)
     prompts, forced = _xcheck_prompts(torch, cfg.vocab_size, steps)
@@ -7610,7 +7804,7 @@ def _pp_sp_xcheck(torch, label, cfg, spec, steps=4, max_seq=96,
             eng.close()
         del eng
         gc.collect()
-    _bank22(stats)
+    (bank or _bank22)(stats)
     a, b = (torch.cat([p[0, :37], p[1], d.reshape(-1, d.shape[-1])])
             for p, d in (got["grid"], got["one"]))
     err = _xcheck(torch, f"{label} {spec.axis_sizes()} vs one device", a, b)
@@ -7621,12 +7815,11 @@ def _pp_sp_xcheck(torch, label, cfg, spec, steps=4, max_seq=96,
 
 def _pp_sp_rows(torch):
     """(c): one row each for pp x tp (float and int4 weights), sp x tp
-    and pp x sp on one 4-rank group (llama-3-8b, 2 layers, f32); rows
-    under pp=2: gemma-2's
-    per-layer windows and tied head, mixtral's experts (moe-proxy-8e
-    shapes), deepseek-proxy's latent attention (materialized; no dense
-    prefix); rows under sp=2: a window (Qwen2-7B, cut to XCHECK_WINDOW),
-    bloom's ALiBi, gemma-2's softcaps."""
+    and pp x sp on one 4-rank group (llama-3-8b, 2 layers, f32); a row
+    under pp=2: gemma-2's per-layer windows and tied head (the experts'
+    and latent attention's pp rows run at pp=2 x ep=2 in phase 23 (c));
+    rows under sp=2: a window (Qwen2-7B, cut to XCHECK_WINDOW), bloom's
+    ALiBi, gemma-2's softcaps."""
     from distributed_llm_inferencing_tpu_torch.models.registry import (
         get_config)
     from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
@@ -7641,17 +7834,7 @@ def _pp_sp_rows(torch):
             ("pp2_sp2", llama, MeshSpec(pp=2, sp=2))):
         out[label] = _pp_sp_xcheck(torch, label, cfg, spec)
     gemma2 = _tp_family_cfg("gemma2")
-    # the expert rows run one microbatch: capacity dispatch sizes each
-    # expert's slots by the positions of the call, a microbatch's under
-    # pp (as the JAX pipeline), so two microbatches drop other choices
-    # than one device's batch (NVIDIA H100: 2.375 and 3.420 at
-    # two)
     rows = (("pp2_gemma2", gemma2, MeshSpec(pp=2), None),
-            ("pp2_experts", get_config("moe-proxy-8e").replace(
-                num_layers=2, dtype="float32"), MeshSpec(pp=2), 1),
-            ("pp2_latent", get_config("deepseek-proxy").replace(
-                num_layers=2, dense_prefix_layers=0, dtype="float32"),
-             MeshSpec(pp=2), 1),
             ("sp2_window", get_config("qwen2-7b").replace(
                 num_layers=2, dtype="float32",
                 sliding_window=XCHECK_WINDOW), MeshSpec(sp=2), None),
@@ -7667,9 +7850,10 @@ def _pp_sp_rows(torch):
     return out
 
 
-def phase_pp_sp(torch, smi, refs=None):
+def phase_pp_sp(torch, smi, refs=None, keep=False):
     """Phase 22 (see the module docstring). ``refs``: phase 5's paged
-    pp=1 tokens and phase 3's 500-token request's, when they ran."""
+    pp=1 tokens and phase 3's 500-token request's, when they ran;
+    ``keep``: leave the kept groups for phase 23, else stop them."""
     from distributed_llm_inferencing_tpu_torch.runtime import lockstep
     refs = refs or {}
     report, t_all = {"smi": smi}, time.perf_counter()
@@ -7691,7 +7875,10 @@ def phase_pp_sp(torch, smi, refs=None):
                 report[key] = fn()
                 report[f"seconds_{key}"] = time.perf_counter() - t0
                 log(f"  phase 22 {key}: {report[f'seconds_{key}']:.1f} s")
-    finally:
+    except BaseException:
+        lockstep.stop_idle_groups()
+        raise
+    if not keep:
         lockstep.stop_idle_groups()
     report["launches"] = dict(_PHASE22_LAUNCHES)
     log("  phase 22 launches (every rank):", json.dumps(report["launches"]))
@@ -7705,6 +7892,562 @@ def phase_pp_sp(torch, smi, refs=None):
     if os.path.isdir(out_dir):
         with open(os.path.join(out_dir, "phase22.json"), "w") as f:
             json.dump(report, f, indent=1, default=str)
+    return report
+
+
+# ---------------------------------------------------------------------
+# phase 23: expert parallelism, and tp for the experts, latent
+# attention, qkv_clip and sinks (tp x ep and pp x ep grids)
+# ---------------------------------------------------------------------
+
+# (a): mixtral-8x7b at full width; 32 layers in bf16 are 93.4 GB, more
+# than the card holds, so the tp=1 reference and the four ranks run 8
+EP_MESH = {"tp": 2, "ep": 2}
+MIXTRAL_EP_LAYERS, MIXTRAL_EP_NAME = 8, "mixtral-8x7b-8-layers"
+# first tokens equal to tp=1's, held as measured on an NVIDIA H100 (every
+# phase 23 run gave these): (a)'s engine requests of 3 and bf16 bodies of
+# 8, (b)'s batched bodies of MLA_EP_BODIES; the leader's smallest router
+# margin before each engine miss and over each wave is printed beside
+MIXTRAL_EP_EQUAL = (2, 4)
+MLA_EP_EQUAL = 2
+# (c): EXPERT_XCHECK's rows at tp=2 x ep=2, but deepseek_v3 (its 2 layers
+# are its dense prefix: ep needs experts; tp=2 cuts its latent
+# attention) and hunyuan_v1_moe (its odd vocabulary of 128167 does not
+# split over tp, ROADMAP item 9.17: ep=4)
+# the first of phase 5's bodies that (a)'s int4 pass and (b)'s batched
+# pass serve, and (b)'s engine tokens: four ranks sharing an NVIDIA H100
+# took 150 ms per bf16 pass of (a), 257 per int4 pass (every rank unpacks
+# its experts' levels per call) and 348 per pass of (b); the eight bodies
+# take 128 passes (the long prompts admit in chunks), the first four 32
+MLA_EP_BODIES = 4
+MLA_EP_NEW = 8
+EP_ROWS = {"glm4_moe": EP_MESH, "ernie4_5_moe": EP_MESH, "dbrx": EP_MESH,
+           "gpt_oss": EP_MESH, "deepseek_v3": {"tp": 2},
+           "hunyuan_v1_moe": {"ep": 4}}
+_PHASE23_LAUNCHES: dict = {}
+
+
+def _bank23(stats):
+    """Add every rank's launches of ``stats`` to phase 23's total."""
+    for s in stats:
+        for k, v in s["launches"].items():
+            _PHASE23_LAUNCHES[k] = _PHASE23_LAUNCHES.get(k, 0) + v
+
+
+def _rank_bytes(cfg, spec):
+    """Each grid rank's weight bytes by the stated cut rule, in closed
+    form from the config (a mixtral-shaped stack: plain attention, no
+    biases, untied head, every layer routed): V/tp vocabulary rows of
+    the embedding and of the head, H/tp q heads and Hkv/tp kv heads of
+    attention, E/ep experts of I/tp hidden width each; the norms and
+    the router whole. Equal on every rank."""
+    assert cfg.is_moe and not (cfg.mla or cfg.tie_word_embeddings
+                               or cfg.moe_shared_experts
+                               or cfg.dense_prefix_layers)
+    tp, ep = spec.tp, spec.ep
+    D, hd = cfg.hidden_size, cfg.head_dim
+    H, Hkv, E = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.num_experts
+    attn = D * H * hd * 2 + D * Hkv * hd * 2        # q, o; k, v
+    experts = E // ep * 3 * D * (cfg.intermediate_size // tp)
+    layer = attn + experts + D * E + 2 * D           # router, two norms
+    n = 2 * (cfg.vocab_size // tp) * D + cfg.num_layers * layer + D
+    size = 2 if cfg.dtype == "bfloat16" else 4
+    return [n * size] * spec.world
+
+
+def _ep_engine_request(base, eng, cfg, body, attn=True):
+    """One /inference on a loaded engine-mode grid model, every rank's
+    counts zeroed before and held after: flash_attention (tensor-core
+    form) once per layer per prefill and flash_decode once per layer per
+    decode step (none for latent attention), nothing else; per weight
+    pass the count rule's all-reduces and expert all-reduces
+    (``_grid_linears``), one gather and one broadcast (the leader's
+    token). Returns (response, every rank's stats)."""
+    eng.reset_counts()
+    st, r = _http(base + "/inference", body)
+    assert st == 200 and r["status"] == "success", r
+    stats = eng.rank_stats()
+    passes, L = r["cost"]["weight_passes"], cfg.num_layers
+    _, _, reduces, experts = _grid_linears(cfg)
+    want = {"flash_attention": L * attn,
+            "flash_attention[mma]": L * attn,
+            "flash_decode": L * (passes - 1) * attn,
+            "paged_flash_decode": 0, "fused_decode_step": 0,
+            "q4_matmul": 0, "q4_matmul_row": 0}
+    want_c = {"all_reduce": reduces * passes, "gather": passes,
+              "broadcast": passes, "expert_all_reduce": experts * passes}
+    for s in stats:
+        got = {k: s["launches"][k] for k in want}
+        assert got == want, f"rank {s['rank']}: launches {got} != {want}"
+        assert s["collectives"] == want_c, \
+            f"rank {s['rank']}: {s['collectives']} != {want_c}"
+        assert s["route_digest"] == stats[0]["route_digest"], \
+            f"rank {s['rank']} routed other bits than rank 0"
+    _bank23(stats)
+    return r, stats
+
+
+def _ep_mixtral(torch):
+    """(a): mixtral-8x7b at full width and MIXTRAL_EP_LAYERS layers
+    through the worker: a tp=1 load's tokens (phase 3's requests in
+    engine mode, phase 5's bodies batched), then "mesh": {"tp": 2, "ep":
+    2} in engine mode (phase 3's three requests, ``_ep_engine_request``)
+    and batched (phase 5's bodies as one /inference_batch in bf16, then
+    the first MLA_EP_BODIES of them in int4, ``_tp_batched_wave``), the
+    bf16 tokens held against tp=1's by
+    ``_vs_tp1``; every rank's weight bytes exact by the cut rules
+    (``_rank_bytes``). Each grid load takes the kept group of four and
+    each unload releases it."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config, register)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = register(get_config("mixtral-8x7b").replace(
+        name=MIXTRAL_EP_NAME, num_layers=MIXTRAL_EP_LAYERS,
+        dtype="bfloat16"))
+    log(f"  (a) depth cut: mixtral-8x7b at {MIXTRAL_EP_LAYERS} of its 32 "
+        "layers (93.4 GB in bf16 at 32; four ranks share the card over "
+        "gloo)")
+    engine_load = {"model_name": cfg.name, "allow_random_init": True,
+                   "dtype": "bfloat16", "max_seq": 4096}
+    bodies = [{"model_name": cfg.name, "prompt": engine_prompt(n, seed),
+               "max_new_tokens": 32, "sampling": sp, "seed": seed}
+              for n, sp, seed in ENGINE_REQUESTS]
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = _worker_base(worker)
+    out = {}
+    try:
+        st, res = _http(base + "/load_model", engine_load)
+        assert st == 200 and res["status"] == "success", res
+        ref = []
+        for body in bodies:
+            st, r = _http(base + "/inference", body)
+            assert st == 200 and r["status"] == "success", r
+            ref.append(r["tokens"])
+        tp1_bytes = res["stats"]["param_bytes"]
+        assert _http(base + "/unload_model",
+                     {"model_name": cfg.name})[0] == 200
+        ref_batched = _tp1_batched_tokens(worker, cfg)
+        want_bytes = _rank_bytes(cfg, MeshSpec(tp=2, ep=2))
+        st, res = _http(base + "/load_model", dict(engine_load,
+                                                    mesh=EP_MESH))
+        assert st == 200 and res["status"] == "success", res
+        st, health = _http(base + "/health")
+        [desc] = health["loaded_models"]
+        assert desc["mesh"]["ep"] == 2 and desc["mesh"]["tp"] == 2, desc
+        assert desc["rank_param_bytes"] == want_bytes, \
+            (desc["rank_param_bytes"], want_bytes)
+        log(f"  load_model (engine, tp=2 x ep=2, bf16): "
+            f"{res['load_time_s']:.2f} s; weight bytes per rank "
+            f"{desc['rank_param_bytes']} (tp=1: {tp1_bytes})")
+        eng = worker.models[cfg.name].engine
+        pids = eng._leader.alive()
+        rows, toks, margins = [], [], []
+        for body in bodies:
+            with _Margins() as m:
+                r, stats = _ep_engine_request(base, eng, cfg, body)
+            margins.append(m)
+            passes = r["cost"]["weight_passes"]
+            toks.append(r["tokens"])
+            rows.append({"prompt_tokens": len(body["prompt"]) + 1,
+                         "weight_passes": passes,
+                         "prefill_ms": r["prefill_ms"],
+                         "decode_ms_per_weight_pass":
+                             r["decode_ms"] / (passes - 1),
+                         "collectives_per_rank": stats[0]["collectives"]})
+        vs = _vs_tp1(toks, ref, at_least=MIXTRAL_EP_EQUAL[0])
+        # a request that parts from tp=1 at token n: the leader's
+        # smallest router margin over the passes that made tokens 0..n
+        vs["min_gate_margin_to_first_diff"] = [
+            m.before(cfg.num_layers, n + 1, len(body["prompt"]) + 1)
+            if n < len(t) else None
+            for m, n, t, body in zip(margins, vs["shared_prefix_tokens"],
+                                     ref, bodies)]
+        out["engine"] = {"requests": rows, "vs_tp1": vs,
+                         "rank_param_bytes": desc["rank_param_bytes"],
+                         "tp1_param_bytes": tp1_bytes}
+        log("  tp=2 x ep=2 engine:", json.dumps(out["engine"]))
+        st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+        assert st == 200 and _released(pids), "the unload kept serving"
+        for quant in (None, "int4"):
+            st, res = _http(base + "/load_model", dict(
+                BATCHED_LOAD, model_name=cfg.name, mesh=EP_MESH,
+                **({"quantize": quant} if quant else {})))
+            assert st == 200 and res["status"] == "success", res
+            st, health = _http(base + "/health")
+            [desc] = health["loaded_models"]
+            sched = desc["scheduler"]
+            assert sched["mesh"]["ep"] == 2 and sched["ranks"] == 4, sched
+            pids = worker.models[cfg.name].batcher._leader.alive()
+            with _Margins() as m:
+                row, btoks = _tp_batched_wave(
+                    torch, worker, cfg, quant, False, bank=_bank23,
+                    n_bodies=MLA_EP_BODIES if quant else None)
+            row["rank_param_bytes"] = sched["rank_param_bytes"]
+            if quant is None:
+                assert sched["rank_param_bytes"] == want_bytes
+                row["vs_tp1"] = _vs_tp1(btoks, ref_batched,
+                                        at_least=MIXTRAL_EP_EQUAL[1])
+                row["vs_tp1"]["min_gate_margin"] = m.smallest()
+                log("  tp=2 x ep=2 bf16 batched against tp=1:",
+                    json.dumps(row["vs_tp1"]))
+            out[f"batched_{quant or 'bf16'}"] = row
+            st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+            assert st == 200 and _released(pids), "the unload kept serving"
+    finally:
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_mla(torch, ref=None):
+    """(b): deepseek-proxy at full width and all 12 layers, bf16, "mesh":
+    {"tp": 2, "ep": 2} through the worker: engine mode on the latent
+    cache (one [k_rot | c] row per token, replicated on every rank:
+    [12, B, S, 1, 160]) and on the materialized one (DLI_MLA_LATENT=0:
+    the rank's H/tp = 8 heads), phase 3's first request on each, its
+    first MLA_EP_NEW tokens (``_ep_engine_request``: no attention
+    kernel), the cache bytes by
+    formula; the first MLA_EP_BODIES of phase 5's bodies batched on the
+    materialized pool (``_tp_batched_wave``: no attention kernel). The
+    tokens against phase 20's tp=1 tokens on the same seeded weights
+    (``ref``: its ``mla_serving`` report), else against a tp=1 load
+    here: the batched bodies' first tokens held at MLA_EP_EQUAL, the
+    engine request's reported with the leader's smallest router margin
+    before its first miss (through 11 routed layers in bf16 a router's
+    near tie, broken the other way by another rounding, moves a whole
+    expert's output, and the tokens part at once). What holds the grid
+    to tp=1 at every position is the same model at all 12 layers in f32
+    on both caches (``_ep_row``: logits within XCHECK_TOL, router margins
+    printed)."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_llm_inferencing_tpu_torch.runtime.worker import (
+        WorkerAgent)
+    cfg = get_config(MLA_NAME)
+    bodies = [{"model_name": cfg.name, "prompt": engine_prompt(n, seed),
+               "max_new_tokens": MLA_EP_NEW, "sampling": sp, "seed": seed}
+              for n, sp, seed in ENGINE_REQUESTS[:1]]
+    load = {"model_name": cfg.name, "allow_random_init": True,
+            "dtype": "bfloat16", "max_seq": 4096}
+    worker = WorkerAgent(device="cuda")
+    worker.serve("127.0.0.1", 0, background=True)
+    base = _worker_base(worker)
+    out = {}
+    try:
+        if ref is None:   # phase 23 alone: the tp=1 tokens here
+            ref = {}
+            for key, latent in (("latent", "1"), ("materialized", "0")):
+                with _Env(DLI_MLA_LATENT=latent):
+                    assert _http(base + "/load_model", load)[0] == 200
+                ref[key] = {"tokens": []}
+                for body in bodies:
+                    st, r = _http(base + "/inference", body)
+                    assert st == 200 and r["status"] == "success", r
+                    ref[key]["tokens"].append(r["tokens"])
+                assert _http(base + "/unload_model",
+                             {"model_name": cfg.name})[0] == 200
+            ref["batched"] = {"tokens": _tp1_batched_tokens(
+                worker, cfg)}
+        L, H, tp = cfg.num_layers, cfg.num_heads, 2
+        for key, latent in (("latent", "1"), ("materialized", "0")):
+            with _Env(DLI_MLA_LATENT=latent):
+                st, res = _http(base + "/load_model", dict(load,
+                                                            mesh=EP_MESH))
+            assert st == 200 and res["status"] == "success", res
+            eng = worker.models[cfg.name].engine
+            assert eng.cfg.mla_latent_cache == (latent == "1")
+            pids = eng._leader.alive()
+            runs, margins = [], []
+            for body in bodies:
+                with _Margins() as m:
+                    runs.append(_ep_engine_request(base, eng, cfg, body,
+                                                   attn=False))
+                margins.append(m)
+            cache = eng._state(1).cache
+            S = eng.max_seq
+            if latent == "1":   # the whole latent row on every rank
+                shape = (L, 1, S, 1, cfg.qk_rope_head_dim
+                         + cfg.kv_lora_rank)
+                want = L * S * shape[-1] * 2
+                assert cache.v.numel() == 0
+            else:                # the rank's heads, K and V
+                shape = (L, 1, S, H // tp, cfg.head_dim)
+                want = 2 * L * S * (H // tp) * cfg.head_dim * 2
+            assert tuple(cache.k.shape) == shape, (cache.k.shape, shape)
+            assert _cache_bytes(cache) == want, (_cache_bytes(cache), want)
+            toks = [r["tokens"] for r, _ in runs]
+            want_toks = [t[:MLA_EP_NEW] for t in ref[key]["tokens"][:1]]
+            vs = _vs_tp1(toks, want_toks, at_least=0)
+            moe_layers = sum(cfg.layer_cfg(i).is_moe for i in range(L))
+            vs["min_gate_margin_to_first_diff"] = [
+                m.before(moe_layers, n + 1, len(body["prompt"]) + 1)
+                if n < len(t) else None
+                for m, n, t, body in zip(margins, vs["shared_prefix_tokens"],
+                                         want_toks, bodies)]
+            out[key] = {"cache_shape_per_rank": list(shape),
+                        "cache_bytes_per_rank_b1": want,
+                        "decode_ms_per_weight_pass": [
+                            r["decode_ms"] / (r["cost"]["weight_passes"] - 1)
+                            for r, _ in runs],
+                        "prefill_ms": [r["prefill_ms"] for r, _ in runs],
+                        "vs_tp1": vs,
+                        "collectives_per_rank": runs[0][1][0]["collectives"]}
+            log(f"  deepseek-proxy tp=2 x ep=2 engine, {key} cache:",
+                json.dumps(out[key]))
+            st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+            assert st == 200 and _released(pids), "the unload kept serving"
+        st, res = _http(base + "/load_model", dict(MLA_BATCHED,
+                                                    mesh=EP_MESH))
+        assert st == 200 and res["status"] == "success", res
+        pids = worker.models[cfg.name].batcher._leader.alive()
+        with _Margins() as m:
+            row, btoks = _tp_batched_wave(torch, worker, cfg, None, False,
+                                          bank=_bank23,
+                                          n_bodies=MLA_EP_BODIES)
+        row["vs_tp1"] = _vs_tp1(btoks,
+                                ref["batched"]["tokens"][:MLA_EP_BODIES],
+                                at_least=MLA_EP_EQUAL)
+        row["vs_tp1"]["min_gate_margin"] = m.smallest()
+        out["batched"] = row
+        log("  deepseek-proxy tp=2 x ep=2 batched against tp=1:",
+            json.dumps(row["vs_tp1"]))
+        st, _ = _http(base + "/unload_model", {"model_name": cfg.name})
+        assert st == 200 and _released(pids), "the unload kept serving"
+    finally:
+        worker.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = cfg.replace(dtype="float32")
+    for latent in ("1", "0"):
+        label = f"{cfg.name}/{'latent' if latent == '1' else 'materialized'}"
+        out[f"f32_{label}"] = _ep_row(torch, f"{label}, all 12 layers", f32,
+                                      MeshSpec(tp=2, ep=2), latent=latent)
+    return out
+
+
+def _gate_margin(x, router_w, cfg, router_b=None):
+    """The smallest of ``_gate_gaps``."""
+    return float(_gate_gaps(x, router_w, cfg, router_b).min())
+
+
+def _gate_gaps(x, router_w, cfg, router_b=None):
+    """Per row of x (flattened, on the host), the gap between the k-th
+    and the (k+1)-th of the values the router ranks (``moe_gates``' selection:
+    the softmax probabilities, the biased scores of the group-limited
+    routers with the groups' own gap beside it, topk_softmax's biased
+    logits). A routing flip between two runs of the same model needs a
+    difference in the router's input of about this size."""
+    import torch
+    logits = torch.matmul(x.float(), router_w.float())
+    k = cfg.num_experts_per_tok
+    gaps = []
+    if cfg.moe_router in ("deepseek_v3", "ernie"):
+        scores = (torch.sigmoid(logits) if cfg.moe_router == "deepseek_v3"
+                  else torch.softmax(logits, dim=-1))
+        vals = scores + router_b.float()
+        g = cfg.moe_n_group
+        gs = vals.reshape(*vals.shape[:-1], g, cfg.num_experts // g)
+        group = torch.topk(gs, 2, dim=-1).values.sum(dim=-1)
+        if cfg.moe_topk_group < g:
+            top = torch.topk(group, cfg.moe_topk_group + 1, dim=-1).values
+            gaps.append(top[..., -2] - top[..., -1])
+        kth = torch.topk(group, cfg.moe_topk_group, dim=-1).values[..., -1:]
+        keep = (group >= kth)[..., None].expand(gs.shape).reshape(
+            vals.shape)
+        vals = torch.where(keep, vals, float("-inf"))
+    elif cfg.moe_router == "topk_softmax":
+        vals = logits + router_b.float()
+    else:
+        vals = torch.softmax(logits, dim=-1)
+    top = torch.topk(vals, k + 1, dim=-1).values
+    gaps.append(top[..., k - 1] - top[..., k])
+    return torch.stack([gp.reshape(-1) for gp in gaps]).amin(0).cpu()
+
+
+class _Margins:
+    """Within the block, every ``moe_gates`` call of this process (the
+    leader's rank) records its rows' router margins (``_gate_gaps``, in
+    ``rows``) and their smallest (``seen``); ``smallest()`` is the least
+    of them, None where no router ran."""
+
+    def __enter__(self):
+        from distributed_llm_inferencing_tpu_torch.models import transformer
+        self.seen, self.rows, self.gates = [], [], transformer.moe_gates
+
+        def recorded(x, router_w, cfg, router_b=None):
+            gaps = _gate_gaps(x, router_w, cfg, router_b)
+            self.rows.append(gaps)
+            self.seen.append(float(gaps.min()))
+            return self.gates(x, router_w, cfg, router_b)
+        transformer.moe_gates = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from distributed_llm_inferencing_tpu_torch.models import transformer
+        transformer.moe_gates = self.gates
+
+    def smallest(self):
+        return min(self.seen) if self.seen else None
+
+    def before(self, layers, passes, prompt_len):
+        """An engine request's smallest margin over its first ``passes``
+        weight passes (``layers`` router calls each; the prefill's first
+        ``prompt_len`` rows, its padding left out), None where the calls
+        do not divide so."""
+        if len(self.rows) % layers or len(self.rows) < passes * layers:
+            return None
+        calls = [r[:prompt_len] if i < layers else r
+                 for i, r in enumerate(self.rows[:passes * layers])]
+        return min(float(r.min()) for r in calls)
+
+
+def _ep_row(torch, label, cfg, spec, ref=None, steps=8, latent=None):
+    """One (c) row: the engine on ``spec`` (2 layers, f32) teacher-forced
+    on phase 11's two prompts (37 and 64 positions: capacity dispatch
+    over 128) and ``steps`` decode steps, against ``ref`` (phase 20's
+    card logits on the same seeded weights) or a tp=1 engine here,
+    within XCHECK_TOL; every rank's counts exact (flash_attention per
+    layer per prefill and flash_decode per layer per step, none for sinks
+    or latent attention; the all-reduces and expert all-reduces by the
+    rule per forward, under tp a gather per forward); the leader's
+    smallest router margin (``_gate_margin``) printed beside the error.
+    ``latent``: DLI_MLA_LATENT for the engines."""
+    from distributed_llm_inferencing_tpu_torch.runtime.engine import (
+        InferenceEngine)
+    prompts, forced = _xcheck_prompts(torch, cfg.vocab_size, steps)
+    env = {} if latent is None else {"DLI_MLA_LATENT": latent}
+
+    def rows(pre, dec):
+        return torch.cat([pre[0, :37], pre[1],
+                          dec.reshape(-1, dec.shape[-1])])
+    t0 = time.perf_counter()
+    with _Env(**env):
+        if ref is None:
+            one = InferenceEngine(cfg, max_seq=96, seed=7, device="cuda")
+            ref = rows(*one.teacher_forced(prompts, forced))
+            del one
+            gc.collect()
+            torch.cuda.empty_cache()   # the ranks' weights come next
+        eng = InferenceEngine(cfg, mesh_spec=spec, max_seq=96, seed=7,
+                              device="cuda")
+        try:
+            eng.reset_counts()
+            with _Margins() as margins:
+                got = rows(*eng.teacher_forced(prompts, forced))
+            stats = eng.rank_stats()
+        finally:
+            eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    L, forwards = cfg.num_layers, 1 + steps
+    attn = int(not (cfg.mla or cfg.attn_sinks))
+    _, _, reduces, experts = _grid_linears(cfg)
+    want = {"flash_attention": L * attn, "flash_decode": L * steps * attn,
+            "paged_flash_decode": 0, "fused_decode_step": 0,
+            "q4_matmul": 0, "q4_matmul_row": 0}
+    for s in stats:
+        got_l = {k: s["launches"][k] for k in want}
+        assert got_l == want, f"{label} rank {s['rank']}: {got_l} != {want}"
+        c = s["collectives"]
+        assert c["all_reduce"] == (reduces * forwards if spec.tp > 1
+                                   else 0), (label, c)
+        assert c["gather"] == (forwards if spec.tp > 1 else 0), (label, c)
+        assert c.get("expert_all_reduce", 0) == experts * forwards, \
+            (label, c)
+        assert s["route_digest"] == stats[0]["route_digest"], \
+            f"{label} rank {s['rank']} routed other bits than rank 0"
+    _bank23(stats)
+    margin = margins.smallest()
+    log(f"  {label} {spec.axis_sizes()}: smallest router margin on the "
+        f"leader {margin}")
+    err = _xcheck(torch, f"{label} {spec.axis_sizes()} vs tp=1", got, ref)
+    return {"max_abs_err": err, "min_gate_margin": margin,
+            "seconds": time.perf_counter() - t0,
+            "collectives_per_rank": stats[0]["collectives"]}
+
+
+def _ep_rows(torch):
+    """(c): each EP_ROWS type at its public widths (``_expert_row_cfg``:
+    2 layers, dbrx 1; f32) on its grid against tp=1 on the card (phase
+    20's logits on the same seeded weights when it ran), deepseek_v3 on
+    both caches; moe-proxy-8e's experts and deepseek-proxy's latent
+    attention (materialized under pp; no dense prefix) at pp=2 x ep=2 in
+    one microbatch against one device (``_pp_sp_xcheck``: capacity
+    dispatch counts the call's positions, a microbatch's under pp, as
+    the JAX pipeline's)."""
+    from distributed_llm_inferencing_tpu_torch.models.registry import (
+        get_config)
+    from distributed_llm_inferencing_tpu_torch.parallel.mesh import MeshSpec
+    out = {}
+    for mt, mesh in EP_ROWS.items():
+        cfg, layers, reduced = _expert_row_cfg(mt)
+        cfg = cfg.replace(num_layers=layers, dtype="float32")
+        spec = MeshSpec(**mesh)
+        card = _CARD_LOGITS.get(mt, {})
+        log(f"  {mt}: {reduced}; tp=1 reference "
+            + ("phase 20's card logits" if card else "on the card here"))
+        if cfg.mla:
+            for key, latent in (("cuda", "0"), ("cuda-latent", "1")):
+                label = f"{mt}/{'latent' if latent == '1' else 'materialized'}"
+                out[label] = _ep_row(torch, label, cfg, spec, card.get(key),
+                                     latent=latent)
+        else:
+            out[mt] = _ep_row(torch, mt, cfg, spec, card.get("cuda"))
+    for label, cfg in (
+            ("pp2_ep2_experts", get_config("moe-proxy-8e").replace(
+                num_layers=2, dtype="float32")),
+            ("pp2_ep2_latent", get_config("deepseek-proxy").replace(
+                num_layers=2, dense_prefix_layers=0, dtype="float32"))):
+        t0 = time.perf_counter()
+        with _Margins() as margins:
+            out[label] = _pp_sp_xcheck(torch, label, cfg,
+                                       MeshSpec(pp=2, ep=2), n_micro=1,
+                                       bank=_bank23)
+        out[label].update(min_gate_margin=margins.smallest(),
+                          seconds=time.perf_counter() - t0)
+        log(f"  {label}: smallest router margin on the leader (both "
+            f"runs) {margins.smallest()}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ep_moe(torch, smi, refs=None):
+    """Phase 23 (see the module docstring). ``refs``: phase 20's
+    ``mla_serving`` report, when it ran."""
+    from distributed_llm_inferencing_tpu_torch.runtime import lockstep
+    report, t_all = {"smi": smi}, time.perf_counter()
+    _PHASE23_LAUNCHES.clear()
+    try:
+        with _Env(DLI_TP_KEEP_GROUPS="1", DLI_FUSED_DECODE="0"):
+            for key, fn in (("mixtral", lambda: _ep_mixtral(torch)),
+                            ("mla", lambda: _ep_mla(torch, refs)),
+                            ("rows", lambda: _ep_rows(torch))):
+                t0 = time.perf_counter()
+                report[key] = fn()
+                report[f"seconds_{key}"] = time.perf_counter() - t0
+                log(f"  phase 23 {key}: {report[f'seconds_{key}']:.1f} s")
+    finally:
+        lockstep.stop_idle_groups()
+    report["launches"] = dict(_PHASE23_LAUNCHES)
+    log("  phase 23 launches (every rank):", json.dumps(report["launches"]))
+    for name in ("flash_attention", "flash_decode", "paged_flash_decode",
+                 "q4_matmul", "q4_matmul_row"):
+        assert report["launches"].get(name, 0) > 0, \
+            f"{name} never launched on phase 23's path"
+    assert report["launches"].get("fused_decode_step", 0) == 0
+    report["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 23 wall time: {report['seconds']:.1f} s [{smi}]")
+    out_dir = os.path.join(HERE, "chiprun_out")
+    if os.path.isdir(out_dir):
+        with open(os.path.join(out_dir, "phase23.json"), "w") as f:
+            json.dump(dict(report, ep_moe_launches=report["launches"]), f,
+                      indent=1, default=str)
     return report
 
 
@@ -7827,6 +8570,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--pp-sp"]:   # phase 22 alone
         phase_pp_sp(torch, smi)
+        log(smi)
+        return 0
+    if sys.argv[1:2] == ["--ep-moe"]:   # phase 23 alone
+        phase_ep_moe(torch, smi)
         log(smi)
         return 0
     if sys.argv[1:2] == ["--timed-rows"]:
@@ -8037,7 +8784,21 @@ def main() -> int:
         "the pp batcher, speculation, pp x tp, sp x tp, pp x sp and family "
         "rows (2 layers, f32)")
     pp_sp = phase_pp_sp(torch, smi, refs={
-        "batched": batched["tokens_paged"], "engine": rows[2]["tokens"]})
+        "batched": batched["tokens_paged"], "engine": rows[2]["tokens"]},
+        keep=True)
+
+    mark(23, "expert parallelism and tp for the experts and latent "
+        "attention: (a) mixtral-8x7b at full width, "
+        f"{MIXTRAL_EP_LAYERS} layers, tp=2 x ep=2 through the worker "
+        "(engine bf16; batched bf16 and int4) against tp=1; (b) "
+        "deepseek-proxy at tp=2 x ep=2 on both caches and batched; (c) "
+        "the experts types on their grids and pp=2 x ep=2 rows against "
+        "tp=1 (2 layers, f32)")
+    ep_moe = phase_ep_moe(torch, smi, refs=experts_mla["mla_serving"])
+    for name in ("flash_attention", "flash_decode", "paged_flash_decode",
+                 "q4_matmul", "q4_matmul_row"):
+        assert ep_moe["launches"].get(name, 0) > 0, \
+            f"{name} never launched on phase 23's path"
 
     mark(None)
     log("  wall time by phase (s):", json.dumps(
@@ -8127,6 +8888,11 @@ def main() -> int:
         # launches no attention kernel)
         entry["pp_sp_launches"] = pp_sp["launches"].get(
             name, 0) if "[" not in name else 0
+        # phase 23: every rank's launches (tp x ep and pp x ep grids;
+        # latent attention and sinks launch no attention kernel, the
+        # fused gate is off under tp)
+        entry["ep_moe_launches"] = ep_moe["launches"].get(
+            name, 0) if "[" not in name else 0
         cap_rows = {"flash_attention": cap_pre, "flash_decode": cap_dec,
                     "paged_flash_decode": cap_paged}.get(name)
         if cap_rows is not None:
@@ -8150,7 +8916,7 @@ def main() -> int:
               "families": families, "ingestion": ingestion,
               "later": later, "kv_plane": kv_plane, "spec_migrate": spec,
               "lora_moe": lora_moe, "experts_mla": experts_mla,
-              "tp_batched": tp_batched, "pp_sp": pp_sp,
+              "tp_batched": tp_batched, "pp_sp": pp_sp, "ep_moe": ep_moe,
               "uncapped_digests": digests,
               "phase_seconds": phase_s,
               "seconds": time.perf_counter() - t_start}

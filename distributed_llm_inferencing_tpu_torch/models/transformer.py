@@ -91,26 +91,46 @@ are built once per model, on its device, so a captured decode step
 
 Tensor parallelism (the model on one rank of a ``TPGroup``,
 parallel/mesh.py, holding its shard of the weights, parallel/sharding.py;
-every dense family, ``tp_gaps`` names what stays refused): each ``Block``
-runs its local heads, H/tp q heads and the kv heads they read
-(``local_heads``; replicated when tp > Hkv), through the same kernels,
-with the rank's slice of the ALiBi slopes; the row-parallel o and down
-sum their partial products over the ranks in x's dtype (the JAX
-package's ``psum``; int4 partials come from ``q4_matmul_row``) and then
-add their replicated biases once; ``Embed`` looks up the rank's
+every family): each ``Block`` runs its local heads, H/tp q heads and the
+kv heads they read (``local_heads``; replicated when tp > Hkv), through
+the same kernels, with the rank's slice of the ALiBi slopes and of the
+sinks; latent attention runs its heads' columns of q_b (or q), kv_b_k and
+kv_b_v over the replicated bottlenecks, its latent cache row whole on
+every rank; dbrx's clip is elementwise. The row-parallel o, down and
+``shared_down`` sum their partial products over the ranks in x's dtype
+(the JAX package's ``psum``; int4 partials come from ``q4_matmul_row``)
+and then add their replicated biases once; ``Embed`` looks up the rank's
 vocabulary rows, zeros the rest and sums over the ranks; the head's
 vocabulary columns (an untied head's bias with them) are gathered before
-the logit scale and softcap. The count rule per weight pass: one
-all-reduce for the embedding, then per layer two (o, down), or one in a
-parallel-residual block (gpt-neox, gpt-j, phi, falcon: the sum of o's
-and down's partials reduced at once, ``Block._tail_parallel_tp``), plus
-one for "rms_full" q/k norms (q's and k's sums of squares together);
-and one gather. In bf16 an o or down output thus rounds twice (each
-rank's partial, then their sum), where one device rounds once: up to one
-more bf16 ulp per row-parallel linear, as in the JAX package.
-chip_smoke.py holds tp=2 to tp=1 within its f32 cross-check tolerance
-(the sums' order only) and, at full depth in bf16, within 1.5x tp=1's
-error against f32.
+the logit scale and softcap. In bf16 an o or down output thus rounds
+twice (each rank's partial, then their sum), where one device rounds
+once: up to one more bf16 ulp per row-parallel linear, as in the JAX
+package. chip_smoke.py holds tp=2 to tp=1 within its f32 cross-check
+tolerance (the sums' order only) and, at full depth in bf16, within 1.5x
+tp=1's error against f32.
+
+Expert parallelism (``experts``: the expert group of the rank's tp × ep
+cell, parallel/mesh.py): every rank computes the gates over all E
+experts, and capacity dispatch's C and dispatch tensors over all E, as
+one device does; it runs only its E/ep experts (``ExpertCut``), each on
+its I/tp slice of the hidden width, adds down's expert bias on one tp
+rank per ep slice, and the f32 partials are summed over the expert group
+before the cast to the activation dtype (the reference's combine einsum
+is f32). Everything else replicates over ep. Under sp a prefill chunk's
+routed MLP runs over the whole block's positions (``Block._routed``), so
+"auto" dispatch and C count them as the reference's GSPMD-global MLP
+does.
+
+The count rule per weight pass, on every rank of a tp or ep group: one
+all-reduce for the embedding under tp; per layer, under tp, one for o and
+one for down or, in an MoE block with shared experts, ``shared_down``
+(none for an MoE block without them), or one for both in a
+parallel-residual block (gpt-neox, gpt-j, phi, falcon: the sum of o's and
+down's partials reduced at once, ``Block._tail_parallel_tp``), plus one
+for "rms_full" q/k norms (q's and k's sums of squares together); per MoE
+layer under tp or ep one ``expert_all_reduce`` over the expert group (and
+under sp one ``expert_gather`` per prefill); and one gather of the head's
+logits under tp.
 
 The paged entry points serve the continuous batcher (runtime/batcher.py)
 over the block pool (ops/paged_kvcache.py): ``paged_prefill_tail`` (a
@@ -137,7 +157,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -159,8 +179,8 @@ from distributed_llm_inferencing_tpu_torch.ops.lora import gathered_delta
 from distributed_llm_inferencing_tpu_torch.ops.norms import (
     Norm, qk_normalize)
 from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
-    PagedKVCache, gather_seq, paged_attend_decode, paged_attend_prefix,
-    write_block_run, write_token)
+    PagedKVCache, gather_seq, one_per_place, paged_attend_decode,
+    paged_attend_prefix, token_writers, write_block_run, write_token)
 from distributed_llm_inferencing_tpu_torch.ops.quant_matmul import q4_linear
 from distributed_llm_inferencing_tpu_torch.ops.rope import (
     apply_rope, rope_cos_sin, rotary_dim)
@@ -200,11 +220,6 @@ _CHOICES = {"norm_type": ("rmsnorm", "layernorm"), "activation": tuple(_ACT),
             "kv_quant": (None, "int8"),
             "moe_router": ("softmax", "deepseek_v3", "ernie", "topk_softmax"),
             "moe_dispatch": ("auto", "dense", "capacity")}
-# field -> its value off the features tp does not shard yet (the experts,
-# latent attention, dbrx's clip and gpt-oss's sinks: ROADMAP Queue A
-# item 9.8); parallel/sharding.py cuts every dense family's leaves
-_TP_REFUSED = {"num_experts": 0, "kv_lora_rank": None, "q_lora_rank": None,
-               "qkv_clip": None, "attn_sinks": False}
 
 
 def check_supported(cfg: ModelConfig):
@@ -219,12 +234,6 @@ def check_supported(cfg: ModelConfig):
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not in the ported model families: {', '.join(bad)}")
-
-
-def tp_gaps(cfg: ModelConfig) -> List[str]:
-    """The switches of ``cfg`` that tp does not serve yet, by name."""
-    return [f"{f}={getattr(cfg, f)!r}" for f, want in _TP_REFUSED.items()
-            if getattr(cfg, f) != want]
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -280,15 +289,18 @@ class LoRARows:
         return {"a": p["a"][i], "b": p["b"][i]}
 
 
-def _ew(operand, leaf: Dict[str, torch.Tensor], eq: str, scale_at=None):
+def _ew(operand, leaf: Dict[str, torch.Tensor], eq: str, scale_at=None,
+        shards: int = 1):
     """Expert einsum ``eq`` of ``operand`` with a stacked expert leaf in
     its stored form (the reference's ``_ew``): float ``w``, or int8 /
     int4 levels in the operand's dtype with the [E, out] scale on the
-    product, ``scale_at`` reshaping it to the product's layout."""
+    product, ``scale_at`` reshaping it to the product's layout. A
+    chunk-local int4 down of which this rank holds one of ``shards`` din
+    slices unpacks as that one chunk."""
     if "w" in leaf:
         return torch.einsum(eq, operand, leaf["w"])
     if "p4" in leaf:
-        qw = unpack_int4(leaf["p4"], pack_chunks(leaf))
+        qw = unpack_int4(leaf["p4"], pack_chunks(leaf) // shards)
     else:
         qw = leaf["q"]
     y = torch.einsum(eq, operand, qw.to(operand.dtype))
@@ -369,35 +381,70 @@ def glu_h(gate, up, cfg: ModelConfig, act):
     return act(gate) * up
 
 
-def _expert_bias(y, leaf, at=None):
+def _expert_bias(y, leaf, at=None, on: bool = True):
     """``y`` plus the expert leaf's [E, out] bias (gpt-oss), ``at``
-    reshaping it to y's layout; y as it is without one."""
-    if "b" not in leaf:
+    reshaping it to y's layout; y as it is without one, or when not
+    ``on``."""
+    if "b" not in leaf or not on:
         return y
     return y + (leaf["b"] if at is None else at(leaf["b"]))
 
 
-def moe_dense(x, router_w, experts, cfg: ModelConfig, act, router_b=None):
+@dataclasses.dataclass(frozen=True)
+class ExpertCut:
+    """What of the routed experts one rank holds (parallel/sharding.py):
+    experts [lo, lo + E/ep) of the gates' columns, each one ``shards``-th
+    of their hidden width (tp), and whether it adds down's expert bias
+    (``down_bias``: one tp rank per ep slice, so the sum over the
+    expert group counts it once)."""
+    lo: int = 0
+    shards: int = 1
+    down_bias: bool = True
+
+
+WHOLE = ExpertCut()
+
+
+def _expert_hidden(xin, experts, cfg, act, eq, at=None, cut=WHOLE):
+    """down(glu(gate(x), up(x))) of every held expert, before the gate
+    weights: [..., E_l, D] in xin's dtype (this rank's partial product
+    under tp)."""
+    g = _expert_bias(_ew(xin, experts["gate"], eq[0], at), experts["gate"],
+                     at)
+    u = _expert_bias(_ew(xin, experts["up"], eq[0], at), experts["up"], at)
+    return _expert_bias(_ew(glu_h(g, u, cfg, act), experts["down"], eq[1],
+                            at, cut.shards), experts["down"], at,
+                        cut.down_bias)
+
+
+def _held(experts) -> int:
+    """The experts a rank holds: the leading axis of its leaves."""
+    return next(iter(experts["down"].values())).shape[0]
+
+
+def moe_dense(x, router_w, experts, cfg: ModelConfig, act, router_b=None,
+              cut: ExpertCut = WHOLE):
     """Every expert for every token, weighted by its gate (the
     reference's ``_moe_dense``): no permutation and no drops, E/k times
-    the FLOPs of a dispatch, the trade at decode's token counts."""
+    the FLOPs of a dispatch, the trade at decode's token counts. The
+    gates span every expert; the rank's ``cut`` runs its own. Returns
+    the f32 combine [..., D] (under ep or tp this rank's partial)."""
     gate = moe_gates(x, router_w, cfg, router_b)
-    g = _expert_bias(_ew(x, experts["gate"], "...d,edi->...ei"),
-                     experts["gate"])
-    u = _expert_bias(_ew(x, experts["up"], "...d,edi->...ei"), experts["up"])
-    out = _expert_bias(_ew(glu_h(g, u, cfg, act), experts["down"],
-                           "...ei,eid->...ed"), experts["down"])
-    out = torch.einsum("...ed,...e->...d", out.float(), gate)
-    return out.to(x.dtype)
+    out = _expert_hidden(x, experts, cfg, act,
+                         ("...d,edi->...ei", "...ei,eid->...ed"), cut=cut)
+    return torch.einsum("...ed,...e->...d", out.float(),
+                        gate[..., cut.lo:cut.lo + _held(experts)])
 
 
 def moe_capacity(x, router_w, experts, cfg: ModelConfig, act,
-                 router_b=None):
+                 router_b=None, cut: ExpertCut = WHOLE):
     """GShard capacity dispatch (the reference's ``_moe_capacity``): each
     expert takes at most C = max(1, int(cf * k * N / E)) of the N
     positions of ``x`` (padding positions compete too), in token order,
     then choice order; a choice past its expert's capacity is dropped
-    (the token's other choices still apply)."""
+    (the token's other choices still apply). C and the dispatch count
+    every expert; the rank's ``cut`` runs its own slots. Returns the f32
+    combine [..., D] (under ep or tp this rank's partial)."""
     *lead, d = x.shape
     xf = x.reshape(-1, d)
     n = xf.shape[0]
@@ -413,23 +460,24 @@ def moe_capacity(x, router_w, experts, cfg: ModelConfig, act,
     combine = torch.einsum("nke,nkec->nec",
                            onehot * gate_vals[..., None] * keep,
                            F.one_hot(slot, c).float())       # [N, E, C]
+    combine = combine[:, cut.lo:cut.lo + _held(experts)]
     dispatch = (combine > 0).to(x.dtype)
     ex_in = torch.einsum("nec,nd->ecd", dispatch, xf)        # [E, C, D]
     per_slot = functools.partial(torch.unsqueeze, dim=1)     # [E, 1, out]
-    g = _expert_bias(_ew(ex_in, experts["gate"], "ecd,edi->eci", per_slot),
-                     experts["gate"], per_slot)
-    u = _expert_bias(_ew(ex_in, experts["up"], "ecd,edi->eci", per_slot),
-                     experts["up"], per_slot)
-    out = _expert_bias(_ew(glu_h(g, u, cfg, act), experts["down"],
-                           "eci,eid->ecd", per_slot), experts["down"],
-                       per_slot)
+    out = _expert_hidden(ex_in, experts, cfg, act,
+                         ("ecd,edi->eci", "eci,eid->ecd"), per_slot, cut)
     y = torch.einsum("ecd,nec->nd", out.float(), combine)
-    return y.reshape(*lead, d).to(x.dtype)
+    return y.reshape(*lead, d)
 
 
-def moe(x, router_w, experts, cfg: ModelConfig, act, router_b=None):
+def moe(x, router_w, experts, cfg: ModelConfig, act, router_b=None,
+        group=None):
     """The routed MLP by ``cfg.moe_dispatch``: "auto" is dense at N <=
-    ``MOE_AUTO_DENSE_MAX_TOKENS`` positions and capacity above."""
+    ``MOE_AUTO_DENSE_MAX_TOKENS`` positions and capacity above. Under ep
+    or tp (``group``: the expert group, parallel/mesh.py) each rank runs
+    its cut and the f32 partials are summed over the group before the
+    cast to x's dtype, as the reference's f32 combine einsum sums every
+    expert before its cast."""
     mode = cfg.moe_dispatch
     if mode == "auto":
         n = 1
@@ -437,7 +485,15 @@ def moe(x, router_w, experts, cfg: ModelConfig, act, router_b=None):
             n *= size
         mode = "dense" if n <= MOE_AUTO_DENSE_MAX_TOKENS else "capacity"
     fn = moe_capacity if mode == "capacity" else moe_dense
-    return fn(x, router_w, experts, cfg, act, router_b)
+    if group is None:
+        return fn(x, router_w, experts, cfg, act, router_b).to(x.dtype)
+    group.note_route(x)
+    cut = ExpertCut(lo=group.ep_rank * _held(experts),
+                    shards=group.world // group.ep,
+                    down_bias=group.tp_rank == 0)
+    y = fn(x, router_w, experts, cfg, act, router_b, cut)
+    y = group.all_reduce(y, key="expert_all_reduce")
+    return y.to(x.dtype)
 
 
 class Linear(nn.Module):
@@ -567,7 +623,7 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
                  tp: Optional[TPGroup] = None, alibi=None, index: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 seq: Optional[SeqShard] = None):
+                 seq: Optional[SeqShard] = None, experts=None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
@@ -608,9 +664,11 @@ class Block(nn.Module):
         self.plain = cfg.mla
         self.gate = None
         for n, *_ in layer_linears(cfg):
-            setattr(self, n, Linear(_leaf(p, n),
-                                    tp if n in ("o", "down") else None))
+            setattr(self, n, Linear(_leaf(p, n), tp if n in (
+                "o", "down", "shared_down") else None))
         self.router = self.router_b = self.experts = None
+        # the tp x ep ranks that sum the routed experts' partials
+        self.expert_group = experts if cfg.is_moe else None
         if cfg.is_moe:
             self.router = _param(p["router.w"])
             if "router.bias" in p:
@@ -790,12 +848,35 @@ class Block(nn.Module):
     def _scaled(self, y):
         return y if self.residual_scale is None else y * self.residual_scale
 
-    def _mlp(self, h, lora=None, partial: bool = False):
+    def _routed(self, h, whole: bool):
+        """The routed experts of h. ``whole`` (an sp prefill, h this
+        rank's chunk of the block): the dispatch decides dense or
+        capacity, and counts capacity, over the whole block's positions,
+        as the reference's GSPMD-global MLP does; the chunks are
+        assembled over the sp group (one exact sum of zero-padded
+        chunks, ``expert_gather``), routed, and this rank keeps its own
+        rows."""
+        route = functools.partial(moe, router_w=self.router,
+                                  experts=self.experts, cfg=self.cfg,
+                                  act=self.act, router_b=self.router_b,
+                                  group=self.expert_group)
+        if not whole:
+            return route(h)
+        sh = self.seq
+        B, c, D = h.shape
+        full = h.new_zeros(B, c * sh.world, D)
+        full[:, sh.rank * c:(sh.rank + 1) * c] = h
+        full = sh.group.all_reduce(full, key="expert_gather")
+        return route(full)[:, sh.rank * c:(sh.rank + 1) * c]
+
+    def _mlp(self, h, lora=None, partial: bool = False,
+             whole: bool = False):
         """The MLP of h; with ``partial`` (tp's fused parallel residual)
-        down's partial product, before its sum and bias."""
+        down's partial product, before its sum and bias; ``whole``: the
+        routed experts count an sp prefill's whole block
+        (``_routed``)."""
         if self.router is not None:
-            out = moe(h, self.router, self.experts, self.cfg, self.act,
-                      self.router_b)
+            out = self._routed(h, whole)
             if self.cfg.moe_shared_experts:   # always on, outside routing
                 out = out + self.shared_down(
                     self.act(self.shared_gate(h)) * self.shared_up(h))
@@ -809,7 +890,7 @@ class Block(nn.Module):
             return self.down.partial(a)
         return self._proj("down", a, lora)
 
-    def _tail(self, x, h, attn, lora=None):
+    def _tail(self, x, h, attn, lora=None, whole: bool = False):
         """o projection, then the residual topology and the MLP (the
         reference's ``_block_tail``): parallel (attention and MLP read
         the same input, one residual add; one shared norm or two),
@@ -820,7 +901,8 @@ class Block(nn.Module):
         ``residual_scale``, before its residual add. Under tp a parallel
         block with no sublayer norm and no residual scale (every parallel
         family) sums o's and down's partial products over the ranks in
-        one all-reduce (``_tail_parallel_tp``)."""
+        one all-reduce (``_tail_parallel_tp``). ``whole``: an sp prefill
+        chunk, whose routed experts count the whole block (``_routed``)."""
         cfg = self.cfg
         B, s = attn.shape[:2]
         vd = cfg.v_head_dim_effective   # latent attention's v rode padded
@@ -838,12 +920,12 @@ class Block(nn.Module):
         attn = self._scaled(attn)
         if cfg.parallel_residual:
             h2 = h if self.mlp_norm is None else self.mlp_norm(x)
-            return x + attn + self._scaled(self._mlp(h2, lora))
+            return x + attn + self._scaled(self._mlp(h2, lora, whole=whole))
         x = x + attn
         if cfg.post_norm:
             x = self.attn_norm(x)
         m = self._mlp(x if cfg.post_norm or cfg.sublayer_postnorm_only
-                      else self.mlp_norm(x), lora)
+                      else self.mlp_norm(x), lora, whole=whole)
         if self.mlp_post_norm is not None:
             m = self.mlp_post_norm(m)
         elif cfg.sublayer_postnorm_only:
@@ -895,7 +977,8 @@ class Block(nn.Module):
         q, k, v = self._qkv(h, cos_sin, lora)
         if self.seq is not None:
             return self._tail(x, h, self._seq_attend(
-                q, k, v, cache, new_lengths, is_prefill, positions), lora)
+                q, k, v, cache, new_lengths, is_prefill, positions), lora,
+                whole=is_prefill)
         self._write(lambda c, n: write_block(c, n, None, slots), cache, k, v)
         cap = self.cfg.attn_softcap
         if is_prefill:
@@ -975,7 +1058,8 @@ class Block(nn.Module):
         return self._tail(x, h, attn, lora)
 
     def paged_decode(self, x, cache, cos_sin, block_tables, context_lens,
-                     fused: bool = False, fused_rope=None, lora=None):
+                     fused: bool = False, fused_rope=None, lora=None,
+                     writers=None):
         """One token per slot at position ``context_lens``. With ``fused``
         and a q leaf the fused kernel takes (``fused_decode.supported``:
         no bias), the q projection (in the leaf's stored form), RoPE
@@ -992,7 +1076,8 @@ class Block(nn.Module):
         else:
             q, k, v = self._qkv(h, cos_sin, lora)
         self._write(lambda c, n: write_token(c, n[:, 0], block_tables,
-                                             context_lens), cache, k, v)
+                                             context_lens, writers),
+                    cache, k, v)
         ck, cv = cache[:2]
         new_lens = context_lens + 1
         if fused:
@@ -1072,7 +1157,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor],
                  tp: Optional[TPGroup] = None, *,
                  layers: Optional[range] = None,
-                 seq: Optional[SeqShard] = None):
+                 seq: Optional[SeqShard] = None, experts=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -1106,7 +1191,7 @@ class Transformer(nn.Module):
             Block(cfg.layer_cfg(i),
                   {k[len(f"layers.{i}."):]: t for k, t in params.items()
                    if k.startswith(f"layers.{i}.")}, tp, self.alibi,
-                  i, self.dtype, seq)
+                  i, self.dtype, seq, experts)
             for i in self.layer_range])
         last = self.last
         self.final_norm = (None if cfg.post_norm or not last
@@ -1289,10 +1374,12 @@ class Transformer(nn.Module):
                  and lora is None)
         fused_rope = (fused_decode.rope_rows(cos_sin)
                       if fused and cos_sin is not None else None)
+        writers = token_writers(block_tables, context_lens,
+                                paged.block_size)
         for i, layer in enumerate(self.layers):
             x = layer.paged_decode(x, paged.layer(i), cos_sin,
                                    block_tables, context_lens, fused,
-                                   fused_rope, lora)
+                                   fused_rope, lora, writers)
         return self.unembed(x)[:, 0], paged
 
     def paged_chunk_step(self, s: "PagedChunkState", paged: PagedKVCache,
@@ -1375,11 +1462,12 @@ class Transformer(nn.Module):
                            (pos // bs).clamp(max=mb - 1).T).T
         blk = torch.where(s.wrote[:k], blk, dummy_block)
         off = pos % bs
+        places = blk * bs + off
         for side, lv, sc in ((s.side_k, paged.k, paged.k_scale),
                              (s.side_v, paged.v, paged.v_scale)):
             q8, scale = quant_kv(side[:, :, :k].transpose(1, 2))
-            lv[:, blk, off] = q8
-            sc[:, blk, off] = scale
+            lv[:, blk, off] = one_per_place(q8, places, 1)
+            sc[:, blk, off] = one_per_place(scale, places, 1)
 
     # ------------------------------------------------------------------
     # Speculative chunk (the batcher's on-device prompt-lookup drafting)
@@ -1493,14 +1581,15 @@ class Transformer(nn.Module):
         blk = torch.gather(s.bt.long(), 1, (pos // bs).clamp(max=mb - 1))
         blk = torch.where(s.acc_mask, blk, dummy_block)
         off = pos % bs
+        places = blk * bs + off
         for side, lv, sc in ((s.side_k, paged.k, paged.k_scale),
                              (s.side_v, paged.v, paged.v_scale)):
             if sc is None:
-                lv[:, blk, off] = side.to(lv.dtype)
+                lv[:, blk, off] = one_per_place(side, places, 1).to(lv.dtype)
             else:
                 q8, scale = quant_kv(side)
-                lv[:, blk, off] = q8
-                sc[:, blk, off] = scale
+                lv[:, blk, off] = one_per_place(q8, places, 1)
+                sc[:, blk, off] = one_per_place(scale, places, 1)
 
 
 @dataclasses.dataclass

@@ -4,7 +4,9 @@
   reads and writes the view ``k[i]``. Under ``cfg.mla_latent_cache``
   (the engine's MLA layout, the reference's) ``k`` is [L, B, max_seq, 1,
   qk_rope_head_dim + kv_lora_rank], one shared latent row per token, and
-  ``v`` is zero-width.
+  ``v`` is zero-width; under tp and ep every rank holds that row whole
+  (the materialized layout holds a tp rank's heads), and every ep rank
+  of a tp cell holds the same cache, as attention replicates over ep.
 - ``lengths``: [B] int32 on the cache's device — filled slots per
   sequence (the same for every layer).
 - ``k_scale``/``v_scale``: [L, B, max_seq, Hkv] f32, present only under
@@ -74,8 +76,8 @@ def dequant_kv(q, scale, dtype):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None, num_kv_heads=None, num_layers=None) -> KVCache:
     """A zeroed cache; ``num_kv_heads`` is a tp rank's share of the kv
-    heads (parallel/sharding.py ``local_heads``), all of them by
-    default; ``num_layers`` a pp stage's layers, all by default
+    heads (parallel/sharding.py ``local_heads``; 1, the whole latent row,
+    under ``mla_latent_cache``), all of them by default; ``num_layers`` a pp stage's layers, all by default
     (``max_seq``: an sp rank's slice of the positions)."""
     dtype = torch_dtype(dtype or cfg.dtype)
     # mla_latent_cache: one shared [k_rot | c] row per token in the k

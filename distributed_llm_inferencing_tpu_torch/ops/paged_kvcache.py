@@ -15,7 +15,13 @@ donates the pool to each jitted program so XLA updates it where it lies;
 writing into the same tensors keeps one pool, never a copy per step. (On
 the TPU a dynamic scatter cost enough that the JAX decode chunk batches
 its writes through a side buffer; on the card an in-place write is a
-small kernel, so the port writes every step.)
+small kernel, so the port writes every step.) Inactive and dead slots,
+padding rows and unkept speculative entries all write the reserved dummy
+block; every write gives each place one value, its first writer's
+(``first_writers``), since a card's ``index_put_`` keeps whichever
+repeated write lands last and the dummy block, which inactive slots
+attend, would hold other bits in each process (under tp × ep, other
+sums in each ep slice's tp group).
 
 ``paged_attend_decode`` is the decode regime: on a CUDA tensor it runs
 the paged kernel (ops/paged_attention.py), on a CPU tensor its plain
@@ -92,9 +98,10 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      num_kv_heads=None, num_layers=None) -> PagedKVCache:
     """A zeroed pool; ``num_kv_heads`` is a tp rank's kv heads
     (parallel/sharding.py ``local_heads``: the ones its q heads read, the
-    JAX package's ``paged_cache_specs``), all of them by default, and
-    ``num_layers`` a pp stage's layers. An int8 pool's per-(token, head)
-    scales follow the heads."""
+    JAX package's ``paged_cache_specs``; latent attention's materialized
+    heads alike; every ep rank of a tp cell the same), all of them by
+    default, and ``num_layers`` a pp stage's layers. An int8 pool's
+    per-(token, head) scales follow the heads."""
     dtype = torch_dtype(dtype or cfg.dtype)
     shape = (num_layers or cfg.num_layers, num_blocks, block_size,
              num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
@@ -114,15 +121,68 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                         v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def write_token(cache_layer, new, block_tables, positions):
-    """Write one new token per slot into a layer's pool, in place.
+def first_writers(places: torch.Tensor) -> torch.Tensor:
+    """For each entry of ``places`` [N] (the place in the pool a scatter's
+    entry writes), the index of the first entry that writes the same
+    place. Several entries write one place only in the reserved dummy
+    block (padding rows, inactive slots, unkept steps), and an
+    ``index_put_`` on a card keeps whichever of them lands last: the
+    dummy block's bits then vary from run to run and from rank to rank,
+    and an inactive slot, which attends the dummy block, computes
+    garbage that differs between the ranks (under tp × ep two tp groups
+    then sum different partials). Scattering every entry's value
+    through this index writes one value per place, the same on every
+    run. Static shapes and no host sync (a captured step runs it)."""
+    n = places.numel()
+    srt, order = torch.sort(places, stable=True)
+    start = torch.ones(n, dtype=torch.bool, device=places.device)
+    start[1:] = srt[1:] != srt[:-1]
+    idx = torch.arange(n, device=places.device)
+    run = torch.cummax(torch.where(start, idx, 0), 0).values
+    src = torch.empty_like(order)
+    src[order] = order[run]
+    return src
+
+
+def one_per_place(values: torch.Tensor, places: torch.Tensor,
+                  dim: int) -> torch.Tensor:
+    """``values`` whose dims ``dim``.. ``dim + places.dim() - 1`` are
+    ``places``' (the place each entry writes), every entry replaced by
+    the first one writing its place (``first_writers``)."""
+    src = first_writers(places.reshape(-1))
+    shape = values.shape
+    flat = values.reshape(*shape[:dim], -1, *shape[dim + places.dim():])
+    return flat.index_select(dim, src).reshape(shape)
+
+
+def _token_places(block_tables, positions, bs: int):
+    """(block, offset) [R] each slot's token writes."""
+    pos = positions.long()
+    blk = torch.gather(block_tables.long(), 1, (pos // bs)[:, None])[:, 0]
+    return blk, pos % bs
+
+
+def token_writers(block_tables, positions, bs: int) -> torch.Tensor:
+    """``first_writers`` of a step's token writes: the same for every
+    layer of the step, so a decode step computes it once."""
+    blk, off = _token_places(block_tables, positions, bs)
+    return first_writers(blk * bs + off)
+
+
+def write_token(cache_layer, new, block_tables, positions, writers=None):
+    """Write one new token per slot into a layer's pool, in place; the
+    inactive and dead slots, whose tables point at the dummy block, write
+    one value per place there (each row writes its first writer's
+    value, ``writers``: ``token_writers``, computed here if None).
 
     cache_layer [NB,bs,Hkv,hd]; new [R,Hkv,hd]; block_tables [R,MB];
     positions [R] — the position being written. Returns cache_layer."""
     bs = cache_layer.shape[1]
-    pos = positions.long()
-    blk = torch.gather(block_tables.long(), 1, (pos // bs)[:, None])[:, 0]
-    cache_layer[blk, pos % bs] = new.to(cache_layer.dtype)
+    blk, off = _token_places(block_tables, positions, bs)
+    if writers is None:
+        writers = first_writers(blk * bs + off)
+    cache_layer[blk, off] = new.index_select(0, writers).to(
+        cache_layer.dtype)
     return cache_layer
 
 
@@ -131,12 +191,14 @@ def write_block_run(cache_layer, new_blocks, block_ids):
 
     cache_layer [NB,bs,Hkv,hd]; new_blocks [B,T,Hkv,hd] with T a multiple
     of bs; block_ids [B, T // bs]. Duplicate ids occur only on the
-    reserved dummy block (padding rows), whose contents are never read.
-    Returns cache_layer."""
+    reserved dummy block (padding rows), which gets one value per place
+    (``one_per_place``). Returns cache_layer."""
     bs = cache_layer.shape[1]
     b, t = new_blocks.shape[:2]
-    cache_layer[block_ids.reshape(-1).long()] = new_blocks.reshape(
-        b * (t // bs), bs, *new_blocks.shape[2:]).to(cache_layer.dtype)
+    ids = block_ids.reshape(-1).long()
+    cache_layer[ids] = one_per_place(new_blocks.reshape(
+        b * (t // bs), bs, *new_blocks.shape[2:]), ids, 0).to(
+        cache_layer.dtype)
     return cache_layer
 
 

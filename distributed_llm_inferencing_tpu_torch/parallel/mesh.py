@@ -1,4 +1,5 @@
-"""Process groups of a pp x sp x tp grid: the port's counterpart of the mesh.
+"""Process groups of a pp x sp x tp x ep grid: the port's counterpart of
+the mesh.
 
 The JAX package (its ``parallel/mesh.py``) runs one program over a
 ``jax.sharding.Mesh`` of five named axes (dp, pp, sp, tp, ep) from one
@@ -10,22 +11,27 @@ its share of the weights on its own device (utils/device.py
 parallel/ring.py).
 
 - ``MeshSpec`` / ``validate_spec``: the JAX package's spec and its shape
-  checks. The port serves pp, sp and tp and their compositions; dp and ep
-  above 1 raise ``NotImplementedError`` by ROADMAP item. tp above the kv
-  head count replicates the kv heads, as the JAX package does.
+  checks. The port serves pp, sp, tp and ep and their compositions; dp
+  above 1 raises ``NotImplementedError`` (ROADMAP Queue A item 9.16). tp
+  above the kv head count replicates the kv heads, as the JAX package
+  does; ep cuts the experts of an MoE model.
 - ``TPGroup``: one rank's view of a group of ``world`` processes on one
   host, created or joined through a file store at ``store_path``. Two
   process groups over every rank: ``control`` (gloo, on the CPU) carries
   the lockstep executor's ops (runtime/lockstep.py); ``data`` carries the
   leader's broadcasts (sampled tokens, a pipeline's outputs), over the
   backend ``data_backend`` picks from the layout. ``configure(spec)``
-  lays the ranks out on the grid, rank = (p·sp + s)·tp + t (the leader,
-  rank 0, is (0, 0, 0)), and builds the subgroups this rank belongs to
-  (``grid_coords``): the tp group of its (p, s) cell (``tp``: the model's
-  all-reduces and gathers; the whole group itself when tp is the only
-  axis), the sp ring of its (p, t) (``sp``: ring hops and combines) and
-  the pp ring of its (s, t) (``pp``: stage hops). A kept group (runtime/
-  lockstep.py ``DLI_TP_KEEP_GROUPS``) is configured anew at each load.
+  lays the ranks out on the grid, rank = ((p·sp + s)·tp + t)·ep + e, ep
+  innermost as in the JAX ``create_mesh`` (the leader, rank 0, is (0, 0,
+  0, 0)), and builds the subgroups this rank belongs to
+  (``grid_coords``): the tp group of its (p, s, e) cell (``tp``: the
+  attention's and the dense MLP's all-reduces, the embedding, the head's
+  gather; the whole group itself when tp is the only axis), the expert
+  group over the tp × ep ranks of its (p, s) cell (``experts``: one sum
+  of the routed experts' partial outputs per MoE layer), the sp ring of
+  its (p, t, e) (``sp``: ring hops and combines) and the pp ring of its
+  (s, t, e) (``pp``: stage hops). A kept group (runtime/lockstep.py
+  ``DLI_TP_KEEP_GROUPS``) is configured anew at each load.
 - A hop is a broadcast from the sender over the two-rank group of a ring
   edge (``Ring``): gloo takes only broadcast and all_reduce on CUDA
   tensors, so ranks that share a card cannot ``send``/``recv``, and a
@@ -35,12 +41,17 @@ parallel/ring.py).
   last), so blocking hops never wait on each other in a cycle.
 
 Every data collective is counted in ``counts``: ``all_reduce`` (the
-embedding's, o's and down's sums, and "rms_full" q/k norms' mean
-squares), ``gather`` (the head's logits) and ``broadcast`` (the leader's
-sampled tokens, a pipeline's outputs); under pp ``send`` and ``recv``
-(stage hops, per rank and direction); under sp ``ring`` (one per
-rotation of a ring's K/V chunks) and ``combine`` (one per sp all-reduce:
-a decode step's attention partials per layer, a prefill's logits).
+embedding's, o's, down's and the shared experts' sums, and "rms_full"
+q/k norms' mean squares), ``expert_all_reduce`` (the routed experts'
+sums over the expert group), ``gather`` (the head's logits over the tp
+group) and
+``broadcast`` (the leader's sampled tokens, a pipeline's outputs); under
+pp ``send`` and ``recv`` (stage hops, per rank and direction); under sp
+``ring`` (one per rotation of a ring's K/V chunks), ``combine`` (one per
+sp all-reduce: a decode step's attention partials per layer, a
+prefill's logits) and ``expert_gather`` (a prefill chunk's rows
+assembled over the sp group before each MoE layer, models/
+transformer.py). A key appears at its first count.
 
 A collective that fails raises; nothing retries or falls back to one
 rank.
@@ -82,8 +93,8 @@ class MeshSpec:
 
     @property
     def world(self) -> int:
-        """The ranks of the grid: pp · sp · tp (dp and ep are refused)."""
-        return self.pp * self.sp * self.tp
+        """The ranks of the grid: pp · sp · tp · ep (dp is refused)."""
+        return self.pp * self.sp * self.tp * self.ep
 
     @staticmethod
     def from_dict(d) -> "MeshSpec":
@@ -103,23 +114,25 @@ def validate_spec(spec: MeshSpec, cfg) -> None:
     As the JAX package: pp divides the layers; sp with sinks and pp over
     a mixed dense/MoE stack are ``NotImplementedError``; sp with tp above
     the kv heads is a ``ValueError`` (the ring shards the kv heads over
-    tp); tp divides the heads and the intermediate width, and divides the
-    kv heads or exceeds them (the kv heads then replicate,
-    parallel/sharding.py ``kv_map``). The port's own: tp divides the
-    vocabulary (the embedding and the head split it), and an int4
-    row-parallel leaf's din splits into tp split-half chunks. Refused by
-    name: dp (ROADMAP Queue A item 9.16) and ep (9.8) above 1; under tp
-    (``tp_gaps``) the experts, latent attention, ``qkv_clip`` and sinks
-    (9.8)."""
+    tp); tp divides the heads and the intermediate widths (a mixed
+    stack's dense prefix's too), and divides the kv heads or exceeds
+    them (the kv heads then replicate, parallel/sharding.py ``kv_map``);
+    ep needs an MoE model whose experts it divides. The port's own: tp
+    divides the vocabulary (the embedding and the head split it; ROADMAP
+    Queue A item 9.17 pads an odd one), and an int4 row-parallel leaf's
+    din splits into tp split-half chunks. Refused by name: dp above 1
+    (ROADMAP Queue A item 9.16)."""
     if spec.dp > 1:
         raise NotImplementedError(
             f"mesh dp={spec.dp}: data parallelism is a later slice of the "
             "port (ROADMAP Queue A item 9.16); serve replicas as separate "
             "workers")
     if spec.ep > 1:
-        raise NotImplementedError(
-            f"mesh ep={spec.ep}: expert parallelism is a later slice of the "
-            "port (ROADMAP Queue A item 9.8)")
+        if not cfg.is_moe:
+            raise ValueError(f"ep={spec.ep} on a dense model")
+        if cfg.num_experts % spec.ep:
+            raise ValueError(f"ep={spec.ep} must divide num_experts="
+                             f"{cfg.num_experts}")
     if spec.pp > 1 and cfg.dense_prefix_layers:
         raise NotImplementedError(
             f"pp={spec.pp} over a mixed dense/MoE stack "
@@ -141,14 +154,6 @@ def validate_spec(spec: MeshSpec, cfg) -> None:
     tp = spec.tp
     if tp == 1:
         return
-    from distributed_llm_inferencing_tpu_torch.models.transformer import (
-        tp_gaps)
-    gaps = tp_gaps(cfg)
-    if gaps:
-        raise NotImplementedError(
-            f"tp={tp} with {', '.join(gaps)} is a later slice of the port "
-            "(ROADMAP Queue A item 9.8: the experts, latent attention, "
-            "qkv_clip and sinks under tp); load it without a tp axis")
     if cfg.num_heads % tp:
         raise ValueError(f"tp={tp} must divide num_heads={cfg.num_heads}")
     if tp <= cfg.num_kv_heads and cfg.num_kv_heads % tp:
@@ -158,28 +163,43 @@ def validate_spec(spec: MeshSpec, cfg) -> None:
     if cfg.intermediate_size % tp:
         raise ValueError(f"tp={tp} must divide intermediate_size="
                          f"{cfg.intermediate_size}")
+    if cfg.dense_intermediate_size and cfg.dense_intermediate_size % tp:
+        raise ValueError(f"tp={tp} must divide dense_intermediate_size="
+                         f"{cfg.dense_intermediate_size} (the mixed stack's "
+                         "dense-prefix MLP width)")
     if cfg.vocab_size % tp:
         raise ValueError(f"tp={tp} must divide vocab_size={cfg.vocab_size} "
-                         "(the embedding and the head split the vocabulary)")
+                         "(the embedding and the head split the vocabulary; "
+                         "ROADMAP Queue A item 9.17)")
     if cfg.quant == "int4":
-        # the row-parallel o and down are repacked into tp chunk-local
-        # split-half packs (parallel/sharding.py)
-        for name, din in (("o", cfg.q_dim), ("down", cfg.intermediate_size)):
-            if din % (2 * tp):
-                raise ValueError(
-                    f"int4 {name}: din={din} does not split into {tp} "
-                    "split-half chunks")
+        # the row-parallel leaves (parallel/sharding.py ``row_leaves``)
+        # are repacked into tp chunk-local split-half packs
+        from distributed_llm_inferencing_tpu_torch.models.params import (
+            param_shapes)
+        from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
+            row_leaves)
+        shapes = param_shapes(cfg.replace(quant=None))
+        for i in range(cfg.num_layers):
+            for name in row_leaves(cfg, i):
+                din = shapes[f"layers.{i}.{name}.w"][-2]
+                if din % (2 * tp):
+                    raise ValueError(
+                        f"int4 layers.{i}.{name}: din={din} does not split "
+                        f"into {tp} split-half chunks")
 
 
 def grid_coords(spec: MeshSpec, rank: int):
-    """(p, s, t) of ``rank`` on the grid: rank = (p·sp + s)·tp + t."""
-    t = rank % spec.tp
-    s = (rank // spec.tp) % spec.sp
-    return rank // (spec.tp * spec.sp), s, t
+    """(p, s, t, e) of ``rank`` on the grid: rank = ((p·sp + s)·tp + t)·ep
+    + e."""
+    e = rank % spec.ep
+    r = rank // spec.ep
+    t = r % spec.tp
+    s = (r // spec.tp) % spec.sp
+    return r // (spec.tp * spec.sp), s, t, e
 
 
-def grid_rank(spec: MeshSpec, p: int, s: int, t: int) -> int:
-    return (p * spec.sp + s) * spec.tp + t
+def grid_rank(spec: MeshSpec, p: int, s: int, t: int, e: int = 0) -> int:
+    return ((p * spec.sp + s) * spec.tp + t) * spec.ep + e
 
 
 def _nbytes(shape, dtype) -> int:
@@ -266,9 +286,9 @@ class Ring:
 
 
 class SubGroup:
-    """A data subgroup of a ``TPGroup`` (a tp cell or an sp ring):
-    ``rank`` and ``world`` within it; its collectives count in the
-    owner's ``counts``."""
+    """A data subgroup of a ``TPGroup`` (a tp cell, an expert group or an
+    sp ring): ``rank`` and ``world`` within it; its collectives count in
+    the owner's ``counts``."""
 
     def __init__(self, owner: "TPGroup", pg, rank: int, world: int):
         self.owner, self.pg, self.rank, self.world = owner, pg, rank, world
@@ -289,6 +309,28 @@ class SubGroup:
         self.pg.allreduce([full]).wait()
         self.owner.count(key)
         return full
+
+
+class ExpertGroup(SubGroup):
+    """The tp × ep ranks of one (p, s) cell, in grid order (rank t·ep +
+    e): the group that sums the routed experts' partials. ``ep`` its ep
+    size, ``tp_rank`` / ``ep_rank`` this rank's t and e. ``route_sum``
+    folds in the bits of every router input this rank routed
+    (``note_route``): each rank computes the gates from its own copy of
+    the hidden state, so the sums agree on every rank of the group only
+    if every rank routed the same bits."""
+
+    def __init__(self, owner: "TPGroup", pg, rank: int, world: int,
+                 ep: int):
+        super().__init__(owner, pg, rank, world)
+        self.ep, self.tp_rank, self.ep_rank = ep, rank // ep, rank % ep
+        self.route_sum = torch.zeros((), dtype=torch.int64,
+                                     device=self.device)
+
+    def note_route(self, x: torch.Tensor):
+        bits = x.detach().contiguous().view(
+            torch.int16 if x.element_size() == 2 else torch.int32)
+        self.route_sum += bits.sum(dtype=torch.int64)
 
 
 def _gloo(store, rank: int, world: int, timeout):
@@ -344,9 +386,7 @@ class TPGroup:
         self.counts = dict.fromkeys(self.BASE_COUNTS, 0)
         self._layouts = 0
         self._subgroups: list = []
-        self.spec = MeshSpec(tp=world)
-        self.coords = (0, 0, rank)
-        self.tp, self.sp, self.sp_ring, self.pp = self, None, None, None
+        self.release_grid()
 
     def _data_pg(self, store, rank: int, world: int):
         if self.backend == "nccl":
@@ -357,19 +397,20 @@ class TPGroup:
         return _gloo(store, rank, world, DATA_TIMEOUT)
 
     def configure(self, spec: MeshSpec):
-        """Lay the group out as ``spec``'s grid (pp · sp · tp == world) and
-        build this rank's subgroups. Every rank calls it at the same point
-        (a load), and builds its groups in one global order (tp cells,
-        then sp rings, then pp rings, each by its first rank), so no two
-        ranks wait on each other's rendezvous in a cycle. The counts start
-        at zero with the keys ``spec`` uses."""
+        """Lay the group out as ``spec``'s grid (pp · sp · tp · ep ==
+        world) and build this rank's subgroups. Every rank calls it at
+        the same point (a load), and builds its groups in one global
+        order (tp cells, expert groups, sp rings, then pp rings, each by
+        its first rank), so no two ranks wait on each other's rendezvous
+        in a cycle. The counts start at zero with the keys ``spec``
+        uses."""
         if spec.world != self.world:
             raise ValueError(f"mesh {spec.axis_sizes()} needs {spec.world} "
                              f"ranks; the group has {self.world}")
         self.release_grid()
         self._layouts += 1
         self.spec = spec
-        self.coords = p, s, t = grid_coords(spec, self.rank)
+        self.coords = p, s, t, e = grid_coords(spec, self.rank)
         keys = list(self.BASE_COUNTS)
         if spec.pp > 1:
             keys += ["send", "recv"]
@@ -378,15 +419,27 @@ class TPGroup:
         self.counts = dict.fromkeys(keys, 0)
         self.tp = self if spec.tp == self.world else None
         if spec.tp > 1 and spec.tp < self.world:
-            self.tp = self._subgroup(f"tp/{p}/{s}", [
-                grid_rank(spec, p, s, j) for j in range(spec.tp)])
+            self.tp = self._subgroup(f"tp/{p}/{s}/{e}", [
+                grid_rank(spec, p, s, j, e) for j in range(spec.tp)])
+        cell = spec.tp * spec.ep
+        if cell > 1:
+            if cell == self.world:
+                pg = self.data
+            elif spec.ep == 1:   # the tp cell's own group
+                pg = self.tp.pg
+            else:
+                first = grid_rank(spec, p, s, 0, 0)
+                pg = self._new_pg(f"ep/{p}/{s}",
+                                  list(range(first, first + cell)))
+            self.experts = ExpertGroup(self, pg, t * spec.ep + e, cell,
+                                       spec.ep)
         if spec.sp > 1:
-            members = [grid_rank(spec, p, j, t) for j in range(spec.sp)]
-            self.sp = self._subgroup(f"sp/{p}/{t}", members)
-            self.sp_ring = self._ring(f"spring/{p}/{t}", members, s)
+            members = [grid_rank(spec, p, j, t, e) for j in range(spec.sp)]
+            self.sp = self._subgroup(f"sp/{p}/{t}/{e}", members)
+            self.sp_ring = self._ring(f"spring/{p}/{t}/{e}", members, s)
         if spec.pp > 1:
-            self.pp = self._ring(f"pp/{s}/{t}", [
-                grid_rank(spec, j, s, t) for j in range(spec.pp)], p)
+            self.pp = self._ring(f"pp/{s}/{t}/{e}", [
+                grid_rank(spec, j, s, t, e) for j in range(spec.pp)], p)
 
     def _new_pg(self, name: str, members: List[int]):
         store = dist.PrefixStore(f"grid{self._layouts}/{name}", self._store)
@@ -419,12 +472,13 @@ class TPGroup:
                 pg.shutdown()
         self._subgroups = []
         self.spec = MeshSpec(tp=self.world)
-        self.coords = (0, 0, self.rank)
+        self.coords = (0, 0, self.rank, 0)
         self.tp, self.sp, self.sp_ring, self.pp = self, None, None, None
+        self.experts = None
         self.counts = dict.fromkeys(self.BASE_COUNTS, 0)
 
     def count(self, key: str):
-        self.counts[key] += 1
+        self.counts[key] = self.counts.get(key, 0) + 1
 
     def close(self):
         """Shut the data groups down; every rank calls it when the group
@@ -436,12 +490,13 @@ class TPGroup:
 
     # ---- data collectives (the model's) --------------------------------
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, key: str = "all_reduce"
+                   ) -> torch.Tensor:
         """The sum of ``t`` over the ranks, in t's dtype (the JAX
         package's ``psum``). Returns a contiguous tensor."""
         t = t.contiguous()
         self.data.allreduce([t]).wait()
-        self.counts["all_reduce"] += 1
+        self.count(key)
         return t
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,8 @@ from __future__ import annotations
 import torch
 
 from distributed_llm_inferencing_tpu_torch.ops import fused_decode
+from distributed_llm_inferencing_tpu_torch.ops.paged_kvcache import (
+    token_writers)
 from distributed_llm_inferencing_tpu_torch.ops.sampling import sample_batch
 from distributed_llm_inferencing_tpu_torch.ops.speculative import (
     accept_rejection_batch, propose_ngram_device)
@@ -184,9 +186,11 @@ def decode_chunk_pp(model, group, s, paged, dummy_block: int, k: int):
             else:
                 rope = (fused_decode.rope_rows(cos_sin)
                         if fused and cos_sin is not None else None)
+                writers = token_writers(bt, cl_eff, paged.block_size)
                 for i, layer in enumerate(model.layers):
                     x = layer.paged_decode(x, paged.layer(i), cos_sin, bt,
-                                           cl_eff, fused, rope)
+                                           cl_eff, fused, rope,
+                                           writers=writers)
             if last:
                 logits = model.unembed(x)[:, 0]
                 nxt = sample_batch(logits, s.seeds[r], s.steps0[r] + d,

@@ -113,6 +113,14 @@ tier (ROADMAP Queue A item 9.12), ``kv_source`` / ``kv_export`` (9.13),
 adapters (9.11). A failed program (a follower gone) fails the requests
 in flight, marks the group broken and fails every later request at once.
 
+Expert parallelism (``mesh_spec`` ep > 1, with tp, pp or both; the JAX
+batcher serves tp and ep alike): every rank is a ``BatcherRank`` as
+under tp, holding its ep slice of the routed experts (models/
+transformer.py sums their partials over the tp × ep expert group) and
+the pool of its tp cell's heads (latent attention's materialized
+layout, which the pool always pins); the programs, the refusals and the
+speculative chunk and wave are tp's.
+
 Pipeline parallelism (``mesh_spec`` pp > 1, alone or with tp; the JAX
 batcher's pp programs, parallel/paged_pipeline.py): the slot count and
 each admission wave's rows are rounded up to a multiple of pp, the slots
@@ -320,7 +328,8 @@ class BatcherRank:
         self.params = rank_params(cfg, spec, rank, dev, params, seed, loader)
         self.model = Transformer(
             cfg, self.params, None if group is None else group.tp,
-            layers=stage_range(cfg, spec, grid_coords(spec, rank)[0]))
+            layers=stage_range(cfg, spec, grid_coords(spec, rank)[0]),
+            experts=None if group is None else group.experts)
         self.num_layers = len(self.model.layers)
         self._dummy = dummy
         self.paged = init_paged_cache(cfg, num_blocks, block_size,
@@ -663,6 +672,9 @@ class ContinuousBatcher(BatcherRank):
                 raise
         else:
             self._init_rank(params, device=self.device, group=None, **rank)
+        # every rank's weight bytes, in rank order (/health)
+        self._rank_param_bytes = [s["param_bytes"]
+                                  for s in self.rank_stats()]
         self.block_tables = np.full((slots, self.max_blocks), self._dummy,
                                     np.int32)
         self.context_lens = np.zeros((slots,), np.int32)
@@ -1035,9 +1047,9 @@ class ContinuousBatcher(BatcherRank):
             **self.programs.stats(),
         }
         if self.group is not None:
-            # this rank's share; every rank holds the same amount
             out["backend"] = self.group.backend
             out["ranks"] = self.group.world
+            out["rank_param_bytes"] = self._rank_param_bytes
         return out
 
     def _spec_wave_stats(self) -> Optional[dict]:

@@ -58,6 +58,9 @@ one device:
   layout), ~19x fewer cache bytes at deepseek-proxy. ``kv_b_k`` /
   ``kv_b_v`` keep their stored form: the absorbed decode reads them
   whole (models/transformer.py ``_wfull``), as the JAX engine does.
+  Under tp and ep the latent row replicates on every rank and each tp
+  rank absorbs through its heads' columns of ``kv_b_k`` / ``kv_b_v``;
+  under sp or pp latent attention serves materialized.
 
 The reference's CPU-only XLA workarounds (layer unrolling, weight
 repacking, the dummy batch row) have no counterpart here.
@@ -77,8 +80,16 @@ A ``stream_cb`` stays on the leader: the followers get only the flag that
 puts them on the same chunked path. A speculative request holds the
 lockstep lock across its ops. ``close`` stops the followers.
 
+Expert parallelism (``MeshSpec(ep=N)``, with tp, pp or both): each ep
+rank holds E/ep of every MoE layer's routed experts (under tp their
+I/tp-wide slice) and the rest of the model whole, or its tp cut of it;
+the routed outputs are summed over the tp × ep expert group
+(models/transformer.py ``moe``), and every rank runs the same steps as
+under tp.
+
 Pipeline and sequence parallelism (``MeshSpec(pp=N, sp=M, tp=K)``, any
-composition; parallel/mesh.py lays the N·M·K ranks out as a grid): each
+composition, with ep too; parallel/mesh.py lays the ranks out as a
+grid): each
 pp stage holds its layers and their slice of the cache, and a prefill or
 a decode step runs the GPipe schedule over ``pipeline_microbatches``
 (parallel/pipeline.py ``Pipeline``); each sp rank holds a contiguous
@@ -118,7 +129,7 @@ from distributed_llm_inferencing_tpu_torch.ops.sampling import (
 from distributed_llm_inferencing_tpu_torch.ops.speculative import (
     AdaptiveSpecController, propose_ngram, verify_step)
 from distributed_llm_inferencing_tpu_torch.parallel.mesh import (
-    MeshSpec, TPGroup, grid_coords, validate_spec)
+    MeshSpec, TPGroup, grid_coords, grid_rank, validate_spec)
 from distributed_llm_inferencing_tpu_torch.parallel.pipeline import Pipeline
 from distributed_llm_inferencing_tpu_torch.parallel.ring import SeqShard
 from distributed_llm_inferencing_tpu_torch.parallel.sharding import (
@@ -225,10 +236,10 @@ class _Rows:
 
 def latent_cache(cfg: ModelConfig, spec: Optional[MeshSpec] = None) -> bool:
     """Whether the engine serves ``cfg`` from the latent cache (the JAX
-    engine's rule): latent attention with no int8 KV cache, no window, no
-    score softcap and no sp or pp axis, unless ``DLI_MLA_LATENT=0`` asks
-    for the materialized layout (tp refuses latent attention,
-    ``tp_gaps``)."""
+    engine's rule): latent attention with no int8 KV cache, no window and
+    no score softcap, under any tp and ep (the latent row replicates on
+    every rank) but no sp or pp axis, unless ``DLI_MLA_LATENT=0`` asks for
+    the materialized layout."""
     spec = spec or MeshSpec()
     return (cfg.mla and cfg.kv_quant is None and cfg.sliding_window is None
             and cfg.attn_windows is None and cfg.attn_softcap is None
@@ -240,19 +251,21 @@ def rank_params(cfg: ModelConfig, spec: MeshSpec, rank: int, dev,
                 params=None, seed: int = 0, loader: Optional[Callable] = None):
     """Grid rank ``rank``'s weights on ``dev`` (all of them on one
     device): its pp stage's leaves (parallel/sharding.py ``stage_keep``),
-    each cut to its tp rank's shard; from ``loader(device, shard)`` (a
-    checkpoint, models/checkpoint.py ``CheckpointSource.load``: every
-    rank reads its stage's tensors and keeps its cut), from the caller's
-    tree, or drawn from ``seed`` (every leaf drawn in pp=1's order, the
-    other stages' dropped as drawn)."""
-    stage, _, t_rank = grid_coords(spec, rank)
+    each cut to its tp and ep rank's shard (no rank keeps another ep
+    slice's experts); from ``loader(device, shard)`` (a checkpoint,
+    models/checkpoint.py ``CheckpointSource.load``: every rank reads its
+    stage's tensors and keeps its cut), from the caller's tree, or drawn
+    from ``seed`` (every leaf drawn whole in pp=1's order, the other
+    stages' dropped as drawn)."""
+    stage, _, t_rank, e_rank = grid_coords(spec, rank)
     keep = stage_keep(cfg, spec, stage)
     layers = stage_range(cfg, spec, stage)
+    cell = MeshSpec(tp=spec.tp, ep=spec.ep)
 
     def cut(n, t):
         if keep is not None and not keep(n):
             return None
-        return shard_tensor(n, t, cfg, spec, t_rank) if spec.tp > 1 else t
+        return shard_tensor(n, t, cfg, spec, t_rank, ep_rank=e_rank)
     cut.keep = keep
     if loader is not None:
         params = loader(dev, cut)
@@ -267,8 +280,8 @@ def rank_params(cfg: ModelConfig, spec: MeshSpec, rank: int, dev,
         # spans the whole din); a quantized tree passes
         params = shard_params(maybe_quantize_embed(maybe_quantize(
             {k: t.to(dev) for k, t in params.items()
-             if keep is None or keep(k)}, cfg), cfg), cfg,
-            MeshSpec(tp=spec.tp), t_rank)
+             if keep is None or keep(k)}, cfg), cfg), cfg, cell,
+            grid_rank(cell, 0, 0, t_rank, e_rank))
         if keep is not None:   # the other stages' chunk markers
             params = {k: t for k, t in params.items() if keep(k)}
     return params
@@ -300,8 +313,9 @@ class InferenceEngine:
         self.metrics = metrics or Metrics()
         self.mesh_spec = spec = mesh_spec or MeshSpec()
         validate_spec(spec, cfg)
-        self.cfg = cfg = cfg.replace(
-            mla_latent_cache=latent_cache(cfg, spec))
+        if group is None:   # a follower takes the leader's cache layout
+            cfg = cfg.replace(mla_latent_cache=latent_cache(cfg, spec))
+        self.cfg = cfg
         self.max_seq = min(max_seq or cfg.max_position_embeddings,
                            cfg.max_position_embeddings)
         # sp cuts the cache's positions: rounded down, never past the
@@ -332,6 +346,9 @@ class InferenceEngine:
                 raise
         else:
             self._load(params, seed, loader)
+        # every rank's weight bytes, in rank order (/health)
+        self._rank_param_bytes = [s["param_bytes"]
+                                  for s in self.rank_stats()]
         self._buckets_seen = set()
         self._rows: "collections.OrderedDict[int, _Rows]" = \
             collections.OrderedDict()
@@ -342,8 +359,8 @@ class InferenceEngine:
 
     def _load(self, params, seed, loader=None):
         """Lay the group out as the mesh's grid, then build this rank's
-        weights (``rank_params``), its stage's model over its tp and sp
-        groups, and the pipeline over it under pp (``runner``: what a
+        weights (``rank_params``), its stage's model over its tp, expert
+        and sp groups, and the pipeline over it under pp (``runner``: what a
         prefill or decode step calls)."""
         spec, grp = self.mesh_spec, self.group
         if grp is not None:
@@ -358,7 +375,8 @@ class InferenceEngine:
                            self.max_seq // spec.sp)
         self.model = Transformer(
             self.cfg, self.params, None if grp is None else grp.tp,
-            layers=stage_range(self.cfg, spec, stage), seq=seq)
+            layers=stage_range(self.cfg, spec, stage), seq=seq,
+            experts=None if grp is None else grp.experts)
         self.runner = (Pipeline(self.model, grp, self._n_micro)
                        if spec.pp > 1 else self.model)
 
@@ -820,7 +838,8 @@ class InferenceEngine:
         return dict(lockstep.rank_stats(self.group, self.device),
                     param_bytes=param_bytes(self.params),
                     layers=[self.model.layer_range.start,
-                            self.model.layer_range.stop])
+                            self.model.layer_range.stop],
+                    latent_cache=self.cfg.mla_latent_cache)
 
     def reset_counts(self):
         """Zero the kernel launch and collective counts on every rank."""
@@ -852,7 +871,7 @@ class InferenceEngine:
             **self.programs.stats(),
         }
         if self.group is not None:
-            # this rank's share; every rank holds the same amount
             out["backend"] = self.group.backend
             out["ranks"] = self.group.world
+            out["rank_param_bytes"] = self._rank_param_bytes
         return out

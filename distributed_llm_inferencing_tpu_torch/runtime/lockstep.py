@@ -4,13 +4,17 @@ The port's counterpart of the JAX package's ``runtime/multihost.py``
 (``LockstepExecutor``): every rank launches the same ops in the same
 order, so the collectives and hops inside each forward pair up. The
 process that serves (the worker, rank 0) is the leader. It spawns
-``pp·sp·tp - 1`` follower processes (a ``spawn`` context: CUDA state does
-not survive a fork), which join the group (parallel/mesh.py ``TPGroup``),
-then loop on the ops the leader broadcasts over the control group:
+``pp·sp·tp·ep - 1`` follower processes (a ``spawn`` context: CUDA state
+does not survive a fork), each on the leader's count of intra-op threads
+(torch's default is one per core, so a group of four beside a leader on
+one thread would otherwise run three followers of a thread per core),
+which join the group (parallel/mesh.py ``TPGroup``), then loop on the
+ops the leader broadcasts over the control group:
 
 - ``load``: build the rank's engine (runtime/engine.py) from the leader's
   arguments, after laying the group out as the mesh's grid
-  (``TPGroup.configure``: the tp, sp and pp subgroups of this load);
+  (``TPGroup.configure``: the tp, expert, sp and pp subgroups of this
+  load);
   every rank reports whether it succeeded;
 - ``generate`` / ``teacher_forced``, and a speculative request's
   ``spec_prefill`` / ``spec_plain`` / ``spec_verify``: run the rank's
@@ -114,12 +118,18 @@ def reset_launch_counts():
 
 def rank_stats(group, device) -> dict:
     """This rank's kernel launches and, in a group, data collectives and
-    hops and its place on the grid (p, s, t)."""
+    hops and its place on the grid (p, s, t), and e under ep; with an
+    expert group, ``route_digest``: the bits of the router inputs it
+    routed since the counts were zeroed (``ExpertGroup.note_route``),
+    equal on every rank of the group."""
     out = {"rank": group.rank if group else 0, "device": str(device),
            "launches": launch_counts()}
     if group is not None:
         out["collectives"] = dict(group.counts)
-        out["grid"] = dict(zip(("pp", "sp", "tp"), group.coords))
+        axes = ("pp", "sp", "tp", "ep")[:4 if group.spec.ep > 1 else 3]
+        out["grid"] = dict(zip(axes, group.coords))
+        if group.experts is not None:
+            out["route_digest"] = int(group.experts.route_sum)
     return out
 
 
@@ -127,6 +137,8 @@ def reset_counts(group):
     reset_launch_counts()
     if group is not None:
         group.counts = dict.fromkeys(group.counts, 0)
+        if group.experts is not None:
+            group.experts.route_sum.zero_()
 
 
 def _keep_groups() -> bool:
@@ -173,7 +185,8 @@ class Leader:
         ctx = multiprocessing.get_context("spawn")
         self.procs = [ctx.Process(
             target=follower_main, daemon=True, name=f"dli-tp-rank{r}",
-            args=(r, world, str(device), store, os.getpid()))
+            args=(r, world, str(device), store, os.getpid(),
+                  torch.get_num_threads()))
             for r in range(1, world)]
         self.broken = None
         # one op at a time: a batcher's scheduler thread and a stats call
@@ -286,9 +299,11 @@ def _watch_leader(leader_pid: int):
 
 
 def follower_main(rank: int, world: int, device: str, store: str,
-                  leader_pid: int):
-    """A follower's process: join the group, then serve the leader's ops
-    until ``stop`` (or ``batcher_stop``)."""
+                  leader_pid: int, threads: int):
+    """A follower's process: take the leader's ``threads`` intra-op
+    threads, join the group, then serve the leader's ops until ``stop``
+    (or ``batcher_stop``)."""
+    torch.set_num_threads(threads)
     from distributed_llm_inferencing_tpu_torch.runtime.batcher import (
         BatcherRank)
     from distributed_llm_inferencing_tpu_torch.runtime.engine import (

@@ -12,11 +12,12 @@ so the reference master can drive either worker:
   models (with ``serving``, the weight quantization, ``param_bytes`` —
   the bytes the weights take as stored — and, for batched models, the
   scheduler's stats; for engine-mode ones the ``mesh``'s axis sizes, and
-  in a group (tp, pp or sp) the data collectives' ``backend``, with
-  ``param_bytes`` one rank's share;
+  in a group (tp, pp, sp or ep) the data collectives' ``backend``, with
+  ``param_bytes`` rank 0's share and ``rank_param_bytes`` every rank's;
   for both the decode programs kept, how many are captured CUDA graphs
   and the bytes their pool holds, runtime/graphs.py; a batched model's
-  scheduler stats carry its ``mesh`` and, in a group, ``backend`` too),
+  scheduler stats carry its ``mesh`` and, in a group, ``backend`` and
+  ``rank_param_bytes`` too),
   metrics.
 - ``GET /metrics``: the metrics registry as Prometheus text exposition.
 - ``POST /load_model``: ``model_name``; the weights from
@@ -30,9 +31,10 @@ so the reference master can drive either worker:
   directory when it holds tokenizer files), ``dtype``,
   ``max_seq``, ``quantize`` (weight-only ``"int8"`` or ``"int4"``,
   ops/quant.py), ``embed_quantize`` (``"int8"``: the per-row int8
-  embedding table), ``mesh`` (``{"tp": N}``, ``{"pp": N}`` in either
-  mode, ``{"sp": N}`` in engine mode, and their compositions: a grid
-  of pp·sp·tp ranks; parallel/mesh.py) — builds an
+  embedding table), ``mesh`` (``{"tp": N}``, ``{"pp": N}`` and, for an
+  MoE model, ``{"ep": N}`` in either mode, ``{"sp": N}`` in engine mode,
+  and their compositions: a grid of pp·sp·tp·ep ranks; parallel/mesh.py)
+  — builds an
   ``InferenceEngine`` (engine mode, the default),
   or with ``"serving": "batched"`` a ``ContinuousBatcher`` over a paged KV
   pool (``kv_blocks``, ``kv_block_size``, ``slots``, ``prefill_chunk``,
@@ -134,17 +136,18 @@ checkpoint the port cannot serve (a path that is not a local directory,
 a converter type or config switch outside the ported families, a tensor
 the files lack, a JAX Orbax directory, tokenizer files on a node without
 ``transformers``), and a
-``mesh`` the port cannot serve (dp, item 9.16, or ep, item 9.8, above
-1; tp with the experts, latent attention, ``qkv_clip`` or sinks, item
-9.8; or a tp the model's shapes do not divide), and a model whose config
+``mesh`` the port cannot serve (dp above 1, item 9.16, or a tp the
+model's shapes do not divide: an odd vocabulary is item 9.17), and a
+model whose config
 switches on a feature outside the ported families
 (models/transformer.py ``check_supported``). Refused as the JAX worker
 refuses them: batched serving with sp (the scheduler owns the batch
 dimension), pp that does not divide the layers or over a mixed
-dense/MoE stack, sp with sinks or with tp above the kv heads, and
-``/load_adapter`` under pp. A batched model under tp or pp refuses what
-its followers cannot replay: a load's ``kv_host_mb`` above 0 (the host
-KV tier, item 9.12; such a load has no tier unless asked), an
+dense/MoE stack, sp with sinks or with tp above the kv heads, ep on a
+dense model or not dividing the experts, and ``/load_adapter`` under
+pp. A batched model in a group (tp, pp or ep) refuses what its
+followers cannot replay: a load's ``kv_host_mb`` above 0 (the host KV
+tier, item 9.12; such a load has no tier unless asked), an
 /inference ``kv_source`` or ``kv_export`` and ``/kv_fetch`` (item 9.13),
 ``resume`` and ``/migrate_out`` (item 9.14), and ``/load_adapter``
 under tp in either mode (item 9.11); its overlapped decode pairs are off
@@ -252,8 +255,9 @@ class LoadedModel:
             stats = self.engine.stats()
             out["mesh"] = stats["mesh"]
             out["adapters"] = self.engine.adapter_stats()
-            if "backend" in stats:
-                out["backend"] = stats["backend"]
+            for k in ("backend", "rank_param_bytes"):
+                if k in stats:
+                    out[k] = stats[k]
             for k in ("decode_programs", "decode_graphs_captured",
                       "decode_graph_pool_bytes"):
                 out[k] = stats[k]

@@ -360,17 +360,17 @@ def test_load_model_serves_tiny_gpt2(port_worker, serving, quant):
 
 
 def test_load_model_refusals(port_worker, monkeypatch):
-    """tp for the experts is a 400 naming the gap (ROADMAP Queue A item
-    9.8); a config outside the served choices (the JAX package's
-    all-to-all expert dispatch) is a 400 from the construction check; an
-    unknown name a 400."""
+    """An ep that does not divide the experts is a 400 naming them (the
+    JAX package's rule); a config outside the served choices (the JAX
+    package's all-to-all expert dispatch) is a 400 from the construction
+    check; an unknown name a 400."""
     base, agent = port_worker
     from distributed_llm_inferencing_tpu_torch.models import registry
     style = registry.get_config("tiny-mixtral").replace(
         name="tiny-mixtral-all-to-all", moe_dispatch="all_to_all")
     monkeypatch.setitem(registry._REGISTRY, style.name, style)
     for body, needle in (
-            (dict(_TINY_LOAD, model_name="tiny-mixtral", mesh={"tp": 2}),
+            (dict(_TINY_LOAD, model_name="tiny-mixtral", mesh={"ep": 3}),
              "num_experts"),
             (dict(_TINY_LOAD, model_name=style.name), "moe_dispatch"),
             (dict(_TINY_LOAD, model_name="gemma2-9b"), "unknown model")):

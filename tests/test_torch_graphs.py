@@ -70,6 +70,18 @@ GREEDY = SamplingParams.greedy()
 SAMPLED = SamplingParams(temperature=0.9, top_k=20, top_p=0.9)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one intra-op thread, as
+    tests/test_torch_families.py's fixture of that name (which this
+    module cannot import: it imports jax, which the card's machine
+    lacks): the suite runs its files in parallel processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_tree():
     import jax

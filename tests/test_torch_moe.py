@@ -334,12 +334,16 @@ def test_quantized_expert_bytes_equal_jax(jparams, q):
 @pytest.mark.parametrize("name", ["tiny-mixtral", "moe-proxy-8e",
                                   "mixtral-8x7b"])
 def test_registry_rows_match_reference_and_tp_refuses(name):
+    """tp and ep serve the rows (tests/test_torch_ep.py); what the mesh
+    still refuses is the JAX package's refusal: an ep that does not
+    divide the experts."""
     assert dataclasses.asdict(treg.get_config(name)) == \
         dataclasses.asdict(jax_config(name))
     cfg = treg.get_config(name)
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        validate_spec(MeshSpec(tp=2), cfg)
-    validate_spec(MeshSpec(), cfg)
+    for spec in (MeshSpec(), MeshSpec(tp=2), MeshSpec(tp=2, ep=2)):
+        validate_spec(spec, cfg)
+    with pytest.raises(ValueError, match="num_experts"):
+        validate_spec(MeshSpec(ep=3), cfg)
 
 
 @pytest.mark.parametrize("over", [

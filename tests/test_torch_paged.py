@@ -420,3 +420,37 @@ def test_paged_writes_are_in_place():
         q8.k_scale[1].data_ptr()
     with pytest.raises(ValueError):
         tpk.init_paged_cache(cfg.replace(kv_quant="fp8"), 6, 4)
+
+
+def test_repeated_writes_leave_one_value_per_place():
+    """Inactive and dead slots and padding rows all write the reserved
+    dummy block (block 0 here): every place gets its first writer's
+    value, so the block's bits do not hang on which of the repeated
+    writes a card's scatter lands last."""
+    places = torch.tensor([5, 3, 5, 7, 3, 3, 9])
+    assert tpk.first_writers(places).tolist() == [0, 1, 0, 3, 1, 1, 6]
+    cfg = get_config("tiny-llama").replace(dtype="float32")
+    paged = tpk.init_paged_cache(cfg, 6, 4, device="cpu")
+    layer = paged.k[0]
+    new = torch.arange(4 * 4 * 8, dtype=torch.float32).reshape(4, 4, 8)
+    tables = torch.tensor([[0, 0], [2, 3], [0, 0], [0, 0]],
+                          dtype=torch.int32)
+    positions = torch.tensor([1, 6, 1, 1], dtype=torch.int32)
+    writers = tpk.token_writers(tables, positions, 4)
+    assert writers.tolist() == [0, 1, 0, 0]
+    # every row that writes a place carries the same value there
+    same = tpk.one_per_place(new, torch.tensor([1, 14, 1, 1]), 0)
+    assert torch.equal(same[2], new[0]) and torch.equal(same[3], new[0])
+    tpk.write_token(layer, new, tables, positions)
+    assert torch.equal(paged.k[0, 0, 1], new[0])      # the dummy block
+    assert torch.equal(paged.k[0, 3, 2], new[1])      # pos 6 -> block 3
+    before = paged.k.clone()
+    tpk.write_token(layer, new, tables, positions, writers)
+    assert torch.equal(paged.k, before)               # writers given
+    run = torch.arange(3 * 8 * 4 * 8, dtype=torch.float32).reshape(
+        3, 8, 4, 8)
+    tpk.write_block_run(layer, run, torch.tensor([[4, 0], [0, 0], [5, 0]],
+                                                 dtype=torch.int32))
+    assert torch.equal(paged.k[0, 0], run[0, 4:])     # row 0's padding
+    assert torch.equal(paged.k[0, 4], run[0, :4])
+    assert torch.equal(paged.k[0, 5], run[2, :4])

@@ -216,8 +216,14 @@ def test_lora_refuses_expert_and_latent_bases(name, over):
     ("tiny-mixtral", "num_experts"),
 ])
 def test_tp_refuses_experts_and_latent_attention_by_name(name, field):
-    with pytest.raises(NotImplementedError, match=field):
-        validate_spec(MeshSpec(tp=2), treg.get_config(name))
+    """tp and ep serve the experts and latent attention since ROADMAP
+    item 9.8 (tests/test_torch_ep.py); an ep that does not divide the
+    experts stays refused, as the JAX package refuses it."""
+    cfg = treg.get_config(name)
+    assert getattr(cfg, field)
+    validate_spec(MeshSpec(tp=2, ep=2), cfg)
+    with pytest.raises(ValueError, match="num_experts"):
+        validate_spec(MeshSpec(ep=3), cfg)
 
 
 def test_pp_refuses_a_mixed_stack():

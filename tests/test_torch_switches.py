@@ -167,8 +167,9 @@ def test_qk_normalize_matches_jax(kind):
 ])
 def test_tp_refuses_the_switches_by_name(over):
     """tp serves every dense switch (tests/test_torch_tp_families.py
-    holds them to the JAX package); only the switches of ROADMAP item
-    9.8 stay refused, by name (tests/test_torch_tp.py)."""
+    holds them to the JAX package), and since ROADMAP item 9.8 the
+    experts, latent attention, ``qkv_clip`` and sinks too
+    (tests/test_torch_ep.py)."""
     cfg = treg.get_config("llama-3-8b")
     if "attn_windows" in over or "rope_layers" in over:
         cfg = cfg.replace(num_layers=2)

@@ -181,18 +181,17 @@ def test_validate_spec_refuses_what_the_slice_does_not_serve():
     for spec in (MeshSpec(pp=2), MeshSpec(sp=2, tp=2), MeshSpec(pp=4),
                  MeshSpec(pp=2, sp=2, tp=2)):
         validate_spec(spec, cfg)
-    for spec in (MeshSpec(dp=2), MeshSpec(ep=2)):
-        with pytest.raises(NotImplementedError):
-            validate_spec(spec, cfg)
+    with pytest.raises(NotImplementedError):   # item 9.16
+        validate_spec(MeshSpec(dp=2), cfg)
+    with pytest.raises(ValueError, match="dense model"):   # as JAX
+        validate_spec(MeshSpec(ep=2), cfg)
     with pytest.raises(ValueError):     # pp must divide the 4 layers
         validate_spec(MeshSpec(pp=3), cfg)
     with pytest.raises(ValueError):     # the ring shards the kv heads
         validate_spec(MeshSpec(sp=2, tp=8), cfg)
-    # the experts, latent attention, dbrx's clip and gpt-oss's sinks,
-    # by name (ROADMAP Queue A item 9.8)
+    # dbrx's clip and gpt-oss's sinks serve under tp (item 9.8)
     for over in ({"qkv_clip": 8.0}, {"attn_sinks": True}):
-        with pytest.raises(NotImplementedError, match=next(iter(over))):
-            validate_spec(MeshSpec(tp=2), cfg.replace(**over))
+        validate_spec(MeshSpec(tp=2), cfg.replace(**over))
     with pytest.raises(ValueError):
         validate_spec(MeshSpec(tp=3), cfg)
     with pytest.raises(ValueError):     # tp <= Hkv=6 must divide it
